@@ -1,0 +1,35 @@
+"""Numpy parameter dict -> the port's modules.
+
+The dict is the framework-free one that ``init_params``,
+``init_projection_params`` and the JAX package's ``convert_checkpoint``
+produce (HF Clap names, f32 arrays), so both packages compute with the same
+weights.  Every fold the kernels need happens here, once.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .models.clap import ClapAudio
+from .models.htsat import HTSATConfig, init_params
+from .models.clap import init_projection_params
+
+__all__ = ["params_from_numpy"]
+
+
+def params_from_numpy(d: dict[str, np.ndarray], cfg: HTSATConfig, device="cpu",
+                      dtype: torch.dtype = torch.float32) -> ClapAudio:
+    """Fold ``d`` into a :class:`ClapAudio` on ``device``; ``dtype`` is the
+    compute dtype of the Swin tower (bf16 or f32).  Raises on missing keys
+    (a layout mismatch must fail loudly, not embed garbage)."""
+    expected = set(init_params(cfg, seed=0)) | set(init_projection_params(cfg))
+    missing = expected - set(d)
+    if missing:
+        raise ValueError(
+            f"parameter dict incomplete for {cfg}: {len(missing)} of {len(expected)} "
+            f"keys missing, e.g. {sorted(missing)[:5]}"
+        )
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"compute dtype must be float32 or bfloat16, got {dtype}")
+    return ClapAudio(d, cfg, dtype).to(device).eval()

@@ -1,0 +1,241 @@
+"""LAION-CLAP audio embedder (HTSAT tower) in PyTorch.
+
+Counterpart of ``audio_metrics_tpu/models/clap.py``:
+
+    audio (B, n) @48 kHz
+      -> repeat-pad to 10 s (laion "repeatpad"), log-mel (1024 fft / 480
+         hop / 64 slaney mels, dB), folded BatchNorm, patch tokens
+         [one kernel on the bf16 5 s path: ops/frontend_fused.py]
+      -> HTSAT Swin encoder [ops/attention.py, ops/merge.py kernels]
+      -> latent (B, num_features)
+      -> audio_projection: linear1 -> relu -> linear2 -> l2-normalize
+
+Weights come from the framework-free numpy dict (HF Clap names) that
+``init_params`` / ``init_projection_params`` / the JAX package's
+``convert_checkpoint`` produce; ``convert.params_from_numpy`` folds them
+into the modules once at load.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..ops.frontend_fused import (
+    BF16_TABLES,
+    clap_tokens_fused,
+    frontend_tables,
+    fused_frontend_supported,
+)
+from ..ops.attention import swin_block
+from ..ops.mel import log_mel_spectrogram, mel_filter_bank
+from ..ops.merge import patch_merge
+from .base import Embedder, _require_random_weights_optin, resolve_device
+from .htsat import HTSAT_BASE, HTSATConfig, HTSATEncoder, frontend_tokens, init_params
+
+__all__ = [
+    "LaionCLAP",
+    "ClapAudio",
+    "clap_mel_tiled",
+    "init_projection_params",
+    "LAION_CLAP_LAYERS",
+    "LAION_CLAP_MUSIC_CHECKPOINT_URL",
+    "LAION_CLAP_MUSIC_SPEECH_CHECKPOINT_URL",
+]
+
+LAION_CLAP_MUSIC_SPEECH_CHECKPOINT_URL = "https://huggingface.co/lukewys/laion_clap/resolve/main/music_speech_audioset_epoch_15_esc_89.98.pt"
+LAION_CLAP_MUSIC_CHECKPOINT_URL = "https://huggingface.co/lukewys/laion_clap/resolve/main/music_audioset_epoch_15_esc_90.14.pt"
+LAION_CLAP_LAYERS = ["audio_projection.0", "audio_projection.2"]
+
+SAMPLE_RATE = 48000
+MAX_SAMPLES = 10 * SAMPLE_RATE
+_N_FFT = 1024
+_HOP = 480
+_N_MELS = 64
+_FMIN, _FMAX = 50, 14000
+PROJECTION_DIM = 512
+
+
+def _clap_fb() -> np.ndarray:
+    return mel_filter_bank(
+        _N_FFT // 2 + 1, _N_MELS, float(_FMIN), float(_FMAX), SAMPLE_RATE,
+        norm="slaney", mel_scale="slaney",
+    ).astype(np.float32)
+
+
+def clap_mel(audio, compute_dtype=None, out_affine=None, out_dtype=None):
+    """(B, n) @48k -> (B, (n - 1024)//480 + 1, 64) log-mel of uncentered
+    frames, laion non-fusion convention (clap_mel_tiled builds the reflect
+    padding itself)."""
+    return log_mel_spectrogram(
+        audio, sampling_rate=SAMPLE_RATE, frame_length=_N_FFT, hop_length=_HOP,
+        n_mels=_N_MELS, fmin=_FMIN, fmax=_FMAX, n_fft=_N_FFT, mel_norm="slaney",
+        mel_scale="slaney", compute_dtype=compute_dtype, out_affine=out_affine,
+        out_dtype=out_dtype,
+    )
+
+
+def clap_mel_tiled(audio, compute_dtype=None, out_affine=None, out_dtype=None):
+    """Log-mel of the repeat-padded clip computed from its p+2 head and 2
+    tail frames only (audio_metrics_tpu/models/clap.py:116-157): every frame
+    strictly inside the tiled signal equals the frame one clip period
+    (p = n/hop frames) earlier, so mid frames are row copies."""
+    b, n = audio.shape
+    p = n // _HOP
+    half = _N_FFT // 2
+    n_frames = MAX_SAMPLES // _HOP + 1
+    t_tail0 = (MAX_SAMPLES - half) // _HOP + 1
+    extra = _HOP + half
+    head_sig = torch.cat([audio[:, 1 : half + 1].flip(1), audio, audio[:, :extra]], dim=1)
+    tail_sig = torch.cat([audio[:, n - extra :], audio[:, -half - 1 : -1].flip(1)], dim=1)
+    kw = dict(compute_dtype=compute_dtype, out_affine=out_affine, out_dtype=out_dtype)
+    head = clap_mel(head_sig, **kw)
+    tail = clap_mel(tail_sig, **kw)
+    mid_idx = torch.from_numpy(2 + (np.arange(p + 2, t_tail0) - 2) % p).to(audio.device)
+    mel = torch.cat([head, head[:, mid_idx], tail], dim=1)
+    assert mel.shape[1] == n_frames
+    return mel
+
+
+def init_projection_params(cfg: HTSATConfig = HTSAT_BASE, seed: int = 0) -> dict:
+    rng = np.random.default_rng(seed + 1)
+    d = cfg.num_features
+    return {
+        "audio_projection.linear1.weight": rng.normal(
+            scale=0.02, size=(PROJECTION_DIM, d)
+        ).astype(np.float32),
+        "audio_projection.linear1.bias": np.zeros(PROJECTION_DIM, np.float32),
+        "audio_projection.linear2.weight": rng.normal(
+            scale=0.02, size=(PROJECTION_DIM, PROJECTION_DIM)
+        ).astype(np.float32),
+        "audio_projection.linear2.bias": np.zeros(PROJECTION_DIM, np.float32),
+    }
+
+
+def _buffers(module: nn.Module, arrays: dict, bf16_names=()) -> None:
+    for name, arr in arrays.items():
+        t = torch.from_numpy(np.ascontiguousarray(arr, np.float32))
+        module.register_buffer(name, t.to(torch.bfloat16) if name in bf16_names else t)
+
+
+class ClapFrontend(nn.Module):
+    """Buffers of :func:`ops.frontend_fused.frontend_tables` plus the
+    unfolded BatchNorm statistics of the f32 path."""
+
+    def __init__(self, params: dict, cfg: HTSATConfig):
+        super().__init__()
+        _buffers(self, frontend_tables(params, cfg, _clap_fb(), SAMPLE_RATE), BF16_TABLES)
+        _buffers(self, {
+            k.rsplit(".", 1)[-1]: params[k] for k in (
+                "audio_encoder.batch_norm.running_mean",
+                "audio_encoder.batch_norm.running_var",
+                "audio_encoder.batch_norm.weight",
+                "audio_encoder.batch_norm.bias",
+            )
+        })
+
+
+class ClapAudio(nn.Module):
+    """HTSAT tower + projection, weights folded for the kernels at load.
+
+    ``forward(audio)`` dispatches each kernel wrapper on the audio's device."""
+
+    def __init__(self, params: dict, cfg: HTSATConfig, compute_dtype: torch.dtype):
+        super().__init__()
+        self.cfg, self.compute_dtype = cfg, compute_dtype
+        self.frontend = ClapFrontend(params, cfg)
+        self.encoder = HTSATEncoder(params, cfg, compute_dtype)
+        _buffers(self, {
+            k.replace("audio_projection.", "").replace(".", "_"): params[k]
+            for k in (
+                "audio_projection.linear1.weight", "audio_projection.linear1.bias",
+                "audio_projection.linear2.weight", "audio_projection.linear2.bias",
+            )
+        })
+
+    def forward(self, audio) -> dict:
+        """audio (B, n <= 10 s) f32 -> the three tap outputs, (B, 512) f32
+        each (audio_metrics_tpu/models/clap.py:160-269)."""
+        cfg, dt, fr = self.cfg, self.compute_dtype, self.frontend
+        if not fused_frontend_supported(audio.shape[1], SAMPLE_RATE, cfg):
+            raise NotImplementedError(
+                f"{audio.shape[1]}-sample clips: the port takes repeat-pad clips that tile "
+                "10 s at 48 kHz (e.g. 5 s windows); other lengths are ROADMAP.md Queue 1 "
+                "item 3"
+            )
+        if dt == torch.bfloat16:
+            tokens = clap_tokens_fused(audio, fr, sr=SAMPLE_RATE, cfg=cfg)
+        elif audio.is_cuda:
+            raise NotImplementedError(
+                "f32 compute runs on CPU tensors only; the CUDA kernels take bf16 "
+                "(ROADMAP.md Queue 1 item 3)"
+            )
+        else:  # f32: the unfolded chain with BatchNorm on the mel (clap.py:219-241)
+            mel = clap_mel_tiled(audio)
+            mel = (mel - fr.running_mean) * torch.rsqrt(fr.running_var + 1e-5) \
+                * fr.weight + fr.bias
+            tokens = frontend_tokens(mel, fr.patch_w, fr.patch_b, fr.ln_w, fr.ln_b, cfg, dt)
+        return self._projection_taps(self.encoder(tokens, swin_block, patch_merge))
+
+    def _projection_taps(self, latent) -> dict:
+        """Pooled latent -> the reference tap outputs (reference
+        embedders/clap.py:7,32-43)."""
+        l1 = latent @ self.linear1_weight.T + self.linear1_bias
+        l2 = torch.relu(l1) @ self.linear2_weight.T + self.linear2_bias
+        return {
+            "embedding": l2 / torch.linalg.vector_norm(l2, dim=-1, keepdim=True),
+            "audio_projection.0": l1,
+            "audio_projection.2": l2,
+        }
+
+
+class LaionCLAP(Embedder):
+    """HTSAT CLAP audio embedder; 512-d outputs at three tap points.
+
+    ``params`` is the numpy dict with HF Clap names.  Without it, weights
+    are random and must be opted into (``allow_random_weights=True``):
+    metric values from random weights are meaningless.  Loading a LAION
+    checkpoint file is not ported yet (ROADMAP.md)."""
+
+    names = ("embedding", "audio_projection.0", "audio_projection.2")
+    sr = SAMPLE_RATE
+
+    def __init__(
+        self,
+        ckpt: str | None = None,
+        layer: str | None = None,
+        params: dict | None = None,
+        cfg: HTSATConfig = HTSAT_BASE,
+        seed: int = 0,
+        compute_dtype: str | None = None,
+        allow_random_weights: bool = False,
+        device="cuda",
+    ):
+        from ..convert import params_from_numpy
+
+        if ckpt is not None and params is None:
+            raise NotImplementedError(
+                "loading a CLAP checkpoint file is not ported yet; convert it with the "
+                "JAX package's convert_checkpoint and pass params= (ROADMAP.md)"
+            )
+        self.layer = layer or "embedding"
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        if params is None:
+            _require_random_weights_optin("LaionCLAP", ckpt, allow_random_weights)
+            params = init_params(cfg, seed=seed)
+            params.update(init_projection_params(cfg, seed=seed))
+        dtypes = {None: torch.float32, "float32": torch.float32, "bfloat16": torch.bfloat16,
+                  torch.float32: torch.float32, torch.bfloat16: torch.bfloat16}
+        if compute_dtype not in dtypes:
+            raise ValueError(f"compute_dtype must be float32 or bfloat16, got {compute_dtype!r}")
+        self.model = params_from_numpy(params, cfg, self.device, dtypes[compute_dtype])
+
+    @torch.no_grad()
+    def embed(self, audio):
+        """(B, n <= 10 s) f32 on the embedder's device -> (B, 512) f32."""
+        return self.model(audio)[self.layer]
+
+
+CLAP = LaionCLAP

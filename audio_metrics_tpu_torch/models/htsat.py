@@ -1,0 +1,393 @@
+"""HTSAT (Hierarchical Token-Semantic Audio Transformer) encoder in PyTorch.
+
+Counterpart of ``audio_metrics_tpu/models/htsat.py``.  The numpy half
+(configs, ``init_params``, the static index/mask/interp tables) is copied
+so that the same seed gives the same parameter dict in both packages.  The
+model half holds the weights already folded for the kernels — the LN1
+affine and 1/sqrt(d) scale in ``wqkv``/``bq3``, the value bias in ``bp``,
+the bias+mask table, and the patch-merge LN fold — computed once when the
+weights load, not on every forward.
+
+Parameter naming follows the HF Clap state dict, as in the JAX package.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from functools import lru_cache
+
+import numpy as np
+import torch
+from torch import nn
+
+__all__ = [
+    "HTSATConfig",
+    "HTSAT_BASE",
+    "HTSAT_TINY",
+    "HTSATEncoder",
+    "init_params",
+    "frontend_tokens",
+    "layer_norm",
+]
+
+
+@dataclass(frozen=True)
+class HTSATConfig:
+    spec_size: int = 256
+    patch_size: int = 4
+    patch_stride: int = 4
+    num_mel_bins: int = 64
+    embed_dim: int = 128  # patch_embeds_hidden_size
+    depths: tuple = (2, 2, 12, 2)
+    num_heads: tuple = (4, 8, 16, 32)
+    window_size: int = 8
+    mlp_ratio: float = 4.0
+    qkv_bias: bool = True
+    layer_norm_eps: float = 1e-5
+
+    @property
+    def freq_ratio(self) -> int:
+        return self.spec_size // self.num_mel_bins
+
+    @property
+    def num_features(self) -> int:
+        return int(self.embed_dim * 2 ** (len(self.depths) - 1))
+
+    @property
+    def grid_size(self) -> int:
+        return self.spec_size // self.patch_stride
+
+
+# the reference's HTSAT-base (laion_clap amodel="HTSAT-base")
+HTSAT_BASE = HTSATConfig(embed_dim=128, depths=(2, 2, 12, 2))
+# HF transformers' default ClapAudioConfig (laion/clap-htsat-unfused)
+HTSAT_TINY = HTSATConfig(embed_dim=96, depths=(2, 2, 6, 2))
+
+
+# ----------------------------------------------------------------------
+# static tables (host, cached) — audio_metrics_tpu/models/htsat.py:115-198
+# ----------------------------------------------------------------------
+@lru_cache(maxsize=None)
+def _relative_position_index(window: int) -> np.ndarray:
+    coords = np.stack(np.meshgrid(np.arange(window), np.arange(window), indexing="ij"))
+    flat = coords.reshape(2, -1)
+    rel = flat[:, :, None] - flat[:, None, :]
+    rel = rel.transpose(1, 2, 0)
+    rel[:, :, 0] += window - 1
+    rel[:, :, 1] += window - 1
+    rel[:, :, 0] *= 2 * window - 1
+    return rel.sum(-1)  # (window^2, window^2)
+
+
+@lru_cache(maxsize=None)
+def _shift_attn_mask(height: int, width: int, window: int, shift: int) -> np.ndarray:
+    """Attention mask for shifted-window attention: (n_windows, w^2, w^2)."""
+    img = np.zeros((height, width))
+    slices = (slice(0, -window), slice(-window, -shift), slice(-shift, None))
+    count = 0
+    for hs in slices:
+        for ws in slices:
+            img[hs, ws] = count
+            count += 1
+    win = img.reshape(height // window, window, width // window, window)
+    win = win.transpose(0, 2, 1, 3).reshape(-1, window * window)
+    mask = win[:, None, :] - win[:, :, None]
+    return np.where(mask != 0, -100.0, 0.0).astype(np.float32)
+
+
+@lru_cache(maxsize=None)
+def _bicubic_matrix(n_in: int, n_out: int) -> np.ndarray:
+    """(n_out, n_in) 1-D bicubic interpolation matrix, align_corners=True,
+    border-replicated taps (torch F.interpolate semantics), a = -0.75."""
+    a = -0.75
+
+    def kernel(x):
+        x = np.abs(x)
+        return np.where(
+            x <= 1,
+            (a + 2) * x**3 - (a + 3) * x**2 + 1,
+            np.where(x < 2, a * x**3 - 5 * a * x**2 + 8 * a * x - 4 * a, 0.0),
+        )
+
+    w = np.zeros((n_out, n_in))
+    if n_out == 1:
+        src = np.zeros(1)
+    else:
+        src = np.arange(n_out) * (n_in - 1) / (n_out - 1)
+    i0 = np.floor(src).astype(int)
+    frac = src - i0
+    for tap in (-1, 0, 1, 2):
+        idx = np.clip(i0 + tap, 0, n_in - 1)
+        wt = kernel(frac - tap)
+        np.add.at(w, (np.arange(n_out), idx), wt)
+    return w.astype(np.float32)
+
+
+# ----------------------------------------------------------------------
+# init — audio_metrics_tpu/models/htsat.py:994-1045 (same rng call order)
+# ----------------------------------------------------------------------
+def init_params(cfg: HTSATConfig = HTSAT_BASE, seed: int = 0) -> dict:
+    """Seeded random parameters with HF Clap naming."""
+    rng = np.random.default_rng(seed)
+    p = {}
+
+    def lin(prefix, d_in, d_out, bias=True):
+        p[f"{prefix}.weight"] = (
+            rng.normal(scale=0.02, size=(d_out, d_in)).astype(np.float32)
+        )
+        if bias:
+            p[f"{prefix}.bias"] = np.zeros(d_out, np.float32)
+
+    def ln(prefix, d):
+        p[f"{prefix}.weight"] = np.ones(d, np.float32)
+        p[f"{prefix}.bias"] = np.zeros(d, np.float32)
+
+    nm = cfg.num_mel_bins
+    p["audio_encoder.batch_norm.weight"] = np.ones(nm, np.float32)
+    p["audio_encoder.batch_norm.bias"] = np.zeros(nm, np.float32)
+    p["audio_encoder.batch_norm.running_mean"] = np.zeros(nm, np.float32)
+    p["audio_encoder.batch_norm.running_var"] = np.ones(nm, np.float32)
+
+    ps = cfg.patch_size
+    p["audio_encoder.patch_embed.proj.weight"] = rng.normal(
+        scale=0.02, size=(cfg.embed_dim, 1, ps, ps)
+    ).astype(np.float32)
+    p["audio_encoder.patch_embed.proj.bias"] = np.zeros(cfg.embed_dim, np.float32)
+    ln("audio_encoder.patch_embed.norm", cfg.embed_dim)
+
+    for i, depth in enumerate(cfg.depths):
+        dim = cfg.embed_dim * 2**i
+        for j in range(depth):
+            pre = f"audio_encoder.layers.{i}.blocks.{j}"
+            ln(f"{pre}.layernorm_before", dim)
+            for name in ("query", "key", "value"):
+                lin(f"{pre}.attention.self.{name}", dim, dim, bias=cfg.qkv_bias)
+            p[f"{pre}.attention.self.relative_position_bias_table"] = rng.normal(
+                scale=0.02,
+                size=((2 * cfg.window_size - 1) ** 2, cfg.num_heads[i]),
+            ).astype(np.float32)
+            lin(f"{pre}.attention.output.dense", dim, dim)
+            ln(f"{pre}.layernorm_after", dim)
+            hidden = int(cfg.mlp_ratio * dim)
+            lin(f"{pre}.intermediate.dense", dim, hidden)
+            lin(f"{pre}.output.dense", hidden, dim)
+        if i < len(cfg.depths) - 1:
+            pre = f"audio_encoder.layers.{i}.downsample"
+            ln(f"{pre}.norm", 4 * dim)
+            lin(f"{pre}.reduction", 4 * dim, 2 * dim, bias=False)
+
+    ln("audio_encoder.norm", cfg.num_features)
+    return p
+
+
+# ----------------------------------------------------------------------
+# weight folds (numpy f32, once at load)
+# ----------------------------------------------------------------------
+def _v3_kernel_weights(p: dict, prefix: str, resolution: int, shift: int,
+                       num_heads: int, window: int) -> dict:
+    """audio_metrics_tpu/models/htsat.py:370-422: fused (C, 3C) ``wqkv``
+    with the 1/sqrt(d) scale folded into q and the LN1 affine folded into
+    weights and bias, the key bias dropped (constant per score row), the
+    value bias folded into the projection bias (softmax rows sum to 1), and
+    the (nW or 1, heads, n, n) additive bias+mask table.  All f32 numpy."""
+    f32 = lambda k: np.asarray(p[k], np.float32)
+    pre = f"{prefix}.attention"
+    c = p[f"{pre}.self.query.weight"].shape[0]
+    d = c // num_heads
+    n = window * window
+    scale = np.float32(1.0 / np.sqrt(d))
+
+    wqkv_f32 = np.concatenate(
+        [
+            f32(f"{pre}.self.query.weight").T * scale,
+            f32(f"{pre}.self.key.weight").T,
+            f32(f"{pre}.self.value.weight").T,
+        ],
+        axis=1,
+    )
+    ln_w = f32(f"{prefix}.layernorm_before.weight")
+    ln_b = f32(f"{prefix}.layernorm_before.bias")
+    wqkv = ln_w[:, None] * wqkv_f32
+    bq3 = (
+        np.concatenate(
+            [f32(f"{pre}.self.query.bias") * scale, np.zeros(2 * c, np.float32)]
+        )
+        + ln_b @ wqkv_f32
+    )
+    wp = f32(f"{pre}.output.dense.weight").T
+    bv = f32(f"{pre}.self.value.bias")
+    bp = f32(f"{pre}.output.dense.bias") + bv @ wp
+
+    table = f32(f"{pre}.self.relative_position_bias_table")
+    idx = _relative_position_index(window).reshape(-1)
+    bias = table[idx].reshape(n, n, num_heads).transpose(2, 0, 1)
+    if shift > 0:
+        bm = bias[None] + _shift_attn_mask(resolution, resolution, window, shift)[:, None]
+    else:
+        bm = bias[None]
+    return dict(
+        wqkv=wqkv, bq3=bq3, wp=wp, bp=bp, bm=np.ascontiguousarray(bm, np.float32),
+        ln2_w=f32(f"{prefix}.layernorm_after.weight"),
+        ln2_b=f32(f"{prefix}.layernorm_after.bias"),
+        w1=f32(f"{prefix}.intermediate.dense.weight").T,
+        b1=f32(f"{prefix}.intermediate.dense.bias"),
+        w2=f32(f"{prefix}.output.dense.weight").T,
+        b2=f32(f"{prefix}.output.dense.bias"),
+    )
+
+
+def _merge_weights(p: dict, prefix: str) -> dict:
+    """audio_metrics_tpu/models/htsat.py:697-716: LN(concat) @ W ==
+    rs * sum_j x_j @ (g W)_j - rs*mu*(g @ W) + b @ W, with the concat
+    blocks in [x00, x10, x01, x11] order."""
+    g = np.asarray(p[f"{prefix}.norm.weight"], np.float32)
+    be = np.asarray(p[f"{prefix}.norm.bias"], np.float32)
+    w_io = np.asarray(p[f"{prefix}.reduction.weight"], np.float32).T  # (4c, oc)
+    c = w_io.shape[0] // 4
+    return dict(
+        wg=(g[:, None] * w_io).reshape(4, c, w_io.shape[1]),
+        svec=g @ w_io,
+        tvec=be @ w_io,
+    )
+
+
+_MATRICES = ("wqkv", "wp", "w1", "w2", "wg")  # held in the compute dtype
+
+
+class _Folded(nn.Module):
+    """Buffers from a dict of folded numpy weights: matrices in the compute
+    dtype, vectors and tables in f32."""
+
+    def __init__(self, weights: dict, dtype: torch.dtype):
+        super().__init__()
+        for name, arr in weights.items():
+            t = torch.from_numpy(np.ascontiguousarray(arr, np.float32))
+            self.register_buffer(name, t.to(dtype) if name in _MATRICES else t)
+
+
+class SwinBlock(_Folded):
+    """One Swin block; ``forward`` runs it through ``block_fn``
+    (``ops.attention.swin_block`` or its plain version)."""
+
+    def __init__(self, p, prefix, cfg: HTSATConfig, resolution: int, shift: int,
+                 heads: int, dtype):
+        window = cfg.window_size
+        if resolution <= window:  # htsat.py:534-536: one window, no shift
+            window, shift = resolution, 0
+        super().__init__(
+            _v3_kernel_weights(p, prefix, resolution, shift, heads, window), dtype
+        )
+        self.resolution, self.window, self.shift = resolution, window, shift
+        self.heads, self.eps = heads, cfg.layer_norm_eps
+
+    def forward(self, x, block_fn):
+        b, n, c = x.shape
+        r = self.resolution
+        out = block_fn(
+            x.view(b, r, r, c), self.wqkv, self.bq3, self.wp, self.bp, self.bm,
+            self.ln2_w, self.ln2_b, self.w1, self.b1, self.w2, self.b2,
+            heads=self.heads, window=self.window, shift=self.shift, eps=self.eps,
+        )
+        return out.view(b, n, c)
+
+
+class PatchMerge(_Folded):
+    def __init__(self, p, prefix, cfg: HTSATConfig, resolution: int, dtype):
+        super().__init__(_merge_weights(p, prefix), dtype)
+        self.resolution, self.eps = resolution, cfg.layer_norm_eps
+
+    def forward(self, x, merge_fn):
+        r = self.resolution
+        return merge_fn(x, self.wg, self.svec, self.tvec, h=r, w=r, eps=self.eps)
+
+
+def layer_norm(x, w, b, eps):
+    """LayerNorm with f32 statistics regardless of activation dtype."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    return ((xf - mu) * torch.rsqrt(var + eps) * w + b).to(x.dtype)
+
+
+class HTSATEncoder(nn.Module):
+    """Patch tokens (B, grid^2, C) -> pooled latent (B, num_features) f32:
+    the Swin stages, final LN, token-semantic regroup, average pool
+    (audio_metrics_tpu/models/htsat.py:947-988)."""
+
+    def __init__(self, p: dict, cfg: HTSATConfig, dtype: torch.dtype):
+        super().__init__()
+        self.cfg = cfg
+        self.blocks = nn.ModuleList()
+        self.merges = nn.ModuleList()
+        resolution = cfg.grid_size
+        for i, depth in enumerate(cfg.depths):
+            stage = nn.ModuleList()
+            for j in range(depth):
+                shift = 0 if j % 2 == 0 else cfg.window_size // 2
+                stage.append(SwinBlock(
+                    p, f"audio_encoder.layers.{i}.blocks.{j}", cfg, resolution,
+                    shift, cfg.num_heads[i], dtype,
+                ))
+            self.blocks.append(stage)
+            if i < len(cfg.depths) - 1:
+                self.merges.append(PatchMerge(
+                    p, f"audio_encoder.layers.{i}.downsample", cfg, resolution, dtype
+                ))
+                resolution //= 2
+        self.final_resolution = resolution
+        for name in ("weight", "bias"):
+            self.register_buffer(
+                f"norm_{name}",
+                torch.from_numpy(np.asarray(p[f"audio_encoder.norm.{name}"], np.float32)),
+            )
+
+    def forward(self, x, block_fn, merge_fn):
+        for i, stage in enumerate(self.blocks):
+            for block in stage:
+                x = block(x, block_fn)
+            if i < len(self.merges):
+                x = self.merges[i](x, merge_fn)
+        x = layer_norm(x, self.norm_weight, self.norm_bias, self.cfg.layer_norm_eps)
+
+        # token-semantic regroup + average pool (ClapAudioEncoder tail)
+        bsz, _, c = x.shape
+        r = self.final_resolution
+        x = x.transpose(1, 2).reshape(bsz, c, r, r)
+        c_freq_bin = r // self.cfg.freq_ratio
+        x = x.reshape(bsz, c, r // c_freq_bin, c_freq_bin, r)
+        x = x.permute(0, 1, 3, 2, 4).reshape(bsz, c, -1)
+        return x.float().mean(dim=-1)
+
+
+# ----------------------------------------------------------------------
+# plain frontend — audio_metrics_tpu/models/htsat.py:841-907
+# ----------------------------------------------------------------------
+def frontend_tokens(mel, patch_w, patch_b, ln_w, ln_b, cfg: HTSATConfig, compute_dtype):
+    """BatchNorm'd (B, T, F) log-mel -> patch tokens (B, N, C).
+
+    ``patch_w`` is the (ps*ps, C) input-major patch-embed weight.  The
+    time-interpolated mel reshapes straight into patch rows in token order
+    (the (B, 1, spec, spec) image never exists).  bf16 compute runs the
+    interp product on bf16 operands, as the JAX package does; f32 keeps f32.
+    """
+    ratio, ps = cfg.freq_ratio, cfg.patch_size
+    spec_w = cfg.spec_size * ratio
+    spec_h = cfg.spec_size // ratio
+    bsz, t, f = mel.shape
+    chunk_w = spec_w // ratio
+    if f != spec_h or spec_h % ps or chunk_w % ps or t > spec_w:
+        raise ValueError(f"mel {tuple(mel.shape)} does not tile the patch grid of {cfg}")
+    op_dt = torch.bfloat16 if compute_dtype == torch.bfloat16 else torch.float32
+    if t < spec_w:
+        w = torch.from_numpy(_bicubic_matrix(t, spec_w)).to(mel.device, op_dt)
+        x = torch.matmul(w.float(), mel.to(op_dt).float())  # f32 accumulation
+    else:
+        x = mel.float()
+    gw = chunk_w // ps
+    fb = spec_h // ps
+    a = x.reshape(bsz, ratio, gw, ps, fb, ps)
+    a = a.permute(0, 1, 4, 2, 5, 3).reshape(bsz, ratio * fb * gw, ps * ps)
+    tok = torch.matmul(
+        a.to(compute_dtype).float(), patch_w.to(compute_dtype).float()
+    ) + patch_b.float()
+    return layer_norm(tok.to(compute_dtype), ln_w, ln_b, cfg.layer_norm_eps)

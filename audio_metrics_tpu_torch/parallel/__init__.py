@@ -1,0 +1,1 @@
+"""parallel of the PyTorch port (see the module docstrings)."""
