@@ -3,8 +3,8 @@
 Counterpart of ``audio_metrics_tpu/data.py``.  Host statistics (mean,
 covariance) are float64 numpy, as in the reference; per-batch moments are
 computed on the device in f32 with the CENTERED second moment (a raw x^T x
-in f32 cancels against n mu mu^T when |mean| >> std).  Embeddings stay on
-the device as tensors.
+in f32 cancels against n mu mu^T when |mean| >> std).  Embeddings and the
+PRDC k-NN radii stay on the device as tensors.
 """
 
 from __future__ import annotations
@@ -32,9 +32,15 @@ def batch_moments(e: torch.Tensor, mask: torch.Tensor | None = None):
 
 
 class AudioMetricsData:
-    """Mean / covariance (f64, host) and the embeddings (device) of one
-    category.  Moments from the embed loop arrive as device tensors and are
-    merged into the host stats on first read (``_pending``)."""
+    """Mean / covariance (f64, host), the embeddings (device) and their
+    PRDC k-NN radii (device, ``radii["radii_{k}"]``) of one category.
+    Moments from the embed loop arrive as device tensors and are merged into
+    the host stats on first read (``_pending``).
+
+    Unlike the JAX package, whose ``__iadd__`` keeps radii computed before
+    the merge (so a second reference batch reuses the first batch's radii),
+    every change of the embeddings here drops the cached radii: ``add_embeddings``,
+    ``__iadd__`` and ``recompute_stats``."""
 
     def __init__(self, store_embeddings: bool = True):
         self.mean: np.ndarray | None = None
@@ -45,6 +51,7 @@ class AudioMetricsData:
         self._emb: torch.Tensor | None = None
         self._pending: list[tuple[int, torch.Tensor, torch.Tensor]] = []
         self.cache: dict = {}  # per-object device caches (FAD Cholesky, KD Gram sums)
+        self.radii: dict[str, torch.Tensor] = {}
 
     def __len__(self) -> int:
         """Row count, known without pulling pending device moments (the
@@ -94,6 +101,7 @@ class AudioMetricsData:
         if e is None:
             return
         self._pending = []
+        self.radii = {}
         n, s1, m2 = batch_moments(e)
         self.mean, self.cov, self.n = None, None, None
         self._merge(int(e.shape[0]), s1.double().cpu().numpy(), m2.double().cpu().numpy())
@@ -119,6 +127,11 @@ class AudioMetricsData:
         if self.store_embeddings:
             self._chunks.append(e)
             self._emb = None
+            self.radii = {}
+
+    @property
+    def has_embeddings(self) -> bool:
+        return bool(self._chunks)
 
     @property
     def embeddings(self) -> torch.Tensor | None:
@@ -139,4 +152,44 @@ class AudioMetricsData:
         if self.store_embeddings:
             self._chunks.extend(other._chunks)
             self._emb = None
+        self.radii = {}
+        return self
+
+    def get_radii(self, k_neighbor: int) -> torch.Tensor | None:
+        """k-NN radii of the stored embeddings, cached per k
+        (audio_metrics_tpu/data.py:494-505)."""
+        key = f"radii_{k_neighbor}"
+        if self.radii.get(key) is None and self.has_embeddings:
+            from .ops.distance import knn_radii
+
+            self.radii[key] = knn_radii(self.embeddings.float(), k_neighbor)
+        return self.radii.get(key)
+
+    # -- persistence (audio_metrics_tpu/data.py:539-562) -----------------
+    def serialize(self) -> dict:
+        """The JAX package's layout: numpy arrays and plain scalars."""
+        mean, cov, n = self.stats()
+        e = self.embeddings
+        return {
+            "mean": mean,
+            "cov": cov,
+            "n": n,
+            "store_embeddings": self.store_embeddings,
+            "embeddings": None if e is None else e.float().cpu().numpy(),
+            "radii": {k: v.cpu().numpy() for k, v in self.radii.items()},
+        }
+
+    @classmethod
+    def deserialize(cls, state: dict, device="cpu") -> "AudioMetricsData":
+        """Inverse of :meth:`serialize`; embeddings and radii come back as
+        f32 tensors on ``device``."""
+        self = cls(store_embeddings=state.get("store_embeddings", True))
+        n = state.get("n")
+        self.mean, self.cov = state.get("mean"), state.get("cov")
+        self.n = None if n is None else int(n)
+        emb = state.get("embeddings")
+        if emb is not None:
+            self._chunks = [torch.as_tensor(np.asarray(emb, np.float32), device=device)]
+        self.radii = {k: torch.as_tensor(np.asarray(v, np.float32), device=device)
+                      for k, v in (state.get("radii") or {}).items()}
         return self

@@ -1,6 +1,9 @@
 """Hand-written Hopper kernels: build, load, launch, count.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into ONE
+Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` (one
+``nvcc`` process per source, all started together: a build then takes
+about the time of its largest source, not the sum of all sources) and
+linked into ONE
 shared library with a plain C interface, at first use, into ``build/``
 next to this file (the file name carries a hash of the sources, so an edited
 source rebuilds).  The library is loaded with ``ctypes``; every pointer and
@@ -35,7 +38,7 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD = Path(__file__).resolve().parent / "build"
 _NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
+    "-Xcompiler", "-fPIC", "-lineinfo",
 ]
 
 _lock = threading.Lock()
@@ -71,16 +74,29 @@ def build() -> ctypes.CDLL:
         so = _BUILD / f"libam_kernels_{h.hexdigest()[:16]}.so"
         if not so.exists():
             _BUILD.mkdir(parents=True, exist_ok=True)
-            tmp = so.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp),
-                   *map(str, sorted(_CSRC.glob("*.cu")))]
+            tag = f"{h.hexdigest()[:16]}.{os.getpid()}"
             t0 = time.perf_counter()
-            proc = subprocess.run(cmd, capture_output=True, text=True)
+            objs, procs = [], []
+            for src in sorted(_CSRC.glob("*.cu")):
+                obj = _BUILD / f"{src.stem}.{tag}.o"
+                objs.append(obj)
+                procs.append(subprocess.Popen(
+                    [_nvcc(), *_NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                ))
+            outs = [(p.communicate()[0], p.returncode) for p in procs]
+            failed = [out for out, rc in outs if rc != 0]
+            tmp = so.with_suffix(f".{os.getpid()}.tmp")
+            if not failed:
+                link = subprocess.run([_nvcc(), *_NVCC_FLAGS, "-shared", "-o", str(tmp),
+                                       *map(str, objs)], capture_output=True, text=True)
+                if link.returncode != 0:
+                    failed.append(link.stdout + link.stderr)
             build_seconds = time.perf_counter() - t0
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-                )
+            for obj in objs:
+                obj.unlink(missing_ok=True)
+            if failed:
+                raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
             os.replace(tmp, so)
         _lib = ctypes.CDLL(str(so))
         return _lib
@@ -101,6 +117,8 @@ def require_cuda(*tensors: torch.Tensor, dtype=torch.bfloat16) -> None:
 
 
 def _arg(a):
+    if a is None:  # a null pointer (an optional operand)
+        return ctypes.c_void_p(None)
     if isinstance(a, torch.Tensor):
         return ctypes.c_void_p(a.data_ptr())
     if isinstance(a, float):
@@ -150,6 +168,21 @@ KERNELS = {
             "clap_frontend",
             "audio_metrics_tpu_torch/kernels/csrc/frontend.cu",
             "audio_metrics_tpu/ops/frontend_fused.py:401",
+        ),
+        Kernel(
+            "knn_radii",
+            "audio_metrics_tpu_torch/kernels/csrc/distance.cu",
+            "audio_metrics_tpu/ops/distance.py:131",
+        ),
+        Kernel(
+            "prdc_stats",
+            "audio_metrics_tpu_torch/kernels/csrc/distance.cu",
+            "audio_metrics_tpu/ops/distance.py:236,257",
+        ),
+        Kernel(
+            "log_mel",
+            "audio_metrics_tpu_torch/kernels/csrc/log_mel.cu",
+            "audio_metrics_tpu/ops/mel.py:554",
         ),
     )
 }

@@ -19,7 +19,8 @@
 //      signal (row stride = hop < frame, overlapping rows: the frame matrix
 //      is never materialised); the basis holds cos/sin columns interleaved,
 //      so the epilogue forms re^2 + im^2 inside one tile;
-//   2. mel/dB/BN: one warp per assembled frame row: the tiled mid rows
+//   2. mel/dB/BN (mel_log_kernel, shared with log_mel.cu in gemm.cuh):
+//      one warp per assembled frame row: the tiled mid rows
 //      re-read their source head frame (mid_src = 2 + (o-2) % p), rows past
 //      the last frame are written as ZERO (a NaN there would poison the
 //      interp product even against zero weights);
@@ -30,37 +31,6 @@
 //   5. LayerNorm per (row, frequency block), written in token order.
 // Products are WMMA bf16 with f32 accumulation.
 #include "gemm.cuh"
-
-namespace {
-
-__global__ void mel_db_kernel(const float* __restrict__ power, int frame_rows, int n_keep,
-                              const float* __restrict__ fb, const float* __restrict__ sc,
-                              const float* __restrict__ of, int n_mels, int p, int head_frames,
-                              int t_tail0, int tail_row0, int n_frames, int mel_pad,
-                              bf16* __restrict__ mel) {
-  const int b = blockIdx.y;
-  const int o = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (o >= mel_pad) return;
-  bf16* dst = mel + ((long long)b * mel_pad + o) * n_mels;
-  if (o >= n_frames) {
-    for (int m = lane; m < n_mels; m += 32) dst[m] = __float2bfloat16(0.f);
-    return;
-  }
-  int src;
-  if (o < head_frames) src = o;
-  else if (o < t_tail0) src = 2 + (o - 2) % p;
-  else src = tail_row0 + (o - t_tail0);
-  const float* pw = power + ((long long)b * frame_rows + src) * n_keep;
-  for (int m = lane; m < n_mels; m += 32) {
-    float acc = 0.f;
-    for (int f = 0; f < n_keep; ++f) acc += pw[f] * fb[f * n_mels + m];
-    const float lm = 10.f * (logf(fmaxf(acc, 1e-10f)) * 0.43429448190325176f);
-    dst[m] = __float2bfloat16(lm * sc[m] + of[m]);
-  }
-}
-
-}  // namespace
 
 // hops: (B, clip_stride) bf16, each clip's head hop rows then its tail hop
 // rows from row tail_row0, hop samples per row; frame r = samples
@@ -84,12 +54,10 @@ extern "C" int am_clap_frontend(const bf16* hops, int clip_stride, int hop, int 
   g.o_batch = (long long)frame_rows * n_keep;
   if ((e = launch_gemm<A_ROWS, EPI_POWER>(g, B, stream)) != cudaSuccess) return e;
 
-  const int warps = 8;
-  dim3 mgrid((mel_pad + warps - 1) / warps, B);
-  mel_db_kernel<<<mgrid, warps * 32, 0, stream>>>(power, frame_rows, n_keep, fb, sc, of, n_mels,
-                                                  p, head_frames, t_tail0, tail_row0, n_frames,
-                                                  mel_pad, mel);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  const MelRows rows = {p, head_frames, t_tail0, tail_row0, n_frames, mel_pad};
+  if ((e = launch_mel_log(power, frame_rows, n_keep, fb, sc, of, n_mels, rows, LOG_DB, 0.f, mel,
+                          B, stream)) != cudaSuccess)
+    return e;
 
   g = gemm_params(ps * rg, n_mels, mel_pad, wi, mel_pad, mel, n_mels, xi, ps * n_mels);
   g.b_batch = (long long)mel_pad * n_mels;

@@ -301,4 +301,63 @@ inline cudaError_t launch_ln_rows(const float* in, int rows, int nseg, int Cs, c
   return cudaGetLastError();
 }
 
+// Where the mel rows come from: output row o reads power row o below
+// head_frames; the repeat-pad frontend's tiled mid rows below t_tail0 read
+// head row 2 + (o - 2) % p; the rest read tail_row0 + (o - t_tail0).  Rows
+// from n_frames to out_rows are written as ZERO (a NaN there would poison a
+// later product even against zero weights).  A plain log-mel has
+// head_frames = t_tail0 = n_frames = out_rows.
+struct MelRows {
+  int p, head_frames, t_tail0, tail_row0, n_frames, out_rows;
+};
+
+enum LogMode { LOG_DB = 0, LOG_NATURAL = 1 };
+
+__device__ __forceinline__ void store_out(float v, float* o) { *o = v; }
+__device__ __forceinline__ void store_out(float v, bf16* o) { *o = __float2bfloat16(v); }
+
+// Mel projection (f32 on the CUDA cores), log and optional per-bin affine
+// of (B, frame_rows, n_keep) f32 power rows, one warp per output row:
+// LOG_DB 10*log10(max(m, 1e-10)), LOG_NATURAL log(m + log_offset); then
+// lm * sc + of when sc is not null; out (B, out_rows, n_mels).
+template <typename OutT>
+__global__ void mel_log_kernel(const float* __restrict__ power, int frame_rows, int n_keep,
+                               const float* __restrict__ fb, const float* __restrict__ sc,
+                               const float* __restrict__ of, int n_mels, MelRows g,
+                               int log_mode, float log_offset, OutT* __restrict__ out) {
+  const int b = blockIdx.y;
+  const int o = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (o >= g.out_rows) return;
+  OutT* dst = out + ((long long)b * g.out_rows + o) * n_mels;
+  if (o >= g.n_frames) {
+    for (int m = lane; m < n_mels; m += 32) store_out(0.f, dst + m);
+    return;
+  }
+  int src;
+  if (o < g.head_frames) src = o;
+  else if (o < g.t_tail0) src = 2 + (o - 2) % g.p;
+  else src = g.tail_row0 + (o - g.t_tail0);
+  const float* pw = power + ((long long)b * frame_rows + src) * n_keep;
+  for (int m = lane; m < n_mels; m += 32) {
+    float acc = 0.f;
+    for (int f = 0; f < n_keep; ++f) acc += pw[f] * fb[f * n_mels + m];
+    float lm = log_mode == LOG_DB ? 10.f * (logf(fmaxf(acc, 1e-10f)) * 0.43429448190325176f)
+                                  : logf(acc + log_offset);
+    if (sc != nullptr) lm = lm * sc[m] + of[m];
+    store_out(lm, dst + m);
+  }
+}
+
+template <typename OutT>
+cudaError_t launch_mel_log(const float* power, int frame_rows, int n_keep, const float* fb,
+                           const float* sc, const float* of, int n_mels, MelRows g, int log_mode,
+                           float log_offset, OutT* out, int B, cudaStream_t stream) {
+  const int warps = 8;
+  dim3 grid((g.out_rows + warps - 1) / warps, B);
+  mel_log_kernel<OutT><<<grid, warps * 32, 0, stream>>>(power, frame_rows, n_keep, fb, sc, of,
+                                                        n_mels, g, log_mode, log_offset, out);
+  return cudaGetLastError();
+}
+
 }  // namespace

@@ -13,12 +13,11 @@ Counterpart of ``audio_metrics_tpu/metrics/fad.py``:
 
 from __future__ import annotations
 
-import contextlib
-
 import numpy as np
 import torch
 
 from ..data import AudioMetricsData
+from ..utils.precision import full_f32
 
 __all__ = ["frechet_distance", "trace_sqrtm_product", "fad_device_tail"]
 
@@ -66,18 +65,6 @@ def frechet_distance(x: AudioMetricsData, y: AudioMetricsData) -> float:
     return _frechet_distance(mx, sx, my, sy)
 
 
-@contextlib.contextmanager
-def _full_f32():
-    """f32 products without TF32 (cuBLAS and cuDNN), restored on exit."""
-    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
-
-
 def _ns_trace_sqrt_sym(m: torch.Tensor, n_iter: int = NS_ITERS) -> torch.Tensor:
     """``Tr sqrt(M)`` for symmetric PSD ``M`` by coupled Newton-Schulz on
     ``A = M / ||M||_F``: ``Y <- Y (3I - ZY)/2, Z <- (3I - ZY)/2 Z`` so that
@@ -85,7 +72,7 @@ def _ns_trace_sqrt_sym(m: torch.Tensor, n_iter: int = NS_ITERS) -> torch.Tensor:
     eye = torch.eye(m.shape[0], dtype=m.dtype, device=m.device)
     norm = torch.sqrt(torch.sum(m * m)) + 1e-30
     y, z = m / norm, eye
-    with _full_f32():
+    with full_f32():
         for _ in range(n_iter):
             t = 0.5 * (3.0 * eye - z @ y)
             y, z = y @ t, t @ z
@@ -120,7 +107,7 @@ def fad_device_tail(cand: AudioMetricsData, ref: AudioMetricsData) -> float | No
     if l is None or l.shape[0] != d:
         return None
     l_dev = _ref_chol_device(ref, l, m2.device)
-    with _full_f32():
+    with full_f32():
         c = m2 * (1.0 / (n - 1))
         m = l_dev.T @ (c @ l_dev)
         m = 0.5 * (m + m.T)

@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from ..data import AudioMetricsData
-from .fad import _full_f32
+from ..utils.precision import full_f32
 
 __all__ = [
     "kernel_distance",
@@ -117,7 +117,7 @@ def _chunks(s: int, m: int):
 
 def _cand_sums(f1, f2, i1, i2, kparams):
     kt_xx, k_xy = [], []
-    with _full_f32():
+    with full_f32():
         for sl in _chunks(i1.shape[0], i1.shape[1]):
             a, b = f1[i1[sl]], f2[i2[sl]]
             kt_xx.append(_off_diag_sum(_gram(a, a, kparams)))
@@ -125,16 +125,19 @@ def _cand_sums(f1, f2, i1, i2, kparams):
     return torch.cat(kt_xx), torch.cat(k_xy)
 
 
-def _ref_sums(ref: AudioMetricsData, f2, i2, idx_2, kparams):
+def _ref_sums(ref: AudioMetricsData, f2, i2, subset_key, kparams):
     """Cached (subsets,) f64 device tensor of sum(K_YY) - tr(K_YY); keyed on
-    the reference embeddings' identity, the subset indices' identity (they
-    are lru-cached and read-only) and the kernel parameters."""
-    key = ("kd_ref", id(idx_2), kparams)
+    the reference embeddings' identity, the arguments that determine the
+    subset indices ``(n1, n2, subsets, size, seed)`` and the kernel
+    parameters.  (Keying on the index array's ``id()`` is unsound: once the
+    lru cache evicts and frees an array, another candidate size's indices
+    can be allocated at the same address.)"""
+    key = ("kd_ref", subset_key, kparams)
     hit = ref.cache.get(key)
     if hit is not None and hit[0] is f2:
         return hit[1]
     out = []
-    with _full_f32():
+    with full_f32():
         for sl in _chunks(i2.shape[0], i2.shape[1]):
             b = f2[i2[sl]]
             out.append(_off_diag_sum(_gram(b, b, kparams)))
@@ -178,9 +181,9 @@ def kernel_distance(x: AudioMetricsData, y: AudioMetricsData, **kwargs) -> dict:
         if kwargs.get("verbose", False):
             logger.warning("Reducing KID subset size from %d to %d", size, new)
         size = new
-    idx_1, idx_2 = _subset_indices(
-        n1, n2, kwargs.get("kid_subsets", KID_SUBSETS), size, kwargs.get("rng_seed", 1234)
-    )
+    subset_key = (n1, n2, kwargs.get("kid_subsets", KID_SUBSETS), size,
+                  kwargs.get("rng_seed", 1234))
+    idx_1, idx_2 = _subset_indices(*subset_key)
     gamma = kwargs.get("kid_gamma", KID_GAMMA)
     kparams = (
         kernel_type,
@@ -191,7 +194,7 @@ def kernel_distance(x: AudioMetricsData, y: AudioMetricsData, **kwargs) -> dict:
     )
     i1 = torch.tensor(idx_1, device=f1.device)  # copies: the cached arrays are read-only
     i2 = torch.tensor(idx_2, device=f2.device)
-    kt_yy = _ref_sums(y, f2, i2, idx_2, kparams)
+    kt_yy = _ref_sums(y, f2, i2, subset_key, kparams)
     kt_xx, k_xy = _cand_sums(f1, f2, i1, i2, kparams)
     m = size
     mmds = (

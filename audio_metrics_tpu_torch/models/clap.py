@@ -2,10 +2,12 @@
 
 Counterpart of ``audio_metrics_tpu/models/clap.py``:
 
-    audio (B, n) @48 kHz
+    audio (B, n <= 10 s) @48 kHz
       -> repeat-pad to 10 s (laion "repeatpad"), log-mel (1024 fft / 480
          hop / 64 slaney mels, dB), folded BatchNorm, patch tokens
-         [one kernel on the bf16 5 s path: ops/frontend_fused.py]
+         [one kernel on the bf16 path for clips that tile 10 s:
+         ops/frontend_fused.py; other lengths: the halo log-mel kernel,
+         ops/mel.py, then plain products]
       -> HTSAT Swin encoder [ops/attention.py, ops/merge.py kernels]
       -> latent (B, num_features)
       -> audio_projection: linear1 -> relu -> linear2 -> l2-normalize
@@ -37,7 +39,9 @@ from .htsat import HTSAT_BASE, HTSATConfig, HTSATEncoder, frontend_tokens, init_
 __all__ = [
     "LaionCLAP",
     "ClapAudio",
+    "clap_mel",
     "clap_mel_tiled",
+    "repeat_pad",
     "init_projection_params",
     "LAION_CLAP_LAYERS",
     "LAION_CLAP_MUSIC_CHECKPOINT_URL",
@@ -64,16 +68,33 @@ def _clap_fb() -> np.ndarray:
     ).astype(np.float32)
 
 
-def clap_mel(audio, compute_dtype=None, out_affine=None, out_dtype=None):
-    """(B, n) @48k -> (B, (n - 1024)//480 + 1, 64) log-mel of uncentered
-    frames, laion non-fusion convention (clap_mel_tiled builds the reflect
-    padding itself)."""
+def clap_mel(audio, compute_dtype=None, center=True, out_affine=None, out_dtype=None):
+    """(B, n) @48k -> (B, n//480 + 1, 64) log-mel, laion non-fusion
+    convention (audio_metrics_tpu/models/clap.py:78-101); ``center=False``
+    takes uncentered frames, (n - 1024)//480 + 1 of them.  On a CUDA tensor
+    in bf16 it runs the halo log-mel kernel."""
     return log_mel_spectrogram(
         audio, sampling_rate=SAMPLE_RATE, frame_length=_N_FFT, hop_length=_HOP,
-        n_mels=_N_MELS, fmin=_FMIN, fmax=_FMAX, n_fft=_N_FFT, mel_norm="slaney",
-        mel_scale="slaney", compute_dtype=compute_dtype, out_affine=out_affine,
-        out_dtype=out_dtype,
+        n_mels=_N_MELS, fmin=_FMIN, fmax=_FMAX, n_fft=_N_FFT, center=center,
+        mel_norm="slaney", mel_scale="slaney", log_mode="db", compute_dtype=compute_dtype,
+        out_affine=out_affine, out_dtype=out_dtype,
     )
+
+
+def _can_tile_mel(n: int) -> bool:
+    """The repeat-pad clip tiles 10 s a whole number of times (no zero
+    tail) in whole hops, so its mel frames repeat with the clip period
+    (audio_metrics_tpu/models/clap.py:104-114)."""
+    return n < MAX_SAMPLES and MAX_SAMPLES % n == 0 and n % _HOP == 0 and n >= _N_FFT
+
+
+def repeat_pad(audio):
+    """laion "repeatpad": whole copies of the clip, then zeros up to 10 s."""
+    n = audio.shape[1]
+    if n >= MAX_SAMPLES:
+        return audio
+    audio = audio.repeat(1, MAX_SAMPLES // n)
+    return torch.nn.functional.pad(audio, (0, MAX_SAMPLES - audio.shape[1]))
 
 
 def clap_mel_tiled(audio, compute_dtype=None, out_affine=None, out_dtype=None):
@@ -90,8 +111,8 @@ def clap_mel_tiled(audio, compute_dtype=None, out_affine=None, out_dtype=None):
     head_sig = torch.cat([audio[:, 1 : half + 1].flip(1), audio, audio[:, :extra]], dim=1)
     tail_sig = torch.cat([audio[:, n - extra :], audio[:, -half - 1 : -1].flip(1)], dim=1)
     kw = dict(compute_dtype=compute_dtype, out_affine=out_affine, out_dtype=out_dtype)
-    head = clap_mel(head_sig, **kw)
-    tail = clap_mel(tail_sig, **kw)
+    head = clap_mel(head_sig, center=False, **kw)
+    tail = clap_mel(tail_sig, center=False, **kw)
     mid_idx = torch.from_numpy(2 + (np.arange(p + 2, t_tail0) - 2) % p).to(audio.device)
     mel = torch.cat([head, head[:, mid_idx], tail], dim=1)
     assert mel.shape[1] == n_frames
@@ -156,25 +177,34 @@ class ClapAudio(nn.Module):
 
     def forward(self, audio) -> dict:
         """audio (B, n <= 10 s) f32 -> the three tap outputs, (B, 512) f32
-        each (audio_metrics_tpu/models/clap.py:160-269)."""
+        each, along the three branches of ``_clap_forward``
+        (audio_metrics_tpu/models/clap.py:160-242): the fused frontend for
+        bf16 clips that tile 10 s; else the tiled repeat-pad mel where the
+        clip tiles; else the repeat-padded 10 s clip's centered mel.  In
+        bf16 the BatchNorm folds into the mel epilogue (bf16 out); in f32
+        it is applied to the f32 mel."""
         cfg, dt, fr = self.cfg, self.compute_dtype, self.frontend
-        if not fused_frontend_supported(audio.shape[1], SAMPLE_RATE, cfg):
-            raise NotImplementedError(
-                f"{audio.shape[1]}-sample clips: the port takes repeat-pad clips that tile "
-                "10 s at 48 kHz (e.g. 5 s windows); other lengths are ROADMAP.md Queue 1 "
-                "item 3"
-            )
-        if dt == torch.bfloat16:
-            tokens = clap_tokens_fused(audio, fr, sr=SAMPLE_RATE, cfg=cfg)
-        elif audio.is_cuda:
+        n = audio.shape[1]
+        if n > MAX_SAMPLES:
+            raise ValueError(f"{n}-sample clips: CLAP takes at most 10 s ({MAX_SAMPLES} samples)")
+        bf16 = dt == torch.bfloat16
+        if audio.is_cuda and not bf16:
             raise NotImplementedError(
                 "f32 compute runs on CPU tensors only; the CUDA kernels take bf16 "
                 "(ROADMAP.md Queue 1 item 3)"
             )
-        else:  # f32: the unfolded chain with BatchNorm on the mel (clap.py:219-241)
-            mel = clap_mel_tiled(audio)
-            mel = (mel - fr.running_mean) * torch.rsqrt(fr.running_var + 1e-5) \
-                * fr.weight + fr.bias
+        if bf16 and fused_frontend_supported(n, SAMPLE_RATE, cfg):
+            tokens = clap_tokens_fused(audio, fr, sr=SAMPLE_RATE, cfg=cfg)
+        else:
+            kw = dict(compute_dtype=dt, out_affine=(fr.bn_scale, fr.bn_offset),
+                      out_dtype=torch.bfloat16) if bf16 else {}
+            if _can_tile_mel(n):
+                mel = clap_mel_tiled(audio, **kw)
+            else:
+                mel = clap_mel(repeat_pad(audio), center=True, **kw)
+            if not bf16:
+                mel = (mel - fr.running_mean) * torch.rsqrt(fr.running_var + 1e-5) \
+                    * fr.weight + fr.bias
             tokens = frontend_tokens(mel, fr.patch_w, fr.patch_b, fr.ln_w, fr.ln_b, cfg, dt)
         return self._projection_taps(self.encoder(tokens, swin_block, patch_merge))
 

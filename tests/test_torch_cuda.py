@@ -14,6 +14,12 @@ kernel adds (out - x for the residual Swin block, the output for the
 merge), max abs error at most ``MAX_ABS``.  The weights put every matrix
 at std 1/sqrt(fan_in), so both halves of a block move its output by O(1)
 and a wrong roll, window map or mask cannot hide under the residual.
+
+The PRDC kernels (f32): radii rtol 1e-4, atol 1e-5 against the plain
+version (the JAX suite's kernel-vs-XLA bound); the booleans and counts
+equal except where a float64 recomputation shows a pair within 1e-5
+relative of its radius (``testing.stats_mismatches``).  The log-mel
+kernel: the bounds of ``chip_smoke.py``.
 """
 
 import numpy as np
@@ -24,8 +30,16 @@ from audio_metrics_tpu_torch.kernels import KERNELS
 from audio_metrics_tpu_torch.models.clap import SAMPLE_RATE, ClapFrontend
 from audio_metrics_tpu_torch.models.htsat import HTSAT_BASE, PatchMerge, SwinBlock, init_params
 from audio_metrics_tpu_torch.ops.attention import swin_block, swin_block_plain
+from audio_metrics_tpu_torch.ops.distance import (
+    knn_radii,
+    knn_radii_plain,
+    pairwise_stats,
+    pairwise_stats_plain,
+)
 from audio_metrics_tpu_torch.ops.frontend_fused import clap_tokens_fused, clap_tokens_fused_plain
+from audio_metrics_tpu_torch.ops.mel import log_mel_halo, log_mel_halo_plain, mel_filter_bank
 from audio_metrics_tpu_torch.ops.merge import patch_merge, patch_merge_plain
+from audio_metrics_tpu_torch.testing import stats_mismatches
 
 cfg = HTSAT_BASE
 pytestmark = pytest.mark.cuda
@@ -35,6 +49,8 @@ SWIN_REL = (2e-4, 5e-4, 1.5e-3, 3.5e-3)
 SWIN_MAX = 0.0625
 MERGE_TOL = (1e-5, 0.03125)
 FRONTEND_TOL = (4e-3, 0.0625)
+# log-mel (mean abs error / mean |out|, max abs error) per convention
+LOG_MEL_TOL = {"clap": (1e-5, 0.25), "vggish": (1e-6, 3e-5)}
 
 
 @pytest.fixture(scope="module")
@@ -128,3 +144,83 @@ def test_kernels_raise_on_f32(cuda, params):
     x = torch.zeros((1, 256, 512), device=cuda)
     with pytest.raises(NotImplementedError):
         merge.to(cuda)(x, patch_merge)
+
+
+def _embeddings(cuda, n, m, d, seed):
+    """Seeded Gaussian sets, reference N(0, I) and candidate 0.05 + 1.02
+    N(0, I): at d = 512 every PRDC metric then lies inside (0, 1)."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    ref = torch.randn((n, d), generator=g, device=cuda)
+    return ref, 0.05 + 1.02 * torch.randn((m, d), generator=g, device=cuda)
+
+
+@pytest.mark.parametrize("n,k", [(2048, 10), (1237, 10), (300, 3)])
+def test_knn_radii_kernel_matches_plain(cuda, n, k):
+    x, _ = _embeddings(cuda, n, 1, 512, seed=n)
+    before = KERNELS["knn_radii"].launches
+    got = knn_radii(x, k)
+    torch.cuda.synchronize()
+    assert KERNELS["knn_radii"].launches == before + 1
+    torch.testing.assert_close(got, knn_radii_plain(x, k), rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("n,m", [(2048, 2048), (1000, 1237)])
+def test_pairwise_stats_kernel_matches_plain(cuda, n, m):
+    ref, cand = _embeddings(cuda, n, m, 512, seed=n + m)
+    rr, cr = knn_radii_plain(ref, 10), knn_radii_plain(cand, 10)
+    before = KERNELS["prdc_stats"].launches
+    got = pairwise_stats(ref, cand, rr, cr)
+    torch.cuda.synchronize()
+    assert KERNELS["prdc_stats"].launches == before + 1
+    want = pairwise_stats_plain(ref, cand, rr, cr)
+    assert [g.dtype for g in got] == [w.dtype for w in want]
+    n_diff, bad = stats_mismatches(ref, cand, got, want, (rr, cr))
+    assert bad == 0, f"{bad} of {n_diff} differing elements are not near-ties"
+    torch.testing.assert_close(got[3], want[3], rtol=1e-5, atol=1e-6)
+    assert 0 < got[0].float().mean() < 1 and 0 < got[2].float().mean() < 1
+
+
+def test_pairwise_stats_kernel_same_set(cuda):
+    x, _ = _embeddings(cuda, 1500, 1, 512, seed=5)
+    r = knn_radii(x, 10)
+    cand_any, _, ref_any, ref_min = pairwise_stats(x, x, r, r)
+    assert bool(cand_any.all()) and bool(ref_any.all()) and bool((ref_min < r).all())
+
+
+@pytest.mark.parametrize("conv", ["clap", "vggish"])
+def test_log_mel_kernel_matches_plain(cuda, params, conv):
+    """CLAP: 10 s clips, centered, dB, the BatchNorm affine and bf16 out;
+    VGGish: 400-sample frames (K < n_fft), uncentered, natural log, f32."""
+    g = torch.Generator(device=cuda).manual_seed(30)
+    if conv == "clap":
+        fr = ClapFrontend(params, cfg).to(cuda)
+        fb = mel_filter_bank(513, 64, 50.0, 14000.0, SAMPLE_RATE, norm="slaney",
+                             mel_scale="slaney").astype(np.float32)
+        kw = dict(frame_length=1024, hop_length=480, n_fft=1024, fb=fb, center=True,
+                  log_mode="db", out_affine=(fr.bn_scale, fr.bn_offset), out_dtype=torch.bfloat16)
+        audio = 0.2 * torch.randn((2, 10 * SAMPLE_RATE), generator=g, device=cuda)
+    else:
+        fb = mel_filter_bank(257, 64, 125.0, 7500.0, 16000, norm=None, mel_scale="htk",
+                             triangle_domain="mel", zero_dc=True).astype(np.float32)
+        kw = dict(frame_length=400, hop_length=160, n_fft=512, fb=fb, center=False,
+                  log_mode="natural")
+        audio = 0.2 * torch.randn((2, 3 * 16000 + 77), generator=g, device=cuda)
+    before = KERNELS["log_mel"].launches
+    got = log_mel_halo(audio, **kw)
+    torch.cuda.synchronize()
+    assert KERNELS["log_mel"].launches == before + 1
+    want = log_mel_halo_plain(audio, **kw)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    _close(got, want, want, *LOG_MEL_TOL[conv])
+
+
+def test_new_kernels_raise_on_other_dtypes(cuda):
+    x = torch.zeros((64, 16), dtype=torch.float64, device=cuda)
+    with pytest.raises(NotImplementedError):
+        knn_radii(x, 3)
+    with pytest.raises(NotImplementedError):
+        pairwise_stats(x, x, x[:, 0], x[:, 0])
+    fb = mel_filter_bank(513, 64, 50.0, 14000.0, SAMPLE_RATE).astype(np.float32)
+    with pytest.raises(NotImplementedError):
+        log_mel_halo(torch.zeros((1, 48000), dtype=torch.bfloat16, device=cuda),
+                     frame_length=1024, hop_length=480, n_fft=1024, fb=fb)

@@ -150,10 +150,14 @@ def test_package_imports_no_jax():
 def test_unported_surface_raises():
     cfg = HTSATConfig(**SMALL)
     emb = LaionCLAP(params=_params(cfg), cfg=cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="prdc"):
-        AudioMetrics(metrics=["fad", "prdc"], embedder=emb, device="cpu")
+    with pytest.raises(NotImplementedError, match="fad_inf"):
+        AudioMetrics(metrics=["fad", "fad_inf"], embedder=emb, device="cpu")
     with pytest.raises(NotImplementedError, match="n_pca"):
         AudioMetrics(metrics=["fad"], embedder=emb, device="cpu", n_pca=16)
+    with pytest.raises(NotImplementedError, match="multi-GPU"):
+        AudioMetrics(metrics=["fad"], embedder=emb, device="cpu", device_indices=[0, 1])
+    with pytest.raises(NotImplementedError, match="precompile"):
+        AudioMetrics(metrics=["fad"], embedder=emb, device="cpu").precompile()
     with pytest.raises(NotImplementedError, match="apa"):
         AudioMetrics(metrics=["apa", "fad"], embedder=emb, device="cpu")
     with pytest.raises(NotImplementedError, match="pair"):
@@ -170,9 +174,9 @@ def test_unported_surface_raises():
         AudioMetrics(metrics=["fad"], embedder="vggish", device="cpu")
     with pytest.raises(ValueError, match="empty"):
         am.evaluate(_clips(0, 1))
-    with pytest.raises(NotImplementedError, match="tile"):  # 10 s windows
-        AudioMetrics(metrics=["fad"], embedder=emb, device="cpu", win_dur=10.0).add_reference(
-            np.zeros((1, 10 * SR), np.float32)
+    with pytest.raises(ValueError, match="10 s"):  # CLAP takes at most 10 s windows
+        AudioMetrics(metrics=["fad"], embedder=emb, device="cpu", win_dur=12.0).add_reference(
+            np.zeros((1, 12 * SR), np.float32)
         )
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
