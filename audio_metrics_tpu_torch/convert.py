@@ -3,7 +3,10 @@
 The dict is the framework-free one that ``init_params``,
 ``init_projection_params`` and the JAX package's ``convert_checkpoint``
 produce (HF Clap names, f32 arrays), so both packages compute with the same
-weights.  Every fold the kernels need happens here, once.
+weights.  Every fold the kernels need happens here, once: each Swin block
+takes the layout of the path it runs (``models.htsat.SwinBlock``: the v4/v3
+fold, v1's per-head weights or the XLA half's raw weights), chosen from
+``AM_TPU_V4_STAGES`` and ``AM_TPU_ATTN_V1`` as they stand at this call.
 """
 
 from __future__ import annotations

@@ -184,5 +184,25 @@ KERNELS = {
             "audio_metrics_tpu_torch/kernels/csrc/log_mel.cu",
             "audio_metrics_tpu/ops/mel.py:554",
         ),
+        Kernel(
+            "swin_attn_v3",
+            "audio_metrics_tpu_torch/kernels/csrc/swin_halves.cu",
+            "audio_metrics_tpu/ops/attention.py:869",
+        ),
+        Kernel(
+            "swin_mlp",
+            "audio_metrics_tpu_torch/kernels/csrc/swin_halves.cu",
+            "audio_metrics_tpu/ops/mlp.py:147",
+        ),
+        Kernel(
+            "swin_attn_v1",
+            "audio_metrics_tpu_torch/kernels/csrc/swin_halves.cu",
+            "audio_metrics_tpu/ops/attention.py:400",
+        ),
+        Kernel(
+            "log_mel_v1",
+            "audio_metrics_tpu_torch/kernels/csrc/log_mel.cu",
+            "audio_metrics_tpu/ops/mel.py:360",
+        ),
     )
 }

@@ -46,6 +46,9 @@ enum Epi {
   EPI_POWER,      // f32 out[n/2] = acc[n]^2 + acc[n+1]^2          (interleaved re/im)
   EPI_INTERP,     // bf16 out[r % rg][(r / rg)*N + n] = acc        (phase rows -> lanes)
   EPI_BIAS_F32,   // f32 out = acc + v0
+  EPI_PROJ_BF16,  // bf16 out[map(r)] = acc + v0 + res_bf16[map(r)] (EPI_PROJ, bf16 out)
+  EPI_RESID_BF16, // bf16 out = acc + v0 + res_bf16
+  EPI_BIAS_BF16,  // bf16 out = acc + v0
 };
 
 struct GemmParams {
@@ -238,8 +241,20 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(const GemmParams p) 
     } else if (EPI == EPI_INTERP) {
       const long long o = z * p.o_batch + (long long)(r % p.rg) * p.ldo + (r / p.rg) * p.N + n;
       static_cast<bf16*>(p.out)[o] = __float2bfloat16(a);
-    } else {  // EPI_BIAS_F32
+    } else if (EPI == EPI_BIAS_F32) {
       static_cast<float*>(p.out)[z * p.o_batch + (long long)r * p.ldo + n] = a + p.v0[n];
+    } else if (EPI == EPI_PROJ_BF16) {
+      const int img = r / (p.R * p.R);
+      const long long dst =
+          (long long)img * p.R * p.R + window_src(r - img * p.R * p.R, p.R, p.win, p.shift);
+      const float x = __bfloat162float(static_cast<const bf16*>(p.res)[dst * p.ldo + n]);
+      static_cast<bf16*>(p.out)[dst * p.ldo + n] = __float2bfloat16(a + p.v0[n] + x);
+    } else if (EPI == EPI_RESID_BF16) {
+      const long long o = (long long)r * p.ldo + n;
+      const float v = a + p.v0[n] + __bfloat162float(static_cast<const bf16*>(p.res)[o]);
+      static_cast<bf16*>(p.out)[o] = __float2bfloat16(v);
+    } else {  // EPI_BIAS_BF16
+      static_cast<bf16*>(p.out)[(long long)r * p.ldo + n] = __float2bfloat16(a + p.v0[n]);
     }
   }
 }
@@ -259,26 +274,30 @@ inline GemmParams gemm_params(int M, int N, int K, const bf16* A, long long lda,
   return p;
 }
 
-// LayerNorm over segments of Cs f32 values (one warp per segment, centered
-// two-pass statistics), affine, bf16 out.  Segment s of input row r is
-// written to output row r (nseg == 1), or, with tok_gw > 0, to the Swin
-// token row of the fused frontend: input rows are (clip, chunk*gw + g),
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
+
+// LayerNorm over segments of Cs f32 or bf16 values (one warp per segment,
+// centered two-pass f32 statistics), affine, bf16 out.  Segment s of input
+// row r is written to output row r (nseg == 1), or, with tok_gw > 0, to the
+// Swin token row of the fused frontend: input rows are (clip, chunk*gw + g),
 // segments are frequency blocks fblk, and the token is
 // (chunk*nseg + fblk)*gw + g of its clip.
-__global__ void ln_rows_kernel(const float* in, int rows, int nseg, int Cs,
+template <typename InT>
+__global__ void ln_rows_kernel(const InT* in, int rows, int nseg, int Cs,
                                const float* w, const float* b, float eps,
                                bf16* out, int tok_gw, int tok_rg) {
   const int seg_id = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (seg_id >= rows * nseg) return;
   const int r = seg_id / nseg, s = seg_id - r * nseg;
-  const float* x = in + (long long)r * nseg * Cs + (long long)s * Cs;
+  const InT* x = in + (long long)r * nseg * Cs + (long long)s * Cs;
   float sum = 0.f;
-  for (int c = lane; c < Cs; c += 32) sum += x[c];
+  for (int c = lane; c < Cs; c += 32) sum += to_f32(x[c]);
   const float mu = warp_sum(sum) / Cs;
   float var = 0.f;
   for (int c = lane; c < Cs; c += 32) {
-    const float d = x[c] - mu;
+    const float d = to_f32(x[c]) - mu;
     var += d * d;
   }
   const float rs = rsqrtf(warp_sum(var) / Cs + eps);
@@ -289,14 +308,16 @@ __global__ void ln_rows_kernel(const float* in, int rows, int nseg, int Cs,
     orow = (long long)img * tok_rg * nseg + (long long)(chunk * nseg + s) * tok_gw + g;
   }
   bf16* o = out + orow * Cs;
-  for (int c = lane; c < Cs; c += 32) o[c] = __float2bfloat16((x[c] - mu) * rs * w[c] + b[c]);
+  for (int c = lane; c < Cs; c += 32)
+    o[c] = __float2bfloat16((to_f32(x[c]) - mu) * rs * w[c] + b[c]);
 }
 
-inline cudaError_t launch_ln_rows(const float* in, int rows, int nseg, int Cs, const float* w,
-                                  const float* b, float eps, bf16* out, int tok_gw, int tok_rg,
-                                  cudaStream_t stream) {
+template <typename InT>
+cudaError_t launch_ln_rows(const InT* in, int rows, int nseg, int Cs, const float* w,
+                           const float* b, float eps, bf16* out, int tok_gw, int tok_rg,
+                           cudaStream_t stream) {
   const int warps = 8, segs = rows * nseg;
-  ln_rows_kernel<<<(segs + warps - 1) / warps, warps * 32, 0, stream>>>(
+  ln_rows_kernel<InT><<<(segs + warps - 1) / warps, warps * 32, 0, stream>>>(
       in, rows, nseg, Cs, w, b, eps, out, tok_gw, tok_rg);
   return cudaGetLastError();
 }

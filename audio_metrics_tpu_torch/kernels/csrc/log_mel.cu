@@ -1,4 +1,5 @@
-// Log-mel spectrogram with the frames read in place from hop rows.
+// Log-mel spectrogram: the halo kernel (frames read in place from hop rows)
+// and the v1 kernel (frames materialised in device memory).
 //
 // Replaces the TPU kernel audio_metrics_tpu/ops/mel.py::log_mel_pallas_halo
 // (pallas_call at :554): bf16 frames x bf16 windowed-DFT basis cut to the
@@ -22,7 +23,37 @@
 // The power rows pass through device memory (f32) to the mel/log/affine
 // kernel shared with the frontend (gemm.cuh::mel_log_kernel), which writes
 // exactly n_frames rows.
+//
+// The v1 kernel replaces audio_metrics_tpu/ops/mel.py::log_mel_pallas
+// (pallas_call at :360): the same function, with the overlapping frames
+// materialised in device memory as the TPU wrapper does (bf16, width
+// n_chunks*hop, the one intermediate that TPU kernel writes to HBM).  Its
+// bound is the halo kernel's (same input, output and operations); what it
+// pays on top is the frame matrix, written once and read once (CLAP 10 s:
+// 1001 x 1440 bf16 per clip, 2.9 MB, against the 1.9 MB f32 clip).  Three
+// launches: a framing kernel (f32 signal -> bf16 frame rows, zero past the
+// signal and past the frame width), the DFT GEMM (EPI_POWER) over those rows
+// with row stride = frame pitch, and mel_log_kernel.
 #include "gemm.cuh"
+
+namespace {
+
+// frames[(b*n_frames + r)*ldf + j] = bf16(x[b*n_sig + r*hop + j]) for
+// j < width inside the signal, else 0.
+__global__ void frame_rows_kernel(const float* __restrict__ x, int n_sig, int hop, int width,
+                                  int ldf, int n_frames, long long total,
+                                  bf16* __restrict__ frames) {
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < total;
+       i += (long long)gridDim.x * blockDim.x) {
+    const long long row = i / ldf;
+    const int j = (int)(i - row * ldf);
+    const long long b = row / n_frames;
+    const long long s = (row - b * n_frames) * hop + j;
+    frames[i] = __float2bfloat16(j < width && s < n_sig ? x[b * n_sig + s] : 0.f);
+  }
+}
+
+}  // namespace
 
 // hops: (B, clip_stride) bf16, frame r of clip b = samples [r*hop, r*hop +
 // k_pad) of row b (zero past the signal).  basis: (k_pad, 2*n_keep) bf16,
@@ -40,6 +71,36 @@ extern "C" int am_log_mel(const bf16* hops, int clip_stride, int hop, int k_pad,
   g.a_batch = clip_stride;
   g.o_batch = (long long)n_frames * n_keep;
   if ((e = launch_gemm<A_ROWS, EPI_POWER>(g, B, stream)) != cudaSuccess) return e;
+  const MelRows rows = {1, n_frames, n_frames, 0, n_frames, n_frames};
+  if (out_bf16)
+    return launch_mel_log(power, n_frames, n_keep, fb, sc, of, n_mels, rows, log_mode, log_offset,
+                          static_cast<bf16*>(out), B, stream);
+  return launch_mel_log(power, n_frames, n_keep, fb, sc, of, n_mels, rows, log_mode, log_offset,
+                        static_cast<float*>(out), B, stream);
+}
+
+// x: (B, n_sig) f32, the signal after the wrapper's reflect pad.  Frame r of
+// clip b = samples [r*hop, r*hop + width), zero past the signal.  Scratch:
+// frames (B*n_frames, ldf) bf16 (ldf = width rounded up to 32), power
+// (B, n_frames, n_keep) f32.  basis: (ldf, 2*n_keep) bf16, cos/sin
+// interleaved, zero rows past the frame length.  fb, sc, of, out as
+// am_log_mel.
+extern "C" int am_log_mel_v1(const float* x, int n_sig, int hop, int width, int ldf,
+                             int n_frames, bf16* frames, const bf16* basis, int n_keep,
+                             float* power, const float* fb, const float* sc, const float* of,
+                             int n_mels, int log_mode, float log_offset, int out_bf16, void* out,
+                             int B, cudaStream_t stream) {
+  cudaError_t e;
+  const long long total = (long long)B * n_frames * ldf;
+  const int threads = 256;
+  const long long want = (total + threads - 1) / threads;
+  const int blocks = (int)(want < 132 * 32 ? want : 132 * 32);
+  frame_rows_kernel<<<blocks, threads, 0, stream>>>(x, n_sig, hop, width, ldf, n_frames, total,
+                                                    frames);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  GemmParams g = gemm_params(B * n_frames, 2 * n_keep, ldf, frames, ldf, basis, 2 * n_keep, power,
+                             n_keep);
+  if ((e = launch_gemm<A_ROWS, EPI_POWER>(g, 1, stream)) != cudaSuccess) return e;
   const MelRows rows = {1, n_frames, n_frames, 0, n_frames, n_frames};
   if (out_bf16)
     return launch_mel_log(power, n_frames, n_keep, fb, sc, of, n_mels, rows, log_mode, log_offset,

@@ -8,7 +8,8 @@ Counterpart of ``audio_metrics_tpu/models/clap.py``:
          [one kernel on the bf16 path for clips that tile 10 s:
          ops/frontend_fused.py; other lengths: the halo log-mel kernel,
          ops/mel.py, then plain products]
-      -> HTSAT Swin encoder [ops/attention.py, ops/merge.py kernels]
+      -> HTSAT Swin encoder [ops/attention.py, ops/mlp.py, ops/merge.py
+         kernels; each block's path as models/htsat.py selects it]
       -> latent (B, num_features)
       -> audio_projection: linear1 -> relu -> linear2 -> l2-normalize
 
@@ -30,9 +31,7 @@ from ..ops.frontend_fused import (
     frontend_tables,
     fused_frontend_supported,
 )
-from ..ops.attention import swin_block
 from ..ops.mel import log_mel_spectrogram, mel_filter_bank
-from ..ops.merge import patch_merge
 from .base import Embedder, _require_random_weights_optin, resolve_device
 from .htsat import HTSAT_BASE, HTSATConfig, HTSATEncoder, frontend_tokens, init_params
 
@@ -206,7 +205,7 @@ class ClapAudio(nn.Module):
                 mel = (mel - fr.running_mean) * torch.rsqrt(fr.running_var + 1e-5) \
                     * fr.weight + fr.bias
             tokens = frontend_tokens(mel, fr.patch_w, fr.patch_b, fr.ln_w, fr.ln_b, cfg, dt)
-        return self._projection_taps(self.encoder(tokens, swin_block, patch_merge))
+        return self._projection_taps(self.encoder(tokens))
 
     def _projection_taps(self, latent) -> dict:
         """Pooled latent -> the reference tap outputs (reference

@@ -3,22 +3,44 @@
 Counterpart of ``audio_metrics_tpu/models/htsat.py``.  The numpy half
 (configs, ``init_params``, the static index/mask/interp tables) is copied
 so that the same seed gives the same parameter dict in both packages.  The
-model half holds the weights already folded for the kernels — the LN1
-affine and 1/sqrt(d) scale in ``wqkv``/``bq3``, the value bias in ``bp``,
-the bias+mask table, and the patch-merge LN fold — computed once when the
-weights load, not on every forward.
+model half holds the weights already laid out for the path each block takes
+— for the kernels the LN1 affine and 1/sqrt(d) scale in ``wqkv``/``bq3``,
+the value bias in ``bp``, the bias+mask table, and the patch-merge LN fold
+— computed once when the weights load, not on every forward.
+
+Which path a Swin block takes follows the JAX package's ``_swin_block``
+(:528-631) and the same two environment variables, read once when the
+encoder is built (the JAX package reads them at import):
+``AM_TPU_V4_STAGES`` (default ``2u,2s,0u,0s,1u,1s,3u``) lists the
+``{stage}{u|s}`` entries whose blocks run whole (v4); the other blocks run
+their attention half as v3, or, under ``AM_TPU_ATTN_V1``, as v1 at stages
+of >= 16 windows and as the XLA attention elsewhere; then the fused MLP
+where a forward has >= 1024 tokens or >= 16384 rows, else the XLA MLP.
 
 Parameter naming follows the HF Clap state dict, as in the JAX package.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from functools import lru_cache
 
 import numpy as np
 import torch
 from torch import nn
+
+from ..ops.attention import (
+    swin_attention_half_v1,
+    swin_attention_half_v1_plain,
+    swin_attention_half_v3,
+    swin_attention_half_v3_plain,
+    swin_block,
+    swin_block_plain,
+    window_attention_xla,
+)
+from ..ops.merge import patch_merge, patch_merge_plain
+from ..ops.mlp import layer_norm, mlp_block, mlp_block_plain, mlp_xla
 
 __all__ = [
     "HTSATConfig",
@@ -181,20 +203,48 @@ def init_params(cfg: HTSATConfig = HTSAT_BASE, seed: int = 0) -> dict:
 
 
 # ----------------------------------------------------------------------
-# weight folds (numpy f32, once at load)
+# weight layouts (numpy f32, once at load)
 # ----------------------------------------------------------------------
+def _bias_mask(p: dict, pre: str, resolution: int, shift: int, num_heads: int,
+               window: int) -> np.ndarray:
+    """(nW or 1, heads, n, n) additive relative-position bias + shift mask
+    (audio_metrics_tpu/models/htsat.py:338-345, :414-421)."""
+    n = window * window
+    table = np.asarray(p[f"{pre}.self.relative_position_bias_table"], np.float32)
+    idx = _relative_position_index(window).reshape(-1)
+    bias = table[idx].reshape(n, n, num_heads).transpose(2, 0, 1)
+    if shift > 0:
+        bm = bias[None] + _shift_attn_mask(resolution, resolution, window, shift)[:, None]
+    else:
+        bm = bias[None]
+    return np.ascontiguousarray(bm, np.float32)
+
+
+def _mlp_weights(p: dict, prefix: str) -> dict:
+    """LN2 and the MLP, input-major (htsat.py:612-631)."""
+    f32 = lambda k: np.asarray(p[k], np.float32)
+    return dict(
+        ln2_w=f32(f"{prefix}.layernorm_after.weight"),
+        ln2_b=f32(f"{prefix}.layernorm_after.bias"),
+        w1=f32(f"{prefix}.intermediate.dense.weight").T,
+        b1=f32(f"{prefix}.intermediate.dense.bias"),
+        w2=f32(f"{prefix}.output.dense.weight").T,
+        b2=f32(f"{prefix}.output.dense.bias"),
+    )
+
+
 def _v3_kernel_weights(p: dict, prefix: str, resolution: int, shift: int,
                        num_heads: int, window: int) -> dict:
-    """audio_metrics_tpu/models/htsat.py:370-422: fused (C, 3C) ``wqkv``
-    with the 1/sqrt(d) scale folded into q and the LN1 affine folded into
-    weights and bias, the key bias dropped (constant per score row), the
-    value bias folded into the projection bias (softmax rows sum to 1), and
-    the (nW or 1, heads, n, n) additive bias+mask table.  All f32 numpy."""
+    """audio_metrics_tpu/models/htsat.py:370-422, for the v4 and v3 paths:
+    fused (C, 3C) ``wqkv`` with the 1/sqrt(d) scale folded into q and the
+    LN1 affine folded into weights and bias, the key bias dropped (constant
+    per score row), the value bias folded into the projection bias (softmax
+    rows sum to 1), and the (nW or 1, heads, n, n) additive bias+mask
+    table; with LN2 and the MLP.  All f32 numpy."""
     f32 = lambda k: np.asarray(p[k], np.float32)
     pre = f"{prefix}.attention"
     c = p[f"{pre}.self.query.weight"].shape[0]
     d = c // num_heads
-    n = window * window
     scale = np.float32(1.0 / np.sqrt(d))
 
     wqkv_f32 = np.concatenate(
@@ -217,23 +267,67 @@ def _v3_kernel_weights(p: dict, prefix: str, resolution: int, shift: int,
     wp = f32(f"{pre}.output.dense.weight").T
     bv = f32(f"{pre}.self.value.bias")
     bp = f32(f"{pre}.output.dense.bias") + bv @ wp
+    return dict(
+        wqkv=wqkv, bq3=bq3, wp=wp, bp=bp,
+        bm=_bias_mask(p, pre, resolution, shift, num_heads, window),
+        **_mlp_weights(p, prefix),
+    )
 
+
+def _v1_kernel_weights(p: dict, prefix: str, resolution: int, shift: int,
+                       num_heads: int, window: int) -> dict:
+    """audio_metrics_tpu/models/htsat.py:320-345, for the v1 path: per-head
+    ``wq``/``wk``/``wv`` (heads, C, d) with the 1/sqrt(d) scale in wq and
+    ``bq`` (heads, d), ``wp`` (heads, d, C), the value bias folded into
+    ``bp``, the LN1 affine kept apart, the bias+mask table; with LN2 and the
+    MLP."""
+    f32 = lambda k: np.asarray(p[k], np.float32)
+    pre = f"{prefix}.attention"
+    c = p[f"{pre}.self.query.weight"].shape[0]
+    d = c // num_heads
+    scale = np.float32(1.0 / np.sqrt(d))
+    heads = lambda w: w.T.reshape(c, num_heads, d).transpose(1, 0, 2)
+    wp = f32(f"{pre}.output.dense.weight").T.reshape(num_heads, d, c)
+    bv = f32(f"{pre}.self.value.bias").reshape(num_heads, d)
+    return dict(
+        ln1_w=f32(f"{prefix}.layernorm_before.weight"),
+        ln1_b=f32(f"{prefix}.layernorm_before.bias"),
+        wq=heads(f32(f"{pre}.self.query.weight")) * scale,
+        bq=f32(f"{pre}.self.query.bias").reshape(num_heads, d) * scale,
+        wk=heads(f32(f"{pre}.self.key.weight")),
+        wv=heads(f32(f"{pre}.self.value.weight")),
+        wp=wp,
+        bp=f32(f"{pre}.output.dense.bias") + np.einsum("hd,hdc->c", bv, wp),
+        bm=_bias_mask(p, pre, resolution, shift, num_heads, window),
+        **_mlp_weights(p, prefix),
+    )
+
+
+def _xla_weights(p: dict, prefix: str, resolution: int, shift: int,
+                 num_heads: int, window: int) -> dict:
+    """The raw weights of the XLA attention half (htsat.py:237-285,
+    :584-607): fused (C, 3C) ``wqkv`` and (3C,) ``bqkv`` unscaled, ``wp``
+    and ``bp`` as given, the gathered (heads, n, n) relative-position bias
+    and the (nW, n, n) shift mask apart; with LN2 and the MLP."""
+    f32 = lambda k: np.asarray(p[k], np.float32)
+    pre = f"{prefix}.attention"
+    names = ("query", "key", "value")
+    n = window * window
     table = f32(f"{pre}.self.relative_position_bias_table")
     idx = _relative_position_index(window).reshape(-1)
-    bias = table[idx].reshape(n, n, num_heads).transpose(2, 0, 1)
-    if shift > 0:
-        bm = bias[None] + _shift_attn_mask(resolution, resolution, window, shift)[:, None]
-    else:
-        bm = bias[None]
-    return dict(
-        wqkv=wqkv, bq3=bq3, wp=wp, bp=bp, bm=np.ascontiguousarray(bm, np.float32),
-        ln2_w=f32(f"{prefix}.layernorm_after.weight"),
-        ln2_b=f32(f"{prefix}.layernorm_after.bias"),
-        w1=f32(f"{prefix}.intermediate.dense.weight").T,
-        b1=f32(f"{prefix}.intermediate.dense.bias"),
-        w2=f32(f"{prefix}.output.dense.weight").T,
-        b2=f32(f"{prefix}.output.dense.bias"),
+    w = dict(
+        ln1_w=f32(f"{prefix}.layernorm_before.weight"),
+        ln1_b=f32(f"{prefix}.layernorm_before.bias"),
+        wqkv=np.concatenate([f32(f"{pre}.self.{k}.weight").T for k in names], axis=1),
+        bqkv=np.concatenate([f32(f"{pre}.self.{k}.bias") for k in names]),
+        wp=f32(f"{pre}.output.dense.weight").T,
+        bp=f32(f"{pre}.output.dense.bias"),
+        rel_bias=table[idx].reshape(n, n, num_heads).transpose(2, 0, 1),
+        **_mlp_weights(p, prefix),
     )
+    if shift > 0:
+        w["mask"] = _shift_attn_mask(resolution, resolution, window, shift)
+    return w
 
 
 def _merge_weights(p: dict, prefix: str) -> dict:
@@ -251,7 +345,10 @@ def _merge_weights(p: dict, prefix: str) -> dict:
     )
 
 
-_MATRICES = ("wqkv", "wp", "w1", "w2", "wg")  # held in the compute dtype
+_MATRICES = ("wqkv", "wp", "w1", "w2", "wg", "wq", "wk", "wv")  # held in the compute dtype
+_WEIGHTS = {"v4": _v3_kernel_weights, "v3": _v3_kernel_weights, "v1": _v1_kernel_weights,
+            "xla": _xla_weights}
+_DEFAULT_V4_STAGES = "2u,2s,0u,0s,1u,1s,3u"
 
 
 class _Folded(nn.Module):
@@ -265,30 +362,67 @@ class _Folded(nn.Module):
             self.register_buffer(name, t.to(dtype) if name in _MATRICES else t)
 
 
+def attention_choice(stage: int, shift: int, n_windows: int, v4_stages: frozenset,
+                     attn_v1: bool) -> str:
+    """The attention path of one block, in the dispatch order of
+    audio_metrics_tpu/models/htsat.py:564-584 (``shift`` after the
+    one-window rule): "v4" (the whole block in one kernel) if the block's
+    ``{stage}{u|s}`` entry is in the table and ``AM_TPU_ATTN_V1`` is unset;
+    else "v3" if it is unset; else "v1" at >= 16 windows; else "xla"."""
+    if not attn_v1:
+        return "v4" if f"{stage}{'s' if shift else 'u'}" in v4_stages else "v3"
+    return "v1" if n_windows >= 16 else "xla"
+
+
 class SwinBlock(_Folded):
-    """One Swin block; ``forward`` runs it through ``block_fn``
-    (``ops.attention.swin_block`` or its plain version)."""
+    """One Swin block.  ``attention`` is its path ("v4", "v3", "v1" or
+    "xla", :func:`attention_choice`); it holds the weights in that path's
+    layout.  ``forward(x)`` runs the kernel wrappers (or the XLA half);
+    ``forward(x, plain=True)`` the kernels' plain versions on any device."""
 
     def __init__(self, p, prefix, cfg: HTSATConfig, resolution: int, shift: int,
-                 heads: int, dtype):
+                 heads: int, dtype, attention: str = "v4"):
         window = cfg.window_size
         if resolution <= window:  # htsat.py:534-536: one window, no shift
             window, shift = resolution, 0
         super().__init__(
-            _v3_kernel_weights(p, prefix, resolution, shift, heads, window), dtype
+            _WEIGHTS[attention](p, prefix, resolution, shift, heads, window), dtype
         )
+        self.attention = attention
         self.resolution, self.window, self.shift = resolution, window, shift
         self.heads, self.eps = heads, cfg.layer_norm_eps
 
-    def forward(self, x, block_fn):
+    def fused_mlp(self, batch: int) -> bool:
+        """htsat.py:547-551: the MLP kernel where the forward has >= 1024
+        tokens or >= 16384 rows; the XLA MLP below that."""
+        tokens = self.resolution * self.resolution
+        return tokens >= 1024 or batch * tokens >= 16384
+
+    def forward(self, x, plain: bool = False):
         b, n, c = x.shape
         r = self.resolution
-        out = block_fn(
-            x.view(b, r, r, c), self.wqkv, self.bq3, self.wp, self.bp, self.bm,
-            self.ln2_w, self.ln2_b, self.w1, self.b1, self.w2, self.b2,
-            heads=self.heads, window=self.window, shift=self.shift, eps=self.eps,
-        )
-        return out.view(b, n, c)
+        x4 = x.view(b, r, r, c)
+        geo = dict(heads=self.heads, window=self.window, shift=self.shift, eps=self.eps)
+        mlp = (self.ln2_w, self.ln2_b, self.w1, self.b1, self.w2, self.b2)
+        if self.attention == "v4":
+            fn = swin_block_plain if plain else swin_block
+            out = fn(x4, self.wqkv, self.bq3, self.wp, self.bp, self.bm, *mlp, **geo)
+            return out.view(b, n, c)
+        if self.attention == "v3":
+            fn = swin_attention_half_v3_plain if plain else swin_attention_half_v3
+            x4 = fn(x4, self.wqkv, self.bq3, self.wp, self.bp, self.bm, **geo)
+        elif self.attention == "v1":
+            fn = swin_attention_half_v1_plain if plain else swin_attention_half_v1
+            x4 = fn(x4, self.ln1_w, self.ln1_b, self.wq, self.bq, self.wk, self.wv, self.wp,
+                    self.bp, self.bm, **geo)
+        else:
+            x4 = window_attention_xla(x4, self.ln1_w, self.ln1_b, self.wqkv, self.bqkv, self.wp,
+                                      self.bp, self.rel_bias, getattr(self, "mask", None), **geo)
+        if not self.fused_mlp(b):
+            fn = mlp_xla
+        else:
+            fn = mlp_block_plain if plain else mlp_block
+        return fn(x4.view(b, n, c), *mlp, eps=self.eps)
 
 
 class PatchMerge(_Folded):
@@ -296,37 +430,42 @@ class PatchMerge(_Folded):
         super().__init__(_merge_weights(p, prefix), dtype)
         self.resolution, self.eps = resolution, cfg.layer_norm_eps
 
-    def forward(self, x, merge_fn):
+    def forward(self, x, plain: bool = False):
         r = self.resolution
-        return merge_fn(x, self.wg, self.svec, self.tvec, h=r, w=r, eps=self.eps)
-
-
-def layer_norm(x, w, b, eps):
-    """LayerNorm with f32 statistics regardless of activation dtype."""
-    xf = x.float()
-    mu = xf.mean(dim=-1, keepdim=True)
-    var = (xf - mu).square().mean(dim=-1, keepdim=True)
-    return ((xf - mu) * torch.rsqrt(var + eps) * w + b).to(x.dtype)
+        fn = patch_merge_plain if plain else patch_merge
+        return fn(x, self.wg, self.svec, self.tvec, h=r, w=r, eps=self.eps)
 
 
 class HTSATEncoder(nn.Module):
     """Patch tokens (B, grid^2, C) -> pooled latent (B, num_features) f32:
     the Swin stages, final LN, token-semantic regroup, average pool
-    (audio_metrics_tpu/models/htsat.py:947-988)."""
+    (audio_metrics_tpu/models/htsat.py:947-988).
+
+    ``AM_TPU_V4_STAGES`` and ``AM_TPU_ATTN_V1`` are read here, when the
+    encoder is built, and fix each block's path (:func:`attention_choice`);
+    the JAX package reads them once at import."""
 
     def __init__(self, p: dict, cfg: HTSATConfig, dtype: torch.dtype):
         super().__init__()
         self.cfg = cfg
         self.blocks = nn.ModuleList()
         self.merges = nn.ModuleList()
+        v4_stages = frozenset(
+            e.strip() for e in os.environ.get("AM_TPU_V4_STAGES", _DEFAULT_V4_STAGES).split(",")
+            if e.strip()
+        )
+        attn_v1 = bool(os.environ.get("AM_TPU_ATTN_V1"))
         resolution = cfg.grid_size
         for i, depth in enumerate(cfg.depths):
             stage = nn.ModuleList()
+            window = min(cfg.window_size, resolution)
             for j in range(depth):
-                shift = 0 if j % 2 == 0 else cfg.window_size // 2
+                shift = 0 if j % 2 == 0 or resolution <= window else cfg.window_size // 2
+                attention = attention_choice(i, shift, (resolution // window) ** 2, v4_stages,
+                                             attn_v1)
                 stage.append(SwinBlock(
                     p, f"audio_encoder.layers.{i}.blocks.{j}", cfg, resolution,
-                    shift, cfg.num_heads[i], dtype,
+                    shift, cfg.num_heads[i], dtype, attention=attention,
                 ))
             self.blocks.append(stage)
             if i < len(cfg.depths) - 1:
@@ -341,12 +480,13 @@ class HTSATEncoder(nn.Module):
                 torch.from_numpy(np.asarray(p[f"audio_encoder.norm.{name}"], np.float32)),
             )
 
-    def forward(self, x, block_fn, merge_fn):
+    def forward(self, x, plain: bool = False):
+        """``plain=True`` runs the kernels' plain versions on any device."""
         for i, stage in enumerate(self.blocks):
             for block in stage:
-                x = block(x, block_fn)
+                x = block(x, plain)
             if i < len(self.merges):
-                x = self.merges[i](x, merge_fn)
+                x = self.merges[i](x, plain)
         x = layer_norm(x, self.norm_weight, self.norm_bias, self.cfg.layer_norm_eps)
 
         # token-semantic regroup + average pool (ClapAudioEncoder tail)

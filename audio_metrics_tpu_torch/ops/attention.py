@@ -1,26 +1,57 @@
-"""Whole Swin block: the kernel wrapper and its plain PyTorch version.
+"""Swin attention: the whole-block kernel, the two attention-half kernels and
+the XLA attention half.
 
-Counterpart of ``audio_metrics_tpu/ops/attention.py::swin_block_pallas_v4``
-(:1137-1193, kernel ``_swin_block_kernel_v4`` :951).  Weight layout as
-there, after ``models.htsat._v3_kernel_weights``: ``wqkv`` (C, 3C) with the
-LN1 affine and 1/sqrt(d) folded in, ``bq3`` (3C,), ``wp`` (C, C), ``bp``
-(C,) absorbing the value bias, ``bm`` (nW or 1, heads, n, n) bias+mask,
-``w1`` (C, 4C), ``w2`` (4C, C) input-major; vectors f32.
+Counterparts in ``audio_metrics_tpu``:
 
-Dispatch: a CPU tensor runs :func:`swin_block_plain`; a CUDA tensor
-launches the hand-written kernel (kernels/csrc/swin_block.cu) or raises.
+- ``swin_block``: ``ops/attention.py::swin_block_pallas_v4`` (:1137-1193,
+  kernel ``_swin_block_kernel_v4`` :951), kernels/csrc/swin_block.cu;
+- ``swin_attention_half_v3``: ``swin_attention_block_pallas_v3`` (:902-948)
+  with ``ln_w=None`` (kernel ``_attn_block_kernel_v3`` :793),
+  kernels/csrc/swin_halves.cu::am_swin_attn_v3;
+- ``swin_attention_half_v1``: ``swin_attention_block_pallas`` (:426-470,
+  kernel ``_attn_block_kernel`` :111), kernels/csrc/swin_halves.cu::
+  am_swin_attn_v1;
+- ``window_attention_xla``: the XLA attention half of
+  ``models/htsat.py::_swin_block`` (:584-607, ``_window_attention``
+  :237-285), the JAX package's own non-kernel path: it runs on both
+  devices and is the plain version of no kernel.
+
+Weight layouts (``models.htsat``, folded once at load): v4 and v3 take
+``models.htsat._v3_kernel_weights``: ``wqkv`` (C, 3C) with the LN1 affine
+and 1/sqrt(d) folded in, ``bq3`` (3C,), ``wp`` (C, C), ``bp`` (C,)
+absorbing the value bias, ``bm`` (nW or 1, heads, n, n) bias+mask; v4 adds
+``w1`` (C, 4C), ``w2`` (4C, C) input-major.  v1 takes the per-head layout
+of ``models/htsat.py:320-345``: ``wq``/``wk``/``wv`` (heads, C, d) with wq
+pre-scaled, ``bq`` (heads, d) pre-scaled, ``wp`` (heads, d, C), ``bp`` and
+``bm`` as v3, the LN1 affine unfolded.  Matrices in the activation dtype,
+vectors and tables f32.
+
+Dispatch of each kernel wrapper: a CPU tensor runs its ``*_plain``
+version; a CUDA tensor launches the hand-written kernel or raises.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..kernels import KERNELS, require_cuda
+from .mlp import layer_norm
 
-__all__ = ["swin_block", "swin_block_plain"]
+__all__ = [
+    "swin_block",
+    "swin_block_plain",
+    "swin_attention_half_v3",
+    "swin_attention_half_v3_plain",
+    "swin_attention_half_v1",
+    "swin_attention_half_v1_plain",
+    "window_attention_xla",
+]
 
 KERNEL = KERNELS["swin_block"]
+KERNEL_V3 = KERNELS["swin_attn_v3"]
+KERNEL_V1 = KERNELS["swin_attn_v1"]
 
 
 def _mm(a, b):
@@ -29,26 +60,34 @@ def _mm(a, b):
     return torch.matmul(a.float(), b.float())
 
 
-def swin_block_plain(x, wqkv, bq3, wp, bp, bm, ln2_w, ln2_b, w1, b1, w2, b2, *,
-                     heads: int, window: int, shift: int, eps: float = 1e-5):
-    """x (B, R, R, C) -> same dtype.  Rounds where the kernel rounds: qkv,
-    probabilities, context, the LN2 output and the GELU output go to the
-    activation dtype; the residual and every statistic stay f32.  Unlike
-    the JAX XLA block (htsat.py:264-266) scores are not rounded."""
+def _partition(x, window: int, shift: int):
+    """(B, H, W, C) rolled by -shift -> (B*nW*window^2, C) rows in window
+    order."""
     b, h, w, c = x.shape
-    dt = x.dtype
-    n = window * window
-    hb, wb = h // window, w // window
-    g = b * hb * wb
-    d = c // heads
+    if shift:
+        x = torch.roll(x, shifts=(-shift, -shift), dims=(1, 2))
+    x = x.reshape(b, h // window, window, w // window, window, c)
+    return x.permute(0, 1, 3, 2, 4, 5).reshape(-1, c)
 
-    x4 = torch.roll(x, shifts=(-shift, -shift), dims=(1, 2)) if shift else x
-    xw = x4.reshape(b, hb, window, wb, window, c).permute(0, 1, 3, 2, 4, 5).reshape(g * n, c)
-    xwf = xw.float()
-    mu = xwf.mean(dim=-1, keepdim=True)
-    rs = torch.rsqrt((xwf - mu).square().mean(dim=-1, keepdim=True) + eps)
-    csum = wqkv.float().sum(dim=0)
-    y = (_mm(xw, wqkv) * rs - (rs * mu) * csum + bq3).to(dt)
+
+def _unpartition(rows, b: int, h: int, w: int, window: int, shift: int):
+    """Inverse of :func:`_partition`: window-order rows -> (B, H, W, C)
+    rolled by +shift."""
+    c = rows.shape[-1]
+    x = rows.reshape(b, h // window, w // window, window, window, c)
+    x = x.permute(0, 1, 3, 2, 4, 5).reshape(b, h, w, c)
+    return torch.roll(x, shifts=(shift, shift), dims=(1, 2)) if shift else x
+
+
+def _attention_residual(x, y, wp, bp, bm, heads: int, window: int, shift: int):
+    """x (B, H, W, C) and its window-order qkv rows ``y`` (rows, 3C), q
+    pre-scaled, in the activation dtype -> x + un-roll(un-partition(ctx @ wp
+    + bp)) in f32.  Scores + bias/mask and softmax in f32; probabilities and
+    context rounded to the activation dtype (scores are not rounded, unlike
+    the JAX XLA block, htsat.py:264-266)."""
+    b, h, w, c = x.shape
+    dt, n = x.dtype, window * window
+    g, d = y.shape[0] // n, c // heads
     q, k, v = (
         y[:, i * c : (i + 1) * c].reshape(g, n, heads, d).transpose(1, 2) for i in range(3)
     )
@@ -56,11 +95,44 @@ def swin_block_plain(x, wqkv, bq3, wp, bp, bm, ln2_w, ln2_b, w1, b1, w2, b2, *,
     s = (s.reshape(b, -1, heads, n, n) + bm[None]).reshape(g, heads, n, n)
     p = torch.softmax(s, dim=-1).to(dt)
     ctx = _mm(p, v).to(dt).transpose(1, 2).reshape(g * n, c)
-    ow = _mm(ctx, wp) + bp
-    o4 = ow.reshape(b, hb, wb, window, window, c).permute(0, 1, 3, 2, 4, 5).reshape(b, h, w, c)
-    if shift:
-        o4 = torch.roll(o4, shifts=(shift, shift), dims=(1, 2))
-    res = o4 + x.float()
+    return _unpartition(_mm(ctx, wp) + bp, b, h, w, window, shift) + x.float()
+
+
+def _qkv_ln_folded(x, wqkv, bq3, window: int, shift: int, eps: float):
+    """Window-order qkv rows with LN1 folded through the product:
+    rs * (x @ W) - rs * mu * (1 @ W) + bq3, rounded to the activation
+    dtype (what the kernels' EPI_QKV epilogue computes)."""
+    xw = _partition(x, window, shift)
+    xwf = xw.float()
+    mu = xwf.mean(dim=-1, keepdim=True)
+    rs = torch.rsqrt((xwf - mu).square().mean(dim=-1, keepdim=True) + eps)
+    csum = wqkv.float().sum(dim=0)
+    return (_mm(xw, wqkv) * rs - (rs * mu) * csum + bq3).to(x.dtype)
+
+
+def _check_geometry(name, x, heads, window, bm):
+    b, r, r2, c = x.shape
+    if r != r2 or r % window or window * window != 64 or c != 32 * heads or c % 64:
+        raise NotImplementedError(
+            f"{name} kernel takes 8x8 windows of 32-wide heads, got R={r} "
+            f"window={window} C={c} heads={heads}"
+        )
+    if bm.shape[1:] != (heads, 64, 64) or bm.shape[0] not in (1, (r // window) ** 2):
+        raise ValueError(f"bias/mask table shape {tuple(bm.shape)}")
+
+
+# ----------------------------------------------------------------------
+# #1 whole block (v4)
+# ----------------------------------------------------------------------
+def swin_block_plain(x, wqkv, bq3, wp, bp, bm, ln2_w, ln2_b, w1, b1, w2, b2, *,
+                     heads: int, window: int, shift: int, eps: float = 1e-5):
+    """x (B, R, R, C) -> same dtype.  Rounds where the kernel rounds: qkv,
+    probabilities, context, the LN2 output and the GELU output go to the
+    activation dtype; the residual and every statistic stay f32.  Unlike
+    the JAX XLA block (htsat.py:264-266) scores are not rounded."""
+    dt = x.dtype
+    y = _qkv_ln_folded(x, wqkv, bq3, window, shift, eps)
+    res = _attention_residual(x, y, wp, bp, bm, heads, window, shift)
 
     mu2 = res.mean(dim=-1, keepdim=True)
     var2 = (res - mu2).square().mean(dim=-1, keepdim=True)
@@ -71,16 +143,10 @@ def swin_block_plain(x, wqkv, bq3, wp, bp, bm, ln2_w, ln2_b, w1, b1, w2, b2, *,
 
 def _swin_block_cuda(x, wqkv, bq3, wp, bp, bm, ln2_w, ln2_b, w1, b1, w2, b2, *,
                      heads, window, shift, eps):
-    b, r, r2, c = x.shape
+    b, r, _, c = x.shape
     require_cuda(x, wqkv, wp, w1, w2)
     require_cuda(bq3, bp, bm, ln2_w, ln2_b, b1, b2, dtype=torch.float32)
-    if r != r2 or r % window or window * window != 64 or c != 32 * heads or c % 64:
-        raise NotImplementedError(
-            f"swin_block kernel takes 8x8 windows of 32-wide heads, got R={r} "
-            f"window={window} C={c} heads={heads}"
-        )
-    if bm.shape[1:] != (heads, 64, 64) or bm.shape[0] not in (1, (r // window) ** 2):
-        raise ValueError(f"bias/mask table shape {tuple(bm.shape)}")
+    _check_geometry("swin_block", x, heads, window, bm)
     m = b * r * r
     qkv = torch.empty((m, 3 * c), dtype=x.dtype, device=x.device)
     ctx = torch.empty((m, c), dtype=x.dtype, device=x.device)
@@ -102,3 +168,137 @@ def swin_block(x, wqkv, bq3, wp, bp, bm, ln2_w, ln2_b, w1, b1, w2, b2, *,
     fn = swin_block_plain if x.device.type == "cpu" else _swin_block_cuda
     return fn(x, wqkv, bq3, wp, bp, bm, ln2_w, ln2_b, w1, b1, w2, b2,
               heads=heads, window=window, shift=shift, eps=eps)
+
+
+# ----------------------------------------------------------------------
+# #8 attention half, LN1 affine folded (v3)
+# ----------------------------------------------------------------------
+def swin_attention_half_v3_plain(x, wqkv, bq3, wp, bp, bm, *, heads: int, window: int,
+                                 shift: int, eps: float = 1e-5):
+    """x (B, R, R, C) -> x + WindowAttention(LN1(x)), same dtype: the
+    whole block's attention half with its f32 residual rounded to the
+    activation dtype."""
+    y = _qkv_ln_folded(x, wqkv, bq3, window, shift, eps)
+    return _attention_residual(x, y, wp, bp, bm, heads, window, shift).to(x.dtype)
+
+
+def _attention_half_v3_cuda(x, wqkv, bq3, wp, bp, bm, *, heads, window, shift, eps):
+    b, r, _, c = x.shape
+    require_cuda(x, wqkv, wp)
+    require_cuda(bq3, bp, bm, dtype=torch.float32)
+    _check_geometry("swin_attn_v3", x, heads, window, bm)
+    m = b * r * r
+    qkv = torch.empty((m, 3 * c), dtype=x.dtype, device=x.device)
+    ctx = torch.empty((m, c), dtype=x.dtype, device=x.device)
+    out = torch.empty_like(x)
+    KERNEL_V3.launch("am_swin_attn_v3", x, wqkv, bq3, wp, bp, bm, bm.shape[0], b, r, c, heads,
+                     window, shift, float(eps), qkv, ctx, out)
+    KERNEL_V3.launches += 1
+    return out
+
+
+def swin_attention_half_v3(x, wqkv, bq3, wp, bp, bm, *, heads: int, window: int, shift: int,
+                           eps: float = 1e-5):
+    """Attention half of a Swin block, (B, R, R, C) -> (B, R, R, C)."""
+    fn = swin_attention_half_v3_plain if x.device.type == "cpu" else _attention_half_v3_cuda
+    return fn(x, wqkv, bq3, wp, bp, bm, heads=heads, window=window, shift=shift, eps=eps)
+
+
+# ----------------------------------------------------------------------
+# #10 attention half, per-head weights, LN1 affine in the kernel (v1)
+# ----------------------------------------------------------------------
+def _head_columns(wq, bq, wk, wv, wp):
+    """Per-head operands -> one product's: (heads, C, d) -> (C, heads*d)
+    side by side as (C, 3C) qkv, (heads, d) bq -> a (3C,) bias with zeros
+    on k and v, (heads, d, C) wp -> (heads*d, C).  Pure reshapes."""
+    h, c, d = wq.shape
+    cols = lambda w: w.permute(1, 0, 2).reshape(c, h * d)
+    wqkv = torch.cat([cols(wq), cols(wk), cols(wv)], dim=1)
+    bqkv = torch.cat([bq.reshape(-1), bq.new_zeros(2 * h * d)])
+    return wqkv, bqkv, wp.reshape(h * d, wp.shape[-1])
+
+
+def _v1_window(window: int, x) -> None:
+    if window * window != 64:
+        raise NotImplementedError(
+            f"swin_attn_v1 takes 8x8 windows; the merged one-window form (window = "
+            f"resolution = {x.shape[1]}, AM_TPU_MERGED_ATTN) is not ported (ROADMAP.md, "
+            f"'Not to port')"
+        )
+
+
+def swin_attention_half_v1_plain(x, ln_w, ln_b, wq, bq, wk, wv, wp, bp, bm, *, heads: int,
+                                 window: int, shift: int, eps: float = 1e-5):
+    """x (B, R, R, C) -> x + WindowAttention(LN1(x)), same dtype: LN1 with
+    its affine in f32 rounded to the activation dtype, per-head q/k/v (q
+    with its bias) rounded, then as v3; the sum over heads of ctx_h @ wp_h
+    is one f32 product over all heads' columns."""
+    _v1_window(window, x)
+    wqkv, bqkv, wp2 = _head_columns(wq, bq, wk, wv, wp)
+    xw = _partition(layer_norm(x, ln_w, ln_b, eps), window, shift)
+    y = (_mm(xw, wqkv) + bqkv).to(x.dtype)
+    return _attention_residual(x, y, wp2, bp, bm, heads, window, shift).to(x.dtype)
+
+
+def _attention_half_v1_cuda(x, ln_w, ln_b, wq, bq, wk, wv, wp, bp, bm, *, heads, window,
+                            shift, eps):
+    _v1_window(window, x)
+    b, r, _, c = x.shape
+    require_cuda(x, wq, wk, wv, wp)
+    require_cuda(ln_w, ln_b, bq, bp, bm, dtype=torch.float32)
+    _check_geometry("swin_attn_v1", x, heads, window, bm)
+    if wq.shape != (heads, c, c // heads) or wp.shape != (heads, c // heads, c):
+        raise ValueError(f"per-head weights wq {tuple(wq.shape)} wp {tuple(wp.shape)}")
+    wqkv, bqkv, wp2 = (t.contiguous() for t in _head_columns(wq, bq, wk, wv, wp))
+    m = b * r * r
+    xn = torch.empty((m, c), dtype=x.dtype, device=x.device)
+    qkv = torch.empty((m, 3 * c), dtype=x.dtype, device=x.device)
+    ctx = torch.empty((m, c), dtype=x.dtype, device=x.device)
+    out = torch.empty_like(x)
+    KERNEL_V1.launch("am_swin_attn_v1", x, ln_w, ln_b, wqkv, bqkv, wp2, bp, bm, bm.shape[0], b,
+                     r, c, heads, window, shift, float(eps), xn, qkv, ctx, out)
+    KERNEL_V1.launches += 1
+    return out
+
+
+def swin_attention_half_v1(x, ln_w, ln_b, wq, bq, wk, wv, wp, bp, bm, *, heads: int,
+                           window: int, shift: int, eps: float = 1e-5):
+    """Attention half of a Swin block with per-head weights, (B, R, R, C)
+    -> (B, R, R, C); 8x8 windows only."""
+    fn = swin_attention_half_v1_plain if x.device.type == "cpu" else _attention_half_v1_cuda
+    return fn(x, ln_w, ln_b, wq, bq, wk, wv, wp, bp, bm, heads=heads, window=window,
+              shift=shift, eps=eps)
+
+
+# ----------------------------------------------------------------------
+# the XLA attention half (no kernel)
+# ----------------------------------------------------------------------
+def window_attention_xla(x, ln_w, ln_b, wqkv, bqkv, wp, bp, rel_bias, mask, *, heads: int,
+                         window: int, shift: int, eps: float = 1e-5):
+    """x (B, R, R, C) -> x + WindowAttention(LN1(x)) as the JAX package's
+    XLA path computes it.  Raw weights: ``wqkv`` (C, 3C) = [Wq^T, Wk^T,
+    Wv^T] and ``wp`` (C, C) = Wo^T in the activation dtype, ``bqkv`` (3C,)
+    and ``bp`` the raw biases, ``rel_bias`` (heads, n, n) the gathered
+    relative-position table, ``mask`` (nW, n, n) or None, all f32.  Every
+    step rounds to the activation dtype as there: qkv, the scores (then
+    divided by sqrt(d) in that dtype), the bias and mask adds, the
+    probabilities (softmax in f32), the context, the projection; the
+    residual sum is taken in the activation dtype."""
+    b, h, w, c = x.shape
+    dt, n = x.dtype, window * window
+    d = c // heads
+    xw = _partition(layer_norm(x, ln_w, ln_b, eps), window, shift)
+    g = xw.shape[0] // n
+    y = (_mm(xw, wqkv) + bqkv).to(dt)
+    q, k, v = (
+        y[:, i * c : (i + 1) * c].reshape(g, n, heads, d).transpose(1, 2) for i in range(3)
+    )
+    s = _mm(q, k.transpose(-1, -2)).to(dt)
+    s = s / torch.tensor(np.sqrt(d), dtype=dt)
+    s = s + rel_bias.to(dt)[None]
+    if mask is not None:
+        s = (s.reshape(b, -1, heads, n, n) + mask.to(dt)[None, :, None]).reshape(g, heads, n, n)
+    p = torch.softmax(s.float(), dim=-1).to(dt)
+    ctx = _mm(p, v).to(dt).transpose(1, 2).reshape(g * n, c)
+    o = (_mm(ctx, wp) + bp).to(dt)
+    return x + _unpartition(o, b, h, w, window, shift)

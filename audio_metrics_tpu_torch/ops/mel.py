@@ -5,18 +5,22 @@ windowed-DFT tables are the same numpy code (:48-145, :222-228); framing is
 a hop-strided view, the DFT a product with the ``window * cos`` /
 ``window * sin`` basis, and the mel projection a second product
 (:151-219, :574-668).  ``log_mel_halo`` has the contract of
-``log_mel_pallas_halo`` (:374-571) and launches kernels/csrc/log_mel.cu;
-``log_mel_spectrogram`` dispatches to it for bf16 compute on a CUDA
-tensor, as :625-644 dispatches to the TPU kernel.  The CLAP 5 s path
-does not come here on a card: it goes through the fused frontend kernel
+``log_mel_pallas_halo`` (:374-571) and ``log_mel_v1`` that of
+``log_mel_pallas`` (:231-371); both launch kernels/csrc/log_mel.cu.
+``log_mel_spectrogram`` dispatches bf16 compute to one of them as
+:625-644 dispatches to the TPU kernels: to ``log_mel_v1`` when
+``AM_TPU_MEL_V1`` is set, else to ``log_mel_halo``.  The variable is read
+at call time (the JAX package reads it once at import).  The CLAP 5 s path
+does not come here in bf16: it goes through the fused frontend
 (ops/frontend_fused.py).
 
-Dispatch of ``log_mel_halo``: a CPU tensor runs ``log_mel_halo_plain``; a
-CUDA tensor launches the kernel or raises.
+Dispatch of ``log_mel_halo`` and ``log_mel_v1``: a CPU tensor runs the
+``*_plain`` version; a CUDA tensor launches the kernel or raises.
 """
 
 from __future__ import annotations
 
+import os
 from functools import lru_cache
 
 import numpy as np
@@ -31,9 +35,12 @@ __all__ = [
     "log_mel_spectrogram",
     "log_mel_halo",
     "log_mel_halo_plain",
+    "log_mel_v1",
+    "log_mel_v1_plain",
 ]
 
 KERNEL = KERNELS["log_mel"]
+KERNEL_V1 = KERNELS["log_mel_v1"]
 _LOG_MODES = {"db": 0, "natural": 1}
 
 
@@ -172,20 +179,19 @@ def _log(mel, log_mode: str, log_offset: float):
     raise ValueError(f"unknown log_mode {log_mode!r}")
 
 
-def log_mel_halo_plain(audio, *, frame_length: int, hop_length: int, n_fft: int, fb: np.ndarray,
-                       center: bool = True, log_mode: str = "db", log_offset: float = 0.01,
-                       out_affine=None, out_dtype=None):
-    """The kernel's arithmetic in plain tensor ops: bf16 frames x bf16
-    basis cut to the filterbank support (``_fb_support_bins``), f32
+def _log_mel_plain(x, width: int, *, frame_length, hop_length, n_fft, fb, log_mode, log_offset,
+                   out_affine, out_dtype):
+    """The kernels' arithmetic over the frames of ``width`` samples of the
+    padded f32 signal ``x``: bf16 frames x bf16 basis cut to the filterbank
+    support (``_fb_support_bins``) with zero rows past the frame length, f32
     accumulation, power, f32 mel product, log, affine, cast."""
-    x = audio.float()
-    if center:
-        x = _reflect_pad(x, frame_length)
     n_keep = _fb_support_bins(fb)
     cos_m, sin_m = _dft_matrices(frame_length, n_fft, "hann")
-    basis = np.concatenate([cos_m[:, :n_keep], sin_m[:, :n_keep]], axis=1)
+    basis = np.zeros((width, 2 * n_keep), np.float32)
+    basis[:frame_length, :n_keep] = cos_m[:, :n_keep]
+    basis[:frame_length, n_keep:] = sin_m[:, :n_keep]
     basis = torch.from_numpy(basis).to(x.device, torch.bfloat16).float()
-    frames = x.unfold(1, frame_length, hop_length).to(torch.bfloat16).float()
+    frames = x.unfold(1, width, hop_length).to(torch.bfloat16).float()
     fb_t = torch.from_numpy(np.ascontiguousarray(fb[:n_keep], np.float32)).to(x.device)
     acc = torch.matmul(frames, basis)
     re, im = acc[..., :n_keep], acc[..., n_keep:]
@@ -196,42 +202,93 @@ def log_mel_halo_plain(audio, *, frame_length: int, hop_length: int, n_fft: int,
     return lm.to(out_dtype or torch.float32)
 
 
+def log_mel_halo_plain(audio, *, frame_length: int, hop_length: int, n_fft: int, fb: np.ndarray,
+                       center: bool = True, log_mode: str = "db", log_offset: float = 0.01,
+                       out_affine=None, out_dtype=None):
+    """The halo kernel's arithmetic in plain tensor ops: frames of
+    ``frame_length`` samples."""
+    x = audio.float()
+    if center:
+        x = _reflect_pad(x, frame_length)
+    return _log_mel_plain(x, frame_length, frame_length=frame_length, hop_length=hop_length,
+                          n_fft=n_fft, fb=fb, log_mode=log_mode, log_offset=log_offset,
+                          out_affine=out_affine, out_dtype=out_dtype)
+
+
+def _v1_geometry(n_sig: int, frame_length: int, hop_length: int):
+    """(n_frames, width): the frames of ``log_mel_pallas`` (mel.py:267-269),
+    each the chunk-padded n_chunks * hop samples wide."""
+    n_frames = (n_sig - frame_length) // hop_length + 1
+    if n_frames < 1:
+        raise ValueError(f"{n_sig} samples hold no {frame_length}-sample frame")
+    return n_frames, -(-frame_length // hop_length) * hop_length
+
+
+def log_mel_v1_plain(audio, *, frame_length: int, hop_length: int, n_fft: int, fb: np.ndarray,
+                     center: bool = True, log_mode: str = "db", log_offset: float = 0.01,
+                     out_affine=None, out_dtype=None):
+    """The v1 kernel's arithmetic in plain tensor ops: frames of the
+    chunk-padded width n_chunks * hop, zero past the signal (the basis rows
+    past the frame length are zero)."""
+    x = audio.float()
+    if center:
+        x = _reflect_pad(x, frame_length)
+    n_frames, width = _v1_geometry(x.shape[1], frame_length, hop_length)
+    x = F.pad(x, (0, max(0, (n_frames - 1) * hop_length + width - x.shape[1])))
+    return _log_mel_plain(x, width, frame_length=frame_length, hop_length=hop_length,
+                          n_fft=n_fft, fb=fb, log_mode=log_mode, log_offset=log_offset,
+                          out_affine=out_affine, out_dtype=out_dtype)[:, :n_frames]
+
+
 @lru_cache(maxsize=16)
-def _halo_tables(frame_length: int, n_fft: int, fb_bytes: bytes, n_mels: int, device: str):
-    """Kernel tables on ``device``: the (K, 2*n_keep) bf16 basis with cos/sin
-    columns interleaved and zero rows from frame_length up to K (a multiple
-    of 32), and the (n_keep, n_mels) f32 filterbank rows, n_keep padded to a
-    multiple of 32 with zero columns / rows."""
+def _kernel_tables(frame_length: int, k_rows: int, n_fft: int, fb_bytes: bytes, n_mels: int,
+                   device: str):
+    """Kernel tables on ``device``: the (k_rows, 2*n_keep) bf16 basis with
+    cos/sin columns interleaved and zero rows from frame_length up to k_rows
+    (a multiple of 32), and the (n_keep, n_mels) f32 filterbank rows, n_keep
+    padded to a multiple of 32 with zero columns / rows."""
     fb = np.frombuffer(fb_bytes, np.float32).reshape(-1, n_mels)
     n_keep = _fb_support_bins(fb)
     n_keep_p = -(-n_keep // 32) * 32
-    k_pad = -(-frame_length // 32) * 32
     cos_m, sin_m = _dft_matrices(frame_length, n_fft, "hann")
-    basis = np.zeros((k_pad, 2 * n_keep_p), np.float32)
+    basis = np.zeros((k_rows, 2 * n_keep_p), np.float32)
     basis[:frame_length, 0 : 2 * n_keep : 2] = cos_m[:, :n_keep]
     basis[:frame_length, 1 : 2 * n_keep : 2] = sin_m[:, :n_keep]
     fb_p = np.zeros((n_keep_p, n_mels), np.float32)
     fb_p[:n_keep] = fb[:n_keep]
     return (torch.from_numpy(basis).to(device, torch.bfloat16),
-            torch.from_numpy(fb_p).to(device), k_pad, n_keep_p)
+            torch.from_numpy(fb_p).to(device), n_keep_p)
+
+
+def _kernel_args(name, audio, fb, frame_length, k_rows, n_fft, log_mode, out_affine, out_dtype):
+    """Checks shared by the two log-mel kernels, their tables and the
+    affine operands."""
+    if audio.dtype != torch.float32 or audio.ndim != 2:
+        raise NotImplementedError(f"{name} kernel takes (B, n) float32 audio, got "
+                                  f"{tuple(audio.shape)} {audio.dtype}")
+    if log_mode not in _LOG_MODES or out_dtype not in (torch.float32, torch.bfloat16):
+        raise NotImplementedError(f"{name} kernel: log_mode {log_mode!r}, out {out_dtype}")
+    fb = np.ascontiguousarray(fb, np.float32)
+    basis, fb_p, n_keep = _kernel_tables(frame_length, k_rows, n_fft, fb.tobytes(), fb.shape[1],
+                                         str(audio.device))
+    sc = of = None
+    if out_affine is not None:
+        sc, of = (t.to(audio.device, torch.float32).contiguous() for t in out_affine)
+        require_cuda(sc, of, dtype=torch.float32)
+    return basis, fb_p, n_keep, fb.shape[1], sc, of
 
 
 def _log_mel_halo_cuda(audio, *, frame_length, hop_length, n_fft, fb, center, log_mode,
                        log_offset, out_affine, out_dtype):
     out_dtype = out_dtype or torch.float32
-    if audio.dtype != torch.float32 or audio.ndim != 2:
-        raise NotImplementedError(f"log_mel kernel takes (B, n) float32 audio, got "
-                                  f"{tuple(audio.shape)} {audio.dtype}")
-    if log_mode not in _LOG_MODES or out_dtype not in (torch.float32, torch.bfloat16):
-        raise NotImplementedError(f"log_mel kernel: log_mode {log_mode!r}, out {out_dtype}")
     if hop_length % 8:
         raise NotImplementedError(f"log_mel kernel reads 16-byte rows: hop {hop_length} % 8 != 0")
-    fb = np.ascontiguousarray(fb, np.float32)
-    basis, fb_p, k_pad, n_keep = _halo_tables(frame_length, n_fft, fb.tobytes(), fb.shape[1],
-                                              str(audio.device))
+    k_pad = -(-frame_length // 32) * 32
+    basis, fb_p, n_keep, n_mels, sc, of = _kernel_args(
+        "log_mel", audio, fb, frame_length, k_pad, n_fft, log_mode, out_affine, out_dtype)
     # the JAX wrapper's prologue (mel.py:417-443): reflect pad, bf16, hop rows
     x = _reflect_pad(audio, frame_length) if center else audio
-    b, n_mels = x.shape[0], fb.shape[1]
+    b = x.shape[0]
     n_frames = (x.shape[1] - frame_length) // hop_length + 1
     if n_frames < 1:
         raise ValueError(f"{x.shape[1]} samples hold no {frame_length}-sample frame")
@@ -239,10 +296,6 @@ def _log_mel_halo_cuda(audio, *, frame_length, hop_length, n_fft, fb, center, lo
     hops = torch.zeros((b, clip_stride), dtype=torch.bfloat16, device=x.device)
     m = min(clip_stride, x.shape[1])
     hops[:, :m] = x[:, :m]
-    sc = of = None
-    if out_affine is not None:
-        sc, of = (t.to(x.device, torch.float32).contiguous() for t in out_affine)
-        require_cuda(sc, of, dtype=torch.float32)
     power = torch.empty((b, n_frames, n_keep), dtype=torch.float32, device=x.device)
     out = torch.empty((b, n_frames, n_mels), dtype=out_dtype, device=x.device)
     KERNEL.launch("am_log_mel", hops, clip_stride, hop_length, k_pad, n_frames, basis, n_keep,
@@ -266,6 +319,36 @@ def log_mel_halo(audio, *, frame_length: int, hop_length: int, n_fft: int, fb: n
               out_dtype=out_dtype)
 
 
+def _log_mel_v1_cuda(audio, *, frame_length, hop_length, n_fft, fb, center, log_mode,
+                     log_offset, out_affine, out_dtype):
+    out_dtype = out_dtype or torch.float32
+    x = (_reflect_pad(audio, frame_length) if center else audio).contiguous()
+    b, n_sig = x.shape
+    n_frames, width = _v1_geometry(n_sig, frame_length, hop_length)
+    ldf = -(-width // 32) * 32  # the frame pitch: K of the DFT product
+    basis, fb_p, n_keep, n_mels, sc, of = _kernel_args(
+        "log_mel_v1", x, fb, frame_length, ldf, n_fft, log_mode, out_affine, out_dtype)
+    frames = torch.empty((b * n_frames, ldf), dtype=torch.bfloat16, device=x.device)
+    power = torch.empty((b, n_frames, n_keep), dtype=torch.float32, device=x.device)
+    out = torch.empty((b, n_frames, n_mels), dtype=out_dtype, device=x.device)
+    KERNEL_V1.launch("am_log_mel_v1", x, n_sig, hop_length, width, ldf, n_frames, frames, basis,
+                     n_keep, power, fb_p, sc, of, n_mels, _LOG_MODES[log_mode],
+                     float(log_offset), int(out_dtype == torch.bfloat16), out, b)
+    KERNEL_V1.launches += 1
+    return out
+
+
+def log_mel_v1(audio, *, frame_length: int, hop_length: int, n_fft: int, fb: np.ndarray,
+               center: bool = True, log_mode: str = "db", log_offset: float = 0.01,
+               out_affine=None, out_dtype=None):
+    """``log_mel_halo``'s function with the frames materialised: (B, n) f32
+    -> (B, n_frames, n_mels) of ``out_dtype``."""
+    fn = log_mel_v1_plain if audio.device.type == "cpu" else _log_mel_v1_cuda
+    return fn(audio, frame_length=frame_length, hop_length=hop_length, n_fft=n_fft, fb=fb,
+              center=center, log_mode=log_mode, log_offset=log_offset, out_affine=out_affine,
+              out_dtype=out_dtype)
+
+
 def log_mel_spectrogram(audio, sampling_rate: int, frame_length: int, hop_length: int,
                         n_mels: int, fmin: float, fmax: float, n_fft: int | None = None,
                         center: bool = True,
@@ -277,15 +360,18 @@ def log_mel_spectrogram(audio, sampling_rate: int, frame_length: int, hop_length
     (10*log10(max(mel, 1e-10)), the CLAP convention) or "natural"
     (log(mel + log_offset), VGGish).  ``out_affine`` (scale, offset) is a
     per-bin affine applied to the log-mel (the bf16 CLAP forward folds
-    BatchNorm here); ``out_dtype`` the output dtype (default f32).  A CUDA
-    tensor with bf16 compute goes to the halo log-mel kernel."""
+    BatchNorm here); ``out_dtype`` the output dtype (default f32).  bf16
+    compute goes to the halo log-mel wrapper, or to ``log_mel_v1`` when
+    ``AM_TPU_MEL_V1`` is set (read here, at call time): a CUDA tensor
+    launches the kernel, a CPU tensor takes its plain version."""
     fb = mel_filter_bank(
         (n_fft or frame_length) // 2 + 1, n_mels, float(fmin), float(fmax),
         int(sampling_rate), norm=mel_norm, mel_scale=mel_scale,
         triangle_domain=triangle_domain, zero_dc=zero_dc,
     ).astype(np.float32)
-    if audio.is_cuda and compute_dtype == torch.bfloat16:
-        return log_mel_halo(
+    if compute_dtype == torch.bfloat16:
+        fn = log_mel_v1 if os.environ.get("AM_TPU_MEL_V1") else log_mel_halo
+        return fn(
             audio, frame_length=frame_length, hop_length=hop_length,
             n_fft=n_fft or frame_length, fb=fb, center=center, log_mode=log_mode,
             log_offset=log_offset, out_affine=out_affine, out_dtype=out_dtype,

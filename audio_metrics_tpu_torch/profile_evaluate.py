@@ -1,6 +1,11 @@
 """Where the time of one evaluate goes, on a card.
 
     python -m audio_metrics_tpu_torch.profile_evaluate [--win-dur 5] [--clips 2048]
+    AM_TPU_V4_STAGES= python -m audio_metrics_tpu_torch.profile_evaluate --clips 512
+
+The model's configuration variables (``AM_TPU_V4_STAGES``,
+``AM_TPU_ATTN_V1``, ``AM_TPU_MEL_V1``) apply as in any run; the profile
+prints them and each Swin stage's block paths.
 
 Builds ``AudioMetrics(metrics=["fad", "kd", "prdc"])`` with LaionCLAP
 HTSAT-base in bf16 (random weights from a seed), adds a reference of
@@ -19,6 +24,7 @@ non-zero without one.
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import time
 
@@ -28,7 +34,7 @@ import torch
 def _short(name: str) -> str:
     """A kernel's name without its template arguments and namespace."""
     for key in ("gemm_kernel<", "knn_kernel", "stats_kernel", "mel_log_kernel", "ln_rows_kernel",
-                "window_attn_kernel"):
+                "window_attn_kernel", "frame_rows_kernel"):
         if key in name:
             i = name.find(key)
             return name[i : name.find(">", i) + 1] if key.endswith("<") else key
@@ -76,6 +82,10 @@ def main(argv=None) -> int:
             k[1] += 1
     device_ms = sum(v[0] for v in kernels.values())
     print(f"card: {card_line()}; torch {torch.__version__}")
+    switches = {k: os.environ.get(k) for k in ("AM_TPU_V4_STAGES", "AM_TPU_ATTN_V1",
+                                                "AM_TPU_MEL_V1")}
+    paths = [[b.attention for b in stage] for stage in clap.model.encoder.blocks]
+    print(f"configuration {switches}; block paths per stage {paths}")
     print(f"evaluate of {args.clips} clips of {args.win_dur} s, batch {args.batch}, traced: "
           f"wall {wall_ms:.1f} ms, device kernel time {device_ms:.1f} ms over "
           f"{sum(v[1] for v in kernels.values())} kernels, device idle share "

@@ -24,7 +24,22 @@ Phases, one status line each:
      same evaluate through the plain versions;
   5. the 10 s path: ``win_dur=10.0`` (windows that do not tile 10 s take
      the halo log-mel kernel), 128 + 128 clips, launch counts, FAD of a set
-     against itself, embeddings against the plain path, clips/s.
+     against itself, embeddings against the plain path, clips/s;
+  6. split blocks: ``AM_TPU_V4_STAGES=""``, every Swin block as the v3
+     attention-half kernel then the fused-MLP kernel (or the XLA MLP at
+     stage 3's 4096 rows), 512 + 512 5 s clips: launch counts, FAD of a set
+     against itself, embeddings against the plain path and against the
+     default (whole-block) configuration on the same clips, clips/s;
+  7. v1 attention: ``AM_TPU_ATTN_V1=1``, the v1 attention-half kernel at
+     stages 0 and 1 and the XLA attention at stages 2 and 3, 256 + 256
+     clips, as phase 6;
+  8. v1 log-mel: ``AM_TPU_MEL_V1=1`` on the 10 s path (phase 5's clips):
+     launch counts and embeddings against phase 5's halo log-mel path.
+Phase 3 also holds the split block's kernels (v3 attention half at every
+stage, the fused MLP at the row counts of stages 0-3, the v1 attention
+half at stages 0 and 1) and the v1 log-mel against their plain versions,
+and the v3 half then the MLP against the whole-block kernel.  Each
+environment variable is set only around the phase that reads it.
 Then one JSON line with each kernel's numbers, the card line, and last the
 ok line.  Any failure exits non-zero and prints no ok line.  Imports no JAX.
 """
@@ -32,15 +47,19 @@ ok line.  Any failure exits non-zero and prints no ok line.  Imports no JAX.
 from __future__ import annotations
 
 import json
+import os
 import sys
 import time
 import traceback
+from contextlib import contextmanager
 
 import numpy as np
 import torch
 
 N_CLIPS = 2048   # bench.py's eval set
 N_CLIPS_10S = 128
+N_CLIPS_SPLIT = 512  # phase 6
+N_CLIPS_V1 = 256     # phase 7
 CLIP_S = 5
 SR = 48000
 BATCH = 64       # e2e batch size
@@ -58,7 +77,15 @@ PEAK = {"bytes": 3.35e12, "bf16": 989e12, "f32": 67e12}
 # dropped mask, swapped merge quadrants) reads 10x or more above them.
 TOL = {"swin_block": ((2e-4, 5e-4, 1.5e-3, 3.5e-3), 0.0625),
        "patch_merge": (1e-5, 0.03125),
-       "clap_frontend": (4e-3, 0.0625)}
+       "clap_frontend": (4e-3, 0.0625),
+       "swin_attn_v3": ((4e-5, 1e-4, 2.5e-4, 5e-4), 0.0625),
+       "swin_mlp": ((1e-5, 2.5e-5, 6e-5, 1.2e-4), 0.0625),
+       "swin_attn_v1": ((1e-4, 2e-4), 0.0625)}
+# the v3 half then the MLP kernel against the whole-block kernel on the same
+# inputs: they differ by the bf16 rounding of the mid-block residual (the
+# whole block keeps it f32) and what it propagates; (mean abs error / mean
+# |out - x|, max abs error), ~4x the readings at every stage (PERF.md).
+SPLIT_VS_WHOLE_TOL = (1e-2, 0.25)
 # log-mel kernel vs plain (same bf16 rounding of frames and basis, other
 # f32 summation order): (mean abs error / mean |out|, max abs error) per
 # convention, about 5x a correct kernel's readings (PERF.md); the bf16
@@ -76,6 +103,12 @@ NEAR_TIE = 1e-5
 # spread of ~1e-6 over subsets and moves most.
 E2E_TOL = {"1-cos": 1e-5, "max_abs": 3e-3, "fad": 1e-3, "kernel_distance_mean": 1e-3,
            "kernel_distance_std": 3e-2}
+# Embeddings of one configuration against another on the same clips (same
+# weights): the split blocks and the v1 attention against the whole-block
+# default, the v1 log-mel against the halo one; (1 - min cosine, max abs),
+# ~10x the readings (PERF.md; the two log-mels gave equal embeddings, so
+# theirs is the kernel-vs-plain scale).
+CONFIG_TOL = {"split": (5e-5, 5e-3), "attn_v1": (5e-5, 5e-3), "mel_v1": (2e-6, 1e-3)}
 
 
 def log(msg: str) -> None:
@@ -104,16 +137,21 @@ def bound(ops: dict, n_bytes: float) -> tuple[float, str]:
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
-def swin_bound(cfg, b):
-    """The 18 Swin blocks of one forward: qkv, proj, fc1 and fc2 products
-    (24 T C^2) and the window attention (4 T win^2 C), bf16; bytes: each
-    block's input and output rows and its weights, bf16."""
+def swin_bound(cfg, b, part="block", stages=(0, 1, 2, 3)):
+    """The Swin blocks of ``stages`` in one forward, bf16.  ``part``
+    "block": the qkv, proj, fc1 and fc2 products (24 T C^2) and the window
+    attention (4 T win^2 C); "attn": qkv, proj and attention (8 T C^2 +
+    4 T win^2 C); "mlp": fc1 and fc2 (16 T C^2).  Bytes: each block's input
+    and output rows and its weights (12, 4 or 8 C^2), bf16."""
     ops = n_bytes = 0
     res = cfg.grid_size
     for stage, depth in enumerate(cfg.depths):
         c, t = cfg.embed_dim * 2**stage, b * res * res
-        ops += depth * (24 * t * c * c + 4 * t * min(cfg.window_size, res) ** 2 * c)
-        n_bytes += depth * (2 * t * c * 2 + 12 * c * c * 2)
+        if stage in stages:
+            attn = 8 * t * c * c + 4 * t * min(cfg.window_size, res) ** 2 * c
+            ops += depth * {"block": attn + 16 * t * c * c, "attn": attn,
+                            "mlp": 16 * t * c * c}[part]
+            n_bytes += depth * (2 * t * c * 2 + {"block": 12, "attn": 4, "mlp": 8}[part] * c * c * 2)
         res //= 2
     return bound({"bf16": ops}, n_bytes)
 
@@ -198,12 +236,17 @@ def compare(name, got, want, signal, results):
 def phase_kernels(cfg, params, results):
     from audio_metrics_tpu_torch.models.clap import ClapFrontend
     from audio_metrics_tpu_torch.models.htsat import PatchMerge, SwinBlock
-    from audio_metrics_tpu_torch.ops.attention import swin_block, swin_block_plain
+    from audio_metrics_tpu_torch.ops.attention import (
+        swin_attention_half_v1,
+        swin_attention_half_v1_plain,
+        swin_attention_half_v3,
+        swin_attention_half_v3_plain,
+    )
     from audio_metrics_tpu_torch.ops.frontend_fused import (
         clap_tokens_fused,
         clap_tokens_fused_plain,
     )
-    from audio_metrics_tpu_torch.ops.merge import patch_merge, patch_merge_plain
+    from audio_metrics_tpu_torch.ops.mlp import mlp_block, mlp_block_plain
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -231,32 +274,83 @@ def phase_kernels(cfg, params, results):
             times[name]["plain_ms"][b] += pms * counts[2]
             log(f"    B={b}: kernel {ms:.4f} ms, plain {pms:.4f} ms")
 
+    def randn(shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
     res = cfg.grid_size
+    mlp_stages = []
     for stage, depth in enumerate(cfg.depths):
         c = cfg.embed_dim * 2**stage
+        split_checks = []
         for shift in ((0, cfg.window_size // 2) if res > cfg.window_size else (0,)):
-            block = SwinBlock(params, f"audio_encoder.layers.{stage}.blocks.{1 if shift else 0}",
-                              cfg, res, shift, cfg.num_heads[stage], torch.bfloat16).to(dev)
-            xs = {b: torch.randn((b, res * res, c), generator=gen, device=dev).to(torch.bfloat16)
-                  for b in (CHECK_B, BATCH)}
+            prefix = f"audio_encoder.layers.{stage}.blocks.{1 if shift else 0}"
+            block = SwinBlock(params, prefix, cfg, res, shift, cfg.num_heads[stage],
+                              torch.bfloat16).to(dev)
+            xs = {b: randn((b, res * res, c)) for b in (CHECK_B, BATCH)}
             # blocks of this (stage, shift) in one forward
             n_blocks = depth // 2 if res > cfg.window_size else depth
-            check("swin_block", f"stage {stage} R={res} C={c} shift={shift}",
-                  lambda: block(xs[CHECK_B], swin_block),
-                  lambda: block(xs[CHECK_B], swin_block_plain),
-                  (lambda: block(xs[BATCH], swin_block),
-                   lambda: block(xs[BATCH], swin_block_plain), n_blocks),
+            key = f"stage {stage} R={res} C={c} shift={shift}"
+            check("swin_block", key, lambda: block(xs[CHECK_B]),
+                  lambda: block(xs[CHECK_B], plain=True),
+                  (lambda: block(xs[BATCH]), lambda: block(xs[BATCH], plain=True), n_blocks),
                   x=xs[CHECK_B], stage=stage)
+
+            # the v3 attention half on the same block weights (#8); the v3
+            # half + MLP kernel against the whole-block kernel after #9's check
+            geo = dict(heads=block.heads, window=block.window, shift=block.shift, eps=block.eps)
+            attn = (block.wqkv, block.bq3, block.wp, block.bp, block.bm)
+            mlp = (block.ln2_w, block.ln2_b, block.w1, block.b1, block.w2, block.b2)
+            x4 = {b: xs[b].view(b, res, res, c) for b in xs}
+            check("swin_attn_v3", key,
+                  lambda: swin_attention_half_v3(x4[CHECK_B], *attn, **geo),
+                  lambda: swin_attention_half_v3_plain(x4[CHECK_B], *attn, **geo),
+                  (lambda: swin_attention_half_v3(x4[BATCH], *attn, **geo),
+                   lambda: swin_attention_half_v3_plain(x4[BATCH], *attn, **geo), n_blocks),
+                  x=x4[CHECK_B], stage=stage)
+            split_checks.append((key, block, xs[CHECK_B], x4[CHECK_B], attn, mlp, geo))
+
+            if stage < 2:  # the v1 attention half (#10): stages of >= 16 windows
+                v1 = SwinBlock(params, prefix, cfg, res, shift, cfg.num_heads[stage],
+                               torch.bfloat16, attention="v1").to(dev)
+                a1 = (v1.ln1_w, v1.ln1_b, v1.wq, v1.bq, v1.wk, v1.wv, v1.wp, v1.bp, v1.bm)
+                check("swin_attn_v1", key,
+                      lambda: swin_attention_half_v1(x4[CHECK_B], *a1, **geo),
+                      lambda: swin_attention_half_v1_plain(x4[CHECK_B], *a1, **geo),
+                      (lambda: swin_attention_half_v1(x4[BATCH], *a1, **geo),
+                       lambda: swin_attention_half_v1_plain(x4[BATCH], *a1, **geo), n_blocks),
+                      x=x4[CHECK_B], stage=stage)
+
+        # the fused MLP (#9) at this stage's rows; blocks of one forward at
+        # B=BATCH that take it (the XLA MLP below 1024 tokens and 16384 rows)
+        n_mlp = depth if block.fused_mlp(BATCH) else 0
+        if n_mlp:
+            mlp_stages.append(stage)
+        check("swin_mlp", f"stage {stage} rows B x {res * res} C={c}",
+              lambda: mlp_block(xs[CHECK_B], *mlp, eps=block.eps),
+              lambda: mlp_block_plain(xs[CHECK_B], *mlp, eps=block.eps),
+              (lambda: mlp_block(xs[BATCH], *mlp, eps=block.eps),
+               lambda: mlp_block_plain(xs[BATCH], *mlp, eps=block.eps), n_mlp),
+              x=xs[CHECK_B], stage=stage)
+
+        for key, block, x, x4, attn, mlp, geo in split_checks:
+            split = mlp_block(swin_attention_half_v3(x4, *attn, **geo).view(x.shape), *mlp,
+                              eps=block.eps)
+            whole = block(x)
+            mx, rel = compare("split_vs_whole", split, whole, whole.float() - x.float(), results)
+            ok = mx <= SPLIT_VS_WHOLE_TOL[1] and rel <= SPLIT_VS_WHOLE_TOL[0]
+            log(f"  v3 half + MLP kernels vs whole-block kernel {key}: max_abs_err {mx:.4g} "
+                f"(tol {SPLIT_VS_WHOLE_TOL[1]}) mean_abs_err / mean |out - x| {rel:.4g} (tol "
+                f"{SPLIT_VS_WHOLE_TOL[0]}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"split block {key} disagrees with the whole block")
+
         if stage < len(cfg.depths) - 1:
             merge = PatchMerge(params, f"audio_encoder.layers.{stage}.downsample", cfg, res,
                                torch.bfloat16).to(dev)
-            xs = {b: torch.randn((b, res * res, c), generator=gen, device=dev).to(torch.bfloat16)
-                  for b in (CHECK_B, BATCH)}
+            xs = {b: randn((b, res * res, c)) for b in (CHECK_B, BATCH)}
             check("patch_merge", f"merge {stage} R={res} C={c}",
-                  lambda: merge(xs[CHECK_B], patch_merge),
-                  lambda: merge(xs[CHECK_B], patch_merge_plain),
-                  (lambda: merge(xs[BATCH], patch_merge),
-                   lambda: merge(xs[BATCH], patch_merge_plain), 1))
+                  lambda: merge(xs[CHECK_B]), lambda: merge(xs[CHECK_B], plain=True),
+                  (lambda: merge(xs[BATCH]), lambda: merge(xs[BATCH], plain=True), 1))
             res //= 2
     fr = ClapFrontend(params, cfg).to(dev)
     audio = {b: 0.2 * torch.randn((b, CLIP_S * SR), generator=gen, device=dev)
@@ -267,7 +361,10 @@ def phase_kernels(cfg, params, results):
           (lambda: clap_tokens_fused(audio[BATCH], fr, sr=SR, cfg=cfg),
            lambda: clap_tokens_fused_plain(audio[BATCH], fr, sr=SR, cfg=cfg), 1))
     bounds = {"swin_block": swin_bound(cfg, BATCH), "patch_merge": merge_bound(cfg, BATCH),
-              "clap_frontend": frontend_bound(cfg, BATCH, CLIP_S * SR)}
+              "clap_frontend": frontend_bound(cfg, BATCH, CLIP_S * SR),
+              "swin_attn_v3": swin_bound(cfg, BATCH, "attn"),
+              "swin_mlp": swin_bound(cfg, BATCH, "mlp", stages=mlp_stages),
+              "swin_attn_v1": swin_bound(cfg, BATCH, "attn", stages=(0, 1))}
     for name, t in times.items():
         for b in (CHECK_B, BATCH):
             log(f"  {name} per forward at B={b}: kernel {t['ms'][b]:.4f} ms, "
@@ -349,11 +446,18 @@ def phase_prdc_kernels(results):
 
 
 def phase_log_mel(cfg, params, results):
-    """The halo log-mel kernel vs its plain version: CLAP 10 s (centered,
-    dB, BatchNorm affine, bf16 out) and VGGish (400-sample frames, n_fft
-    512, uncentered, natural log, f32 out)."""
+    """The halo and the v1 log-mel kernels vs their plain versions: CLAP 10 s
+    (centered, dB, BatchNorm affine, bf16 out) and VGGish (400-sample
+    frames, n_fft 512, uncentered, natural log, f32 out).  Both compute one
+    function on the same inputs, so they share the bound."""
     from audio_metrics_tpu_torch.models.clap import ClapFrontend, _clap_fb
-    from audio_metrics_tpu_torch.ops.mel import log_mel_halo, log_mel_halo_plain, mel_filter_bank
+    from audio_metrics_tpu_torch.ops.mel import (
+        log_mel_halo,
+        log_mel_halo_plain,
+        log_mel_v1,
+        log_mel_v1_plain,
+        mel_filter_bank,
+    )
 
     fr = ClapFrontend(params, cfg).to("cuda")
     gen = torch.Generator(device="cuda").manual_seed(5)
@@ -366,31 +470,35 @@ def phase_log_mel(cfg, params, results):
         "vggish": (10 * 16000, dict(frame_length=400, hop_length=160, n_fft=512, fb=vgg_fb,
                                     center=False, log_mode="natural")),
     }
+    kernels = {"log_mel": (log_mel_halo, log_mel_halo_plain),
+               "log_mel_v1": (log_mel_v1, log_mel_v1_plain)}
     for conv, (n, kw) in convs.items():
         audio = {b: 0.2 * torch.randn((b, n), generator=gen, device="cuda")
                  for b in (CHECK_B, BATCH)}
-        got = log_mel_halo(audio[CHECK_B], **kw)
-        want = log_mel_halo_plain(audio[CHECK_B], **kw)
-        if got.shape != want.shape or got.dtype != want.dtype:
-            raise AssertionError(f"log_mel {conv}: {got.shape} {got.dtype} vs {want.shape} "
-                                 f"{want.dtype}")
-        mx, rel = compare("log_mel", got, want, want, results)
-        rel_tol, max_tol = LOG_MEL_TOL[conv]
-        ok = mx <= max_tol and rel <= rel_tol
-        log(f"  log_mel {conv} {tuple(got.shape)} {got.dtype}: max_abs_err {mx:.4g} (tol "
-            f"{max_tol}) mean_abs_err / mean |out| {rel:.4g} (tol {rel_tol}) "
-            f"{'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise AssertionError(f"log_mel {conv} disagrees with its plain version")
-        ms = cuda_ms(lambda: log_mel_halo(audio[BATCH], **kw))
-        pms = cuda_ms(lambda: log_mel_halo_plain(audio[BATCH], **kw), iters=3)
-        frames, n_keep = got.shape[1], 384 if conv == "clap" else 256
-        b = bound({"bf16": 2 * BATCH * frames * kw["frame_length"] * 2 * n_keep,
-                   "f32": 2 * BATCH * frames * n_keep * 64},
-                  BATCH * n * 4 + BATCH * frames * 64 * got.element_size())
-        log(f"    B={BATCH}: kernel {ms:.4f} ms, plain {pms:.4f} ms, bound {b[0]:.4f} ms ({b[1]})")
-        if conv == "clap":
-            results["log_mel"].update(ms=ms, plain_ms=pms, bound_ms=b[0], bound_by=b[1])
+        for name, (kfn, pfn) in kernels.items():
+            got = kfn(audio[CHECK_B], **kw)
+            want = pfn(audio[CHECK_B], **kw)
+            if got.shape != want.shape or got.dtype != want.dtype:
+                raise AssertionError(f"{name} {conv}: {got.shape} {got.dtype} vs {want.shape} "
+                                     f"{want.dtype}")
+            mx, rel = compare(name, got, want, want, results)
+            rel_tol, max_tol = LOG_MEL_TOL[conv]
+            ok = mx <= max_tol and rel <= rel_tol
+            log(f"  {name} {conv} {tuple(got.shape)} {got.dtype}: max_abs_err {mx:.4g} (tol "
+                f"{max_tol}) mean_abs_err / mean |out| {rel:.4g} (tol {rel_tol}) "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"{name} {conv} disagrees with its plain version")
+            ms = cuda_ms(lambda: kfn(audio[BATCH], **kw))
+            pms = cuda_ms(lambda: pfn(audio[BATCH], **kw), iters=3)
+            frames, n_keep = got.shape[1], 384 if conv == "clap" else 256
+            b = bound({"bf16": 2 * BATCH * frames * kw["frame_length"] * 2 * n_keep,
+                       "f32": 2 * BATCH * frames * n_keep * 64},
+                      BATCH * n * 4 + BATCH * frames * 64 * got.element_size())
+            log(f"    B={BATCH}: kernel {ms:.4f} ms, plain {pms:.4f} ms, bound {b[0]:.4f} ms "
+                f"({b[1]})")
+            if conv == "clap":
+                results[name].update(ms=ms, plain_ms=pms, bound_ms=b[0], bound_by=b[1])
 
 
 def phase_fad_tail():
@@ -456,19 +564,66 @@ def clips(n_clips, seconds, seed):
     return reference, candidate
 
 
+SWITCHES = ("AM_TPU_V4_STAGES", "AM_TPU_ATTN_V1", "AM_TPU_MEL_V1")
+
+
+@contextmanager
+def environ(**values):
+    """Set the port's configuration variables for one phase (the model's
+    construction and its evaluates), then restore them."""
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def plain_path(clap, mel_plain=None):
+    """An embedder with ``clap``'s weights through the kernels' plain
+    versions: the fused frontend's (5 s), or ``mel_plain`` on the
+    repeat-padded clip then the plain frontend products (10 s); then the
+    encoder's (each block on its own path)."""
+    from audio_metrics_tpu_torch.models.clap import _clap_fb, repeat_pad
+    from audio_metrics_tpu_torch.models.htsat import frontend_tokens
+    from audio_metrics_tpu_torch.ops.frontend_fused import clap_tokens_fused_plain
+
+    model, fr = clap.model, clap.model.frontend
+
+    class PlainPath:
+        sr, device = clap.sr, clap.device
+
+        @staticmethod
+        @torch.no_grad()
+        def embed(audio):
+            if mel_plain is None:
+                tokens = clap_tokens_fused_plain(audio, fr, sr=SR, cfg=model.cfg)
+            else:
+                mel = mel_plain(
+                    repeat_pad(audio), frame_length=1024, hop_length=480, n_fft=1024,
+                    fb=_clap_fb(), center=True, log_mode="db",
+                    out_affine=(fr.bn_scale, fr.bn_offset), out_dtype=torch.bfloat16)
+                tokens = frontend_tokens(mel, fr.patch_w, fr.patch_b, fr.ln_w, fr.ln_b,
+                                         model.cfg, torch.bfloat16)
+            return model._projection_taps(model.encoder(tokens, plain=True))[clap.layer]
+
+    return PlainPath()
+
+
 def phase_e2e(card: str):
     from audio_metrics_tpu_torch import AudioMetrics
     from audio_metrics_tpu_torch.models.clap import LaionCLAP
     from audio_metrics_tpu_torch.models.htsat import HTSAT_BASE
-    from audio_metrics_tpu_torch.ops.attention import swin_block_plain
     from audio_metrics_tpu_torch.ops.distance import (
         knn_radii,
         knn_radii_plain,
         pairwise_stats,
         pairwise_stats_plain,
     )
-    from audio_metrics_tpu_torch.ops.frontend_fused import clap_tokens_fused_plain
-    from audio_metrics_tpu_torch.ops.merge import patch_merge_plain
     from audio_metrics_tpu_torch.testing import stats_mismatches
 
     metrics = ["fad", "kd", "prdc"]
@@ -489,8 +644,7 @@ def phase_e2e(card: str):
     forwards = 2 * -(-N_CLIPS // BATCH)
     log(f"  result {result}")
     check_counts(f"add_reference + first evaluate, {forwards} forward batches", launches,
-                 {"swin_block": 18 * forwards, "patch_merge": 3 * forwards,
-                  "clap_frontend": forwards, "knn_radii": 2, "prdc_stats": 1, "log_mel": 0})
+                 expected(forwards, swin_block=18, patch_merge=3, clap_frontend=1))
     if not all(np.isfinite(v) for v in result.values()):
         raise AssertionError("non-finite metric")
 
@@ -500,8 +654,8 @@ def phase_e2e(card: str):
     torch.cuda.synchronize()
     warm = time.perf_counter() - t0
     check_counts("second evaluate (reference radii cached)", read_counts(),
-                 {"swin_block": 9 * forwards, "patch_merge": 3 * forwards // 2,
-                  "clap_frontend": forwards // 2, "knn_radii": 1, "prdc_stats": 1, "log_mel": 0})
+                 expected(forwards // 2, knn_radii=1, swin_block=18, patch_merge=3,
+                          clap_frontend=1))
     log(f"  evaluate of {N_CLIPS} clips: {N_CLIPS / warm:.2f} clips/s warm ({warm:.4f} s), "
         f"{N_CLIPS / cold:.2f} clips/s first ({cold:.4f} s) [{card}; real_weights: false]")
     if again != result:
@@ -536,19 +690,7 @@ def phase_e2e(card: str):
     if not abs(self_fad) <= 1e-4:
         raise AssertionError("FAD(reference, reference) is not ~0")
 
-    model = clap.model
-
-    class PlainPath:  # the same weights through the kernels' plain versions
-        sr, device = clap.sr, clap.device
-
-        @staticmethod
-        @torch.no_grad()
-        def embed(audio):
-            tokens = clap_tokens_fused_plain(audio, model.frontend, sr=SR, cfg=model.cfg)
-            latent = model.encoder(tokens, swin_block_plain, patch_merge_plain)
-            return model._projection_taps(latent)[clap.layer]
-
-    amp = AudioMetrics(metrics=metrics, embedder=PlainPath(), win_dur=float(CLIP_S),
+    amp = AudioMetrics(metrics=metrics, embedder=plain_path(clap), win_dur=float(CLIP_S),
                        input_sr=SR, batch_size=BATCH, device="cuda")
     amp.add_reference(reference)
     torch.cuda.synchronize()
@@ -570,74 +712,96 @@ def phase_e2e(card: str):
     return launches
 
 
-def phase_10s(card: str):
-    """``win_dur=10.0``: the windows do not tile 10 s, so the forward takes
-    the repeat-pad, the halo log-mel kernel and plain frontend products."""
+def expected(forwards: int, knn_radii: int = 2, **per_forward) -> dict:
+    """Every kernel's launches over ``forwards`` forward batches and one
+    PRDC evaluate (``knn_radii`` 2 when the reference radii are computed
+    too); a kernel not named is launched no time."""
+    from audio_metrics_tpu_torch.kernels import KERNELS
+
+    want = {name: per_forward.get(name, 0) * forwards for name in KERNELS}
+    want.update(knn_radii=knn_radii, prdc_stats=1)
+    return want
+
+
+def phase_config(card: str, switches: dict, n_clips: int, seconds: int, seed: int,
+                 per_forward: dict, tol_key: str | None = None, against=None):
+    """One configuration end to end under ``switches``: ``AudioMetrics
+    (metrics=["fad", "kd", "prdc"])`` with LaionCLAP HTSAT-base bf16 over
+    ``n_clips`` + ``n_clips`` clips of ``seconds``: the launch counts
+    (``per_forward`` per forward batch), finite metrics, clips/s first and
+    warm, FAD of the reference against itself, the reference embeddings
+    against the same weights through the plain versions, and, under
+    ``tol_key``, against ``against`` (the embeddings of another
+    configuration on the same clips; None: the default configuration's).
+    Returns (launches, reference embeddings)."""
     from audio_metrics_tpu_torch import AudioMetrics
-    from audio_metrics_tpu_torch.models.clap import LaionCLAP, _clap_fb, repeat_pad
-    from audio_metrics_tpu_torch.models.htsat import HTSAT_BASE, frontend_tokens
-    from audio_metrics_tpu_torch.ops.attention import swin_block_plain
-    from audio_metrics_tpu_torch.ops.mel import log_mel_halo_plain
-    from audio_metrics_tpu_torch.ops.merge import patch_merge_plain
+    from audio_metrics_tpu_torch.models.clap import LaionCLAP
+    from audio_metrics_tpu_torch.models.htsat import HTSAT_BASE
+    from audio_metrics_tpu_torch.ops.mel import log_mel_halo_plain, log_mel_v1_plain
 
     metrics = ["fad", "kd", "prdc"]
-    clap = LaionCLAP(cfg=HTSAT_BASE, compute_dtype="bfloat16", allow_random_weights=True,
-                     device="cuda")
-    am = AudioMetrics(metrics=metrics, embedder=clap, win_dur=10.0, input_sr=SR,
-                      batch_size=BATCH, device="cuda")
-    reference, candidate = clips(N_CLIPS_10S, 10, seed=6)
+    reference, candidate = clips(n_clips, seconds, seed)
 
-    set_counts_to_zero()
-    am.add_reference(reference)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    result = am.evaluate(candidate)
-    torch.cuda.synchronize()
-    cold = time.perf_counter() - t0
-    launches = read_counts()
-    forwards = 2 * -(-N_CLIPS_10S // BATCH)
-    log(f"  result {result}")
-    check_counts(f"add_reference + first evaluate, {forwards} forward batches", launches,
-                 {"swin_block": 18 * forwards, "patch_merge": 3 * forwards, "clap_frontend": 0,
-                  "knn_radii": 2, "prdc_stats": 1, "log_mel": forwards})
-    if not all(np.isfinite(v) for v in result.values()):
-        raise AssertionError("non-finite metric")
-    t0 = time.perf_counter()
-    am.evaluate(candidate)
-    torch.cuda.synchronize()
-    warm = time.perf_counter() - t0
-    log(f"  evaluate of {N_CLIPS_10S} 10 s clips: {N_CLIPS_10S / warm:.2f} clips/s warm "
-        f"({warm:.4f} s), {N_CLIPS_10S / cold:.2f} clips/s first ({cold:.4f} s) "
-        f"[{card}; real_weights: false]")
-    self_fad = am.evaluate(reference)["fad"]
-    log(f"  FAD of the reference against itself: {self_fad:.3g} (tol |fad| <= 1e-4)")
-    if not abs(self_fad) <= 1e-4:
-        raise AssertionError("FAD(reference, reference) is not ~0")
+    def metrics_for(embedder):
+        return AudioMetrics(metrics=metrics, embedder=embedder, win_dur=float(seconds),
+                            input_sr=SR, batch_size=BATCH, device="cuda")
 
-    model, fr = clap.model, clap.model.frontend
+    def model():
+        return LaionCLAP(cfg=HTSAT_BASE, compute_dtype="bfloat16", allow_random_weights=True,
+                         device="cuda")
 
-    class PlainPath:  # repeat-pad, plain halo log-mel, plain Swin and merge
-        sr, device = clap.sr, clap.device
-
-        @staticmethod
-        @torch.no_grad()
-        def embed(audio):
-            mel = log_mel_halo_plain(
-                repeat_pad(audio), frame_length=1024, hop_length=480, n_fft=1024,
-                fb=_clap_fb(), center=True, log_mode="db",
-                out_affine=(fr.bn_scale, fr.bn_offset), out_dtype=torch.bfloat16)
-            tokens = frontend_tokens(mel, fr.patch_w, fr.patch_b, fr.ln_w, fr.ln_b,
-                                     model.cfg, torch.bfloat16)
-            latent = model.encoder(tokens, swin_block_plain, patch_merge_plain)
-            return model._projection_taps(latent)[clap.layer]
-
-    amp = AudioMetrics(metrics=metrics, embedder=PlainPath(), win_dur=10.0, input_sr=SR,
-                       batch_size=BATCH, device="cuda")
-    amp.add_reference(reference)
-    plain = amp.evaluate(candidate)
-    log(f"  plain path: {plain}")
-    compare_embeddings(am.stem_reference.embeddings, amp.stem_reference.embeddings)
-    return launches
+    with environ(**switches):
+        clap = model()
+        am = metrics_for(clap)
+        set_counts_to_zero()
+        am.add_reference(reference)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = am.evaluate(candidate)
+        torch.cuda.synchronize()
+        cold = time.perf_counter() - t0
+        launches = read_counts()
+        forwards = 2 * -(-n_clips // BATCH)
+        log(f"  result {result}")
+        check_counts(f"add_reference + first evaluate, {forwards} forward batches", launches,
+                     expected(forwards, **per_forward))
+        if not all(np.isfinite(v) for v in result.values()):
+            raise AssertionError("non-finite metric")
+        t0 = time.perf_counter()
+        am.evaluate(candidate)
+        torch.cuda.synchronize()
+        warm = time.perf_counter() - t0
+        log(f"  evaluate of {n_clips} {seconds} s clips: {n_clips / warm:.2f} clips/s warm "
+            f"({warm:.4f} s), {n_clips / cold:.2f} clips/s first ({cold:.4f} s) "
+            f"[{card}; real_weights: false]")
+        self_fad = am.evaluate(reference)["fad"]
+        log(f"  FAD of the reference against itself: {self_fad:.3g} (tol |fad| <= 1e-4)")
+        if not abs(self_fad) <= 1e-4:
+            raise AssertionError("FAD(reference, reference) is not ~0")
+        mel_plain = None
+        if seconds != CLIP_S:
+            mel_plain = log_mel_v1_plain if os.environ.get("AM_TPU_MEL_V1") else log_mel_halo_plain
+        amp = metrics_for(plain_path(clap, mel_plain))
+        amp.add_reference(reference)
+        plain = amp.evaluate(candidate)
+        log(f"  plain path: {plain}")
+        compare_embeddings(am.stem_reference.embeddings, amp.stem_reference.embeddings)
+    emb = am.stem_reference.embeddings
+    if tol_key is not None:
+        if against is None:
+            base = metrics_for(model())
+            base.add_reference(reference)
+            against = base.stem_reference.embeddings
+        cos = (emb * against).sum(dim=1).min().item()
+        emax = (emb - against).abs().max().item()
+        tol = CONFIG_TOL[tol_key]
+        ok = 1 - cos <= tol[0] and emax <= tol[1]
+        log(f"  embeddings against the {'default' if tol_key != 'mel_v1' else 'halo'} "
+            f"configuration on the same clips: 1 - min cosine {1 - cos:.3g} (tol {tol[0]}), "
+            f"max abs {emax:.4g} (tol {tol[1]}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{tol_key} embeddings disagree with the other configuration")
+    return launches, emb
 
 
 def main() -> int:
@@ -650,6 +814,8 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False  # full-f32 references
     torch.backends.cudnn.allow_tf32 = False
+    for k in SWITCHES:  # phases 1-5 run the default configuration
+        os.environ.pop(k, None)
     card = card_line()
     log(f"phase 1 card: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}, "
         f"torch {torch.__version__} cuda {torch.version.cuda}")
@@ -671,13 +837,28 @@ def main() -> int:
     log("phase 4 main path end to end (fad + kd + prdc, HTSAT-base bf16, 5 s windows)")
     launches = phase_e2e(card)
     log("phase 5 the 10 s path (fad + kd + prdc, HTSAT-base bf16, 10 s windows)")
-    launches_10s = phase_10s(card)
+    launches_10s, emb_10s = phase_config(card, {}, N_CLIPS_10S, 10, 6,
+                                         dict(swin_block=18, patch_merge=3, log_mel=1))
+    log('phase 6 split blocks (AM_TPU_V4_STAGES="": v3 attention half + fused MLP)')
+    launches_split, _ = phase_config(
+        card, {"AM_TPU_V4_STAGES": ""}, N_CLIPS_SPLIT, CLIP_S, 3,
+        dict(swin_attn_v3=18, swin_mlp=16, patch_merge=3, clap_frontend=1), tol_key="split")
+    log("phase 7 v1 attention (AM_TPU_ATTN_V1=1: v1 at stages 0-1, XLA at 2-3)")
+    launches_v1, _ = phase_config(
+        card, {"AM_TPU_ATTN_V1": "1"}, N_CLIPS_V1, CLIP_S, 3,
+        dict(swin_attn_v1=4, swin_mlp=16, patch_merge=3, clap_frontend=1), tol_key="attn_v1")
+    log("phase 8 v1 log-mel (AM_TPU_MEL_V1=1, the 10 s path)")
+    launches_mel_v1, _ = phase_config(
+        card, {"AM_TPU_MEL_V1": "1"}, N_CLIPS_10S, 10, 6,
+        dict(swin_block=18, patch_merge=3, log_mel_v1=1), tol_key="mel_v1", against=emb_10s)
 
-    # launches: each kernel's count on the path that runs it (log_mel: the
-    # 10 s path; the others: the main path)
+    # launches: each kernel's count on the path that runs it
+    path_of = {"log_mel": launches_10s, "swin_attn_v3": launches_split,
+               "swin_mlp": launches_split, "swin_attn_v1": launches_v1,
+               "log_mel_v1": launches_mel_v1}
     line = {"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,
-         "launches": (launches_10s if k.name == "log_mel" else launches)[k.name],
+         "launches": path_of.get(k.name, launches)[k.name],
          **{key: results[k.name][key] for key in
             ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
          "library_ms": None}

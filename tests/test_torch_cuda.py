@@ -19,7 +19,8 @@ The PRDC kernels (f32): radii rtol 1e-4, atol 1e-5 against the plain
 version (the JAX suite's kernel-vs-XLA bound); the booleans and counts
 equal except where a float64 recomputation shows a pair within 1e-5
 relative of its radius (``testing.stats_mismatches``).  The log-mel
-kernel: the bounds of ``chip_smoke.py``.
+kernels and the split block's kernels (v3 and v1 attention halves, the
+fused MLP): the bounds of ``chip_smoke.py``.
 """
 
 import numpy as np
@@ -29,7 +30,12 @@ import torch
 from audio_metrics_tpu_torch.kernels import KERNELS
 from audio_metrics_tpu_torch.models.clap import SAMPLE_RATE, ClapFrontend
 from audio_metrics_tpu_torch.models.htsat import HTSAT_BASE, PatchMerge, SwinBlock, init_params
-from audio_metrics_tpu_torch.ops.attention import swin_block, swin_block_plain
+from audio_metrics_tpu_torch.ops.attention import (
+    swin_attention_half_v1,
+    swin_attention_half_v1_plain,
+    swin_attention_half_v3,
+    swin_attention_half_v3_plain,
+)
 from audio_metrics_tpu_torch.ops.distance import (
     knn_radii,
     knn_radii_plain,
@@ -37,8 +43,14 @@ from audio_metrics_tpu_torch.ops.distance import (
     pairwise_stats_plain,
 )
 from audio_metrics_tpu_torch.ops.frontend_fused import clap_tokens_fused, clap_tokens_fused_plain
-from audio_metrics_tpu_torch.ops.mel import log_mel_halo, log_mel_halo_plain, mel_filter_bank
-from audio_metrics_tpu_torch.ops.merge import patch_merge, patch_merge_plain
+from audio_metrics_tpu_torch.ops.mel import (
+    log_mel_halo,
+    log_mel_halo_plain,
+    log_mel_v1,
+    log_mel_v1_plain,
+    mel_filter_bank,
+)
+from audio_metrics_tpu_torch.ops.mlp import mlp_block, mlp_block_plain
 from audio_metrics_tpu_torch.testing import stats_mismatches
 
 cfg = HTSAT_BASE
@@ -51,6 +63,10 @@ MERGE_TOL = (1e-5, 0.03125)
 FRONTEND_TOL = (4e-3, 0.0625)
 # log-mel (mean abs error / mean |out|, max abs error) per convention
 LOG_MEL_TOL = {"clap": (1e-5, 0.25), "vggish": (1e-6, 3e-5)}
+# the split block: (REL_MEAN per stage, MAX_ABS), as in chip_smoke.py
+ATTN_V3_TOL = ((4e-5, 1e-4, 2.5e-4, 5e-4), 0.0625)
+ATTN_V1_TOL = ((1e-4, 2e-4), 0.0625)
+MLP_TOL = ((1e-5, 2.5e-5, 6e-5, 1.2e-4), 0.0625)
 
 
 @pytest.fixture(scope="module")
@@ -99,10 +115,10 @@ def test_swin_block_kernel_matches_plain(cuda, params, stage, shift):
     x = torch.from_numpy(rng.normal(size=(2, res * res, c)).astype(np.float32))
     x = x.to(cuda, torch.bfloat16)
     before = KERNELS["swin_block"].launches
-    got = block(x, swin_block)
+    got = block(x)
     torch.cuda.synchronize()
     assert KERNELS["swin_block"].launches == before + 1
-    want = block(x, swin_block_plain)
+    want = block(x, plain=True)
     _close(got, want, want.float() - x.float(), SWIN_REL[stage], SWIN_MAX)
 
 
@@ -116,9 +132,9 @@ def test_patch_merge_kernel_matches_plain(cuda, params, stage):
     rng = np.random.default_rng(10 + stage)
     x = torch.from_numpy(rng.normal(size=(2, res * res, c)).astype(np.float32))
     x = x.to(cuda, torch.bfloat16)
-    got = merge(x, patch_merge)
+    got = merge(x)
     torch.cuda.synchronize()
-    want = merge(x, patch_merge_plain)
+    want = merge(x, plain=True)
     _close(got, want, want, *MERGE_TOL)
 
 
@@ -143,7 +159,7 @@ def test_kernels_raise_on_f32(cuda, params):
     merge = PatchMerge(params, "audio_encoder.layers.2.downsample", cfg, 16, torch.float32)
     x = torch.zeros((1, 256, 512), device=cuda)
     with pytest.raises(NotImplementedError):
-        merge.to(cuda)(x, patch_merge)
+        merge.to(cuda)(x)
 
 
 def _embeddings(cuda, n, m, d, seed):
@@ -214,6 +230,90 @@ def test_log_mel_kernel_matches_plain(cuda, params, conv):
     _close(got, want, want, *LOG_MEL_TOL[conv])
 
 
+def _half_block(params, cuda, stage, shift, attention):
+    res = cfg.grid_size // 2**stage
+    return SwinBlock(
+        params, f"audio_encoder.layers.{stage}.blocks.{1 if shift else 0}", cfg, res, shift,
+        cfg.num_heads[stage], torch.bfloat16, attention=attention,
+    ).to(cuda), res
+
+
+def _x(cuda, seed, shape):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(cuda, torch.bfloat16)
+
+
+@pytest.mark.parametrize(
+    "stage,shift", [(0, 0), (0, 4), (1, 0), (1, 4), (2, 0), (2, 4), (3, 0)]
+)
+def test_attention_v3_kernel_matches_plain(cuda, params, stage, shift):
+    b, res = _half_block(params, cuda, stage, shift, "v3")
+    x = _x(cuda, 40 + stage + shift, (2, res, res, b.wp.shape[0]))
+    args = (x, b.wqkv, b.bq3, b.wp, b.bp, b.bm)
+    geo = dict(heads=b.heads, window=b.window, shift=b.shift, eps=b.eps)
+    before = KERNELS["swin_attn_v3"].launches
+    got = swin_attention_half_v3(*args, **geo)
+    torch.cuda.synchronize()
+    assert KERNELS["swin_attn_v3"].launches == before + 1
+    want = swin_attention_half_v3_plain(*args, **geo)
+    _close(got, want, want.float() - x.float(), ATTN_V3_TOL[0][stage], ATTN_V3_TOL[1])
+
+
+@pytest.mark.parametrize("stage,shift", [(0, 0), (0, 4), (1, 0), (1, 4)])
+def test_attention_v1_kernel_matches_plain(cuda, params, stage, shift):
+    b, res = _half_block(params, cuda, stage, shift, "v1")
+    x = _x(cuda, 50 + stage + shift, (2, res, res, b.bp.shape[0]))
+    args = (x, b.ln1_w, b.ln1_b, b.wq, b.bq, b.wk, b.wv, b.wp, b.bp, b.bm)
+    geo = dict(heads=b.heads, window=b.window, shift=b.shift, eps=b.eps)
+    before = KERNELS["swin_attn_v1"].launches
+    got = swin_attention_half_v1(*args, **geo)
+    torch.cuda.synchronize()
+    assert KERNELS["swin_attn_v1"].launches == before + 1
+    want = swin_attention_half_v1_plain(*args, **geo)
+    _close(got, want, want.float() - x.float(), ATTN_V1_TOL[0][stage], ATTN_V1_TOL[1])
+
+
+@pytest.mark.parametrize("stage", [0, 1, 2, 3])
+def test_mlp_kernel_matches_plain(cuda, params, stage):
+    """At 2 images: 8192, 2048, 512 and 128 rows (ragged against nothing;
+    the row tile is 64)."""
+    b, res = _half_block(params, cuda, stage, 0, "v3")
+    x = _x(cuda, 60 + stage, (2, res * res, b.w2.shape[1]))
+    mlp = (b.ln2_w, b.ln2_b, b.w1, b.b1, b.w2, b.b2)
+    before = KERNELS["swin_mlp"].launches
+    got = mlp_block(x, *mlp, eps=b.eps)
+    torch.cuda.synchronize()
+    assert KERNELS["swin_mlp"].launches == before + 1
+    want = mlp_block_plain(x, *mlp, eps=b.eps)
+    _close(got, want, want.float() - x.float(), MLP_TOL[0][stage], MLP_TOL[1])
+
+
+@pytest.mark.parametrize("conv", ["clap", "vggish"])
+def test_log_mel_v1_kernel_matches_plain(cuda, params, conv):
+    """The v1 log-mel: the halo test's inputs and bounds."""
+    g = torch.Generator(device=cuda).manual_seed(31)
+    if conv == "clap":
+        fr = ClapFrontend(params, cfg).to(cuda)
+        fb = mel_filter_bank(513, 64, 50.0, 14000.0, SAMPLE_RATE, norm="slaney",
+                             mel_scale="slaney").astype(np.float32)
+        kw = dict(frame_length=1024, hop_length=480, n_fft=1024, fb=fb, center=True,
+                  log_mode="db", out_affine=(fr.bn_scale, fr.bn_offset), out_dtype=torch.bfloat16)
+        audio = 0.2 * torch.randn((2, 10 * SAMPLE_RATE), generator=g, device=cuda)
+    else:
+        fb = mel_filter_bank(257, 64, 125.0, 7500.0, 16000, norm=None, mel_scale="htk",
+                             triangle_domain="mel", zero_dc=True).astype(np.float32)
+        kw = dict(frame_length=400, hop_length=160, n_fft=512, fb=fb, center=False,
+                  log_mode="natural")
+        audio = 0.2 * torch.randn((2, 3 * 16000 + 77), generator=g, device=cuda)
+    before = KERNELS["log_mel_v1"].launches
+    got = log_mel_v1(audio, **kw)
+    torch.cuda.synchronize()
+    assert KERNELS["log_mel_v1"].launches == before + 1
+    want = log_mel_v1_plain(audio, **kw)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    _close(got, want, want, *LOG_MEL_TOL[conv])
+
+
 def test_new_kernels_raise_on_other_dtypes(cuda):
     x = torch.zeros((64, 16), dtype=torch.float64, device=cuda)
     with pytest.raises(NotImplementedError):
@@ -224,3 +324,24 @@ def test_new_kernels_raise_on_other_dtypes(cuda):
     with pytest.raises(NotImplementedError):
         log_mel_halo(torch.zeros((1, 48000), dtype=torch.bfloat16, device=cuda),
                      frame_length=1024, hop_length=480, n_fft=1024, fb=fb)
+    with pytest.raises(NotImplementedError):
+        log_mel_v1(torch.zeros((1, 48000), dtype=torch.bfloat16, device=cuda),
+                   frame_length=1024, hop_length=480, n_fft=1024, fb=fb)
+
+
+def test_split_kernels_raise_on_f32_and_cpu(cuda, params):
+    """A CUDA tensor of another dtype raises; a CPU operand beside a CUDA
+    one raises; nothing falls back to a plain version."""
+    b, res = _half_block(params, cuda, 1, 4, "v3")
+    x = torch.zeros((1, res, res, b.bp.shape[0]), device=cuda)
+    geo = dict(heads=b.heads, window=b.window, shift=b.shift, eps=b.eps)
+    with pytest.raises(NotImplementedError):
+        swin_attention_half_v3(x, b.wqkv, b.bq3, b.wp, b.bp, b.bm, **geo)
+    with pytest.raises(ValueError):
+        swin_attention_half_v3(x.bfloat16(), b.wqkv.cpu(), b.bq3, b.wp, b.bp, b.bm, **geo)
+    with pytest.raises(NotImplementedError):
+        mlp_block(x, b.ln2_w, b.ln2_b, b.w1, b.b1, b.w2, b.b2, eps=b.eps)
+    v1, _ = _half_block(params, cuda, 1, 4, "v1")
+    with pytest.raises(NotImplementedError):
+        swin_attention_half_v1(x, v1.ln1_w, v1.ln1_b, v1.wq, v1.bq, v1.wk, v1.wv, v1.wp, v1.bp,
+                               v1.bm, **geo)

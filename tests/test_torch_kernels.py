@@ -36,9 +36,8 @@ from audio_metrics_tpu_torch.models.htsat import (
     _v3_kernel_weights,
     frontend_tokens,
 )
-from audio_metrics_tpu_torch.ops.attention import swin_block, swin_block_plain
+from audio_metrics_tpu_torch.ops.attention import swin_block_plain
 from audio_metrics_tpu_torch.ops.frontend_fused import clap_tokens_fused
-from audio_metrics_tpu_torch.ops.merge import patch_merge
 
 cfg = HTSAT_BASE
 
@@ -96,7 +95,7 @@ def test_swin_block_plain_matches_xla(stage, shift):
     want = np.asarray(jax_swin_block(
         jnp.asarray(x), {k: jnp.asarray(v) for k, v in p.items()}, pre, cfg, res, shift, heads
     ))
-    got = _port_block(p, pre, stage, shift)(torch.from_numpy(x), swin_block).numpy()
+    got = _port_block(p, pre, stage, shift)(torch.from_numpy(x)).numpy()
     np.testing.assert_allclose(got, want, atol=2e-4)
 
 
@@ -158,7 +157,7 @@ def test_patch_merge_plain_matches_pallas_and_conv(dtype):
         jnp.asarray(w["tvec"]), h=h, w=h, eps=cfg.layer_norm_eps, interpret=True,
     ), np.float32)
     merge = PatchMerge(p, "m", cfg, h, tdt)
-    got = merge(torch.from_numpy(x).to(tdt), patch_merge).float().numpy()
+    got = merge(torch.from_numpy(x).to(tdt)).float().numpy()
     assert got.shape == (b, (h // 2) ** 2, oc)
     scale = np.abs(want_conv).max()
     for want in (want_conv, want_kernel):

@@ -1,5 +1,5 @@
-"""The halo log-mel and the CLAP windows that do not tile 10 s, against the
-JAX package on the CPU.
+"""The halo and v1 log-mels and the CLAP windows that do not tile 10 s,
+against the JAX package on the CPU.
 
 ``log_mel_halo_plain`` (the plain version of the halo log-mel kernel) is
 held against ``log_mel_pallas_halo`` in interpret mode at the CLAP and the
@@ -8,7 +8,12 @@ that file's kernel-vs-XLA bound (mean abs < 0.02, max abs < 0.5 dB or log
 units: both round frames and basis to bf16 and sum in f32 in another
 order, so they differ by f32 rounding except at near-silent bins); the
 affine epilogue with bf16 out within one bf16 ulp of dB-scale values
-(atol 0.25, test_pallas_model_kernels.py:378-381).  The plain
+(atol 0.25, test_pallas_model_kernels.py:378-381).  ``log_mel_v1_plain``
+(the plain version of the v1 log-mel kernel) against ``log_mel_pallas`` in
+interpret mode under the same bounds: the TPU kernel keeps its basis in
+f32 where the port's rounds it to bf16, an error of the size of the bf16
+frames' (~0.4 % relative), inside the bound that holds both kernels to the
+f32 XLA path.  The plain
 ``log_mel_spectrogram`` against the JAX XLA path at f32, 1e-4 dB (f32
 products in another order over 1024-sample frames).  The CLAP embedder at
 10 s and 3 s windows in f32 against ``LaionCLAP`` of the JAX package, atol
@@ -25,6 +30,7 @@ from audio_metrics_tpu.models.clap import LaionCLAP as JaxLaionCLAP
 from audio_metrics_tpu.models.htsat import HTSATConfig as JaxHTSATConfig
 from audio_metrics_tpu.models.htsat import frontend_tokens as jax_frontend_tokens
 from audio_metrics_tpu.ops.mel import (
+    log_mel_pallas,
     log_mel_pallas_halo,
     log_mel_spectrogram as jax_log_mel_spectrogram,
     mel_filter_bank as jax_mel_filter_bank,
@@ -40,6 +46,7 @@ from audio_metrics_tpu_torch.models.htsat import HTSATConfig, frontend_tokens, i
 from audio_metrics_tpu_torch.ops.mel import (
     log_mel_halo,
     log_mel_spectrogram,
+    log_mel_v1,
     mel_filter_bank,
 )
 
@@ -95,6 +102,47 @@ def test_log_mel_halo_plain_affine_epilogue():
     np.testing.assert_allclose(fused.float().numpy(), want.float().numpy(), rtol=0, atol=0.25)
     jax_fused = log_mel_pallas_halo(jnp.asarray(a.numpy()), out_affine=(sc, of),
                                     out_dtype=jnp.bfloat16, interpret=True, **kw)
+    np.testing.assert_allclose(fused.float().numpy(), np.asarray(jax_fused, np.float32),
+                               rtol=0, atol=0.25)
+
+
+@pytest.mark.parametrize("conv", ["clap", "vggish"])
+def test_log_mel_v1_plain_matches_pallas(conv):
+    """CLAP: 1024-sample frames in 3 chunks of 480 (1440 wide); VGGish: 400
+    in 3 chunks of 160 (480 wide)."""
+    c = CONVENTIONS[conv]
+    a = (0.2 * np.random.default_rng(13).normal(size=(3, c["sr"]))).astype(np.float32)
+    kw = dict(frame_length=c["frame"], hop_length=c["hop"], n_fft=c["n_fft"], fb=_fb(c),
+              center=c["center"], log_mode=c["log_mode"])
+    want = np.asarray(log_mel_pallas(jnp.asarray(a), interpret=True, **kw))
+    before = KERNELS["log_mel_v1"].launches
+    got = log_mel_v1(torch.from_numpy(a), **kw).numpy()
+    assert KERNELS["log_mel_v1"].launches == before  # a CPU tensor takes the plain version
+    assert got.shape == want.shape
+    d = np.abs(got - want)
+    assert d.mean() < 0.02 and d.max() < 0.5, (d.mean(), d.max())
+    # the halo log-mel's function: equal up to f32 summation order, 1e-3 dB
+    halo = log_mel_halo(torch.from_numpy(a), **kw).numpy()
+    assert np.abs(got - halo).max() < 1e-3
+
+
+def test_log_mel_v1_plain_affine_epilogue():
+    """The BatchNorm fold with bf16 out, against the plain output and the
+    TPU kernel's epilogue: atol 0.25 (one bf16 ulp of dB-scale values)."""
+    rng = np.random.default_rng(15)
+    a = torch.from_numpy((0.2 * rng.normal(size=(2, 48000))).astype(np.float32))
+    fb = _fb(CONVENTIONS["clap"])
+    sc = (rng.normal(size=64) * 0.3 + 1.0).astype(np.float32)
+    of = rng.normal(size=64).astype(np.float32)
+    kw = dict(frame_length=1024, hop_length=480, n_fft=1024, fb=fb, center=True, log_mode="db")
+    plain = log_mel_v1(a, **kw)
+    fused = log_mel_v1(a, out_affine=(torch.from_numpy(sc), torch.from_numpy(of)),
+                       out_dtype=torch.bfloat16, **kw)
+    assert fused.dtype == torch.bfloat16
+    want = (plain * torch.from_numpy(sc) + torch.from_numpy(of)).to(torch.bfloat16)
+    np.testing.assert_allclose(fused.float().numpy(), want.float().numpy(), rtol=0, atol=0.25)
+    jax_fused = log_mel_pallas(jnp.asarray(a.numpy()), out_affine=(sc, of),
+                               out_dtype=jnp.bfloat16, interpret=True, **kw)
     np.testing.assert_allclose(fused.float().numpy(), np.asarray(jax_fused, np.float32),
                                rtol=0, atol=0.25)
 
