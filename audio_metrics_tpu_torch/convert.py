@@ -14,14 +14,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .models.clap import ClapAudio
+from .models.base import resolve_device
+from .models.clap import ClapAudio, init_projection_params
 from .models.htsat import HTSATConfig, init_params
-from .models.clap import init_projection_params
 
 __all__ = ["params_from_numpy"]
 
 
-def params_from_numpy(d: dict[str, np.ndarray], cfg: HTSATConfig, device="cpu",
+def params_from_numpy(d: dict[str, np.ndarray], cfg: HTSATConfig, device="cuda",
                       dtype: torch.dtype = torch.float32) -> ClapAudio:
     """Fold ``d`` into a :class:`ClapAudio` on ``device``; ``dtype`` is the
     compute dtype of the Swin tower (bf16 or f32).  Raises on missing keys
@@ -35,4 +35,4 @@ def params_from_numpy(d: dict[str, np.ndarray], cfg: HTSATConfig, device="cpu",
         )
     if dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"compute dtype must be float32 or bfloat16, got {dtype}")
-    return ClapAudio(d, cfg, dtype).to(device).eval()
+    return ClapAudio(d, cfg, dtype).to(resolve_device(device)).eval()

@@ -204,5 +204,15 @@ KERNELS = {
             "audio_metrics_tpu_torch/kernels/csrc/log_mel.cu",
             "audio_metrics_tpu/ops/mel.py:360",
         ),
+        Kernel(
+            "swin_attn_v2",
+            "audio_metrics_tpu_torch/kernels/csrc/swin_halves.cu",
+            "audio_metrics_tpu/ops/attention.py:363",
+        ),
+        Kernel(
+            "swin_mlp_int8",
+            "audio_metrics_tpu_torch/kernels/csrc/mlp_int8.cu",
+            "audio_metrics_tpu/ops/mlp.py:228",
+        ),
     )
 }

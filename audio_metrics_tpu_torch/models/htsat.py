@@ -303,6 +303,23 @@ def _v1_kernel_weights(p: dict, prefix: str, resolution: int, shift: int,
     )
 
 
+def _v2_kernel_weights(p: dict, prefix: str, resolution: int, shift: int,
+                       num_heads: int, window: int) -> dict:
+    """The layout of the v2 attention half (``ops.attention.
+    swin_attention_half_v2``), which no block path takes: v1's weights side
+    by side, ``wqkv`` (C, 3C) = [Wq^T/sqrt(d), Wk^T, Wv^T], ``bq3`` (3C,)
+    with the scaled q bias and zeros on k and v, ``wp`` (C, C), and v1's
+    ``bp``, ``bm`` and LN1 affine, as tests/test_pallas_model_kernels.py:
+    422-439 builds them; with LN2 and the MLP."""
+    w = _v1_kernel_weights(p, prefix, resolution, shift, num_heads, window)
+    h, c, d = w["wq"].shape
+    cols = lambda a: a.transpose(1, 0, 2).reshape(c, h * d)
+    w["wqkv"] = np.concatenate([cols(w.pop(k)) for k in ("wq", "wk", "wv")], axis=1)
+    w["bq3"] = np.concatenate([w.pop("bq").reshape(-1), np.zeros(2 * c, np.float32)])
+    w["wp"] = w["wp"].reshape(h * d, c)
+    return w
+
+
 def _xla_weights(p: dict, prefix: str, resolution: int, shift: int,
                  num_heads: int, window: int) -> dict:
     """The raw weights of the XLA attention half (htsat.py:237-285,

@@ -11,6 +11,10 @@ Counterparts in ``audio_metrics_tpu``:
 - ``swin_attention_half_v1``: ``swin_attention_block_pallas`` (:426-470,
   kernel ``_attn_block_kernel`` :111), kernels/csrc/swin_halves.cu::
   am_swin_attn_v1;
+- ``swin_attention_half_v2``: ``swin_attention_block_pallas_v2`` (:473-511,
+  kernel ``_attn_block_kernel_v2`` :226), kernels/csrc/swin_halves.cu::
+  am_swin_attn_v2.  A public op that no model path calls, in the JAX
+  package as here;
 - ``window_attention_xla``: the XLA attention half of
   ``models/htsat.py::_swin_block`` (:584-607, ``_window_attention``
   :237-285), the JAX package's own non-kernel path: it runs on both
@@ -23,7 +27,10 @@ absorbing the value bias, ``bm`` (nW or 1, heads, n, n) bias+mask; v4 adds
 ``w1`` (C, 4C), ``w2`` (4C, C) input-major.  v1 takes the per-head layout
 of ``models/htsat.py:320-345``: ``wq``/``wk``/``wv`` (heads, C, d) with wq
 pre-scaled, ``bq`` (heads, d) pre-scaled, ``wp`` (heads, d, C), ``bp`` and
-``bm`` as v3, the LN1 affine unfolded.  Matrices in the activation dtype,
+``bm`` as v3, the LN1 affine unfolded.  v2 takes v1's weights side by side
+(``models.htsat._v2_kernel_weights``): ``wqkv`` (C, 3C) = [Wq^T/sqrt(d),
+Wk^T, Wv^T], ``bq3`` (3C,) with zeros on k and v, ``wp`` (C, C), ``bp`` and
+``bm`` as v1, the LN1 affine unfolded.  Matrices in the activation dtype,
 vectors and tables f32.
 
 Dispatch of each kernel wrapper: a CPU tensor runs its ``*_plain``
@@ -46,12 +53,15 @@ __all__ = [
     "swin_attention_half_v3_plain",
     "swin_attention_half_v1",
     "swin_attention_half_v1_plain",
+    "swin_attention_half_v2",
+    "swin_attention_half_v2_plain",
     "window_attention_xla",
 ]
 
 KERNEL = KERNELS["swin_block"]
 KERNEL_V3 = KERNELS["swin_attn_v3"]
 KERNEL_V1 = KERNELS["swin_attn_v1"]
+KERNEL_V2 = KERNELS["swin_attn_v2"]
 
 
 def _mm(a, b):
@@ -218,10 +228,10 @@ def _head_columns(wq, bq, wk, wv, wp):
     return wqkv, bqkv, wp.reshape(h * d, wp.shape[-1])
 
 
-def _v1_window(window: int, x) -> None:
+def _window_8x8(name: str, window: int, x) -> None:
     if window * window != 64:
         raise NotImplementedError(
-            f"swin_attn_v1 takes 8x8 windows; the merged one-window form (window = "
+            f"{name} takes 8x8 windows; the merged one-window form (window = "
             f"resolution = {x.shape[1]}, AM_TPU_MERGED_ATTN) is not ported (ROADMAP.md, "
             f"'Not to port')"
         )
@@ -229,36 +239,41 @@ def _v1_window(window: int, x) -> None:
 
 def swin_attention_half_v1_plain(x, ln_w, ln_b, wq, bq, wk, wv, wp, bp, bm, *, heads: int,
                                  window: int, shift: int, eps: float = 1e-5):
-    """x (B, R, R, C) -> x + WindowAttention(LN1(x)), same dtype: LN1 with
-    its affine in f32 rounded to the activation dtype, per-head q/k/v (q
-    with its bias) rounded, then as v3; the sum over heads of ctx_h @ wp_h
-    is one f32 product over all heads' columns."""
-    _v1_window(window, x)
-    wqkv, bqkv, wp2 = _head_columns(wq, bq, wk, wv, wp)
-    xw = _partition(layer_norm(x, ln_w, ln_b, eps), window, shift)
-    y = (_mm(xw, wqkv) + bqkv).to(x.dtype)
-    return _attention_residual(x, y, wp2, bp, bm, heads, window, shift).to(x.dtype)
+    """x (B, R, R, C) -> x + WindowAttention(LN1(x)), same dtype: v2's plain
+    version on the per-head operands laid side by side."""
+    _window_8x8("swin_attn_v1", window, x)
+    return swin_attention_half_v2_plain(x, ln_w, ln_b, *_head_columns(wq, bq, wk, wv, wp), bp,
+                                        bm, heads=heads, window=window, shift=shift, eps=eps)
 
 
-def _attention_half_v1_cuda(x, ln_w, ln_b, wq, bq, wk, wv, wp, bp, bm, *, heads, window,
-                            shift, eps):
-    _v1_window(window, x)
+def _attention_ln_affine_cuda(kernel, symbol, x, ln_w, ln_b, wqkv, bqkv, wp, bp, bm, *, heads,
+                              window, shift, eps):
+    """Launch v1's or v2's kernel on the (C, 3C) / (C, C) operands."""
     b, r, _, c = x.shape
-    require_cuda(x, wq, wk, wv, wp)
-    require_cuda(ln_w, ln_b, bq, bp, bm, dtype=torch.float32)
-    _check_geometry("swin_attn_v1", x, heads, window, bm)
-    if wq.shape != (heads, c, c // heads) or wp.shape != (heads, c // heads, c):
-        raise ValueError(f"per-head weights wq {tuple(wq.shape)} wp {tuple(wp.shape)}")
-    wqkv, bqkv, wp2 = (t.contiguous() for t in _head_columns(wq, bq, wk, wv, wp))
+    require_cuda(x, wqkv, wp)
+    require_cuda(ln_w, ln_b, bqkv, bp, bm, dtype=torch.float32)
+    _check_geometry(kernel.name, x, heads, window, bm)
     m = b * r * r
     xn = torch.empty((m, c), dtype=x.dtype, device=x.device)
     qkv = torch.empty((m, 3 * c), dtype=x.dtype, device=x.device)
     ctx = torch.empty((m, c), dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
-    KERNEL_V1.launch("am_swin_attn_v1", x, ln_w, ln_b, wqkv, bqkv, wp2, bp, bm, bm.shape[0], b,
-                     r, c, heads, window, shift, float(eps), xn, qkv, ctx, out)
-    KERNEL_V1.launches += 1
+    kernel.launch(symbol, x, ln_w, ln_b, wqkv, bqkv, wp, bp, bm, bm.shape[0], b, r, c, heads,
+                  window, shift, float(eps), xn, qkv, ctx, out)
+    kernel.launches += 1
     return out
+
+
+def _attention_half_v1_cuda(x, ln_w, ln_b, wq, bq, wk, wv, wp, bp, bm, *, heads, window,
+                            shift, eps):
+    _window_8x8("swin_attn_v1", window, x)
+    c = x.shape[-1]
+    if wq.shape != (heads, c, c // heads) or wp.shape != (heads, c // heads, c):
+        raise ValueError(f"per-head weights wq {tuple(wq.shape)} wp {tuple(wp.shape)}")
+    wqkv, bqkv, wp2 = (t.contiguous() for t in _head_columns(wq, bq, wk, wv, wp))
+    return _attention_ln_affine_cuda(KERNEL_V1, "am_swin_attn_v1", x, ln_w, ln_b, wqkv, bqkv,
+                                     wp2, bp, bm, heads=heads, window=window, shift=shift,
+                                     eps=eps)
 
 
 def swin_attention_half_v1(x, ln_w, ln_b, wq, bq, wk, wv, wp, bp, bm, *, heads: int,
@@ -268,6 +283,43 @@ def swin_attention_half_v1(x, ln_w, ln_b, wq, bq, wk, wv, wp, bp, bm, *, heads: 
     fn = swin_attention_half_v1_plain if x.device.type == "cpu" else _attention_half_v1_cuda
     return fn(x, ln_w, ln_b, wq, bq, wk, wv, wp, bp, bm, heads=heads, window=window,
               shift=shift, eps=eps)
+
+
+# ----------------------------------------------------------------------
+# #11 attention half, (C, 3C) qkv and (C, C) projection, LN1 affine in the
+# kernel (v2)
+# ----------------------------------------------------------------------
+def swin_attention_half_v2_plain(x, ln_w, ln_b, wqkv, bq3, wp, bp, bm, *, heads: int,
+                                 window: int, shift: int, eps: float = 1e-5):
+    """x (B, R, R, C) -> x + WindowAttention(LN1(x)), same dtype: LN1 with
+    its affine in f32 rounded to the activation dtype, q/k/v (q with its
+    bias) rounded, then as v3.  The JAX kernel's per-head contractions over
+    lane-masked k and v add only zeros beyond the head's d lanes, so they are
+    the d-wide per-head products taken here."""
+    _window_8x8("swin_attn_v2", window, x)
+    xw = _partition(layer_norm(x, ln_w, ln_b, eps), window, shift)
+    y = (_mm(xw, wqkv) + bq3).to(x.dtype)
+    return _attention_residual(x, y, wp, bp, bm, heads, window, shift).to(x.dtype)
+
+
+def _attention_half_v2_cuda(x, ln_w, ln_b, wqkv, bq3, wp, bp, bm, *, heads, window, shift,
+                            eps):
+    _window_8x8("swin_attn_v2", window, x)
+    c = x.shape[-1]
+    if wqkv.shape != (c, 3 * c) or bq3.shape != (3 * c,) or wp.shape != (c, c):
+        raise ValueError(f"v2 weights wqkv {tuple(wqkv.shape)} bq3 {tuple(bq3.shape)} "
+                         f"wp {tuple(wp.shape)}")
+    return _attention_ln_affine_cuda(KERNEL_V2, "am_swin_attn_v2", x, ln_w, ln_b, wqkv, bq3, wp,
+                                     bp, bm, heads=heads, window=window, shift=shift, eps=eps)
+
+
+def swin_attention_half_v2(x, ln_w, ln_b, wqkv, bq3, wp, bp, bm, *, heads: int, window: int,
+                           shift: int, eps: float = 1e-5):
+    """Attention half of a Swin block under v2's contract, (B, R, R, C) ->
+    (B, R, R, C); 8x8 windows only."""
+    fn = swin_attention_half_v2_plain if x.device.type == "cpu" else _attention_half_v2_cuda
+    return fn(x, ln_w, ln_b, wqkv, bq3, wp, bp, bm, heads=heads, window=window, shift=shift,
+              eps=eps)
 
 
 # ----------------------------------------------------------------------

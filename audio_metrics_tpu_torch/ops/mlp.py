@@ -1,5 +1,5 @@
-"""The Swin block's MLP half: the kernel wrapper, its plain version and the
-XLA form.
+"""The Swin block's MLP half: the kernel wrappers, their plain versions and
+the XLA form.
 
 Counterpart of ``audio_metrics_tpu/ops/mlp.py``: ``mlp_block`` has the
 contract of ``mlp_block_pallas`` (:278-305, kernel ``_mlp_kernel`` :119)
@@ -11,20 +11,42 @@ non-kernel path, which runs on both devices and is not the plain version of
 any kernel.  Weights: ``w1`` (C, 4C), ``w2`` (4C, C) input-major in the
 activation dtype; LN affine and biases f32.
 
-Dispatch of ``mlp_block``: a CPU tensor runs ``mlp_block_plain``; a CUDA
-tensor launches the kernel or raises.
+``mlp_block_int8`` has the contract of ``mlp_block_pallas_int8`` (:249-275,
+kernel ``_mlp_kernel_int8`` :166), the W8A8 MLP: ``w1`` and ``w2`` given in
+f32 and quantised per output column by :func:`quantize_columns` on every
+call (the JAX wrapper's XLA prep, :216-223), the activations per row inside
+the kernel (kernels/csrc/mlp_int8.cu::am_swin_mlp_int8).  A public op that
+no model path calls, in the JAX package as here.  Exact-erf GELU (the JAX
+kernel's A&S 7.1.26 erf is within 1.5e-7 of it).
+
+Dispatch of ``mlp_block`` and ``mlp_block_int8``: a CPU tensor runs the
+``*_plain`` version; a CUDA tensor launches the kernel or raises.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..kernels import KERNELS, require_cuda
 
-__all__ = ["layer_norm", "mlp_block", "mlp_block_plain", "mlp_xla"]
+__all__ = [
+    "layer_norm",
+    "mlp_block",
+    "mlp_block_plain",
+    "mlp_block_int8",
+    "mlp_block_int8_plain",
+    "mlp_xla",
+    "quantize_columns",
+]
 
 KERNEL = KERNELS["swin_mlp"]
+KERNEL_INT8 = KERNELS["swin_mlp_int8"]
+# f32 constants of the int8 kernel, as jnp.float32 gives them
+_INV127 = float(np.float32(1.0 / 127.0))
+_AMAX_FLOOR = float(np.float32(1e-12))
+_SQRT1_2 = float(np.float32(0.7071067811865476))
 
 
 def layer_norm(x, w, b, eps):
@@ -66,6 +88,78 @@ def _mlp_block_cuda(x, ln_w, ln_b, w1, b1, w2, b2, *, eps):
 def mlp_block(x, ln_w, ln_b, w1, b1, w2, b2, *, eps: float = 1e-5):
     """x + fc2(GELU(fc1(LN(x)))) over the last axis."""
     fn = mlp_block_plain if x.device.type == "cpu" else _mlp_block_cuda
+    return fn(x, ln_w, ln_b, w1, b1, w2, b2, eps=eps)
+
+
+# ----------------------------------------------------------------------
+# #12 W8A8 int8 MLP
+# ----------------------------------------------------------------------
+def _codes(v, dim: int):
+    """Symmetric int8 codes of f32 ``v`` along ``dim`` and their scales:
+    s = max(max |v|, 1e-12) * f32(1/127), q = round(v / s), half to even."""
+    s = torch.clamp(v.abs().amax(dim=dim, keepdim=True), min=_AMAX_FLOOR) * _INV127
+    return torch.round(v / s), s
+
+
+def quantize_columns(w):
+    """(K, N) weight -> int8 codes (K, N) and f32 scales (1, N), one scale
+    per output column (audio_metrics_tpu/ops/mlp.py:216-223)."""
+    q, s = _codes(w.float(), 0)
+    return q.to(torch.int8), s
+
+
+def _int_product(q, w_q):
+    """Codes @ codes in float64, which is exact here (|sum| <= 127^2 * K <
+    2^53; f32 is not above 2^24, and the card's matmul has no int32 form),
+    then to f32 as the kernel converts its int32 sums."""
+    return torch.matmul(q.double(), w_q.double()).float()
+
+
+def mlp_block_int8_plain(x, ln_w, ln_b, w1, b1, w2, b2, *, eps: float = 1e-5):
+    """x (..., C) f32 or bf16 -> same dtype: LN in f32, per-row int8 codes
+    of the LN output and of the GELU output, per-column codes of the
+    weights, integer products, each dequantised with (row scale * column
+    scale), bias, exact-erf GELU, the f32 residual, one rounding to the
+    activation dtype at the end."""
+    q1, s1 = quantize_columns(w1)
+    q2, s2 = quantize_columns(w2)
+    xf = x.float()
+    qx, sx = _codes(layer_norm(xf, ln_w, ln_b, eps), -1)
+    y = _int_product(qx, q1) * (sx * s1) + b1
+    y = y * 0.5 * (1 + torch.erf(y * _SQRT1_2))
+    qy, sy = _codes(y, -1)
+    return (_int_product(qy, q2) * (sy * s2) + b2 + xf).to(x.dtype)
+
+
+def _mlp_block_int8_cuda(x, ln_w, ln_b, w1, b1, w2, b2, *, eps):
+    c = x.shape[-1]
+    require_cuda(x)
+    require_cuda(ln_w, ln_b, w1, b1, w2, b2, dtype=torch.float32)
+    if c % 64 or w1.shape != (c, 4 * c) or w2.shape != (4 * c, c):
+        raise NotImplementedError(
+            f"swin_mlp_int8 kernel takes C % 64 == 0 and a 4C hidden width, got x "
+            f"{tuple(x.shape)} w1 {tuple(w1.shape)} w2 {tuple(w2.shape)}"
+        )
+    q1, s1 = quantize_columns(w1)
+    q2, s2 = quantize_columns(w2)
+    m = x.numel() // c
+    dev = x.device
+    qx = torch.empty((m, c), dtype=torch.int8, device=dev)
+    sx = torch.empty(m, dtype=torch.float32, device=dev)
+    hid = torch.empty((m, 4 * c), dtype=torch.float32, device=dev)
+    amax = torch.empty(m, dtype=torch.int32, device=dev)
+    qy = torch.empty((m, 4 * c), dtype=torch.int8, device=dev)
+    out = torch.empty_like(x)
+    KERNEL_INT8.launch("am_swin_mlp_int8", x, ln_w, ln_b, q1.t().contiguous(), s1, b1,
+                       q2.t().contiguous(), s2, b2, m, c, float(eps), qx, sx, hid, amax, qy, out)
+    KERNEL_INT8.launches += 1
+    return out
+
+
+def mlp_block_int8(x, ln_w, ln_b, w1, b1, w2, b2, *, eps: float = 1e-5):
+    """x + fc2(GELU(fc1(LN(x)))) over the last axis with W8A8 int8
+    products; ``w1`` (C, 4C) and ``w2`` (4C, C) f32."""
+    fn = mlp_block_int8_plain if x.device.type == "cpu" else _mlp_block_int8_cuda
     return fn(x, ln_w, ln_b, w1, b1, w2, b2, eps=eps)
 
 

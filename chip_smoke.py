@@ -34,10 +34,20 @@ Phases, one status line each:
      stages 0 and 1 and the XLA attention at stages 2 and 3, 256 + 256
      clips, as phase 6;
   8. v1 log-mel: ``AM_TPU_MEL_V1=1`` on the 10 s path (phase 5's clips):
-     launch counts and embeddings against phase 5's halo log-mel path.
+     launch counts and embeddings against phase 5's halo log-mel path;
+  9. the two opt-in ops, which no model path calls (in the JAX package as
+     here), on the activations of a real forward: one default HTSAT-base
+     bf16 forward of 64 clips of 5 s with phase 4's weights captures each
+     of the 18 Swin blocks' inputs; on each, the v2 attention half
+     (``swin_attention_half_v2``) with that block's weights, then the int8
+     MLP (``mlp_block_int8``) on its output with that block's f32 MLP
+     weights: launch counts, each against its plain version, the int8
+     MLP's branch against the fused bf16 MLP kernel's, per-forward times.
 Phase 3 also holds the split block's kernels (v3 attention half at every
 stage, the fused MLP at the row counts of stages 0-3, the v1 attention
-half at stages 0 and 1) and the v1 log-mel against their plain versions,
+half at stages 0 and 1), the opt-in ops (the v2 attention half at every
+stage, against the v1 kernel too at stages 0 and 1; the int8 MLP at the
+row counts of stages 0-3) and the v1 log-mel against their plain versions,
 and the v3 half then the MLP against the whole-block kernel.  Each
 environment variable is set only around the phase that reads it.
 Then one JSON line with each kernel's numbers, the card line, and last the
@@ -66,7 +76,7 @@ BATCH = 64       # e2e batch size
 CHECK_B = 4      # kernel-vs-plain batch
 # the card's peaks (NVIDIA data sheet, H100 SXM, dense, at 700 W): bytes/s
 # and operations/s by type, for each kernel's bound
-PEAK = {"bytes": 3.35e12, "bf16": 989e12, "f32": 67e12}
+PEAK = {"bytes": 3.35e12, "bf16": 989e12, "f32": 67e12, "int8": 1979e12}
 # bf16 kernel vs bf16 plain on the same inputs: same rounding points, other
 # f32 summation order, so they differ by the odd bf16 rounding flip and what
 # it propagates.  Bounds: (mean abs error / mean abs signal, max abs error),
@@ -80,7 +90,17 @@ TOL = {"swin_block": ((2e-4, 5e-4, 1.5e-3, 3.5e-3), 0.0625),
        "clap_frontend": (4e-3, 0.0625),
        "swin_attn_v3": ((4e-5, 1e-4, 2.5e-4, 5e-4), 0.0625),
        "swin_mlp": ((1e-5, 2.5e-5, 6e-5, 1.2e-4), 0.0625),
-       "swin_attn_v1": ((1e-4, 2e-4), 0.0625)}
+       "swin_attn_v1": ((1e-4, 2e-4), 0.0625),
+       "swin_attn_v2": ((1e-4, 2e-4, 5e-4, 1e-3), 0.0625),
+       "swin_mlp_int8": ((2.5e-6, 5e-6, 7e-6, 7e-6), 0.0625)}
+# the int8 MLP's branch (out - x) against the fused bf16 MLP kernel's, each
+# held against the f32 branch (the plain MLP in f32 on the same input, f32
+# weights) by relative Frobenius error: the int8 branch's error may exceed
+# the bf16 kernel's by at most the JAX suite's bound for W8A8 quantisation
+# error (tests/test_pallas_model_kernels.py:291-292).  The bf16 kernel's own
+# error there is mostly the bf16 rounding of out = x + branch, where the
+# branch is a few percent of x.
+INT8_EXCESS_TOL = 0.02
 # the v3 half then the MLP kernel against the whole-block kernel on the same
 # inputs: they differ by the bf16 rounding of the mid-block residual (the
 # whole block keeps it f32) and what it propagates; (mean abs error / mean
@@ -154,6 +174,20 @@ def swin_bound(cfg, b, part="block", stages=(0, 1, 2, 3)):
             n_bytes += depth * (2 * t * c * 2 + {"block": 12, "attn": 4, "mlp": 8}[part] * c * c * 2)
         res //= 2
     return bound({"bf16": ops}, n_bytes)
+
+
+def int8_mlp_bound(cfg, b):
+    """The int8 MLP on the rows of every Swin block of one forward: fc1 and
+    fc2, 16 T C^2 int8 operations; bytes: each block's bf16 rows in and
+    out, its f32 weights (8 C^2) and f32 vectors (LN affine, biases: 7 C)."""
+    ops = n_bytes = 0
+    res = cfg.grid_size
+    for stage, depth in enumerate(cfg.depths):
+        c, t = cfg.embed_dim * 2**stage, b * res * res
+        ops += depth * 16 * t * c * c
+        n_bytes += depth * (2 * t * c * 2 + (8 * c * c + 7 * c) * 4)
+        res //= 2
+    return bound({"int8": ops}, n_bytes)
 
 
 def merge_bound(cfg, b):
@@ -233,12 +267,49 @@ def compare(name, got, want, signal, results):
     return mx, rel
 
 
+def v2_weights(params, prefix, block):
+    """The opt-in ops' operands for ``block``'s weights, on the card: the v2
+    attention half's (bf16 matrices) and the int8 MLP's (f32 weights)."""
+    from audio_metrics_tpu_torch.models.htsat import _Folded, _mlp_weights, _v2_kernel_weights
+
+    w = _Folded(_v2_kernel_weights(params, prefix, block.resolution, block.shift, block.heads,
+                                   block.window), torch.bfloat16).to("cuda")
+    m = _Folded(_mlp_weights(params, prefix), torch.float32).to("cuda")
+    return ((w.ln1_w, w.ln1_b, w.wqkv, w.bq3, w.wp, w.bp, w.bm),
+            (m.ln2_w, m.ln2_b, m.w1, m.b1, m.w2, m.b2))
+
+
+def int8_ties(x, mlp, eps, results):
+    """The int8 MLP where every LN output is a code and a half: with a zero
+    LN weight the LN output is the LN bias, here 127 and then +-(k + 1/2),
+    so sx = 1 and each quotient lies exactly halfway (random rows rarely
+    do).  Half to even (the JAX kernel's jnp.round) and half away from zero
+    give other codes for every even k."""
+    from audio_metrics_tpu_torch.ops.mlp import mlp_block_int8, mlp_block_int8_plain
+
+    c = x.shape[-1]
+    k = torch.arange(1, c, device=x.device)
+    ln_b = torch.cat([torch.tensor([127.0], device=x.device),
+                      ((k % 20) + 0.5) * (1 - 2 * (k % 2))])
+    args = (torch.zeros_like(mlp[0]), ln_b.float(), *mlp[2:])
+    got, want = mlp_block_int8(x, *args, eps=eps), mlp_block_int8_plain(x, *args, eps=eps)
+    mx, rel = compare("swin_mlp_int8", got, want, want.float() - x.float(), results)
+    rel_tol, max_tol = TOL["swin_mlp_int8"][0][0], TOL["swin_mlp_int8"][1]
+    ok = mx <= max_tol and rel <= rel_tol
+    log(f"  swin_mlp_int8 LN outputs at halves, C={c}: max_abs_err {mx:.4g} (tol {max_tol}) "
+        f"mean_abs_err / mean |out - x| {rel:.4g} (tol {rel_tol}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("swin_mlp_int8 rounds halves otherwise than its plain version")
+
+
 def phase_kernels(cfg, params, results):
     from audio_metrics_tpu_torch.models.clap import ClapFrontend
     from audio_metrics_tpu_torch.models.htsat import PatchMerge, SwinBlock
     from audio_metrics_tpu_torch.ops.attention import (
         swin_attention_half_v1,
         swin_attention_half_v1_plain,
+        swin_attention_half_v2,
+        swin_attention_half_v2_plain,
         swin_attention_half_v3,
         swin_attention_half_v3_plain,
     )
@@ -246,7 +317,12 @@ def phase_kernels(cfg, params, results):
         clap_tokens_fused,
         clap_tokens_fused_plain,
     )
-    from audio_metrics_tpu_torch.ops.mlp import mlp_block, mlp_block_plain
+    from audio_metrics_tpu_torch.ops.mlp import (
+        mlp_block,
+        mlp_block_int8,
+        mlp_block_int8_plain,
+        mlp_block_plain,
+    )
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -309,6 +385,15 @@ def phase_kernels(cfg, params, results):
                   x=x4[CHECK_B], stage=stage)
             split_checks.append((key, block, xs[CHECK_B], x4[CHECK_B], attn, mlp, geo))
 
+            # the v2 attention half (#11), an opt-in op: every stage
+            a2 = v2_weights(params, prefix, block)[0]
+            check("swin_attn_v2", key,
+                  lambda: swin_attention_half_v2(x4[CHECK_B], *a2, **geo),
+                  lambda: swin_attention_half_v2_plain(x4[CHECK_B], *a2, **geo),
+                  (lambda: swin_attention_half_v2(x4[BATCH], *a2, **geo),
+                   lambda: swin_attention_half_v2_plain(x4[BATCH], *a2, **geo), n_blocks),
+                  x=x4[CHECK_B], stage=stage)
+
             if stage < 2:  # the v1 attention half (#10): stages of >= 16 windows
                 v1 = SwinBlock(params, prefix, cfg, res, shift, cfg.num_heads[stage],
                                torch.bfloat16, attention="v1").to(dev)
@@ -319,6 +404,17 @@ def phase_kernels(cfg, params, results):
                       (lambda: swin_attention_half_v1(x4[BATCH], *a1, **geo),
                        lambda: swin_attention_half_v1_plain(x4[BATCH], *a1, **geo), n_blocks),
                       x=x4[CHECK_B], stage=stage)
+                # v2 on v1's operands laid side by side runs v1's launches
+                v1_out = swin_attention_half_v1(x4[CHECK_B], *a1, **geo)
+                mx, rel = compare("v2_vs_v1", swin_attention_half_v2(x4[CHECK_B], *a2, **geo),
+                                  v1_out, v1_out.float() - x4[CHECK_B].float(), results)
+                rel_tol, max_tol = TOL["swin_attn_v1"][0][stage], TOL["swin_attn_v1"][1]
+                ok = mx <= max_tol and rel <= rel_tol
+                log(f"  v2 kernel vs v1 kernel {key}: max_abs_err {mx:.4g} (tol {max_tol}) "
+                    f"mean_abs_err / mean |out - x| {rel:.4g} (tol {rel_tol}) "
+                    f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(f"the v2 kernel disagrees with the v1 kernel {key}")
 
         # the fused MLP (#9) at this stage's rows; blocks of one forward at
         # B=BATCH that take it (the XLA MLP below 1024 tokens and 16384 rows)
@@ -331,6 +427,17 @@ def phase_kernels(cfg, params, results):
               (lambda: mlp_block(xs[BATCH], *mlp, eps=block.eps),
                lambda: mlp_block_plain(xs[BATCH], *mlp, eps=block.eps), n_mlp),
               x=xs[CHECK_B], stage=stage)
+
+        # the int8 MLP (#12), an opt-in op: every block's rows at this stage
+        m8 = v2_weights(params, prefix, block)[1]
+        check("swin_mlp_int8", f"stage {stage} rows B x {res * res} C={c}",
+              lambda: mlp_block_int8(xs[CHECK_B], *m8, eps=block.eps),
+              lambda: mlp_block_int8_plain(xs[CHECK_B], *m8, eps=block.eps),
+              (lambda: mlp_block_int8(xs[BATCH], *m8, eps=block.eps),
+               lambda: mlp_block_int8_plain(xs[BATCH], *m8, eps=block.eps), depth),
+              x=xs[CHECK_B], stage=stage)
+        if stage == 0:
+            int8_ties(xs[CHECK_B], m8, block.eps, results)
 
         for key, block, x, x4, attn, mlp, geo in split_checks:
             split = mlp_block(swin_attention_half_v3(x4, *attn, **geo).view(x.shape), *mlp,
@@ -364,7 +471,9 @@ def phase_kernels(cfg, params, results):
               "clap_frontend": frontend_bound(cfg, BATCH, CLIP_S * SR),
               "swin_attn_v3": swin_bound(cfg, BATCH, "attn"),
               "swin_mlp": swin_bound(cfg, BATCH, "mlp", stages=mlp_stages),
-              "swin_attn_v1": swin_bound(cfg, BATCH, "attn", stages=(0, 1))}
+              "swin_attn_v1": swin_bound(cfg, BATCH, "attn", stages=(0, 1)),
+              "swin_attn_v2": swin_bound(cfg, BATCH, "attn"),
+              "swin_mlp_int8": int8_mlp_bound(cfg, BATCH)}
     for name, t in times.items():
         for b in (CHECK_B, BATCH):
             log(f"  {name} per forward at B={b}: kernel {t['ms'][b]:.4f} ms, "
@@ -804,6 +913,103 @@ def phase_config(card: str, switches: dict, n_clips: int, seconds: int, seed: in
     return launches, emb
 
 
+def phase_opt_in(card: str, results: dict) -> dict:
+    """The two opt-in ops on the activations of one default HTSAT-base bf16
+    forward of BATCH 5 s clips with phase 4's weights (``LaionCLAP``'s
+    random weights from seed 0, given as the numpy dict the ops' weights are
+    laid out from).  A forward pre-hook captures each Swin block's input;
+    then, counts at 0, the v2 attention half with the block's weights and
+    the int8 MLP on its output with the block's f32 MLP weights, for all 18
+    blocks; then each against its plain version, the int8 MLP's branch
+    against the fused bf16 MLP kernel's, and per-forward times."""
+    from audio_metrics_tpu_torch.models.clap import LaionCLAP, init_projection_params
+    from audio_metrics_tpu_torch.models.htsat import HTSAT_BASE, init_params
+    from audio_metrics_tpu_torch.ops.attention import (
+        swin_attention_half_v2,
+        swin_attention_half_v2_plain,
+    )
+    from audio_metrics_tpu_torch.ops.mlp import (
+        mlp_block,
+        mlp_block_int8,
+        mlp_block_int8_plain,
+        mlp_block_plain,
+    )
+
+    cfg = HTSAT_BASE
+    params = init_params(cfg, seed=0)
+    params.update(init_projection_params(cfg, seed=0))
+    clap = LaionCLAP(params=params, cfg=cfg, compute_dtype="bfloat16", device="cuda")
+    audio, _ = clips(BATCH, CLIP_S, seed=3)
+    blocks = [(i, j, blk) for i, stage in enumerate(clap.model.encoder.blocks)
+              for j, blk in enumerate(stage)]
+    inputs = []
+    hooks = [blk.register_forward_pre_hook(lambda _m, args: inputs.append(args[0]))
+             for _, _, blk in blocks]
+    clap.embed(audio)
+    for h in hooks:
+        h.remove()
+    ops = []
+    for (i, j, blk), x in zip(blocks, inputs):
+        attn, mlp = v2_weights(params, f"audio_encoder.layers.{i}.blocks.{j}", blk)
+        geo = dict(heads=blk.heads, window=blk.window, shift=blk.shift, eps=blk.eps)
+        r, c = blk.resolution, x.shape[-1]
+        ops.append((i, j, blk, x.view(BATCH, r, r, c), attn, mlp, geo))
+
+    set_counts_to_zero()
+    outs = []
+    with torch.no_grad():
+        for i, j, blk, x4, attn, mlp, geo in ops:
+            a = swin_attention_half_v2(x4, *attn, **geo)
+            outs.append((a, mlp_block_int8(a.view(BATCH, -1, a.shape[-1]), *mlp, eps=blk.eps)))
+    launches = read_counts()
+    check_counts(f"{len(ops)} blocks, the v2 attention half then the int8 MLP", launches,
+                 {name: len(ops) if name in ("swin_attn_v2", "swin_mlp_int8") else 0
+                  for name in launches})
+
+    ms = {"swin_attn_v2": 0.0, "swin_mlp_int8": 0.0, "swin_mlp (bf16)": 0.0}
+    for (i, j, blk, x4, attn, mlp, geo), (a, m) in zip(ops, outs):
+        a3 = a.view(BATCH, -1, a.shape[-1])
+        bf16_mlp = (blk.ln2_w, blk.ln2_b, blk.w1, blk.b1, blk.w2, blk.b2)
+        want_a = swin_attention_half_v2_plain(x4, *attn, **geo)
+        want_m = mlp_block_int8_plain(a3, *mlp, eps=blk.eps)
+        m9 = mlp_block(a3, *bf16_mlp, eps=blk.eps)
+        exact = mlp_block_plain(a3.float(), *mlp, eps=blk.eps) - a3.float()
+        line = f"  block {i}.{j} R={blk.resolution} C={a.shape[-1]}:"
+        ok = True
+        for name, got, want, x in (("swin_attn_v2", a, want_a, x4), ("swin_mlp_int8", m, want_m, a3)):
+            mx, rel = compare(name, got, want, want.float() - x.float(), results)
+            rel_tol, max_tol = TOL[name][0][i], TOL[name][1]
+            ok &= mx <= max_tol and rel <= rel_tol
+            line += f" {name} max_abs_err {mx:.4g} rel {rel:.4g} (tol {max_tol}, {rel_tol});"
+        fro = {k: (torch.linalg.norm(v.float() - a3.float() - exact) /
+                   torch.linalg.norm(exact)).item() for k, v in (("int8", m), ("bf16", m9))}
+        direct = (torch.linalg.norm(m.float() - m9.float()) /
+                  torch.linalg.norm(m9.float() - a3.float())).item()
+        ok &= fro["int8"] <= fro["bf16"] + INT8_EXCESS_TOL
+        log(f"{line} branch vs the f32 branch: int8 {fro['int8']:.4g}, bf16 kernel "
+            f"{fro['bf16']:.4g} (int8 - bf16 tol {INT8_EXCESS_TOL}); int8 vs bf16 kernel "
+            f"{direct:.4g} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"an opt-in op disagrees at block {i}.{j}")
+        ms["swin_attn_v2"] += cuda_ms(lambda: swin_attention_half_v2(x4, *attn, **geo))
+        ms["swin_mlp_int8"] += cuda_ms(lambda: mlp_block_int8(a3, *mlp, eps=blk.eps))
+        ms["swin_mlp (bf16)"] += cuda_ms(lambda: mlp_block(a3, *bf16_mlp, eps=blk.eps))
+    # yardstick, used nowhere in the port: the int8 MLP's two products
+    # alone through torch._int_mm (cuBLASLt), on random codes of each
+    # block's shapes
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    for i, j, blk, x4, attn, mlp, geo in ops:
+        m, c = x4.numel() // x4.shape[-1], x4.shape[-1]
+        a, w1, h, w2 = (torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                                      dtype=torch.int8)
+                        for shape in ((m, c), (c, 4 * c), (m, 4 * c), (4 * c, c)))
+        ms["torch._int_mm, the two products"] = ms.get("torch._int_mm, the two products", 0.0) \
+            + cuda_ms(lambda: (torch._int_mm(a, w1), torch._int_mm(h, w2)))
+    log(f"  per forward of {BATCH} clips over the {len(ops)} blocks: " + ", ".join(
+        f"{k} {v:.4f} ms" for k, v in ms.items()) + f" [{card}]")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run", file=sys.stderr)
@@ -852,10 +1058,14 @@ def main() -> int:
         card, {"AM_TPU_MEL_V1": "1"}, N_CLIPS_10S, 10, 6,
         dict(swin_block=18, patch_merge=3, log_mel_v1=1), tol_key="mel_v1", against=emb_10s)
 
+    log("phase 9 the opt-in ops (v2 attention half, int8 MLP) on a real forward's activations")
+    launches_opt_in = phase_opt_in(card, results)
+
     # launches: each kernel's count on the path that runs it
     path_of = {"log_mel": launches_10s, "swin_attn_v3": launches_split,
                "swin_mlp": launches_split, "swin_attn_v1": launches_v1,
-               "log_mel_v1": launches_mel_v1}
+               "log_mel_v1": launches_mel_v1, "swin_attn_v2": launches_opt_in,
+               "swin_mlp_int8": launches_opt_in}
     line = {"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,
          "launches": path_of.get(k.name, launches)[k.name],

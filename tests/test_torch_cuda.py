@@ -19,8 +19,10 @@ The PRDC kernels (f32): radii rtol 1e-4, atol 1e-5 against the plain
 version (the JAX suite's kernel-vs-XLA bound); the booleans and counts
 equal except where a float64 recomputation shows a pair within 1e-5
 relative of its radius (``testing.stats_mismatches``).  The log-mel
-kernels and the split block's kernels (v3 and v1 attention halves, the
-fused MLP): the bounds of ``chip_smoke.py``.
+kernels, the split block's kernels (v3 and v1 attention halves, the fused
+MLP) and the two opt-in ops (the v2 attention half, the int8 MLP): the
+bounds of ``chip_smoke.py``.  The v2 half on v1's operands laid side by
+side runs v1's launches: equal outputs.
 """
 
 import numpy as np
@@ -29,10 +31,20 @@ import torch
 
 from audio_metrics_tpu_torch.kernels import KERNELS
 from audio_metrics_tpu_torch.models.clap import SAMPLE_RATE, ClapFrontend
-from audio_metrics_tpu_torch.models.htsat import HTSAT_BASE, PatchMerge, SwinBlock, init_params
+from audio_metrics_tpu_torch.models.htsat import (
+    HTSAT_BASE,
+    PatchMerge,
+    SwinBlock,
+    _Folded,
+    _mlp_weights,
+    _v2_kernel_weights,
+    init_params,
+)
 from audio_metrics_tpu_torch.ops.attention import (
     swin_attention_half_v1,
     swin_attention_half_v1_plain,
+    swin_attention_half_v2,
+    swin_attention_half_v2_plain,
     swin_attention_half_v3,
     swin_attention_half_v3_plain,
 )
@@ -50,7 +62,12 @@ from audio_metrics_tpu_torch.ops.mel import (
     log_mel_v1_plain,
     mel_filter_bank,
 )
-from audio_metrics_tpu_torch.ops.mlp import mlp_block, mlp_block_plain
+from audio_metrics_tpu_torch.ops.mlp import (
+    mlp_block,
+    mlp_block_int8,
+    mlp_block_int8_plain,
+    mlp_block_plain,
+)
 from audio_metrics_tpu_torch.testing import stats_mismatches
 
 cfg = HTSAT_BASE
@@ -67,6 +84,9 @@ LOG_MEL_TOL = {"clap": (1e-5, 0.25), "vggish": (1e-6, 3e-5)}
 ATTN_V3_TOL = ((4e-5, 1e-4, 2.5e-4, 5e-4), 0.0625)
 ATTN_V1_TOL = ((1e-4, 2e-4), 0.0625)
 MLP_TOL = ((1e-5, 2.5e-5, 6e-5, 1.2e-4), 0.0625)
+# the opt-in ops, as in chip_smoke.py
+ATTN_V2_TOL = ((1e-4, 2e-4, 5e-4, 1e-3), 0.0625)
+MLP_INT8_TOL = ((2.5e-6, 5e-6, 7e-6, 7e-6), 0.0625)
 
 
 @pytest.fixture(scope="module")
@@ -345,3 +365,92 @@ def test_split_kernels_raise_on_f32_and_cpu(cuda, params):
     with pytest.raises(NotImplementedError):
         swin_attention_half_v1(x, v1.ln1_w, v1.ln1_b, v1.wq, v1.bq, v1.wk, v1.wv, v1.wp, v1.bp,
                                v1.bm, **geo)
+
+
+def _v2_block(params, cuda, stage, shift):
+    """Block weights of ``stage`` in v2's layout (bf16 matrices) and the
+    f32 MLP weights the int8 op takes."""
+    res = cfg.grid_size // 2**stage
+    window = min(cfg.window_size, res)
+    shift = 0 if res <= window else shift
+    prefix = f"audio_encoder.layers.{stage}.blocks.{1 if shift else 0}"
+    w = _v2_kernel_weights(params, prefix, res, shift, cfg.num_heads[stage], window)
+    v2 = _Folded(w, torch.bfloat16).to(cuda)
+    attn = (v2.ln1_w, v2.ln1_b, v2.wqkv, v2.bq3, v2.wp, v2.bp, v2.bm)
+    mlp = _Folded(_mlp_weights(params, prefix), torch.float32).to(cuda)
+    geo = dict(heads=cfg.num_heads[stage], window=window, shift=shift, eps=cfg.layer_norm_eps)
+    return attn, (mlp.ln2_w, mlp.ln2_b, mlp.w1, mlp.b1, mlp.w2, mlp.b2), geo, res
+
+
+@pytest.mark.parametrize(
+    "stage,shift", [(0, 0), (0, 4), (1, 0), (1, 4), (2, 0), (2, 4), (3, 0)]
+)
+def test_attention_v2_kernel_matches_plain(cuda, params, stage, shift):
+    attn, _, geo, res = _v2_block(params, cuda, stage, shift)
+    x = _x(cuda, 70 + stage + shift, (2, res, res, attn[-2].shape[0]))
+    before = KERNELS["swin_attn_v2"].launches
+    got = swin_attention_half_v2(x, *attn, **geo)
+    torch.cuda.synchronize()
+    assert KERNELS["swin_attn_v2"].launches == before + 1
+    want = swin_attention_half_v2_plain(x, *attn, **geo)
+    _close(got, want, want.float() - x.float(), ATTN_V2_TOL[0][stage], ATTN_V2_TOL[1])
+
+
+@pytest.mark.parametrize("stage,shift", [(0, 0), (0, 4), (1, 0), (1, 4)])
+def test_attention_v2_kernel_equals_v1_kernel(cuda, params, stage, shift):
+    attn, _, geo, res = _v2_block(params, cuda, stage, shift)
+    v1, _ = _half_block(params, cuda, stage, shift, "v1")
+    x = _x(cuda, 80 + stage + shift, (2, res, res, v1.bp.shape[0]))
+    got = swin_attention_half_v2(x, *attn, **geo)
+    want = swin_attention_half_v1(x, v1.ln1_w, v1.ln1_b, v1.wq, v1.bq, v1.wk, v1.wv, v1.wp,
+                                  v1.bp, v1.bm, **geo)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("stage", [0, 1, 2, 3])
+def test_mlp_int8_kernel_matches_plain(cuda, params, stage):
+    """At 2 images: 8192, 2048, 512 and 128 rows."""
+    _, mlp, _, res = _v2_block(params, cuda, stage, 0)
+    x = _x(cuda, 90 + stage, (2, res * res, mlp[-1].shape[0]))
+    before = KERNELS["swin_mlp_int8"].launches
+    got = mlp_block_int8(x, *mlp, eps=cfg.layer_norm_eps)
+    torch.cuda.synchronize()
+    assert KERNELS["swin_mlp_int8"].launches == before + 1
+    want = mlp_block_int8_plain(x, *mlp, eps=cfg.layer_norm_eps)
+    _close(got, want, want.float() - x.float(), MLP_INT8_TOL[0][stage], MLP_INT8_TOL[1])
+
+
+def test_mlp_int8_kernel_rounds_halves_to_even(cuda, params):
+    """With a zero LN weight the LN output is the LN bias: 127, then
+    +-(k + 1/2), so sx = 1 and every quotient lies exactly halfway.  The
+    kernel must round as its plain version (half to even): the same
+    codes, so the same output."""
+    _, mlp, _, res = _v2_block(params, cuda, 0, 0)
+    x = _x(cuda, 99, (2, res * res, mlp[-1].shape[0]))
+    c = x.shape[-1]
+    k = torch.arange(1, c, device=cuda)
+    ln_b = torch.cat([torch.tensor([127.0], device=cuda), ((k % 20) + 0.5) * (1 - 2 * (k % 2))])
+    args = (torch.zeros_like(mlp[0]), ln_b.float(), *mlp[2:])
+    got = mlp_block_int8(x, *args, eps=cfg.layer_norm_eps)
+    want = mlp_block_int8_plain(x, *args, eps=cfg.layer_norm_eps)
+    _close(got, want, want.float() - x.float(), MLP_INT8_TOL[0][0], MLP_INT8_TOL[1])
+
+
+def test_opt_in_kernels_raise_on_f32_and_cpu(cuda, params):
+    """f32 activations on the card raise; a CPU operand beside CUDA ones
+    raises; bf16 MLP weights raise (the op takes f32 weights)."""
+    attn, mlp, geo, res = _v2_block(params, cuda, 1, 4)
+    x = torch.zeros((1, res, res, attn[-2].shape[0]), device=cuda)
+    with pytest.raises(NotImplementedError):
+        swin_attention_half_v2(x, *attn, **geo)
+    with pytest.raises(ValueError):
+        swin_attention_half_v2(x.bfloat16(), attn[0].cpu(), *attn[1:], **geo)
+    with pytest.raises(NotImplementedError):
+        mlp_block_int8(x.view(1, res * res, -1), *mlp, eps=geo["eps"])
+    with pytest.raises(ValueError):
+        mlp_block_int8(x.view(1, res * res, -1).bfloat16(), mlp[0].cpu(), *mlp[1:],
+                       eps=geo["eps"])
+    with pytest.raises(NotImplementedError):
+        mlp_block_int8(x.view(1, res * res, -1).bfloat16(), *mlp[:2], mlp[2].bfloat16(),
+                       *mlp[3:], eps=geo["eps"])
