@@ -32,7 +32,7 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["Kernel", "KERNELS", "build", "require_cuda"]
+__all__ = ["Kernel", "KERNELS", "build", "check_sm90_gemm", "require_cuda"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD = Path(__file__).resolve().parent / "build"
@@ -114,6 +114,19 @@ def require_cuda(*tensors: torch.Tensor, dtype=torch.bfloat16) -> None:
             raise ValueError("kernel operands must be contiguous and 16-byte aligned")
         if t.dtype != dtype:
             raise NotImplementedError(f"the CUDA kernels take {dtype} here, got {t.dtype}")
+
+
+def check_sm90_gemm(name: str, n: int, k: int, *strides: int) -> None:
+    """Raise ``NotImplementedError`` unless the wgmma core
+    (``csrc/gemm_sm90.cuh``) takes a product of ``n`` output columns over a
+    depth ``k``: both multiples of 64 (its K step and narrowest column
+    tile), and every row and batch stride of its operands (``strides``, in
+    elements) a multiple of 8, the 16 bytes a tensor map asks for."""
+    if n % 64 or k % 64 or any(s % 8 for s in strides):
+        raise NotImplementedError(
+            f"{name}: the wgmma GEMM core takes N and K multiples of 64 and strides of "
+            f"8 elements, got N={n} K={k} strides={strides}"
+        )
 
 
 def _arg(a):

@@ -340,8 +340,10 @@ __device__ __forceinline__ void store_out(float v, bf16* o) { *o = __float2bfloa
 // Mel projection (f32 on the CUDA cores), log and optional per-bin affine
 // of (B, frame_rows, n_keep) f32 power rows, one warp per output row:
 // LOG_DB 10*log10(max(m, 1e-10)), LOG_NATURAL log(m + log_offset); then
-// lm * sc + of when sc is not null; out (B, out_rows, n_mels).
-template <typename OutT>
+// lm * sc + of when sc is not null; out (B, out_rows, n_mels), or with TRANS
+// (B, n_mels, out_rows) (the K-major operand of the frontend's interp
+// product, gemm_sm90.cuh).
+template <typename OutT, bool TRANS = false>
 __global__ void mel_log_kernel(const float* __restrict__ power, int frame_rows, int n_keep,
                                const float* __restrict__ fb, const float* __restrict__ sc,
                                const float* __restrict__ of, int n_mels, MelRows g,
@@ -350,9 +352,11 @@ __global__ void mel_log_kernel(const float* __restrict__ power, int frame_rows, 
   const int o = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (o >= g.out_rows) return;
-  OutT* dst = out + ((long long)b * g.out_rows + o) * n_mels;
+  OutT* dst = TRANS ? out + (long long)b * n_mels * g.out_rows + o
+                    : out + ((long long)b * g.out_rows + o) * n_mels;
+  const long long step = TRANS ? g.out_rows : 1;
   if (o >= g.n_frames) {
-    for (int m = lane; m < n_mels; m += 32) store_out(0.f, dst + m);
+    for (int m = lane; m < n_mels; m += 32) store_out(0.f, dst + m * step);
     return;
   }
   int src;
@@ -366,17 +370,17 @@ __global__ void mel_log_kernel(const float* __restrict__ power, int frame_rows, 
     float lm = log_mode == LOG_DB ? 10.f * (logf(fmaxf(acc, 1e-10f)) * 0.43429448190325176f)
                                   : logf(acc + log_offset);
     if (sc != nullptr) lm = lm * sc[m] + of[m];
-    store_out(lm, dst + m);
+    store_out(lm, dst + m * step);
   }
 }
 
-template <typename OutT>
+template <typename OutT, bool TRANS = false>
 cudaError_t launch_mel_log(const float* power, int frame_rows, int n_keep, const float* fb,
                            const float* sc, const float* of, int n_mels, MelRows g, int log_mode,
                            float log_offset, OutT* out, int B, cudaStream_t stream) {
   const int warps = 8;
   dim3 grid((g.out_rows + warps - 1) / warps, B);
-  mel_log_kernel<OutT><<<grid, warps * 32, 0, stream>>>(power, frame_rows, n_keep, fb, sc, of,
+  mel_log_kernel<OutT, TRANS><<<grid, warps * 32, 0, stream>>>(power, frame_rows, n_keep, fb, sc, of,
                                                         n_mels, g, log_mode, log_offset, out);
   return cudaGetLastError();
 }

@@ -36,6 +36,7 @@ from ..ops.attention import (
     swin_attention_half_v3,
     swin_attention_half_v3_plain,
     swin_block,
+    swin_block_operands,
     swin_block_plain,
     window_attention_xla,
 )
@@ -408,6 +409,14 @@ class SwinBlock(_Folded):
         self.attention = attention
         self.resolution, self.window, self.shift = resolution, window, shift
         self.heads, self.eps = heads, cfg.layer_norm_eps
+        if attention == "v4":  # the whole-block kernel's transposed matrices and column sums
+            for name, t in swin_block_operands(self.wqkv, self.wp, self.w1, self.w2).items():
+                self.register_buffer(name, t)
+
+    def kernel_operands(self) -> dict:
+        """The whole-block kernel's :func:`ops.attention.swin_block_operands`,
+        held as buffers since the weights loaded (v4 blocks)."""
+        return {k: getattr(self, k) for k in ("wqkv_t", "wp_t", "w1_t", "w2_t", "csum")}
 
     def fused_mlp(self, batch: int) -> bool:
         """htsat.py:547-551: the MLP kernel where the forward has >= 1024
@@ -422,8 +431,11 @@ class SwinBlock(_Folded):
         geo = dict(heads=self.heads, window=self.window, shift=self.shift, eps=self.eps)
         mlp = (self.ln2_w, self.ln2_b, self.w1, self.b1, self.w2, self.b2)
         if self.attention == "v4":
-            fn = swin_block_plain if plain else swin_block
-            out = fn(x4, self.wqkv, self.bq3, self.wp, self.bp, self.bm, *mlp, **geo)
+            args = (x4, self.wqkv, self.bq3, self.wp, self.bp, self.bm, *mlp)
+            if plain:
+                out = swin_block_plain(*args, **geo)
+            else:
+                out = swin_block(*args, **geo, operands=self.kernel_operands())
             return out.view(b, n, c)
         if self.attention == "v3":
             fn = swin_attention_half_v3_plain if plain else swin_attention_half_v3

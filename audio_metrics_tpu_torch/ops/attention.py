@@ -24,7 +24,9 @@ Weight layouts (``models.htsat``, folded once at load): v4 and v3 take
 ``models.htsat._v3_kernel_weights``: ``wqkv`` (C, 3C) with the LN1 affine
 and 1/sqrt(d) folded in, ``bq3`` (3C,), ``wp`` (C, C), ``bp`` (C,)
 absorbing the value bias, ``bm`` (nW or 1, heads, n, n) bias+mask; v4 adds
-``w1`` (C, 4C), ``w2`` (4C, C) input-major.  v1 takes the per-head layout
+``w1`` (C, 4C), ``w2`` (4C, C) input-major, and its kernel reads each
+matrix transposed and the column sums of ``wqkv`` (:func:`swin_block_operands`,
+made at load).  v1 takes the per-head layout
 of ``models/htsat.py:320-345``: ``wq``/``wk``/``wv`` (heads, C, d) with wq
 pre-scaled, ``bq`` (heads, d) pre-scaled, ``wp`` (heads, d, C), ``bp`` and
 ``bm`` as v3, the LN1 affine unfolded.  v2 takes v1's weights side by side
@@ -43,11 +45,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..kernels import KERNELS, require_cuda
+from ..kernels import KERNELS, check_sm90_gemm, require_cuda
 from .mlp import layer_norm
 
 __all__ = [
+    "check_block_gemms",
     "swin_block",
+    "swin_block_operands",
     "swin_block_plain",
     "swin_attention_half_v3",
     "swin_attention_half_v3_plain",
@@ -151,13 +155,42 @@ def swin_block_plain(x, wqkv, bq3, wp, bp, bm, ln2_w, ln2_b, w1, b1, w2, b2, *,
     return (res + _mm(h1, w2) + b2).to(dt)
 
 
+def swin_block_operands(wqkv, wp, w1, w2) -> dict:
+    """What the whole-block kernel reads besides the plain version's
+    operands, made once when the weights load (``models.htsat.SwinBlock``):
+    each matrix transposed to (N, K), the K-major layout in which the wgmma
+    core (kernels/csrc/gemm_sm90.cuh) reads both operands, and ``csum``, the
+    f32 column sums of ``wqkv`` as held (1 @ W of the LN1 fold, what
+    :func:`_qkv_ln_folded` sums)."""
+    t = lambda w: w.t().contiguous()
+    return dict(wqkv_t=t(wqkv), wp_t=t(wp), w1_t=t(w1), w2_t=t(w2),
+                csum=wqkv.float().sum(dim=0))
+
+
+def check_block_gemms(c: int) -> None:
+    """Raise ``NotImplementedError`` unless the whole-block kernel takes a
+    width of ``c``: its LN1 pass holds a row in one warp's registers (C <=
+    1024), and its qkv, proj, fc1 and fc2 products run on the wgmma core
+    (``kernels.check_sm90_gemm``)."""
+    if c > 1024:
+        raise NotImplementedError(f"swin_block: the LN1 pass takes C <= 1024, got C={c}")
+    for n, k in ((3 * c, c), (c, c), (4 * c, c), (c, 4 * c)):
+        check_sm90_gemm("swin_block", n, k, k)
+
+
 def _swin_block_cuda(x, wqkv, bq3, wp, bp, bm, ln2_w, ln2_b, w1, b1, w2, b2, *,
-                     heads, window, shift, eps):
+                     heads, window, shift, eps, operands):
     b, r, _, c = x.shape
-    require_cuda(x, wqkv, wp, w1, w2)
-    require_cuda(bq3, bp, bm, ln2_w, ln2_b, b1, b2, dtype=torch.float32)
+    if operands is None:
+        raise ValueError("swin_block on the card reads swin_block_operands(wqkv, wp, w1, w2), "
+                         "made once at weight load: pass them as operands=")
+    o = operands
+    require_cuda(x, o["wqkv_t"], o["wp_t"], o["w1_t"], o["w2_t"])
+    require_cuda(o["csum"], bq3, bp, bm, ln2_w, ln2_b, b1, b2, dtype=torch.float32)
     _check_geometry("swin_block", x, heads, window, bm)
+    check_block_gemms(c)
     m = b * r * r
+    stats = torch.empty((2, m), dtype=torch.float32, device=x.device)
     qkv = torch.empty((m, 3 * c), dtype=x.dtype, device=x.device)
     ctx = torch.empty((m, c), dtype=x.dtype, device=x.device)
     res = torch.empty((m, c), dtype=torch.float32, device=x.device)
@@ -165,19 +198,25 @@ def _swin_block_cuda(x, wqkv, bq3, wp, bp, bm, ln2_w, ln2_b, w1, b1, w2, b2, *,
     h1 = torch.empty((m, 4 * c), dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
     KERNEL.launch(
-        "am_swin_block", x, wqkv, bq3, wp, bp, bm, bm.shape[0], ln2_w, ln2_b, w1, b1,
-        w2, b2, b, r, c, heads, window, shift, float(eps), qkv, ctx, res, hbuf, h1, out,
+        "am_swin_block", x, o["wqkv_t"], o["csum"], bq3, o["wp_t"], bp, bm, bm.shape[0], ln2_w,
+        ln2_b, o["w1_t"], b1, o["w2_t"], b2, b, r, c, heads, window, shift, float(eps), stats,
+        qkv, ctx, res, hbuf, h1, out,
     )
     KERNEL.launches += 1
     return out
 
 
 def swin_block(x, wqkv, bq3, wp, bp, bm, ln2_w, ln2_b, w1, b1, w2, b2, *,
-               heads: int, window: int, shift: int, eps: float = 1e-5):
-    """Whole Swin block, (B, R, R, C) -> (B, R, R, C)."""
-    fn = swin_block_plain if x.device.type == "cpu" else _swin_block_cuda
-    return fn(x, wqkv, bq3, wp, bp, bm, ln2_w, ln2_b, w1, b1, w2, b2,
-              heads=heads, window=window, shift=shift, eps=eps)
+               heads: int, window: int, shift: int, eps: float = 1e-5, operands=None):
+    """Whole Swin block, (B, R, R, C) -> (B, R, R, C).  ``operands``: the
+    kernel's :func:`swin_block_operands` of these weights, made at load;
+    a CUDA tensor needs them, a CPU tensor ignores them."""
+    if x.device.type == "cpu":
+        return swin_block_plain(x, wqkv, bq3, wp, bp, bm, ln2_w, ln2_b, w1, b1, w2, b2,
+                                heads=heads, window=window, shift=shift, eps=eps)
+    return _swin_block_cuda(x, wqkv, bq3, wp, bp, bm, ln2_w, ln2_b, w1, b1, w2, b2,
+                            heads=heads, window=window, shift=shift, eps=eps,
+                            operands=operands)
 
 
 # ----------------------------------------------------------------------

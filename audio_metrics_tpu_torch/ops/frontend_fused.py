@@ -17,11 +17,12 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from ..kernels import KERNELS, require_cuda
+from ..kernels import KERNELS, check_sm90_gemm, require_cuda
 
 __all__ = [
     "clap_tokens_fused",
     "clap_tokens_fused_plain",
+    "check_frontend_gemms",
     "frontend_tables",
     "fused_frontend_supported",
 ]
@@ -118,10 +119,13 @@ def frontend_tables(params: dict, cfg, fb_matrix: np.ndarray, sr: int) -> dict:
 
     Plain version: ``bn_scale``/``bn_offset`` (eval BatchNorm folded to a
     per-bin affine), ``patch_w`` (ps*ps, C) input-major, ``patch_b``,
-    ``ln_w``/``ln_b``.  Kernel: ``basis`` (frame, 2*n_keep) with cos/sin
-    columns interleaved and the DFT cut to the filterbank support, ``fb``
-    (n_keep, n_mels), ``wi`` (ps*rg, mel_pad) phase-split interp rows,
-    ``qcat`` (ps*n_mels, fbk*C) and ``pbias`` (fbk*C)."""
+    ``ln_w``/``ln_b``.  Kernel: ``basis_t`` (2*n_keep, frame), the DFT
+    basis cut to the filterbank support with cos/sin rows interleaved,
+    ``fb`` (n_keep, n_mels), ``wi`` (ps*rg, mel_pad) phase-split interp
+    rows, ``qcat_t`` (fbk*C, ps*n_mels), the zero-padded block patch-embed
+    operand, and ``pbias`` (fbk*C).  The two ``_t`` matrices are held
+    transposed, (N, K): the K-major layout in which the wgmma core
+    (kernels/csrc/gemm_sm90.cuh) reads both operands of a product."""
     from .mel import _dft_matrices, _fb_support_bins
 
     f32 = lambda k: np.asarray(params[k], np.float32)
@@ -148,14 +152,15 @@ def frontend_tables(params: dict, cfg, fb_matrix: np.ndarray, sr: int) -> dict:
         patch_b=f32("audio_encoder.patch_embed.proj.bias"),
         ln_w=f32("audio_encoder.patch_embed.norm.weight"),
         ln_b=f32("audio_encoder.patch_embed.norm.bias"),
-        basis=basis, fb=np.ascontiguousarray(fb_matrix[:n_keep], np.float32),
-        wi=wi.reshape(ps * wi.shape[1], mel_pad), qcat=qcat,
+        basis_t=np.ascontiguousarray(basis.T),
+        fb=np.ascontiguousarray(fb_matrix[:n_keep], np.float32),
+        wi=wi.reshape(ps * wi.shape[1], mel_pad), qcat_t=np.ascontiguousarray(qcat.T),
         pbias=np.tile(f32("audio_encoder.patch_embed.proj.bias"), fbk),
     )
 
 
 # bf16 tables of the kernel (the rest stay f32)
-BF16_TABLES = ("basis", "wi", "qcat")
+BF16_TABLES = ("basis_t", "wi", "qcat_t")
 
 
 def clap_tokens_fused_plain(audio, t, *, sr: int, cfg):
@@ -172,41 +177,47 @@ def clap_tokens_fused_plain(audio, t, *, sr: int, cfg):
     return frontend_tokens(mel, t.patch_w, t.patch_b, t.ln_w, t.ln_b, cfg, torch.bfloat16)
 
 
+def check_frontend_gemms(n_keep: int, cfg, pln: dict) -> None:
+    """Raise ``NotImplementedError`` unless the wgmma core takes the
+    frontend's three products (``kernels.check_sm90_gemm``): the DFT of
+    frames ``HOP`` apart in clips ``clip_stride`` apart, the interp product
+    over the transposed mel, the patch product."""
+    n_mels, ps, mel_pad = cfg.num_mel_bins, cfg.patch_size, pln["mel_pad"]
+    check_sm90_gemm("clap_frontend DFT", 2 * n_keep, FRAME, HOP, pln["clip_stride"])
+    check_sm90_gemm("clap_frontend interp", n_mels, mel_pad, n_mels * mel_pad)
+    check_sm90_gemm("clap_frontend patch", pln["fb"] * cfg.embed_dim, ps * n_mels)
+
+
 def _clap_tokens_fused_cuda(audio, t, *, sr, cfg):
     b, n = audio.shape
     require_cuda(audio, dtype=torch.float32)
-    require_cuda(t.basis, t.wi, t.qcat)
+    require_cuda(t.basis_t, t.wi, t.qcat_t)
     ps, n_mels, c = cfg.patch_size, cfg.num_mel_bins, cfg.embed_dim
     pln = _plan(n, sr, FRAME, HOP, n_mels, cfg.spec_size, ps)
     n_keep = t.fb.shape[0]
     rg, fbk = pln["ratio"] * pln["gw"], pln["fb"]
-    if (2 * n_keep) % 64 or n_mels % 64 or (fbk * c) % 64 or (ps * n_mels) % 32:
-        raise NotImplementedError(f"clap frontend kernel geometry n_keep={n_keep} cfg={cfg}")
+    check_frontend_gemms(n_keep, cfg, pln)
 
-    # signal rows in bf16 (the TPU kernel's hop rows): head = left reflect
-    # pad + one period + lookahead, tail = last period's end + right reflect
-    # pad (frontend_fused.py:227-232), each zero-padded to its row count
+    # the kernel builds the bf16 hop rows (the TPU kernel's signal rows):
+    # head = left reflect pad + one period + lookahead, cut at tail_row0
+    # rows; tail = last period's end + right reflect pad
+    # (frontend_fused.py:227-232)
     half, extra = pln["half"], pln["extra"]
-    head = torch.cat([audio[:, 1 : half + 1].flip(1), audio, audio[:, :extra]], dim=1)
-    tail = torch.cat([audio[:, n - extra :], audio[:, -half - 1 : -1].flip(1)], dim=1)
-    hops = torch.zeros((b, pln["clip_stride"]), dtype=torch.bfloat16, device=audio.device)
-    h_len = min(head.shape[1], pln["tail_row0"] * HOP)
-    hops[:, :h_len] = head[:, :h_len]
-    t0 = pln["tail_row0"] * HOP
-    hops[:, t0 : t0 + tail.shape[1]] = tail
-
+    head_len = min(half + n + extra, pln["tail_row0"] * HOP)
     dev = audio.device
+    hops = torch.empty((b, pln["clip_stride"]), dtype=torch.bfloat16, device=dev)
     frame_rows, mel_pad = pln["frame_rows"], pln["mel_pad"]
     power = torch.empty((b, frame_rows, n_keep), dtype=torch.float32, device=dev)
-    mel = torch.empty((b, mel_pad, n_mels), dtype=torch.bfloat16, device=dev)
+    mel_t = torch.empty((b, n_mels, mel_pad), dtype=torch.bfloat16, device=dev)
     xi = torch.empty((b, rg, ps * n_mels), dtype=torch.bfloat16, device=dev)
     tok = torch.empty((b * rg, fbk * c), dtype=torch.float32, device=dev)
     out = torch.empty((b, rg * fbk, c), dtype=torch.bfloat16, device=dev)
     KERNEL.launch(
-        "am_clap_frontend", hops, pln["clip_stride"], HOP, FRAME, frame_rows, t.basis,
-        n_keep, power, t.fb, t.bn_scale, t.bn_offset, n_mels, pln["p"],
+        "am_clap_frontend", audio, n, half, extra, head_len, hops, pln["clip_stride"], HOP,
+        FRAME, frame_rows, t.basis_t, n_keep, power, t.fb, t.bn_scale, t.bn_offset, n_mels,
+        pln["p"],
         pln["head_frames"], pln["t_tail0"], pln["tail_row0"], pln["n_frames"], mel_pad,
-        mel, t.wi, ps, rg, xi, t.qcat, t.pbias, fbk, c, tok, t.ln_w, t.ln_b,
+        mel_t, t.wi, ps, rg, xi, t.qcat_t, t.pbias, fbk, c, tok, t.ln_w, t.ln_b,
         float(cfg.layer_norm_eps), pln["gw"], out, b,
     )
     KERNEL.launches += 1

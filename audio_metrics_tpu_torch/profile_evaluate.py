@@ -33,7 +33,8 @@ import torch
 
 def _short(name: str) -> str:
     """A kernel's name without its template arguments and namespace."""
-    for key in ("gemm_kernel<", "knn_kernel", "stats_kernel", "mel_log_kernel", "ln_rows_kernel",
+    for key in ("gemm_kernel<", "gemm_sm90_kernel<", "knn_kernel", "stats_kernel",
+                "mel_log_kernel", "ln_rows_kernel", "ln1_window_kernel", "hop_rows_kernel",
                 "window_attn_kernel", "frame_rows_kernel"):
         if key in name:
             i = name.find(key)

@@ -43,6 +43,13 @@ Phases, one status line each:
      MLP (``mlp_block_int8``) on its output with that block's f32 MLP
      weights: launch counts, each against its plain version, the int8
      MLP's branch against the fused bf16 MLP kernel's, per-forward times.
+Phase 3 runs each kernel redesigned for Hopper (the whole Swin block at
+every stage and shift, the fused frontend) twice on the same inputs, at
+B = 4 and at B = 64, and fails unless the outputs are bitwise equal (their
+GEMM core has no atomics, so a race in its TMA ring shows as a
+difference); it times the products of those two kernels alone through
+``torch.matmul`` in bf16 at B = 64 as their yardstick (``library_ms``, the
+port never calls it), and prints their achieved TFLOP/s.
 Phase 3 also holds the split block's kernels (v3 attention half at every
 stage, the fused MLP at the row counts of stages 0-3, the v1 attention
 half at stages 0 and 1), the opt-in ops (the v2 attention half at every
@@ -129,6 +136,9 @@ E2E_TOL = {"1-cos": 1e-5, "max_abs": 3e-3, "fad": 1e-3, "kernel_distance_mean": 
 # ~10x the readings (PERF.md; the two log-mels gave equal embeddings, so
 # theirs is the kernel-vs-plain scale).
 CONFIG_TOL = {"split": (5e-5, 5e-3), "attn_v1": (5e-5, 5e-3), "mel_v1": (2e-6, 1e-3)}
+# the kernels redesigned on the wgmma GEMM core (gemm_sm90.cuh): each must
+# repeat bitwise on the same inputs
+REDESIGNED = ("swin_block", "clap_frontend")
 
 
 def log(msg: str) -> None:
@@ -147,14 +157,16 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(ops: dict, n_bytes: float) -> tuple[float, str]:
+def bound(ops: dict, n_bytes: float) -> tuple[float, str, float]:
     """Least time (ms) the card could take for a kernel's work: the larger
     of its bytes (each input read once, each output written once) over the
     memory rate and its operations over the peak rate of their type (the
-    times of the types add)."""
+    times of the types add); then which of the two binds, and the
+    operations of all types."""
     t_ops = sum(n / PEAK[t] for t, n in ops.items())
     t_bytes = n_bytes / PEAK["bytes"]
-    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+    return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes",
+            float(sum(ops.values())))
 
 
 def swin_bound(cfg, b, part="block", stages=(0, 1, 2, 3)):
@@ -341,6 +353,13 @@ def phase_kernels(cfg, params, results):
             f"{'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"{name} {shape_key} disagrees with its plain version")
+        if name in REDESIGNED:  # determinism: a race in the TMA ring shows as a difference
+            for b, first, fn in ((CHECK_B, got, kfn), (BATCH, counts[0](), counts[0])):
+                same = torch.equal(first, fn())
+                log(f"    repeat at B={b}: {'bitwise equal' if same else 'DIFFERS'}")
+                if not same:
+                    raise AssertionError(f"{name} {shape_key} differs between two runs on the "
+                                         f"same inputs")
         for b in (CHECK_B, BATCH):
             ms, pms = cuda_ms(kfn if b == CHECK_B else counts[0]), cuda_ms(
                 pfn if b == CHECK_B else counts[1], iters=3)
@@ -481,6 +500,50 @@ def phase_kernels(cfg, params, results):
         results[name].update(ms=t["ms"][BATCH], plain_ms=t["plain_ms"][BATCH],
                              bound_ms=bounds[name][0], bound_by=bounds[name][1])
         log(f"  {name} bound at B={BATCH}: {bounds[name][0]:.4f} ms ({bounds[name][1]})")
+    alone = products_alone_ms(cfg, BATCH)
+    log("  yardstick, the products alone through torch.matmul in bf16 at B="
+        f"{BATCH}: " + ", ".join(f"{k} {v:.4f} ms" for k, v in alone.items()))
+    results["swin_block"]["library_ms"] = alone["Swin blocks (18 x qkv, proj, fc1, fc2)"]
+    results["clap_frontend"]["library_ms"] = alone["frontend DFT"]
+    for name in REDESIGNED:
+        r, ops = results[name], bounds[name][2]
+        log(f"  {name} at B={BATCH}: {ops / (r['ms'] * 1e-3) / 1e12:.1f} TFLOP/s achieved "
+            f"({ops:.4g} operations in {r['ms']:.4f} ms; bound {r['bound_ms']:.4f} ms, the "
+            f"products alone {r['library_ms']:.4f} ms)")
+
+
+def products_alone_ms(cfg, b) -> dict:
+    """The yardstick of #1 and #3, which the port never calls: their
+    products alone, one ``torch.matmul`` each in bf16 on random operands of
+    the main path's shapes at batch ``b``: per forward, the qkv, proj, fc1
+    and fc2 products of the 18 Swin blocks, and the frontend's DFT (every
+    clip's frame rows x the basis), interp and patch products."""
+    from audio_metrics_tpu_torch.ops.frontend_fused import FRAME, HOP, _plan
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    out = {"Swin blocks (18 x qkv, proj, fc1, fc2)": 0.0}
+    res = cfg.grid_size
+    for stage, depth in enumerate(cfg.depths):
+        c, m = cfg.embed_dim * 2**stage, b * res * res
+        x, h = randn(m, c), randn(m, 4 * c)
+        wqkv, wp, w1, w2 = randn(c, 3 * c), randn(c, c), randn(c, 4 * c), randn(4 * c, c)
+        out["Swin blocks (18 x qkv, proj, fc1, fc2)"] += depth * cuda_ms(
+            lambda: (x @ wqkv, x @ wp, x @ w1, h @ w2))
+        res //= 2
+    n_mels, ps = cfg.num_mel_bins, cfg.patch_size
+    pln = _plan(CLIP_S * SR, SR, FRAME, HOP, n_mels, cfg.spec_size, ps)
+    rg, mel_pad = pln["ratio"] * pln["gw"], pln["mel_pad"]
+    frames, basis = randn(b * pln["frame_rows"], FRAME), randn(FRAME, 768)
+    wi, mel = randn(ps * rg, mel_pad), randn(b, mel_pad, n_mels)
+    xi, qcat = randn(b * rg, ps * n_mels), randn(ps * n_mels, pln["fb"] * cfg.embed_dim)
+    out["frontend DFT"] = cuda_ms(lambda: frames @ basis)
+    out["frontend interp"] = cuda_ms(lambda: wi @ mel)
+    out["frontend patch"] = cuda_ms(lambda: xi @ qcat)
+    return out
 
 
 def phase_prdc_kernels(results):
@@ -1005,6 +1068,7 @@ def phase_opt_in(card: str, results: dict) -> dict:
                         for shape in ((m, c), (c, 4 * c), (m, 4 * c), (4 * c, c)))
         ms["torch._int_mm, the two products"] = ms.get("torch._int_mm, the two products", 0.0) \
             + cuda_ms(lambda: (torch._int_mm(a, w1), torch._int_mm(h, w2)))
+    results["swin_mlp_int8"]["library_ms"] = ms["torch._int_mm, the two products"]
     log(f"  per forward of {BATCH} clips over the {len(ops)} blocks: " + ", ".join(
         f"{k} {v:.4f} ms" for k, v in ms.items()) + f" [{card}]")
     return launches
@@ -1071,7 +1135,7 @@ def main() -> int:
          "launches": path_of.get(k.name, launches)[k.name],
          **{key: results[k.name][key] for key in
             ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
-         "library_ms": None}
+         "library_ms": results[k.name].get("library_ms")}
         for k in kernels.KERNELS.values()
     ]}
     print(json.dumps(line))

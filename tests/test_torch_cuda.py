@@ -15,6 +15,10 @@ merge), max abs error at most ``MAX_ABS``.  The weights put every matrix
 at std 1/sqrt(fan_in), so both halves of a block move its output by O(1)
 and a wrong roll, window map or mask cannot hide under the residual.
 
+The kernels redesigned on the wgmma GEMM core (the whole block and the
+frontend) are also held at the main path's batch of 64 and at a ragged
+batch of 3, and must repeat bitwise on the same inputs.
+
 The PRDC kernels (f32): radii rtol 1e-4, atol 1e-5 against the plain
 version (the JAX suite's kernel-vs-XLA bound); the booleans and counts
 equal except where a float64 recomputation shows a pair within 1e-5
@@ -47,6 +51,8 @@ from audio_metrics_tpu_torch.ops.attention import (
     swin_attention_half_v2_plain,
     swin_attention_half_v3,
     swin_attention_half_v3_plain,
+    swin_block,
+    swin_block_operands,
 )
 from audio_metrics_tpu_torch.ops.distance import (
     knn_radii,
@@ -140,6 +146,66 @@ def test_swin_block_kernel_matches_plain(cuda, params, stage, shift):
     assert KERNELS["swin_block"].launches == before + 1
     want = block(x, plain=True)
     _close(got, want, want.float() - x.float(), SWIN_REL[stage], SWIN_MAX)
+
+
+@pytest.mark.parametrize("b", [64, 3])
+@pytest.mark.parametrize(
+    "stage,shift", [(0, 0), (0, 4), (1, 0), (1, 4), (2, 0), (2, 4), (3, 0)]
+)
+def test_swin_block_sm90_core(cuda, params, stage, shift, b):
+    """The whole block's wgmma products at the main path's batch (B = 64:
+    M = 262144, 65536, 16384, 4096 rows) and at a ragged B = 3 (M = 3 *
+    R^2, at stage 3 192 rows: one and a half 128-row tiles) against the
+    plain version; a second run on the same inputs is bitwise equal (the
+    core has no atomics: a race in its TMA ring would differ)."""
+    res = cfg.grid_size // 2**stage
+    c = cfg.embed_dim * 2**stage
+    block = SwinBlock(
+        params, f"audio_encoder.layers.{stage}.blocks.{1 if shift else 0}", cfg, res,
+        shift, cfg.num_heads[stage], torch.bfloat16,
+    ).to(cuda)
+    x = _x(cuda, 100 + stage + shift + b, (b, res * res, c))
+    got = block(x)
+    again = block(x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    want = block(x, plain=True)
+    _close(got, want, want.float() - x.float(), SWIN_REL[stage], SWIN_MAX)
+
+
+def test_swin_block_needs_kernel_operands(cuda, params):
+    """On the card the whole block reads the transposed matrices and column
+    sums made at load; a call without them raises, with them it launches."""
+    block = SwinBlock(params, "audio_encoder.layers.2.blocks.1", cfg, 16, 4, 16,
+                      torch.bfloat16).to(cuda)
+    x = _x(cuda, 110, (1, 16, 16, 512))
+    args = (x, block.wqkv, block.bq3, block.wp, block.bp, block.bm, block.ln2_w, block.ln2_b,
+            block.w1, block.b1, block.w2, block.b2)
+    geo = dict(heads=block.heads, window=block.window, shift=block.shift, eps=block.eps)
+    with pytest.raises(ValueError):
+        swin_block(*args, **geo)
+    got = swin_block(*args, **geo, operands=swin_block_operands(block.wqkv, block.wp, block.w1,
+                                                                 block.w2))
+    torch.cuda.synchronize()
+    assert torch.equal(got, block(x.view(1, 256, 512)).view(got.shape))
+
+
+@pytest.mark.parametrize("b", [64, 3])
+def test_frontend_sm90_core(cuda, params, b):
+    """The frontend's DFT, interp and patch products on the wgmma core at
+    the main path's batch and at a ragged B = 3 (patch rows 768), against
+    the plain version; a second run is bitwise equal."""
+    fr = ClapFrontend(params, cfg).to(cuda)
+    g = torch.Generator(device=cuda).manual_seed(21 + b)
+    audio = 0.2 * torch.randn((b, 5 * SAMPLE_RATE), generator=g, device=cuda)
+    before = KERNELS["clap_frontend"].launches
+    got = clap_tokens_fused(audio, fr, sr=SAMPLE_RATE, cfg=cfg)
+    again = clap_tokens_fused(audio, fr, sr=SAMPLE_RATE, cfg=cfg)
+    torch.cuda.synchronize()
+    assert KERNELS["clap_frontend"].launches == before + 2
+    assert torch.equal(got, again)
+    want = clap_tokens_fused_plain(audio, fr, sr=SAMPLE_RATE, cfg=cfg)
+    _close(got, want, want, *FRONTEND_TOL)
 
 
 @pytest.mark.parametrize("stage", [0, 1, 2])
