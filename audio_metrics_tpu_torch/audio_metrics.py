@@ -35,26 +35,34 @@ _AMD = ("stem_reference", "mix_reference", "mix_anti_reference", "stem_reference
 
 
 class AudioMetrics:
-    def __init__(self, metrics=("fad",), embedder=None, win_dur=5.0, input_sr=None,
-                 batch_size=32, device="cuda", n_pca=None, device_indices=None):
-        """``embedder``: an embedder object, or a registry name built on
-        ``device``.  Metrics other than ``fad``, ``kd`` and ``prdc``,
-        ``n_pca`` and ``device_indices`` raise ``NotImplementedError``."""
-        if device_indices is not None:
-            raise NotImplementedError(
-                "device_indices (multi-GPU) is not ported yet (ROADMAP.md Queue 1 item 10); "
-                "pass device="
-            )
-        if n_pca is not None:
-            raise NotImplementedError(
-                "n_pca (IncrementalPCA projection) is not ported yet (ROADMAP.md Queue 1 "
-                "item 6)"
-            )
+    def __init__(self, metrics=("apa", "fad"), n_pca=None, device_indices=None, embedder=None,
+                 mix_function=None, win_dur=5.0, hop_dur=None, input_sr=None, batch_size=32,
+                 progress=False, dcn_slices=None, device="cuda"):
+        """The JAX package's parameters in its order, then ``device``.
+        ``embedder``: an embedder object, or a registry name built on
+        ``device``.  What is not ported raises ``NotImplementedError``:
+        metrics other than ``fad``, ``kd`` and ``prdc`` (so the default,
+        which holds APA: pass ``metrics=``), and ``n_pca``,
+        ``device_indices``, ``mix_function``, ``hop_dur``, ``progress`` and
+        ``dcn_slices`` away from their defaults."""
+        unported = (
+            (n_pca is not None, "n_pca (IncrementalPCA projection)", 6),
+            (device_indices is not None, "device_indices (multi-GPU); pass device=", 10),
+            (mix_function is not None, "mix_function (the APA mixes)", 5),
+            (hop_dur is not None, "hop_dur (overlapping windows)", 1),
+            (progress, "progress", 2),
+            (dcn_slices is not None, "dcn_slices (multi-host)", 10),
+        )
+        for given, what, item in unported:
+            if given:
+                raise NotImplementedError(
+                    f"{what} is not ported yet (ROADMAP.md Queue 1 item {item})")
         for m in metrics:
             if m not in _PORTED:
                 raise NotImplementedError(
-                    f"metric {m!r} is not ported yet (ROADMAP.md Queue 1: APA is item 5, "
-                    "fad_inf item 7); the port computes 'fad', 'kd' and 'prdc'"
+                    f"metric {m!r} is not ported yet (ROADMAP.md Queue 1: APA, the JAX "
+                    "package's default with FAD, is item 5, fad_inf item 7); the port "
+                    "computes 'fad', 'kd' and 'prdc': pass metrics= explicitly"
                 )
         self.metrics = list(metrics)
         if embedder is None or isinstance(embedder, str):

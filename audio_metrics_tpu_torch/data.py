@@ -182,14 +182,19 @@ class AudioMetricsData:
     @classmethod
     def deserialize(cls, state: dict, device="cpu") -> "AudioMetricsData":
         """Inverse of :meth:`serialize`; embeddings and radii come back as
-        f32 tensors on ``device``."""
+        f32 tensors on ``device``.  Radii of another length than the stored
+        embeddings are dropped (the next PRDC recomputes them): the JAX
+        package's ``__iadd__`` keeps radii from before its reference grew
+        (its data.py:513-528), and its ``save_state`` writes them."""
         self = cls(store_embeddings=state.get("store_embeddings", True))
         n = state.get("n")
         self.mean, self.cov = state.get("mean"), state.get("cov")
         self.n = None if n is None else int(n)
         emb = state.get("embeddings")
+        rows = 0
         if emb is not None:
             self._chunks = [torch.as_tensor(np.asarray(emb, np.float32), device=device)]
+            rows = self._chunks[0].shape[0]
         self.radii = {k: torch.as_tensor(np.asarray(v, np.float32), device=device)
-                      for k, v in (state.get("radii") or {}).items()}
+                      for k, v in (state.get("radii") or {}).items() if len(v) == rows}
         return self

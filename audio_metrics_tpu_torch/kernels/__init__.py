@@ -151,15 +151,20 @@ class Kernel:
         self.launches = 0
 
     def launch(self, symbol: str, *args) -> None:
-        """Call one C entry point on the current stream and raise on a
-        launch error (a refused launch never runs, and a later synchronize
-        would not report it)."""
+        """Call one C entry point on the operands' card, on that card's
+        current stream, and raise on a launch error (a refused launch never
+        runs, and a later synchronize would not report it).  The first
+        tensor argument names the card (``require_cuda`` has checked that
+        all operands share it), whichever card is current."""
         lib = build()
         fn = getattr(lib, symbol)
-        cargs = [*map(_arg, args), ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)]
-        fn.argtypes = [type(a) for a in cargs]
-        fn.restype = ctypes.c_int
-        rc = fn(*cargs)
+        dev = next(a.device for a in args if isinstance(a, torch.Tensor))
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            cargs = [*map(_arg, args), ctypes.c_void_p(stream)]
+            fn.argtypes = [type(a) for a in cargs]
+            fn.restype = ctypes.c_int
+            rc = fn(*cargs)
         if rc != 0:
             raise RuntimeError(f"{self.name}: {symbol} failed with cudaError {rc}")
 

@@ -14,48 +14,72 @@
 // the outputs a few KB, so bytes do not bind.  The products stay in full
 // f32, not TF32: TF32's ~1e-3 relative error on a.b is magnified by the
 // cancellation in |a|^2 + |b|^2 - 2 a.b and would move radii and flip the
-// d < r comparisons.  The distance tile lives only in registers and shared
-// memory; device memory sees the embeddings and the reductions.
+// d < r comparisons.
 //
-// Design:
-//   - both kernels compute a tile of dot products with a shared-memory
-//     tiled SIMT product (BK = 16 columns of d per step, each thread a
-//     small register tile of outputs, conflict-free shared reads);
-//   - knn: a block owns BM_KNN query rows and loops over every column tile
-//     itself (the loop replaces the TPU's sequential grid axis).  Each row
-//     keeps a sorted list of its k smallest values in shared memory; one
-//     warp per row merges every tile into it: lanes whose value beats the
-//     list's last entry vote, and the winners are inserted one at a time.
-//     Ties count with multiplicity, so the k-th entry is the k-th order
-//     statistic whatever the tie order;
-//   - stats: ONE sweep over (reference tile x candidate tile) blocks gives
-//     all four reductions (the TPU needed two one-sided sweeps because its
-//     grid accumulates only along its fastest axis).  Each block reduces its
-//     tile in shared memory, then makes one global atomic per row or
-//     column: atomicOr for the two anys, atomicAdd for the int32 count,
-//     atomicMin on the bits of the non-negative float min.  All four are
-//     order independent, so the result is deterministic;
-//   - the ragged edge is masked by index (no +inf padding rows); a radius
-//     below 0 matches nothing; d < r is compared after the sqrt, strictly,
-//     as the TPU kernel does (comparing d^2 < r^2 flips near-ties).
-//   - offsets are 64-bit: N*d may pass 2^31.
+// knn (redesigned for Hopper; the first design, one block of 32 rows
+// sweeping every column with a 2 x 4 register tile over 16-deep scalar
+// slabs, filled 64 of 132 SMs at N = 2048 and ran slower than cuBLAS +
+// topk):
+//   - the columns are split across blocks: block (row tile, split) takes 128
+//     query rows against the 128-column tiles of its split (ops/distance.py
+//     knn_splits: about four blocks per SM), so N = 2048 gives 256 blocks;
+//   - the dot products are f32 FMAs on the CUDA cores, each summed in depth
+//     order from 0, as the plain version's f32 product (cuBLAS) sums it, on
+//     the squared norms it uses: on unit embeddings in a tight cluster
+//     (the main path's, radii ~0.05) |a|^2 + |b|^2 - 2 a.b cancels so far
+//     that 3xTF32 mma.sync products (~2^-21 relative per product) left 32
+//     of 2048 radii outside rtol 1e-4 / atol 1e-5 of the plain version's on
+//     the card (max 2.6e-5), and rows centered on their mean 21.  An 8 x 8
+//     register tile per
+//     thread over 16-byte shared reads; tiles reach shared memory by
+//     cp.async, double-buffered;
+//   - each tile's distances go through shared memory to one warp per row.
+//     A row keeps a list of its k smallest so far and their maximum t; a
+//     tile with no value below t leaves it (one vote); otherwise the warp
+//     finds the k-th smallest t' of list and tile by bisection on the float
+//     bits over [min, t] (a compare per value and one warp sum a step, four
+//     rows side by side so that their warp sums overlap; no serial
+//     insertion) and keeps the values below t' and copies of t' up to k.
+//     Ties count with multiplicity, so t' is the k-th order statistic
+//     whatever the tie order.  Each block writes its rows' lists;
+//     knn_merge_kernel takes the k-th smallest of a row's lists of all
+//     splits the same way, and its sqrt.
+// stats: ONE sweep over (reference tile x candidate tile) blocks gives all
+// four reductions (the TPU needed two one-sided sweeps because its grid
+// accumulates only along its fastest axis), with a shared-memory tiled SIMT
+// product (BK = 16 columns of d per step, each thread a small register tile
+// of outputs).  Each block reduces its tile in shared memory, then makes one
+// global atomic per row or column: atomicOr for the two anys, atomicAdd for
+// the int32 count, atomicMin on the bits of the non-negative float min.
+// All four are order independent, so the result is deterministic.
+// Both: the ragged edge is masked by index (no +inf padding rows); a
+// radius below 0 matches nothing; d < r is compared after the sqrt,
+// strictly, as the TPU kernel does (comparing d^2 < r^2 flips near-ties);
+// offsets are 64-bit: N*d may pass 2^31.
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int BK = 16;          // depth step of the dot-product tile
+constexpr int BK = 16;          // stats: depth step of the dot-product tile
 constexpr int THREADS = 256;
-
-// knn: 32 query rows x 64 columns per tile; thread (ty, tx) of a 16 x 16
-// grid owns rows ty + 16*i (i < 2) and columns tx + 16*j (j < 4).
-constexpr int BM_KNN = 32, BN_KNN = 64;
 constexpr int KMAX = 128;       // widest k-smallest list (the TPU scratch's width)
 
 // stats: 64 reference rows x 64 candidate columns per block; thread
 // (ty, tx) owns rows ty + 16*i and columns tx + 16*j (i, j < 4).
 constexpr int BM_ST = 64, BN_ST = 64;
+
+// knn: 128 query rows x 128 columns per tile, depth steps of 32 floats;
+// thread (ty, tx) of a 16 x 16 grid computes rows ty + 16 i and columns
+// tx + 16 j (i, j < TM = 8).  Shared memory: two stages of the A and B
+// tiles (rows padded to 36 floats), reused for the 128 x 129 distance tile,
+// then the (128, k) lists.
+constexpr int KNN_BM = 128, KNN_BN = 128, KNN_BK = 32, PITCH = KNN_BK + 4, TM = 8;
+constexpr int STAGE_FLOATS = (KNN_BM + KNN_BN) * PITCH, DPITCH = KNN_BN + 1;
+constexpr int TILE_FLOATS = 2 * STAGE_FLOATS;
+static_assert(KNN_BM * DPITCH <= TILE_FLOATS, "the distance tile reuses the stages");
+constexpr int MERGE_WARPS = 8;
 
 // Load a (rows x BK) slab of row-major x (n rows of d) starting at
 // (row0, k0) into s[k][r] (transposed, pitch rows + 1), zero outside.
@@ -75,94 +99,215 @@ __device__ __forceinline__ float sq_dist(float sa, float sb, float dot) {
   return fmaxf(__fsub_rn(__fadd_rn(sa, sb), __fmul_rn(2.f, dot)), 0.f);
 }
 
-__global__ void __launch_bounds__(THREADS)
-knn_kernel(const float* __restrict__ x, const float* __restrict__ sq, int n, int d, int k,
-           float* __restrict__ out) {
-  extern __shared__ float list[];  // (BM_KNN, k) sorted ascending per row
-  __shared__ float As[BK][BM_KNN + 1];
-  __shared__ float Bs[BK][BN_KNN + 1];
-  __shared__ float Ds[BM_KNN][BN_KNN + 1];
+// 16 bytes global -> shared, asynchronously; zero-filled when !valid
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
 
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int row0 = blockIdx.x * BM_KNN;
-  for (int i = tid; i < BM_KNN * k; i += THREADS) list[i] = CUDART_INF_F;
-  float sa[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = row0 + ty + 16 * i;
-    sa[i] = r < n ? sq[r] : 0.f;
+// One stage: rows row0.. (A) and col0.. (B) of x, depth k0..k0+31 (d % 4 == 0).
+__device__ __forceinline__ void load_stage(float* st, const float* __restrict__ x, int n, int d,
+                                           int row0, int col0, int k0) {
+  for (int i = threadIdx.x; i < (KNN_BM + KNN_BN) * (KNN_BK / 4); i += THREADS) {
+    const int r = i / (KNN_BK / 4), kc = (i % (KNN_BK / 4)) * 4;
+    const int row = r < KNN_BM ? row0 + r : col0 + r - KNN_BM, k = k0 + kc;
+    const bool ok = row < n && k < d;
+    cp_async16(st + r * PITCH + kc, ok ? x + (size_t)row * d + k : x, ok);
   }
+}
 
-  for (int col0 = 0; col0 < n; col0 += BN_KNN) {
-    float acc[2][4] = {};
-    for (int k0 = 0; k0 < d; k0 += BK) {
-      load_slab<BM_KNN>(x, n, d, row0, k0, As);
-      load_slab<BN_KNN>(x, n, d, col0, k0, Bs);
-      __syncthreads();
+// Bisection on the float bits for the k-th smallest, with multiplicity, of
+// each of ROWS value sets (non-negative or +inf floats, whose bits order as
+// the floats): for set q the least t in [lo[q], hi[q]] with count(q, t) =
+// #{v <= t} >= k, where count sums over the warp.  The ROWS bisections run
+// side by side (independent warp sums in flight); every lane gets each t.
+template <int ROWS, typename Count>
+__device__ __forceinline__ void bisect_kth(uint32_t (&lo)[ROWS], uint32_t (&hi)[ROWS], int k,
+                                           Count count) {
+  int steps = 0;  // bit length of the widest interval: enough halvings for all
 #pragma unroll
-      for (int kk = 0; kk < BK; ++kk) {
-        float a[2], b[4];
+  for (int q = 0; q < ROWS; ++q) steps = max(steps, 32 - __clz(hi[q] - lo[q]));
+  for (int s = 0; s < steps; ++s)
 #pragma unroll
-        for (int i = 0; i < 2; ++i) a[i] = As[kk][ty + 16 * i];
+    for (int q = 0; q < ROWS; ++q) {
+      const uint32_t mid = lo[q] + (hi[q] - lo[q]) / 2;
+      if (__reduce_add_sync(0xffffffffu, count(q, mid)) >= (unsigned)k) hi[q] = mid;
+      else lo[q] = mid + 1;
+    }
+}
+
+constexpr int SEL_ROWS = 4;  // rows a warp selects together
+
+// Block (row tile, split): the k smallest squared distances of each of its
+// rows to the columns [split * split_cols, +split_cols) of x, in no order,
+// into lists (n, splits, k) (+inf where the split has fewer than k columns).
+// A row's list and its k-th smallest t live in shared memory; a tile with a
+// value below t makes the row's warp take the k-th smallest t' of list and
+// tile together, and keep every value below t' and copies of t' up to k.
+// VL = ceil(k / 32): the list's values per lane.
+template <int VL>
+__global__ void __launch_bounds__(THREADS, 2)
+knn_split_kernel(const float* __restrict__ x, const float* __restrict__ sq, int n, int d, int k,
+                 int split_cols, float* __restrict__ lists) {
+  extern __shared__ float smem[];
+  float* tiles = smem;                    // two stages; then the distance tile
+  float* kth = smem + TILE_FLOATS;        // (KNN_BM,) each list's k-th smallest
+  float* list = kth + KNN_BM;             // (KNN_BM, k)
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int tx = tid % 16, ty = tid / 16;  // rows ty + 16 i, columns tx + 16 j
+  const int row0 = blockIdx.x * KNN_BM, split = blockIdx.y;
+  const int c_begin = split * split_cols, c_end = min(n, c_begin + split_cols);
+  for (int i = tid; i < KNN_BM * (k + 1); i += THREADS) kth[i] = CUDART_INF_F;
+  const int ksteps = (d + KNN_BK - 1) / KNN_BK;
+
+  for (int col0 = c_begin; col0 < c_end; col0 += KNN_BN) {
+    float acc[TM][TM];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) b[j] = Bs[kk][tx + 16 * j];
+    for (int i = 0; i < TM; ++i)
 #pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+      for (int j = 0; j < TM; ++j) acc[i][j] = 0.f;
+    load_stage(tiles, x, n, d, row0, col0, 0);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    for (int ks = 0; ks < ksteps; ++ks) {
+      if (ks + 1 < ksteps) {
+        load_stage(tiles + ((ks + 1) & 1) * STAGE_FLOATS, x, n, d, row0, col0, (ks + 1) * KNN_BK);
+        asm volatile("cp.async.commit_group;\n" ::: "memory");
+        asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+      } else {
+        asm volatile("cp.async.wait_group 0;\n" ::: "memory");
       }
       __syncthreads();
-    }
+      const float* sA = tiles + (ks & 1) * STAGE_FLOATS + ty * PITCH;
+      const float* sB = tiles + (ks & 1) * STAGE_FLOATS + (KNN_BM + tx) * PITCH;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = col0 + tx + 16 * j;
-      const float sb = c < n ? sq[c] : 0.f;
+      for (int kk = 0; kk < KNN_BK; kk += 4) {
+        // four depths of each row and column, 16-byte reads (a warp's 16
+        // columns 36 floats apart cover the 32 banks twice: no conflict
+        // beyond the two wavefronts 256 bytes need), the columns in two
+        // halves so that 64 sums, 4 + 1 float4 and the addresses fit in
+        // the 128 registers two blocks per SM leave; each product is
+        // summed in depth order, as the plain version's f32 product sums it
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
-        Ds[ty + 16 * i][tx + 16 * j] = c < n ? sq_dist(sa[i], sb, acc[i][j]) : CUDART_INF_F;
-    }
-    __syncthreads();
-
-    // merge: warp w owns rows w, w + 8, w + 16, w + 24 of the tile
-    for (int rr = warp; rr < BM_KNN; rr += THREADS / 32) {
-      float* L = list + rr * k;
+        for (int jh = 0; jh < TM; jh += TM / 2) {
+          float4 b[TM / 2];
 #pragma unroll
-      for (int h = 0; h < BN_KNN / 32; ++h) {
-        const float v = Ds[rr][lane + 32 * h];
-        unsigned want = __ballot_sync(0xffffffffu, v < L[k - 1]);
-        while (want) {
-          const int src = __ffs(want) - 1;
-          want &= want - 1;
-          const float w = __shfl_sync(0xffffffffu, v, src);
-          if (!(w < L[k - 1])) continue;  // the list's last entry fell meanwhile
-          // insertion point: entries <= w stay, the rest move one place up
-          int pos = 0;
-          for (int q = 0; q < k; q += 32)
-            pos += __popc(__ballot_sync(0xffffffffu, q + lane < k && L[q + lane] <= w));
-          float moved[KMAX / 32];
+          for (int j = 0; j < TM / 2; ++j)
+            b[j] = *reinterpret_cast<const float4*>(sB + 16 * (jh + j) * PITCH + kk);
 #pragma unroll
-          for (int q = 0; q < KMAX / 32; ++q) {
-            const int j = lane + 32 * q;
-            moved[q] = (j < k && j > pos) ? L[j - 1] : 0.f;
+          for (int i = 0; i < TM; ++i) {
+            const float4 a = *reinterpret_cast<const float4*>(sA + 16 * i * PITCH + kk);
+#pragma unroll
+            for (int j = 0; j < TM / 2; ++j) {
+              float& c = acc[i][jh + j];
+              c = fmaf(a.x, b[j].x, c);
+              c = fmaf(a.y, b[j].y, c);
+              c = fmaf(a.z, b[j].z, c);
+              c = fmaf(a.w, b[j].w, c);
+            }
           }
-          __syncwarp();
-#pragma unroll
-          for (int q = 0; q < KMAX / 32; ++q) {
-            const int j = lane + 32 * q;
-            if (j == pos) L[j] = w;
-            else if (j < k && j > pos) L[j] = moved[q];
-          }
-          __syncwarp();
         }
       }
+      __syncthreads();
+    }
+
+    // distances -> the tile; columns past the split are +inf
+    float* D = tiles;
+#pragma unroll
+    for (int j = 0; j < TM; ++j) {
+      const int col = tx + 16 * j, c = col0 + col;
+      const float sb = c < c_end ? sq[c] : 0.f;
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+        const int r = row0 + ty + 16 * i;
+        D[(ty + 16 * i) * DPITCH + col] =
+            c < c_end ? sq_dist(r < n ? sq[r] : 0.f, sb, acc[i][j]) : CUDART_INF_F;
+      }
     }
     __syncthreads();
+    for (int r0 = warp * SEL_ROWS; r0 < KNN_BM; r0 += THREADS / 32 * SEL_ROWS) {
+      constexpr int V = VL + KNN_BN / 32;
+      float v[SEL_ROWS][V];
+      bool below = false;
+#pragma unroll
+      for (int q = 0; q < SEL_ROWS; ++q)
+#pragma unroll
+        for (int h = 0; h < KNN_BN / 32; ++h) {
+          v[q][VL + h] = D[(r0 + q) * DPITCH + lane + 32 * h];
+          below |= v[q][VL + h] < kth[r0 + q];
+        }
+      if (!__any_sync(0xffffffffu, below)) continue;  // the lists stay
+      // the union of list and tile; its k-th lies in [min, t], and below the
+      // largest finite value when at least k are finite
+      uint32_t lo[SEL_ROWS], hi[SEL_ROWS];
+#pragma unroll
+      for (int q = 0; q < SEL_ROWS; ++q) {
+        const float* L = list + (r0 + q) * k;
+        uint32_t mn = 0xffffffffu, mx = 0, finite = 0;
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          if (j < VL) v[q][j] = lane + 32 * j < k ? L[lane + 32 * j] : CUDART_INF_F;
+          const uint32_t b = __float_as_uint(v[q][j]);
+          mn = min(mn, b);
+          if (b < 0x7f800000u) {
+            mx = max(mx, b);
+            ++finite;
+          }
+        }
+        lo[q] = __reduce_min_sync(0xffffffffu, mn);
+        hi[q] = __float_as_uint(kth[r0 + q]);
+        if (__reduce_add_sync(0xffffffffu, finite) >= (unsigned)k)
+          hi[q] = min(hi[q], __reduce_max_sync(0xffffffffu, mx));
+      }
+      bisect_kth<SEL_ROWS>(lo, hi, k, [&](int q, uint32_t t) {
+        unsigned c = 0;
+#pragma unroll
+        for (int j = 0; j < V; ++j) c += __float_as_uint(v[q][j]) <= t;
+        return c;
+      });
+      __syncwarp();  // every lane has read the lists
+#pragma unroll
+      for (int q = 0; q < SEL_ROWS; ++q) {  // keep the values below t, then copies of t
+        const float t = __uint_as_float(lo[q]);
+        float* L = list + (r0 + q) * k;
+        int kept = 0;
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          const unsigned m = __ballot_sync(0xffffffffu, v[q][j] < t);
+          if (v[q][j] < t) L[kept + __popc(m & ((1u << lane) - 1))] = v[q][j];
+          kept += __popc(m);
+        }
+        for (int i = kept + lane; i < k; i += 32) L[i] = t;
+        if (lane == 0) kth[r0 + q] = t;
+      }
+      __syncwarp();
+    }
+    __syncthreads();  // the tile is the next tile's stage 0
   }
-  for (int rr = tid; rr < BM_KNN; rr += THREADS) {
-    const int r = row0 + rr;
-    if (r < n) out[r] = sqrtf(fmaxf(list[rr * k + k - 1], 0.f));
+  const int splits = gridDim.y;
+  for (int i = tid; i < KNN_BM * k; i += THREADS) {
+    const int rr = i / k, j = i - rr * k, r = row0 + rr;
+    if (r < n) lists[((size_t)r * splits + split) * k + j] = list[i];
   }
+}
+
+// One warp per row: the k-th smallest, with multiplicity, of the row's
+// `splits` lists (bisect_kth, reading the lists from L1 at each step); out =
+// its sqrt.
+__global__ void __launch_bounds__(MERGE_WARPS * 32)
+knn_merge_kernel(const float* __restrict__ lists, int n, int splits, int k,
+                 float* __restrict__ out) {
+  const int r = blockIdx.x * MERGE_WARPS + threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (r >= n) return;
+  const uint32_t* src = reinterpret_cast<const uint32_t*>(lists) + (size_t)r * splits * k;
+  uint32_t lo[1] = {0}, hi[1] = {0x7f800000u};  // [0, +inf]
+  bisect_kth<1>(lo, hi, k, [&](int, uint32_t t) {
+    unsigned c = 0;
+    for (int i = lane; i < splits * k; i += 32) c += src[i] <= t;
+    return c;
+  });
+  if (lane == 0) out[r] = sqrtf(__uint_as_float(lo[0]));
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -259,16 +404,26 @@ stats_kernel(const float* __restrict__ ref, const float* __restrict__ sq_r,
 
 }  // namespace
 
-// x: (n, d) f32, sq: (n,) f32 squared row norms; out: (n,) f32 radii =
-// sqrt of the k-th smallest squared distance of each row (self included).
-extern "C" int am_knn_radii(const float* x, const float* sq, int n, int d, int k, float* out,
-                            cudaStream_t stream) {
-  if (k < 1 || k > KMAX || k > n) return (int)cudaErrorInvalidValue;
-  const int smem = BM_KNN * k * (int)sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(knn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       smem);
+// x: (n, d) f32, d % 4 == 0; sq: (n,) f32 squared row norms; lists:
+// (n, splits, k) f32 scratch; out: (n,) f32 radii = sqrt of the k-th
+// smallest squared distance of each row (self included).  split_cols: a
+// multiple of 128, splits * split_cols >= n (ops/distance.py knn_splits).
+extern "C" int am_knn_radii(const float* x, const float* sq, int n, int d, int k, int splits,
+                            int split_cols, float* lists, float* out, cudaStream_t stream) {
+  if (k < 1 || k > KMAX || k > n || d % 4 || split_cols % KNN_BN ||
+      (long long)splits * split_cols < n)
+    return (int)cudaErrorInvalidValue;
+  const int vl = (k + 31) / 32;
+  const auto kernel = vl == 1 ? knn_split_kernel<1> : vl == 2 ? knn_split_kernel<2>
+                    : vl == 3 ? knn_split_kernel<3> : knn_split_kernel<4>;
+  const int smem = (TILE_FLOATS + KNN_BM * (k + 1)) * (int)sizeof(float);
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  knn_kernel<<<(n + BM_KNN - 1) / BM_KNN, THREADS, smem, stream>>>(x, sq, n, d, k, out);
+  kernel<<<dim3((n + KNN_BM - 1) / KNN_BM, splits), THREADS, smem, stream>>>(x, sq, n, d, k,
+                                                                          split_cols, lists);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  knn_merge_kernel<<<(n + MERGE_WARPS - 1) / MERGE_WARPS, MERGE_WARPS * 32, 0, stream>>>(
+      lists, n, splits, k, out);
   return (int)cudaGetLastError();
 }
 

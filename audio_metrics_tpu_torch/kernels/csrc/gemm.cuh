@@ -4,8 +4,8 @@
 // (WMMA 16x16x16 fragments, 64x64 block tile, BK=32, 4 warps of 32x32),
 // C = A (M x K, bf16) @ B (K x N, bf16 row-major), with
 //   - an A-row map (AMODE) that gathers rows by index arithmetic instead of
-//     materialising a gathered copy: plain rows, Swin window partition under
-//     the cyclic roll, or the 2x2 patch-merge quadrant concat;
+//     materialising a gathered copy: plain rows, or the Swin window
+//     partition under the cyclic roll;
 //   - an optional in-block LayerNorm-statistics prologue (centered two-pass,
 //     f32) over each A row, for epilogues that fold the LN through the
 //     product (rs * (x @ W) - rs * mu * (1 @ W) + b);
@@ -36,13 +36,13 @@ constexpr int LDA_S = BK + 8;  // shared row pitches: multiples of 8 bf16 /
 constexpr int LDB_S = BN + 8;  // 4 f32 as WMMA requires, padded against
 constexpr int LDC_S = BN + 4;  // bank conflicts
 
-enum AMode { A_ROWS = 0, A_WINDOW = 1, A_MERGE = 2 };
+enum AMode { A_ROWS = 0, A_WINDOW = 1 };
 enum Epi {
   EPI_QKV = 0,    // bf16 out = acc*rs - rs*mu*colsum(B) + v0      (LN1 fold)
   EPI_PROJ,       // f32 out[map(r)] = acc + v0 + res_bf16[map(r)] (un-partition, un-roll, residual)
   EPI_GELU,       // bf16 out = gelu_erf(acc + v0)
   EPI_RESID,      // bf16 out = acc + v0 + res_f32
-  EPI_MERGE,      // bf16 out = acc*rs + (v1 - mu*rs*v0)           (merge LN fold)
+  EPI_MERGE,      // gemm_sm90.cuh only: bf16 out = acc*rs + (v0 - mu*rs*csum) (merge LN fold)
   EPI_POWER,      // f32 out[n/2] = acc[n]^2 + acc[n+1]^2          (interleaved re/im)
   EPI_INTERP,     // bf16 out[r % rg][(r / rg)*N + n] = acc        (phase rows -> lanes)
   EPI_BIAS_F32,   // f32 out = acc + v0
@@ -56,9 +56,9 @@ struct GemmParams {
   const bf16* A; long long lda; long long a_batch;
   const bf16* B; long long ldb; long long b_batch;
   void* out; long long ldo; long long o_batch;
-  int R, win, shift, C;  // image geometry for the A_WINDOW / A_MERGE maps
+  int R, win, shift;  // image geometry for the A_WINDOW map
   float eps;
-  const float* v0; const float* v1;
+  const float* v0;
   const void* res;
   int rg;
 };
@@ -91,22 +91,10 @@ __device__ __forceinline__ int window_src(int rr, int R, int win, int shift) {
 template <int AM>
 __device__ __forceinline__ const bf16* a_ptr(const GemmParams& p, int z, int r, int k) {
   if (AM == A_ROWS) return p.A + z * p.a_batch + (long long)r * p.lda + k;
-  const int rr2 = p.R * p.R;
-  if (AM == A_WINDOW) {
-    const int img = r / rr2;
-    const int src = window_src(r - img * rr2, p.R, p.win, p.shift);
-    return p.A + ((long long)img * rr2 + src) * p.lda + k;
-  }
-  // A_MERGE: output pixel r = (img, i2, j2) of the (R/2)^2 grid; A column
-  // k = j*C + c of the virtual concat [x00, x10, x01, x11]: quadrant j reads
-  // row offset j & 1, column offset j >> 1.
-  const int h2 = p.R / 2;
-  const int img = r / (h2 * h2);
-  const int q = r - img * h2 * h2;
-  const int i2 = q / h2, j2 = q - (q / h2) * h2;
-  const int j = k / p.C, c = k - j * p.C;
-  const int src = (2 * i2 + (j & 1)) * p.R + 2 * j2 + (j >> 1);
-  return p.A + ((long long)img * rr2 + src) * p.lda + c;
+  const int rr2 = p.R * p.R;  // A_WINDOW
+  const int img = r / rr2;
+  const int src = window_src(r - img * rr2, p.R, p.win, p.shift);
+  return p.A + ((long long)img * rr2 + src) * p.lda + k;
 }
 
 __device__ __forceinline__ void add8(const uint4& v, float& s) {
@@ -136,7 +124,7 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(const GemmParams p) 
 
   const int z = blockIdx.z, m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  constexpr bool STATS = (EPI == EPI_QKV || EPI == EPI_MERGE);
+  constexpr bool STATS = EPI == EPI_QKV;
 
   if (STATS) {
     for (int rr = warp; rr < BM; rr += GEMM_THREADS / 32) {
@@ -230,10 +218,6 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(const GemmParams p) 
       const long long o = (long long)r * p.ldo + n;
       const float v = a + p.v0[n] + static_cast<const float*>(p.res)[o];
       static_cast<bf16*>(p.out)[o] = __float2bfloat16(v);
-    } else if (EPI == EPI_MERGE) {
-      const float rs = s_rs[row];
-      const float v = a * rs + (p.v1[n] - s_mu[row] * rs * p.v0[n]);
-      static_cast<bf16*>(p.out)[(long long)r * p.ldo + n] = __float2bfloat16(v);
     } else if (EPI == EPI_POWER) {
       if (col & 1) continue;
       const float b = Cs[row * LDC_S + col + 1];

@@ -1,6 +1,7 @@
-// Hopper GEMM core of the whole Swin block (#1, swin_block.cu) and the fused
-// frontend (#3, frontend.cu): bf16 x bf16 -> f32 accumulate with wgmma, fed
-// by TMA through a ring of shared-memory stages.
+// Hopper GEMM core of the whole Swin block (#1, swin_block.cu), the patch
+// merge (#2, patch_merge.cu) and the fused frontend (#3, frontend.cu): bf16 x
+// bf16 -> f32 accumulate with wgmma, fed by TMA through a ring of
+// shared-memory stages.
 //
 //   out[z] = epilogue(A[z] (M x K) @ B[z]^T),  B[z] held (N x K)
 //
@@ -26,7 +27,9 @@
 //     -> lanes) are the same.
 // Tensor maps are 3-D (k, row, batch) and encoded on the host per launch
 // (cuTensorMapEncodeTiled through cudaGetDriverEntryPoint: no -lcuda); a
-// batch index z > 0 is read only from the operand that has a batch.  Rows
+// batch index z > 0 is read only from the operand that has a batch.  A
+// caller whose A is laid out otherwise encodes A's map itself and passes the
+// producer a loader of its own (gemm_mapped; patch_merge.cu's MergeA).  Rows
 // past M are zero-filled by TMA and masked in the epilogue.  Requirements
 // (checked by the Python wrappers through kernels.check_sm90_gemm): K % 64
 // == 0, N % 64 == 0, row and batch strides multiples of 8 elements (16
@@ -67,8 +70,8 @@ struct EpiParams {
   long long ldo, o_batch;
   int R, win, shift;       // EPI_PROJ's window map
   const float* v0;         // bias
-  const float* csum;       // EPI_QKV: f32 column sums of W (1 @ W)
-  const float* mu;         // EPI_QKV: LN1 mean and 1/sigma of each A row
+  const float* csum;       // EPI_QKV: f32 column sums of W (1 @ W); EPI_MERGE: g @ W
+  const float* mu;         // EPI_QKV, EPI_MERGE: LN mean and 1/sigma of each A row
   const float* rs;
   const void* res;         // residual
   int rg;                  // EPI_INTERP: rows per phase
@@ -121,6 +124,16 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, i
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                            int c2, int c3, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+      "r"(smem_u32(bar))
       : "memory");
 }
 
@@ -265,6 +278,13 @@ __device__ __forceinline__ void epilogue8(const EpiParams& p, int z, int r, int 
 #pragma unroll
     for (int i = 0; i < 8; ++i) v[i] = a[i] * rs - rs * mu * cs[i] + b[i];
     store8(static_cast<bf16*>(p.out) + (long long)r * p.ldo + n, v);
+  } else if (EPI == EPI_MERGE) {  // the plain version's order: acc*rs + (t - mu*rs*s)
+    const float rs = p.rs[r], mu = p.mu[r];
+    float sv[8];
+    load8(p.csum + n, sv);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) v[i] = a[i] * rs + (b[i] - mu * rs * sv[i]);
+    store8(static_cast<bf16*>(p.out) + (long long)r * p.ldo + n, v);
   } else if (EPI == EPI_PROJ) {
     const int rr2 = p.R * p.R;
     const int img = r / rr2;
@@ -296,11 +316,21 @@ __device__ __forceinline__ void epilogue8(const EpiParams& p, int z, int r, int 
   }
 }
 
-template <int BN, int EPI>
+// The producer's load of A's tile for K step k of row tile mt, batch z: by
+// default from a 3-D (k, row, batch) map.  Another loader has the same call.
+struct RowsA {
+  int batched;
+  __device__ __forceinline__ void operator()(void* dst, const CUtensorMap* map, int k, int mt,
+                                             int z, uint64_t* bar) const {
+    tma_load_3d(dst, map, k * BK, mt * BM, batched ? z : 0, bar);
+  }
+};
+
+template <int BN, int EPI, class ALoad>
 __global__ void __launch_bounds__(THREADS, 1)
     gemm_sm90_kernel(const __grid_constant__ CUtensorMap tma_a,
-                     const __grid_constant__ CUtensorMap tma_b, const EpiParams p, int K,
-                     int batch, int a_batched, int b_batched) {
+                     const __grid_constant__ CUtensorMap tma_b, const EpiParams p,
+                     const ALoad load_a, int K, int batch, int b_batched) {
   using S = Smem<BN>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t s0 = smem_u32(smem_raw);
@@ -333,8 +363,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       for (int k = 0; k < ksteps; ++k) {
         mbar_wait(&empty[stage], phase ^ 1);
         mbar_expect_tx(&full[stage], S::A_BYTES + S::B_BYTES);
-        tma_load_3d(sA + stage * S::A_BYTES, &tma_a, k * BK, mt * BM, a_batched ? z : 0,
-                    &full[stage]);
+        load_a(sA + stage * S::A_BYTES, &tma_a, k, mt, z, &full[stage]);
         tma_load_3d(sB + stage * S::B_BYTES, &tma_b, k * BK, nt * BN, b_batched ? z : 0,
                     &full[stage]);
         if (++stage == STAGES) { stage = 0; phase ^= 1; }
@@ -404,6 +433,7 @@ typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, v
                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
+// cuTensorMapEncodeTiled's entry point: one per process, for every card.
 inline EncodeTiled encode_tiled() {
   static EncodeTiled fn = nullptr;
   if (fn == nullptr) {
@@ -422,57 +452,83 @@ inline EncodeTiled encode_tiled() {
 // its CUresult).
 constexpr int ERR_NO_ENCODE = 8999, ERR_ENCODE = 9000;
 
-inline int encode(CUtensorMap* map, const Operand& o, int box_rows) {
+// A bf16 tensor map of rank `rank` <= 5 under the 128-byte swizzle: dims and
+// box innermost first, `strides` the byte strides of dims 1..rank-1.
+inline int encode_map(CUtensorMap* map, const bf16* ptr, int rank, const cuuint64_t* dims,
+                      const cuuint64_t* strides, const cuuint32_t* box) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return ERR_NO_ENCODE;
-  const cuuint64_t dims[3] = {(cuuint64_t)o.K, (cuuint64_t)o.rows, (cuuint64_t)o.batch};
-  const cuuint64_t strides[2] = {(cuuint64_t)o.ld * 2, (cuuint64_t)o.batch_stride * 2};
-  const cuuint32_t box[3] = {(cuuint32_t)BK, (cuuint32_t)box_rows, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<bf16*>(o.ptr), dims,
-                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+  const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<bf16*>(ptr),
+                        dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : ERR_ENCODE + (int)r;
 }
 
-inline int sm_count() {
-  static int n = 0;
-  if (n == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-  }
-  return n;
+inline int encode(CUtensorMap* map, const Operand& o, int box_rows) {
+  const cuuint64_t dims[3] = {(cuuint64_t)o.K, (cuuint64_t)o.rows, (cuuint64_t)o.batch};
+  const cuuint64_t strides[2] = {(cuuint64_t)o.ld * 2, (cuuint64_t)o.batch_stride * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)BK, (cuuint32_t)box_rows, 1};
+  return encode_map(map, o.ptr, 3, dims, strides, box);
 }
 
-template <int BN, int EPI>
-int launch_bn(const Operand& a, const Operand& b, const EpiParams& p, int K, int batch,
-              cudaStream_t stream) {
-  CUtensorMap ta, tb;
+// Per-card caches, keyed by the current card (the wrappers make the
+// operands' card current): its SM count, and whether an instantiation's
+// shared-memory attribute is set there (an attribute is per card).
+constexpr int MAX_CARDS = 64;
+
+inline int current_card() {
+  int dev = 0;
+  cudaGetDevice(&dev);
+  return dev;
+}
+
+inline int sm_count(int dev) {
+  static int n[MAX_CARDS] = {};
+  if (n[dev] == 0) cudaDeviceGetAttribute(&n[dev], cudaDevAttrMultiProcessorCount, dev);
+  return n[dev];
+}
+
+template <int BN, int EPI, class ALoad>
+int launch_bn(const CUtensorMap& ta, const ALoad& load_a, const Operand& b, const EpiParams& p,
+              int K, int batch, cudaStream_t stream) {
+  CUtensorMap tb;
   int e;
-  if ((e = encode(&ta, a, BM)) != 0 || (e = encode(&tb, b, BN)) != 0) return e;
-  static bool attr = false;  // once per instantiation
-  if (!attr) {
-    if ((e = cudaFuncSetAttribute(gemm_sm90_kernel<BN, EPI>,
+  if ((e = encode(&tb, b, BN)) != 0) return e;
+  const int dev = current_card();
+  if (dev >= MAX_CARDS) return cudaErrorInvalidDevice;
+  static bool attr[MAX_CARDS] = {};  // per instantiation and card
+  if (!attr[dev]) {
+    if ((e = cudaFuncSetAttribute(gemm_sm90_kernel<BN, EPI, ALoad>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   Smem<BN>::BYTES)) != cudaSuccess)
       return e;
-    attr = true;
+    attr[dev] = true;
   }
-  const int tiles = batch * ((p.M + BM - 1) / BM) * (p.N / BN);
-  const int grid = tiles < sm_count() ? tiles : sm_count();
-  gemm_sm90_kernel<BN, EPI><<<grid, THREADS, Smem<BN>::BYTES, stream>>>(
-      ta, tb, p, K, batch, a.batch > 1, b.batch > 1);
+  const int tiles = batch * ((p.M + BM - 1) / BM) * (p.N / BN), sms = sm_count(dev);
+  const int grid = tiles < sms ? tiles : sms;
+  gemm_sm90_kernel<BN, EPI, ALoad><<<grid, THREADS, Smem<BN>::BYTES, stream>>>(
+      ta, tb, p, load_a, K, batch, b.batch > 1);
   return cudaGetLastError();
+}
+
+// out = epilogue(A @ B^T), A's map and loader made by the caller: each load
+// fills a BM x BK K-major tile under the 128-byte swizzle.
+template <int EPI, class ALoad>
+int gemm_mapped(const CUtensorMap& ta, const ALoad& load_a, const Operand& b,
+                const EpiParams& p, int K, int batch, cudaStream_t stream) {
+  return p.N % 128 == 0 ? launch_bn<128, EPI>(ta, load_a, b, p, K, batch, stream)
+                        : launch_bn<64, EPI>(ta, load_a, b, p, K, batch, stream);
 }
 
 // out = epilogue(A @ B^T): A (M x K) of `batch` or one, B (N x K) likewise.
 template <int EPI>
 int gemm(const Operand& a, const Operand& b, const EpiParams& p, int batch,
          cudaStream_t stream) {
-  return p.N % 128 == 0 ? launch_bn<128, EPI>(a, b, p, a.K, batch, stream)
-                        : launch_bn<64, EPI>(a, b, p, a.K, batch, stream);
+  CUtensorMap ta;
+  const int e = encode(&ta, a, BM);
+  return e != 0 ? e : gemm_mapped<EPI>(ta, RowsA{a.batch > 1}, b, p, a.K, batch, stream);
 }
 
 }  // namespace sm90

@@ -40,7 +40,7 @@ from ..ops.attention import (
     swin_block_plain,
     window_attention_xla,
 )
-from ..ops.merge import patch_merge, patch_merge_plain
+from ..ops.merge import merge_weight_t, patch_merge, patch_merge_plain
 from ..ops.mlp import layer_norm, mlp_block, mlp_block_plain, mlp_xla
 
 __all__ = [
@@ -455,14 +455,19 @@ class SwinBlock(_Folded):
 
 
 class PatchMerge(_Folded):
+    """One patch merge; holds the kernel's K-major weight ``wg_t``
+    (``ops.merge.merge_weight_t``) beside ``wg`` since the weights
+    loaded."""
+
     def __init__(self, p, prefix, cfg: HTSATConfig, resolution: int, dtype):
         super().__init__(_merge_weights(p, prefix), dtype)
         self.resolution, self.eps = resolution, cfg.layer_norm_eps
+        self.register_buffer("wg_t", merge_weight_t(self.wg))
 
     def forward(self, x, plain: bool = False):
         r = self.resolution
         fn = patch_merge_plain if plain else patch_merge
-        return fn(x, self.wg, self.svec, self.tvec, h=r, w=r, eps=self.eps)
+        return fn(x, self.wg, self.svec, self.tvec, h=r, w=r, eps=self.eps, wg_t=self.wg_t)
 
 
 class HTSATEncoder(nn.Module):

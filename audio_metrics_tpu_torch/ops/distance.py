@@ -25,6 +25,7 @@ from ..utils.precision import full_f32
 
 __all__ = [
     "knn_radii",
+    "knn_splits",
     "knn_radii_plain",
     "pairwise_stats",
     "pairwise_stats_plain",
@@ -35,6 +36,7 @@ KNN = KERNELS["knn_radii"]
 STATS = KERNELS["prdc_stats"]
 BLOCK = 2048  # plain versions' row block (metrics/prdc.py:25)
 K_MAX = 128   # widest k-smallest list of the kernel (the TPU scratch's width)
+KNN_TILE = 128  # the kNN kernel's row and column tile
 
 
 def _sq_dists(a, sq_a, b, sq_b):
@@ -77,15 +79,32 @@ def pairwise_stats_plain(ref, cand, ref_radii, cand_radii):
     return cand_count > 0, cand_count, torch.cat(ref_any), torch.cat(ref_min)
 
 
+def knn_splits(n: int, sms: int) -> tuple[int, int]:
+    """``(splits, split_cols)``: how the kNN kernel divides the n columns
+    among blocks.  Each split is a run of whole 128-column tiles; there are
+    about four blocks (128-row tile, split) per SM, at most one split per
+    tile, and no empty split."""
+    tiles = -(-n // KNN_TILE)
+    splits = max(1, min(tiles, -(-4 * sms // tiles)))
+    split_cols = -(-tiles // splits) * KNN_TILE
+    return -(-n // split_cols), split_cols
+
+
 def _knn_radii_cuda(x, nearest_k):
     require_cuda(x, dtype=torch.float32)
     n, d = x.shape
     k = min(nearest_k + 1, n)
     if k > K_MAX:
         raise NotImplementedError(f"knn_radii kernel keeps at most {K_MAX} neighbours, got k={k}")
-    sq = (x * x).sum(dim=1)
+    if d % 4:
+        raise NotImplementedError(f"knn_radii kernel reads rows in 16-byte chunks, got d={d}")
+    splits, split_cols = knn_splits(n, torch.cuda.get_device_properties(x.device)
+                                    .multi_processor_count)
+    lists = torch.empty((n, splits, k), dtype=torch.float32, device=x.device)
     out = torch.empty(n, dtype=torch.float32, device=x.device)
-    KNN.launch("am_knn_radii", x, sq, n, d, k, out)
+    # the plain version's squared norms: the kernel rounds the distance
+    # formula as it does
+    KNN.launch("am_knn_radii", x, (x * x).sum(dim=1), n, d, k, splits, split_cols, lists, out)
     KNN.launches += 1
     return out
 

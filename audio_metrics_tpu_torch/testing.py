@@ -5,7 +5,9 @@
   the profile's evaluates, made on the device from a seed;
 - ``card_line``: the card's name and power limit from ``nvidia-smi``;
 - ``stats_mismatches``: the near-tie rule for two results of the PRDC
-  reductions.
+  reductions;
+- ``near_duplicate_rows``: embeddings whose k-NN radii are the small
+  distances of near-duplicates, where the squared-distance formula cancels.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ import subprocess
 import numpy as np
 import torch
 
-__all__ = ["card_line", "seeded_clips", "stats_mismatches"]
+__all__ = ["card_line", "near_duplicate_rows", "seeded_clips", "stats_mismatches"]
 
 
 def card_line() -> str:
@@ -81,3 +83,17 @@ def stats_mismatches(ref, cand, got, want, got_radii, want_radii=None, rel: floa
     for i in cov_rows:
         bad += ties((cand - ref[i]).norm(dim=1).min(), rrs, i) < 1
     return n, bad
+
+
+def near_duplicate_rows(n: int, d: int, seed: int, group: int = 8, noise: float = 1e-2,
+                        device="cuda"):
+    """(n, d) f32 unit rows in groups of ``group`` near-duplicates (a random
+    unit row plus ``noise`` N(0, I), normalised): for k <= group, each
+    row's k-NN radius is a near-duplicate's distance (~0.3 at noise 1e-2,
+    d = 512), where |a|^2 + |b|^2 - 2 a.b cancels from ~2 to ~0.1, so a dot
+    product of TF32 accuracy moves it out of rtol 1e-4."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    base = torch.randn((-(-n // group), d), generator=gen, device=device)
+    x = (base / base.norm(dim=1, keepdim=True)).repeat_interleave(group, dim=0)[:n]
+    x = x + noise * torch.randn((n, d), generator=gen, device=device)
+    return x / x.norm(dim=1, keepdim=True)

@@ -43,13 +43,15 @@ Phases, one status line each:
      MLP (``mlp_block_int8``) on its output with that block's f32 MLP
      weights: launch counts, each against its plain version, the int8
      MLP's branch against the fused bf16 MLP kernel's, per-forward times.
-Phase 3 runs each kernel redesigned for Hopper (the whole Swin block at
-every stage and shift, the fused frontend) twice on the same inputs, at
-B = 4 and at B = 64, and fails unless the outputs are bitwise equal (their
-GEMM core has no atomics, so a race in its TMA ring shows as a
-difference); it times the products of those two kernels alone through
-``torch.matmul`` in bf16 at B = 64 as their yardstick (``library_ms``, the
-port never calls it), and prints their achieved TFLOP/s.
+Phase 3 runs each kernel redesigned for Hopper on the wgmma core (the
+whole Swin block at every stage and shift, the three patch merges, the
+fused frontend) twice on the same inputs, at B = 4 and at B = 64, and fails
+unless the outputs are bitwise equal (their GEMM core has no atomics, so a
+race in its TMA ring shows as a difference); it times the products of
+those kernels alone through ``torch.matmul`` in bf16 at B = 64 as their
+yardstick (``library_ms``, the port never calls it), and prints their
+achieved TFLOP/s.  The k-NN radii kernel is timed at N = 2048 over many
+iterations.
 Phase 3 also holds the split block's kernels (v3 attention half at every
 stage, the fused MLP at the row counts of stages 0-3, the v1 attention
 half at stages 0 and 1), the opt-in ops (the v2 attention half at every
@@ -138,7 +140,10 @@ E2E_TOL = {"1-cos": 1e-5, "max_abs": 3e-3, "fad": 1e-3, "kernel_distance_mean": 
 CONFIG_TOL = {"split": (5e-5, 5e-3), "attn_v1": (5e-5, 5e-3), "mel_v1": (2e-6, 1e-3)}
 # the kernels redesigned on the wgmma GEMM core (gemm_sm90.cuh): each must
 # repeat bitwise on the same inputs
-REDESIGNED = ("swin_block", "clap_frontend")
+REDESIGNED = ("swin_block", "patch_merge", "clap_frontend")
+# launches timed per reading (10 elsewhere): kernels of ~0.1 ms or less
+# moved by 20-40% between runs at 10
+TIMING_ITERS = {"patch_merge": 200, "knn_radii": 200}
 
 
 def log(msg: str) -> None:
@@ -241,6 +246,22 @@ def prdc_values(stats, ref_radii, k):
                 recall=float(np.mean(ra.astype(np.float64))),
                 density=float(np.mean(cc.astype(np.float64))) / k,
                 coverage=float(np.mean((rm < rr).astype(np.float64))))
+
+
+def check_radii(what, got, want, result=None):
+    """The kernel's k-NN radii against the plain version's: none outside
+    RADII_TOL."""
+    torch.cuda.synchronize()
+    err = (got - want).abs()
+    out = int((err > RADII_TOL[1] + RADII_TOL[0] * want.abs()).sum())
+    if result is not None:
+        result["max_abs_err"] = max(result["max_abs_err"], err.max().item())
+    log(f"  knn_radii {what}: radii {want.min().item():.4g}..{want.max().item():.4g}, max abs "
+        f"err {err.max().item():.4g}, max rel err {(err / want).max().item():.4g}, bitwise "
+        f"equal {int((got == want).sum())} of {len(want)}; outside rtol {RADII_TOL[0]} atol "
+        f"{RADII_TOL[1]}: {out} {'ok' if not out else 'FAIL'}")
+    if out:
+        raise AssertionError(f"knn_radii {what}: the kernel disagrees with its plain version")
 
 
 def check_params(cfg):
@@ -361,8 +382,9 @@ def phase_kernels(cfg, params, results):
                     raise AssertionError(f"{name} {shape_key} differs between two runs on the "
                                          f"same inputs")
         for b in (CHECK_B, BATCH):
-            ms, pms = cuda_ms(kfn if b == CHECK_B else counts[0]), cuda_ms(
-                pfn if b == CHECK_B else counts[1], iters=3)
+            ms = cuda_ms(kfn if b == CHECK_B else counts[0], TIMING_ITERS.get(name, 10),
+                         warmup=10 if name in TIMING_ITERS else 2)
+            pms = cuda_ms(pfn if b == CHECK_B else counts[1], iters=3)
             times[name]["ms"].setdefault(b, 0.0)
             times[name]["plain_ms"].setdefault(b, 0.0)
             times[name]["ms"][b] += ms * counts[2]
@@ -504,6 +526,7 @@ def phase_kernels(cfg, params, results):
     log("  yardstick, the products alone through torch.matmul in bf16 at B="
         f"{BATCH}: " + ", ".join(f"{k} {v:.4f} ms" for k, v in alone.items()))
     results["swin_block"]["library_ms"] = alone["Swin blocks (18 x qkv, proj, fc1, fc2)"]
+    results["patch_merge"]["library_ms"] = alone["patch merges (3 x (M, 4C) @ (4C, 2C))"]
     results["clap_frontend"]["library_ms"] = alone["frontend DFT"]
     for name in REDESIGNED:
         r, ops = results[name], bounds[name][2]
@@ -513,11 +536,12 @@ def phase_kernels(cfg, params, results):
 
 
 def products_alone_ms(cfg, b) -> dict:
-    """The yardstick of #1 and #3, which the port never calls: their
+    """The yardstick of #1, #2 and #3, which the port never calls: their
     products alone, one ``torch.matmul`` each in bf16 on random operands of
     the main path's shapes at batch ``b``: per forward, the qkv, proj, fc1
-    and fc2 products of the 18 Swin blocks, and the frontend's DFT (every
-    clip's frame rows x the basis), interp and patch products."""
+    and fc2 products of the 18 Swin blocks, the three patch merges' (M, 4C)
+    x (4C, 2C) products on the quadrant concat, and the frontend's DFT
+    (every clip's frame rows x the basis), interp and patch products."""
     from audio_metrics_tpu_torch.ops.frontend_fused import FRAME, HOP, _plan
 
     gen = torch.Generator(device="cuda").manual_seed(8)
@@ -533,6 +557,10 @@ def products_alone_ms(cfg, b) -> dict:
         wqkv, wp, w1, w2 = randn(c, 3 * c), randn(c, c), randn(c, 4 * c), randn(4 * c, c)
         out["Swin blocks (18 x qkv, proj, fc1, fc2)"] += depth * cuda_ms(
             lambda: (x @ wqkv, x @ wp, x @ w1, h @ w2))
+        if stage < len(cfg.depths) - 1:
+            key = "patch merges (3 x (M, 4C) @ (4C, 2C))"
+            cat, wg = randn(m // 4, 4 * c), randn(4 * c, 2 * c)
+            out[key] = out.get(key, 0.0) + cuda_ms(lambda: cat @ wg)
         res //= 2
     n_mels, ps = cfg.num_mel_bins, cfg.patch_size
     pln = _plan(CLIP_S * SR, SR, FRAME, HOP, n_mels, cfg.spec_size, ps)
@@ -554,7 +582,7 @@ def phase_prdc_kernels(results):
         pairwise_stats,
         pairwise_stats_plain,
     )
-    from audio_metrics_tpu_torch.testing import stats_mismatches
+    from audio_metrics_tpu_torch.testing import near_duplicate_rows, stats_mismatches
 
     gen = torch.Generator(device="cuda").manual_seed(4)
     k, d = 10, 512
@@ -568,16 +596,8 @@ def phase_prdc_kernels(results):
     for n, m in ((2048, 2048), (10000, 12345)):
         ref, cand = sets(n, m)
         rr_p, cr_p = knn_radii_plain(ref, k), knn_radii_plain(cand, k)
-        for got, want in ((knn_radii(ref, k), rr_p), (knn_radii(cand, k), cr_p)):
-            torch.cuda.synchronize()
-            err = (got - want).abs()
-            out = int((err > RADII_TOL[1] + RADII_TOL[0] * want.abs()).sum())
-            knn["max_abs_err"] = max(knn["max_abs_err"], err.max().item())
-            log(f"  knn_radii ({len(want)}, {d}) k={k + 1}: max abs err {err.max().item():.4g}, "
-                f"max rel err {(err / want).max().item():.4g}, outside rtol {RADII_TOL[0]} "
-                f"atol {RADII_TOL[1]}: {out} {'ok' if not out else 'FAIL'}")
-            if out:
-                raise AssertionError("knn_radii kernel disagrees with its plain version")
+        for x, want in ((ref, rr_p), (cand, cr_p)):
+            check_radii(f"({len(want)}, {d}) k={k + 1}", knn_radii(x, k), want, knn)
         got = pairwise_stats(ref, cand, rr_p, cr_p)
         torch.cuda.synchronize()
         want = pairwise_stats_plain(ref, cand, rr_p, cr_p)
@@ -592,6 +612,19 @@ def phase_prdc_kernels(results):
         log(f"    kernel PRDC {prdc_values(got, rr_p, k)}")
         if n_bad or mn_out:
             raise AssertionError("prdc_stats kernel disagrees with its plain version")
+    # unit rows whose radii are small against their norms, where the formula
+    # cancels and a dot product rounded otherwise than the plain version's
+    # moves radii out of the bound: groups of 8 near-duplicates (k = 4
+    # radii ~0.3, closer ones ~0.1) and one tight cluster, like the main
+    # path's embeddings
+    for what, kn, x in (("in groups of 8 near-duplicates", 3, near_duplicate_rows(2048, d, 5)),
+                        ("in groups of 8 near-duplicates", 10, near_duplicate_rows(2048, d, 5)),
+                        ("in groups of 8 closer near-duplicates", 3,
+                         near_duplicate_rows(2048, d, 7, noise=3e-3)),
+                        ("in one cluster", 10, near_duplicate_rows(2048, d, 6, group=2048,
+                                                                  noise=3e-3))):
+        check_radii(f"(2048, {d}) unit rows {what}, k={kn + 1}", knn_radii(x, kn),
+                    knn_radii_plain(x, kn), knn)
     x = ref[:2048]
     r = knn_radii(x, k)
     same = prdc_values(pairwise_stats(x, x, r, r), r, k)
@@ -602,16 +635,16 @@ def phase_prdc_kernels(results):
     for n in (2048, 20480):
         ref, cand = sets(n, n)
         rr, cr = knn_radii_plain(ref, k), knn_radii_plain(cand, k)
-        it = 10 if n == 2048 else 3
-        t = {"knn_radii": (cuda_ms(lambda: knn_radii(ref, k), it),
-                           cuda_ms(lambda: knn_radii_plain(ref, k), it)),
+        it, kit = (10, TIMING_ITERS["knn_radii"]) if n == 2048 else (3, 10)
+        t = {"knn_radii": (cuda_ms(lambda: knn_radii(ref, k), kit, warmup=10),
+                           cuda_ms(lambda: knn_radii_plain(ref, k), kit, warmup=10)),
              "prdc_stats": (cuda_ms(lambda: pairwise_stats(ref, cand, rr, cr), it),
                             cuda_ms(lambda: pairwise_stats_plain(ref, cand, rr, cr), it))}
         b = {"knn_radii": bound({"f32": 2 * n * n * d}, n * d * 4 + n * 4 * 2),
              "prdc_stats": bound({"f32": 2 * n * n * d}, 2 * n * d * 4 + 2 * n * 4 + 2 * n * 5)}
         for name, (ms, pms) in t.items():
             log(f"  {name} at ({n}, {n}) x {d}: kernel {ms:.4f} ms, plain {pms:.4f} ms, "
-                f"bound {b[name][0]:.4f} ms ({b[name][1]})")
+                f"bound {b[name][0]:.4f} ms ({b[name][1]}, f32 CUDA cores)")
             if n == 2048:  # bench.py's size, the main path's
                 results[name].update(ms=ms, plain_ms=pms, bound_ms=b[name][0],
                                      bound_by=b[name][1])
@@ -841,12 +874,7 @@ def phase_e2e(card: str):
     rr_k, cr_k = am.stem_reference.radii[f"radii_{k}"], knn_radii(cand_e, k)
     rr_p, cr_p = knn_radii_plain(ref_e, k), knn_radii_plain(cand_e, k)
     for name, got, want in (("reference", rr_k, rr_p), ("candidate", cr_k, cr_p)):
-        err = (got - want).abs()
-        out = int((err > RADII_TOL[1] + RADII_TOL[0] * want.abs()).sum())
-        log(f"  {name} radii kernel vs plain: max abs err {err.max().item():.4g}, outside "
-            f"rtol {RADII_TOL[0]} atol {RADII_TOL[1]}: {out}")
-        if out:
-            raise AssertionError("main-path radii disagree with the plain version")
+        check_radii(f"of the main path's {name} embeddings", got, want)
     st_k = pairwise_stats(ref_e, cand_e, rr_k, cr_k)
     st_p = pairwise_stats_plain(ref_e, cand_e, rr_p, cr_p)
     n_diff, n_bad = stats_mismatches(ref_e, cand_e, st_k, st_p, (rr_k, cr_k), (rr_p, cr_p),

@@ -15,9 +15,9 @@ merge), max abs error at most ``MAX_ABS``.  The weights put every matrix
 at std 1/sqrt(fan_in), so both halves of a block move its output by O(1)
 and a wrong roll, window map or mask cannot hide under the residual.
 
-The kernels redesigned on the wgmma GEMM core (the whole block and the
-frontend) are also held at the main path's batch of 64 and at a ragged
-batch of 3, and must repeat bitwise on the same inputs.
+The kernels redesigned on the wgmma GEMM core (the whole block, the patch
+merge and the frontend) are also held at the main path's batch of 64 and
+at a ragged batch of 3, and must repeat bitwise on the same inputs.
 
 The PRDC kernels (f32): radii rtol 1e-4, atol 1e-5 against the plain
 version (the JAX suite's kernel-vs-XLA bound); the booleans and counts
@@ -68,13 +68,17 @@ from audio_metrics_tpu_torch.ops.mel import (
     log_mel_v1_plain,
     mel_filter_bank,
 )
+from audio_metrics_tpu_torch.ops.merge import merge_weight_t, patch_merge
 from audio_metrics_tpu_torch.ops.mlp import (
     mlp_block,
     mlp_block_int8,
     mlp_block_int8_plain,
     mlp_block_plain,
 )
-from audio_metrics_tpu_torch.testing import stats_mismatches
+from audio_metrics_tpu_torch.testing import (
+    near_duplicate_rows,
+    stats_mismatches,
+)
 
 cfg = HTSAT_BASE
 pytestmark = pytest.mark.cuda
@@ -224,6 +228,41 @@ def test_patch_merge_kernel_matches_plain(cuda, params, stage):
     _close(got, want, want, *MERGE_TOL)
 
 
+@pytest.mark.parametrize("b", [64, 3])
+@pytest.mark.parametrize("stage", [0, 1, 2])
+def test_patch_merge_sm90_core(cuda, params, stage, b):
+    """The merge's product on the wgmma core, A through its 4-D tensor map,
+    at the main path's batch (M = 65536, 16384, 4096 rows) and at a ragged
+    B = 3 (at merge 2, 192 rows: a tile and a half), against the plain
+    version; a second run on the same inputs is bitwise equal."""
+    res = cfg.grid_size // 2**stage
+    c = cfg.embed_dim * 2**stage
+    merge = PatchMerge(
+        params, f"audio_encoder.layers.{stage}.downsample", cfg, res, torch.bfloat16
+    ).to(cuda)
+    x = _x(cuda, 120 + stage + b, (b, res * res, c))
+    before = KERNELS["patch_merge"].launches
+    got = merge(x)
+    again = merge(x)
+    torch.cuda.synchronize()
+    assert KERNELS["patch_merge"].launches == before + 2
+    assert torch.equal(got, again)
+    want = merge(x, plain=True)
+    _close(got, want, want, *MERGE_TOL)
+
+
+def test_patch_merge_needs_the_k_major_weight(cuda, params):
+    merge = PatchMerge(params, "audio_encoder.layers.2.downsample", cfg, 16,
+                       torch.bfloat16).to(cuda)
+    x = _x(cuda, 130, (1, 256, 512))
+    args = (x, merge.wg, merge.svec, merge.tvec)
+    with pytest.raises(ValueError):
+        patch_merge(*args, h=16, w=16, eps=merge.eps)
+    got = patch_merge(*args, h=16, w=16, eps=merge.eps, wg_t=merge_weight_t(merge.wg))
+    torch.cuda.synchronize()
+    assert torch.equal(got, merge(x))
+
+
 def test_frontend_kernel_matches_plain(cuda, params):
     """Bound of tests/test_frontend_fused.py:139-143 (kernel vs unfused
     chain, mean < 0.01, max < 0.12), and the relative bound of
@@ -264,6 +303,49 @@ def test_knn_radii_kernel_matches_plain(cuda, n, k):
     torch.cuda.synchronize()
     assert KERNELS["knn_radii"].launches == before + 1
     torch.testing.assert_close(got, knn_radii_plain(x, k), rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("n", [2048, 1237, 300, 20480])
+@pytest.mark.parametrize("k", [4, 11, 128])
+def test_knn_radii_split_kernel(cuda, n, k):
+    """The column-split kernel at list lengths k = nearest_k + 1 of
+    4, 11 (the main path's) and 128 (the widest), with every fifth row
+    duplicated (two rows at distance ~0: the k-th is still a genuine
+    neighbour); at N = 20480 four splits of 40 tiles."""
+    x, _ = _embeddings(cuda, n, 1, 512, seed=n + k)
+    x[1::5] = x[0::5][: x[1::5].shape[0]]
+    before = KERNELS["knn_radii"].launches
+    got = knn_radii(x, k - 1)
+    torch.cuda.synchronize()
+    assert KERNELS["knn_radii"].launches == before + 1
+    torch.testing.assert_close(got, knn_radii_plain(x, k - 1), rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("group,noise,k", [(8, 1e-2, 4), (8, 1e-2, 11), (8, 3e-3, 4),
+                                           (2048, 3e-3, 11)])
+def test_knn_radii_split_kernel_small_radii(cuda, group, noise, k):
+    """Unit rows in groups of 8 near-duplicates (at k = 4 the radius is a
+    near-duplicate's, ~0.3 at noise 1e-2, ~0.1 at noise 3e-3) and in one
+    tight cluster (radii ~0.09, like the main path's embeddings): there
+    |a|^2 + |b|^2 - 2 a.b cancels, and a dot product rounded otherwise than
+    the plain version's moves radii out of the bound."""
+    x = near_duplicate_rows(2048, 512, seed=5, group=group, noise=noise)
+    torch.testing.assert_close(knn_radii(x, k - 1), knn_radii_plain(x, k - 1), rtol=1e-4,
+                               atol=1e-5)
+
+
+def test_launch_on_the_operands_card(cuda):
+    """Operands on cuda:0 while another card is current: the kernel runs on
+    cuda:0, on its stream, and agrees with the plain version."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards: a launch on the operands' card while another is "
+                    "current (tests/test_torch_faults.py pins the guard on the CPU)")
+    x, _ = _embeddings(torch.device("cuda", 0), 1237, 1, 512, seed=7)
+    with torch.cuda.device(1):
+        got = knn_radii(x, 10)
+    torch.cuda.synchronize(0)
+    assert got.device == torch.device("cuda", 0)
+    torch.testing.assert_close(got, knn_radii_plain(x, 10), rtol=1e-4, atol=1e-5)
 
 
 @pytest.mark.parametrize("n,m", [(2048, 2048), (1000, 1237)])

@@ -138,3 +138,32 @@ def test_load_state_raises_on_unported_entries(setup, tmp_path):
     jam.save_state(f)
     with pytest.raises(NotImplementedError, match="APA"):
         setup["port_am"]().load_state(f)
+
+
+def test_jax_state_with_stale_radii_loads_into_the_port(setup, tmp_path):
+    """A valid JAX file whose radii are older than its reference: the JAX
+    ``__iadd__`` keeps the radii of the first ``add_reference`` through the
+    second (its data.py:513-528).  The port drops them on load, and its
+    PRDC recomputes them: the values of a port reference built from the
+    same embeddings."""
+    jam = setup["jax_am"]()
+    jam.add_reference(jnp.asarray(_clips(0, 12)))
+    jam.evaluate(jnp.asarray(setup["cand"]))
+    jam.add_reference(jnp.asarray(_clips(2, 4)))
+    assert len(jam.stem_reference.radii["radii_10"]) == 12
+    assert jam.stem_reference.n == 16
+    f = tmp_path / "stale_radii.npz"
+    jam.save_state(f)
+
+    am = setup["port_am"]()
+    am.load_state(f)
+    assert am.stem_reference.radii == {}
+    got = am.evaluate(setup["cand"])
+    assert am.stem_reference.radii["radii_10"].shape == (16,)
+
+    fresh = setup["port_am"]()
+    fresh.stem_reference.add_embeddings(am.stem_reference.embeddings.clone())
+    fresh.stem_reference.recompute_stats()
+    want = fresh.evaluate(setup["cand"])
+    for k in KEYS[3:]:
+        assert got[k] == want[k], k
