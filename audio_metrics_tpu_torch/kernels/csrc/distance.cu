@@ -22,7 +22,7 @@
 // topk):
 //   - the columns are split across blocks: block (row tile, split) takes 128
 //     query rows against the 128-column tiles of its split (ops/distance.py
-//     knn_splits: about four blocks per SM), so N = 2048 gives 256 blocks;
+//     column_splits: about four blocks per SM), so N = 2048 gives 256 blocks;
 //   - the dot products are f32 FMAs on the CUDA cores, each summed in depth
 //     order from 0, as the plain version's f32 product (cuBLAS) sums it, on
 //     the squared norms it uses: on unit embeddings in a tight cluster
@@ -44,14 +44,21 @@
 //     whatever the tie order.  Each block writes its rows' lists;
 //     knn_merge_kernel takes the k-th smallest of a row's lists of all
 //     splits the same way, and its sqrt.
-// stats: ONE sweep over (reference tile x candidate tile) blocks gives all
-// four reductions (the TPU needed two one-sided sweeps because its grid
-// accumulates only along its fastest axis), with a shared-memory tiled SIMT
-// product (BK = 16 columns of d per step, each thread a small register tile
-// of outputs).  Each block reduces its tile in shared memory, then makes one
-// global atomic per row or column: atomicOr for the two anys, atomicAdd for
-// the int32 count, atomicMin on the bits of the non-negative float min.
-// All four are order independent, so the result is deterministic.
+// stats (redesigned for Hopper on knn's product loop; the first design, 64 x
+// 64 SIMT tiles over 16-deep scalar slabs without cp.async, read 0.2551 ms
+// at N = M = 2048, d = 512 on an H100, and at 20480 no faster than its
+// plain version):
+// ONE sweep gives all four reductions (the TPU needed two one-sided sweeps
+// because its grid accumulates only along its fastest axis).  Blocks
+// (reference row tile, candidate column split), sized as knn's
+// (ops/distance.py column_splits: N = M = 2048 gives 256 blocks, one
+// 128 x 128 tile each); each tile's products are knn's tile_products, so
+// every distance rounds as the kNN radii's and the plain version's do.  The
+// distances go through shared memory; a thread per column and a thread per
+// row reduce them, and each block makes one global atomic per row or per
+// column of a tile: atomicOr for the two anys, atomicAdd for the int32
+// count, atomicMin on the bits of the non-negative float min.  All four are
+// order independent, so the result is deterministic.
 // Both: the ragged edge is masked by index (no +inf padding rows); a
 // radius below 0 matches nothing; d < r is compared after the sqrt,
 // strictly, as the TPU kernel does (comparing d^2 < r^2 flips near-ties);
@@ -62,36 +69,19 @@
 
 namespace {
 
-constexpr int BK = 16;          // stats: depth step of the dot-product tile
 constexpr int THREADS = 256;
 constexpr int KMAX = 128;       // widest k-smallest list (the TPU scratch's width)
 
-// stats: 64 reference rows x 64 candidate columns per block; thread
-// (ty, tx) owns rows ty + 16*i and columns tx + 16*j (i, j < 4).
-constexpr int BM_ST = 64, BN_ST = 64;
-
-// knn: 128 query rows x 128 columns per tile, depth steps of 32 floats;
+// knn and stats: 128 query rows x 128 columns per tile, depth steps of 32 floats;
 // thread (ty, tx) of a 16 x 16 grid computes rows ty + 16 i and columns
 // tx + 16 j (i, j < TM = 8).  Shared memory: two stages of the A and B
-// tiles (rows padded to 36 floats), reused for the 128 x 129 distance tile,
-// then the (128, k) lists.
+// tiles (rows padded to 36 floats), reused for the 128 x 129 distance tile;
+// then knn's (128, k) lists, or stats' radii of the tile's rows and columns.
 constexpr int KNN_BM = 128, KNN_BN = 128, KNN_BK = 32, PITCH = KNN_BK + 4, TM = 8;
 constexpr int STAGE_FLOATS = (KNN_BM + KNN_BN) * PITCH, DPITCH = KNN_BN + 1;
 constexpr int TILE_FLOATS = 2 * STAGE_FLOATS;
 static_assert(KNN_BM * DPITCH <= TILE_FLOATS, "the distance tile reuses the stages");
 constexpr int MERGE_WARPS = 8;
-
-// Load a (rows x BK) slab of row-major x (n rows of d) starting at
-// (row0, k0) into s[k][r] (transposed, pitch rows + 1), zero outside.
-template <int ROWS>
-__device__ __forceinline__ void load_slab(const float* __restrict__ x, int n, int d, int row0,
-                                          int k0, float (*s)[ROWS + 1]) {
-  for (int i = threadIdx.x; i < ROWS * BK; i += THREADS) {
-    const int r = i / BK, k = i - r * BK;
-    const int row = row0 + r, col = k0 + k;
-    s[k][r] = (row < n && col < d) ? x[(size_t)row * d + col] : 0.f;
-  }
-}
 
 // f32 squared distance exactly as the TPU kernel's formula orders it:
 // (|a|^2 + |b|^2) - 2 a.b, clamped at 0, no fused multiply-add.
@@ -107,14 +97,79 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src, bool va
                : "memory");
 }
 
-// One stage: rows row0.. (A) and col0.. (B) of x, depth k0..k0+31 (d % 4 == 0).
-__device__ __forceinline__ void load_stage(float* st, const float* __restrict__ x, int n, int d,
-                                           int row0, int col0, int k0) {
+// One stage: rows row0.. of a (na rows; the tile's A) and col0.. of b (nb
+// rows; its B), depth k0..k0+31 (d % 4 == 0), zero outside.
+__device__ __forceinline__ void load_stage(float* st, const float* __restrict__ a, int na,
+                                           const float* __restrict__ b, int nb, int d, int row0,
+                                           int col0, int k0) {
   for (int i = threadIdx.x; i < (KNN_BM + KNN_BN) * (KNN_BK / 4); i += THREADS) {
-    const int r = i / (KNN_BK / 4), kc = (i % (KNN_BK / 4)) * 4;
-    const int row = r < KNN_BM ? row0 + r : col0 + r - KNN_BM, k = k0 + kc;
-    const bool ok = row < n && k < d;
+    const int r = i / (KNN_BK / 4), kc = (i % (KNN_BK / 4)) * 4, k = k0 + kc;
+    const bool is_a = r < KNN_BM;
+    const int row = is_a ? row0 + r : col0 + r - KNN_BM;
+    const float* x = is_a ? a : b;
+    const bool ok = row < (is_a ? na : nb) && k < d;
     cp_async16(st + r * PITCH + kc, ok ? x + (size_t)row * d + k : x, ok);
+  }
+}
+
+// The dot products of a 128 x 128 tile: rows row0.. of a against rows
+// col0.. of b, each an f32 FMA chain in depth order from 0 (the order of
+// the plain version's f32 product); acc[i][j] is row ty + 16 i, column
+// tx + 16 j of the tile (ty = tid / 16, tx = tid % 16).  `tiles` holds two
+// cp.async stages; free again when this returns.
+__device__ __forceinline__ void tile_products(const float* __restrict__ a, int na,
+                                              const float* __restrict__ b, int nb, int d,
+                                              int row0, int col0, float* tiles,
+                                              float (&acc)[TM][TM]) {
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int ksteps = (d + KNN_BK - 1) / KNN_BK;
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TM; ++j) acc[i][j] = 0.f;
+  load_stage(tiles, a, na, b, nb, d, row0, col0, 0);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  for (int ks = 0; ks < ksteps; ++ks) {
+    if (ks + 1 < ksteps) {
+      load_stage(tiles + ((ks + 1) & 1) * STAGE_FLOATS, a, na, b, nb, d, row0, col0,
+                 (ks + 1) * KNN_BK);
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
+      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    } else {
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    }
+    __syncthreads();
+    const float* sA = tiles + (ks & 1) * STAGE_FLOATS + ty * PITCH;
+    const float* sB = tiles + (ks & 1) * STAGE_FLOATS + (KNN_BM + tx) * PITCH;
+#pragma unroll
+    for (int kk = 0; kk < KNN_BK; kk += 4) {
+      // four depths of each row and column, 16-byte reads (a warp's 16
+      // columns 36 floats apart cover the 32 banks twice: no conflict
+      // beyond the two wavefronts 256 bytes need), the columns in two
+      // halves so that 64 sums, 4 + 1 float4 and the addresses fit in
+      // the 128 registers two blocks per SM leave; each product is
+      // summed in depth order, as the plain version's f32 product sums it
+#pragma unroll
+      for (int jh = 0; jh < TM; jh += TM / 2) {
+        float4 bv[TM / 2];
+#pragma unroll
+        for (int j = 0; j < TM / 2; ++j)
+          bv[j] = *reinterpret_cast<const float4*>(sB + 16 * (jh + j) * PITCH + kk);
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+          const float4 av = *reinterpret_cast<const float4*>(sA + 16 * i * PITCH + kk);
+#pragma unroll
+          for (int j = 0; j < TM / 2; ++j) {
+            float& c = acc[i][jh + j];
+            c = fmaf(av.x, bv[j].x, c);
+            c = fmaf(av.y, bv[j].y, c);
+            c = fmaf(av.z, bv[j].z, c);
+            c = fmaf(av.w, bv[j].w, c);
+          }
+        }
+      }
+    }
+    __syncthreads();
   }
 }
 
@@ -160,57 +215,10 @@ knn_split_kernel(const float* __restrict__ x, const float* __restrict__ sq, int 
   const int row0 = blockIdx.x * KNN_BM, split = blockIdx.y;
   const int c_begin = split * split_cols, c_end = min(n, c_begin + split_cols);
   for (int i = tid; i < KNN_BM * (k + 1); i += THREADS) kth[i] = CUDART_INF_F;
-  const int ksteps = (d + KNN_BK - 1) / KNN_BK;
 
   for (int col0 = c_begin; col0 < c_end; col0 += KNN_BN) {
     float acc[TM][TM];
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TM; ++j) acc[i][j] = 0.f;
-    load_stage(tiles, x, n, d, row0, col0, 0);
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-    for (int ks = 0; ks < ksteps; ++ks) {
-      if (ks + 1 < ksteps) {
-        load_stage(tiles + ((ks + 1) & 1) * STAGE_FLOATS, x, n, d, row0, col0, (ks + 1) * KNN_BK);
-        asm volatile("cp.async.commit_group;\n" ::: "memory");
-        asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-      } else {
-        asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-      }
-      __syncthreads();
-      const float* sA = tiles + (ks & 1) * STAGE_FLOATS + ty * PITCH;
-      const float* sB = tiles + (ks & 1) * STAGE_FLOATS + (KNN_BM + tx) * PITCH;
-#pragma unroll
-      for (int kk = 0; kk < KNN_BK; kk += 4) {
-        // four depths of each row and column, 16-byte reads (a warp's 16
-        // columns 36 floats apart cover the 32 banks twice: no conflict
-        // beyond the two wavefronts 256 bytes need), the columns in two
-        // halves so that 64 sums, 4 + 1 float4 and the addresses fit in
-        // the 128 registers two blocks per SM leave; each product is
-        // summed in depth order, as the plain version's f32 product sums it
-#pragma unroll
-        for (int jh = 0; jh < TM; jh += TM / 2) {
-          float4 b[TM / 2];
-#pragma unroll
-          for (int j = 0; j < TM / 2; ++j)
-            b[j] = *reinterpret_cast<const float4*>(sB + 16 * (jh + j) * PITCH + kk);
-#pragma unroll
-          for (int i = 0; i < TM; ++i) {
-            const float4 a = *reinterpret_cast<const float4*>(sA + 16 * i * PITCH + kk);
-#pragma unroll
-            for (int j = 0; j < TM / 2; ++j) {
-              float& c = acc[i][jh + j];
-              c = fmaf(a.x, b[j].x, c);
-              c = fmaf(a.y, b[j].y, c);
-              c = fmaf(a.z, b[j].z, c);
-              c = fmaf(a.w, b[j].w, c);
-            }
-          }
-        }
-      }
-      __syncthreads();
-    }
+    tile_products(x, n, x, n, d, row0, col0, tiles, acc);
 
     // distances -> the tile; columns past the split are +inf
     float* D = tiles;
@@ -310,95 +318,75 @@ knn_merge_kernel(const float* __restrict__ lists, int n, int splits, int k,
   if (lane == 0) out[r] = sqrtf(__uint_as_float(lo[0]));
 }
 
-__global__ void __launch_bounds__(THREADS)
-stats_kernel(const float* __restrict__ ref, const float* __restrict__ sq_r,
-             const float* __restrict__ rr, int n_ref, const float* __restrict__ cand,
-             const float* __restrict__ sq_c, const float* __restrict__ cr, int n_cand, int d,
-             int* __restrict__ cand_any, int* __restrict__ cand_count,
-             int* __restrict__ ref_any, float* __restrict__ ref_min) {
-  __shared__ float As[BK][BM_ST + 1];
-  __shared__ float Bs[BK][BN_ST + 1];
-  __shared__ int s_cany[BN_ST], s_ccount[BN_ST], s_rany[BM_ST], s_rmin[BM_ST];
+// Block (row tile, split): the four reductions over reference rows row0..
+// +127 against the candidate columns [split * split_cols, +split_cols).
+// Each 128 x 128 tile's products come from tile_products; its distances
+// d = sqrt(max((|a|^2 + |b|^2) - 2 a.b, 0)) go through shared memory (+inf
+// outside the reference rows and the split's columns, which matches
+// nothing and is no minimum).  Then threads 0-127 each take a column of
+// the tile: any and count of d < ref_r over its 128 rows, one atomicOr and
+// one atomicAdd on the column; threads 128-255 each a row: any of d <
+// cand_r and min d over the tile's columns, carried across the split's
+// tiles in registers, one atomicOr and one atomicMin (on the bits of the
+// non-negative float) on the row at the end.
+__global__ void __launch_bounds__(THREADS, 2)
+stats_split_kernel(const float* __restrict__ ref, const float* __restrict__ sq_r,
+                   const float* __restrict__ rr, int n_ref, const float* __restrict__ cand,
+                   const float* __restrict__ sq_c, const float* __restrict__ cr, int n_cand,
+                   int d, int split_cols, int* __restrict__ cand_any,
+                   int* __restrict__ cand_count, int* __restrict__ ref_any,
+                   float* __restrict__ ref_min) {
+  extern __shared__ float smem[];
+  float* tiles = smem;                  // two stages; then the distance tile
+  float* r_rad = smem + TILE_FLOATS;    // (KNN_BM,) the tile's reference radii
+  float* c_rad = r_rad + KNN_BM;        // (KNN_BN,) its candidate radii
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int row0 = blockIdx.x * KNN_BM, split = blockIdx.y;
+  const int c_begin = split * split_cols, c_end = min(n_cand, c_begin + split_cols);
+  if (tid < KNN_BM) r_rad[tid] = row0 + tid < n_ref ? rr[row0 + tid] : -1.f;
+  int any_r = 0;                        // threads 128-255: row tid - 128
+  float min_r = CUDART_INF_F;
 
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int row0 = blockIdx.y * BM_ST, col0 = blockIdx.x * BN_ST;
-  if (tid < BN_ST) { s_cany[tid] = 0; s_ccount[tid] = 0; }
-  if (tid < BM_ST) { s_rany[tid] = 0; s_rmin[tid] = __float_as_int(CUDART_INF_F); }
+  for (int col0 = c_begin; col0 < c_end; col0 += KNN_BN) {
+    if (tid < KNN_BN) c_rad[tid] = col0 + tid < c_end ? cr[col0 + tid] : -1.f;
+    float acc[TM][TM];
+    tile_products(ref, n_ref, cand, n_cand, d, row0, col0, tiles, acc);
 
-  float acc[4][4] = {};
-  for (int k0 = 0; k0 < d; k0 += BK) {
-    load_slab<BM_ST>(ref, n_ref, d, row0, k0, As);
-    load_slab<BN_ST>(cand, n_cand, d, col0, k0, Bs);
+    float* D = tiles;
+#pragma unroll
+    for (int j = 0; j < TM; ++j) {
+      const int col = tx + 16 * j, c = col0 + col;
+      const float sb = c < c_end ? sq_c[c] : 0.f;
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+        const int r = row0 + ty + 16 * i;
+        D[(ty + 16 * i) * DPITCH + col] =
+            c < c_end && r < n_ref ? sqrtf(sq_dist(sq_r[r], sb, acc[i][j])) : CUDART_INF_F;
+      }
+    }
     __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Bs[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    if (tid < KNN_BN) {  // column tid: candidate inside reference balls
+      int count = 0;
+      for (int i = 0; i < KNN_BM; ++i) count += D[i * DPITCH + tid] < r_rad[i];
+      const int c = col0 + tid;
+      if (c < c_end && count) {
+        atomicOr(cand_any + c, 1);
+        atomicAdd(cand_count + c, count);
+      }
+    } else {  // row tid - 128: reference inside candidate balls, nearest candidate
+      const float* row = D + (tid - KNN_BN) * DPITCH;
+      for (int j = 0; j < KNN_BN; ++j) {
+        any_r |= row[j] < c_rad[j];
+        min_r = fminf(min_r, row[j]);
+      }
     }
-    __syncthreads();
+    __syncthreads();  // the tile is the next tile's stage 0, c_rad its radii
   }
-
-  float r_rad[4], r_sq[4], c_rad[4], c_sq[4];
-  bool r_ok[4], c_ok[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = row0 + ty + 16 * i;
-    r_ok[i] = r < n_ref;
-    r_sq[i] = r_ok[i] ? sq_r[r] : 0.f;
-    r_rad[i] = r_ok[i] ? rr[r] : -1.f;
-  }
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int c = col0 + tx + 16 * j;
-    c_ok[j] = c < n_cand;
-    c_sq[j] = c_ok[j] ? sq_c[c] : 0.f;
-    c_rad[j] = c_ok[j] ? cr[c] : -1.f;
-  }
-  int c_any[4] = {}, c_cnt[4] = {}, r_any[4] = {};
-  float r_mn[4] = {CUDART_INF_F, CUDART_INF_F, CUDART_INF_F, CUDART_INF_F};
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      if (!(r_ok[i] && c_ok[j])) continue;
-      const float dist = sqrtf(sq_dist(r_sq[i], c_sq[j], acc[i][j]));
-      const int in_ref = dist < r_rad[i];   // candidate j inside reference i's ball
-      c_any[j] |= in_ref;
-      c_cnt[j] += in_ref;
-      r_any[i] |= dist < c_rad[j];          // reference i inside candidate j's ball
-      r_mn[i] = fminf(r_mn[i], dist);
-    }
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    if (c_any[j]) atomicOr(&s_cany[tx + 16 * j], 1);
-    if (c_cnt[j]) atomicAdd(&s_ccount[tx + 16 * j], c_cnt[j]);
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    if (r_any[i]) atomicOr(&s_rany[ty + 16 * i], 1);
-    if (r_ok[i]) atomicMin(&s_rmin[ty + 16 * i], __float_as_int(r_mn[i]));
-  }
-  __syncthreads();
-  if (tid < BN_ST) {
-    const int c = col0 + tid;
-    if (c < n_cand) {
-      if (s_cany[tid]) atomicOr(cand_any + c, 1);
-      if (s_ccount[tid]) atomicAdd(cand_count + c, s_ccount[tid]);
-    }
-  } else if (tid < BN_ST + BM_ST) {
-    const int t = tid - BN_ST, r = row0 + t;
-    if (r < n_ref) {
-      if (s_rany[t]) atomicOr(ref_any + r, 1);
-      // non-negative floats order as their int bits
-      atomicMin(reinterpret_cast<int*>(ref_min) + r, s_rmin[t]);
-    }
+  const int r = row0 + tid - KNN_BN;
+  if (tid >= KNN_BN && r < n_ref) {
+    if (any_r) atomicOr(ref_any + r, 1);
+    // non-negative floats order as their int bits
+    atomicMin(reinterpret_cast<int*>(ref_min) + r, __float_as_int(min_r));
   }
 }
 
@@ -407,7 +395,7 @@ stats_kernel(const float* __restrict__ ref, const float* __restrict__ sq_r,
 // x: (n, d) f32, d % 4 == 0; sq: (n,) f32 squared row norms; lists:
 // (n, splits, k) f32 scratch; out: (n,) f32 radii = sqrt of the k-th
 // smallest squared distance of each row (self included).  split_cols: a
-// multiple of 128, splits * split_cols >= n (ops/distance.py knn_splits).
+// multiple of 128, splits * split_cols >= n (ops/distance.py column_splits).
 extern "C" int am_knn_radii(const float* x, const float* sq, int n, int d, int k, int splits,
                             int split_cols, float* lists, float* out, cudaStream_t stream) {
   if (k < 1 || k > KMAX || k > n || d % 4 || split_cols % KNN_BN ||
@@ -427,15 +415,22 @@ extern "C" int am_knn_radii(const float* x, const float* sq, int n, int d, int k
   return (int)cudaGetLastError();
 }
 
-// ref: (n_ref, d), cand: (n_cand, d) f32 with squared norms and radii.
-// Outputs, initialised by the caller: cand_any, cand_count, ref_any to 0,
-// ref_min to +inf.
+// ref: (n_ref, d), cand: (n_cand, d) f32 (d % 4 == 0) with squared norms and
+// radii.  split_cols: a multiple of 128, splits * split_cols >= n_cand
+// (ops/distance.py column_splits).  Outputs, initialised by the caller:
+// cand_any, cand_count, ref_any to 0, ref_min to +inf.
 extern "C" int am_prdc_stats(const float* ref, const float* sq_r, const float* rr, int n_ref,
                              const float* cand, const float* sq_c, const float* cr, int n_cand,
-                             int d, int* cand_any, int* cand_count, int* ref_any, float* ref_min,
-                             cudaStream_t stream) {
-  dim3 grid((n_cand + BN_ST - 1) / BN_ST, (n_ref + BM_ST - 1) / BM_ST);
-  stats_kernel<<<grid, THREADS, 0, stream>>>(ref, sq_r, rr, n_ref, cand, sq_c, cr, n_cand, d,
-                                             cand_any, cand_count, ref_any, ref_min);
+                             int d, int splits, int split_cols, int* cand_any, int* cand_count,
+                             int* ref_any, float* ref_min, cudaStream_t stream) {
+  if (d % 4 || split_cols % KNN_BN || (long long)splits * split_cols < n_cand)
+    return (int)cudaErrorInvalidValue;
+  const int smem = (TILE_FLOATS + KNN_BM + KNN_BN) * (int)sizeof(float);
+  cudaError_t e = cudaFuncSetAttribute(stats_split_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  stats_split_kernel<<<dim3((n_ref + KNN_BM - 1) / KNN_BM, splits), THREADS, smem, stream>>>(
+      ref, sq_r, rr, n_ref, cand, sq_c, cr, n_cand, d, split_cols, cand_any, cand_count,
+      ref_any, ref_min);
   return (int)cudaGetLastError();
 }

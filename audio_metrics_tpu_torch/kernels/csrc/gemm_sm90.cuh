@@ -1,7 +1,8 @@
 // Hopper GEMM core of the whole Swin block (#1, swin_block.cu), the patch
-// merge (#2, patch_merge.cu) and the fused frontend (#3, frontend.cu): bf16 x
-// bf16 -> f32 accumulate with wgmma, fed by TMA through a ring of
-// shared-memory stages.
+// merge (#2, patch_merge.cu), the fused frontend (#3, frontend.cu) and the
+// halo log-mel (#6, log_mel.cu, which runs the ring below, produce_tile and
+// consume_tile, under an epilogue of its own): bf16 x bf16 -> f32 accumulate
+// with wgmma, fed by TMA through a ring of shared-memory stages.
 //
 //   out[z] = epilogue(A[z] (M x K) @ B[z]^T),  B[z] held (N x K)
 //
@@ -316,6 +317,58 @@ __device__ __forceinline__ void epilogue8(const EpiParams& p, int z, int r, int 
   }
 }
 
+// The producer's K steps of one output tile (row tile mt, column tile nt,
+// batch z of A, bz of B): wait for a free stage, expect its bytes, load A's
+// box (through `load_a`) and B's box into it.  `stage` and `phase` run on
+// across tiles.
+template <int BN, class ALoad>
+__device__ __forceinline__ void produce_tile(const ALoad& load_a, const CUtensorMap* ta,
+                                             const CUtensorMap* tb, uint8_t* sA, uint8_t* sB,
+                                             uint64_t* full, uint64_t* empty, int ksteps,
+                                             int mt, int nt, int z, int bz, int& stage,
+                                             uint32_t& phase) {
+  using S = Smem<BN>;
+  for (int k = 0; k < ksteps; ++k) {
+    mbar_wait(&empty[stage], phase ^ 1);
+    mbar_expect_tx(&full[stage], S::A_BYTES + S::B_BYTES);
+    load_a(sA + stage * S::A_BYTES, ta, k, mt, z, &full[stage]);
+    tma_load_3d(sB + stage * S::B_BYTES, tb, k * BK, nt * BN, bz, &full[stage]);
+    if (++stage == STAGES) { stage = 0; phase ^= 1; }
+  }
+}
+
+// A consumer warpgroup's K steps of one output tile: wgmma of its 64 rows
+// (warpgroup wg of the stage's 128) against the BN columns into `acc`,
+// overwritten, one commit group per K step with one kept in flight; each
+// stage is released once its products are done.  On return every product
+// has landed in `acc` and every stage is released.
+template <int BN>
+__device__ __forceinline__ void consume_tile(float* acc, uint8_t* sA, uint8_t* sB,
+                                             uint64_t* full, uint64_t* empty, int wg,
+                                             int ksteps, int& stage, uint32_t& phase) {
+  using S = Smem<BN>;
+  int prev = 0;
+  for (int k = 0; k < ksteps; ++k) {
+    mbar_wait(&full[stage], phase);
+    const uint32_t a0 = smem_u32(sA + stage * S::A_BYTES + wg * 64 * 128);
+    const uint32_t b0 = smem_u32(sB + stage * S::B_BYTES);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      wgmma_bn<BN>(acc, smem_desc(a0 + kk * 32), smem_desc(b0 + kk * 32), k > 0 || kk > 0);
+    wgmma_commit();
+    if (k > 0) {  // the previous step's products are done: release its stage
+      wgmma_wait<1>();
+      mbar_arrive(&empty[prev]);
+    }
+    prev = stage;
+    if (++stage == STAGES) { stage = 0; phase ^= 1; }
+  }
+  wgmma_wait<0>();
+  fence_regs<BN / 2>(acc);
+  mbar_arrive(&empty[prev]);
+}
+
 // The producer's load of A's tile for K step k of row tile mt, batch z: by
 // default from a 3-D (k, row, batch) map.  Another loader has the same call.
 struct RowsA {
@@ -360,14 +413,8 @@ __global__ void __launch_bounds__(THREADS, 1)
     uint32_t phase = 0;
     for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
       const int nt = t % n_tiles, mt = (t / n_tiles) % m_tiles, z = t / (n_tiles * m_tiles);
-      for (int k = 0; k < ksteps; ++k) {
-        mbar_wait(&empty[stage], phase ^ 1);
-        mbar_expect_tx(&full[stage], S::A_BYTES + S::B_BYTES);
-        load_a(sA + stage * S::A_BYTES, &tma_a, k, mt, z, &full[stage]);
-        tma_load_3d(sB + stage * S::B_BYTES, &tma_b, k * BK, nt * BN, b_batched ? z : 0,
-                    &full[stage]);
-        if (++stage == STAGES) { stage = 0; phase ^= 1; }
-      }
+      produce_tile<BN>(load_a, &tma_a, &tma_b, sA, sB, full, empty, ksteps, mt, nt, z,
+                       b_batched ? z : 0, stage, phase);
     }
     return;
   }
@@ -378,29 +425,11 @@ __global__ void __launch_bounds__(THREADS, 1)
   for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
   float* cs = sC + wg * 64 * S::LDC;
   const int warp = tid / 32, lane = tid % 32;
-  int stage = 0, prev = 0;
+  int stage = 0;
   uint32_t phase = 0;
   for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
     const int nt = t % n_tiles, mt = (t / n_tiles) % m_tiles, z = t / (n_tiles * m_tiles);
-    for (int k = 0; k < ksteps; ++k) {
-      mbar_wait(&full[stage], phase);
-      const uint32_t a0 = smem_u32(sA + stage * S::A_BYTES + wg * 64 * 128);
-      const uint32_t b0 = smem_u32(sB + stage * S::B_BYTES);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk)
-        wgmma_bn<BN>(acc, smem_desc(a0 + kk * 32), smem_desc(b0 + kk * 32), k > 0 || kk > 0);
-      wgmma_commit();
-      if (k > 0) {  // the previous step's products are done: release its stage
-        wgmma_wait<1>();
-        mbar_arrive(&empty[prev]);
-      }
-      prev = stage;
-      if (++stage == STAGES) { stage = 0; phase ^= 1; }
-    }
-    wgmma_wait<0>();
-    fence_regs<BN / 2>(acc);
-    mbar_arrive(&empty[prev]);
+    consume_tile<BN>(acc, sA, sB, full, empty, wg, ksteps, stage, phase);
 
     // accumulators -> this warpgroup's staging rows (fragment layout of
     // wgmma m64nNk16: d[4j + 2i + e] is row 16*warp + lane/4 + 8i, column

@@ -1,28 +1,41 @@
-// Log-mel spectrogram: the halo kernel (frames read in place from hop rows)
-// and the v1 kernel (frames materialised in device memory).
+// Log-mel spectrogram: the halo kernel (frames read in place from hop rows,
+// on the wgmma core) and the v1 kernel (frames materialised in device
+// memory, on the WMMA core).
 //
 // Replaces the TPU kernel audio_metrics_tpu/ops/mel.py::log_mel_pallas_halo
 // (pallas_call at :554): bf16 frames x bf16 windowed-DFT basis cut to the
 // filterbank's support, f32 accumulation, power, f32 mel product, dB or
-// natural log, optional per-bin affine, f32 or bf16 out.  The wrapper does
-// what the JAX wrapper does outside its kernel (reflect pad, bf16 cast, hop
-// rows; mel.py:417-443).
+// natural log, optional per-bin affine, f32 or bf16 out, exactly n_frames
+// rows.
 //
-// What bounds it here: the DFT product, 2 * frames * K * 2*n_keep bf16
-// operations (CLAP 10 s: 1001 x 1024 x 768 per clip, ~1.6 GFLOP) against
-// 989 TFLOP/s on the tensor cores, and the mel product (n_keep x n_mels
-// per frame, ~49 MFLOP per 10 s clip) in f32 on the CUDA cores; the clip is
-// read once (~1 MB bf16).  The TPU kernel DMA'd each frame tile with its
-// halo of hop rows into VMEM; here the DFT GEMM (gemm.cuh, WMMA bf16) reads
-// its A rows in place from the bf16 hop-row signal with row stride = hop <
-// frame, so the overlapping frame matrix never exists in device memory,
-// the same A map as the fused CLAP frontend's DFT (frontend.cu).  The basis
-// has cos/sin columns interleaved so the epilogue forms re^2 + im^2 inside
-// one tile, and zero rows from the frame length up to K (a multiple of 32:
-// the VGGish frame of 400 reads 16 samples of the next hop against zeros).
-// The power rows pass through device memory (f32) to the mel/log/affine
-// kernel shared with the frontend (gemm.cuh::mel_log_kernel), which writes
-// exactly n_frames rows.
+// What bounds it here: the DFT product, 2 * frames * frame_length *
+// 2*n_keep bf16 operations (CLAP 10 s: 1001 x 1024 x 768 per clip, ~1.6
+// GFLOP) against 989 TFLOP/s on the tensor cores, then the mel product
+// (n_keep x n_mels per frame, ~49 MFLOP per 10 s clip) in f32 on the CUDA
+// cores; the clip is read once (1.9 MB f32) and the log-mel written once
+// (128 KB bf16).  The first design ran the DFT on gemm.cuh's WMMA core (~5%
+// of an H100's bf16 peak), wrote the (B, n_frames, n_keep) f32 powers to device
+// memory (98 MB at B = 64, 10 s) and read them back in gemm.cuh's
+// mel_log_kernel, after three PyTorch passes of prologue.  Now two launches:
+//   1. hop rows: one pass writes each clip's bf16 signal rows straight from
+//      the f32 clip (reflect pad when centered, the clip, zeros up to
+//      clip_stride), as frontend.cu's hop_rows_kernel does for #3;
+//   2. the DFT on the wgmma core's TMA ring (gemm_sm90.cuh produce_tile /
+//      consume_tile), A read in place through the 3-D (k, frame, clip)
+//      tensor map of #3's DFT: frame stride = hop (960 bytes for CLAP, 320
+//      for VGGish) below the frame, so the overlapping frames never exist in
+//      memory; K is the frame padded to the 64-element swizzle box, against
+//      zero basis columns (VGGish 400 -> 448).  B is the basis transposed
+//      (2*n_keep, K) with cos/sin rows interleaved.  A block owns a tile of
+//      128 frame rows and sweeps all 2*n_keep basis columns, 128 at a time:
+//      each N tile's accumulators become 64 powers re^2 + im^2 per row in
+//      registers (a thread holds both halves of its column pairs), staged
+//      in shared memory beside that tile's 64 filterbank rows (cp.async),
+//      and summed into a (rows x 64 mels) f32 accumulator held in registers
+//      across the N tiles, bins in ascending order.  After the last N tile
+//      the block writes log and affine in the output dtype.  Nothing but
+//      the hop rows and the output touches device memory.
+// gemm.cuh's mel_log_kernel stays for #3 and #7.
 //
 // The v1 kernel replaces audio_metrics_tpu/ops/mel.py::log_mel_pallas
 // (pallas_call at :360): the same function, with the overlapping frames
@@ -34,7 +47,7 @@
 // launches: a framing kernel (f32 signal -> bf16 frame rows, zero past the
 // signal and past the frame width), the DFT GEMM (EPI_POWER) over those rows
 // with row stride = frame pitch, and mel_log_kernel.
-#include "gemm.cuh"
+#include "gemm_sm90.cuh"
 
 namespace {
 
@@ -53,30 +66,259 @@ __global__ void frame_rows_kernel(const float* __restrict__ x, int n_sig, int ho
   }
 }
 
+
+// hops[b][j] = bf16(the padded signal's sample j) for j < clip_stride: x[half
+// - j] (left reflect pad), x[j - half], x[2n - 2 - (j - half)] (right
+// reflect pad), then zero; half = 0 for an uncentered signal.  Eight samples
+// a thread, one 16-byte store.
+__global__ void halo_rows_kernel(const float* __restrict__ audio, int n, int half,
+                                 int clip_stride, bf16* __restrict__ hops) {
+  const float* x = audio + (long long)blockIdx.y * n;
+  bf16* h = hops + (long long)blockIdx.y * clip_stride;
+  for (int j = 8 * (blockIdx.x * blockDim.x + threadIdx.x); j < clip_stride;
+       j += 8 * gridDim.x * blockDim.x) {
+    float v[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int s = j + e - half;
+      v[e] = s < 0 ? x[-s] : s < n ? x[s] : s < n + half ? x[2 * n - 2 - s] : 0.f;
+    }
+    sm90::store8(h + j, v);
+  }
+}
+
 }  // namespace
 
-// hops: (B, clip_stride) bf16, frame r of clip b = samples [r*hop, r*hop +
-// k_pad) of row b (zero past the signal).  basis: (k_pad, 2*n_keep) bf16,
-// cos/sin interleaved, zero rows past the frame length.  fb: (n_keep,
-// n_mels) f32.  sc/of: (n_mels) f32 or null.  Scratch: power (B, n_frames,
-// n_keep) f32.  out: (B, n_frames, n_mels), bf16 when out_bf16 else f32.
-extern "C" int am_log_mel(const bf16* hops, int clip_stride, int hop, int k_pad, int n_frames,
-                          const bf16* basis, int n_keep, float* power, const float* fb,
-                          const float* sc, const float* of, int n_mels, int log_mode,
-                          float log_offset, int out_bf16, void* out, int B,
+namespace {
+namespace sm90 {
+
+constexpr int MEL_BN = 128;           // basis columns per N tile: 64 (re, im) pairs
+constexpr int MEL_BINS = MEL_BN / 2;  // power bins per N tile
+constexpr int MEL_N = 64;             // mel bins (CLAP and VGGish)
+constexpr int LDP = MEL_BINS + 4;     // power staging pitch: conflict-free rows
+
+// What the fused epilogue reads and writes.
+struct MelEpi {
+  int n_frames, n_tiles;    // output rows per clip; N tiles of the basis
+  const float* fb;          // (n_keep, MEL_N) f32
+  const float* sc;          // per-bin affine, or null
+  const float* of;
+  int log_mode;
+  float log_offset;
+  void* out;                // (B, n_frames, MEL_N)
+};
+
+struct MelSmem {
+  using S = Smem<MEL_BN>;
+  static constexpr int P_FLOATS = 64 * LDP;              // a warpgroup's powers
+  static constexpr int F_FLOATS = MEL_BINS * MEL_N;      // a warpgroup's filterbank rows
+  static constexpr int BYTES = 1024 + STAGES * (S::A_BYTES + S::B_BYTES) +
+                               CONSUMERS * (P_FLOATS + F_FLOATS) * 4 + 2 * STAGES * 8;
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+
+// mel_log_kernel's log (gemm.cuh): LOG_DB 10*log10(max(m, 1e-10)), LOG_NATURAL
+// log(m + offset)
+__device__ __forceinline__ float log_of(float m, int mode, float offset) {
+  return mode == LOG_DB ? 10.f * (logf(fmaxf(m, 1e-10f)) * 0.43429448190325176f)
+                        : logf(m + offset);
+}
+
+__device__ __forceinline__ void store4(float* dst, const float* v) {
+  *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+}
+
+__device__ __forceinline__ void store4(bf16* dst, const float* v) {
+  uint2 u;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
+  h[0] = __floats2bfloat162_rn(v[0], v[1]);
+  h[1] = __floats2bfloat162_rn(v[2], v[3]);
+  *reinterpret_cast<uint2*>(dst) = u;
+}
+
+// One block per SM, persistent over (clip, 128-row frame tile) tiles; the
+// ring as gemm_sm90_kernel's (one TMA producer thread, two consumer
+// warpgroups of 64 rows each), every tile sweeping the p.n_tiles N tiles
+// of the basis.  Consumer thread tid owns mel rows rq + 16 i (i < 4) of its
+// warpgroup's 64 and mels 4 mg + 32 h + e (h < 2, e < 4), rq = tid / 8,
+// mg = tid % 8.
+template <typename OutT>
+__global__ void __launch_bounds__(THREADS, 1)
+    log_mel_sm90_kernel(const __grid_constant__ CUtensorMap tma_a,
+                        const __grid_constant__ CUtensorMap tma_b, const MelEpi p, int K,
+                        int batch) {
+  using S = Smem<MEL_BN>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t s0 = smem_u32(smem_raw);
+  uint8_t* base = smem_raw + (((s0 + 1023) & ~1023u) - s0);  // 1024-aligned for the swizzle
+  uint8_t* sA = base;
+  uint8_t* sB = sA + STAGES * S::A_BYTES;
+  float* sP = reinterpret_cast<float*>(sB + STAGES * S::B_BYTES);
+  float* sF = sP + CONSUMERS * MelSmem::P_FLOATS;
+  uint64_t* full = reinterpret_cast<uint64_t*>(sF + CONSUMERS * MelSmem::F_FLOATS);
+  uint64_t* empty = full + STAGES;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMERS * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+  const int m_tiles = (p.n_frames + BM - 1) / BM, tiles = batch * m_tiles, ksteps = K / BK;
+  int stage = 0;
+  uint32_t phase = 0;
+
+  if (wg == CONSUMERS) {  // producer: one thread keeps the ring full
+    if (tid != 0) return;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x)
+      for (int nt = 0; nt < p.n_tiles; ++nt)
+        produce_tile<MEL_BN>(RowsA{1}, &tma_a, &tma_b, sA, sB, full, empty, ksteps,
+                             t % m_tiles, nt, t / m_tiles, 0, stage, phase);
+    return;
+  }
+
+  float acc[MEL_BN / 2];
+#pragma unroll
+  for (int i = 0; i < MEL_BN / 2; ++i) acc[i] = 0.f;
+  float* P = sP + wg * MelSmem::P_FLOATS;
+  float* F = sF + wg * MelSmem::F_FLOATS;
+  const int warp = tid / 32, lane = tid % 32, rq = tid / 8, mg = tid % 8;
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int mt = t % m_tiles, z = t / m_tiles;
+    float mel[4][8];
+    for (int nt = 0; nt < p.n_tiles; ++nt) {
+      if (nt == 0) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int m = 0; m < 8; ++m) mel[i][m] = 0.f;
+      }
+      named_sync(1 + wg, 128);  // the last mel step has read P and F
+      // this N tile's 64 filterbank rows -> F, while the products run
+      const float* fb = p.fb + (long long)nt * MelSmem::F_FLOATS;
+      for (int i = tid; i < MelSmem::F_FLOATS / 4; i += 128) cp_async16(F + 4 * i, fb + 4 * i);
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
+      consume_tile<MEL_BN>(acc, sA, sB, full, empty, wg, ksteps, stage, phase);
+      // powers: acc[4j + 2i + e] is row 16*warp + lane/4 + 8i, column 8j +
+      // 2*(lane%4) + e, the (re, im) pair of bin 4j + lane%4 of the tile
+#pragma unroll
+      for (int j = 0; j < MEL_BN / 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const float re = acc[4 * j + 2 * i], im = acc[4 * j + 2 * i + 1];
+          P[(16 * warp + lane / 4 + 8 * i) * LDP + 4 * j + lane % 4] = re * re + im * im;
+        }
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+      named_sync(1 + wg, 128);
+      // mel += powers @ filterbank rows, bins in ascending order
+#pragma unroll 4
+      for (int f = 0; f < MEL_BINS; f += 4) {
+        float4 pr[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          pr[i] = *reinterpret_cast<const float4*>(&P[(rq + 16 * i) * LDP + f]);
+#pragma unroll
+        for (int ff = 0; ff < 4; ++ff) {
+          const float4 w0 = *reinterpret_cast<const float4*>(&F[(f + ff) * MEL_N + 4 * mg]);
+          const float4 w1 = *reinterpret_cast<const float4*>(&F[(f + ff) * MEL_N + 32 + 4 * mg]);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float pw = reinterpret_cast<const float*>(&pr[i])[ff];
+            mel[i][0] = fmaf(pw, w0.x, mel[i][0]);
+            mel[i][1] = fmaf(pw, w0.y, mel[i][1]);
+            mel[i][2] = fmaf(pw, w0.z, mel[i][2]);
+            mel[i][3] = fmaf(pw, w0.w, mel[i][3]);
+            mel[i][4] = fmaf(pw, w1.x, mel[i][4]);
+            mel[i][5] = fmaf(pw, w1.y, mel[i][5]);
+            mel[i][6] = fmaf(pw, w1.z, mel[i][6]);
+            mel[i][7] = fmaf(pw, w1.w, mel[i][7]);
+          }
+        }
+      }
+    }
+    // log, then the affine, in the output dtype: exactly n_frames rows
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = mt * BM + wg * 64 + rq + 16 * i;
+      if (r >= p.n_frames) continue;
+      OutT* o = static_cast<OutT*>(p.out) + ((long long)z * p.n_frames + r) * MEL_N;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float v[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int m = 32 * h + 4 * mg + e;
+          v[e] = mel[i][4 * h + e];
+          v[e] = log_of(v[e], p.log_mode, p.log_offset);
+          if (p.sc != nullptr) v[e] = v[e] * p.sc[m] + p.of[m];
+        }
+        store4(o + 32 * h + 4 * mg, v);
+      }
+    }
+  }
+}
+
+template <typename OutT>
+int launch_log_mel(const CUtensorMap& ta, const CUtensorMap& tb, const MelEpi& p, int K,
+                   int batch, cudaStream_t stream) {
+  const int dev = current_card();
+  if (dev >= MAX_CARDS) return cudaErrorInvalidDevice;
+  static bool attr[MAX_CARDS] = {};  // per instantiation and card
+  int e;
+  if (!attr[dev]) {
+    if ((e = cudaFuncSetAttribute(log_mel_sm90_kernel<OutT>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  MelSmem::BYTES)) != cudaSuccess)
+      return e;
+    attr[dev] = true;
+  }
+  const int tiles = batch * ((p.n_frames + BM - 1) / BM), sms = sm_count(dev);
+  log_mel_sm90_kernel<OutT><<<tiles < sms ? tiles : sms, THREADS, MelSmem::BYTES, stream>>>(
+      ta, tb, p, K, batch);
+  return cudaGetLastError();
+}
+
+}  // namespace sm90
+}  // namespace
+
+// audio: (B, n) f32 clips.  Scratch: hops (B, clip_stride) bf16.  The A
+// map: dims {k_pad, n_frames, B}, strides {hop, clip_stride} (elements),
+// box {64, 128, 1}, the wrapper's table (ops/mel.py halo_dft_map).
+// basis_t: (2*n_keep, k_pad) bf16, cos/sin rows interleaved, zero columns
+// past the frame length.  fb: (n_keep, 64) f32.  sc/of: (64) f32 or null.
+// out: (B, n_frames, 64), bf16 when out_bf16 else f32.
+extern "C" int am_log_mel(const float* audio, int n, int half, bf16* hops, int k_pad,
+                          int n_frames, int batch, int hop, int clip_stride, int box_k,
+                          int box_rows, int box_b, const bf16* basis_t, int n_keep,
+                          const float* fb, const float* sc, const float* of, int n_mels,
+                          int log_mode, float log_offset, int out_bf16, void* out,
                           cudaStream_t stream) {
-  cudaError_t e;
-  GemmParams g = gemm_params(n_frames, 2 * n_keep, k_pad, hops, hop, basis, 2 * n_keep, power,
-                             n_keep);
-  g.a_batch = clip_stride;
-  g.o_batch = (long long)n_frames * n_keep;
-  if ((e = launch_gemm<A_ROWS, EPI_POWER>(g, B, stream)) != cudaSuccess) return e;
-  const MelRows rows = {1, n_frames, n_frames, 0, n_frames, n_frames};
-  if (out_bf16)
-    return launch_mel_log(power, n_frames, n_keep, fb, sc, of, n_mels, rows, log_mode, log_offset,
-                          static_cast<bf16*>(out), B, stream);
-  return launch_mel_log(power, n_frames, n_keep, fb, sc, of, n_mels, rows, log_mode, log_offset,
-                        static_cast<float*>(out), B, stream);
+  using namespace sm90;
+  if (box_k != sm90::BK || box_rows != sm90::BM || box_b != 1 || n_mels != MEL_N ||
+      n_keep % MEL_BINS || k_pad % sm90::BK || clip_stride % 8)
+    return (int)cudaErrorInvalidValue;
+  const int per_clip = (clip_stride / 8 + 255) / 256;
+  halo_rows_kernel<<<dim3(per_clip < 1024 ? per_clip : 1024, batch), 256, 0, stream>>>(
+      audio, n, half, clip_stride, hops);
+  int e;
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  CUtensorMap ta, tb;
+  const cuuint64_t dims[3] = {(cuuint64_t)k_pad, (cuuint64_t)n_frames, (cuuint64_t)batch};
+  const cuuint64_t strides[2] = {(cuuint64_t)hop * 2, (cuuint64_t)clip_stride * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)box_k, (cuuint32_t)box_rows, (cuuint32_t)box_b};
+  if ((e = encode_map(&ta, hops, 3, dims, strides, box)) != 0) return e;
+  if ((e = encode(&tb, rows_of(basis_t, 2 * n_keep, k_pad, k_pad), MEL_BN)) != 0) return e;
+  const MelEpi p = {n_frames, 2 * n_keep / MEL_BN, fb, sc, of, log_mode, log_offset, out};
+  return out_bf16 ? launch_log_mel<bf16>(ta, tb, p, k_pad, batch, stream)
+                  : launch_log_mel<float>(ta, tb, p, k_pad, batch, stream);
 }
 
 // x: (B, n_sig) f32, the signal after the wrapper's reflect pad.  Frame r of

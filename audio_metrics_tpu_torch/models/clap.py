@@ -31,7 +31,7 @@ from ..ops.frontend_fused import (
     frontend_tables,
     fused_frontend_supported,
 )
-from ..ops.mel import log_mel_spectrogram, mel_filter_bank
+from ..ops.mel import log_mel_halo_plain, log_mel_spectrogram, mel_filter_bank
 from .base import Embedder, _require_random_weights_optin, resolve_device
 from .htsat import HTSAT_BASE, HTSATConfig, HTSATEncoder, frontend_tokens, init_params
 
@@ -67,11 +67,17 @@ def _clap_fb() -> np.ndarray:
     ).astype(np.float32)
 
 
-def clap_mel(audio, compute_dtype=None, center=True, out_affine=None, out_dtype=None):
+def clap_mel(audio, compute_dtype=None, center=True, out_affine=None, out_dtype=None,
+             plain=False):
     """(B, n) @48k -> (B, n//480 + 1, 64) log-mel, laion non-fusion
     convention (audio_metrics_tpu/models/clap.py:78-101); ``center=False``
     takes uncentered frames, (n - 1024)//480 + 1 of them.  On a CUDA tensor
-    in bf16 it runs the halo log-mel kernel."""
+    in bf16 it runs the halo log-mel kernel, or with ``plain`` that
+    kernel's plain version on any device."""
+    if plain and compute_dtype == torch.bfloat16:
+        return log_mel_halo_plain(
+            audio, frame_length=_N_FFT, hop_length=_HOP, n_fft=_N_FFT, fb=_clap_fb(),
+            center=center, log_mode="db", out_affine=out_affine, out_dtype=out_dtype)
     return log_mel_spectrogram(
         audio, sampling_rate=SAMPLE_RATE, frame_length=_N_FFT, hop_length=_HOP,
         n_mels=_N_MELS, fmin=_FMIN, fmax=_FMAX, n_fft=_N_FFT, center=center,
@@ -96,11 +102,12 @@ def repeat_pad(audio):
     return torch.nn.functional.pad(audio, (0, MAX_SAMPLES - audio.shape[1]))
 
 
-def clap_mel_tiled(audio, compute_dtype=None, out_affine=None, out_dtype=None):
+def clap_mel_tiled(audio, compute_dtype=None, out_affine=None, out_dtype=None, plain=False):
     """Log-mel of the repeat-padded clip computed from its p+2 head and 2
     tail frames only (audio_metrics_tpu/models/clap.py:116-157): every frame
     strictly inside the tiled signal equals the frame one clip period
-    (p = n/hop frames) earlier, so mid frames are row copies."""
+    (p = n/hop frames) earlier, so mid frames are row copies.  ``plain`` as
+    ``clap_mel``'s."""
     b, n = audio.shape
     p = n // _HOP
     half = _N_FFT // 2
@@ -109,7 +116,8 @@ def clap_mel_tiled(audio, compute_dtype=None, out_affine=None, out_dtype=None):
     extra = _HOP + half
     head_sig = torch.cat([audio[:, 1 : half + 1].flip(1), audio, audio[:, :extra]], dim=1)
     tail_sig = torch.cat([audio[:, n - extra :], audio[:, -half - 1 : -1].flip(1)], dim=1)
-    kw = dict(compute_dtype=compute_dtype, out_affine=out_affine, out_dtype=out_dtype)
+    kw = dict(compute_dtype=compute_dtype, out_affine=out_affine, out_dtype=out_dtype,
+              plain=plain)
     head = clap_mel(head_sig, center=False, **kw)
     tail = clap_mel(tail_sig, center=False, **kw)
     mid_idx = torch.from_numpy(2 + (np.arange(p + 2, t_tail0) - 2) % p).to(audio.device)

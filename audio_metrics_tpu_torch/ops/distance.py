@@ -24,8 +24,9 @@ from ..kernels import KERNELS, require_cuda
 from ..utils.precision import full_f32
 
 __all__ = [
+    "check_depth",
+    "column_splits",
     "knn_radii",
-    "knn_splits",
     "knn_radii_plain",
     "pairwise_stats",
     "pairwise_stats_plain",
@@ -36,7 +37,7 @@ KNN = KERNELS["knn_radii"]
 STATS = KERNELS["prdc_stats"]
 BLOCK = 2048  # plain versions' row block (metrics/prdc.py:25)
 K_MAX = 128   # widest k-smallest list of the kernel (the TPU scratch's width)
-KNN_TILE = 128  # the kNN kernel's row and column tile
+KNN_TILE = 128  # the kNN and statistics kernels' row and column tile
 
 
 def _sq_dists(a, sq_a, b, sq_b):
@@ -79,15 +80,23 @@ def pairwise_stats_plain(ref, cand, ref_radii, cand_radii):
     return cand_count > 0, cand_count, torch.cat(ref_any), torch.cat(ref_min)
 
 
-def knn_splits(n: int, sms: int) -> tuple[int, int]:
-    """``(splits, split_cols)``: how the kNN kernel divides the n columns
-    among blocks.  Each split is a run of whole 128-column tiles; there are
-    about four blocks (128-row tile, split) per SM, at most one split per
-    tile, and no empty split."""
-    tiles = -(-n // KNN_TILE)
-    splits = max(1, min(tiles, -(-4 * sms // tiles)))
-    split_cols = -(-tiles // splits) * KNN_TILE
-    return -(-n // split_cols), split_cols
+def column_splits(n_rows: int, n_cols: int, sms: int) -> tuple[int, int]:
+    """``(splits, split_cols)``: how the kNN and the statistics kernels
+    divide ``n_cols`` columns among blocks over ``n_rows`` rows.  Each split
+    is a run of whole 128-column tiles; there are about four blocks
+    (128-row tile, split) per SM, at most one split per column tile, and no
+    empty split."""
+    row_tiles, col_tiles = -(-n_rows // KNN_TILE), -(-n_cols // KNN_TILE)
+    splits = max(1, min(col_tiles, -(-4 * sms // row_tiles)))
+    split_cols = -(-col_tiles // splits) * KNN_TILE
+    return -(-n_cols // split_cols), split_cols
+
+
+def check_depth(name: str, d: int) -> None:
+    """Raise ``NotImplementedError`` unless the distance kernels take rows of
+    ``d`` floats: they read them in 16-byte chunks."""
+    if d % 4:
+        raise NotImplementedError(f"{name} kernel reads rows in 16-byte chunks, got d={d}")
 
 
 def _knn_radii_cuda(x, nearest_k):
@@ -96,10 +105,9 @@ def _knn_radii_cuda(x, nearest_k):
     k = min(nearest_k + 1, n)
     if k > K_MAX:
         raise NotImplementedError(f"knn_radii kernel keeps at most {K_MAX} neighbours, got k={k}")
-    if d % 4:
-        raise NotImplementedError(f"knn_radii kernel reads rows in 16-byte chunks, got d={d}")
-    splits, split_cols = knn_splits(n, torch.cuda.get_device_properties(x.device)
-                                    .multi_processor_count)
+    check_depth("knn_radii", d)
+    splits, split_cols = column_splits(n, n, torch.cuda.get_device_properties(x.device)
+                                       .multi_processor_count)
     lists = torch.empty((n, splits, k), dtype=torch.float32, device=x.device)
     out = torch.empty(n, dtype=torch.float32, device=x.device)
     # the plain version's squared norms: the kernel rounds the distance
@@ -115,14 +123,19 @@ def _pairwise_stats_cuda(ref, cand, ref_radii, cand_radii):
     if cand.shape[1] != d or ref_radii.shape != (n_ref,) or cand_radii.shape != (n_cand,):
         raise ValueError(f"pairwise_stats shapes {tuple(ref.shape)} {tuple(cand.shape)} "
                          f"{tuple(ref_radii.shape)} {tuple(cand_radii.shape)}")
+    check_depth("pairwise_stats", d)
     dev = ref.device
+    splits, split_cols = column_splits(n_ref, n_cand,
+                                       torch.cuda.get_device_properties(dev).multi_processor_count)
     cand_any = torch.zeros(n_cand, dtype=torch.int32, device=dev)
     cand_count = torch.zeros(n_cand, dtype=torch.int32, device=dev)
     ref_any = torch.zeros(n_ref, dtype=torch.int32, device=dev)
     ref_min = torch.full((n_ref,), float("inf"), dtype=torch.float32, device=dev)
+    # the plain version's squared norms: the kernel rounds the distance
+    # formula as it does
     STATS.launch("am_prdc_stats", ref, (ref * ref).sum(dim=1), ref_radii, n_ref, cand,
-                 (cand * cand).sum(dim=1), cand_radii, n_cand, d, cand_any, cand_count,
-                 ref_any, ref_min)
+                 (cand * cand).sum(dim=1), cand_radii, n_cand, d, splits, split_cols, cand_any,
+                 cand_count, ref_any, ref_min)
     STATS.launches += 1
     return cand_any > 0, cand_count, ref_any > 0, ref_min
 

@@ -165,14 +165,16 @@ BF16_TABLES = ("basis_t", "wi", "qcat_t")
 
 def clap_tokens_fused_plain(audio, t, *, sr: int, cfg):
     """The unfused chain: repeat-pad log-mel in bf16 with BatchNorm folded
-    into the dB epilogue (models/clap.clap_mel_tiled), then
-    models/htsat.frontend_tokens.  audio (B, n) f32 -> (B, grid^2, C) bf16."""
+    into the dB epilogue (models/clap.clap_mel_tiled, through the halo
+    log-mel kernel's plain version on any device: no kernel runs here),
+    then models/htsat.frontend_tokens.  audio (B, n) f32 -> (B, grid^2, C)
+    bf16."""
     from ..models.clap import clap_mel_tiled
     from ..models.htsat import frontend_tokens
 
     mel = clap_mel_tiled(
         audio, compute_dtype=torch.bfloat16, out_affine=(t.bn_scale, t.bn_offset),
-        out_dtype=torch.bfloat16,
+        out_dtype=torch.bfloat16, plain=True,
     )
     return frontend_tokens(mel, t.patch_w, t.patch_b, t.ln_w, t.ln_b, cfg, torch.bfloat16)
 

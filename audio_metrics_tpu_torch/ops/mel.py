@@ -6,7 +6,9 @@ a hop-strided view, the DFT a product with the ``window * cos`` /
 ``window * sin`` basis, and the mel projection a second product
 (:151-219, :574-668).  ``log_mel_halo`` has the contract of
 ``log_mel_pallas_halo`` (:374-571) and ``log_mel_v1`` that of
-``log_mel_pallas`` (:231-371); both launch kernels/csrc/log_mel.cu.
+``log_mel_pallas`` (:231-371); both launch kernels/csrc/log_mel.cu, the
+halo kernel on the wgmma core through the frame map ``halo_dft_map``
+tabulates.
 ``log_mel_spectrogram`` dispatches bf16 compute to one of them as
 :625-644 dispatches to the TPU kernels: to ``log_mel_v1`` when
 ``AM_TPU_MEL_V1`` is set, else to ``log_mel_halo``.  The variable is read
@@ -33,15 +35,19 @@ __all__ = [
     "mel_filter_bank",
     "stft_power",
     "log_mel_spectrogram",
+    "halo_dft_map",
     "log_mel_halo",
     "log_mel_halo_plain",
     "log_mel_v1",
     "log_mel_v1_plain",
+    "plain_operands",
 ]
 
 KERNEL = KERNELS["log_mel"]
 KERNEL_V1 = KERNELS["log_mel_v1"]
 _LOG_MODES = {"db": 0, "natural": 1}
+BM, BK = 128, 64  # the wgmma core's row tile and K step (kernels/csrc/gemm_sm90.cuh)
+N_MELS = 64       # mel bins the halo kernel's epilogue writes (CLAP and VGGish)
 
 
 def _hertz_to_mel(freq, mel_scale: str):
@@ -179,12 +185,13 @@ def _log(mel, log_mode: str, log_offset: float):
     raise ValueError(f"unknown log_mode {log_mode!r}")
 
 
-def _log_mel_plain(x, width: int, *, frame_length, hop_length, n_fft, fb, log_mode, log_offset,
-                   out_affine, out_dtype):
-    """The kernels' arithmetic over the frames of ``width`` samples of the
-    padded f32 signal ``x``: bf16 frames x bf16 basis cut to the filterbank
-    support (``_fb_support_bins``) with zero rows past the frame length, f32
-    accumulation, power, f32 mel product, log, affine, cast."""
+def plain_operands(x, width: int, *, frame_length, hop_length, n_fft, fb):
+    """``(frames, basis, fb_rows)`` of the plain log-mels over the frames of
+    ``width`` samples of the padded f32 signal ``x``: the bf16 frames (B,
+    n_frames, width) and the bf16 basis (width, 2*n_keep) [cos | sin] cut to
+    the filterbank support (``_fb_support_bins``) with zero rows past the
+    frame length, both as f32, and the (n_keep, n_mels) f32 filterbank
+    rows."""
     n_keep = _fb_support_bins(fb)
     cos_m, sin_m = _dft_matrices(frame_length, n_fft, "hann")
     basis = np.zeros((width, 2 * n_keep), np.float32)
@@ -193,6 +200,17 @@ def _log_mel_plain(x, width: int, *, frame_length, hop_length, n_fft, fb, log_mo
     basis = torch.from_numpy(basis).to(x.device, torch.bfloat16).float()
     frames = x.unfold(1, width, hop_length).to(torch.bfloat16).float()
     fb_t = torch.from_numpy(np.ascontiguousarray(fb[:n_keep], np.float32)).to(x.device)
+    return frames, basis, fb_t
+
+
+def _log_mel_plain(x, width: int, *, frame_length, hop_length, n_fft, fb, log_mode, log_offset,
+                   out_affine, out_dtype):
+    """The kernels' arithmetic over the frames of ``width`` samples of the
+    padded f32 signal ``x`` (``plain_operands``): f32 accumulation of the
+    bf16 product, power, f32 mel product, log, affine, cast."""
+    frames, basis, fb_t = plain_operands(x, width, frame_length=frame_length,
+                                         hop_length=hop_length, n_fft=n_fft, fb=fb)
+    n_keep = fb_t.shape[0]
     acc = torch.matmul(frames, basis)
     re, im = acc[..., :n_keep], acc[..., n_keep:]
     lm = _log(torch.matmul(re * re + im * im, fb_t), log_mode, log_offset)
@@ -242,25 +260,32 @@ def log_mel_v1_plain(audio, *, frame_length: int, hop_length: int, n_fft: int, f
 
 @lru_cache(maxsize=16)
 def _kernel_tables(frame_length: int, k_rows: int, n_fft: int, fb_bytes: bytes, n_mels: int,
-                   device: str):
+                   device: str, k_major: bool = False):
     """Kernel tables on ``device``: the (k_rows, 2*n_keep) bf16 basis with
-    cos/sin columns interleaved and zero rows from frame_length up to k_rows
-    (a multiple of 32), and the (n_keep, n_mels) f32 filterbank rows, n_keep
-    padded to a multiple of 32 with zero columns / rows."""
+    cos/sin columns interleaved and zero rows from frame_length up to k_rows,
+    and the (n_keep, n_mels) f32 filterbank rows, n_keep padded with zero
+    columns / rows to a multiple of 32 (the v1 kernel's WMMA core), or with
+    ``k_major`` to a multiple of 64 (the halo kernel's N tile of 64 bins) and
+    the basis transposed, (2*n_keep, k_rows): the layout in which the wgmma
+    core reads both operands."""
     fb = np.frombuffer(fb_bytes, np.float32).reshape(-1, n_mels)
     n_keep = _fb_support_bins(fb)
-    n_keep_p = -(-n_keep // 32) * 32
+    pad = 64 if k_major else 32
+    n_keep_p = -(-n_keep // pad) * pad
     cos_m, sin_m = _dft_matrices(frame_length, n_fft, "hann")
     basis = np.zeros((k_rows, 2 * n_keep_p), np.float32)
     basis[:frame_length, 0 : 2 * n_keep : 2] = cos_m[:, :n_keep]
     basis[:frame_length, 1 : 2 * n_keep : 2] = sin_m[:, :n_keep]
+    if k_major:
+        basis = np.ascontiguousarray(basis.T)
     fb_p = np.zeros((n_keep_p, n_mels), np.float32)
     fb_p[:n_keep] = fb[:n_keep]
     return (torch.from_numpy(basis).to(device, torch.bfloat16),
             torch.from_numpy(fb_p).to(device), n_keep_p)
 
 
-def _kernel_args(name, audio, fb, frame_length, k_rows, n_fft, log_mode, out_affine, out_dtype):
+def _kernel_args(name, audio, fb, frame_length, k_rows, n_fft, log_mode, out_affine, out_dtype,
+                 k_major=False):
     """Checks shared by the two log-mel kernels, their tables and the
     affine operands."""
     if audio.dtype != torch.float32 or audio.ndim != 2:
@@ -270,7 +295,7 @@ def _kernel_args(name, audio, fb, frame_length, k_rows, n_fft, log_mode, out_aff
         raise NotImplementedError(f"{name} kernel: log_mode {log_mode!r}, out {out_dtype}")
     fb = np.ascontiguousarray(fb, np.float32)
     basis, fb_p, n_keep = _kernel_tables(frame_length, k_rows, n_fft, fb.tobytes(), fb.shape[1],
-                                         str(audio.device))
+                                         str(audio.device), k_major)
     sc = of = None
     if out_affine is not None:
         sc, of = (t.to(audio.device, torch.float32).contiguous() for t in out_affine)
@@ -278,29 +303,50 @@ def _kernel_args(name, audio, fb, frame_length, k_rows, n_fft, log_mode, out_aff
     return basis, fb_p, n_keep, fb.shape[1], sc, of
 
 
+@lru_cache(maxsize=None)
+def halo_dft_map(b: int, n: int, frame_length: int, hop_length: int, center: bool) -> dict:
+    """The 3-D TMA map through which the halo kernel reads its DFT's A, the
+    frames, in place from the bf16 hop-row signal (B, clip_stride) that its
+    first launch writes: dims (k_pad, n_frames, B) and box innermost first,
+    strides (of dims 1-2) in elements.  Frame r of clip z is samples
+    [r*hop, r*hop + k_pad) of row z of the reflect-padded (``half`` =
+    frame_length // 2 when ``center``) signal, zero past it; k_pad is the
+    frame padded to the 64-element swizzle box, against zero basis columns.
+    The kernel reads these numbers and computes none of them.  Cached: read
+    it, do not change it."""
+    if hop_length % 8:
+        raise NotImplementedError(f"log_mel kernel: the frame stride must be 16 bytes, got hop "
+                                  f"{hop_length} % 8 != 0")
+    half = frame_length // 2 if center else 0
+    if center and n <= half:
+        raise ValueError(f"reflect pad of {half} needs more than {half} samples, got {n}")
+    n_frames = (n + 2 * half - frame_length) // hop_length + 1
+    if n_frames < 1:
+        raise ValueError(f"{n + 2 * half} samples hold no {frame_length}-sample frame")
+    k_pad = -(-frame_length // BK) * BK
+    clip_stride = -(-((n_frames - 1) * hop_length + k_pad) // 8) * 8
+    return dict(dims=(k_pad, n_frames, b), strides=(hop_length, clip_stride),
+                box=(BK, BM, 1), half=half)
+
+
 def _log_mel_halo_cuda(audio, *, frame_length, hop_length, n_fft, fb, center, log_mode,
                        log_offset, out_affine, out_dtype):
     out_dtype = out_dtype or torch.float32
-    if hop_length % 8:
-        raise NotImplementedError(f"log_mel kernel reads 16-byte rows: hop {hop_length} % 8 != 0")
-    k_pad = -(-frame_length // 32) * 32
-    basis, fb_p, n_keep, n_mels, sc, of = _kernel_args(
-        "log_mel", audio, fb, frame_length, k_pad, n_fft, log_mode, out_affine, out_dtype)
-    # the JAX wrapper's prologue (mel.py:417-443): reflect pad, bf16, hop rows
-    x = _reflect_pad(audio, frame_length) if center else audio
-    b = x.shape[0]
-    n_frames = (x.shape[1] - frame_length) // hop_length + 1
-    if n_frames < 1:
-        raise ValueError(f"{x.shape[1]} samples hold no {frame_length}-sample frame")
-    clip_stride = -(-((n_frames - 1) * hop_length + k_pad) // 8) * 8
-    hops = torch.zeros((b, clip_stride), dtype=torch.bfloat16, device=x.device)
-    m = min(clip_stride, x.shape[1])
-    hops[:, :m] = x[:, :m]
-    power = torch.empty((b, n_frames, n_keep), dtype=torch.float32, device=x.device)
-    out = torch.empty((b, n_frames, n_mels), dtype=out_dtype, device=x.device)
-    KERNEL.launch("am_log_mel", hops, clip_stride, hop_length, k_pad, n_frames, basis, n_keep,
-                  power, fb_p, sc, of, n_mels, _LOG_MODES[log_mode], float(log_offset),
-                  int(out_dtype == torch.bfloat16), out, b)
+    b, n = audio.shape
+    amap = halo_dft_map(b, n, frame_length, hop_length, center)
+    (k_pad, n_frames, _), clip_stride = amap["dims"], amap["strides"][1]
+    basis_t, fb_p, n_keep, n_mels, sc, of = _kernel_args(
+        "log_mel", audio, fb, frame_length, k_pad, n_fft, log_mode, out_affine, out_dtype,
+        k_major=True)
+    if n_mels != N_MELS:
+        raise NotImplementedError(f"log_mel kernel writes {N_MELS} mel bins, got {n_mels}")
+    audio = audio.contiguous()
+    require_cuda(audio, fb_p, dtype=torch.float32)
+    hops = torch.empty((b, clip_stride), dtype=torch.bfloat16, device=audio.device)
+    out = torch.empty((b, n_frames, n_mels), dtype=out_dtype, device=audio.device)
+    KERNEL.launch("am_log_mel", audio, n, amap["half"], hops, *amap["dims"], *amap["strides"],
+                  *amap["box"], basis_t, n_keep, fb_p, sc, of, n_mels, _LOG_MODES[log_mode],
+                  float(log_offset), int(out_dtype == torch.bfloat16), out)
     KERNEL.launches += 1
     return out
 

@@ -1,0 +1,100 @@
+"""Plant one fault at a time in a copy of the checkout and run the smoke there.
+
+    python -m audio_metrics_tpu_torch.plant_faults [NAME ...]
+
+Each fault is one textual replacement in one source file (``FAULTS``); a
+replacement that does not match exactly once is an error, so a fault can
+never be silently absent.  For each named fault (all by default) the
+checkout is copied, without its kernel build, ``.git`` and caches,
+into ``kernels/build/faults/<NAME>`` (git-ignored), the fault is planted
+there, and ``python3 chip_smoke.py`` runs in the copy under a time limit
+(a fault in a barrier ring could hang a kernel; the wgmma core's waits trap
+after 2^34 clocks).  A fault is caught when the smoke exits non-zero.
+Printed per fault: exit code, the smoke's lines that report a failure
+(``FAIL``, ``DIFFERS``, an exception), and the last line; then one JSON
+line ``{"faults": {NAME: {"rc": .., "caught": ..}}}``.  Needs a card: the
+smoke exits non-zero without one, which would count every fault caught, so
+this exits non-zero first.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+CSRC = "audio_metrics_tpu_torch/kernels/csrc"
+
+# name: (file, text, replacement, what it breaks)
+FAULTS = {
+    "L1": ("audio_metrics_tpu_torch/ops/mel.py",
+           "strides=(hop_length, clip_stride)", "strides=(hop_length + 8, clip_stride)",
+           "the halo log-mel's frame map strides hop + 8 samples"),
+    "L2": (f"{CSRC}/log_mel.cu", "if (nt == 0) {", "if (nt >= 0) {",
+           "the halo log-mel's mel accumulator is reset at every N tile"),
+    "L3": (f"{CSRC}/log_mel.cu",
+           "          v[e] = log_of(v[e], p.log_mode, p.log_offset);\n"
+           "          if (p.sc != nullptr) v[e] = v[e] * p.sc[m] + p.of[m];\n",
+           "          if (p.sc != nullptr) v[e] = v[e] * p.sc[m] + p.of[m];\n"
+           "          v[e] = log_of(v[e], p.log_mode, p.log_offset);\n",
+           "the halo log-mel applies the affine before the log"),
+    "S1": (f"{CSRC}/distance.cu", "atomicAdd(cand_count + c, count);", "cand_count[c] = count;",
+           "the PRDC statistics store each tile's count instead of adding it"),
+    "S2": (f"{CSRC}/distance.cu", "c < c_end && r < n_ref", "c <= c_end && r < n_ref",
+           "the PRDC statistics' column mask takes the column at the split's end"),
+}
+SKIP = ("build", ".git", "__pycache__", ".pytest_cache")
+
+
+def plant(name: str, dest: Path) -> None:
+    """A copy of the checkout at ``dest`` with fault ``name`` planted."""
+    path, text, repl, _ = FAULTS[name]
+    if dest.exists():
+        shutil.rmtree(dest)
+    shutil.copytree(ROOT, dest, ignore=shutil.ignore_patterns(*SKIP))
+    src = (dest / path).read_text()
+    if src.count(text) != 1:
+        raise RuntimeError(f"fault {name}: {text!r} occurs {src.count(text)} times in {path}")
+    (dest / path).write_text(src.replace(text, repl))
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("names", nargs="*", default=list(FAULTS))
+    ap.add_argument("--timeout", type=int, default=420)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("plant_faults: CUDA is not available", file=sys.stderr)
+        return 1
+    results = {}
+    for name in args.names:
+        dest = ROOT / "audio_metrics_tpu_torch/kernels/build/faults" / name
+        plant(name, dest)
+        print(f"fault {name}: {FAULTS[name][3]}", flush=True)
+        try:
+            run = subprocess.run([sys.executable, "chip_smoke.py"], cwd=dest, text=True,
+                                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                 timeout=args.timeout)
+            rc, out = run.returncode, run.stdout
+        except subprocess.TimeoutExpired as e:
+            rc = "timeout"
+            out = e.stdout.decode() if isinstance(e.stdout, bytes) else (e.stdout or "")
+        lines = out.splitlines()
+        for line in lines:
+            if "FAIL" in line or "DIFFERS" in line or "Error" in line:
+                print(f"  {line.strip()[:400]}")
+        print(f"  exit {rc}; last line: {lines[-1][:400] if lines else ''}", flush=True)
+        results[name] = {"rc": rc, "caught": rc != 0}
+        shutil.rmtree(dest)
+    print(json.dumps({"faults": results}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

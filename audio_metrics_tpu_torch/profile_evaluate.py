@@ -33,11 +33,10 @@ import torch
 
 def _short(name: str) -> str:
     """A kernel's name without its template arguments and namespace."""
-    # "merge_stats_kernel" before "stats_kernel", which it contains
     for key in ("gemm_kernel<", "gemm_sm90_kernel<", "knn_split_kernel", "knn_merge_kernel",
-                "merge_stats_kernel", "stats_kernel", "mel_log_kernel", "ln_rows_kernel",
-                "ln1_window_kernel", "hop_rows_kernel", "window_attn_kernel",
-                "frame_rows_kernel"):
+                "merge_stats_kernel", "stats_split_kernel", "mel_log_kernel", "ln_rows_kernel",
+                "ln1_window_kernel", "hop_rows_kernel", "halo_rows_kernel", "log_mel_sm90_kernel",
+                "window_attn_kernel", "frame_rows_kernel"):
         if key in name:
             i = name.find(key)
             return name[i : name.find(">", i) + 1] if key.endswith("<") else key
@@ -97,7 +96,7 @@ def main(argv=None) -> int:
     for name, (ms, cnt) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[: args.top]:
         print(f"  {ms:9.2f} ms {100 * ms / device_ms:5.1f}% {cnt:6d}  {name}")
     prdc_dev = sum(kernels.get(k, [0.0])[0]
-                   for k in ("knn_split_kernel", "knn_merge_kernel", "stats_kernel"))
+                   for k in ("knn_split_kernel", "knn_merge_kernel", "stats_split_kernel"))
     cand = am._run_pipeline(candidate)
     torch.cuda.synchronize()
     t0 = time.perf_counter()

@@ -5,16 +5,20 @@
 Phases, one status line each:
   1. the card (torch and ``nvidia-smi`` name / power limit);
   2. build of the CUDA kernels from the repository's sources (nvcc, one
-     process per source, all started together);
+     process per source, all started together), and ``cuobjdump -sass`` of
+     the library: the halo log-mel's kernel holds HGMMA and UTMALDG (its
+     DFT on wgmma, fed by TMA), the PRDC statistics' LDGSTS (cp.async);
   3. each kernel against its plain PyTorch version on the card, at the
      main-path shapes, with errors, tolerances and times: bf16 Swin blocks
      (every stage shifted and unshifted), patch merges and the 5 s
      frontend (B=4) with weights under which every part of a block moves
      its output; the f32 k-NN radii and PRDC statistics at (2048, 2048) x
      512 (bench.py's size) and (10000, 12345) x 512 (ragged against any
-     tile), the booleans and counts under the near-tie rule; the log-mel at
-     the CLAP 10 s geometry (BatchNorm affine, bf16 out) and the VGGish
-     convention; and the FAD device tail against the host float64 path;
+     tile), the booleans and counts under the near-tie rule; the two
+     log-mels at the CLAP 10 s geometry (BatchNorm affine, bf16 out), on
+     CLAP 7 s clips and at the VGGish convention, the halo kernel twice on
+     the same inputs (bitwise equal) and with its DFT's achieved TFLOP/s;
+     and the FAD device tail against the host float64 path;
   4. the main path end to end: ``AudioMetrics(metrics=["fad", "kd",
      "prdc"])`` with LaionCLAP HTSAT-base in bf16 (random weights from a
      seed) over 2048 reference and 2048 candidate 5 s clips at 48 kHz
@@ -45,13 +49,14 @@ Phases, one status line each:
      MLP's branch against the fused bf16 MLP kernel's, per-forward times.
 Phase 3 runs each kernel redesigned for Hopper on the wgmma core (the
 whole Swin block at every stage and shift, the three patch merges, the
-fused frontend) twice on the same inputs, at B = 4 and at B = 64, and fails
-unless the outputs are bitwise equal (their GEMM core has no atomics, so a
-race in its TMA ring shows as a difference); it times the products of
-those kernels alone through ``torch.matmul`` in bf16 at B = 64 as their
-yardstick (``library_ms``, the port never calls it), and prints their
-achieved TFLOP/s.  The k-NN radii kernel is timed at N = 2048 over many
-iterations.
+fused frontend, the halo log-mel) twice on the same inputs, at B = 4 and
+at B = 64, and fails unless the outputs are bitwise equal (their GEMM core
+has no atomics, so a race in its TMA ring shows as a difference); it times
+the products of the first three alone through ``torch.matmul`` in bf16 at
+B = 64 as their yardstick (``library_ms``, the port never calls it), and
+prints their achieved TFLOP/s.  The kernels of ~0.3 ms or less (patch
+merge, k-NN radii and PRDC statistics at N = 2048, halo log-mel) are timed
+over 200 launches (``TIMING_ITERS``).
 Phase 3 also holds the split block's kernels (v3 attention half at every
 stage, the fused MLP at the row counts of stages 0-3, the v1 attention
 half at stages 0 and 1), the opt-in ops (the v2 attention half at every
@@ -67,6 +72,9 @@ from __future__ import annotations
 
 import json
 import os
+import re
+import shutil
+import subprocess
 import sys
 import time
 import traceback
@@ -140,10 +148,18 @@ E2E_TOL = {"1-cos": 1e-5, "max_abs": 3e-3, "fad": 1e-3, "kernel_distance_mean": 
 CONFIG_TOL = {"split": (5e-5, 5e-3), "attn_v1": (5e-5, 5e-3), "mel_v1": (2e-6, 1e-3)}
 # the kernels redesigned on the wgmma GEMM core (gemm_sm90.cuh): each must
 # repeat bitwise on the same inputs
-REDESIGNED = ("swin_block", "patch_merge", "clap_frontend")
+REDESIGNED = ("swin_block", "patch_merge", "clap_frontend", "log_mel")
 # launches timed per reading (10 elsewhere): kernels of ~0.1 ms or less
 # moved by 20-40% between runs at 10
-TIMING_ITERS = {"patch_merge": 200, "knn_radii": 200}
+TIMING_ITERS = {"patch_merge": 200, "knn_radii": 200, "prdc_stats": 200, "log_mel": 200}
+
+
+# the SASS that shows a kernel's design: instructions each named kernel's
+# instantiations must contain (cuobjdump -sass of the built library):
+# the halo log-mel's DFT on wgmma (HGMMA) fed by TMA (UTMALDG); the PRDC
+# statistics' products fed by cp.async (LDGSTS)
+SASS_WANT = {"log_mel": ("log_mel_sm90_kernel", ("HGMMA", "UTMALDG")),
+             "prdc_stats": ("stats_split_kernel", ("LDGSTS",))}
 
 
 def log(msg: str) -> None:
@@ -264,6 +280,18 @@ def check_radii(what, got, want, result=None):
         raise AssertionError(f"knn_radii {what}: the kernel disagrees with its plain version")
 
 
+def check_repeats(what, runs):
+    """Determinism of a kernel on the wgmma core, which has no atomics: a
+    race in its TMA ring shows as a difference.  ``runs``: (B, a first
+    output, the call that made it); the call again must equal it
+    bitwise."""
+    for b, first, fn in runs:
+        same = torch.equal(first, fn())
+        log(f"    repeat at B={b}: {'bitwise equal' if same else 'DIFFERS'}")
+        if not same:
+            raise AssertionError(f"{what} differs between two runs on the same inputs")
+
+
 def check_params(cfg):
     """HTSAT-base weights for the kernel checks.  Every matrix at std
     1/sqrt(fan_in), biases and relative-position tables at std 0.5, LN and
@@ -374,13 +402,9 @@ def phase_kernels(cfg, params, results):
             f"{'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"{name} {shape_key} disagrees with its plain version")
-        if name in REDESIGNED:  # determinism: a race in the TMA ring shows as a difference
-            for b, first, fn in ((CHECK_B, got, kfn), (BATCH, counts[0](), counts[0])):
-                same = torch.equal(first, fn())
-                log(f"    repeat at B={b}: {'bitwise equal' if same else 'DIFFERS'}")
-                if not same:
-                    raise AssertionError(f"{name} {shape_key} differs between two runs on the "
-                                         f"same inputs")
+        if name in REDESIGNED:
+            check_repeats(f"{name} {shape_key}", ((CHECK_B, got, kfn),
+                                                  (BATCH, counts[0](), counts[0])))
         for b in (CHECK_B, BATCH):
             ms = cuda_ms(kfn if b == CHECK_B else counts[0], TIMING_ITERS.get(name, 10),
                          warmup=10 if name in TIMING_ITERS else 2)
@@ -528,7 +552,7 @@ def phase_kernels(cfg, params, results):
     results["swin_block"]["library_ms"] = alone["Swin blocks (18 x qkv, proj, fc1, fc2)"]
     results["patch_merge"]["library_ms"] = alone["patch merges (3 x (M, 4C) @ (4C, 2C))"]
     results["clap_frontend"]["library_ms"] = alone["frontend DFT"]
-    for name in REDESIGNED:
+    for name in ("swin_block", "patch_merge", "clap_frontend"):
         r, ops = results[name], bounds[name][2]
         log(f"  {name} at B={BATCH}: {ops / (r['ms'] * 1e-3) / 1e12:.1f} TFLOP/s achieved "
             f"({ops:.4g} operations in {r['ms']:.4f} ms; bound {r['bound_ms']:.4f} ms, the "
@@ -635,11 +659,13 @@ def phase_prdc_kernels(results):
     for n in (2048, 20480):
         ref, cand = sets(n, n)
         rr, cr = knn_radii_plain(ref, k), knn_radii_plain(cand, k)
-        it, kit = (10, TIMING_ITERS["knn_radii"]) if n == 2048 else (3, 10)
+        kit, sit = ((TIMING_ITERS["knn_radii"], TIMING_ITERS["prdc_stats"]) if n == 2048
+                    else (10, 3))
         t = {"knn_radii": (cuda_ms(lambda: knn_radii(ref, k), kit, warmup=10),
                            cuda_ms(lambda: knn_radii_plain(ref, k), kit, warmup=10)),
-             "prdc_stats": (cuda_ms(lambda: pairwise_stats(ref, cand, rr, cr), it),
-                            cuda_ms(lambda: pairwise_stats_plain(ref, cand, rr, cr), it))}
+             "prdc_stats": (cuda_ms(lambda: pairwise_stats(ref, cand, rr, cr), sit, warmup=10),
+                            cuda_ms(lambda: pairwise_stats_plain(ref, cand, rr, cr), sit,
+                                    warmup=10))}
         b = {"knn_radii": bound({"f32": 2 * n * n * d}, n * d * 4 + n * 4 * 2),
              "prdc_stats": bound({"f32": 2 * n * n * d}, 2 * n * d * 4 + 2 * n * 4 + 2 * n * 5)}
         for name, (ms, pms) in t.items():
@@ -668,16 +694,20 @@ def phase_log_mel(cfg, params, results):
     gen = torch.Generator(device="cuda").manual_seed(5)
     vgg_fb = mel_filter_bank(257, 64, 125.0, 7500.0, 16000, norm=None, mel_scale="htk",
                              triangle_domain="mel", zero_dc=True).astype(np.float32)
+    clap = dict(frame_length=1024, hop_length=480, n_fft=1024, fb=_clap_fb(), center=True,
+                log_mode="db", out_affine=(fr.bn_scale, fr.bn_offset), out_dtype=torch.bfloat16)
+    # (tolerance key, samples, arguments): the model path's CLAP 10 s window,
+    # a CLAP 7 s clip (another frame count, a last row tile of 61 rows) and
+    # VGGish (K 400 padded to 448)
     convs = {
-        "clap": (10 * SR, dict(frame_length=1024, hop_length=480, n_fft=1024, fb=_clap_fb(),
-                               center=True, log_mode="db", out_affine=(fr.bn_scale, fr.bn_offset),
-                               out_dtype=torch.bfloat16)),
-        "vggish": (10 * 16000, dict(frame_length=400, hop_length=160, n_fft=512, fb=vgg_fb,
-                                    center=False, log_mode="natural")),
+        "clap": ("clap", 10 * SR, clap),
+        "clap 7 s": ("clap", 7 * SR, clap),
+        "vggish": ("vggish", 10 * 16000, dict(frame_length=400, hop_length=160, n_fft=512,
+                                              fb=vgg_fb, center=False, log_mode="natural")),
     }
     kernels = {"log_mel": (log_mel_halo, log_mel_halo_plain),
                "log_mel_v1": (log_mel_v1, log_mel_v1_plain)}
-    for conv, (n, kw) in convs.items():
+    for conv, (tol_key, n, kw) in convs.items():
         audio = {b: 0.2 * torch.randn((b, n), generator=gen, device="cuda")
                  for b in (CHECK_B, BATCH)}
         for name, (kfn, pfn) in kernels.items():
@@ -687,23 +717,47 @@ def phase_log_mel(cfg, params, results):
                 raise AssertionError(f"{name} {conv}: {got.shape} {got.dtype} vs {want.shape} "
                                      f"{want.dtype}")
             mx, rel = compare(name, got, want, want, results)
-            rel_tol, max_tol = LOG_MEL_TOL[conv]
+            rel_tol, max_tol = LOG_MEL_TOL[tol_key]
             ok = mx <= max_tol and rel <= rel_tol
             log(f"  {name} {conv} {tuple(got.shape)} {got.dtype}: max_abs_err {mx:.4g} (tol "
                 f"{max_tol}) mean_abs_err / mean |out| {rel:.4g} (tol {rel_tol}) "
                 f"{'ok' if ok else 'FAIL'}")
             if not ok:
                 raise AssertionError(f"{name} {conv} disagrees with its plain version")
-            ms = cuda_ms(lambda: kfn(audio[BATCH], **kw))
+            if name in REDESIGNED:
+                again = {b: (lambda b=b: kfn(audio[b], **kw)) for b in (CHECK_B, BATCH)}
+                check_repeats(f"{name} {conv}", ((CHECK_B, got, again[CHECK_B]),
+                                                 (BATCH, again[BATCH](), again[BATCH])))
+            ms = cuda_ms(lambda: kfn(audio[BATCH], **kw), TIMING_ITERS.get(name, 10),
+                         warmup=10 if name in TIMING_ITERS else 2)
             pms = cuda_ms(lambda: pfn(audio[BATCH], **kw), iters=3)
-            frames, n_keep = got.shape[1], 384 if conv == "clap" else 256
-            b = bound({"bf16": 2 * BATCH * frames * kw["frame_length"] * 2 * n_keep,
-                       "f32": 2 * BATCH * frames * n_keep * 64},
+            frames, n_keep = got.shape[1], 384 if tol_key == "clap" else 256
+            dft = 2 * BATCH * frames * kw["frame_length"] * 2 * n_keep
+            b = bound({"bf16": dft, "f32": 2 * BATCH * frames * n_keep * 64},
                       BATCH * n * 4 + BATCH * frames * 64 * got.element_size())
             log(f"    B={BATCH}: kernel {ms:.4f} ms, plain {pms:.4f} ms, bound {b[0]:.4f} ms "
-                f"({b[1]})")
+                f"({b[1]}); the DFT's {dft:.4g} operations at {dft / (ms * 1e-3) / 1e12:.1f} "
+                f"TFLOP/s over the kernel's time")
             if conv == "clap":
                 results[name].update(ms=ms, plain_ms=pms, bound_ms=b[0], bound_by=b[1])
+
+
+def sass_check(lib_path: str) -> None:
+    """``cuobjdump -sass`` of the built kernel library: each kernel of
+    ``SASS_WANT`` has instantiations, and they contain its instructions."""
+    exe = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    sass = subprocess.run([exe, "-sass", lib_path], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    functions = re.split(r"\n\s*Function : ", sass)[1:]
+    for name, (symbol, ops) in SASS_WANT.items():
+        bodies = [f for f in functions if symbol in f.split("\n", 1)[0]]
+        counts = {op: sum(b.count(op) for b in bodies) for op in ops}
+        ok = bool(bodies) and all(counts.values())
+        log(f"  SASS of {name} ({symbol}, {len(bodies)} instantiations): "
+            + ", ".join(f"{op} x{n}" for op, n in counts.items()) + f" {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{name}: {symbol} lacks {ops} in its SASS")
 
 
 def phase_fad_tail():
@@ -1120,8 +1174,9 @@ def main() -> int:
     log(card)
 
     t0 = time.perf_counter()
-    kernels.build()
+    lib = kernels.build()
     log(f"phase 2 build: {time.perf_counter() - t0:.2f} s (nvcc {kernels.build_seconds} s)")
+    sass_check(lib._name)
 
     log("phase 3 kernels vs plain")
     cfg = HTSAT_BASE

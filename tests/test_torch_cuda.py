@@ -398,6 +398,41 @@ def test_log_mel_kernel_matches_plain(cuda, params, conv):
     _close(got, want, want, *LOG_MEL_TOL[conv])
 
 
+@pytest.mark.parametrize("seconds,b", [(10, 64), (7, 3)])
+def test_log_mel_sm90_core(cuda, params, seconds, b):
+    """The halo log-mel on the wgmma core at the 10 s path's batch and on
+    ragged 7 s clips (701 frames: a last row tile of 61 rows), CLAP
+    convention, against the plain version; a second run is bitwise equal
+    (no atomics)."""
+    fr = ClapFrontend(params, cfg).to(cuda)
+    fb = mel_filter_bank(513, 64, 50.0, 14000.0, SAMPLE_RATE, norm="slaney",
+                         mel_scale="slaney").astype(np.float32)
+    kw = dict(frame_length=1024, hop_length=480, n_fft=1024, fb=fb, center=True, log_mode="db",
+              out_affine=(fr.bn_scale, fr.bn_offset), out_dtype=torch.bfloat16)
+    g = torch.Generator(device=cuda).manual_seed(31 + b)
+    audio = 0.2 * torch.randn((b, seconds * SAMPLE_RATE), generator=g, device=cuda)
+    got, again = log_mel_halo(audio, **kw), log_mel_halo(audio, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    want = log_mel_halo_plain(audio, **kw)
+    assert got.shape == want.shape == (b, seconds * 100 + 1, 64)
+    _close(got, want, want, *LOG_MEL_TOL["clap"])
+
+
+@pytest.mark.parametrize("n,m", [(10000, 12345), (512, 512)])
+def test_pairwise_stats_split_kernel(cuda, n, m):
+    """The statistics on #4's product loop where the columns split into
+    several runs of tiles, ragged against them (10000 x 12345), and where
+    each split is one tile (512 x 512)."""
+    ref, cand = _embeddings(cuda, n, m, 512, seed=n + m + 1)
+    rr, cr = knn_radii_plain(ref, 10), knn_radii_plain(cand, 10)
+    got = pairwise_stats(ref, cand, rr, cr)
+    want = pairwise_stats_plain(ref, cand, rr, cr)
+    n_diff, bad = stats_mismatches(ref, cand, got, want, (rr, cr))
+    assert bad == 0, f"{bad} of {n_diff} differing elements are not near-ties"
+    torch.testing.assert_close(got[3], want[3], rtol=1e-5, atol=1e-6)
+
+
 def _half_block(params, cuda, stage, shift, attention):
     res = cfg.grid_size // 2**stage
     return SwinBlock(

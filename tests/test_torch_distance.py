@@ -32,11 +32,13 @@ from audio_metrics_tpu_torch.data import AudioMetricsData
 from audio_metrics_tpu_torch.metrics.kd import kernel_distance
 from audio_metrics_tpu_torch.metrics.prdc import prdc
 from audio_metrics_tpu_torch.ops.distance import (
+    check_depth,
+    column_splits,
     knn_radii,
     pairwise_stats,
     prdc_device,
 )
-from audio_metrics_tpu_torch.testing import stats_mismatches
+from audio_metrics_tpu_torch.testing import near_duplicate_rows, stats_mismatches
 
 PRDC_KEYS = ("precision", "recall", "density", "coverage")
 
@@ -232,3 +234,106 @@ def test_kd_reference_cache_over_many_candidate_sizes():
         fresh.add_embeddings(ref)
         kw = dict(kid_subsets=5, kid_subset_size=10)
         assert kernel_distance(cand, shared, **kw) == kernel_distance(cand, fresh, **kw), n1
+
+
+# ---- the PRDC statistics kernel (#5) on the kNN kernel's product loop ----
+#
+# Blocks (128-row reference tile, candidate column split) as
+# ``column_splits`` sizes them; each 128 x 128 tile's distances reduce to a
+# count and an any per column, combined across row tiles as atomicAdd and
+# atomicOr combine them, and to an any and a min per row, carried across the
+# split's tiles and combined across splits as atomicOr and atomicMin do.
+# Emulated here on the plain version's own distances, the reductions must
+# equal ``pairwise_stats_plain`` exactly; on distances from the kernel's
+# product order (f32 FMAs in depth order from 0, each an exact float64
+# product and sum rounded to f32), they equal it up to near-ties, and
+# ``ref_min`` within rtol 1e-5 / atol 1e-6.
+
+SMS = 132  # an H100's SM count; the wrapper takes the card's own
+
+
+def _fma_chain_dists(ref, cand):
+    dot = torch.zeros((ref.shape[0], cand.shape[0]), dtype=torch.float32)
+    for c in range(ref.shape[1]):
+        dot = (dot.double() + ref[:, c, None].double() * cand[None, :, c].double()).float()
+    sq_r, sq_c = (ref * ref).sum(1), (cand * cand).sum(1)
+    return torch.sqrt(torch.clamp((sq_r[:, None] + sq_c[None, :]) - 2.0 * dot, min=0.0))
+
+
+def _plain_dists(ref, cand):
+    sq_r, sq_c = (ref * ref).sum(1), (cand * cand).sum(1)
+    return torch.sqrt(torch.clamp((sq_r[:, None] + sq_c[None, :]) - 2.0 * (ref @ cand.T),
+                                  min=0.0))
+
+
+def _stats_tiled(dist, rr, cr, count_stored=False):
+    """The kernel's reductions over ``dist`` (n_ref, n_cand), tile by tile;
+    ``count_stored`` stores each tile's count where the kernel adds it."""
+    n_ref, n_cand = dist.shape
+    splits, split_cols = column_splits(n_ref, n_cand, SMS)
+    cand_count = torch.zeros(n_cand, dtype=torch.int32)
+    cand_any = torch.zeros(n_cand, dtype=torch.bool)
+    ref_any = torch.zeros(n_ref, dtype=torch.bool)
+    ref_min = torch.full((n_ref,), float("inf"))
+    for r0 in range(0, n_ref, 128):
+        rows = slice(r0, min(n_ref, r0 + 128))
+        for s in range(splits):
+            any_r = torch.zeros(rows.stop - r0, dtype=torch.bool)
+            min_r = torch.full((rows.stop - r0,), float("inf"))
+            c_end = min(n_cand, (s + 1) * split_cols)
+            for c0 in range(s * split_cols, c_end, 128):
+                cols = slice(c0, min(c_end, c0 + 128))
+                d = dist[rows, cols]
+                count = (d < rr[rows, None]).sum(0, dtype=torch.int32)
+                cand_count[cols] = count if count_stored else cand_count[cols] + count
+                cand_any[cols] |= count > 0
+                any_r |= (d < cr[None, cols]).any(1)
+                min_r = torch.minimum(min_r, d.min(1).values)
+            ref_any[rows] |= any_r
+            ref_min[rows] = torch.minimum(ref_min[rows], min_r)
+    return cand_any, cand_count, ref_any, ref_min
+
+
+def _stats_sets(kind):
+    rng = np.random.default_rng(len(kind))
+    if kind == "near-duplicates":  # unit rows in groups of 8; ref and cand share the groups
+        x = near_duplicate_rows(600, 64, seed=5, device="cpu")
+        return x[0::2].contiguous(), x[1::2].contiguous()
+    n, m = {"gaussian 100 x 77": (100, 77), "gaussian 300 x 129": (300, 129),
+            "gaussian 1000 x 1237": (1000, 1237)}[kind]
+    ref = rng.normal(size=(n, 512)).astype(np.float32)
+    cand = (0.05 + 1.02 * rng.normal(size=(m, 512))).astype(np.float32)
+    return torch.from_numpy(ref), torch.from_numpy(cand)
+
+
+@pytest.mark.parametrize("kind", ["gaussian 100 x 77", "gaussian 300 x 129",
+                                  "gaussian 1000 x 1237", "near-duplicates"])
+def test_stats_tile_reductions_match_plain(kind):
+    ref, cand = _stats_sets(kind)
+    k = 3 if kind == "near-duplicates" else 10
+    rr, cr = knn_radii(ref, k), knn_radii(cand, k)
+    want = pairwise_stats(ref, cand, rr, cr)  # CPU tensors: the plain version
+    got = _stats_tiled(_plain_dists(ref, cand), rr, cr)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert 0 < float(want[0].float().mean()) < 1 or kind == "near-duplicates"
+    got = _stats_tiled(_fma_chain_dists(ref, cand), rr, cr)
+    n_diff, bad = stats_mismatches(ref, cand, got, want, (rr, cr))
+    assert bad == 0, f"{bad} of {n_diff} differing elements are not near-ties"
+    torch.testing.assert_close(got[3], want[3], rtol=1e-5, atol=1e-6)
+    if ref.shape[0] > 128:  # the check can fail: counts stored, not added, across row tiles
+        stored = _stats_tiled(_plain_dists(ref, cand), rr, cr, count_stored=True)
+        assert not torch.equal(stored[1], want[1])
+
+
+def test_stats_grid_and_depth_check():
+    """N = M = 2048 fills an H100: 16 row tiles x 16 one-tile splits; large
+    sets: about four blocks per SM.  Rows are read in 16-byte chunks."""
+    assert column_splits(2048, 2048, SMS) == (16, 128)
+    for n, m in ((10000, 12345), (20480, 20480), (100, 77)):
+        splits, split_cols = column_splits(n, m, SMS)
+        assert split_cols % 128 == 0 and (splits - 1) * split_cols < m <= splits * split_cols
+        assert -(-n // 128) * splits >= 4 * SMS or split_cols == 128
+    check_depth("pairwise_stats", 512)
+    with pytest.raises(NotImplementedError, match="16-byte"):
+        check_depth("pairwise_stats", 6)

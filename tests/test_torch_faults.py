@@ -9,16 +9,29 @@
   (then ``device``), and every argument the port does not implement raises
   ``NotImplementedError`` away from its default, so that one call never
   returns other keys in the two packages.
+
+- The fused frontend's plain version runs no kernel: its log-mel takes the
+  halo log-mel kernel's plain version on any device (it went through
+  ``log_mel_halo``, which launches that kernel on a CUDA tensor, so the
+  card compared the frontend kernel against a chain holding another
+  kernel).  Pinned on the CPU with ``log_mel_halo`` made to raise.
+
+And the planted faults of ``audio_metrics_tpu_torch.plant_faults``, which
+show on a card that the smoke's checks fail a wrong kernel: each one's text
+occurs exactly once in its source, so that no planted fault is silently
+absent when the sources change.
 """
 
 import contextlib
 import inspect
 
+import numpy as np
 import pytest
 import torch
 
 from audio_metrics_tpu import AudioMetrics as JaxAudioMetrics
 from audio_metrics_tpu_torch import AudioMetrics, kernels
+from audio_metrics_tpu_torch.plant_faults import FAULTS, ROOT
 
 
 class _OnCard1(torch.Tensor):
@@ -121,3 +134,28 @@ def test_ported_arguments_at_their_defaults_build():
     am = AudioMetrics(["fad", "kd"], None, None, _Embedder(), None, 5.0, None, None, 32, False,
                       None, "cpu")
     assert am.metrics == ["fad", "kd"] and am.win_dur == 5.0 and am.batch_size == 32
+
+
+@pytest.mark.parametrize("name", sorted(FAULTS))
+def test_planted_fault_occurs_once_in_its_source(name):
+    path, text, replacement, _ = FAULTS[name]
+    assert text != replacement
+    assert (ROOT / path).read_text().count(text) == 1
+
+
+def test_frontend_plain_version_calls_no_kernel_wrapper(monkeypatch):
+    from audio_metrics_tpu_torch.models.clap import ClapFrontend
+    from audio_metrics_tpu_torch.models.htsat import HTSATConfig, init_params
+    from audio_metrics_tpu_torch.ops import mel
+    from audio_metrics_tpu_torch.ops.frontend_fused import clap_tokens_fused_plain
+
+    def wrapper(*args, **kwargs):
+        raise AssertionError("the plain chain called the halo log-mel kernel's wrapper")
+
+    monkeypatch.setattr(mel, "log_mel_halo", wrapper)
+    cfg = HTSATConfig(embed_dim=32, depths=(2, 2, 2, 2), num_heads=(1, 2, 4, 8))
+    fr = ClapFrontend(init_params(cfg, seed=0), cfg)
+    audio = torch.from_numpy(np.random.default_rng(0).normal(size=(1, 240000)).astype(np.float32))
+    tokens = clap_tokens_fused_plain(0.2 * audio, fr, sr=48000, cfg=cfg)
+    assert tokens.shape == (1, cfg.grid_size ** 2, cfg.embed_dim)
+    assert tokens.dtype == torch.bfloat16 and bool(torch.isfinite(tokens.float()).all())

@@ -2,8 +2,9 @@
 selection, emulated on the CPU.
 
 The kernel (kernels/csrc/distance.cu) splits the columns among blocks
-(``ops.distance.knn_splits``), keeps each row's k smallest squared
-distances per split, then merges a row's lists and takes the k-th.  The
+(``ops.distance.column_splits`` of the n rows against themselves), keeps
+each row's k smallest squared distances per split, then merges a row's
+lists and takes the k-th.  The
 emulation here takes the k smallest of each split with ``topk`` and must
 equal ``topk`` over all columns, value for value, with duplicate rows and
 massive ties (integer points), at the smoke's and the card tests' sizes.
@@ -22,7 +23,7 @@ import pytest
 import torch
 
 from audio_metrics_tpu.ops.distance import knn_radii_pallas
-from audio_metrics_tpu_torch.ops.distance import knn_radii_plain, knn_splits
+from audio_metrics_tpu_torch.ops.distance import column_splits, knn_radii_plain
 from audio_metrics_tpu_torch.testing import near_duplicate_rows
 
 SMS = 132  # an H100's SM count; the split helper takes the card's own
@@ -32,7 +33,7 @@ def _split_select(d2, k, sms=SMS):
     """The kernel's selection: per split the k smallest (+inf filling a
     split of fewer columns), then the k-th smallest of their union."""
     n = d2.shape[1]
-    splits, split_cols = knn_splits(n, sms)
+    splits, split_cols = column_splits(n, n, sms)
     assert (splits - 1) * split_cols < n <= splits * split_cols and split_cols % 128 == 0
     lists = []
     for s in range(splits):
@@ -69,9 +70,9 @@ def test_split_then_merge_equals_topk(n, k):
 def test_splits_fill_the_card():
     """N = 2048 (the main path's sets): 16 row tiles x 16 splits, one
     128-column tile each; large N: about four blocks per SM."""
-    assert knn_splits(2048, SMS) == (16, 128)
+    assert column_splits(2048, 2048, SMS) == (16, 128)
     for n in (1237, 10000, 12345, 20480, 100000):
-        splits, split_cols = knn_splits(n, SMS)
+        splits, split_cols = column_splits(n, n, SMS)
         assert -(-n // 128) * splits >= 4 * SMS or split_cols == 128
 
 

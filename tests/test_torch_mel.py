@@ -18,6 +18,10 @@ f32 XLA path.  The plain
 products in another order over 1024-sample frames).  The CLAP embedder at
 10 s and 3 s windows in f32 against ``LaionCLAP`` of the JAX package, atol
 1e-6 (unit vectors; measured ~1e-7).
+
+The halo log-mel kernel's host side (its hop rows, frame map, K-major
+basis and fused epilogue order) against ``log_mel_halo_plain``: see the
+section below.
 """
 
 import numpy as np
@@ -44,10 +48,15 @@ from audio_metrics_tpu_torch.models.clap import (
 )
 from audio_metrics_tpu_torch.models.htsat import HTSATConfig, frontend_tokens, init_params
 from audio_metrics_tpu_torch.ops.mel import (
+    _kernel_tables,
+    _reflect_pad,
+    halo_dft_map,
     log_mel_halo,
+    log_mel_halo_plain,
     log_mel_spectrogram,
     log_mel_v1,
     mel_filter_bank,
+    plain_operands,
 )
 
 CONVENTIONS = {
@@ -216,3 +225,168 @@ def test_clap_rejects_clips_longer_than_10_s():
     emb = LaionCLAP(params=_params(cfg), cfg=cfg, device="cpu")
     with pytest.raises(ValueError, match="10 s"):
         emb.embed(torch.zeros((1, 480000 + 480)))
+
+
+# ---- the halo log-mel kernel (#6) on the wgmma core: its host side ----
+#
+# The kernel (kernels/csrc/log_mel.cu) writes the bf16 hop-row signal
+# (halo_rows_kernel), reads its DFT's A through the 3-D TMA map that
+# ``ops.mel.halo_dft_map`` tabulates, B as the K-major basis of
+# ``_kernel_tables(..., k_major=True)``, and sums powers into the mel one N
+# tile of 64 bins at a time.  Here the hop rows are built by the kernel's
+# index formula, the map is materialised with ``torch.as_strided`` box by
+# box (rows past the map's extent zero, as TMA fills them), and both
+# operands must equal the plain version's frames and basis bitwise; the
+# epilogue's order, emulated, must meet chip_smoke.py's LOG_MEL_TOL against
+# ``log_mel_halo_plain`` (and two planted faults of it must not).
+
+LOG_MEL_TOL = {"clap": (1e-5, 0.25), "vggish": (1e-6, 3e-5)}  # as in chip_smoke.py
+HALO_CASES = {"clap 10 s": ("clap", 10), "clap 7 s": ("clap", 7), "clap 3 s": ("clap", 3),
+              "vggish 10 s": ("vggish", 10)}
+
+
+def _halo_case(case, b=2, seed=0):
+    conv, seconds = HALO_CASES[case]
+    c = CONVENTIONS[conv]
+    rng = np.random.default_rng(seed)
+    audio = torch.from_numpy((0.2 * rng.normal(size=(b, seconds * c["sr"]))).astype(np.float32))
+    kw = dict(frame_length=c["frame"], hop_length=c["hop"], n_fft=c["n_fft"], fb=_fb(c),
+              center=c["center"], log_mode=c["log_mode"])
+    if conv == "clap":  # the BatchNorm fold, bf16 out (the model path)
+        kw.update(out_affine=(torch.from_numpy((rng.normal(size=64) * 0.3 + 1).astype(np.float32)),
+                              torch.from_numpy(rng.normal(size=64).astype(np.float32))),
+                  out_dtype=torch.bfloat16)
+    return conv, audio, kw
+
+
+def _hop_rows(audio, amap):
+    """The kernel's first launch: hops[z][j] = bf16(x[half - j]), x[j - half],
+    x[2n - 2 - (j - half)], then 0, for j < clip_stride."""
+    n, half, clip_stride = audio.shape[1], amap["half"], amap["strides"][1]
+    s = np.arange(clip_stride) - half
+    src = np.where(s < 0, -s, np.where(s < n, s, 2 * n - 2 - s))
+    valid = torch.from_numpy(s < n + half)
+    rows = audio[:, torch.from_numpy(np.clip(src, 0, n - 1))] * valid
+    return rows.to(torch.bfloat16)
+
+
+def _frames_through_the_map(hops, amap):
+    """A as the producer loads it: per clip z and 128-row tile, the boxes of
+    every K step cut from the map's extent viewed with ``as_strided``, rows
+    past it zero; (B, tiles * 128, k_pad)."""
+    (k_pad, n_frames, b), (hop, clip_stride), box = amap["dims"], amap["strides"], amap["box"]
+    assert box == (64, 128, 1) and k_pad % box[0] == 0 and (2 * hop) % 16 == 0
+    assert (2 * clip_stride) % 16 == 0
+    view = torch.as_strided(hops.reshape(-1), (b, n_frames, k_pad), (clip_stride, hop, 1))
+    tiles = -(-n_frames // box[1])
+    a = torch.zeros((b, tiles * box[1], k_pad), dtype=hops.dtype)
+    for t in range(tiles):
+        for k in range(0, k_pad, box[0]):
+            cut = view[:, t * box[1]:(t + 1) * box[1], k:k + box[0]]
+            a[:, t * box[1]:t * box[1] + cut.shape[1], k:k + box[0]] = cut
+    return a
+
+
+def _kernel_operands(audio, kw):
+    amap = halo_dft_map(audio.shape[0], audio.shape[1], kw["frame_length"], kw["hop_length"],
+                        kw["center"])
+    fb = np.ascontiguousarray(kw["fb"], np.float32)
+    basis_t, fb_p, n_keep = _kernel_tables(kw["frame_length"], amap["dims"][0], kw["n_fft"],
+                                           fb.tobytes(), fb.shape[1], "cpu", True)
+    return amap, _frames_through_the_map(_hop_rows(audio, amap), amap), basis_t, fb_p
+
+
+@pytest.mark.parametrize("case", list(HALO_CASES))
+def test_halo_map_and_basis_are_the_plain_operands(case):
+    """The frames read through the map and the K-major basis equal the plain
+    version's bf16 frames and basis bitwise; the K padding reads zero basis
+    columns, the rows past n_frames are zero."""
+    conv, audio, kw = _halo_case(case)
+    amap, a, basis_t, fb_p = _kernel_operands(audio, kw)
+    frame, (k_pad, n_frames, b) = kw["frame_length"], amap["dims"]
+    x = _reflect_pad(audio, frame) if kw["center"] else audio
+    frames, basis, fb_rows = plain_operands(x, frame, frame_length=frame,
+                                            hop_length=kw["hop_length"], n_fft=kw["n_fft"],
+                                            fb=kw["fb"])
+    assert (b, n_frames) == frames.shape[:2] and 0 <= k_pad - frame < 64
+    assert torch.equal(a[:, :n_frames, :frame].float(), frames)
+    assert not a[:, n_frames:].any()
+    n_keep = fb_rows.shape[0]
+    assert basis_t.shape == (2 * fb_p.shape[0], k_pad) and fb_p.shape[0] % 64 == 0
+    assert torch.equal(basis_t[0:2 * n_keep:2, :frame].float().T, basis[:, :n_keep])
+    assert torch.equal(basis_t[1:2 * n_keep:2, :frame].float().T, basis[:, n_keep:])
+    assert not basis_t[:, frame:].any() and not basis_t[2 * n_keep:].any()
+    assert torch.equal(fb_p[:n_keep], fb_rows) and not fb_p[n_keep:].any()
+
+
+def _fused_epilogue(a, basis_t, fb_p, kw, reset_every_tile=False, affine_first=False):
+    """The kernel's arithmetic in its order: f32 products, then per N tile of
+    128 basis rows the 64 powers re^2 + im^2 summed into the mel bin by bin
+    (each step an FMA: the exact float64 product and sum, rounded to f32),
+    after the last tile log, affine and the output rounding."""
+    acc = torch.matmul(a.float(), basis_t.float().T)
+    mel = torch.zeros(acc.shape[:2] + (64,), dtype=torch.float32)
+    for nt in range(basis_t.shape[0] // 128):
+        if reset_every_tile:
+            mel.zero_()
+        blk = acc[..., nt * 128:(nt + 1) * 128]
+        power = blk[..., 0::2] * blk[..., 0::2] + blk[..., 1::2] * blk[..., 1::2]
+        for f in range(64):
+            w = fb_p[nt * 64 + f].double()
+            mel = (mel.double() + power[..., f, None].double() * w).float()
+    affine = kw.get("out_affine")
+    if affine_first and affine is not None:
+        mel = mel * affine[0] + affine[1]
+    if kw["log_mode"] == "db":
+        lm = 10.0 * (torch.log(torch.clamp(mel, min=1e-10)) * 0.43429448190325176)
+    else:
+        lm = torch.log(mel + 0.01)
+    if affine is not None and not affine_first:
+        lm = lm * affine[0] + affine[1]
+    return lm.to(kw.get("out_dtype") or torch.float32)
+
+
+def _log_mel_err(got, want):
+    err = (got.float() - want.float()).abs()
+    return err.mean().item() / want.float().abs().mean().item(), err.max().item()
+
+
+@pytest.mark.parametrize("case", ["clap 10 s", "clap 7 s", "clap 3 s", "vggish 10 s"])
+def test_halo_fused_epilogue_order_matches_plain(case):
+    """Emulated in the kernel's order, within chip_smoke.py's LOG_MEL_TOL of
+    ``log_mel_halo_plain``; the check fails with the mel accumulator reset
+    at every N tile, and (CLAP, whose BatchNorm fold is an affine) with the
+    affine before the log."""
+    conv, audio, kw = _halo_case(case, seed=1)
+    amap, a, basis_t, fb_p = _kernel_operands(audio, kw)
+    n_frames = amap["dims"][1]
+    want = log_mel_halo_plain(audio, **kw)
+    got = _fused_epilogue(a, basis_t, fb_p, kw)[:, :n_frames]
+    assert got.shape == want.shape and got.dtype == want.dtype
+    rel, mx = _log_mel_err(got, want)
+    rel_tol, max_tol = LOG_MEL_TOL[conv]
+    assert rel <= rel_tol and mx <= max_tol, (rel, mx)
+    rel, mx = _log_mel_err(_fused_epilogue(a, basis_t, fb_p, kw, reset_every_tile=True)
+                           [:, :n_frames], want)
+    assert rel > 10 * rel_tol and mx > max_tol
+    if conv == "clap":
+        rel, mx = _log_mel_err(_fused_epilogue(a, basis_t, fb_p, kw, affine_first=True)
+                               [:, :n_frames], want)
+        assert rel > 10 * rel_tol and mx > max_tol
+
+
+@pytest.mark.parametrize("frame,hop,center,k_pad", [(1024, 480, True, 1024), (400, 160, False, 448),
+                                                    (1024, 484, True, None)])
+def test_halo_map_shape_checks(frame, hop, center, k_pad):
+    """The frame stride must be 16 bytes (hop % 8); K is the frame padded to
+    the 64-element box; the signal rows hold the last frame's k_pad
+    samples."""
+    if k_pad is None:
+        with pytest.raises(NotImplementedError, match="hop"):
+            halo_dft_map(2, 48000, frame, hop, center)
+        return
+    amap = halo_dft_map(2, 48000, frame, hop, center)
+    (kp, n_frames, b), (stride, clip_stride) = amap["dims"], amap["strides"]
+    assert (kp, b, stride) == (k_pad, 2, hop) and amap["box"] == (64, 128, 1)
+    assert clip_stride % 8 == 0 and clip_stride >= (n_frames - 1) * hop + kp
+    assert n_frames == (48000 + (frame if center else 0) - frame) // hop + 1
