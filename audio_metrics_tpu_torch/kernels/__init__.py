@@ -15,8 +15,9 @@ Nothing here runs at import: the CPU test suite imports every module on a
 host without ``nvcc`` or a card.
 
 Dispatch rule (the ops modules): a CPU tensor goes to the kernel's plain
-PyTorch version; a CUDA tensor launches the kernel or raises.  There is no
-fallback.
+PyTorch version; a CUDA tensor launches the kernel for its dtype (bf16, or
+f32 where an f32 kernel exists: the whole Swin block and the patch merge)
+or raises.  There is no fallback, and no cast between the two.
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["Kernel", "KERNELS", "build", "check_sm90_gemm", "require_cuda"]
+__all__ = ["Kernel", "KERNELS", "build", "check_sm90_gemm", "refuse_f32", "require_cuda"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD = Path(__file__).resolve().parent / "build"
@@ -114,6 +115,18 @@ def require_cuda(*tensors: torch.Tensor, dtype=torch.bfloat16) -> None:
             raise ValueError("kernel operands must be contiguous and 16-byte aligned")
         if t.dtype != dtype:
             raise NotImplementedError(f"the CUDA kernels take {dtype} here, got {t.dtype}")
+
+
+def refuse_f32(name: str, x: torch.Tensor) -> None:
+    """Raise ``NotImplementedError`` for f32 activations on the card where
+    the kernel ``name`` takes bf16 only (the split block's halves: their f32
+    counterparts are ROADMAP.md Queue 2 B); a cast would be a fallback."""
+    if x.dtype == torch.float32:
+        raise NotImplementedError(
+            f"{name}: the kernel takes bf16 activations; its f32 counterpart is not ported "
+            "(ROADMAP.md Queue 2 B). In f32 the default configuration runs every Swin block "
+            "whole (AM_TPU_V4_STAGES and AM_TPU_ATTN_V1 unset)"
+        )
 
 
 def check_sm90_gemm(name: str, n: int, k: int, *strides: int) -> None:
@@ -231,6 +244,18 @@ KERNELS = {
             "swin_mlp_int8",
             "audio_metrics_tpu_torch/kernels/csrc/mlp_int8.cu",
             "audio_metrics_tpu/ops/mlp.py:228",
+        ),
+        # the f32 instantiations of #1 and #2 (the JAX kernels take the
+        # activation dtype): one wrapper, their own launch counts
+        Kernel(
+            "swin_block_f32",
+            "audio_metrics_tpu_torch/kernels/csrc/swin_block.cu",
+            "audio_metrics_tpu/ops/attention.py:1109",
+        ),
+        Kernel(
+            "patch_merge_f32",
+            "audio_metrics_tpu_torch/kernels/csrc/patch_merge.cu",
+            "audio_metrics_tpu/ops/merge.py:138",
         ),
     )
 }

@@ -63,23 +63,18 @@
 // radius below 0 matches nothing; d < r is compared after the sqrt,
 // strictly, as the TPU kernel does (comparing d^2 < r^2 flips near-ties);
 // offsets are 64-bit: N*d may pass 2^31.
-#include <cuda_runtime.h>
 #include <math_constants.h>
-#include <stdint.h>
+
+#include "simt_f32.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;
 constexpr int KMAX = 128;       // widest k-smallest list (the TPU scratch's width)
 
-// knn and stats: 128 query rows x 128 columns per tile, depth steps of 32 floats;
-// thread (ty, tx) of a 16 x 16 grid computes rows ty + 16 i and columns
-// tx + 16 j (i, j < TM = 8).  Shared memory: two stages of the A and B
-// tiles (rows padded to 36 floats), reused for the 128 x 129 distance tile;
-// then knn's (128, k) lists, or stats' radii of the tile's rows and columns.
-constexpr int KNN_BM = 128, KNN_BN = 128, KNN_BK = 32, PITCH = KNN_BK + 4, TM = 8;
-constexpr int STAGE_FLOATS = (KNN_BM + KNN_BN) * PITCH, DPITCH = KNN_BN + 1;
-constexpr int TILE_FLOATS = 2 * STAGE_FLOATS;
+// The product loop's tiles (simt_f32.cuh, 128 x 128, 32-deep stages) are
+// reused for the 128 x 129 distance tile; then knn's (128, k) lists, or
+// stats' radii of the tile's rows and columns.
+constexpr int DPITCH = KNN_BN + 1;
 static_assert(KNN_BM * DPITCH <= TILE_FLOATS, "the distance tile reuses the stages");
 constexpr int MERGE_WARPS = 8;
 
@@ -87,90 +82,6 @@ constexpr int MERGE_WARPS = 8;
 // (|a|^2 + |b|^2) - 2 a.b, clamped at 0, no fused multiply-add.
 __device__ __forceinline__ float sq_dist(float sa, float sb, float dot) {
   return fmaxf(__fsub_rn(__fadd_rn(sa, sb), __fmul_rn(2.f, dot)), 0.f);
-}
-
-// 16 bytes global -> shared, asynchronously; zero-filled when !valid
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-// One stage: rows row0.. of a (na rows; the tile's A) and col0.. of b (nb
-// rows; its B), depth k0..k0+31 (d % 4 == 0), zero outside.
-__device__ __forceinline__ void load_stage(float* st, const float* __restrict__ a, int na,
-                                           const float* __restrict__ b, int nb, int d, int row0,
-                                           int col0, int k0) {
-  for (int i = threadIdx.x; i < (KNN_BM + KNN_BN) * (KNN_BK / 4); i += THREADS) {
-    const int r = i / (KNN_BK / 4), kc = (i % (KNN_BK / 4)) * 4, k = k0 + kc;
-    const bool is_a = r < KNN_BM;
-    const int row = is_a ? row0 + r : col0 + r - KNN_BM;
-    const float* x = is_a ? a : b;
-    const bool ok = row < (is_a ? na : nb) && k < d;
-    cp_async16(st + r * PITCH + kc, ok ? x + (size_t)row * d + k : x, ok);
-  }
-}
-
-// The dot products of a 128 x 128 tile: rows row0.. of a against rows
-// col0.. of b, each an f32 FMA chain in depth order from 0 (the order of
-// the plain version's f32 product); acc[i][j] is row ty + 16 i, column
-// tx + 16 j of the tile (ty = tid / 16, tx = tid % 16).  `tiles` holds two
-// cp.async stages; free again when this returns.
-__device__ __forceinline__ void tile_products(const float* __restrict__ a, int na,
-                                              const float* __restrict__ b, int nb, int d,
-                                              int row0, int col0, float* tiles,
-                                              float (&acc)[TM][TM]) {
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int ksteps = (d + KNN_BK - 1) / KNN_BK;
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TM; ++j) acc[i][j] = 0.f;
-  load_stage(tiles, a, na, b, nb, d, row0, col0, 0);
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-  for (int ks = 0; ks < ksteps; ++ks) {
-    if (ks + 1 < ksteps) {
-      load_stage(tiles + ((ks + 1) & 1) * STAGE_FLOATS, a, na, b, nb, d, row0, col0,
-                 (ks + 1) * KNN_BK);
-      asm volatile("cp.async.commit_group;\n" ::: "memory");
-      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-    } else {
-      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-    }
-    __syncthreads();
-    const float* sA = tiles + (ks & 1) * STAGE_FLOATS + ty * PITCH;
-    const float* sB = tiles + (ks & 1) * STAGE_FLOATS + (KNN_BM + tx) * PITCH;
-#pragma unroll
-    for (int kk = 0; kk < KNN_BK; kk += 4) {
-      // four depths of each row and column, 16-byte reads (a warp's 16
-      // columns 36 floats apart cover the 32 banks twice: no conflict
-      // beyond the two wavefronts 256 bytes need), the columns in two
-      // halves so that 64 sums, 4 + 1 float4 and the addresses fit in
-      // the 128 registers two blocks per SM leave; each product is
-      // summed in depth order, as the plain version's f32 product sums it
-#pragma unroll
-      for (int jh = 0; jh < TM; jh += TM / 2) {
-        float4 bv[TM / 2];
-#pragma unroll
-        for (int j = 0; j < TM / 2; ++j)
-          bv[j] = *reinterpret_cast<const float4*>(sB + 16 * (jh + j) * PITCH + kk);
-#pragma unroll
-        for (int i = 0; i < TM; ++i) {
-          const float4 av = *reinterpret_cast<const float4*>(sA + 16 * i * PITCH + kk);
-#pragma unroll
-          for (int j = 0; j < TM / 2; ++j) {
-            float& c = acc[i][jh + j];
-            c = fmaf(av.x, bv[j].x, c);
-            c = fmaf(av.y, bv[j].y, c);
-            c = fmaf(av.z, bv[j].z, c);
-            c = fmaf(av.w, bv[j].w, c);
-          }
-        }
-      }
-    }
-    __syncthreads();
-  }
 }
 
 // Bisection on the float bits for the k-th smallest, with multiplicity, of

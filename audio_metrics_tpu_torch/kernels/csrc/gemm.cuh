@@ -112,6 +112,33 @@ __device__ __forceinline__ void sq8(const uint4& v, float mu, float& s) {
   }
 }
 
+// add8 / sq8 over the 16 bytes of a vector load of T: 8 bf16 or 4 f32 values,
+// summed in order
+template <typename T>
+__device__ __forceinline__ void add16(const uint4& v, float& s) {
+  if constexpr (sizeof(T) == 2) {
+    add8(v, s);
+  } else {
+    const float* f = reinterpret_cast<const float*>(&v);
+#pragma unroll
+    for (int t = 0; t < 4; ++t) s += f[t];
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void sq16(const uint4& v, float mu, float& s) {
+  if constexpr (sizeof(T) == 2) {
+    sq8(v, mu, s);
+  } else {
+    const float* f = reinterpret_cast<const float*>(&v);
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const float d = f[t] - mu;
+      s += d * d;
+    }
+  }
+}
+
 template <int AM, int EPI>
 __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(const GemmParams p) {
   constexpr int AB_BYTES = (BM * LDA_S + BK * LDB_S) * 2;
@@ -261,16 +288,20 @@ inline GemmParams gemm_params(int M, int N, int K, const bf16* A, long long lda,
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
 
+__device__ __forceinline__ void store_out(float v, float* o) { *o = v; }
+__device__ __forceinline__ void store_out(float v, bf16* o) { *o = __float2bfloat16(v); }
+
 // LayerNorm over segments of Cs f32 or bf16 values (one warp per segment,
-// centered two-pass f32 statistics), affine, bf16 out.  Segment s of input
+// centered two-pass f32 statistics), affine, bf16 (or, for the f32 Swin
+// block, f32) out.  Segment s of input
 // row r is written to output row r (nseg == 1), or, with tok_gw > 0, to the
 // Swin token row of the fused frontend: input rows are (clip, chunk*gw + g),
 // segments are frequency blocks fblk, and the token is
 // (chunk*nseg + fblk)*gw + g of its clip.
-template <typename InT>
+template <typename InT, typename OutT>
 __global__ void ln_rows_kernel(const InT* in, int rows, int nseg, int Cs,
                                const float* w, const float* b, float eps,
-                               bf16* out, int tok_gw, int tok_rg) {
+                               OutT* out, int tok_gw, int tok_rg) {
   const int seg_id = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (seg_id >= rows * nseg) return;
@@ -291,17 +322,16 @@ __global__ void ln_rows_kernel(const InT* in, int rows, int nseg, int Cs,
     const int chunk = q / tok_gw, g = q - chunk * tok_gw;
     orow = (long long)img * tok_rg * nseg + (long long)(chunk * nseg + s) * tok_gw + g;
   }
-  bf16* o = out + orow * Cs;
-  for (int c = lane; c < Cs; c += 32)
-    o[c] = __float2bfloat16((to_f32(x[c]) - mu) * rs * w[c] + b[c]);
+  OutT* o = out + orow * Cs;
+  for (int c = lane; c < Cs; c += 32) store_out((to_f32(x[c]) - mu) * rs * w[c] + b[c], o + c);
 }
 
-template <typename InT>
+template <typename InT, typename OutT>
 cudaError_t launch_ln_rows(const InT* in, int rows, int nseg, int Cs, const float* w,
-                           const float* b, float eps, bf16* out, int tok_gw, int tok_rg,
+                           const float* b, float eps, OutT* out, int tok_gw, int tok_rg,
                            cudaStream_t stream) {
   const int warps = 8, segs = rows * nseg;
-  ln_rows_kernel<InT><<<(segs + warps - 1) / warps, warps * 32, 0, stream>>>(
+  ln_rows_kernel<InT, OutT><<<(segs + warps - 1) / warps, warps * 32, 0, stream>>>(
       in, rows, nseg, Cs, w, b, eps, out, tok_gw, tok_rg);
   return cudaGetLastError();
 }
@@ -317,9 +347,6 @@ struct MelRows {
 };
 
 enum LogMode { LOG_DB = 0, LOG_NATURAL = 1 };
-
-__device__ __forceinline__ void store_out(float v, float* o) { *o = v; }
-__device__ __forceinline__ void store_out(float v, bf16* o) { *o = __float2bfloat16(v); }
 
 // Mel projection (f32 on the CUDA cores), log and optional per-bin affine
 // of (B, frame_rows, n_keep) f32 power rows, one warp per output row:

@@ -32,7 +32,18 @@
 //      which only reads that table;
 //   3. the epilogue: acc*rs + (tvec - mu*rs*svec), the plain version's
 //      order, bf16 out.
+//
+// am_patch_merge_f32, the f32 counterpart (the JAX kernel takes the
+// activation dtype): the same statistics pass in f32, then the product on
+// the SIMT f32 core (simt_f32.cuh; Hopper has no full-f32 tensor-core
+// product, so the operations bind at the CUDA cores' 67 TFLOP/s) with A
+// gathered by its loader policy MergeRowsF32: each 4-float chunk of a
+// 32-deep K step of the 4C concat lies in one quadrant (C % 4 == 0; at every
+// HTSAT merge C % 32 == 0, so a whole step does), so the loader reads it
+// straight from its source token and the concat never exists; the
+// EPI_MERGE epilogue in f32.
 #include "gemm_sm90.cuh"
+#include "simt_f32.cuh"
 
 namespace {
 
@@ -53,33 +64,51 @@ struct MergeA {
 };
 
 // Output row r = (b, i2, j2) of the (R/2)^2 grid: mean and 1/sigma of its 4C
-// concat values (centered two-pass, f32; the second pass re-reads the row
-// from L1).  C % 8 == 0.
+// concat values of T (bf16 or f32; centered two-pass, f32; the second pass
+// re-reads the row from L1).  16-byte loads; C % 8 == 0.
+template <typename T>
 __global__ void __launch_bounds__(STATS_WARPS * 32)
-    merge_stats_kernel(const bf16* __restrict__ x, int M, int R, int C, float eps,
+    merge_stats_kernel(const T* __restrict__ x, int M, int R, int C, float eps,
                        float* __restrict__ mu, float* __restrict__ rs) {
+  constexpr int VEC = 16 / sizeof(T);
   const int r = blockIdx.x * STATS_WARPS + threadIdx.x / 32, lane = threadIdx.x % 32;
   if (r >= M) return;
   const int h2 = R / 2, img = r / (h2 * h2), q = r - img * h2 * h2;
   const int i2 = q / h2, j2 = q - i2 * h2;
   // x00 of the row; quadrant (dy, dx = 0..1) starts dy*R*C further, its two
   // pixels side by side (2C contiguous values)
-  const bf16* x00 = x + ((long long)(img * R + 2 * i2) * R + 2 * j2) * C;
+  const T* x00 = x + ((long long)(img * R + 2 * i2) * R + 2 * j2) * C;
   float s = 0.f;
   for (int dy = 0; dy < 2; ++dy)
-    for (int k = lane * 8; k < 2 * C; k += 256)
-      add8(*reinterpret_cast<const uint4*>(x00 + (long long)dy * R * C + k), s);
+    for (int k = lane * VEC; k < 2 * C; k += 32 * VEC)
+      add16<T>(*reinterpret_cast<const uint4*>(x00 + (long long)dy * R * C + k), s);
   const float m = warp_sum(s) / (4 * C);
   float v = 0.f;
   for (int dy = 0; dy < 2; ++dy)
-    for (int k = lane * 8; k < 2 * C; k += 256)
-      sq8(*reinterpret_cast<const uint4*>(x00 + (long long)dy * R * C + k), m, v);
+    for (int k = lane * VEC; k < 2 * C; k += 32 * VEC)
+      sq16<T>(*reinterpret_cast<const uint4*>(x00 + (long long)dy * R * C + k), m, v);
   const float inv = rsqrtf(warp_sum(v) / (4 * C) + eps);  // every lane shuffles
   if (lane == 0) {
     mu[r] = m;
     rs[r] = inv;
   }
 }
+
+// The f32 core's loader of A, the quadrant concat (M, 4C) of x (B, R*R, C):
+// depths k..k+3 of output row `row` = (b, i2, j2) lie in quadrant q = k / C
+// of [x00, x10, x01, x11], (dy, dx) = (q & 1, q >> 1), at channel k % C of
+// token (2 i2 + dy, 2 j2 + dx) of image b.
+struct MergeRowsF32 {
+  const float* x;
+  int M, R, C;
+  __device__ __forceinline__ const float* operator()(int row, int k) const {
+    if (row >= M || k >= 4 * C) return nullptr;
+    const int h2 = R / 2, img = row / (h2 * h2), cell = row - img * h2 * h2;
+    const int i2 = cell / h2, j2 = cell - i2 * h2, q = k / C;
+    const int dy = q & 1, dx = q >> 1;
+    return x + ((long long)(img * R + 2 * i2 + dy) * R + 2 * j2 + dx) * C + (k - q * C);
+  }
+};
 
 }  // namespace
 
@@ -96,7 +125,7 @@ extern "C" int am_patch_merge(const bf16* x, const bf16* wg_t, const float* svec
                               cudaStream_t stream) {
   using namespace sm90;
   const int M = B * (R / 2) * (R / 2);
-  merge_stats_kernel<<<(M + STATS_WARPS - 1) / STATS_WARPS, STATS_WARPS * 32, 0, stream>>>(
+  merge_stats_kernel<bf16><<<(M + STATS_WARPS - 1) / STATS_WARPS, STATS_WARPS * 32, 0, stream>>>(
       x, M, R, C, eps, stats, stats + M);
   int e;
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
@@ -116,4 +145,21 @@ extern "C" int am_patch_merge(const bf16* x, const bf16* wg_t, const float* svec
   p.v0 = tvec; p.csum = svec; p.mu = stats; p.rs = stats + M;
   return gemm_mapped<EPI_MERGE>(ta, load_a, rows_of(wg_t, 2 * C, 4 * C, 4 * C), p, 4 * C, 1,
                                 stream);
+}
+
+// x: (B, R*R, C) f32; wg_t: (2C, 4C) f32 K-major; svec, tvec: (2C) f32;
+// stats: (2, M) f32 scratch; out: (B, (R/2)^2, 2C) f32.  R even, C % 8 ==
+// 0 (ops/merge.py check_merge_f32).
+extern "C" int am_patch_merge_f32(const float* x, const float* wg_t, const float* svec,
+                                  const float* tvec, int B, int R, int C, float eps,
+                                  float* stats, float* out, cudaStream_t stream) {
+  const int M = B * (R / 2) * (R / 2);
+  merge_stats_kernel<float><<<(M + STATS_WARPS - 1) / STATS_WARPS, STATS_WARPS * 32, 0,
+                              stream>>>(x, M, R, C, eps, stats, stats + M);
+  int e;
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  EpiF32 p = {};
+  p.M = M; p.N = 2 * C; p.out = out; p.ldo = 2 * C;
+  p.v0 = tvec; p.csum = svec; p.mu = stats; p.rs = stats + M;
+  return gemm_f32<EPI_MERGE>(MergeRowsF32{x, M, R, C}, wg_t, 4 * C, p, stream);
 }

@@ -35,42 +35,55 @@
 //   7. fc2 product + b2 + the f32 residual -> bf16 block output.
 // The rounding points are the first design's (and the plain version's):
 // qkv, probabilities, context, LN2 output and GELU output in bf16.
+//
+// am_swin_block_f32, the f32 counterpart (the JAX kernel takes the
+// activation dtype; the default CLAP embedder runs in f32): the same seven
+// steps with every intermediate f32, as swin_block_plain keeps them at f32
+// (no rounding point).  Hopper has no full-f32 tensor-core product, so the
+// four products run on the SIMT f32 core (simt_f32.cuh, gemm_f32 with the
+// same epilogue arithmetic, f32 out) at most at the 67 TFLOP/s of the CUDA
+// cores, and the window attention's products are f32 FMAs too
+// (window_attn.cuh's f32 instantiation).  The operations bound it.
 #include "gemm_sm90.cuh"
+#include "simt_f32.cuh"
 #include "window_attn.cuh"
 
 namespace {
 
 constexpr int LN1_WARPS = 8;
 
-// Window-ordered row rr <- row window_src(rr) of its image in x (B*R*R, C):
-// its LN1 mean and 1/sigma (centered two-pass, f32, summed in the order of
-// gemm.cuh's in-block prologue) and a bf16 copy.  C % 8 == 0, C <= 1024.
+// Window-ordered row rr <- row window_src(rr) of its image in x (B*R*R, C)
+// of T (bf16 or f32): its LN1 mean and 1/sigma (centered two-pass, f32,
+// summed in the order of gemm.cuh's in-block prologue) and a copy in T.
+// 16-byte loads (8 bf16 or 4 f32 values a lane); C % 8 == 0, C <= 1024.
+template <typename T>
 __global__ void __launch_bounds__(LN1_WARPS * 32)
-    ln1_window_kernel(const bf16* __restrict__ x, int M, int R, int win, int shift, int C,
-                      float eps, bf16* __restrict__ xw, float* __restrict__ mu,
+    ln1_window_kernel(const T* __restrict__ x, int M, int R, int win, int shift, int C,
+                      float eps, T* __restrict__ xw, float* __restrict__ mu,
                       float* __restrict__ rs) {
+  constexpr int VEC = 16 / sizeof(T), LOADS = 1024 / (32 * VEC);
   const int rr = blockIdx.x * LN1_WARPS + threadIdx.x / 32, lane = threadIdx.x % 32;
   if (rr >= M) return;
   const int rr2 = R * R, img = rr / rr2;
-  const bf16* src = x + ((long long)img * rr2 + window_src(rr - img * rr2, R, win, shift)) * C;
-  bf16* dst = xw + (long long)rr * C;
-  uint4 v[4];
+  const T* src = x + ((long long)img * rr2 + window_src(rr - img * rr2, R, win, shift)) * C;
+  T* dst = xw + (long long)rr * C;
+  uint4 v[LOADS];
   float s = 0.f;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int k = lane * 8 + i * 256;
+  for (int i = 0; i < LOADS; ++i) {
+    const int k = lane * VEC + i * 32 * VEC;
     if (k < C) {
       v[i] = *reinterpret_cast<const uint4*>(src + k);
-      add8(v[i], s);
+      add16<T>(v[i], s);
     }
   }
   const float m = warp_sum(s) / C;
   float q = 0.f;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int k = lane * 8 + i * 256;
+  for (int i = 0; i < LOADS; ++i) {
+    const int k = lane * VEC + i * 32 * VEC;
     if (k < C) {
-      sq8(v[i], m, q);
+      sq16<T>(v[i], m, q);
       *reinterpret_cast<uint4*>(dst + k) = v[i];
     }
   }
@@ -101,7 +114,7 @@ extern "C" int am_swin_block(const bf16* x, const bf16* wqkv_t, const float* csu
   const int M = B * R * R;
   int e;
 
-  ln1_window_kernel<<<(M + LN1_WARPS - 1) / LN1_WARPS, LN1_WARPS * 32, 0, stream>>>(
+  ln1_window_kernel<bf16><<<(M + LN1_WARPS - 1) / LN1_WARPS, LN1_WARPS * 32, 0, stream>>>(
       x, M, R, win, shift, C, eps, hbuf, stats, stats + M);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
 
@@ -132,4 +145,49 @@ extern "C" int am_swin_block(const bf16* x, const bf16* wqkv_t, const float* csu
   p.M = M; p.N = C; p.out = out; p.ldo = C; p.v0 = b2; p.res = res;
   return gemm<EPI_RESID>(rows_of(h1, M, 4 * C, 4 * C), rows_of(w2_t, C, 4 * C, 4 * C), p, 1,
                          stream);
+}
+
+// The f32 block: x, out (B, R, R, C) f32; weights as am_swin_block's, every
+// matrix f32 (N, K) K-major.  Scratch, all f32: stats (2, B*R*R), qkv
+// (B*R*R, 3C), ctx/hbuf (B*R*R, C) (hbuf first holds the window-ordered
+// rows, then the LN2 output), res (B*R*R, C), h1 (B*R*R, 4C).  C % 8 == 0,
+// C <= 1024 (ops/attention.py check_block_f32).
+extern "C" int am_swin_block_f32(const float* x, const float* wqkv_t, const float* csum,
+                                 const float* bq3, const float* wp_t, const float* bp,
+                                 const float* bm, int nbm, const float* ln2w, const float* ln2b,
+                                 const float* w1_t, const float* b1, const float* w2_t,
+                                 const float* b2, int B, int R, int C, int heads, int win,
+                                 int shift, float eps, float* stats, float* qkv, float* ctx,
+                                 float* res, float* hbuf, float* h1, float* out,
+                                 cudaStream_t stream) {
+  const int M = B * R * R;
+  int e;
+
+  ln1_window_kernel<float><<<(M + LN1_WARPS - 1) / LN1_WARPS, LN1_WARPS * 32, 0, stream>>>(
+      x, M, R, win, shift, C, eps, hbuf, stats, stats + M);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+
+  EpiF32 p = {};
+  p.M = M; p.N = 3 * C; p.out = qkv; p.ldo = 3 * C;
+  p.v0 = bq3; p.csum = csum; p.mu = stats; p.rs = stats + M;
+  if ((e = gemm_f32<EPI_QKV>(RowsF32{hbuf, M, C}, wqkv_t, C, p, stream))) return e;
+
+  if ((e = launch_window_attn(qkv, bm, nbm, M / WIN_N, heads, C, ctx, stream)) != cudaSuccess)
+    return e;
+
+  p = EpiF32{};
+  p.M = M; p.N = C; p.out = res; p.ldo = C;
+  p.R = R; p.win = win; p.shift = shift; p.v0 = bp; p.res = x;
+  if ((e = gemm_f32<EPI_PROJ>(RowsF32{ctx, M, C}, wp_t, C, p, stream))) return e;
+
+  if ((e = launch_ln_rows(res, M, 1, C, ln2w, ln2b, eps, hbuf, 0, 0, stream)) != cudaSuccess)
+    return e;
+
+  p = EpiF32{};
+  p.M = M; p.N = 4 * C; p.out = h1; p.ldo = 4 * C; p.v0 = b1;
+  if ((e = gemm_f32<EPI_GELU>(RowsF32{hbuf, M, C}, w1_t, C, p, stream))) return e;
+
+  p = EpiF32{};
+  p.M = M; p.N = C; p.out = out; p.ldo = C; p.v0 = b2; p.res = res;
+  return gemm_f32<EPI_RESID>(RowsF32{h1, M, 4 * C}, w2_t, 4 * C, p, stream);
 }

@@ -1,8 +1,10 @@
 """Embedder registry (counterpart of audio_metrics_tpu/models/__init__.py).
 
-The six LAION-CLAP names are registered; each needs a checkpoint, whose
-loading is not ported yet, so they raise until ``params=`` or random
-weights are given to :class:`LaionCLAP` directly.  ``vggish`` raises
+The six LAION-CLAP names build :class:`LaionCLAP` from their checkpoint
+(``ckpt`` = its URL, resolved locally first: ``$AM_TPU_CKPT_DIR/<basename>``,
+then the cache; ``utils.get_url.resolve_checkpoint``), in f32 by default.
+``get_embedder(name, **overrides)`` passes ``overrides`` (``device=``,
+``cfg=``, ``compute_dtype=``) to the constructor.  ``vggish`` raises
 ``NotImplementedError``.
 """
 

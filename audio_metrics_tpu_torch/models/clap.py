@@ -14,9 +14,17 @@ Counterpart of ``audio_metrics_tpu/models/clap.py``:
       -> audio_projection: linear1 -> relu -> linear2 -> l2-normalize
 
 Weights come from the framework-free numpy dict (HF Clap names) that
-``init_params`` / ``init_projection_params`` / the JAX package's
-``convert_checkpoint`` produce; ``convert.params_from_numpy`` folds them
-into the modules once at load.
+``init_params`` / ``init_projection_params`` / ``convert.convert_checkpoint``
+produce, or from a checkpoint file that ``LaionCLAP(ckpt=)`` resolves
+(``utils.get_url.resolve_checkpoint``: ``$AM_TPU_CKPT_DIR``, the cache) and
+converts; ``convert.params_from_numpy`` folds them into the modules once at
+load.
+
+In f32 (the default, as in the JAX package) the mel chain (repeat-pad, f32
+log-mel, BatchNorm, the frontend products) runs as PyTorch ops, the
+counterparts of the JAX package's XLA code, in full f32 (TF32 off for
+matmuls and cuDNN, ``utils.precision.full_f32``); the Swin blocks and
+merges launch their f32 kernels on the card.
 """
 
 from __future__ import annotations
@@ -32,6 +40,7 @@ from ..ops.frontend_fused import (
     fused_frontend_supported,
 )
 from ..ops.mel import log_mel_halo_plain, log_mel_spectrogram, mel_filter_bank
+from ..utils.precision import full_f32
 from .base import Embedder, _require_random_weights_optin, resolve_device
 from .htsat import HTSAT_BASE, HTSATConfig, HTSATEncoder, frontend_tokens, init_params
 
@@ -189,31 +198,41 @@ class ClapAudio(nn.Module):
         bf16 clips that tile 10 s; else the tiled repeat-pad mel where the
         clip tiles; else the repeat-padded 10 s clip's centered mel.  In
         bf16 the BatchNorm folds into the mel epilogue (bf16 out); in f32
-        it is applied to the f32 mel."""
+        it is applied to the f32 mel, and the whole forward runs in full
+        f32 (the encoder's blocks and merges launch their f32 kernels)."""
         cfg, dt, fr = self.cfg, self.compute_dtype, self.frontend
         n = audio.shape[1]
         if n > MAX_SAMPLES:
             raise ValueError(f"{n}-sample clips: CLAP takes at most 10 s ({MAX_SAMPLES} samples)")
-        bf16 = dt == torch.bfloat16
-        if audio.is_cuda and not bf16:
-            raise NotImplementedError(
-                "f32 compute runs on CPU tensors only; the CUDA kernels take bf16 "
-                "(ROADMAP.md Queue 1 item 3)"
-            )
-        if bf16 and fused_frontend_supported(n, SAMPLE_RATE, cfg):
+        if dt != torch.bfloat16:
+            with full_f32():
+                return self._projection_taps(self.encoder(self.f32_tokens(audio)))
+        if fused_frontend_supported(n, SAMPLE_RATE, cfg):
             tokens = clap_tokens_fused(audio, fr, sr=SAMPLE_RATE, cfg=cfg)
         else:
             kw = dict(compute_dtype=dt, out_affine=(fr.bn_scale, fr.bn_offset),
-                      out_dtype=torch.bfloat16) if bf16 else {}
+                      out_dtype=torch.bfloat16)
             if _can_tile_mel(n):
                 mel = clap_mel_tiled(audio, **kw)
             else:
                 mel = clap_mel(repeat_pad(audio), center=True, **kw)
-            if not bf16:
-                mel = (mel - fr.running_mean) * torch.rsqrt(fr.running_var + 1e-5) \
-                    * fr.weight + fr.bias
             tokens = frontend_tokens(mel, fr.patch_w, fr.patch_b, fr.ln_w, fr.ln_b, cfg, dt)
         return self._projection_taps(self.encoder(tokens))
+
+    def f32_tokens(self, audio):
+        """The f32 mel chain (audio_metrics_tpu/models/clap.py:219-241, the
+        XLA path): the tiled repeat-pad log-mel where the clip tiles, else
+        the repeat-padded clip's centered one, BatchNorm, the frontend
+        products; PyTorch ops on any device, no kernel.  Callers hold
+        ``full_f32()``."""
+        fr = self.frontend
+        if _can_tile_mel(audio.shape[1]):
+            mel = clap_mel_tiled(audio)
+        else:
+            mel = clap_mel(repeat_pad(audio), center=True)
+        mel = (mel - fr.running_mean) * torch.rsqrt(fr.running_var + 1e-5) * fr.weight + fr.bias
+        return frontend_tokens(mel, fr.patch_w, fr.patch_b, fr.ln_w, fr.ln_b, self.cfg,
+                               torch.float32)
 
     def _projection_taps(self, latent) -> dict:
         """Pooled latent -> the reference tap outputs (reference
@@ -230,10 +249,14 @@ class ClapAudio(nn.Module):
 class LaionCLAP(Embedder):
     """HTSAT CLAP audio embedder; 512-d outputs at three tap points.
 
-    ``params`` is the numpy dict with HF Clap names.  Without it, weights
-    are random and must be opted into (``allow_random_weights=True``):
-    metric values from random weights are meaningless.  Loading a LAION
-    checkpoint file is not ported yet (ROADMAP.md)."""
+    ``params`` is the numpy dict with HF Clap names; else ``ckpt``, a
+    checkpoint URL or path, is resolved (``utils.get_url.
+    resolve_checkpoint``: the path, ``$AM_TPU_CKPT_DIR/<basename>``, the
+    cache, a download) and converted (:func:`_load_params`).  Without
+    either, or when the checkpoint cannot be found, weights are random and
+    must be opted into (``allow_random_weights=True``): metric values from
+    random weights are meaningless.  ``compute_dtype`` None is f32, the
+    JAX package's default."""
 
     names = ("embedding", "audio_projection.0", "audio_projection.2")
     sr = SAMPLE_RATE
@@ -251,11 +274,8 @@ class LaionCLAP(Embedder):
     ):
         from ..convert import params_from_numpy
 
-        if ckpt is not None and params is None:
-            raise NotImplementedError(
-                "loading a CLAP checkpoint file is not ported yet; convert it with the "
-                "JAX package's convert_checkpoint and pass params= (ROADMAP.md)"
-            )
+        if params is None and ckpt is not None:
+            params = _load_params(ckpt, cfg)
         self.layer = layer or "embedding"
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -276,3 +296,33 @@ class LaionCLAP(Embedder):
 
 
 CLAP = LaionCLAP
+
+
+def _load_params(ckpt: str, cfg: HTSATConfig = HTSAT_BASE) -> dict | None:
+    """Resolve a checkpoint URL or path and convert it to the numpy
+    parameter dict (audio_metrics_tpu/models/clap.py:477-504); None when it
+    cannot be found.  An ``.npz`` is already in the dict's layout (the JAX
+    package's ``convert`` writes it) and is checked against the forward's
+    key set; anything else is a torch state dict (``torch.load``,
+    ``weights_only``), under ``state_dict`` or not, converted strictly."""
+    from ..convert import convert_checkpoint, expected_param_keys
+    from ..utils.get_url import resolve_checkpoint
+
+    path = resolve_checkpoint(ckpt)
+    if path is None:
+        return None
+    if str(path).endswith(".npz"):
+        with np.load(path) as z:
+            params = {k: np.asarray(z[k]) for k in z.files}
+        expected = expected_param_keys(cfg)
+        missing = expected - set(params)
+        if missing:
+            raise ValueError(
+                f"npz checkpoint {path} incomplete: {len(missing)} of {len(expected)} keys "
+                f"missing, e.g. {sorted(missing)[:5]}"
+            )
+        return {k: v for k, v in params.items() if k in expected}
+    state = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(state, dict) and "state_dict" in state:
+        state = state["state_dict"]
+    return convert_checkpoint(state, cfg=cfg, strict=True)

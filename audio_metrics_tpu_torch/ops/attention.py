@@ -36,7 +36,11 @@ Wk^T, Wv^T], ``bq3`` (3C,) with zeros on k and v, ``wp`` (C, C), ``bp`` and
 vectors and tables f32.
 
 Dispatch of each kernel wrapper: a CPU tensor runs its ``*_plain``
-version; a CUDA tensor launches the hand-written kernel or raises.
+version; a CUDA tensor launches the hand-written kernel or raises.  The
+whole block has a kernel for each activation dtype the JAX kernel takes: a
+bf16 CUDA tensor launches ``am_swin_block``, an f32 one ``am_swin_block_f32``
+(its own launch count, ``KERNELS["swin_block_f32"]``).  The attention halves
+take bf16 only: on the card f32 raises (ROADMAP.md Queue 2 B).
 """
 
 from __future__ import annotations
@@ -45,10 +49,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..kernels import KERNELS, check_sm90_gemm, require_cuda
+from ..kernels import KERNELS, check_sm90_gemm, refuse_f32, require_cuda
 from .mlp import layer_norm
 
 __all__ = [
+    "check_block_f32",
     "check_block_gemms",
     "swin_block",
     "swin_block_operands",
@@ -63,6 +68,7 @@ __all__ = [
 ]
 
 KERNEL = KERNELS["swin_block"]
+KERNEL_F32 = KERNELS["swin_block_f32"]
 KERNEL_V3 = KERNELS["swin_attn_v3"]
 KERNEL_V1 = KERNELS["swin_attn_v1"]
 KERNEL_V2 = KERNELS["swin_attn_v2"]
@@ -178,45 +184,89 @@ def check_block_gemms(c: int) -> None:
         check_sm90_gemm("swin_block", n, k, k)
 
 
-def _swin_block_cuda(x, wqkv, bq3, wp, bp, bm, ln2_w, ln2_b, w1, b1, w2, b2, *,
-                     heads, window, shift, eps, operands):
-    b, r, _, c = x.shape
+def check_block_f32(c: int) -> None:
+    """Raise ``NotImplementedError`` unless the f32 whole-block kernel
+    takes a width of ``c``: its LN1 pass holds a row in one warp's
+    registers as 16-byte loads (C <= 1024, C % 8 == 0), and its products on
+    the SIMT f32 core (kernels/csrc/simt_f32.cuh) read depths C and 4C in
+    16-byte chunks (a multiple of 4, as ``check_depth`` asks of the PRDC
+    kernels)."""
+    if c > 1024 or c % 8:
+        raise NotImplementedError(
+            f"swin_block f32: the LN1 pass takes C <= 1024 and C % 8 == 0, got C={c}")
+
+
+def _operands(operands):
     if operands is None:
         raise ValueError("swin_block on the card reads swin_block_operands(wqkv, wp, w1, w2), "
                          "made once at weight load: pass them as operands=")
-    o = operands
+    return operands
+
+
+def _block_scratch(x, dtype):
+    """The whole-block kernel's scratch (kernels/csrc/swin_block.cu):
+    stats, qkv, ctx, res, hbuf, h1, out."""
+    b, r, _, c = x.shape
+    m, dev = b * r * r, x.device
+    return (torch.empty((2, m), dtype=torch.float32, device=dev),
+            torch.empty((m, 3 * c), dtype=dtype, device=dev),
+            torch.empty((m, c), dtype=dtype, device=dev),
+            torch.empty((m, c), dtype=torch.float32, device=dev),
+            torch.empty((m, c), dtype=dtype, device=dev),
+            torch.empty((m, 4 * c), dtype=dtype, device=dev),
+            torch.empty_like(x))
+
+
+def _swin_block_f32_cuda(x, wqkv, bq3, wp, bp, bm, ln2_w, ln2_b, w1, b1, w2, b2, *,
+                         heads, window, shift, eps, operands):
+    b, r, _, c = x.shape
+    o = _operands(operands)
+    require_cuda(x, o["wqkv_t"], o["wp_t"], o["w1_t"], o["w2_t"], o["csum"], bq3, bp, bm,
+                 ln2_w, ln2_b, b1, b2, dtype=torch.float32)
+    _check_geometry("swin_block_f32", x, heads, window, bm)
+    check_block_f32(c)
+    scratch = _block_scratch(x, torch.float32)
+    KERNEL_F32.launch(
+        "am_swin_block_f32", x, o["wqkv_t"], o["csum"], bq3, o["wp_t"], bp, bm, bm.shape[0],
+        ln2_w, ln2_b, o["w1_t"], b1, o["w2_t"], b2, b, r, c, heads, window, shift, float(eps),
+        *scratch,
+    )
+    KERNEL_F32.launches += 1
+    return scratch[-1]
+
+
+def _swin_block_cuda(x, wqkv, bq3, wp, bp, bm, ln2_w, ln2_b, w1, b1, w2, b2, *,
+                     heads, window, shift, eps, operands):
+    b, r, _, c = x.shape
+    o = _operands(operands)
     require_cuda(x, o["wqkv_t"], o["wp_t"], o["w1_t"], o["w2_t"])
     require_cuda(o["csum"], bq3, bp, bm, ln2_w, ln2_b, b1, b2, dtype=torch.float32)
     _check_geometry("swin_block", x, heads, window, bm)
     check_block_gemms(c)
-    m = b * r * r
-    stats = torch.empty((2, m), dtype=torch.float32, device=x.device)
-    qkv = torch.empty((m, 3 * c), dtype=x.dtype, device=x.device)
-    ctx = torch.empty((m, c), dtype=x.dtype, device=x.device)
-    res = torch.empty((m, c), dtype=torch.float32, device=x.device)
-    hbuf = torch.empty((m, c), dtype=x.dtype, device=x.device)
-    h1 = torch.empty((m, 4 * c), dtype=x.dtype, device=x.device)
-    out = torch.empty_like(x)
+    scratch = _block_scratch(x, x.dtype)
     KERNEL.launch(
         "am_swin_block", x, o["wqkv_t"], o["csum"], bq3, o["wp_t"], bp, bm, bm.shape[0], ln2_w,
-        ln2_b, o["w1_t"], b1, o["w2_t"], b2, b, r, c, heads, window, shift, float(eps), stats,
-        qkv, ctx, res, hbuf, h1, out,
+        ln2_b, o["w1_t"], b1, o["w2_t"], b2, b, r, c, heads, window, shift, float(eps),
+        *scratch,
     )
     KERNEL.launches += 1
-    return out
+    return scratch[-1]
 
 
 def swin_block(x, wqkv, bq3, wp, bp, bm, ln2_w, ln2_b, w1, b1, w2, b2, *,
                heads: int, window: int, shift: int, eps: float = 1e-5, operands=None):
     """Whole Swin block, (B, R, R, C) -> (B, R, R, C).  ``operands``: the
     kernel's :func:`swin_block_operands` of these weights, made at load;
-    a CUDA tensor needs them, a CPU tensor ignores them."""
+    a CUDA tensor needs them, a CPU tensor ignores them.  On the card an
+    f32 tensor launches the f32 kernel, any other the bf16 one (which
+    raises on a dtype but bf16)."""
     if x.device.type == "cpu":
         return swin_block_plain(x, wqkv, bq3, wp, bp, bm, ln2_w, ln2_b, w1, b1, w2, b2,
                                 heads=heads, window=window, shift=shift, eps=eps)
-    return _swin_block_cuda(x, wqkv, bq3, wp, bp, bm, ln2_w, ln2_b, w1, b1, w2, b2,
-                            heads=heads, window=window, shift=shift, eps=eps,
-                            operands=operands)
+    fn = _swin_block_f32_cuda if x.dtype == torch.float32 else _swin_block_cuda
+    return fn(x, wqkv, bq3, wp, bp, bm, ln2_w, ln2_b, w1, b1, w2, b2, heads=heads,
+              window=window, shift=shift, eps=eps, operands=operands)
+
 
 
 # ----------------------------------------------------------------------
@@ -232,6 +282,7 @@ def swin_attention_half_v3_plain(x, wqkv, bq3, wp, bp, bm, *, heads: int, window
 
 
 def _attention_half_v3_cuda(x, wqkv, bq3, wp, bp, bm, *, heads, window, shift, eps):
+    refuse_f32("swin_attn_v3", x)
     b, r, _, c = x.shape
     require_cuda(x, wqkv, wp)
     require_cuda(bq3, bp, bm, dtype=torch.float32)
@@ -305,6 +356,7 @@ def _attention_ln_affine_cuda(kernel, symbol, x, ln_w, ln_b, wqkv, bqkv, wp, bp,
 
 def _attention_half_v1_cuda(x, ln_w, ln_b, wq, bq, wk, wv, wp, bp, bm, *, heads, window,
                             shift, eps):
+    refuse_f32("swin_attn_v1", x)
     _window_8x8("swin_attn_v1", window, x)
     c = x.shape[-1]
     if wq.shape != (heads, c, c // heads) or wp.shape != (heads, c // heads, c):

@@ -6,9 +6,12 @@ Counterpart of ``audio_metrics_tpu/ops/merge.py::patch_merge_pallas``
 ``svec`` = g @ W and ``tvec`` = b @ W (models/htsat._merge_weights).
 
 Dispatch: a CPU tensor runs :func:`patch_merge_plain`; a CUDA tensor
-launches the hand-written kernel (kernels/csrc/patch_merge.cu), which reads
-the weight K-major, ``wg_t = merge_weight_t(wg)`` made once at load
-(``models.htsat.PatchMerge``), or raises.
+launches the hand-written kernel for its dtype (kernels/csrc/patch_merge.cu:
+``am_patch_merge`` for bf16 on the wgmma core, ``am_patch_merge_f32`` for
+f32 on the SIMT f32 core, with its own launch count,
+``KERNELS["patch_merge_f32"]``), which reads the weight K-major, ``wg_t =
+merge_weight_t(wg)`` made once at load (``models.htsat.PatchMerge``), or
+raises.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import torch
 from ..kernels import KERNELS, check_sm90_gemm, require_cuda
 
 __all__ = [
+    "check_merge_f32",
     "check_merge_gemm",
     "merge_a_map",
     "merge_stats",
@@ -29,6 +33,7 @@ __all__ = [
 ]
 
 KERNEL = KERNELS["patch_merge"]
+KERNEL_F32 = KERNELS["patch_merge_f32"]
 BM, BK = 128, 64  # the wgmma core's row tile and K step (kernels/csrc/gemm_sm90.cuh)
 MERGE_STEPS_MAX = 64  # K steps the kernel's table holds (kernels/csrc/patch_merge.cu)
 
@@ -118,17 +123,44 @@ def _map_args(b: int, r: int, c: int) -> tuple:
             torch.tensor(amap["origin"], dtype=torch.int32))
 
 
-def _patch_merge_cuda(x, wg, svec, tvec, *, h, w, eps, wg_t):
+def check_merge_f32(r: int, c: int) -> None:
+    """Raise ``NotImplementedError`` unless the f32 kernel takes a merge of
+    an R x R image of C channels: R even, and C % 8 == 0 (its statistics
+    pass reads 16 bytes a lane; its product's loader takes 4-float chunks
+    of one quadrant)."""
+    if r < 2 or r % 2 or c % 8:
+        raise NotImplementedError(f"patch_merge f32: R even and C % 8 == 0, got R={r} C={c}")
+
+
+def _merge_operands(x, wg_t, h, w):
     b, n, c = x.shape
     if wg_t is None:
         raise ValueError("patch_merge on the card reads merge_weight_t(wg), made once at "
                          "weight load: pass it as wg_t=")
-    require_cuda(x, wg_t)
-    require_cuda(svec, tvec, dtype=torch.float32)
     oc = wg_t.shape[0]
     if n != h * w or h != w or oc != 2 * c or wg_t.shape != (oc, 4 * c):
         raise NotImplementedError(f"patch_merge kernel shape x={tuple(x.shape)} "
                                   f"wg_t={tuple(wg_t.shape)}")
+    return b, c, oc
+
+
+def _patch_merge_f32_cuda(x, wg, svec, tvec, *, h, w, eps, wg_t):
+    b, c, oc = _merge_operands(x, wg_t, h, w)
+    require_cuda(x, wg_t, svec, tvec, dtype=torch.float32)
+    check_merge_f32(h, c)
+    m = b * (h // 2) ** 2
+    stats = torch.empty((2, m), dtype=torch.float32, device=x.device)
+    out = torch.empty((b, (h // 2) * (w // 2), oc), dtype=x.dtype, device=x.device)
+    KERNEL_F32.launch("am_patch_merge_f32", x, wg_t, svec, tvec, b, h, c, float(eps), stats,
+                      out)
+    KERNEL_F32.launches += 1
+    return out
+
+
+def _patch_merge_cuda(x, wg, svec, tvec, *, h, w, eps, wg_t):
+    b, c, oc = _merge_operands(x, wg_t, h, w)
+    require_cuda(x, wg_t)
+    require_cuda(svec, tvec, dtype=torch.float32)
     check_merge_gemm(h, c)
     m = b * (h // 2) ** 2
     stats = torch.empty((2, m), dtype=torch.float32, device=x.device)
@@ -141,5 +173,8 @@ def _patch_merge_cuda(x, wg, svec, tvec, *, h, w, eps, wg_t):
 
 def patch_merge(x, wg, svec, tvec, *, h: int, w: int, eps: float, wg_t=None):
     """2x2 patch merge + folded LN, (B, H*W, C) -> (B, H*W/4, OC)."""
-    fn = patch_merge_plain if x.device.type == "cpu" else _patch_merge_cuda
+    if x.device.type == "cpu":
+        fn = patch_merge_plain
+    else:
+        fn = _patch_merge_f32_cuda if x.dtype == torch.float32 else _patch_merge_cuda
     return fn(x, wg, svec, tvec, h=h, w=w, eps=eps, wg_t=wg_t)

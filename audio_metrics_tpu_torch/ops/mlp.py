@@ -29,7 +29,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..kernels import KERNELS, require_cuda
+from ..kernels import KERNELS, refuse_f32, require_cuda
 
 __all__ = [
     "layer_norm",
@@ -68,6 +68,7 @@ def mlp_block_plain(x, ln_w, ln_b, w1, b1, w2, b2, *, eps: float = 1e-5):
 
 
 def _mlp_block_cuda(x, ln_w, ln_b, w1, b1, w2, b2, *, eps):
+    refuse_f32("swin_mlp", x)
     c = x.shape[-1]
     require_cuda(x, w1, w2)
     require_cuda(ln_w, ln_b, b1, b2, dtype=torch.float32)

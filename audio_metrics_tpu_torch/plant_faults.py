@@ -48,6 +48,17 @@ FAULTS = {
            "the PRDC statistics store each tile's count instead of adding it"),
     "S2": (f"{CSRC}/distance.cu", "c < c_end && r < n_ref", "c <= c_end && r < n_ref",
            "the PRDC statistics' column mask takes the column at the split's end"),
+    "A1": (f"{CSRC}/window_attn.cuh",
+           "const float* tab = bm + ((long long)(g % nbm) * heads + h) * N * N;",
+           "const float* tab = bm + ((long long)0 * heads + h) * N * N;",
+           "the f32 window attention reads window 0's table everywhere: the shift mask "
+           "is dropped"),
+    "G1": (f"{CSRC}/patch_merge.cu", "const int dy = q & 1, dx = q >> 1;",
+           "const int dy = q >> 1, dx = q & 1;",
+           "the f32 merge's gather loader swaps quadrants 1 and 2 (x10 and x01)"),
+    "Q1": (f"{CSRC}/simt_f32.cuh", "v = a * rs - rs * mu * p.csum[n] + bias;",
+           "v = a * rs + bias;",
+           "the f32 qkv epilogue drops the LN1 fold's rs * mu * csum term"),
 }
 SKIP = ("build", ".git", "__pycache__", ".pytest_cache")
 

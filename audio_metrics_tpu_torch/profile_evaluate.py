@@ -2,13 +2,15 @@
 
     python -m audio_metrics_tpu_torch.profile_evaluate [--win-dur 5] [--clips 2048]
     AM_TPU_V4_STAGES= python -m audio_metrics_tpu_torch.profile_evaluate --clips 512
+    python -m audio_metrics_tpu_torch.profile_evaluate --dtype float32 --clips 256
 
 The model's configuration variables (``AM_TPU_V4_STAGES``,
 ``AM_TPU_ATTN_V1``, ``AM_TPU_MEL_V1``) apply as in any run; the profile
 prints them and each Swin stage's block paths.
 
 Builds ``AudioMetrics(metrics=["fad", "kd", "prdc"])`` with LaionCLAP
-HTSAT-base in bf16 (random weights from a seed), adds a reference of
+HTSAT-base in bf16, or in f32 (the default embedder's dtype) with
+``--dtype float32`` (random weights from a seed), adds a reference of
 ``--clips`` clips made on the card by ``testing.seeded_clips`` with the seed
 of ``chip_smoke.py``'s main path, warms up with one evaluate, then
 traces one evaluate of as many candidate clips with ``torch.profiler`` and
@@ -33,7 +35,7 @@ import torch
 
 def _short(name: str) -> str:
     """A kernel's name without its template arguments and namespace."""
-    for key in ("gemm_kernel<", "gemm_sm90_kernel<", "knn_split_kernel", "knn_merge_kernel",
+    for key in ("gemm_kernel<", "gemm_sm90_kernel<", "gemm_f32_kernel<", "knn_split_kernel", "knn_merge_kernel",
                 "merge_stats_kernel", "stats_split_kernel", "mel_log_kernel", "ln_rows_kernel",
                 "ln1_window_kernel", "hop_rows_kernel", "halo_rows_kernel", "log_mel_sm90_kernel",
                 "window_attn_kernel", "frame_rows_kernel"):
@@ -49,6 +51,7 @@ def main(argv=None) -> int:
     ap.add_argument("--clips", type=int, default=2048)
     ap.add_argument("--batch", type=int, default=64)
     ap.add_argument("--top", type=int, default=12)
+    ap.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_evaluate: CUDA is not available", file=sys.stderr)
@@ -61,7 +64,7 @@ def main(argv=None) -> int:
 
     sr = 48000
     reference, candidate = seeded_clips(args.clips, int(args.win_dur * sr), sr, seed=3)
-    clap = LaionCLAP(cfg=HTSAT_BASE, compute_dtype="bfloat16", allow_random_weights=True,
+    clap = LaionCLAP(cfg=HTSAT_BASE, compute_dtype=args.dtype, allow_random_weights=True,
                      device="cuda")
     am = AudioMetrics(metrics=["fad", "kd", "prdc"], embedder=clap, win_dur=args.win_dur,
                       input_sr=sr, batch_size=args.batch, device="cuda")
@@ -88,7 +91,8 @@ def main(argv=None) -> int:
                                                 "AM_TPU_MEL_V1")}
     paths = [[b.attention for b in stage] for stage in clap.model.encoder.blocks]
     print(f"configuration {switches}; block paths per stage {paths}")
-    print(f"evaluate of {args.clips} clips of {args.win_dur} s, batch {args.batch}, traced: "
+    print(f"evaluate of {args.clips} clips of {args.win_dur} s, batch {args.batch}, "
+          f"{args.dtype}, traced: "
           f"wall {wall_ms:.1f} ms, device kernel time {device_ms:.1f} ms over "
           f"{sum(v[1] for v in kernels.values())} kernels, device idle share "
           f"{1 - device_ms / wall_ms:.3f}")

@@ -7,7 +7,9 @@
 - ``stats_mismatches``: the near-tie rule for two results of the PRDC
   reductions;
 - ``near_duplicate_rows``: embeddings whose k-NN radii are the small
-  distances of near-duplicates, where the squared-distance formula cancels.
+  distances of near-duplicates, where the squared-distance formula cancels;
+- ``laion_state_dict``: a parameter dict written back under a LAION CLAP
+  checkpoint's names, as ``convert.convert_checkpoint`` reads them.
 """
 
 from __future__ import annotations
@@ -17,7 +19,8 @@ import subprocess
 import numpy as np
 import torch
 
-__all__ = ["card_line", "near_duplicate_rows", "seeded_clips", "stats_mismatches"]
+__all__ = ["card_line", "laion_state_dict", "near_duplicate_rows", "seeded_clips",
+           "stats_mismatches"]
 
 
 def card_line() -> str:
@@ -97,3 +100,38 @@ def near_duplicate_rows(n: int, d: int, seed: int, group: int = 8, noise: float 
     x = (base / base.norm(dim=1, keepdim=True)).repeat_interleave(group, dim=0)[:n]
     x = x + noise * torch.randn((n, d), generator=gen, device=device)
     return x / x.norm(dim=1, keepdim=True)
+
+
+# HF Clap name fragment -> LAION's (the converter's renames, inverted; the
+# attention's output projection before the MLP's, which shares its suffix)
+_TO_LAION = [
+    ("audio_encoder.", "audio_branch."),
+    ("batch_norm.", "bn0."),
+    ("attention.output.dense.", "attn.proj."),
+    ("attention.self.relative_position_bias_table", "attn.relative_position_bias_table"),
+    ("intermediate.dense.", "mlp.fc1."),
+    ("output.dense.", "mlp.fc2."),
+    ("layernorm_before.", "norm1."),
+    ("layernorm_after.", "norm2."),
+    ("audio_projection.linear1.", "audio_projection.0."),
+    ("audio_projection.linear2.", "audio_projection.2."),
+]
+
+
+def laion_state_dict(params: dict, prefix: str = "module.") -> dict:
+    """``params`` (HF Clap names, numpy) as a LAION CLAP checkpoint holds
+    them: LAION names under ``prefix``, each block's query, key and value
+    fused into one ``attn.qkv`` (3C, C) weight and (3C,) bias, torch f32
+    tensors."""
+    out = {}
+    for key, arr in params.items():
+        if ".attention.self.key." in key or ".attention.self.value." in key:
+            continue
+        if ".attention.self.query." in key:
+            parts = [params[key.replace(".query.", f".{n}.")] for n in ("query", "key", "value")]
+            arr = np.concatenate(parts, axis=0)
+            key = key.replace(".attention.self.query.", ".attn.qkv.")
+        for hf, laion in _TO_LAION:
+            key = key.replace(hf, laion)
+        out[prefix + key] = torch.from_numpy(np.ascontiguousarray(arr, np.float32))
+    return out

@@ -46,7 +46,16 @@ Phases, one status line each:
      (``swin_attention_half_v2``) with that block's weights, then the int8
      MLP (``mlp_block_int8``) on its output with that block's f32 MLP
      weights: launch counts, each against its plain version, the int8
-     MLP's branch against the fused bf16 MLP kernel's, per-forward times.
+     MLP's branch against the fused bf16 MLP kernel's, per-forward times;
+ 10. the default configuration, f32: phase 3's weights written as a
+     LAION-named checkpoint (``module.`` prefix, fused qkv) under the
+     default embedder's file name in a temporary directory, named by
+     ``AM_TPU_CKPT_DIR`` around this phase only; ``AudioMetrics(metrics=
+     ["fad", "kd", "prdc"])`` with no embedder builds ``laion_clap_music``
+     from it (HTSAT-base, f32) and evaluates 256 + 256 5 s clips: launch
+     counts (the f32 whole-block and merge kernels only), finite metrics,
+     FAD of a set against itself, embeddings against the f32 plain chain
+     on the card, clips/s.
 Phase 3 runs each kernel redesigned for Hopper on the wgmma core (the
 whole Swin block at every stage and shift, the three patch merges, the
 fused frontend, the halo log-mel) twice on the same inputs, at B = 4 and
@@ -57,6 +66,9 @@ B = 64 as their yardstick (``library_ms``, the port never calls it), and
 prints their achieved TFLOP/s.  The kernels of ~0.3 ms or less (patch
 merge, k-NN radii and PRDC statistics at N = 2048, halo log-mel) are timed
 over 200 launches (``TIMING_ITERS``).
+Phase 3 holds the f32 whole block (every stage and shift) and the f32
+merges against their f32 plain versions too, with bitwise repeats, and
+times their products alone through ``torch.matmul`` in full f32.
 Phase 3 also holds the split block's kernels (v3 attention half at every
 stage, the fused MLP at the row counts of stages 0-3, the v1 attention
 half at stages 0 and 1), the opt-in ops (the v2 attention half at every
@@ -76,6 +88,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 from contextlib import contextmanager
@@ -87,6 +100,7 @@ N_CLIPS = 2048   # bench.py's eval set
 N_CLIPS_10S = 128
 N_CLIPS_SPLIT = 512  # phase 6
 N_CLIPS_V1 = 256     # phase 7
+N_CLIPS_F32 = 256    # phase 10
 CLIP_S = 5
 SR = 48000
 BATCH = 64       # e2e batch size
@@ -109,7 +123,15 @@ TOL = {"swin_block": ((2e-4, 5e-4, 1.5e-3, 3.5e-3), 0.0625),
        "swin_mlp": ((1e-5, 2.5e-5, 6e-5, 1.2e-4), 0.0625),
        "swin_attn_v1": ((1e-4, 2e-4), 0.0625),
        "swin_attn_v2": ((1e-4, 2e-4, 5e-4, 1e-3), 0.0625),
-       "swin_mlp_int8": ((2.5e-6, 5e-6, 7e-6, 7e-6), 0.0625)}
+       "swin_mlp_int8": ((2.5e-6, 5e-6, 7e-6, 7e-6), 0.0625),
+       # f32 kernels vs f32 plain versions: the same arithmetic in another
+       # f32 summation order (readings 2.1e-7..8.6e-7 relative, max 1.3e-5;
+       # merges 3e-8..6.7e-7, max 9.3e-6); under the JAX suite's f32
+       # bounds (max abs 2e-4 for the v4 block, tests/
+       # test_pallas_model_kernels.py:588; 5e-5 for a kernel against XLA,
+       # :122,226)
+       "swin_block_f32": ((1e-6, 2e-6, 2.5e-6, 4e-6), 5e-5),
+       "patch_merge_f32": (3e-6, 3e-5)}
 # the int8 MLP's branch (out - x) against the fused bf16 MLP kernel's, each
 # held against the f32 branch (the plain MLP in f32 on the same input, f32
 # weights) by relative Frobenius error: the int8 branch's error may exceed
@@ -140,15 +162,21 @@ NEAR_TIE = 1e-5
 # spread of ~1e-6 over subsets and moves most.
 E2E_TOL = {"1-cos": 1e-5, "max_abs": 3e-3, "fad": 1e-3, "kernel_distance_mean": 1e-3,
            "kernel_distance_std": 3e-2}
+# phase 10, the f32 kernels' embeddings against the f32 plain chain's on the
+# same clips: (1 - min cosine, max abs); readings 1.79e-7 (the f32 rounding
+# of a unit row's squared norm: equal embeddings read the same) and 6.3e-8
+F32_E2E_TOL = (1e-6, 6e-7)
 # Embeddings of one configuration against another on the same clips (same
 # weights): the split blocks and the v1 attention against the whole-block
 # default, the v1 log-mel against the halo one; (1 - min cosine, max abs),
 # ~10x the readings (PERF.md; the two log-mels gave equal embeddings, so
 # theirs is the kernel-vs-plain scale).
 CONFIG_TOL = {"split": (5e-5, 5e-3), "attn_v1": (5e-5, 5e-3), "mel_v1": (2e-6, 1e-3)}
-# the kernels redesigned on the wgmma GEMM core (gemm_sm90.cuh): each must
-# repeat bitwise on the same inputs
-REDESIGNED = ("swin_block", "patch_merge", "clap_frontend", "log_mel")
+# the kernels without atomics, redesigned on the wgmma GEMM core
+# (gemm_sm90.cuh) or on the f32 core (simt_f32.cuh): each must repeat
+# bitwise on the same inputs
+REDESIGNED = ("swin_block", "patch_merge", "clap_frontend", "log_mel", "swin_block_f32",
+              "patch_merge_f32")
 # launches timed per reading (10 elsewhere): kernels of ~0.1 ms or less
 # moved by 20-40% between runs at 10
 TIMING_ITERS = {"patch_merge": 200, "knn_radii": 200, "prdc_stats": 200, "log_mel": 200}
@@ -190,12 +218,14 @@ def bound(ops: dict, n_bytes: float) -> tuple[float, str, float]:
             float(sum(ops.values())))
 
 
-def swin_bound(cfg, b, part="block", stages=(0, 1, 2, 3)):
-    """The Swin blocks of ``stages`` in one forward, bf16.  ``part``
-    "block": the qkv, proj, fc1 and fc2 products (24 T C^2) and the window
-    attention (4 T win^2 C); "attn": qkv, proj and attention (8 T C^2 +
-    4 T win^2 C); "mlp": fc1 and fc2 (16 T C^2).  Bytes: each block's input
-    and output rows and its weights (12, 4 or 8 C^2), bf16."""
+def swin_bound(cfg, b, part="block", stages=(0, 1, 2, 3), dt="bf16"):
+    """The Swin blocks of ``stages`` in one forward, in ``dt`` (bf16 or
+    f32).  ``part`` "block": the qkv, proj, fc1 and fc2 products (24 T C^2)
+    and the window attention (4 T win^2 C); "attn": qkv, proj and attention
+    (8 T C^2 + 4 T win^2 C); "mlp": fc1 and fc2 (16 T C^2).  Bytes: each
+    block's input and output rows and its weights (12, 4 or 8 C^2) in
+    ``dt``."""
+    size = 2 if dt == "bf16" else 4
     ops = n_bytes = 0
     res = cfg.grid_size
     for stage, depth in enumerate(cfg.depths):
@@ -204,9 +234,9 @@ def swin_bound(cfg, b, part="block", stages=(0, 1, 2, 3)):
             attn = 8 * t * c * c + 4 * t * min(cfg.window_size, res) ** 2 * c
             ops += depth * {"block": attn + 16 * t * c * c, "attn": attn,
                             "mlp": 16 * t * c * c}[part]
-            n_bytes += depth * (2 * t * c * 2 + {"block": 12, "attn": 4, "mlp": 8}[part] * c * c * 2)
+            n_bytes += depth * (2 * t * c + {"block": 12, "attn": 4, "mlp": 8}[part] * c * c) * size
         res //= 2
-    return bound({"bf16": ops}, n_bytes)
+    return bound({dt: ops}, n_bytes)
 
 
 def int8_mlp_bound(cfg, b):
@@ -223,16 +253,18 @@ def int8_mlp_bound(cfg, b):
     return bound({"int8": ops}, n_bytes)
 
 
-def merge_bound(cfg, b):
-    """The three patch merges of one forward: (T/4, 4C) x (4C, 2C), bf16."""
+def merge_bound(cfg, b, dt="bf16"):
+    """The three patch merges of one forward: (T/4, 4C) x (4C, 2C), in
+    ``dt`` (bf16 or f32)."""
+    size = 2 if dt == "bf16" else 4
     ops = n_bytes = 0
     res = cfg.grid_size
     for stage in range(len(cfg.depths) - 1):
         c, t_out = cfg.embed_dim * 2**stage, b * (res // 2) ** 2
         ops += 2 * t_out * 4 * c * 2 * c
-        n_bytes += b * res * res * c * 2 + t_out * 2 * c * 2 + 8 * c * c * 2
+        n_bytes += (b * res * res * c + t_out * 2 * c + 8 * c * c) * size
         res //= 2
-    return bound({"bf16": ops}, n_bytes)
+    return bound({dt: ops}, n_bytes)
 
 
 def frontend_bound(cfg, b, n):
@@ -435,6 +467,14 @@ def phase_kernels(cfg, params, results):
                   lambda: block(xs[CHECK_B], plain=True),
                   (lambda: block(xs[BATCH]), lambda: block(xs[BATCH], plain=True), n_blocks),
                   x=xs[CHECK_B], stage=stage)
+            # the f32 whole block (#1 in f32) on the same weights and inputs
+            b32 = SwinBlock(params, prefix, cfg, res, shift, cfg.num_heads[stage],
+                            torch.float32).to(dev)
+            x32 = {b: xs[b].float() for b in xs}
+            check("swin_block_f32", key, lambda: b32(x32[CHECK_B]),
+                  lambda: b32(x32[CHECK_B], plain=True),
+                  (lambda: b32(x32[BATCH]), lambda: b32(x32[BATCH], plain=True), n_blocks),
+                  x=x32[CHECK_B], stage=stage)
 
             # the v3 attention half on the same block weights (#8); the v3
             # half + MLP kernel against the whole-block kernel after #9's check
@@ -523,6 +563,12 @@ def phase_kernels(cfg, params, results):
             check("patch_merge", f"merge {stage} R={res} C={c}",
                   lambda: merge(xs[CHECK_B]), lambda: merge(xs[CHECK_B], plain=True),
                   (lambda: merge(xs[BATCH]), lambda: merge(xs[BATCH], plain=True), 1))
+            m32 = PatchMerge(params, f"audio_encoder.layers.{stage}.downsample", cfg, res,
+                             torch.float32).to(dev)
+            x32 = {b: xs[b].float() for b in xs}
+            check("patch_merge_f32", f"merge {stage} R={res} C={c}",
+                  lambda: m32(x32[CHECK_B]), lambda: m32(x32[CHECK_B], plain=True),
+                  (lambda: m32(x32[BATCH]), lambda: m32(x32[BATCH], plain=True), 1))
             res //= 2
     fr = ClapFrontend(params, cfg).to(dev)
     audio = {b: 0.2 * torch.randn((b, CLIP_S * SR), generator=gen, device=dev)
@@ -538,7 +584,9 @@ def phase_kernels(cfg, params, results):
               "swin_mlp": swin_bound(cfg, BATCH, "mlp", stages=mlp_stages),
               "swin_attn_v1": swin_bound(cfg, BATCH, "attn", stages=(0, 1)),
               "swin_attn_v2": swin_bound(cfg, BATCH, "attn"),
-              "swin_mlp_int8": int8_mlp_bound(cfg, BATCH)}
+              "swin_mlp_int8": int8_mlp_bound(cfg, BATCH),
+              "swin_block_f32": swin_bound(cfg, BATCH, dt="f32"),
+              "patch_merge_f32": merge_bound(cfg, BATCH, "f32")}
     for name, t in times.items():
         for b in (CHECK_B, BATCH):
             log(f"  {name} per forward at B={b}: kernel {t['ms'][b]:.4f} ms, "
@@ -552,26 +600,34 @@ def phase_kernels(cfg, params, results):
     results["swin_block"]["library_ms"] = alone["Swin blocks (18 x qkv, proj, fc1, fc2)"]
     results["patch_merge"]["library_ms"] = alone["patch merges (3 x (M, 4C) @ (4C, 2C))"]
     results["clap_frontend"]["library_ms"] = alone["frontend DFT"]
-    for name in ("swin_block", "patch_merge", "clap_frontend"):
+    alone32 = products_alone_ms(cfg, BATCH, torch.float32)
+    log("  yardstick, the products alone through torch.matmul in full f32 (TF32 off) at B="
+        f"{BATCH}: " + ", ".join(f"{k} {v:.4f} ms" for k, v in alone32.items()))
+    results["swin_block_f32"]["library_ms"] = alone32["Swin blocks (18 x qkv, proj, fc1, fc2)"]
+    results["patch_merge_f32"]["library_ms"] = alone32["patch merges (3 x (M, 4C) @ (4C, 2C))"]
+    for name in ("swin_block", "patch_merge", "clap_frontend", "swin_block_f32",
+                 "patch_merge_f32"):
         r, ops = results[name], bounds[name][2]
         log(f"  {name} at B={BATCH}: {ops / (r['ms'] * 1e-3) / 1e12:.1f} TFLOP/s achieved "
             f"({ops:.4g} operations in {r['ms']:.4f} ms; bound {r['bound_ms']:.4f} ms, the "
             f"products alone {r['library_ms']:.4f} ms)")
 
 
-def products_alone_ms(cfg, b) -> dict:
+def products_alone_ms(cfg, b, dtype=torch.bfloat16) -> dict:
     """The yardstick of #1, #2 and #3, which the port never calls: their
-    products alone, one ``torch.matmul`` each in bf16 on random operands of
-    the main path's shapes at batch ``b``: per forward, the qkv, proj, fc1
-    and fc2 products of the 18 Swin blocks, the three patch merges' (M, 4C)
-    x (4C, 2C) products on the quadrant concat, and the frontend's DFT
-    (every clip's frame rows x the basis), interp and patch products."""
+    products alone, one ``torch.matmul`` each in ``dtype`` (bf16, or f32
+    with TF32 off, as ``main`` sets it, for the f32 kernels) on random
+    operands of the main path's shapes at batch ``b``: per forward, the qkv,
+    proj, fc1 and fc2 products of the 18 Swin blocks, the three patch
+    merges' (M, 4C) x (4C, 2C) products on the quadrant concat, and in bf16
+    the frontend's DFT (every clip's frame rows x the basis), interp and
+    patch products."""
     from audio_metrics_tpu_torch.ops.frontend_fused import FRAME, HOP, _plan
 
     gen = torch.Generator(device="cuda").manual_seed(8)
 
     def randn(*shape):
-        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
     out = {"Swin blocks (18 x qkv, proj, fc1, fc2)": 0.0}
     res = cfg.grid_size
@@ -586,6 +642,8 @@ def products_alone_ms(cfg, b) -> dict:
             cat, wg = randn(m // 4, 4 * c), randn(4 * c, 2 * c)
             out[key] = out.get(key, 0.0) + cuda_ms(lambda: cat @ wg)
         res //= 2
+    if dtype != torch.bfloat16:
+        return out
     n_mels, ps = cfg.num_mel_bins, cfg.patch_size
     pln = _plan(CLIP_S * SR, SR, FRAME, HOP, n_mels, cfg.spec_size, ps)
     rg, mel_pad = pln["ratio"] * pln["gw"], pln["mel_pad"]
@@ -1156,6 +1214,110 @@ def phase_opt_in(card: str, results: dict) -> dict:
     return launches
 
 
+def f32_plain_path(clap):
+    """An embedder with ``clap``'s f32 weights through the f32 plain chain:
+    the f32 mel chain (PyTorch ops), then every block's and merge's plain
+    version, in full f32."""
+    from audio_metrics_tpu_torch.utils.precision import full_f32
+
+    model = clap.model
+
+    class PlainPath:
+        sr, device = clap.sr, clap.device
+
+        @staticmethod
+        @torch.no_grad()
+        def embed(audio):
+            with full_f32():
+                tokens = model.f32_tokens(audio)
+                return model._projection_taps(model.encoder(tokens, plain=True))[clap.layer]
+
+    return PlainPath()
+
+
+def phase_default_f32(card: str, params: dict):
+    """The default configuration on the card: ``AudioMetrics(metrics=["fad",
+    "kd", "prdc"])`` with no embedder, which builds the registry default
+    ``laion_clap_music`` (HTSAT-base, f32) from its checkpoint, here
+    ``params`` (phase 3's weights, with seeded projection weights) written
+    as a LAION-named ``.pt`` (``module.`` prefix, fused qkv) under the
+    checkpoint URL's file name in a temporary directory that
+    ``AM_TPU_CKPT_DIR`` names around this phase only.  N_CLIPS_F32 +
+    N_CLIPS_F32 5 s clips: launch counts (18 f32 blocks and 3 f32 merges a
+    forward, no bf16 kernel), finite metrics, clips/s first and warm, FAD of
+    the reference against itself, and the reference embeddings against the
+    f32 plain chain on the same weights.  Returns the launches."""
+    from audio_metrics_tpu_torch import AudioMetrics
+    from audio_metrics_tpu_torch.models.clap import (
+        LAION_CLAP_MUSIC_CHECKPOINT_URL,
+        LaionCLAP,
+        init_projection_params,
+    )
+    from audio_metrics_tpu_torch.models.htsat import HTSAT_BASE
+    from audio_metrics_tpu_torch.testing import laion_state_dict
+
+    metrics = ["fad", "kd", "prdc"]
+    weights = dict(params, **init_projection_params(HTSAT_BASE, seed=0))
+    reference, candidate = clips(N_CLIPS_F32, CLIP_S, seed=11)
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        name = LAION_CLAP_MUSIC_CHECKPOINT_URL.rsplit("/", 1)[-1]
+        torch.save({"state_dict": laion_state_dict(weights)}, os.path.join(ckpt_dir, name))
+        with environ(AM_TPU_CKPT_DIR=ckpt_dir):
+            am = AudioMetrics(metrics=metrics, batch_size=BATCH, device="cuda")
+    clap = am.embedder
+    log(f"  embedder {type(clap).__name__} {clap.layer} from {name}, compute dtype "
+        f"{clap.model.compute_dtype}, win_dur {am.win_dur}")
+    if not isinstance(clap, LaionCLAP) or clap.model.compute_dtype != torch.float32:
+        raise AssertionError("the default embedder is not LaionCLAP in f32")
+
+    set_counts_to_zero()
+    am.add_reference(reference)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = am.evaluate(candidate)
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    launches = read_counts()
+    forwards = 2 * -(-N_CLIPS_F32 // BATCH)
+    log(f"  result {result}")
+    check_counts(f"add_reference + first evaluate, {forwards} forward batches", launches,
+                 expected(forwards, swin_block_f32=18, patch_merge_f32=3))
+    if not all(np.isfinite(v) for v in result.values()):
+        raise AssertionError("non-finite metric")
+    t0 = time.perf_counter()
+    am.evaluate(candidate)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    log(f"  evaluate of {N_CLIPS_F32} 5 s clips in f32: {N_CLIPS_F32 / warm:.2f} clips/s warm "
+        f"({warm:.4f} s), {N_CLIPS_F32 / cold:.2f} clips/s first ({cold:.4f} s) "
+        f"[{card}; real_weights: false]")
+    self_fad = am.evaluate(reference)["fad"]
+    log(f"  FAD of the reference against itself: {self_fad:.3g} (tol |fad| <= 1e-4)")
+    if not abs(self_fad) <= 1e-4:
+        raise AssertionError("FAD(reference, reference) is not ~0")
+
+    amp = AudioMetrics(metrics=metrics, embedder=f32_plain_path(clap), batch_size=BATCH,
+                       device="cuda")
+    amp.add_reference(reference)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain = amp.evaluate(candidate)
+    torch.cuda.synchronize()
+    log(f"  f32 plain path: {plain} ({N_CLIPS_F32 / (time.perf_counter() - t0):.2f} clips/s)")
+    e_k, e_p = am.stem_reference.embeddings, amp.stem_reference.embeddings
+    cos = (e_k * e_p).sum(dim=1).min().item()
+    emax = (e_k - e_p).abs().max().item()
+    ok = 1 - cos <= F32_E2E_TOL[0] and emax <= F32_E2E_TOL[1]
+    log(f"  embeddings f32 kernels vs f32 plain chain: 1 - min cosine {1 - cos:.3g} (tol "
+        f"{F32_E2E_TOL[0]}), max abs {emax:.4g} (tol {F32_E2E_TOL[1]}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("f32 kernel-path embeddings disagree with the f32 plain chain")
+    for key, v in result.items():
+        rel = abs(v - plain[key]) / max(abs(plain[key]), 1e-12)
+        log(f"  {key}: kernels {v:.8g} plain {plain[key]:.8g} rel {rel:.3g}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run", file=sys.stderr)
@@ -1207,12 +1369,16 @@ def main() -> int:
 
     log("phase 9 the opt-in ops (v2 attention half, int8 MLP) on a real forward's activations")
     launches_opt_in = phase_opt_in(card, results)
+    log("phase 10 the default configuration: laion_clap_music by name from AM_TPU_CKPT_DIR, "
+        "f32, fad + kd + prdc, 5 s windows")
+    launches_f32 = phase_default_f32(card, params)
 
     # launches: each kernel's count on the path that runs it
     path_of = {"log_mel": launches_10s, "swin_attn_v3": launches_split,
                "swin_mlp": launches_split, "swin_attn_v1": launches_v1,
                "log_mel_v1": launches_mel_v1, "swin_attn_v2": launches_opt_in,
-               "swin_mlp_int8": launches_opt_in}
+               "swin_mlp_int8": launches_opt_in, "swin_block_f32": launches_f32,
+               "patch_merge_f32": launches_f32}
     line = {"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,
          "launches": path_of.get(k.name, launches)[k.name],

@@ -79,6 +79,7 @@ from audio_metrics_tpu_torch.testing import (
     near_duplicate_rows,
     stats_mismatches,
 )
+from audio_metrics_tpu_torch.utils.precision import full_f32
 
 cfg = HTSAT_BASE
 pytestmark = pytest.mark.cuda
@@ -97,6 +98,11 @@ MLP_TOL = ((1e-5, 2.5e-5, 6e-5, 1.2e-4), 0.0625)
 # the opt-in ops, as in chip_smoke.py
 ATTN_V2_TOL = ((1e-4, 2e-4, 5e-4, 1e-3), 0.0625)
 MLP_INT8_TOL = ((2.5e-6, 5e-6, 7e-6, 7e-6), 0.0625)
+# the f32 whole block (REL_MEAN per stage, MAX_ABS) and merge against their
+# f32 plain versions (same arithmetic, other f32 summation order): as in
+# chip_smoke.py
+SWIN_F32_TOL = ((1e-6, 2e-6, 2.5e-6, 4e-6), 5e-5)
+MERGE_F32_TOL = (3e-6, 3e-5)
 
 
 @pytest.fixture(scope="module")
@@ -212,6 +218,54 @@ def test_frontend_sm90_core(cuda, params, b):
     _close(got, want, want, *FRONTEND_TOL)
 
 
+@pytest.mark.parametrize("b", [4, 3])
+@pytest.mark.parametrize(
+    "stage,shift", [(0, 0), (0, 4), (1, 0), (1, 4), (2, 0), (2, 4), (3, 0)]
+)
+def test_swin_block_f32_kernel_matches_plain(cuda, params, stage, shift, b):
+    """The f32 whole block (SIMT f32 products, f32 window attention) against
+    the f32 plain version in full f32, at B = 4 and a ragged B = 3; a second
+    run is bitwise equal (no atomics)."""
+    res = cfg.grid_size // 2**stage
+    c = cfg.embed_dim * 2**stage
+    block = SwinBlock(
+        params, f"audio_encoder.layers.{stage}.blocks.{1 if shift else 0}", cfg, res,
+        shift, cfg.num_heads[stage], torch.float32,
+    ).to(cuda)
+    x = _x(cuda, 140 + stage + shift + b, (b, res * res, c)).float()
+    before = KERNELS["swin_block_f32"].launches
+    got = block(x)
+    again = block(x)
+    torch.cuda.synchronize()
+    assert KERNELS["swin_block_f32"].launches == before + 2
+    assert got.dtype == torch.float32 and torch.equal(got, again)
+    with full_f32():
+        want = block(x, plain=True)
+    _close(got, want, want - x, SWIN_F32_TOL[0][stage], SWIN_F32_TOL[1])
+
+
+@pytest.mark.parametrize("b", [4, 3])
+@pytest.mark.parametrize("stage", [0, 1, 2])
+def test_patch_merge_f32_kernel_matches_plain(cuda, params, stage, b):
+    """The f32 merge (statistics pass, SIMT f32 product with A gathered
+    from the quadrants) against the f32 plain version; bitwise repeats."""
+    res = cfg.grid_size // 2**stage
+    c = cfg.embed_dim * 2**stage
+    merge = PatchMerge(
+        params, f"audio_encoder.layers.{stage}.downsample", cfg, res, torch.float32
+    ).to(cuda)
+    x = _x(cuda, 150 + stage + b, (b, res * res, c)).float()
+    before = KERNELS["patch_merge_f32"].launches
+    got = merge(x)
+    again = merge(x)
+    torch.cuda.synchronize()
+    assert KERNELS["patch_merge_f32"].launches == before + 2
+    assert got.dtype == torch.float32 and torch.equal(got, again)
+    with full_f32():
+        want = merge(x, plain=True)
+    _close(got, want, want, *MERGE_F32_TOL)
+
+
 @pytest.mark.parametrize("stage", [0, 1, 2])
 def test_patch_merge_kernel_matches_plain(cuda, params, stage):
     res = cfg.grid_size // 2**stage
@@ -280,11 +334,18 @@ def test_frontend_kernel_matches_plain(cuda, params):
 
 
 def test_kernels_raise_on_f32(cuda, params):
-    """A CUDA tensor launches the kernel or raises: no silent plain path."""
-    merge = PatchMerge(params, "audio_encoder.layers.2.downsample", cfg, 16, torch.float32)
+    """A CUDA tensor launches the kernel for its dtype or raises: no silent
+    plain path and no cast.  f32 now has kernels of its own (the whole block
+    and the merge): f32 launches the f32 kernel; f16 has none and raises."""
+    merge = PatchMerge(params, "audio_encoder.layers.2.downsample", cfg, 16,
+                       torch.float32).to(cuda)
     x = torch.zeros((1, 256, 512), device=cuda)
+    before = KERNELS["patch_merge_f32"].launches
+    out = merge(x)
+    torch.cuda.synchronize()
+    assert KERNELS["patch_merge_f32"].launches == before + 1 and out.dtype == torch.float32
     with pytest.raises(NotImplementedError):
-        merge.to(cuda)(x)
+        merge(x.half())
 
 
 def _embeddings(cuda, n, m, d, seed):

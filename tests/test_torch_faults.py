@@ -159,3 +159,142 @@ def test_frontend_plain_version_calls_no_kernel_wrapper(monkeypatch):
     tokens = clap_tokens_fused_plain(0.2 * audio, fr, sr=48000, cfg=cfg)
     assert tokens.shape == (1, cfg.grid_size ** 2, cfg.embed_dim)
     assert tokens.dtype == torch.bfloat16 and bool(torch.isfinite(tokens.float()).all())
+
+
+# ----------------------------------------------------------------------
+# f32 on the card: the f32 kernels of the whole block and the merge, no
+# cast, no plain version; the split halves raise
+# ----------------------------------------------------------------------
+class _OnCard(torch.Tensor):
+    """A CPU tensor that reports itself on card 0."""
+
+    @property
+    def device(self):
+        return torch.device("cuda", 0)
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+def _card(t):
+    return torch.Tensor._make_subclass(_OnCard, t)
+
+
+@pytest.fixture
+def symbols(cards, monkeypatch):
+    """The card stood in for as in ``cards``: the library records the C
+    entry points called, and scratch is allocated on the CPU."""
+    called = []
+
+    class Lib:
+        def __getattr__(self, name):
+            def entry(*cargs):
+                called.append(name)
+                return 0
+            return entry
+
+    empty = torch.empty
+
+    def empty_on_cpu(*shape, dtype=None, device=None):
+        return empty(*shape, dtype=dtype)
+
+    monkeypatch.setattr(kernels, "build", lambda: Lib())
+    monkeypatch.setattr(torch, "empty", empty_on_cpu)
+    return called
+
+
+def _on_card(module):
+    for name, buf in list(module.named_buffers()):
+        module._buffers[name] = _card(buf)
+    return module
+
+
+def _small_stage1(dtype, attention="v4"):
+    """Stage 1 of the small config (C = 64, 2 heads, R = 32, shifted):
+    a Swin block and the merge after it, buffers on the stand-in card."""
+    from audio_metrics_tpu_torch.models.htsat import HTSATConfig, PatchMerge, SwinBlock, init_params
+
+    cfg = HTSATConfig(embed_dim=32, depths=(2, 2, 2, 2), num_heads=(1, 2, 4, 8))
+    p = init_params(cfg, seed=0)
+    block = SwinBlock(p, "audio_encoder.layers.1.blocks.1", cfg, 32, 4, 2, dtype,
+                      attention=attention)
+    merge = PatchMerge(p, "audio_encoder.layers.1.downsample", cfg, 32, dtype)
+    x = _card(torch.zeros((2, 32 * 32, 64), dtype=dtype))
+    return _on_card(block), _on_card(merge), x
+
+
+@pytest.mark.parametrize("dtype,want", [
+    (torch.float32, ["am_swin_block_f32", "am_patch_merge_f32"]),
+    (torch.bfloat16, ["am_swin_block", "am_patch_merge"]),
+])
+def test_card_dtype_reaches_its_kernel(symbols, dtype, want):
+    """An f32 tensor on the card launches the f32 kernels, a bf16 one the
+    bf16 kernels, each counted on its own entry; the output keeps the
+    activation dtype (no cast)."""
+    from audio_metrics_tpu_torch.kernels import KERNELS
+
+    block, merge, x = _small_stage1(dtype)
+    names = ("swin_block_f32", "patch_merge_f32") if dtype == torch.float32 else \
+        ("swin_block", "patch_merge")
+    before = {k: v.launches for k, v in KERNELS.items()}
+    y = block(x)
+    z = merge(y)
+    assert symbols == want
+    assert y.dtype == z.dtype == dtype and z.shape == (2, 16 * 16, 128)
+    after = {k: v.launches for k, v in KERNELS.items()}
+    assert {k for k in after if after[k] != before[k]} == set(names)
+    assert all(after[k] == before[k] + 1 for k in names)
+
+
+@pytest.mark.parametrize("attention", ["v3", "v1"])
+def test_card_f32_split_halves_raise(symbols, attention):
+    """f32 on the v3 or v1 attention half or the fused MLP raises with the
+    ROADMAP item: their f32 kernels are not ported, and nothing falls back."""
+    from audio_metrics_tpu_torch.ops.mlp import mlp_block
+
+    block, _, x = _small_stage1(torch.float32, attention)
+    with pytest.raises(NotImplementedError, match="Queue 2 B"):
+        block(x)
+    mlp = (block.ln2_w, block.ln2_b, block.w1, block.b1, block.w2, block.b2)
+    with pytest.raises(NotImplementedError, match="Queue 2 B"):
+        mlp_block(x, *mlp, eps=block.eps)
+    assert symbols == []
+
+
+def test_card_f16_raises(symbols):
+    """A dtype that has no kernel raises, f16 included."""
+    block, merge, x = _small_stage1(torch.float32)
+    with pytest.raises(NotImplementedError):
+        block(x.half())
+    with pytest.raises(NotImplementedError):
+        merge(x.half())
+    assert symbols == []
+
+
+def test_f32_forward_calls_no_bf16_wrapper(monkeypatch):
+    """The f32 CLAP forward takes the f32 mel chain (PyTorch ops, the JAX
+    package's XLA path), never a bf16 kernel's wrapper, and runs every
+    Swin block and merge in f32."""
+    from audio_metrics_tpu_torch.models import clap, htsat
+    from audio_metrics_tpu_torch.models.htsat import HTSATConfig
+    from audio_metrics_tpu_torch.ops import mel
+
+    def wrapper(*args, **kwargs):
+        raise AssertionError("the f32 forward called a bf16 kernel's wrapper")
+
+    for mod, name in ((mel, "log_mel_halo"), (mel, "log_mel_v1"),
+                      (clap, "clap_tokens_fused")):
+        monkeypatch.setattr(mod, name, wrapper)
+    dtypes = []
+    for name in ("swin_block", "patch_merge"):
+        orig = getattr(htsat, name)
+        monkeypatch.setattr(htsat, name, lambda x, *a, _o=orig, **k: (
+            dtypes.append(x.dtype), _o(x, *a, **k))[1])
+    cfg = HTSATConfig(embed_dim=32, depths=(2, 2, 2, 2), num_heads=(1, 2, 4, 8))
+    emb = clap.LaionCLAP(cfg=cfg, allow_random_weights=True, device="cpu")
+    for n in (5 * 48000, 7 * 48000):  # the tiled repeat-pad mel, the padded 10 s one
+        audio = torch.from_numpy(np.random.default_rng(n).normal(size=(1, n)).astype(np.float32))
+        out = emb.embed(0.1 * audio)
+        assert out.dtype == torch.float32 and bool(torch.isfinite(out).all())
+    assert dtypes == [torch.float32] * 22
