@@ -16,8 +16,9 @@ host without ``nvcc`` or a card.
 
 Dispatch rule (the ops modules): a CPU tensor goes to the kernel's plain
 PyTorch version; a CUDA tensor launches the kernel for its dtype (bf16, or
-f32 where an f32 kernel exists: the whole Swin block and the patch merge)
-or raises.  There is no fallback, and no cast between the two.
+f32 where an f32 kernel exists: the whole Swin block and the patch merge,
+whose products run as three TF32 products on the tensor cores) or raises.
+There is no fallback, and no cast between the two.
 """
 
 from __future__ import annotations
@@ -33,7 +34,8 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["Kernel", "KERNELS", "build", "check_sm90_gemm", "refuse_f32", "require_cuda"]
+__all__ = ["Kernel", "KERNELS", "build", "check_sm90_gemm", "check_tf32x3_gemm", "refuse_f32",
+           "require_cuda"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD = Path(__file__).resolve().parent / "build"
@@ -139,6 +141,20 @@ def check_sm90_gemm(name: str, n: int, k: int, *strides: int) -> None:
         raise NotImplementedError(
             f"{name}: the wgmma GEMM core takes N and K multiples of 64 and strides of "
             f"8 elements, got N={n} K={k} strides={strides}"
+        )
+
+
+def check_tf32x3_gemm(name: str, n: int, k: int, *strides: int) -> None:
+    """Raise ``NotImplementedError`` unless the 3xTF32 wgmma core
+    (``csrc/gemm_tf32x3_sm90.cuh``) takes an f32 product of ``n`` output
+    columns over a depth ``k``: ``n`` a multiple of 64 (its narrowest column
+    tile), ``k`` of 32 (its K step, 128 bytes), and every row stride of its
+    operands (``strides``, in elements) a multiple of 4, the 16 bytes a
+    tensor map asks for."""
+    if n % 64 or k % 32 or any(s % 4 for s in strides):
+        raise NotImplementedError(
+            f"{name}: the 3xTF32 GEMM core takes N multiples of 64, K multiples of 32 and "
+            f"strides of 4 elements, got N={n} K={k} strides={strides}"
         )
 
 

@@ -481,17 +481,17 @@ inline EncodeTiled encode_tiled() {
 // its CUresult).
 constexpr int ERR_NO_ENCODE = 8999, ERR_ENCODE = 9000;
 
-// A bf16 tensor map of rank `rank` <= 5 under the 128-byte swizzle: dims and
-// box innermost first, `strides` the byte strides of dims 1..rank-1.
-inline int encode_map(CUtensorMap* map, const bf16* ptr, int rank, const cuuint64_t* dims,
-                      const cuuint64_t* strides, const cuuint32_t* box) {
+// A tensor map of elements of `type` and rank `rank` <= 5 under the
+// 128-byte swizzle: dims and box innermost first, `strides` the byte
+// strides of dims 1..rank-1.
+inline int encode_map(CUtensorMap* map, const void* ptr, CUtensorMapDataType type, int rank,
+                      const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return ERR_NO_ENCODE;
   const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<bf16*>(ptr),
-                        dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  const CUresult r = fn(map, type, rank, const_cast<void*>(ptr), dims, strides, box, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : ERR_ENCODE + (int)r;
 }
 
@@ -499,7 +499,7 @@ inline int encode(CUtensorMap* map, const Operand& o, int box_rows) {
   const cuuint64_t dims[3] = {(cuuint64_t)o.K, (cuuint64_t)o.rows, (cuuint64_t)o.batch};
   const cuuint64_t strides[2] = {(cuuint64_t)o.ld * 2, (cuuint64_t)o.batch_stride * 2};
   const cuuint32_t box[3] = {(cuuint32_t)BK, (cuuint32_t)box_rows, 1};
-  return encode_map(map, o.ptr, 3, dims, strides, box);
+  return encode_map(map, o.ptr, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, dims, strides, box);
 }
 
 // Per-card caches, keyed by the current card (the wrappers make the

@@ -314,7 +314,8 @@ extern "C" int am_log_mel(const float* audio, int n, int half, bf16* hops, int k
   const cuuint64_t dims[3] = {(cuuint64_t)k_pad, (cuuint64_t)n_frames, (cuuint64_t)batch};
   const cuuint64_t strides[2] = {(cuuint64_t)hop * 2, (cuuint64_t)clip_stride * 2};
   const cuuint32_t box[3] = {(cuuint32_t)box_k, (cuuint32_t)box_rows, (cuuint32_t)box_b};
-  if ((e = encode_map(&ta, hops, 3, dims, strides, box)) != 0) return e;
+  if ((e = encode_map(&ta, hops, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, dims, strides, box)))
+    return e;
   if ((e = encode(&tb, rows_of(basis_t, 2 * n_keep, k_pad, k_pad), MEL_BN)) != 0) return e;
   const MelEpi p = {n_frames, 2 * n_keep / MEL_BN, fb, sc, of, log_mode, log_offset, out};
   return out_bf16 ? launch_log_mel<bf16>(ta, tb, p, k_pad, batch, stream)

@@ -35,20 +35,17 @@
 //
 // am_patch_merge_f32, the f32 counterpart (the JAX kernel takes the
 // activation dtype): the same statistics pass in f32, then the product on
-// the SIMT f32 core (simt_f32.cuh; Hopper has no full-f32 tensor-core
-// product, so the operations bind at the CUDA cores' 67 TFLOP/s) with A
-// gathered by its loader policy MergeRowsF32: each 4-float chunk of a
-// 32-deep K step of the 4C concat lies in one quadrant (C % 4 == 0; at every
-// HTSAT merge C % 32 == 0, so a whole step does), so the loader reads it
-// straight from its source token and the concat never exists; the
+// the tensor cores as three TF32 products (gemm_tf32x3_sm90.cuh, f32-level
+// accuracy) with A read through the same 4-D map in f32 elements: a K step
+// of 32 f32 is 128 bytes, as 64 bf16, and lies in one quadrant (C % 32 ==
+// 0); the weight is read as its TF32 hi and lo parts, split at load; the
 // EPI_MERGE epilogue in f32.
-#include "gemm_sm90.cuh"
-#include "simt_f32.cuh"
+#include "gemm_tf32x3_sm90.cuh"
 
 namespace {
 
 constexpr int STATS_WARPS = 8;
-constexpr int MERGE_STEPS_MAX = 64;  // K steps of 64: C <= 1024 (check_merge_gemm)
+constexpr int MERGE_STEPS_MAX = 64;  // K steps: C <= 1024 in bf16, <= 512 in f32 (check_merge_*)
 
 // The core's loader of A's tile: K step k of row tile mt reads the box at
 // the coordinates origin[k] of the 4-D map, the outermost moved by mt whole
@@ -94,22 +91,6 @@ __global__ void __launch_bounds__(STATS_WARPS * 32)
   }
 }
 
-// The f32 core's loader of A, the quadrant concat (M, 4C) of x (B, R*R, C):
-// depths k..k+3 of output row `row` = (b, i2, j2) lie in quadrant q = k / C
-// of [x00, x10, x01, x11], (dy, dx) = (q & 1, q >> 1), at channel k % C of
-// token (2 i2 + dy, 2 j2 + dx) of image b.
-struct MergeRowsF32 {
-  const float* x;
-  int M, R, C;
-  __device__ __forceinline__ const float* operator()(int row, int k) const {
-    if (row >= M || k >= 4 * C) return nullptr;
-    const int h2 = R / 2, img = row / (h2 * h2), cell = row - img * h2 * h2;
-    const int i2 = cell / h2, j2 = cell - i2 * h2, q = k / C;
-    const int dy = q & 1, dx = q >> 1;
-    return x + ((long long)(img * R + 2 * i2 + dy) * R + 2 * j2 + dx) * C + (k - q * C);
-  }
-};
-
 }  // namespace
 
 // x: (B, R*R, C) bf16; wg_t: (2C, 4C) bf16, the (4, C, 2C) blocks transposed
@@ -134,7 +115,8 @@ extern "C" int am_patch_merge(const bf16* x, const bf16* wg_t, const float* svec
   const cuuint64_t dims[4] = {(cuuint64_t)d0, (cuuint64_t)d1, (cuuint64_t)d2, (cuuint64_t)d3};
   const cuuint64_t strides[3] = {(cuuint64_t)s1 * 2, (cuuint64_t)s2 * 2, (cuuint64_t)s3 * 2};
   const cuuint32_t box[4] = {(cuuint32_t)b0, (cuuint32_t)b1, (cuuint32_t)b2, (cuuint32_t)b3};
-  if ((e = encode_map(&ta, x, 4, dims, strides, box)) != 0) return e;
+  if ((e = encode_map(&ta, x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, dims, strides, box)))
+    return e;
   const int ksteps = 4 * C / sm90::BK;
   if (ksteps > MERGE_STEPS_MAX) return (int)cudaErrorInvalidValue;
   MergeA load_a = {b3};
@@ -147,19 +129,36 @@ extern "C" int am_patch_merge(const bf16* x, const bf16* wg_t, const float* svec
                                 stream);
 }
 
-// x: (B, R*R, C) f32; wg_t: (2C, 4C) f32 K-major; svec, tvec: (2C) f32;
-// stats: (2, M) f32 scratch; out: (B, (R/2)^2, 2C) f32.  R even, C % 8 ==
-// 0 (ops/merge.py check_merge_f32).
-extern "C" int am_patch_merge_f32(const float* x, const float* wg_t, const float* svec,
+// x: (B, R*R, C) f32; wg_s: (2, 2C, 4C) f32, the K-major weight's TF32 hi
+// over lo parts; svec, tvec: (2C) f32; stats: (2, M) f32 scratch; out: (B,
+// (R/2)^2, 2C) f32.  The A map and origin as am_patch_merge's, in f32
+// elements and K steps of 32.  Shapes checked by ops/merge.py
+// (check_merge_f32): R/2 divides 128, C % 32 == 0, C <= 512.
+extern "C" int am_patch_merge_f32(const float* x, const float* wg_s, const float* svec,
                                   const float* tvec, int B, int R, int C, float eps,
-                                  float* stats, float* out, cudaStream_t stream) {
+                                  float* stats, float* out, int d0, int d1, int d2, int d3,
+                                  int s1, int s2, int s3, int b0, int b1, int b2, int b3,
+                                  const int* origin, cudaStream_t stream) {
+  using namespace tf32x3;
   const int M = B * (R / 2) * (R / 2);
   merge_stats_kernel<float><<<(M + STATS_WARPS - 1) / STATS_WARPS, STATS_WARPS * 32, 0,
                               stream>>>(x, M, R, C, eps, stats, stats + M);
   int e;
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
+
+  CUtensorMap ta;
+  const cuuint64_t dims[4] = {(cuuint64_t)d0, (cuuint64_t)d1, (cuuint64_t)d2, (cuuint64_t)d3};
+  const cuuint64_t strides[3] = {(cuuint64_t)s1 * 4, (cuuint64_t)s2 * 4, (cuuint64_t)s3 * 4};
+  const cuuint32_t box[4] = {(cuuint32_t)b0, (cuuint32_t)b1, (cuuint32_t)b2, (cuuint32_t)b3};
+  if ((e = sm90::encode_map(&ta, x, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, dims, strides, box)))
+    return e;
+  const int ksteps = 4 * C / tf32x3::BK;
+  if (ksteps > MERGE_STEPS_MAX) return (int)cudaErrorInvalidValue;
+  MergeA load_a = {b3};
+  for (int k = 0; k < ksteps; ++k)
+    for (int i = 0; i < 4; ++i) load_a.origin[k][i] = origin[4 * k + i];
   EpiF32 p = {};
   p.M = M; p.N = 2 * C; p.out = out; p.ldo = 2 * C;
   p.v0 = tvec; p.csum = svec; p.mu = stats; p.rs = stats + M;
-  return gemm_f32<EPI_MERGE>(MergeRowsF32{x, M, R, C}, wg_t, 4 * C, p, stream);
+  return gemm_mapped<EPI_MERGE>(ta, load_a, split_of(wg_s, 2 * C, 4 * C), p, 4 * C, stream);
 }

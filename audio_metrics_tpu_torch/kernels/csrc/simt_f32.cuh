@@ -1,10 +1,15 @@
-// f32 product core on the CUDA cores: the PRDC distance kernels (#4, #5,
-// distance.cu) and the f32 Swin block (#1) and patch merge (#2)
-// (swin_block.cu, patch_merge.cu).
+// f32 product loop on the CUDA cores of the PRDC distance kernels (#4, #5,
+// distance.cu).
 //
-// Hopper has no full-f32 tensor-core product: TF32 keeps 10 mantissa bits
-// (~5e-4 relative), ten times the JAX suite's f32 kernel bound (5e-5), so
-// every f32 product here is SIMT f32 FMAs, at most 67 TFLOP/s on an H100.
+// Why the CUDA cores: #4 and #5 hold the plain version's own f32 rounding
+// of a distance that cancels (|a|^2 + |b|^2 - 2 a.b on the clustered CLAP
+// embeddings, where the plain f32 version is itself up to 3.3e-5 from
+// float64), so their products sum in the plain version's depth order, one
+// f32 FMA at a time, and their radii come out bitwise equal to it.  A
+// tensor-core product (3xTF32 on mma.sync) rounds otherwise and left 32 of
+// 2048 main-path radii outside rtol 1e-4.  The f32 Swin block and patch
+// merge, which have no bitwise contract, run on the 3xTF32 tensor-core core
+// instead (gemm_tf32x3_sm90.cuh).
 //
 // The loop (tile_products): a 128 x 128 tile of A . B^T, both operands
 // K-major (rows of K contiguous floats, K % 4 == 0), 32-deep stages brought
@@ -12,23 +17,12 @@
 // 16 x 16 grid holds an 8 x 8 register tile, rows ty + 16 i and columns
 // tx + 16 j, each an f32 FMA chain in depth order from 0; ragged edges are
 // zero-filled by cp.async.  Where A's rows come from is a loader policy
-// (RowsF32: rows of a matrix; patch_merge.cu's MergeRowsF32: the 2x2
-// quadrant concat gathered from the unmerged tokens).  #4 and #5 read plain
-// rows through tile_products(a, na, ...), the loop they were written on.
-//
-// gemm_f32_kernel<EPI, ALoad>: one block per 128 x 128 output tile of
-// out = epilogue(A @ B^T), B held (N x K); the epilogue applies the
-// arithmetic of gemm_sm90.cuh's epilogue8 to each accumulator straight from
-// its register, in f32 out: EPI_QKV (LN1 fold), EPI_PROJ (bias, window
-// un-partition / un-roll, residual), EPI_GELU (exact erf), EPI_RESID,
-// EPI_MERGE (merge LN fold).  Two blocks per SM (128 registers a thread,
-// 72 KB of shared memory each).
+// (RowsF32: rows of a matrix); #4 and #5 read plain rows through
+// tile_products(a, na, ...).
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#include "gemm.cuh"
 
 namespace {
 
@@ -142,79 +136,6 @@ __device__ __forceinline__ void tile_products(const float* __restrict__ a, int n
                                               int row0, int col0, float* tiles,
                                               float (&acc)[TM][TM]) {
   tile_products(RowsF32{a, na, d}, b, nb, d, row0, col0, tiles, acc);
-}
-
-// What the f32 epilogues read and write (gemm_sm90.cuh's EpiParams, f32).
-struct EpiF32 {
-  int M, N;
-  float* out;
-  int ldo;
-  int R, win, shift;   // EPI_PROJ's window map
-  const float* v0;     // bias
-  const float* csum;   // EPI_QKV: column sums of W (1 @ W); EPI_MERGE: g @ W
-  const float* mu;     // EPI_QKV, EPI_MERGE: LN mean and 1/sigma of each A row
-  const float* rs;
-  const float* res;    // residual
-};
-
-template <int EPI, class ALoad>
-__global__ void __launch_bounds__(THREADS, 2)
-    gemm_f32_kernel(const ALoad la, const float* __restrict__ b, int K, const EpiF32 p) {
-  extern __shared__ float tiles[];
-  const int row0 = blockIdx.x * KNN_BM, col0 = blockIdx.y * KNN_BN;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float acc[TM][TM];
-  tile_products(la, b, p.N, K, row0, col0, tiles, acc);
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int r = row0 + ty + 16 * i;
-    if (r < p.M) {
-      float rs = 0.f, mu = 0.f;
-      if (EPI == EPI_QKV || EPI == EPI_MERGE) {
-        rs = p.rs[r];
-        mu = p.mu[r];
-      }
-      long long o = (long long)r * p.ldo;
-      if (EPI == EPI_PROJ) {  // the row's place in the un-partitioned, un-rolled image
-        const int rr2 = p.R * p.R, img = r / rr2;
-        o = ((long long)img * rr2 + window_src(r - img * rr2, p.R, p.win, p.shift)) * p.ldo;
-      }
-#pragma unroll
-      for (int j = 0; j < TM; ++j) {
-        const int n = col0 + tx + 16 * j;
-        if (n < p.N) {
-          const float a = acc[i][j], bias = p.v0[n];
-          float v;
-          if (EPI == EPI_QKV) {
-            v = a * rs - rs * mu * p.csum[n] + bias;
-          } else if (EPI == EPI_MERGE) {  // the plain version's order: acc*rs + (t - mu*rs*s)
-            v = a * rs + (bias - mu * rs * p.csum[n]);
-          } else if (EPI == EPI_GELU) {
-            const float t = a + bias;
-            v = 0.5f * t * (1.f + erff(t * 0.7071067811865476f));
-          } else {  // EPI_PROJ, EPI_RESID: + bias + the f32 residual
-            v = a + bias + p.res[o + n];
-          }
-          p.out[o + n] = v;
-        }
-      }
-    }
-  }
-}
-
-// out = epilogue(A @ B^T): A through `la` (p.M rows of depth K), B (p.N, K)
-// f32, K % 4 == 0 (16-byte cp.async chunks).
-template <int EPI, class ALoad>
-cudaError_t gemm_f32(const ALoad& la, const float* b, int K, const EpiF32& p,
-                     cudaStream_t stream) {
-  if (K % 4) return cudaErrorInvalidValue;
-  constexpr int smem = TILE_FLOATS * (int)sizeof(float);
-  const auto kernel = gemm_f32_kernel<EPI, ALoad>;
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return e;
-  kernel<<<dim3((p.M + KNN_BM - 1) / KNN_BM, (p.N + KNN_BN - 1) / KNN_BN), THREADS, smem,
-           stream>>>(la, b, K, p);
-  return cudaGetLastError();
 }
 
 }  // namespace

@@ -39,13 +39,13 @@
 // am_swin_block_f32, the f32 counterpart (the JAX kernel takes the
 // activation dtype; the default CLAP embedder runs in f32): the same seven
 // steps with every intermediate f32, as swin_block_plain keeps them at f32
-// (no rounding point).  Hopper has no full-f32 tensor-core product, so the
-// four products run on the SIMT f32 core (simt_f32.cuh, gemm_f32 with the
-// same epilogue arithmetic, f32 out) at most at the 67 TFLOP/s of the CUDA
-// cores, and the window attention's products are f32 FMAs too
+// (no rounding point).  The four products run on the tensor cores as three
+// TF32 products each (gemm_tf32x3_sm90.cuh: f32-level accuracy, ~165
+// TFLOP/s of f32-accurate products against the CUDA cores' 67), with the
+// same epilogue arithmetic in f32 out, reading the weights split into TF32
+// hi and lo parts at load; the window attention's products stay f32 FMAs
 // (window_attn.cuh's f32 instantiation).  The operations bound it.
-#include "gemm_sm90.cuh"
-#include "simt_f32.cuh"
+#include "gemm_tf32x3_sm90.cuh"
 #include "window_attn.cuh"
 
 namespace {
@@ -147,19 +147,21 @@ extern "C" int am_swin_block(const bf16* x, const bf16* wqkv_t, const float* csu
                          stream);
 }
 
-// The f32 block: x, out (B, R, R, C) f32; weights as am_swin_block's, every
-// matrix f32 (N, K) K-major.  Scratch, all f32: stats (2, B*R*R), qkv
-// (B*R*R, 3C), ctx/hbuf (B*R*R, C) (hbuf first holds the window-ordered
-// rows, then the LN2 output), res (B*R*R, C), h1 (B*R*R, 4C).  C % 8 == 0,
-// C <= 1024 (ops/attention.py check_block_f32).
-extern "C" int am_swin_block_f32(const float* x, const float* wqkv_t, const float* csum,
-                                 const float* bq3, const float* wp_t, const float* bp,
+// The f32 block: x, out (B, R, R, C) f32; weights as am_swin_block's, each
+// matrix its (2, N, K) f32 stack of TF32 hi over lo parts (ops/tf32.py
+// tf32_split of the (N, K) matrix).  Scratch, all f32: stats (2, B*R*R),
+// qkv (B*R*R, 3C), ctx/hbuf (B*R*R, C) (hbuf first holds the window-ordered
+// rows, then the LN2 output), res (B*R*R, C), h1 (B*R*R, 4C).  C % 64 ==
+// 0, C <= 1024 (ops/attention.py check_block_f32).
+extern "C" int am_swin_block_f32(const float* x, const float* wqkv_s, const float* csum,
+                                 const float* bq3, const float* wp_s, const float* bp,
                                  const float* bm, int nbm, const float* ln2w, const float* ln2b,
-                                 const float* w1_t, const float* b1, const float* w2_t,
+                                 const float* w1_s, const float* b1, const float* w2_s,
                                  const float* b2, int B, int R, int C, int heads, int win,
                                  int shift, float eps, float* stats, float* qkv, float* ctx,
                                  float* res, float* hbuf, float* h1, float* out,
                                  cudaStream_t stream) {
+  using namespace tf32x3;
   const int M = B * R * R;
   int e;
 
@@ -170,7 +172,7 @@ extern "C" int am_swin_block_f32(const float* x, const float* wqkv_t, const floa
   EpiF32 p = {};
   p.M = M; p.N = 3 * C; p.out = qkv; p.ldo = 3 * C;
   p.v0 = bq3; p.csum = csum; p.mu = stats; p.rs = stats + M;
-  if ((e = gemm_f32<EPI_QKV>(RowsF32{hbuf, M, C}, wqkv_t, C, p, stream))) return e;
+  if ((e = gemm<EPI_QKV>(rows_of(hbuf, M, C, C), wqkv_s, p, stream))) return e;
 
   if ((e = launch_window_attn(qkv, bm, nbm, M / WIN_N, heads, C, ctx, stream)) != cudaSuccess)
     return e;
@@ -178,16 +180,16 @@ extern "C" int am_swin_block_f32(const float* x, const float* wqkv_t, const floa
   p = EpiF32{};
   p.M = M; p.N = C; p.out = res; p.ldo = C;
   p.R = R; p.win = win; p.shift = shift; p.v0 = bp; p.res = x;
-  if ((e = gemm_f32<EPI_PROJ>(RowsF32{ctx, M, C}, wp_t, C, p, stream))) return e;
+  if ((e = gemm<EPI_PROJ>(rows_of(ctx, M, C, C), wp_s, p, stream))) return e;
 
   if ((e = launch_ln_rows(res, M, 1, C, ln2w, ln2b, eps, hbuf, 0, 0, stream)) != cudaSuccess)
     return e;
 
   p = EpiF32{};
   p.M = M; p.N = 4 * C; p.out = h1; p.ldo = 4 * C; p.v0 = b1;
-  if ((e = gemm_f32<EPI_GELU>(RowsF32{hbuf, M, C}, w1_t, C, p, stream))) return e;
+  if ((e = gemm<EPI_GELU>(rows_of(hbuf, M, C, C), w1_s, p, stream))) return e;
 
   p = EpiF32{};
   p.M = M; p.N = C; p.out = out; p.ldo = C; p.v0 = b2; p.res = res;
-  return gemm_f32<EPI_RESID>(RowsF32{h1, M, 4 * C}, w2_t, 4 * C, p, stream);
+  return gemm<EPI_RESID>(rows_of(h1, M, 4 * C, 4 * C), w2_s, p, stream);
 }

@@ -29,6 +29,8 @@ merges launch their f32 kernels on the card.
 
 from __future__ import annotations
 
+from functools import lru_cache
+
 import numpy as np
 import torch
 from torch import nn
@@ -39,7 +41,7 @@ from ..ops.frontend_fused import (
     frontend_tables,
     fused_frontend_supported,
 )
-from ..ops.mel import log_mel_halo_plain, log_mel_spectrogram, mel_filter_bank
+from ..ops.mel import device_table, log_mel_halo_plain, log_mel_spectrogram, mel_filter_bank
 from ..utils.precision import full_f32
 from .base import Embedder, _require_random_weights_optin, resolve_device
 from .htsat import HTSAT_BASE, HTSATConfig, HTSATEncoder, frontend_tokens, init_params
@@ -111,6 +113,13 @@ def repeat_pad(audio):
     return torch.nn.functional.pad(audio, (0, MAX_SAMPLES - audio.shape[1]))
 
 
+@lru_cache(maxsize=None)
+def _mid_rows(p: int, t_tail0: int) -> np.ndarray:
+    """The head frame each mid frame p+2 .. t_tail0-1 of the tiled mel
+    copies: one clip period (p frames) earlier, folded into the head."""
+    return 2 + (np.arange(p + 2, t_tail0) - 2) % p
+
+
 def clap_mel_tiled(audio, compute_dtype=None, out_affine=None, out_dtype=None, plain=False):
     """Log-mel of the repeat-padded clip computed from its p+2 head and 2
     tail frames only (audio_metrics_tpu/models/clap.py:116-157): every frame
@@ -129,7 +138,7 @@ def clap_mel_tiled(audio, compute_dtype=None, out_affine=None, out_dtype=None, p
               plain=plain)
     head = clap_mel(head_sig, center=False, **kw)
     tail = clap_mel(tail_sig, center=False, **kw)
-    mid_idx = torch.from_numpy(2 + (np.arange(p + 2, t_tail0) - 2) % p).to(audio.device)
+    mid_idx = device_table(_mid_rows, (p, t_tail0), audio.device, torch.int64)
     mel = torch.cat([head, head[:, mid_idx], tail], dim=1)
     assert mel.shape[1] == n_frames
     return mel

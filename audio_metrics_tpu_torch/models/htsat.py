@@ -40,6 +40,7 @@ from ..ops.attention import (
     swin_block_plain,
     window_attention_xla,
 )
+from ..ops.mel import device_table
 from ..ops.merge import merge_weight_t, patch_merge, patch_merge_plain
 from ..ops.mlp import layer_norm, mlp_block, mlp_block_plain, mlp_xla
 
@@ -553,7 +554,7 @@ def frontend_tokens(mel, patch_w, patch_b, ln_w, ln_b, cfg: HTSATConfig, compute
         raise ValueError(f"mel {tuple(mel.shape)} does not tile the patch grid of {cfg}")
     op_dt = torch.bfloat16 if compute_dtype == torch.bfloat16 else torch.float32
     if t < spec_w:
-        w = torch.from_numpy(_bicubic_matrix(t, spec_w)).to(mel.device, op_dt)
+        w = device_table(_bicubic_matrix, (t, spec_w), mel.device, op_dt)
         x = torch.matmul(w.float(), mel.to(op_dt).float())  # f32 accumulation
     else:
         x = mel.float()

@@ -39,7 +39,8 @@ Dispatch of each kernel wrapper: a CPU tensor runs its ``*_plain``
 version; a CUDA tensor launches the hand-written kernel or raises.  The
 whole block has a kernel for each activation dtype the JAX kernel takes: a
 bf16 CUDA tensor launches ``am_swin_block``, an f32 one ``am_swin_block_f32``
-(its own launch count, ``KERNELS["swin_block_f32"]``).  The attention halves
+(its own launch count, ``KERNELS["swin_block_f32"]``; its products run as
+three TF32 products on the tensor cores).  The attention halves
 take bf16 only: on the card f32 raises (ROADMAP.md Queue 2 B).
 """
 
@@ -49,8 +50,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..kernels import KERNELS, check_sm90_gemm, refuse_f32, require_cuda
+from ..kernels import KERNELS, check_sm90_gemm, check_tf32x3_gemm, refuse_f32, require_cuda
 from .mlp import layer_norm
+from .tf32 import tf32_split
 
 __all__ = [
     "check_block_f32",
@@ -165,10 +167,13 @@ def swin_block_operands(wqkv, wp, w1, w2) -> dict:
     """What the whole-block kernel reads besides the plain version's
     operands, made once when the weights load (``models.htsat.SwinBlock``):
     each matrix transposed to (N, K), the K-major layout in which the wgmma
-    core (kernels/csrc/gemm_sm90.cuh) reads both operands, and ``csum``, the
+    cores read both operands; in f32 that (N, K) matrix split into its TF32
+    hi and lo parts, stacked (2, N, K) (``ops.tf32.tf32_split``), what the
+    3xTF32 core (kernels/csrc/gemm_tf32x3_sm90.cuh) reads; and ``csum``, the
     f32 column sums of ``wqkv`` as held (1 @ W of the LN1 fold, what
     :func:`_qkv_ln_folded` sums)."""
-    t = lambda w: w.t().contiguous()
+    f32 = wqkv.dtype == torch.float32
+    t = lambda w: tf32_split(w.t()) if f32 else w.t().contiguous()
     return dict(wqkv_t=t(wqkv), wp_t=t(wp), w1_t=t(w1), w2_t=t(w2),
                 csum=wqkv.float().sum(dim=0))
 
@@ -187,13 +192,12 @@ def check_block_gemms(c: int) -> None:
 def check_block_f32(c: int) -> None:
     """Raise ``NotImplementedError`` unless the f32 whole-block kernel
     takes a width of ``c``: its LN1 pass holds a row in one warp's
-    registers as 16-byte loads (C <= 1024, C % 8 == 0), and its products on
-    the SIMT f32 core (kernels/csrc/simt_f32.cuh) read depths C and 4C in
-    16-byte chunks (a multiple of 4, as ``check_depth`` asks of the PRDC
-    kernels)."""
-    if c > 1024 or c % 8:
-        raise NotImplementedError(
-            f"swin_block f32: the LN1 pass takes C <= 1024 and C % 8 == 0, got C={c}")
+    registers (C <= 1024), and its qkv, proj, fc1 and fc2 products run on
+    the 3xTF32 core (``kernels.check_tf32x3_gemm``)."""
+    if c > 1024:
+        raise NotImplementedError(f"swin_block f32: the LN1 pass takes C <= 1024, got C={c}")
+    for n, k in ((3 * c, c), (c, c), (4 * c, c), (c, 4 * c)):
+        check_tf32x3_gemm("swin_block f32", n, k, k)
 
 
 def _operands(operands):
@@ -225,6 +229,11 @@ def _swin_block_f32_cuda(x, wqkv, bq3, wp, bp, bm, ln2_w, ln2_b, w1, b1, w2, b2,
                  ln2_w, ln2_b, b1, b2, dtype=torch.float32)
     _check_geometry("swin_block_f32", x, heads, window, bm)
     check_block_f32(c)
+    for name, (n, k) in dict(wqkv_t=(3 * c, c), wp_t=(c, c), w1_t=(4 * c, c),
+                             w2_t=(c, 4 * c)).items():
+        if o[name].shape != (2, n, k):
+            raise ValueError(f"swin_block f32 reads {name} as tf32_split's (2, {n}, {k}) "
+                             f"stack, got {tuple(o[name].shape)}")
     scratch = _block_scratch(x, torch.float32)
     KERNEL_F32.launch(
         "am_swin_block_f32", x, o["wqkv_t"], o["csum"], bq3, o["wp_t"], bp, bm, bm.shape[0],

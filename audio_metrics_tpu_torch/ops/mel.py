@@ -140,6 +140,22 @@ def _dft_matrices(frame_length: int, n_fft: int, window: str):
     return cos_m, sin_m
 
 
+@lru_cache(maxsize=None)
+def _dft_basis(frame_length: int, n_fft: int) -> np.ndarray:
+    """(frame_length, 2 * n_bins) [cos | sin] Hann-windowed real-DFT basis."""
+    return np.concatenate(_dft_matrices(frame_length, n_fft, "hann"), axis=1)
+
+
+@lru_cache(maxsize=64)
+def device_table(make, args: tuple, device: torch.device, dtype=torch.float32) -> torch.Tensor:
+    """``make(*args)``, a cached numpy table builder, as a ``dtype`` tensor
+    on ``device``, uploaded once per device and kept: the f32 mel chain's
+    DFT basis, filterbank, tiled-mel row index and bicubic matrix (the bf16
+    frontend holds its tables from load, ``ops.frontend_fused.
+    frontend_tables``).  Read it, do not change it."""
+    return torch.from_numpy(np.ascontiguousarray(make(*args))).to(device, dtype)
+
+
 def _fb_support_bins(fb: np.ndarray) -> int:
     """Highest frequency bin with any mel-filter weight, rounded up to a
     multiple of 128 — bins above fmax contribute nothing and are dropped
@@ -167,9 +183,8 @@ def stft_power(audio, frame_length: int, hop_length: int, n_fft: int | None = No
     if center:
         x = _reflect_pad(x, frame_length)
     n_fft = n_fft or frame_length
-    cos_m, sin_m = _dft_matrices(frame_length, n_fft, "hann")
-    n_bins = cos_m.shape[1]
-    basis = torch.from_numpy(np.concatenate([cos_m, sin_m], axis=1)).to(x.device)
+    n_bins = n_fft // 2 + 1
+    basis = device_table(_dft_basis, (frame_length, n_fft), x.device)
     dt = compute_dtype or torch.float32
     frames = x.unfold(1, frame_length, hop_length)  # (B, frames, frame_length) view
     acc = torch.matmul(frames.to(dt).float(), basis.to(dt).float())
@@ -410,11 +425,9 @@ def log_mel_spectrogram(audio, sampling_rate: int, frame_length: int, hop_length
     compute goes to the halo log-mel wrapper, or to ``log_mel_v1`` when
     ``AM_TPU_MEL_V1`` is set (read here, at call time): a CUDA tensor
     launches the kernel, a CPU tensor takes its plain version."""
-    fb = mel_filter_bank(
-        (n_fft or frame_length) // 2 + 1, n_mels, float(fmin), float(fmax),
-        int(sampling_rate), norm=mel_norm, mel_scale=mel_scale,
-        triangle_domain=triangle_domain, zero_dc=zero_dc,
-    ).astype(np.float32)
+    fb_args = ((n_fft or frame_length) // 2 + 1, n_mels, float(fmin), float(fmax),
+               int(sampling_rate), mel_norm, mel_scale, triangle_domain, zero_dc)
+    fb = mel_filter_bank(*fb_args).astype(np.float32)
     if compute_dtype == torch.bfloat16:
         fn = log_mel_v1 if os.environ.get("AM_TPU_MEL_V1") else log_mel_halo
         return fn(
@@ -424,7 +437,7 @@ def log_mel_spectrogram(audio, sampling_rate: int, frame_length: int, hop_length
         )
     spec = stft_power(audio, frame_length, hop_length, n_fft=n_fft, center=center,
                       compute_dtype=compute_dtype)
-    mel = torch.matmul(spec, torch.from_numpy(fb).to(spec.device))
+    mel = torch.matmul(spec, device_table(mel_filter_bank, fb_args, spec.device))
     if log_mode == "db":
         lm = 10.0 * torch.log10(torch.clamp(mel, min=1e-10))
     elif log_mode == "natural":

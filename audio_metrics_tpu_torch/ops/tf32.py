@@ -1,0 +1,37 @@
+"""TF32 rounding and the hi/lo split of the 3xTF32 products.
+
+The f32 whole block and the f32 patch merge run their products on the
+tensor cores as three TF32 products (kernels/csrc/gemm_tf32x3_sm90.cuh):
+each f32 operand x is split into x_hi = rna(x) and x_lo = rna(x - x_hi),
+where rna rounds to TF32 (10 mantissa bits) to nearest with ties away from
+zero, the rounding of the card's ``cvt.rna.tf32.f32``.  x_hi + x_lo holds x
+to ~2^-22 relative, and A @ B ~= A_lo @ B_hi + A_hi @ B_lo + A_hi @ B_hi.
+The kernels split A themselves; a weight is split here, once at load
+(``ops.attention.swin_block_operands``, ``ops.merge.merge_weight_t``).
+"""
+
+from __future__ import annotations
+
+import torch
+
+__all__ = ["tf32_round", "tf32_split"]
+
+_LOW = 0x1000  # half a TF32 ulp: bit 12 of the f32 bits
+_KEEP = -0x2000  # 0xFFFFE000 as an int32: clears the 13 low mantissa bits
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """f32 ``x`` rounded to TF32, to nearest with ties away from zero: on
+    the bits, (bits + 0x1000) & 0xFFFFE000 (the sign bit is untouched, so
+    negatives round away from zero too; a carry moves into the exponent)."""
+    if x.dtype != torch.float32:
+        raise TypeError(f"tf32_round takes f32, got {x.dtype}")
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + _LOW) & _KEEP).view(torch.float32)
+
+
+def tf32_split(w: torch.Tensor) -> torch.Tensor:
+    """f32 ``w`` (N, K) -> (2, N, K): its TF32 hi part over its lo part,
+    hi = rna(w), lo = rna(w - hi), as the 3xTF32 kernels read a weight."""
+    hi = tf32_round(w)
+    return torch.stack([hi, tf32_round(w - hi)])

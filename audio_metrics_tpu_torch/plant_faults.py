@@ -53,12 +53,18 @@ FAULTS = {
            "const float* tab = bm + ((long long)0 * heads + h) * N * N;",
            "the f32 window attention reads window 0's table everywhere: the shift mask "
            "is dropped"),
-    "G1": (f"{CSRC}/patch_merge.cu", "const int dy = q & 1, dx = q >> 1;",
-           "const int dy = q >> 1, dx = q & 1;",
-           "the f32 merge's gather loader swaps quadrants 1 and 2 (x10 and x01)"),
-    "Q1": (f"{CSRC}/simt_f32.cuh", "v = a * rs - rs * mu * p.csum[n] + bias;",
-           "v = a * rs + bias;",
+    "G1": ("audio_metrics_tpu_torch/ops/merge.py",
+           "origin.append(((q >> 1) * c + c0, 0, q & 1, 0))",
+           "origin.append(((q & 1) * c + c0, 0, q >> 1, 0))",
+           "the merges' A map swaps quadrants x10 and x01 (both dtypes read it)"),
+    "Q1": (f"{CSRC}/gemm_tf32x3_sm90.cuh", "return a * rs - rs * mu * p.csum[n] + bias;",
+           "return a * rs + bias;",
            "the f32 qkv epilogue drops the LN1 fold's rs * mu * csum term"),
+    "T1": (f"{CSRC}/gemm_tf32x3_sm90.cuh",
+           "      wgmma_bn<BN>(tmp, smem_desc(a_lo + kk * 32), smem_desc(b_hi + kk * 32), kk > 0);\n"
+           "      wgmma_bn<BN>(tmp, smem_desc(a_hi + kk * 32), smem_desc(b_lo + kk * 32), 1);\n",
+           "      wgmma_bn<BN>(tmp, smem_desc(a_hi + kk * 32), smem_desc(b_lo + kk * 32), kk > 0);\n",
+           "the 3xTF32 core drops the A_lo . B_hi product"),
 }
 SKIP = ("build", ".git", "__pycache__", ".pytest_cache")
 

@@ -9,7 +9,9 @@
 - ``near_duplicate_rows``: embeddings whose k-NN radii are the small
   distances of near-duplicates, where the squared-distance formula cancels;
 - ``laion_state_dict``: a parameter dict written back under a LAION CLAP
-  checkpoint's names, as ``convert.convert_checkpoint`` reads them.
+  checkpoint's names, as ``convert.convert_checkpoint`` reads them;
+- ``tf32x3_matmul``: the f32 product of the 3xTF32 kernels, emulated on
+  any device (or one TF32 product, ``terms=1``).
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ import numpy as np
 import torch
 
 __all__ = ["card_line", "laion_state_dict", "near_duplicate_rows", "seeded_clips",
-           "stats_mismatches"]
+           "stats_mismatches", "tf32x3_matmul"]
 
 
 def card_line() -> str:
@@ -135,3 +137,20 @@ def laion_state_dict(params: dict, prefix: str = "module.") -> dict:
             key = key.replace(hf, laion)
         out[prefix + key] = torch.from_numpy(np.ascontiguousarray(arr, np.float32))
     return out
+
+
+def tf32x3_matmul(a: torch.Tensor, b: torch.Tensor, terms: int = 3) -> torch.Tensor:
+    """``a @ b`` (f32) as the 3xTF32 kernels compute it
+    (kernels/csrc/gemm_tf32x3_sm90.cuh): both operands split into TF32 hi
+    and lo parts (``ops.tf32``), the products A_lo @ B_hi + A_hi @ B_lo +
+    A_hi @ B_hi summed small terms first, each in f32.  ``terms=1`` keeps
+    A_hi @ B_hi alone, one TF32 product.  Callers hold full f32 products
+    (TF32 off) on a card."""
+    from .ops.tf32 import tf32_round
+
+    a_hi, b_hi = tf32_round(a.float()), tf32_round(b.float())
+    hi = torch.matmul(a_hi, b_hi)
+    if terms == 1:
+        return hi
+    a_lo, b_lo = tf32_round(a.float() - a_hi), tf32_round(b.float() - b_hi)
+    return (torch.matmul(a_lo, b_hi) + torch.matmul(a_hi, b_lo)) + hi

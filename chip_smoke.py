@@ -6,8 +6,9 @@ Phases, one status line each:
   1. the card (torch and ``nvidia-smi`` name / power limit);
   2. build of the CUDA kernels from the repository's sources (nvcc, one
      process per source, all started together), and ``cuobjdump -sass`` of
-     the library: the halo log-mel's kernel holds HGMMA and UTMALDG (its
-     DFT on wgmma, fed by TMA), the PRDC statistics' LDGSTS (cp.async);
+     the library: the halo log-mel's kernel and the f32 block's and merge's
+     products hold HGMMA and UTMALDG (wgmma, fed by TMA), the PRDC
+     statistics' LDGSTS (cp.async);
   3. each kernel against its plain PyTorch version on the card, at the
      main-path shapes, with errors, tolerances and times: bf16 Swin blocks
      (every stage shifted and unshifted), patch merges and the 5 s
@@ -67,8 +68,9 @@ prints their achieved TFLOP/s.  The kernels of ~0.3 ms or less (patch
 merge, k-NN radii and PRDC statistics at N = 2048, halo log-mel) are timed
 over 200 launches (``TIMING_ITERS``).
 Phase 3 holds the f32 whole block (every stage and shift) and the f32
-merges against their f32 plain versions too, with bitwise repeats, and
-times their products alone through ``torch.matmul`` in full f32.
+merges (their products on the 3xTF32 wgmma core) against their f32 plain
+versions too, at B = 4 and at B = 64, with bitwise repeats, and times their
+products alone through ``torch.matmul`` in full f32.
 Phase 3 also holds the split block's kernels (v3 attention half at every
 stage, the fused MLP at the row counts of stages 0-3, the v1 attention
 half at stages 0 and 1), the opt-in ops (the v2 attention half at every
@@ -107,7 +109,7 @@ BATCH = 64       # e2e batch size
 CHECK_B = 4      # kernel-vs-plain batch
 # the card's peaks (NVIDIA data sheet, H100 SXM, dense, at 700 W): bytes/s
 # and operations/s by type, for each kernel's bound
-PEAK = {"bytes": 3.35e12, "bf16": 989e12, "f32": 67e12, "int8": 1979e12}
+PEAK = {"bytes": 3.35e12, "bf16": 989e12, "tf32": 495e12, "f32": 67e12, "int8": 1979e12}
 # bf16 kernel vs bf16 plain on the same inputs: same rounding points, other
 # f32 summation order, so they differ by the odd bf16 rounding flip and what
 # it propagates.  Bounds: (mean abs error / mean abs signal, max abs error),
@@ -124,9 +126,11 @@ TOL = {"swin_block": ((2e-4, 5e-4, 1.5e-3, 3.5e-3), 0.0625),
        "swin_attn_v1": ((1e-4, 2e-4), 0.0625),
        "swin_attn_v2": ((1e-4, 2e-4, 5e-4, 1e-3), 0.0625),
        "swin_mlp_int8": ((2.5e-6, 5e-6, 7e-6, 7e-6), 0.0625),
-       # f32 kernels vs f32 plain versions: the same arithmetic in another
-       # f32 summation order (readings 2.1e-7..8.6e-7 relative, max 1.3e-5;
-       # merges 3e-8..6.7e-7, max 9.3e-6); under the JAX suite's f32
+       # f32 kernels vs f32 plain versions: the same arithmetic, the
+       # products as three TF32 products on the tensor cores (f32-level
+       # accuracy; readings 4.2e-7..5.8e-7 relative, max 5.7e-6; merges
+       # 2.5e-7..3.5e-7, max 5.0e-6; the SIMT f32 products they replaced
+       # read 2.1e-7..8.6e-7 and 3e-8..6.7e-7); under the JAX suite's f32
        # bounds (max abs 2e-4 for the v4 block, tests/
        # test_pallas_model_kernels.py:588; 5e-5 for a kernel against XLA,
        # :122,226)
@@ -172,21 +176,27 @@ F32_E2E_TOL = (1e-6, 6e-7)
 # ~10x the readings (PERF.md; the two log-mels gave equal embeddings, so
 # theirs is the kernel-vs-plain scale).
 CONFIG_TOL = {"split": (5e-5, 5e-3), "attn_v1": (5e-5, 5e-3), "mel_v1": (2e-6, 1e-3)}
-# the kernels without atomics, redesigned on the wgmma GEMM core
-# (gemm_sm90.cuh) or on the f32 core (simt_f32.cuh): each must repeat
-# bitwise on the same inputs
+# the kernels without atomics, redesigned on the wgmma GEMM cores
+# (gemm_sm90.cuh, bf16; gemm_tf32x3_sm90.cuh, f32 as three TF32 products):
+# each must repeat bitwise on the same inputs
 REDESIGNED = ("swin_block", "patch_merge", "clap_frontend", "log_mel", "swin_block_f32",
               "patch_merge_f32")
+# kernels also held against their plain versions at B = BATCH, the batch at
+# which the default configuration runs them (phase 10), under the same bounds
+AT_BATCH = ("swin_block_f32", "patch_merge_f32")
 # launches timed per reading (10 elsewhere): kernels of ~0.1 ms or less
 # moved by 20-40% between runs at 10
 TIMING_ITERS = {"patch_merge": 200, "knn_radii": 200, "prdc_stats": 200, "log_mel": 200}
 
 
-# the SASS that shows a kernel's design: instructions each named kernel's
-# instantiations must contain (cuobjdump -sass of the built library):
-# the halo log-mel's DFT on wgmma (HGMMA) fed by TMA (UTMALDG); the PRDC
-# statistics' products fed by cp.async (LDGSTS)
+# the SASS that shows a kernel's design: instructions that the instantiations
+# of each named kernel (a pattern searched in the mangled name) must contain
+# (cuobjdump -sass of the built library): the halo log-mel's DFT and the
+# f32 block's and merge's 3xTF32 products on wgmma (HGMMA) fed by TMA
+# (UTMALDG); the PRDC statistics' products fed by cp.async (LDGSTS)
 SASS_WANT = {"log_mel": ("log_mel_sm90_kernel", ("HGMMA", "UTMALDG")),
+             "swin_block_f32": ("gemm_tf32x3_kernel.*RowsA", ("HGMMA", "UTMALDG")),
+             "patch_merge_f32": ("gemm_tf32x3_kernel.*MergeA", ("HGMMA", "UTMALDG")),
              "prdc_stats": ("stats_split_kernel", ("LDGSTS",))}
 
 
@@ -222,21 +232,26 @@ def swin_bound(cfg, b, part="block", stages=(0, 1, 2, 3), dt="bf16"):
     """The Swin blocks of ``stages`` in one forward, in ``dt`` (bf16 or
     f32).  ``part`` "block": the qkv, proj, fc1 and fc2 products (24 T C^2)
     and the window attention (4 T win^2 C); "attn": qkv, proj and attention
-    (8 T C^2 + 4 T win^2 C); "mlp": fc1 and fc2 (16 T C^2).  Bytes: each
-    block's input and output rows and its weights (12, 4 or 8 C^2) in
-    ``dt``."""
+    (8 T C^2 + 4 T win^2 C); "mlp": fc1 and fc2 (16 T C^2).  In f32 the
+    products are reckoned as the card's fastest f32-accurate route computes
+    them, three TF32 products each (3xTF32), and the attention as f32 FMAs;
+    the operations returned are then the f32 ones.  Bytes: each block's
+    input and output rows and its weights (12, 4 or 8 C^2) in ``dt``."""
     size = 2 if dt == "bf16" else 4
-    ops = n_bytes = 0
+    prod = attn = n_bytes = 0
     res = cfg.grid_size
     for stage, depth in enumerate(cfg.depths):
         c, t = cfg.embed_dim * 2**stage, b * res * res
         if stage in stages:
-            attn = 8 * t * c * c + 4 * t * min(cfg.window_size, res) ** 2 * c
-            ops += depth * {"block": attn + 16 * t * c * c, "attn": attn,
-                            "mlp": 16 * t * c * c}[part]
+            prod += depth * {"block": 24, "attn": 8, "mlp": 16}[part] * t * c * c
+            if part != "mlp":
+                attn += depth * 4 * t * min(cfg.window_size, res) ** 2 * c
             n_bytes += depth * (2 * t * c + {"block": 12, "attn": 4, "mlp": 8}[part] * c * c) * size
         res //= 2
-    return bound({dt: ops}, n_bytes)
+    if dt == "f32":
+        ms, by, _ = bound({"tf32": 3 * prod, "f32": attn}, n_bytes)
+        return ms, by, float(prod + attn)
+    return bound({dt: prod + attn}, n_bytes)
 
 
 def int8_mlp_bound(cfg, b):
@@ -255,7 +270,8 @@ def int8_mlp_bound(cfg, b):
 
 def merge_bound(cfg, b, dt="bf16"):
     """The three patch merges of one forward: (T/4, 4C) x (4C, 2C), in
-    ``dt`` (bf16 or f32)."""
+    ``dt`` (bf16, or f32 reckoned as three TF32 products, as ``swin_bound``
+    does; the operations returned are the f32 ones)."""
     size = 2 if dt == "bf16" else 4
     ops = n_bytes = 0
     res = cfg.grid_size
@@ -264,6 +280,9 @@ def merge_bound(cfg, b, dt="bf16"):
         ops += 2 * t_out * 4 * c * 2 * c
         n_bytes += (b * res * res * c + t_out * 2 * c + 8 * c * c) * size
         res //= 2
+    if dt == "f32":
+        ms, by, _ = bound({"tf32": 3 * ops}, n_bytes)
+        return ms, by, float(ops)
     return bound({dt: ops}, n_bytes)
 
 
@@ -421,21 +440,31 @@ def phase_kernels(cfg, params, results):
     gen = torch.Generator(device=dev).manual_seed(1)
     times = {k: {"ms": {}, "plain_ms": {}} for k in TOL}
 
-    def check(name, shape_key, kfn, pfn, counts, x=None, stage=None):
-        got, want = kfn(), pfn()
-        mx, rel = compare(name, got, want, want if x is None else want.float() - x.float(),
-                          results)
+    def check(name, shape_key, kfn, pfn, counts, x=None, stage=None, xb=None):
+        """``kfn``, ``pfn``: kernel and plain at B = CHECK_B; ``counts``: the
+        same at B = BATCH, and the calls in one forward; ``x``, ``xb``: a
+        residual block's inputs at the two batches."""
         rel_tol, max_tol = TOL[name]
         if stage is not None:
             rel_tol = rel_tol[stage]
-        ok = mx <= max_tol and rel <= rel_tol
-        log(f"  {name} {shape_key}: max_abs_err {mx:.4g} (tol {max_tol}) mean_abs_err / "
-            f"mean |{'out' if x is None else 'out - x'}| {rel:.4g} (tol {rel_tol}) "
-            f"{'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise AssertionError(f"{name} {shape_key} disagrees with its plain version")
+        held = [(CHECK_B, kfn, pfn, x)]
+        if name in AT_BATCH:
+            held.append((BATCH, counts[0], counts[1], xb))
+        first = None
+        for b, kf, pf, xin in held:
+            got, want = kf(), pf()
+            first = got if first is None else first
+            mx, rel = compare(name, got, want,
+                              want if xin is None else want.float() - xin.float(), results)
+            ok = mx <= max_tol and rel <= rel_tol
+            at = "" if b == CHECK_B else f" at B={b}"
+            log(f"  {name} {shape_key}{at}: max_abs_err {mx:.4g} (tol {max_tol}) "
+                f"mean_abs_err / mean |{'out' if xin is None else 'out - x'}| {rel:.4g} "
+                f"(tol {rel_tol}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"{name} {shape_key}{at} disagrees with its plain version")
         if name in REDESIGNED:
-            check_repeats(f"{name} {shape_key}", ((CHECK_B, got, kfn),
+            check_repeats(f"{name} {shape_key}", ((CHECK_B, first, kfn),
                                                   (BATCH, counts[0](), counts[0])))
         for b in (CHECK_B, BATCH):
             ms = cuda_ms(kfn if b == CHECK_B else counts[0], TIMING_ITERS.get(name, 10),
@@ -474,7 +503,7 @@ def phase_kernels(cfg, params, results):
             check("swin_block_f32", key, lambda: b32(x32[CHECK_B]),
                   lambda: b32(x32[CHECK_B], plain=True),
                   (lambda: b32(x32[BATCH]), lambda: b32(x32[BATCH], plain=True), n_blocks),
-                  x=x32[CHECK_B], stage=stage)
+                  x=x32[CHECK_B], stage=stage, xb=x32[BATCH])
 
             # the v3 attention half on the same block weights (#8); the v3
             # half + MLP kernel against the whole-block kernel after #9's check
@@ -809,7 +838,7 @@ def sass_check(lib_path: str) -> None:
                           timeout=300, check=True).stdout
     functions = re.split(r"\n\s*Function : ", sass)[1:]
     for name, (symbol, ops) in SASS_WANT.items():
-        bodies = [f for f in functions if symbol in f.split("\n", 1)[0]]
+        bodies = [f for f in functions if re.search(symbol, f.split("\n", 1)[0])]
         counts = {op: sum(b.count(op) for b in bodies) for op in ops}
         ok = bool(bodies) and all(counts.values())
         log(f"  SASS of {name} ({symbol}, {len(bodies)} instantiations): "

@@ -99,8 +99,8 @@ MLP_TOL = ((1e-5, 2.5e-5, 6e-5, 1.2e-4), 0.0625)
 ATTN_V2_TOL = ((1e-4, 2e-4, 5e-4, 1e-3), 0.0625)
 MLP_INT8_TOL = ((2.5e-6, 5e-6, 7e-6, 7e-6), 0.0625)
 # the f32 whole block (REL_MEAN per stage, MAX_ABS) and merge against their
-# f32 plain versions (same arithmetic, other f32 summation order): as in
-# chip_smoke.py
+# f32 plain versions (the same arithmetic, the products as three TF32
+# products on the tensor cores, f32-level accuracy): as in chip_smoke.py
 SWIN_F32_TOL = ((1e-6, 2e-6, 2.5e-6, 4e-6), 5e-5)
 MERGE_F32_TOL = (3e-6, 3e-5)
 
@@ -223,7 +223,7 @@ def test_frontend_sm90_core(cuda, params, b):
     "stage,shift", [(0, 0), (0, 4), (1, 0), (1, 4), (2, 0), (2, 4), (3, 0)]
 )
 def test_swin_block_f32_kernel_matches_plain(cuda, params, stage, shift, b):
-    """The f32 whole block (SIMT f32 products, f32 window attention) against
+    """The f32 whole block (3xTF32 products, f32 window attention) against
     the f32 plain version in full f32, at B = 4 and a ragged B = 3; a second
     run is bitwise equal (no atomics)."""
     res = cfg.grid_size // 2**stage
@@ -247,8 +247,9 @@ def test_swin_block_f32_kernel_matches_plain(cuda, params, stage, shift, b):
 @pytest.mark.parametrize("b", [4, 3])
 @pytest.mark.parametrize("stage", [0, 1, 2])
 def test_patch_merge_f32_kernel_matches_plain(cuda, params, stage, b):
-    """The f32 merge (statistics pass, SIMT f32 product with A gathered
-    from the quadrants) against the f32 plain version; bitwise repeats."""
+    """The f32 merge (statistics pass, 3xTF32 product with A read from the
+    quadrants through the 4-D map) against the f32 plain version; bitwise
+    repeats."""
     res = cfg.grid_size // 2**stage
     c = cfg.embed_dim * 2**stage
     merge = PatchMerge(

@@ -30,6 +30,7 @@ from audio_metrics_tpu.models.htsat import HTSAT_BASE
 from audio_metrics_tpu_torch.models.htsat import PatchMerge, init_params
 from audio_metrics_tpu_torch.ops.merge import (
     BK,
+    BK_F32,
     BM,
     _quadrants,
     check_merge_gemm,
@@ -56,34 +57,36 @@ def _box(x_flat, amap, coords):
     return F.pad(cut, pad)
 
 
-def _a_through_the_map(x, r, c):
+def _a_through_the_map(x, r, c, bk=BK):
     """A (tiles * 128, 4C) as the kernel's producer loads it: for every
-    128-row tile t and K step, the box at the table's origin of the step
-    moved t boxes along the outermost dim (the kernel's ``MergeA``), laid
-    out as TMA lays it in shared memory (innermost dim fastest): 128 rows
-    of 64."""
+    128-row tile t and K step of ``bk`` (64 bf16, or 32 for the f32
+    kernel), the box at the table's origin of the step moved t boxes along
+    the outermost dim (the kernel's ``MergeA``), laid out as TMA lays it in
+    shared memory (innermost dim fastest): 128 rows of ``bk``."""
     b = x.shape[0]
     m = b * (r // 2) ** 2
-    amap = merge_a_map(b, r, c)
+    amap = merge_a_map(b, r, c, bk)
     flat = x.reshape(-1)
     tiles = -(-m // BM)
     a = torch.empty((tiles * BM, 4 * c), dtype=x.dtype)
     for t in range(tiles):
-        for step in range(4 * c // BK):
+        for step in range(4 * c // bk):
             o = amap["origin"][step]
             box = _box(flat, amap, (*o[:3], o[3] + t * amap["box"][3]))
-            a[t * BM:(t + 1) * BM, step * BK:(step + 1) * BK] = box.reshape(BM, BK)
+            a[t * BM:(t + 1) * BM, step * bk:(step + 1) * bk] = box.reshape(BM, bk)
     return a, m
 
 
+@pytest.mark.parametrize("dtype,bk", [(torch.bfloat16, BK), (torch.float32, BK_F32)])
 @pytest.mark.parametrize("b", [1, 3])
 @pytest.mark.parametrize("stage,r,c", MERGES)
-def test_tensor_map_reproduces_the_quadrant_concat(stage, r, c, b):
+def test_tensor_map_reproduces_the_quadrant_concat(stage, r, c, b, dtype, bk):
     """B = 3 and B = 1: at R = 16, 192 and 64 rows, a tile and a half and
-    half a tile; at R = 64 and 32 whole tiles of whole images."""
+    half a tile; at R = 64 and 32 whole tiles of whole images.  bf16 in K
+    steps of 64, f32 (the f32 kernel's map) in K steps of 32."""
     g = torch.Generator().manual_seed(stage + 10 * b)
-    x = torch.randn((b, r * r, c), generator=g).to(torch.bfloat16)
-    a, m = _a_through_the_map(x, r, c)
+    x = torch.randn((b, r * r, c), generator=g).to(dtype)
+    a, m = _a_through_the_map(x, r, c, bk)
     want = _quadrants(x, r, r).reshape(-1, 4 * c)
     assert torch.equal(a[:m], want)
     assert not a[m:].any()

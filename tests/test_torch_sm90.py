@@ -25,6 +25,7 @@ from audio_metrics_tpu_torch.models.clap import ClapFrontend, _clap_fb
 from audio_metrics_tpu_torch.models.htsat import HTSATConfig, SwinBlock, init_params
 from audio_metrics_tpu_torch.ops.attention import check_block_gemms, swin_block_operands
 from audio_metrics_tpu_torch.ops.frontend_fused import FRAME, HOP, _plan, check_frontend_gemms
+from audio_metrics_tpu_torch.ops.tf32 import tf32_split
 
 cfg = HTSAT_BASE
 
@@ -83,13 +84,16 @@ def test_split_blocks_hold_no_kernel_operands(params):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_block_operands_of_any_dtype(dtype):
-    """``swin_block_operands`` keeps each matrix's dtype and sums in f32."""
+    """``swin_block_operands`` keeps each matrix's dtype and sums in f32;
+    in bf16 it holds each matrix transposed, in f32 the transposed
+    matrix's TF32 hi over lo parts (the 3xTF32 core's operand)."""
     g = torch.Generator().manual_seed(0)
     w = [torch.randn(shape, generator=g).to(dtype) for shape in
          ((128, 384), (128, 128), (128, 512), (512, 128))]
     ops = swin_block_operands(*w)
     for name, m in zip(("wqkv_t", "wp_t", "w1_t", "w2_t"), w):
-        assert ops[name].dtype == dtype and torch.equal(ops[name], m.t())
+        want = tf32_split(m.t()) if dtype == torch.float32 else m.t()
+        assert ops[name].dtype == dtype and torch.equal(ops[name], want)
     assert torch.equal(ops["csum"], w[0].float().sum(dim=0))
 
 
