@@ -15,10 +15,14 @@ Nothing here runs at import: the CPU test suite imports every module on a
 host without ``nvcc`` or a card.
 
 Dispatch rule (the ops modules): a CPU tensor goes to the kernel's plain
-PyTorch version; a CUDA tensor launches the kernel for its dtype (bf16, or
-f32 where an f32 kernel exists: the whole Swin block and the patch merge,
-whose products run as three TF32 products on the tensor cores) or raises.
-There is no fallback, and no cast between the two.
+PyTorch version; a CUDA tensor launches the kernel for its dtype or raises.
+Every kernel of the Swin path has a bf16 and an f32 instantiation, as the
+JAX kernels take the activation dtype (the f32 block, its halves and the
+patch merge run their products as three TF32 products on the tensor cores;
+the int8 MLP's products are int8 in both); the frontend, the log-mels and
+the PRDC kernels take the one dtype the JAX package runs them in.  Any
+other dtype raises (f16).  There is no fallback, and no cast between
+dtypes.
 """
 
 from __future__ import annotations
@@ -34,8 +38,7 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["Kernel", "KERNELS", "build", "check_sm90_gemm", "check_tf32x3_gemm", "refuse_f32",
-           "require_cuda"]
+__all__ = ["Kernel", "KERNELS", "build", "check_sm90_gemm", "check_tf32x3_gemm", "require_cuda"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD = Path(__file__).resolve().parent / "build"
@@ -117,18 +120,6 @@ def require_cuda(*tensors: torch.Tensor, dtype=torch.bfloat16) -> None:
             raise ValueError("kernel operands must be contiguous and 16-byte aligned")
         if t.dtype != dtype:
             raise NotImplementedError(f"the CUDA kernels take {dtype} here, got {t.dtype}")
-
-
-def refuse_f32(name: str, x: torch.Tensor) -> None:
-    """Raise ``NotImplementedError`` for f32 activations on the card where
-    the kernel ``name`` takes bf16 only (the split block's halves: their f32
-    counterparts are ROADMAP.md Queue 2 B); a cast would be a fallback."""
-    if x.dtype == torch.float32:
-        raise NotImplementedError(
-            f"{name}: the kernel takes bf16 activations; its f32 counterpart is not ported "
-            "(ROADMAP.md Queue 2 B). In f32 the default configuration runs every Swin block "
-            "whole (AM_TPU_V4_STAGES and AM_TPU_ATTN_V1 unset)"
-        )
 
 
 def check_sm90_gemm(name: str, n: int, k: int, *strides: int) -> None:
@@ -261,8 +252,9 @@ KERNELS = {
             "audio_metrics_tpu_torch/kernels/csrc/mlp_int8.cu",
             "audio_metrics_tpu/ops/mlp.py:228",
         ),
-        # the f32 instantiations of #1 and #2 (the JAX kernels take the
-        # activation dtype): one wrapper, their own launch counts
+        # the f32 instantiations of #1, #2 and #8-#12 (the JAX kernels take
+        # the activation dtype): one wrapper each with its bf16 twin, their
+        # own launch counts
         Kernel(
             "swin_block_f32",
             "audio_metrics_tpu_torch/kernels/csrc/swin_block.cu",
@@ -272,6 +264,31 @@ KERNELS = {
             "patch_merge_f32",
             "audio_metrics_tpu_torch/kernels/csrc/patch_merge.cu",
             "audio_metrics_tpu/ops/merge.py:138",
+        ),
+        Kernel(
+            "swin_attn_v3_f32",
+            "audio_metrics_tpu_torch/kernels/csrc/swin_block.cu",
+            "audio_metrics_tpu/ops/attention.py:869",
+        ),
+        Kernel(
+            "swin_mlp_f32",
+            "audio_metrics_tpu_torch/kernels/csrc/swin_block.cu",
+            "audio_metrics_tpu/ops/mlp.py:147",
+        ),
+        Kernel(
+            "swin_attn_v1_f32",
+            "audio_metrics_tpu_torch/kernels/csrc/swin_block.cu",
+            "audio_metrics_tpu/ops/attention.py:400",
+        ),
+        Kernel(
+            "swin_attn_v2_f32",
+            "audio_metrics_tpu_torch/kernels/csrc/swin_block.cu",
+            "audio_metrics_tpu/ops/attention.py:363",
+        ),
+        Kernel(
+            "swin_mlp_int8_f32",
+            "audio_metrics_tpu_torch/kernels/csrc/mlp_int8.cu",
+            "audio_metrics_tpu/ops/mlp.py:228",
         ),
     )
 }

@@ -1,7 +1,8 @@
-// Hopper f32 GEMM core of the f32 Swin block (#1 f32, swin_block.cu) and the
-// f32 patch merge (#2 f32, patch_merge.cu): f32 x f32 -> f32 with f32-level
-// accuracy on the tensor cores, as three TF32 products (3xTF32), wgmma fed
-// by TMA through a ring of shared-memory stages.
+// Hopper f32 GEMM core of the f32 Swin block and its halves (#1 and #8-#11
+// in f32, swin_block.cu) and of the f32 patch merge (#2 f32,
+// patch_merge.cu): f32 x f32 -> f32 with f32-level accuracy on the tensor
+// cores, as three TF32 products (3xTF32), wgmma fed by TMA through a ring
+// of shared-memory stages.
 //
 //   out = epilogue(A (M x K) @ B^T),  B held as [B_hi; B_lo] (2 x N x K)
 //
@@ -46,9 +47,10 @@
 //     empty mbarriers, running ahead across tiles;
 //   - epilogue straight from the accumulator registers (f32 out, no
 //     staging: shared memory holds the ring), the arithmetic of the f32
-//     epilogues (epi_f32): EPI_QKV (LN1 fold), EPI_PROJ (bias, window
-//     un-partition and un-roll, residual), EPI_GELU (exact erf), EPI_RESID,
-//     EPI_MERGE (merge LN fold).
+//     epilogues (epi_f32): EPI_QKV (LN1 fold), EPI_BIAS_F32 (bias: the qkv
+//     of the attention halves that apply the LN1 affine before the product),
+//     EPI_PROJ (bias, window un-partition and un-roll, residual), EPI_GELU
+//     (exact erf), EPI_RESID, EPI_MERGE (merge LN fold).
 // A K step of 32 f32 is 128 bytes, as 64 bf16: the 128-byte swizzle, the
 // descriptor and the 32-byte stepping inside a stage are gemm_sm90.cuh's
 // (one k8 TF32 wgmma consumes 32 bytes of each row, as one k16 bf16 does).
@@ -244,6 +246,8 @@ __device__ __forceinline__ float epi_f32(const EpiF32& p, float a, int n, float 
   } else if (EPI == EPI_GELU) {
     const float t = a + bias;
     return 0.5f * t * (1.f + erff(t * 0.7071067811865476f));
+  } else if (EPI == EPI_BIAS_F32) {
+    return a + bias;
   }
   return a + bias + res;  // EPI_PROJ, EPI_RESID: + bias + the f32 residual
 }

@@ -45,6 +45,24 @@
 // same epilogue arithmetic in f32 out, reading the weights split into TF32
 // hi and lo parts at load; the window attention's products stay f32 FMAs
 // (window_attn.cuh's f32 instantiation).  The operations bound it.
+//
+// Its two halves are entries of their own, for the blocks that the JAX
+// package splits (AM_TPU_V4_STAGES, AM_TPU_ATTN_V1) and its public ops:
+//   am_swin_attn_v3_f32  #8, ops/attention.py::_attn_block_call_v3
+//                        (pallas_call at :869): launches 1-4 into the
+//                        half's f32 output (the JAX kernel rounds it to the
+//                        activation dtype: in f32 no rounding);
+//   am_swin_mlp_f32      #9, ops/mlp.py::_mlp_call (:147): launches 5-7,
+//                        the residual read from the input;
+//   am_swin_attn_v1_f32, am_swin_attn_v2_f32
+//                        #10, #11, ops/attention.py::_attn_block_call (:400)
+//                        and _attn_block_call_v2 (:363): the LN1 affine in
+//                        the kernel, so the window pass writes the LN1
+//                        output itself and the qkv epilogue adds the bias
+//                        alone (the 3xTF32 core reads A through TMA from
+//                        plain rows: it cannot normalise through the map).
+// The split path's arithmetic is the whole block's, so #8 then #9 equals
+// am_swin_block_f32 bitwise.  The bf16 halves are swin_halves.cu's.
 #include "gemm_tf32x3_sm90.cuh"
 #include "window_attn.cuh"
 
@@ -54,16 +72,20 @@ constexpr int LN1_WARPS = 8;
 
 // Window-ordered row rr <- row window_src(rr) of its image in x (B*R*R, C)
 // of T (bf16 or f32): its LN1 mean and 1/sigma (centered two-pass, f32,
-// summed in the order of gemm.cuh's in-block prologue) and a copy in T.
-// 16-byte loads (8 bf16 or 4 f32 values a lane); C % 8 == 0, C <= 1024.
+// summed in the order of gemm.cuh's in-block prologue) and a copy in T; or,
+// with ln_w (f32 only: the v1 and v2 halves, which keep the LN1 affine in
+// the kernel), the LN1 output itself, (x - mu) / sigma * ln_w + ln_b, and
+// no statistics.  16-byte loads (8 bf16 or 4 f32 values a lane); C % 8 ==
+// 0, C <= 1024.
 template <typename T>
 __global__ void __launch_bounds__(LN1_WARPS * 32)
     ln1_window_kernel(const T* __restrict__ x, int M, int R, int win, int shift, int C,
-                      float eps, T* __restrict__ xw, float* __restrict__ mu,
-                      float* __restrict__ rs) {
+                      float eps, const float* __restrict__ ln_w, const float* __restrict__ ln_b,
+                      T* __restrict__ xw, float* __restrict__ mu, float* __restrict__ rs) {
   constexpr int VEC = 16 / sizeof(T), LOADS = 1024 / (32 * VEC);
   const int rr = blockIdx.x * LN1_WARPS + threadIdx.x / 32, lane = threadIdx.x % 32;
   if (rr >= M) return;
+  const bool affine = sizeof(T) == 4 && ln_w != nullptr;
   const int rr2 = R * R, img = rr / rr2;
   const T* src = x + ((long long)img * rr2 + window_src(rr - img * rr2, R, win, shift)) * C;
   T* dst = xw + (long long)rr * C;
@@ -84,14 +106,87 @@ __global__ void __launch_bounds__(LN1_WARPS * 32)
     const int k = lane * VEC + i * 32 * VEC;
     if (k < C) {
       sq16<T>(v[i], m, q);
-      *reinterpret_cast<uint4*>(dst + k) = v[i];
+      if (!affine) *reinterpret_cast<uint4*>(dst + k) = v[i];
     }
   }
   const float r = rsqrtf(warp_sum(q) / C + eps);
-  if (lane == 0) {
+  if (affine) {
+#pragma unroll
+    for (int i = 0; i < LOADS; ++i) {
+      const int k = lane * VEC + i * 32 * VEC;
+      if (k < C) {
+        const float4 w = *reinterpret_cast<const float4*>(ln_w + k);
+        const float4 b = *reinterpret_cast<const float4*>(ln_b + k);
+        float4& f = reinterpret_cast<float4&>(v[i]);
+        f = make_float4((f.x - m) * r * w.x + b.x, (f.y - m) * r * w.y + b.y,
+                        (f.z - m) * r * w.z + b.z, (f.w - m) * r * w.w + b.w);
+        *reinterpret_cast<uint4*>(dst + k) = v[i];
+      }
+    }
+  } else if (lane == 0) {
     mu[rr] = m;
     rs[rr] = r;
   }
+}
+
+// The f32 attention half, launches 1-4 of am_swin_block_f32: the window
+// pass over x's rows into xw, the qkv product, the f32 window attention,
+// and the proj product scattered back through the un-partition/un-roll map
+// with + bp + x, into out (f32; never x itself: EPI_PROJ reads x while it
+// writes out).  Without ln_w (#1, #8, the LN1 affine folded into wqkv and
+// bq by the caller) the pass writes each row's LN1 mean and 1/sigma into
+// stats and the qkv epilogue folds LN1 in (EPI_QKV, csum the column sums
+// of wqkv); with ln_w (#10, #11) it writes the LN1 output itself and the
+// qkv epilogue adds the bias alone (EPI_BIAS_F32).
+int attn_half_f32(const float* x, const float* ln_w, const float* ln_b, const float* wqkv_s,
+                  const float* csum, const float* bq, const float* wp_s, const float* bp,
+                  const float* bm, int nbm, int B, int R, int C, int heads, int win, int shift,
+                  float eps, float* stats, float* xw, float* qkv, float* ctx, float* out,
+                  cudaStream_t stream) {
+  using namespace tf32x3;
+  const int M = B * R * R;
+  int e;
+
+  ln1_window_kernel<float><<<(M + LN1_WARPS - 1) / LN1_WARPS, LN1_WARPS * 32, 0, stream>>>(
+      x, M, R, win, shift, C, eps, ln_w, ln_b, xw, stats, stats == nullptr ? nullptr : stats + M);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+
+  EpiF32 p = {};
+  p.M = M; p.N = 3 * C; p.out = qkv; p.ldo = 3 * C; p.v0 = bq;
+  if (ln_w == nullptr) {
+    p.csum = csum; p.mu = stats; p.rs = stats + M;
+    e = gemm<EPI_QKV>(rows_of(xw, M, C, C), wqkv_s, p, stream);
+  } else {
+    e = gemm<EPI_BIAS_F32>(rows_of(xw, M, C, C), wqkv_s, p, stream);
+  }
+  if (e) return e;
+
+  if ((e = launch_window_attn(qkv, bm, nbm, M / WIN_N, heads, C, ctx, stream)) != cudaSuccess)
+    return e;
+
+  p = EpiF32{};
+  p.M = M; p.N = C; p.out = out; p.ldo = C;
+  p.R = R; p.win = win; p.shift = shift; p.v0 = bp; p.res = x;
+  return gemm<EPI_PROJ>(rows_of(ctx, M, C, C), wp_s, p, stream);
+}
+
+// The f32 MLP half, launches 5-7 of am_swin_block_f32, on (M, C) rows x:
+// LN2 into hbuf, fc1 + b1 and exact-erf GELU into h1, fc2 + b2 + x into out.
+int mlp_half_f32(const float* x, int M, int C, const float* ln2w, const float* ln2b,
+                 const float* w1_s, const float* b1, const float* w2_s, const float* b2,
+                 float eps, float* hbuf, float* h1, float* out, cudaStream_t stream) {
+  using namespace tf32x3;
+  int e;
+  if ((e = launch_ln_rows(x, M, 1, C, ln2w, ln2b, eps, hbuf, 0, 0, stream)) != cudaSuccess)
+    return e;
+
+  EpiF32 p = {};
+  p.M = M; p.N = 4 * C; p.out = h1; p.ldo = 4 * C; p.v0 = b1;
+  if ((e = gemm<EPI_GELU>(rows_of(hbuf, M, C, C), w1_s, p, stream))) return e;
+
+  p = EpiF32{};
+  p.M = M; p.N = C; p.out = out; p.ldo = C; p.v0 = b2; p.res = x;
+  return gemm<EPI_RESID>(rows_of(h1, M, 4 * C, 4 * C), w2_s, p, stream);
 }
 
 }  // namespace
@@ -115,7 +210,7 @@ extern "C" int am_swin_block(const bf16* x, const bf16* wqkv_t, const float* csu
   int e;
 
   ln1_window_kernel<bf16><<<(M + LN1_WARPS - 1) / LN1_WARPS, LN1_WARPS * 32, 0, stream>>>(
-      x, M, R, win, shift, C, eps, hbuf, stats, stats + M);
+      x, M, R, win, shift, C, eps, nullptr, nullptr, hbuf, stats, stats + M);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
 
   EpiParams p = {};
@@ -161,35 +256,58 @@ extern "C" int am_swin_block_f32(const float* x, const float* wqkv_s, const floa
                                  int shift, float eps, float* stats, float* qkv, float* ctx,
                                  float* res, float* hbuf, float* h1, float* out,
                                  cudaStream_t stream) {
-  using namespace tf32x3;
-  const int M = B * R * R;
   int e;
-
-  ln1_window_kernel<float><<<(M + LN1_WARPS - 1) / LN1_WARPS, LN1_WARPS * 32, 0, stream>>>(
-      x, M, R, win, shift, C, eps, hbuf, stats, stats + M);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
-
-  EpiF32 p = {};
-  p.M = M; p.N = 3 * C; p.out = qkv; p.ldo = 3 * C;
-  p.v0 = bq3; p.csum = csum; p.mu = stats; p.rs = stats + M;
-  if ((e = gemm<EPI_QKV>(rows_of(hbuf, M, C, C), wqkv_s, p, stream))) return e;
-
-  if ((e = launch_window_attn(qkv, bm, nbm, M / WIN_N, heads, C, ctx, stream)) != cudaSuccess)
+  if ((e = attn_half_f32(x, nullptr, nullptr, wqkv_s, csum, bq3, wp_s, bp, bm, nbm, B, R, C,
+                         heads, win, shift, eps, stats, hbuf, qkv, ctx, res, stream)))
     return e;
+  return mlp_half_f32(res, B * R * R, C, ln2w, ln2b, w1_s, b1, w2_s, b2, eps, hbuf, h1, out,
+                      stream);
+}
 
-  p = EpiF32{};
-  p.M = M; p.N = C; p.out = res; p.ldo = C;
-  p.R = R; p.win = win; p.shift = shift; p.v0 = bp; p.res = x;
-  if ((e = gemm<EPI_PROJ>(rows_of(ctx, M, C, C), wp_s, p, stream))) return e;
+// #8 in f32, the v3 attention half: am_swin_block_f32's launches 1-4.  x,
+// out (B, R, R, C) f32; wqkv_s, wp_s the (2, N, K) stacks of the (N, K)
+// matrices; csum, bq3, bp, bm as am_swin_block_f32's.  Scratch, f32: stats
+// (2, B*R*R), xw (B*R*R, C), qkv (B*R*R, 3C), ctx (B*R*R, C).
+extern "C" int am_swin_attn_v3_f32(const float* x, const float* wqkv_s, const float* csum,
+                                   const float* bq3, const float* wp_s, const float* bp,
+                                   const float* bm, int nbm, int B, int R, int C, int heads,
+                                   int win, int shift, float eps, float* stats, float* xw,
+                                   float* qkv, float* ctx, float* out, cudaStream_t stream) {
+  return attn_half_f32(x, nullptr, nullptr, wqkv_s, csum, bq3, wp_s, bp, bm, nbm, B, R, C, heads,
+                       win, shift, eps, stats, xw, qkv, ctx, out, stream);
+}
 
-  if ((e = launch_ln_rows(res, M, 1, C, ln2w, ln2b, eps, hbuf, 0, 0, stream)) != cudaSuccess)
-    return e;
+// #10 and #11 in f32, the attention half with the LN1 affine in the kernel
+// (v1, v2): x, out (B, R, R, C) f32; ln_w, ln_b (C); wqkv_s, wp_s the
+// (2, N, K) stacks of the (C, 3C) qkv and (C, C) proj operands transposed
+// (v1: the per-head weights side by side, swin_halves.cu's layout); bq3
+// (3C) the scaled q bias with zeros on k and v; bp, bm as v3.  Scratch, f32:
+// xn (B*R*R, C), qkv (B*R*R, 3C), ctx (B*R*R, C).
+extern "C" int am_swin_attn_v1_f32(const float* x, const float* ln_w, const float* ln_b,
+                                   const float* wqkv_s, const float* bq3, const float* wp_s,
+                                   const float* bp, const float* bm, int nbm, int B, int R, int C,
+                                   int heads, int win, int shift, float eps, float* xn,
+                                   float* qkv, float* ctx, float* out, cudaStream_t stream) {
+  return attn_half_f32(x, ln_w, ln_b, wqkv_s, nullptr, bq3, wp_s, bp, bm, nbm, B, R, C, heads,
+                       win, shift, eps, nullptr, xn, qkv, ctx, out, stream);
+}
 
-  p = EpiF32{};
-  p.M = M; p.N = 4 * C; p.out = h1; p.ldo = 4 * C; p.v0 = b1;
-  if ((e = gemm<EPI_GELU>(rows_of(hbuf, M, C, C), w1_s, p, stream))) return e;
+extern "C" int am_swin_attn_v2_f32(const float* x, const float* ln_w, const float* ln_b,
+                                   const float* wqkv_s, const float* bq3, const float* wp_s,
+                                   const float* bp, const float* bm, int nbm, int B, int R, int C,
+                                   int heads, int win, int shift, float eps, float* xn,
+                                   float* qkv, float* ctx, float* out, cudaStream_t stream) {
+  return attn_half_f32(x, ln_w, ln_b, wqkv_s, nullptr, bq3, wp_s, bp, bm, nbm, B, R, C, heads,
+                       win, shift, eps, nullptr, xn, qkv, ctx, out, stream);
+}
 
-  p = EpiF32{};
-  p.M = M; p.N = C; p.out = out; p.ldo = C; p.v0 = b2; p.res = res;
-  return gemm<EPI_RESID>(rows_of(h1, M, 4 * C, 4 * C), w2_s, p, stream);
+// #9 in f32, the fused MLP: am_swin_block_f32's launches 5-7 on (M, C) rows
+// x with x as the residual.  ln_w, ln_b (C), b1 (4C), b2 (C) f32; w1_s,
+// w2_s the (2, 4C, C) and (2, C, 4C) stacks.  Scratch, f32: hbuf (M, C), h1
+// (M, 4C).
+extern "C" int am_swin_mlp_f32(const float* x, const float* ln_w, const float* ln_b,
+                               const float* w1_s, const float* b1, const float* w2_s,
+                               const float* b2, int M, int C, float eps, float* hbuf, float* h1,
+                               float* out, cudaStream_t stream) {
+  return mlp_half_f32(x, M, C, ln_w, ln_b, w1_s, b1, w2_s, b2, eps, hbuf, h1, out, stream);
 }

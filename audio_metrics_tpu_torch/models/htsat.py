@@ -22,6 +22,7 @@ Parameter naming follows the HF Clap state dict, as in the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import os
 from dataclasses import dataclass
 from functools import lru_cache
@@ -38,11 +39,13 @@ from ..ops.attention import (
     swin_block,
     swin_block_operands,
     swin_block_plain,
+    v1_operands,
     window_attention_xla,
 )
 from ..ops.mel import device_table
 from ..ops.merge import merge_weight_t, patch_merge, patch_merge_plain
-from ..ops.mlp import layer_norm, mlp_block, mlp_block_plain, mlp_xla
+from ..ops.mlp import layer_norm, mlp_block, mlp_block_plain, mlp_operands, mlp_xla
+from ..utils.precision import full_f32
 
 __all__ = [
     "HTSATConfig",
@@ -396,8 +399,10 @@ def attention_choice(stage: int, shift: int, n_windows: int, v4_stages: frozense
 class SwinBlock(_Folded):
     """One Swin block.  ``attention`` is its path ("v4", "v3", "v1" or
     "xla", :func:`attention_choice`); it holds the weights in that path's
-    layout.  ``forward(x)`` runs the kernel wrappers (or the XLA half);
-    ``forward(x, plain=True)`` the kernels' plain versions on any device."""
+    layout, and since they loaded what its kernels read besides
+    (:meth:`kernel_operands`).  ``forward(x)`` runs the kernel wrappers (or
+    the XLA halves, in f32 under ``full_f32``); ``forward(x, plain=True)``
+    the kernels' plain versions on any device."""
 
     def __init__(self, p, prefix, cfg: HTSATConfig, resolution: int, shift: int,
                  heads: int, dtype, attention: str = "v4"):
@@ -410,14 +415,30 @@ class SwinBlock(_Folded):
         self.attention = attention
         self.resolution, self.window, self.shift = resolution, window, shift
         self.heads, self.eps = heads, cfg.layer_norm_eps
-        if attention == "v4":  # the whole-block kernel's transposed matrices and column sums
-            for name, t in swin_block_operands(self.wqkv, self.wp, self.w1, self.w2).items():
-                self.register_buffer(name, t)
+        # what the kernels read besides: the whole block's transposed (bf16)
+        # or split (f32) matrices and column sums; in f32 the split halves'
+        # (2, N, K) stacks too, the v3 half's and the MLP's being the whole
+        # block's (bf16 split halves read the weights as held)
+        if attention == "v4" or (attention == "v3" and dtype == torch.float32):
+            ops = swin_block_operands(self.wqkv, self.wp, self.w1, self.w2)
+        elif dtype == torch.float32:
+            ops = mlp_operands(self.w1, self.w2)  # the fused MLP at a large enough batch
+            if attention == "v1":
+                ops.update(v1_operands(self.wq, self.bq, self.wk, self.wv, self.wp))
+        else:
+            ops = {}
+        for name, t in ops.items():
+            self.register_buffer(name, t)
+        self._operand_names = tuple(ops)
 
     def kernel_operands(self) -> dict:
-        """The whole-block kernel's :func:`ops.attention.swin_block_operands`,
-        held as buffers since the weights loaded (v4 blocks)."""
-        return {k: getattr(self, k) for k in ("wqkv_t", "wp_t", "w1_t", "w2_t", "csum")}
+        """What this block's kernels read besides the plain versions'
+        operands, held as buffers since the weights loaded: the whole
+        block's :func:`ops.attention.swin_block_operands` (v4, and f32 v3
+        blocks, whose attention half and MLP read its stacks), f32 v1
+        blocks' :func:`ops.attention.v1_operands` and every f32 block's
+        :func:`ops.mlp.mlp_operands`; empty for a bf16 split block."""
+        return {k: getattr(self, k) for k in self._operand_names}
 
     def fused_mlp(self, batch: int) -> bool:
         """htsat.py:547-551: the MLP kernel where the forward has >= 1024
@@ -425,34 +446,40 @@ class SwinBlock(_Folded):
         tokens = self.resolution * self.resolution
         return tokens >= 1024 or batch * tokens >= 16384
 
+    def _xla_precision(self, x):
+        """The XLA halves hold full f32 products in f32 (TF32 off), as the
+        f32 mel chain does: a caller's global TF32 setting never reaches
+        them, as it reaches no f32 kernel."""
+        return full_f32() if x.dtype == torch.float32 else contextlib.nullcontext()
+
     def forward(self, x, plain: bool = False):
         b, n, c = x.shape
         r = self.resolution
         x4 = x.view(b, r, r, c)
         geo = dict(heads=self.heads, window=self.window, shift=self.shift, eps=self.eps)
         mlp = (self.ln2_w, self.ln2_b, self.w1, self.b1, self.w2, self.b2)
+        ops = {} if plain else dict(operands=self.kernel_operands())
         if self.attention == "v4":
             args = (x4, self.wqkv, self.bq3, self.wp, self.bp, self.bm, *mlp)
-            if plain:
-                out = swin_block_plain(*args, **geo)
-            else:
-                out = swin_block(*args, **geo, operands=self.kernel_operands())
-            return out.view(b, n, c)
+            fn = swin_block_plain if plain else swin_block
+            return fn(*args, **geo, **ops).view(b, n, c)
         if self.attention == "v3":
             fn = swin_attention_half_v3_plain if plain else swin_attention_half_v3
-            x4 = fn(x4, self.wqkv, self.bq3, self.wp, self.bp, self.bm, **geo)
+            x4 = fn(x4, self.wqkv, self.bq3, self.wp, self.bp, self.bm, **geo, **ops)
         elif self.attention == "v1":
             fn = swin_attention_half_v1_plain if plain else swin_attention_half_v1
             x4 = fn(x4, self.ln1_w, self.ln1_b, self.wq, self.bq, self.wk, self.wv, self.wp,
-                    self.bp, self.bm, **geo)
+                    self.bp, self.bm, **geo, **ops)
         else:
-            x4 = window_attention_xla(x4, self.ln1_w, self.ln1_b, self.wqkv, self.bqkv, self.wp,
-                                      self.bp, self.rel_bias, getattr(self, "mask", None), **geo)
+            with self._xla_precision(x):
+                x4 = window_attention_xla(x4, self.ln1_w, self.ln1_b, self.wqkv, self.bqkv,
+                                          self.wp, self.bp, self.rel_bias,
+                                          getattr(self, "mask", None), **geo)
         if not self.fused_mlp(b):
-            fn = mlp_xla
-        else:
-            fn = mlp_block_plain if plain else mlp_block
-        return fn(x4.view(b, n, c), *mlp, eps=self.eps)
+            with self._xla_precision(x):
+                return mlp_xla(x4.view(b, n, c), *mlp, eps=self.eps)
+        fn = mlp_block_plain if plain else mlp_block
+        return fn(x4.view(b, n, c), *mlp, eps=self.eps, **ops)
 
 
 class PatchMerge(_Folded):

@@ -36,12 +36,17 @@ Wk^T, Wv^T], ``bq3`` (3C,) with zeros on k and v, ``wp`` (C, C), ``bp`` and
 vectors and tables f32.
 
 Dispatch of each kernel wrapper: a CPU tensor runs its ``*_plain``
-version; a CUDA tensor launches the hand-written kernel or raises.  The
-whole block has a kernel for each activation dtype the JAX kernel takes: a
-bf16 CUDA tensor launches ``am_swin_block``, an f32 one ``am_swin_block_f32``
-(its own launch count, ``KERNELS["swin_block_f32"]``; its products run as
-three TF32 products on the tensor cores).  The attention halves
-take bf16 only: on the card f32 raises (ROADMAP.md Queue 2 B).
+version; a CUDA tensor launches the hand-written kernel for its dtype or
+raises.  The whole block and each attention half have a kernel for each
+activation dtype the JAX kernels take: bf16 launches ``am_swin_block``,
+``am_swin_attn_v3``, ``_v1``, ``_v2``; f32 ``am_swin_block_f32``,
+``am_swin_attn_v3_f32``, ``_v1_f32``, ``_v2_f32`` (kernels/csrc/
+swin_block.cu, each with its own launch count, ``KERNELS["swin_block_f32"]``
+etc.; their products run as three TF32 products on the tensor cores and
+read the weights as (2, N, K) stacks made once at load: the block and the
+v3 half :func:`swin_block_operands`, the v1 half :func:`v1_operands`, the
+v2 half :func:`half_operands`, passed as ``operands=``).  Any other dtype
+raises.
 """
 
 from __future__ import annotations
@@ -50,13 +55,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..kernels import KERNELS, check_sm90_gemm, check_tf32x3_gemm, refuse_f32, require_cuda
+from ..kernels import KERNELS, check_sm90_gemm, check_tf32x3_gemm, require_cuda
 from .mlp import layer_norm
-from .tf32 import tf32_split
+from .tf32 import split_operand, tf32_split
 
 __all__ = [
     "check_block_f32",
     "check_block_gemms",
+    "half_operands",
     "swin_block",
     "swin_block_operands",
     "swin_block_plain",
@@ -66,6 +72,7 @@ __all__ = [
     "swin_attention_half_v1_plain",
     "swin_attention_half_v2",
     "swin_attention_half_v2_plain",
+    "v1_operands",
     "window_attention_xla",
 ]
 
@@ -74,6 +81,9 @@ KERNEL_F32 = KERNELS["swin_block_f32"]
 KERNEL_V3 = KERNELS["swin_attn_v3"]
 KERNEL_V1 = KERNELS["swin_attn_v1"]
 KERNEL_V2 = KERNELS["swin_attn_v2"]
+KERNEL_V3_F32 = KERNELS["swin_attn_v3_f32"]
+KERNEL_V1_F32 = KERNELS["swin_attn_v1_f32"]
+KERNEL_V2_F32 = KERNELS["swin_attn_v2_f32"]
 
 
 def _mm(a, b):
@@ -189,21 +199,35 @@ def check_block_gemms(c: int) -> None:
         check_sm90_gemm("swin_block", n, k, k)
 
 
+def _check_window_pass(name: str, c: int) -> None:
+    """The LN1 window pass holds a row in one warp's registers."""
+    if c > 1024:
+        raise NotImplementedError(f"{name}: the LN1 pass takes C <= 1024, got C={c}")
+
+
 def check_block_f32(c: int) -> None:
     """Raise ``NotImplementedError`` unless the f32 whole-block kernel
     takes a width of ``c``: its LN1 pass holds a row in one warp's
     registers (C <= 1024), and its qkv, proj, fc1 and fc2 products run on
     the 3xTF32 core (``kernels.check_tf32x3_gemm``)."""
-    if c > 1024:
-        raise NotImplementedError(f"swin_block f32: the LN1 pass takes C <= 1024, got C={c}")
+    _check_window_pass("swin_block f32", c)
     for n, k in ((3 * c, c), (c, c), (4 * c, c), (c, 4 * c)):
         check_tf32x3_gemm("swin_block f32", n, k, k)
 
 
+_BLOCK_OPERANDS = "swin_block_operands(wqkv, wp, w1, w2)"
+
+
+def _split_stacks(kernel: str, o, c: int, names, made_by: str) -> list:
+    """The (2, N, K) stacks ``names`` of ``o`` (:func:`ops.tf32.split_operand`)."""
+    nk = dict(wqkv_t=(3 * c, c), wp_t=(c, c), w1_t=(4 * c, c), w2_t=(c, 4 * c))
+    return [split_operand(kernel, o, name, *nk[name], made_by) for name in names]
+
+
 def _operands(operands):
     if operands is None:
-        raise ValueError("swin_block on the card reads swin_block_operands(wqkv, wp, w1, w2), "
-                         "made once at weight load: pass them as operands=")
+        raise ValueError(f"swin_block on the card reads {_BLOCK_OPERANDS}, made once at weight "
+                         "load: pass them as operands=")
     return operands
 
 
@@ -224,21 +248,16 @@ def _block_scratch(x, dtype):
 def _swin_block_f32_cuda(x, wqkv, bq3, wp, bp, bm, ln2_w, ln2_b, w1, b1, w2, b2, *,
                          heads, window, shift, eps, operands):
     b, r, _, c = x.shape
-    o = _operands(operands)
-    require_cuda(x, o["wqkv_t"], o["wp_t"], o["w1_t"], o["w2_t"], o["csum"], bq3, bp, bm,
-                 ln2_w, ln2_b, b1, b2, dtype=torch.float32)
-    _check_geometry("swin_block_f32", x, heads, window, bm)
     check_block_f32(c)
-    for name, (n, k) in dict(wqkv_t=(3 * c, c), wp_t=(c, c), w1_t=(4 * c, c),
-                             w2_t=(c, 4 * c)).items():
-        if o[name].shape != (2, n, k):
-            raise ValueError(f"swin_block f32 reads {name} as tf32_split's (2, {n}, {k}) "
-                             f"stack, got {tuple(o[name].shape)}")
+    wqkv_t, wp_t, w1_t, w2_t = _split_stacks("swin_block f32", operands, c,
+                                             ("wqkv_t", "wp_t", "w1_t", "w2_t"), _BLOCK_OPERANDS)
+    require_cuda(x, wqkv_t, wp_t, w1_t, w2_t, operands["csum"], bq3, bp, bm, ln2_w, ln2_b, b1,
+                 b2, dtype=torch.float32)
+    _check_geometry("swin_block_f32", x, heads, window, bm)
     scratch = _block_scratch(x, torch.float32)
     KERNEL_F32.launch(
-        "am_swin_block_f32", x, o["wqkv_t"], o["csum"], bq3, o["wp_t"], bp, bm, bm.shape[0],
-        ln2_w, ln2_b, o["w1_t"], b1, o["w2_t"], b2, b, r, c, heads, window, shift, float(eps),
-        *scratch,
+        "am_swin_block_f32", x, wqkv_t, operands["csum"], bq3, wp_t, bp, bm, bm.shape[0],
+        ln2_w, ln2_b, w1_t, b1, w2_t, b2, b, r, c, heads, window, shift, float(eps), *scratch,
     )
     KERNEL_F32.launches += 1
     return scratch[-1]
@@ -290,8 +309,31 @@ def swin_attention_half_v3_plain(x, wqkv, bq3, wp, bp, bm, *, heads: int, window
     return _attention_residual(x, y, wp, bp, bm, heads, window, shift).to(x.dtype)
 
 
+def _f32_half_scratch(x, stats: bool):
+    """An f32 attention half's scratch (kernels/csrc/swin_block.cu): the
+    LN1 statistics (v3 only), the window-ordered rows, qkv, ctx, out."""
+    b, r, _, c = x.shape
+    m, dev = b * r * r, x.device
+    f32 = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
+    return ((f32(2, m),) if stats else ()) + (f32(m, c), f32(m, 3 * c), f32(m, c),
+                                              torch.empty_like(x))
+
+
+def _attention_half_v3_f32_cuda(x, bq3, bp, bm, *, heads, window, shift, eps, operands):
+    b, r, _, c = x.shape
+    _check_window_pass("swin_attn_v3_f32", c)
+    wqkv_t, wp_t = _split_stacks("swin_attn_v3_f32", operands, c, ("wqkv_t", "wp_t"),
+                                 _BLOCK_OPERANDS)
+    require_cuda(x, wqkv_t, operands["csum"], bq3, wp_t, bp, bm, dtype=torch.float32)
+    _check_geometry("swin_attn_v3_f32", x, heads, window, bm)
+    scratch = _f32_half_scratch(x, stats=True)
+    KERNEL_V3_F32.launch("am_swin_attn_v3_f32", x, wqkv_t, operands["csum"], bq3, wp_t, bp, bm,
+                         bm.shape[0], b, r, c, heads, window, shift, float(eps), *scratch)
+    KERNEL_V3_F32.launches += 1
+    return scratch[-1]
+
+
 def _attention_half_v3_cuda(x, wqkv, bq3, wp, bp, bm, *, heads, window, shift, eps):
-    refuse_f32("swin_attn_v3", x)
     b, r, _, c = x.shape
     require_cuda(x, wqkv, wp)
     require_cuda(bq3, bp, bm, dtype=torch.float32)
@@ -307,10 +349,17 @@ def _attention_half_v3_cuda(x, wqkv, bq3, wp, bp, bm, *, heads, window, shift, e
 
 
 def swin_attention_half_v3(x, wqkv, bq3, wp, bp, bm, *, heads: int, window: int, shift: int,
-                           eps: float = 1e-5):
-    """Attention half of a Swin block, (B, R, R, C) -> (B, R, R, C)."""
-    fn = swin_attention_half_v3_plain if x.device.type == "cpu" else _attention_half_v3_cuda
-    return fn(x, wqkv, bq3, wp, bp, bm, heads=heads, window=window, shift=shift, eps=eps)
+                           eps: float = 1e-5, operands=None):
+    """Attention half of a Swin block, (B, R, R, C) -> (B, R, R, C).
+    ``operands``: the f32 kernel's :func:`swin_block_operands` of the
+    block's weights (it reads ``wqkv_t``, ``wp_t``, ``csum``), made at load;
+    an f32 CUDA tensor needs them, any other tensor ignores them."""
+    geo = dict(heads=heads, window=window, shift=shift, eps=eps)
+    if x.device.type == "cpu":
+        return swin_attention_half_v3_plain(x, wqkv, bq3, wp, bp, bm, **geo)
+    if x.dtype == torch.float32:
+        return _attention_half_v3_f32_cuda(x, bq3, bp, bm, **geo, operands=operands)
+    return _attention_half_v3_cuda(x, wqkv, bq3, wp, bp, bm, **geo)
 
 
 # ----------------------------------------------------------------------
@@ -325,6 +374,23 @@ def _head_columns(wq, bq, wk, wv, wp):
     wqkv = torch.cat([cols(wq), cols(wk), cols(wv)], dim=1)
     bqkv = torch.cat([bq.reshape(-1), bq.new_zeros(2 * h * d)])
     return wqkv, bqkv, wp.reshape(h * d, wp.shape[-1])
+
+
+def half_operands(wqkv, wp) -> dict:
+    """What the f32 attention-half kernels with the LN1 affine in the kernel
+    (v1, v2) read besides the plain version's operands, made once at load:
+    the f32 (C, 3C) qkv and (C, C) proj operands transposed to (N, K) and
+    split into their TF32 hi and lo parts, (2, N, K) stacks."""
+    return dict(wqkv_t=tf32_split(wqkv.t()), wp_t=tf32_split(wp.t()))
+
+
+def v1_operands(wq, bq, wk, wv, wp) -> dict:
+    """:func:`half_operands` of v1's per-head f32 weights laid side by side
+    (:func:`_head_columns`), with the (3C,) qkv bias ``bq3`` they give: the
+    f32 v1 kernel's operands, made once at load
+    (``models.htsat.SwinBlock``)."""
+    wqkv, bq3, wp2 = _head_columns(wq, bq, wk, wv, wp)
+    return dict(half_operands(wqkv, wp2), bq3=bq3.contiguous())
 
 
 def _window_8x8(name: str, window: int, x) -> None:
@@ -363,9 +429,27 @@ def _attention_ln_affine_cuda(kernel, symbol, x, ln_w, ln_b, wqkv, bqkv, wp, bp,
     return out
 
 
+def _attention_ln_affine_f32_cuda(kernel, symbol, x, ln_w, ln_b, bq3, bp, bm, *, heads, window,
+                                  shift, eps, operands, made_by):
+    """Launch v1's or v2's f32 kernel on the (2, N, K) stacks of the (C, 3C)
+    / (C, C) operands."""
+    b, r, _, c = x.shape
+    _window_8x8(kernel.name, window, x)
+    _check_window_pass(kernel.name, c)
+    wqkv_t, wp_t = _split_stacks(kernel.name, operands, c, ("wqkv_t", "wp_t"), made_by)
+    require_cuda(x, ln_w, ln_b, wqkv_t, bq3, wp_t, bp, bm, dtype=torch.float32)
+    _check_geometry(kernel.name, x, heads, window, bm)
+    if bq3.shape != (3 * c,):
+        raise ValueError(f"{kernel.name}: qkv bias {tuple(bq3.shape)}, want ({3 * c},)")
+    scratch = _f32_half_scratch(x, stats=False)
+    kernel.launch(symbol, x, ln_w, ln_b, wqkv_t, bq3, wp_t, bp, bm, bm.shape[0], b, r, c, heads,
+                  window, shift, float(eps), *scratch)
+    kernel.launches += 1
+    return scratch[-1]
+
+
 def _attention_half_v1_cuda(x, ln_w, ln_b, wq, bq, wk, wv, wp, bp, bm, *, heads, window,
                             shift, eps):
-    refuse_f32("swin_attn_v1", x)
     _window_8x8("swin_attn_v1", window, x)
     c = x.shape[-1]
     if wq.shape != (heads, c, c // heads) or wp.shape != (heads, c // heads, c):
@@ -377,12 +461,20 @@ def _attention_half_v1_cuda(x, ln_w, ln_b, wq, bq, wk, wv, wp, bp, bm, *, heads,
 
 
 def swin_attention_half_v1(x, ln_w, ln_b, wq, bq, wk, wv, wp, bp, bm, *, heads: int,
-                           window: int, shift: int, eps: float = 1e-5):
+                           window: int, shift: int, eps: float = 1e-5, operands=None):
     """Attention half of a Swin block with per-head weights, (B, R, R, C)
-    -> (B, R, R, C); 8x8 windows only."""
-    fn = swin_attention_half_v1_plain if x.device.type == "cpu" else _attention_half_v1_cuda
-    return fn(x, ln_w, ln_b, wq, bq, wk, wv, wp, bp, bm, heads=heads, window=window,
-              shift=shift, eps=eps)
+    -> (B, R, R, C); 8x8 windows only.  ``operands``: the f32 kernel's
+    :func:`v1_operands` of these weights, made at load; an f32 CUDA tensor
+    needs them, any other tensor ignores them."""
+    geo = dict(heads=heads, window=window, shift=shift, eps=eps)
+    if x.device.type == "cpu":
+        return swin_attention_half_v1_plain(x, ln_w, ln_b, wq, bq, wk, wv, wp, bp, bm, **geo)
+    if x.dtype == torch.float32:
+        bq3 = None if operands is None else operands["bq3"]
+        return _attention_ln_affine_f32_cuda(
+            KERNEL_V1_F32, "am_swin_attn_v1_f32", x, ln_w, ln_b, bq3, bp, bm, **geo,
+            operands=operands, made_by="v1_operands(wq, bq, wk, wv, wp)")
+    return _attention_half_v1_cuda(x, ln_w, ln_b, wq, bq, wk, wv, wp, bp, bm, **geo)
 
 
 # ----------------------------------------------------------------------
@@ -414,12 +506,19 @@ def _attention_half_v2_cuda(x, ln_w, ln_b, wqkv, bq3, wp, bp, bm, *, heads, wind
 
 
 def swin_attention_half_v2(x, ln_w, ln_b, wqkv, bq3, wp, bp, bm, *, heads: int, window: int,
-                           shift: int, eps: float = 1e-5):
+                           shift: int, eps: float = 1e-5, operands=None):
     """Attention half of a Swin block under v2's contract, (B, R, R, C) ->
-    (B, R, R, C); 8x8 windows only."""
-    fn = swin_attention_half_v2_plain if x.device.type == "cpu" else _attention_half_v2_cuda
-    return fn(x, ln_w, ln_b, wqkv, bq3, wp, bp, bm, heads=heads, window=window, shift=shift,
-              eps=eps)
+    (B, R, R, C); 8x8 windows only.  ``operands``: the f32 kernel's
+    :func:`half_operands` of ``wqkv`` and ``wp``, made once by the caller;
+    an f32 CUDA tensor needs them, any other tensor ignores them."""
+    geo = dict(heads=heads, window=window, shift=shift, eps=eps)
+    if x.device.type == "cpu":
+        return swin_attention_half_v2_plain(x, ln_w, ln_b, wqkv, bq3, wp, bp, bm, **geo)
+    if x.dtype == torch.float32:
+        return _attention_ln_affine_f32_cuda(
+            KERNEL_V2_F32, "am_swin_attn_v2_f32", x, ln_w, ln_b, bq3, bp, bm, **geo,
+            operands=operands, made_by="half_operands(wqkv, wp)")
+    return _attention_half_v2_cuda(x, ln_w, ln_b, wqkv, bq3, wp, bp, bm, **geo)
 
 
 # ----------------------------------------------------------------------

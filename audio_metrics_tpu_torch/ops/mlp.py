@@ -20,7 +20,13 @@ no model path calls, in the JAX package as here.  Exact-erf GELU (the JAX
 kernel's A&S 7.1.26 erf is within 1.5e-7 of it).
 
 Dispatch of ``mlp_block`` and ``mlp_block_int8``: a CPU tensor runs the
-``*_plain`` version; a CUDA tensor launches the kernel or raises.
+``*_plain`` version; a CUDA tensor launches the kernel for its dtype or
+raises.  Both take the activation dtype, as their JAX kernels do: bf16
+launches ``am_swin_mlp`` / ``am_swin_mlp_int8``, f32 ``am_swin_mlp_f32``
+(kernels/csrc/swin_block.cu, the f32 block's launches 5-7, its products as
+three TF32 products on the tensor cores, reading ``w1`` and ``w2`` as the
+(2, N, K) stacks of :func:`mlp_operands`, made at load) /
+``am_swin_mlp_int8_f32``; each dtype has its own launch count.
 """
 
 from __future__ import annotations
@@ -29,11 +35,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..kernels import KERNELS, refuse_f32, require_cuda
+from ..kernels import KERNELS, require_cuda
+from .tf32 import split_operand, tf32_split
 
 __all__ = [
     "layer_norm",
     "mlp_block",
+    "mlp_operands",
     "mlp_block_plain",
     "mlp_block_int8",
     "mlp_block_int8_plain",
@@ -42,7 +50,9 @@ __all__ = [
 ]
 
 KERNEL = KERNELS["swin_mlp"]
+KERNEL_F32 = KERNELS["swin_mlp_f32"]
 KERNEL_INT8 = KERNELS["swin_mlp_int8"]
+KERNEL_INT8_F32 = KERNELS["swin_mlp_int8_f32"]
 # f32 constants of the int8 kernel, as jnp.float32 gives them
 _INV127 = float(np.float32(1.0 / 127.0))
 _AMAX_FLOOR = float(np.float32(1e-12))
@@ -57,27 +67,59 @@ def layer_norm(x, w, b, eps):
     return ((xf - mu) * torch.rsqrt(var + eps) * w + b).to(x.dtype)
 
 
+def _mm(a, b):
+    """Product of ``a`` and ``b`` as rounded, accumulated in f32: what the
+    kernels' products compute (the tests replace it by the f32 kernel's
+    3xTF32 product, ``testing.tf32x3_matmul``)."""
+    return torch.matmul(a.float(), b.float())
+
+
 def mlp_block_plain(x, ln_w, ln_b, w1, b1, w2, b2, *, eps: float = 1e-5):
     """x (..., C) -> same dtype.  Rounds where the kernel rounds: the LN
     output and the GELU output go to the activation dtype; products
     accumulate in f32; the residual is the input as given."""
     dt = x.dtype
-    h1 = F.gelu(torch.matmul(layer_norm(x, ln_w, ln_b, eps).float(), w1.float()) + b1,
-                approximate="none").to(dt)
-    return (torch.matmul(h1.float(), w2.float()) + b2 + x.float()).to(dt)
+    h1 = F.gelu(_mm(layer_norm(x, ln_w, ln_b, eps), w1) + b1, approximate="none").to(dt)
+    return (_mm(h1, w2) + b2 + x.float()).to(dt)
+
+
+def mlp_operands(w1, w2) -> dict:
+    """What the f32 MLP kernel reads besides the plain version's operands,
+    made once when the weights load (``models.htsat.SwinBlock``): ``w1``
+    (C, 4C) and ``w2`` (4C, C) f32 transposed to (N, K) and split into their
+    TF32 hi and lo parts, (2, N, K) stacks (``ops.tf32.tf32_split``)."""
+    return dict(w1_t=tf32_split(w1.t()), w2_t=tf32_split(w2.t()))
+
+
+def _mlp_shape(name, x, w1_shape, w2_shape):
+    c = x.shape[-1]
+    if c % 64 or w1_shape != (c, 4 * c) or w2_shape != (4 * c, c):
+        raise NotImplementedError(
+            f"{name} kernel takes C % 64 == 0 and a 4C hidden width, got x "
+            f"{tuple(x.shape)} w1 {tuple(w1_shape)} w2 {tuple(w2_shape)}"
+        )
+    return x.numel() // c, c
+
+
+def _mlp_block_f32_cuda(x, ln_w, ln_b, w1, b1, w2, b2, *, eps, operands):
+    m, c = _mlp_shape("swin_mlp_f32", x, w1.shape, w2.shape)
+    made_by = "mlp_operands(w1, w2)"
+    w1_t = split_operand("swin_mlp_f32", operands, "w1_t", 4 * c, c, made_by)
+    w2_t = split_operand("swin_mlp_f32", operands, "w2_t", c, 4 * c, made_by)
+    require_cuda(x, ln_w, ln_b, w1_t, b1, w2_t, b2, dtype=torch.float32)
+    hbuf = torch.empty((m, c), dtype=torch.float32, device=x.device)
+    h1 = torch.empty((m, 4 * c), dtype=torch.float32, device=x.device)
+    out = torch.empty_like(x)
+    KERNEL_F32.launch("am_swin_mlp_f32", x, ln_w, ln_b, w1_t, b1, w2_t, b2, m, c, float(eps),
+                      hbuf, h1, out)
+    KERNEL_F32.launches += 1
+    return out
 
 
 def _mlp_block_cuda(x, ln_w, ln_b, w1, b1, w2, b2, *, eps):
-    refuse_f32("swin_mlp", x)
-    c = x.shape[-1]
     require_cuda(x, w1, w2)
     require_cuda(ln_w, ln_b, b1, b2, dtype=torch.float32)
-    if c % 64 or w1.shape != (c, 4 * c) or w2.shape != (4 * c, c):
-        raise NotImplementedError(
-            f"swin_mlp kernel takes C % 64 == 0 and a 4C hidden width, got x "
-            f"{tuple(x.shape)} w1 {tuple(w1.shape)} w2 {tuple(w2.shape)}"
-        )
-    m = x.numel() // c
+    m, c = _mlp_shape("swin_mlp", x, w1.shape, w2.shape)
     hbuf = torch.empty((m, c), dtype=x.dtype, device=x.device)
     h1 = torch.empty((m, 4 * c), dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
@@ -86,10 +128,15 @@ def _mlp_block_cuda(x, ln_w, ln_b, w1, b1, w2, b2, *, eps):
     return out
 
 
-def mlp_block(x, ln_w, ln_b, w1, b1, w2, b2, *, eps: float = 1e-5):
-    """x + fc2(GELU(fc1(LN(x)))) over the last axis."""
-    fn = mlp_block_plain if x.device.type == "cpu" else _mlp_block_cuda
-    return fn(x, ln_w, ln_b, w1, b1, w2, b2, eps=eps)
+def mlp_block(x, ln_w, ln_b, w1, b1, w2, b2, *, eps: float = 1e-5, operands=None):
+    """x + fc2(GELU(fc1(LN(x)))) over the last axis.  ``operands``: the f32
+    kernel's :func:`mlp_operands` of these weights, made at load; an f32
+    CUDA tensor needs them, any other tensor ignores them."""
+    if x.device.type == "cpu":
+        return mlp_block_plain(x, ln_w, ln_b, w1, b1, w2, b2, eps=eps)
+    if x.dtype == torch.float32:
+        return _mlp_block_f32_cuda(x, ln_w, ln_b, w1, b1, w2, b2, eps=eps, operands=operands)
+    return _mlp_block_cuda(x, ln_w, ln_b, w1, b1, w2, b2, eps=eps)
 
 
 # ----------------------------------------------------------------------
@@ -133,17 +180,13 @@ def mlp_block_int8_plain(x, ln_w, ln_b, w1, b1, w2, b2, *, eps: float = 1e-5):
 
 
 def _mlp_block_int8_cuda(x, ln_w, ln_b, w1, b1, w2, b2, *, eps):
-    c = x.shape[-1]
-    require_cuda(x)
+    f32 = x.dtype == torch.float32
+    kernel = KERNEL_INT8_F32 if f32 else KERNEL_INT8
+    require_cuda(x, dtype=torch.float32 if f32 else torch.bfloat16)
     require_cuda(ln_w, ln_b, w1, b1, w2, b2, dtype=torch.float32)
-    if c % 64 or w1.shape != (c, 4 * c) or w2.shape != (4 * c, c):
-        raise NotImplementedError(
-            f"swin_mlp_int8 kernel takes C % 64 == 0 and a 4C hidden width, got x "
-            f"{tuple(x.shape)} w1 {tuple(w1.shape)} w2 {tuple(w2.shape)}"
-        )
+    m, c = _mlp_shape(kernel.name, x, w1.shape, w2.shape)
     q1, s1 = quantize_columns(w1)
     q2, s2 = quantize_columns(w2)
-    m = x.numel() // c
     dev = x.device
     qx = torch.empty((m, c), dtype=torch.int8, device=dev)
     sx = torch.empty(m, dtype=torch.float32, device=dev)
@@ -151,15 +194,16 @@ def _mlp_block_int8_cuda(x, ln_w, ln_b, w1, b1, w2, b2, *, eps):
     amax = torch.empty(m, dtype=torch.int32, device=dev)
     qy = torch.empty((m, 4 * c), dtype=torch.int8, device=dev)
     out = torch.empty_like(x)
-    KERNEL_INT8.launch("am_swin_mlp_int8", x, ln_w, ln_b, q1.t().contiguous(), s1, b1,
-                       q2.t().contiguous(), s2, b2, m, c, float(eps), qx, sx, hid, amax, qy, out)
-    KERNEL_INT8.launches += 1
+    kernel.launch("am_swin_mlp_int8_f32" if f32 else "am_swin_mlp_int8", x, ln_w, ln_b,
+                  q1.t().contiguous(), s1, b1, q2.t().contiguous(), s2, b2, m, c, float(eps), qx,
+                  sx, hid, amax, qy, out)
+    kernel.launches += 1
     return out
 
 
 def mlp_block_int8(x, ln_w, ln_b, w1, b1, w2, b2, *, eps: float = 1e-5):
     """x + fc2(GELU(fc1(LN(x)))) over the last axis with W8A8 int8
-    products; ``w1`` (C, 4C) and ``w2`` (4C, C) f32."""
+    products; ``x`` bf16 or f32, ``w1`` (C, 4C) and ``w2`` (4C, C) f32."""
     fn = mlp_block_int8_plain if x.device.type == "cpu" else _mlp_block_int8_cuda
     return fn(x, ln_w, ln_b, w1, b1, w2, b2, eps=eps)
 

@@ -65,6 +65,15 @@ FAULTS = {
            "      wgmma_bn<BN>(tmp, smem_desc(a_hi + kk * 32), smem_desc(b_lo + kk * 32), 1);\n",
            "      wgmma_bn<BN>(tmp, smem_desc(a_hi + kk * 32), smem_desc(b_lo + kk * 32), kk > 0);\n",
            "the 3xTF32 core drops the A_lo . B_hi product"),
+    "N1": (f"{CSRC}/swin_block.cu",
+           "const float4 b = *reinterpret_cast<const float4*>(ln_b + k);",
+           "const float4 b = make_float4(0.f, 0.f, 0.f, 0.f);",
+           "the f32 LN1 window pass of the v1 and v2 halves drops the LN1 bias"),
+    "R1": (f"{CSRC}/mlp_int8.cu",
+           "float residual(const float* x, long long o) { return x[o]; }",
+           "float residual(const float* x, long long o) {\n"
+           "  return __bfloat162float(reinterpret_cast<const bf16*>(x)[o]);\n}",
+           "the f32 int8 MLP reads its f32 residual as bf16"),
 }
 SKIP = ("build", ".git", "__pycache__", ".pytest_cache")
 

@@ -48,6 +48,8 @@ Phases, one status line each:
      MLP (``mlp_block_int8``) on its output with that block's f32 MLP
      weights: launch counts, each against its plain version, the int8
      MLP's branch against the fused bf16 MLP kernel's, per-forward times;
+     then the same two ops in f32 on the inputs of one f32 forward with
+     phase 10's weights (their f32 kernels);
  10. the default configuration, f32: phase 3's weights written as a
      LAION-named checkpoint (``module.`` prefix, fused qkv) under the
      default embedder's file name in a temporary directory, named by
@@ -56,7 +58,14 @@ Phases, one status line each:
      from it (HTSAT-base, f32) and evaluates 256 + 256 5 s clips: launch
      counts (the f32 whole-block and merge kernels only), finite metrics,
      FAD of a set against itself, embeddings against the f32 plain chain
-     on the card, clips/s.
+     on the card, clips/s;
+ 11. the default configuration, f32, split: phase 10's checkpoint and
+     clips under ``AM_TPU_V4_STAGES=""`` (the f32 v3 attention half and the
+     f32 fused MLP, the XLA MLP at stage 3's 4096 rows) and under
+     ``AM_TPU_ATTN_V1=1`` (the f32 v1 half at stages 0-1, the XLA attention
+     at 2-3), each as phase 10: launch counts (f32 kernels only), finite
+     metrics, FAD of a set against itself, embeddings against the f32 plain
+     chain, clips/s.
 Phase 3 runs each kernel redesigned for Hopper on the wgmma core (the
 whole Swin block at every stage and shift, the three patch merges, the
 fused frontend, the halo log-mel) twice on the same inputs, at B = 4 and
@@ -70,7 +79,11 @@ over 200 launches (``TIMING_ITERS``).
 Phase 3 holds the f32 whole block (every stage and shift) and the f32
 merges (their products on the 3xTF32 wgmma core) against their f32 plain
 versions too, at B = 4 and at B = 64, with bitwise repeats, and times their
-products alone through ``torch.matmul`` in full f32.
+products alone through ``torch.matmul`` in full f32; and so the f32 kernels
+of the split block and the opt-in ops (v3 and v2 halves at every stage, v1
+at stages 0-1, the fused MLP and the int8 MLP at the row counts of stages
+0-3), the v3 half then the MLP against the whole f32 block and the v2 half
+against the v1 half (each pair bitwise equal: the same launches).
 Phase 3 also holds the split block's kernels (v3 attention half at every
 stage, the fused MLP at the row counts of stages 0-3, the v1 attention
 half at stages 0 and 1), the opt-in ops (the v2 attention half at every
@@ -102,7 +115,7 @@ N_CLIPS = 2048   # bench.py's eval set
 N_CLIPS_10S = 128
 N_CLIPS_SPLIT = 512  # phase 6
 N_CLIPS_V1 = 256     # phase 7
-N_CLIPS_F32 = 256    # phase 10
+N_CLIPS_F32 = 256    # phases 10, 11
 CLIP_S = 5
 SR = 48000
 BATCH = 64       # e2e batch size
@@ -135,7 +148,15 @@ TOL = {"swin_block": ((2e-4, 5e-4, 1.5e-3, 3.5e-3), 0.0625),
        # test_pallas_model_kernels.py:588; 5e-5 for a kernel against XLA,
        # :122,226)
        "swin_block_f32": ((1e-6, 2e-6, 2.5e-6, 4e-6), 5e-5),
-       "patch_merge_f32": (3e-6, 3e-5)}
+       "patch_merge_f32": (3e-6, 3e-5),
+       # the f32 split halves run the f32 block's launches and arithmetic:
+       # its bounds, relative to what each half adds; the f32 int8 MLP, the
+       # bf16 int8 kernel's (its codes are f32 arithmetic in both dtypes)
+       "swin_attn_v3_f32": ((1e-6, 2e-6, 2.5e-6, 4e-6), 5e-5),
+       "swin_mlp_f32": ((1e-6, 2e-6, 2.5e-6, 4e-6), 5e-5),
+       "swin_attn_v1_f32": ((1e-6, 2e-6), 5e-5),
+       "swin_attn_v2_f32": ((1e-6, 2e-6, 2.5e-6, 4e-6), 5e-5),
+       "swin_mlp_int8_f32": ((2.5e-6, 5e-6, 7e-6, 7e-6), 0.0625)}
 # the int8 MLP's branch (out - x) against the fused bf16 MLP kernel's, each
 # held against the f32 branch (the plain MLP in f32 on the same input, f32
 # weights) by relative Frobenius error: the int8 branch's error may exceed
@@ -166,9 +187,10 @@ NEAR_TIE = 1e-5
 # spread of ~1e-6 over subsets and moves most.
 E2E_TOL = {"1-cos": 1e-5, "max_abs": 3e-3, "fad": 1e-3, "kernel_distance_mean": 1e-3,
            "kernel_distance_std": 3e-2}
-# phase 10, the f32 kernels' embeddings against the f32 plain chain's on the
-# same clips: (1 - min cosine, max abs); readings 1.79e-7 (the f32 rounding
-# of a unit row's squared norm: equal embeddings read the same) and 6.3e-8
+# phases 10 and 11, the f32 kernels' embeddings against the f32 plain
+# chain's on the same clips: (1 - min cosine, max abs); readings 1.79e-7
+# (the f32 rounding of a unit row's squared norm: equal embeddings read the
+# same) and 6.3e-8
 F32_E2E_TOL = (1e-6, 6e-7)
 # Embeddings of one configuration against another on the same clips (same
 # weights): the split blocks and the v1 attention against the whole-block
@@ -176,14 +198,17 @@ F32_E2E_TOL = (1e-6, 6e-7)
 # ~10x the readings (PERF.md; the two log-mels gave equal embeddings, so
 # theirs is the kernel-vs-plain scale).
 CONFIG_TOL = {"split": (5e-5, 5e-3), "attn_v1": (5e-5, 5e-3), "mel_v1": (2e-6, 1e-3)}
-# the kernels without atomics, redesigned on the wgmma GEMM cores
-# (gemm_sm90.cuh, bf16; gemm_tf32x3_sm90.cuh, f32 as three TF32 products):
-# each must repeat bitwise on the same inputs
-REDESIGNED = ("swin_block", "patch_merge", "clap_frontend", "log_mel", "swin_block_f32",
-              "patch_merge_f32")
+# kernels that must repeat bitwise on the same inputs: those on the wgmma
+# GEMM cores (gemm_sm90.cuh, bf16; gemm_tf32x3_sm90.cuh, f32 as three TF32
+# products), which have no atomics, and the f32 int8 MLP, whose one atomic
+# is an integer max, which no order changes
+REPEATS = ("swin_block", "patch_merge", "clap_frontend", "log_mel", "swin_block_f32",
+           "patch_merge_f32", "swin_attn_v3_f32", "swin_mlp_f32", "swin_attn_v1_f32",
+           "swin_attn_v2_f32", "swin_mlp_int8_f32")
 # kernels also held against their plain versions at B = BATCH, the batch at
-# which the default configuration runs them (phase 10), under the same bounds
-AT_BATCH = ("swin_block_f32", "patch_merge_f32")
+# which the f32 configurations run them (phases 9-11), under the same bounds
+AT_BATCH = ("swin_block_f32", "patch_merge_f32", "swin_attn_v3_f32", "swin_mlp_f32",
+            "swin_attn_v1_f32", "swin_attn_v2_f32", "swin_mlp_int8_f32")
 # launches timed per reading (10 elsewhere): kernels of ~0.1 ms or less
 # moved by 20-40% between runs at 10
 TIMING_ITERS = {"patch_merge": 200, "knn_radii": 200, "prdc_stats": 200, "log_mel": 200}
@@ -254,16 +279,18 @@ def swin_bound(cfg, b, part="block", stages=(0, 1, 2, 3), dt="bf16"):
     return bound({dt: prod + attn}, n_bytes)
 
 
-def int8_mlp_bound(cfg, b):
+def int8_mlp_bound(cfg, b, dt="bf16"):
     """The int8 MLP on the rows of every Swin block of one forward: fc1 and
-    fc2, 16 T C^2 int8 operations; bytes: each block's bf16 rows in and
-    out, its f32 weights (8 C^2) and f32 vectors (LN affine, biases: 7 C)."""
+    fc2, 16 T C^2 int8 operations; bytes: each block's rows in and out in
+    ``dt`` (bf16 or f32), its f32 weights (8 C^2) and f32 vectors (LN
+    affine, biases: 7 C)."""
+    size = 2 if dt == "bf16" else 4
     ops = n_bytes = 0
     res = cfg.grid_size
     for stage, depth in enumerate(cfg.depths):
         c, t = cfg.embed_dim * 2**stage, b * res * res
         ops += depth * 16 * t * c * c
-        n_bytes += depth * (2 * t * c * 2 + (8 * c * c + 7 * c) * 4)
+        n_bytes += depth * (2 * t * c * size + (8 * c * c + 7 * c) * 4)
         res //= 2
     return bound({"int8": ops}, n_bytes)
 
@@ -379,20 +406,25 @@ def compare(name, got, want, signal, results):
     return mx, rel
 
 
-def v2_weights(params, prefix, block):
+def v2_weights(params, prefix, block, dtype=torch.bfloat16):
     """The opt-in ops' operands for ``block``'s weights, on the card: the v2
-    attention half's (bf16 matrices) and the int8 MLP's (f32 weights)."""
+    attention half's (matrices in ``dtype``), the int8 MLP's (f32 weights),
+    and in f32 the v2 half's ``half_operands`` (its f32 kernel's split
+    stacks, made once here as a caller makes them at load; else None)."""
     from audio_metrics_tpu_torch.models.htsat import _Folded, _mlp_weights, _v2_kernel_weights
+    from audio_metrics_tpu_torch.ops.attention import half_operands
 
     w = _Folded(_v2_kernel_weights(params, prefix, block.resolution, block.shift, block.heads,
-                                   block.window), torch.bfloat16).to("cuda")
+                                   block.window), dtype).to("cuda")
     m = _Folded(_mlp_weights(params, prefix), torch.float32).to("cuda")
+    ops = half_operands(w.wqkv, w.wp) if dtype == torch.float32 else None
     return ((w.ln1_w, w.ln1_b, w.wqkv, w.bq3, w.wp, w.bp, w.bm),
-            (m.ln2_w, m.ln2_b, m.w1, m.b1, m.w2, m.b2))
+            (m.ln2_w, m.ln2_b, m.w1, m.b1, m.w2, m.b2), ops)
 
 
-def int8_ties(x, mlp, eps, results):
-    """The int8 MLP where every LN output is a code and a half: with a zero
+def int8_ties(x, mlp, eps, results, name="swin_mlp_int8"):
+    """The int8 MLP (``name``: its bf16 or f32 kernel, as ``x``'s dtype)
+    where every LN output is a code and a half: with a zero
     LN weight the LN output is the LN bias, here 127 and then +-(k + 1/2),
     so sx = 1 and each quotient lies exactly halfway (random rows rarely
     do).  Half to even (the JAX kernel's jnp.round) and half away from zero
@@ -405,13 +437,13 @@ def int8_ties(x, mlp, eps, results):
                       ((k % 20) + 0.5) * (1 - 2 * (k % 2))])
     args = (torch.zeros_like(mlp[0]), ln_b.float(), *mlp[2:])
     got, want = mlp_block_int8(x, *args, eps=eps), mlp_block_int8_plain(x, *args, eps=eps)
-    mx, rel = compare("swin_mlp_int8", got, want, want.float() - x.float(), results)
-    rel_tol, max_tol = TOL["swin_mlp_int8"][0][0], TOL["swin_mlp_int8"][1]
+    mx, rel = compare(name, got, want, want.float() - x.float(), results)
+    rel_tol, max_tol = TOL[name][0][0], TOL[name][1]
     ok = mx <= max_tol and rel <= rel_tol
-    log(f"  swin_mlp_int8 LN outputs at halves, C={c}: max_abs_err {mx:.4g} (tol {max_tol}) "
+    log(f"  {name} LN outputs at halves, C={c}: max_abs_err {mx:.4g} (tol {max_tol}) "
         f"mean_abs_err / mean |out - x| {rel:.4g} (tol {rel_tol}) {'ok' if ok else 'FAIL'}")
     if not ok:
-        raise AssertionError("swin_mlp_int8 rounds halves otherwise than its plain version")
+        raise AssertionError(f"{name} rounds halves otherwise than its plain version")
 
 
 def phase_kernels(cfg, params, results):
@@ -463,7 +495,7 @@ def phase_kernels(cfg, params, results):
                 f"(tol {rel_tol}) {'ok' if ok else 'FAIL'}")
             if not ok:
                 raise AssertionError(f"{name} {shape_key}{at} disagrees with its plain version")
-        if name in REDESIGNED:
+        if name in REPEATS:
             check_repeats(f"{name} {shape_key}", ((CHECK_B, first, kfn),
                                                   (BATCH, counts[0](), counts[0])))
         for b in (CHECK_B, BATCH):
@@ -476,6 +508,22 @@ def phase_kernels(cfg, params, results):
             times[name]["plain_ms"][b] += pms * counts[2]
             log(f"    B={b}: kernel {ms:.4f} ms, plain {pms:.4f} ms")
 
+    def check_on(name, key, xin, kfn, pfn, n, stage):
+        """``check`` of the residual kernel ``kfn(x)`` against ``pfn(x)`` on
+        the inputs ``xin`` (by batch), ``n`` calls a forward."""
+        check(name, key, lambda: kfn(xin[CHECK_B]), lambda: pfn(xin[CHECK_B]),
+              (lambda: kfn(xin[BATCH]), lambda: pfn(xin[BATCH]), n),
+              x=xin[CHECK_B], stage=stage, xb=xin[BATCH])
+
+    def same(what, key, got, want):
+        """Two kernel paths that run the same launches on the same values:
+        bitwise equal."""
+        torch.cuda.synchronize()
+        ok = torch.equal(got, want)
+        log(f"  {what} {key}: {'bitwise equal' if ok else 'DIFFERS'}")
+        if not ok:
+            raise AssertionError(f"{what} {key} differ")
+
     def randn(shape):
         return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
 
@@ -483,7 +531,7 @@ def phase_kernels(cfg, params, results):
     mlp_stages = []
     for stage, depth in enumerate(cfg.depths):
         c = cfg.embed_dim * 2**stage
-        split_checks = []
+        split_checks, split_f32 = [], []
         for shift in ((0, cfg.window_size // 2) if res > cfg.window_size else (0,)):
             prefix = f"audio_encoder.layers.{stage}.blocks.{1 if shift else 0}"
             block = SwinBlock(params, prefix, cfg, res, shift, cfg.num_heads[stage],
@@ -504,10 +552,20 @@ def phase_kernels(cfg, params, results):
                   lambda: b32(x32[CHECK_B], plain=True),
                   (lambda: b32(x32[BATCH]), lambda: b32(x32[BATCH], plain=True), n_blocks),
                   x=x32[CHECK_B], stage=stage, xb=x32[BATCH])
+            # the f32 v3 attention half (#8 f32) on the same weights and
+            # inputs, reading the f32 block's split stacks
+            geo = dict(heads=block.heads, window=block.window, shift=block.shift, eps=block.eps)
+            ops32 = b32.kernel_operands()
+            attn32 = (b32.wqkv, b32.bq3, b32.wp, b32.bp, b32.bm)
+            mlp32 = (b32.ln2_w, b32.ln2_b, b32.w1, b32.b1, b32.w2, b32.b2)
+            x432 = {b: x32[b].view(b, res, res, c) for b in x32}
+            check_on("swin_attn_v3_f32", key, x432,
+                     lambda x: swin_attention_half_v3(x, *attn32, **geo, operands=ops32),
+                     lambda x: swin_attention_half_v3_plain(x, *attn32, **geo), n_blocks, stage)
+            split_f32.append((key, b32, x32[CHECK_B], attn32, mlp32, ops32, geo))
 
             # the v3 attention half on the same block weights (#8); the v3
             # half + MLP kernel against the whole-block kernel after #9's check
-            geo = dict(heads=block.heads, window=block.window, shift=block.shift, eps=block.eps)
             attn = (block.wqkv, block.bq3, block.wp, block.bp, block.bm)
             mlp = (block.ln2_w, block.ln2_b, block.w1, block.b1, block.w2, block.b2)
             x4 = {b: xs[b].view(b, res, res, c) for b in xs}
@@ -538,6 +596,15 @@ def phase_kernels(cfg, params, results):
                       (lambda: swin_attention_half_v1(x4[BATCH], *a1, **geo),
                        lambda: swin_attention_half_v1_plain(x4[BATCH], *a1, **geo), n_blocks),
                       x=x4[CHECK_B], stage=stage)
+                # the f32 v1 half (#10 f32) on its f32 operands made at load
+                v132 = SwinBlock(params, prefix, cfg, res, shift, cfg.num_heads[stage],
+                                 torch.float32, attention="v1").to(dev)
+                a132 = (v132.ln1_w, v132.ln1_b, v132.wq, v132.bq, v132.wk, v132.wv, v132.wp,
+                        v132.bp, v132.bm)
+                ops132 = v132.kernel_operands()
+                check_on("swin_attn_v1_f32", key, x432,
+                         lambda x: swin_attention_half_v1(x, *a132, **geo, operands=ops132),
+                         lambda x: swin_attention_half_v1_plain(x, *a132, **geo), n_blocks, stage)
                 # v2 on v1's operands laid side by side runs v1's launches
                 v1_out = swin_attention_half_v1(x4[CHECK_B], *a1, **geo)
                 mx, rel = compare("v2_vs_v1", swin_attention_half_v2(x4[CHECK_B], *a2, **geo),
@@ -550,6 +617,17 @@ def phase_kernels(cfg, params, results):
                 if not ok:
                     raise AssertionError(f"the v2 kernel disagrees with the v1 kernel {key}")
 
+            # the f32 v2 half (#11 f32), every stage; on v1's operands laid
+            # side by side it runs the f32 v1 kernel's launches
+            a232, _, ops232 = v2_weights(params, prefix, block, torch.float32)
+            check_on("swin_attn_v2_f32", key, x432,
+                     lambda x: swin_attention_half_v2(x, *a232, **geo, operands=ops232),
+                     lambda x: swin_attention_half_v2_plain(x, *a232, **geo), n_blocks, stage)
+            if stage < 2:
+                same("f32 v2 kernel vs f32 v1 kernel", key,
+                     swin_attention_half_v2(x432[CHECK_B], *a232, **geo, operands=ops232),
+                     swin_attention_half_v1(x432[CHECK_B], *a132, **geo, operands=ops132))
+
         # the fused MLP (#9) at this stage's rows; blocks of one forward at
         # B=BATCH that take it (the XLA MLP below 1024 tokens and 16384 rows)
         n_mlp = depth if block.fused_mlp(BATCH) else 0
@@ -561,6 +639,9 @@ def phase_kernels(cfg, params, results):
               (lambda: mlp_block(xs[BATCH], *mlp, eps=block.eps),
                lambda: mlp_block_plain(xs[BATCH], *mlp, eps=block.eps), n_mlp),
               x=xs[CHECK_B], stage=stage)
+        check_on("swin_mlp_f32", f"stage {stage} rows B x {res * res} C={c}", x32,
+                 lambda x: mlp_block(x, *mlp32, eps=block.eps, operands=ops32),
+                 lambda x: mlp_block_plain(x, *mlp32, eps=block.eps), n_mlp, stage)
 
         # the int8 MLP (#12), an opt-in op: every block's rows at this stage
         m8 = v2_weights(params, prefix, block)[1]
@@ -572,6 +653,11 @@ def phase_kernels(cfg, params, results):
               x=xs[CHECK_B], stage=stage)
         if stage == 0:
             int8_ties(xs[CHECK_B], m8, block.eps, results)
+        check_on("swin_mlp_int8_f32", f"stage {stage} rows B x {res * res} C={c}", x32,
+                 lambda x: mlp_block_int8(x, *m8, eps=block.eps),
+                 lambda x: mlp_block_int8_plain(x, *m8, eps=block.eps), depth, stage)
+        if stage == 0:
+            int8_ties(x32[CHECK_B], m8, block.eps, results, "swin_mlp_int8_f32")
 
         for key, block, x, x4, attn, mlp, geo in split_checks:
             split = mlp_block(swin_attention_half_v3(x4, *attn, **geo).view(x.shape), *mlp,
@@ -584,6 +670,11 @@ def phase_kernels(cfg, params, results):
                 f"{SPLIT_VS_WHOLE_TOL[0]}) {'ok' if ok else 'FAIL'}")
             if not ok:
                 raise AssertionError(f"split block {key} disagrees with the whole block")
+        for key, b32, x, attn32, mlp32, ops32, geo in split_f32:
+            half = swin_attention_half_v3(x.view(*x.shape[:1], res, res, c), *attn32, **geo,
+                                          operands=ops32)
+            same("f32 v3 half + f32 MLP kernels vs f32 whole-block kernel", key,
+                 mlp_block(half.view(x.shape), *mlp32, eps=b32.eps, operands=ops32), b32(x))
 
         if stage < len(cfg.depths) - 1:
             merge = PatchMerge(params, f"audio_encoder.layers.{stage}.downsample", cfg, res,
@@ -615,7 +706,12 @@ def phase_kernels(cfg, params, results):
               "swin_attn_v2": swin_bound(cfg, BATCH, "attn"),
               "swin_mlp_int8": int8_mlp_bound(cfg, BATCH),
               "swin_block_f32": swin_bound(cfg, BATCH, dt="f32"),
-              "patch_merge_f32": merge_bound(cfg, BATCH, "f32")}
+              "patch_merge_f32": merge_bound(cfg, BATCH, "f32"),
+              "swin_attn_v3_f32": swin_bound(cfg, BATCH, "attn", dt="f32"),
+              "swin_mlp_f32": swin_bound(cfg, BATCH, "mlp", stages=mlp_stages, dt="f32"),
+              "swin_attn_v1_f32": swin_bound(cfg, BATCH, "attn", stages=(0, 1), dt="f32"),
+              "swin_attn_v2_f32": swin_bound(cfg, BATCH, "attn", dt="f32"),
+              "swin_mlp_int8_f32": int8_mlp_bound(cfg, BATCH, "f32")}
     for name, t in times.items():
         for b in (CHECK_B, BATCH):
             log(f"  {name} per forward at B={b}: kernel {t['ms'][b]:.4f} ms, "
@@ -623,34 +719,44 @@ def phase_kernels(cfg, params, results):
         results[name].update(ms=t["ms"][BATCH], plain_ms=t["plain_ms"][BATCH],
                              bound_ms=bounds[name][0], bound_by=bounds[name][1])
         log(f"  {name} bound at B={BATCH}: {bounds[name][0]:.4f} ms ({bounds[name][1]})")
-    alone = products_alone_ms(cfg, BATCH)
+    alone, _ = products_alone_ms(cfg, BATCH)
     log("  yardstick, the products alone through torch.matmul in bf16 at B="
         f"{BATCH}: " + ", ".join(f"{k} {v:.4f} ms" for k, v in alone.items()))
     results["swin_block"]["library_ms"] = alone["Swin blocks (18 x qkv, proj, fc1, fc2)"]
     results["patch_merge"]["library_ms"] = alone["patch merges (3 x (M, 4C) @ (4C, 2C))"]
     results["clap_frontend"]["library_ms"] = alone["frontend DFT"]
-    alone32 = products_alone_ms(cfg, BATCH, torch.float32)
+    alone32, per_block = products_alone_ms(cfg, BATCH, torch.float32)
+    # the split halves' products alone over the blocks each path runs:
+    # qkv and proj (attention), fc1 and fc2 (MLP), in full f32
+    halves = {"swin_attn_v3_f32": ("attn", range(len(cfg.depths))),
+              "swin_mlp_f32": ("mlp", mlp_stages), "swin_attn_v1_f32": ("attn", (0, 1)),
+              "swin_attn_v2_f32": ("attn", range(len(cfg.depths)))}
+    for name, (part, stages) in halves.items():
+        alone32[f"{name} ({part} products)"] = sum(cfg.depths[st] * per_block[st][part]
+                                                   for st in stages)
+        results[name]["library_ms"] = alone32[f"{name} ({part} products)"]
     log("  yardstick, the products alone through torch.matmul in full f32 (TF32 off) at B="
         f"{BATCH}: " + ", ".join(f"{k} {v:.4f} ms" for k, v in alone32.items()))
     results["swin_block_f32"]["library_ms"] = alone32["Swin blocks (18 x qkv, proj, fc1, fc2)"]
     results["patch_merge_f32"]["library_ms"] = alone32["patch merges (3 x (M, 4C) @ (4C, 2C))"]
     for name in ("swin_block", "patch_merge", "clap_frontend", "swin_block_f32",
-                 "patch_merge_f32"):
+                 "patch_merge_f32", *halves):
         r, ops = results[name], bounds[name][2]
         log(f"  {name} at B={BATCH}: {ops / (r['ms'] * 1e-3) / 1e12:.1f} TFLOP/s achieved "
             f"({ops:.4g} operations in {r['ms']:.4f} ms; bound {r['bound_ms']:.4f} ms, the "
             f"products alone {r['library_ms']:.4f} ms)")
 
 
-def products_alone_ms(cfg, b, dtype=torch.bfloat16) -> dict:
-    """The yardstick of #1, #2 and #3, which the port never calls: their
-    products alone, one ``torch.matmul`` each in ``dtype`` (bf16, or f32
-    with TF32 off, as ``main`` sets it, for the f32 kernels) on random
-    operands of the main path's shapes at batch ``b``: per forward, the qkv,
-    proj, fc1 and fc2 products of the 18 Swin blocks, the three patch
-    merges' (M, 4C) x (4C, 2C) products on the quadrant concat, and in bf16
-    the frontend's DFT (every clip's frame rows x the basis), interp and
-    patch products."""
+def products_alone_ms(cfg, b, dtype=torch.bfloat16):
+    """The yardstick of #1, #2 and #3 and of the f32 split halves, which the
+    port never calls: their products alone, one ``torch.matmul`` each in
+    ``dtype`` (bf16, or f32 with TF32 off, as ``main`` sets it, for the f32
+    kernels) on random operands of the main path's shapes at batch ``b``:
+    per forward, the qkv, proj, fc1 and fc2 products of the 18 Swin blocks,
+    the three patch merges' (M, 4C) x (4C, 2C) products on the quadrant
+    concat, and in bf16 the frontend's DFT (every clip's frame rows x the
+    basis), interp and patch products.  Returns those times and, by stage,
+    one block's attention (qkv, proj) and MLP (fc1, fc2) products."""
     from audio_metrics_tpu_torch.ops.frontend_fused import FRAME, HOP, _plan
 
     gen = torch.Generator(device="cuda").manual_seed(8)
@@ -659,20 +765,22 @@ def products_alone_ms(cfg, b, dtype=torch.bfloat16) -> dict:
         return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
     out = {"Swin blocks (18 x qkv, proj, fc1, fc2)": 0.0}
+    per_block = {}
     res = cfg.grid_size
     for stage, depth in enumerate(cfg.depths):
         c, m = cfg.embed_dim * 2**stage, b * res * res
         x, h = randn(m, c), randn(m, 4 * c)
         wqkv, wp, w1, w2 = randn(c, 3 * c), randn(c, c), randn(c, 4 * c), randn(4 * c, c)
-        out["Swin blocks (18 x qkv, proj, fc1, fc2)"] += depth * cuda_ms(
-            lambda: (x @ wqkv, x @ wp, x @ w1, h @ w2))
+        per_block[stage] = {"attn": cuda_ms(lambda: (x @ wqkv, x @ wp)),
+                            "mlp": cuda_ms(lambda: (x @ w1, h @ w2))}
+        out["Swin blocks (18 x qkv, proj, fc1, fc2)"] += depth * sum(per_block[stage].values())
         if stage < len(cfg.depths) - 1:
             key = "patch merges (3 x (M, 4C) @ (4C, 2C))"
             cat, wg = randn(m // 4, 4 * c), randn(4 * c, 2 * c)
             out[key] = out.get(key, 0.0) + cuda_ms(lambda: cat @ wg)
         res //= 2
     if dtype != torch.bfloat16:
-        return out
+        return out, per_block
     n_mels, ps = cfg.num_mel_bins, cfg.patch_size
     pln = _plan(CLIP_S * SR, SR, FRAME, HOP, n_mels, cfg.spec_size, ps)
     rg, mel_pad = pln["ratio"] * pln["gw"], pln["mel_pad"]
@@ -682,7 +790,7 @@ def products_alone_ms(cfg, b, dtype=torch.bfloat16) -> dict:
     out["frontend DFT"] = cuda_ms(lambda: frames @ basis)
     out["frontend interp"] = cuda_ms(lambda: wi @ mel)
     out["frontend patch"] = cuda_ms(lambda: xi @ qcat)
-    return out
+    return out, per_block
 
 
 def phase_prdc_kernels(results):
@@ -811,7 +919,7 @@ def phase_log_mel(cfg, params, results):
                 f"{'ok' if ok else 'FAIL'}")
             if not ok:
                 raise AssertionError(f"{name} {conv} disagrees with its plain version")
-            if name in REDESIGNED:
+            if name in REPEATS:
                 again = {b: (lambda b=b: kfn(audio[b], **kw)) for b in (CHECK_B, BATCH)}
                 check_repeats(f"{name} {conv}", ((CHECK_B, got, again[CHECK_B]),
                                                  (BATCH, again[BATCH](), again[BATCH])))
@@ -1182,7 +1290,7 @@ def phase_opt_in(card: str, results: dict) -> dict:
         h.remove()
     ops = []
     for (i, j, blk), x in zip(blocks, inputs):
-        attn, mlp = v2_weights(params, f"audio_encoder.layers.{i}.blocks.{j}", blk)
+        attn, mlp, _ = v2_weights(params, f"audio_encoder.layers.{i}.blocks.{j}", blk)
         geo = dict(heads=blk.heads, window=blk.window, shift=blk.shift, eps=blk.eps)
         r, c = blk.resolution, x.shape[-1]
         ops.append((i, j, blk, x.view(BATCH, r, r, c), attn, mlp, geo))
@@ -1237,8 +1345,88 @@ def phase_opt_in(card: str, results: dict) -> dict:
                         for shape in ((m, c), (c, 4 * c), (m, 4 * c), (4 * c, c)))
         ms["torch._int_mm, the two products"] = ms.get("torch._int_mm, the two products", 0.0) \
             + cuda_ms(lambda: (torch._int_mm(a, w1), torch._int_mm(h, w2)))
-    results["swin_mlp_int8"]["library_ms"] = ms["torch._int_mm, the two products"]
+    # the f32 int8 kernel runs the same int8 products: the same yardstick
+    for name in ("swin_mlp_int8", "swin_mlp_int8_f32"):
+        results[name]["library_ms"] = ms["torch._int_mm, the two products"]
     log(f"  per forward of {BATCH} clips over the {len(ops)} blocks: " + ", ".join(
+        f"{k} {v:.4f} ms" for k, v in ms.items()) + f" [{card}]")
+    return launches
+
+
+def phase_opt_in_f32(card: str, params: dict, results: dict) -> dict:
+    """The two opt-in ops in f32 (their f32 kernels) on the activations of
+    one f32 forward of BATCH 5 s clips with phase 10's weights (``params``,
+    phase 3's, with seeded projection weights): each Swin block's input
+    captured by a forward pre-hook; then, counts at 0, the f32 v2 attention
+    half with the block's f32 weights (and their ``half_operands``) and the
+    f32 int8 MLP on its output, for all 18 blocks; then each against its
+    plain version in full f32 (phase 3's f32 bounds at the block's stage),
+    the int8 branch against the exact f32 branch, and per-forward times."""
+    from audio_metrics_tpu_torch.models.clap import LaionCLAP, init_projection_params
+    from audio_metrics_tpu_torch.models.htsat import HTSAT_BASE
+    from audio_metrics_tpu_torch.ops.attention import (
+        swin_attention_half_v2,
+        swin_attention_half_v2_plain,
+    )
+    from audio_metrics_tpu_torch.ops.mlp import (
+        mlp_block_int8,
+        mlp_block_int8_plain,
+        mlp_block_plain,
+    )
+
+    cfg = HTSAT_BASE
+    clap = LaionCLAP(params=dict(params, **init_projection_params(cfg, seed=0)), cfg=cfg,
+                     compute_dtype="float32", device="cuda")
+    audio, _ = clips(BATCH, CLIP_S, seed=11)
+    blocks = [(i, j, blk) for i, stage in enumerate(clap.model.encoder.blocks)
+              for j, blk in enumerate(stage)]
+    inputs = []
+    hooks = [blk.register_forward_pre_hook(lambda _m, args: inputs.append(args[0]))
+             for _, _, blk in blocks]
+    clap.embed(audio)
+    for h in hooks:
+        h.remove()
+    ops = []
+    for (i, j, blk), x in zip(blocks, inputs):
+        attn, mlp, a_ops = v2_weights(params, f"audio_encoder.layers.{i}.blocks.{j}", blk,
+                                      torch.float32)
+        geo = dict(heads=blk.heads, window=blk.window, shift=blk.shift, eps=blk.eps)
+        ops.append((i, j, blk, x.view(BATCH, blk.resolution, blk.resolution, -1), attn, mlp,
+                    a_ops, geo))
+
+    set_counts_to_zero()
+    outs = []
+    with torch.no_grad():
+        for i, j, blk, x4, attn, mlp, a_ops, geo in ops:
+            a = swin_attention_half_v2(x4, *attn, **geo, operands=a_ops)
+            outs.append((a, mlp_block_int8(a.view(BATCH, -1, a.shape[-1]), *mlp, eps=blk.eps)))
+    launches = read_counts()
+    check_counts(f"{len(ops)} f32 blocks, the f32 v2 attention half then the f32 int8 MLP",
+                 launches, {name: len(ops) if name in ("swin_attn_v2_f32", "swin_mlp_int8_f32")
+                            else 0 for name in launches})
+
+    ms = {"swin_attn_v2_f32": 0.0, "swin_mlp_int8_f32": 0.0}
+    for (i, j, blk, x4, attn, mlp, a_ops, geo), (a, m) in zip(ops, outs):
+        a3 = a.view(BATCH, -1, a.shape[-1])
+        want_a = swin_attention_half_v2_plain(x4, *attn, **geo)
+        want_m = mlp_block_int8_plain(a3, *mlp, eps=blk.eps)
+        exact = mlp_block_plain(a3, *mlp, eps=blk.eps) - a3
+        line = f"  block {i}.{j} R={blk.resolution} C={a.shape[-1]}:"
+        ok = True
+        for name, got, want, x in (("swin_attn_v2_f32", a, want_a, x4),
+                                   ("swin_mlp_int8_f32", m, want_m, a3)):
+            mx, rel = compare(name, got, want, want - x, results)
+            rel_tol, max_tol = TOL[name][0][i], TOL[name][1]
+            ok &= mx <= max_tol and rel <= rel_tol
+            line += f" {name} max_abs_err {mx:.4g} rel {rel:.4g} (tol {max_tol}, {rel_tol});"
+        fro = (torch.linalg.norm(m - a3 - exact) / torch.linalg.norm(exact)).item()
+        log(f"{line} int8 branch vs the exact f32 branch {fro:.4g} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"an f32 opt-in op disagrees at block {i}.{j}")
+        ms["swin_attn_v2_f32"] += cuda_ms(lambda: swin_attention_half_v2(x4, *attn, **geo,
+                                                                         operands=a_ops))
+        ms["swin_mlp_int8_f32"] += cuda_ms(lambda: mlp_block_int8(a3, *mlp, eps=blk.eps))
+    log(f"  per forward of {BATCH} f32 clips over the {len(ops)} blocks: " + ", ".join(
         f"{k} {v:.4f} ms" for k, v in ms.items()) + f" [{card}]")
     return launches
 
@@ -1264,18 +1452,22 @@ def f32_plain_path(clap):
     return PlainPath()
 
 
-def phase_default_f32(card: str, params: dict):
+def phase_f32(card: str, params: dict, switches: dict, per_forward: dict, against=None):
     """The default configuration on the card: ``AudioMetrics(metrics=["fad",
     "kd", "prdc"])`` with no embedder, which builds the registry default
     ``laion_clap_music`` (HTSAT-base, f32) from its checkpoint, here
     ``params`` (phase 3's weights, with seeded projection weights) written
     as a LAION-named ``.pt`` (``module.`` prefix, fused qkv) under the
     checkpoint URL's file name in a temporary directory that
-    ``AM_TPU_CKPT_DIR`` names around this phase only.  N_CLIPS_F32 +
-    N_CLIPS_F32 5 s clips: launch counts (18 f32 blocks and 3 f32 merges a
-    forward, no bf16 kernel), finite metrics, clips/s first and warm, FAD of
-    the reference against itself, and the reference embeddings against the
-    f32 plain chain on the same weights.  Returns the launches."""
+    ``AM_TPU_CKPT_DIR`` names, with the configuration variables
+    ``switches``, around the model's construction only (the encoder reads
+    them when it is built).
+    N_CLIPS_F32 + N_CLIPS_F32 5 s clips (seed 11): launch counts
+    (``per_forward`` a forward, no other kernel), finite metrics, clips/s
+    first and warm, FAD of the reference against itself, the reference
+    embeddings against the f32 plain chain on the same weights, and, given
+    ``against`` (another configuration's on the same clips), their distance
+    to it, printed.  Returns (launches, reference embeddings)."""
     from audio_metrics_tpu_torch import AudioMetrics
     from audio_metrics_tpu_torch.models.clap import (
         LAION_CLAP_MUSIC_CHECKPOINT_URL,
@@ -1291,7 +1483,7 @@ def phase_default_f32(card: str, params: dict):
     with tempfile.TemporaryDirectory() as ckpt_dir:
         name = LAION_CLAP_MUSIC_CHECKPOINT_URL.rsplit("/", 1)[-1]
         torch.save({"state_dict": laion_state_dict(weights)}, os.path.join(ckpt_dir, name))
-        with environ(AM_TPU_CKPT_DIR=ckpt_dir):
+        with environ(AM_TPU_CKPT_DIR=ckpt_dir, **switches):  # the encoder reads the switches
             am = AudioMetrics(metrics=metrics, batch_size=BATCH, device="cuda")
     clap = am.embedder
     log(f"  embedder {type(clap).__name__} {clap.layer} from {name}, compute dtype "
@@ -1299,6 +1491,12 @@ def phase_default_f32(card: str, params: dict):
     if not isinstance(clap, LaionCLAP) or clap.model.compute_dtype != torch.float32:
         raise AssertionError("the default embedder is not LaionCLAP in f32")
 
+    # a user's process runs one configuration: release what the earlier
+    # phases left in the allocator's cache, and count the allocator's
+    # retries (each a synchronising free of the cache) in the evaluates
+    cached = torch.cuda.memory_reserved() / 2**30
+    torch.cuda.empty_cache()
+    retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
     set_counts_to_zero()
     am.add_reference(reference)
     torch.cuda.synchronize()
@@ -1310,7 +1508,7 @@ def phase_default_f32(card: str, params: dict):
     forwards = 2 * -(-N_CLIPS_F32 // BATCH)
     log(f"  result {result}")
     check_counts(f"add_reference + first evaluate, {forwards} forward batches", launches,
-                 expected(forwards, swin_block_f32=18, patch_merge_f32=3))
+                 expected(forwards, **per_forward))
     if not all(np.isfinite(v) for v in result.values()):
         raise AssertionError("non-finite metric")
     t0 = time.perf_counter()
@@ -1319,7 +1517,9 @@ def phase_default_f32(card: str, params: dict):
     warm = time.perf_counter() - t0
     log(f"  evaluate of {N_CLIPS_F32} 5 s clips in f32: {N_CLIPS_F32 / warm:.2f} clips/s warm "
         f"({warm:.4f} s), {N_CLIPS_F32 / cold:.2f} clips/s first ({cold:.4f} s) "
-        f"[{card}; real_weights: false]")
+        f"[{card}; real_weights: false]; allocator: {cached:.2f} GiB cached by earlier phases "
+        f"released, {torch.cuda.memory_stats().get('num_alloc_retries', 0) - retries} alloc "
+        "retries since")
     self_fad = am.evaluate(reference)["fad"]
     log(f"  FAD of the reference against itself: {self_fad:.3g} (tol |fad| <= 1e-4)")
     if not abs(self_fad) <= 1e-4:
@@ -1344,7 +1544,11 @@ def phase_default_f32(card: str, params: dict):
     for key, v in result.items():
         rel = abs(v - plain[key]) / max(abs(plain[key]), 1e-12)
         log(f"  {key}: kernels {v:.8g} plain {plain[key]:.8g} rel {rel:.3g}")
-    return launches
+    if against is not None:
+        cos = (e_k * against).sum(dim=1).min().item()
+        log(f"  embeddings against phase 10's (whole blocks) on the same clips: 1 - min cosine "
+            f"{1 - cos:.3g}, max abs {(e_k - against).abs().max().item():.4g}")
+    return launches, e_k
 
 
 def main() -> int:
@@ -1398,16 +1602,29 @@ def main() -> int:
 
     log("phase 9 the opt-in ops (v2 attention half, int8 MLP) on a real forward's activations")
     launches_opt_in = phase_opt_in(card, results)
+    launches_opt_in_f32 = phase_opt_in_f32(card, params, results)
     log("phase 10 the default configuration: laion_clap_music by name from AM_TPU_CKPT_DIR, "
         "f32, fad + kd + prdc, 5 s windows")
-    launches_f32 = phase_default_f32(card, params)
+    launches_f32, emb_f32 = phase_f32(card, params, {},
+                                      dict(swin_block_f32=18, patch_merge_f32=3))
+    log('phase 11 the default configuration in f32, split: AM_TPU_V4_STAGES="" (f32 v3 half + '
+        "f32 fused MLP), then AM_TPU_ATTN_V1=1 (f32 v1 half at stages 0-1, XLA at 2-3)")
+    launches_v3_f32, _ = phase_f32(
+        card, params, {"AM_TPU_V4_STAGES": ""},
+        dict(swin_attn_v3_f32=18, swin_mlp_f32=16, patch_merge_f32=3), against=emb_f32)
+    launches_v1_f32, _ = phase_f32(
+        card, params, {"AM_TPU_ATTN_V1": "1"},
+        dict(swin_attn_v1_f32=4, swin_mlp_f32=16, patch_merge_f32=3), against=emb_f32)
 
     # launches: each kernel's count on the path that runs it
     path_of = {"log_mel": launches_10s, "swin_attn_v3": launches_split,
                "swin_mlp": launches_split, "swin_attn_v1": launches_v1,
                "log_mel_v1": launches_mel_v1, "swin_attn_v2": launches_opt_in,
                "swin_mlp_int8": launches_opt_in, "swin_block_f32": launches_f32,
-               "patch_merge_f32": launches_f32}
+               "patch_merge_f32": launches_f32, "swin_attn_v3_f32": launches_v3_f32,
+               "swin_mlp_f32": launches_v3_f32, "swin_attn_v1_f32": launches_v1_f32,
+               "swin_attn_v2_f32": launches_opt_in_f32,
+               "swin_mlp_int8_f32": launches_opt_in_f32}
     line = {"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,
          "launches": path_of.get(k.name, launches)[k.name],

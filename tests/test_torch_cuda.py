@@ -26,7 +26,12 @@ relative of its radius (``testing.stats_mismatches``).  The log-mel
 kernels, the split block's kernels (v3 and v1 attention halves, the fused
 MLP) and the two opt-in ops (the v2 attention half, the int8 MLP): the
 bounds of ``chip_smoke.py``.  The v2 half on v1's operands laid side by
-side runs v1's launches: equal outputs.
+side runs v1's launches: equal outputs.  Their f32 kernels (the f32
+block's launches, products as three TF32 products) against their f32
+plain versions in full f32 under the f32 block's bounds at each stage, at
+B = 4 and a ragged B = 3, with bitwise repeats; the v3 half then the MLP
+equal the whole f32 block bitwise (the same launches).  The int8 MLP in
+f32: the bf16 int8 kernel's bounds.
 """
 
 import numpy as np
@@ -45,6 +50,7 @@ from audio_metrics_tpu_torch.models.htsat import (
     init_params,
 )
 from audio_metrics_tpu_torch.ops.attention import (
+    half_operands,
     swin_attention_half_v1,
     swin_attention_half_v1_plain,
     swin_attention_half_v2,
@@ -495,11 +501,11 @@ def test_pairwise_stats_split_kernel(cuda, n, m):
     torch.testing.assert_close(got[3], want[3], rtol=1e-5, atol=1e-6)
 
 
-def _half_block(params, cuda, stage, shift, attention):
+def _half_block(params, cuda, stage, shift, attention, dtype=torch.bfloat16):
     res = cfg.grid_size // 2**stage
     return SwinBlock(
         params, f"audio_encoder.layers.{stage}.blocks.{1 if shift else 0}", cfg, res, shift,
-        cfg.num_heads[stage], torch.bfloat16, attention=attention,
+        cfg.num_heads[stage], dtype, attention=attention,
     ).to(cuda), res
 
 
@@ -595,32 +601,46 @@ def test_new_kernels_raise_on_other_dtypes(cuda):
 
 
 def test_split_kernels_raise_on_f32_and_cpu(cuda, params):
-    """A CUDA tensor of another dtype raises; a CPU operand beside a CUDA
-    one raises; nothing falls back to a plain version."""
-    b, res = _half_block(params, cuda, 1, 4, "v3")
+    """f32 launches each half's f32 kernel (one launch, f32 out) on the
+    operands made at load, and raises without them; f16 raises; a CPU
+    operand beside a CUDA one raises; nothing falls back to a plain
+    version."""
+    b, res = _half_block(params, cuda, 1, 4, "v3", torch.float32)
+    v1, _ = _half_block(params, cuda, 1, 4, "v1", torch.float32)
     x = torch.zeros((1, res, res, b.bp.shape[0]), device=cuda)
     geo = dict(heads=b.heads, window=b.window, shift=b.shift, eps=b.eps)
-    with pytest.raises(NotImplementedError):
-        swin_attention_half_v3(x, b.wqkv, b.bq3, b.wp, b.bp, b.bm, **geo)
+    attn = (b.wqkv, b.bq3, b.wp, b.bp, b.bm)
+    mlp = (b.ln2_w, b.ln2_b, b.w1, b.b1, b.w2, b.b2)
+    a1 = (v1.ln1_w, v1.ln1_b, v1.wq, v1.bq, v1.wk, v1.wv, v1.wp, v1.bp, v1.bm)
+    calls = {
+        "swin_attn_v3_f32": lambda t, **o: swin_attention_half_v3(t, *attn, **geo, **o),
+        "swin_mlp_f32": lambda t, **o: mlp_block(t.view(1, res * res, -1), *mlp, eps=b.eps, **o),
+        "swin_attn_v1_f32": lambda t, **o: swin_attention_half_v1(t, *a1, **geo, **o),
+    }
+    for name, call in calls.items():
+        ops = (v1 if name == "swin_attn_v1_f32" else b).kernel_operands()
+        before = KERNELS[name].launches
+        out = call(x, operands=ops)
+        torch.cuda.synchronize()
+        assert KERNELS[name].launches == before + 1 and out.dtype == torch.float32, name
+        with pytest.raises(ValueError):  # the operands made at load are missing
+            call(x)
+        with pytest.raises(NotImplementedError):
+            call(x.half(), operands=ops)
     with pytest.raises(ValueError):
-        swin_attention_half_v3(x.bfloat16(), b.wqkv.cpu(), b.bq3, b.wp, b.bp, b.bm, **geo)
-    with pytest.raises(NotImplementedError):
-        mlp_block(x, b.ln2_w, b.ln2_b, b.w1, b.b1, b.w2, b.b2, eps=b.eps)
-    v1, _ = _half_block(params, cuda, 1, 4, "v1")
-    with pytest.raises(NotImplementedError):
-        swin_attention_half_v1(x, v1.ln1_w, v1.ln1_b, v1.wq, v1.bq, v1.wk, v1.wv, v1.wp, v1.bp,
-                               v1.bm, **geo)
+        swin_attention_half_v3(x.bfloat16(), b.wqkv.bfloat16().cpu(), b.bq3, b.wp.bfloat16(),
+                               b.bp, b.bm, **geo)
 
 
-def _v2_block(params, cuda, stage, shift):
-    """Block weights of ``stage`` in v2's layout (bf16 matrices) and the
-    f32 MLP weights the int8 op takes."""
+def _v2_block(params, cuda, stage, shift, dtype=torch.bfloat16):
+    """Block weights of ``stage`` in v2's layout (matrices in ``dtype``) and
+    the f32 MLP weights the int8 op takes."""
     res = cfg.grid_size // 2**stage
     window = min(cfg.window_size, res)
     shift = 0 if res <= window else shift
     prefix = f"audio_encoder.layers.{stage}.blocks.{1 if shift else 0}"
     w = _v2_kernel_weights(params, prefix, res, shift, cfg.num_heads[stage], window)
-    v2 = _Folded(w, torch.bfloat16).to(cuda)
+    v2 = _Folded(w, dtype).to(cuda)
     attn = (v2.ln1_w, v2.ln1_b, v2.wqkv, v2.bq3, v2.wp, v2.bp, v2.bm)
     mlp = _Folded(_mlp_weights(params, prefix), torch.float32).to(cuda)
     geo = dict(heads=cfg.num_heads[stage], window=window, shift=shift, eps=cfg.layer_norm_eps)
@@ -683,19 +703,132 @@ def test_mlp_int8_kernel_rounds_halves_to_even(cuda, params):
 
 
 def test_opt_in_kernels_raise_on_f32_and_cpu(cuda, params):
-    """f32 activations on the card raise; a CPU operand beside CUDA ones
-    raises; bf16 MLP weights raise (the op takes f32 weights)."""
+    """f32 activations launch the f32 kernels (one launch each, f32 out; the
+    v2 half on its ``half_operands``, raising without them); f16 raises; a
+    CPU operand beside CUDA ones raises; bf16 MLP weights raise (the op
+    takes f32 weights)."""
     attn, mlp, geo, res = _v2_block(params, cuda, 1, 4)
+    a32 = _v2_block(params, cuda, 1, 4, torch.float32)[0]
+    ops = half_operands(a32[2], a32[4])
     x = torch.zeros((1, res, res, attn[-2].shape[0]), device=cuda)
+    before = KERNELS["swin_attn_v2_f32"].launches, KERNELS["swin_mlp_int8_f32"].launches
+    a = swin_attention_half_v2(x, *a32, **geo, operands=ops)
+    m = mlp_block_int8(x.view(1, res * res, -1), *mlp, eps=geo["eps"])
+    torch.cuda.synchronize()
+    assert (KERNELS["swin_attn_v2_f32"].launches, KERNELS["swin_mlp_int8_f32"].launches) == (
+        before[0] + 1, before[1] + 1)
+    assert a.dtype == m.dtype == torch.float32
+    with pytest.raises(ValueError):
+        swin_attention_half_v2(x, *a32, **geo)
     with pytest.raises(NotImplementedError):
-        swin_attention_half_v2(x, *attn, **geo)
+        swin_attention_half_v2(x.half(), *a32, **geo, operands=ops)
+    with pytest.raises(NotImplementedError):
+        mlp_block_int8(x.view(1, res * res, -1).half(), *mlp, eps=geo["eps"])
     with pytest.raises(ValueError):
         swin_attention_half_v2(x.bfloat16(), attn[0].cpu(), *attn[1:], **geo)
-    with pytest.raises(NotImplementedError):
-        mlp_block_int8(x.view(1, res * res, -1), *mlp, eps=geo["eps"])
     with pytest.raises(ValueError):
         mlp_block_int8(x.view(1, res * res, -1).bfloat16(), mlp[0].cpu(), *mlp[1:],
                        eps=geo["eps"])
     with pytest.raises(NotImplementedError):
         mlp_block_int8(x.view(1, res * res, -1).bfloat16(), *mlp[:2], mlp[2].bfloat16(),
                        *mlp[3:], eps=geo["eps"])
+
+
+# ----------------------------------------------------------------------
+# the f32 kernels of the split block and the opt-in ops
+# ----------------------------------------------------------------------
+F32_STAGE_SHIFTS = [(0, 0), (0, 4), (1, 0), (1, 4), (2, 0), (2, 4), (3, 0)]
+
+
+def _f32_check(name, call, plain, x, stage, tol=SWIN_F32_TOL):
+    """``call()`` launches ``name`` once a call, repeats bitwise, and lies
+    within ``tol`` at ``stage`` of ``plain()`` in full f32."""
+    before = KERNELS[name].launches
+    got, again = call(), call()
+    torch.cuda.synchronize()
+    assert KERNELS[name].launches == before + 2
+    assert got.dtype == torch.float32 and torch.equal(got, again)
+    with full_f32():
+        want = plain()
+    _close(got, want, want - x, tol[0][stage], tol[1])
+    return got
+
+
+@pytest.mark.parametrize("b", [4, 3])
+@pytest.mark.parametrize("stage,shift", F32_STAGE_SHIFTS)
+def test_attention_v3_f32_kernel_matches_plain(cuda, params, stage, shift, b):
+    """#8 in f32; then the f32 MLP on its output equals the whole f32
+    block bitwise (the same seven launches on the same values)."""
+    blk, res = _half_block(params, cuda, stage, shift, "v3", torch.float32)
+    x = _x(cuda, 160 + stage + shift + b, (b, res, res, blk.bp.shape[0])).float()
+    geo = dict(heads=blk.heads, window=blk.window, shift=blk.shift, eps=blk.eps)
+    attn = (blk.wqkv, blk.bq3, blk.wp, blk.bp, blk.bm)
+    ops = blk.kernel_operands()
+    half = _f32_check("swin_attn_v3_f32",
+                      lambda: swin_attention_half_v3(x, *attn, **geo, operands=ops),
+                      lambda: swin_attention_half_v3_plain(x, *attn, **geo), x, stage)
+    mlp = (blk.ln2_w, blk.ln2_b, blk.w1, blk.b1, blk.w2, blk.b2)
+    split = mlp_block(half.view(b, res * res, -1), *mlp, eps=blk.eps, operands=ops)
+    whole = swin_block(x, *attn, *mlp, **geo, operands=ops)
+    torch.cuda.synchronize()
+    assert torch.equal(split.view(whole.shape), whole)
+
+
+@pytest.mark.parametrize("b", [4, 3])
+@pytest.mark.parametrize("stage", [0, 1, 2, 3])
+def test_mlp_f32_kernel_matches_plain(cuda, params, stage, b):
+    blk, res = _half_block(params, cuda, stage, 0, "v3", torch.float32)
+    x = _x(cuda, 170 + stage + b, (b, res * res, blk.bp.shape[0])).float()
+    mlp = (blk.ln2_w, blk.ln2_b, blk.w1, blk.b1, blk.w2, blk.b2)
+    ops = blk.kernel_operands()
+    _f32_check("swin_mlp_f32", lambda: mlp_block(x, *mlp, eps=blk.eps, operands=ops),
+               lambda: mlp_block_plain(x, *mlp, eps=blk.eps), x, stage)
+
+
+@pytest.mark.parametrize("b", [4, 3])
+@pytest.mark.parametrize("stage,shift", [(0, 0), (0, 4), (1, 0), (1, 4)])
+def test_attention_v1_f32_kernel_matches_plain(cuda, params, stage, shift, b):
+    """#10 in f32 at the stages the path runs it; #11 in f32 on v1's
+    operands laid side by side runs its launches: equal outputs."""
+    blk, res = _half_block(params, cuda, stage, shift, "v1", torch.float32)
+    x = _x(cuda, 180 + stage + shift + b, (b, res, res, blk.bp.shape[0])).float()
+    geo = dict(heads=blk.heads, window=blk.window, shift=blk.shift, eps=blk.eps)
+    a1 = (blk.ln1_w, blk.ln1_b, blk.wq, blk.bq, blk.wk, blk.wv, blk.wp, blk.bp, blk.bm)
+    ops = blk.kernel_operands()
+    got = _f32_check("swin_attn_v1_f32",
+                     lambda: swin_attention_half_v1(x, *a1, **geo, operands=ops),
+                     lambda: swin_attention_half_v1_plain(x, *a1, **geo), x, stage)
+    a2 = _v2_block(params, cuda, stage, shift, torch.float32)[0]
+    v2 = swin_attention_half_v2(x, *a2, **geo, operands=half_operands(a2[2], a2[4]))
+    torch.cuda.synchronize()
+    assert torch.equal(v2, got)
+
+
+@pytest.mark.parametrize("b", [4, 3])
+@pytest.mark.parametrize("stage,shift", F32_STAGE_SHIFTS)
+def test_attention_v2_f32_kernel_matches_plain(cuda, params, stage, shift, b):
+    attn, _, geo, res = _v2_block(params, cuda, stage, shift, torch.float32)
+    x = _x(cuda, 190 + stage + shift + b, (b, res, res, attn[-2].shape[0])).float()
+    ops = half_operands(attn[2], attn[4])
+    _f32_check("swin_attn_v2_f32", lambda: swin_attention_half_v2(x, *attn, **geo, operands=ops),
+               lambda: swin_attention_half_v2_plain(x, *attn, **geo), x, stage)
+
+
+@pytest.mark.parametrize("stage", [0, 1, 2, 3])
+def test_mlp_int8_f32_kernel_matches_plain(cuda, params, stage):
+    """#12 in f32 at 2 images, under the bf16 int8 kernel's bounds; then
+    with every LN output a code and a half (the rounding rule)."""
+    _, mlp, _, res = _v2_block(params, cuda, stage, 0)
+    x = _x(cuda, 200 + stage, (2, res * res, mlp[-1].shape[0])).float()
+    _f32_check("swin_mlp_int8_f32", lambda: mlp_block_int8(x, *mlp, eps=cfg.layer_norm_eps),
+               lambda: mlp_block_int8_plain(x, *mlp, eps=cfg.layer_norm_eps), x, stage,
+               MLP_INT8_TOL)
+    if stage == 0:
+        c = x.shape[-1]
+        k = torch.arange(1, c, device=cuda)
+        ln_b = torch.cat([torch.tensor([127.0], device=cuda),
+                          ((k % 20) + 0.5) * (1 - 2 * (k % 2))])
+        args = (torch.zeros_like(mlp[0]), ln_b.float(), *mlp[2:])
+        got = mlp_block_int8(x, *args, eps=cfg.layer_norm_eps)
+        want = mlp_block_int8_plain(x, *args, eps=cfg.layer_norm_eps)
+        _close(got, want, want - x, MLP_INT8_TOL[0][0], MLP_INT8_TOL[1])

@@ -23,6 +23,7 @@ absent when the sources change.
 """
 
 import contextlib
+import ctypes
 import inspect
 
 import numpy as np
@@ -162,8 +163,8 @@ def test_frontend_plain_version_calls_no_kernel_wrapper(monkeypatch):
 
 
 # ----------------------------------------------------------------------
-# f32 on the card: the f32 kernels of the whole block and the merge, no
-# cast, no plain version; the split halves raise
+# f32 on the card: the f32 kernels of the whole block, the merge, the split
+# halves and the opt-in ops; no cast, no plain version; f16 raises
 # ----------------------------------------------------------------------
 class _OnCard(torch.Tensor):
     """A CPU tensor that reports itself on card 0."""
@@ -181,16 +182,27 @@ def _card(t):
     return torch.Tensor._make_subclass(_OnCard, t)
 
 
+class _Calls(list):
+    """The C entry points called, in order; ``args[name]``: the pointer
+    values passed to the last call of ``name``."""
+
+    def __init__(self):
+        super().__init__()
+        self.args = {}
+
+
 @pytest.fixture
 def symbols(cards, monkeypatch):
     """The card stood in for as in ``cards``: the library records the C
-    entry points called, and scratch is allocated on the CPU."""
-    called = []
+    entry points called and their pointer arguments, and scratch is
+    allocated on the CPU."""
+    called = _Calls()
 
     class Lib:
         def __getattr__(self, name):
             def entry(*cargs):
                 called.append(name)
+                called.args[name] = [a.value for a in cargs if isinstance(a, ctypes.c_void_p)]
                 return 0
             return entry
 
@@ -247,19 +259,77 @@ def test_card_dtype_reaches_its_kernel(symbols, dtype, want):
     assert all(after[k] == before[k] + 1 for k in names)
 
 
+def _counted(fn):
+    """``fn()`` and the kernels whose launch count it moved, by how much."""
+    from audio_metrics_tpu_torch.kernels import KERNELS
+
+    before = {k: v.launches for k, v in KERNELS.items()}
+    out = fn()
+    return out, {k: v.launches - before[k] for k, v in KERNELS.items()
+                 if v.launches != before[k]}
+
+
 @pytest.mark.parametrize("attention", ["v3", "v1"])
-def test_card_f32_split_halves_raise(symbols, attention):
-    """f32 on the v3 or v1 attention half or the fused MLP raises with the
-    ROADMAP item: their f32 kernels are not ported, and nothing falls back."""
-    from audio_metrics_tpu_torch.ops.mlp import mlp_block
+def test_card_f32_split_block_reaches_its_f32_kernels(symbols, attention):
+    """An f32 v3 or v1 block on the card launches the f32 attention half,
+    then the f32 fused MLP (stage 1 at 2 images: 2048 rows of 1024 tokens),
+    each once and no bf16 kernel, reading the (2, N, K) stacks split at
+    load, and returns f32 (no cast)."""
+    from audio_metrics_tpu_torch.ops.tf32 import tf32_split
 
     block, _, x = _small_stage1(torch.float32, attention)
-    with pytest.raises(NotImplementedError, match="Queue 2 B"):
-        block(x)
-    mlp = (block.ln2_w, block.ln2_b, block.w1, block.b1, block.w2, block.b2)
-    with pytest.raises(NotImplementedError, match="Queue 2 B"):
-        mlp_block(x, *mlp, eps=block.eps)
-    assert symbols == []
+    ops = block.kernel_operands()
+    c = x.shape[-1]
+    assert ops["wqkv_t"].shape == (2, 3 * c, c) and ops["wp_t"].shape == (2, c, c)
+    assert ops["w1_t"].shape == (2, 4 * c, c) and ops["w2_t"].shape == (2, c, 4 * c)
+    assert torch.equal(ops["w1_t"], tf32_split(block.w1.t()))
+    y, moved = _counted(lambda: block(x))
+    attn = f"am_swin_attn_{attention}_f32"
+    assert symbols == [attn, "am_swin_mlp_f32"]
+    assert moved == {f"swin_attn_{attention}_f32": 1, "swin_mlp_f32": 1}
+    for name in ("wqkv_t", "wp_t"):
+        assert ops[name].data_ptr() in symbols.args[attn]
+    for name in ("w1_t", "w2_t"):
+        assert ops[name].data_ptr() in symbols.args["am_swin_mlp_f32"]
+    assert y.dtype == torch.float32 and y.shape == x.shape
+    with pytest.raises(NotImplementedError):  # f16 has no kernel
+        block(x.half())
+    assert symbols == [attn, "am_swin_mlp_f32"]
+
+
+@pytest.mark.parametrize("op", ["v2", "int8"])
+def test_card_f32_opt_in_op_reaches_its_f32_kernel(symbols, op):
+    """In f32 the v2 attention half launches ``am_swin_attn_v2_f32`` on the
+    (2, N, K) stacks of ``half_operands`` (and raises without them), the
+    int8 MLP ``am_swin_mlp_int8_f32``; one launch each, f32 out."""
+    from audio_metrics_tpu_torch.models.htsat import (
+        HTSATConfig, _Folded, _mlp_weights, _v2_kernel_weights, init_params,
+    )
+    from audio_metrics_tpu_torch.ops.attention import half_operands, swin_attention_half_v2
+    from audio_metrics_tpu_torch.ops.mlp import mlp_block_int8
+
+    cfg = HTSATConfig(embed_dim=32, depths=(2, 2, 2, 2), num_heads=(1, 2, 4, 8))
+    p = init_params(cfg, seed=0)
+    pre = "audio_encoder.layers.1.blocks.1"
+    if op == "v2":
+        w = _on_card(_Folded(_v2_kernel_weights(p, pre, 32, 4, 2, 8), torch.float32))
+        args = (w.ln1_w, w.ln1_b, w.wqkv, w.bq3, w.wp, w.bp, w.bm)
+        geo = dict(heads=2, window=8, shift=4, eps=1e-5)
+        x = _card(torch.zeros((2, 32, 32, 64)))
+        with pytest.raises(ValueError, match="half_operands"):
+            swin_attention_half_v2(x, *args, **geo)
+        ops = {k: _card(v) for k, v in half_operands(w.wqkv, w.wp).items()}
+        y, moved = _counted(lambda: swin_attention_half_v2(x, *args, **geo, operands=ops))
+        want = "am_swin_attn_v2_f32"
+        assert ops["wqkv_t"].data_ptr() in symbols.args[want]
+    else:
+        m = _on_card(_Folded(_mlp_weights(p, pre), torch.float32))
+        x = _card(torch.zeros((2, 32 * 32, 64)))
+        y, moved = _counted(lambda: mlp_block_int8(x, m.ln2_w, m.ln2_b, m.w1, m.b1, m.w2, m.b2))
+        want = "am_swin_mlp_int8_f32"
+    assert symbols == [want]
+    assert moved == {want[3:]: 1}
+    assert y.dtype == torch.float32 and y.shape == x.shape
 
 
 def test_card_f16_raises(symbols):

@@ -318,6 +318,40 @@ def test_forward_reaches_the_chosen_plain_functions(monkeypatch, env, want):
     assert calls == want
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_xla_halves_hold_full_f32_in_f32(monkeypatch, dtype):
+    """Under ``AM_TPU_ATTN_V1`` stages 2 and 3 take the XLA attention half
+    and, at one image, the XLA MLP: in f32 each runs inside
+    ``utils.precision.full_f32`` (TF32 off, whatever the caller set), as the
+    f32 mel chain does; in bf16 neither enters it."""
+    import contextlib
+
+    depth, seen = [], []
+
+    @contextlib.contextmanager
+    def recording():
+        depth.append(1)
+        try:
+            yield
+        finally:
+            depth.pop()
+
+    monkeypatch.setattr(htsat_mod, "full_f32", recording)
+    for name in ("window_attention_xla", "mlp_xla"):
+        orig = getattr(htsat_mod, name)
+        monkeypatch.setattr(htsat_mod, name, lambda *a, _o=orig, _n=name, **k: (
+            seen.append((_n, bool(depth))), _o(*a, **k))[1])
+    monkeypatch.delenv("AM_TPU_V4_STAGES", raising=False)
+    monkeypatch.setenv("AM_TPU_ATTN_V1", "1")
+    small = HTSATConfig(**SMALL)
+    enc = HTSATEncoder(init_params(small, seed=0), small, dtype)
+    x = torch.from_numpy(np.random.default_rng(1).normal(size=(1, 4096, 32)).astype(np.float32))
+    out = enc(x.to(dtype))
+    assert torch.isfinite(out).all()
+    inside = dtype == torch.float32
+    assert seen == [("window_attention_xla", inside), ("mlp_xla", inside)] * 4
+
+
 def test_mlp_row_rule_at_two_batch_sizes(monkeypatch):
     """A stage-2 block (256 tokens) takes the XLA MLP at one image and the
     fused MLP at 64 images (16384 rows); stage 0 (4096 tokens) always the

@@ -1,6 +1,8 @@
-"""The 3xTF32 products of the f32 Swin block and patch merge, on the CPU.
+"""The 3xTF32 products of the f32 Swin block, its halves and the patch
+merge, on the CPU.
 
-On the card the f32 whole block's four products and the f32 merge's
+On the card the f32 whole block's four products, its halves' (the v3, v1
+and v2 attention halves, the fused MLP) and the f32 merge's
 product run on the tensor cores as three TF32 products
 (kernels/csrc/gemm_tf32x3_sm90.cuh): each operand split into TF32 hi and lo
 parts (``ops.tf32``), A_lo @ B_hi + A_hi @ B_lo + A_hi @ B_hi.  Here:
@@ -8,12 +10,15 @@ parts (``ops.tf32``), A_lo @ B_hi + A_hi @ B_lo + A_hi @ B_hi.  Here:
 - the split against a numpy reference that rounds by arithmetic, not by
   bits;
 - the weights the kernels read, split once at load;
-- the f32 plain block and merge with their products replaced by the
-  emulated 3xTF32 product (``testing.tf32x3_matmul``) against the JAX
-  package's f32 kernels (``swin_block_pallas_v4``, exact-erf GELU, and
+- the f32 plain block, halves and merge with their products replaced by
+  the emulated 3xTF32 product (``testing.tf32x3_matmul``) against the JAX
+  package's f32 kernels (``swin_block_pallas_v4`` and ``mlp_block_pallas``
+  with exact-erf GELU, ``swin_attention_block_pallas_v3`` (the LN1 affine
+  folded), ``swin_attention_block_pallas`` (v1), ``_v2`` and
   ``patch_merge_pallas``, in interpret mode), within ``chip_smoke.py``'s
-  f32 bounds at every stage; with one TF32 product (hi @ hi) the same
-  comparison reads at least 10x above them, so the check can fail;
+  f32 bounds at every stage each runs (the halves take the whole block's
+  bounds, relative to what each adds); with one TF32 product (hi @ hi) the
+  same comparison reads at least 10x above them, so the check can fail;
 - the shapes the f32 kernels take (the f32 merge's A through the shared
   4-D tensor map, at K steps of 32, is held in tests/test_torch_merge.py);
 - the f32 mel chain's tables, uploaded once per device.
@@ -29,12 +34,31 @@ import torch
 
 import jax.numpy as jnp
 
-from audio_metrics_tpu.ops.attention import swin_block_pallas_v4
+from audio_metrics_tpu.ops.attention import (
+    swin_attention_block_pallas,
+    swin_attention_block_pallas_v2,
+    swin_attention_block_pallas_v3,
+    swin_block_pallas_v4,
+)
 from audio_metrics_tpu.ops.merge import patch_merge_pallas
+from audio_metrics_tpu.ops.mlp import mlp_block_pallas
 from audio_metrics_tpu_torch.models.clap import clap_mel_tiled
-from audio_metrics_tpu_torch.models.htsat import HTSATConfig, PatchMerge, SwinBlock, init_params
-from audio_metrics_tpu_torch.ops import attention, merge, mel
-from audio_metrics_tpu_torch.ops.attention import check_block_f32
+from audio_metrics_tpu_torch.models.htsat import (
+    HTSATConfig,
+    PatchMerge,
+    SwinBlock,
+    _Folded,
+    _v2_kernel_weights,
+    init_params,
+)
+from audio_metrics_tpu_torch.ops import attention, merge, mel, mlp
+from audio_metrics_tpu_torch.ops.attention import (
+    check_block_f32,
+    swin_attention_half_v1_plain,
+    swin_attention_half_v2_plain,
+    swin_attention_half_v3_plain,
+)
+from audio_metrics_tpu_torch.ops.mlp import mlp_block_plain
 from audio_metrics_tpu_torch.ops.merge import check_merge_f32
 from audio_metrics_tpu_torch.ops.tf32 import tf32_round, tf32_split
 from audio_metrics_tpu_torch.testing import tf32x3_matmul
@@ -109,10 +133,11 @@ def _params():
 PARAMS = _params()
 
 
-def _block(stage, shift):
+def _block(stage, shift, attention="v4"):
     res = cfg.grid_size // 2**stage
     prefix = f"audio_encoder.layers.{stage}.blocks.{1 if shift else 0}"
-    return SwinBlock(PARAMS, prefix, cfg, res, shift, cfg.num_heads[stage], torch.float32), res
+    return SwinBlock(PARAMS, prefix, cfg, res, shift, cfg.num_heads[stage], torch.float32,
+                     attention=attention), res
 
 
 def test_f32_operands_are_the_split_weights():
@@ -133,9 +158,9 @@ def test_f32_operands_are_the_split_weights():
 
 def _products(monkeypatch, terms):
     """The plain versions' weight products (the operands' second factor a
-    matrix: qkv, proj, fc1, fc2 and the merge's) as the kernels' 3xTF32
-    product, or one TF32 product; the window attention's batched products
-    stay f32, as on the card."""
+    matrix: qkv, proj, fc1, fc2, the MLP half's and the merge's) as the
+    kernels' 3xTF32 product, or one TF32 product; the window attention's
+    batched products stay f32, as on the card."""
     f32 = attention._mm
 
     def mm(a, b):
@@ -143,6 +168,25 @@ def _products(monkeypatch, terms):
 
     monkeypatch.setattr(attention, "_mm", mm)
     monkeypatch.setattr(merge, "_mm", lambda a, b: tf32x3_matmul(a, b, terms))
+    monkeypatch.setattr(mlp, "_mm", lambda a, b: tf32x3_matmul(a, b, terms))
+
+
+def _held(got, want, x, stage, terms):
+    """The f32 bounds of ``stage`` on the error relative to what the kernel
+    adds (out - x) with three TF32 products; 10x above them with one."""
+    err = np.abs(np.asarray(got).reshape(want.shape) - want)
+    rel = err.mean() / np.abs(want - x.reshape(want.shape)).mean()
+    if terms == 3:
+        assert rel <= BLOCK_REL[stage] and err.max() <= BLOCK_MAX, (rel, err.max())
+    else:
+        assert rel >= 10 * BLOCK_REL[stage], rel
+
+
+def _x(seed, shape):
+    return np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
+
+
+j = lambda t: jnp.asarray(t.numpy())
 
 
 @pytest.mark.parametrize("terms", [3, 1])
@@ -167,6 +211,77 @@ def test_block_3xtf32_against_the_jax_f32_kernel(monkeypatch, stage, shift, term
         assert rel <= BLOCK_REL[stage] and err.max() <= BLOCK_MAX, (rel, err.max())
     else:
         assert rel >= 10 * BLOCK_REL[stage], rel
+
+
+@pytest.mark.parametrize("terms", [3, 1])
+@pytest.mark.parametrize("stage,shift", STAGE_SHIFTS)
+def test_attention_half_v3_3xtf32_against_the_jax_f32_kernel(monkeypatch, stage, shift, terms):
+    """#8 in f32: the v3 half (the LN1 affine folded into wqkv and bq3)."""
+    block, res = _block(stage, shift, "v3")
+    x = _x(20 + 10 * stage + shift, (1, res, res, block.wqkv.shape[0]))
+    geo = dict(heads=block.heads, window=block.window, shift=block.shift, eps=block.eps)
+    attn = (block.wqkv, block.bq3, block.wp, block.bp, block.bm)
+    want = np.asarray(swin_attention_block_pallas_v3(
+        jnp.asarray(x), None, None, *map(j, attn), block.heads, block.window, block.shift,
+        eps=block.eps, interpret=True,
+    ))
+    _products(monkeypatch, terms)
+    _held(swin_attention_half_v3_plain(torch.from_numpy(x), *attn, **geo).numpy(), want, x,
+          stage, terms)
+
+
+@pytest.mark.parametrize("terms", [3, 1])
+@pytest.mark.parametrize("stage", [0, 1, 2, 3])
+def test_mlp_3xtf32_against_the_jax_f32_kernel(monkeypatch, stage, terms):
+    """#9 in f32: the fused MLP (exact-erf GELU) on one image's rows."""
+    block, res = _block(stage, 0, "v3")
+    c = block.w1.shape[0]
+    x = _x(30 + stage, (1, res * res, c))
+    w = (block.ln2_w, block.ln2_b, block.w1, block.b1, block.w2, block.b2)
+    want = np.asarray(mlp_block_pallas(jnp.asarray(x), *map(j, w), eps=block.eps, gelu="exact",
+                                       interpret=True))
+    _products(monkeypatch, terms)
+    _held(mlp_block_plain(torch.from_numpy(x), *w, eps=block.eps).numpy(), want, x, stage, terms)
+
+
+@pytest.mark.parametrize("terms", [3, 1])
+@pytest.mark.parametrize("stage,shift", [(0, 0), (0, 4), (1, 0), (1, 4)])
+def test_attention_half_v1_3xtf32_against_the_jax_f32_kernel(monkeypatch, stage, shift, terms):
+    """#10 in f32: the v1 half (per-head weights, the LN1 affine in the
+    kernel) at the stages of >= 16 windows, where the path runs it."""
+    block, res = _block(stage, shift, "v1")
+    x = _x(40 + 10 * stage + shift, (1, res, res, block.bp.shape[0]))
+    geo = dict(heads=block.heads, window=block.window, shift=block.shift, eps=block.eps)
+    w = (block.ln1_w, block.ln1_b, block.wq, block.bq, block.wk, block.wv, block.wp, block.bp,
+         block.bm)
+    want = np.asarray(swin_attention_block_pallas(
+        jnp.asarray(x), *map(j, w), block.heads, block.window, block.shift, eps=block.eps,
+        interpret=True,
+    ))
+    _products(monkeypatch, terms)
+    _held(swin_attention_half_v1_plain(torch.from_numpy(x), *w, **geo).numpy(), want, x, stage,
+          terms)
+
+
+@pytest.mark.parametrize("terms", [3, 1])
+@pytest.mark.parametrize("stage,shift", STAGE_SHIFTS)
+def test_attention_half_v2_3xtf32_against_the_jax_f32_kernel(monkeypatch, stage, shift, terms):
+    """#11 in f32: the v2 half ((C, 3C) qkv, (C, C) proj, the LN1 affine in
+    the kernel)."""
+    block, res = _block(stage, shift, "v3")
+    prefix = f"audio_encoder.layers.{stage}.blocks.{1 if shift else 0}"
+    v2 = _Folded(_v2_kernel_weights(PARAMS, prefix, res, block.shift, block.heads,
+                                    block.window), torch.float32)
+    w = (v2.ln1_w, v2.ln1_b, v2.wqkv, v2.bq3, v2.wp, v2.bp, v2.bm)
+    x = _x(50 + 10 * stage + shift, (1, res, res, v2.bp.shape[0]))
+    geo = dict(heads=block.heads, window=block.window, shift=block.shift, eps=block.eps)
+    want = np.asarray(swin_attention_block_pallas_v2(
+        jnp.asarray(x), *map(j, w), block.heads, block.window, block.shift, eps=block.eps,
+        interpret=True,
+    ))
+    _products(monkeypatch, terms)
+    _held(swin_attention_half_v2_plain(torch.from_numpy(x), *w, **geo).numpy(), want, x, stage,
+          terms)
 
 
 @pytest.mark.parametrize("terms", [3, 1])
