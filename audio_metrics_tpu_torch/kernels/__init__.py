@@ -224,12 +224,12 @@ KERNELS = {
         ),
         Kernel(
             "swin_attn_v3",
-            "audio_metrics_tpu_torch/kernels/csrc/swin_halves.cu",
+            "audio_metrics_tpu_torch/kernels/csrc/swin_block.cu",
             "audio_metrics_tpu/ops/attention.py:869",
         ),
         Kernel(
             "swin_mlp",
-            "audio_metrics_tpu_torch/kernels/csrc/swin_halves.cu",
+            "audio_metrics_tpu_torch/kernels/csrc/swin_block.cu",
             "audio_metrics_tpu/ops/mlp.py:147",
         ),
         Kernel(

@@ -47,8 +47,8 @@ enum Epi {
   EPI_INTERP,     // bf16 out[r % rg][(r / rg)*N + n] = acc        (phase rows -> lanes)
   EPI_BIAS_F32,   // f32 out = acc + v0
   EPI_PROJ_BF16,  // bf16 out[map(r)] = acc + v0 + res_bf16[map(r)] (EPI_PROJ, bf16 out)
-  EPI_RESID_BF16, // bf16 out = acc + v0 + res_bf16
   EPI_BIAS_BF16,  // bf16 out = acc + v0
+  EPI_RESID_IN,   // gemm_sm90.cuh only: bf16 out = acc + v0 + res_bf16 (the MLP half's input)
 };
 
 struct GemmParams {
@@ -141,6 +141,7 @@ __device__ __forceinline__ void sq16(const uint4& v, float mu, float& s) {
 
 template <int AM, int EPI>
 __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(const GemmParams p) {
+  static_assert(EPI != EPI_MERGE && EPI != EPI_RESID_IN, "an epilogue of gemm_sm90.cuh only");
   constexpr int AB_BYTES = (BM * LDA_S + BK * LDB_S) * 2;
   constexpr int C_BYTES = BM * LDC_S * 4;
   __shared__ __align__(128) unsigned char smem[AB_BYTES > C_BYTES ? AB_BYTES : C_BYTES];
@@ -260,10 +261,6 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(const GemmParams p) 
           (long long)img * p.R * p.R + window_src(r - img * p.R * p.R, p.R, p.win, p.shift);
       const float x = __bfloat162float(static_cast<const bf16*>(p.res)[dst * p.ldo + n]);
       static_cast<bf16*>(p.out)[dst * p.ldo + n] = __float2bfloat16(a + p.v0[n] + x);
-    } else if (EPI == EPI_RESID_BF16) {
-      const long long o = (long long)r * p.ldo + n;
-      const float v = a + p.v0[n] + __bfloat162float(static_cast<const bf16*>(p.res)[o]);
-      static_cast<bf16*>(p.out)[o] = __float2bfloat16(v);
     } else {  // EPI_BIAS_BF16
       static_cast<bf16*>(p.out)[(long long)r * p.ldo + n] = __float2bfloat16(a + p.v0[n]);
     }

@@ -1,8 +1,9 @@
-// Hopper GEMM core of the whole Swin block (#1, swin_block.cu), the patch
-// merge (#2, patch_merge.cu), the fused frontend (#3, frontend.cu) and the
-// halo log-mel (#6, log_mel.cu, which runs the ring below, produce_tile and
-// consume_tile, under an epilogue of its own): bf16 x bf16 -> f32 accumulate
-// with wgmma, fed by TMA through a ring of shared-memory stages.
+// Hopper GEMM core of the whole Swin block (#1, swin_block.cu) and its two
+// halves (#8 v3 attention, #9 fused MLP, the block's own launches), the
+// patch merge (#2, patch_merge.cu), the fused frontend (#3, frontend.cu) and
+// the halo log-mel (#6, log_mel.cu, which runs the ring below, produce_tile
+// and consume_tile, under an epilogue of its own): bf16 x bf16 -> f32
+// accumulate with wgmma, fed by TMA through a ring of shared-memory stages.
 //
 //   out[z] = epilogue(A[z] (M x K) @ B[z]^T),  B[z] held (N x K)
 //
@@ -286,7 +287,7 @@ __device__ __forceinline__ void epilogue8(const EpiParams& p, int z, int r, int 
 #pragma unroll
     for (int i = 0; i < 8; ++i) v[i] = a[i] * rs + (b[i] - mu * rs * sv[i]);
     store8(static_cast<bf16*>(p.out) + (long long)r * p.ldo + n, v);
-  } else if (EPI == EPI_PROJ) {
+  } else if (EPI == EPI_PROJ || EPI == EPI_PROJ_BF16) {
     const int rr2 = p.R * p.R;
     const int img = r / rr2;
     const long long o =
@@ -295,7 +296,8 @@ __device__ __forceinline__ void epilogue8(const EpiParams& p, int z, int r, int 
     load8(static_cast<const bf16*>(p.res) + o, x);
 #pragma unroll
     for (int i = 0; i < 8; ++i) v[i] = a[i] + b[i] + x[i];
-    store8(static_cast<float*>(p.out) + o, v);
+    if constexpr (EPI == EPI_PROJ) store8(static_cast<float*>(p.out) + o, v);
+    else store8(static_cast<bf16*>(p.out) + o, v);  // the v3 half's output, rounded
   } else if (EPI == EPI_GELU) {
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
@@ -303,10 +305,11 @@ __device__ __forceinline__ void epilogue8(const EpiParams& p, int z, int r, int 
       v[i] = 0.5f * t * (1.f + erff(t * 0.7071067811865476f));
     }
     store8(static_cast<bf16*>(p.out) + (long long)r * p.ldo + n, v);
-  } else if (EPI == EPI_RESID) {
+  } else if (EPI == EPI_RESID || EPI == EPI_RESID_IN) {
     const long long o = (long long)r * p.ldo + n;
     float x[8];
-    load8(static_cast<const float*>(p.res) + o, x);
+    if constexpr (EPI == EPI_RESID) load8(static_cast<const float*>(p.res) + o, x);
+    else load8(static_cast<const bf16*>(p.res) + o, x);  // the MLP half's bf16 input
 #pragma unroll
     for (int i = 0; i < 8; ++i) v[i] = a[i] + b[i] + x[i];
     store8(static_cast<bf16*>(p.out) + o, v);

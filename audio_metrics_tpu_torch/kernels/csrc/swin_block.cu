@@ -46,23 +46,30 @@
 // hi and lo parts at load; the window attention's products stay f32 FMAs
 // (window_attn.cuh's f32 instantiation).  The operations bound it.
 //
-// Its two halves are entries of their own, for the blocks that the JAX
-// package splits (AM_TPU_V4_STAGES, AM_TPU_ATTN_V1) and its public ops:
-//   am_swin_attn_v3_f32  #8, ops/attention.py::_attn_block_call_v3
+// Its two halves are entries of their own in both dtypes, for the blocks
+// that the JAX package splits (AM_TPU_V4_STAGES, AM_TPU_ATTN_V1) and its
+// public ops:
+//   am_swin_attn_v3, am_swin_attn_v3_f32
+//                        #8, ops/attention.py::_attn_block_call_v3
 //                        (pallas_call at :869): launches 1-4 into the
-//                        half's f32 output (the JAX kernel rounds it to the
-//                        activation dtype: in f32 no rounding);
-//   am_swin_mlp_f32      #9, ops/mlp.py::_mlp_call (:147): launches 5-7,
-//                        the residual read from the input;
+//                        half's output, which the JAX kernel rounds to the
+//                        activation dtype (bf16: the proj epilogue writes
+//                        bf16, EPI_PROJ_BF16; f32: no rounding);
+//   am_swin_mlp, am_swin_mlp_f32
+//                        #9, ops/mlp.py::_mlp_call (:147): launches 5-7,
+//                        the residual read from the input (bf16:
+//                        EPI_RESID_IN);
 //   am_swin_attn_v1_f32, am_swin_attn_v2_f32
-//                        #10, #11, ops/attention.py::_attn_block_call (:400)
-//                        and _attn_block_call_v2 (:363): the LN1 affine in
-//                        the kernel, so the window pass writes the LN1
-//                        output itself and the qkv epilogue adds the bias
+//                        #10, #11 in f32, ops/attention.py::_attn_block_call
+//                        (:400) and _attn_block_call_v2 (:363): the LN1
+//                        affine in the kernel, so the window pass writes the
+//                        LN1 output itself and the qkv epilogue adds the bias
 //                        alone (the 3xTF32 core reads A through TMA from
 //                        plain rows: it cannot normalise through the map).
-// The split path's arithmetic is the whole block's, so #8 then #9 equals
-// am_swin_block_f32 bitwise.  The bf16 halves are swin_halves.cu's.
+// The split path's arithmetic is the whole block's, so in f32 #8 then #9
+// equals am_swin_block_f32 bitwise; in bf16 they differ from am_swin_block
+// by the bf16 rounding of the mid-block residual (the whole block keeps it
+// f32).  #10 and #11 in bf16 are swin_halves.cu's.
 #include "gemm_tf32x3_sm90.cuh"
 #include "window_attn.cuh"
 
@@ -127,6 +134,65 @@ __global__ void __launch_bounds__(LN1_WARPS * 32)
     mu[rr] = m;
     rs[rr] = r;
   }
+}
+
+// The bf16 attention half, launches 1-4 of am_swin_block: the LN1
+// statistics pass over x's rows into xw and stats, the qkv product with LN1
+// folded in (EPI_QKV, csum the column sums of wqkv), the window attention,
+// and the proj product scattered back through the un-partition/un-roll map
+// with + bp + x, into out (never x itself: the epilogue reads x while it
+// writes out).  PROJ: EPI_PROJ writes an f32 residual (#1 keeps the
+// mid-block residual in f32), EPI_PROJ_BF16 the half's bf16 output (#8).
+template <int PROJ>
+int attn_half_bf16(const bf16* x, const bf16* wqkv_t, const float* csum, const float* bq3,
+                   const bf16* wp_t, const float* bp, const float* bm, int nbm, int B, int R,
+                   int C, int heads, int win, int shift, float eps, float* stats, bf16* xw,
+                   bf16* qkv, bf16* ctx, void* out, cudaStream_t stream) {
+  using namespace sm90;
+  const int M = B * R * R;
+  int e;
+
+  ln1_window_kernel<bf16><<<(M + LN1_WARPS - 1) / LN1_WARPS, LN1_WARPS * 32, 0, stream>>>(
+      x, M, R, win, shift, C, eps, nullptr, nullptr, xw, stats, stats + M);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+
+  EpiParams p = {};
+  p.M = M; p.N = 3 * C; p.out = qkv; p.ldo = 3 * C;
+  p.v0 = bq3; p.csum = csum; p.mu = stats; p.rs = stats + M;
+  if ((e = gemm<EPI_QKV>(rows_of(xw, M, C, C), rows_of(wqkv_t, 3 * C, C, C), p, 1, stream)))
+    return e;
+
+  if ((e = launch_window_attn(qkv, bm, nbm, M / WIN_N, heads, C, ctx, stream)) != cudaSuccess)
+    return e;
+
+  p = EpiParams{};
+  p.M = M; p.N = C; p.out = out; p.ldo = C;
+  p.R = R; p.win = win; p.shift = shift; p.v0 = bp; p.res = x;
+  return gemm<PROJ>(rows_of(ctx, M, C, C), rows_of(wp_t, C, C, C), p, 1, stream);
+}
+
+// The bf16 MLP half, launches 5-7 of am_swin_block, on (M, C) rows x of
+// ResT, its residual: LN2 into hbuf, fc1 + b1 and exact-erf GELU into h1,
+// fc2 + b2 + x into out (bf16).  ResT f32: #1's mid-block residual
+// (EPI_RESID); bf16: the MLP's input (#9, EPI_RESID_IN).
+template <typename ResT>
+int mlp_half_bf16(const ResT* x, int M, int C, const float* ln2w, const float* ln2b,
+                  const bf16* w1_t, const float* b1, const bf16* w2_t, const float* b2,
+                  float eps, bf16* hbuf, bf16* h1, bf16* out, cudaStream_t stream) {
+  using namespace sm90;
+  constexpr int FC2 = sizeof(ResT) == 4 ? EPI_RESID : EPI_RESID_IN;
+  int e;
+  if ((e = launch_ln_rows(x, M, 1, C, ln2w, ln2b, eps, hbuf, 0, 0, stream)) != cudaSuccess)
+    return e;
+
+  EpiParams p = {};
+  p.M = M; p.N = 4 * C; p.out = h1; p.ldo = 4 * C; p.v0 = b1;
+  if ((e = gemm<EPI_GELU>(rows_of(hbuf, M, C, C), rows_of(w1_t, 4 * C, C, C), p, 1, stream)))
+    return e;
+
+  p = EpiParams{};
+  p.M = M; p.N = C; p.out = out; p.ldo = C; p.v0 = b2; p.res = x;
+  return gemm<FC2>(rows_of(h1, M, 4 * C, 4 * C), rows_of(w2_t, C, 4 * C, 4 * C), p, 1, stream);
 }
 
 // The f32 attention half, launches 1-4 of am_swin_block_f32: the window
@@ -205,41 +271,36 @@ extern "C" int am_swin_block(const bf16* x, const bf16* wqkv_t, const float* csu
                              int C, int heads, int win, int shift, float eps, float* stats,
                              bf16* qkv, bf16* ctx, float* res, bf16* hbuf, bf16* h1, bf16* out,
                              cudaStream_t stream) {
-  using namespace sm90;
-  const int M = B * R * R;
   int e;
-
-  ln1_window_kernel<bf16><<<(M + LN1_WARPS - 1) / LN1_WARPS, LN1_WARPS * 32, 0, stream>>>(
-      x, M, R, win, shift, C, eps, nullptr, nullptr, hbuf, stats, stats + M);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
-
-  EpiParams p = {};
-  p.M = M; p.N = 3 * C; p.out = qkv; p.ldo = 3 * C;
-  p.v0 = bq3; p.csum = csum; p.mu = stats; p.rs = stats + M;
-  if ((e = gemm<EPI_QKV>(rows_of(hbuf, M, C, C), rows_of(wqkv_t, 3 * C, C, C), p, 1, stream)))
+  if ((e = attn_half_bf16<EPI_PROJ>(x, wqkv_t, csum, bq3, wp_t, bp, bm, nbm, B, R, C, heads, win,
+                                    shift, eps, stats, hbuf, qkv, ctx, res, stream)))
     return e;
+  return mlp_half_bf16(res, B * R * R, C, ln2w, ln2b, w1_t, b1, w2_t, b2, eps, hbuf, h1, out,
+                       stream);
+}
 
-  if ((e = launch_window_attn(qkv, bm, nbm, M / WIN_N, heads, C, ctx, stream)) != cudaSuccess)
-    return e;
+// #8, the v3 attention half: am_swin_block's launches 1-4, the output
+// rounded to bf16 (the JAX kernel's res.astype(dt)).  x, out (B, R, R, C)
+// bf16; wqkv_t (3C, C), wp_t (C, C) bf16 and csum, bq3, bp, bm as
+// am_swin_block's.  Scratch: stats (2, B*R*R) f32, xw (B*R*R, C), qkv
+// (B*R*R, 3C), ctx (B*R*R, C) bf16.
+extern "C" int am_swin_attn_v3(const bf16* x, const bf16* wqkv_t, const float* csum,
+                               const float* bq3, const bf16* wp_t, const float* bp,
+                               const float* bm, int nbm, int B, int R, int C, int heads, int win,
+                               int shift, float eps, float* stats, bf16* xw, bf16* qkv, bf16* ctx,
+                               bf16* out, cudaStream_t stream) {
+  return attn_half_bf16<EPI_PROJ_BF16>(x, wqkv_t, csum, bq3, wp_t, bp, bm, nbm, B, R, C, heads,
+                                       win, shift, eps, stats, xw, qkv, ctx, out, stream);
+}
 
-  p = EpiParams{};
-  p.M = M; p.N = C; p.out = res; p.ldo = C;
-  p.R = R; p.win = win; p.shift = shift; p.v0 = bp; p.res = x;
-  if ((e = gemm<EPI_PROJ>(rows_of(ctx, M, C, C), rows_of(wp_t, C, C, C), p, 1, stream)))
-    return e;
-
-  if ((e = launch_ln_rows(res, M, 1, C, ln2w, ln2b, eps, hbuf, 0, 0, stream)) != cudaSuccess)
-    return e;
-
-  p = EpiParams{};
-  p.M = M; p.N = 4 * C; p.out = h1; p.ldo = 4 * C; p.v0 = b1;
-  if ((e = gemm<EPI_GELU>(rows_of(hbuf, M, C, C), rows_of(w1_t, 4 * C, C, C), p, 1, stream)))
-    return e;
-
-  p = EpiParams{};
-  p.M = M; p.N = C; p.out = out; p.ldo = C; p.v0 = b2; p.res = res;
-  return gemm<EPI_RESID>(rows_of(h1, M, 4 * C, 4 * C), rows_of(w2_t, C, 4 * C, 4 * C), p, 1,
-                         stream);
+// #9, the fused MLP: am_swin_block's launches 5-7 on (M, C) bf16 rows x with
+// x as the residual.  ln_w, ln_b (C), b1 (4C), b2 (C) f32; w1_t (4C, C), w2_t
+// (C, 4C) bf16.  Scratch: hbuf (M, C), h1 (M, 4C) bf16.
+extern "C" int am_swin_mlp(const bf16* x, const float* ln_w, const float* ln_b,
+                           const bf16* w1_t, const float* b1, const bf16* w2_t, const float* b2,
+                           int M, int C, float eps, bf16* hbuf, bf16* h1, bf16* out,
+                           cudaStream_t stream) {
+  return mlp_half_bf16(x, M, C, ln_w, ln_b, w1_t, b1, w2_t, b2, eps, hbuf, h1, out, stream);
 }
 
 // The f32 block: x, out (B, R, R, C) f32; weights as am_swin_block's, each

@@ -1,5 +1,6 @@
 // Window attention over 8x8 windows of 32-wide heads, shared by the whole
-// Swin block (swin_block.cu) and its split halves (swin_halves.cu).
+// Swin block and its halves (swin_block.cu) and the bf16 v1/v2 attention
+// halves (swin_halves.cu).
 //
 // One block per (window, head), templated on the element type of qkv and
 // the context.  bf16: q, k, v, the 64x64 f32 scores and the bf16

@@ -416,17 +416,15 @@ class SwinBlock(_Folded):
         self.resolution, self.window, self.shift = resolution, window, shift
         self.heads, self.eps = heads, cfg.layer_norm_eps
         # what the kernels read besides: the whole block's transposed (bf16)
-        # or split (f32) matrices and column sums; in f32 the split halves'
-        # (2, N, K) stacks too, the v3 half's and the MLP's being the whole
-        # block's (bf16 split halves read the weights as held)
-        if attention == "v4" or (attention == "v3" and dtype == torch.float32):
+        # or split (f32) matrices and column sums, which the v3 half and the
+        # MLP read too; else the MLP's, and the f32 v1 half's stacks (the
+        # bf16 v1 half reads its weights as held)
+        if attention in ("v4", "v3"):
             ops = swin_block_operands(self.wqkv, self.wp, self.w1, self.w2)
-        elif dtype == torch.float32:
-            ops = mlp_operands(self.w1, self.w2)  # the fused MLP at a large enough batch
-            if attention == "v1":
-                ops.update(v1_operands(self.wq, self.bq, self.wk, self.wv, self.wp))
         else:
-            ops = {}
+            ops = mlp_operands(self.w1, self.w2)  # the fused MLP at a large enough batch
+            if attention == "v1" and dtype == torch.float32:
+                ops.update(v1_operands(self.wq, self.bq, self.wk, self.wv, self.wp))
         for name, t in ops.items():
             self.register_buffer(name, t)
         self._operand_names = tuple(ops)
@@ -434,10 +432,10 @@ class SwinBlock(_Folded):
     def kernel_operands(self) -> dict:
         """What this block's kernels read besides the plain versions'
         operands, held as buffers since the weights loaded: the whole
-        block's :func:`ops.attention.swin_block_operands` (v4, and f32 v3
-        blocks, whose attention half and MLP read its stacks), f32 v1
-        blocks' :func:`ops.attention.v1_operands` and every f32 block's
-        :func:`ops.mlp.mlp_operands`; empty for a bf16 split block."""
+        block's :func:`ops.attention.swin_block_operands` (v4 and v3 blocks,
+        whose attention half and MLP read it); else the MLP's
+        :func:`ops.mlp.mlp_operands`, with f32 v1 blocks'
+        :func:`ops.attention.v1_operands`."""
         return {k: getattr(self, k) for k in self._operand_names}
 
     def fused_mlp(self, batch: int) -> bool:

@@ -7,7 +7,8 @@ Counterparts in ``audio_metrics_tpu``:
   kernel ``_swin_block_kernel_v4`` :951), kernels/csrc/swin_block.cu;
 - ``swin_attention_half_v3``: ``swin_attention_block_pallas_v3`` (:902-948)
   with ``ln_w=None`` (kernel ``_attn_block_kernel_v3`` :793),
-  kernels/csrc/swin_halves.cu::am_swin_attn_v3;
+  kernels/csrc/swin_block.cu::am_swin_attn_v3 (the whole block's launches
+  1-4);
 - ``swin_attention_half_v1``: ``swin_attention_block_pallas`` (:426-470,
   kernel ``_attn_block_kernel`` :111), kernels/csrc/swin_halves.cu::
   am_swin_attn_v1;
@@ -26,7 +27,7 @@ and 1/sqrt(d) folded in, ``bq3`` (3C,), ``wp`` (C, C), ``bp`` (C,)
 absorbing the value bias, ``bm`` (nW or 1, heads, n, n) bias+mask; v4 adds
 ``w1`` (C, 4C), ``w2`` (4C, C) input-major, and its kernel reads each
 matrix transposed and the column sums of ``wqkv`` (:func:`swin_block_operands`,
-made at load).  v1 takes the per-head layout
+made at load; the v3 half reads the same).  v1 takes the per-head layout
 of ``models/htsat.py:320-345``: ``wq``/``wk``/``wv`` (heads, C, d) with wq
 pre-scaled, ``bq`` (heads, d) pre-scaled, ``wp`` (heads, d, C), ``bp`` and
 ``bm`` as v3, the LN1 affine unfolded.  v2 takes v1's weights side by side
@@ -45,8 +46,9 @@ swin_block.cu, each with its own launch count, ``KERNELS["swin_block_f32"]``
 etc.; their products run as three TF32 products on the tensor cores and
 read the weights as (2, N, K) stacks made once at load: the block and the
 v3 half :func:`swin_block_operands`, the v1 half :func:`v1_operands`, the
-v2 half :func:`half_operands`, passed as ``operands=``).  Any other dtype
-raises.
+v2 half :func:`half_operands`, passed as ``operands=``).  The bf16 block
+and v3 half read :func:`swin_block_operands` too (the matrices
+transposed).  Any other dtype raises.
 """
 
 from __future__ import annotations
@@ -56,8 +58,8 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import KERNELS, check_sm90_gemm, check_tf32x3_gemm, require_cuda
-from .mlp import layer_norm
-from .tf32 import split_operand, tf32_split
+from .mlp import layer_norm, mlp_operands
+from .tf32 import k_major, k_major_operand, tf32_split
 
 __all__ = [
     "check_block_f32",
@@ -182,9 +184,7 @@ def swin_block_operands(wqkv, wp, w1, w2) -> dict:
     3xTF32 core (kernels/csrc/gemm_tf32x3_sm90.cuh) reads; and ``csum``, the
     f32 column sums of ``wqkv`` as held (1 @ W of the LN1 fold, what
     :func:`_qkv_ln_folded` sums)."""
-    f32 = wqkv.dtype == torch.float32
-    t = lambda w: tf32_split(w.t()) if f32 else w.t().contiguous()
-    return dict(wqkv_t=t(wqkv), wp_t=t(wp), w1_t=t(w1), w2_t=t(w2),
+    return dict(wqkv_t=k_major(wqkv), wp_t=k_major(wp), **mlp_operands(w1, w2),
                 csum=wqkv.float().sum(dim=0))
 
 
@@ -218,17 +218,20 @@ def check_block_f32(c: int) -> None:
 _BLOCK_OPERANDS = "swin_block_operands(wqkv, wp, w1, w2)"
 
 
-def _split_stacks(kernel: str, o, c: int, names, made_by: str) -> list:
-    """The (2, N, K) stacks ``names`` of ``o`` (:func:`ops.tf32.split_operand`)."""
+def _block_matrices(kernel: str, o, c: int, names, made_by: str, dtype) -> list:
+    """The matrices ``names`` of ``o`` in the :func:`ops.tf32.k_major` form of
+    ``dtype``, each checked by :func:`ops.tf32.k_major_operand`."""
     nk = dict(wqkv_t=(3 * c, c), wp_t=(c, c), w1_t=(4 * c, c), w2_t=(c, 4 * c))
-    return [split_operand(kernel, o, name, *nk[name], made_by) for name in names]
+    return [k_major_operand(kernel, o, name, *nk[name], made_by, dtype) for name in names]
 
 
-def _operands(operands):
-    if operands is None:
-        raise ValueError(f"swin_block on the card reads {_BLOCK_OPERANDS}, made once at weight "
-                         "load: pass them as operands=")
-    return operands
+def _block_operands(kernel: str, o, c: int, names, dtype) -> list:
+    """The matrices ``names`` of a block's :func:`swin_block_operands`
+    ``o``, then its column sums ``csum`` (3C,), each checked."""
+    mats = _block_matrices(kernel, o, c, names, _BLOCK_OPERANDS, dtype)
+    if o["csum"].shape != (3 * c,):
+        raise ValueError(f"{kernel} reads csum as ({3 * c},), got {tuple(o['csum'].shape)}")
+    return mats + [o["csum"]]
 
 
 def _block_scratch(x, dtype):
@@ -249,14 +252,14 @@ def _swin_block_f32_cuda(x, wqkv, bq3, wp, bp, bm, ln2_w, ln2_b, w1, b1, w2, b2,
                          heads, window, shift, eps, operands):
     b, r, _, c = x.shape
     check_block_f32(c)
-    wqkv_t, wp_t, w1_t, w2_t = _split_stacks("swin_block f32", operands, c,
-                                             ("wqkv_t", "wp_t", "w1_t", "w2_t"), _BLOCK_OPERANDS)
-    require_cuda(x, wqkv_t, wp_t, w1_t, w2_t, operands["csum"], bq3, bp, bm, ln2_w, ln2_b, b1,
-                 b2, dtype=torch.float32)
+    wqkv_t, wp_t, w1_t, w2_t, csum = _block_operands(
+        "swin_block f32", operands, c, ("wqkv_t", "wp_t", "w1_t", "w2_t"), torch.float32)
+    require_cuda(x, wqkv_t, wp_t, w1_t, w2_t, csum, bq3, bp, bm, ln2_w, ln2_b, b1, b2,
+                 dtype=torch.float32)
     _check_geometry("swin_block_f32", x, heads, window, bm)
     scratch = _block_scratch(x, torch.float32)
     KERNEL_F32.launch(
-        "am_swin_block_f32", x, wqkv_t, operands["csum"], bq3, wp_t, bp, bm, bm.shape[0],
+        "am_swin_block_f32", x, wqkv_t, csum, bq3, wp_t, bp, bm, bm.shape[0],
         ln2_w, ln2_b, w1_t, b1, w2_t, b2, b, r, c, heads, window, shift, float(eps), *scratch,
     )
     KERNEL_F32.launches += 1
@@ -266,16 +269,16 @@ def _swin_block_f32_cuda(x, wqkv, bq3, wp, bp, bm, ln2_w, ln2_b, w1, b1, w2, b2,
 def _swin_block_cuda(x, wqkv, bq3, wp, bp, bm, ln2_w, ln2_b, w1, b1, w2, b2, *,
                      heads, window, shift, eps, operands):
     b, r, _, c = x.shape
-    o = _operands(operands)
-    require_cuda(x, o["wqkv_t"], o["wp_t"], o["w1_t"], o["w2_t"])
-    require_cuda(o["csum"], bq3, bp, bm, ln2_w, ln2_b, b1, b2, dtype=torch.float32)
-    _check_geometry("swin_block", x, heads, window, bm)
     check_block_gemms(c)
+    wqkv_t, wp_t, w1_t, w2_t, csum = _block_operands(
+        "swin_block", operands, c, ("wqkv_t", "wp_t", "w1_t", "w2_t"), x.dtype)
+    require_cuda(x, wqkv_t, wp_t, w1_t, w2_t)
+    require_cuda(csum, bq3, bp, bm, ln2_w, ln2_b, b1, b2, dtype=torch.float32)
+    _check_geometry("swin_block", x, heads, window, bm)
     scratch = _block_scratch(x, x.dtype)
     KERNEL.launch(
-        "am_swin_block", x, o["wqkv_t"], o["csum"], bq3, o["wp_t"], bp, bm, bm.shape[0], ln2_w,
-        ln2_b, o["w1_t"], b1, o["w2_t"], b2, b, r, c, heads, window, shift, float(eps),
-        *scratch,
+        "am_swin_block", x, wqkv_t, csum, bq3, wp_t, bp, bm, bm.shape[0], ln2_w, ln2_b, w1_t, b1,
+        w2_t, b2, b, r, c, heads, window, shift, float(eps), *scratch,
     )
     KERNEL.launches += 1
     return scratch[-1]
@@ -309,57 +312,56 @@ def swin_attention_half_v3_plain(x, wqkv, bq3, wp, bp, bm, *, heads: int, window
     return _attention_residual(x, y, wp, bp, bm, heads, window, shift).to(x.dtype)
 
 
-def _f32_half_scratch(x, stats: bool):
-    """An f32 attention half's scratch (kernels/csrc/swin_block.cu): the
-    LN1 statistics (v3 only), the window-ordered rows, qkv, ctx, out."""
+def _half_scratch(x, stats: bool):
+    """An attention half's scratch (kernels/csrc/swin_block.cu): the f32
+    LN1 statistics (v3 only), then in the activation dtype the
+    window-ordered rows, qkv, ctx, out."""
     b, r, _, c = x.shape
     m, dev = b * r * r, x.device
-    f32 = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
-    return ((f32(2, m),) if stats else ()) + (f32(m, c), f32(m, 3 * c), f32(m, c),
-                                              torch.empty_like(x))
+    rows = lambda *shape: torch.empty(shape, dtype=x.dtype, device=dev)
+    stat = (torch.empty((2, m), dtype=torch.float32, device=dev),) if stats else ()
+    return stat + (rows(m, c), rows(m, 3 * c), rows(m, c), torch.empty_like(x))
 
 
 def _attention_half_v3_f32_cuda(x, bq3, bp, bm, *, heads, window, shift, eps, operands):
     b, r, _, c = x.shape
     _check_window_pass("swin_attn_v3_f32", c)
-    wqkv_t, wp_t = _split_stacks("swin_attn_v3_f32", operands, c, ("wqkv_t", "wp_t"),
-                                 _BLOCK_OPERANDS)
-    require_cuda(x, wqkv_t, operands["csum"], bq3, wp_t, bp, bm, dtype=torch.float32)
+    wqkv_t, wp_t, csum = _block_operands("swin_attn_v3_f32", operands, c, ("wqkv_t", "wp_t"),
+                                         torch.float32)
+    require_cuda(x, wqkv_t, csum, bq3, wp_t, bp, bm, dtype=torch.float32)
     _check_geometry("swin_attn_v3_f32", x, heads, window, bm)
-    scratch = _f32_half_scratch(x, stats=True)
-    KERNEL_V3_F32.launch("am_swin_attn_v3_f32", x, wqkv_t, operands["csum"], bq3, wp_t, bp, bm,
+    scratch = _half_scratch(x, stats=True)
+    KERNEL_V3_F32.launch("am_swin_attn_v3_f32", x, wqkv_t, csum, bq3, wp_t, bp, bm,
                          bm.shape[0], b, r, c, heads, window, shift, float(eps), *scratch)
     KERNEL_V3_F32.launches += 1
     return scratch[-1]
 
 
-def _attention_half_v3_cuda(x, wqkv, bq3, wp, bp, bm, *, heads, window, shift, eps):
+def _attention_half_v3_cuda(x, bq3, bp, bm, *, heads, window, shift, eps, operands):
     b, r, _, c = x.shape
-    require_cuda(x, wqkv, wp)
-    require_cuda(bq3, bp, bm, dtype=torch.float32)
+    check_block_gemms(c)
+    wqkv_t, wp_t, csum = _block_operands("swin_attn_v3", operands, c, ("wqkv_t", "wp_t"), x.dtype)
+    require_cuda(x, wqkv_t, wp_t)
+    require_cuda(csum, bq3, bp, bm, dtype=torch.float32)
     _check_geometry("swin_attn_v3", x, heads, window, bm)
-    m = b * r * r
-    qkv = torch.empty((m, 3 * c), dtype=x.dtype, device=x.device)
-    ctx = torch.empty((m, c), dtype=x.dtype, device=x.device)
-    out = torch.empty_like(x)
-    KERNEL_V3.launch("am_swin_attn_v3", x, wqkv, bq3, wp, bp, bm, bm.shape[0], b, r, c, heads,
-                     window, shift, float(eps), qkv, ctx, out)
+    scratch = _half_scratch(x, stats=True)
+    KERNEL_V3.launch("am_swin_attn_v3", x, wqkv_t, csum, bq3, wp_t, bp, bm,
+                     bm.shape[0], b, r, c, heads, window, shift, float(eps), *scratch)
     KERNEL_V3.launches += 1
-    return out
+    return scratch[-1]
 
 
 def swin_attention_half_v3(x, wqkv, bq3, wp, bp, bm, *, heads: int, window: int, shift: int,
                            eps: float = 1e-5, operands=None):
     """Attention half of a Swin block, (B, R, R, C) -> (B, R, R, C).
-    ``operands``: the f32 kernel's :func:`swin_block_operands` of the
-    block's weights (it reads ``wqkv_t``, ``wp_t``, ``csum``), made at load;
-    an f32 CUDA tensor needs them, any other tensor ignores them."""
+    ``operands``: the kernel's :func:`swin_block_operands` of the block's
+    weights (it reads ``wqkv_t``, ``wp_t``, ``csum``), made at load; a
+    CUDA tensor needs them, a CPU tensor ignores them."""
     geo = dict(heads=heads, window=window, shift=shift, eps=eps)
     if x.device.type == "cpu":
         return swin_attention_half_v3_plain(x, wqkv, bq3, wp, bp, bm, **geo)
-    if x.dtype == torch.float32:
-        return _attention_half_v3_f32_cuda(x, bq3, bp, bm, **geo, operands=operands)
-    return _attention_half_v3_cuda(x, wqkv, bq3, wp, bp, bm, **geo)
+    fn = _attention_half_v3_f32_cuda if x.dtype == torch.float32 else _attention_half_v3_cuda
+    return fn(x, bq3, bp, bm, **geo, operands=operands)
 
 
 # ----------------------------------------------------------------------
@@ -436,12 +438,13 @@ def _attention_ln_affine_f32_cuda(kernel, symbol, x, ln_w, ln_b, bq3, bp, bm, *,
     b, r, _, c = x.shape
     _window_8x8(kernel.name, window, x)
     _check_window_pass(kernel.name, c)
-    wqkv_t, wp_t = _split_stacks(kernel.name, operands, c, ("wqkv_t", "wp_t"), made_by)
+    wqkv_t, wp_t = _block_matrices(kernel.name, operands, c, ("wqkv_t", "wp_t"), made_by,
+                                   torch.float32)
     require_cuda(x, ln_w, ln_b, wqkv_t, bq3, wp_t, bp, bm, dtype=torch.float32)
     _check_geometry(kernel.name, x, heads, window, bm)
     if bq3.shape != (3 * c,):
         raise ValueError(f"{kernel.name}: qkv bias {tuple(bq3.shape)}, want ({3 * c},)")
-    scratch = _f32_half_scratch(x, stats=False)
+    scratch = _half_scratch(x, stats=False)
     kernel.launch(symbol, x, ln_w, ln_b, wqkv_t, bq3, wp_t, bp, bm, bm.shape[0], b, r, c, heads,
                   window, shift, float(eps), *scratch)
     kernel.launches += 1

@@ -5,7 +5,8 @@ Counterpart of ``audio_metrics_tpu/ops/mlp.py``: ``mlp_block`` has the
 contract of ``mlp_block_pallas`` (:278-305, kernel ``_mlp_kernel`` :119)
 with exact-erf GELU (the JAX kernel's ``gelu="exact"``; the port does not
 carry the polynomial GELU, ROADMAP.md), and launches
-kernels/csrc/swin_halves.cu::am_swin_mlp; ``mlp_xla`` is the XLA MLP of
+kernels/csrc/swin_block.cu::am_swin_mlp (the whole block's launches 5-7 on
+the wgmma core); ``mlp_xla`` is the XLA MLP of
 ``models/htsat.py::_swin_block`` (:622-631), the JAX package's own
 non-kernel path, which runs on both devices and is not the plain version of
 any kernel.  Weights: ``w1`` (C, 4C), ``w2`` (4C, C) input-major in the
@@ -23,10 +24,11 @@ Dispatch of ``mlp_block`` and ``mlp_block_int8``: a CPU tensor runs the
 ``*_plain`` version; a CUDA tensor launches the kernel for its dtype or
 raises.  Both take the activation dtype, as their JAX kernels do: bf16
 launches ``am_swin_mlp`` / ``am_swin_mlp_int8``, f32 ``am_swin_mlp_f32``
-(kernels/csrc/swin_block.cu, the f32 block's launches 5-7, its products as
-three TF32 products on the tensor cores, reading ``w1`` and ``w2`` as the
-(2, N, K) stacks of :func:`mlp_operands`, made at load) /
-``am_swin_mlp_int8_f32``; each dtype has its own launch count.
+(the f32 block's launches 5-7, its products as three TF32 products on the
+tensor cores) / ``am_swin_mlp_int8_f32``; each dtype has its own launch
+count.  ``am_swin_mlp`` and ``am_swin_mlp_f32`` read ``w1`` and ``w2`` as
+:func:`mlp_operands` gives them, made at load: transposed (bf16) or as
+their transposes' (2, N, K) TF32 split stacks (f32).
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import KERNELS, require_cuda
-from .tf32 import split_operand, tf32_split
+from .tf32 import k_major, k_major_operand
 
 __all__ = [
     "layer_norm",
@@ -83,12 +85,16 @@ def mlp_block_plain(x, ln_w, ln_b, w1, b1, w2, b2, *, eps: float = 1e-5):
     return (_mm(h1, w2) + b2 + x.float()).to(dt)
 
 
+_MADE_BY = "mlp_operands(w1, w2)"
+
+
 def mlp_operands(w1, w2) -> dict:
-    """What the f32 MLP kernel reads besides the plain version's operands,
-    made once when the weights load (``models.htsat.SwinBlock``): ``w1``
-    (C, 4C) and ``w2`` (4C, C) f32 transposed to (N, K) and split into their
-    TF32 hi and lo parts, (2, N, K) stacks (``ops.tf32.tf32_split``)."""
-    return dict(w1_t=tf32_split(w1.t()), w2_t=tf32_split(w2.t()))
+    """What the MLP kernel reads besides the plain version's operands, made
+    once when the weights load (``models.htsat.SwinBlock``): ``w1`` (C, 4C)
+    and ``w2`` (4C, C) in the K-major form of their dtype
+    (``ops.tf32.k_major``): bf16 transposed to (N, K), f32 that matrix
+    split into its TF32 hi and lo parts, a (2, N, K) stack."""
+    return dict(w1_t=k_major(w1), w2_t=k_major(w2))
 
 
 def _mlp_shape(name, x, w1_shape, w2_shape):
@@ -101,11 +107,16 @@ def _mlp_shape(name, x, w1_shape, w2_shape):
     return x.numel() // c, c
 
 
+def _mlp_matrices(kernel, operands, c, dtype):
+    """``w1_t`` (4C, C) and ``w2_t`` (C, 4C) of :func:`mlp_operands`, checked
+    by :func:`ops.tf32.k_major_operand`."""
+    return (k_major_operand(kernel, operands, "w1_t", 4 * c, c, _MADE_BY, dtype),
+            k_major_operand(kernel, operands, "w2_t", c, 4 * c, _MADE_BY, dtype))
+
+
 def _mlp_block_f32_cuda(x, ln_w, ln_b, w1, b1, w2, b2, *, eps, operands):
     m, c = _mlp_shape("swin_mlp_f32", x, w1.shape, w2.shape)
-    made_by = "mlp_operands(w1, w2)"
-    w1_t = split_operand("swin_mlp_f32", operands, "w1_t", 4 * c, c, made_by)
-    w2_t = split_operand("swin_mlp_f32", operands, "w2_t", c, 4 * c, made_by)
+    w1_t, w2_t = _mlp_matrices("swin_mlp_f32", operands, c, torch.float32)
     require_cuda(x, ln_w, ln_b, w1_t, b1, w2_t, b2, dtype=torch.float32)
     hbuf = torch.empty((m, c), dtype=torch.float32, device=x.device)
     h1 = torch.empty((m, 4 * c), dtype=torch.float32, device=x.device)
@@ -116,27 +127,30 @@ def _mlp_block_f32_cuda(x, ln_w, ln_b, w1, b1, w2, b2, *, eps, operands):
     return out
 
 
-def _mlp_block_cuda(x, ln_w, ln_b, w1, b1, w2, b2, *, eps):
-    require_cuda(x, w1, w2)
-    require_cuda(ln_w, ln_b, b1, b2, dtype=torch.float32)
+def _mlp_block_cuda(x, ln_w, ln_b, w1, b1, w2, b2, *, eps, operands):
     m, c = _mlp_shape("swin_mlp", x, w1.shape, w2.shape)
+    w1_t, w2_t = _mlp_matrices("swin_mlp", operands, c, x.dtype)
+    require_cuda(x, w1_t, w2_t)
+    require_cuda(ln_w, ln_b, b1, b2, dtype=torch.float32)
     hbuf = torch.empty((m, c), dtype=x.dtype, device=x.device)
     h1 = torch.empty((m, 4 * c), dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
-    KERNEL.launch("am_swin_mlp", x, ln_w, ln_b, w1, b1, w2, b2, m, c, float(eps), hbuf, h1, out)
+    KERNEL.launch("am_swin_mlp", x, ln_w, ln_b, w1_t, b1, w2_t, b2, m, c, float(eps), hbuf, h1,
+                  out)
     KERNEL.launches += 1
     return out
 
 
 def mlp_block(x, ln_w, ln_b, w1, b1, w2, b2, *, eps: float = 1e-5, operands=None):
-    """x + fc2(GELU(fc1(LN(x)))) over the last axis.  ``operands``: the f32
-    kernel's :func:`mlp_operands` of these weights, made at load; an f32
-    CUDA tensor needs them, any other tensor ignores them."""
+    """x + fc2(GELU(fc1(LN(x)))) over the last axis.  ``operands``: the
+    kernel's :func:`mlp_operands` of these weights (or a whole block's
+    ``swin_block_operands``, which hold the same ``w1_t``, ``w2_t``), made
+    at load; a CUDA tensor needs them, a CPU tensor ignores them."""
     if x.device.type == "cpu":
         return mlp_block_plain(x, ln_w, ln_b, w1, b1, w2, b2, eps=eps)
     if x.dtype == torch.float32:
         return _mlp_block_f32_cuda(x, ln_w, ln_b, w1, b1, w2, b2, eps=eps, operands=operands)
-    return _mlp_block_cuda(x, ln_w, ln_b, w1, b1, w2, b2, eps=eps)
+    return _mlp_block_cuda(x, ln_w, ln_b, w1, b1, w2, b2, eps=eps, operands=operands)
 
 
 # ----------------------------------------------------------------------

@@ -9,16 +9,17 @@ to ~2^-22 relative, and A @ B ~= A_lo @ B_hi + A_hi @ B_lo + A_hi @ B_hi.
 The kernels split A themselves; a weight is split here, once at load
 (``ops.attention.swin_block_operands``, ``half_operands``, ``v1_operands``,
 ``ops.mlp.mlp_operands``, ``ops.merge.merge_weight_t``), and an f32
-kernel's wrapper takes it through :func:`split_operand`.
+kernel's wrapper takes it through :func:`k_major_operand`.  :func:`k_major`
+gives a weight in the form the products of its dtype read.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..kernels import check_tf32x3_gemm
+from ..kernels import check_sm90_gemm, check_tf32x3_gemm
 
-__all__ = ["split_operand", "tf32_round", "tf32_split"]
+__all__ = ["k_major", "k_major_operand", "tf32_round", "tf32_split"]
 
 _LOW = 0x1000  # half a TF32 ulp: bit 12 of the f32 bits
 _KEEP = -0x2000  # 0xFFFFE000 as an int32: clears the 13 low mantissa bits
@@ -41,19 +42,32 @@ def tf32_split(w: torch.Tensor) -> torch.Tensor:
     return torch.stack([hi, tf32_round(w - hi)])
 
 
-def split_operand(kernel: str, operands: dict | None, name: str, n: int, k: int,
-                  made_by: str) -> torch.Tensor:
-    """``operands[name]``, the (2, n, k) :func:`tf32_split` stack of an (n, k)
-    matrix that the f32 kernel ``kernel`` reads, made at load by
-    ``made_by``.  Raise ``ValueError`` when the operands are missing or the
-    stack has another shape, and ``NotImplementedError`` unless the 3xTF32
-    core takes an (n, k) product (``kernels.check_tf32x3_gemm``)."""
+def k_major(w: torch.Tensor) -> torch.Tensor:
+    """A (K, N) weight as the wgmma cores read it, made once at load: bf16
+    transposed to (N, K), K-major (``kernels/csrc/gemm_sm90.cuh``); f32 that
+    (N, K) matrix's (2, N, K) :func:`tf32_split` stack (the 3xTF32 core)."""
+    return tf32_split(w.t()) if w.dtype == torch.float32 else w.t().contiguous()
+
+
+def k_major_operand(kernel: str, operands: dict | None, name: str, n: int, k: int,
+                    made_by: str, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``operands[name]``, the :func:`k_major` form of an (n, k) matrix that
+    the ``dtype`` kernel ``kernel`` reads, made at load by ``made_by``: for
+    f32 its (2, n, k) :func:`tf32_split` stack, for bf16 the (n, k) matrix.
+    Raise ``ValueError`` when the operands are missing or the matrix has
+    another shape, and ``NotImplementedError`` for any other dtype or unless
+    the dtype's core takes an (n, k) product (``kernels.check_tf32x3_gemm``
+    / ``check_sm90_gemm``)."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise NotImplementedError(f"{kernel}: the CUDA kernels take bf16 or f32, got {dtype}")
     if operands is None:
         raise ValueError(f"{kernel} on the card reads {made_by}, made once at weight load: "
                          "pass them as operands=")
     t = operands[name]
-    if t.shape != (2, n, k):
-        raise ValueError(f"{kernel} reads {name} as tf32_split's (2, {n}, {k}) stack, got "
-                         f"{tuple(t.shape)}")
-    check_tf32x3_gemm(kernel, n, k, k)
+    f32 = dtype == torch.float32
+    want = (2, n, k) if f32 else (n, k)
+    if tuple(t.shape) != want:
+        form = "tf32_split's stack" if f32 else "the transposed matrix"
+        raise ValueError(f"{kernel} reads {name} as {form} {want}, got {tuple(t.shape)}")
+    (check_tf32x3_gemm if f32 else check_sm90_gemm)(kernel, n, k, k)
     return t

@@ -74,6 +74,15 @@ FAULTS = {
            "float residual(const float* x, long long o) {\n"
            "  return __bfloat162float(reinterpret_cast<const bf16*>(x)[o]);\n}",
            "the f32 int8 MLP reads its f32 residual as bf16"),
+    "P1": (f"{CSRC}/gemm_sm90.cuh",
+           "else store8(static_cast<bf16*>(p.out) + o, v);",
+           "else store8(static_cast<bf16*>(p.out) + (long long)r * p.ldo + n, v);",
+           "the bf16 proj epilogue of the v3 half writes window-order row r, not its "
+           "un-partitioned, un-rolled row"),
+    "F1": (f"{CSRC}/gemm_sm90.cuh",
+           "else load8(static_cast<const bf16*>(p.res) + o, x);",
+           "else for (int i = 0; i < 8; ++i) x[i] = 0.f;",
+           "the bf16 fc2 epilogue of the fused MLP drops the residual"),
 }
 SKIP = ("build", ".git", "__pycache__", ".pytest_cache")
 

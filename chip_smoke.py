@@ -67,15 +67,17 @@ Phases, one status line each:
      metrics, FAD of a set against itself, embeddings against the f32 plain
      chain, clips/s.
 Phase 3 runs each kernel redesigned for Hopper on the wgmma core (the
-whole Swin block at every stage and shift, the three patch merges, the
-fused frontend, the halo log-mel) twice on the same inputs, at B = 4 and
-at B = 64, and fails unless the outputs are bitwise equal (their GEMM core
-has no atomics, so a race in its TMA ring shows as a difference); it times
-the products of the first three alone through ``torch.matmul`` in bf16 at
-B = 64 as their yardstick (``library_ms``, the port never calls it), and
-prints their achieved TFLOP/s.  The kernels of ~0.3 ms or less (patch
-merge, k-NN radii and PRDC statistics at N = 2048, halo log-mel) are timed
-over 200 launches (``TIMING_ITERS``).
+whole Swin block at every stage and shift, its v3 attention half and
+fused MLP, the three patch merges, the fused frontend, the halo log-mel)
+twice on the same inputs, at B = 4 and at B = 64, and fails unless the
+outputs are bitwise equal (their GEMM core has no atomics, so a race in
+its TMA ring shows as a difference); it times the products of the block,
+the merges, the frontend and the split halves alone through
+``torch.matmul`` at B = 64 as their yardstick (``library_ms``, the port
+never calls it), and prints their achieved TFLOP/s.  Every call it holds
+against a plain version must launch its kernel exactly once.  The kernels
+of ~0.3 ms or less (patch merge, k-NN radii and PRDC statistics at N =
+2048, halo log-mel) are timed over 200 launches (``TIMING_ITERS``).
 Phase 3 holds the f32 whole block (every stage and shift) and the f32
 merges (their products on the 3xTF32 wgmma core) against their f32 plain
 versions too, at B = 4 and at B = 64, with bitwise repeats, and times their
@@ -85,9 +87,10 @@ at stages 0-1, the fused MLP and the int8 MLP at the row counts of stages
 0-3), the v3 half then the MLP against the whole f32 block and the v2 half
 against the v1 half (each pair bitwise equal: the same launches).
 Phase 3 also holds the split block's kernels (v3 attention half at every
-stage, the fused MLP at the row counts of stages 0-3, the v1 attention
-half at stages 0 and 1), the opt-in ops (the v2 attention half at every
-stage, against the v1 kernel too at stages 0 and 1; the int8 MLP at the
+stage, the fused MLP at the row counts of stages 0-3, the two on the
+operands the block holds from load; the v1 attention half at stages 0 and
+1), the opt-in ops (the v2 attention half at every stage, against the v1
+kernel too at stages 0 and 1; the int8 MLP at the
 row counts of stages 0-3) and the v1 log-mel against their plain versions,
 and the v3 half then the MLP against the whole-block kernel.  Each
 environment variable is set only around the phase that reads it.
@@ -202,13 +205,14 @@ CONFIG_TOL = {"split": (5e-5, 5e-3), "attn_v1": (5e-5, 5e-3), "mel_v1": (2e-6, 1
 # GEMM cores (gemm_sm90.cuh, bf16; gemm_tf32x3_sm90.cuh, f32 as three TF32
 # products), which have no atomics, and the f32 int8 MLP, whose one atomic
 # is an integer max, which no order changes
-REPEATS = ("swin_block", "patch_merge", "clap_frontend", "log_mel", "swin_block_f32",
-           "patch_merge_f32", "swin_attn_v3_f32", "swin_mlp_f32", "swin_attn_v1_f32",
-           "swin_attn_v2_f32", "swin_mlp_int8_f32")
+REPEATS = ("swin_block", "patch_merge", "clap_frontend", "log_mel", "swin_attn_v3", "swin_mlp",
+           "swin_block_f32", "patch_merge_f32", "swin_attn_v3_f32", "swin_mlp_f32",
+           "swin_attn_v1_f32", "swin_attn_v2_f32", "swin_mlp_int8_f32")
 # kernels also held against their plain versions at B = BATCH, the batch at
-# which the f32 configurations run them (phases 9-11), under the same bounds
-AT_BATCH = ("swin_block_f32", "patch_merge_f32", "swin_attn_v3_f32", "swin_mlp_f32",
-            "swin_attn_v1_f32", "swin_attn_v2_f32", "swin_mlp_int8_f32")
+# which the main path and the f32 configurations run them (phases 6, 9-11),
+# under the same bounds
+AT_BATCH = ("swin_attn_v3", "swin_mlp", "swin_block_f32", "patch_merge_f32", "swin_attn_v3_f32",
+            "swin_mlp_f32", "swin_attn_v1_f32", "swin_attn_v2_f32", "swin_mlp_int8_f32")
 # launches timed per reading (10 elsewhere): kernels of ~0.1 ms or less
 # moved by 20-40% between runs at 10
 TIMING_ITERS = {"patch_merge": 200, "knn_radii": 200, "prdc_stats": 200, "log_mel": 200}
@@ -447,6 +451,7 @@ def int8_ties(x, mlp, eps, results, name="swin_mlp_int8"):
 
 
 def phase_kernels(cfg, params, results):
+    from audio_metrics_tpu_torch.kernels import KERNELS
     from audio_metrics_tpu_torch.models.clap import ClapFrontend
     from audio_metrics_tpu_torch.models.htsat import PatchMerge, SwinBlock
     from audio_metrics_tpu_torch.ops.attention import (
@@ -484,7 +489,11 @@ def phase_kernels(cfg, params, results):
             held.append((BATCH, counts[0], counts[1], xb))
         first = None
         for b, kf, pf, xin in held:
+            before = KERNELS[name].launches
             got, want = kf(), pf()
+            if KERNELS[name].launches != before + 1:
+                raise AssertionError(f"{name} {shape_key}: "
+                                     f"{KERNELS[name].launches - before} launches in one call")
             first = got if first is None else first
             mx, rel = compare(name, got, want,
                               want if xin is None else want.float() - xin.float(), results)
@@ -564,18 +573,17 @@ def phase_kernels(cfg, params, results):
                      lambda x: swin_attention_half_v3_plain(x, *attn32, **geo), n_blocks, stage)
             split_f32.append((key, b32, x32[CHECK_B], attn32, mlp32, ops32, geo))
 
-            # the v3 attention half on the same block weights (#8); the v3
-            # half + MLP kernel against the whole-block kernel after #9's check
+            # the v3 attention half on the same block weights (#8), reading
+            # the operands the block holds from load; the v3 half + MLP
+            # kernel against the whole-block kernel after #9's check
             attn = (block.wqkv, block.bq3, block.wp, block.bp, block.bm)
             mlp = (block.ln2_w, block.ln2_b, block.w1, block.b1, block.w2, block.b2)
+            ops = block.kernel_operands()
             x4 = {b: xs[b].view(b, res, res, c) for b in xs}
-            check("swin_attn_v3", key,
-                  lambda: swin_attention_half_v3(x4[CHECK_B], *attn, **geo),
-                  lambda: swin_attention_half_v3_plain(x4[CHECK_B], *attn, **geo),
-                  (lambda: swin_attention_half_v3(x4[BATCH], *attn, **geo),
-                   lambda: swin_attention_half_v3_plain(x4[BATCH], *attn, **geo), n_blocks),
-                  x=x4[CHECK_B], stage=stage)
-            split_checks.append((key, block, xs[CHECK_B], x4[CHECK_B], attn, mlp, geo))
+            check_on("swin_attn_v3", key, x4,
+                     lambda x: swin_attention_half_v3(x, *attn, **geo, operands=ops),
+                     lambda x: swin_attention_half_v3_plain(x, *attn, **geo), n_blocks, stage)
+            split_checks.append((key, block, xs[CHECK_B], x4[CHECK_B], attn, mlp, ops, geo))
 
             # the v2 attention half (#11), an opt-in op: every stage
             a2 = v2_weights(params, prefix, block)[0]
@@ -633,12 +641,9 @@ def phase_kernels(cfg, params, results):
         n_mlp = depth if block.fused_mlp(BATCH) else 0
         if n_mlp:
             mlp_stages.append(stage)
-        check("swin_mlp", f"stage {stage} rows B x {res * res} C={c}",
-              lambda: mlp_block(xs[CHECK_B], *mlp, eps=block.eps),
-              lambda: mlp_block_plain(xs[CHECK_B], *mlp, eps=block.eps),
-              (lambda: mlp_block(xs[BATCH], *mlp, eps=block.eps),
-               lambda: mlp_block_plain(xs[BATCH], *mlp, eps=block.eps), n_mlp),
-              x=xs[CHECK_B], stage=stage)
+        check_on("swin_mlp", f"stage {stage} rows B x {res * res} C={c}", xs,
+                 lambda x: mlp_block(x, *mlp, eps=block.eps, operands=ops),
+                 lambda x: mlp_block_plain(x, *mlp, eps=block.eps), n_mlp, stage)
         check_on("swin_mlp_f32", f"stage {stage} rows B x {res * res} C={c}", x32,
                  lambda x: mlp_block(x, *mlp32, eps=block.eps, operands=ops32),
                  lambda x: mlp_block_plain(x, *mlp32, eps=block.eps), n_mlp, stage)
@@ -659,9 +664,9 @@ def phase_kernels(cfg, params, results):
         if stage == 0:
             int8_ties(x32[CHECK_B], m8, block.eps, results, "swin_mlp_int8_f32")
 
-        for key, block, x, x4, attn, mlp, geo in split_checks:
-            split = mlp_block(swin_attention_half_v3(x4, *attn, **geo).view(x.shape), *mlp,
-                              eps=block.eps)
+        for key, block, x, x4, attn, mlp, ops, geo in split_checks:
+            split = mlp_block(swin_attention_half_v3(x4, *attn, **geo, operands=ops).view(x.shape),
+                              *mlp, eps=block.eps, operands=ops)
             whole = block(x)
             mx, rel = compare("split_vs_whole", split, whole, whole.float() - x.float(), results)
             ok = mx <= SPLIT_VS_WHOLE_TOL[1] and rel <= SPLIT_VS_WHOLE_TOL[0]
@@ -719,28 +724,28 @@ def phase_kernels(cfg, params, results):
         results[name].update(ms=t["ms"][BATCH], plain_ms=t["plain_ms"][BATCH],
                              bound_ms=bounds[name][0], bound_by=bounds[name][1])
         log(f"  {name} bound at B={BATCH}: {bounds[name][0]:.4f} ms ({bounds[name][1]})")
-    alone, _ = products_alone_ms(cfg, BATCH)
-    log("  yardstick, the products alone through torch.matmul in bf16 at B="
-        f"{BATCH}: " + ", ".join(f"{k} {v:.4f} ms" for k, v in alone.items()))
-    results["swin_block"]["library_ms"] = alone["Swin blocks (18 x qkv, proj, fc1, fc2)"]
-    results["patch_merge"]["library_ms"] = alone["patch merges (3 x (M, 4C) @ (4C, 2C))"]
-    results["clap_frontend"]["library_ms"] = alone["frontend DFT"]
-    alone32, per_block = products_alone_ms(cfg, BATCH, torch.float32)
     # the split halves' products alone over the blocks each path runs:
-    # qkv and proj (attention), fc1 and fc2 (MLP), in full f32
-    halves = {"swin_attn_v3_f32": ("attn", range(len(cfg.depths))),
-              "swin_mlp_f32": ("mlp", mlp_stages), "swin_attn_v1_f32": ("attn", (0, 1)),
-              "swin_attn_v2_f32": ("attn", range(len(cfg.depths)))}
-    for name, (part, stages) in halves.items():
-        alone32[f"{name} ({part} products)"] = sum(cfg.depths[st] * per_block[st][part]
-                                                   for st in stages)
-        results[name]["library_ms"] = alone32[f"{name} ({part} products)"]
-    log("  yardstick, the products alone through torch.matmul in full f32 (TF32 off) at B="
-        f"{BATCH}: " + ", ".join(f"{k} {v:.4f} ms" for k, v in alone32.items()))
-    results["swin_block_f32"]["library_ms"] = alone32["Swin blocks (18 x qkv, proj, fc1, fc2)"]
-    results["patch_merge_f32"]["library_ms"] = alone32["patch merges (3 x (M, 4C) @ (4C, 2C))"]
+    # qkv and proj (attention), fc1 and fc2 (MLP), in each dtype
+    halves = {"swin_attn_v3": ("attn", range(len(cfg.depths))),
+              "swin_mlp": ("mlp", mlp_stages), "swin_attn_v1": ("attn", (0, 1)),
+              "swin_attn_v2": ("attn", range(len(cfg.depths)))}
+    for dtype, suffix, what in ((torch.bfloat16, "", "in bf16"),
+                                (torch.float32, "_f32", "in full f32 (TF32 off)")):
+        alone, per_block = products_alone_ms(cfg, BATCH, dtype)
+        for name, (part, stages) in halves.items():
+            alone[f"{name}{suffix} ({part} products)"] = sum(cfg.depths[st] * per_block[st][part]
+                                                            for st in stages)
+            results[name + suffix]["library_ms"] = alone[f"{name}{suffix} ({part} products)"]
+        log(f"  yardstick, the products alone through torch.matmul {what} at B={BATCH}: "
+            + ", ".join(f"{k} {v:.4f} ms" for k, v in alone.items()))
+        results["swin_block" + suffix]["library_ms"] = \
+            alone["Swin blocks (18 x qkv, proj, fc1, fc2)"]
+        results["patch_merge" + suffix]["library_ms"] = \
+            alone["patch merges (3 x (M, 4C) @ (4C, 2C))"]
+        if dtype == torch.bfloat16:
+            results["clap_frontend"]["library_ms"] = alone["frontend DFT"]
     for name in ("swin_block", "patch_merge", "clap_frontend", "swin_block_f32",
-                 "patch_merge_f32", *halves):
+                 "patch_merge_f32", *halves, *(h + "_f32" for h in halves)):
         r, ops = results[name], bounds[name][2]
         log(f"  {name} at B={BATCH}: {ops / (r['ms'] * 1e-3) / 1e12:.1f} TFLOP/s achieved "
             f"({ops:.4g} operations in {r['ms']:.4f} ms; bound {r['bound_ms']:.4f} ms, the "
@@ -748,7 +753,7 @@ def phase_kernels(cfg, params, results):
 
 
 def products_alone_ms(cfg, b, dtype=torch.bfloat16):
-    """The yardstick of #1, #2 and #3 and of the f32 split halves, which the
+    """The yardstick of #1, #2 and #3 and of the split halves, which the
     port never calls: their products alone, one ``torch.matmul`` each in
     ``dtype`` (bf16, or f32 with TF32 off, as ``main`` sets it, for the f32
     kernels) on random operands of the main path's shapes at batch ``b``:
@@ -1312,7 +1317,7 @@ def phase_opt_in(card: str, results: dict) -> dict:
         bf16_mlp = (blk.ln2_w, blk.ln2_b, blk.w1, blk.b1, blk.w2, blk.b2)
         want_a = swin_attention_half_v2_plain(x4, *attn, **geo)
         want_m = mlp_block_int8_plain(a3, *mlp, eps=blk.eps)
-        m9 = mlp_block(a3, *bf16_mlp, eps=blk.eps)
+        m9 = mlp_block(a3, *bf16_mlp, eps=blk.eps, operands=blk.kernel_operands())
         exact = mlp_block_plain(a3.float(), *mlp, eps=blk.eps) - a3.float()
         line = f"  block {i}.{j} R={blk.resolution} C={a.shape[-1]}:"
         ok = True
@@ -1333,7 +1338,8 @@ def phase_opt_in(card: str, results: dict) -> dict:
             raise AssertionError(f"an opt-in op disagrees at block {i}.{j}")
         ms["swin_attn_v2"] += cuda_ms(lambda: swin_attention_half_v2(x4, *attn, **geo))
         ms["swin_mlp_int8"] += cuda_ms(lambda: mlp_block_int8(a3, *mlp, eps=blk.eps))
-        ms["swin_mlp (bf16)"] += cuda_ms(lambda: mlp_block(a3, *bf16_mlp, eps=blk.eps))
+        ms["swin_mlp (bf16)"] += cuda_ms(
+            lambda: mlp_block(a3, *bf16_mlp, eps=blk.eps, operands=blk.kernel_operands()))
     # yardstick, used nowhere in the port: the int8 MLP's two products
     # alone through torch._int_mm (cuBLASLt), on random codes of each
     # block's shapes

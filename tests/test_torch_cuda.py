@@ -24,8 +24,9 @@ version (the JAX suite's kernel-vs-XLA bound); the booleans and counts
 equal except where a float64 recomputation shows a pair within 1e-5
 relative of its radius (``testing.stats_mismatches``).  The log-mel
 kernels, the split block's kernels (v3 and v1 attention halves, the fused
-MLP) and the two opt-in ops (the v2 attention half, the int8 MLP): the
-bounds of ``chip_smoke.py``.  The v2 half on v1's operands laid side by
+MLP; the v3 half and the MLP on the operands the block holds from load,
+and the two in turn against the whole block) and the two opt-in ops (the
+v2 attention half, the int8 MLP): the bounds of ``chip_smoke.py``.  The v2 half on v1's operands laid side by
 side runs v1's launches: equal outputs.  Their f32 kernels (the f32
 block's launches, products as three TF32 products) against their f32
 plain versions in full f32 under the f32 block's bounds at each stage, at
@@ -101,6 +102,8 @@ LOG_MEL_TOL = {"clap": (1e-5, 0.25), "vggish": (1e-6, 3e-5)}
 ATTN_V3_TOL = ((4e-5, 1e-4, 2.5e-4, 5e-4), 0.0625)
 ATTN_V1_TOL = ((1e-4, 2e-4), 0.0625)
 MLP_TOL = ((1e-5, 2.5e-5, 6e-5, 1.2e-4), 0.0625)
+# the bf16 v3 half then the MLP against the whole block, as in chip_smoke.py
+SPLIT_VS_WHOLE_TOL = (1e-2, 0.25)
 # the opt-in ops, as in chip_smoke.py
 ATTN_V2_TOL = ((1e-4, 2e-4, 5e-4, 1e-3), 0.0625)
 MLP_INT8_TOL = ((2.5e-6, 5e-6, 7e-6, 7e-6), 0.0625)
@@ -523,7 +526,7 @@ def test_attention_v3_kernel_matches_plain(cuda, params, stage, shift):
     args = (x, b.wqkv, b.bq3, b.wp, b.bp, b.bm)
     geo = dict(heads=b.heads, window=b.window, shift=b.shift, eps=b.eps)
     before = KERNELS["swin_attn_v3"].launches
-    got = swin_attention_half_v3(*args, **geo)
+    got = swin_attention_half_v3(*args, **geo, operands=b.kernel_operands())
     torch.cuda.synchronize()
     assert KERNELS["swin_attn_v3"].launches == before + 1
     want = swin_attention_half_v3_plain(*args, **geo)
@@ -552,11 +555,31 @@ def test_mlp_kernel_matches_plain(cuda, params, stage):
     x = _x(cuda, 60 + stage, (2, res * res, b.w2.shape[1]))
     mlp = (b.ln2_w, b.ln2_b, b.w1, b.b1, b.w2, b.b2)
     before = KERNELS["swin_mlp"].launches
-    got = mlp_block(x, *mlp, eps=b.eps)
+    got = mlp_block(x, *mlp, eps=b.eps, operands=b.kernel_operands())
     torch.cuda.synchronize()
     assert KERNELS["swin_mlp"].launches == before + 1
     want = mlp_block_plain(x, *mlp, eps=b.eps)
     _close(got, want, want.float() - x.float(), MLP_TOL[0][stage], MLP_TOL[1])
+
+
+@pytest.mark.parametrize(
+    "stage,shift", [(0, 0), (0, 4), (1, 0), (1, 4), (2, 0), (2, 4), (3, 0)]
+)
+def test_split_kernels_match_whole_block(cuda, params, stage, shift):
+    """#8 then #9 in bf16 against #1 bf16 on the same weights and inputs:
+    the same launches but for the bf16 rounding of the mid-block residual
+    (the whole block keeps it f32), within ``SPLIT_VS_WHOLE_TOL``."""
+    b, res = _half_block(params, cuda, stage, shift, "v3")
+    x = _x(cuda, 110 + stage + shift, (2, res, res, b.bp.shape[0]))
+    attn = (b.wqkv, b.bq3, b.wp, b.bp, b.bm)
+    mlp = (b.ln2_w, b.ln2_b, b.w1, b.b1, b.w2, b.b2)
+    geo = dict(heads=b.heads, window=b.window, shift=b.shift, eps=b.eps)
+    ops = b.kernel_operands()
+    half = swin_attention_half_v3(x, *attn, **geo, operands=ops)
+    split = mlp_block(half.view(2, res * res, -1), *mlp, eps=b.eps, operands=ops)
+    whole = swin_block(x, *attn, *mlp, **geo, operands=ops)
+    torch.cuda.synchronize()
+    _close(split.view(whole.shape), whole, whole.float() - x.float(), *SPLIT_VS_WHOLE_TOL)
 
 
 @pytest.mark.parametrize("conv", ["clap", "vggish"])
@@ -627,9 +650,11 @@ def test_split_kernels_raise_on_f32_and_cpu(cuda, params):
             call(x)
         with pytest.raises(NotImplementedError):
             call(x.half(), operands=ops)
+    bf, _ = _half_block(params, cuda, 1, 4, "v3")
+    ops = dict(bf.kernel_operands(), wqkv_t=bf.kernel_operands()["wqkv_t"].cpu())
     with pytest.raises(ValueError):
-        swin_attention_half_v3(x.bfloat16(), b.wqkv.bfloat16().cpu(), b.bq3, b.wp.bfloat16(),
-                               b.bp, b.bm, **geo)
+        swin_attention_half_v3(x.bfloat16(), bf.wqkv, bf.bq3, bf.wp, bf.bp, bf.bm, **geo,
+                               operands=ops)
 
 
 def _v2_block(params, cuda, stage, shift, dtype=torch.bfloat16):

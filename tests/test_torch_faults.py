@@ -164,7 +164,8 @@ def test_frontend_plain_version_calls_no_kernel_wrapper(monkeypatch):
 
 # ----------------------------------------------------------------------
 # f32 on the card: the f32 kernels of the whole block, the merge, the split
-# halves and the opt-in ops; no cast, no plain version; f16 raises
+# halves and the opt-in ops; no cast, no plain version; f16 raises.  And the
+# bf16 split halves on the operands held from load, raising without them
 # ----------------------------------------------------------------------
 class _OnCard(torch.Tensor):
     """A CPU tensor that reports itself on card 0."""
@@ -295,6 +296,73 @@ def test_card_f32_split_block_reaches_its_f32_kernels(symbols, attention):
     with pytest.raises(NotImplementedError):  # f16 has no kernel
         block(x.half())
     assert symbols == [attn, "am_swin_mlp_f32"]
+
+
+@pytest.mark.parametrize("attention", ["v3", "v1"])
+def test_card_bf16_split_block_reaches_its_kernels(symbols, attention):
+    """A bf16 v3 or v1 block on the card launches its bf16 attention half,
+    then the bf16 fused MLP, each once and no other kernel; the v3 half and
+    the MLP read the operands held from load (the whole block's transposed
+    matrices and column sums, the MLP's transposed ``w1``, ``w2``); bf16
+    out."""
+    block, _, x = _small_stage1(torch.bfloat16, attention)
+    ops = block.kernel_operands()
+    y, moved = _counted(lambda: block(x))
+    attn = f"am_swin_attn_{attention}"
+    assert symbols == [attn, "am_swin_mlp"]
+    assert moved == {f"swin_attn_{attention}": 1, "swin_mlp": 1}
+    for name in ("w1_t", "w2_t"):
+        assert ops[name].data_ptr() in symbols.args["am_swin_mlp"]
+    if attention == "v3":
+        for name in ("wqkv_t", "wp_t", "csum"):
+            assert ops[name].data_ptr() in symbols.args[attn]
+    assert y.dtype == torch.bfloat16 and y.shape == x.shape
+
+
+def test_card_bf16_split_halves_raise_without_operands(symbols):
+    """A bf16 tensor on the card without the operands made at load raises
+    ``ValueError`` naming their maker at the v3 half's and the fused MLP's
+    wrappers, and launches nothing: no fallback to a plain version."""
+    from audio_metrics_tpu_torch.ops.attention import swin_attention_half_v3
+    from audio_metrics_tpu_torch.ops.mlp import mlp_block
+
+    block, _, x = _small_stage1(torch.bfloat16, "v3")
+    geo = dict(heads=block.heads, window=block.window, shift=block.shift, eps=block.eps)
+    with pytest.raises(ValueError, match=r"swin_block_operands\(wqkv, wp, w1, w2\)"):
+        swin_attention_half_v3(x.view(2, 32, 32, 64), block.wqkv, block.bq3, block.wp, block.bp,
+                               block.bm, **geo)
+    with pytest.raises(ValueError, match=r"mlp_operands\(w1, w2\)"):
+        mlp_block(x, block.ln2_w, block.ln2_b, block.w1, block.b1, block.w2, block.b2,
+                  eps=block.eps)
+    assert symbols == []
+
+
+@pytest.mark.parametrize("half,name,wrong", [
+    ("mlp", "w1_t", lambda b, o: o["w2_t"]),  # another matrix's shape
+    ("mlp", "w2_t", lambda b, o: b.w2),  # not transposed
+    ("v3", "wqkv_t", lambda b, o: b.wqkv),  # not transposed
+    ("v3", "wp_t", lambda b, o: o["wp_t"][:32, :32].contiguous()),  # another width's
+    ("v3", "csum", lambda b, o: o["csum"][:64].contiguous()),
+], ids=["mlp-w1_t", "mlp-w2_t", "v3-wqkv_t", "v3-wp_t", "v3-csum"])
+def test_card_bf16_split_halves_check_operand_shapes(symbols, half, name, wrong):
+    """A bf16 split half on the card raises ``ValueError`` naming the
+    operand when one of the operands it reads has another shape than the
+    maker gives at this width, and launches nothing."""
+    from audio_metrics_tpu_torch.ops.attention import swin_attention_half_v3
+    from audio_metrics_tpu_torch.ops.mlp import mlp_block
+
+    block, _, x = _small_stage1(torch.bfloat16, "v3")
+    ops = block.kernel_operands()
+    ops = dict(ops, **{name: wrong(block, ops)})
+    with pytest.raises(ValueError, match=name):
+        if half == "mlp":
+            mlp_block(x, block.ln2_w, block.ln2_b, block.w1, block.b1, block.w2, block.b2,
+                      eps=block.eps, operands=ops)
+        else:
+            swin_attention_half_v3(x.view(2, 32, 32, 64), block.wqkv, block.bq3, block.wp,
+                                   block.bp, block.bm, heads=block.heads, window=block.window,
+                                   shift=block.shift, eps=block.eps, operands=ops)
+    assert symbols == []
 
 
 @pytest.mark.parametrize("op", ["v2", "int8"])

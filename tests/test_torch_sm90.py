@@ -1,8 +1,9 @@
 """The host side of the wgmma GEMM core (kernels/csrc/gemm_sm90.cuh), on the CPU.
 
-The whole Swin block (#1) and the fused frontend (#3) read their matrices
-K-major, transposed once when the weights load, and the qkv product reads
-the column sums of ``wqkv`` made at load.  Each is held here against the
+The whole Swin block (#1), its v3 attention half and fused MLP (#8, #9)
+and the fused frontend (#3) read their matrices K-major, transposed once
+when the weights load, and the qkv product reads the column sums of
+``wqkv`` made at load.  Each is held here against the
 JAX package's own weights: the transposed matrices equal the JAX layout
 bitwise, and the column sums equal the f32 sums of the bf16 ``wqkv`` that
 the JAX v4 kernel takes (audio_metrics_tpu/ops/attention.py:751).  The new
@@ -24,6 +25,7 @@ from audio_metrics_tpu_torch.kernels import check_sm90_gemm
 from audio_metrics_tpu_torch.models.clap import ClapFrontend, _clap_fb
 from audio_metrics_tpu_torch.models.htsat import HTSATConfig, SwinBlock, init_params
 from audio_metrics_tpu_torch.ops.attention import check_block_gemms, swin_block_operands
+from audio_metrics_tpu_torch.ops.mlp import mlp_operands
 from audio_metrics_tpu_torch.ops.frontend_fused import FRAME, HOP, _plan, check_frontend_gemms
 from audio_metrics_tpu_torch.ops.tf32 import tf32_split
 
@@ -75,11 +77,79 @@ def test_block_operands_at_load_match_jax(params, stage, shift):
     np.testing.assert_allclose(ops["csum"].numpy(), jax_csum, rtol=1e-6, atol=1e-6)
 
 
-def test_split_blocks_hold_no_kernel_operands(params):
-    """Only the whole-block path reads the transposed matrices."""
-    block = SwinBlock(params, "audio_encoder.layers.1.blocks.0", cfg, 32, 0, 8, torch.bfloat16,
-                      attention="v3")
-    assert not hasattr(block, "wqkv_t") and not hasattr(block, "csum")
+@pytest.mark.parametrize("attention", ["v3", "v1", "xla"])
+def test_split_blocks_hold_their_kernel_operands(params, attention):
+    """A bf16 v3 block holds the whole block's operands from load (its
+    attention half and fused MLP read them): each matrix the JAX v3 layout
+    transposed, and the column sums of its bf16 ``wqkv``; a bf16 v1 or XLA
+    block holds the fused MLP's ``w1_t`` and ``w2_t`` alone.  All held as
+    buffers, so they move with the block."""
+    pre = "audio_encoder.layers.1.blocks.1"
+    block = SwinBlock(params, pre, cfg, 32, 4, cfg.num_heads[1], torch.bfloat16,
+                      attention=attention)
+    want = {"w1_t": _bf16(params[f"{pre}.intermediate.dense.weight"].T),
+            "w2_t": _bf16(params[f"{pre}.output.dense.weight"].T)}
+    if attention == "v3":
+        wqkv, _, wp, _, _ = jax_v3_weights({k: jnp.asarray(v) for k, v in params.items()}, pre,
+                                           32, 4, cfg.num_heads[1], cfg.window_size, jnp.bfloat16)
+        want.update(wqkv_t=_bf16(wqkv), wp_t=_bf16(wp))
+    ops = block.kernel_operands()
+    assert set(ops) == set(want) | ({"csum"} if attention == "v3" else set())
+    for name, w in want.items():
+        assert ops[name].dtype == torch.bfloat16 and ops[name].is_contiguous()
+        assert torch.equal(ops[name].t(), w), name
+    if attention == "v3":
+        assert torch.equal(ops["csum"], block.wqkv.float().sum(dim=0))
+    buffers = dict(block.named_buffers())
+    assert all(buffers[name] is t for name, t in ops.items())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mlp_operands_of_any_dtype(dtype):
+    """``mlp_operands`` holds ``w1`` and ``w2`` transposed in bf16 and as
+    their transposes' TF32 hi over lo stacks in f32: the same matrices a
+    whole block's ``swin_block_operands`` holds."""
+    g = torch.Generator().manual_seed(1)
+    w = [torch.randn(shape, generator=g).to(dtype) for shape in
+         ((128, 384), (128, 128), (128, 512), (512, 128))]
+    ops = mlp_operands(w[2], w[3])
+    assert set(ops) == {"w1_t", "w2_t"}
+    block_ops = swin_block_operands(*w)
+    for name, m in (("w1_t", w[2]), ("w2_t", w[3])):
+        want = tf32_split(m.t()) if dtype == torch.float32 else m.t()
+        assert ops[name].dtype == dtype and ops[name].is_contiguous()
+        assert torch.equal(ops[name], want) and torch.equal(ops[name], block_ops[name])
+
+
+@pytest.mark.parametrize("attention", ["v3", "v1", "xla"])
+def test_split_forward_hands_the_wrappers_their_operands(monkeypatch, attention):
+    """A bf16 split block's forward passes its operands held from load to
+    the attention-half wrapper and to the fused MLP's (stage 1 of the small
+    config at 2 images: 2048 rows of 1024 tokens, the fused MLP)."""
+    from audio_metrics_tpu_torch.models import htsat
+
+    calls = {}
+
+    def spy(name):
+        def wrapper(x, *args, **kwargs):
+            calls[name] = kwargs.get("operands")
+            return x
+        return wrapper
+
+    for name in ("swin_attention_half_v3", "swin_attention_half_v1", "mlp_block"):
+        monkeypatch.setattr(htsat, name, spy(name))
+    small = HTSATConfig(embed_dim=32, depths=(2, 2, 2, 2), num_heads=(1, 2, 4, 8))
+    block = SwinBlock(init_params(small, seed=0), "audio_encoder.layers.1.blocks.1", small, 32,
+                      4, 2, torch.bfloat16, attention=attention)
+    block(torch.zeros((2, 32 * 32, 64), dtype=torch.bfloat16))
+    ops = block.kernel_operands()
+    want = {"mlp_block"} | ({f"swin_attention_half_{attention}"} if attention != "xla" else set())
+    assert set(calls) == want
+    for got in calls.values():
+        assert got.keys() == ops.keys() and all(got[k] is ops[k] for k in ops)
+    assert {"w1_t", "w2_t"} <= ops.keys()
+    if attention == "v3":
+        assert {"wqkv_t", "wp_t", "csum"} <= ops.keys()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
