@@ -75,6 +75,14 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// x rounded to TF32, to nearest with ties away from zero (low 13 bits zero):
+// the split of the 3xTF32 products (gemm_tf32x3_sm90.cuh, window_attn.cuh)
+__device__ __forceinline__ float rna_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return __uint_as_float(r);
+}
+
 // Window-ordered row rr of one R x R image (window wi, position i inside
 // it) -> the row of the UN-rolled image it reads: the block rolls by
 // -shift (x4[y][x] = x[(y+shift)%R][(x+shift)%R]) before partitioning, and

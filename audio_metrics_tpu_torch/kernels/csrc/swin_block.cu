@@ -43,8 +43,9 @@
 // TF32 products each (gemm_tf32x3_sm90.cuh: f32-level accuracy, ~165
 // TFLOP/s of f32-accurate products against the CUDA cores' 67), with the
 // same epilogue arithmetic in f32 out, reading the weights split into TF32
-// hi and lo parts at load; the window attention's products stay f32 FMAs
-// (window_attn.cuh's f32 instantiation).  The operations bound it.
+// hi and lo parts at load; the window attention's two products run as
+// three TF32 products too, on mma.sync (window_attn.cuh's f32
+// instantiation).  The operations bound it.
 //
 // Its two halves are entries of their own in both dtypes, for the blocks
 // that the JAX package splits (AM_TPU_V4_STAGES, AM_TPU_ATTN_V1) and its
@@ -360,6 +361,15 @@ extern "C" int am_swin_attn_v2_f32(const float* x, const float* ln_w, const floa
                                    float* qkv, float* ctx, float* out, cudaStream_t stream) {
   return attn_half_f32(x, ln_w, ln_b, wqkv_s, nullptr, bq3, wp_s, bp, bm, nbm, B, R, C, heads,
                        win, shift, eps, nullptr, xn, qkv, ctx, out, stream);
+}
+
+// The f32 window attention alone, launch 3 of am_swin_block_f32 and of the
+// f32 attention halves: qkv (windows*64, 3C) f32 in window order, q
+// pre-scaled; bm (nbm, heads, 64, 64) f32; ctx (windows*64, C) f32.  No
+// model path calls it: profile_window_attn.py times the kernel through it.
+extern "C" int am_window_attn_f32(const float* qkv, const float* bm, int nbm, int windows,
+                                  int heads, int C, float* ctx, cudaStream_t stream) {
+  return launch_window_attn(qkv, bm, nbm, windows, heads, C, ctx, stream);
 }
 
 // #9 in f32, the fused MLP: am_swin_block_f32's launches 5-7 on (M, C) rows

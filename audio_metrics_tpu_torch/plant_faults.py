@@ -65,6 +65,10 @@ FAULTS = {
            "      wgmma_bn<BN>(tmp, smem_desc(a_hi + kk * 32), smem_desc(b_lo + kk * 32), 1);\n",
            "      wgmma_bn<BN>(tmp, smem_desc(a_hi + kk * 32), smem_desc(b_lo + kk * 32), kk > 0);\n",
            "the 3xTF32 core drops the A_lo . B_hi product"),
+    "W1": (f"{CSRC}/window_attn.cuh",
+           "mma_tf32x3(t[n], ph, pl, vh, vl);",
+           "mma_tf32(t[n], ph, vl);\n        mma_tf32(t[n], ph, vh);",
+           "the f32 window attention's P.V drops the A_lo . B_hi product"),
     "N1": (f"{CSRC}/swin_block.cu",
            "const float4 b = *reinterpret_cast<const float4*>(ln_b + k);",
            "const float4 b = make_float4(0.f, 0.f, 0.f, 0.f);",

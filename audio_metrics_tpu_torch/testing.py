@@ -139,15 +139,24 @@ def laion_state_dict(params: dict, prefix: str = "module.") -> dict:
     return out
 
 
-def tf32x3_matmul(a: torch.Tensor, b: torch.Tensor, terms: int = 3) -> torch.Tensor:
+def tf32x3_matmul(a: torch.Tensor, b: torch.Tensor, terms: int = 3,
+                  k_step: int | None = None) -> torch.Tensor:
     """``a @ b`` (f32) as the 3xTF32 kernels compute it
-    (kernels/csrc/gemm_tf32x3_sm90.cuh): both operands split into TF32 hi
-    and lo parts (``ops.tf32``), the products A_lo @ B_hi + A_hi @ B_lo +
-    A_hi @ B_hi summed small terms first, each in f32.  ``terms=1`` keeps
-    A_hi @ B_hi alone, one TF32 product.  Callers hold full f32 products
-    (TF32 off) on a card."""
+    (kernels/csrc/gemm_tf32x3_sm90.cuh, window_attn.cuh): both operands
+    split into TF32 hi and lo parts (``ops.tf32``), the products A_lo @ B_hi
+    + A_hi @ B_lo + A_hi @ B_hi summed small terms first, each in f32.
+    ``terms=1`` keeps A_hi @ B_hi alone, one TF32 product.  ``k_step``: the
+    depth that the kernels sum into a fresh accumulator (32): the product
+    of each slice of that depth in turn, the slices' sums added in f32 in
+    depth order.  Callers hold full f32 products (TF32 off) on a card."""
     from .ops.tf32 import tf32_round
 
+    if k_step is not None and a.shape[-1] > k_step:
+        out = None
+        for k in range(0, a.shape[-1], k_step):
+            part = tf32x3_matmul(a[..., k : k + k_step], b[..., k : k + k_step, :], terms)
+            out = part if out is None else out + part
+        return out
     a_hi, b_hi = tf32_round(a.float()), tf32_round(b.float())
     hi = torch.matmul(a_hi, b_hi)
     if terms == 1:

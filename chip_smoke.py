@@ -7,8 +7,9 @@ Phases, one status line each:
   2. build of the CUDA kernels from the repository's sources (nvcc, one
      process per source, all started together), and ``cuobjdump -sass`` of
      the library: the halo log-mel's kernel and the f32 block's and merge's
-     products hold HGMMA and UTMALDG (wgmma, fed by TMA), the PRDC
-     statistics' LDGSTS (cp.async);
+     products hold HGMMA and UTMALDG (wgmma, fed by TMA), the f32 window
+     attention HMMA (mma.sync on the tensor cores), the PRDC statistics'
+     LDGSTS (cp.async);
   3. each kernel against its plain PyTorch version on the card, at the
      main-path shapes, with errors, tolerances and times: bf16 Swin blocks
      (every stage shifted and unshifted), patch merges and the 5 s
@@ -222,10 +223,13 @@ TIMING_ITERS = {"patch_merge": 200, "knn_radii": 200, "prdc_stats": 200, "log_me
 # of each named kernel (a pattern searched in the mangled name) must contain
 # (cuobjdump -sass of the built library): the halo log-mel's DFT and the
 # f32 block's and merge's 3xTF32 products on wgmma (HGMMA) fed by TMA
-# (UTMALDG); the PRDC statistics' products fed by cp.async (LDGSTS)
+# (UTMALDG); the f32 window attention's 3xTF32 products (the float
+# instantiation of window_attn_kernel, inside #1 and #8-#11 in f32) on
+# mma.sync (HMMA); the PRDC statistics' products fed by cp.async (LDGSTS)
 SASS_WANT = {"log_mel": ("log_mel_sm90_kernel", ("HGMMA", "UTMALDG")),
              "swin_block_f32": ("gemm_tf32x3_kernel.*RowsA", ("HGMMA", "UTMALDG")),
              "patch_merge_f32": ("gemm_tf32x3_kernel.*MergeA", ("HGMMA", "UTMALDG")),
+             "window_attn_f32": ("window_attn_kernelIfE", ("HMMA",)),
              "prdc_stats": ("stats_split_kernel", ("LDGSTS",))}
 
 
@@ -262,8 +266,8 @@ def swin_bound(cfg, b, part="block", stages=(0, 1, 2, 3), dt="bf16"):
     f32).  ``part`` "block": the qkv, proj, fc1 and fc2 products (24 T C^2)
     and the window attention (4 T win^2 C); "attn": qkv, proj and attention
     (8 T C^2 + 4 T win^2 C); "mlp": fc1 and fc2 (16 T C^2).  In f32 the
-    products are reckoned as the card's fastest f32-accurate route computes
-    them, three TF32 products each (3xTF32), and the attention as f32 FMAs;
+    products and the window attention's are reckoned as the card's fastest
+    f32-accurate route computes them, three TF32 products each (3xTF32);
     the operations returned are then the f32 ones.  Bytes: each block's
     input and output rows and its weights (12, 4 or 8 C^2) in ``dt``."""
     size = 2 if dt == "bf16" else 4
@@ -278,7 +282,7 @@ def swin_bound(cfg, b, part="block", stages=(0, 1, 2, 3), dt="bf16"):
             n_bytes += depth * (2 * t * c + {"block": 12, "attn": 4, "mlp": 8}[part] * c * c) * size
         res //= 2
     if dt == "f32":
-        ms, by, _ = bound({"tf32": 3 * prod, "f32": attn}, n_bytes)
+        ms, by, _ = bound({"tf32": 3 * (prod + attn)}, n_bytes)
         return ms, by, float(prod + attn)
     return bound({dt: prod + attn}, n_bytes)
 

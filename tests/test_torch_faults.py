@@ -24,6 +24,7 @@ absent when the sources change.
 
 import contextlib
 import ctypes
+import importlib
 import inspect
 
 import numpy as np
@@ -142,6 +143,15 @@ def test_planted_fault_occurs_once_in_its_source(name):
     path, text, replacement, _ = FAULTS[name]
     assert text != replacement
     assert (ROOT / path).read_text().count(text) == 1
+
+
+@pytest.mark.parametrize("tool", ["profile_evaluate", "profile_window_attn", "plant_faults"])
+def test_card_tools_exit_nonzero_without_a_card(monkeypatch, tool):
+    """The measurement and fault tools fail where no card is: none of them
+    falls back to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    main = importlib.import_module(f"audio_metrics_tpu_torch.{tool}").main
+    assert main([]) != 0
 
 
 def test_frontend_plain_version_calls_no_kernel_wrapper(monkeypatch):

@@ -18,7 +18,12 @@ parts (``ops.tf32``), A_lo @ B_hi + A_hi @ B_lo + A_hi @ B_hi.  Here:
   ``patch_merge_pallas``, in interpret mode), within ``chip_smoke.py``'s
   f32 bounds at every stage each runs (the halves take the whole block's
   bounds, relative to what each adds); with one TF32 product (hi @ hi) the
-  same comparison reads at least 10x above them, so the check can fail;
+  same comparison reads at least 10x above them, so the check can fail.
+  The block and the attention halves also run with the window
+  attention's batched products (q @ k^T, P @ V) as the kernel computes
+  them on the card (kernels/csrc/window_attn.cuh: three TF32 products, a
+  fresh sum per K step of 32, the steps added in f32), and with one TF32
+  product there, which must again read 10x above the bounds;
 - the shapes the f32 kernels take (the f32 merge's A through the shared
   4-D tensor map, at K steps of 32, is held in tests/test_torch_merge.py);
 - the f32 mel chain's tables, uploaded once per device.
@@ -116,6 +121,22 @@ def test_tf32_split_parts_hold_the_weight():
     assert ((hi.double() - w.double()).abs() / w.double().abs()).max().item() <= 2.0**-11
 
 
+def test_tf32x3_matmul_sums_each_k_step_apart():
+    """``k_step``: each slice of 32 in depth is its own 3xTF32 product, the
+    slices added in f32 in depth order; all of it within 2^-20 of the
+    float64 product, relative to |a| @ |b|."""
+    rng = np.random.default_rng(3)
+    a = torch.from_numpy(rng.standard_normal((2, 16, 64)).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal((2, 64, 32)).astype(np.float32))
+    got = tf32x3_matmul(a, b, k_step=32)
+    want = tf32x3_matmul(a[..., :32], b[..., :32, :]) + tf32x3_matmul(a[..., 32:], b[..., 32:, :])
+    assert torch.equal(got, want)
+    assert torch.equal(tf32x3_matmul(a, b, k_step=64), tf32x3_matmul(a, b))
+    exact = a.double() @ b.double()
+    scale = a.double().abs() @ b.double().abs()
+    assert ((got.double() - exact).abs() / scale).max().item() <= 2.0**-20
+
+
 def _params():
     """init_params re-drawn as chip_smoke.check_params draws them."""
     rng = np.random.default_rng(0)
@@ -156,27 +177,37 @@ def test_f32_operands_are_the_split_weights():
     assert bf.wqkv_t.shape == bf.wqkv.t().shape  # bf16: transposed only
 
 
-def _products(monkeypatch, terms):
+# (TF32 products of the weight products, of the window attention's batched
+# products: 0 keeps those f32)
+PRODUCTS = [pytest.param(3, 0, id="3-attn_f32"), pytest.param(1, 0, id="1-attn_f32"),
+            pytest.param(3, 3, id="3-attn_3xtf32"), pytest.param(3, 1, id="3-attn_1xtf32")]
+
+
+def _products(monkeypatch, terms, attn=0):
     """The plain versions' weight products (the operands' second factor a
     matrix: qkv, proj, fc1, fc2, the MLP half's and the merge's) as the
     kernels' 3xTF32 product, or one TF32 product; the window attention's
-    batched products stay f32, as on the card."""
+    batched products f32 (``attn`` 0) or as the f32 window attention
+    kernel's ``attn`` TF32 products, a fresh sum per K step of 32."""
     f32 = attention._mm
 
     def mm(a, b):
-        return tf32x3_matmul(a, b, terms) if b.dim() == 2 else f32(a, b)
+        if b.dim() == 2:
+            return tf32x3_matmul(a, b, terms)
+        return tf32x3_matmul(a, b, attn, k_step=32) if attn else f32(a, b)
 
     monkeypatch.setattr(attention, "_mm", mm)
     monkeypatch.setattr(merge, "_mm", lambda a, b: tf32x3_matmul(a, b, terms))
     monkeypatch.setattr(mlp, "_mm", lambda a, b: tf32x3_matmul(a, b, terms))
 
 
-def _held(got, want, x, stage, terms):
+def _held(got, want, x, stage, terms, attn=0):
     """The f32 bounds of ``stage`` on the error relative to what the kernel
-    adds (out - x) with three TF32 products; 10x above them with one."""
+    adds (out - x) with three TF32 products (or f32) everywhere; 10x above
+    them with one TF32 product in the weight or the attention products."""
     err = np.abs(np.asarray(got).reshape(want.shape) - want)
     rel = err.mean() / np.abs(want - x.reshape(want.shape)).mean()
-    if terms == 3:
+    if terms == 3 and attn != 1:
         assert rel <= BLOCK_REL[stage] and err.max() <= BLOCK_MAX, (rel, err.max())
     else:
         assert rel >= 10 * BLOCK_REL[stage], rel
@@ -189,9 +220,9 @@ def _x(seed, shape):
 j = lambda t: jnp.asarray(t.numpy())
 
 
-@pytest.mark.parametrize("terms", [3, 1])
+@pytest.mark.parametrize("terms,attn", PRODUCTS)
 @pytest.mark.parametrize("stage,shift", STAGE_SHIFTS)
-def test_block_3xtf32_against_the_jax_f32_kernel(monkeypatch, stage, shift, terms):
+def test_block_3xtf32_against_the_jax_f32_kernel(monkeypatch, stage, shift, terms, attn):
     block, res = _block(stage, shift)
     c = block.wqkv.shape[0]
     x = np.random.default_rng(10 * stage + shift).standard_normal((1, res, res, c))
@@ -203,31 +234,27 @@ def test_block_3xtf32_against_the_jax_f32_kernel(monkeypatch, stage, shift, term
         j(block.b2), block.heads, block.window, block.shift, eps=block.eps, gelu="exact",
         interpret=True,
     ))
-    _products(monkeypatch, terms)
-    got = block(torch.from_numpy(x).reshape(1, res * res, c), plain=True).numpy()
-    err = np.abs(got.reshape(want.shape) - want)
-    rel = err.mean() / np.abs(want - x).mean()
-    if terms == 3:
-        assert rel <= BLOCK_REL[stage] and err.max() <= BLOCK_MAX, (rel, err.max())
-    else:
-        assert rel >= 10 * BLOCK_REL[stage], rel
+    _products(monkeypatch, terms, attn)
+    _held(block(torch.from_numpy(x).reshape(1, res * res, c), plain=True).numpy(), want, x,
+          stage, terms, attn)
 
 
-@pytest.mark.parametrize("terms", [3, 1])
+@pytest.mark.parametrize("terms,attn", PRODUCTS)
 @pytest.mark.parametrize("stage,shift", STAGE_SHIFTS)
-def test_attention_half_v3_3xtf32_against_the_jax_f32_kernel(monkeypatch, stage, shift, terms):
+def test_attention_half_v3_3xtf32_against_the_jax_f32_kernel(monkeypatch, stage, shift, terms,
+                                                             attn):
     """#8 in f32: the v3 half (the LN1 affine folded into wqkv and bq3)."""
     block, res = _block(stage, shift, "v3")
     x = _x(20 + 10 * stage + shift, (1, res, res, block.wqkv.shape[0]))
     geo = dict(heads=block.heads, window=block.window, shift=block.shift, eps=block.eps)
-    attn = (block.wqkv, block.bq3, block.wp, block.bp, block.bm)
+    w = (block.wqkv, block.bq3, block.wp, block.bp, block.bm)
     want = np.asarray(swin_attention_block_pallas_v3(
-        jnp.asarray(x), None, None, *map(j, attn), block.heads, block.window, block.shift,
+        jnp.asarray(x), None, None, *map(j, w), block.heads, block.window, block.shift,
         eps=block.eps, interpret=True,
     ))
-    _products(monkeypatch, terms)
-    _held(swin_attention_half_v3_plain(torch.from_numpy(x), *attn, **geo).numpy(), want, x,
-          stage, terms)
+    _products(monkeypatch, terms, attn)
+    _held(swin_attention_half_v3_plain(torch.from_numpy(x), *w, **geo).numpy(), want, x,
+          stage, terms, attn)
 
 
 @pytest.mark.parametrize("terms", [3, 1])
@@ -244,9 +271,10 @@ def test_mlp_3xtf32_against_the_jax_f32_kernel(monkeypatch, stage, terms):
     _held(mlp_block_plain(torch.from_numpy(x), *w, eps=block.eps).numpy(), want, x, stage, terms)
 
 
-@pytest.mark.parametrize("terms", [3, 1])
+@pytest.mark.parametrize("terms,attn", PRODUCTS)
 @pytest.mark.parametrize("stage,shift", [(0, 0), (0, 4), (1, 0), (1, 4)])
-def test_attention_half_v1_3xtf32_against_the_jax_f32_kernel(monkeypatch, stage, shift, terms):
+def test_attention_half_v1_3xtf32_against_the_jax_f32_kernel(monkeypatch, stage, shift, terms,
+                                                             attn):
     """#10 in f32: the v1 half (per-head weights, the LN1 affine in the
     kernel) at the stages of >= 16 windows, where the path runs it."""
     block, res = _block(stage, shift, "v1")
@@ -258,14 +286,15 @@ def test_attention_half_v1_3xtf32_against_the_jax_f32_kernel(monkeypatch, stage,
         jnp.asarray(x), *map(j, w), block.heads, block.window, block.shift, eps=block.eps,
         interpret=True,
     ))
-    _products(monkeypatch, terms)
+    _products(monkeypatch, terms, attn)
     _held(swin_attention_half_v1_plain(torch.from_numpy(x), *w, **geo).numpy(), want, x, stage,
-          terms)
+          terms, attn)
 
 
-@pytest.mark.parametrize("terms", [3, 1])
+@pytest.mark.parametrize("terms,attn", PRODUCTS)
 @pytest.mark.parametrize("stage,shift", STAGE_SHIFTS)
-def test_attention_half_v2_3xtf32_against_the_jax_f32_kernel(monkeypatch, stage, shift, terms):
+def test_attention_half_v2_3xtf32_against_the_jax_f32_kernel(monkeypatch, stage, shift, terms,
+                                                             attn):
     """#11 in f32: the v2 half ((C, 3C) qkv, (C, C) proj, the LN1 affine in
     the kernel)."""
     block, res = _block(stage, shift, "v3")
@@ -279,9 +308,9 @@ def test_attention_half_v2_3xtf32_against_the_jax_f32_kernel(monkeypatch, stage,
         jnp.asarray(x), *map(j, w), block.heads, block.window, block.shift, eps=block.eps,
         interpret=True,
     ))
-    _products(monkeypatch, terms)
+    _products(monkeypatch, terms, attn)
     _held(swin_attention_half_v2_plain(torch.from_numpy(x), *w, **geo).numpy(), want, x, stage,
-          terms)
+          terms, attn)
 
 
 @pytest.mark.parametrize("terms", [3, 1])
