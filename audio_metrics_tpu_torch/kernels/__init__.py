@@ -234,7 +234,7 @@ KERNELS = {
         ),
         Kernel(
             "swin_attn_v1",
-            "audio_metrics_tpu_torch/kernels/csrc/swin_halves.cu",
+            "audio_metrics_tpu_torch/kernels/csrc/swin_block.cu",
             "audio_metrics_tpu/ops/attention.py:400",
         ),
         Kernel(
@@ -244,7 +244,7 @@ KERNELS = {
         ),
         Kernel(
             "swin_attn_v2",
-            "audio_metrics_tpu_torch/kernels/csrc/swin_halves.cu",
+            "audio_metrics_tpu_torch/kernels/csrc/swin_block.cu",
             "audio_metrics_tpu/ops/attention.py:363",
         ),
         Kernel(

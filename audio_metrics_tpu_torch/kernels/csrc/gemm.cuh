@@ -1,24 +1,15 @@
 // Shared building blocks of the hand-written Hopper kernels.
 //
-// gemm_kernel<AMODE, EPI>: a bf16 x bf16 -> f32-accumulate tensor-core GEMM
-// (WMMA 16x16x16 fragments, 64x64 block tile, BK=32, 4 warps of 32x32),
-// C = A (M x K, bf16) @ B (K x N, bf16 row-major), with
-//   - an A-row map (AMODE) that gathers rows by index arithmetic instead of
-//     materialising a gathered copy: plain rows, or the Swin window
-//     partition under the cyclic roll;
-//   - an optional in-block LayerNorm-statistics prologue (centered two-pass,
-//     f32) over each A row, for epilogues that fold the LN through the
-//     product (rs * (x @ W) - rs * mu * (1 @ W) + b);
-//   - an epilogue (EPI) that applies biases, residuals, activation and the
-//     output row map, staged through shared memory so global stores are
-//     coalesced along N.
-// blockIdx.z indexes independent batch slices (strides a_batch / b_batch /
-// o_batch, 0 for a shared operand).
-//
-// Simple and right first: single-buffered shared tiles loaded with 16-byte
-// vector loads, no cp.async/TMA/wgmma.  Requirements checked by the Python
-// wrappers: K % 32 == 0, N % 64 == 0, 16-byte aligned rows (lda, ldb
-// multiples of 8 elements).  M may be ragged.
+// gemm_kernel<EPI_POWER>: the v1 log-mel's DFT product (#7, log_mel.cu
+// am_log_mel_v1), a bf16 x bf16 -> f32-accumulate tensor-core GEMM (WMMA
+// 16x16x16 fragments, 64x64 block tile, BK=32, 4 warps of 32x32), C = A
+// (M x K, bf16) @ B (K x N, bf16 row-major), whose epilogue writes the
+// power of each interleaved (re, im) column pair, staged through shared
+// memory.  Single-buffered shared tiles loaded with 16-byte vector loads,
+// no cp.async/TMA/wgmma; the other bf16 and f32 GEMMs run on the wgmma
+// cores (gemm_sm90.cuh, gemm_tf32x3_sm90.cuh).  Requirements checked by
+// the Python wrapper: K % 32 == 0, N % 64 == 0, 16-byte aligned rows (lda,
+// ldb multiples of 8 elements).  M may be ragged.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -36,31 +27,28 @@ constexpr int LDA_S = BK + 8;  // shared row pitches: multiples of 8 bf16 /
 constexpr int LDB_S = BN + 8;  // 4 f32 as WMMA requires, padded against
 constexpr int LDC_S = BN + 4;  // bank conflicts
 
-enum AMode { A_ROWS = 0, A_WINDOW = 1 };
+// The epilogues of the wgmma cores (gemm_sm90.cuh epilogue8, bf16;
+// gemm_tf32x3_sm90.cuh epi_f32, f32 in and out) and of gemm_kernel
+// (EPI_POWER).
 enum Epi {
   EPI_QKV = 0,    // bf16 out = acc*rs - rs*mu*colsum(B) + v0      (LN1 fold)
   EPI_PROJ,       // f32 out[map(r)] = acc + v0 + res_bf16[map(r)] (un-partition, un-roll, residual)
   EPI_GELU,       // bf16 out = gelu_erf(acc + v0)
   EPI_RESID,      // bf16 out = acc + v0 + res_f32
-  EPI_MERGE,      // gemm_sm90.cuh only: bf16 out = acc*rs + (v0 - mu*rs*csum) (merge LN fold)
+  EPI_MERGE,      // bf16 out = acc*rs + (v0 - mu*rs*csum)         (merge LN fold)
   EPI_POWER,      // f32 out[n/2] = acc[n]^2 + acc[n+1]^2          (interleaved re/im)
   EPI_INTERP,     // bf16 out[r % rg][(r / rg)*N + n] = acc        (phase rows -> lanes)
   EPI_BIAS_F32,   // f32 out = acc + v0
   EPI_PROJ_BF16,  // bf16 out[map(r)] = acc + v0 + res_bf16[map(r)] (EPI_PROJ, bf16 out)
   EPI_BIAS_BF16,  // bf16 out = acc + v0
-  EPI_RESID_IN,   // gemm_sm90.cuh only: bf16 out = acc + v0 + res_bf16 (the MLP half's input)
+  EPI_RESID_IN,   // bf16 out = acc + v0 + res_bf16                (the MLP half's input)
 };
 
 struct GemmParams {
   int M, N, K;
-  const bf16* A; long long lda; long long a_batch;
-  const bf16* B; long long ldb; long long b_batch;
-  void* out; long long ldo; long long o_batch;
-  int R, win, shift;  // image geometry for the A_WINDOW map
-  float eps;
-  const float* v0;
-  const void* res;
-  int rg;
+  const bf16* A; long long lda;
+  const bf16* B; long long ldb;
+  float* out; long long ldo;
 };
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -94,15 +82,6 @@ __device__ __forceinline__ int window_src(int rr, int R, int win, int shift) {
   const int y = (wi / nwc) * win + i / win;
   const int x = (wi % nwc) * win + i % win;
   return ((y + shift) % R) * R + (x + shift) % R;
-}
-
-template <int AM>
-__device__ __forceinline__ const bf16* a_ptr(const GemmParams& p, int z, int r, int k) {
-  if (AM == A_ROWS) return p.A + z * p.a_batch + (long long)r * p.lda + k;
-  const int rr2 = p.R * p.R;  // A_WINDOW
-  const int img = r / rr2;
-  const int src = window_src(r - img * rr2, p.R, p.win, p.shift);
-  return p.A + ((long long)img * rr2 + src) * p.lda + k;
 }
 
 __device__ __forceinline__ void add8(const uint4& v, float& s) {
@@ -147,39 +126,20 @@ __device__ __forceinline__ void sq16(const uint4& v, float mu, float& s) {
   }
 }
 
-template <int AM, int EPI>
+// A template, instantiated only where it is launched (log_mel.cu): a kernel
+// defined in this header would otherwise be compiled into every source.
+template <int EPI>
 __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(const GemmParams p) {
-  static_assert(EPI != EPI_MERGE && EPI != EPI_RESID_IN, "an epilogue of gemm_sm90.cuh only");
+  static_assert(EPI == EPI_POWER, "the WMMA core keeps #7's epilogue only");
   constexpr int AB_BYTES = (BM * LDA_S + BK * LDB_S) * 2;
   constexpr int C_BYTES = BM * LDC_S * 4;
   __shared__ __align__(128) unsigned char smem[AB_BYTES > C_BYTES ? AB_BYTES : C_BYTES];
-  __shared__ float s_mu[BM], s_rs[BM], s_csum[BN];
   bf16* As = reinterpret_cast<bf16*>(smem);
   bf16* Bs = As + BM * LDA_S;
   float* Cs = reinterpret_cast<float*>(smem);  // reused after the K loop
 
-  const int z = blockIdx.z, m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  constexpr bool STATS = EPI == EPI_QKV;
-
-  if (STATS) {
-    for (int rr = warp; rr < BM; rr += GEMM_THREADS / 32) {
-      const int r = m0 + rr;
-      float mu = 0.f, rs = 0.f;
-      if (r < p.M) {
-        float s = 0.f;
-        for (int k = lane * 8; k < p.K; k += 256)
-          add8(*reinterpret_cast<const uint4*>(a_ptr<AM>(p, z, r, k)), s);
-        mu = warp_sum(s) / p.K;
-        float v = 0.f;
-        for (int k = lane * 8; k < p.K; k += 256)
-          sq8(*reinterpret_cast<const uint4*>(a_ptr<AM>(p, z, r, k)), mu, v);
-        rs = rsqrtf(warp_sum(v) / p.K + p.eps);
-      }
-      if (lane == 0) { s_mu[rr] = mu; s_rs[rr] = rs; }
-    }
-  }
-  float csum = 0.f;  // EPI_QKV: column sum of B (== 1 @ W) for column tid
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int tid = threadIdx.x, warp = tid >> 5;
 
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
 #pragma unroll
@@ -187,26 +147,21 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(const GemmParams p) 
 #pragma unroll
     for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
   const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
-  const bf16* Bz = p.B + z * p.b_batch;
 
   for (int k0 = 0; k0 < p.K; k0 += BK) {
     for (int i = tid; i < BM * BK / 8; i += GEMM_THREADS) {
       const int row = i / (BK / 8), col = (i % (BK / 8)) * 8;
       const int r = m0 + row;
       uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (r < p.M) v = *reinterpret_cast<const uint4*>(a_ptr<AM>(p, z, r, k0 + col));
+      if (r < p.M) v = *reinterpret_cast<const uint4*>(p.A + (long long)r * p.lda + k0 + col);
       *reinterpret_cast<uint4*>(&As[row * LDA_S + col]) = v;
     }
     for (int i = tid; i < BK * BN / 8; i += GEMM_THREADS) {
       const int row = i / (BN / 8), col = (i % (BN / 8)) * 8;
       *reinterpret_cast<uint4*>(&Bs[row * LDB_S + col]) =
-          *reinterpret_cast<const uint4*>(Bz + (long long)(k0 + row) * p.ldb + n0 + col);
+          *reinterpret_cast<const uint4*>(p.B + (long long)(k0 + row) * p.ldb + n0 + col);
     }
     __syncthreads();
-    if (EPI == EPI_QKV && tid < BN) {
-#pragma unroll 8
-      for (int kk = 0; kk < BK; ++kk) csum += __bfloat162float(Bs[kk * LDB_S + tid]);
-    }
 #pragma unroll
     for (int kk = 0; kk < BK; kk += 16) {
       wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[2];
@@ -222,7 +177,6 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(const GemmParams p) 
     }
     __syncthreads();
   }
-  if (EPI == EPI_QKV && tid < BN) s_csum[tid] = csum;
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -231,63 +185,20 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(const GemmParams p) 
                               wmma::mem_row_major);
   __syncthreads();
 
-  for (int i = tid; i < BM * BN; i += GEMM_THREADS) {
-    const int row = i / BN, col = i % BN;
-    const int r = m0 + row, n = n0 + col;
+  for (int i = tid; i < BM * BN / 2; i += GEMM_THREADS) {  // one (re, im) pair each
+    const int row = i / (BN / 2), col = 2 * (i % (BN / 2));
+    const int r = m0 + row;
     if (r >= p.M) continue;
-    const float a = Cs[row * LDC_S + col];
-    if (EPI == EPI_QKV) {
-      const float rs = s_rs[row];
-      const float v = a * rs - rs * s_mu[row] * s_csum[col] + p.v0[n];
-      static_cast<bf16*>(p.out)[(long long)r * p.ldo + n] = __float2bfloat16(v);
-    } else if (EPI == EPI_PROJ) {
-      const int rr2 = p.R * p.R;
-      const int img = r / rr2;
-      const long long o = (long long)img * rr2 + window_src(r - img * rr2, p.R, p.win, p.shift);
-      const float x = __bfloat162float(static_cast<const bf16*>(p.res)[o * p.ldo + n]);
-      static_cast<float*>(p.out)[o * p.ldo + n] = a + p.v0[n] + x;
-    } else if (EPI == EPI_GELU) {
-      const float v = a + p.v0[n];
-      const float g = 0.5f * v * (1.f + erff(v * 0.7071067811865476f));
-      static_cast<bf16*>(p.out)[(long long)r * p.ldo + n] = __float2bfloat16(g);
-    } else if (EPI == EPI_RESID) {
-      const long long o = (long long)r * p.ldo + n;
-      const float v = a + p.v0[n] + static_cast<const float*>(p.res)[o];
-      static_cast<bf16*>(p.out)[o] = __float2bfloat16(v);
-    } else if (EPI == EPI_POWER) {
-      if (col & 1) continue;
-      const float b = Cs[row * LDC_S + col + 1];
-      static_cast<float*>(p.out)[z * p.o_batch + (long long)r * p.ldo + n / 2] = a * a + b * b;
-    } else if (EPI == EPI_INTERP) {
-      const long long o = z * p.o_batch + (long long)(r % p.rg) * p.ldo + (r / p.rg) * p.N + n;
-      static_cast<bf16*>(p.out)[o] = __float2bfloat16(a);
-    } else if (EPI == EPI_BIAS_F32) {
-      static_cast<float*>(p.out)[z * p.o_batch + (long long)r * p.ldo + n] = a + p.v0[n];
-    } else if (EPI == EPI_PROJ_BF16) {
-      const int img = r / (p.R * p.R);
-      const long long dst =
-          (long long)img * p.R * p.R + window_src(r - img * p.R * p.R, p.R, p.win, p.shift);
-      const float x = __bfloat162float(static_cast<const bf16*>(p.res)[dst * p.ldo + n]);
-      static_cast<bf16*>(p.out)[dst * p.ldo + n] = __float2bfloat16(a + p.v0[n] + x);
-    } else {  // EPI_BIAS_BF16
-      static_cast<bf16*>(p.out)[(long long)r * p.ldo + n] = __float2bfloat16(a + p.v0[n]);
-    }
+    const float a = Cs[row * LDC_S + col], b = Cs[row * LDC_S + col + 1];
+    p.out[(long long)r * p.ldo + (n0 + col) / 2] = a * a + b * b;
   }
 }
 
-template <int AM, int EPI>
-cudaError_t launch_gemm(const GemmParams& p, int batch, cudaStream_t stream) {
-  dim3 grid(p.N / BN, (p.M + BM - 1) / BM, batch);
-  gemm_kernel<AM, EPI><<<grid, GEMM_THREADS, 0, stream>>>(p);
+template <int EPI>
+cudaError_t launch_gemm(const GemmParams& p, cudaStream_t stream) {
+  dim3 grid(p.N / BN, (p.M + BM - 1) / BM);
+  gemm_kernel<EPI><<<grid, GEMM_THREADS, 0, stream>>>(p);
   return cudaGetLastError();
-}
-
-inline GemmParams gemm_params(int M, int N, int K, const bf16* A, long long lda,
-                              const bf16* B, long long ldb, void* out, long long ldo) {
-  GemmParams p = {};
-  p.M = M; p.N = N; p.K = K;
-  p.A = A; p.lda = lda; p.B = B; p.ldb = ldb; p.out = out; p.ldo = ldo;
-  return p;
 }
 
 __device__ __forceinline__ float to_f32(float v) { return v; }

@@ -1,8 +1,9 @@
-// Hopper GEMM core of the whole Swin block (#1, swin_block.cu) and its two
-// halves (#8 v3 attention, #9 fused MLP, the block's own launches), the
-// patch merge (#2, patch_merge.cu), the fused frontend (#3, frontend.cu) and
-// the halo log-mel (#6, log_mel.cu, which runs the ring below, produce_tile
-// and consume_tile, under an epilogue of its own): bf16 x bf16 -> f32
+// Hopper GEMM core of the whole Swin block (#1, swin_block.cu) and its
+// halves (#8 v3 attention, #9 fused MLP, #10 and #11 the v1 and v2
+// attention halves: the block's own launches), the patch merge (#2,
+// patch_merge.cu), the fused frontend (#3, frontend.cu) and the halo
+// log-mel (#6, log_mel.cu, which runs the ring below, produce_tile and
+// consume_tile, under an epilogue of its own): bf16 x bf16 -> f32
 // accumulate with wgmma, fed by TMA through a ring of shared-memory stages.
 //
 //   out[z] = epilogue(A[z] (M x K) @ B[z]^T),  B[z] held (N x K)
@@ -23,10 +24,9 @@
 //     mbarriers, running ahead across tiles, so one tile's epilogue overlaps
 //     the next tile's loads (at K = 128 a tile has only two K steps);
 //   - epilogue: each consumer warpgroup stages its 64 x BN f32 accumulators
-//     in shared memory (padded rows) and applies gemm.cuh's epilogue
-//     arithmetic to 8 columns at a time, 16-byte loads and stores
-//     coalesced along N; the row maps (un-partition / un-roll, phase rows
-//     -> lanes) are the same.
+//     in shared memory (padded rows) and applies its epilogue (epilogue8)
+//     to 8 columns at a time, 16-byte loads and stores coalesced along N,
+//     through the row maps (un-partition / un-roll, phase rows -> lanes).
 // Tensor maps are 3-D (k, row, batch) and encoded on the host per launch
 // (cuTensorMapEncodeTiled through cudaGetDriverEntryPoint: no -lcuda); a
 // batch index z > 0 is read only from the operand that has a batch.  A
@@ -64,8 +64,7 @@ inline Operand rows_of(const bf16* ptr, int rows, int K, long long ld) {
   return Operand{ptr, rows, K, ld, 1, (long long)rows * ld};
 }
 
-// What the epilogue reads and writes (the fields of gemm.cuh's GemmParams
-// that its epilogues use, plus the per-row LN1 statistics of EPI_QKV).
+// What the epilogue reads and writes.
 struct EpiParams {
   int M, N;
   void* out;
@@ -253,7 +252,7 @@ __device__ __forceinline__ void store8(bf16* dst, const float* v) {
   *reinterpret_cast<uint4*>(dst) = u;
 }
 
-// gemm.cuh's epilogue arithmetic (gemm_kernel :210-258) on the accumulators
+// The epilogue of each form (gemm.cuh's enum Epi) on the accumulators
 // a[0..7] of row r, columns n..n+7 (n % 8 == 0) of batch z, with 16-byte
 // loads and stores (every ldo and o_batch is a multiple of 8 elements).
 template <int EPI>
@@ -313,10 +312,12 @@ __device__ __forceinline__ void epilogue8(const EpiParams& p, int z, int r, int 
 #pragma unroll
     for (int i = 0; i < 8; ++i) v[i] = a[i] + b[i] + x[i];
     store8(static_cast<bf16*>(p.out) + o, v);
-  } else {  // EPI_BIAS_F32
+  } else {  // EPI_BIAS_F32, EPI_BIAS_BF16
 #pragma unroll
     for (int i = 0; i < 8; ++i) v[i] = a[i] + b[i];
-    store8(static_cast<float*>(p.out) + z * p.o_batch + (long long)r * p.ldo + n, v);
+    if constexpr (EPI == EPI_BIAS_F32)
+      store8(static_cast<float*>(p.out) + z * p.o_batch + (long long)r * p.ldo + n, v);
+    else store8(static_cast<bf16*>(p.out) + (long long)r * p.ldo + n, v);  // the v1/v2 qkv
   }
 }
 

@@ -341,9 +341,9 @@ extern "C" int am_log_mel_v1(const float* x, int n_sig, int hop, int width, int 
   frame_rows_kernel<<<blocks, threads, 0, stream>>>(x, n_sig, hop, width, ldf, n_frames, total,
                                                     frames);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  GemmParams g = gemm_params(B * n_frames, 2 * n_keep, ldf, frames, ldf, basis, 2 * n_keep, power,
-                             n_keep);
-  if ((e = launch_gemm<A_ROWS, EPI_POWER>(g, 1, stream)) != cudaSuccess) return e;
+  const GemmParams g = {B * n_frames, 2 * n_keep, ldf, frames, ldf, basis, 2 * n_keep, power,
+                        n_keep};
+  if ((e = launch_gemm<EPI_POWER>(g, stream)) != cudaSuccess) return e;
   const MelRows rows = {1, n_frames, n_frames, 0, n_frames, n_frames};
   if (out_bf16)
     return launch_mel_log(power, n_frames, n_keep, fb, sc, of, n_mels, rows, log_mode, log_offset,

@@ -23,7 +23,7 @@
 //   2. qkv product on the wgmma core (gemm_sm90.cuh), epilogue
 //      rs*(x@W) - rs*mu*(1@W) + bq3 with the column sums 1@W computed once
 //      at weight load (the f32 sum of the bf16 W), not per tile;
-//   3. window attention (window_attn.cuh, shared with swin_halves.cu): one
+//   3. window attention (window_attn.cuh, shared with the halves): one
 //      block per (window, head) holds q, k, v, the 64x64 f32 scores and bf16
 //      probabilities in shared memory; bias and mask added in f32 (mask
 //      -100, HTSAT's convention);
@@ -60,17 +60,34 @@
 //                        #9, ops/mlp.py::_mlp_call (:147): launches 5-7,
 //                        the residual read from the input (bf16:
 //                        EPI_RESID_IN);
-//   am_swin_attn_v1_f32, am_swin_attn_v2_f32
-//                        #10, #11 in f32, ops/attention.py::_attn_block_call
-//                        (:400) and _attn_block_call_v2 (:363): the LN1
-//                        affine in the kernel, so the window pass writes the
-//                        LN1 output itself and the qkv epilogue adds the bias
-//                        alone (the 3xTF32 core reads A through TMA from
-//                        plain rows: it cannot normalise through the map).
+//   am_swin_attn_v1, am_swin_attn_v1_f32
+//                        #10, ops/attention.py::_attn_block_call (pallas_call
+//                        at :400, kernel _attn_block_kernel :111):
+//                        x + WindowAttention(LN(x)) with the LN1 affine
+//                        applied in the kernel and per-head (heads, C, d)
+//                        weights, here laid out at load as one (C, heads*d)
+//                        operand (pure reshapes), so the sum over heads of
+//                        ctx_h @ wp_h runs inside one K = C product;
+//   am_swin_attn_v2, am_swin_attn_v2_f32
+//                        #11, ops/attention.py::_attn_block_call_v2
+//                        (pallas_call at :363, kernel _attn_block_kernel_v2
+//                        :226): the same function under v2's contract, one
+//                        (C, 3C) qkv and one (C, C) projection operand; its
+//                        per-head contractions over lane-masked k and v
+//                        equal v1's d-wide ones (the zero lanes add
+//                        nothing), so it runs v1's launches.
+//                        #10 and #11 keep the LN1 affine in the kernel: the
+//                        window pass writes the LN1 output itself (in f32,
+//                        rounded once to the activation dtype, as the TPU
+//                        kernel rolls before the cast) and the qkv epilogue
+//                        adds the bias alone (bq on the q columns, zeros on
+//                        k and v: EPI_BIAS_BF16, EPI_BIAS_F32), since the
+//                        wgmma cores read A through TMA from plain rows and
+//                        cannot normalise through the map.
 // The split path's arithmetic is the whole block's, so in f32 #8 then #9
 // equals am_swin_block_f32 bitwise; in bf16 they differ from am_swin_block
 // by the bf16 rounding of the mid-block residual (the whole block keeps it
-// f32).  #10 and #11 in bf16 are swin_halves.cu's.
+// f32).
 #include "gemm_tf32x3_sm90.cuh"
 #include "window_attn.cuh"
 
@@ -79,12 +96,11 @@ namespace {
 constexpr int LN1_WARPS = 8;
 
 // Window-ordered row rr <- row window_src(rr) of its image in x (B*R*R, C)
-// of T (bf16 or f32): its LN1 mean and 1/sigma (centered two-pass, f32,
-// summed in the order of gemm.cuh's in-block prologue) and a copy in T; or,
-// with ln_w (f32 only: the v1 and v2 halves, which keep the LN1 affine in
-// the kernel), the LN1 output itself, (x - mu) / sigma * ln_w + ln_b, and
-// no statistics.  16-byte loads (8 bf16 or 4 f32 values a lane); C % 8 ==
-// 0, C <= 1024.
+// of T (bf16 or f32): its LN1 mean and 1/sigma (centered two-pass, f32)
+// and a copy in T; or, with ln_w (the v1 and v2 halves, which keep the LN1
+// affine in the kernel), the LN1 output itself, (x - mu) / sigma * ln_w +
+// ln_b in f32 rounded once to T, and no statistics.  16-byte loads (8 bf16
+// or 4 f32 values a lane); C % 8 == 0, C <= 1024.
 template <typename T>
 __global__ void __launch_bounds__(LN1_WARPS * 32)
     ln1_window_kernel(const T* __restrict__ x, int M, int R, int win, int shift, int C,
@@ -93,7 +109,7 @@ __global__ void __launch_bounds__(LN1_WARPS * 32)
   constexpr int VEC = 16 / sizeof(T), LOADS = 1024 / (32 * VEC);
   const int rr = blockIdx.x * LN1_WARPS + threadIdx.x / 32, lane = threadIdx.x % 32;
   if (rr >= M) return;
-  const bool affine = sizeof(T) == 4 && ln_w != nullptr;
+  const bool affine = ln_w != nullptr;
   const int rr2 = R * R, img = rr / rr2;
   const T* src = x + ((long long)img * rr2 + window_src(rr - img * rr2, R, win, shift)) * C;
   T* dst = xw + (long long)rr * C;
@@ -123,11 +139,21 @@ __global__ void __launch_bounds__(LN1_WARPS * 32)
     for (int i = 0; i < LOADS; ++i) {
       const int k = lane * VEC + i * 32 * VEC;
       if (k < C) {
-        const float4 w = *reinterpret_cast<const float4*>(ln_w + k);
-        const float4 b = *reinterpret_cast<const float4*>(ln_b + k);
-        float4& f = reinterpret_cast<float4&>(v[i]);
-        f = make_float4((f.x - m) * r * w.x + b.x, (f.y - m) * r * w.y + b.y,
-                        (f.z - m) * r * w.z + b.z, (f.w - m) * r * w.w + b.w);
+        if constexpr (sizeof(T) == 4) {
+          const float4 w = *reinterpret_cast<const float4*>(ln_w + k);
+          const float4 b = *reinterpret_cast<const float4*>(ln_b + k);
+          float4& f = reinterpret_cast<float4&>(v[i]);
+          f = make_float4((f.x - m) * r * w.x + b.x, (f.y - m) * r * w.y + b.y,
+                          (f.z - m) * r * w.z + b.z, (f.w - m) * r * w.w + b.w);
+        } else {
+          float w[8], b[8];
+          sm90::load8(ln_w + k, w);
+          sm90::load8(ln_b + k, b);
+          bf16* h = reinterpret_cast<bf16*>(&v[i]);
+#pragma unroll
+          for (int t = 0; t < 8; ++t)
+            h[t] = __float2bfloat16((__bfloat162float(h[t]) - m) * r * w[t] + b[t]);
+        }
         *reinterpret_cast<uint4*>(dst + k) = v[i];
       }
     }
@@ -137,31 +163,41 @@ __global__ void __launch_bounds__(LN1_WARPS * 32)
   }
 }
 
-// The bf16 attention half, launches 1-4 of am_swin_block: the LN1
-// statistics pass over x's rows into xw and stats, the qkv product with LN1
-// folded in (EPI_QKV, csum the column sums of wqkv), the window attention,
-// and the proj product scattered back through the un-partition/un-roll map
-// with + bp + x, into out (never x itself: the epilogue reads x while it
-// writes out).  PROJ: EPI_PROJ writes an f32 residual (#1 keeps the
-// mid-block residual in f32), EPI_PROJ_BF16 the half's bf16 output (#8).
+// The bf16 attention half, launches 1-4 of am_swin_block: the window pass
+// over x's rows into xw, the qkv product, the window attention, and the
+// proj product scattered back through the un-partition/un-roll map with +
+// bp + x, into out (never x itself: the epilogue reads x while it writes
+// out).  Without ln_w (#1, #8, the LN1 affine folded into wqkv and bq3 by
+// the caller) the pass writes each row's LN1 mean and 1/sigma into stats
+// and the qkv epilogue folds LN1 in (EPI_QKV, csum the column sums of
+// wqkv); with ln_w (#10, #11) it writes the LN1 output itself and the qkv
+// epilogue adds the bias alone (EPI_BIAS_BF16).  PROJ: EPI_PROJ writes an
+// f32 residual (#1 keeps the mid-block residual in f32), EPI_PROJ_BF16 the
+// half's bf16 output (#8, #10, #11).
 template <int PROJ>
-int attn_half_bf16(const bf16* x, const bf16* wqkv_t, const float* csum, const float* bq3,
-                   const bf16* wp_t, const float* bp, const float* bm, int nbm, int B, int R,
-                   int C, int heads, int win, int shift, float eps, float* stats, bf16* xw,
-                   bf16* qkv, bf16* ctx, void* out, cudaStream_t stream) {
+int attn_half_bf16(const bf16* x, const float* ln_w, const float* ln_b, const bf16* wqkv_t,
+                   const float* csum, const float* bq3, const bf16* wp_t, const float* bp,
+                   const float* bm, int nbm, int B, int R, int C, int heads, int win, int shift,
+                   float eps, float* stats, bf16* xw, bf16* qkv, bf16* ctx, void* out,
+                   cudaStream_t stream) {
   using namespace sm90;
   const int M = B * R * R;
   int e;
 
   ln1_window_kernel<bf16><<<(M + LN1_WARPS - 1) / LN1_WARPS, LN1_WARPS * 32, 0, stream>>>(
-      x, M, R, win, shift, C, eps, nullptr, nullptr, xw, stats, stats + M);
+      x, M, R, win, shift, C, eps, ln_w, ln_b, xw, stats, stats == nullptr ? nullptr : stats + M);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
 
   EpiParams p = {};
-  p.M = M; p.N = 3 * C; p.out = qkv; p.ldo = 3 * C;
-  p.v0 = bq3; p.csum = csum; p.mu = stats; p.rs = stats + M;
-  if ((e = gemm<EPI_QKV>(rows_of(xw, M, C, C), rows_of(wqkv_t, 3 * C, C, C), p, 1, stream)))
-    return e;
+  p.M = M; p.N = 3 * C; p.out = qkv; p.ldo = 3 * C; p.v0 = bq3;
+  const Operand a = rows_of(xw, M, C, C), w = rows_of(wqkv_t, 3 * C, C, C);
+  if (ln_w == nullptr) {
+    p.csum = csum; p.mu = stats; p.rs = stats + M;
+    e = gemm<EPI_QKV>(a, w, p, 1, stream);
+  } else {
+    e = gemm<EPI_BIAS_BF16>(a, w, p, 1, stream);
+  }
+  if (e) return e;
 
   if ((e = launch_window_attn(qkv, bm, nbm, M / WIN_N, heads, C, ctx, stream)) != cudaSuccess)
     return e;
@@ -273,8 +309,9 @@ extern "C" int am_swin_block(const bf16* x, const bf16* wqkv_t, const float* csu
                              bf16* qkv, bf16* ctx, float* res, bf16* hbuf, bf16* h1, bf16* out,
                              cudaStream_t stream) {
   int e;
-  if ((e = attn_half_bf16<EPI_PROJ>(x, wqkv_t, csum, bq3, wp_t, bp, bm, nbm, B, R, C, heads, win,
-                                    shift, eps, stats, hbuf, qkv, ctx, res, stream)))
+  if ((e = attn_half_bf16<EPI_PROJ>(x, nullptr, nullptr, wqkv_t, csum, bq3, wp_t, bp, bm, nbm, B,
+                                    R, C, heads, win, shift, eps, stats, hbuf, qkv, ctx, res,
+                                    stream)))
     return e;
   return mlp_half_bf16(res, B * R * R, C, ln2w, ln2b, w1_t, b1, w2_t, b2, eps, hbuf, h1, out,
                        stream);
@@ -290,8 +327,37 @@ extern "C" int am_swin_attn_v3(const bf16* x, const bf16* wqkv_t, const float* c
                                const float* bm, int nbm, int B, int R, int C, int heads, int win,
                                int shift, float eps, float* stats, bf16* xw, bf16* qkv, bf16* ctx,
                                bf16* out, cudaStream_t stream) {
-  return attn_half_bf16<EPI_PROJ_BF16>(x, wqkv_t, csum, bq3, wp_t, bp, bm, nbm, B, R, C, heads,
-                                       win, shift, eps, stats, xw, qkv, ctx, out, stream);
+  return attn_half_bf16<EPI_PROJ_BF16>(x, nullptr, nullptr, wqkv_t, csum, bq3, wp_t, bp, bm, nbm,
+                                       B, R, C, heads, win, shift, eps, stats, xw, qkv, ctx, out,
+                                       stream);
+}
+
+// #10 and #11, the attention half with the LN1 affine in the kernel (v1,
+// v2): am_swin_block's launches 1-4 with the LN1 output written by the
+// window pass and a plain qkv bias.  x, out (B, R, R, C) bf16; ln_w, ln_b
+// (C) f32; wqkv_t (3C, C), wp_t (C, C) bf16, the (C, 3C) qkv and (C, C)
+// proj operands transposed (v1: the per-head weights side by side,
+// ops/attention.py v1_operands); bq3 (3C) the scaled q bias with zeros on k
+// and v; bp, bm as v3.  Scratch, bf16: xn (B*R*R, C), qkv (B*R*R, 3C), ctx
+// (B*R*R, C).
+extern "C" int am_swin_attn_v1(const bf16* x, const float* ln_w, const float* ln_b,
+                               const bf16* wqkv_t, const float* bq3, const bf16* wp_t,
+                               const float* bp, const float* bm, int nbm, int B, int R, int C,
+                               int heads, int win, int shift, float eps, bf16* xn, bf16* qkv,
+                               bf16* ctx, bf16* out, cudaStream_t stream) {
+  return attn_half_bf16<EPI_PROJ_BF16>(x, ln_w, ln_b, wqkv_t, nullptr, bq3, wp_t, bp, bm, nbm, B,
+                                       R, C, heads, win, shift, eps, nullptr, xn, qkv, ctx, out,
+                                       stream);
+}
+
+extern "C" int am_swin_attn_v2(const bf16* x, const float* ln_w, const float* ln_b,
+                               const bf16* wqkv_t, const float* bq3, const bf16* wp_t,
+                               const float* bp, const float* bm, int nbm, int B, int R, int C,
+                               int heads, int win, int shift, float eps, bf16* xn, bf16* qkv,
+                               bf16* ctx, bf16* out, cudaStream_t stream) {
+  return attn_half_bf16<EPI_PROJ_BF16>(x, ln_w, ln_b, wqkv_t, nullptr, bq3, wp_t, bp, bm, nbm, B,
+                                       R, C, heads, win, shift, eps, nullptr, xn, qkv, ctx, out,
+                                       stream);
 }
 
 // #9, the fused MLP: am_swin_block's launches 5-7 on (M, C) bf16 rows x with
@@ -342,7 +408,7 @@ extern "C" int am_swin_attn_v3_f32(const float* x, const float* wqkv_s, const fl
 // #10 and #11 in f32, the attention half with the LN1 affine in the kernel
 // (v1, v2): x, out (B, R, R, C) f32; ln_w, ln_b (C); wqkv_s, wp_s the
 // (2, N, K) stacks of the (C, 3C) qkv and (C, C) proj operands transposed
-// (v1: the per-head weights side by side, swin_halves.cu's layout); bq3
+// (v1: the per-head weights side by side, as am_swin_attn_v1's); bq3
 // (3C) the scaled q bias with zeros on k and v; bp, bm as v3.  Scratch, f32:
 // xn (B*R*R, C), qkv (B*R*R, 3C), ctx (B*R*R, C).
 extern "C" int am_swin_attn_v1_f32(const float* x, const float* ln_w, const float* ln_b,

@@ -1,10 +1,10 @@
 // Window attention over 8x8 windows of 32-wide heads, shared by the whole
-// Swin block and its halves (swin_block.cu) and the bf16 v1/v2 attention
-// halves (swin_halves.cu): scores q.k^T, + the relative-position bias and
-// the shift mask (one f32 table, -100 on masked pairs, HTSAT's convention)
-// in f32, softmax in f32, context P.V.  It is the window attention of the
-// TPU kernels, audio_metrics_tpu/ops/attention.py::_attn_windows_to_ctx
-// (:534-686), inside _swin_block_call_v4 (:1099) and the attention halves.
+// Swin block and its attention halves (swin_block.cu): scores q.k^T, + the
+// relative-position bias and the shift mask (one f32 table, -100 on masked
+// pairs, HTSAT's convention) in f32, softmax in f32, context P.V.  It is
+// the window attention of the TPU kernels, audio_metrics_tpu/ops/
+// attention.py::_attn_windows_to_ctx (:534-686), inside
+// _swin_block_call_v4 (:1099) and the attention halves.
 // One block per (window, head), templated on the element type of qkv and
 // the context.
 //

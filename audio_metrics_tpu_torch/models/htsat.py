@@ -285,7 +285,9 @@ def _v1_kernel_weights(p: dict, prefix: str, resolution: int, shift: int,
     ``wq``/``wk``/``wv`` (heads, C, d) with the 1/sqrt(d) scale in wq and
     ``bq`` (heads, d), ``wp`` (heads, d, C), the value bias folded into
     ``bp``, the LN1 affine kept apart, the bias+mask table; with LN2 and the
-    MLP."""
+    MLP.  ``bq`` is scaled as there: by the float64 1/sqrt(d), rounded once
+    to f32 (the JAX package multiplies by a Python float with x64 on), ``wq``
+    by that scale in f32."""
     f32 = lambda k: np.asarray(p[k], np.float32)
     pre = f"{prefix}.attention"
     c = p[f"{pre}.self.query.weight"].shape[0]
@@ -298,7 +300,8 @@ def _v1_kernel_weights(p: dict, prefix: str, resolution: int, shift: int,
         ln1_w=f32(f"{prefix}.layernorm_before.weight"),
         ln1_b=f32(f"{prefix}.layernorm_before.bias"),
         wq=heads(f32(f"{pre}.self.query.weight")) * scale,
-        bq=f32(f"{pre}.self.query.bias").reshape(num_heads, d) * scale,
+        bq=(f32(f"{pre}.self.query.bias").reshape(num_heads, d).astype(np.float64)
+            * (1.0 / np.sqrt(d))).astype(np.float32),
         wk=heads(f32(f"{pre}.self.key.weight")),
         wv=heads(f32(f"{pre}.self.value.weight")),
         wp=wp,
@@ -417,13 +420,12 @@ class SwinBlock(_Folded):
         self.heads, self.eps = heads, cfg.layer_norm_eps
         # what the kernels read besides: the whole block's transposed (bf16)
         # or split (f32) matrices and column sums, which the v3 half and the
-        # MLP read too; else the MLP's, and the f32 v1 half's stacks (the
-        # bf16 v1 half reads its weights as held)
+        # MLP read too; else the MLP's, and the v1 half's in the same form
         if attention in ("v4", "v3"):
             ops = swin_block_operands(self.wqkv, self.wp, self.w1, self.w2)
         else:
             ops = mlp_operands(self.w1, self.w2)  # the fused MLP at a large enough batch
-            if attention == "v1" and dtype == torch.float32:
+            if attention == "v1":
                 ops.update(v1_operands(self.wq, self.bq, self.wk, self.wv, self.wp))
         for name, t in ops.items():
             self.register_buffer(name, t)
@@ -434,7 +436,7 @@ class SwinBlock(_Folded):
         operands, held as buffers since the weights loaded: the whole
         block's :func:`ops.attention.swin_block_operands` (v4 and v3 blocks,
         whose attention half and MLP read it); else the MLP's
-        :func:`ops.mlp.mlp_operands`, with f32 v1 blocks'
+        :func:`ops.mlp.mlp_operands`, with v1 blocks'
         :func:`ops.attention.v1_operands`."""
         return {k: getattr(self, k) for k in self._operand_names}
 

@@ -1,4 +1,4 @@
-"""Swin attention: the whole-block kernel, the two attention-half kernels and
+"""Swin attention: the whole-block kernel, the attention-half kernels and
 the XLA attention half.
 
 Counterparts in ``audio_metrics_tpu``:
@@ -10,12 +10,13 @@ Counterparts in ``audio_metrics_tpu``:
   kernels/csrc/swin_block.cu::am_swin_attn_v3 (the whole block's launches
   1-4);
 - ``swin_attention_half_v1``: ``swin_attention_block_pallas`` (:426-470,
-  kernel ``_attn_block_kernel`` :111), kernels/csrc/swin_halves.cu::
-  am_swin_attn_v1;
+  kernel ``_attn_block_kernel`` :111), kernels/csrc/swin_block.cu::
+  am_swin_attn_v1 (the whole block's launches 1-4 with the LN1 affine in
+  the window pass and a plain qkv bias);
 - ``swin_attention_half_v2``: ``swin_attention_block_pallas_v2`` (:473-511,
-  kernel ``_attn_block_kernel_v2`` :226), kernels/csrc/swin_halves.cu::
-  am_swin_attn_v2.  A public op that no model path calls, in the JAX
-  package as here;
+  kernel ``_attn_block_kernel_v2`` :226), kernels/csrc/swin_block.cu::
+  am_swin_attn_v2 (v1's launches).  A public op that no model path calls,
+  in the JAX package as here;
 - ``window_attention_xla``: the XLA attention half of
   ``models/htsat.py::_swin_block`` (:584-607, ``_window_attention``
   :237-285), the JAX package's own non-kernel path: it runs on both
@@ -43,12 +44,12 @@ activation dtype the JAX kernels take: bf16 launches ``am_swin_block``,
 ``am_swin_attn_v3``, ``_v1``, ``_v2``; f32 ``am_swin_block_f32``,
 ``am_swin_attn_v3_f32``, ``_v1_f32``, ``_v2_f32`` (kernels/csrc/
 swin_block.cu, each with its own launch count, ``KERNELS["swin_block_f32"]``
-etc.; their products run as three TF32 products on the tensor cores and
-read the weights as (2, N, K) stacks made once at load: the block and the
-v3 half :func:`swin_block_operands`, the v1 half :func:`v1_operands`, the
-v2 half :func:`half_operands`, passed as ``operands=``).  The bf16 block
-and v3 half read :func:`swin_block_operands` too (the matrices
-transposed).  Any other dtype raises.
+etc.).  Every kernel reads its matrices K-major, made once at load and
+passed as ``operands=``: the block and the v3 half
+:func:`swin_block_operands`, the v1 half :func:`v1_operands`, the v2 half
+:func:`half_operands`; in bf16 each matrix transposed, (N, K), for the
+wgmma core, in f32 that matrix's (2, N, K) TF32 hi-over-lo stack for the
+3xTF32 core.  Any other dtype raises.
 """
 
 from __future__ import annotations
@@ -59,7 +60,7 @@ import torch.nn.functional as F
 
 from ..kernels import KERNELS, check_sm90_gemm, check_tf32x3_gemm, require_cuda
 from .mlp import layer_norm, mlp_operands
-from .tf32 import k_major, k_major_operand, tf32_split
+from .tf32 import k_major, k_major_operand
 
 __all__ = [
     "check_block_f32",
@@ -379,18 +380,18 @@ def _head_columns(wq, bq, wk, wv, wp):
 
 
 def half_operands(wqkv, wp) -> dict:
-    """What the f32 attention-half kernels with the LN1 affine in the kernel
+    """What the attention-half kernels with the LN1 affine in the kernel
     (v1, v2) read besides the plain version's operands, made once at load:
-    the f32 (C, 3C) qkv and (C, C) proj operands transposed to (N, K) and
-    split into their TF32 hi and lo parts, (2, N, K) stacks."""
-    return dict(wqkv_t=tf32_split(wqkv.t()), wp_t=tf32_split(wp.t()))
+    the (C, 3C) qkv and (C, C) proj operands in their :func:`ops.tf32.
+    k_major` form, transposed to (N, K) in bf16, and in f32 that matrix's
+    (2, N, K) TF32 hi-over-lo stack."""
+    return dict(wqkv_t=k_major(wqkv), wp_t=k_major(wp))
 
 
 def v1_operands(wq, bq, wk, wv, wp) -> dict:
-    """:func:`half_operands` of v1's per-head f32 weights laid side by side
+    """:func:`half_operands` of v1's per-head weights laid side by side
     (:func:`_head_columns`), with the (3C,) qkv bias ``bq3`` they give: the
-    f32 v1 kernel's operands, made once at load
-    (``models.htsat.SwinBlock``)."""
+    v1 kernel's operands, made once at load (``models.htsat.SwinBlock``)."""
     wqkv, bq3, wp2 = _head_columns(wq, bq, wk, wv, wp)
     return dict(half_operands(wqkv, wp2), bq3=bq3.contiguous())
 
@@ -413,71 +414,40 @@ def swin_attention_half_v1_plain(x, ln_w, ln_b, wq, bq, wk, wv, wp, bp, bm, *, h
                                         bm, heads=heads, window=window, shift=shift, eps=eps)
 
 
-def _attention_ln_affine_cuda(kernel, symbol, x, ln_w, ln_b, wqkv, bqkv, wp, bp, bm, *, heads,
-                              window, shift, eps):
-    """Launch v1's or v2's kernel on the (C, 3C) / (C, C) operands."""
-    b, r, _, c = x.shape
-    require_cuda(x, wqkv, wp)
-    require_cuda(ln_w, ln_b, bqkv, bp, bm, dtype=torch.float32)
-    _check_geometry(kernel.name, x, heads, window, bm)
-    m = b * r * r
-    xn = torch.empty((m, c), dtype=x.dtype, device=x.device)
-    qkv = torch.empty((m, 3 * c), dtype=x.dtype, device=x.device)
-    ctx = torch.empty((m, c), dtype=x.dtype, device=x.device)
-    out = torch.empty_like(x)
-    kernel.launch(symbol, x, ln_w, ln_b, wqkv, bqkv, wp, bp, bm, bm.shape[0], b, r, c, heads,
-                  window, shift, float(eps), xn, qkv, ctx, out)
-    kernel.launches += 1
-    return out
-
-
-def _attention_ln_affine_f32_cuda(kernel, symbol, x, ln_w, ln_b, bq3, bp, bm, *, heads, window,
-                                  shift, eps, operands, made_by):
-    """Launch v1's or v2's f32 kernel on the (2, N, K) stacks of the (C, 3C)
-    / (C, C) operands."""
+def _attention_ln_affine_cuda(kernel, x, ln_w, ln_b, bq3, bp, bm, *, heads, window, shift, eps,
+                              operands, made_by):
+    """Launch v1's or v2's kernel of x's dtype on the :func:`half_operands`
+    form of the (C, 3C) / (C, C) operands."""
     b, r, _, c = x.shape
     _window_8x8(kernel.name, window, x)
     _check_window_pass(kernel.name, c)
     wqkv_t, wp_t = _block_matrices(kernel.name, operands, c, ("wqkv_t", "wp_t"), made_by,
-                                   torch.float32)
-    require_cuda(x, ln_w, ln_b, wqkv_t, bq3, wp_t, bp, bm, dtype=torch.float32)
+                                   x.dtype)
+    require_cuda(x, wqkv_t, wp_t, dtype=x.dtype)
+    require_cuda(ln_w, ln_b, bq3, bp, bm, dtype=torch.float32)
     _check_geometry(kernel.name, x, heads, window, bm)
     if bq3.shape != (3 * c,):
-        raise ValueError(f"{kernel.name}: qkv bias {tuple(bq3.shape)}, want ({3 * c},)")
+        raise ValueError(f"{kernel.name} reads bq3 as ({3 * c},), got {tuple(bq3.shape)}")
     scratch = _half_scratch(x, stats=False)
-    kernel.launch(symbol, x, ln_w, ln_b, wqkv_t, bq3, wp_t, bp, bm, bm.shape[0], b, r, c, heads,
-                  window, shift, float(eps), *scratch)
+    kernel.launch(f"am_{kernel.name}", x, ln_w, ln_b, wqkv_t, bq3, wp_t, bp, bm, bm.shape[0], b,
+                  r, c, heads, window, shift, float(eps), *scratch)
     kernel.launches += 1
     return scratch[-1]
-
-
-def _attention_half_v1_cuda(x, ln_w, ln_b, wq, bq, wk, wv, wp, bp, bm, *, heads, window,
-                            shift, eps):
-    _window_8x8("swin_attn_v1", window, x)
-    c = x.shape[-1]
-    if wq.shape != (heads, c, c // heads) or wp.shape != (heads, c // heads, c):
-        raise ValueError(f"per-head weights wq {tuple(wq.shape)} wp {tuple(wp.shape)}")
-    wqkv, bqkv, wp2 = (t.contiguous() for t in _head_columns(wq, bq, wk, wv, wp))
-    return _attention_ln_affine_cuda(KERNEL_V1, "am_swin_attn_v1", x, ln_w, ln_b, wqkv, bqkv,
-                                     wp2, bp, bm, heads=heads, window=window, shift=shift,
-                                     eps=eps)
 
 
 def swin_attention_half_v1(x, ln_w, ln_b, wq, bq, wk, wv, wp, bp, bm, *, heads: int,
                            window: int, shift: int, eps: float = 1e-5, operands=None):
     """Attention half of a Swin block with per-head weights, (B, R, R, C)
-    -> (B, R, R, C); 8x8 windows only.  ``operands``: the f32 kernel's
-    :func:`v1_operands` of these weights, made at load; an f32 CUDA tensor
-    needs them, any other tensor ignores them."""
+    -> (B, R, R, C); 8x8 windows only.  ``operands``: the kernel's
+    :func:`v1_operands` of these weights, made at load; a CUDA tensor needs
+    them, a CPU tensor ignores them."""
     geo = dict(heads=heads, window=window, shift=shift, eps=eps)
     if x.device.type == "cpu":
         return swin_attention_half_v1_plain(x, ln_w, ln_b, wq, bq, wk, wv, wp, bp, bm, **geo)
-    if x.dtype == torch.float32:
-        bq3 = None if operands is None else operands["bq3"]
-        return _attention_ln_affine_f32_cuda(
-            KERNEL_V1_F32, "am_swin_attn_v1_f32", x, ln_w, ln_b, bq3, bp, bm, **geo,
-            operands=operands, made_by="v1_operands(wq, bq, wk, wv, wp)")
-    return _attention_half_v1_cuda(x, ln_w, ln_b, wq, bq, wk, wv, wp, bp, bm, **geo)
+    kernel = KERNEL_V1_F32 if x.dtype == torch.float32 else KERNEL_V1
+    bq3 = None if operands is None else operands["bq3"]
+    return _attention_ln_affine_cuda(kernel, x, ln_w, ln_b, bq3, bp, bm, **geo, operands=operands,
+                                     made_by="v1_operands(wq, bq, wk, wv, wp)")
 
 
 # ----------------------------------------------------------------------
@@ -497,31 +467,18 @@ def swin_attention_half_v2_plain(x, ln_w, ln_b, wqkv, bq3, wp, bp, bm, *, heads:
     return _attention_residual(x, y, wp, bp, bm, heads, window, shift).to(x.dtype)
 
 
-def _attention_half_v2_cuda(x, ln_w, ln_b, wqkv, bq3, wp, bp, bm, *, heads, window, shift,
-                            eps):
-    _window_8x8("swin_attn_v2", window, x)
-    c = x.shape[-1]
-    if wqkv.shape != (c, 3 * c) or bq3.shape != (3 * c,) or wp.shape != (c, c):
-        raise ValueError(f"v2 weights wqkv {tuple(wqkv.shape)} bq3 {tuple(bq3.shape)} "
-                         f"wp {tuple(wp.shape)}")
-    return _attention_ln_affine_cuda(KERNEL_V2, "am_swin_attn_v2", x, ln_w, ln_b, wqkv, bq3, wp,
-                                     bp, bm, heads=heads, window=window, shift=shift, eps=eps)
-
-
 def swin_attention_half_v2(x, ln_w, ln_b, wqkv, bq3, wp, bp, bm, *, heads: int, window: int,
                            shift: int, eps: float = 1e-5, operands=None):
     """Attention half of a Swin block under v2's contract, (B, R, R, C) ->
-    (B, R, R, C); 8x8 windows only.  ``operands``: the f32 kernel's
-    :func:`half_operands` of ``wqkv`` and ``wp``, made once by the caller;
-    an f32 CUDA tensor needs them, any other tensor ignores them."""
+    (B, R, R, C); 8x8 windows only.  ``operands``: the kernel's
+    :func:`half_operands` of ``wqkv`` and ``wp``, made once by the caller; a
+    CUDA tensor needs them, a CPU tensor ignores them."""
     geo = dict(heads=heads, window=window, shift=shift, eps=eps)
     if x.device.type == "cpu":
         return swin_attention_half_v2_plain(x, ln_w, ln_b, wqkv, bq3, wp, bp, bm, **geo)
-    if x.dtype == torch.float32:
-        return _attention_ln_affine_f32_cuda(
-            KERNEL_V2_F32, "am_swin_attn_v2_f32", x, ln_w, ln_b, bq3, bp, bm, **geo,
-            operands=operands, made_by="half_operands(wqkv, wp)")
-    return _attention_half_v2_cuda(x, ln_w, ln_b, wqkv, bq3, wp, bp, bm, **geo)
+    kernel = KERNEL_V2_F32 if x.dtype == torch.float32 else KERNEL_V2
+    return _attention_ln_affine_cuda(kernel, x, ln_w, ln_b, bq3, bp, bm, **geo, operands=operands,
+                                     made_by="half_operands(wqkv, wp)")
 
 
 # ----------------------------------------------------------------------

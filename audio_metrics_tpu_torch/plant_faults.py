@@ -87,6 +87,9 @@ FAULTS = {
            "else load8(static_cast<const bf16*>(p.res) + o, x);",
            "else for (int i = 0; i < 8; ++i) x[i] = 0.f;",
            "the bf16 fc2 epilogue of the fused MLP drops the residual"),
+    "N2": (f"{CSRC}/swin_block.cu", "sm90::load8(ln_b + k, b);",
+           "for (int t = 0; t < 8; ++t) b[t] = 0.f;",
+           "the bf16 LN1 window pass of the v1 and v2 halves drops the LN1 bias"),
 }
 SKIP = ("build", ".git", "__pycache__", ".pytest_cache")
 

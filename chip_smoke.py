@@ -6,10 +6,11 @@ Phases, one status line each:
   1. the card (torch and ``nvidia-smi`` name / power limit);
   2. build of the CUDA kernels from the repository's sources (nvcc, one
      process per source, all started together), and ``cuobjdump -sass`` of
-     the library: the halo log-mel's kernel and the f32 block's and merge's
-     products hold HGMMA and UTMALDG (wgmma, fed by TMA), the f32 window
-     attention HMMA (mma.sync on the tensor cores), the PRDC statistics'
-     LDGSTS (cp.async);
+     the library: the halo log-mel's kernel, the bf16 v1/v2 halves' qkv and
+     proj products and the f32 block's and merge's products hold HGMMA and
+     UTMALDG (wgmma, fed by TMA), the f32 window attention HMMA (mma.sync on
+     the tensor cores), the PRDC statistics' LDGSTS (cp.async); gemm.cuh's
+     WMMA gemm_kernel has one instantiation (#7's DFT);
   3. each kernel against its plain PyTorch version on the card, at the
      main-path shapes, with errors, tolerances and times: bf16 Swin blocks
      (every stage shifted and unshifted), patch merges and the 5 s
@@ -68,12 +69,12 @@ Phases, one status line each:
      metrics, FAD of a set against itself, embeddings against the f32 plain
      chain, clips/s.
 Phase 3 runs each kernel redesigned for Hopper on the wgmma core (the
-whole Swin block at every stage and shift, its v3 attention half and
-fused MLP, the three patch merges, the fused frontend, the halo log-mel)
-twice on the same inputs, at B = 4 and at B = 64, and fails unless the
-outputs are bitwise equal (their GEMM core has no atomics, so a race in
-its TMA ring shows as a difference); it times the products of the block,
-the merges, the frontend and the split halves alone through
+whole Swin block at every stage and shift, its v3, v1 and v2 attention
+halves and fused MLP, the three patch merges, the fused frontend, the halo
+log-mel) twice on the same inputs, at B = 4 and at B = 64, and fails
+unless the outputs are bitwise equal (their GEMM core has no atomics, so a
+race in its TMA ring shows as a difference); it times the products of the
+block, the merges, the frontend and the split halves alone through
 ``torch.matmul`` at B = 64 as their yardstick (``library_ms``, the port
 never calls it), and prints their achieved TFLOP/s.  Every call it holds
 against a plain version must launch its kernel exactly once.  The kernels
@@ -88,12 +89,13 @@ at stages 0-1, the fused MLP and the int8 MLP at the row counts of stages
 0-3), the v3 half then the MLP against the whole f32 block and the v2 half
 against the v1 half (each pair bitwise equal: the same launches).
 Phase 3 also holds the split block's kernels (v3 attention half at every
-stage, the fused MLP at the row counts of stages 0-3, the two on the
-operands the block holds from load; the v1 attention half at stages 0 and
-1), the opt-in ops (the v2 attention half at every stage, against the v1
-kernel too at stages 0 and 1; the int8 MLP at the
-row counts of stages 0-3) and the v1 log-mel against their plain versions,
-and the v3 half then the MLP against the whole-block kernel.  Each
+stage, the fused MLP at the row counts of stages 0-3, the v1 attention
+half at stages 0 and 1, each on the operands the block holds from load),
+the opt-in ops (the v2 attention half at every stage on its
+``half_operands``, bitwise equal to the v1 kernel at stages 0 and 1; the
+int8 MLP at the row counts of stages 0-3) and the v1 log-mel against their
+plain versions, the v3, v1 and v2 halves at B = 4 and 64, and the v3 half
+then the MLP against the whole-block kernel.  Each
 environment variable is set only around the phase that reads it.
 Then one JSON line with each kernel's numbers, the card line, and last the
 ok line.  Any failure exits non-zero and prints no ok line.  Imports no JAX.
@@ -207,13 +209,15 @@ CONFIG_TOL = {"split": (5e-5, 5e-3), "attn_v1": (5e-5, 5e-3), "mel_v1": (2e-6, 1
 # products), which have no atomics, and the f32 int8 MLP, whose one atomic
 # is an integer max, which no order changes
 REPEATS = ("swin_block", "patch_merge", "clap_frontend", "log_mel", "swin_attn_v3", "swin_mlp",
-           "swin_block_f32", "patch_merge_f32", "swin_attn_v3_f32", "swin_mlp_f32",
-           "swin_attn_v1_f32", "swin_attn_v2_f32", "swin_mlp_int8_f32")
+           "swin_attn_v1", "swin_attn_v2", "swin_block_f32", "patch_merge_f32",
+           "swin_attn_v3_f32", "swin_mlp_f32", "swin_attn_v1_f32", "swin_attn_v2_f32",
+           "swin_mlp_int8_f32")
 # kernels also held against their plain versions at B = BATCH, the batch at
-# which the main path and the f32 configurations run them (phases 6, 9-11),
-# under the same bounds
-AT_BATCH = ("swin_attn_v3", "swin_mlp", "swin_block_f32", "patch_merge_f32", "swin_attn_v3_f32",
-            "swin_mlp_f32", "swin_attn_v1_f32", "swin_attn_v2_f32", "swin_mlp_int8_f32")
+# which the main path and the f32 configurations run them (phases 6, 7,
+# 9-11), under the same bounds
+AT_BATCH = ("swin_attn_v3", "swin_mlp", "swin_attn_v1", "swin_attn_v2", "swin_block_f32",
+            "patch_merge_f32", "swin_attn_v3_f32", "swin_mlp_f32", "swin_attn_v1_f32",
+            "swin_attn_v2_f32", "swin_mlp_int8_f32")
 # launches timed per reading (10 elsewhere): kernels of ~0.1 ms or less
 # moved by 20-40% between runs at 10
 TIMING_ITERS = {"patch_merge": 200, "knn_radii": 200, "prdc_stats": 200, "log_mel": 200}
@@ -223,14 +227,23 @@ TIMING_ITERS = {"patch_merge": 200, "knn_radii": 200, "prdc_stats": 200, "log_me
 # of each named kernel (a pattern searched in the mangled name) must contain
 # (cuobjdump -sass of the built library): the halo log-mel's DFT and the
 # f32 block's and merge's 3xTF32 products on wgmma (HGMMA) fed by TMA
-# (UTMALDG); the f32 window attention's 3xTF32 products (the float
-# instantiation of window_attn_kernel, inside #1 and #8-#11 in f32) on
-# mma.sync (HMMA); the PRDC statistics' products fed by cp.async (LDGSTS)
+# (UTMALDG); the bf16 v1 and v2 halves' qkv and proj products (the
+# gemm_sm90_kernel instantiations of EPI_BIAS_BF16 = 9 and EPI_PROJ_BF16 =
+# 8, gemm.cuh's enum Epi) likewise; the f32 window attention's 3xTF32
+# products (the float instantiation of window_attn_kernel, inside #1 and
+# #8-#11 in f32) on mma.sync (HMMA); the PRDC statistics' products fed by
+# cp.async (LDGSTS)
 SASS_WANT = {"log_mel": ("log_mel_sm90_kernel", ("HGMMA", "UTMALDG")),
+             "swin_attn_v1 qkv": (r"gemm_sm90_kernelILi\d+ELi9E", ("HGMMA", "UTMALDG")),
+             "swin_attn_v1 proj": (r"gemm_sm90_kernelILi\d+ELi8E", ("HGMMA", "UTMALDG")),
              "swin_block_f32": ("gemm_tf32x3_kernel.*RowsA", ("HGMMA", "UTMALDG")),
              "patch_merge_f32": ("gemm_tf32x3_kernel.*MergeA", ("HGMMA", "UTMALDG")),
              "window_attn_f32": ("window_attn_kernelIfE", ("HMMA",)),
              "prdc_stats": ("stats_split_kernel", ("LDGSTS",))}
+# kernels the library must hold exactly one instantiation of: gemm.cuh's
+# WMMA gemm_kernel serves #7's DFT alone (every other product is on a wgmma
+# core)
+SASS_ONE = {"gemm.cuh's WMMA gemm_kernel": r"11gemm_kernelI"}
 
 
 def log(msg: str) -> None:
@@ -417,15 +430,15 @@ def compare(name, got, want, signal, results):
 def v2_weights(params, prefix, block, dtype=torch.bfloat16):
     """The opt-in ops' operands for ``block``'s weights, on the card: the v2
     attention half's (matrices in ``dtype``), the int8 MLP's (f32 weights),
-    and in f32 the v2 half's ``half_operands`` (its f32 kernel's split
-    stacks, made once here as a caller makes them at load; else None)."""
+    and the v2 half's ``half_operands`` (its kernel's K-major matrices,
+    made once here as a caller makes them at load)."""
     from audio_metrics_tpu_torch.models.htsat import _Folded, _mlp_weights, _v2_kernel_weights
     from audio_metrics_tpu_torch.ops.attention import half_operands
 
     w = _Folded(_v2_kernel_weights(params, prefix, block.resolution, block.shift, block.heads,
                                    block.window), dtype).to("cuda")
     m = _Folded(_mlp_weights(params, prefix), torch.float32).to("cuda")
-    ops = half_operands(w.wqkv, w.wp) if dtype == torch.float32 else None
+    ops = half_operands(w.wqkv, w.wp)
     return ((w.ln1_w, w.ln1_b, w.wqkv, w.bq3, w.wp, w.bp, w.bm),
             (m.ln2_w, m.ln2_b, m.w1, m.b1, m.w2, m.b2), ops)
 
@@ -589,25 +602,14 @@ def phase_kernels(cfg, params, results):
                      lambda x: swin_attention_half_v3_plain(x, *attn, **geo), n_blocks, stage)
             split_checks.append((key, block, xs[CHECK_B], x4[CHECK_B], attn, mlp, ops, geo))
 
-            # the v2 attention half (#11), an opt-in op: every stage
-            a2 = v2_weights(params, prefix, block)[0]
-            check("swin_attn_v2", key,
-                  lambda: swin_attention_half_v2(x4[CHECK_B], *a2, **geo),
-                  lambda: swin_attention_half_v2_plain(x4[CHECK_B], *a2, **geo),
-                  (lambda: swin_attention_half_v2(x4[BATCH], *a2, **geo),
-                   lambda: swin_attention_half_v2_plain(x4[BATCH], *a2, **geo), n_blocks),
-                  x=x4[CHECK_B], stage=stage)
-
             if stage < 2:  # the v1 attention half (#10): stages of >= 16 windows
                 v1 = SwinBlock(params, prefix, cfg, res, shift, cfg.num_heads[stage],
                                torch.bfloat16, attention="v1").to(dev)
                 a1 = (v1.ln1_w, v1.ln1_b, v1.wq, v1.bq, v1.wk, v1.wv, v1.wp, v1.bp, v1.bm)
-                check("swin_attn_v1", key,
-                      lambda: swin_attention_half_v1(x4[CHECK_B], *a1, **geo),
-                      lambda: swin_attention_half_v1_plain(x4[CHECK_B], *a1, **geo),
-                      (lambda: swin_attention_half_v1(x4[BATCH], *a1, **geo),
-                       lambda: swin_attention_half_v1_plain(x4[BATCH], *a1, **geo), n_blocks),
-                      x=x4[CHECK_B], stage=stage)
+                ops1 = v1.kernel_operands()
+                check_on("swin_attn_v1", key, x4,
+                         lambda x: swin_attention_half_v1(x, *a1, **geo, operands=ops1),
+                         lambda x: swin_attention_half_v1_plain(x, *a1, **geo), n_blocks, stage)
                 # the f32 v1 half (#10 f32) on its f32 operands made at load
                 v132 = SwinBlock(params, prefix, cfg, res, shift, cfg.num_heads[stage],
                                  torch.float32, attention="v1").to(dev)
@@ -617,17 +619,17 @@ def phase_kernels(cfg, params, results):
                 check_on("swin_attn_v1_f32", key, x432,
                          lambda x: swin_attention_half_v1(x, *a132, **geo, operands=ops132),
                          lambda x: swin_attention_half_v1_plain(x, *a132, **geo), n_blocks, stage)
-                # v2 on v1's operands laid side by side runs v1's launches
-                v1_out = swin_attention_half_v1(x4[CHECK_B], *a1, **geo)
-                mx, rel = compare("v2_vs_v1", swin_attention_half_v2(x4[CHECK_B], *a2, **geo),
-                                  v1_out, v1_out.float() - x4[CHECK_B].float(), results)
-                rel_tol, max_tol = TOL["swin_attn_v1"][0][stage], TOL["swin_attn_v1"][1]
-                ok = mx <= max_tol and rel <= rel_tol
-                log(f"  v2 kernel vs v1 kernel {key}: max_abs_err {mx:.4g} (tol {max_tol}) "
-                    f"mean_abs_err / mean |out - x| {rel:.4g} (tol {rel_tol}) "
-                    f"{'ok' if ok else 'FAIL'}")
-                if not ok:
-                    raise AssertionError(f"the v2 kernel disagrees with the v1 kernel {key}")
+
+            # the v2 attention half (#11), an opt-in op: every stage; on v1's
+            # operands laid side by side it runs the v1 kernel's launches
+            a2, _, ops2 = v2_weights(params, prefix, block)
+            check_on("swin_attn_v2", key, x4,
+                     lambda x: swin_attention_half_v2(x, *a2, **geo, operands=ops2),
+                     lambda x: swin_attention_half_v2_plain(x, *a2, **geo), n_blocks, stage)
+            if stage < 2:
+                same("v2 kernel vs v1 kernel", key,
+                     swin_attention_half_v2(x4[CHECK_B], *a2, **geo, operands=ops2),
+                     swin_attention_half_v1(x4[CHECK_B], *a1, **geo, operands=ops1))
 
             # the f32 v2 half (#11 f32), every stage; on v1's operands laid
             # side by side it runs the f32 v1 kernel's launches
@@ -962,6 +964,11 @@ def sass_check(lib_path: str) -> None:
             + ", ".join(f"{op} x{n}" for op, n in counts.items()) + f" {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"{name}: {symbol} lacks {ops} in its SASS")
+    for name, symbol in SASS_ONE.items():
+        n = sum(bool(re.search(symbol, f.split("\n", 1)[0])) for f in functions)
+        log(f"  {name} ({symbol}): {n} instantiation(s) {'ok' if n == 1 else 'FAIL'}")
+        if n != 1:
+            raise AssertionError(f"{name}: {n} instantiations, want 1")
 
 
 def phase_fad_tail():
@@ -1299,16 +1306,16 @@ def phase_opt_in(card: str, results: dict) -> dict:
         h.remove()
     ops = []
     for (i, j, blk), x in zip(blocks, inputs):
-        attn, mlp, _ = v2_weights(params, f"audio_encoder.layers.{i}.blocks.{j}", blk)
+        attn, mlp, a_ops = v2_weights(params, f"audio_encoder.layers.{i}.blocks.{j}", blk)
         geo = dict(heads=blk.heads, window=blk.window, shift=blk.shift, eps=blk.eps)
         r, c = blk.resolution, x.shape[-1]
-        ops.append((i, j, blk, x.view(BATCH, r, r, c), attn, mlp, geo))
+        ops.append((i, j, blk, x.view(BATCH, r, r, c), attn, mlp, a_ops, geo))
 
     set_counts_to_zero()
     outs = []
     with torch.no_grad():
-        for i, j, blk, x4, attn, mlp, geo in ops:
-            a = swin_attention_half_v2(x4, *attn, **geo)
+        for i, j, blk, x4, attn, mlp, a_ops, geo in ops:
+            a = swin_attention_half_v2(x4, *attn, **geo, operands=a_ops)
             outs.append((a, mlp_block_int8(a.view(BATCH, -1, a.shape[-1]), *mlp, eps=blk.eps)))
     launches = read_counts()
     check_counts(f"{len(ops)} blocks, the v2 attention half then the int8 MLP", launches,
@@ -1316,7 +1323,7 @@ def phase_opt_in(card: str, results: dict) -> dict:
                   for name in launches})
 
     ms = {"swin_attn_v2": 0.0, "swin_mlp_int8": 0.0, "swin_mlp (bf16)": 0.0}
-    for (i, j, blk, x4, attn, mlp, geo), (a, m) in zip(ops, outs):
+    for (i, j, blk, x4, attn, mlp, a_ops, geo), (a, m) in zip(ops, outs):
         a3 = a.view(BATCH, -1, a.shape[-1])
         bf16_mlp = (blk.ln2_w, blk.ln2_b, blk.w1, blk.b1, blk.w2, blk.b2)
         want_a = swin_attention_half_v2_plain(x4, *attn, **geo)
@@ -1340,7 +1347,8 @@ def phase_opt_in(card: str, results: dict) -> dict:
             f"{direct:.4g} {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"an opt-in op disagrees at block {i}.{j}")
-        ms["swin_attn_v2"] += cuda_ms(lambda: swin_attention_half_v2(x4, *attn, **geo))
+        ms["swin_attn_v2"] += cuda_ms(lambda: swin_attention_half_v2(x4, *attn, **geo,
+                                                                     operands=a_ops))
         ms["swin_mlp_int8"] += cuda_ms(lambda: mlp_block_int8(a3, *mlp, eps=blk.eps))
         ms["swin_mlp (bf16)"] += cuda_ms(
             lambda: mlp_block(a3, *bf16_mlp, eps=blk.eps, operands=blk.kernel_operands()))
@@ -1348,7 +1356,7 @@ def phase_opt_in(card: str, results: dict) -> dict:
     # alone through torch._int_mm (cuBLASLt), on random codes of each
     # block's shapes
     gen = torch.Generator(device="cuda").manual_seed(9)
-    for i, j, blk, x4, attn, mlp, geo in ops:
+    for i, j, blk, x4, attn, mlp, _, geo in ops:
         m, c = x4.numel() // x4.shape[-1], x4.shape[-1]
         a, w1, h, w2 = (torch.randint(-127, 128, shape, generator=gen, device="cuda",
                                       dtype=torch.int8)

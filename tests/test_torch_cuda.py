@@ -540,7 +540,7 @@ def test_attention_v1_kernel_matches_plain(cuda, params, stage, shift):
     args = (x, b.ln1_w, b.ln1_b, b.wq, b.bq, b.wk, b.wv, b.wp, b.bp, b.bm)
     geo = dict(heads=b.heads, window=b.window, shift=b.shift, eps=b.eps)
     before = KERNELS["swin_attn_v1"].launches
-    got = swin_attention_half_v1(*args, **geo)
+    got = swin_attention_half_v1(*args, **geo, operands=b.kernel_operands())
     torch.cuda.synchronize()
     assert KERNELS["swin_attn_v1"].launches == before + 1
     want = swin_attention_half_v1_plain(*args, **geo)
@@ -679,7 +679,7 @@ def test_attention_v2_kernel_matches_plain(cuda, params, stage, shift):
     attn, _, geo, res = _v2_block(params, cuda, stage, shift)
     x = _x(cuda, 70 + stage + shift, (2, res, res, attn[-2].shape[0]))
     before = KERNELS["swin_attn_v2"].launches
-    got = swin_attention_half_v2(x, *attn, **geo)
+    got = swin_attention_half_v2(x, *attn, **geo, operands=half_operands(attn[2], attn[4]))
     torch.cuda.synchronize()
     assert KERNELS["swin_attn_v2"].launches == before + 1
     want = swin_attention_half_v2_plain(x, *attn, **geo)
@@ -691,9 +691,9 @@ def test_attention_v2_kernel_equals_v1_kernel(cuda, params, stage, shift):
     attn, _, geo, res = _v2_block(params, cuda, stage, shift)
     v1, _ = _half_block(params, cuda, stage, shift, "v1")
     x = _x(cuda, 80 + stage + shift, (2, res, res, v1.bp.shape[0]))
-    got = swin_attention_half_v2(x, *attn, **geo)
+    got = swin_attention_half_v2(x, *attn, **geo, operands=half_operands(attn[2], attn[4]))
     want = swin_attention_half_v1(x, v1.ln1_w, v1.ln1_b, v1.wq, v1.bq, v1.wk, v1.wv, v1.wp,
-                                  v1.bp, v1.bm, **geo)
+                                  v1.bp, v1.bm, **geo, operands=v1.kernel_operands())
     torch.cuda.synchronize()
     assert torch.equal(got, want)
 
@@ -750,7 +750,8 @@ def test_opt_in_kernels_raise_on_f32_and_cpu(cuda, params):
     with pytest.raises(NotImplementedError):
         mlp_block_int8(x.view(1, res * res, -1).half(), *mlp, eps=geo["eps"])
     with pytest.raises(ValueError):
-        swin_attention_half_v2(x.bfloat16(), attn[0].cpu(), *attn[1:], **geo)
+        swin_attention_half_v2(x.bfloat16(), attn[0].cpu(), *attn[1:], **geo,
+                               operands=half_operands(attn[2], attn[4]))
     with pytest.raises(ValueError):
         mlp_block_int8(x.view(1, res * res, -1).bfloat16(), mlp[0].cpu(), *mlp[1:],
                        eps=geo["eps"])

@@ -311,10 +311,10 @@ def test_card_f32_split_block_reaches_its_f32_kernels(symbols, attention):
 @pytest.mark.parametrize("attention", ["v3", "v1"])
 def test_card_bf16_split_block_reaches_its_kernels(symbols, attention):
     """A bf16 v3 or v1 block on the card launches its bf16 attention half,
-    then the bf16 fused MLP, each once and no other kernel; the v3 half and
-    the MLP read the operands held from load (the whole block's transposed
-    matrices and column sums, the MLP's transposed ``w1``, ``w2``); bf16
-    out."""
+    then the bf16 fused MLP, each once and no other kernel; each reads the
+    operands held from load (the whole block's transposed matrices and
+    column sums for v3, v1's transposed side-by-side matrices and qkv bias,
+    the MLP's transposed ``w1``, ``w2``); bf16 out."""
     block, _, x = _small_stage1(torch.bfloat16, attention)
     ops = block.kernel_operands()
     y, moved = _counted(lambda: block(x))
@@ -323,9 +323,9 @@ def test_card_bf16_split_block_reaches_its_kernels(symbols, attention):
     assert moved == {f"swin_attn_{attention}": 1, "swin_mlp": 1}
     for name in ("w1_t", "w2_t"):
         assert ops[name].data_ptr() in symbols.args["am_swin_mlp"]
-    if attention == "v3":
-        for name in ("wqkv_t", "wp_t", "csum"):
-            assert ops[name].data_ptr() in symbols.args[attn]
+    held = {"v3": ("wqkv_t", "wp_t", "csum"), "v1": ("wqkv_t", "wp_t", "bq3")}[attention]
+    for name in held:
+        assert ops[name].data_ptr() in symbols.args[attn]
     assert y.dtype == torch.bfloat16 and y.shape == x.shape
 
 
@@ -372,6 +372,69 @@ def test_card_bf16_split_halves_check_operand_shapes(symbols, half, name, wrong)
             swin_attention_half_v3(x.view(2, 32, 32, 64), block.wqkv, block.bq3, block.wp,
                                    block.bp, block.bm, heads=block.heads, window=block.window,
                                    shift=block.shift, eps=block.eps, operands=ops)
+    assert symbols == []
+
+
+def _ln_affine_half(half):
+    """The small config's stage-1 v1 block, or its weights in v2's layout,
+    bf16, on the stand-in card: the v1 or v2 attention half as a call of
+    (x, operands) and the operands its kernel reads, made at load."""
+    from audio_metrics_tpu_torch.models.htsat import (
+        HTSATConfig, _Folded, _v2_kernel_weights, init_params,
+    )
+    from audio_metrics_tpu_torch.ops.attention import (
+        half_operands, swin_attention_half_v1, swin_attention_half_v2,
+    )
+
+    geo = dict(heads=2, window=8, shift=4, eps=1e-5)
+    if half == "v1":
+        b, _, _ = _small_stage1(torch.bfloat16, "v1")
+        args = (b.ln1_w, b.ln1_b, b.wq, b.bq, b.wk, b.wv, b.wp, b.bp, b.bm)
+        return (lambda x, **o: swin_attention_half_v1(x, *args, **geo, **o)), b.kernel_operands()
+    cfg = HTSATConfig(embed_dim=32, depths=(2, 2, 2, 2), num_heads=(1, 2, 4, 8))
+    w = _on_card(_Folded(_v2_kernel_weights(init_params(cfg, seed=0),
+                                            "audio_encoder.layers.1.blocks.1", 32, 4, 2, 8),
+                         torch.bfloat16))
+    args = (w.ln1_w, w.ln1_b, w.wqkv, w.bq3, w.wp, w.bp, w.bm)
+    return ((lambda x, **o: swin_attention_half_v2(x, *args, **geo, **o)),
+            {k: _card(v) for k, v in half_operands(w.wqkv, w.wp).items()})
+
+
+@pytest.mark.parametrize("half", ["v1", "v2"])
+def test_card_bf16_ln_affine_half_reaches_its_kernel(symbols, half):
+    """A bf16 v1 or v2 attention half on the card launches its bf16 kernel
+    once on the K-major operands made at load, and bf16 comes out; without
+    them it raises ``ValueError`` naming their maker and launches nothing:
+    no fallback to a plain version or to another core."""
+    call, ops = _ln_affine_half(half)
+    x = _card(torch.zeros((2, 32, 32, 64), dtype=torch.bfloat16))
+    maker = {"v1": r"v1_operands\(wq, bq, wk, wv, wp\)", "v2": r"half_operands\(wqkv, wp\)"}
+    with pytest.raises(ValueError, match=maker[half]):
+        call(x)
+    assert symbols == []
+    y, moved = _counted(lambda: call(x, operands=ops))
+    want = f"am_swin_attn_{half}"
+    assert symbols == [want] and moved == {want[3:]: 1}
+    for name in ("wqkv_t", "wp_t"):
+        assert ops[name].data_ptr() in symbols.args[want]
+    assert y.dtype == torch.bfloat16 and y.shape == x.shape
+
+
+@pytest.mark.parametrize("half,name,wrong", [
+    ("v1", "wqkv_t", lambda o: o["wqkv_t"].t().contiguous()),  # not transposed
+    ("v1", "wp_t", lambda o: o["wp_t"][:32, :32].contiguous()),  # another width's
+    ("v1", "bq3", lambda o: o["bq3"][:64].contiguous()),
+    ("v2", "wqkv_t", lambda o: torch.stack([o["wqkv_t"]] * 2).float()),  # the f32 stack's shape
+    ("v2", "wp_t", lambda o: o["wqkv_t"]),  # another matrix's shape
+], ids=["v1-wqkv_t", "v1-wp_t", "v1-bq3", "v2-wqkv_t", "v2-wp_t"])
+def test_card_bf16_ln_affine_half_checks_operand_shapes(symbols, half, name, wrong):
+    """A bf16 v1 or v2 half on the card raises ``ValueError`` naming the
+    operand when one it reads has another shape than its maker gives at
+    this width, and launches nothing."""
+    call, ops = _ln_affine_half(half)
+    x = _card(torch.zeros((2, 32, 32, 64), dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match=name):
+        call(x, operands=dict(ops, **{name: _card(wrong(ops))}))
     assert symbols == []
 
 

@@ -1,14 +1,15 @@
 """The host side of the wgmma GEMM core (kernels/csrc/gemm_sm90.cuh), on the CPU.
 
-The whole Swin block (#1), its v3 attention half and fused MLP (#8, #9)
-and the fused frontend (#3) read their matrices K-major, transposed once
-when the weights load, and the qkv product reads the column sums of
-``wqkv`` made at load.  Each is held here against the
-JAX package's own weights: the transposed matrices equal the JAX layout
-bitwise, and the column sums equal the f32 sums of the bf16 ``wqkv`` that
-the JAX v4 kernel takes (audio_metrics_tpu/ops/attention.py:751).  The new
-shape checks raise ``NotImplementedError`` on shapes the core does not
-take.  The kernels themselves run on a card only (tests/test_torch_cuda.py).
+The whole Swin block (#1), its v3, v1 and v2 attention halves and fused
+MLP (#8-#11) and the fused frontend (#3) read their matrices K-major,
+transposed once when the weights load, and the v3 qkv product reads the
+column sums of ``wqkv`` made at load.  Each is held here against the JAX
+package's own weights: the transposed matrices (and v1's qkv bias) equal
+the JAX layout bitwise, and the column sums equal the f32 sums of the
+bf16 ``wqkv`` that the JAX v4 kernel takes
+(audio_metrics_tpu/ops/attention.py:751).  The new shape checks raise
+``NotImplementedError`` on shapes the core does not take.  The kernels
+themselves run on a card only (tests/test_torch_cuda.py).
 """
 
 import numpy as np
@@ -17,14 +18,20 @@ import pytest
 import jax.numpy as jnp
 import torch
 
+from audio_metrics_tpu.models import htsat as jax_htsat
 from audio_metrics_tpu.models.htsat import HTSAT_BASE, _v3_kernel_weights as jax_v3_weights
+from audio_metrics_tpu.ops import attention as jax_attention
 from audio_metrics_tpu.ops.frontend_fused import _patch_selector as jax_patch_selector
 from audio_metrics_tpu.ops.mel import _dft_matrices as jax_dft_matrices
 from audio_metrics_tpu.ops.mel import _fb_support_bins as jax_fb_support_bins
 from audio_metrics_tpu_torch.kernels import check_sm90_gemm
 from audio_metrics_tpu_torch.models.clap import ClapFrontend, _clap_fb
-from audio_metrics_tpu_torch.models.htsat import HTSATConfig, SwinBlock, init_params
-from audio_metrics_tpu_torch.ops.attention import check_block_gemms, swin_block_operands
+from audio_metrics_tpu_torch.models.htsat import (
+    HTSATConfig, SwinBlock, _Folded, _v2_kernel_weights, init_params,
+)
+from audio_metrics_tpu_torch.ops.attention import (
+    check_block_gemms, half_operands, swin_block_operands,
+)
 from audio_metrics_tpu_torch.ops.mlp import mlp_operands
 from audio_metrics_tpu_torch.ops.frontend_fused import FRAME, HOP, _plan, check_frontend_gemms
 from audio_metrics_tpu_torch.ops.tf32 import tf32_split
@@ -50,6 +57,56 @@ def _bf16(a) -> torch.Tensor:
     """A JAX bf16 array as a torch bf16 tensor (bitwise)."""
     return torch.from_numpy(np.array(jnp.asarray(a, jnp.bfloat16).view(jnp.uint16))).view(
         torch.bfloat16)
+
+
+def _jax_v1_columns(monkeypatch, params, pre, res, shift, heads, window):
+    """The JAX package's own bf16 v1 weights (models/htsat.py:320-336: wq
+    and bq scaled by 1/sqrt(d), wk, wv, wp), captured where it hands them
+    to its v1 kernel, laid side by side as one product's operands: (C, 3C)
+    qkv = [wq | wk | wv] by head, the (3C,) bias bq with zeros on k and v,
+    (C, C) proj; as torch tensors, bitwise."""
+    got = {}
+
+    def capture(x, ln_w, ln_b, wq, bq, wk, wv, wp, bp, bm, *args, **kwargs):
+        got.update(wq=wq, bq=bq, wk=wk, wv=wv, wp=wp)
+        return x
+
+    monkeypatch.setattr(jax_attention, "swin_attention_block_pallas", capture)
+    c = params[f"{pre}.attention.self.query.weight"].shape[0]
+    jax_htsat._attention_half_pallas(
+        jnp.zeros((1, res * res, c), jnp.bfloat16),
+        {k: jnp.asarray(v) for k, v in params.items() if k.startswith(pre)}, pre, cfg, res, shift,
+        heads, window)
+    cols = lambda w: jnp.transpose(w, (1, 0, 2)).reshape(c, c)
+    wqkv = jnp.concatenate([cols(got[k]) for k in ("wq", "wk", "wv")], axis=1)
+    bq3 = np.concatenate([np.asarray(got["bq"]).reshape(-1), np.zeros(2 * c, np.float32)])
+    return _bf16(wqkv), torch.from_numpy(bq3), _bf16(got["wp"].reshape(c, c))
+
+
+@pytest.mark.parametrize("half,stage,shift", [("v1", 0, 0), ("v1", 1, 4), ("v2", 0, 4),
+                                              ("v2", 3, 0)])
+def test_ln_affine_operands_at_load_match_jax(monkeypatch, params, half, stage, shift):
+    """The bf16 v1 and v2 halves read (N, K) K-major operands made at load:
+    a v1 block's ``v1_operands`` and ``half_operands`` of v2's bf16 (C, 3C)
+    / (C, C) pair are the JAX package's own bf16 v1 weights laid side by
+    side and transposed, bitwise, and v1's ``bq3`` its scaled q bias with
+    zeros on k and v."""
+    res = cfg.grid_size // 2**stage
+    window = min(cfg.window_size, res)
+    pre = f"audio_encoder.layers.{stage}.blocks.{1 if shift else 0}"
+    heads = cfg.num_heads[stage]
+    wqkv, bq3, wp = _jax_v1_columns(monkeypatch, params, pre, res, shift, heads, window)
+    if half == "v1":
+        block = SwinBlock(params, pre, cfg, res, shift, heads, torch.bfloat16, attention="v1")
+        ops = block.kernel_operands()
+        assert ops["bq3"].dtype == torch.float32 and torch.equal(ops["bq3"], bq3)
+    else:
+        w = _Folded(_v2_kernel_weights(params, pre, res, shift, heads, window), torch.bfloat16)
+        ops = half_operands(w.wqkv, w.wp)
+        assert set(ops) == {"wqkv_t", "wp_t"} and torch.equal(w.bq3, bq3)
+    for name, want in (("wqkv_t", wqkv), ("wp_t", wp)):
+        assert ops[name].dtype == torch.bfloat16 and ops[name].is_contiguous()
+        assert ops[name].shape == want.t().shape and torch.equal(ops[name].t(), want), name
 
 
 @pytest.mark.parametrize("stage,shift", [(0, 0), (0, 4), (1, 4), (2, 0), (3, 0)])
@@ -78,12 +135,14 @@ def test_block_operands_at_load_match_jax(params, stage, shift):
 
 
 @pytest.mark.parametrize("attention", ["v3", "v1", "xla"])
-def test_split_blocks_hold_their_kernel_operands(params, attention):
+def test_split_blocks_hold_their_kernel_operands(monkeypatch, params, attention):
     """A bf16 v3 block holds the whole block's operands from load (its
     attention half and fused MLP read them): each matrix the JAX v3 layout
-    transposed, and the column sums of its bf16 ``wqkv``; a bf16 v1 or XLA
-    block holds the fused MLP's ``w1_t`` and ``w2_t`` alone.  All held as
-    buffers, so they move with the block."""
+    transposed, and the column sums of its bf16 ``wqkv``; a bf16 v1 block
+    holds the fused MLP's ``w1_t`` and ``w2_t`` and its attention half's
+    ``wqkv_t``, ``wp_t`` (the JAX v1 layout side by side, transposed) and
+    ``bq3``; an XLA block the fused MLP's alone.  All held as buffers, so
+    they move with the block."""
     pre = "audio_encoder.layers.1.blocks.1"
     block = SwinBlock(params, pre, cfg, 32, 4, cfg.num_heads[1], torch.bfloat16,
                       attention=attention)
@@ -93,13 +152,20 @@ def test_split_blocks_hold_their_kernel_operands(params, attention):
         wqkv, _, wp, _, _ = jax_v3_weights({k: jnp.asarray(v) for k, v in params.items()}, pre,
                                            32, 4, cfg.num_heads[1], cfg.window_size, jnp.bfloat16)
         want.update(wqkv_t=_bf16(wqkv), wp_t=_bf16(wp))
+    if attention == "v1":
+        wqkv, bq3, wp = _jax_v1_columns(monkeypatch, params, pre, 32, 4, cfg.num_heads[1],
+                                        cfg.window_size)
+        want.update(wqkv_t=wqkv, wp_t=wp)
     ops = block.kernel_operands()
-    assert set(ops) == set(want) | ({"csum"} if attention == "v3" else set())
+    extra = {"v3": {"csum"}, "v1": {"bq3"}, "xla": set()}[attention]
+    assert set(ops) == set(want) | extra
     for name, w in want.items():
         assert ops[name].dtype == torch.bfloat16 and ops[name].is_contiguous()
         assert torch.equal(ops[name].t(), w), name
     if attention == "v3":
         assert torch.equal(ops["csum"], block.wqkv.float().sum(dim=0))
+    if attention == "v1":
+        assert torch.equal(ops["bq3"], bq3)
     buffers = dict(block.named_buffers())
     assert all(buffers[name] is t for name, t in ops.items())
 
@@ -150,6 +216,8 @@ def test_split_forward_hands_the_wrappers_their_operands(monkeypatch, attention)
     assert {"w1_t", "w2_t"} <= ops.keys()
     if attention == "v3":
         assert {"wqkv_t", "wp_t", "csum"} <= ops.keys()
+    if attention == "v1":
+        assert {"wqkv_t", "wp_t", "bq3"} <= ops.keys()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
