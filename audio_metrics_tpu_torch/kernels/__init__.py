@@ -19,8 +19,9 @@ PyTorch version; a CUDA tensor launches the kernel for its dtype or raises.
 Every kernel of the Swin path has a bf16 and an f32 instantiation, as the
 JAX kernels take the activation dtype (the f32 block, its halves and the
 patch merge run their products as three TF32 products on the tensor cores;
-the int8 MLP's products are int8 in both); the frontend, the log-mels and
-the PRDC kernels take the one dtype the JAX package runs them in.  Any
+the int8 MLP's products are int8 in both, on the bf16 wgmma core's
+ring); the frontend, the log-mels and the PRDC kernels take the one dtype
+the JAX package runs them in.  Any
 other dtype raises (f16).  There is no fallback, and no cast between
 dtypes.
 """
@@ -38,7 +39,8 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["Kernel", "KERNELS", "build", "check_sm90_gemm", "check_tf32x3_gemm", "require_cuda"]
+__all__ = ["Kernel", "KERNELS", "build", "check_s8_gemm", "check_sm90_gemm", "check_tf32x3_gemm",
+           "require_cuda"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD = Path(__file__).resolve().parent / "build"
@@ -132,6 +134,21 @@ def check_sm90_gemm(name: str, n: int, k: int, *strides: int) -> None:
         raise NotImplementedError(
             f"{name}: the wgmma GEMM core takes N and K multiples of 64 and strides of "
             f"8 elements, got N={n} K={k} strides={strides}"
+        )
+
+
+def check_s8_gemm(name: str, n: int, k: int, *strides: int) -> None:
+    """Raise ``NotImplementedError`` unless the wgmma core
+    (``csrc/gemm_sm90.cuh``) takes an int8 product of ``n`` output columns
+    over a depth ``k``: ``n`` a multiple of 64 (its narrowest column tile),
+    ``k`` and every row stride of its operands (``strides``, in codes) a
+    multiple of 16, the 16 bytes a tensor map asks for.  ``k`` need not fill
+    a K step of 128 codes: the tensor maps zero-fill the rest, which adds
+    exact zeros to an integer sum."""
+    if n % 64 or k % 16 or any(s % 16 for s in strides):
+        raise NotImplementedError(
+            f"{name}: the int8 wgmma GEMM core takes N multiples of 64, K multiples of 16 "
+            f"and strides of 16 codes, got N={n} K={k} strides={strides}"
         )
 
 

@@ -27,9 +27,9 @@ constexpr int LDA_S = BK + 8;  // shared row pitches: multiples of 8 bf16 /
 constexpr int LDB_S = BN + 8;  // 4 f32 as WMMA requires, padded against
 constexpr int LDC_S = BN + 4;  // bank conflicts
 
-// The epilogues of the wgmma cores (gemm_sm90.cuh epilogue8, bf16;
-// gemm_tf32x3_sm90.cuh epi_f32, f32 in and out) and of gemm_kernel
-// (EPI_POWER).
+// The epilogues of the wgmma cores (gemm_sm90.cuh epilogue8, bf16, and
+// s8_epilogue8, int8 codes; gemm_tf32x3_sm90.cuh epi_f32, f32 in and out)
+// and of gemm_kernel (EPI_POWER).
 enum Epi {
   EPI_QKV = 0,    // bf16 out = acc*rs - rs*mu*colsum(B) + v0      (LN1 fold)
   EPI_PROJ,       // f32 out[map(r)] = acc + v0 + res_bf16[map(r)] (un-partition, un-roll, residual)
@@ -42,6 +42,11 @@ enum Epi {
   EPI_PROJ_BF16,  // bf16 out[map(r)] = acc + v0 + res_bf16[map(r)] (EPI_PROJ, bf16 out)
   EPI_BIAS_BF16,  // bf16 out = acc + v0
   EPI_RESID_IN,   // bf16 out = acc + v0 + res_bf16                (the MLP half's input)
+  // the int8 MLP (mlp_int8.cu): acc the int32 sum as f32, rs the row's
+  // scale (sx; fc2: sy from amax[r]), cs the column's
+  EPI_S8_GELU,     // f32 out = g = gelu_erf(acc*(rs*cs) + v0); amax[r] = max |g| (fc1)
+  EPI_S8_OUT,      // bf16 out = acc*(sy*cs) + v0 + res_bf16                  (fc2)
+  EPI_S8_OUT_F32,  // f32 out = acc*(sy*cs) + v0 + res_f32                    (fc2, f32 rows)
 };
 
 struct GemmParams {

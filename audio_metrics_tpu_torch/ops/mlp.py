@@ -14,11 +14,15 @@ activation dtype; LN affine and biases f32.
 
 ``mlp_block_int8`` has the contract of ``mlp_block_pallas_int8`` (:249-275,
 kernel ``_mlp_kernel_int8`` :166), the W8A8 MLP: ``w1`` and ``w2`` given in
-f32 and quantised per output column by :func:`quantize_columns` on every
-call (the JAX wrapper's XLA prep, :216-223), the activations per row inside
-the kernel (kernels/csrc/mlp_int8.cu::am_swin_mlp_int8).  A public op that
-no model path calls, in the JAX package as here.  Exact-erf GELU (the JAX
-kernel's A&S 7.1.26 erf is within 1.5e-7 of it).
+f32 and quantised per output column by :func:`quantize_columns` (the JAX
+wrapper's XLA prep, :216-223), the activations per row inside the kernel
+(kernels/csrc/mlp_int8.cu::am_swin_mlp_int8, both products int8 ``wgmma``
+on kernels/csrc/gemm_sm90.cuh's TMA ring).  The kernel reads the weights'
+codes transposed to (N, K) and their scales, :func:`mlp_int8_operands`: a
+caller makes them once when the weights load and passes them as
+``operands=``; without them a call on the card makes them itself, every
+call.  A public op that no model path calls, in the JAX package as here.
+Exact-erf GELU (the JAX kernel's A&S 7.1.26 erf is within 1.5e-7 of it).
 
 Dispatch of ``mlp_block`` and ``mlp_block_int8``: a CPU tensor runs the
 ``*_plain`` version; a CUDA tensor launches the kernel for its dtype or
@@ -37,7 +41,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..kernels import KERNELS, require_cuda
+from ..kernels import KERNELS, check_s8_gemm, require_cuda
 from .tf32 import k_major, k_major_operand
 
 __all__ = [
@@ -47,6 +51,7 @@ __all__ = [
     "mlp_block_plain",
     "mlp_block_int8",
     "mlp_block_int8_plain",
+    "mlp_int8_operands",
     "mlp_xla",
     "quantize_columns",
 ]
@@ -193,14 +198,51 @@ def mlp_block_int8_plain(x, ln_w, ln_b, w1, b1, w2, b2, *, eps: float = 1e-5):
     return (_int_product(qy, q2) * (sy * s2) + b2 + xf).to(x.dtype)
 
 
-def _mlp_block_int8_cuda(x, ln_w, ln_b, w1, b1, w2, b2, *, eps):
+def mlp_int8_operands(w1, w2) -> dict:
+    """What the int8 MLP kernel reads of ``w1`` (C, 4C) and ``w2`` (4C, C),
+    f32, made once when the weights load: their :func:`quantize_columns`
+    codes transposed to (N, K) int8, ``q1t`` (4C, C) and ``q2t`` (C, 4C),
+    as the int8 wgmma core reads both operands K-major, and their column
+    scales ``s1`` (1, 4C) and ``s2`` (1, C) f32."""
+    q1, s1 = quantize_columns(w1)
+    q2, s2 = quantize_columns(w2)
+    return dict(q1t=q1.t().contiguous(), s1=s1, q2t=q2.t().contiguous(), s2=s2)
+
+
+def _int8_matrices(kernel, operands, x):
+    """The four tensors of :func:`mlp_int8_operands` for ``x``'s width C,
+    each checked for its dtype, shape ((4C, C), (1, 4C), (C, 4C), (1, C))
+    and device; ``ValueError`` names the first that differs."""
+    c = x.shape[-1]
+    want = {"q1t": (torch.int8, (4 * c, c)), "s1": (torch.float32, (1, 4 * c)),
+            "q2t": (torch.int8, (c, 4 * c)), "s2": (torch.float32, (1, c))}
+    for name, (dtype, shape) in want.items():
+        t = operands[name]
+        if t.dtype != dtype or tuple(t.shape) != shape or t.device != x.device:
+            raise ValueError(
+                f"{kernel} reads {name} of mlp_int8_operands(w1, w2) as {dtype} {shape} on "
+                f"{x.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    return [operands[name] for name in want]
+
+
+def check_int8_gemms(kernel: str, c: int) -> None:
+    """Raise ``NotImplementedError`` unless the int8 wgmma core takes the
+    MLP's two products at width ``c`` (``kernels.check_s8_gemm``): fc1, N =
+    4C over K = C, and fc2, N = C over K = 4C."""
+    check_s8_gemm(f"{kernel} fc1", 4 * c, c, c)
+    check_s8_gemm(f"{kernel} fc2", c, 4 * c, 4 * c)
+
+
+def _mlp_block_int8_cuda(x, ln_w, ln_b, w1, b1, w2, b2, *, eps, operands):
     f32 = x.dtype == torch.float32
     kernel = KERNEL_INT8_F32 if f32 else KERNEL_INT8
     require_cuda(x, dtype=torch.float32 if f32 else torch.bfloat16)
-    require_cuda(ln_w, ln_b, w1, b1, w2, b2, dtype=torch.float32)
     m, c = _mlp_shape(kernel.name, x, w1.shape, w2.shape)
-    q1, s1 = quantize_columns(w1)
-    q2, s2 = quantize_columns(w2)
+    check_int8_gemms(kernel.name, c)
+    q1t, s1, q2t, s2 = _int8_matrices(
+        kernel.name, mlp_int8_operands(w1, w2) if operands is None else operands, x)
+    require_cuda(ln_w, ln_b, w1, b1, w2, b2, s1, s2, dtype=torch.float32)
+    require_cuda(q1t, q2t, dtype=torch.int8)
     dev = x.device
     qx = torch.empty((m, c), dtype=torch.int8, device=dev)
     sx = torch.empty(m, dtype=torch.float32, device=dev)
@@ -208,18 +250,25 @@ def _mlp_block_int8_cuda(x, ln_w, ln_b, w1, b1, w2, b2, *, eps):
     amax = torch.empty(m, dtype=torch.int32, device=dev)
     qy = torch.empty((m, 4 * c), dtype=torch.int8, device=dev)
     out = torch.empty_like(x)
-    kernel.launch("am_swin_mlp_int8_f32" if f32 else "am_swin_mlp_int8", x, ln_w, ln_b,
-                  q1.t().contiguous(), s1, b1, q2.t().contiguous(), s2, b2, m, c, float(eps), qx,
-                  sx, hid, amax, qy, out)
+    kernel.launch("am_swin_mlp_int8_f32" if f32 else "am_swin_mlp_int8", x, ln_w, ln_b, q1t, s1,
+                  b1, q2t, s2, b2, m, c, float(eps), qx, sx, hid, amax, qy, out)
     kernel.launches += 1
     return out
 
 
-def mlp_block_int8(x, ln_w, ln_b, w1, b1, w2, b2, *, eps: float = 1e-5):
+def mlp_block_int8(x, ln_w, ln_b, w1, b1, w2, b2, *, eps: float = 1e-5, operands=None):
     """x + fc2(GELU(fc1(LN(x)))) over the last axis with W8A8 int8
-    products; ``x`` bf16 or f32, ``w1`` (C, 4C) and ``w2`` (4C, C) f32."""
-    fn = mlp_block_int8_plain if x.device.type == "cpu" else _mlp_block_int8_cuda
-    return fn(x, ln_w, ln_b, w1, b1, w2, b2, eps=eps)
+    products; ``x`` bf16 or f32, ``w1`` (C, 4C) and ``w2`` (4C, C) f32.
+    ``operands``: :func:`mlp_int8_operands` of these weights, made at load;
+    checked on either device (``ValueError`` for another shape, dtype or
+    device), read by the kernel on the card, where a call without them
+    makes them.  A CPU tensor runs the plain version, which quantises the
+    weights itself."""
+    if x.device.type == "cpu":
+        if operands is not None:
+            _int8_matrices("swin_mlp_int8", operands, x)
+        return mlp_block_int8_plain(x, ln_w, ln_b, w1, b1, w2, b2, eps=eps)
+    return _mlp_block_int8_cuda(x, ln_w, ln_b, w1, b1, w2, b2, eps=eps, operands=operands)
 
 
 def mlp_xla(x, ln_w, ln_b, w1, b1, w2, b2, *, eps: float = 1e-5):

@@ -73,11 +73,10 @@ FAULTS = {
            "const float4 b = *reinterpret_cast<const float4*>(ln_b + k);",
            "const float4 b = make_float4(0.f, 0.f, 0.f, 0.f);",
            "the f32 LN1 window pass of the v1 and v2 halves drops the LN1 bias"),
-    "R1": (f"{CSRC}/mlp_int8.cu",
-           "float residual(const float* x, long long o) { return x[o]; }",
-           "float residual(const float* x, long long o) {\n"
-           "  return __bfloat162float(reinterpret_cast<const bf16*>(x)[o]);\n}",
-           "the f32 int8 MLP reads its f32 residual as bf16"),
+    "R1": (f"{CSRC}/gemm_sm90.cuh",
+           "load8(static_cast<const T*>(p.res) + o, x);",
+           "load8(static_cast<const bf16*>(p.res) + o, x);",
+           "the f32 int8 MLP's fc2 epilogue reads its f32 residual as bf16"),
     "P1": (f"{CSRC}/gemm_sm90.cuh",
            "else store8(static_cast<bf16*>(p.out) + o, v);",
            "else store8(static_cast<bf16*>(p.out) + (long long)r * p.ldo + n, v);",
@@ -90,6 +89,9 @@ FAULTS = {
     "N2": (f"{CSRC}/swin_block.cu", "sm90::load8(ln_b + k, b);",
            "for (int t = 0; t < 8; ++t) b[t] = 0.f;",
            "the bf16 LN1 window pass of the v1 and v2 halves drops the LN1 bias"),
+    "I1": (f"{CSRC}/gemm_sm90.cuh", "__fmul_rn(a[i], __fmul_rn(rs, s[i]))",
+           "__fmul_rn(a[i], s[i])",
+           "the int8 MLP's fc1 epilogue drops the row scale sx (both dtypes)"),
 }
 SKIP = ("build", ".git", "__pycache__", ".pytest_cache")
 

@@ -8,9 +8,11 @@ Phases, one status line each:
      process per source, all started together), and ``cuobjdump -sass`` of
      the library: the halo log-mel's kernel, the bf16 v1/v2 halves' qkv and
      proj products and the f32 block's and merge's products hold HGMMA and
-     UTMALDG (wgmma, fed by TMA), the f32 window attention HMMA (mma.sync on
-     the tensor cores), the PRDC statistics' LDGSTS (cp.async); gemm.cuh's
-     WMMA gemm_kernel has one instantiation (#7's DFT);
+     UTMALDG (wgmma, fed by TMA), the int8 MLP's fc1 and fc2 IGMMA and
+     UTMALDG (int8 wgmma), the f32 window attention HMMA (mma.sync on the
+     tensor cores), the PRDC statistics' LDGSTS (cp.async); gemm.cuh's WMMA
+     gemm_kernel has one instantiation (#7's DFT), and no IMMA (int8
+     mma.sync) is left;
   3. each kernel against its plain PyTorch version on the card, at the
      main-path shapes, with errors, tolerances and times: bf16 Swin blocks
      (every stage shifted and unshifted), patch merges and the 5 s
@@ -48,8 +50,10 @@ Phases, one status line each:
      of the 18 Swin blocks' inputs; on each, the v2 attention half
      (``swin_attention_half_v2``) with that block's weights, then the int8
      MLP (``mlp_block_int8``) on its output with that block's f32 MLP
-     weights: launch counts, each against its plain version, the int8
-     MLP's branch against the fused bf16 MLP kernel's, per-forward times;
+     weights, their codes held (``mlp_int8_operands``): launch counts, each
+     against its plain version, the int8 MLP's branch against the fused
+     bf16 MLP kernel's, per-forward times (the int8 MLP also quantising its
+     weights per call, and that quantisation alone);
      then the same two ops in f32 on the inputs of one f32 forward with
      phase 10's weights (their f32 kernels);
  10. the default configuration, f32: phase 3's weights written as a
@@ -71,9 +75,10 @@ Phases, one status line each:
 Phase 3 runs each kernel redesigned for Hopper on the wgmma core (the
 whole Swin block at every stage and shift, its v3, v1 and v2 attention
 halves and fused MLP, the three patch merges, the fused frontend, the halo
-log-mel) twice on the same inputs, at B = 4 and at B = 64, and fails
-unless the outputs are bitwise equal (their GEMM core has no atomics, so a
-race in its TMA ring shows as a difference); it times the products of the
+log-mel, the int8 MLP) twice on the same inputs, at B = 4 and at B = 64,
+and fails unless the outputs are bitwise equal (their GEMM core has no
+atomics but the int8 MLP's integer max, so a race in its TMA ring shows as
+a difference); it times the products of the
 block, the merges, the frontend and the split halves alone through
 ``torch.matmul`` at B = 64 as their yardstick (``library_ms``, the port
 never calls it), and prints their achieved TFLOP/s.  Every call it holds
@@ -93,9 +98,10 @@ stage, the fused MLP at the row counts of stages 0-3, the v1 attention
 half at stages 0 and 1, each on the operands the block holds from load),
 the opt-in ops (the v2 attention half at every stage on its
 ``half_operands``, bitwise equal to the v1 kernel at stages 0 and 1; the
-int8 MLP at the row counts of stages 0-3) and the v1 log-mel against their
-plain versions, the v3, v1 and v2 halves at B = 4 and 64, and the v3 half
-then the MLP against the whole-block kernel.  Each
+int8 MLP at the row counts of stages 0-3 on its ``mlp_int8_operands``) and
+the v1 log-mel against their plain versions, the v3, v1 and v2 halves and
+the int8 MLP at B = 4 and 64, and the v3 half then the MLP against the
+whole-block kernel.  Each
 environment variable is set only around the phase that reads it.
 Then one JSON line with each kernel's numbers, the card line, and last the
 ok line.  Any failure exits non-zero and prints no ok line.  Imports no JAX.
@@ -205,19 +211,19 @@ F32_E2E_TOL = (1e-6, 6e-7)
 # theirs is the kernel-vs-plain scale).
 CONFIG_TOL = {"split": (5e-5, 5e-3), "attn_v1": (5e-5, 5e-3), "mel_v1": (2e-6, 1e-3)}
 # kernels that must repeat bitwise on the same inputs: those on the wgmma
-# GEMM cores (gemm_sm90.cuh, bf16; gemm_tf32x3_sm90.cuh, f32 as three TF32
-# products), which have no atomics, and the f32 int8 MLP, whose one atomic
-# is an integer max, which no order changes
+# GEMM cores (gemm_sm90.cuh, bf16 and int8; gemm_tf32x3_sm90.cuh, f32 as
+# three TF32 products), which have no atomics but the int8 MLP's, an
+# integer max, which no order changes
 REPEATS = ("swin_block", "patch_merge", "clap_frontend", "log_mel", "swin_attn_v3", "swin_mlp",
-           "swin_attn_v1", "swin_attn_v2", "swin_block_f32", "patch_merge_f32",
+           "swin_attn_v1", "swin_attn_v2", "swin_mlp_int8", "swin_block_f32", "patch_merge_f32",
            "swin_attn_v3_f32", "swin_mlp_f32", "swin_attn_v1_f32", "swin_attn_v2_f32",
            "swin_mlp_int8_f32")
 # kernels also held against their plain versions at B = BATCH, the batch at
 # which the main path and the f32 configurations run them (phases 6, 7,
 # 9-11), under the same bounds
-AT_BATCH = ("swin_attn_v3", "swin_mlp", "swin_attn_v1", "swin_attn_v2", "swin_block_f32",
-            "patch_merge_f32", "swin_attn_v3_f32", "swin_mlp_f32", "swin_attn_v1_f32",
-            "swin_attn_v2_f32", "swin_mlp_int8_f32")
+AT_BATCH = ("swin_attn_v3", "swin_mlp", "swin_attn_v1", "swin_attn_v2", "swin_mlp_int8",
+            "swin_block_f32", "patch_merge_f32", "swin_attn_v3_f32", "swin_mlp_f32",
+            "swin_attn_v1_f32", "swin_attn_v2_f32", "swin_mlp_int8_f32")
 # launches timed per reading (10 elsewhere): kernels of ~0.1 ms or less
 # moved by 20-40% between runs at 10
 TIMING_ITERS = {"patch_merge": 200, "knn_radii": 200, "prdc_stats": 200, "log_mel": 200}
@@ -232,10 +238,14 @@ TIMING_ITERS = {"patch_merge": 200, "knn_radii": 200, "prdc_stats": 200, "log_me
 # 8, gemm.cuh's enum Epi) likewise; the f32 window attention's 3xTF32
 # products (the float instantiation of window_attn_kernel, inside #1 and
 # #8-#11 in f32) on mma.sync (HMMA); the PRDC statistics' products fed by
-# cp.async (LDGSTS)
+# cp.async (LDGSTS); the int8 MLP's fc1 and fc2 (the instantiations of
+# EPI_S8_GELU = 11, and of EPI_S8_OUT = 12 and EPI_S8_OUT_F32 = 13) on int8
+# wgmma (IGMMA) fed by TMA
 SASS_WANT = {"log_mel": ("log_mel_sm90_kernel", ("HGMMA", "UTMALDG")),
              "swin_attn_v1 qkv": (r"gemm_sm90_kernelILi\d+ELi9E", ("HGMMA", "UTMALDG")),
              "swin_attn_v1 proj": (r"gemm_sm90_kernelILi\d+ELi8E", ("HGMMA", "UTMALDG")),
+             "swin_mlp_int8 fc1": (r"gemm_sm90_kernelILi\d+ELi11E", ("IGMMA", "UTMALDG")),
+             "swin_mlp_int8 fc2": (r"gemm_sm90_kernelILi\d+ELi1[23]E", ("IGMMA", "UTMALDG")),
              "swin_block_f32": ("gemm_tf32x3_kernel.*RowsA", ("HGMMA", "UTMALDG")),
              "patch_merge_f32": ("gemm_tf32x3_kernel.*MergeA", ("HGMMA", "UTMALDG")),
              "window_attn_f32": ("window_attn_kernelIfE", ("HMMA",)),
@@ -244,6 +254,9 @@ SASS_WANT = {"log_mel": ("log_mel_sm90_kernel", ("HGMMA", "UTMALDG")),
 # WMMA gemm_kernel serves #7's DFT alone (every other product is on a wgmma
 # core)
 SASS_ONE = {"gemm.cuh's WMMA gemm_kernel": r"11gemm_kernelI"}
+# instructions the library must not hold: IMMA, the int8 mma.sync / WMMA of
+# the int8 MLP's old GEMM (every int8 product is on wgmma)
+SASS_NONE = {"int8 mma.sync / WMMA": r"\bIMMA\b"}
 
 
 def log(msg: str) -> None:
@@ -488,6 +501,7 @@ def phase_kernels(cfg, params, results):
         mlp_block_int8,
         mlp_block_int8_plain,
         mlp_block_plain,
+        mlp_int8_operands,
     )
 
     dev = torch.device("cuda")
@@ -654,18 +668,17 @@ def phase_kernels(cfg, params, results):
                  lambda x: mlp_block(x, *mlp32, eps=block.eps, operands=ops32),
                  lambda x: mlp_block_plain(x, *mlp32, eps=block.eps), n_mlp, stage)
 
-        # the int8 MLP (#12), an opt-in op: every block's rows at this stage
+        # the int8 MLP (#12), an opt-in op: every block's rows at this stage,
+        # on the weights' codes held as a caller holds them from load
         m8 = v2_weights(params, prefix, block)[1]
-        check("swin_mlp_int8", f"stage {stage} rows B x {res * res} C={c}",
-              lambda: mlp_block_int8(xs[CHECK_B], *m8, eps=block.eps),
-              lambda: mlp_block_int8_plain(xs[CHECK_B], *m8, eps=block.eps),
-              (lambda: mlp_block_int8(xs[BATCH], *m8, eps=block.eps),
-               lambda: mlp_block_int8_plain(xs[BATCH], *m8, eps=block.eps), depth),
-              x=xs[CHECK_B], stage=stage)
+        ops8 = mlp_int8_operands(m8[2], m8[4])
+        check_on("swin_mlp_int8", f"stage {stage} rows B x {res * res} C={c}", xs,
+                 lambda x: mlp_block_int8(x, *m8, eps=block.eps, operands=ops8),
+                 lambda x: mlp_block_int8_plain(x, *m8, eps=block.eps), depth, stage)
         if stage == 0:
             int8_ties(xs[CHECK_B], m8, block.eps, results)
         check_on("swin_mlp_int8_f32", f"stage {stage} rows B x {res * res} C={c}", x32,
-                 lambda x: mlp_block_int8(x, *m8, eps=block.eps),
+                 lambda x: mlp_block_int8(x, *m8, eps=block.eps, operands=ops8),
                  lambda x: mlp_block_int8_plain(x, *m8, eps=block.eps), depth, stage)
         if stage == 0:
             int8_ties(x32[CHECK_B], m8, block.eps, results, "swin_mlp_int8_f32")
@@ -950,7 +963,9 @@ def phase_log_mel(cfg, params, results):
 
 def sass_check(lib_path: str) -> None:
     """``cuobjdump -sass`` of the built kernel library: each kernel of
-    ``SASS_WANT`` has instantiations, and they contain its instructions."""
+    ``SASS_WANT`` has instantiations, and they contain its instructions;
+    each of ``SASS_ONE`` has one instantiation; none of ``SASS_NONE``'s
+    instructions is left."""
     exe = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     sass = subprocess.run([exe, "-sass", lib_path], capture_output=True, text=True,
@@ -969,6 +984,11 @@ def sass_check(lib_path: str) -> None:
         log(f"  {name} ({symbol}): {n} instantiation(s) {'ok' if n == 1 else 'FAIL'}")
         if n != 1:
             raise AssertionError(f"{name}: {n} instantiations, want 1")
+    for name, pattern in SASS_NONE.items():
+        n = len(re.findall(pattern, sass))
+        log(f"  {name} ({pattern}) in the library: x{n} {'ok' if n == 0 else 'FAIL'}")
+        if n:
+            raise AssertionError(f"{name}: {n} instructions left in the library")
 
 
 def phase_fad_tail():
@@ -1275,9 +1295,12 @@ def phase_opt_in(card: str, results: dict) -> dict:
     random weights from seed 0, given as the numpy dict the ops' weights are
     laid out from).  A forward pre-hook captures each Swin block's input;
     then, counts at 0, the v2 attention half with the block's weights and
-    the int8 MLP on its output with the block's f32 MLP weights, for all 18
-    blocks; then each against its plain version, the int8 MLP's branch
-    against the fused bf16 MLP kernel's, and per-forward times."""
+    the int8 MLP on its output with the block's f32 MLP weights (their
+    codes held as a caller holds them from load, ``mlp_int8_operands``),
+    for all 18 blocks; then each against its plain version, the int8 MLP's
+    branch against the fused bf16 MLP kernel's, and per-forward times: the
+    int8 MLP also as a call without held codes, which quantises the weights
+    itself, and that quantisation alone."""
     from audio_metrics_tpu_torch.models.clap import LaionCLAP, init_projection_params
     from audio_metrics_tpu_torch.models.htsat import HTSAT_BASE, init_params
     from audio_metrics_tpu_torch.ops.attention import (
@@ -1289,6 +1312,7 @@ def phase_opt_in(card: str, results: dict) -> dict:
         mlp_block_int8,
         mlp_block_int8_plain,
         mlp_block_plain,
+        mlp_int8_operands,
     )
 
     cfg = HTSAT_BASE
@@ -1309,21 +1333,24 @@ def phase_opt_in(card: str, results: dict) -> dict:
         attn, mlp, a_ops = v2_weights(params, f"audio_encoder.layers.{i}.blocks.{j}", blk)
         geo = dict(heads=blk.heads, window=blk.window, shift=blk.shift, eps=blk.eps)
         r, c = blk.resolution, x.shape[-1]
-        ops.append((i, j, blk, x.view(BATCH, r, r, c), attn, mlp, a_ops, geo))
+        ops.append((i, j, blk, x.view(BATCH, r, r, c), attn, mlp, a_ops, geo,
+                    mlp_int8_operands(mlp[2], mlp[4])))
 
     set_counts_to_zero()
     outs = []
     with torch.no_grad():
-        for i, j, blk, x4, attn, mlp, a_ops, geo in ops:
+        for i, j, blk, x4, attn, mlp, a_ops, geo, m_ops in ops:
             a = swin_attention_half_v2(x4, *attn, **geo, operands=a_ops)
-            outs.append((a, mlp_block_int8(a.view(BATCH, -1, a.shape[-1]), *mlp, eps=blk.eps)))
+            outs.append((a, mlp_block_int8(a.view(BATCH, -1, a.shape[-1]), *mlp, eps=blk.eps,
+                                           operands=m_ops)))
     launches = read_counts()
     check_counts(f"{len(ops)} blocks, the v2 attention half then the int8 MLP", launches,
                  {name: len(ops) if name in ("swin_attn_v2", "swin_mlp_int8") else 0
                   for name in launches})
 
-    ms = {"swin_attn_v2": 0.0, "swin_mlp_int8": 0.0, "swin_mlp (bf16)": 0.0}
-    for (i, j, blk, x4, attn, mlp, a_ops, geo), (a, m) in zip(ops, outs):
+    ms = {"swin_attn_v2": 0.0, "swin_mlp_int8": 0.0, "swin_mlp_int8 quantising per call": 0.0,
+          "mlp_int8_operands alone": 0.0, "swin_mlp (bf16)": 0.0}
+    for (i, j, blk, x4, attn, mlp, a_ops, geo, m_ops), (a, m) in zip(ops, outs):
         a3 = a.view(BATCH, -1, a.shape[-1])
         bf16_mlp = (blk.ln2_w, blk.ln2_b, blk.w1, blk.b1, blk.w2, blk.b2)
         want_a = swin_attention_half_v2_plain(x4, *attn, **geo)
@@ -1349,23 +1376,33 @@ def phase_opt_in(card: str, results: dict) -> dict:
             raise AssertionError(f"an opt-in op disagrees at block {i}.{j}")
         ms["swin_attn_v2"] += cuda_ms(lambda: swin_attention_half_v2(x4, *attn, **geo,
                                                                      operands=a_ops))
-        ms["swin_mlp_int8"] += cuda_ms(lambda: mlp_block_int8(a3, *mlp, eps=blk.eps))
+        ms["swin_mlp_int8"] += cuda_ms(lambda: mlp_block_int8(a3, *mlp, eps=blk.eps,
+                                                              operands=m_ops))
+        ms["swin_mlp_int8 quantising per call"] += cuda_ms(
+            lambda: mlp_block_int8(a3, *mlp, eps=blk.eps))
+        ms["mlp_int8_operands alone"] += cuda_ms(lambda: mlp_int8_operands(mlp[2], mlp[4]))
         ms["swin_mlp (bf16)"] += cuda_ms(
             lambda: mlp_block(a3, *bf16_mlp, eps=blk.eps, operands=blk.kernel_operands()))
     # yardstick, used nowhere in the port: the int8 MLP's two products
     # alone through torch._int_mm (cuBLASLt), on random codes of each
-    # block's shapes
+    # block's shapes, the weights (K, N) row-major and, as the kernel reads
+    # them, K-major (the (N, K) codes' transpose); the faster is the
+    # yardstick
     gen = torch.Generator(device="cuda").manual_seed(9)
-    for i, j, blk, x4, attn, mlp, _, geo in ops:
+    yard = {"torch._int_mm, the two products": 0.0,
+            "torch._int_mm, the two products, K-major weights": 0.0}
+    for i, j, blk, x4, *_ in ops:
         m, c = x4.numel() // x4.shape[-1], x4.shape[-1]
         a, w1, h, w2 = (torch.randint(-127, 128, shape, generator=gen, device="cuda",
                                       dtype=torch.int8)
                         for shape in ((m, c), (c, 4 * c), (m, 4 * c), (4 * c, c)))
-        ms["torch._int_mm, the two products"] = ms.get("torch._int_mm, the two products", 0.0) \
-            + cuda_ms(lambda: (torch._int_mm(a, w1), torch._int_mm(h, w2)))
+        w1k, w2k = w1.t().contiguous().t(), w2.t().contiguous().t()
+        for key, (u, v) in zip(yard, ((w1, w2), (w1k, w2k))):
+            yard[key] += cuda_ms(lambda: (torch._int_mm(a, u), torch._int_mm(h, v)))
+    ms.update(yard)
     # the f32 int8 kernel runs the same int8 products: the same yardstick
     for name in ("swin_mlp_int8", "swin_mlp_int8_f32"):
-        results[name]["library_ms"] = ms["torch._int_mm, the two products"]
+        results[name]["library_ms"] = min(yard.values())
     log(f"  per forward of {BATCH} clips over the {len(ops)} blocks: " + ", ".join(
         f"{k} {v:.4f} ms" for k, v in ms.items()) + f" [{card}]")
     return launches
@@ -1377,9 +1414,11 @@ def phase_opt_in_f32(card: str, params: dict, results: dict) -> dict:
     phase 3's, with seeded projection weights): each Swin block's input
     captured by a forward pre-hook; then, counts at 0, the f32 v2 attention
     half with the block's f32 weights (and their ``half_operands``) and the
-    f32 int8 MLP on its output, for all 18 blocks; then each against its
-    plain version in full f32 (phase 3's f32 bounds at the block's stage),
-    the int8 branch against the exact f32 branch, and per-forward times."""
+    f32 int8 MLP on its output (on its ``mlp_int8_operands``), for all 18
+    blocks; then each against its plain version in full f32 (phase 3's f32
+    bounds at the block's stage), the int8 branch against the exact f32
+    branch, and per-forward times (the int8 MLP also quantising per
+    call)."""
     from audio_metrics_tpu_torch.models.clap import LaionCLAP, init_projection_params
     from audio_metrics_tpu_torch.models.htsat import HTSAT_BASE
     from audio_metrics_tpu_torch.ops.attention import (
@@ -1390,6 +1429,7 @@ def phase_opt_in_f32(card: str, params: dict, results: dict) -> dict:
         mlp_block_int8,
         mlp_block_int8_plain,
         mlp_block_plain,
+        mlp_int8_operands,
     )
 
     cfg = HTSAT_BASE
@@ -1410,21 +1450,23 @@ def phase_opt_in_f32(card: str, params: dict, results: dict) -> dict:
                                       torch.float32)
         geo = dict(heads=blk.heads, window=blk.window, shift=blk.shift, eps=blk.eps)
         ops.append((i, j, blk, x.view(BATCH, blk.resolution, blk.resolution, -1), attn, mlp,
-                    a_ops, geo))
+                    a_ops, geo, mlp_int8_operands(mlp[2], mlp[4])))
 
     set_counts_to_zero()
     outs = []
     with torch.no_grad():
-        for i, j, blk, x4, attn, mlp, a_ops, geo in ops:
+        for i, j, blk, x4, attn, mlp, a_ops, geo, m_ops in ops:
             a = swin_attention_half_v2(x4, *attn, **geo, operands=a_ops)
-            outs.append((a, mlp_block_int8(a.view(BATCH, -1, a.shape[-1]), *mlp, eps=blk.eps)))
+            outs.append((a, mlp_block_int8(a.view(BATCH, -1, a.shape[-1]), *mlp, eps=blk.eps,
+                                           operands=m_ops)))
     launches = read_counts()
     check_counts(f"{len(ops)} f32 blocks, the f32 v2 attention half then the f32 int8 MLP",
                  launches, {name: len(ops) if name in ("swin_attn_v2_f32", "swin_mlp_int8_f32")
                             else 0 for name in launches})
 
-    ms = {"swin_attn_v2_f32": 0.0, "swin_mlp_int8_f32": 0.0}
-    for (i, j, blk, x4, attn, mlp, a_ops, geo), (a, m) in zip(ops, outs):
+    ms = {"swin_attn_v2_f32": 0.0, "swin_mlp_int8_f32": 0.0,
+          "swin_mlp_int8_f32 quantising per call": 0.0}
+    for (i, j, blk, x4, attn, mlp, a_ops, geo, m_ops), (a, m) in zip(ops, outs):
         a3 = a.view(BATCH, -1, a.shape[-1])
         want_a = swin_attention_half_v2_plain(x4, *attn, **geo)
         want_m = mlp_block_int8_plain(a3, *mlp, eps=blk.eps)
@@ -1443,7 +1485,10 @@ def phase_opt_in_f32(card: str, params: dict, results: dict) -> dict:
             raise AssertionError(f"an f32 opt-in op disagrees at block {i}.{j}")
         ms["swin_attn_v2_f32"] += cuda_ms(lambda: swin_attention_half_v2(x4, *attn, **geo,
                                                                          operands=a_ops))
-        ms["swin_mlp_int8_f32"] += cuda_ms(lambda: mlp_block_int8(a3, *mlp, eps=blk.eps))
+        ms["swin_mlp_int8_f32"] += cuda_ms(lambda: mlp_block_int8(a3, *mlp, eps=blk.eps,
+                                                                  operands=m_ops))
+        ms["swin_mlp_int8_f32 quantising per call"] += cuda_ms(
+            lambda: mlp_block_int8(a3, *mlp, eps=blk.eps))
     log(f"  per forward of {BATCH} f32 clips over the {len(ops)} blocks: " + ", ".join(
         f"{k} {v:.4f} ms" for k, v in ms.items()) + f" [{card}]")
     return launches

@@ -32,7 +32,10 @@ block's launches, products as three TF32 products) against their f32
 plain versions in full f32 under the f32 block's bounds at each stage, at
 B = 4 and a ragged B = 3, with bitwise repeats; the v3 half then the MLP
 equal the whole f32 block bitwise (the same launches).  The int8 MLP in
-f32: the bf16 int8 kernel's bounds.
+f32: the bf16 int8 kernel's bounds.  The int8 MLP in both dtypes reads its
+weights' codes held from load (``mlp_int8_operands``), repeats bitwise, and
+equals the call that quantises them itself; at a ragged row count and at C
+= 64 (half a K step of codes) its rows equal those of a longer call.
 """
 
 import numpy as np
@@ -80,6 +83,7 @@ from audio_metrics_tpu_torch.ops.mlp import (
     mlp_block,
     mlp_block_int8,
     mlp_block_int8_plain,
+    mlp_int8_operands,
     mlp_block_plain,
 )
 from audio_metrics_tpu_torch.testing import (
@@ -107,6 +111,11 @@ SPLIT_VS_WHOLE_TOL = (1e-2, 0.25)
 # the opt-in ops, as in chip_smoke.py
 ATTN_V2_TOL = ((1e-4, 2e-4, 5e-4, 1e-3), 0.0625)
 MLP_INT8_TOL = ((2.5e-6, 5e-6, 7e-6, 7e-6), 0.0625)
+# the int8 MLP's branch (out - x) against the plain version's at a few
+# hundred rows, relative Frobenius: a code flipped at a half moves its row's
+# products by one quantisation step, which a mean over few rows does not
+# absorb; the bound of tests/test_torch_opt_in.py (INT8_VS_JAX)
+MLP_INT8_FROB = 2e-3
 # the f32 whole block (REL_MEAN per stage, MAX_ABS) and merge against their
 # f32 plain versions (the same arithmetic, the products as three TF32
 # products on the tensor cores, f32-level accuracy): as in chip_smoke.py
@@ -700,15 +709,46 @@ def test_attention_v2_kernel_equals_v1_kernel(cuda, params, stage, shift):
 
 @pytest.mark.parametrize("stage", [0, 1, 2, 3])
 def test_mlp_int8_kernel_matches_plain(cuda, params, stage):
-    """At 2 images: 8192, 2048, 512 and 128 rows."""
+    """At 2 images: 8192, 2048, 512 and 128 rows, on the weights' codes
+    held from load (``mlp_int8_operands``); a second call bitwise equal (the
+    kernel's one atomic is an integer max), and so the call without them,
+    which quantises the weights itself."""
     _, mlp, _, res = _v2_block(params, cuda, stage, 0)
     x = _x(cuda, 90 + stage, (2, res * res, mlp[-1].shape[0]))
+    ops = mlp_int8_operands(mlp[2], mlp[4])
     before = KERNELS["swin_mlp_int8"].launches
-    got = mlp_block_int8(x, *mlp, eps=cfg.layer_norm_eps)
+    got = mlp_block_int8(x, *mlp, eps=cfg.layer_norm_eps, operands=ops)
     torch.cuda.synchronize()
     assert KERNELS["swin_mlp_int8"].launches == before + 1
     want = mlp_block_int8_plain(x, *mlp, eps=cfg.layer_norm_eps)
     _close(got, want, want.float() - x.float(), MLP_INT8_TOL[0][stage], MLP_INT8_TOL[1])
+    assert torch.equal(got, mlp_block_int8(x, *mlp, eps=cfg.layer_norm_eps, operands=ops))
+    assert torch.equal(got, mlp_block_int8(x, *mlp, eps=cfg.layer_norm_eps))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("rows,c", [(333, 64), (200, 128), (4101, 64)])
+def test_mlp_int8_kernel_ragged_rows_and_narrow_width(cuda, dtype, rows, c):
+    """M not a multiple of the 128-row tile, and C = 64, where fc1's K of 64
+    codes is half a K step of 128 (the tensor maps zero-fill the rest): the
+    rows equal the same rows of a call on 128 more rows bitwise (each row is
+    quantised and summed on its own), and the branch lies within
+    ``MLP_INT8_FROB`` of the plain version's."""
+    rng = np.random.default_rng(rows + c)
+    w = [torch.from_numpy(a.astype(np.float32)).to(cuda) for a in (
+        rng.normal(1.0, 0.1, c), rng.normal(0.0, 0.1, c),
+        rng.normal(scale=c ** -0.5, size=(c, 4 * c)), rng.normal(size=4 * c),
+        rng.normal(scale=(4 * c) ** -0.5, size=(4 * c, c)), rng.normal(size=c))]
+    ops = mlp_int8_operands(w[2], w[4])
+    x = torch.from_numpy(rng.normal(size=(rows + 128, c)).astype(np.float32)).to(cuda, dtype)
+    got = mlp_block_int8(x[:rows].contiguous(), *w, eps=cfg.layer_norm_eps, operands=ops)
+    longer = mlp_block_int8(x, *w, eps=cfg.layer_norm_eps, operands=ops)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and torch.equal(got, longer[:rows])
+    want = mlp_block_int8_plain(x[:rows], *w, eps=cfg.layer_norm_eps)
+    branch, branch_plain = (v.double() - x[:rows].double() for v in (got, want))
+    rel = (torch.linalg.norm(branch - branch_plain) / torch.linalg.norm(branch_plain)).item()
+    assert rel <= MLP_INT8_FROB, rel
 
 
 def test_mlp_int8_kernel_rounds_halves_to_even(cuda, params):
@@ -842,13 +882,18 @@ def test_attention_v2_f32_kernel_matches_plain(cuda, params, stage, shift, b):
 
 @pytest.mark.parametrize("stage", [0, 1, 2, 3])
 def test_mlp_int8_f32_kernel_matches_plain(cuda, params, stage):
-    """#12 in f32 at 2 images, under the bf16 int8 kernel's bounds; then
-    with every LN output a code and a half (the rounding rule)."""
+    """#12 in f32 at 2 images on the codes held from load, under the bf16
+    int8 kernel's bounds, repeating bitwise, and equal to the call without
+    held codes; then with every LN output a code and a half (the rounding
+    rule)."""
     _, mlp, _, res = _v2_block(params, cuda, stage, 0)
     x = _x(cuda, 200 + stage, (2, res * res, mlp[-1].shape[0])).float()
-    _f32_check("swin_mlp_int8_f32", lambda: mlp_block_int8(x, *mlp, eps=cfg.layer_norm_eps),
-               lambda: mlp_block_int8_plain(x, *mlp, eps=cfg.layer_norm_eps), x, stage,
-               MLP_INT8_TOL)
+    ops = mlp_int8_operands(mlp[2], mlp[4])
+    got = _f32_check("swin_mlp_int8_f32",
+                     lambda: mlp_block_int8(x, *mlp, eps=cfg.layer_norm_eps, operands=ops),
+                     lambda: mlp_block_int8_plain(x, *mlp, eps=cfg.layer_norm_eps), x, stage,
+                     MLP_INT8_TOL)
+    assert torch.equal(got, mlp_block_int8(x, *mlp, eps=cfg.layer_norm_eps))
     if stage == 0:
         c = x.shape[-1]
         k = torch.arange(1, c, device=cuda)

@@ -473,6 +473,34 @@ def test_card_f32_opt_in_op_reaches_its_f32_kernel(symbols, op):
     assert y.dtype == torch.float32 and y.shape == x.shape
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_card_int8_mlp_reads_held_operands(symbols, dtype):
+    """The int8 MLP on the card launches its kernel of the activation dtype
+    once on the codes and scales held from load (their pointers reach the
+    kernel), and raises ``ValueError`` without launching on held operands
+    of another width."""
+    from audio_metrics_tpu_torch.models.htsat import (
+        HTSATConfig, _Folded, _mlp_weights, init_params,
+    )
+    from audio_metrics_tpu_torch.ops.mlp import mlp_block_int8, mlp_int8_operands
+
+    cfg = HTSATConfig(embed_dim=32, depths=(2, 2, 2, 2), num_heads=(1, 2, 4, 8))
+    pre = "audio_encoder.layers.1.blocks.1"
+    m = _on_card(_Folded(_mlp_weights(init_params(cfg, seed=0), pre), torch.float32))
+    args = (m.ln2_w, m.ln2_b, m.w1, m.b1, m.w2, m.b2)
+    ops = {k: _card(v) for k, v in mlp_int8_operands(m.w1, m.w2).items()}
+    x = _card(torch.zeros((2, 32 * 32, 64), dtype=dtype))
+    with pytest.raises(ValueError, match="q2t"):
+        mlp_block_int8(x, *args, operands=dict(ops, q2t=ops["q1t"]))
+    assert symbols == []
+    y, moved = _counted(lambda: mlp_block_int8(x, *args, operands=ops))
+    want = "am_swin_mlp_int8" + ("_f32" if dtype == torch.float32 else "")
+    assert symbols == [want] and moved == {want[3:]: 1}
+    for name in ("q1t", "s1", "q2t", "s2"):
+        assert ops[name].data_ptr() in symbols.args[want]
+    assert y.dtype == dtype and y.shape == x.shape
+
+
 def test_card_f16_raises(symbols):
     """A dtype that has no kernel raises, f16 included."""
     block, merge, x = _small_stage1(torch.float32)

@@ -25,7 +25,10 @@ erf) or an f32 statistic summed in another order moves a quotient across a
 half, and one flipped code moves its row's products by one quantisation
 step; readings 6.6e-8 to 4.7e-5.  And the branch within 0.02 of the exact
 float64 branch, the JAX test's own bound for W8A8 quantisation error
-(tests/test_pallas_model_kernels.py:291-292); readings ~0.01.
+(tests/test_pallas_model_kernels.py:291-292); readings ~0.01.  The weights'
+codes and scales the kernel holds from load (``mlp_int8_operands``) equal
+the JAX wrapper's prep exactly, and a call given them equals one without
+them bitwise.
 """
 
 import inspect
@@ -53,7 +56,12 @@ from audio_metrics_tpu_torch.ops.attention import (
     swin_attention_half_v1,
     swin_attention_half_v2,
 )
-from audio_metrics_tpu_torch.ops.mlp import mlp_block_int8, quantize_columns
+from audio_metrics_tpu_torch.ops.mlp import (
+    check_int8_gemms,
+    mlp_block_int8,
+    mlp_int8_operands,
+    quantize_columns,
+)
 
 from test_torch_split import _block_params, _geometry
 
@@ -198,6 +206,80 @@ def test_quantize_columns_matches_jax_wrapper():
     np.testing.assert_array_equal(q.numpy(), np.asarray(q_j))
     np.testing.assert_array_equal(s.numpy(), np.asarray(s_j))
     assert int(q.abs().max()) == 127 and not q[:, 3].any()
+
+
+def _jax_quant_cols(w):
+    """The JAX wrapper's ``quant_cols`` (audio_metrics_tpu/ops/mlp.py:216-220)."""
+    wj = jnp.asarray(w)
+    s = jnp.maximum(jnp.max(jnp.abs(wj), axis=0, keepdims=True),
+                    jnp.float32(1e-12)) * jnp.float32(1.0 / 127.0)
+    return np.asarray(jnp.round(wj.astype(jnp.float32) / s).astype(jnp.int8)), np.asarray(s)
+
+
+@pytest.mark.parametrize("c", [128, 256])
+def test_mlp_int8_operands_match_jax_prep(c):
+    """The held operands: the JAX prep's codes transposed to (N, K),
+    contiguous int8, and its (1, N) scales, exactly."""
+    _, (_, _, w1, _, w2, _) = _int8_fixture(c)
+    ops = mlp_int8_operands(torch.from_numpy(w1), torch.from_numpy(w2))
+    for i, w, n in ((1, w1, 4 * c), (2, w2, c)):
+        q_j, s_j = _jax_quant_cols(w)
+        q, s = ops[f"q{i}t"], ops[f"s{i}"]
+        assert q.dtype == torch.int8 and q.shape == (n, w.shape[0]) and q.is_contiguous()
+        assert s.dtype == torch.float32 and s.shape == (1, n)
+        np.testing.assert_array_equal(q.numpy(), q_j.T)
+        np.testing.assert_array_equal(s.numpy(), s_j)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mlp_int8_held_operands_equal_per_call(dtype):
+    """On CPU tensors a call given ``operands=mlp_int8_operands(w1, w2)``
+    equals the call without them bitwise, and lies within ``INT8_VS_JAX`` of
+    the Pallas kernel in interpret mode."""
+    tdt, jdt = DTYPES[dtype]
+    x, w = _int8_fixture(128, seed=13)
+    wt = [torch.from_numpy(a) for a in w]
+    xt = torch.from_numpy(x).to(tdt)
+    ops = mlp_int8_operands(wt[2], wt[4])
+    got = _unchanged_launches(lambda: mlp_block_int8(xt, *wt, operands=ops))
+    assert torch.equal(got, mlp_block_int8(xt, *wt))
+    want = mlp_block_pallas_int8(jnp.asarray(x, jdt), *map(jnp.asarray, w), interpret=True)
+    xf = xt.float().numpy().astype(np.float64)
+    branch = got.float().numpy().astype(np.float64) - xf
+    branch_jax = np.asarray(want, np.float64) - xf
+    rel = np.linalg.norm(branch - branch_jax) / np.linalg.norm(branch_jax)
+    assert rel < INT8_VS_JAX, rel
+
+
+@pytest.mark.parametrize("name,wrong", [
+    ("q1t", lambda o: o["q1t"].t().contiguous()),  # not transposed
+    ("q1t", lambda o: o["q1t"][:, :64].contiguous()),  # another width's
+    ("s1", lambda o: o["s1"].view(-1)),  # scales flattened
+    ("q2t", lambda o: o["q2t"].float()),  # codes not int8
+    ("s2", lambda o: o["s2"].double()),
+], ids=["q1t-untransposed", "q1t-width", "s1-flat", "q2t-f32", "s2-f64"])
+def test_mlp_int8_held_operands_checked(name, wrong):
+    """Held operands of another shape or dtype raise ``ValueError`` naming
+    the operand, on the CPU as on the card."""
+    x, w = _int8_fixture(128)
+    wt = [torch.from_numpy(a) for a in w]
+    ops = mlp_int8_operands(wt[2], wt[4])
+    with pytest.raises(ValueError, match=name):
+        mlp_block_int8(torch.from_numpy(x), *wt, operands=dict(ops, **{name: wrong(ops)}))
+
+
+@pytest.mark.parametrize("c,ok", [(64, True), (128, True), (1024, True), (96, False),
+                                  (160, False)])
+def test_int8_gemm_shape_check(c, ok):
+    """The int8 core takes the MLP's two products at C = 64 (fc1's K of 64
+    codes is half a K step, zero-filled by the tensor maps) and at
+    HTSAT-base's widths; C = 96 and 160 (fc2's N not a multiple of 64) are
+    refused."""
+    if ok:
+        check_int8_gemms("test", c)
+    else:
+        with pytest.raises(NotImplementedError, match="int8 wgmma"):
+            check_int8_gemms("test", c)
 
 
 def test_params_from_numpy_device():

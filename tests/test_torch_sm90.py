@@ -24,7 +24,7 @@ from audio_metrics_tpu.ops import attention as jax_attention
 from audio_metrics_tpu.ops.frontend_fused import _patch_selector as jax_patch_selector
 from audio_metrics_tpu.ops.mel import _dft_matrices as jax_dft_matrices
 from audio_metrics_tpu.ops.mel import _fb_support_bins as jax_fb_support_bins
-from audio_metrics_tpu_torch.kernels import check_sm90_gemm
+from audio_metrics_tpu_torch.kernels import check_s8_gemm, check_sm90_gemm
 from audio_metrics_tpu_torch.models.clap import ClapFrontend, _clap_fb
 from audio_metrics_tpu_torch.models.htsat import (
     HTSATConfig, SwinBlock, _Folded, _v2_kernel_weights, init_params,
@@ -275,6 +275,26 @@ def test_sm90_gemm_shape_check(n, k, strides, ok):
     else:
         with pytest.raises(NotImplementedError):
             check_sm90_gemm("test", n, k, *strides)
+
+
+@pytest.mark.parametrize(
+    "n,k,strides,ok",
+    [
+        (256, 64, (64,), True),     # K of half a 128-code step: zero-filled
+        (128, 4096, (4096,), True),
+        (256, 48, (48,), True),
+        (96, 384, (384,), False),   # N not a multiple of 64
+        (256, 24, (24,), False),    # K off 16 bytes
+        (256, 64, (72,), False),    # a row stride off 16 bytes
+    ],
+)
+def test_s8_gemm_shape_check(n, k, strides, ok):
+    """The wgmma core on int8 codes: any K of whole 16-byte rows."""
+    if ok:
+        check_s8_gemm("test", n, k, *strides)
+    else:
+        with pytest.raises(NotImplementedError):
+            check_s8_gemm("test", n, k, *strides)
 
 
 @pytest.mark.parametrize("c,ok", [(128, True), (256, True), (1024, True), (192, True),
