@@ -29,8 +29,8 @@
 //      matrix is never materialised; B is the basis transposed at load
 //      (2*n_keep, frame) with cos/sin rows interleaved, so the epilogue
 //      forms re^2 + im^2 inside one tile;
-//   2. mel/dB/BN (mel_log_kernel, shared with log_mel.cu in gemm.cuh): one
-//      warp per assembled frame row, written transposed (clip, mel, frame),
+//   2. mel/dB/BN (mel_log_kernel in gemm.cuh): one warp per assembled
+//      frame row, written transposed (clip, mel, frame),
 //      the K-major B of step 3: the tiled mid rows re-read their source head
 //      frame (mid_src = 2 + (o-2) % p), rows past the last frame are written
 //      as ZERO (a NaN there would poison the interp product even against

@@ -1,35 +1,21 @@
-// Shared building blocks of the hand-written Hopper kernels.
-//
-// gemm_kernel<EPI_POWER>: the v1 log-mel's DFT product (#7, log_mel.cu
-// am_log_mel_v1), a bf16 x bf16 -> f32-accumulate tensor-core GEMM (WMMA
-// 16x16x16 fragments, 64x64 block tile, BK=32, 4 warps of 32x32), C = A
-// (M x K, bf16) @ B (K x N, bf16 row-major), whose epilogue writes the
-// power of each interleaved (re, im) column pair, staged through shared
-// memory.  Single-buffered shared tiles loaded with 16-byte vector loads,
-// no cp.async/TMA/wgmma; the other bf16 and f32 GEMMs run on the wgmma
-// cores (gemm_sm90.cuh, gemm_tf32x3_sm90.cuh).  Requirements checked by
-// the Python wrapper: K % 32 == 0, N % 64 == 0, 16-byte aligned rows (lda,
-// ldb multiples of 8 elements).  M may be ragged.
+// Shared building blocks of the hand-written Hopper kernels: the epilogue
+// codes of the wgmma cores (gemm_sm90.cuh, gemm_tf32x3_sm90.cuh), warp
+// reductions, the TF32 split, the Swin window map, the row LayerNorm
+// (ln_rows_kernel) and #3's mel projection (mel_log_kernel).  No GEMM is
+// defined here: the products run on the wgmma cores, the window
+// attention's in window_attn.cuh.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 namespace {
 
 using bf16 = __nv_bfloat16;
-using namespace nvcuda;
-
-constexpr int BM = 64, BN = 64, BK = 32, GEMM_THREADS = 128;
-constexpr int LDA_S = BK + 8;  // shared row pitches: multiples of 8 bf16 /
-constexpr int LDB_S = BN + 8;  // 4 f32 as WMMA requires, padded against
-constexpr int LDC_S = BN + 4;  // bank conflicts
 
 // The epilogues of the wgmma cores (gemm_sm90.cuh epilogue8, bf16, and
-// s8_epilogue8, int8 codes; gemm_tf32x3_sm90.cuh epi_f32, f32 in and out)
-// and of gemm_kernel (EPI_POWER).
+// s8_epilogue8, int8 codes; gemm_tf32x3_sm90.cuh epi_f32, f32 in and out).
 enum Epi {
   EPI_QKV = 0,    // bf16 out = acc*rs - rs*mu*colsum(B) + v0      (LN1 fold)
   EPI_PROJ,       // f32 out[map(r)] = acc + v0 + res_bf16[map(r)] (un-partition, un-roll, residual)
@@ -47,13 +33,6 @@ enum Epi {
   EPI_S8_GELU,     // f32 out = g = gelu_erf(acc*(rs*cs) + v0); amax[r] = max |g| (fc1)
   EPI_S8_OUT,      // bf16 out = acc*(sy*cs) + v0 + res_bf16                  (fc2)
   EPI_S8_OUT_F32,  // f32 out = acc*(sy*cs) + v0 + res_f32                    (fc2, f32 rows)
-};
-
-struct GemmParams {
-  int M, N, K;
-  const bf16* A; long long lda;
-  const bf16* B; long long ldb;
-  float* out; long long ldo;
 };
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -129,81 +108,6 @@ __device__ __forceinline__ void sq16(const uint4& v, float mu, float& s) {
       s += d * d;
     }
   }
-}
-
-// A template, instantiated only where it is launched (log_mel.cu): a kernel
-// defined in this header would otherwise be compiled into every source.
-template <int EPI>
-__global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(const GemmParams p) {
-  static_assert(EPI == EPI_POWER, "the WMMA core keeps #7's epilogue only");
-  constexpr int AB_BYTES = (BM * LDA_S + BK * LDB_S) * 2;
-  constexpr int C_BYTES = BM * LDC_S * 4;
-  __shared__ __align__(128) unsigned char smem[AB_BYTES > C_BYTES ? AB_BYTES : C_BYTES];
-  bf16* As = reinterpret_cast<bf16*>(smem);
-  bf16* Bs = As + BM * LDA_S;
-  float* Cs = reinterpret_cast<float*>(smem);  // reused after the K loop
-
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int tid = threadIdx.x, warp = tid >> 5;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
-
-  for (int k0 = 0; k0 < p.K; k0 += BK) {
-    for (int i = tid; i < BM * BK / 8; i += GEMM_THREADS) {
-      const int row = i / (BK / 8), col = (i % (BK / 8)) * 8;
-      const int r = m0 + row;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (r < p.M) v = *reinterpret_cast<const uint4*>(p.A + (long long)r * p.lda + k0 + col);
-      *reinterpret_cast<uint4*>(&As[row * LDA_S + col]) = v;
-    }
-    for (int i = tid; i < BK * BN / 8; i += GEMM_THREADS) {
-      const int row = i / (BN / 8), col = (i % (BN / 8)) * 8;
-      *reinterpret_cast<uint4*>(&Bs[row * LDB_S + col]) =
-          *reinterpret_cast<const uint4*>(p.B + (long long)(k0 + row) * p.ldb + n0 + col);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) wmma::load_matrix_sync(fa[i], As + (wm + 16 * i) * LDA_S + kk, LDA_S);
-#pragma unroll
-      for (int j = 0; j < 2; ++j) wmma::load_matrix_sync(fb[j], Bs + kk * LDB_S + wn + 16 * j, LDB_S);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(Cs + (wm + 16 * i) * LDC_S + wn + 16 * j, acc[i][j], LDC_S,
-                              wmma::mem_row_major);
-  __syncthreads();
-
-  for (int i = tid; i < BM * BN / 2; i += GEMM_THREADS) {  // one (re, im) pair each
-    const int row = i / (BN / 2), col = 2 * (i % (BN / 2));
-    const int r = m0 + row;
-    if (r >= p.M) continue;
-    const float a = Cs[row * LDC_S + col], b = Cs[row * LDC_S + col + 1];
-    p.out[(long long)r * p.ldo + (n0 + col) / 2] = a * a + b * b;
-  }
-}
-
-template <int EPI>
-cudaError_t launch_gemm(const GemmParams& p, cudaStream_t stream) {
-  dim3 grid(p.N / BN, (p.M + BM - 1) / BM);
-  gemm_kernel<EPI><<<grid, GEMM_THREADS, 0, stream>>>(p);
-  return cudaGetLastError();
 }
 
 __device__ __forceinline__ float to_f32(float v) { return v; }

@@ -1,6 +1,6 @@
-// Log-mel spectrogram: the halo kernel (frames read in place from hop rows,
-// on the wgmma core) and the v1 kernel (frames materialised in device
-// memory, on the WMMA core).
+// Log-mel spectrogram: the halo kernel (frames read in place from hop rows)
+// and the v1 kernel (frames materialised in device memory), both on the
+// wgmma core through one DFT + mel kernel, log_mel_sm90_kernel.
 //
 // Replaces the TPU kernel audio_metrics_tpu/ops/mel.py::log_mel_pallas_halo
 // (pallas_call at :554): bf16 frames x bf16 windowed-DFT basis cut to the
@@ -13,8 +13,8 @@
 // GFLOP) against 989 TFLOP/s on the tensor cores, then the mel product
 // (n_keep x n_mels per frame, ~49 MFLOP per 10 s clip) in f32 on the CUDA
 // cores; the clip is read once (1.9 MB f32) and the log-mel written once
-// (128 KB bf16).  The first design ran the DFT on gemm.cuh's WMMA core (~5%
-// of an H100's bf16 peak), wrote the (B, n_frames, n_keep) f32 powers to device
+// (128 KB bf16).  The first design ran the DFT on a WMMA core (~5% of an
+// H100's bf16 peak), wrote the (B, n_frames, n_keep) f32 powers to device
 // memory (98 MB at B = 64, 10 s) and read them back in gemm.cuh's
 // mel_log_kernel, after three PyTorch passes of prologue.  Now two launches:
 //   1. hop rows: one pass writes each clip's bf16 signal rows straight from
@@ -35,37 +35,57 @@
 //      across the N tiles, bins in ascending order.  After the last N tile
 //      the block writes log and affine in the output dtype.  Nothing but
 //      the hop rows and the output touches device memory.
-// gemm.cuh's mel_log_kernel stays for #3 and #7.
+// gemm.cuh's mel_log_kernel stays for #3.
 //
 // The v1 kernel replaces audio_metrics_tpu/ops/mel.py::log_mel_pallas
 // (pallas_call at :360): the same function, with the overlapping frames
-// materialised in device memory as the TPU wrapper does (bf16, width
-// n_chunks*hop, the one intermediate that TPU kernel writes to HBM).  Its
-// bound is the halo kernel's (same input, output and operations); what it
-// pays on top is the frame matrix, written once and read once (CLAP 10 s:
-// 1001 x 1440 bf16 per clip, 2.9 MB, against the 1.9 MB f32 clip).  Three
-// launches: a framing kernel (f32 signal -> bf16 frame rows, zero past the
-// signal and past the frame width), the DFT GEMM (EPI_POWER) over those rows
-// with row stride = frame pitch, and mel_log_kernel.
+// materialised in device memory as the TPU wrapper does (bf16, the one
+// intermediate that TPU kernel writes to HBM).  Its bound is the halo
+// kernel's (same input, output and operations); what it pays on top is the
+// frame matrix, written once and read once (CLAP 10 s: 1001 x 1024 bf16 per
+// clip, 2.1 MB, against the 1.9 MB f32 clip).  Two launches:
+//   1. frame rows: one pass writes the (B*n_frames, k_pad) bf16 frame
+//      matrix straight from the f32 clip, the reflect pad applied by index
+//      as in the hop rows, zero past the signal and from frame_length to
+//      k_pad (the TPU wrapper's frames are n_chunks*hop wide, but the basis
+//      rows past frame_length are zero there, so the cut changes no value;
+//      k_pad is the frame padded to the 64-element box, as the halo's K).
+//      The pitch is k_pad, not the hop, so any hop is served;
+//   2. log_mel_sm90_kernel over that matrix read as ONE run of B*n_frames
+//      rows (a map of batch 1, the TPU kernel's flat row tiling): a 128-row
+//      tile may span two clips, and only the last tile is ragged.  Each
+//      row's sums depend on its row alone, so where both kernels run (hop %
+//      8 == 0) the output equals the halo kernel's bitwise.
 #include "gemm_sm90.cuh"
 
 namespace {
 
-// frames[(b*n_frames + r)*ldf + j] = bf16(x[b*n_sig + r*hop + j]) for
-// j < width inside the signal, else 0.
-__global__ void frame_rows_kernel(const float* __restrict__ x, int n_sig, int hop, int width,
-                                  int ldf, int n_frames, long long total,
+// frames[(z*n_frames + r)*k_pad + j] = bf16(sample r*hop + j of clip z's
+// padded signal) for j < frame_length, halo_rows_kernel's formula; zero for
+// j from frame_length to k_pad (the buffer is uninitialised, and a NaN
+// there times a zero basis column would be NaN).  Eight samples a thread,
+// one 16-byte store, over a (row tiles, clip) grid.
+__global__ void frame_rows_kernel(const float* __restrict__ audio, int n, int half, int hop,
+                                  int frame_length, int k_pad, int n_frames,
                                   bf16* __restrict__ frames) {
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < total;
-       i += (long long)gridDim.x * blockDim.x) {
-    const long long row = i / ldf;
-    const int j = (int)(i - row * ldf);
-    const long long b = row / n_frames;
-    const long long s = (row - b * n_frames) * hop + j;
-    frames[i] = __float2bfloat16(j < width && s < n_sig ? x[b * n_sig + s] : 0.f);
+  const float* x = audio + (long long)blockIdx.y * n;
+  bf16* f = frames + (long long)blockIdx.y * n_frames * k_pad;
+  const int vecs = k_pad / 8, total = n_frames * vecs;
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < total; i += gridDim.x * blockDim.x) {
+    const int r = i / vecs, j = 8 * (i - r * vecs);
+    float v[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int s = r * hop + j + e - half;
+      v[e] = j + e >= frame_length ? 0.f
+             : s < 0               ? x[-s]
+             : s < n               ? x[s]
+             : s < n + half        ? x[2 * n - 2 - s]
+                                   : 0.f;
+    }
+    sm90::store8(f + 8 * i, v);
   }
 }
-
 
 // hops[b][j] = bf16(the padded signal's sample j) for j < clip_stride: x[half
 // - j] (left reflect pad), x[j - half], x[2n - 2 - (j - half)] (right
@@ -99,7 +119,7 @@ constexpr int LDP = MEL_BINS + 4;     // power staging pitch: conflict-free rows
 
 // What the fused epilogue reads and writes.
 struct MelEpi {
-  int n_frames, n_tiles;    // output rows per clip; N tiles of the basis
+  int n_frames, n_tiles;    // output rows per map batch (a clip; v1: all); N tiles
   const float* fb;          // (n_keep, MEL_N) f32
   const float* sc;          // per-bin affine, or null
   const float* of;
@@ -140,7 +160,7 @@ __device__ __forceinline__ void store4(bf16* dst, const float* v) {
   *reinterpret_cast<uint2*>(dst) = u;
 }
 
-// One block per SM, persistent over (clip, 128-row frame tile) tiles; the
+// One block per SM, persistent over (map batch, 128-row frame tile) tiles; the
 // ring as gemm_sm90_kernel's (one TMA producer thread, two consumer
 // warpgroups of 64 rows each), every tile sweeping the p.n_tiles N tiles
 // of the basis.  Consumer thread tid owns mel rows rq + 16 i (i < 4) of its
@@ -286,6 +306,27 @@ int launch_log_mel(const CUtensorMap& ta, const CUtensorMap& tb, const MelEpi& p
   return cudaGetLastError();
 }
 
+// The DFT, power, mel and log of log_mel_sm90_kernel over bf16 frame rows
+// at `a`, read through the 3-D map {k_pad, rows, batch} of row and batch
+// strides `row_stride`, `batch_stride` (elements) and box {box_k, box_rows,
+// box_b}; B: basis_t (2*n_keep, k_pad).  Output row z*rows + r.
+int dft_log_mel(const bf16* a, int k_pad, int rows, int batch, int row_stride, int batch_stride,
+                int box_k, int box_rows, int box_b, const bf16* basis_t, int n_keep,
+                const float* fb, const float* sc, const float* of, int log_mode,
+                float log_offset, int out_bf16, void* out, cudaStream_t stream) {
+  CUtensorMap ta, tb;
+  const cuuint64_t dims[3] = {(cuuint64_t)k_pad, (cuuint64_t)rows, (cuuint64_t)batch};
+  const cuuint64_t strides[2] = {(cuuint64_t)row_stride * 2, (cuuint64_t)batch_stride * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)box_k, (cuuint32_t)box_rows, (cuuint32_t)box_b};
+  int e;
+  if ((e = encode_map(&ta, a, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, dims, strides, box)))
+    return e;
+  if ((e = encode(&tb, rows_of(basis_t, 2 * n_keep, k_pad, k_pad), MEL_BN)) != 0) return e;
+  const MelEpi p = {rows, 2 * n_keep / MEL_BN, fb, sc, of, log_mode, log_offset, out};
+  return out_bf16 ? launch_log_mel<bf16>(ta, tb, p, k_pad, batch, stream)
+                  : launch_log_mel<float>(ta, tb, p, k_pad, batch, stream);
+}
+
 }  // namespace sm90
 }  // namespace
 
@@ -308,46 +349,34 @@ extern "C" int am_log_mel(const float* audio, int n, int half, bf16* hops, int k
   const int per_clip = (clip_stride / 8 + 255) / 256;
   halo_rows_kernel<<<dim3(per_clip < 1024 ? per_clip : 1024, batch), 256, 0, stream>>>(
       audio, n, half, clip_stride, hops);
-  int e;
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  CUtensorMap ta, tb;
-  const cuuint64_t dims[3] = {(cuuint64_t)k_pad, (cuuint64_t)n_frames, (cuuint64_t)batch};
-  const cuuint64_t strides[2] = {(cuuint64_t)hop * 2, (cuuint64_t)clip_stride * 2};
-  const cuuint32_t box[3] = {(cuuint32_t)box_k, (cuuint32_t)box_rows, (cuuint32_t)box_b};
-  if ((e = encode_map(&ta, hops, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, dims, strides, box)))
-    return e;
-  if ((e = encode(&tb, rows_of(basis_t, 2 * n_keep, k_pad, k_pad), MEL_BN)) != 0) return e;
-  const MelEpi p = {n_frames, 2 * n_keep / MEL_BN, fb, sc, of, log_mode, log_offset, out};
-  return out_bf16 ? launch_log_mel<bf16>(ta, tb, p, k_pad, batch, stream)
-                  : launch_log_mel<float>(ta, tb, p, k_pad, batch, stream);
+  const int e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  return dft_log_mel(hops, k_pad, n_frames, batch, hop, clip_stride, box_k, box_rows, box_b,
+                     basis_t, n_keep, fb, sc, of, log_mode, log_offset, out_bf16, out, stream);
 }
 
-// x: (B, n_sig) f32, the signal after the wrapper's reflect pad.  Frame r of
-// clip b = samples [r*hop, r*hop + width), zero past the signal.  Scratch:
-// frames (B*n_frames, ldf) bf16 (ldf = width rounded up to 32), power
-// (B, n_frames, n_keep) f32.  basis: (ldf, 2*n_keep) bf16, cos/sin
-// interleaved, zero rows past the frame length.  fb, sc, of, out as
-// am_log_mel.
-extern "C" int am_log_mel_v1(const float* x, int n_sig, int hop, int width, int ldf,
-                             int n_frames, bf16* frames, const bf16* basis, int n_keep,
-                             float* power, const float* fb, const float* sc, const float* of,
-                             int n_mels, int log_mode, float log_offset, int out_bf16, void* out,
-                             int B, cudaStream_t stream) {
-  cudaError_t e;
-  const long long total = (long long)B * n_frames * ldf;
-  const int threads = 256;
-  const long long want = (total + threads - 1) / threads;
-  const int blocks = (int)(want < 132 * 32 ? want : 132 * 32);
-  frame_rows_kernel<<<blocks, threads, 0, stream>>>(x, n_sig, hop, width, ldf, n_frames, total,
-                                                    frames);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  const GemmParams g = {B * n_frames, 2 * n_keep, ldf, frames, ldf, basis, 2 * n_keep, power,
-                        n_keep};
-  if ((e = launch_gemm<EPI_POWER>(g, stream)) != cudaSuccess) return e;
-  const MelRows rows = {1, n_frames, n_frames, 0, n_frames, n_frames};
-  if (out_bf16)
-    return launch_mel_log(power, n_frames, n_keep, fb, sc, of, n_mels, rows, log_mode, log_offset,
-                          static_cast<bf16*>(out), B, stream);
-  return launch_mel_log(power, n_frames, n_keep, fb, sc, of, n_mels, rows, log_mode, log_offset,
-                        static_cast<float*>(out), B, stream);
+// audio: (B, n) f32 clips, framed by frame_rows_kernel into the scratch
+// frames (B*n_frames, k_pad) bf16: B clips of n_frames frames of
+// frame_length samples at hop (any hop), reflect-padded by half.  The A
+// map: dims {k_pad, B*n_frames, 1}, strides {k_pad, B*n_frames*k_pad}
+// (elements), box {64, 128, 1}, the wrapper's table (ops/mel.py
+// v1_dft_map).  basis_t, fb, sc, of, out as am_log_mel.
+extern "C" int am_log_mel_v1(const float* audio, int n, int half, bf16* frames, int k_pad,
+                             int rows, int one, int row_stride, int batch_stride, int box_k,
+                             int box_rows, int box_b, const bf16* basis_t, int n_keep,
+                             const float* fb, const float* sc, const float* of, int n_mels,
+                             int log_mode, float log_offset, int out_bf16, void* out, int batch,
+                             int n_frames, int hop, int frame_length, cudaStream_t stream) {
+  using namespace sm90;
+  if (box_k != sm90::BK || box_rows != sm90::BM || box_b != 1 || n_mels != MEL_N ||
+      n_keep % MEL_BINS || k_pad % sm90::BK || one != 1 || row_stride != k_pad ||
+      rows != batch * n_frames || frame_length > k_pad)
+    return (int)cudaErrorInvalidValue;
+  const int per_clip = (n_frames * (k_pad / 8) + 255) / 256;
+  frame_rows_kernel<<<dim3(per_clip < 1024 ? per_clip : 1024, batch), 256, 0, stream>>>(
+      audio, n, half, hop, frame_length, k_pad, n_frames, frames);
+  const int e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  return dft_log_mel(frames, k_pad, rows, one, row_stride, batch_stride, box_k, box_rows, box_b,
+                     basis_t, n_keep, fb, sc, of, log_mode, log_offset, out_bf16, out, stream);
 }

@@ -39,9 +39,13 @@
 // atomics: a run repeats bitwise.
 #pragma once
 
+#include <mma.h>
+
 #include "gemm.cuh"
 
 namespace {
+
+using namespace nvcuda;  // the bf16 products' WMMA fragments
 
 constexpr int WIN_N = 64;  // tokens per window (8 x 8)
 constexpr int HEAD_D = 32; // head width at every HTSAT stage

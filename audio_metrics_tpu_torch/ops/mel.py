@@ -6,9 +6,10 @@ a hop-strided view, the DFT a product with the ``window * cos`` /
 ``window * sin`` basis, and the mel projection a second product
 (:151-219, :574-668).  ``log_mel_halo`` has the contract of
 ``log_mel_pallas_halo`` (:374-571) and ``log_mel_v1`` that of
-``log_mel_pallas`` (:231-371); both launch kernels/csrc/log_mel.cu, the
-halo kernel on the wgmma core through the frame map ``halo_dft_map``
-tabulates.
+``log_mel_pallas`` (:231-371); both launch kernels/csrc/log_mel.cu's DFT +
+mel kernel on the wgmma core, through the frame maps that ``halo_dft_map``
+(frames in place in hop rows) and ``v1_dft_map`` (a frame matrix)
+tabulate.
 ``log_mel_spectrogram`` dispatches bf16 compute to one of them as
 :625-644 dispatches to the TPU kernels: to ``log_mel_v1`` when
 ``AM_TPU_MEL_V1`` is set, else to ``log_mel_halo``.  The variable is read
@@ -36,6 +37,7 @@ __all__ = [
     "stft_power",
     "log_mel_spectrogram",
     "halo_dft_map",
+    "v1_dft_map",
     "log_mel_halo",
     "log_mel_halo_plain",
     "log_mel_v1",
@@ -248,13 +250,20 @@ def log_mel_halo_plain(audio, *, frame_length: int, hop_length: int, n_fft: int,
                           out_affine=out_affine, out_dtype=out_dtype)
 
 
-def _v1_geometry(n_sig: int, frame_length: int, hop_length: int):
-    """(n_frames, width): the frames of ``log_mel_pallas`` (mel.py:267-269),
-    each the chunk-padded n_chunks * hop samples wide."""
-    n_frames = (n_sig - frame_length) // hop_length + 1
+def _v1_signal(audio, frame_length: int, hop_length: int, center: bool = True):
+    """``(x, n_frames, width)``: the f32 signal the frames of
+    ``log_mel_pallas`` (mel.py:262-269) are cut from, reflect-padded when
+    ``center`` and zero-padded to hold the last frame, each frame the
+    chunk-padded n_chunks * hop samples wide."""
+    x = audio.float()
+    if center:
+        x = _reflect_pad(x, frame_length)
+    n_frames = (x.shape[1] - frame_length) // hop_length + 1
     if n_frames < 1:
-        raise ValueError(f"{n_sig} samples hold no {frame_length}-sample frame")
-    return n_frames, -(-frame_length // hop_length) * hop_length
+        raise ValueError(f"{x.shape[1]} samples hold no {frame_length}-sample frame")
+    width = -(-frame_length // hop_length) * hop_length
+    x = F.pad(x, (0, max(0, (n_frames - 1) * hop_length + width - x.shape[1])))
+    return x, n_frames, width
 
 
 def log_mel_v1_plain(audio, *, frame_length: int, hop_length: int, n_fft: int, fb: np.ndarray,
@@ -263,59 +272,46 @@ def log_mel_v1_plain(audio, *, frame_length: int, hop_length: int, n_fft: int, f
     """The v1 kernel's arithmetic in plain tensor ops: frames of the
     chunk-padded width n_chunks * hop, zero past the signal (the basis rows
     past the frame length are zero)."""
-    x = audio.float()
-    if center:
-        x = _reflect_pad(x, frame_length)
-    n_frames, width = _v1_geometry(x.shape[1], frame_length, hop_length)
-    x = F.pad(x, (0, max(0, (n_frames - 1) * hop_length + width - x.shape[1])))
+    x, n_frames, width = _v1_signal(audio, frame_length, hop_length, center)
     return _log_mel_plain(x, width, frame_length=frame_length, hop_length=hop_length,
                           n_fft=n_fft, fb=fb, log_mode=log_mode, log_offset=log_offset,
                           out_affine=out_affine, out_dtype=out_dtype)[:, :n_frames]
 
 
 @lru_cache(maxsize=16)
-def _kernel_tables(frame_length: int, k_rows: int, n_fft: int, fb_bytes: bytes, n_mels: int,
-                   device: str, k_major: bool = False):
-    """Kernel tables on ``device``: the (k_rows, 2*n_keep) bf16 basis with
-    cos/sin columns interleaved and zero rows from frame_length up to k_rows,
+def _kernel_tables(frame_length: int, k_pad: int, n_fft: int, fb_bytes: bytes, n_mels: int,
+                   device: str):
+    """The log-mel kernels' tables on ``device``, in the layout in which the
+    wgmma core reads them: the bf16 basis transposed, (2*n_keep, k_pad), cos
+    and sin rows interleaved and zero columns from frame_length up to k_pad,
     and the (n_keep, n_mels) f32 filterbank rows, n_keep padded with zero
-    columns / rows to a multiple of 32 (the v1 kernel's WMMA core), or with
-    ``k_major`` to a multiple of 64 (the halo kernel's N tile of 64 bins) and
-    the basis transposed, (2*n_keep, k_rows): the layout in which the wgmma
-    core reads both operands."""
+    rows / basis rows to a multiple of 64 (the kernel's N tile of 64
+    bins)."""
     fb = np.frombuffer(fb_bytes, np.float32).reshape(-1, n_mels)
     n_keep = _fb_support_bins(fb)
-    pad = 64 if k_major else 32
-    n_keep_p = -(-n_keep // pad) * pad
+    n_keep_p = -(-n_keep // 64) * 64
     cos_m, sin_m = _dft_matrices(frame_length, n_fft, "hann")
-    basis = np.zeros((k_rows, 2 * n_keep_p), np.float32)
-    basis[:frame_length, 0 : 2 * n_keep : 2] = cos_m[:, :n_keep]
-    basis[:frame_length, 1 : 2 * n_keep : 2] = sin_m[:, :n_keep]
-    if k_major:
-        basis = np.ascontiguousarray(basis.T)
+    basis = np.zeros((2 * n_keep_p, k_pad), np.float32)
+    basis[0 : 2 * n_keep : 2, :frame_length] = cos_m[:, :n_keep].T
+    basis[1 : 2 * n_keep : 2, :frame_length] = sin_m[:, :n_keep].T
     fb_p = np.zeros((n_keep_p, n_mels), np.float32)
     fb_p[:n_keep] = fb[:n_keep]
     return (torch.from_numpy(basis).to(device, torch.bfloat16),
             torch.from_numpy(fb_p).to(device), n_keep_p)
 
 
-def _kernel_args(name, audio, fb, frame_length, k_rows, n_fft, log_mode, out_affine, out_dtype,
-                 k_major=False):
-    """Checks shared by the two log-mel kernels, their tables and the
-    affine operands."""
-    if audio.dtype != torch.float32 or audio.ndim != 2:
-        raise NotImplementedError(f"{name} kernel takes (B, n) float32 audio, got "
-                                  f"{tuple(audio.shape)} {audio.dtype}")
-    if log_mode not in _LOG_MODES or out_dtype not in (torch.float32, torch.bfloat16):
-        raise NotImplementedError(f"{name} kernel: log_mode {log_mode!r}, out {out_dtype}")
-    fb = np.ascontiguousarray(fb, np.float32)
-    basis, fb_p, n_keep = _kernel_tables(frame_length, k_rows, n_fft, fb.tobytes(), fb.shape[1],
-                                         str(audio.device), k_major)
-    sc = of = None
-    if out_affine is not None:
-        sc, of = (t.to(audio.device, torch.float32).contiguous() for t in out_affine)
-        require_cuda(sc, of, dtype=torch.float32)
-    return basis, fb_p, n_keep, fb.shape[1], sc, of
+def _frame_geometry(n: int, frame_length: int, hop_length: int, center: bool):
+    """(half, n_frames, k_pad) of the log-mel kernels' frames of ``n``
+    samples: the reflect pad (frame_length // 2 when ``center``), the frame
+    count, and the frame padded to the 64-element TMA box, against zero
+    basis columns."""
+    half = frame_length // 2 if center else 0
+    if center and n <= half:
+        raise ValueError(f"reflect pad of {half} needs more than {half} samples, got {n}")
+    n_frames = (n + 2 * half - frame_length) // hop_length + 1
+    if n_frames < 1:
+        raise ValueError(f"{n + 2 * half} samples hold no {frame_length}-sample frame")
+    return half, n_frames, -(-frame_length // BK) * BK
 
 
 @lru_cache(maxsize=None)
@@ -327,43 +323,77 @@ def halo_dft_map(b: int, n: int, frame_length: int, hop_length: int, center: boo
     [r*hop, r*hop + k_pad) of row z of the reflect-padded (``half`` =
     frame_length // 2 when ``center``) signal, zero past it; k_pad is the
     frame padded to the 64-element swizzle box, against zero basis columns.
-    The kernel reads these numbers and computes none of them.  Cached: read
-    it, do not change it."""
+    ``n_frames``: frames per clip.  The kernel reads these numbers and
+    computes none of them.  Cached: read it, do not change it."""
     if hop_length % 8:
         raise NotImplementedError(f"log_mel kernel: the frame stride must be 16 bytes, got hop "
                                   f"{hop_length} % 8 != 0")
-    half = frame_length // 2 if center else 0
-    if center and n <= half:
-        raise ValueError(f"reflect pad of {half} needs more than {half} samples, got {n}")
-    n_frames = (n + 2 * half - frame_length) // hop_length + 1
-    if n_frames < 1:
-        raise ValueError(f"{n + 2 * half} samples hold no {frame_length}-sample frame")
-    k_pad = -(-frame_length // BK) * BK
+    half, n_frames, k_pad = _frame_geometry(n, frame_length, hop_length, center)
     clip_stride = -(-((n_frames - 1) * hop_length + k_pad) // 8) * 8
     return dict(dims=(k_pad, n_frames, b), strides=(hop_length, clip_stride),
-                box=(BK, BM, 1), half=half)
+                box=(BK, BM, 1), half=half, n_frames=n_frames)
 
 
-def _log_mel_halo_cuda(audio, *, frame_length, hop_length, n_fft, fb, center, log_mode,
-                       log_offset, out_affine, out_dtype):
+@lru_cache(maxsize=None)
+def v1_dft_map(b: int, n: int, frame_length: int, hop_length: int, center: bool) -> dict:
+    """The TMA map through which the v1 kernel reads its DFT's A, the bf16
+    frame matrix (B*n_frames, k_pad) that its first launch writes: one run
+    of rows, dims (k_pad, B*n_frames, 1) and box innermost first, strides
+    (of dims 1-2) in elements, the TPU kernel's flat row tiling (a 128-row
+    tile may span two clips).  Row z*n_frames + r holds frame r of clip z,
+    samples [r*hop, r*hop + frame_length) of the reflect-padded (``half``)
+    signal, zero past it and from frame_length to k_pad.  The pitch is
+    k_pad, not the hop, so any hop is served.  ``n_frames``: frames per
+    clip.  The kernel reads these numbers and computes none of them.
+    Cached: read it, do not change it."""
+    half, n_frames, k_pad = _frame_geometry(n, frame_length, hop_length, center)
+    rows = b * n_frames
+    if rows * k_pad >= 2**31:
+        raise ValueError(f"log_mel_v1 kernel: {rows} x {k_pad} frame samples pass 32-bit "
+                         "indices; call it on fewer clips")
+    return dict(dims=(k_pad, rows, 1), strides=(k_pad, rows * k_pad), box=(BK, BM, 1),
+                half=half, n_frames=n_frames)
+
+
+def _log_mel_cuda(kernel, symbol, audio, amap, scratch, framing, *, frame_length, n_fft, fb,
+                  log_mode, log_offset, out_affine, out_dtype):
+    """Launch one of the log-mel kernels on (B, n) f32 ``audio``: ``amap``
+    its DFT's A map, ``scratch`` the shape of the bf16 rows its first launch
+    writes, ``framing`` the arguments that follow the output in its C
+    entry."""
     out_dtype = out_dtype or torch.float32
     b, n = audio.shape
-    amap = halo_dft_map(b, n, frame_length, hop_length, center)
-    (k_pad, n_frames, _), clip_stride = amap["dims"], amap["strides"][1]
-    basis_t, fb_p, n_keep, n_mels, sc, of = _kernel_args(
-        "log_mel", audio, fb, frame_length, k_pad, n_fft, log_mode, out_affine, out_dtype,
-        k_major=True)
-    if n_mels != N_MELS:
-        raise NotImplementedError(f"log_mel kernel writes {N_MELS} mel bins, got {n_mels}")
+    if audio.dtype != torch.float32:
+        raise NotImplementedError(f"{kernel.name} kernel takes (B, n) float32 audio, got "
+                                  f"{audio.dtype}")
+    if log_mode not in _LOG_MODES or out_dtype not in (torch.float32, torch.bfloat16):
+        raise NotImplementedError(f"{kernel.name} kernel: log_mode {log_mode!r}, out {out_dtype}")
+    fb = np.ascontiguousarray(fb, np.float32)
+    if fb.shape[1] != N_MELS:
+        raise NotImplementedError(f"{kernel.name} kernel writes {N_MELS} mel bins, got "
+                                  f"{fb.shape[1]}")
+    basis_t, fb_p, n_keep = _kernel_tables(frame_length, amap["dims"][0], n_fft, fb.tobytes(),
+                                           N_MELS, str(audio.device))
+    sc = of = None
+    if out_affine is not None:
+        sc, of = (t.to(audio.device, torch.float32).contiguous() for t in out_affine)
+        require_cuda(sc, of, dtype=torch.float32)
     audio = audio.contiguous()
     require_cuda(audio, fb_p, dtype=torch.float32)
-    hops = torch.empty((b, clip_stride), dtype=torch.bfloat16, device=audio.device)
-    out = torch.empty((b, n_frames, n_mels), dtype=out_dtype, device=audio.device)
-    KERNEL.launch("am_log_mel", audio, n, amap["half"], hops, *amap["dims"], *amap["strides"],
-                  *amap["box"], basis_t, n_keep, fb_p, sc, of, n_mels, _LOG_MODES[log_mode],
-                  float(log_offset), int(out_dtype == torch.bfloat16), out)
-    KERNEL.launches += 1
+    rows = torch.empty(scratch, dtype=torch.bfloat16, device=audio.device)
+    out = torch.empty((b, amap["n_frames"], N_MELS), dtype=out_dtype, device=audio.device)
+    kernel.launch(symbol, audio, n, amap["half"], rows, *amap["dims"], *amap["strides"],
+                  *amap["box"], basis_t, n_keep, fb_p, sc, of, N_MELS, _LOG_MODES[log_mode],
+                  float(log_offset), int(out_dtype == torch.bfloat16), out, *framing)
+    kernel.launches += 1
     return out
+
+
+def _log_mel_halo_cuda(audio, *, frame_length, hop_length, n_fft, fb, center, **kw):
+    b, n = audio.shape
+    amap = halo_dft_map(b, n, frame_length, hop_length, center)
+    return _log_mel_cuda(KERNEL, "am_log_mel", audio, amap, (b, amap["strides"][1]), (),
+                         frame_length=frame_length, n_fft=n_fft, fb=fb, **kw)
 
 
 def log_mel_halo(audio, *, frame_length: int, hop_length: int, n_fft: int, fb: np.ndarray,
@@ -380,23 +410,13 @@ def log_mel_halo(audio, *, frame_length: int, hop_length: int, n_fft: int, fb: n
               out_dtype=out_dtype)
 
 
-def _log_mel_v1_cuda(audio, *, frame_length, hop_length, n_fft, fb, center, log_mode,
-                     log_offset, out_affine, out_dtype):
-    out_dtype = out_dtype or torch.float32
-    x = (_reflect_pad(audio, frame_length) if center else audio).contiguous()
-    b, n_sig = x.shape
-    n_frames, width = _v1_geometry(n_sig, frame_length, hop_length)
-    ldf = -(-width // 32) * 32  # the frame pitch: K of the DFT product
-    basis, fb_p, n_keep, n_mels, sc, of = _kernel_args(
-        "log_mel_v1", x, fb, frame_length, ldf, n_fft, log_mode, out_affine, out_dtype)
-    frames = torch.empty((b * n_frames, ldf), dtype=torch.bfloat16, device=x.device)
-    power = torch.empty((b, n_frames, n_keep), dtype=torch.float32, device=x.device)
-    out = torch.empty((b, n_frames, n_mels), dtype=out_dtype, device=x.device)
-    KERNEL_V1.launch("am_log_mel_v1", x, n_sig, hop_length, width, ldf, n_frames, frames, basis,
-                     n_keep, power, fb_p, sc, of, n_mels, _LOG_MODES[log_mode],
-                     float(log_offset), int(out_dtype == torch.bfloat16), out, b)
-    KERNEL_V1.launches += 1
-    return out
+def _log_mel_v1_cuda(audio, *, frame_length, hop_length, n_fft, fb, center, **kw):
+    b, n = audio.shape
+    amap = v1_dft_map(b, n, frame_length, hop_length, center)
+    k_pad, rows, _ = amap["dims"]
+    return _log_mel_cuda(KERNEL_V1, "am_log_mel_v1", audio, amap, (rows, k_pad),
+                         (b, amap["n_frames"], hop_length, frame_length),
+                         frame_length=frame_length, n_fft=n_fft, fb=fb, **kw)
 
 
 def log_mel_v1(audio, *, frame_length: int, hop_length: int, n_fft: int, fb: np.ndarray,

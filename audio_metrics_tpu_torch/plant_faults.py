@@ -44,6 +44,9 @@ FAULTS = {
            "          if (p.sc != nullptr) v[e] = v[e] * p.sc[m] + p.of[m];\n"
            "          v[e] = log_of(v[e], p.log_mode, p.log_offset);\n",
            "the halo log-mel applies the affine before the log"),
+    "L4": (f"{CSRC}/log_mel.cu", "const int s = r * hop + j + e - half;",
+           "const int s = r * (hop + 1) + j + e - half;",
+           "the v1 log-mel's framing pass steps hop + 1 samples a frame"),
     "S1": (f"{CSRC}/distance.cu", "atomicAdd(cand_count + c, count);", "cand_count[c] = count;",
            "the PRDC statistics store each tile's count instead of adding it"),
     "S2": (f"{CSRC}/distance.cu", "c < c_end && r < n_ref", "c <= c_end && r < n_ref",

@@ -35,7 +35,7 @@ import torch
 
 def _short(name: str) -> str:
     """A kernel's name without its template arguments and namespace."""
-    for key in ("gemm_kernel<", "gemm_sm90_kernel<", "gemm_tf32x3_kernel<", "knn_split_kernel", "knn_merge_kernel",
+    for key in ("gemm_sm90_kernel<", "gemm_tf32x3_kernel<", "knn_split_kernel", "knn_merge_kernel",
                 "merge_stats_kernel", "stats_split_kernel", "mel_log_kernel", "ln_rows_kernel",
                 "ln1_window_kernel", "hop_rows_kernel", "halo_rows_kernel", "log_mel_sm90_kernel",
                 "window_attn_kernel", "frame_rows_kernel"):

@@ -10,9 +10,8 @@ Phases, one status line each:
      proj products and the f32 block's and merge's products hold HGMMA and
      UTMALDG (wgmma, fed by TMA), the int8 MLP's fc1 and fc2 IGMMA and
      UTMALDG (int8 wgmma), the f32 window attention HMMA (mma.sync on the
-     tensor cores), the PRDC statistics' LDGSTS (cp.async); gemm.cuh's WMMA
-     gemm_kernel has one instantiation (#7's DFT), and no IMMA (int8
-     mma.sync) is left;
+     tensor cores), the PRDC statistics' LDGSTS (cp.async); no instantiation
+     of the deleted WMMA gemm_kernel and no IMMA (int8 mma.sync) is left;
   3. each kernel against its plain PyTorch version on the card, at the
      main-path shapes, with errors, tolerances and times: bf16 Swin blocks
      (every stage shifted and unshifted), patch merges and the 5 s
@@ -21,9 +20,13 @@ Phases, one status line each:
      512 (bench.py's size) and (10000, 12345) x 512 (ragged against any
      tile), the booleans and counts under the near-tie rule; the two
      log-mels at the CLAP 10 s geometry (BatchNorm affine, bf16 out), on
-     CLAP 7 s clips and at the VGGish convention, the halo kernel twice on
-     the same inputs (bitwise equal) and with its DFT's achieved TFLOP/s;
-     and the FAD device tail against the host float64 path;
+     CLAP 7 s clips and at the VGGish convention, the v1 kernel also at
+     CLAP's frame at hop 484 (which the halo kernel refuses), each twice on
+     the same inputs (bitwise equal), with its DFT's achieved TFLOP/s and
+     the time of each of its two launches (torch.profiler), and the v1
+     kernel's output against the halo kernel's on the same clips (printed:
+     they should be bitwise equal); and the FAD device tail against the host
+     float64 path;
   4. the main path end to end: ``AudioMetrics(metrics=["fad", "kd",
      "prdc"])`` with LaionCLAP HTSAT-base in bf16 (random weights from a
      seed) over 2048 reference and 2048 candidate 5 s clips at 48 kHz
@@ -43,7 +46,8 @@ Phases, one status line each:
      stages 0 and 1 and the XLA attention at stages 2 and 3, 256 + 256
      clips, as phase 6;
   8. v1 log-mel: ``AM_TPU_MEL_V1=1`` on the 10 s path (phase 5's clips):
-     launch counts and embeddings against phase 5's halo log-mel path;
+     launch counts (one v1 log-mel a forward), clips/s, and embeddings
+     against phase 5's halo log-mel path;
   9. the two opt-in ops, which no model path calls (in the JAX package as
      here), on the activations of a real forward: one default HTSAT-base
      bf16 forward of 64 clips of 5 s with phase 4's weights captures each
@@ -74,8 +78,8 @@ Phases, one status line each:
      chain, clips/s.
 Phase 3 runs each kernel redesigned for Hopper on the wgmma core (the
 whole Swin block at every stage and shift, its v3, v1 and v2 attention
-halves and fused MLP, the three patch merges, the fused frontend, the halo
-log-mel, the int8 MLP) twice on the same inputs, at B = 4 and at B = 64,
+halves and fused MLP, the three patch merges, the fused frontend, the two
+log-mels, the int8 MLP) twice on the same inputs, at B = 4 and at B = 64,
 and fails unless the outputs are bitwise equal (their GEMM core has no
 atomics but the int8 MLP's integer max, so a race in its TMA ring shows as
 a difference); it times the products of the
@@ -84,7 +88,7 @@ block, the merges, the frontend and the split halves alone through
 never calls it), and prints their achieved TFLOP/s.  Every call it holds
 against a plain version must launch its kernel exactly once.  The kernels
 of ~0.3 ms or less (patch merge, k-NN radii and PRDC statistics at N =
-2048, halo log-mel) are timed over 200 launches (``TIMING_ITERS``).
+2048, the two log-mels) are timed over 200 launches (``TIMING_ITERS``).
 Phase 3 holds the f32 whole block (every stage and shift) and the f32
 merges (their products on the 3xTF32 wgmma core) against their f32 plain
 versions too, at B = 4 and at B = 64, with bitwise repeats, and times their
@@ -214,10 +218,10 @@ CONFIG_TOL = {"split": (5e-5, 5e-3), "attn_v1": (5e-5, 5e-3), "mel_v1": (2e-6, 1
 # GEMM cores (gemm_sm90.cuh, bf16 and int8; gemm_tf32x3_sm90.cuh, f32 as
 # three TF32 products), which have no atomics but the int8 MLP's, an
 # integer max, which no order changes
-REPEATS = ("swin_block", "patch_merge", "clap_frontend", "log_mel", "swin_attn_v3", "swin_mlp",
-           "swin_attn_v1", "swin_attn_v2", "swin_mlp_int8", "swin_block_f32", "patch_merge_f32",
-           "swin_attn_v3_f32", "swin_mlp_f32", "swin_attn_v1_f32", "swin_attn_v2_f32",
-           "swin_mlp_int8_f32")
+REPEATS = ("swin_block", "patch_merge", "clap_frontend", "log_mel", "log_mel_v1",
+           "swin_attn_v3", "swin_mlp", "swin_attn_v1", "swin_attn_v2", "swin_mlp_int8",
+           "swin_block_f32", "patch_merge_f32", "swin_attn_v3_f32", "swin_mlp_f32",
+           "swin_attn_v1_f32", "swin_attn_v2_f32", "swin_mlp_int8_f32")
 # kernels also held against their plain versions at B = BATCH, the batch at
 # which the main path and the f32 configurations run them (phases 6, 7,
 # 9-11), under the same bounds
@@ -226,12 +230,14 @@ AT_BATCH = ("swin_attn_v3", "swin_mlp", "swin_attn_v1", "swin_attn_v2", "swin_ml
             "swin_attn_v1_f32", "swin_attn_v2_f32", "swin_mlp_int8_f32")
 # launches timed per reading (10 elsewhere): kernels of ~0.1 ms or less
 # moved by 20-40% between runs at 10
-TIMING_ITERS = {"patch_merge": 200, "knn_radii": 200, "prdc_stats": 200, "log_mel": 200}
+TIMING_ITERS = {"patch_merge": 200, "knn_radii": 200, "prdc_stats": 200, "log_mel": 200,
+                "log_mel_v1": 200}
 
 
 # the SASS that shows a kernel's design: instructions that the instantiations
 # of each named kernel (a pattern searched in the mangled name) must contain
-# (cuobjdump -sass of the built library): the halo log-mel's DFT and the
+# (cuobjdump -sass of the built library): the log-mels' DFT (one kernel,
+# log_mel_sm90_kernel, serves the halo and the v1 log-mel) and the
 # f32 block's and merge's 3xTF32 products on wgmma (HGMMA) fed by TMA
 # (UTMALDG); the bf16 v1 and v2 halves' qkv and proj products (the
 # gemm_sm90_kernel instantiations of EPI_BIAS_BF16 = 9 and EPI_PROJ_BF16 =
@@ -250,10 +256,9 @@ SASS_WANT = {"log_mel": ("log_mel_sm90_kernel", ("HGMMA", "UTMALDG")),
              "patch_merge_f32": ("gemm_tf32x3_kernel.*MergeA", ("HGMMA", "UTMALDG")),
              "window_attn_f32": ("window_attn_kernelIfE", ("HMMA",)),
              "prdc_stats": ("stats_split_kernel", ("LDGSTS",))}
-# kernels the library must hold exactly one instantiation of: gemm.cuh's
-# WMMA gemm_kernel serves #7's DFT alone (every other product is on a wgmma
-# core)
-SASS_ONE = {"gemm.cuh's WMMA gemm_kernel": r"11gemm_kernelI"}
+# kernels the library must hold no instantiation of: gemm.cuh's WMMA
+# gemm_kernel, deleted with its last user (#7's DFT is on the wgmma core)
+SASS_GONE = {"gemm.cuh's WMMA gemm_kernel": r"11gemm_kernelI"}
 # instructions the library must not hold: IMMA, the int8 mma.sync / WMMA of
 # the int8 MLP's old GEMM (every int8 product is on wgmma)
 SASS_NONE = {"int8 mma.sync / WMMA": r"\bIMMA\b"}
@@ -895,11 +900,37 @@ def phase_prdc_kernels(results):
                                      bound_by=b[name][1])
 
 
+def launch_ms(fn, iters: int = 20) -> dict:
+    """Device time (ms) per call of each kernel that ``fn`` launches, by
+    name (torch.profiler over ``iters`` calls after one warm call); empty
+    if the trace holds no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from audio_metrics_tpu_torch.profile_evaluate import _short
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    per: dict = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA and ev.device_time_total > 0:
+            name = _short(ev.name)
+            per[name] = per.get(name, 0.0) + ev.device_time_total / 1e3 / iters
+    return per
+
+
 def phase_log_mel(cfg, params, results):
     """The halo and the v1 log-mel kernels vs their plain versions: CLAP 10 s
     (centered, dB, BatchNorm affine, bf16 out) and VGGish (400-sample
     frames, n_fft 512, uncentered, natural log, f32 out).  Both compute one
-    function on the same inputs, so they share the bound."""
+    function on the same inputs, so they share the bound; where both run,
+    the v1 kernel's output against the halo kernel's (bitwise equal
+    expected: one DFT + mel kernel, the same tables and bf16 frame values,
+    each row's sums its own)."""
+    from audio_metrics_tpu_torch.kernels import KERNELS
     from audio_metrics_tpu_torch.models.clap import ClapFrontend, _clap_fb
     from audio_metrics_tpu_torch.ops.mel import (
         log_mel_halo,
@@ -916,13 +947,16 @@ def phase_log_mel(cfg, params, results):
     clap = dict(frame_length=1024, hop_length=480, n_fft=1024, fb=_clap_fb(), center=True,
                 log_mode="db", out_affine=(fr.bn_scale, fr.bn_offset), out_dtype=torch.bfloat16)
     # (tolerance key, samples, arguments): the model path's CLAP 10 s window,
-    # a CLAP 7 s clip (another frame count, a last row tile of 61 rows) and
-    # VGGish (K 400 padded to 448)
+    # a CLAP 7 s clip (another frame count, a last row tile of 61 rows; v1:
+    # tiles that span clips), VGGish (K 400 padded to 448), and CLAP's frame
+    # at hop 484, whose 968-byte frame stride the halo kernel's map refuses
+    # (16 bytes) and the v1 kernel serves (its rows' pitch is k_pad)
     convs = {
         "clap": ("clap", 10 * SR, clap),
         "clap 7 s": ("clap", 7 * SR, clap),
         "vggish": ("vggish", 10 * 16000, dict(frame_length=400, hop_length=160, n_fft=512,
                                               fb=vgg_fb, center=False, log_mode="natural")),
+        "clap hop 484": ("clap", 10 * SR, dict(clap, hop_length=484)),
     }
     kernels = {"log_mel": (log_mel_halo, log_mel_halo_plain),
                "log_mel_v1": (log_mel_v1, log_mel_v1_plain)}
@@ -930,7 +964,13 @@ def phase_log_mel(cfg, params, results):
         audio = {b: 0.2 * torch.randn((b, n), generator=gen, device="cuda")
                  for b in (CHECK_B, BATCH)}
         for name, (kfn, pfn) in kernels.items():
+            if name == "log_mel" and kw["hop_length"] % 8:
+                continue
+            before = KERNELS[name].launches
             got = kfn(audio[CHECK_B], **kw)
+            if KERNELS[name].launches != before + 1:
+                raise AssertionError(f"{name} {conv}: {KERNELS[name].launches - before} "
+                                     "launches in one call")
             want = pfn(audio[CHECK_B], **kw)
             if got.shape != want.shape or got.dtype != want.dtype:
                 raise AssertionError(f"{name} {conv}: {got.shape} {got.dtype} vs {want.shape} "
@@ -957,14 +997,25 @@ def phase_log_mel(cfg, params, results):
             log(f"    B={BATCH}: kernel {ms:.4f} ms, plain {pms:.4f} ms, bound {b[0]:.4f} ms "
                 f"({b[1]}); the DFT's {dft:.4g} operations at {dft / (ms * 1e-3) / 1e12:.1f} "
                 f"TFLOP/s over the kernel's time")
+            per = launch_ms(lambda: kfn(audio[BATCH], **kw))
+            log(f"    B={BATCH} launches (torch.profiler, per call): " + (", ".join(
+                f"{k} {v:.4f} ms" for k, v in per.items()) or "not measured"))
             if conv == "clap":
                 results[name].update(ms=ms, plain_ms=pms, bound_ms=b[0], bound_by=b[1])
+        if kw["hop_length"] % 8 == 0:  # #7 against #6 on the same clips
+            for b in (CHECK_B, BATCH):
+                v1, halo = log_mel_v1(audio[b], **kw), log_mel_halo(audio[b], **kw)
+                d = (v1.float() - halo.float()).abs()
+                log(f"  log_mel_v1 vs log_mel {conv} at B={b}: " + (
+                    "bitwise equal" if torch.equal(v1, halo) else
+                    f"DIFFER in {int((d > 0).sum())} of {d.numel()} values, max abs "
+                    f"{d.max().item():.4g} (not a gate: each is held to its plain version)"))
 
 
 def sass_check(lib_path: str) -> None:
     """``cuobjdump -sass`` of the built kernel library: each kernel of
     ``SASS_WANT`` has instantiations, and they contain its instructions;
-    each of ``SASS_ONE`` has one instantiation; none of ``SASS_NONE``'s
+    none of ``SASS_GONE``'s kernels and none of ``SASS_NONE``'s
     instructions is left."""
     exe = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
@@ -979,11 +1030,11 @@ def sass_check(lib_path: str) -> None:
             + ", ".join(f"{op} x{n}" for op, n in counts.items()) + f" {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"{name}: {symbol} lacks {ops} in its SASS")
-    for name, symbol in SASS_ONE.items():
+    for name, symbol in SASS_GONE.items():
         n = sum(bool(re.search(symbol, f.split("\n", 1)[0])) for f in functions)
-        log(f"  {name} ({symbol}): {n} instantiation(s) {'ok' if n == 1 else 'FAIL'}")
-        if n != 1:
-            raise AssertionError(f"{name}: {n} instantiations, want 1")
+        log(f"  {name} ({symbol}): {n} instantiation(s) {'ok' if n == 0 else 'FAIL'}")
+        if n:
+            raise AssertionError(f"{name}: {n} instantiations left, want none")
     for name, pattern in SASS_NONE.items():
         n = len(re.findall(pattern, sass))
         log(f"  {name} ({pattern}) in the library: x{n} {'ok' if n == 0 else 'FAIL'}")

@@ -27,7 +27,9 @@ kernels, the split block's kernels (v3 and v1 attention halves, the fused
 MLP; the v3 half and the MLP on the operands the block holds from load,
 and the two in turn against the whole block) and the two opt-in ops (the
 v2 attention half, the int8 MLP): the bounds of ``chip_smoke.py``.  The v2 half on v1's operands laid side by
-side runs v1's launches: equal outputs.  Their f32 kernels (the f32
+side runs v1's launches: equal outputs.  The v1 log-mel runs the halo
+log-mel's DFT + mel kernel over its frame matrix: equal outputs where both
+run (hop % 8 == 0); it alone serves a hop of 484.  Their f32 kernels (the f32
 block's launches, products as three TF32 products) against their f32
 plain versions in full f32 under the f32 block's bounds at each stage, at
 B = 4 and a ragged B = 3, with bitwise repeats; the v3 half then the MLP
@@ -591,30 +593,63 @@ def test_split_kernels_match_whole_block(cuda, params, stage, shift):
     _close(split.view(whole.shape), whole, whole.float() - x.float(), *SPLIT_VS_WHOLE_TOL)
 
 
-@pytest.mark.parametrize("conv", ["clap", "vggish"])
-def test_log_mel_v1_kernel_matches_plain(cuda, params, conv):
-    """The v1 log-mel: the halo test's inputs and bounds."""
-    g = torch.Generator(device=cuda).manual_seed(31)
-    if conv == "clap":
+def _mel_case(params, cuda, conv, b=2, seed=31):
+    """(arguments, audio) of a log-mel check: CLAP (10 s, 7 s, or 10 s at
+    hop 484; centered, dB, the BatchNorm affine and bf16 out) or VGGish
+    (400-sample frames, uncentered, natural log, f32)."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    if conv.startswith("clap"):
         fr = ClapFrontend(params, cfg).to(cuda)
         fb = mel_filter_bank(513, 64, 50.0, 14000.0, SAMPLE_RATE, norm="slaney",
                              mel_scale="slaney").astype(np.float32)
-        kw = dict(frame_length=1024, hop_length=480, n_fft=1024, fb=fb, center=True,
-                  log_mode="db", out_affine=(fr.bn_scale, fr.bn_offset), out_dtype=torch.bfloat16)
-        audio = 0.2 * torch.randn((2, 10 * SAMPLE_RATE), generator=g, device=cuda)
-    else:
-        fb = mel_filter_bank(257, 64, 125.0, 7500.0, 16000, norm=None, mel_scale="htk",
-                             triangle_domain="mel", zero_dc=True).astype(np.float32)
-        kw = dict(frame_length=400, hop_length=160, n_fft=512, fb=fb, center=False,
-                  log_mode="natural")
-        audio = 0.2 * torch.randn((2, 3 * 16000 + 77), generator=g, device=cuda)
+        kw = dict(frame_length=1024, hop_length=484 if conv.endswith("484") else 480,
+                  n_fft=1024, fb=fb, center=True, log_mode="db",
+                  out_affine=(fr.bn_scale, fr.bn_offset), out_dtype=torch.bfloat16)
+        seconds = 7 if conv == "clap 7 s" else 10
+        return kw, 0.2 * torch.randn((b, seconds * SAMPLE_RATE), generator=g, device=cuda)
+    fb = mel_filter_bank(257, 64, 125.0, 7500.0, 16000, norm=None, mel_scale="htk",
+                         triangle_domain="mel", zero_dc=True).astype(np.float32)
+    kw = dict(frame_length=400, hop_length=160, n_fft=512, fb=fb, center=False,
+              log_mode="natural")
+    return kw, 0.2 * torch.randn((b, 3 * 16000 + 77), generator=g, device=cuda)
+
+
+@pytest.mark.parametrize("conv", ["clap", "vggish", "clap 7 s", "clap hop 484"])
+def test_log_mel_v1_kernel_matches_plain(cuda, params, conv):
+    """The v1 log-mel: the halo test's inputs and bounds, CLAP 7 s clips
+    (701 frames a clip: tiles span clips) and CLAP at hop 484, which the
+    halo kernel refuses; one launch a call."""
+    kw, audio = _mel_case(params, cuda, conv)
     before = KERNELS["log_mel_v1"].launches
     got = log_mel_v1(audio, **kw)
     torch.cuda.synchronize()
     assert KERNELS["log_mel_v1"].launches == before + 1
     want = log_mel_v1_plain(audio, **kw)
     assert got.shape == want.shape and got.dtype == want.dtype
-    _close(got, want, want, *LOG_MEL_TOL[conv])
+    _close(got, want, want, *LOG_MEL_TOL[conv.split()[0]])
+
+
+@pytest.mark.parametrize("conv,b", [("clap", 64), ("vggish", 4)])
+def test_log_mel_v1_kernel_equals_halo_kernel(cuda, params, conv, b):
+    """Where both kernels run (hop % 8 == 0) they share the DFT + mel
+    kernel, its tables and the bf16 frame values, and each row's sums
+    depend on that row alone: the outputs are bitwise equal."""
+    kw, audio = _mel_case(params, cuda, conv, b=b, seed=32)
+    got, halo = log_mel_v1(audio, **kw), log_mel_halo(audio, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, halo)
+
+
+def test_log_mels_raise_on_other_mel_counts(cuda):
+    """Both kernels' epilogues write 64 mel bins (CLAP and VGGish): another
+    count raises ``NotImplementedError`` and launches nothing."""
+    fb = mel_filter_bank(513, 128, 50.0, 14000.0, SAMPLE_RATE).astype(np.float32)
+    audio = torch.zeros((1, 48000), device=cuda)
+    before = {k: KERNELS[k].launches for k in ("log_mel", "log_mel_v1")}
+    for fn in (log_mel_halo, log_mel_v1):
+        with pytest.raises(NotImplementedError, match="64 mel bins"):
+            fn(audio, frame_length=1024, hop_length=480, n_fft=1024, fb=fb)
+    assert {k: KERNELS[k].launches for k in before} == before
 
 
 def test_new_kernels_raise_on_other_dtypes(cuda):

@@ -26,6 +26,7 @@ import contextlib
 import ctypes
 import importlib
 import inspect
+import re
 
 import numpy as np
 import pytest
@@ -195,11 +196,12 @@ def _card(t):
 
 class _Calls(list):
     """The C entry points called, in order; ``args[name]``: the pointer
-    values passed to the last call of ``name``."""
+    values passed to the last call of ``name``, ``cargs[name]``: all its
+    ctypes arguments."""
 
     def __init__(self):
         super().__init__()
-        self.args = {}
+        self.args, self.cargs = {}, {}
 
 
 @pytest.fixture
@@ -214,6 +216,7 @@ def symbols(cards, monkeypatch):
             def entry(*cargs):
                 called.append(name)
                 called.args[name] = [a.value for a in cargs if isinstance(a, ctypes.c_void_p)]
+                called.cargs[name] = cargs
                 return 0
             return entry
 
@@ -537,3 +540,60 @@ def test_f32_forward_calls_no_bf16_wrapper(monkeypatch):
         out = emb.embed(0.1 * audio)
         assert out.dtype == torch.float32 and bool(torch.isfinite(out).all())
     assert dtypes == [torch.float32] * 22
+
+
+def _c_parameters(source, symbol):
+    """(ctypes type, name) of each parameter of ``extern "C" int symbol(...)``
+    in ``source``: a pointer or the stream c_void_p, a float c_float, an int
+    c_int (``kernels._arg``'s mapping)."""
+    text = (ROOT / source).read_text()
+    params = re.search(rf'extern "C" int {symbol}\((.*?)\)\s*{{', text, re.S).group(1)
+    out = []
+    for param in (" ".join(p.split()) for p in params.split(",")):
+        kind = (ctypes.c_void_p if "*" in param or param.startswith("cudaStream_t")
+                else ctypes.c_float if param.startswith("float ") else ctypes.c_int)
+        out.append((kind, param.replace("*", " ").split()[-1]))
+    return out
+
+
+@pytest.mark.parametrize("name,symbol,want", [
+    # 1 s CLAP clips (101 frames) at hop 480: hop rows, a (k, frame, clip) map
+    ("log_mel", "am_log_mel", dict(n=48000, half=512, k_pad=1024, n_frames=101, batch=2,
+                                   hop=480, clip_stride=49024, box_k=64, box_rows=128,
+                                   box_b=1, n_keep=384, n_mels=64, out_bf16=0)),
+    # the same clips through the v1 kernel: one run of 202 frame rows
+    ("log_mel_v1", "am_log_mel_v1", dict(n=48000, half=512, k_pad=1024, rows=202, one=1,
+                                         row_stride=1024, batch_stride=202 * 1024, box_k=64,
+                                         box_rows=128, box_b=1, n_keep=384, n_mels=64,
+                                         out_bf16=0, batch=2, n_frames=101, hop=480,
+                                         frame_length=1024)),
+])
+def test_card_log_mel_arguments_match_the_c_entry(symbols, monkeypatch, name, symbol, want):
+    """A log-mel on a CUDA tensor launches its C entry once with an argument
+    of the entry's type in every place (ctypes passes what it is given, so a
+    slip in the order would reach the card as a wrong size), the values of
+    its frame map there, and raises ``NotImplementedError`` without launching
+    for a mel count other than 64."""
+    from audio_metrics_tpu_torch.kernels import KERNELS
+    from audio_metrics_tpu_torch.ops import mel
+
+    tables = mel._kernel_tables
+    monkeypatch.setattr(mel, "_kernel_tables", lambda *a: tuple(
+        _card(t) if isinstance(t, torch.Tensor) else t for t in tables(*a[:-1], "cpu")))
+    kw = dict(frame_length=1024, hop_length=480, n_fft=1024)
+    fn = mel.log_mel_halo if name == "log_mel" else mel.log_mel_v1
+    audio = _card(torch.zeros((2, 48000)))
+    fb = mel.mel_filter_bank(513, 64, 50.0, 14000.0, 48000, norm="slaney",
+                             mel_scale="slaney").astype(np.float32)
+    out, moved = _counted(lambda: fn(audio, fb=fb, **kw))
+    assert symbols == [symbol] and moved == {name: 1}
+    assert out.shape == (2, 101, 64) and out.dtype == torch.float32
+    params = _c_parameters(KERNELS[name].source, symbol)
+    cargs = symbols.cargs[symbol]
+    assert [type(a) for a in cargs] == [kind for kind, _ in params]
+    got = {pname: a.value for (kind, pname), a in zip(params, cargs) if kind is ctypes.c_int}
+    assert {k: got[k] for k in want} == want
+    fb128 = mel.mel_filter_bank(513, 128, 50.0, 14000.0, 48000).astype(np.float32)
+    with pytest.raises(NotImplementedError, match="64 mel bins"):
+        fn(audio, fb=fb128, **kw)
+    assert symbols == [symbol]

@@ -20,8 +20,9 @@ products in another order over 1024-sample frames).  The CLAP embedder at
 1e-6 (unit vectors; measured ~1e-7).
 
 The halo log-mel kernel's host side (its hop rows, frame map, K-major
-basis and fused epilogue order) against ``log_mel_halo_plain``: see the
-section below.
+basis and fused epilogue order) against ``log_mel_halo_plain``, and the v1
+kernel's (its frame matrix, read through ``v1_dft_map``) against
+``log_mel_v1_plain`` and the halo kernel's A: see the sections below.
 """
 
 import numpy as np
@@ -50,13 +51,16 @@ from audio_metrics_tpu_torch.models.htsat import HTSATConfig, frontend_tokens, i
 from audio_metrics_tpu_torch.ops.mel import (
     _kernel_tables,
     _reflect_pad,
+    _v1_signal,
     halo_dft_map,
     log_mel_halo,
     log_mel_halo_plain,
     log_mel_spectrogram,
     log_mel_v1,
+    log_mel_v1_plain,
     mel_filter_bank,
     plain_operands,
+    v1_dft_map,
 )
 
 CONVENTIONS = {
@@ -115,13 +119,15 @@ def test_log_mel_halo_plain_affine_epilogue():
                                rtol=0, atol=0.25)
 
 
-@pytest.mark.parametrize("conv", ["clap", "vggish"])
+@pytest.mark.parametrize("conv", ["clap", "vggish", "clap hop 484"])
 def test_log_mel_v1_plain_matches_pallas(conv):
     """CLAP: 1024-sample frames in 3 chunks of 480 (1440 wide); VGGish: 400
-    in 3 chunks of 160 (480 wide)."""
-    c = CONVENTIONS[conv]
+    in 3 chunks of 160 (480 wide); CLAP at hop 484 (3 chunks, 1452 wide), a
+    hop that the halo kernel refuses and the v1 kernel serves.  1 s clips."""
+    c = CONVENTIONS[conv.split()[0]]
+    hop = int(conv.split()[-1]) if "hop" in conv else c["hop"]
     a = (0.2 * np.random.default_rng(13).normal(size=(3, c["sr"]))).astype(np.float32)
-    kw = dict(frame_length=c["frame"], hop_length=c["hop"], n_fft=c["n_fft"], fb=_fb(c),
+    kw = dict(frame_length=c["frame"], hop_length=hop, n_fft=c["n_fft"], fb=_fb(c),
               center=c["center"], log_mode=c["log_mode"])
     want = np.asarray(log_mel_pallas(jnp.asarray(a), interpret=True, **kw))
     before = KERNELS["log_mel_v1"].launches
@@ -232,7 +238,7 @@ def test_clap_rejects_clips_longer_than_10_s():
 # The kernel (kernels/csrc/log_mel.cu) writes the bf16 hop-row signal
 # (halo_rows_kernel), reads its DFT's A through the 3-D TMA map that
 # ``ops.mel.halo_dft_map`` tabulates, B as the K-major basis of
-# ``_kernel_tables(..., k_major=True)``, and sums powers into the mel one N
+# ``_kernel_tables``, and sums powers into the mel one N
 # tile of 64 bins at a time.  Here the hop rows are built by the kernel's
 # index formula, the map is materialised with ``torch.as_strided`` box by
 # box (rows past the map's extent zero, as TMA fills them), and both
@@ -243,15 +249,17 @@ def test_clap_rejects_clips_longer_than_10_s():
 LOG_MEL_TOL = {"clap": (1e-5, 0.25), "vggish": (1e-6, 3e-5)}  # as in chip_smoke.py
 HALO_CASES = {"clap 10 s": ("clap", 10), "clap 7 s": ("clap", 7), "clap 3 s": ("clap", 3),
               "vggish 10 s": ("vggish", 10)}
+# the v1 kernel's: the halo's and a hop that the halo kernel refuses
+V1_CASES = {**HALO_CASES, "clap hop 484": ("clap", 3, 484)}
 
 
 def _halo_case(case, b=2, seed=0):
-    conv, seconds = HALO_CASES[case]
+    conv, seconds, *hop = V1_CASES[case]
     c = CONVENTIONS[conv]
     rng = np.random.default_rng(seed)
     audio = torch.from_numpy((0.2 * rng.normal(size=(b, seconds * c["sr"]))).astype(np.float32))
-    kw = dict(frame_length=c["frame"], hop_length=c["hop"], n_fft=c["n_fft"], fb=_fb(c),
-              center=c["center"], log_mode=c["log_mode"])
+    kw = dict(frame_length=c["frame"], hop_length=hop[0] if hop else c["hop"], n_fft=c["n_fft"],
+              fb=_fb(c), center=c["center"], log_mode=c["log_mode"])
     if conv == "clap":  # the BatchNorm fold, bf16 out (the model path)
         kw.update(out_affine=(torch.from_numpy((rng.normal(size=64) * 0.3 + 1).astype(np.float32)),
                               torch.from_numpy(rng.normal(size=64).astype(np.float32))),
@@ -271,9 +279,10 @@ def _hop_rows(audio, amap):
 
 
 def _frames_through_the_map(hops, amap):
-    """A as the producer loads it: per clip z and 128-row tile, the boxes of
-    every K step cut from the map's extent viewed with ``as_strided``, rows
-    past it zero; (B, tiles * 128, k_pad)."""
+    """A as the producer loads it: per map batch z (a clip of the halo map)
+    and 128-row tile, the boxes of every K step cut from the map's extent
+    viewed with ``as_strided``, rows past it zero; (batch, tiles * 128,
+    k_pad)."""
     (k_pad, n_frames, b), (hop, clip_stride), box = amap["dims"], amap["strides"], amap["box"]
     assert box == (64, 128, 1) and k_pad % box[0] == 0 and (2 * hop) % 16 == 0
     assert (2 * clip_stride) % 16 == 0
@@ -292,7 +301,7 @@ def _kernel_operands(audio, kw):
                         kw["center"])
     fb = np.ascontiguousarray(kw["fb"], np.float32)
     basis_t, fb_p, n_keep = _kernel_tables(kw["frame_length"], amap["dims"][0], kw["n_fft"],
-                                           fb.tobytes(), fb.shape[1], "cpu", True)
+                                           fb.tobytes(), fb.shape[1], "cpu")
     return amap, _frames_through_the_map(_hop_rows(audio, amap), amap), basis_t, fb_p
 
 
@@ -390,3 +399,138 @@ def test_halo_map_shape_checks(frame, hop, center, k_pad):
     assert (kp, b, stride) == (k_pad, 2, hop) and amap["box"] == (64, 128, 1)
     assert clip_stride % 8 == 0 and clip_stride >= (n_frames - 1) * hop + kp
     assert n_frames == (48000 + (frame if center else 0) - frame) // hop + 1
+
+
+# ---- the v1 log-mel kernel (#7) on the wgmma core: its host side ----
+#
+# The kernel writes the (B*n_frames, k_pad) bf16 frame matrix (its framing
+# pass, frame_rows_kernel) and reads it through the map ``ops.mel.
+# v1_dft_map`` tabulates, as one run of rows, into the halo kernel's DFT and
+# epilogue (the same basis and filterbank tables).  Here the frame matrix is
+# built by the framing pass's index formula, read box by box through the
+# map, and held against the plain version's frames (``_v1_signal``: the
+# TPU wrapper's chunk-padded frames) and against the A of the halo map.
+
+
+def _frame_rows(audio, amap, frame_length, hop):
+    """The framing pass: row z*n_frames + r, column j < frame_length, is
+    bf16(sample r*hop + j of clip z's padded signal): x[-s], x[s], x[2n - 2 -
+    s] for s = r*hop + j - half, then zero; columns from frame_length to
+    k_pad are zero."""
+    n, half, n_frames, k_pad = audio.shape[1], amap["half"], amap["n_frames"], amap["dims"][0]
+    j = np.arange(k_pad)[None, :]
+    s = np.arange(n_frames)[:, None] * hop + j - half
+    src = np.where(s < 0, -s, np.where(s < n, s, 2 * n - 2 - s))
+    valid = torch.from_numpy((j < frame_length) & (s < n + half))
+    rows = audio[:, torch.from_numpy(np.clip(src, 0, n - 1))] * valid
+    return rows.reshape(-1, k_pad).to(torch.bfloat16)
+
+
+def _v1_operands(audio, kw):
+    b, n = audio.shape
+    frame, hop = kw["frame_length"], kw["hop_length"]
+    amap = v1_dft_map(b, n, frame, hop, kw["center"])
+    fb = np.ascontiguousarray(kw["fb"], np.float32)
+    basis_t, fb_p, n_keep = _kernel_tables(frame, amap["dims"][0], kw["n_fft"], fb.tobytes(),
+                                           fb.shape[1], "cpu")
+    return amap, _frames_through_the_map(_frame_rows(audio, amap, frame, hop), amap), basis_t, fb_p
+
+
+@pytest.mark.parametrize("case", list(V1_CASES))
+def test_v1_map_and_basis_are_the_plain_operands(case):
+    """The frame matrix read through the v1 map equals the plain version's
+    bf16 frames bitwise in their first frame_length columns and is zero
+    from there to k_pad, where the plain basis rows are zero too (so the cut
+    of the TPU wrapper's n_chunks*hop width changes no value); the rows past
+    B*n_frames read zero; the K-major basis is the plain basis."""
+    conv, audio, kw = _halo_case(case)
+    amap, a, basis_t, fb_p = _v1_operands(audio, kw)
+    frame, (k_pad, rows, one), n_frames = kw["frame_length"], amap["dims"], amap["n_frames"]
+    b = audio.shape[0]
+    x, n_plain, width = _v1_signal(audio, frame, kw["hop_length"], kw["center"])
+    frames, basis, fb_rows = plain_operands(x, width, frame_length=frame,
+                                            hop_length=kw["hop_length"], n_fft=kw["n_fft"],
+                                            fb=kw["fb"])
+    frames = frames[:, :n_plain]
+    assert one == 1 and rows == b * n_frames and n_frames == n_plain
+    assert 0 <= k_pad - frame < 64 and width >= frame
+    got = a[0, :rows].reshape(b, n_frames, k_pad)
+    assert torch.equal(got[..., :frame].float(), frames[..., :frame])
+    assert not got[..., frame:].any() and not a[0, rows:].any()
+    assert not basis[frame:].any()
+    n_keep = fb_rows.shape[0]
+    assert torch.equal(basis_t[0:2 * n_keep:2, :frame].float().T, basis[:frame, :n_keep])
+    assert torch.equal(basis_t[1:2 * n_keep:2, :frame].float().T, basis[:frame, n_keep:])
+    assert not basis_t[:, frame:].any() and not basis_t[2 * n_keep:].any()
+    assert torch.equal(fb_p[:n_keep], fb_rows) and not fb_p[n_keep:].any()
+
+
+@pytest.mark.parametrize("case", list(V1_CASES))
+def test_v1_fused_epilogue_order_matches_plain(case):
+    """The halo kernel's epilogue, emulated in its order over the v1 frame
+    matrix (one run of rows: tiles span clips), within chip_smoke.py's
+    LOG_MEL_TOL of ``log_mel_v1_plain``; the check fails with the mel
+    accumulator reset at every N tile and (CLAP) with the affine before the
+    log."""
+    conv, audio, kw = _halo_case(case, seed=1)
+    amap, a, basis_t, fb_p = _v1_operands(audio, kw)
+    b, rows = audio.shape[0], amap["dims"][1]
+
+    def emulated(**fault):
+        return _fused_epilogue(a, basis_t, fb_p, kw, **fault)[0, :rows].reshape(b, rows // b, 64)
+
+    want = log_mel_v1_plain(audio, **kw)
+    got = emulated()
+    assert got.shape == want.shape and got.dtype == want.dtype
+    rel, mx = _log_mel_err(got, want)
+    rel_tol, max_tol = LOG_MEL_TOL[conv]
+    assert rel <= rel_tol and mx <= max_tol, (rel, mx)
+    rel, mx = _log_mel_err(emulated(reset_every_tile=True), want)
+    assert rel > 10 * rel_tol and mx > max_tol
+    if conv == "clap":
+        rel, mx = _log_mel_err(emulated(affine_first=True), want)
+        assert rel > 10 * rel_tol and mx > max_tol
+
+
+@pytest.mark.parametrize("case", list(HALO_CASES))
+def test_v1_and_halo_read_the_same_a(case):
+    """Where both kernels run (hop % 8 == 0), row z*n_frames + r of the A
+    that the v1 map reads is row r of clip z's A through the halo map in
+    its first frame_length columns; past them the halo reads signal and v1
+    zeros, both against zero basis columns, and the two kernels share their
+    tables: the products, sums and epilogue are the same row by row, so the
+    outputs should be bitwise equal on the card."""
+    conv, audio, kw = _halo_case(case)
+    amap, a, basis_t, fb_p = _v1_operands(audio, kw)
+    hmap, ha, h_basis_t, h_fb_p = _kernel_operands(audio, kw)
+    frame, (k_pad, n_frames, b) = kw["frame_length"], hmap["dims"]
+    assert amap["dims"] == (k_pad, b * n_frames, 1) and amap["half"] == hmap["half"]
+    assert amap["n_frames"] == hmap["n_frames"] == n_frames
+    v1 = a[0, :b * n_frames].reshape(b, n_frames, k_pad)
+    assert torch.equal(v1[..., :frame], ha[:, :n_frames, :frame])
+    assert not v1[..., frame:].any() and not basis_t[:, frame:].any()
+    assert h_basis_t is basis_t and h_fb_p is fb_p  # one cached table
+
+
+@pytest.mark.parametrize("frame,hop,center,k_pad", [(1024, 480, True, 1024), (400, 160, False, 448),
+                                                    (1024, 484, True, 1024)])
+def test_v1_map_shape_checks(frame, hop, center, k_pad):
+    """Any hop (484 too, which the halo map refuses); K is the frame padded
+    to the 64-element box; one run of B*n_frames rows at pitch k_pad; a clip
+    too short to reflect-pad or to hold a frame, or a frame matrix past
+    32-bit indices, raises ``ValueError``."""
+    amap = v1_dft_map(2, 48000, frame, hop, center)
+    n_frames = (48000 + (frame if center else 0) - frame) // hop + 1
+    assert amap["n_frames"] == n_frames and amap["half"] == (frame // 2 if center else 0)
+    assert amap["dims"] == (k_pad, 2 * n_frames, 1) and amap["box"] == (64, 128, 1)
+    assert amap["strides"] == (k_pad, 2 * n_frames * k_pad)
+    if hop % 8:
+        with pytest.raises(NotImplementedError, match="hop"):
+            halo_dft_map(2, 48000, frame, hop, center)
+    else:
+        assert halo_dft_map(2, 48000, frame, hop, center)["dims"][:2] == (k_pad, n_frames)
+    short = frame // 2 if center else frame - 1
+    with pytest.raises(ValueError, match="samples"):
+        v1_dft_map(2, short, frame, hop, center)
+    with pytest.raises(ValueError, match="32-bit"):
+        v1_dft_map(4096, 480000, frame, hop, center)
