@@ -122,6 +122,23 @@ class AudioMetricsData:
         self.cache["chol"] = (cov, l)
         return l
 
+    def add(self, embeddings: torch.Tensor) -> None:
+        """Accumulate a batch of embeddings (audio_metrics_tpu/data.py:
+        273-294): float64 mean and covariance on the host, merged in arrival
+        order; the f32 rows kept on their device when ``store_embeddings``."""
+        if embeddings.ndim != 2:
+            raise ValueError(f"embeddings must be 2-D, got shape {tuple(embeddings.shape)}")
+        n = embeddings.shape[0]
+        if n == 0:
+            return
+        self._flush()
+        e = embeddings.double().cpu().numpy()
+        mean = e.mean(axis=0)
+        c = e - mean
+        cov = np.zeros((e.shape[1],) * 2) if n == 1 else c.T @ c / (n - 1)
+        self._update_stats(mean, cov, n)
+        self.add_embeddings(embeddings.float())
+
     # -- embeddings ---------------------------------------------------
     def add_embeddings(self, e: torch.Tensor) -> None:
         if self.store_embeddings:

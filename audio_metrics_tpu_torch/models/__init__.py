@@ -1,18 +1,21 @@
 """Embedder registry (counterpart of audio_metrics_tpu/models/__init__.py).
 
-The six LAION-CLAP names build :class:`LaionCLAP` from their checkpoint
-(``ckpt`` = its URL, resolved locally first: ``$AM_TPU_CKPT_DIR/<basename>``,
-then the cache; ``utils.get_url.resolve_checkpoint``), in f32 by default.
-``get_embedder(name, **overrides)`` passes ``overrides`` (``device=``,
-``cfg=``, ``compute_dtype=``) to the constructor.  ``vggish`` raises
-``NotImplementedError``.
+The JAX package's eight names: the six LAION-CLAP names build
+:class:`LaionCLAP` from their checkpoint (``ckpt`` = its URL, resolved
+locally first: ``$AM_TPU_CKPT_DIR/<basename>``, then the cache;
+``utils.get_url.resolve_checkpoint``), in f32 by default; ``vggish`` builds
+:class:`VGGish` from the torchvggish checkpoint the same way; ``dummy`` the
+checkpoint-free :class:`DummyEmbedder`.  ``get_embedder(name,
+**overrides)`` passes ``overrides`` (``device=``, ``cfg=``,
+``compute_dtype=``) to the constructor.
 """
 
 from __future__ import annotations
 
 from .base import Embedder
+from .dummy import DummyEmbedder
 
-__all__ = ["Embedder", "EMBEDDERS", "DEFAULT_EMBEDDER", "get_embedder"]
+__all__ = ["Embedder", "DummyEmbedder", "EMBEDDERS", "DEFAULT_EMBEDDER", "get_embedder"]
 
 
 def _clap(**kwargs):
@@ -22,10 +25,9 @@ def _clap(**kwargs):
 
 
 def _vggish(**kwargs):
-    raise NotImplementedError(
-        "VGGish is not ported yet: ROADMAP.md Queue 1 item 4 (models/vggish.py and "
-        "its mel convention)"
-    )
+    from .vggish import VGGish
+
+    return VGGish(**kwargs)
 
 
 def _clap_kwargs(music: bool, layer: str | None) -> dict:
@@ -46,6 +48,7 @@ EMBEDDERS = {
     "laion_clap_music_speech_l-2": (_clap, lambda: _clap_kwargs(False, "audio_projection.0")),
     "laion_clap_music_speech_l-1": (_clap, lambda: _clap_kwargs(False, "audio_projection.2")),
     "vggish": (_vggish, dict),
+    "dummy": (DummyEmbedder, dict),
 }
 
 DEFAULT_EMBEDDER = "laion_clap_music"

@@ -39,7 +39,8 @@ def _require_random_weights_optin(name: str, ckpt, allowed: bool) -> None:
     raise RuntimeError(
         f"{name}: checkpoint unavailable"
         + (f" ({ckpt})" if ckpt else " (no ckpt specified)")
-        + ". Pass params= (a numpy dict with HF Clap names), or "
+        + ". Pass params= (the model's numpy parameter dict), provision the checkpoint "
+        "under $AM_TPU_CKPT_DIR or the cache (utils/get_url.py), or "
         "allow_random_weights=True / AM_TPU_ALLOW_RANDOM_WEIGHTS=1 to run with "
         "seeded random weights (benchmarking only — metric values from random "
         "weights are meaningless)."

@@ -29,6 +29,7 @@ merges launch their f32 kernels on the card.
 
 from __future__ import annotations
 
+import os
 from functools import lru_cache
 
 import numpy as np
@@ -100,7 +101,14 @@ def clap_mel(audio, compute_dtype=None, center=True, out_affine=None, out_dtype=
 def _can_tile_mel(n: int) -> bool:
     """The repeat-pad clip tiles 10 s a whole number of times (no zero
     tail) in whole hops, so its mel frames repeat with the clip period
-    (audio_metrics_tpu/models/clap.py:104-114)."""
+    (audio_metrics_tpu/models/clap.py:104-114); never under
+    ``AM_TPU_NO_MEL_TILE`` (read here, at each forward; the JAX package
+    reads it once at import, clap.py:56), which sends every clip through
+    the repeat-padded 10 s clip's centered mel: in bf16 the halo log-mel
+    kernel (#6, or #7 under ``AM_TPU_MEL_V1``) in place of the fused
+    frontend (#3) and the tiled mel."""
+    if os.environ.get("AM_TPU_NO_MEL_TILE"):
+        return False
     return n < MAX_SAMPLES and MAX_SAMPLES % n == 0 and n % _HOP == 0 and n >= _N_FFT
 
 
@@ -216,7 +224,7 @@ class ClapAudio(nn.Module):
         if dt != torch.bfloat16:
             with full_f32():
                 return self._projection_taps(self.encoder(self.f32_tokens(audio)))
-        if fused_frontend_supported(n, SAMPLE_RATE, cfg):
+        if _can_tile_mel(n) and fused_frontend_supported(n, SAMPLE_RATE, cfg):
             tokens = clap_tokens_fused(audio, fr, sr=SAMPLE_RATE, cfg=cfg)
         else:
             kw = dict(compute_dtype=dt, out_affine=(fr.bn_scale, fr.bn_offset),

@@ -175,12 +175,14 @@ def _reflect_pad(x: torch.Tensor, frame_length: int) -> torch.Tensor:
 
 
 def stft_power(audio, frame_length: int, hop_length: int, n_fft: int | None = None,
-               center: bool = True, compute_dtype=None):
-    """Power spectrogram of Hann-windowed frames via a DFT product:
-    (B, n) -> (B, frames, n_fft//2+1) f32.
-    ``center`` reflect-pads by frame_length//2.  ``compute_dtype`` rounds
-    the frame samples and the basis (bf16 on the bf16 forward); the product
-    accumulates in f32 either way."""
+               center: bool = True, compute_dtype=None, power: float = 2.0):
+    """Magnitude (``power`` 1) or power (``power`` 2) spectrogram of
+    Hann-windowed frames via a DFT product: (B, n) -> (B, frames,
+    n_fft//2+1) f32.  ``center`` reflect-pads by frame_length//2.
+    ``compute_dtype`` rounds the frame samples and the basis (bf16 on the
+    bf16 forward); the product accumulates in f32 either way.  Any other
+    power is ``sqrt(max(|X|^2, 1e-30)) ** power`` (audio_metrics_tpu/ops/
+    mel.py:215-218)."""
     x = audio.float()
     if center:
         x = _reflect_pad(x, frame_length)
@@ -191,7 +193,10 @@ def stft_power(audio, frame_length: int, hop_length: int, n_fft: int | None = No
     frames = x.unfold(1, frame_length, hop_length)  # (B, frames, frame_length) view
     acc = torch.matmul(frames.to(dt).float(), basis.to(dt).float())
     re, im = acc[..., :n_bins], acc[..., n_bins:]
-    return re * re + im * im
+    sq = re * re + im * im
+    if power == 2.0:
+        return sq
+    return torch.sqrt(torch.clamp(sq, min=1e-30)) ** power
 
 
 def _log(mel, log_mode: str, log_offset: float):
@@ -436,19 +441,22 @@ def log_mel_spectrogram(audio, sampling_rate: int, frame_length: int, hop_length
                         mel_norm: str | None = "slaney", mel_scale: str = "slaney",
                         triangle_domain: str = "hz", zero_dc: bool = False,
                         log_mode: str = "db", log_offset: float = 0.01, compute_dtype=None,
-                        out_affine=None, out_dtype=None):
-    """audio (B, n) -> log-mel (B, frames, n_mels): ``log_mode`` "db"
+                        out_affine=None, out_dtype=None, power: float = 2.0):
+    """audio (B, n) -> log-mel (B, frames, n_mels) of the ``power``
+    spectrogram (2.0, CLAP; 1.0, the magnitude, VGGish): ``log_mode`` "db"
     (10*log10(max(mel, 1e-10)), the CLAP convention) or "natural"
     (log(mel + log_offset), VGGish).  ``out_affine`` (scale, offset) is a
     per-bin affine applied to the log-mel (the bf16 CLAP forward folds
     BatchNorm here); ``out_dtype`` the output dtype (default f32).  bf16
-    compute goes to the halo log-mel wrapper, or to ``log_mel_v1`` when
-    ``AM_TPU_MEL_V1`` is set (read here, at call time): a CUDA tensor
-    launches the kernel, a CPU tensor takes its plain version."""
+    compute at ``power`` 2.0 goes to the halo log-mel wrapper, or to
+    ``log_mel_v1`` when ``AM_TPU_MEL_V1`` is set (read here, at call
+    time): a CUDA tensor launches the kernel, a CPU tensor takes its plain
+    version.  Any other power runs the products, as the JAX dispatch
+    (:625-631) sends only power 2.0 to a kernel."""
     fb_args = ((n_fft or frame_length) // 2 + 1, n_mels, float(fmin), float(fmax),
                int(sampling_rate), mel_norm, mel_scale, triangle_domain, zero_dc)
     fb = mel_filter_bank(*fb_args).astype(np.float32)
-    if compute_dtype == torch.bfloat16:
+    if compute_dtype == torch.bfloat16 and power == 2.0:
         fn = log_mel_v1 if os.environ.get("AM_TPU_MEL_V1") else log_mel_halo
         return fn(
             audio, frame_length=frame_length, hop_length=hop_length,
@@ -456,7 +464,7 @@ def log_mel_spectrogram(audio, sampling_rate: int, frame_length: int, hop_length
             log_offset=log_offset, out_affine=out_affine, out_dtype=out_dtype,
         )
     spec = stft_power(audio, frame_length, hop_length, n_fft=n_fft, center=center,
-                      compute_dtype=compute_dtype)
+                      compute_dtype=compute_dtype, power=power)
     mel = torch.matmul(spec, device_table(mel_filter_bank, fb_args, spec.device))
     if log_mode == "db":
         lm = 10.0 * torch.log10(torch.clamp(mel, min=1e-10))

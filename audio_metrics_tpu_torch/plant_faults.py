@@ -4,7 +4,8 @@
 
 Each fault is one textual replacement in one source file (``FAULTS``); a
 replacement that does not match exactly once is an error, so a fault can
-never be silently absent.  For each named fault (all by default) the
+never be silently absent.  For each named fault (by default all but
+``CPU_FAULTS``, which the CPU tests plant and catch) the
 checkout is copied, without its kernel build, ``.git`` and caches,
 into ``kernels/build/faults/<NAME>`` (git-ignored), the fault is planted
 there, and ``python3 chip_smoke.py`` runs in the copy under a time limit
@@ -95,7 +96,21 @@ FAULTS = {
     "I1": (f"{CSRC}/gemm_sm90.cuh", "__fmul_rn(a[i], __fmul_rn(rs, s[i]))",
            "__fmul_rn(a[i], s[i])",
            "the int8 MLP's fc1 epilogue drops the row scale sx (both dtypes)"),
+    "V1": ("audio_metrics_tpu_torch/models/vggish.py",
+           "x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)", "x = x.reshape(x.shape[0], -1)",
+           "VGGish flattens its last feature map NCHW, not NHWC as torchvggish"),
+    "H1": ("audio_metrics_tpu_torch/parallel/pipeline.py",
+           "hop_len = win_len if hop_dur is None else window_length(in_sr, hop_dur)",
+           "hop_len = win_len", "the pipeline ignores hop_dur"),
+    "P2": ("audio_metrics_tpu_torch/audio_metrics.py",
+           '        snapshot["stem_projection"] = copy.deepcopy(self.stem_projection)\n', "",
+           "precompile leaves the projection refitted on its synthetic audio"),
 }
+# faults in Python code that the CPU tests run: tests/test_torch_faults.py
+# plants each in a module loaded beside the real one and runs the first
+# check of it there; the smoke's phases 12-13 would catch them too, after
+# every kernel phase, so they run here only when named
+CPU_FAULTS = ("V1", "H1", "P2")
 SKIP = ("build", ".git", "__pycache__", ".pytest_cache")
 
 
@@ -113,7 +128,7 @@ def plant(name: str, dest: Path) -> None:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("names", nargs="*", default=list(FAULTS))
+    ap.add_argument("names", nargs="*", default=[n for n in FAULTS if n not in CPU_FAULTS])
     ap.add_argument("--timeout", type=int, default=420)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():

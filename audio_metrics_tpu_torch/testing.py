@@ -5,7 +5,8 @@
   the profile's evaluates, made on the device from a seed;
 - ``card_line``: the card's name and power limit from ``nvidia-smi``;
 - ``stats_mismatches``: the near-tie rule for two results of the PRDC
-  reductions;
+  reductions; ``prdc_mismatches`` applies it to two computations' reference
+  and candidate embeddings (the port's and the JAX package's);
 - ``near_duplicate_rows``: embeddings whose k-NN radii are the small
   distances of near-duplicates, where the squared-distance formula cancels;
 - ``laion_state_dict``: a parameter dict written back under a LAION CLAP
@@ -21,8 +22,8 @@ import subprocess
 import numpy as np
 import torch
 
-__all__ = ["card_line", "laion_state_dict", "near_duplicate_rows", "seeded_clips",
-           "stats_mismatches", "tf32x3_matmul"]
+__all__ = ["card_line", "laion_state_dict", "near_duplicate_rows", "prdc_mismatches",
+           "seeded_clips", "stats_mismatches", "tf32x3_matmul"]
 
 
 def card_line() -> str:
@@ -88,6 +89,22 @@ def stats_mismatches(ref, cand, got, want, got_radii, want_radii=None, rel: floa
     for i in cov_rows:
         bad += ties((cand - ref[i]).norm(dim=1).min(), rrs, i) < 1
     return n, bad
+
+
+def prdc_mismatches(ref_a, cand_a, ref_b, cand_b, rel: float = 1e-5):
+    """``stats_mismatches`` of the PRDC reductions of two computations of
+    the same sets, ``(ref_a, cand_a)`` and ``(ref_b, cand_b)`` (f32 tensors
+    or arrays, rows that agree to rounding), each with its own k-NN radii
+    at ``AudioMetrics``' k = min(10, n_ref, n_cand), all through the plain
+    versions.  Returns ``(n_differing, n_unexplained)``."""
+    from .ops.distance import knn_radii_plain, pairwise_stats_plain
+
+    sets = [tuple(torch.as_tensor(np.asarray(x, np.float32)) for x in pair)
+            for pair in ((ref_a, cand_a), (ref_b, cand_b))]
+    k = max(1, min(10, len(ref_a), len(cand_a)))
+    radii = [(knn_radii_plain(r, k), knn_radii_plain(c, k)) for r, c in sets]
+    stats = [pairwise_stats_plain(r, c, *rad) for (r, c), rad in zip(sets, radii)]
+    return stats_mismatches(*sets[0], stats[0], stats[1], radii[0], radii[1], rel=rel)
 
 
 def near_duplicate_rows(n: int, d: int, seed: int, group: int = 8, noise: float = 1e-2,

@@ -75,7 +75,33 @@ Phases, one status line each:
      ``AM_TPU_ATTN_V1=1`` (the f32 v1 half at stages 0-1, the XLA attention
      at 2-3), each as phase 10: launch counts (f32 kernels only), finite
      metrics, FAD of a set against itself, embeddings against the f32 plain
-     chain, clips/s.
+     chain, clips/s;
+ 12. VGGish (bench.py's ``main_vggish`` without its APA mix): seeded
+     torchvggish-named weights written as ``vggish-10086976.pth`` in a
+     temporary directory that ``AM_TPU_CKPT_DIR`` names around this phase;
+     bf16 ``VGGish`` over 2048 + 2048 5 s clips at 16 kHz, batch 512,
+     FAD+KD+PRDC: launch counts (#4 and #5 only), finite metrics, FAD of a
+     set against itself, PRDC through the kernels against the plain
+     versions, clips/s of three warm evaluates (median and spread),
+     ``timings``, the log-mel's and the conv stack's times on one batch;
+     then ``vggish`` by name (f32) on 256 + 256 of the clips, its
+     embeddings against the bf16 ones (``VGGISH_BF16_TOL``);
+ 13. the stems options on HTSAT-base bf16 with phase 4's weights:
+     ``hop_dur=2.5`` on 128 + 128 10 s clips (3 windows a clip, FAD of a
+     set against itself, the windows' embeddings against the same slices
+     embedded directly); ``input_sr=44100`` on 128 + 128 5 s clips (the
+     resampler against ``scipy.signal.resample_poly`` at atol 2e-6 and its
+     time on 64 windows, finite metrics, clips/s); ``n_pca=64`` on 256 +
+     256 clips (finite, FAD of a set against itself); ``precompile()`` on
+     that instance (its references and projection bitwise as before, the
+     next evaluate equal to a fresh instance's); ``AM_TPU_NO_MEL_TILE=1``
+     (set around it only) on 128 + 128 5 s clips: one #6 a forward and no
+     #3, embeddings against the default path under ``CONFIG_TOL``;
+ 14. the OOM retry: under ``torch.cuda.set_per_process_memory_fraction``
+     (restored in a ``finally``), ``AudioMetrics`` at batch 1024 on 1024 +
+     1024 5 s clips halves its batch until it fits, logging the warning
+     each time; its result against a run at the batch that fit, under
+     phase 4's end-to-end bounds.
 Phase 3 runs each kernel redesigned for Hopper on the wgmma core (the
 whole Swin block at every stage and shift, its v3, v1 and v2 attention
 halves and fused MLP, the three patch merges, the fused frontend, the two
@@ -114,6 +140,7 @@ ok line.  Any failure exits non-zero and prints no ok line.  Imports no JAX.
 from __future__ import annotations
 
 import json
+import logging
 import os
 import re
 import shutil
@@ -132,6 +159,10 @@ N_CLIPS_10S = 128
 N_CLIPS_SPLIT = 512  # phase 6
 N_CLIPS_V1 = 256     # phase 7
 N_CLIPS_F32 = 256    # phases 10, 11
+VGGISH_BATCH = 512   # phase 12, bench.py's main_vggish cap
+N_CLIPS_VGGISH_F32 = 256  # phase 12 (b)
+N_CLIPS_PCA = 256    # phase 13, n_pca and precompile
+OOM_BATCH, OOM_FIT = 1024, 128  # phase 14: the batch asked for, the one the limit is set by
 CLIP_S = 5
 SR = 48000
 BATCH = 64       # e2e batch size
@@ -213,7 +244,12 @@ F32_E2E_TOL = (1e-6, 6e-7)
 # default, the v1 log-mel against the halo one; (1 - min cosine, max abs),
 # ~10x the readings (PERF.md; the two log-mels gave equal embeddings, so
 # theirs is the kernel-vs-plain scale).
-CONFIG_TOL = {"split": (5e-5, 5e-3), "attn_v1": (5e-5, 5e-3), "mel_v1": (2e-6, 1e-3)}
+CONFIG_TOL = {"split": (5e-5, 5e-3), "attn_v1": (5e-5, 5e-3), "mel_v1": (2e-6, 1e-3),
+              "no_mel_tile": (5e-5, 5e-3)}
+# phase 12 (b): VGGish f32 against bf16 embeddings of the same clips (not
+# unit rows: norms ~45); the CPU reading of the same arithmetic on 32 of
+# these clips, 1.23e-5 and 0.064, times ~10
+VGGISH_BF16_TOL = (2e-4, 0.6)
 # kernels that must repeat bitwise on the same inputs: those on the wgmma
 # GEMM cores (gemm_sm90.cuh, bf16 and int8; gemm_tf32x3_sm90.cuh, f32 as
 # three TF32 products), which have no atomics but the int8 MLP's, an
@@ -1155,10 +1191,10 @@ def plain_path(clap, mel_plain=None):
     return PlainPath()
 
 
-def phase_e2e(card: str):
-    from audio_metrics_tpu_torch import AudioMetrics
-    from audio_metrics_tpu_torch.models.clap import LaionCLAP
-    from audio_metrics_tpu_torch.models.htsat import HTSAT_BASE
+def check_prdc_paths(am, candidate, what: str) -> None:
+    """PRDC through the kernels vs through the plain versions, on the same
+    stored embeddings (the candidate's embedded once more): radii under
+    RADII_TOL, the reductions equal up to near-ties."""
     from audio_metrics_tpu_torch.ops.distance import (
         knn_radii,
         knn_radii_plain,
@@ -1166,6 +1202,29 @@ def phase_e2e(card: str):
         pairwise_stats_plain,
     )
     from audio_metrics_tpu_torch.testing import stats_mismatches
+
+    ref_e = am.stem_reference.embeddings
+    cand_e = am._run_pipeline(candidate).embeddings
+    k = max(1, min(10, len(ref_e), len(cand_e)))
+    rr_k, cr_k = am.stem_reference.radii[f"radii_{k}"], knn_radii(cand_e, k)
+    rr_p, cr_p = knn_radii_plain(ref_e, k), knn_radii_plain(cand_e, k)
+    for name, got, want in (("reference", rr_k, rr_p), ("candidate", cr_k, cr_p)):
+        check_radii(f"of the {what}'s {name} embeddings", got, want)
+    st_k = pairwise_stats(ref_e, cand_e, rr_k, cr_k)
+    st_p = pairwise_stats_plain(ref_e, cand_e, rr_p, cr_p)
+    n_diff, n_bad = stats_mismatches(ref_e, cand_e, st_k, st_p, (rr_k, cr_k), (rr_p, cr_p),
+                                     rel=NEAR_TIE)
+    v_k, v_p = prdc_values(st_k, rr_k, k), prdc_values(st_p, rr_p, k)
+    log(f"  PRDC on the stored embeddings: kernels {v_k}, plain {v_p}; {n_diff} differing "
+        f"elements, {n_diff - n_bad} near-ties, {n_bad} not {'ok' if not n_bad else 'FAIL'}")
+    if n_bad:
+        raise AssertionError(f"{what} PRDC through the kernels disagrees with the plain one")
+
+
+def phase_e2e(card: str):
+    from audio_metrics_tpu_torch import AudioMetrics
+    from audio_metrics_tpu_torch.models.clap import LaionCLAP
+    from audio_metrics_tpu_torch.models.htsat import HTSAT_BASE
 
     metrics = ["fad", "kd", "prdc"]
     clap = LaionCLAP(cfg=HTSAT_BASE, compute_dtype="bfloat16", allow_random_weights=True,
@@ -1202,24 +1261,7 @@ def phase_e2e(card: str):
     if again != result:
         log(f"  note: repeat evaluate {again}")
 
-    # PRDC through the kernels vs through the plain versions, on the same
-    # stored embeddings (the candidate's embedded once more)
-    k = max(1, min(10, N_CLIPS))
-    ref_e = am.stem_reference.embeddings
-    cand_e = am._run_pipeline(candidate).embeddings
-    rr_k, cr_k = am.stem_reference.radii[f"radii_{k}"], knn_radii(cand_e, k)
-    rr_p, cr_p = knn_radii_plain(ref_e, k), knn_radii_plain(cand_e, k)
-    for name, got, want in (("reference", rr_k, rr_p), ("candidate", cr_k, cr_p)):
-        check_radii(f"of the main path's {name} embeddings", got, want)
-    st_k = pairwise_stats(ref_e, cand_e, rr_k, cr_k)
-    st_p = pairwise_stats_plain(ref_e, cand_e, rr_p, cr_p)
-    n_diff, n_bad = stats_mismatches(ref_e, cand_e, st_k, st_p, (rr_k, cr_k), (rr_p, cr_p),
-                                     rel=NEAR_TIE)
-    v_k, v_p = prdc_values(st_k, rr_k, k), prdc_values(st_p, rr_p, k)
-    log(f"  PRDC on the stored embeddings: kernels {v_k}, plain {v_p}; {n_diff} differing "
-        f"elements, {n_diff - n_bad} near-ties, {n_bad} not {'ok' if not n_bad else 'FAIL'}")
-    if n_bad:
-        raise AssertionError("main-path PRDC through the kernels disagrees with the plain one")
+    check_prdc_paths(am, candidate, "main path")
 
     self_fad = am.evaluate(reference)["fad"]
     log(f"  FAD of the reference against itself: {self_fad:.3g} (tol |fad| <= 1e-4)")
@@ -1665,6 +1707,335 @@ def phase_f32(card: str, params: dict, switches: dict, per_forward: dict, agains
     return launches, e_k
 
 
+def warm_evaluates(am, candidate, n_clips: int, runs: int = 3) -> str:
+    """``runs`` warm evaluates, each timed up to ``torch.cuda.synchronize``:
+    clips/s median and spread (min..max), as a printable string."""
+    rates = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        am.evaluate(candidate)
+        torch.cuda.synchronize()
+        rates.append(n_clips / (time.perf_counter() - t0))
+    return (f"{float(np.median(rates)):.2f} clips/s warm, median of {runs} "
+            f"({min(rates):.2f}..{max(rates):.2f})")
+
+
+def check_self_fad(am, reference) -> None:
+    self_fad = am.evaluate(reference)["fad"]
+    log(f"  FAD of the reference against itself: {self_fad:.3g} (tol |fad| <= 1e-4)")
+    if not abs(self_fad) <= 1e-4:
+        raise AssertionError("FAD(reference, reference) is not ~0")
+
+
+def embeddings_close(what: str, got, want, tol) -> None:
+    """(1 - min cosine, max abs) of two embeddings of the same clips, under
+    ``tol``."""
+    cos = torch.nn.functional.cosine_similarity(got, want, dim=1).min().item()
+    emax = (got - want).abs().max().item()
+    ok = 1 - cos <= tol[0] and emax <= tol[1]
+    log(f"  {what}: 1 - min cosine {1 - cos:.3g} (tol {tol[0]}), max abs {emax:.4g} (tol "
+        f"{tol[1]}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{what} disagree")
+
+
+def phase_vggish(card: str) -> None:
+    """VGGish (bench.py's main_vggish without its APA mix) on the card:
+    seeded torchvggish-named weights written as the URL's file in a
+    temporary directory that ``AM_TPU_CKPT_DIR`` names around this phase.
+    (a) bf16, N_CLIPS + N_CLIPS 5 s clips at 16 kHz, batch VGGISH_BATCH,
+    FAD+KD+PRDC: launch counts (#4 and #5 only), finite metrics, FAD of a
+    set against itself, PRDC through the kernels against the plain
+    versions, clips/s of three warm evaluates, ``timings``, and the times of
+    the log-mel and of the conv stack alone on one batch; (b) ``vggish`` by
+    name (f32) on N_CLIPS_VGGISH_F32 + N_CLIPS_VGGISH_F32 of the clips: its
+    embeddings against (a)'s bf16 ones, bounded."""
+    from audio_metrics_tpu_torch import AudioMetrics
+    from audio_metrics_tpu_torch.models import get_embedder
+    from audio_metrics_tpu_torch.models.vggish import (
+        VGGISH_CHECKPOINT_URL,
+        VGGish,
+        init_params,
+        vggish_log_mel_patches,
+    )
+    from audio_metrics_tpu_torch.testing import seeded_clips
+
+    sr = 16000
+    params = init_params(seed=0)
+    rng = np.random.default_rng(12)
+    for key in params:  # init_params zeroes the biases
+        if key.endswith(".bias"):
+            params[key] = (0.1 * rng.standard_normal(params[key].shape)).astype(np.float32)
+    name = VGGISH_CHECKPOINT_URL.rsplit("/", 1)[-1]
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        torch.save({k: torch.from_numpy(v) for k, v in params.items()},
+                   os.path.join(ckpt_dir, name))
+        with environ(AM_TPU_CKPT_DIR=ckpt_dir):
+            bf16 = VGGish(compute_dtype="bfloat16", device="cuda")
+            f32 = get_embedder("vggish", device="cuda")
+    if not (isinstance(f32, VGGish) and f32.compute_dtype == torch.float32
+            and np.array_equal(f32.features_0_bias.cpu().numpy(), params["features.0.bias"])):
+        raise AssertionError("vggish by name is not f32 VGGish with the file's weights")
+    reference, candidate = seeded_clips(N_CLIPS, CLIP_S * sr, sr, seed=12)
+    log(f"  VGGish from {name}: {N_CLIPS} + {N_CLIPS} clips of {CLIP_S} s at {sr} Hz on the "
+        f"card, batch {VGGISH_BATCH}")
+    metrics = ["fad", "kd", "prdc"]
+    am = AudioMetrics(metrics=metrics, embedder=bf16, win_dur=float(CLIP_S), input_sr=sr,
+                      batch_size=VGGISH_BATCH, device="cuda")
+    torch.cuda.empty_cache()
+    set_counts_to_zero()
+    am.add_reference(reference)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = am.evaluate(candidate)
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    log(f"  result (bf16) {result}")
+    check_counts("add_reference + first evaluate (bf16 VGGish: no CLAP kernel)", read_counts(),
+                 expected(0))
+    if not all(np.isfinite(v) for v in result.values()):
+        raise AssertionError("non-finite metric")
+    log(f"  evaluate of {N_CLIPS} clips: {warm_evaluates(am, candidate, N_CLIPS)}, "
+        f"{N_CLIPS / cold:.2f} clips/s first [{card}; real_weights: false]")
+    log(f"  timings of the last evaluate (s): {am.timings}")
+    check_prdc_paths(am, candidate, "VGGish path")
+    check_self_fad(am, reference)
+    batch = reference[:VGGISH_BATCH]
+    patches = vggish_log_mel_patches(batch).reshape(-1, 96, 64)
+    with torch.no_grad():
+        mel_ms = cuda_ms(lambda: vggish_log_mel_patches(batch))
+        net_ms = cuda_ms(lambda: bf16(patches))
+        net32_ms = cuda_ms(lambda: f32(patches))
+    log(f"  one batch of {VGGISH_BATCH} clips ({patches.shape[0]} patches): log-mel "
+        f"{mel_ms:.3f} ms (f32 products, library), conv stack + FCs bf16 {net_ms:.3f} ms, "
+        f"f32 {net32_ms:.3f} ms (F.conv2d and products in full f32, library) [{card}]")
+
+    n = N_CLIPS_VGGISH_F32
+    e16 = am.stem_reference.embeddings[:n]
+    am32 = AudioMetrics(metrics=metrics, embedder=f32, win_dur=float(CLIP_S), input_sr=sr,
+                        batch_size=VGGISH_BATCH, device="cuda")
+    am32.add_reference(reference[:n])
+    result32 = am32.evaluate(candidate[:n])
+    log(f"  f32 by name on {n} + {n} clips: {result32}")
+    if not all(np.isfinite(v) for v in result32.values()):
+        raise AssertionError("non-finite metric")
+    embeddings_close("VGGish f32 embeddings against bf16 on the same clips",
+                     am32.stem_reference.embeddings, e16, VGGISH_BF16_TOL)
+
+
+def phase_stems_options(card: str) -> None:
+    """The stems options on CLAP HTSAT-base bf16 with phase 4's weights:
+    ``hop_dur``, ``input_sr`` 44.1 kHz, ``n_pca``, ``precompile`` and
+    ``AM_TPU_NO_MEL_TILE`` (set around its sub-phase only)."""
+    from audio_metrics_tpu_torch import AudioMetrics
+    from audio_metrics_tpu_torch.models.clap import LaionCLAP
+    from audio_metrics_tpu_torch.models.htsat import HTSAT_BASE
+    from audio_metrics_tpu_torch.ops.resample import resample_batch
+    from audio_metrics_tpu_torch.testing import seeded_clips
+
+    metrics = ["fad", "kd", "prdc"]
+    clap = LaionCLAP(cfg=HTSAT_BASE, compute_dtype="bfloat16", allow_random_weights=True,
+                     device="cuda")
+    per_forward = dict(swin_block=18, patch_merge=3, clap_frontend=1)
+
+    def metrics_for(**kw):
+        return AudioMetrics(metrics=metrics, embedder=clap, batch_size=BATCH, device="cuda",
+                            **kw)
+
+    log("  hop_dur=2.5 s under win_dur=5 s on 10 s clips")
+    reference, candidate = clips(N_CLIPS_10S, 10, seed=13)
+    am = metrics_for(win_dur=5.0, hop_dur=2.5, input_sr=SR)
+    set_counts_to_zero()
+    am.add_reference(reference)
+    result = am.evaluate(candidate)
+    n_win = am.stem_reference.n
+    log(f"  result {result}; {n_win} reference windows (3 a clip expected)")
+    if n_win != 3 * N_CLIPS_10S or not all(np.isfinite(v) for v in result.values()):
+        raise AssertionError("hop_dur: wrong window count or non-finite metric")
+    check_counts(f"add_reference + first evaluate, {2 * -(-n_win // BATCH)} forward batches",
+                 read_counts(), expected(2 * -(-n_win // BATCH), **per_forward))
+    check_self_fad(am, reference)
+    win, hop = 5 * SR, SR * 5 // 2
+    slices = torch.stack([reference[:, i * hop : i * hop + win] for i in range(3)], dim=1)
+    direct = torch.cat([clap.embed(b) for b in slices.reshape(-1, win).split(BATCH)])
+    embeddings_close("windows' embeddings against the same slices embedded directly",
+                     am.stem_reference.embeddings, direct,
+                     (E2E_TOL["1-cos"], E2E_TOL["max_abs"]))
+
+    log("  input_sr=44100 on 5 s clips (resampled on the card to 48 kHz)")
+    sr_in = 44100
+    reference, candidate = seeded_clips(N_CLIPS_10S, CLIP_S * sr_in, sr_in, seed=14)
+    rows = reference[:4]
+    got = resample_batch(rows, sr_in, SR).cpu().numpy()
+    import scipy.signal as ss
+
+    want = ss.resample_poly(rows.double().cpu().numpy(), 160, 147, axis=1)
+    err = float(np.abs(got - want).max())
+    log(f"  resampled windows against scipy.signal.resample_poly: max abs {err:.3g} (tol 2e-6) "
+        f"{'ok' if err <= 2e-6 else 'FAIL'}")
+    if not err <= 2e-6:
+        raise AssertionError("the resampler disagrees with scipy")
+    batch = reference[:BATCH]
+    rs_ms = cuda_ms(lambda: resample_batch(batch, sr_in, SR), iters=20)
+    n_bytes = 4 * batch.numel() * (1 + SR / sr_in)
+    log(f"  resample_batch of {BATCH} 5 s windows 44.1 -> 48 kHz: {rs_ms:.4f} ms (conv1d, "
+        f"full f32, library; bytes bound {1e3 * n_bytes / PEAK['bytes']:.4f} ms) [{card}]")
+    am = metrics_for(win_dur=float(CLIP_S), input_sr=sr_in)
+    set_counts_to_zero()
+    am.add_reference(reference)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = am.evaluate(candidate)
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    log(f"  result {result}")
+    if not all(np.isfinite(v) for v in result.values()):
+        raise AssertionError("non-finite metric")
+    check_counts(f"add_reference + first evaluate, {2 * -(-N_CLIPS_10S // BATCH)} forward "
+                 "batches", read_counts(), expected(2 * -(-N_CLIPS_10S // BATCH), **per_forward))
+    log(f"  evaluate of {N_CLIPS_10S} clips at 44.1 kHz: "
+        f"{warm_evaluates(am, candidate, N_CLIPS_10S)}, {N_CLIPS_10S / cold:.2f} clips/s first "
+        f"[{card}; real_weights: false]; timings {am.timings}")
+
+    log(f"  n_pca=64 on {N_CLIPS_PCA} + {N_CLIPS_PCA} 5 s clips")
+    reference, candidate = clips(N_CLIPS_PCA, CLIP_S, seed=15)
+    am = metrics_for(win_dur=float(CLIP_S), input_sr=SR, n_pca=64)
+    am.add_reference(reference)
+    result = am.evaluate(candidate)
+    log(f"  result {result}; timings {am.timings}")
+    if not all(np.isfinite(v) for v in result.values()):
+        raise AssertionError("non-finite metric")
+    check_self_fad(am, reference)
+
+    log("  precompile() on the n_pca instance, which holds a reference and a fitted projection")
+    ref_data, ref_pca = am.stem_reference, am.stem_reference_pca
+    before = (ref_data.embeddings.clone(), *(a.copy() for a in ref_data.stats()[:2]),
+              {k: v.clone() for k, v in ref_data.radii.items()}, ref_pca.embeddings.clone(),
+              {k: np.copy(v) for k, v in am.stem_projection.__getstate__().items()})
+    t0 = time.perf_counter()
+    am.precompile()
+    torch.cuda.synchronize()
+    log(f"  precompile(n_items=256): {time.perf_counter() - t0:.3f} s")
+    after = (am.stem_reference.embeddings, *am.stem_reference.stats()[:2],
+             am.stem_reference.radii, am.stem_reference_pca.embeddings,
+             am.stem_projection.__getstate__())
+    same = (am.stem_reference is ref_data and am.stem_reference_pca is ref_pca
+            and torch.equal(before[0], after[0]) and np.array_equal(before[1], after[1])
+            and np.array_equal(before[2], after[2]) and before[3].keys() == after[3].keys()
+            and all(torch.equal(before[3][k], after[3][k]) for k in before[3])
+            and torch.equal(before[4], after[4]) and before[5].keys() == after[5].keys()
+            and all(np.array_equal(before[5][k], after[5][k]) for k in before[5]))
+    log(f"  references and projection after precompile bitwise as before: {same}")
+    if not same:
+        raise AssertionError("precompile changed the instance's state")
+    got = am.evaluate(candidate)
+    fresh = metrics_for(win_dur=float(CLIP_S), input_sr=SR, n_pca=64)
+    fresh.add_reference(reference)
+    want = fresh.evaluate(candidate)
+    log(f"  next evaluate {got}; a fresh instance's {want}")
+    if got != want:
+        raise AssertionError("the evaluate after precompile differs from a fresh instance's")
+
+    log("  AM_TPU_NO_MEL_TILE=1 on 5 s clips: the halo log-mel (#6), no fused frontend (#3)")
+    reference, candidate = clips(N_CLIPS_10S, CLIP_S, seed=16)
+    base = metrics_for(win_dur=float(CLIP_S), input_sr=SR)
+    base.add_reference(reference)
+    with environ(AM_TPU_NO_MEL_TILE="1"):
+        am = metrics_for(win_dur=float(CLIP_S), input_sr=SR)
+        set_counts_to_zero()
+        am.add_reference(reference)
+        result = am.evaluate(candidate)
+        forwards = 2 * -(-N_CLIPS_10S // BATCH)
+        check_counts(f"add_reference + first evaluate, {forwards} forward batches",
+                     read_counts(), expected(forwards, swin_block=18, patch_merge=3, log_mel=1))
+        log(f"  result {result}; {warm_evaluates(am, candidate, N_CLIPS_10S)} "
+            f"[{card}; real_weights: false]")
+    if not all(np.isfinite(v) for v in result.values()):
+        raise AssertionError("non-finite metric")
+    embeddings_close("embeddings against the default path on the same clips",
+                     am.stem_reference.embeddings, base.stem_reference.embeddings,
+                     CONFIG_TOL["no_mel_tile"])
+
+
+class _Records(logging.Handler):
+    def __init__(self):
+        super().__init__()
+        self.messages = []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+
+def phase_oom_retry(card: str) -> None:
+    """The OOM retry on the card: with the allocator held by
+    ``torch.cuda.set_per_process_memory_fraction`` to the allocations so far
+    (the clips among them; reserved memory, which the fraction counts) and
+    1.4 times the peak of one forward of OOM_FIT clips, an ``AudioMetrics``
+    at batch OOM_BATCH runs out of memory and halves its batch until it fits (OOM_FIT or above), logging the warning
+    each time, in ``add_reference`` and again in ``evaluate``; its result is
+    held against a run at the batch that fit under phase 4's end-to-end
+    bounds.  The fraction is restored in a ``finally``."""
+    from audio_metrics_tpu_torch import AudioMetrics
+    from audio_metrics_tpu_torch.models.clap import LaionCLAP
+    from audio_metrics_tpu_torch.models.htsat import HTSAT_BASE
+
+    metrics = ["fad", "kd", "prdc"]
+    clap = LaionCLAP(cfg=HTSAT_BASE, compute_dtype="bfloat16", allow_random_weights=True,
+                     device="cuda")
+    # the clips in segments of their own (not in the free parts of segments
+    # that earlier phases left cached, which would stay reserved around them)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reference, candidate = clips(OOM_BATCH, CLIP_S, seed=17)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        clap.embed(reference[:OOM_FIT])
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_reserved()  # what the fraction counts
+    total = torch.cuda.get_device_properties(0).total_memory
+    limit = held + 1.4 * peak
+    log(f"  one forward of {OOM_FIT} clips peaks at {peak / 2**30:.3f} GiB over "
+        f"{base / 2**30:.3f} GiB allocated ({held / 2**30:.3f} GiB reserved); allocator limit "
+        f"{limit / 2**30:.3f} GiB of {total / 2**30:.1f}")
+    handler = _Records()
+    pipe_log = logging.getLogger("audio_metrics_tpu_torch.parallel.pipeline")
+    pipe_log.addHandler(handler)
+    torch.cuda.set_per_process_memory_fraction(limit / total)
+    try:
+        am = AudioMetrics(metrics=metrics, embedder=clap, win_dur=float(CLIP_S), input_sr=SR,
+                          batch_size=OOM_BATCH, device="cuda")
+        am.add_reference(reference)
+        result = am.evaluate(candidate)
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0)
+        pipe_log.removeHandler(handler)
+    torch.cuda.empty_cache()
+    prefix = "fused embed loop exhausted device memory; retrying at batch_size="
+    steps = len(handler.messages) // 2
+    fit = OOM_BATCH >> steps
+    want_msgs = [f"{prefix}{OOM_BATCH >> i}" for i in range(1, steps + 1)]
+    log(f"  warnings: {handler.messages}")
+    if not (steps and fit >= OOM_FIT and handler.messages == 2 * want_msgs):
+        raise AssertionError(f"the retry did not step {OOM_BATCH} down by halves to a batch "
+                             f">= {OOM_FIT}, in add_reference and in evaluate")
+    direct = AudioMetrics(metrics=metrics, embedder=clap, win_dur=float(CLIP_S), input_sr=SR,
+                          batch_size=fit, device="cuda")
+    direct.add_reference(reference)
+    want = direct.evaluate(candidate)
+    log(f"  result after the retries (batch {fit}) {result}; at batch {fit} directly {want}")
+    for key in ("fad", "kernel_distance_mean", "kernel_distance_std"):
+        rel = abs(result[key] - want[key]) / max(abs(want[key]), 1e-12)
+        log(f"  {key}: rel {rel:.3g} (tol {E2E_TOL[key]})")
+        if not rel <= E2E_TOL[key]:
+            raise AssertionError(f"{key} after the OOM retry disagrees with the direct run")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run", file=sys.stderr)
@@ -1729,6 +2100,14 @@ def main() -> int:
     launches_v1_f32, _ = phase_f32(
         card, params, {"AM_TPU_ATTN_V1": "1"},
         dict(swin_attn_v1_f32=4, swin_mlp_f32=16, patch_merge_f32=3), against=emb_f32)
+    log("phase 12 VGGish (bf16 fad + kd + prdc, 5 s at 16 kHz; f32 by name from "
+        "AM_TPU_CKPT_DIR)")
+    phase_vggish(card)
+    log("phase 13 the stems options on HTSAT-base bf16: hop_dur, input_sr, n_pca, precompile, "
+        "AM_TPU_NO_MEL_TILE")
+    phase_stems_options(card)
+    log("phase 14 the OOM retry (set_per_process_memory_fraction)")
+    phase_oom_retry(card)
 
     # launches: each kernel's count on the path that runs it
     path_of = {"log_mel": launches_10s, "swin_attn_v3": launches_split,

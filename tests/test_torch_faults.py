@@ -27,6 +27,7 @@ import ctypes
 import importlib
 import inspect
 import re
+import types
 
 import numpy as np
 import pytest
@@ -121,11 +122,10 @@ class _Embedder:
 
 @pytest.mark.parametrize("kwargs,match", [
     (dict(), r"metric 'apa'.*item 5.*pass metrics="),
-    (dict(metrics=["fad"], hop_dur=2.5), r"hop_dur.*item 1\)"),
-    (dict(metrics=["fad"], progress=True), r"progress.*item 2\)"),
+    (dict(metrics=["fad", "fad_inf"]), r"'fad_inf'.*fad_inf item 7\)"),
+    (dict(metrics=["kd", "apa"]), r"'apa'.*item 5"),
     (dict(metrics=["fad"], mix_function="L0"), r"mix_function.*item 5\)"),
     (dict(metrics=["fad"], dcn_slices=2), r"dcn_slices.*item 10\)"),
-    (dict(metrics=["fad"], n_pca=16), r"n_pca.*item 6\)"),
     (dict(metrics=["fad"], device_indices=[0]), r"device_indices.*item 10\)"),
 ])
 def test_unported_arguments_raise(kwargs, match):
@@ -144,6 +144,48 @@ def test_planted_fault_occurs_once_in_its_source(name):
     path, text, replacement, _ = FAULTS[name]
     assert text != replacement
     assert (ROOT / path).read_text().count(text) == 1
+
+
+def _planted(name: str):
+    """The module of fault ``name``'s source with the fault planted,
+    loaded beside the real one (its relative imports are the real
+    package's)."""
+    path, text, replacement, _ = FAULTS[name]
+    src = (ROOT / path).read_text()
+    assert src.count(text) == 1
+    modname = path[: -len(".py")].replace("/", ".")
+    mod = types.ModuleType(f"{modname}_{name}")
+    mod.__package__, mod.__file__ = modname.rpartition(".")[0], str(ROOT / path)
+    exec(compile(src.replace(text, replacement), mod.__file__, "exec"), mod.__dict__)
+    return mod
+
+
+def _first_check(name: str):
+    """The first check that runs the code of fault ``name``
+    (``plant_faults.CPU_FAULTS``), as a callable on the planted module."""
+    import test_torch_options as options
+    import test_torch_vggish as vggish
+
+    return {
+        "V1": lambda mod: vggish.check_vggish_f32(mod.VGGish, vggish.seeded_params(),
+                                                  vggish.seeded_patches()),
+        "H1": lambda mod: options.check_hop_windows(mod.embedding_pipeline),
+        "P2": lambda mod: options.check_precompile_restores(mod.AudioMetrics),
+    }[name]
+
+
+@pytest.mark.parametrize("name", ["V1", "H1", "P2"])
+def test_planted_python_fault_fails_its_first_check(name):
+    """V1 (VGGish flattens NCHW) fails the f32 net against the JAX forward,
+    H1 (the pipeline ignores ``hop_dur``) the windows against the JAX
+    package's, P2 (``precompile`` leaves the projection refitted) the state
+    after ``precompile``.  The same checks pass on the real modules (their
+    own tests in tests/test_torch_vggish.py and tests/test_torch_options.py)."""
+    from audio_metrics_tpu_torch.plant_faults import CPU_FAULTS
+
+    assert name in CPU_FAULTS
+    with pytest.raises(AssertionError):
+        _first_check(name)(_planted(name))
 
 
 @pytest.mark.parametrize("tool", ["profile_evaluate", "profile_window_attn", "plant_faults"])

@@ -152,26 +152,17 @@ def test_unported_surface_raises():
     emb = LaionCLAP(params=_params(cfg), cfg=cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="fad_inf"):
         AudioMetrics(metrics=["fad", "fad_inf"], embedder=emb, device="cpu")
-    with pytest.raises(NotImplementedError, match="n_pca"):
-        AudioMetrics(metrics=["fad"], embedder=emb, device="cpu", n_pca=16)
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         AudioMetrics(metrics=["fad"], embedder=emb, device="cpu", device_indices=[0, 1])
-    with pytest.raises(NotImplementedError, match="precompile"):
-        AudioMetrics(metrics=["fad"], embedder=emb, device="cpu").precompile()
     with pytest.raises(NotImplementedError, match="apa"):
         AudioMetrics(metrics=["apa", "fad"], embedder=emb, device="cpu")
-    with pytest.raises(NotImplementedError, match="pair"):
+    with pytest.raises(NotImplementedError, match=r"pair.*item 5\)"):
         AudioMetrics(metrics=["fad"], embedder=emb, device="cpu").add_reference(
             np.zeros((2, 5 * SR, 2), np.float32)
         )
-    am = AudioMetrics(metrics=["fad"], embedder=emb, device="cpu", input_sr=16000)
-    with pytest.raises(NotImplementedError, match="resampling"):
-        am.add_reference(np.zeros((2, 5 * 16000), np.float32))
     am = AudioMetrics(metrics=["fad"], embedder=emb, device="cpu")
-    with pytest.raises(NotImplementedError, match="host-fed"):
+    with pytest.raises(NotImplementedError, match=r"host-fed.*item 8\)"):
         am.add_reference([np.zeros(5 * SR, np.float32)])
-    with pytest.raises(NotImplementedError, match="VGGish"):
-        AudioMetrics(metrics=["fad"], embedder="vggish", device="cpu")
     with pytest.raises(ValueError, match="empty"):
         am.evaluate(_clips(0, 1))
     with pytest.raises(ValueError, match="10 s"):  # CLAP takes at most 10 s windows

@@ -136,7 +136,7 @@ def test_load_state_raises_on_unported_entries(setup, tmp_path):
     jam.mix_reference.add(np.random.default_rng(0).normal(size=(4, 8)).astype(np.float32))
     f = tmp_path / "apa_state.npz"
     jam.save_state(f)
-    with pytest.raises(NotImplementedError, match="APA"):
+    with pytest.raises(NotImplementedError, match=r"APA.*item 5\)"):
         setup["port_am"]().load_state(f)
 
 
@@ -167,3 +167,63 @@ def test_jax_state_with_stale_radii_loads_into_the_port(setup, tmp_path):
     want = fresh.evaluate(setup["cand"])
     for k in KEYS[3:]:
         assert got[k] == want[k], k
+
+
+def _options_pair():
+    """A JAX and a port instance with ``hop_dur`` and ``n_pca``, on the
+    seeded projection embedder of tests/test_torch_options.py, and 4 + 4
+    seeded 1 s clips in 0.5 s windows at a 0.25 s hop (12 windows a set)."""
+    from test_torch_options import JaxProj, Proj, _clips
+
+    kw = dict(metrics=METRICS, n_pca=4, win_dur=0.5, hop_dur=0.25, batch_size=8)
+    return (JaxAudioMetrics(embedder=JaxProj(), device_indices=[0], **kw),
+            AudioMetrics(embedder=Proj(), device="cpu", **kw),
+            _clips(8, 4, 1.0), _clips(9, 4, 1.0, loudest=0.25))
+
+
+def _assert_close(got, want):
+    """The options' slice bounds (tests/test_torch_options.py): FAD and KD
+    rel 1e-3, PRDC equal (12 projected rows a set, far from ties here)."""
+    assert list(got) == KEYS
+    for k in KEYS[:3]:
+        assert got[k] == pytest.approx(want[k], rel=1e-3), k
+    for k in KEYS[3:]:
+        assert got[k] == want[k], k
+
+
+def _projection_state_equal(a, b):
+    sa, sb = a.__getstate__(), b.__getstate__()
+    assert sa.keys() == sb.keys()
+    for k in sa:
+        np.testing.assert_array_equal(sa[k], sb[k], err_msg=k)
+
+
+def test_options_state_round_trips_between_packages(tmp_path):
+    """A JAX state file with ``hop_dur`` and a fitted ``stem_projection``
+    (and the unfitted ``mix_projection`` that the JAX package writes
+    whenever ``n_pca`` is set) loads into the port: ``hop_dur``,
+    ``win_dur``, the projection's fit and the projected reference come
+    back, and the port evaluates to the JAX values.  The port's state file
+    loads into the JAX package the same way."""
+    jam, am, ref, cand = _options_pair()
+    jam.add_reference(jnp.asarray(ref))
+    want = jam.evaluate(jnp.asarray(cand))
+    f = tmp_path / "jax_options.npz"
+    jam.save_state(f)
+    port = _options_pair()[1]
+    port.load_state(f)
+    assert (port.win_dur, port.hop_dur) == (0.5, 0.25)
+    _projection_state_equal(port.stem_projection, jam.stem_projection)
+    assert port.stem_reference_pca.n == port.stem_reference.n == 12
+    _assert_close(port.evaluate(cand), want)
+
+    am.add_reference(ref)
+    got = am.evaluate(cand)
+    _assert_close(got, want)
+    f = tmp_path / "port_options.npz"
+    am.save_state(f)
+    back = _options_pair()[0]
+    back.load_state(f)
+    assert (back.win_dur, back.hop_dur) == (0.5, 0.25)
+    _projection_state_equal(back.stem_projection, am.stem_projection)
+    _assert_close(back.evaluate(jnp.asarray(cand)), got)
