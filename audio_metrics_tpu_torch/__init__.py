@@ -1,7 +1,8 @@
 """audio-metrics-tpu-torch: the PyTorch / CUDA port of audio_metrics_tpu.
 
-Distribution metrics over audio embeddings (FAD, KD and PRDC so far) with
-the LAION-CLAP HTSAT embedder, for NVIDIA Hopper cards.  Hand-written CUDA
+Distribution metrics over audio embeddings (APA over context+stem mixes,
+FAD, KD and PRDC over stems) with the LAION-CLAP HTSAT and VGGish
+embedders, for NVIDIA Hopper cards.  Hand-written CUDA
 kernels carry the hot path (kernels/csrc/); each has a plain PyTorch
 version that CPU tensors run.  This package never imports JAX and changes
 no global mode.

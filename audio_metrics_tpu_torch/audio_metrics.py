@@ -1,15 +1,16 @@
 """Top-level AudioMetrics API of the port.
 
-Counterpart of ``audio_metrics_tpu/audio_metrics.py`` for the metrics the
-port computes: FAD (device Newton-Schulz tail when the candidate covariance
-is full rank, host float64 otherwise), KD (device subset Gram sums) and
-PRDC (device k-NN radii and pairwise sweeps, host float64 means), over
-stems already in memory, with the JAX package's stems options (overlapping
-windows, resampling, the ``n_pca`` projection, ``timings``, ``precompile``)
-and the state files (``save_state`` / ``load_state``) in its ``.npz``
-layout.  Result keys and their order are the JAX package's: ``fad``,
+Counterpart of ``audio_metrics_tpu/audio_metrics.py``: APA over mixes of
+context+stem pairs (the registry mixes of ``ops.mix`` or a user callable),
+FAD (device Newton-Schulz tail when the candidate covariance is full rank,
+host float64 otherwise), KD (device subset Gram sums) and PRDC (device k-NN
+radii and pairwise sweeps, host float64 means) over the stems, for audio
+already in memory, with the JAX package's options (overlapping windows,
+resampling, the ``n_pca`` projections, ``timings``, ``precompile``) and
+the state files (``save_state`` / ``load_state``) in its ``.npz`` layout.
+Result keys and their order are the JAX package's: ``fad``,
 ``kernel_distance_mean``, ``kernel_distance_std``, ``precision``,
-``recall``, ``density``, ``coverage``.
+``recall``, ``density``, ``coverage``, then ``apa``.
 """
 
 from __future__ import annotations
@@ -21,26 +22,24 @@ from pathlib import Path
 import torch
 
 from .data import AudioMetricsData
+from .metrics.apa import apa, apa_compute_d_x_xp
 from .metrics.fad import fad_device_tail, frechet_distance
 from .metrics.kd import kernel_distance
 from .metrics.prdc import prdc
 from .models import get_embedder
+from .ops.mix import DEFAULT_MIX_FUNCTION, MIX_FUNCTIONS
 from .parallel.pipeline import ItemCategory, embedding_pipeline
 from .projection import IncrementalPCA
 from .utils.serialize import load_state_dict, save_state_dict
 
 __all__ = ["AudioMetrics"]
 
-_PORTED = ("fad", "kd", "prdc")
+_PORTED = ("apa", "fad", "kd", "prdc")
 # metrics that need the stored embeddings, not only mean and covariance
 _NEED_EMBEDDINGS = ("kd", "prdc")
-# AudioMetricsData entries of the JAX package's state file; the mix entries
-# belong to APA
+# AudioMetricsData entries of the state file
 _AMD = ("stem_reference", "mix_reference", "mix_anti_reference", "stem_reference_pca",
         "mix_reference_pca", "mix_anti_reference_pca")
-# state entries of APA (ROADMAP.md Queue 1 item 5), which load_state refuses
-_APA_STATE = ("mix_reference", "mix_anti_reference", "mix_reference_pca",
-              "mix_anti_reference_pca", "apa_d_x_xp", "mix_projection")
 
 
 class AudioMetrics:
@@ -48,23 +47,25 @@ class AudioMetrics:
                  mix_function=None, win_dur=5.0, hop_dur=None, input_sr=None, batch_size=32,
                  progress=False, dcn_slices=None, device="cuda"):
         """The JAX package's parameters in its order, then ``device``.
-        ``embedder``: an embedder object, or a registry name built on
-        ``device``.  ``hop_dur`` (seconds): overlapping windows.
+        ``metrics``: any of ``apa``, ``fad``, ``kd``, ``prdc``; APA takes
+        (N, n_samples, 2) context+stem pairs, the others the stems (channel
+        1 of pairs, or (N, n_samples) mono audio).  ``embedder``: an
+        embedder object, or a registry name built on ``device``.
+        ``mix_function``: a name of ``ops.mix.MIX_FUNCTIONS`` (default
+        ``L0``) or a callable ``f(audio[n, 2], sr) -> mono[n]``, run per
+        item on the host.  ``hop_dur`` (seconds): overlapping windows.
         ``input_sr``: the rate of the audio given, resampled on the device
-        when it is not the embedder's.  ``n_pca``: FAD, KD and PRDC on the
+        when it is not the embedder's.  ``n_pca``: every metric on the
         embeddings projected onto ``n_pca`` principal components of the
-        reference (an incremental PCA fitted at the first evaluate after
-        each ``add_reference``).  ``progress`` is accepted and does nothing
-        (``parallel.pipeline.embedding_pipeline`` says where the JAX package
-        shows a bar).
+        reference (incremental PCAs of the stems and of the mixes, each
+        fitted at the first evaluate after an ``add_reference``).
+        ``progress`` is accepted and does nothing (``parallel.pipeline.
+        embedding_pipeline`` says where the JAX package shows a bar).
         What is not ported raises ``NotImplementedError`` citing its
-        ROADMAP.md Queue 1 item: metrics other than ``fad``, ``kd`` and
-        ``prdc`` (so the default, which holds APA: pass ``metrics=``), and
-        ``device_indices``, ``mix_function`` and ``dcn_slices`` away from
-        their defaults."""
+        ROADMAP.md Queue 1 item: the metric ``fad_inf``, and
+        ``device_indices`` and ``dcn_slices`` away from their defaults."""
         unported = (
             (device_indices is not None, "device_indices (multi-GPU); pass device=", 10),
-            (mix_function is not None, "mix_function (the APA mixes)", 5),
             (dcn_slices is not None, "dcn_slices (multi-host)", 10),
         )
         for given, what, item in unported:
@@ -74,59 +75,101 @@ class AudioMetrics:
         for m in metrics:
             if m not in _PORTED:
                 raise NotImplementedError(
-                    f"metric {m!r} is not ported yet (ROADMAP.md Queue 1: APA, the JAX "
-                    "package's default with FAD, is item 5, fad_inf item 7); the port "
-                    "computes 'fad', 'kd' and 'prdc': pass metrics= explicitly"
-                )
+                    f"metric {m!r} is not ported yet (ROADMAP.md Queue 1: fad_inf item 7); "
+                    f"the port computes {', '.join(map(repr, _PORTED))}")
         self.metrics = list(metrics)
+        self.need_apa = "apa" in self.metrics
         if embedder is None or isinstance(embedder, str):
             embedder = get_embedder(embedder, device=device)
         self.embedder = embedder
+        if mix_function is None or isinstance(mix_function, str):
+            mix_function = self.get_mix_function(mix_function)
+        self.mix_function = mix_function
         self.win_dur = win_dur
         self.hop_dur = hop_dur
         self.input_sr = input_sr
         self.batch_size = batch_size
         self.progress = progress
         self.stem_projection = None if n_pca is None else IncrementalPCA(n_components=n_pca)
-        self.stem_reference = AudioMetricsData(self.store_embeddings)
-        self.stem_reference_pca = None
+        self.mix_projection = None if n_pca is None else IncrementalPCA(n_components=n_pca)
+        self.apa_d_x_xp = None
         self.timings: dict = {}
+        self.mix_reference = self.mix_anti_reference = self.stem_reference = None
+        self.reset_reference()
 
     @property
-    def store_embeddings(self) -> bool:
+    def stems_mode(self) -> bool:
+        return any(m != "apa" for m in self.metrics)
+
+    @property
+    def store_mix_embeddings(self) -> bool:
+        return self.need_apa and self.mix_projection is not None
+
+    @property
+    def store_stem_embeddings(self) -> bool:
         return self.stem_projection is not None or any(m in _NEED_EMBEDDINGS for m in self.metrics)
 
-    def _run_pipeline(self, waveforms) -> AudioMetricsData:
+    @staticmethod
+    def get_mix_function(mix_function):
+        """The registry mix named ``mix_function`` (default ``L0``)."""
+        func = MIX_FUNCTIONS.get(mix_function or DEFAULT_MIX_FUNCTION)
+        if func is None:
+            raise ValueError(f"Unknown mix_function {mix_function}, must be one of "
+                             f"{MIX_FUNCTIONS.keys()}")
+        return func
+
+    def _run_pipeline(self, waveforms, apa_mode) -> dict:
         return embedding_pipeline(
-            waveforms, self.embedder, store_stem_embeddings=self.store_embeddings,
-            batch_size=self.batch_size, win_dur=self.win_dur, hop_dur=self.hop_dur,
-            input_sr=self.input_sr, progress=self.progress,
-        )[ItemCategory.stem]
+            waveforms, self.embedder, mix_function=self.mix_function, apa_mode=apa_mode,
+            stems_mode=self.stems_mode, store_mix_embeddings=self.store_mix_embeddings,
+            store_stem_embeddings=self.store_stem_embeddings, batch_size=self.batch_size,
+            win_dur=self.win_dur, hop_dur=self.hop_dur, input_sr=self.input_sr,
+            progress=self.progress,
+        )
 
     def add_reference(self, reference) -> None:
-        self.stem_reference_pca = None  # the projection is refitted on the new reference
-        self.stem_reference += self._run_pipeline(reference)
-        self.stem_reference.recompute_stats()
+        """Embed ``reference`` and add it to the reference sets: the stems,
+        and with APA the aligned mixes and the misaligned mixes (each
+        context with another window's stem, a fresh random pairing at each
+        call, as in the JAX package).  The projections are refitted, and
+        ``apa_d_x_xp`` recomputed, at the next evaluate."""
+        out = self._run_pipeline(reference, "reference" if self.need_apa else None)
+        stem = out.get(ItemCategory.stem)
+        if stem is not None:
+            self.stem_reference_pca = None
+            self.stem_reference += stem
+            self.stem_reference.recompute_stats()
+        mix = out.get(ItemCategory.aligned)
+        if mix is not None:
+            # the JAX package keeps apa_d_x_xp from before the reference grew
+            self.mix_reference_pca = self.mix_anti_reference_pca = self.apa_d_x_xp = None
+            self.mix_reference += mix
+        anti = out.get(ItemCategory.misaligned)
+        if anti is not None:
+            self.mix_anti_reference += anti
 
     def precompile(self, n_items: int = 256) -> None:
         """Warm-up hook (audio_metrics_tpu/audio_metrics.py:233-266): build
         the kernel library on a card, then run one ``add_reference`` and one
-        ``evaluate`` of ``n_items`` windows of seeded synthetic audio on the
-        embedder's device, so that the first real ``evaluate`` pays neither
-        the build nor the first-call costs.  Then restore the instance: the
-        reference, its projected cache and the projection's fit (a deep
-        copy).  The JAX package does not restore the projection, so with
-        ``n_pca`` its later metrics come from a projection fitted on noise
+        ``evaluate`` of ``n_items`` windows of seeded synthetic audio
+        ((n_items, win, 2) pairs with APA) on the embedder's device, so
+        that the first real ``evaluate`` pays neither the build nor the
+        first-call costs.  Then restore the instance: the references, their
+        projected caches, ``apa_d_x_xp`` and the projections' fits (deep
+        copies).  The JAX package does not restore the projections, so with
+        ``n_pca`` its later metrics come from projections fitted on noise
         (ROADMAP Queue 3); the port does."""
         device = self.embedder.device
         if device.type == "cuda":
             from .kernels import build
 
             build()
-        snapshot = {a: getattr(self, a) for a in ("stem_reference", "stem_reference_pca")}
+        snapshot = {a: getattr(self, a) for a in _AMD + ("apa_d_x_xp",)}
         snapshot["stem_projection"] = copy.deepcopy(self.stem_projection)
+        snapshot["mix_projection"] = copy.deepcopy(self.mix_projection)
         sr = self.input_sr if self.input_sr is not None else self.embedder.sr
-        shape = (n_items, int(round(self.win_dur * sr)))
+        win = int(round(self.win_dur * sr))
+        shape = (n_items, win, 2) if self.need_apa else (n_items, win)
         gen = torch.Generator(device=device).manual_seed(0)
         try:
             self.reset_reference()
@@ -137,8 +180,13 @@ class AudioMetrics:
                 setattr(self, a, v)
 
     def reset_reference(self) -> None:
-        self.stem_reference = AudioMetricsData(self.store_embeddings)
-        self.stem_reference_pca = None
+        if self.need_apa:
+            self.apa_d_x_xp = None
+            self.mix_reference = AudioMetricsData(self.store_mix_embeddings)
+            self.mix_anti_reference = AudioMetricsData(self.store_mix_embeddings)
+        if self.stems_mode:
+            self.stem_reference = AudioMetricsData(self.store_stem_embeddings)
+        self.mix_reference_pca = self.mix_anti_reference_pca = self.stem_reference_pca = None
 
     # -- the n_pca projection (audio_metrics_tpu/audio_metrics.py:271-292) --
     @staticmethod
@@ -163,6 +211,23 @@ class AudioMetrics:
         return self.stem_reference_pca, self._projected_stats(self.stem_projection,
                                                               cand.embeddings, store)
 
+    def ensure_mix_projection(self, ref: AudioMetricsData, anti_ref: AudioMetricsData,
+                              cand: AudioMetricsData):
+        """``(ref, anti_ref, cand)`` projected, when ``n_pca`` is set
+        (audio_metrics_tpu/audio_metrics.py:293-310): the mix projection is
+        fitted once, on the reference mixes only; APA reads mean and
+        covariance alone, so no projected embeddings are kept."""
+        if self.mix_projection is None:
+            return ref, anti_ref, cand
+        if self.mix_reference_pca is None:
+            self.mix_projection.partial_fit(ref.embeddings)
+            self.mix_reference_pca = self._projected_stats(self.mix_projection, ref.embeddings,
+                                                           False)
+            self.mix_anti_reference_pca = self._projected_stats(self.mix_projection,
+                                                                anti_ref.embeddings, False)
+        return self.mix_reference_pca, self.mix_anti_reference_pca, self._projected_stats(
+            self.mix_projection, cand.embeddings, False)
+
     def __call__(self, candidate) -> dict:
         return self.evaluate(candidate)
 
@@ -171,34 +236,44 @@ class AudioMetrics:
 
         Wall-clock seconds of the stages of the last call are kept in
         ``self.timings`` under the JAX package's keys (audio_metrics.py:
-        315-498): ``pipeline`` (windowing, resampling, the forwards
-        enqueued), ``projection`` (``n_pca``), ``fad``, ``kd_dispatch``,
-        ``prdc_dispatch``, and ``finalize``, the whole metric tail after the
-        projection (in the JAX package, from its coalesced pull to the
-        return).  No synchronisation is added for them.  The forwards are
-        enqueued asynchronously, but after each one the batch's row count
-        goes to the device as a host scalar (``data.batch_moments``), a copy
-        that waits for the stream: so ``pipeline`` holds the device time of
-        every forward, and what is left of the loop (the last batch's
-        moments) lands in the first stage that reads a device value:
-        ``projection`` with ``n_pca`` (the fit reads the embeddings), else
-        ``fad`` (its device tail reads the candidate's moments,
-        metrics/fad.py:117), else ``kd_dispatch`` (metrics/kd.py:201-202),
-        else ``prdc_dispatch``.  Each metric stage here returns host
-        values, so the dispatches include their own syncs."""
+        315-498): ``pipeline`` (windowing, resampling, mixing, the forwards
+        enqueued), ``projection`` (``n_pca``, and APA's d(x, x') at the
+        first evaluate after an ``add_reference``), ``fad``,
+        ``kd_dispatch``, ``prdc_dispatch``, ``finalize`` (the whole stems
+        metric tail after the projection; in the JAX package, from its
+        coalesced pull to the return), and ``apa``.  No synchronisation is
+        added for them.  The forwards are enqueued asynchronously, but
+        after each one the batch's row count goes to the device as a host
+        scalar (``data.batch_moments``), a copy that waits for the stream:
+        so ``pipeline`` holds the device time of every forward (and the
+        mixes' one copy of their flags to the host), and what is left of
+        the loop (the last batch's moments) lands in the first stage that
+        reads a device value: ``projection`` with ``n_pca`` or at APA's
+        first evaluate, else ``fad`` (its device tail reads the
+        candidate's moments, metrics/fad.py:117), else ``kd_dispatch``
+        (metrics/kd.py:201-202), else ``prdc_dispatch``, else ``apa``.
+        Each metric stage here returns host values, so the dispatches
+        include their own syncs.  Pairs given without APA are the stems of
+        their channel 1; mono audio given with APA raises ``ValueError``."""
+        self.assert_reference()
         self.timings = {}
         t0 = time.perf_counter()
-        if len(self.stem_reference) == 0:
-            raise ValueError(
-                "The reference dataset is empty: call add_reference() with audio "
-                f"longer than win_dur ({self.win_dur}s) first"
-            )
-        cand = self._run_pipeline(candidate)
-        if len(cand) == 0:
+        out = self._run_pipeline(candidate, "candidate" if self.need_apa else None)
+        stem_cand, apa_cand = out.get(ItemCategory.stem), out.get(ItemCategory.aligned)
+        if self.stems_mode and not stem_cand:
             raise ValueError("No stem candidate embeddings were computed")
+        if self.need_apa and not apa_cand:
+            raise ValueError("No apa candidate embeddings were computed")
         self.timings["pipeline"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        ref, cand = self.ensure_stem_projection(self.stem_reference, cand)
+        ref, cand = self.stem_reference, stem_cand
+        if self.stems_mode:
+            ref, cand = self.ensure_stem_projection(ref, cand)
+        if self.need_apa:
+            apa_ref, apa_anti_ref, apa_cand = self.ensure_mix_projection(
+                self.mix_reference, self.mix_anti_reference, apa_cand)
+            if self.apa_d_x_xp is None:
+                self.apa_d_x_xp = apa_compute_d_x_xp(apa_ref, apa_anti_ref)
         t_tail = time.perf_counter()
         self.timings["projection"] = t_tail - t0
         result = {}
@@ -217,54 +292,63 @@ class AudioMetrics:
             result.update(prdc(ref, cand, k))
             self.timings["prdc_dispatch"] = time.perf_counter() - t0
         self.timings["finalize"] = time.perf_counter() - t_tail
+        if self.need_apa:
+            t0 = time.perf_counter()
+            result["apa"] = apa(apa_cand, apa_ref, apa_anti_ref, self.apa_d_x_xp)
+            self.timings["apa"] = time.perf_counter() - t0
         return result
+
+    def assert_reference(self) -> None:
+        """Raise ``ValueError`` when a reference set the metrics need is
+        empty (audio_metrics_tpu/audio_metrics.py:501-514)."""
+        if (self.stems_mode and not self.stem_reference) or (
+                self.need_apa and not self.mix_reference):
+            raise ValueError(
+                "The reference dataset is empty. This can have various causes:"
+                "  - You have not called AudioMetrics.add_reference()"
+                "  - You have called AudioMetrics.add_reference() with an empty dataset"
+                f"  - The duration of your audio is shorter than `win_dur` ({self.win_dur}s)."
+                "    (You can specify your own `win_dur` when instantiating AudioMetrics)"
+            )
 
     # -- persistence (audio_metrics_tpu/audio_metrics.py:517-548) -----------
     def save_state(self, fp: str | Path) -> None:
-        """Write the reference, its projected cache and the projection to an
-        ``.npz`` file in the JAX package's layout, which either package
-        loads."""
+        """Write the references, their projected caches, ``apa_d_x_xp`` and
+        the projections to an ``.npz`` file in the JAX package's layout,
+        which either package loads."""
         state = {
             "win_dur": self.win_dur,
             "hop_dur": self.hop_dur,
             "input_sr": self.input_sr,
             "batch_size": self.batch_size,
             "metrics": list(self.metrics),
-            "apa_d_x_xp": None,
+            "apa_d_x_xp": self.apa_d_x_xp,
         }
         for attr in _AMD:
             item = getattr(self, attr, None)
             state[attr] = item.serialize() if item else None
-        proj = self.stem_projection
-        state["stem_projection"] = None if proj is None else proj.__getstate__()
-        state["mix_projection"] = None
+        for attr in ("stem_projection", "mix_projection"):
+            proj = getattr(self, attr)
+            state[attr] = None if proj is None else proj.__getstate__()
         save_state_dict(state, fp)
 
     def load_state(self, fp: str | Path) -> None:
-        """Restore the reference and its projected cache (embeddings and
-        radii on the embedder's device), the projection's fit (when this
-        instance has ``n_pca``, as in the JAX package), and ``win_dur``,
-        ``hop_dur``, ``input_sr``, ``batch_size`` from a state file of
-        either package.  The instance keeps its own ``metrics``, as the JAX
-        package's ``load_state`` does (its :546).  APA state raises: the
-        mix references, ``apa_d_x_xp`` and a fitted ``mix_projection`` (the
-        JAX package writes an unfitted one whenever ``n_pca`` is set)."""
+        """Restore the references and their projected caches (embeddings and
+        radii on the embedder's device), the projections' fits (when this
+        instance has ``n_pca``, as in the JAX package), ``apa_d_x_xp``, and
+        ``win_dur``, ``hop_dur``, ``input_sr``, ``batch_size`` from a state
+        file of either package.  The instance keeps its own ``metrics``, as
+        the JAX package's ``load_state`` does (its :546)."""
         state = load_state_dict(fp)
-        unported = [k for k in _APA_STATE if state.get(k) is not None
-                    and (k != "mix_projection" or "components_" in state[k])]
-        if unported:
-            raise NotImplementedError(
-                f"state entries {unported} belong to APA, which is not ported yet "
-                "(ROADMAP.md Queue 1 item 5)"
-            )
-        for attr in ("stem_reference", "stem_reference_pca"):
+        for attr in _AMD:
             item = state.get(attr)
             if item is not None and item.get("n") is not None:
                 setattr(self, attr, AudioMetricsData.deserialize(item, device=self.embedder.device))
             elif item is not None:
                 setattr(self, attr, AudioMetricsData(item.get("store_embeddings", True)))
-        if state.get("stem_projection") is not None and self.stem_projection is not None:
-            self.stem_projection.__setstate__(state["stem_projection"])
-        for key in ("win_dur", "hop_dur", "input_sr", "batch_size"):
+        for attr in ("stem_projection", "mix_projection"):
+            if state.get(attr) is not None and getattr(self, attr) is not None:
+                getattr(self, attr).__setstate__(state[attr])
+        for key in ("win_dur", "hop_dur", "input_sr", "batch_size", "apa_d_x_xp"):
             if key in state:
                 setattr(self, key, state[key])

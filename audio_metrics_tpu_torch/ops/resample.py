@@ -91,12 +91,16 @@ def polyphase_kernel(up: int, down: int, beta: float = 5.0, half_len_mult: int =
 
 def resample_batch(audio, sr_orig: int, sr_new: int, quality: str = "hq") -> torch.Tensor:
     """(B, n) f32 -> (B, ceil(n * up / down)) f32 on ``audio``'s device
-    (a numpy array is taken to the CPU); ``quality`` a key of
+    (a numpy array is taken to the CPU), and (B, n, C) -> (B, ceil(n * up /
+    down), C) channel by channel; ``quality`` a key of
     ``RESAMPLE_QUALITIES``.  Each row is ``scipy.signal.resample_poly(row,
     up, down)`` for "hq", to f32 rounding."""
     x = torch.as_tensor(audio).float()
     if sr_orig == sr_new:
         return x
+    if x.ndim == 3:
+        y = resample_batch(x.movedim(2, 1).reshape(-1, x.shape[1]), sr_orig, sr_new, quality)
+        return y.reshape(x.shape[0], x.shape[2], -1).movedim(1, 2)
     w, left, up, down = polyphase_kernel(int(sr_new), int(sr_orig), *RESAMPLE_QUALITIES[quality])
     b, n = x.shape
     n_out = -(-n * up // down)

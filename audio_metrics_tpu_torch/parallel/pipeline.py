@@ -1,15 +1,16 @@
-"""The embedding pipeline, device-resident stems.
+"""The embedding pipeline, device-resident audio.
 
-Counterpart of the device-resident stems branch of
-``audio_metrics_tpu/parallel/pipeline.py::embedding_pipeline`` (:822-843),
-its fused embed loop and OOM retry (:222-283, :400-458), and its device
-resampling of windows (:695, :958).  The JAX package compiles the whole
-batch loop into one program; PyTorch runs eagerly, so the loop is a Python
-loop over batches that keeps the same carry: the f32 Chan merge of centered
-moments on the device, and embeddings written into one preallocated buffer.
+Counterpart of the device-resident branches of
+``audio_metrics_tpu/parallel/pipeline.py::embedding_pipeline``: mono stems
+(:822-843) and context+stem pairs for APA (``_device_pair_eval``,
+:492-578), its fused embed loop and OOM retry (:222-283, :400-458), and
+its device resampling of windows (:695, :958).  The JAX package compiles
+the whole batch loop into one program; PyTorch runs eagerly, so the loop is
+a Python loop over batches that keeps the same carry: the f32 Chan merge of
+centered moments on the device, and embeddings written into one
+preallocated buffer.
 
-Input forms other than a 2-D array of mono stems (pairs for APA, iterables
-of songs for the host-fed path) are not ported yet.
+Iterables of songs (the host-fed path) are not ported yet.
 """
 
 from __future__ import annotations
@@ -23,9 +24,10 @@ import torch
 
 from ..data import AudioMetricsData, batch_moments
 from ..ops.resample import resample_batch
+from ..ops.mix import emit_mix_diagnostics
 from ..ops.windowing import device_windows, window_length
 
-__all__ = ["ItemCategory", "embedding_pipeline"]
+__all__ = ["ItemCategory", "derangement", "device_mix", "device_pair_eval", "embedding_pipeline"]
 
 logger = logging.getLogger(__name__)
 
@@ -84,58 +86,160 @@ def run_fused_embed(embed, windows: torch.Tensor, batch_size: int):
                        batch_size)
 
 
+def _resampler(in_sr: int, sr: int):
+    """Batches of windows, (B, n) or (B, n, C), resampled from ``in_sr`` to
+    ``sr`` on their device (``AM_TPU_RESAMPLE_QUALITY``, "hq" or "vhq",
+    read at each pipeline call, as in the JAX package); the identity when
+    the rates agree."""
+    if in_sr == sr:
+        return lambda x: x
+    quality = os.environ.get("AM_TPU_RESAMPLE_QUALITY", "hq")
+    return lambda x: resample_batch(x, in_sr, sr, quality)
+
+
+def _embed_set(embed, windows: torch.Tensor, batch_size: int, store: bool) -> AudioMetricsData:
+    """One category's windows through ``run_fused_embed``: their moments
+    (on the device until read) and, when ``store``, their embeddings."""
+    amd = AudioMetricsData(store)
+    buf, (_, s1, m2) = run_fused_embed(embed, windows, batch_size)
+    amd.add_moments_device(windows.shape[0], s1, m2)
+    amd.add_embeddings(buf)
+    return amd
+
+
+def derangement(n: int, seed=None) -> np.ndarray:
+    """A permutation of ``range(n)`` with no fixed point (for n > 1), drawn
+    call for call as the JAX package draws it (pipeline.py:559-569), so that
+    the same ``seed`` pairs the same windows in both packages: a conjugated
+    nonzero cyclic shift, ``pairing[p[k]] = p[(k + s) % n]``.  A plain
+    permutation has about one fixed point, which would leak an aligned pair
+    into the misaligned set."""
+    rng = np.random.default_rng(seed)
+    if n <= 1:
+        return np.zeros(1, np.int64)  # degenerate: the window with itself
+    p = rng.permutation(n)
+    s = int(rng.integers(1, n))
+    out = np.empty(n, np.int64)
+    out[p] = np.roll(p, -s)
+    return out
+
+
+def device_mix(mix_function, audio: torch.Tensor, sr: int, diag=None) -> torch.Tensor:
+    """A mix of a (B, n, 2) batch (audio_metrics_tpu/parallel/pipeline.py:
+    678-692): a registry mix (``is_batched_mix``) on the batch's device,
+    its flags collected in ``diag``; any other callable follows the
+    reference protocol ``f(audio[n, 2], sr) -> mono[n]``, one item at a
+    time on the host, its mixes taken back to the batch's device."""
+    if getattr(mix_function, "is_batched_mix", False):
+        return mix_function(audio, sr=sr, diag=diag)
+    out = [np.asarray(torch.as_tensor(mix_function(a, sr=sr)).cpu(), np.float32)
+           for a in audio.cpu().numpy()]
+    return torch.from_numpy(np.stack(out)).to(audio.device)
+
+
+def device_pair_eval(w: torch.Tensor, embedder, mix_function, in_sr: int, apa_mode,
+                     stems_mode: bool, batch_size: int, seed, store_mix: bool,
+                     store_stem: bool) -> dict:
+    """(N*k, win, 2) pair windows at ``in_sr`` -> per-category
+    ``AudioMetricsData`` (audio_metrics_tpu/parallel/pipeline.py:492-578).
+    Each set is mixed whole, in chunks of 64 pairs for registry mixes (16
+    for callables, which run on the host), each chunk resampled to the
+    embedder's rate first when ``in_sr`` is not it, then embedded through
+    the fused loop: the aligned pairs; for ``apa_mode="reference"`` the
+    misaligned ones, each context with the stem of window
+    ``derangement(N*k, seed)[i]``; with ``stems_mode`` the stems (channel
+    1).  The mix flags are read and warned about once, at the end."""
+    n_w = w.shape[0]
+    sr = embedder.sr
+    resample = _resampler(in_sr, sr)
+    chunk = 64 if getattr(mix_function, "is_batched_mix", False) else 16
+    mix_diag: list = []
+
+    def mix_all(pairs_at):
+        outs = []
+        for i in range(0, n_w, chunk):
+            pairs = resample(pairs_at(i, min(chunk, n_w - i)))
+            outs.append(device_mix(mix_function, pairs, sr, diag=mix_diag))
+        return torch.cat(outs)
+
+    out = {ItemCategory.aligned: _embed_set(embedder.embed, mix_all(lambda i, c: w[i : i + c]),
+                                            batch_size, store_mix)}
+    if apa_mode == "reference":
+        perm = torch.from_numpy(derangement(n_w, seed)).to(w.device)
+
+        def mis_at(i, c):
+            return torch.stack([w[i : i + c, :, 0], w[perm[i : i + c], :, 1]], dim=2)
+
+        out[ItemCategory.misaligned] = _embed_set(embedder.embed, mix_all(mis_at), batch_size,
+                                                  store_mix)
+    if stems_mode:
+        out[ItemCategory.stem] = _embed_set(lambda x: embedder.embed(resample(x)),
+                                            w[:, :, 1].contiguous(), batch_size, store_stem)
+    emit_mix_diagnostics(mix_diag)
+    return out
+
+
 def embedding_pipeline(
     waveforms,
     embedder,
-    stems_mode: bool = True,
+    mix_function=None,
     apa_mode=None,
+    stems_mode: bool = True,
+    store_mix_embeddings: bool = False,
     store_stem_embeddings: bool = False,
     batch_size: int = 32,
     win_dur: float = 5.0,
     hop_dur: float | None = None,
+    seed: int | None = None,
     input_sr: int | None = None,
     progress: bool = False,
 ) -> dict:
-    """Embed device-resident stems and accumulate their statistics.
+    """Embed device-resident audio and accumulate per-category statistics
+    (audio_metrics_tpu/parallel/pipeline.py:744-843, its device-resident
+    branches).
 
-    ``waveforms``: a (N, n_samples) tensor or numpy array of mono stems at
-    ``input_sr`` (default: the embedder's rate); a CPU tensor or array is
-    moved to the embedder's device.  Windows of ``win_dur`` seconds every
-    ``hop_dur`` seconds (default ``win_dur``) are cut at the input rate, in
-    item-major order; with ``input_sr`` other than the embedder's rate each
-    batch of windows is resampled on the device before the embedder
-    (``AM_TPU_RESAMPLE_QUALITY``, "hq" or "vhq", read at each call, as in
-    the JAX package).  ``progress`` does nothing here: the JAX package's
-    fused device-resident path returns before its progress bar (:843,
-    :926); only its resampling of device arrays, a batch loop there and the
-    fused loop here, shows one.  Returns ``{ItemCategory.stem: AudioMetricsData}``."""
+    ``waveforms``: a tensor or numpy array at ``input_sr`` (default: the
+    embedder's rate), moved to the embedder's device: (N, n_samples) mono
+    stems, or (N, n_samples, 2) context+stem pairs.  Windows of ``win_dur``
+    seconds every ``hop_dur`` seconds (default ``win_dur``) are cut at the
+    input rate, in item-major order; with ``input_sr`` other than the
+    embedder's rate each batch is resampled on the device
+    (``AM_TPU_RESAMPLE_QUALITY``, "hq" or "vhq", read at each call).
+    ``apa_mode`` ("reference", "candidate" or None) asks for the mixes of
+    the pairs through ``mix_function`` (``device_pair_eval``; ``seed``
+    draws the misaligned pairing); without it, pairs yield the stems of
+    channel 1, as the JAX package's ``serialize_items`` does.  ``progress``
+    does nothing here: the JAX package's device-resident paths return
+    before its progress bar (:843, :926).  Returns ``{ItemCategory:
+    AudioMetricsData}``."""
     if isinstance(waveforms, np.ndarray):
         waveforms = torch.from_numpy(waveforms)
-    is_tensor = isinstance(waveforms, torch.Tensor)
-    if (apa_mode is not None or not stems_mode
-            or (is_tensor and waveforms.ndim == 3 and waveforms.shape[-1] == 2)):
-        raise NotImplementedError("the APA (context+stem pair) path is not ported yet "
-                                  "(ROADMAP.md Queue 1 item 5)")
-    if not is_tensor or waveforms.ndim != 2:
+    pairs = isinstance(waveforms, torch.Tensor) and waveforms.ndim == 3
+    if not isinstance(waveforms, torch.Tensor) or waveforms.ndim not in (2, 3) or (
+            pairs and waveforms.shape[-1] != 2):
         raise NotImplementedError(
-            "the host-fed path (iterables of songs, stereo pairs) is not ported yet "
-            "(ROADMAP.md Queue 1 item 8); the port takes a 2-D (items, samples) tensor of "
-            "mono stems")
+            "the host-fed path (iterables of songs) is not ported yet (ROADMAP.md Queue 1 "
+            "item 8); the port takes a (items, samples) tensor of mono stems or an (items, "
+            "samples, 2) tensor of context+stem pairs")
+    if apa_mode is not None and not pairs:
+        raise ValueError("When computing APA items should be tensors/arrays of shape "
+                         "[n_samples, 2] (pairing context and stem)")
     waveforms = waveforms.to(embedder.device, torch.float32)
     in_sr = input_sr if input_sr is not None else embedder.sr
     win_len = window_length(in_sr, win_dur)
     hop_len = win_len if hop_dur is None else window_length(in_sr, hop_dur)
     w = device_windows(waveforms, win_len, hop_len)
-    embed = embedder.embed
-    if in_sr != embedder.sr:
-        quality = os.environ.get("AM_TPU_RESAMPLE_QUALITY", "hq")
-
-        def embed(x):
-            return embedder.embed(resample_batch(x, in_sr, embedder.sr, quality))
-
-    amd = AudioMetricsData(store_stem_embeddings)
-    if w is not None:
-        buf, (n, s1, m2) = run_fused_embed(embed, w, batch_size)
-        amd.add_moments_device(w.shape[0], s1, m2)
-        amd.add_embeddings(buf)
-    return {ItemCategory.stem: amd}
+    if apa_mode is not None:
+        if w is None:
+            return {}
+        return device_pair_eval(w, embedder, mix_function, in_sr, apa_mode, stems_mode,
+                                batch_size, seed, store_mix_embeddings, store_stem_embeddings)
+    if not stems_mode:
+        return {}
+    if w is None:
+        return {ItemCategory.stem: AudioMetricsData(store_stem_embeddings)}
+    if pairs:
+        w = w[:, :, 1].contiguous()
+    resample = _resampler(in_sr, embedder.sr)
+    return {ItemCategory.stem: _embed_set(lambda x: embedder.embed(resample(x)), w, batch_size,
+                                          store_stem_embeddings)}

@@ -105,12 +105,24 @@ FAULTS = {
     "P2": ("audio_metrics_tpu_torch/audio_metrics.py",
            '        snapshot["stem_projection"] = copy.deepcopy(self.stem_projection)\n', "",
            "precompile leaves the projection refitted on its synthetic audio"),
+    "D1": ("audio_metrics_tpu_torch/parallel/pipeline.py", "out[p] = np.roll(p, -s)",
+           "out = rng.permutation(n)",
+           "the misaligned pairing is a plain permutation, not the derangement"),
+    "U1": ("audio_metrics_tpu_torch/ops/loudness.py",
+           "torch.maximum(torch.einsum(\"c,bc->b\", gains, z_abs), floor)) - 10.0",
+           "torch.maximum(torch.einsum(\"c,bc->b\", gains, z_abs), floor))",
+           "the BS.1770 relative gate drops its -10 LU"),
+    "K1": ("audio_metrics_tpu_torch/ops/limiter.py", "lag = delay - 1", "lag = delay",
+           "the limiter's delay is one sample too long"),
+    "A2": ("audio_metrics_tpu_torch/metrics/apa.py",
+           "    if abs(numerator) > denominator:\n        denominator = abs(numerator)\n", "",
+           "APA's denominator is d(x, x') alone, not max(d(x, x'), |numerator|)"),
 }
 # faults in Python code that the CPU tests run: tests/test_torch_faults.py
 # plants each in a module loaded beside the real one and runs the first
-# check of it there; the smoke's phases 12-13 would catch them too, after
-# every kernel phase, so they run here only when named
-CPU_FAULTS = ("V1", "H1", "P2")
+# check of it there; the smoke's phases 12-13 (15 for the APA path) would
+# catch them too, after every kernel phase, so they run here only when named
+CPU_FAULTS = ("V1", "H1", "P2", "D1", "U1", "K1", "A2")
 SKIP = ("build", ".git", "__pycache__", ".pytest_cache")
 
 

@@ -60,6 +60,7 @@ def main(argv=None) -> int:
     from .metrics.prdc import prdc
     from .models.clap import LaionCLAP
     from .models.htsat import HTSAT_BASE
+    from .parallel.pipeline import ItemCategory
     from .testing import card_line, seeded_clips
 
     sr = 48000
@@ -101,7 +102,7 @@ def main(argv=None) -> int:
         print(f"  {ms:9.2f} ms {100 * ms / device_ms:5.1f}% {cnt:6d}  {name}")
     prdc_dev = sum(kernels.get(k, [0.0])[0]
                    for k in ("knn_split_kernel", "knn_merge_kernel", "stats_split_kernel"))
-    cand = am._run_pipeline(candidate)
+    cand = am._run_pipeline(candidate, None)[ItemCategory.stem]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     prdc(am.stem_reference, cand, max(1, min(10, len(am.stem_reference), len(cand))))

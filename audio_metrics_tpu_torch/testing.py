@@ -3,6 +3,7 @@
 
 - ``seeded_clips``: the reference and candidate clips of the smoke's and
   the profile's evaluates, made on the device from a seed;
+- ``seeded_pairs``: context+stem pairs for APA, made likewise;
 - ``card_line``: the card's name and power limit from ``nvidia-smi``;
 - ``stats_mismatches``: the near-tie rule for two results of the PRDC
   reductions; ``prdc_mismatches`` applies it to two computations' reference
@@ -23,7 +24,7 @@ import numpy as np
 import torch
 
 __all__ = ["card_line", "laion_state_dict", "near_duplicate_rows", "prdc_mismatches",
-           "seeded_clips", "stats_mismatches", "tf32x3_matmul"]
+           "seeded_clips", "seeded_pairs", "stats_mismatches", "tf32x3_matmul"]
 
 
 def card_line() -> str:
@@ -49,6 +50,32 @@ def seeded_clips(n_clips: int, n_samples: int, sr: int, seed: int, device="cuda"
     candidate[::2] = 0.2 * torch.randn((n_clips - n_clips // 2, n_samples), generator=gen,
                                        device=device)
     return reference, candidate
+
+
+def seeded_pairs(n_pairs: int, n_samples: int, sr: int, seed: int, misaligned: int = 0,
+                 device="cuda") -> torch.Tensor:
+    """(n_pairs, n_samples, 2) f32 context+stem pairs on ``device``: in the
+    context a tone of random pitch (110-880 Hz) under a random envelope
+    (1-8 Hz), over noise at std 0.02; in the stem its octave under the same
+    envelope, at half the amplitude, over its own noise.  In the last
+    ``misaligned`` pairs the stem follows the next pair's pitch and
+    envelope instead, so that a set with some is less adherent."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def uniform(lo, hi):
+        return lo + (hi - lo) * torch.rand((n_pairs, 1), generator=gen, device=device)
+
+    t = torch.arange(n_samples, device=device) / sr
+    f, rate, phase = uniform(110.0, 880.0), uniform(1.0, 8.0), uniform(0.0, 2 * np.pi)
+    env = 0.5 * (1 + torch.sin(2 * np.pi * rate * t + phase))
+    ctx = env * torch.sin(2 * np.pi * f * t)
+    if misaligned:
+        k = n_pairs - misaligned
+        f, env = f.clone(), env.clone()
+        f[k:], env[k:] = torch.roll(f[k:], 1, 0), torch.roll(env[k:], 1, 0)
+    stem = 0.5 * env * torch.sin(2 * np.pi * 2 * f * t)
+    noise = 0.02 * torch.randn((n_pairs, n_samples, 2), generator=gen, device=device)
+    return torch.stack([ctx, stem], dim=2) + noise
 
 
 def stats_mismatches(ref, cand, got, want, got_radii, want_radii=None, rel: float = 1e-5):

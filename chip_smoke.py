@@ -163,6 +163,10 @@ VGGISH_BATCH = 512   # phase 12, bench.py's main_vggish cap
 N_CLIPS_VGGISH_F32 = 256  # phase 12 (b)
 N_CLIPS_PCA = 256    # phase 13, n_pca and precompile
 OOM_BATCH, OOM_FIT = 1024, 128  # phase 14: the batch asked for, the one the limit is set by
+N_PAIRS_APA = 1024   # phase 15 (a), bench.py's main_apa
+APA_BATCH = 512      # phase 15 (a), bench.py's min(BATCH_SIZE, n_pairs, 512)
+N_PAIRS_DEFAULT = 128  # phase 15 (b)
+MIX_CHUNK = 64       # the pair path's chunk for registry mixes
 CLIP_S = 5
 SR = 48000
 BATCH = 64       # e2e batch size
@@ -246,6 +250,18 @@ F32_E2E_TOL = (1e-6, 6e-7)
 # theirs is the kernel-vs-plain scale).
 CONFIG_TOL = {"split": (5e-5, 5e-3), "attn_v1": (5e-5, 5e-3), "mel_v1": (2e-6, 1e-3),
               "no_mel_tile": (5e-5, 5e-3)}
+# phase 15: APA of the reference pairs against themselves, |1 - apa|; APA
+# through the kernels against the plain versions on the same reference
+# state, abs (~10x the reading: FAD moves by ~2e-5 relative between the
+# two paths, APA by that times d / (2 d(x, x'))); the card's L0 mix of
+# 64 pairs against the port's on the CPU, max abs (~10x the CPU reading of
+# the port against the JAX package on these pairs, 8.9e-8 on mixes up to
+# 0.36); the mix's loudness in the float64 oracle against -20 LUFS on the
+# items it did not limit, dB
+APA_SELF_TOL = 1e-3
+APA_E2E_TOL = 2e-4
+MIX_CARD_TOL = 1e-6
+MIX_LUFS_TOL = 0.01
 # phase 12 (b): VGGish f32 against bf16 embeddings of the same clips (not
 # unit rows: norms ~45); the CPU reading of the same arithmetic on 32 of
 # these clips, 1.23e-5 and 0.064, times ~10
@@ -1201,10 +1217,11 @@ def check_prdc_paths(am, candidate, what: str) -> None:
         pairwise_stats,
         pairwise_stats_plain,
     )
+    from audio_metrics_tpu_torch.parallel.pipeline import ItemCategory
     from audio_metrics_tpu_torch.testing import stats_mismatches
 
     ref_e = am.stem_reference.embeddings
-    cand_e = am._run_pipeline(candidate).embeddings
+    cand_e = am._run_pipeline(candidate, None)[ItemCategory.stem].embeddings
     k = max(1, min(10, len(ref_e), len(cand_e)))
     rr_k, cr_k = am.stem_reference.radii[f"radii_{k}"], knn_radii(cand_e, k)
     rr_p, cr_p = knn_radii_plain(ref_e, k), knn_radii_plain(cand_e, k)
@@ -1608,6 +1625,24 @@ def f32_plain_path(clap):
     return PlainPath()
 
 
+def write_clap_checkpoint(params: dict, ckpt_dir: str) -> str:
+    """``params`` (phase 3's weights) with seeded projection weights, written
+    as a LAION-named ``.pt`` (``module.`` prefix, fused qkv) under the
+    default embedder's checkpoint file name in ``ckpt_dir``; returns the
+    name."""
+    from audio_metrics_tpu_torch.models.clap import (
+        LAION_CLAP_MUSIC_CHECKPOINT_URL,
+        init_projection_params,
+    )
+    from audio_metrics_tpu_torch.models.htsat import HTSAT_BASE
+    from audio_metrics_tpu_torch.testing import laion_state_dict
+
+    weights = dict(params, **init_projection_params(HTSAT_BASE, seed=0))
+    name = LAION_CLAP_MUSIC_CHECKPOINT_URL.rsplit("/", 1)[-1]
+    torch.save({"state_dict": laion_state_dict(weights)}, os.path.join(ckpt_dir, name))
+    return name
+
+
 def phase_f32(card: str, params: dict, switches: dict, per_forward: dict, against=None):
     """The default configuration on the card: ``AudioMetrics(metrics=["fad",
     "kd", "prdc"])`` with no embedder, which builds the registry default
@@ -1625,20 +1660,12 @@ def phase_f32(card: str, params: dict, switches: dict, per_forward: dict, agains
     ``against`` (another configuration's on the same clips), their distance
     to it, printed.  Returns (launches, reference embeddings)."""
     from audio_metrics_tpu_torch import AudioMetrics
-    from audio_metrics_tpu_torch.models.clap import (
-        LAION_CLAP_MUSIC_CHECKPOINT_URL,
-        LaionCLAP,
-        init_projection_params,
-    )
-    from audio_metrics_tpu_torch.models.htsat import HTSAT_BASE
-    from audio_metrics_tpu_torch.testing import laion_state_dict
+    from audio_metrics_tpu_torch.models.clap import LaionCLAP
 
     metrics = ["fad", "kd", "prdc"]
-    weights = dict(params, **init_projection_params(HTSAT_BASE, seed=0))
     reference, candidate = clips(N_CLIPS_F32, CLIP_S, seed=11)
     with tempfile.TemporaryDirectory() as ckpt_dir:
-        name = LAION_CLAP_MUSIC_CHECKPOINT_URL.rsplit("/", 1)[-1]
-        torch.save({"state_dict": laion_state_dict(weights)}, os.path.join(ckpt_dir, name))
+        name = write_clap_checkpoint(params, ckpt_dir)
         with environ(AM_TPU_CKPT_DIR=ckpt_dir, **switches):  # the encoder reads the switches
             am = AudioMetrics(metrics=metrics, batch_size=BATCH, device="cuda")
     clap = am.embedder
@@ -1707,9 +1734,9 @@ def phase_f32(card: str, params: dict, switches: dict, per_forward: dict, agains
     return launches, e_k
 
 
-def warm_evaluates(am, candidate, n_clips: int, runs: int = 3) -> str:
+def warm_evaluates(am, candidate, n_clips: int, runs: int = 3, unit: str = "clips") -> str:
     """``runs`` warm evaluates, each timed up to ``torch.cuda.synchronize``:
-    clips/s median and spread (min..max), as a printable string."""
+    ``unit``/s median and spread (min..max), as a printable string."""
     rates = []
     for _ in range(runs):
         torch.cuda.synchronize()
@@ -1717,7 +1744,7 @@ def warm_evaluates(am, candidate, n_clips: int, runs: int = 3) -> str:
         am.evaluate(candidate)
         torch.cuda.synchronize()
         rates.append(n_clips / (time.perf_counter() - t0))
-    return (f"{float(np.median(rates)):.2f} clips/s warm, median of {runs} "
+    return (f"{float(np.median(rates)):.2f} {unit}/s warm, median of {runs} "
             f"({min(rates):.2f}..{max(rates):.2f})")
 
 
@@ -2036,6 +2063,155 @@ def phase_oom_retry(card: str) -> None:
             raise AssertionError(f"{key} after the OOM retry disagrees with the direct run")
 
 
+def mix_bound(n_pairs: int, n: int, limited: bool) -> tuple[float, str, float]:
+    """``bound`` of one registry L0 mix of ``n_pairs`` pairs of ``n``
+    samples, by what ``ops.iir.lfilter_blocked`` multiplies: its (L, L)
+    chunk product, 2 L = 512 f32 operations a sample a section, over the
+    K-weighting's 3 sections of 3 n_pairs signals (context, stem, mix);
+    and the limiter's one section of n_pairs signals when an item peaks
+    (it runs for every chunk and is selected per item, but this run's data
+    needs it only then).  Bytes: the pairs read, the mixes written."""
+    from audio_metrics_tpu_torch.ops.iir import _k_weighting_sections
+
+    sections = len(_k_weighting_sections(float(SR)))
+    ops = 512.0 * n * (sections * 3 * n_pairs + (n_pairs if limited else 0))
+    return bound({"f32": ops}, 4.0 * n * n_pairs * 3)
+
+
+def phase_apa(card: str) -> None:
+    """(a) ``bench.py``'s ``main_apa`` on the card: ``AudioMetrics(metrics=
+    ["apa", "fad"])``, ``L0``, LaionCLAP HTSAT-base bf16 with phase 4's
+    seeded weights, batch APA_BATCH, over N_PAIRS_APA + N_PAIRS_APA 5 s
+    pairs at 48 kHz (``testing.seeded_pairs``: a tone and its octave under
+    one envelope; half of the candidate pairs misaligned): launch counts of
+    ``add_reference`` + first evaluate (aligned, misaligned and stem sets,
+    then aligned and stems: 10 forwards), d(x, x'), APA of the reference
+    against itself, the candidate evaluate through the plain versions on
+    the same reference state, pairs/s of three warm evaluates and
+    ``timings``; then the L0 mix of the first MIX_CHUNK reference pairs on
+    the card against the same mix on the CPU, its loudness in the float64
+    oracle against -20 LUFS, and its time (CUDA events) beside
+    ``mix_bound``."""
+    from audio_metrics_tpu_torch import AudioMetrics
+    from audio_metrics_tpu_torch.models.clap import LaionCLAP
+    from audio_metrics_tpu_torch.models.htsat import HTSAT_BASE
+    from audio_metrics_tpu_torch.ops.loudness import integrated_loudness_batch
+    from audio_metrics_tpu_torch.ops.mix import MIX_FUNCTIONS
+    from audio_metrics_tpu_torch.testing import seeded_pairs
+
+    clap = LaionCLAP(cfg=HTSAT_BASE, compute_dtype="bfloat16", allow_random_weights=True,
+                     device="cuda")
+    am = AudioMetrics(metrics=["apa", "fad"], embedder=clap, mix_function="L0",
+                      win_dur=float(CLIP_S), input_sr=SR, batch_size=APA_BATCH, device="cuda")
+    n = N_PAIRS_APA
+    torch.cuda.empty_cache()
+    reference = seeded_pairs(n, CLIP_S * SR, SR, seed=15)
+    candidate = seeded_pairs(n, CLIP_S * SR, SR, seed=16, misaligned=n // 2)
+    log(f"  {n} + {n} pairs of {CLIP_S} s on the card ({2 * reference.numel() * 4 / 2**30:.3f} "
+        f"GiB f32), L0, batch {APA_BATCH}")
+    set_counts_to_zero()
+    am.add_reference(reference)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = am.evaluate(candidate)
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    forwards = 5 * -(-n // APA_BATCH)
+    want = {name: 0 for name in read_counts()}
+    want.update(swin_block=18 * forwards, patch_merge=3 * forwards, clap_frontend=forwards)
+    check_counts(f"add_reference + first evaluate, {forwards} forward batches", read_counts(),
+                 want)
+    log(f"  result {result}; d(x, x') {am.apa_d_x_xp:.6g} (must exceed 10x phase 4's self-FAD "
+        "bound 1e-4)")
+    if not (all(np.isfinite(v) for v in result.values()) and 0.0 <= result["apa"] <= 1.0):
+        raise AssertionError("APA outside [0, 1] or a non-finite metric")
+    if not am.apa_d_x_xp > 1e-3:
+        raise AssertionError("d(x, x') is near FAD's self-noise: APA would measure noise")
+    log(f"  evaluate of {n} pairs: {warm_evaluates(am, candidate, n, unit='pairs')}, "
+        f"{n / cold:.2f} pairs/s first [{card}; real_weights: false]")
+    log(f"  timings of the last evaluate (s): {am.timings}")
+    self_apa = am.evaluate(reference)["apa"]
+    log(f"  APA of the reference pairs against themselves: {self_apa:.8g} (tol |1 - apa| <= "
+        f"{APA_SELF_TOL})")
+    if not abs(1.0 - self_apa) <= APA_SELF_TOL:
+        raise AssertionError("APA(reference, reference) is not ~1")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        state = os.path.join(tmp, "apa_state.npz")
+        am.save_state(state)
+        amp = AudioMetrics(metrics=["apa", "fad"], embedder=plain_path(clap), mix_function="L0",
+                           device="cuda")
+        amp.load_state(state)
+    amp.batch_size = BATCH  # phase 4's batch for the plain versions
+    plain = amp.evaluate(candidate)
+    log(f"  plain path on the same reference state: {plain}")
+    rel = abs(result["fad"] - plain["fad"]) / abs(plain["fad"])
+    diff = abs(result["apa"] - plain["apa"])
+    log(f"  fad: rel {rel:.3g} (tol {E2E_TOL['fad']}); apa: abs {diff:.3g} (tol {APA_E2E_TOL})")
+    if not (rel <= E2E_TOL["fad"] and diff <= APA_E2E_TOL):
+        raise AssertionError("APA or FAD through the kernels disagrees with the plain path")
+
+    pairs = reference[:MIX_CHUNK]
+    l0 = MIX_FUNCTIONS["L0"]
+    mixed = l0(pairs, sr=SR, diag=[])
+    on_cpu = l0(pairs.cpu(), sr=SR, diag=[])
+    err = (mixed.cpu() - on_cpu).abs().max().item()
+    peak = mixed.abs().amax(dim=1).cpu()
+    lufs = integrated_loudness_batch(mixed, SR, method="scan").cpu()[peak <= 1.0]
+    lufs_err = (lufs + 20.0).abs().max().item()
+    log(f"  L0 mix of {MIX_CHUNK} pairs, card against CPU: max abs {err:.3g} (tol {MIX_CARD_TOL}"
+        f", max |mix| {mixed.abs().max().item():.4g}); float64 loudness of the {len(lufs)} items "
+        f"not limited against -20 LUFS: max {lufs_err:.3g} dB (tol {MIX_LUFS_TOL})")
+    if not (err <= MIX_CARD_TOL and len(lufs) and lufs_err <= MIX_LUFS_TOL):
+        raise AssertionError("the card's L0 mix disagrees with the CPU's or misses -20 LUFS")
+    mix_ms = cuda_ms(lambda: l0(pairs, sr=SR, diag=[]))
+    b_ms, b_by, b_ops = mix_bound(MIX_CHUNK, pairs.shape[1], bool((peak > 1.0).any()))
+    log(f"  L0 mix of {MIX_CHUNK} pairs: {mix_ms:.4f} ms (CUDA events) against a bound of "
+        f"{b_ms:.4f} ms ({b_by}: {b_ops / 1e9:.2f} GFLOP f32 in lfilter_blocked's chunk "
+        f"products) [{card}]")
+    del am, amp, reference, candidate
+
+
+def phase_apa_defaults(card: str, params: dict) -> None:
+    """(b) the defaults: ``AudioMetrics(input_sr=48000)`` builds
+    ``laion_clap_music`` (f32) from phase 10's checkpoint, written again in
+    a temporary directory that ``AM_TPU_CKPT_DIR`` names around the
+    construction only, and takes APA + FAD over N_PAIRS_DEFAULT +
+    N_PAIRS_DEFAULT pairs at its batch of 32: launch counts (f32 kernels
+    only), finite metrics, APA in [0, 1], pairs/s."""
+    from audio_metrics_tpu_torch import AudioMetrics
+    from audio_metrics_tpu_torch.testing import seeded_pairs
+
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        write_clap_checkpoint(params, ckpt_dir)
+        with environ(AM_TPU_CKPT_DIR=ckpt_dir):
+            am = AudioMetrics(input_sr=48000)
+    n = N_PAIRS_DEFAULT
+    log(f"  AudioMetrics(input_sr=48000): metrics {am.metrics}, embedder "
+        f"{type(am.embedder).__name__} {am.embedder.model.compute_dtype}, mix "
+        f"{am.mix_function.keywords}, batch {am.batch_size}; {n} + {n} pairs")
+    torch.cuda.empty_cache()
+    reference = seeded_pairs(n, CLIP_S * SR, SR, seed=25)
+    candidate = seeded_pairs(n, CLIP_S * SR, SR, seed=26, misaligned=n // 2)
+    set_counts_to_zero()
+    am.add_reference(reference)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = am.evaluate(candidate)
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    forwards = 5 * -(-n // am.batch_size)
+    want = {name: 0 for name in read_counts()}
+    want.update(swin_block_f32=18 * forwards, patch_merge_f32=3 * forwards)
+    check_counts(f"add_reference + first evaluate, {forwards} forward batches", read_counts(),
+                 want)
+    log(f"  result {result}; d(x, x') {am.apa_d_x_xp:.6g}")
+    if not (all(np.isfinite(v) for v in result.values()) and 0.0 <= result["apa"] <= 1.0):
+        raise AssertionError("APA outside [0, 1] or a non-finite metric at the defaults")
+    log(f"  evaluate of {n} pairs: {warm_evaluates(am, candidate, n, unit='pairs')}, "
+        f"{n / cold:.2f} pairs/s first [{card}; real_weights: false]")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run", file=sys.stderr)
@@ -2108,6 +2284,11 @@ def main() -> int:
     phase_stems_options(card)
     log("phase 14 the OOM retry (set_per_process_memory_fraction)")
     phase_oom_retry(card)
+    log("phase 15 (a) the APA path: apa + fad, L0, HTSAT-base bf16, 5 s pairs (main_apa)")
+    phase_apa(card)
+    log("phase 15 (b) AudioMetrics(input_sr=48000) at its defaults: apa + fad, L0, "
+        "laion_clap_music f32 from AM_TPU_CKPT_DIR")
+    phase_apa_defaults(card, params)
 
     # launches: each kernel's count on the path that runs it
     path_of = {"log_mel": launches_10s, "swin_attn_v3": launches_split,

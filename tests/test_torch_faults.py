@@ -121,16 +121,30 @@ class _Embedder:
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    (dict(), r"metric 'apa'.*item 5.*pass metrics="),
     (dict(metrics=["fad", "fad_inf"]), r"'fad_inf'.*fad_inf item 7\)"),
-    (dict(metrics=["kd", "apa"]), r"'apa'.*item 5"),
-    (dict(metrics=["fad"], mix_function="L0"), r"mix_function.*item 5\)"),
     (dict(metrics=["fad"], dcn_slices=2), r"dcn_slices.*item 10\)"),
     (dict(metrics=["fad"], device_indices=[0]), r"device_indices.*item 10\)"),
 ])
 def test_unported_arguments_raise(kwargs, match):
     with pytest.raises(NotImplementedError, match=match):
         AudioMetrics(embedder=_Embedder(), device="cpu", **kwargs)
+
+
+@pytest.mark.parametrize("kwargs,need_apa,stems_mode,mix", [
+    (dict(), True, True, "L0"),
+    (dict(metrics=["kd", "apa"]), True, True, "L0"),
+    (dict(metrics=["fad"], mix_function="L2"), False, True, "L2"),
+])
+def test_apa_arguments_build(kwargs, need_apa, stems_mode, mix):
+    """The APA arguments that the port refused before APA was ported: the
+    default metrics, APA among others, a named mix; the flags and the
+    registry mix the JAX package sets for them."""
+    from audio_metrics_tpu_torch.ops.mix import MIX_FUNCTIONS
+
+    am = AudioMetrics(embedder=_Embedder(), device="cpu", **kwargs)
+    assert (am.need_apa, am.stems_mode, am.mix_function) == (need_apa, stems_mode,
+                                                             MIX_FUNCTIONS[mix])
+    assert (am.mix_reference is not None) == need_apa and am.stem_reference is not None
 
 
 def test_ported_arguments_at_their_defaults_build():
@@ -163,6 +177,8 @@ def _planted(name: str):
 def _first_check(name: str):
     """The first check that runs the code of fault ``name``
     (``plant_faults.CPU_FAULTS``), as a callable on the planted module."""
+    import test_torch_apa as apa
+    import test_torch_loudness as loudness
     import test_torch_options as options
     import test_torch_vggish as vggish
 
@@ -171,16 +187,27 @@ def _first_check(name: str):
                                                   vggish.seeded_patches()),
         "H1": lambda mod: options.check_hop_windows(mod.embedding_pipeline),
         "P2": lambda mod: options.check_precompile_restores(mod.AudioMetrics),
+        "D1": apa.check_pair_pipeline,
+        "U1": loudness.check_loudness,
+        "K1": loudness.check_limiter,
+        "A2": lambda mod: loudness.check_apa_formula(mod._apa),
     }[name]
 
 
-@pytest.mark.parametrize("name", ["V1", "H1", "P2"])
+@pytest.mark.parametrize("name", ["V1", "H1", "P2", "D1", "U1", "K1", "A2"])
 def test_planted_python_fault_fails_its_first_check(name):
     """V1 (VGGish flattens NCHW) fails the f32 net against the JAX forward,
     H1 (the pipeline ignores ``hop_dur``) the windows against the JAX
     package's, P2 (``precompile`` leaves the projection refitted) the state
-    after ``precompile``.  The same checks pass on the real modules (their
-    own tests in tests/test_torch_vggish.py and tests/test_torch_options.py)."""
+    after ``precompile``; D1 (a plain permutation for the derangement) the
+    misaligned set against the JAX package's at the same seed, U1 (the
+    relative gate without its -10 LU) the loudness against the JAX
+    function's, K1 (the limiter's delay one sample long) the limiter
+    against the JAX one, A2 (APA's denominator without |numerator|) the
+    formula's golden cases.  The same checks pass on the real modules
+    (their own tests in tests/test_torch_vggish.py,
+    tests/test_torch_options.py, tests/test_torch_apa.py and
+    tests/test_torch_loudness.py)."""
     from audio_metrics_tpu_torch.plant_faults import CPU_FAULTS
 
     assert name in CPU_FAULTS

@@ -363,7 +363,8 @@ def test_slice_with_options_matches_jax(options):
     for key in KEYS[:3]:
         assert got[key] == pytest.approx(want[key], rel=1e-3), key
     if any(got[k] != want[k] for k in KEYS[3:]):
-        ref_p, cand_p = am.ensure_stem_projection(am.stem_reference, am._run_pipeline(cand))
+        ref_p, cand_p = am.ensure_stem_projection(
+            am.stem_reference, am._run_pipeline(cand, None)[ItemCategory.stem])
         ref_j, cand_j = jam.ensure_stem_projection(
             jam.stem_reference, jam._run_pipeline(jnp.asarray(cand), None)[ItemCategory.stem])
         n, bad = prdc_mismatches(ref_p.embeddings, cand_p.embeddings, ref_j.embeddings,

@@ -154,11 +154,10 @@ def test_unported_surface_raises():
         AudioMetrics(metrics=["fad", "fad_inf"], embedder=emb, device="cpu")
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         AudioMetrics(metrics=["fad"], embedder=emb, device="cpu", device_indices=[0, 1])
-    with pytest.raises(NotImplementedError, match="apa"):
-        AudioMetrics(metrics=["apa", "fad"], embedder=emb, device="cpu")
-    with pytest.raises(NotImplementedError, match=r"pair.*item 5\)"):
-        AudioMetrics(metrics=["fad"], embedder=emb, device="cpu").add_reference(
-            np.zeros((2, 5 * SR, 2), np.float32)
+    # APA takes context+stem pairs; mono stems raise the JAX package's error
+    with pytest.raises(ValueError, match="pairing context and stem"):
+        AudioMetrics(metrics=["apa", "fad"], embedder=emb, device="cpu").add_reference(
+            np.zeros((2, 5 * SR), np.float32)
         )
     am = AudioMetrics(metrics=["fad"], embedder=emb, device="cpu")
     with pytest.raises(NotImplementedError, match=r"host-fed.*item 8\)"):

@@ -130,14 +130,35 @@ def test_port_state_round_trip(setup, tmp_path):
     assert am.evaluate(setup["cand"]) == setup["got"]
 
 
-def test_load_state_raises_on_unported_entries(setup, tmp_path):
+def test_jax_apa_state_loads_and_evaluates_equal(setup, tmp_path):
+    """A JAX state file with APA entries (mix references and d(x, x')),
+    loaded by the port: the same entries, and the same APA on the same
+    mix candidates."""
+    from audio_metrics_tpu.data import AudioMetricsData as JaxData
+    from audio_metrics_tpu_torch.data import AudioMetricsData
+    from audio_metrics_tpu_torch.metrics.apa import apa
+
+    rng = np.random.default_rng(0)
     jam = JaxAudioMetrics(metrics=["apa", "fad"], embedder="dummy", win_dur=1.0,
                           device_indices=[0])
-    jam.mix_reference.add(np.random.default_rng(0).normal(size=(4, 8)).astype(np.float32))
+    jam.mix_reference.add(rng.normal(size=(40, 8)).astype(np.float32))
+    jam.mix_anti_reference.add(rng.normal(0.3, size=(40, 8)).astype(np.float32))
+    jam.apa_d_x_xp = 0.25
     f = tmp_path / "apa_state.npz"
     jam.save_state(f)
-    with pytest.raises(NotImplementedError, match=r"APA.*item 5\)"):
-        setup["port_am"]().load_state(f)
+    am = setup["port_am"]()
+    am.load_state(f)
+    assert am.apa_d_x_xp == 0.25 and am.mix_reference.n == am.mix_anti_reference.n == 40
+    np.testing.assert_array_equal(am.mix_reference.cov, jam.mix_reference.cov)
+    cand = rng.normal(0.1, size=(40, 8)).astype(np.float32)
+    jc, pc = JaxData(False), AudioMetricsData(False)
+    jc.add(cand)
+    pc.add(torch.from_numpy(cand))
+    from audio_metrics_tpu.metrics.apa import apa as jax_apa
+
+    want = jax_apa(jc, jam.mix_reference, jam.mix_anti_reference, jam.apa_d_x_xp)
+    got = apa(pc, am.mix_reference, am.mix_anti_reference, am.apa_d_x_xp)
+    assert got == pytest.approx(want, rel=1e-9) and 0 < got < 1
 
 
 def test_jax_state_with_stale_radii_loads_into_the_port(setup, tmp_path):

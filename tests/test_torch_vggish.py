@@ -215,7 +215,8 @@ def assert_prdc_close(got, want, am, jam, cand):
     if all(got[k] == want[k] for k in KEYS[3:]):
         return
     n, bad = prdc_mismatches(
-        am.stem_reference.embeddings, am._run_pipeline(cand).embeddings,
+        am.stem_reference.embeddings,
+        am._run_pipeline(cand, None)[ItemCategory.stem].embeddings,
         jam.stem_reference.embeddings,
         jam._run_pipeline(jnp.asarray(cand), None)[ItemCategory.stem].embeddings)
     assert bad == 0, (n, got, want)
