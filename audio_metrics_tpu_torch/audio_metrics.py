@@ -2,28 +2,32 @@
 
 Counterpart of ``audio_metrics_tpu/audio_metrics.py``: APA over mixes of
 context+stem pairs (the registry mixes of ``ops.mix`` or a user callable),
-FAD (device Newton-Schulz tail when the candidate covariance is full rank,
-host float64 otherwise), KD (device subset Gram sums) and PRDC (device k-NN
-radii and pairwise sweeps, host float64 means) over the stems, for audio
-already in memory, with the JAX package's options (overlapping windows,
-resampling, the ``n_pca`` projections, ``timings``, ``precompile``) and
-the state files (``save_state`` / ``load_state``) in its ``.npz`` layout.
-Result keys and their order are the JAX package's: ``fad``,
-``kernel_distance_mean``, ``kernel_distance_std``, ``precision``,
-``recall``, ``density``, ``coverage``, then ``apa``.
+FAD (device Newton-Schulz tail when the candidate's moments are one
+device triple of full rank, host float64 otherwise), KD (device subset
+Gram sums), PRDC (device k-NN radii and pairwise sweeps, host float64
+means) and FAD-inf (device subset sweep, host float64 fit) over the stems,
+for audio in a tensor or array or an iterable of songs of any length, with
+the JAX package's options (overlapping windows, resampling, the ``n_pca``
+projections, ``timings``, ``precompile``) and the state files
+(``save_state`` / ``load_state``) in its ``.npz`` layout.  Result keys and
+their order are the JAX package's: ``fad``, ``kernel_distance_mean``,
+``kernel_distance_std``, ``precision``, ``recall``, ``density``,
+``coverage``, ``fad_inf``, ``fad_inf_slope``, then ``apa``.
 """
 
 from __future__ import annotations
 
 import copy
+import math
 import time
+import warnings
 from pathlib import Path
 
 import torch
 
 from .data import AudioMetricsData
 from .metrics.apa import apa, apa_compute_d_x_xp
-from .metrics.fad import fad_device_tail, frechet_distance
+from .metrics.fad import FadInfUnavailable, fad_device_tail, fad_inf_parts, frechet_distance
 from .metrics.kd import kernel_distance
 from .metrics.prdc import prdc
 from .models import get_embedder
@@ -34,9 +38,9 @@ from .utils.serialize import load_state_dict, save_state_dict
 
 __all__ = ["AudioMetrics"]
 
-_PORTED = ("apa", "fad", "kd", "prdc")
+_METRICS = ("apa", "fad", "fad_inf", "kd", "prdc")
 # metrics that need the stored embeddings, not only mean and covariance
-_NEED_EMBEDDINGS = ("kd", "prdc")
+_NEED_EMBEDDINGS = ("kd", "prdc", "fad_inf")
 # AudioMetricsData entries of the state file
 _AMD = ("stem_reference", "mix_reference", "mix_anti_reference", "stem_reference_pca",
         "mix_reference_pca", "mix_anti_reference_pca")
@@ -47,9 +51,12 @@ class AudioMetrics:
                  mix_function=None, win_dur=5.0, hop_dur=None, input_sr=None, batch_size=32,
                  progress=False, dcn_slices=None, device="cuda"):
         """The JAX package's parameters in its order, then ``device``.
-        ``metrics``: any of ``apa``, ``fad``, ``kd``, ``prdc``; APA takes
-        (N, n_samples, 2) context+stem pairs, the others the stems (channel
-        1 of pairs, or (N, n_samples) mono audio).  ``embedder``: an
+        ``metrics``: any of ``apa``, ``fad``, ``fad_inf``, ``kd``, ``prdc``
+        (another name raises ``ValueError``; the JAX package ignores it);
+        APA takes context+stem pairs, the others the stems (channel 1 of
+        pairs, or mono audio): an (N, n_samples, 2) or (N, n_samples)
+        tensor or array, or an iterable of songs of any length,
+        (n_samples, 2) or (n_samples,) each.  ``embedder``: an
         embedder object, or a registry name built on ``device``.
         ``mix_function``: a name of ``ops.mix.MIX_FUNCTIONS`` (default
         ``L0``) or a callable ``f(audio[n, 2], sr) -> mono[n]``, run per
@@ -62,8 +69,8 @@ class AudioMetrics:
         ``progress`` is accepted and does nothing (``parallel.pipeline.
         embedding_pipeline`` says where the JAX package shows a bar).
         What is not ported raises ``NotImplementedError`` citing its
-        ROADMAP.md Queue 1 item: the metric ``fad_inf``, and
-        ``device_indices`` and ``dcn_slices`` away from their defaults."""
+        ROADMAP.md Queue 1 item: ``device_indices`` and ``dcn_slices`` away
+        from their defaults."""
         unported = (
             (device_indices is not None, "device_indices (multi-GPU); pass device=", 10),
             (dcn_slices is not None, "dcn_slices (multi-host)", 10),
@@ -73,10 +80,9 @@ class AudioMetrics:
                 raise NotImplementedError(
                     f"{what} is not ported yet (ROADMAP.md Queue 1 item {item})")
         for m in metrics:
-            if m not in _PORTED:
-                raise NotImplementedError(
-                    f"metric {m!r} is not ported yet (ROADMAP.md Queue 1: fad_inf item 7); "
-                    f"the port computes {', '.join(map(repr, _PORTED))}")
+            if m not in _METRICS:
+                raise ValueError(f"unknown metric {m!r}; the metrics are "
+                                 f"{', '.join(map(repr, _METRICS))}")
         self.metrics = list(metrics)
         self.need_apa = "apa" in self.metrics
         if embedder is None or isinstance(embedder, str):
@@ -118,13 +124,13 @@ class AudioMetrics:
                              f"{MIX_FUNCTIONS.keys()}")
         return func
 
-    def _run_pipeline(self, waveforms, apa_mode) -> dict:
+    def _run_pipeline(self, waveforms, apa_mode, timings=None) -> dict:
         return embedding_pipeline(
             waveforms, self.embedder, mix_function=self.mix_function, apa_mode=apa_mode,
             stems_mode=self.stems_mode, store_mix_embeddings=self.store_mix_embeddings,
             store_stem_embeddings=self.store_stem_embeddings, batch_size=self.batch_size,
             win_dur=self.win_dur, hop_dur=self.hop_dur, input_sr=self.input_sr,
-            progress=self.progress,
+            progress=self.progress, timings=timings,
         )
 
     def add_reference(self, reference) -> None:
@@ -239,9 +245,10 @@ class AudioMetrics:
         315-498): ``pipeline`` (windowing, resampling, mixing, the forwards
         enqueued), ``projection`` (``n_pca``, and APA's d(x, x') at the
         first evaluate after an ``add_reference``), ``fad``,
-        ``kd_dispatch``, ``prdc_dispatch``, ``finalize`` (the whole stems
-        metric tail after the projection; in the JAX package, from its
-        coalesced pull to the return), and ``apa``.  No synchronisation is
+        ``kd_dispatch``, ``prdc_dispatch``, ``fad_inf_dispatch``,
+        ``finalize`` (the whole stems metric tail after the projection; in
+        the JAX package, from its coalesced pull to the return), and
+        ``apa``.  No synchronisation is
         added for them.  The forwards are enqueued asynchronously, but
         after each one the batch's row count goes to the device as a host
         scalar (``data.batch_moments``), a copy that waits for the stream:
@@ -253,18 +260,33 @@ class AudioMetrics:
         candidate's moments, metrics/fad.py:117), else ``kd_dispatch``
         (metrics/kd.py:201-202), else ``prdc_dispatch``, else ``apa``.
         Each metric stage here returns host values, so the dispatches
-        include their own syncs.  Pairs given without APA are the stems of
-        their channel 1; mono audio given with APA raises ``ValueError``."""
+        include their own syncs.  Songs given as an iterable take the
+        host-fed path (``parallel.pipeline.embedding_pipeline``), which
+        sends no host value to the card after a forward: there ``pipeline``
+        ends with the one pull of the moments, which waits for the card,
+        and two more keys split it: ``pipeline_feed``, the host's seconds
+        making batches (windows, shuffles, stacking), and
+        ``pipeline_drain``, the wait at that pull.
+        Pairs given without APA are the stems of their channel 1; mono
+        audio given with APA raises ``ValueError``.
+
+        ``fad_inf`` where its sweep cannot run (no stored candidate
+        embeddings, n <= d + 1, no reference Cholesky factor, or fewer
+        than two distinct subset sizes) gives ``fad_inf`` and
+        ``fad_inf_slope`` as nan, with a warning naming the cause; the
+        JAX package drops both keys without a word (ROADMAP Queue 3)."""
         self.assert_reference()
         self.timings = {}
         t0 = time.perf_counter()
-        out = self._run_pipeline(candidate, "candidate" if self.need_apa else None)
+        fed: dict = {}
+        out = self._run_pipeline(candidate, "candidate" if self.need_apa else None, fed)
         stem_cand, apa_cand = out.get(ItemCategory.stem), out.get(ItemCategory.aligned)
         if self.stems_mode and not stem_cand:
             raise ValueError("No stem candidate embeddings were computed")
         if self.need_apa and not apa_cand:
             raise ValueError("No apa candidate embeddings were computed")
         self.timings["pipeline"] = time.perf_counter() - t0
+        self.timings.update({f"pipeline_{k}": v for k, v in fed.items()})
         t0 = time.perf_counter()
         ref, cand = self.stem_reference, stem_cand
         if self.stems_mode:
@@ -291,12 +313,25 @@ class AudioMetrics:
             k = max(1, min(10, len(ref), len(cand)))
             result.update(prdc(ref, cand, k))
             self.timings["prdc_dispatch"] = time.perf_counter() - t0
+        if "fad_inf" in self.metrics:
+            t0 = time.perf_counter()
+            result.update(self._fad_inf(cand, ref))
+            self.timings["fad_inf_dispatch"] = time.perf_counter() - t0
         self.timings["finalize"] = time.perf_counter() - t_tail
         if self.need_apa:
             t0 = time.perf_counter()
             result["apa"] = apa(apa_cand, apa_ref, apa_anti_ref, self.apa_d_x_xp)
             self.timings["apa"] = time.perf_counter() - t0
         return result
+
+    @staticmethod
+    def _fad_inf(cand: AudioMetricsData, ref: AudioMetricsData) -> dict:
+        try:
+            arrays, reduce_fn = fad_inf_parts(cand, ref)
+        except FadInfUnavailable as exc:
+            warnings.warn(f"fad_inf and fad_inf_slope are nan: {exc}")
+            return {"fad_inf": math.nan, "fad_inf_slope": math.nan}
+        return reduce_fn(tuple(a.double().cpu().numpy() for a in arrays))
 
     def assert_reference(self) -> None:
         """Raise ``ValueError`` when a reference set the metrics need is

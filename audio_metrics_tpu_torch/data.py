@@ -12,7 +12,18 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["AudioMetricsData", "batch_moments"]
+__all__ = ["AudioMetricsData", "batch_moments", "ensure_ndarray"]
+
+
+def ensure_ndarray(x) -> np.ndarray:
+    """``x`` as a numpy array (audio_metrics_tpu/data.py:30-42): numpy
+    arrays as they are, torch tensors detached and copied to the host from
+    any device, other array-likes through ``np.asarray``."""
+    if isinstance(x, np.ndarray):
+        return x
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
 
 
 def batch_moments(e: torch.Tensor, mask: torch.Tensor | None = None):
@@ -68,6 +79,14 @@ class AudioMetricsData:
         """Queue a device moment triple; ``n`` is host-known."""
         if n > 0:
             self._pending.append((int(n), s1, m2))
+
+    def add_moments(self, n: int, s1, m2) -> None:
+        """Merge host moments ``(n, sum_x, centered sum)`` (any float dtype;
+        merged in float64) into the stats now (audio_metrics_tpu/data.py:
+        296-315); the host-fed pipeline's one pull per run."""
+        self._flush()
+        if n > 0:
+            self._merge(int(n), np.asarray(s1, np.float64), np.asarray(m2, np.float64))
 
     def _flush(self) -> None:
         pending, self._pending = self._pending, []

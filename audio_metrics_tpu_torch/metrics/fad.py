@@ -8,10 +8,20 @@ Counterpart of ``audio_metrics_tpu/metrics/fad.py``:
 - the ``nsdev`` device tail (:73-130, :180-260): ``M = L^T C L`` and a
   coupled Newton-Schulz ``Tr sqrt(M)`` in f32 on the device against the
   reference Cholesky factor, cached on the device per reference.  Its
-  products run in full f32: TF32 is switched off for the duration.
+  products run in full f32: TF32 is switched off for the duration;
+- ``fad_inf_parts`` (:304-418), FAD-inf: FAD at several subset sizes of
+  the candidate, extrapolated linearly in 1/size to an infinite set, in
+  float64 on the device (the JAX package: f32, whose Newton-Schulz
+  diverges on the smallest subsets of real-sized sets; see its docstring).
+
+The Newton-Schulz iteration count is ``AM_TPU_FAD_NS_ITERS`` (default 30),
+read at each call as in the JAX package (its ``_ns_iters``, :148-149).
 """
 
 from __future__ import annotations
+
+import os
+import warnings
 
 import numpy as np
 import torch
@@ -19,9 +29,12 @@ import torch
 from ..data import AudioMetricsData
 from ..utils.precision import full_f32
 
-__all__ = ["frechet_distance", "trace_sqrtm_product", "fad_device_tail"]
+__all__ = ["FadInfUnavailable", "fad_device_tail", "fad_inf_parts", "frechet_distance",
+           "trace_sqrtm_product"]
 
-NS_ITERS = 30
+
+def _ns_iters() -> int:
+    return int(os.environ.get("AM_TPU_FAD_NS_ITERS", "30"))
 
 
 def _sym_sqrtm(a: np.ndarray) -> np.ndarray:
@@ -65,10 +78,12 @@ def frechet_distance(x: AudioMetricsData, y: AudioMetricsData) -> float:
     return _frechet_distance(mx, sx, my, sy)
 
 
-def _ns_trace_sqrt_sym(m: torch.Tensor, n_iter: int = NS_ITERS) -> torch.Tensor:
+def _ns_trace_sqrt_sym(m: torch.Tensor, n_iter: int | None = None) -> torch.Tensor:
     """``Tr sqrt(M)`` for symmetric PSD ``M`` by coupled Newton-Schulz on
     ``A = M / ||M||_F``: ``Y <- Y (3I - ZY)/2, Z <- (3I - ZY)/2 Z`` so that
-    ``Y -> sqrt(A)``; products only."""
+    ``Y -> sqrt(A)``; products only.  ``n_iter`` defaults to
+    ``AM_TPU_FAD_NS_ITERS``."""
+    n_iter = _ns_iters() if n_iter is None else n_iter
     eye = torch.eye(m.shape[0], dtype=m.dtype, device=m.device)
     norm = torch.sqrt(torch.sum(m * m)) + 1e-30
     y, z = m / norm, eye
@@ -118,3 +133,95 @@ def fad_device_tail(cand: AudioMetricsData, ref: AudioMetricsData) -> float | No
     a = float(np.sum(np.square(mu_x - mu_ref)))
     b = float(tr_x) + float(np.trace(cov_ref))
     return a + b - 2.0 * float(trsqrt)
+
+
+# ----------------------------------------------------------------------
+# FAD-inf (audio_metrics_tpu/metrics/fad.py:304-418)
+# ----------------------------------------------------------------------
+class FadInfUnavailable(ValueError):
+    """``fad_inf_parts`` cannot fit the extrapolation; the message names why."""
+
+
+def fad_inf_parts(cand: AudioMetricsData, ref: AudioMetricsData, n_points: int = 8,
+                  min_frac: float = 0.25, seed: int = 1234):
+    """The FAD-inf subset sweep: ``(device_arrays, host_reduce)`` as the
+    JAX package's ``fad_inf_parts`` returns them, ``host_reduce(arrays
+    pulled to the host) -> {"fad_inf": intercept, "fad_inf_slope": c}``.
+
+    Subset sizes are the distinct values of ``round(linspace(max(d + 2,
+    min_frac * n), n, n_points))``, the last the whole set; each smaller
+    subset is the head of ``default_rng(seed).permutation(n)``, drawn in
+    the JAX package's call order, as a 0/1 row mask.  On the candidate's
+    device, in float64: the subset means ``mask @ emb``, then one subset
+    at a time (no (S, n, d) tensor) its centered covariance ``((X - mu_s)
+    m_s)^T ((X - mu_s) m_s) / (n_s - 1)``, its trace, and ``Tr sqrt(L^T
+    C_s L)`` by Newton-Schulz (``AM_TPU_FAD_NS_ITERS``) against the
+    reference's Cholesky factor.  The reduce fits FAD(s) = fad_inf + c / s
+    by float64 least squares on the host.
+
+    The JAX package runs the sweep in f32 (``precision=HIGHEST``).  On
+    HTSAT-base embeddings (d = 512, n = 2304; ``chip_smoke.py`` phase 16)
+    the smallest subset's ``L^T C L`` has eigenvalues 2.9e-13..0.0117, and
+    ``Z -> M^(-1/2)`` outgrows f32: its trace square root read 0.41994 on
+    an H100 and 0.41427 on the host's CPU at 30 iterations, nan on both at
+    60, against 0.41996 in float64, so the fitted FAD-inf read 5.642 on the
+    card and -23.357 on the CPU.  In float64 the iteration holds (0.41996
+    at 30 and 60 iterations on both; ROADMAP Queue 3).
+
+    Raises ``FadInfUnavailable`` where the JAX package returns None (no
+    stored candidate embeddings, n <= d + 1, no reference Cholesky factor)
+    and where the sizes leave fewer than two distinct points, which the
+    JAX package fits anyway (``np.polyfit`` on one point).  Warns when n <
+    4 (d + 2): the smallest subsets then sit at the d + 2 floor, barely
+    above the rank of their covariance (ROADMAP Queue 3)."""
+    emb = cand.embeddings
+    if emb is None:
+        raise FadInfUnavailable("the candidate has no stored embeddings")
+    n, d = int(emb.shape[0]), int(emb.shape[1])
+    if n <= d + 1:
+        raise FadInfUnavailable(f"{n} candidate embeddings for d = {d}: every subset "
+                                "covariance would be rank-deficient (needs n > d + 1)")
+    l = ref.chol_cov()
+    if l is None or l.shape[0] != d:
+        raise FadInfUnavailable("the reference covariance has no Cholesky factor")
+    sizes = np.unique(np.round(np.linspace(max(d + 2, min_frac * n), n, n_points))
+                      .astype(np.int64))
+    if len(sizes) < 2:
+        raise FadInfUnavailable(f"the subset sizes {sizes.tolist()} give fewer than two "
+                                "distinct points to fit")
+    if n < 4 * (d + 2):
+        warnings.warn(f"fad_inf: {n} candidate embeddings < 4 (d + 2) = {4 * (d + 2)}; the "
+                      f"smallest subsets sit at the d + 2 = {d + 2} floor, where their "
+                      "covariances are barely full rank")
+    rng = np.random.default_rng(seed)
+    mask = np.zeros((len(sizes), n), np.float32)
+    for i, s in enumerate(sizes):
+        idx = np.arange(n) if s == n else rng.permutation(n)[:s]
+        mask[i, idx] = 1.0
+
+    dev = emb.device
+    emb = emb.double()
+    l_dev = torch.from_numpy(np.asarray(l, np.float64)).to(dev)
+    mask_dev = torch.from_numpy(mask).to(dev, torch.float64)
+    counts = torch.from_numpy(sizes.astype(np.float64)).to(dev)
+    n_iter = _ns_iters()
+    mu = (mask_dev @ emb) / counts[:, None]
+    tr, trsqrt = [], []
+    for i in range(len(sizes)):
+        xc = (emb - mu[i][None, :]) * mask_dev[i][:, None]
+        cov = (xc.T @ xc) / (counts[i] - 1.0)
+        tr.append(torch.trace(cov))
+        m = l_dev.T @ (cov @ l_dev)
+        trsqrt.append(_ns_trace_sqrt_sym(0.5 * (m + m.T), n_iter))
+    arrays = (mu, torch.stack(tr), torch.stack(trsqrt))
+    mu_ref, cov_ref, _ = ref.stats()
+    mu_ref = np.asarray(mu_ref, np.float64)
+    tr_ref = float(np.trace(np.asarray(cov_ref, np.float64)))
+
+    def reduce_fn(host_arrays):
+        mu_s, tr_s, trsqrt_s = (np.asarray(a, np.float64) for a in host_arrays)
+        fads = np.sum((mu_s - mu_ref[None, :]) ** 2, axis=1) + tr_s + tr_ref - 2.0 * trsqrt_s
+        slope, intercept = np.polyfit(1.0 / sizes.astype(np.float64), fads, 1)
+        return {"fad_inf": float(intercept), "fad_inf_slope": float(slope)}
+
+    return arrays, reduce_fn

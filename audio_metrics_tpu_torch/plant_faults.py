@@ -117,12 +117,23 @@ FAULTS = {
     "A2": ("audio_metrics_tpu_torch/metrics/apa.py",
            "    if abs(numerator) > denominator:\n        denominator = abs(numerator)\n", "",
            "APA's denominator is d(x, x') alone, not max(d(x, x'), |numerator|)"),
+    "F2": ("audio_metrics_tpu_torch/metrics/fad.py",
+           "np.polyfit(1.0 / sizes.astype(np.float64), fads, 1)",
+           "np.polyfit(sizes.astype(np.float64), fads, 1)",
+           "FAD-inf fits FAD against the subset size, not its inverse"),
+    "S3": ("audio_metrics_tpu_torch/parallel/shuffle.py",
+           "protected = min(min_age, len(held) - 1)", "protected = min(min_age - 1, len(held) - 1)",
+           "the window shuffle protects one insertion fewer than min_age"),
+    "W2": ("audio_metrics_tpu_torch/utils/wavio.py",
+           'struct.pack("<I", len(riff)) + riff)', 'struct.pack("<I", 4 + len(riff)) + riff)',
+           "the WAV writer's RIFF size is 4 bytes too large, as the JAX copy's"),
 }
 # faults in Python code that the CPU tests run: tests/test_torch_faults.py
 # plants each in a module loaded beside the real one and runs the first
-# check of it there; the smoke's phases 12-13 (15 for the APA path) would
-# catch them too, after every kernel phase, so they run here only when named
-CPU_FAULTS = ("V1", "H1", "P2", "D1", "U1", "K1", "A2")
+# check of it there; the smoke's phases 12-13 (15 for the APA path, 16 for
+# FAD-inf) would catch most of them too, after every kernel phase, so they
+# run here only when named
+CPU_FAULTS = ("V1", "H1", "P2", "D1", "U1", "K1", "A2", "F2", "S3", "W2")
 SKIP = ("build", ".git", "__pycache__", ".pytest_cache")
 
 

@@ -4,6 +4,8 @@
 - ``seeded_clips``: the reference and candidate clips of the smoke's and
   the profile's evaluates, made on the device from a seed;
 - ``seeded_pairs``: context+stem pairs for APA, made likewise;
+- ``seeded_songs``: songs of varied length for the host-fed path, a list
+  of numpy arrays on the host, mono or context+stem;
 - ``card_line``: the card's name and power limit from ``nvidia-smi``;
 - ``stats_mismatches``: the near-tie rule for two results of the PRDC
   reductions; ``prdc_mismatches`` applies it to two computations' reference
@@ -24,7 +26,7 @@ import numpy as np
 import torch
 
 __all__ = ["card_line", "laion_state_dict", "near_duplicate_rows", "prdc_mismatches",
-           "seeded_clips", "seeded_pairs", "stats_mismatches", "tf32x3_matmul"]
+           "seeded_clips", "seeded_pairs", "seeded_songs", "stats_mismatches", "tf32x3_matmul"]
 
 
 def card_line() -> str:
@@ -76,6 +78,37 @@ def seeded_pairs(n_pairs: int, n_samples: int, sr: int, seed: int, misaligned: i
     stem = 0.5 * env * torch.sin(2 * np.pi * 2 * f * t)
     noise = 0.02 * torch.randn((n_pairs, n_samples, 2), generator=gen, device=device)
     return torch.stack([ctx, stem], dim=2) + noise
+
+
+def seeded_songs(n_windows: int, win_len: int, sr: int, seed: int, pairs: bool = False,
+                 candidate: bool = False, max_windows: int = 7, device="cpu") -> list:
+    """A list of f32 numpy songs that hold ``n_windows`` whole windows of
+    ``win_len`` samples in all: each song k + f windows long, k drawn from
+    1..``max_windows`` (the last song's cut to the total) and f from [0.1,
+    0.9), so that every song ends in a partial window, which the pipeline
+    drops.  Made on ``device`` from ``seed`` (one generator a song), then
+    copied to the host.  Mono songs (n,): noise at std 0.2, and with
+    ``candidate`` every other song half as loud over a 440 Hz tone at 0.1,
+    so that neither set covers the other.  ``pairs``: (n, 2) context+stem
+    songs, each ``seeded_pairs`` of one pair (a tone and its octave under
+    one envelope, over noise)."""
+    rng = np.random.default_rng(seed)
+    songs, total = [], 0
+    while total < n_windows:
+        k = min(int(rng.integers(1, max_windows + 1)), n_windows - total)
+        n = int((k + rng.uniform(0.1, 0.9)) * win_len)
+        song_seed = int(rng.integers(2**31))
+        if pairs:
+            x = seeded_pairs(1, n, sr, song_seed, device=device)[0]
+        else:
+            gen = torch.Generator(device=device).manual_seed(song_seed)
+            x = 0.2 * torch.randn(n, generator=gen, device=device)
+            if candidate and len(songs) % 2:
+                t = torch.arange(n, device=device) / sr
+                x = 0.5 * x + 0.1 * torch.sin(2 * np.pi * 440.0 * t)
+        songs.append(x.float().cpu().numpy())
+        total += k
+    return songs
 
 
 def stats_mismatches(ref, cand, got, want, got_radii, want_radii=None, rel: float = 1e-5):

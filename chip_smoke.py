@@ -101,7 +101,42 @@ Phases, one status line each:
      (restored in a ``finally``), ``AudioMetrics`` at batch 1024 on 1024 +
      1024 5 s clips halves its batch until it fits, logging the warning
      each time; its result against a run at the batch that fit, under
-     phase 4's end-to-end bounds.
+     phase 4's end-to-end bounds;
+ 15. the APA path: (a) ``bench.py``'s ``main_apa``, ``AudioMetrics(
+     metrics=["apa", "fad"])``, ``L0``, HTSAT-base bf16 with phase 4's
+     weights, 1024 + 1024 5 s pairs made on the card
+     (``testing.seeded_pairs``), batch 512: launch counts, d(x, x'), APA in
+     [0, 1], APA of the reference against itself, the evaluate through the
+     plain versions on the same state file, pairs/s and ``timings``, the
+     card's L0 mix against the CPU's and its loudness against -20 LUFS in
+     the float64 oracle, its time beside its bound; (b) ``AudioMetrics(
+     input_sr=48000)`` at its defaults (``laion_clap_music`` f32 from phase
+     10's checkpoint), 128 + 128 pairs: launch counts, finite metrics,
+     pairs/s;
+ 16. the host-fed path and the command line: (a) Python lists of numpy
+     mono songs of 5.5-39.5 s at 48 kHz (``testing.seeded_songs``, each
+     ending in a partial window) holding 2304 + 2304 5 s windows,
+     ``AudioMetrics(metrics=["fad", "kd", "prdc", "fad_inf"])`` on
+     HTSAT-base bf16 with phase 4's weights at the pre-ReLU projection tap
+     (``laion_clap_music_l-2``'s; the default tap's embeddings of random
+     weights have no full-rank covariance): launch counts, finite
+     metrics, FAD of a set against itself, the same windows stacked on the
+     card through the device path (stored embeddings bitwise equal, fad
+     and kd under E2E_TOL, PRDC equal), FAD-inf on the card against the
+     CPU over the same embeddings, clips/s (median and spread of three warm
+     evaluates) and ``timings`` for the Python feeder,
+     ``AM_TPU_NATIVE_LOADER=1``, ``AM_TPU_TRANSFER_INT16=1`` (each set
+     around its run only) and the device path; (b) lists of context+stem
+     songs holding 256 + 256 windows, ``metrics=["apa", "fad"]``, ``L0``,
+     through both feeders: launch counts, finite metrics, APA in [0, 1],
+     APA of the reference against itself, pairs/s; (c) the command line
+     in-process (``__main__.main``): 64 + 64 mono 5 s WAV files at 48 kHz
+     written by the port's ``wavio`` (float32, int16), ``evaluate
+     --metrics fad kd prdc fad_inf`` in 0.5 s windows with
+     ``laion_clap_music_l-2`` (f32) from phase 10's checkpoint
+     (``AM_TPU_CKPT_DIR`` set around it): finite JSON, ``--save-state`` then ``--load-state`` FAD equal to
+     rtol 1e-6, ``convert`` of the checkpoint equal to
+     ``convert.convert_checkpoint``'s arrays.
 Phase 3 runs each kernel redesigned for Hopper on the wgmma core (the
 whole Swin block at every stage and shift, its v3, v1 and v2 attention
 halves and fused MLP, the three patch merges, the fused frontend, the two
@@ -167,6 +202,10 @@ N_PAIRS_APA = 1024   # phase 15 (a), bench.py's main_apa
 APA_BATCH = 512      # phase 15 (a), bench.py's min(BATCH_SIZE, n_pairs, 512)
 N_PAIRS_DEFAULT = 128  # phase 15 (b)
 MIX_CHUNK = 64       # the pair path's chunk for registry mixes
+N_WIN_HOSTFED = 2304  # phase 16 (a): 36 batches of 64 5 s windows a set, >= 4 (d + 2)
+N_WIN_HOSTFED_APA = 256  # phase 16 (b)
+N_WAV = 64           # phase 16 (c): WAV files a directory
+WAV_WIN_S = 0.5      # phase 16 (c): 10 windows a 5 s file, 640 > d + 2 for fad_inf
 CLIP_S = 5
 SR = 48000
 BATCH = 64       # e2e batch size
@@ -262,6 +301,11 @@ APA_SELF_TOL = 1e-3
 APA_E2E_TOL = 2e-4
 MIX_CARD_TOL = 1e-6
 MIX_LUFS_TOL = 0.01
+# phase 16 (a): FAD-inf on the card against the port's FAD-inf on the CPU
+# over the same embeddings and reference statistics, relative to max(1,
+# |value|): tests/test_fad_inf.py's bounds for the f32 sweep against its
+# float64 oracle
+FAD_INF_TOL = {"fad_inf": 5e-3, "fad_inf_slope": 2e-2}
 # phase 12 (b): VGGish f32 against bf16 embeddings of the same clips (not
 # unit rows: norms ~45); the CPU reading of the same arithmetic on 32 of
 # these clips, 1.23e-5 and 0.064, times ~10
@@ -2212,6 +2256,278 @@ def phase_apa_defaults(card: str, params: dict) -> None:
         f"{n / cold:.2f} pairs/s first [{card}; real_weights: false]")
 
 
+
+def stacked_windows(songs, win: int) -> torch.Tensor:
+    """The whole windows of ``songs`` (numpy), in the host-fed path's order,
+    stacked as one (N, win) f32 tensor on the card."""
+    return torch.cat([torch.from_numpy(s[: len(s) // win * win]).view(-1, win)
+                      for s in songs]).cuda()
+
+
+def phase_hostfed(card: str) -> None:
+    """(a) The host-fed stems path: ``AudioMetrics(metrics=["fad", "kd",
+    "prdc", "fad_inf"])``, LaionCLAP HTSAT-base bf16 with phase 4's seeded
+    weights at the ``laion_clap_music_l-2`` tap (``audio_projection.0``,
+    before the projection's ReLU: with random weights the default tap's
+    embeddings span only the ReLU units that fire, so their covariance has
+    no Cholesky factor and FAD-inf cannot run), batch 64, over Python lists
+    of numpy mono songs at 48 kHz
+    (``testing.seeded_songs``: 5.5-39.5 s each, every song ending in a
+    partial window, which is dropped) holding N_WIN_HOSTFED 5 s windows a
+    set: launch counts, finite metrics, FAD of a set against itself; the
+    same windows stacked on the card through the device path: stored
+    reference embeddings bitwise equal, fad, kd and prdc under phase 4's
+    E2E_TOL; FAD-inf on the card against the port's FAD-inf on the CPU
+    over the same embeddings (FAD_INF_TOL); clips/s of three warm
+    evaluates and ``timings`` for the Python feeder,
+    ``AM_TPU_NATIVE_LOADER=1``, ``AM_TPU_TRANSFER_INT16=1`` (each set
+    around its run only) and the device path on the same windows."""
+    from audio_metrics_tpu_torch import AudioMetrics
+    from audio_metrics_tpu_torch.data import AudioMetricsData
+    from audio_metrics_tpu_torch.metrics.fad import fad_inf_parts
+    from audio_metrics_tpu_torch.models.clap import LaionCLAP
+    from audio_metrics_tpu_torch.models.htsat import HTSAT_BASE
+    from audio_metrics_tpu_torch.parallel.native_loader import load_library
+    from audio_metrics_tpu_torch.parallel.pipeline import ItemCategory
+    from audio_metrics_tpu_torch.testing import seeded_songs
+
+    win, n = CLIP_S * SR, N_WIN_HOSTFED
+    metrics = ["fad", "kd", "prdc", "fad_inf"]
+    clap = LaionCLAP(cfg=HTSAT_BASE, compute_dtype="bfloat16", allow_random_weights=True,
+                     layer="audio_projection.0", device="cuda")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    reference = seeded_songs(n, win, SR, seed=31, device="cuda")
+    candidate = seeded_songs(n, win, SR, seed=32, candidate=True, device="cuda")
+    gib = sum(s.nbytes for s in reference + candidate) / 2**30
+    log(f"  {len(reference)} + {len(candidate)} mono songs ({min(len(s) for s in reference) / SR:.1f}"
+        f"-{max(len(s) for s in reference) / SR:.1f} s) holding {n} + {n} windows of {CLIP_S} s, "
+        f"numpy on the host ({gib:.3f} GiB f32), made in {time.perf_counter() - t0:.2f} s; "
+        f"batch {BATCH}")
+    am = AudioMetrics(metrics=metrics, embedder=clap, win_dur=float(CLIP_S), input_sr=SR,
+                      batch_size=BATCH, device="cuda")
+    set_counts_to_zero()
+    am.add_reference(reference)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = am.evaluate(candidate)
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    forwards = 2 * -(-n // BATCH)
+    log(f"  result {result}")
+    check_counts(f"add_reference + first evaluate, {forwards} forward batches", read_counts(),
+                 expected(forwards, swin_block=18, patch_merge=3, clap_frontend=1))
+    if not all(np.isfinite(v) for v in result.values()):
+        raise AssertionError("non-finite metric on the host-fed path")
+    check_self_fad(am, reference)
+
+    ref_stack, cand_stack = stacked_windows(reference, win), stacked_windows(candidate, win)
+    if not (ref_stack.shape[0] == cand_stack.shape[0] == n):
+        raise AssertionError("the songs do not hold the windows asked for")
+    amd = AudioMetrics(metrics=metrics, embedder=clap, win_dur=float(CLIP_S), input_sr=SR,
+                       batch_size=BATCH, device="cuda")
+    amd.add_reference(ref_stack)
+    device = amd.evaluate(cand_stack)
+    same = torch.equal(am.stem_reference.embeddings, amd.stem_reference.embeddings)
+    log(f"  the same windows stacked on the card, device path: {device}; stored reference "
+        f"embeddings bitwise equal: {same}")
+    if not same:
+        raise AssertionError("host-fed embeddings differ from the device path's on the same "
+                             "windows")
+    for key in ("fad", "kernel_distance_mean", "kernel_distance_std"):
+        rel = abs(result[key] - device[key]) / max(abs(device[key]), 1e-12)
+        log(f"  {key}: host-fed {result[key]:.8g} device path {device[key]:.8g} rel {rel:.3g} "
+            f"(tol {E2E_TOL[key]})")
+        if not rel <= E2E_TOL[key]:
+            raise AssertionError(f"{key} of the host-fed path disagrees with the device path")
+    prdc_keys = ("precision", "recall", "density", "coverage")
+    log(f"  prdc host-fed {[result[k] for k in prdc_keys]} device path "
+        f"{[device[k] for k in prdc_keys]}")
+    if any(result[k] != device[k] for k in prdc_keys):
+        raise AssertionError("PRDC of the host-fed path differs from the device path's on "
+                             "bitwise equal embeddings")
+
+    cand_set = am._run_pipeline(candidate, None)[ItemCategory.stem]
+    arrays, reduce_fn = fad_inf_parts(cand_set, am.stem_reference)
+    card_inf = reduce_fn(tuple(a.double().cpu().numpy() for a in arrays))
+    cpu = [AudioMetricsData.deserialize(x.serialize(), device="cpu")
+           for x in (cand_set, am.stem_reference)]
+    arrays, reduce_fn = fad_inf_parts(*cpu)
+    cpu_inf = reduce_fn(tuple(a.double().numpy() for a in arrays))
+    for key, tol in FAD_INF_TOL.items():
+        err = abs(card_inf[key] - cpu_inf[key]) / max(1.0, abs(cpu_inf[key]))
+        log(f"  {key}: card {card_inf[key]:.8g} (evaluate {result[key]:.8g}) CPU "
+            f"{cpu_inf[key]:.8g}: {err:.3g} (tol {tol})")
+        if not err <= tol:
+            raise AssertionError(f"{key} on the card disagrees with the CPU")
+    smallest_subset_trace_sqrt(cand_set, am.stem_reference, card)
+
+    t0 = time.perf_counter()
+    load_library()
+    log(f"  native batcher built and loaded in {time.perf_counter() - t0:.2f} s (g++)")
+    for what, env, cand in (("Python feeder", {}, candidate),
+                            ("AM_TPU_NATIVE_LOADER=1", {"AM_TPU_NATIVE_LOADER": "1"}, candidate),
+                            ("AM_TPU_TRANSFER_INT16=1", {"AM_TPU_TRANSFER_INT16": "1"}, candidate),
+                            ("device path, the same windows stacked", {}, cand_stack)):
+        with environ(**env):
+            rate = warm_evaluates(am, cand, n)
+        timings = {k: round(v, 4) for k, v in am.timings.items()}
+        log(f"  {what}: evaluate of {n} windows {rate} [{card}; real_weights: false]; "
+            f"timings (s) {timings}")
+    log(f"  first evaluate (Python feeder): {n / cold:.2f} clips/s")
+    del am, amd, ref_stack, cand_stack, reference, candidate
+
+
+def smallest_subset_trace_sqrt(cand, ref, card: str) -> None:
+    """Why FAD-inf's sweep runs in float64 (printed, not checked): ``Tr
+    sqrt(L^T C_s L)`` of its smallest subset (``default_rng(1234)``, as
+    ``fad_inf_parts`` draws it) by Newton-Schulz in f32, as the JAX package
+    runs it, and in float64, against the float64 eigenvalues, on the card
+    and on the CPU."""
+    from audio_metrics_tpu_torch.metrics.fad import _ns_trace_sqrt_sym
+
+    emb = cand.embeddings.double()
+    n, d = emb.shape
+    s = int(np.round(max(d + 2, 0.25 * n)))
+    x = emb[torch.from_numpy(np.random.default_rng(1234).permutation(n)[:s]).cuda()]
+    x = x - x.mean(dim=0)
+    l = torch.from_numpy(ref.chol_cov()).cuda()
+    m = l.T @ ((x.T @ x) / (s - 1)) @ l
+    m = 0.5 * (m + m.T)
+    eig = torch.linalg.eigvalsh(m)
+    want = eig.clamp(min=0).sqrt().sum().item()
+    got = {f"{dev} {dt} {it}": _ns_trace_sqrt_sym(m.to(dev, dt), it).item()
+           for dev in ("cuda", "cpu") for dt in (torch.float32, torch.float64)
+           for it in (30, 60)}
+    log(f"  FAD-inf's smallest subset ({s} of {n} rows, d = {d}): eigenvalues of L^T C L "
+        f"{eig[0].item():.3g}..{eig[-1].item():.3g}; Tr sqrt float64 eigh {want:.8g}; Newton-"
+        "Schulz (device dtype iterations): " + ", ".join(f"{k} {v:.8g}" for k, v in got.items())
+        + f" [{card}]")
+
+
+def phase_hostfed_apa(card: str) -> None:
+    """(b) The host-fed APA path: ``AudioMetrics(metrics=["apa", "fad"])``,
+    ``L0``, LaionCLAP HTSAT-base bf16, batch 64, over lists of numpy
+    context+stem songs (``testing.seeded_songs(pairs=True)``) holding
+    N_WIN_HOSTFED_APA 5 s windows a set, through the Python feeder and the
+    C++ batcher: launch counts, finite metrics, APA in [0, 1], APA of the
+    reference against itself, pairs/s."""
+    from audio_metrics_tpu_torch import AudioMetrics
+    from audio_metrics_tpu_torch.models.clap import LaionCLAP
+    from audio_metrics_tpu_torch.models.htsat import HTSAT_BASE
+    from audio_metrics_tpu_torch.testing import seeded_songs
+
+    n = N_WIN_HOSTFED_APA
+    clap = LaionCLAP(cfg=HTSAT_BASE, compute_dtype="bfloat16", allow_random_weights=True,
+                     device="cuda")
+    reference = seeded_songs(n, CLIP_S * SR, SR, seed=33, pairs=True, device="cuda")
+    candidate = seeded_songs(n, CLIP_S * SR, SR, seed=34, pairs=True, device="cuda")
+    log(f"  {len(reference)} + {len(candidate)} context+stem songs holding {n} + {n} windows "
+        f"of {CLIP_S} s, L0, batch {BATCH}")
+    for what, native in (("Python feeder", "0"), ("AM_TPU_NATIVE_LOADER=1", "1")):
+        with environ(AM_TPU_NATIVE_LOADER=native):
+            am = AudioMetrics(metrics=["apa", "fad"], embedder=clap, mix_function="L0",
+                              win_dur=float(CLIP_S), input_sr=SR, batch_size=BATCH,
+                              device="cuda")
+            set_counts_to_zero()
+            am.add_reference(reference)
+            result = am.evaluate(candidate)
+            forwards = 5 * -(-n // BATCH)
+            want = {name: 0 for name in read_counts()}
+            want.update(swin_block=18 * forwards, patch_merge=3 * forwards,
+                        clap_frontend=forwards)
+            check_counts(f"{what}: add_reference + first evaluate, {forwards} forward batches",
+                         read_counts(), want)
+            log(f"  {what}: result {result}; d(x, x') {am.apa_d_x_xp:.6g}; sets "
+                f"{len(am.mix_reference)} aligned, {len(am.mix_anti_reference)} misaligned, "
+                f"{len(am.stem_reference)} stems")
+            if not (all(np.isfinite(v) for v in result.values()) and 0.0 <= result["apa"] <= 1.0):
+                raise AssertionError("APA outside [0, 1] or a non-finite metric (host-fed)")
+            log(f"  {what}: evaluate of {n} pairs {warm_evaluates(am, candidate, n, unit='pairs')} "
+                f"[{card}; real_weights: false]; timings (s) "
+                f"{ {k: round(v, 4) for k, v in am.timings.items()} }")
+            self_apa = am.evaluate(reference)["apa"]
+        log(f"  {what}: APA of the reference songs against themselves {self_apa:.8g} (tol "
+            f"|1 - apa| <= {APA_SELF_TOL})")
+        if not abs(1.0 - self_apa) <= APA_SELF_TOL:
+            raise AssertionError("APA(reference, reference) is not ~1 on the host-fed path")
+
+
+def phase_cli(card: str, params: dict) -> None:
+    """(c) The command line, in-process ``main([...])`` on the card: WAV
+    directories written by the port's ``wavio``, N_WAV + N_WAV mono 5 s
+    files at 48 kHz (the reference in float32, the candidate in int16);
+    ``evaluate`` with ``--embedder laion_clap_music_l-2`` (the default
+    embedder's checkpoint and f32 forward at its pre-ReLU tap, for the
+    reason (a) gives) built from phase 10's checkpoint (``AM_TPU_CKPT_DIR``
+    set around this phase only), ``--metrics fad kd prdc fad_inf`` over
+    WAV_WIN_S windows
+    (d + 2 < 640 windows, so that FAD-inf runs), ``--save-state``: finite
+    JSON; ``--load-state`` alone: FAD equal to rtol 1e-6; ``convert`` of the
+    checkpoint: the arrays of ``convert.convert_checkpoint``, bitwise."""
+    import contextlib
+    import io
+
+    from audio_metrics_tpu_torch.__main__ import main as cli_main
+    from audio_metrics_tpu_torch.convert import convert_checkpoint
+    from audio_metrics_tpu_torch.models.htsat import HTSAT_BASE
+    from audio_metrics_tpu_torch.utils.wavio import write_wav
+
+    def run(argv):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = cli_main(argv)
+        if rc != 0:
+            raise AssertionError(f"the command line exited {rc}: {argv}")
+        return out.getvalue()
+
+    gen = np.random.default_rng(35)
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, dtype, loud in (("ref", "float32", 0.2), ("cand", "int16", 0.3)):
+            os.makedirs(os.path.join(tmp, name))
+            for i in range(N_WAV):
+                write_wav(os.path.join(tmp, name, f"{i:03d}.wav"),
+                          np.clip(loud * gen.standard_normal(CLIP_S * SR), -1, 1), SR,
+                          dtype=dtype)
+        ckpt_name = write_clap_checkpoint(params, tmp)
+        state = os.path.join(tmp, "ref_state.npz")
+        common = ["--metrics", "fad", "kd", "prdc", "fad_inf", "--win-dur", str(WAV_WIN_S),
+                  "--batch-size", str(BATCH), "--embedder", "laion_clap_music_l-2"]
+        with environ(AM_TPU_CKPT_DIR=tmp):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            first = json.loads(run(["evaluate", "--reference", os.path.join(tmp, "ref"),
+                                    "--candidate", os.path.join(tmp, "cand"), "--save-state",
+                                    state] + common))
+            torch.cuda.synchronize()
+            t_first = time.perf_counter() - t0
+            second = json.loads(run(["evaluate", "--load-state", state, "--candidate",
+                                     os.path.join(tmp, "cand")] + common))
+        log(f"  evaluate of {N_WAV} + {N_WAV} WAV files (float32, int16), {WAV_WIN_S} s windows, "
+            f"laion_clap_music_l-2 f32 from {ckpt_name}: {first} ({t_first:.2f} s with the "
+            f"embedder's build and the files' reading) [{card}]")
+        if list(first) != ["fad", "kernel_distance_mean", "kernel_distance_std", "precision",
+                           "recall", "density", "coverage", "fad_inf", "fad_inf_slope"] or \
+                not all(np.isfinite(v) for v in first.values()):
+            raise AssertionError("the command line's metrics are not the finite keys asked for")
+        rel = abs(second["fad"] - first["fad"]) / abs(first["fad"])
+        log(f"  --load-state then evaluate: fad {second['fad']:.10g} against {first['fad']:.10g}"
+            f", rel {rel:.3g} (tol 1e-6)")
+        if not rel <= 1e-6:
+            raise AssertionError("FAD from the state file differs")
+        out = os.path.join(tmp, "clap.npz")
+        run(["convert", os.path.join(tmp, ckpt_name), out])
+        want = convert_checkpoint(torch.load(os.path.join(tmp, ckpt_name), map_location="cpu",
+                                             weights_only=True)["state_dict"],
+                                  cfg=HTSAT_BASE, strict=True)
+        with np.load(out) as got:
+            same = sorted(got.files) == sorted(want) and all(
+                np.array_equal(got[k], want[k]) for k in want)
+            log(f"  convert: {len(got.files)} arrays, equal to convert_checkpoint's: {same}")
+        if not same:
+            raise AssertionError("convert wrote other arrays than convert_checkpoint")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run", file=sys.stderr)
@@ -2289,6 +2605,16 @@ def main() -> int:
     log("phase 15 (b) AudioMetrics(input_sr=48000) at its defaults: apa + fad, L0, "
         "laion_clap_music f32 from AM_TPU_CKPT_DIR")
     phase_apa_defaults(card, params)
+    t16 = time.perf_counter()
+    log("phase 16 (a) the host-fed stems path: lists of songs, fad + kd + prdc + fad_inf, "
+        "HTSAT-base bf16")
+    phase_hostfed(card)
+    log("phase 16 (b) the host-fed APA path: lists of context+stem songs, apa + fad, L0")
+    phase_hostfed_apa(card)
+    log("phase 16 (c) the command line: evaluate and convert, laion_clap_music_l-2 f32 from "
+        "AM_TPU_CKPT_DIR")
+    phase_cli(card, params)
+    log(f"  phase 16: {time.perf_counter() - t16:.1f} s [{card}]")
 
     # launches: each kernel's count on the path that runs it
     path_of = {"log_mel": launches_10s, "swin_attn_v3": launches_split,

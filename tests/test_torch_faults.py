@@ -121,7 +121,6 @@ class _Embedder:
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    (dict(metrics=["fad", "fad_inf"]), r"'fad_inf'.*fad_inf item 7\)"),
     (dict(metrics=["fad"], dcn_slices=2), r"dcn_slices.*item 10\)"),
     (dict(metrics=["fad"], device_indices=[0]), r"device_indices.*item 10\)"),
 ])
@@ -134,17 +133,24 @@ def test_unported_arguments_raise(kwargs, match):
     (dict(), True, True, "L0"),
     (dict(metrics=["kd", "apa"]), True, True, "L0"),
     (dict(metrics=["fad"], mix_function="L2"), False, True, "L2"),
+    (dict(metrics=["fad", "fad_inf"]), False, True, "L0"),
 ])
 def test_apa_arguments_build(kwargs, need_apa, stems_mode, mix):
-    """The APA arguments that the port refused before APA was ported: the
-    default metrics, APA among others, a named mix; the flags and the
-    registry mix the JAX package sets for them."""
+    """The arguments that the port refused before APA and ``fad_inf`` were
+    ported: the default metrics, APA among others, a named mix,
+    ``fad_inf``; the flags and the registry mix the JAX package sets for
+    them (``fad_inf`` stores the stem embeddings, as its
+    ``_need_embeddings`` says).  A metric of no name raises."""
     from audio_metrics_tpu_torch.ops.mix import MIX_FUNCTIONS
 
     am = AudioMetrics(embedder=_Embedder(), device="cpu", **kwargs)
     assert (am.need_apa, am.stems_mode, am.mix_function) == (need_apa, stems_mode,
                                                              MIX_FUNCTIONS[mix])
     assert (am.mix_reference is not None) == need_apa and am.stem_reference is not None
+    assert am.store_stem_embeddings == any(m in ("kd", "prdc", "fad_inf")
+                                           for m in am.metrics)
+    with pytest.raises(ValueError, match="unknown metric 'fad_infinity'"):
+        AudioMetrics(embedder=_Embedder(), device="cpu", metrics=["fad", "fad_infinity"])
 
 
 def test_ported_arguments_at_their_defaults_build():
@@ -178,6 +184,9 @@ def _first_check(name: str):
     """The first check that runs the code of fault ``name``
     (``plant_faults.CPU_FAULTS``), as a callable on the planted module."""
     import test_torch_apa as apa
+    import test_torch_cli as cli
+    import test_torch_fad_inf as fad_inf
+    import test_torch_hostfed as hostfed
     import test_torch_loudness as loudness
     import test_torch_options as options
     import test_torch_vggish as vggish
@@ -191,10 +200,13 @@ def _first_check(name: str):
         "U1": loudness.check_loudness,
         "K1": loudness.check_limiter,
         "A2": lambda mod: loudness.check_apa_formula(mod._apa),
+        "F2": lambda mod: fad_inf.check_fad_inf_parts(mod.fad_inf_parts),
+        "S3": lambda mod: hostfed.check_shuffle(mod.shuffle_stream),
+        "W2": lambda mod: cli.check_riff_size(mod.write_wav),
     }[name]
 
 
-@pytest.mark.parametrize("name", ["V1", "H1", "P2", "D1", "U1", "K1", "A2"])
+@pytest.mark.parametrize("name", ["V1", "H1", "P2", "D1", "U1", "K1", "A2", "F2", "S3", "W2"])
 def test_planted_python_fault_fails_its_first_check(name):
     """V1 (VGGish flattens NCHW) fails the f32 net against the JAX forward,
     H1 (the pipeline ignores ``hop_dur``) the windows against the JAX
@@ -204,10 +216,14 @@ def test_planted_python_fault_fails_its_first_check(name):
     relative gate without its -10 LU) the loudness against the JAX
     function's, K1 (the limiter's delay one sample long) the limiter
     against the JAX one, A2 (APA's denominator without |numerator|) the
-    formula's golden cases.  The same checks pass on the real modules
-    (their own tests in tests/test_torch_vggish.py,
-    tests/test_torch_options.py, tests/test_torch_apa.py and
-    tests/test_torch_loudness.py)."""
+    formula's golden cases; F2 (FAD-inf fitted against the subset size)
+    the sweep against the JAX function, S3 (the window shuffle protects
+    min_age - 1 insertions) the order against the JAX copy's, W2 (the RIFF
+    size 4 bytes too large) the size check.  The same checks pass on the
+    real modules (their own tests in tests/test_torch_vggish.py,
+    tests/test_torch_options.py, tests/test_torch_apa.py,
+    tests/test_torch_loudness.py, tests/test_torch_fad_inf.py,
+    tests/test_torch_hostfed.py and tests/test_torch_cli.py)."""
     from audio_metrics_tpu_torch.plant_faults import CPU_FAULTS
 
     assert name in CPU_FAULTS

@@ -138,7 +138,9 @@ def test_reset_reference_and_call():
 def test_package_imports_no_jax():
     code = (
         "import sys, audio_metrics_tpu_torch, audio_metrics_tpu_torch.convert, "
-        "audio_metrics_tpu_torch.models.clap; "
+        "audio_metrics_tpu_torch.models.clap, audio_metrics_tpu_torch.__main__, "
+        "audio_metrics_tpu_torch.parallel.native_loader, audio_metrics_tpu_torch.parallel.stream, "
+        "audio_metrics_tpu_torch.utils.example_utils; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
         "'audio_metrics_tpu')]; print(bad); sys.exit(1 if bad else 0)"
     )
@@ -150,8 +152,6 @@ def test_package_imports_no_jax():
 def test_unported_surface_raises():
     cfg = HTSATConfig(**SMALL)
     emb = LaionCLAP(params=_params(cfg), cfg=cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="fad_inf"):
-        AudioMetrics(metrics=["fad", "fad_inf"], embedder=emb, device="cpu")
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         AudioMetrics(metrics=["fad"], embedder=emb, device="cpu", device_indices=[0, 1])
     # APA takes context+stem pairs; mono stems raise the JAX package's error
@@ -160,10 +160,13 @@ def test_unported_surface_raises():
             np.zeros((2, 5 * SR), np.float32)
         )
     am = AudioMetrics(metrics=["fad"], embedder=emb, device="cpu")
-    with pytest.raises(NotImplementedError, match=r"host-fed.*item 8\)"):
-        am.add_reference([np.zeros(5 * SR, np.float32)])
     with pytest.raises(ValueError, match="empty"):
         am.evaluate(_clips(0, 1))
+    # songs of any length in a list take the host-fed path (its partial
+    # last windows dropped): a list evaluates
+    songs = [*_clips(1, 2), np.concatenate([_clips(2, 1)[0], _clips(3, 1)[0][: 2 * SR]])]
+    am.add_reference(songs)
+    assert am.stem_reference.n == 3 and np.isfinite(am.evaluate(songs[::-1])["fad"])
     with pytest.raises(ValueError, match="10 s"):  # CLAP takes at most 10 s windows
         AudioMetrics(metrics=["fad"], embedder=emb, device="cpu", win_dur=12.0).add_reference(
             np.zeros((1, 12 * SR), np.float32)
