@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import copy
 import math
+import os
 import time
 import warnings
 from pathlib import Path
@@ -32,6 +33,7 @@ from .metrics.kd import kernel_distance
 from .metrics.prdc import prdc
 from .models import get_embedder
 from .ops.mix import DEFAULT_MIX_FUNCTION, MIX_FUNCTIONS
+from .parallel.mesh import make_mesh
 from .parallel.pipeline import ItemCategory, embedding_pipeline
 from .projection import IncrementalPCA
 from .utils.serialize import load_state_dict, save_state_dict
@@ -68,17 +70,20 @@ class AudioMetrics:
         fitted at the first evaluate after an ``add_reference``).
         ``progress`` is accepted and does nothing (``parallel.pipeline.
         embedding_pipeline`` says where the JAX package shows a bar).
-        What is not ported raises ``NotImplementedError`` citing its
-        ROADMAP.md Queue 1 item: ``device_indices`` and ``dcn_slices`` away
-        from their defaults."""
-        unported = (
-            (device_indices is not None, "device_indices (multi-GPU); pass device=", 10),
-            (dcn_slices is not None, "dcn_slices (multi-host)", 10),
-        )
-        for given, what, item in unported:
-            if given:
-                raise NotImplementedError(
-                    f"{what} is not ported yet (ROADMAP.md Queue 1 item {item})")
+        ``device_indices``: the devices of the embedder's platform to
+        spread the work over (``self.mesh``, ``parallel.mesh.make_mesh``):
+        on ``cuda`` distinct indices of visible cards, on ``cpu`` k
+        distinct indices give k CPU shards.  None (or an empty list) is
+        the embedder's own device alone, the card ``device`` names: where
+        the JAX package spreads over every device by default, the port
+        asks for the cards, since a mesh over four H100s measured no
+        faster than one card (PERF.md §7).  ``dcn_slices`` (or
+        ``AM_TPU_DCN_SLICES``, read here): the ``(dcn, data)`` layout of
+        the mesh.  Bad indices raise
+        ``ValueError``.  The mesh's first device holds the stored
+        embeddings and the loaded state; with several shards the
+        embeddings, KD and PRDC spread over them, and FAD takes its host
+        float64 path (one moment triple a shard)."""
         for m in metrics:
             if m not in _METRICS:
                 raise ValueError(f"unknown metric {m!r}; the metrics are "
@@ -88,6 +93,13 @@ class AudioMetrics:
         if embedder is None or isinstance(embedder, str):
             embedder = get_embedder(embedder, device=device)
         self.embedder = embedder
+        if dcn_slices is None:
+            dcn_slices = int(os.environ.get("AM_TPU_DCN_SLICES", "0")) or None
+        if device_indices is None or len(device_indices) == 0:
+            self.mesh = make_mesh(devices=[embedder.device], dcn_slices=dcn_slices)
+        else:
+            self.mesh = make_mesh(device_indices, dcn_slices=dcn_slices,
+                                  device=embedder.device)
         if mix_function is None or isinstance(mix_function, str):
             mix_function = self.get_mix_function(mix_function)
         self.mix_function = mix_function
@@ -130,7 +142,7 @@ class AudioMetrics:
             stems_mode=self.stems_mode, store_mix_embeddings=self.store_mix_embeddings,
             store_stem_embeddings=self.store_stem_embeddings, batch_size=self.batch_size,
             win_dur=self.win_dur, hop_dur=self.hop_dur, input_sr=self.input_sr,
-            progress=self.progress, timings=timings,
+            progress=self.progress, timings=timings, mesh=self.mesh,
         )
 
     def add_reference(self, reference) -> None:
@@ -158,18 +170,21 @@ class AudioMetrics:
         """Warm-up hook (audio_metrics_tpu/audio_metrics.py:233-266): build
         the kernel library on a card, then run one ``add_reference`` and one
         ``evaluate`` of ``n_items`` windows of seeded synthetic audio
-        ((n_items, win, 2) pairs with APA) on the embedder's device, so
-        that the first real ``evaluate`` pays neither the build nor the
-        first-call costs.  Then restore the instance: the references, their
+        ((n_items, win, 2) pairs with APA; over a mesh of several shards at
+        least a batch a shard, so that every replica runs) on the mesh's
+        first device, so that the first real ``evaluate`` pays neither the
+        build nor the first-call costs.  Then restore the instance: the references, their
         projected caches, ``apa_d_x_xp`` and the projections' fits (deep
         copies).  The JAX package does not restore the projections, so with
         ``n_pca`` its later metrics come from projections fitted on noise
         (ROADMAP Queue 3); the port does."""
-        device = self.embedder.device
+        device = self.mesh.home
         if device.type == "cuda":
             from .kernels import build
 
             build()
+        if self.mesh.size > 1:
+            n_items = max(n_items, self.batch_size * self.mesh.size)
         snapshot = {a: getattr(self, a) for a in _AMD + ("apa_d_x_xp",)}
         snapshot["stem_projection"] = copy.deepcopy(self.stem_projection)
         snapshot["mix_projection"] = copy.deepcopy(self.mix_projection)
@@ -260,7 +275,11 @@ class AudioMetrics:
         candidate's moments, metrics/fad.py:117), else ``kd_dispatch``
         (metrics/kd.py:201-202), else ``prdc_dispatch``, else ``apa``.
         Each metric stage here returns host values, so the dispatches
-        include their own syncs.  Songs given as an iterable take the
+        include their own syncs.  Over a mesh of several shards the loops
+        send no host value (``parallel.pipeline.sharded_embed_loop``), so
+        ``pipeline`` ends when the shards' forwards are enqueued and the
+        wait for the card lands in the first stage that reads a device
+        value.  Songs given as an iterable take the
         host-fed path (``parallel.pipeline.embedding_pipeline``), which
         sends no host value to the card after a forward: there ``pipeline``
         ends with the one pull of the moments, which waits for the card,
@@ -306,12 +325,12 @@ class AudioMetrics:
             self.timings["fad"] = time.perf_counter() - t0
         if "kd" in self.metrics:
             t0 = time.perf_counter()
-            result.update(kernel_distance(cand, ref))
+            result.update(kernel_distance(cand, ref, mesh=self.mesh))
             self.timings["kd_dispatch"] = time.perf_counter() - t0
         if "prdc" in self.metrics:
             t0 = time.perf_counter()
             k = max(1, min(10, len(ref), len(cand)))
-            result.update(prdc(ref, cand, k))
+            result.update(prdc(ref, cand, k, mesh=self.mesh))
             self.timings["prdc_dispatch"] = time.perf_counter() - t0
         if "fad_inf" in self.metrics:
             t0 = time.perf_counter()
@@ -369,7 +388,7 @@ class AudioMetrics:
 
     def load_state(self, fp: str | Path) -> None:
         """Restore the references and their projected caches (embeddings and
-        radii on the embedder's device), the projections' fits (when this
+        radii on the mesh's first device), the projections' fits (when this
         instance has ``n_pca``, as in the JAX package), ``apa_d_x_xp``, and
         ``win_dur``, ``hop_dur``, ``input_sr``, ``batch_size`` from a state
         file of either package.  The instance keeps its own ``metrics``, as
@@ -378,7 +397,7 @@ class AudioMetrics:
         for attr in _AMD:
             item = state.get(attr)
             if item is not None and item.get("n") is not None:
-                setattr(self, attr, AudioMetricsData.deserialize(item, device=self.embedder.device))
+                setattr(self, attr, AudioMetricsData.deserialize(item, device=self.mesh.home))
             elif item is not None:
                 setattr(self, attr, AudioMetricsData(item.get("store_embeddings", True)))
         for attr in ("stem_projection", "mix_projection"):

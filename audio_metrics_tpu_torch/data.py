@@ -28,10 +28,12 @@ def ensure_ndarray(x) -> np.ndarray:
 
 def batch_moments(e: torch.Tensor, mask: torch.Tensor | None = None):
     """``(n, sum_x, sum (x-mu)(x-mu)^T)`` over the (masked) rows, f32
-    (audio_metrics_tpu/data.py:45-88)."""
+    (audio_metrics_tpu/data.py:45-88).  Without a mask ``n`` is the row
+    count, filled in on the device: nothing waits for the device's
+    stream."""
     e = e.float()
     if mask is None:
-        n = torch.tensor(float(e.shape[0]), device=e.device)
+        n = torch.full((), float(e.shape[0]), device=e.device)
         s1 = e.sum(dim=0)
         c = e - s1 / max(e.shape[0], 1)
     else:

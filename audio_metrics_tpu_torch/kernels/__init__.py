@@ -179,29 +179,38 @@ def _arg(a):
 class Kernel:
     """One hand-written kernel (a family of launches behind one wrapper).
 
-    ``launches`` counts wrapper calls that launched the kernel on a card;
-    the plain version never touches it.
+    ``launches`` counts wrapper calls that launched the kernel on a card
+    (each wrapper calls :meth:`count` once, under a lock: the shards of a
+    mesh launch from one host thread each); the plain version never
+    touches it.
     """
 
     def __init__(self, name: str, source: str, replaces: str):
         self.name, self.source, self.replaces = name, source, replaces
         self.launches = 0
+        self._count_lock = threading.Lock()
+
+    def count(self) -> None:
+        """Add one launch to ``launches``."""
+        with self._count_lock:
+            self.launches += 1
 
     def launch(self, symbol: str, *args) -> None:
         """Call one C entry point on the operands' card, on that card's
         current stream, and raise on a launch error (a refused launch never
         runs, and a later synchronize would not report it).  The first
         tensor argument names the card (``require_cuda`` has checked that
-        all operands share it), whichever card is current."""
+        all operands share it), whichever card is current.  Every argument
+        goes as a ctypes instance (``_arg``), which fixes its C type, and
+        the entry points return ``int``, ctypes' default: so nothing of the
+        shared function object is set per call, and host threads may launch
+        at once."""
         lib = build()
         fn = getattr(lib, symbol)
         dev = next(a.device for a in args if isinstance(a, torch.Tensor))
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
-            cargs = [*map(_arg, args), ctypes.c_void_p(stream)]
-            fn.argtypes = [type(a) for a in cargs]
-            fn.restype = ctypes.c_int
-            rc = fn(*cargs)
+            rc = fn(*map(_arg, args), ctypes.c_void_p(stream))
         if rc != 0:
             raise RuntimeError(f"{self.name}: {symbol} failed with cudaError {rc}")
 

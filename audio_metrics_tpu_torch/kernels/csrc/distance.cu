@@ -107,15 +107,17 @@ __device__ __forceinline__ void bisect_kth(uint32_t (&lo)[ROWS], uint32_t (&hi)[
 constexpr int SEL_ROWS = 4;  // rows a warp selects together
 
 // Block (row tile, split): the k smallest squared distances of each of its
-// rows to the columns [split * split_cols, +split_cols) of x, in no order,
-// into lists (n, splits, k) (+inf where the split has fewer than k columns).
+// query rows (q: n_q rows of x from some row on, sq_q their squared norms) to
+// the columns [split * split_cols, +split_cols) of x, in no order, into
+// lists (n_q, splits, k) (+inf where the split has fewer than k columns).
 // A row's list and its k-th smallest t live in shared memory; a tile with a
 // value below t makes the row's warp take the k-th smallest t' of list and
 // tile together, and keep every value below t' and copies of t' up to k.
 // VL = ceil(k / 32): the list's values per lane.
 template <int VL>
 __global__ void __launch_bounds__(THREADS, 2)
-knn_split_kernel(const float* __restrict__ x, const float* __restrict__ sq, int n, int d, int k,
+knn_split_kernel(const float* __restrict__ q, const float* __restrict__ sq_q, int n_q,
+                 const float* __restrict__ x, const float* __restrict__ sq, int n, int d, int k,
                  int split_cols, float* __restrict__ lists) {
   extern __shared__ float smem[];
   float* tiles = smem;                    // two stages; then the distance tile
@@ -129,7 +131,7 @@ knn_split_kernel(const float* __restrict__ x, const float* __restrict__ sq, int 
 
   for (int col0 = c_begin; col0 < c_end; col0 += KNN_BN) {
     float acc[TM][TM];
-    tile_products(x, n, x, n, d, row0, col0, tiles, acc);
+    tile_products(q, n_q, x, n, d, row0, col0, tiles, acc);
 
     // distances -> the tile; columns past the split are +inf
     float* D = tiles;
@@ -141,7 +143,7 @@ knn_split_kernel(const float* __restrict__ x, const float* __restrict__ sq, int 
       for (int i = 0; i < TM; ++i) {
         const int r = row0 + ty + 16 * i;
         D[(ty + 16 * i) * DPITCH + col] =
-            c < c_end ? sq_dist(r < n ? sq[r] : 0.f, sb, acc[i][j]) : CUDART_INF_F;
+            c < c_end ? sq_dist(r < n_q ? sq_q[r] : 0.f, sb, acc[i][j]) : CUDART_INF_F;
       }
     }
     __syncthreads();
@@ -207,7 +209,7 @@ knn_split_kernel(const float* __restrict__ x, const float* __restrict__ sq, int 
   const int splits = gridDim.y;
   for (int i = tid; i < KNN_BM * k; i += THREADS) {
     const int rr = i / k, j = i - rr * k, r = row0 + rr;
-    if (r < n) lists[((size_t)r * splits + split) * k + j] = list[i];
+    if (r < n_q) lists[((size_t)r * splits + split) * k + j] = list[i];
   }
 }
 
@@ -303,26 +305,32 @@ stats_split_kernel(const float* __restrict__ ref, const float* __restrict__ sq_r
 
 }  // namespace
 
-// x: (n, d) f32, d % 4 == 0; sq: (n,) f32 squared row norms; lists:
-// (n, splits, k) f32 scratch; out: (n,) f32 radii = sqrt of the k-th
-// smallest squared distance of each row (self included).  split_cols: a
-// multiple of 128, splits * split_cols >= n (ops/distance.py column_splits).
-extern "C" int am_knn_radii(const float* x, const float* sq, int n, int d, int k, int splits,
-                            int split_cols, float* lists, float* out, cudaStream_t stream) {
+// x: (n, d) f32, d % 4 == 0; sq: (n,) f32 squared row norms; the query
+// rows [row0, row0 + n_q) of x (a mesh shard's block; the whole set is
+// row0 = 0, n_q = n); lists: (n_q, splits, k) f32 scratch; out: (n_q,) f32
+// radii = sqrt of the k-th smallest squared distance of each query row to
+// all n rows (self included).  A row's radius does not depend on the range
+// it is asked in: its distances round alike in every tile and the k-th is
+// an order statistic.  split_cols: a multiple of 128, splits * split_cols
+// >= n (ops/distance.py column_splits(n_q, n, sms)).
+extern "C" int am_knn_radii(const float* x, const float* sq, int n, int d, int k, int row0,
+                            int n_q, int splits, int split_cols, float* lists, float* out,
+                            cudaStream_t stream) {
   if (k < 1 || k > KMAX || k > n || d % 4 || split_cols % KNN_BN ||
-      (long long)splits * split_cols < n)
+      (long long)splits * split_cols < n || row0 < 0 || n_q < 1 || n_q > n - row0)
     return (int)cudaErrorInvalidValue;
+  const float* q = x + (size_t)row0 * d;
   const int vl = (k + 31) / 32;
   const auto kernel = vl == 1 ? knn_split_kernel<1> : vl == 2 ? knn_split_kernel<2>
                     : vl == 3 ? knn_split_kernel<3> : knn_split_kernel<4>;
   const int smem = (TILE_FLOATS + KNN_BM * (k + 1)) * (int)sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  kernel<<<dim3((n + KNN_BM - 1) / KNN_BM, splits), THREADS, smem, stream>>>(x, sq, n, d, k,
-                                                                          split_cols, lists);
+  kernel<<<dim3((n_q + KNN_BM - 1) / KNN_BM, splits), THREADS, smem, stream>>>(
+      q, sq + row0, n_q, x, sq, n, d, k, split_cols, lists);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  knn_merge_kernel<<<(n + MERGE_WARPS - 1) / MERGE_WARPS, MERGE_WARPS * 32, 0, stream>>>(
-      lists, n, splits, k, out);
+  knn_merge_kernel<<<(n_q + MERGE_WARPS - 1) / MERGE_WARPS, MERGE_WARPS * 32, 0, stream>>>(
+      lists, n_q, splits, k, out);
   return (int)cudaGetLastError();
 }
 

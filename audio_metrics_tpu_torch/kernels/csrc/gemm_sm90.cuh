@@ -56,6 +56,7 @@
 #include <cuda.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <type_traits>
 
 #include "gemm.cuh"
@@ -614,17 +615,21 @@ typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, v
                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
-// cuTensorMapEncodeTiled's entry point: one per process, for every card.
+// cuTensorMapEncodeTiled's entry point: one per process, for every card
+// (a function-local static: initialised once, whichever host thread of a
+// mesh's shards launches first).
+inline EncodeTiled query_encode_tiled() {
+  void* f = nullptr;
+  cudaDriverEntryPointQueryResult q;
+  if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q) ==
+          cudaSuccess &&
+      q == cudaDriverEntryPointSuccess)
+    return reinterpret_cast<EncodeTiled>(f);
+  return nullptr;
+}
+
 inline EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q) ==
-            cudaSuccess &&
-        q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(f);
-  }
+  static const EncodeTiled fn = query_encode_tiled();
   return fn;
 }
 
@@ -658,7 +663,9 @@ inline int encode(CUtensorMap* map, const Operand& o, int box_rows) {
 
 // Per-card caches, keyed by the current card (the wrappers make the
 // operands' card current): its SM count, and whether an instantiation's
-// shared-memory attribute is set there (an attribute is per card).
+// shared-memory attribute is set there (an attribute is per card).  Atomic:
+// the shards of a mesh launch from several host threads; two threads may
+// both set an attribute, which sets it to the same value.
 constexpr int MAX_CARDS = 64;
 
 inline int current_card() {
@@ -668,9 +675,13 @@ inline int current_card() {
 }
 
 inline int sm_count(int dev) {
-  static int n[MAX_CARDS] = {};
-  if (n[dev] == 0) cudaDeviceGetAttribute(&n[dev], cudaDevAttrMultiProcessorCount, dev);
-  return n[dev];
+  static std::atomic<int> n[MAX_CARDS];
+  int v = n[dev].load(std::memory_order_relaxed);
+  if (v == 0) {
+    cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev);
+    n[dev].store(v, std::memory_order_relaxed);
+  }
+  return v;
 }
 
 template <int BN, int EPI, class ALoad, typename E>
@@ -681,13 +692,13 @@ int launch_bn(const CUtensorMap& ta, const ALoad& load_a, const Operand& b, cons
   if ((e = encode<E>(&tb, b, BN)) != 0) return e;
   const int dev = current_card();
   if (dev >= MAX_CARDS) return cudaErrorInvalidDevice;
-  static bool attr[MAX_CARDS] = {};  // per instantiation and card
-  if (!attr[dev]) {
+  static std::atomic<bool> attr[MAX_CARDS];  // per instantiation and card
+  if (!attr[dev].load(std::memory_order_acquire)) {
     if ((e = cudaFuncSetAttribute(gemm_sm90_kernel<BN, EPI, ALoad, E>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   Smem<BN>::BYTES)) != cudaSuccess)
       return e;
-    attr[dev] = true;
+    attr[dev].store(true, std::memory_order_release);
   }
   const int tiles = batch * ((p.M + BM - 1) / BM) * (p.N / BN), sms = sm_count(dev);
   const int grid = tiles < sms ? tiles : sms;

@@ -365,13 +365,13 @@ int launch_bn(const CUtensorMap& ta, const ALoad& load_a, const Operand& b, cons
   if ((e = encode(&tb, b, BN)) != 0) return e;
   const int dev = sm90::current_card();
   if (dev >= sm90::MAX_CARDS) return cudaErrorInvalidDevice;
-  static bool attr[sm90::MAX_CARDS] = {};  // per instantiation and card
-  if (!attr[dev]) {
+  static std::atomic<bool> attr[sm90::MAX_CARDS];  // per instantiation and card
+  if (!attr[dev].load(std::memory_order_acquire)) {
     if ((e = cudaFuncSetAttribute(gemm_tf32x3_kernel<BN, EPI, ALoad>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   Smem<BN>::BYTES)) != cudaSuccess)
       return e;
-    attr[dev] = true;
+    attr[dev].store(true, std::memory_order_release);
   }
   const int tiles = ((p.M + BM - 1) / BM) * (p.N / BN), sms = sm90::sm_count(dev);
   const int grid = tiles < sms ? tiles : sms;

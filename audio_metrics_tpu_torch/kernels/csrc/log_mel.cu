@@ -291,14 +291,14 @@ int launch_log_mel(const CUtensorMap& ta, const CUtensorMap& tb, const MelEpi& p
                    int batch, cudaStream_t stream) {
   const int dev = current_card();
   if (dev >= MAX_CARDS) return cudaErrorInvalidDevice;
-  static bool attr[MAX_CARDS] = {};  // per instantiation and card
+  static std::atomic<bool> attr[MAX_CARDS];  // per instantiation and card
   int e;
-  if (!attr[dev]) {
+  if (!attr[dev].load(std::memory_order_acquire)) {
     if ((e = cudaFuncSetAttribute(log_mel_sm90_kernel<OutT>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   MelSmem::BYTES)) != cudaSuccess)
       return e;
-    attr[dev] = true;
+    attr[dev].store(true, std::memory_order_release);
   }
   const int tiles = batch * ((p.n_frames + BM - 1) / BM), sms = sm_count(dev);
   log_mel_sm90_kernel<OutT><<<tiles < sms ? tiles : sms, THREADS, MelSmem::BYTES, stream>>>(

@@ -5,7 +5,10 @@ drawn on the host with the reference's exact ``default_rng(1234)`` call
 order (:459-475); the per-subset Gram sums run on the device (:116-250,
 :313-430) as batched products over chunks of subsets, row sums in f32 and
 the finals in f64.  The reference-only term sum(K_YY) - tr(K_YY) is cached
-per reference embeddings, subset indices and kernel parameters.
+per reference embeddings, subset indices, kernel parameters and mesh.
+Over a mesh (:257-324, :394-410; one shard by default) the chunks are dealt out in contiguous
+runs, one a shard, each shard working on its own device's copy of both
+feature sets, and the per-subset sums come back in subset order.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import numpy as np
 import torch
 
 from ..data import AudioMetricsData
+from ..parallel.mesh import make_mesh
 from ..utils.precision import full_f32
 
 __all__ = [
@@ -110,40 +114,79 @@ def _off_diag_sum(k):
     return k.sum(dim=2).double().sum(dim=1) - torch.diagonal(k, dim1=1, dim2=2).double().sum(dim=1)
 
 
+CHUNK_BYTES = 128 << 20  # the two (S, m, m) f32 Gram batches of one chunk of subsets
+
+
 def _chunks(s: int, m: int):
-    chunk = max(1, min(s, (128 << 20) // (2 * m * m * 4)))
+    chunk = max(1, min(s, CHUNK_BYTES // (2 * m * m * 4)))
     return [slice(i, min(i + chunk, s)) for i in range(0, s, chunk)]
 
 
-def _cand_sums(f1, f2, i1, i2, kparams):
+def shard_chunks(s: int, m: int, shards: int) -> list:
+    """The chunks of ``_chunks(s, m)`` in contiguous runs, one a shard
+    (fewer runs than shards when there are fewer chunks; a shard without one
+    gets None): every product then has the shape and the operands it has on
+    one device, so each subset's sums come out bitwise as there.  The JAX
+    package pads its subsets to a multiple of its mesh with duplicates
+    instead (kd.py:394-402)."""
+    chunks = _chunks(s, m)
+    runs = np.array_split(np.arange(len(chunks)), min(shards, len(chunks)))
+    out = [chunks[r[0] : r[-1] + 1] for r in runs]
+    return out + [None] * (shards - len(out))
+
+
+def _cand_sums(f1, f2, i1, i2, kparams, chunks):
     kt_xx, k_xy = [], []
     with full_f32():
-        for sl in _chunks(i1.shape[0], i1.shape[1]):
+        for sl in chunks:
             a, b = f1[i1[sl]], f2[i2[sl]]
             kt_xx.append(_off_diag_sum(_gram(a, a, kparams)))
             k_xy.append(_gram(a, b, kparams).sum(dim=2).double().sum(dim=1))
     return torch.cat(kt_xx), torch.cat(k_xy)
 
 
-def _ref_sums(ref: AudioMetricsData, f2, i2, subset_key, kparams):
-    """Cached (subsets,) f64 device tensor of sum(K_YY) - tr(K_YY); keyed on
-    the reference embeddings' identity, the arguments that determine the
-    subset indices ``(n1, n2, subsets, size, seed)`` and the kernel
-    parameters.  (Keying on the index array's ``id()`` is unsound: once the
-    lru cache evicts and frees an array, another candidate size's indices
-    can be allocated at the same address.)"""
-    key = ("kd_ref", subset_key, kparams)
+def _ref_rows(f2, i2, kparams, chunks):
+    out = []
+    with full_f32():
+        for sl in chunks:
+            b = f2[i2[sl]]
+            out.append(_off_diag_sum(_gram(b, b, kparams)))
+    return torch.cat(out)
+
+
+def _ref_sums(ref: AudioMetricsData, f2, subset_key, kparams, mesh, shard_run):
+    """Cached (subsets,) f64 tensor of sum(K_YY) - tr(K_YY), on the mesh's
+    first device; keyed on the reference embeddings' identity, the
+    arguments that determine the subset indices ``(n1, n2, subsets, size,
+    seed)``, the kernel parameters and the mesh's devices (kd.py:319).
+    (Keying on the index array's ``id()`` is unsound: once the lru cache
+    evicts and frees an array, another candidate size's indices can be
+    allocated at the same address.)  ``shard_run(fn)`` computes it, a run
+    of chunks a shard."""
+    key = ("kd_ref", subset_key, kparams, tuple(mesh.devices))
     hit = ref.cache.get(key)
     if hit is not None and hit[0] is f2:
         return hit[1]
-    out = []
-    with full_f32():
-        for sl in _chunks(i2.shape[0], i2.shape[1]):
-            b = f2[i2[sl]]
-            out.append(_off_diag_sum(_gram(b, b, kparams)))
-    kt_yy = torch.cat(out)
+    kt_yy = torch.cat(shard_run(lambda f1, f2, i1, i2, chunks: _ref_rows(f2, i2, kparams,
+                                                                         chunks)))
     ref.cache[key] = (f2, kt_yy)
     return kt_yy
+
+
+def _on_shards(mesh, tensors, s: int, m: int):
+    """``run(fn)``: ``fn(*tensors, chunks)`` on every shard with a run of
+    ``shard_chunks(s, m, mesh.size)``, over the shard device's copies of
+    ``tensors`` (``Mesh.copies``: one a device, made here, once), the
+    results moved to the mesh's first device in shard order."""
+    copies = mesh.copies(*tensors)
+    runs = shard_chunks(s, m, mesh.size)
+
+    def run(fn):
+        out = mesh.map(lambda shard, chunks: fn(*copies[shard.device], chunks), runs)
+        return [r.to(mesh.home) if isinstance(r, torch.Tensor) else
+                tuple(t.to(mesh.home) for t in r) for r in out if r is not None]
+
+    return run
 
 
 @lru_cache(maxsize=8)
@@ -163,9 +206,11 @@ def _subset_indices(n1: int, n2: int, subsets: int, size: int, seed: int):
     return idx_1, idx_2
 
 
-def kernel_distance(x: AudioMetricsData, y: AudioMetricsData, **kwargs) -> dict:
+def kernel_distance(x: AudioMetricsData, y: AudioMetricsData, mesh=None, **kwargs) -> dict:
     """KID estimate of candidate ``x`` against reference ``y`` over random
-    subsets (reference kd.py:127-194)."""
+    subsets (reference kd.py:127-194), the subsets' chunks spread over the
+    shards of ``mesh`` (``shard_chunks``; None: the embeddings' device
+    alone)."""
     kernel_type = kwargs.get("kernel_type", "polynomial")
     if kernel_type not in ("polynomial", "rbf"):
         raise NotImplementedError(f'Unknown kernel_type "{kernel_type}"')
@@ -194,8 +239,12 @@ def kernel_distance(x: AudioMetricsData, y: AudioMetricsData, **kwargs) -> dict:
     )
     i1 = torch.tensor(idx_1, device=f1.device)  # copies: the cached arrays are read-only
     i2 = torch.tensor(idx_2, device=f2.device)
-    kt_yy = _ref_sums(y, f2, i2, subset_key, kparams)
-    kt_xx, k_xy = _cand_sums(f1, f2, i1, i2, kparams)
+    if mesh is None:
+        mesh = make_mesh(devices=[f1.device])
+    run = _on_shards(mesh, (f1, f2, i1, i2), *idx_1.shape)
+    kt_yy = _ref_sums(y, f2, subset_key, kparams, mesh, run)
+    parts = run(lambda f1, f2, i1, i2, chunks: _cand_sums(f1, f2, i1, i2, kparams, chunks))
+    kt_xx, k_xy = (torch.cat(t) for t in zip(*parts))
     m = size
     mmds = (
         (kt_xx.cpu().numpy() + kt_yy.cpu().numpy()) / (m * (m - 1))

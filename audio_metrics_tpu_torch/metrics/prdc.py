@@ -1,34 +1,92 @@
 """Precision / Recall / Density / Coverage.
 
-Counterpart of ``audio_metrics_tpu/metrics/prdc.py::prdc`` (:350-447) on
-one device: the k-NN radii of both sets (cached per k on each
-``AudioMetricsData``) and the four pairwise reductions run on the device
-(ops/distance.py); the means are taken on the host in float64, exactly as
-``host_reduce`` (:427-434) takes them.
+Counterpart of ``audio_metrics_tpu/metrics/prdc.py::prdc`` (:350-447): the
+k-NN radii of both sets (cached per k on each ``AudioMetricsData``) and the
+four pairwise reductions run on the device (ops/distance.py); the means are
+taken on the host in float64, exactly as ``host_reduce`` (:427-434) takes
+them.
+
+The work is spread over a mesh of shards (:101-126, :171-238, :255-269,
+:309-315, :362-376; one shard by default): each shard takes a block of
+rows (``row_blocks``) and works on its device's copy of the sets: the
+radii of its block of each set against the whole set (#4's query-row
+range), then the four reductions of its block of reference rows against
+the whole candidate set (#5 unchanged).
+The partials combine on the mesh's first device: the candidates' counts
+are summed (int32, exact: the JAX package's ``psum``, :204) and their
+flags OR-ed; the reference rows' flags, minimum distances and the radii
+are concatenated.  Every value is then the one-device value, bitwise; a
+mesh of one shard computes the whole set's radii and reductions in one
+call each.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..data import AudioMetricsData
-from ..ops.distance import prdc_device
+from ..ops.distance import KNN_TILE, knn_radii, pairwise_stats
+from ..parallel.mesh import make_mesh
 
-__all__ = ["prdc"]
+__all__ = ["prdc", "row_blocks", "sharded_knn_radii", "sharded_pairwise_stats"]
 
 
-def prdc(reference: AudioMetricsData, candidate: AudioMetricsData, nearest_k: int) -> dict:
+def row_blocks(n: int, shards: int) -> list[tuple[int, int]]:
+    """Contiguous blocks of whole 128-row tiles (the kernels' row tile; a
+    block's radii then start 16-byte aligned), one a shard; a shard past
+    the rows gets an empty block."""
+    per = -(-n // (KNN_TILE * shards)) * KNN_TILE
+    return [(min(i * per, n), min((i + 1) * per, n)) for i in range(shards)]
+
+
+def sharded_knn_radii(x: torch.Tensor, nearest_k: int, mesh) -> torch.Tensor:
+    """k-NN radii of the rows of ``x``, a block of rows a shard, gathered
+    on the mesh's first device."""
+    copies = mesh.copies(x)
+    blocks = row_blocks(x.shape[0], mesh.size)
+    out = mesh.map(lambda shard, b: knn_radii(copies[shard.device][0], nearest_k, b[0],
+                                              b[1] - b[0]),
+                   [b if b[1] > b[0] else None for b in blocks])
+    return torch.cat([r.to(mesh.home) for r in out if r is not None])
+
+
+def sharded_pairwise_stats(ref, cand, ref_radii, cand_radii, mesh):
+    """``pairwise_stats`` a block of reference rows a shard against the
+    whole candidate set, combined on the mesh's first device."""
+    copies = mesh.copies(ref, cand, ref_radii, cand_radii)
+    blocks = row_blocks(ref.shape[0], mesh.size)
+
+    def run(shard, b):
+        r, c, rr, cr = copies[shard.device]
+        return pairwise_stats(r[b[0] : b[1]], c, rr[b[0] : b[1]], cr)
+
+    out = [tuple(t.to(mesh.home) for t in p) for p in
+           mesh.map(run, [b if b[1] > b[0] else None for b in blocks]) if p is not None]
+    cand_any = torch.stack([p[0] for p in out]).any(dim=0)
+    cand_count = torch.stack([p[1] for p in out]).sum(dim=0, dtype=torch.int32)
+    return (cand_any, cand_count, torch.cat([p[2] for p in out]),
+            torch.cat([p[3] for p in out]))
+
+
+def prdc(reference: AudioMetricsData, candidate: AudioMetricsData, nearest_k: int,
+         mesh=None) -> dict:
     """``precision``, ``recall``, ``density``, ``coverage`` of the candidate
     manifold against the reference one (reference prdc.py:18-50).  Both
     objects must hold their embeddings; their radii for ``nearest_k`` are
-    computed when missing and cached on them."""
+    computed when missing and cached on them.  ``mesh``: the shards that
+    share the work (see the module's docstring; None: the embeddings'
+    device alone)."""
     if not (reference.has_embeddings and candidate.has_embeddings):
         raise ValueError("PRDC needs the stored embeddings of both sets")
     key = f"radii_{nearest_k}"
-    rr, cr, ca, cc, ra, rm = prdc_device(
-        reference.embeddings.float(), candidate.embeddings.float(), nearest_k,
-        ref_radii=reference.radii.get(key), cand_radii=candidate.radii.get(key),
-    )
+    ref_e, cand_e = reference.embeddings.float(), candidate.embeddings.float()
+    if mesh is None:
+        mesh = make_mesh(devices=[ref_e.device])
+    rr, cr = (amd.radii.get(key) if amd.radii.get(key) is not None else
+              sharded_knn_radii(e, nearest_k, mesh)
+              for amd, e in ((reference, ref_e), (candidate, cand_e)))
+    ca, cc, ra, rm = sharded_pairwise_stats(ref_e, cand_e, rr, cr, mesh)
     reference.radii[key], candidate.radii[key] = rr, cr
     ca, cc, ra, rm, rr = (t.cpu().numpy() for t in (ca, cc, ra, rm, rr))
     return dict(

@@ -1,16 +1,21 @@
 """Embedder protocol (counterpart of audio_metrics_tpu/models/base.py).
 
 An embedder has ``sr`` (the sample rate it expects), ``device`` (where its
-weights live) and ``embed(audio) -> (batch, d)`` for a float32
-``(batch, n_samples)`` tensor on that device.
+weights live), ``embed(audio) -> (batch, d)`` for a float32 ``(batch,
+n_samples)`` tensor on that device, and ``replicate(device)``, a copy of
+it on another device (a mesh keeps one per device:
+``parallel.mesh.Mesh.replicas``; the JAX package's ``Embedder.shard``
+replicates its parameters over a mesh instead, its models/base.py:74).
 """
 
 from __future__ import annotations
 
+import copy
 import logging
 import os
 
 import torch
+from torch import nn
 
 __all__ = ["Embedder", "resolve_device"]
 
@@ -47,9 +52,42 @@ def _require_random_weights_optin(name: str, ckpt, allowed: bool) -> None:
     )
 
 
+def _held_tensors(obj) -> list[torch.Tensor]:
+    """The tensors ``obj`` holds: its own tensor attributes, and the
+    parameters, buffers and tensor attributes of every module it is or
+    holds."""
+    modules = [v for v in vars(obj).values() if isinstance(v, nn.Module)]
+    if isinstance(obj, nn.Module):
+        modules.append(obj)
+    held = [v for v in vars(obj).values() if isinstance(v, torch.Tensor)]
+    for module in modules:
+        for m in module.modules():
+            held += [t for t in (*m._parameters.values(), *m._buffers.values()) if t is not None]
+            held += [v for v in vars(m).values() if isinstance(v, torch.Tensor)]
+    return held
+
+
 class Embedder:
     sr: int = 48000
     device: torch.device = torch.device("cpu")
 
     def embed(self, audio: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
+
+    def replicate(self, device) -> "Embedder":
+        """A new embedder on ``device`` with this one's weights: a deep copy
+        in which every tensor held from load (the modules' parameters and
+        buffers, among them the folded (N, K) kernel operands, the frontend
+        tables and any weight codes, and tensor attributes) is copied to
+        ``device``, never shared with this embedder, also on its own
+        device.  Tables made at a call (``ops.mel.device_table``) are kept
+        per device already."""
+        dev = resolve_device(device)
+        memo = {}
+        for t in _held_tensors(self):
+            new = t.detach().to(dev, copy=True)
+            memo[id(t)] = nn.Parameter(new, t.requires_grad) if isinstance(t, nn.Parameter) \
+                else new
+        out = copy.deepcopy(self, memo)
+        out.device = dev
+        return out

@@ -263,7 +263,7 @@ def _swin_block_f32_cuda(x, wqkv, bq3, wp, bp, bm, ln2_w, ln2_b, w1, b1, w2, b2,
         "am_swin_block_f32", x, wqkv_t, csum, bq3, wp_t, bp, bm, bm.shape[0],
         ln2_w, ln2_b, w1_t, b1, w2_t, b2, b, r, c, heads, window, shift, float(eps), *scratch,
     )
-    KERNEL_F32.launches += 1
+    KERNEL_F32.count()
     return scratch[-1]
 
 
@@ -281,7 +281,7 @@ def _swin_block_cuda(x, wqkv, bq3, wp, bp, bm, ln2_w, ln2_b, w1, b1, w2, b2, *,
         "am_swin_block", x, wqkv_t, csum, bq3, wp_t, bp, bm, bm.shape[0], ln2_w, ln2_b, w1_t, b1,
         w2_t, b2, b, r, c, heads, window, shift, float(eps), *scratch,
     )
-    KERNEL.launches += 1
+    KERNEL.count()
     return scratch[-1]
 
 
@@ -334,7 +334,7 @@ def _attention_half_v3_f32_cuda(x, bq3, bp, bm, *, heads, window, shift, eps, op
     scratch = _half_scratch(x, stats=True)
     KERNEL_V3_F32.launch("am_swin_attn_v3_f32", x, wqkv_t, csum, bq3, wp_t, bp, bm,
                          bm.shape[0], b, r, c, heads, window, shift, float(eps), *scratch)
-    KERNEL_V3_F32.launches += 1
+    KERNEL_V3_F32.count()
     return scratch[-1]
 
 
@@ -348,7 +348,7 @@ def _attention_half_v3_cuda(x, bq3, bp, bm, *, heads, window, shift, eps, operan
     scratch = _half_scratch(x, stats=True)
     KERNEL_V3.launch("am_swin_attn_v3", x, wqkv_t, csum, bq3, wp_t, bp, bm,
                      bm.shape[0], b, r, c, heads, window, shift, float(eps), *scratch)
-    KERNEL_V3.launches += 1
+    KERNEL_V3.count()
     return scratch[-1]
 
 
@@ -431,7 +431,7 @@ def _attention_ln_affine_cuda(kernel, x, ln_w, ln_b, bq3, bp, bm, *, heads, wind
     scratch = _half_scratch(x, stats=False)
     kernel.launch(f"am_{kernel.name}", x, ln_w, ln_b, wqkv_t, bq3, wp_t, bp, bm, bm.shape[0], b,
                   r, c, heads, window, shift, float(eps), *scratch)
-    kernel.launches += 1
+    kernel.count()
     return scratch[-1]
 
 

@@ -31,6 +31,7 @@ __all__ = [
     "pairwise_stats",
     "pairwise_stats_plain",
     "prdc_device",
+    "query_rows",
 ]
 
 KNN = KERNELS["knn_radii"]
@@ -45,17 +46,31 @@ def _sq_dists(a, sq_a, b, sq_b):
     return torch.clamp((sq_a[:, None] + sq_b[None, :]) - 2.0 * (a @ b.T), min=0.0)
 
 
-def knn_radii_plain(x: torch.Tensor, nearest_k: int) -> torch.Tensor:
-    """Distance of each row of ``x`` (n, d) f32 to its nearest_k-th
-    neighbour, self included: the (nearest_k + 1)-th smallest distance,
-    (n,) f32 (metrics/prdc.py:69-87)."""
+def query_rows(n: int, row0: int, n_q: int | None) -> int:
+    """The count of the query rows ``[row0, row0 + n_q)`` of an n-row set
+    (``n_q`` None: to the end); raises ``ValueError`` for an empty range or
+    one outside the set."""
+    n_q = n - row0 if n_q is None else n_q
+    if row0 < 0 or n_q < 1 or row0 + n_q > n:
+        raise ValueError(f"query rows [{row0}, {row0 + n_q}) of a set of {n} rows")
+    return n_q
+
+
+def knn_radii_plain(x: torch.Tensor, nearest_k: int, row0: int = 0,
+                    n_q: int | None = None) -> torch.Tensor:
+    """Distance of each query row of ``x`` (n, d) f32, rows ``[row0, row0
+    + n_q)`` (default all), to its nearest_k-th neighbour among all n rows,
+    self included: the (nearest_k + 1)-th smallest distance, (n_q,) f32
+    (metrics/prdc.py:69-87)."""
     x = x.float()
+    n_q = query_rows(x.shape[0], row0, n_q)
     k = min(nearest_k + 1, x.shape[0])
     sq = (x * x).sum(dim=1)
     out = []
     with full_f32():
-        for i in range(0, x.shape[0], BLOCK):
-            d2 = _sq_dists(x[i : i + BLOCK], sq[i : i + BLOCK], x, sq)
+        for i in range(row0, row0 + n_q, BLOCK):
+            j = min(i + BLOCK, row0 + n_q)
+            d2 = _sq_dists(x[i:j], sq[i:j], x, sq)
             kth = torch.topk(d2, k, dim=1, largest=False).values[:, k - 1]
             out.append(torch.sqrt(torch.clamp(kth, min=0.0)))
     return torch.cat(out)
@@ -99,21 +114,23 @@ def check_depth(name: str, d: int) -> None:
         raise NotImplementedError(f"{name} kernel reads rows in 16-byte chunks, got d={d}")
 
 
-def _knn_radii_cuda(x, nearest_k):
+def _knn_radii_cuda(x, nearest_k, row0=0, n_q=None):
     require_cuda(x, dtype=torch.float32)
     n, d = x.shape
+    n_q = query_rows(n, row0, n_q)
     k = min(nearest_k + 1, n)
     if k > K_MAX:
         raise NotImplementedError(f"knn_radii kernel keeps at most {K_MAX} neighbours, got k={k}")
     check_depth("knn_radii", d)
-    splits, split_cols = column_splits(n, n, torch.cuda.get_device_properties(x.device)
+    splits, split_cols = column_splits(n_q, n, torch.cuda.get_device_properties(x.device)
                                        .multi_processor_count)
-    lists = torch.empty((n, splits, k), dtype=torch.float32, device=x.device)
-    out = torch.empty(n, dtype=torch.float32, device=x.device)
+    lists = torch.empty((n_q, splits, k), dtype=torch.float32, device=x.device)
+    out = torch.empty(n_q, dtype=torch.float32, device=x.device)
     # the plain version's squared norms: the kernel rounds the distance
     # formula as it does
-    KNN.launch("am_knn_radii", x, (x * x).sum(dim=1), n, d, k, splits, split_cols, lists, out)
-    KNN.launches += 1
+    KNN.launch("am_knn_radii", x, (x * x).sum(dim=1), n, d, k, row0, n_q, splits, split_cols,
+               lists, out)
+    KNN.count()
     return out
 
 
@@ -136,15 +153,19 @@ def _pairwise_stats_cuda(ref, cand, ref_radii, cand_radii):
     STATS.launch("am_prdc_stats", ref, (ref * ref).sum(dim=1), ref_radii, n_ref, cand,
                  (cand * cand).sum(dim=1), cand_radii, n_cand, d, splits, split_cols, cand_any,
                  cand_count, ref_any, ref_min)
-    STATS.launches += 1
+    STATS.count()
     return cand_any > 0, cand_count, ref_any > 0, ref_min
 
 
-def knn_radii(x: torch.Tensor, nearest_k: int) -> torch.Tensor:
-    """k-NN radii (n,) f32 of the rows of ``x`` (n, d) f32, self included
-    (``knn_radii_pallas``, distance.py:148-156)."""
+def knn_radii(x: torch.Tensor, nearest_k: int, row0: int = 0,
+              n_q: int | None = None) -> torch.Tensor:
+    """k-NN radii (n_q,) f32 of the query rows ``[row0, row0 + n_q)``
+    (default all n) of ``x`` (n, d) f32 among all its rows, self included
+    (``knn_radii_pallas``, distance.py:148-156; a mesh shard asks for its
+    row block, as the JAX package's ``shard_map`` does at metrics/prdc.py:
+    101-126).  A row's radius is the same in any range."""
     fn = knn_radii_plain if x.device.type == "cpu" else _knn_radii_cuda
-    return fn(x, nearest_k)
+    return fn(x, nearest_k, row0, n_q)
 
 
 def pairwise_stats(ref, cand, ref_radii, cand_radii):

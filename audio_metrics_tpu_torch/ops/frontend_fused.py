@@ -222,7 +222,7 @@ def _clap_tokens_fused_cuda(audio, t, *, sr, cfg):
         mel_t, t.wi, ps, rg, xi, t.qcat_t, t.pbias, fbk, c, tok, t.ln_w, t.ln_b,
         float(cfg.layer_norm_eps), pln["gw"], out, b,
     )
-    KERNEL.launches += 1
+    KERNEL.count()
     return out
 
 

@@ -390,7 +390,7 @@ def _log_mel_cuda(kernel, symbol, audio, amap, scratch, framing, *, frame_length
     kernel.launch(symbol, audio, n, amap["half"], rows, *amap["dims"], *amap["strides"],
                   *amap["box"], basis_t, n_keep, fb_p, sc, of, N_MELS, _LOG_MODES[log_mode],
                   float(log_offset), int(out_dtype == torch.bfloat16), out, *framing)
-    kernel.launches += 1
+    kernel.count()
     return out
 
 

@@ -172,7 +172,7 @@ def _patch_merge_f32_cuda(x, wg, svec, tvec, *, h, w, eps, wg_t):
     out = torch.empty((b, (h // 2) * (w // 2), oc), dtype=x.dtype, device=x.device)
     KERNEL_F32.launch("am_patch_merge_f32", x, wg_t, svec, tvec, b, h, c, float(eps), stats,
                       out, *_map_args(b, h, c, BK_F32))
-    KERNEL_F32.launches += 1
+    KERNEL_F32.count()
     return out
 
 
@@ -186,7 +186,7 @@ def _patch_merge_cuda(x, wg, svec, tvec, *, h, w, eps, wg_t):
     out = torch.empty((b, (h // 2) * (w // 2), oc), dtype=x.dtype, device=x.device)
     KERNEL.launch("am_patch_merge", x, wg_t, svec, tvec, b, h, c, float(eps), stats, out,
                   *_map_args(b, h, c))
-    KERNEL.launches += 1
+    KERNEL.count()
     return out
 
 

@@ -128,7 +128,7 @@ def _mlp_block_f32_cuda(x, ln_w, ln_b, w1, b1, w2, b2, *, eps, operands):
     out = torch.empty_like(x)
     KERNEL_F32.launch("am_swin_mlp_f32", x, ln_w, ln_b, w1_t, b1, w2_t, b2, m, c, float(eps),
                       hbuf, h1, out)
-    KERNEL_F32.launches += 1
+    KERNEL_F32.count()
     return out
 
 
@@ -142,7 +142,7 @@ def _mlp_block_cuda(x, ln_w, ln_b, w1, b1, w2, b2, *, eps, operands):
     out = torch.empty_like(x)
     KERNEL.launch("am_swin_mlp", x, ln_w, ln_b, w1_t, b1, w2_t, b2, m, c, float(eps), hbuf, h1,
                   out)
-    KERNEL.launches += 1
+    KERNEL.count()
     return out
 
 
@@ -252,7 +252,7 @@ def _mlp_block_int8_cuda(x, ln_w, ln_b, w1, b1, w2, b2, *, eps, operands):
     out = torch.empty_like(x)
     kernel.launch("am_swin_mlp_int8_f32" if f32 else "am_swin_mlp_int8", x, ln_w, ln_b, q1t, s1,
                   b1, q2t, s2, b2, m, c, float(eps), qx, sx, hid, amax, qy, out)
-    kernel.launches += 1
+    kernel.count()
     return out
 
 

@@ -41,7 +41,8 @@ from ..ops.windowing import device_windows, multi_audio_slicer, window_length
 from .shuffle import shuffle_stream
 
 __all__ = ["ItemCategory", "batch_accumulator", "derangement", "device_mix", "device_pair_eval",
-           "embedding_pipeline", "mix_pair", "serialize_items"]
+           "embedding_pipeline", "mix_pair", "serialize_items", "shard_blocks",
+           "sharded_embed_loop"]
 
 logger = logging.getLogger(__name__)
 
@@ -228,7 +229,9 @@ def _upload(t: torch.Tensor, device: torch.device) -> torch.Tensor:
 def fused_embed_loop(embed, windows: torch.Tensor, batch_size: int):
     """Embed (N, win_len) windows batch by batch.  Returns the (N, d) f32
     embedding buffer and the (n, s1, m2) f32 moments, merged batch by batch
-    with the Chan update of centered second moments."""
+    with the Chan update of centered second moments.  Each batch's row
+    count is filled in on the device, so the loop never waits for the
+    card."""
     n_total = windows.shape[0]
     buf = n_a = s1_a = m2_a = None
     for start in range(0, n_total, batch_size):
@@ -281,12 +284,53 @@ def _resampler(in_sr: int, sr: int):
     return lambda x: resample_batch(x, in_sr, sr, quality)
 
 
-def _embed_set(embed, windows: torch.Tensor, batch_size: int, store: bool) -> AudioMetricsData:
-    """One category's windows through ``run_fused_embed``: their moments
-    (on the device until read) and, when ``store``, their embeddings."""
+def shard_blocks(n: int, batch_size: int, shards: int) -> list[tuple[int, int]]:
+    """The JAX package's shard boundaries (pipeline.py:285-397): contiguous
+    blocks of ``ceil(n / (batch_size * shards)) * batch_size`` rows, so
+    that every shard but the last runs whole batches; a shard past the
+    rows gets an empty block."""
+    per = -(-n // (batch_size * shards)) * batch_size
+    return [(min(i * per, n), min((i + 1) * per, n)) for i in range(shards)]
+
+
+def sharded_embed_loop(embedders, windows: torch.Tensor, batch_size: int, mesh):
+    """``fused_embed_loop`` over a mesh: shard i embeds its block of
+    ``windows`` (``shard_blocks``) with ``embedders[i]`` on its own device
+    and stream.  Returns the (N, d) embeddings gathered in row order on the
+    mesh's first device, and one ``(n, s1, m2)`` triple a shard with rows,
+    in shard order, on its device.  No OOM retry, as in the JAX package
+    (pipeline.py:406-420)."""
+    blocks = shard_blocks(windows.shape[0], batch_size, mesh.size)
+
+    def run(shard, i):
+        lo, hi = blocks[i]
+        w = windows[lo:hi].to(shard.device, non_blocking=True)
+        return fused_embed_loop(embedders[i], w, batch_size)
+
+    out = mesh.map(run, [i if hi > lo else None for i, (lo, hi) in enumerate(blocks)])
+    parts = [(hi - lo, r) for (lo, hi), r in zip(blocks, out) if r is not None]
+    buf = torch.cat([b.to(mesh.home) for _, (b, _) in parts])
+    return buf, [(n, s1, m2) for n, (_, (_, s1, m2)) in parts]
+
+
+def _embed_set(embedder, windows: torch.Tensor, batch_size: int, store: bool, mesh=None,
+               pre=None) -> AudioMetricsData:
+    """One category's windows through ``run_fused_embed`` (with a mesh of
+    several shards, ``sharded_embed_loop``), ``pre`` (the resampler) applied
+    to each batch first: their moments (on the device until read; one
+    triple a shard) and, when ``store``, their embeddings."""
+    def embed_of(e):
+        return e.embed if pre is None else (lambda x: e.embed(pre(x)))
+
     amd = AudioMetricsData(store)
-    buf, (_, s1, m2) = run_fused_embed(embed, windows, batch_size)
-    amd.add_moments_device(windows.shape[0], s1, m2)
+    if mesh is not None and mesh.size > 1:
+        buf, triples = sharded_embed_loop([embed_of(e) for e in mesh.replicas(embedder)],
+                                          windows, batch_size, mesh)
+    else:
+        buf, (_, s1, m2) = run_fused_embed(embed_of(embedder), windows, batch_size)
+        triples = [(windows.shape[0], s1, m2)]
+    for triple in triples:
+        amd.add_moments_device(*triple)
     amd.add_embeddings(buf)
     return amd
 
@@ -323,16 +367,17 @@ def device_mix(mix_function, audio: torch.Tensor, sr: int, diag=None) -> torch.T
 
 def device_pair_eval(w: torch.Tensor, embedder, mix_function, in_sr: int, apa_mode,
                      stems_mode: bool, batch_size: int, seed, store_mix: bool,
-                     store_stem: bool) -> dict:
+                     store_stem: bool, mesh=None) -> dict:
     """(N*k, win, 2) pair windows at ``in_sr`` -> per-category
     ``AudioMetricsData`` (audio_metrics_tpu/parallel/pipeline.py:492-578).
-    Each set is mixed whole, in chunks of 64 pairs for registry mixes (16
-    for callables, which run on the host), each chunk resampled to the
-    embedder's rate first when ``in_sr`` is not it, then embedded through
-    the fused loop: the aligned pairs; for ``apa_mode="reference"`` the
-    misaligned ones, each context with the stem of window
-    ``derangement(N*k, seed)[i]``; with ``stems_mode`` the stems (channel
-    1).  The mix flags are read and warned about once, at the end."""
+    Each set is mixed whole on ``w``'s device, in chunks of 64 pairs for
+    registry mixes (16 for callables, which run on the host), each chunk
+    resampled to the embedder's rate first when ``in_sr`` is not it, then
+    embedded through the fused loop (sharded over ``mesh``, :516-520): the
+    aligned pairs; for ``apa_mode="reference"`` the misaligned ones, each
+    context with the stem of window ``derangement(N*k, seed)[i]``; with
+    ``stems_mode`` the stems (channel 1, resampled batch by batch in the
+    loop).  The mix flags are read and warned about once, at the end."""
     n_w = w.shape[0]
     sr = embedder.sr
     resample = _resampler(in_sr, sr)
@@ -346,19 +391,19 @@ def device_pair_eval(w: torch.Tensor, embedder, mix_function, in_sr: int, apa_mo
             outs.append(device_mix(mix_function, pairs, sr, diag=mix_diag))
         return torch.cat(outs)
 
-    out = {ItemCategory.aligned: _embed_set(embedder.embed, mix_all(lambda i, c: w[i : i + c]),
-                                            batch_size, store_mix)}
+    out = {ItemCategory.aligned: _embed_set(embedder, mix_all(lambda i, c: w[i : i + c]),
+                                            batch_size, store_mix, mesh)}
     if apa_mode == "reference":
         perm = torch.from_numpy(derangement(n_w, seed)).to(w.device)
 
         def mis_at(i, c):
             return torch.stack([w[i : i + c, :, 0], w[perm[i : i + c], :, 1]], dim=2)
 
-        out[ItemCategory.misaligned] = _embed_set(embedder.embed, mix_all(mis_at), batch_size,
-                                                  store_mix)
+        out[ItemCategory.misaligned] = _embed_set(embedder, mix_all(mis_at), batch_size,
+                                                  store_mix, mesh)
     if stems_mode:
-        out[ItemCategory.stem] = _embed_set(lambda x: embedder.embed(resample(x)),
-                                            w[:, :, 1].contiguous(), batch_size, store_stem)
+        out[ItemCategory.stem] = _embed_set(embedder, w[:, :, 1].contiguous(), batch_size,
+                                            store_stem, mesh, pre=resample)
     emit_mix_diagnostics(mix_diag)
     return out
 
@@ -407,9 +452,51 @@ def _merge_f64(acc, n2: int, s2: torch.Tensor, m2: torch.Tensor):
     return n_t, s1 + s2, m1 + m2 + (n1 * n2 / n_t) * torch.outer(d, d)
 
 
+@torch.no_grad()
+def _embed_rows(embedder, kind, audio, scale, category, wanted, acc: dict, mix_function,
+                resample, debug_nan: bool, mix_diag: list) -> dict:
+    """One host batch's real rows (or a shard's slice of them) on
+    ``embedder``'s device: ``audio`` an f32 host tensor, or int16 codes
+    with their batch's ``scale``, uploaded without a wait, resampled, mixed
+    (pairs), embedded; each category's rows in ``wanted`` merged into
+    ``acc`` in float64; returns ``{category: its embeddings}``.  It runs
+    under no_grad of its own: a mesh calls it on its shards' host threads,
+    and grad mode is local to a thread."""
+    device = embedder.device
+    if scale is not None:
+        audio = _dequantize(_upload(audio, device), scale)
+    else:
+        audio = _upload(audio, device)
+    audio = resample(audio)
+    if kind == "pair":
+        mono = device_mix(mix_function, audio, embedder.sr, diag=mix_diag)
+        if debug_nan:
+            bad = int((~torch.isfinite(mono)).sum())
+            if bad:
+                warnings.warn(f"mix produced {bad} non-finite samples")
+    else:
+        mono = audio
+    emb = embedder.embed(mono).float()
+    n = len(category)
+    out = {}
+    for c in np.unique(category):
+        c = ItemCategory(int(c))
+        if c not in wanted:
+            continue
+        rows = np.flatnonzero(category == c)
+        e = emb if len(rows) == n else emb.index_select(
+            0, _upload(torch.from_numpy(rows), device))
+        n_c = len(rows)
+        s1 = e.sum(dim=0)
+        xc = e - s1 / n_c
+        acc[c] = _merge_f64(acc.get(c), n_c, s1, xc.T @ xc)
+        out[c] = e
+    return out
+
+
 def host_fed_pipeline(batches, embedder, mix_function, apa_mode, stems_mode: bool,
                       store_mix: bool, store_stem: bool, in_sr: int, progress: bool = False,
-                      timings: dict | None = None) -> dict:
+                      timings: dict | None = None, mesh=None) -> dict:
     """The host-fed branch's loop (audio_metrics_tpu/parallel/pipeline.py:
     896-1024) over ``batches`` of ``(kind, audio, category, valid)``.
 
@@ -429,10 +516,19 @@ def host_fed_pipeline(batches, embedder, mix_function, apa_mode, stems_mode: boo
     in the JAX package.  Stored embeddings stay on the device in the JAX
     package's row order.  ``timings`` (optional) receives ``feed`` (host
     seconds spent making the batches) and ``drain`` (the wait for the card
-    at the final pull)."""
-    device = embedder.device
-    sr = embedder.sr
-    resample = _resampler(in_sr, sr)
+    at the final pull).
+
+    With a ``mesh`` of several shards each batch (of a multiple of the
+    mesh's size, :780-781) is cut into as many contiguous slices, one a
+    shard, each embedded by the shard's replica on its device and stream
+    with an accumulator of its own (int16 codes are made for the whole
+    batch, one scale); the accumulators are merged on the host in float64,
+    in shard order, and the stored embeddings gathered in row order on the
+    mesh's first device."""
+    sharded = mesh is not None and mesh.size > 1
+    embedders = mesh.replicas(embedder) if sharded else [embedder]
+    home = mesh.home if sharded else embedder.device
+    resample = _resampler(in_sr, embedder.sr)
     transfer_int16 = os.environ.get("AM_TPU_TRANSFER_INT16") == "1"
     debug_nan = bool(os.environ.get("AM_TPU_DEBUG_NAN"))
     out: dict[ItemCategory, AudioMetricsData] = {}
@@ -442,7 +538,8 @@ def host_fed_pipeline(batches, embedder, mix_function, apa_mode, stems_mode: boo
         out[ItemCategory.misaligned] = AudioMetricsData(store_mix)
     if stems_mode:
         out[ItemCategory.stem] = AudioMetricsData(store_stem)
-    acc: dict = {}
+    accs = [{} for _ in embedders]
+    chunks: dict = {c: [] for c in out}
     mix_diag: list = []
     if progress:
         batches = _progress_iter(batches, None, "embedding batches", unit="batch")
@@ -459,37 +556,48 @@ def host_fed_pipeline(batches, embedder, mix_function, apa_mode, stems_mode: boo
             n = int(valid.sum())  # the real rows are a prefix
             category = category[:n]
             audio = audio[:n]
+            scale = None
             if transfer_int16:
                 q, scale = _quantize_host(audio.numpy())
-                audio = _dequantize(_upload(torch.from_numpy(q), device), scale)
+                audio = torch.from_numpy(q)
+            if not sharded:
+                parts = [_embed_rows(embedder, kind, audio, scale, category, out, accs[0],
+                                     mix_function, resample, debug_nan, mix_diag)]
             else:
-                audio = _upload(audio, device)
-            audio = resample(audio)
-            if kind == "pair":
-                mono = device_mix(mix_function, audio, sr, diag=mix_diag)
-                if debug_nan:
-                    bad = int((~torch.isfinite(mono)).sum())
-                    if bad:
-                        warnings.warn(f"mix produced {bad} non-finite samples")
-            else:
-                mono = audio
-            emb = embedder.embed(mono).float()
-            for c in np.unique(category):
-                c = ItemCategory(int(c))
-                if c not in out:
-                    continue
-                rows = np.flatnonzero(category == c)
-                e = emb if len(rows) == n else emb.index_select(
-                    0, _upload(torch.from_numpy(rows), device))
-                n_c = len(rows)
-                s1 = e.sum(dim=0)
-                xc = e - s1 / n_c
-                acc[c] = _merge_f64(acc.get(c), n_c, s1, xc.T @ xc)
-                out[c].add_embeddings(e)
+                per = len(valid) // mesh.size
+                blocks = [(min(i * per, n), min((i + 1) * per, n)) for i in range(mesh.size)]
+
+                def run(shard, i):
+                    lo, hi = blocks[i]
+                    diag: list = []
+                    rows = _embed_rows(embedders[i], kind, audio[lo:hi], scale, category[lo:hi],
+                                       out, accs[i], mix_function, resample, debug_nan, diag)
+                    return rows, diag
+
+                parts = []
+                for r in mesh.map(run, [i if hi > lo else None
+                                        for i, (lo, hi) in enumerate(blocks)], wait=False):
+                    if r is not None:
+                        parts.append(r[0])
+                        # the flags of all shards are read in one copy, from one device
+                        mix_diag.extend({k: v.to(home) for k, v in flags.items()}
+                                        for flags in r[1])
+            for part in parts:
+                for c, e in part.items():
+                    chunks[c].append(e)
     emit_mix_diagnostics(mix_diag)
     t0 = time.perf_counter()
-    for c, (n, s1, m2) in acc.items():
-        out[c].add_moments(n, s1.cpu().numpy(), m2.cpu().numpy())
+
+    def pull(acc):
+        return {c: (n, s1.cpu().numpy(), m2.cpu().numpy()) for c, (n, s1, m2) in acc.items()}
+
+    pulled = [pull(accs[0])] if not sharded else mesh.map(lambda shard, acc: pull(acc), accs)
+    for acc in pulled:
+        for c, (n, s1, m2) in (acc or {}).items():
+            out[c].add_moments(n, s1, m2)
+    for c, es in chunks.items():
+        for e in es:
+            out[c].add_embeddings(e.to(home))
     if timings is not None:
         timings.update(feed=feed, drain=time.perf_counter() - t0)
     return out
@@ -514,6 +622,7 @@ def embedding_pipeline(
     use_native: bool | None = None,
     progress: bool = False,
     timings: dict | None = None,
+    mesh=None,
 ) -> dict:
     """Embed audio and accumulate per-category statistics
     (audio_metrics_tpu/parallel/pipeline.py:744-1024).  Returns
@@ -547,7 +656,19 @@ def embedding_pipeline(
       shuffled (``song_buffer_size``; ``win_buffer_size``, ``win_min_age``)
       from ``seed`` (None: Python's global ``random``).  ``progress`` shows
       tqdm bars over the songs and batches when tqdm imports.  ``timings``
-      receives the host-fed branch's ``feed`` and ``drain`` seconds."""
+      receives the host-fed branch's ``feed`` and ``drain`` seconds.
+
+    ``mesh`` (``parallel.mesh.Mesh``): with several shards every branch
+    embeds on all of them (``sharded_embed_loop``; the host-fed batches cut
+    in slices), ``batch_size`` rounded up to a multiple of the mesh's size
+    (:780-781), stacked audio moved to the mesh's first device, where the
+    stored embeddings are gathered; a mesh of one shard runs its embedder
+    replica alone (the embedder itself on its own device)."""
+    if mesh is not None and mesh.size == 1:
+        embedder, mesh = mesh.replicas(embedder)[0], None
+    if mesh is not None and batch_size % mesh.size:
+        batch_size = -(-batch_size // mesh.size) * mesh.size
+    home = embedder.device if mesh is None else mesh.home
     if isinstance(waveforms, np.ndarray) and waveforms.ndim in (2, 3):
         waveforms = torch.from_numpy(waveforms)
     stacked = isinstance(waveforms, torch.Tensor) and (
@@ -556,20 +677,19 @@ def embedding_pipeline(
     if not stacked:
         if use_native is None:
             use_native = os.environ.get("AM_TPU_NATIVE_LOADER") == "1"
-        pin_memory = embedder.device.type == "cuda" and \
-            os.environ.get("AM_TPU_TRANSFER_INT16") != "1"
+        pin_memory = home.type == "cuda" and os.environ.get("AM_TPU_TRANSFER_INT16") != "1"
         batches = _host_fed_batches(
             waveforms, win_dur, hop_dur, in_sr, apa_mode, stems_mode, batch_size,
             song_buffer_size, win_buffer_size, win_min_age, seed,
             use_native and hop_dur is None, progress, pin_memory)
         return host_fed_pipeline(batches, embedder, mix_function, apa_mode, stems_mode,
                                  store_mix_embeddings, store_stem_embeddings, in_sr,
-                                 progress=progress, timings=timings)
+                                 progress=progress, timings=timings, mesh=mesh)
     pairs = waveforms.ndim == 3
     if apa_mode is not None and not pairs:
         raise ValueError("When computing APA items should be tensors/arrays of shape "
                          "[n_samples, 2] (pairing context and stem)")
-    waveforms = waveforms.to(embedder.device, torch.float32)
+    waveforms = waveforms.to(home, torch.float32)
     win_len = window_length(in_sr, win_dur)
     hop_len = win_len if hop_dur is None else window_length(in_sr, hop_dur)
     w = device_windows(waveforms, win_len, hop_len)
@@ -577,13 +697,13 @@ def embedding_pipeline(
         if w is None:
             return {}
         return device_pair_eval(w, embedder, mix_function, in_sr, apa_mode, stems_mode,
-                                batch_size, seed, store_mix_embeddings, store_stem_embeddings)
+                                batch_size, seed, store_mix_embeddings, store_stem_embeddings,
+                                mesh)
     if not stems_mode:
         return {}
     if w is None:
         return {ItemCategory.stem: AudioMetricsData(store_stem_embeddings)}
     if pairs:
         w = w[:, :, 1].contiguous()
-    resample = _resampler(in_sr, embedder.sr)
-    return {ItemCategory.stem: _embed_set(lambda x: embedder.embed(resample(x)), w, batch_size,
-                                          store_stem_embeddings)}
+    return {ItemCategory.stem: _embed_set(embedder, w, batch_size, store_stem_embeddings, mesh,
+                                          pre=_resampler(in_sr, embedder.sr))}

@@ -127,13 +127,26 @@ FAULTS = {
     "W2": ("audio_metrics_tpu_torch/utils/wavio.py",
            'struct.pack("<I", len(riff)) + riff)', 'struct.pack("<I", 4 + len(riff)) + riff)',
            "the WAV writer's RIFF size is 4 bytes too large, as the JAX copy's"),
+    "S4": ("audio_metrics_tpu_torch/parallel/pipeline.py",
+           "        lo, hi = blocks[i]\n        w = windows[lo:hi]",
+           "        lo, hi = blocks[i][0] + (i == 1), blocks[i][1] + (i == 1)\n"
+           "        w = windows[lo:hi]",
+           "the second shard's block of windows starts one window late"),
+    "S5": ("audio_metrics_tpu_torch/metrics/prdc.py",
+           "torch.stack([p[1] for p in out]).sum(dim=0, dtype=torch.int32)",
+           "torch.stack([p[1] for p in out]).amax(dim=0)",
+           "PRDC's candidate counts are the largest of the shards', not their sum"),
+    "S6": ("audio_metrics_tpu_torch/metrics/kd.py",
+           "tuple(t.to(mesh.home) for t in r) for r in out if r is not None]",
+           "tuple(t.to(mesh.home) for t in r) for r in out[:1] + out if r is not None]",
+           "KD keeps the first shard's subsets twice"),
 }
 # faults in Python code that the CPU tests run: tests/test_torch_faults.py
 # plants each in a module loaded beside the real one and runs the first
 # check of it there; the smoke's phases 12-13 (15 for the APA path, 16 for
-# FAD-inf) would catch most of them too, after every kernel phase, so they
-# run here only when named
-CPU_FAULTS = ("V1", "H1", "P2", "D1", "U1", "K1", "A2", "F2", "S3", "W2")
+# FAD-inf, 17 for the mesh) would catch most of them too, after every kernel
+# phase, so they run here only when named
+CPU_FAULTS = ("V1", "H1", "P2", "D1", "U1", "K1", "A2", "F2", "S3", "W2", "S4", "S5", "S6")
 SKIP = ("build", ".git", "__pycache__", ".pytest_cache")
 
 

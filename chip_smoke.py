@@ -136,7 +136,23 @@ Phases, one status line each:
      ``laion_clap_music_l-2`` (f32) from phase 10's checkpoint
      (``AM_TPU_CKPT_DIR`` set around it): finite JSON, ``--save-state`` then ``--load-state`` FAD equal to
      rtol 1e-6, ``convert`` of the checkpoint equal to
-     ``convert.convert_checkpoint``'s arrays.
+     ``convert.convert_checkpoint``'s arrays;
+ 17. one ``AudioMetrics`` over a mesh (``parallel.mesh``: shards, each a
+     device, a stream and a host thread of its own; ``phase_mesh``): (a)
+     phase 4's main path over 4 shards on card 0 against one device on the
+     same clips: launch counts (#1 1152, #2 192, #3 64, #4 8, #5 4),
+     stored embeddings and k-NN radii bitwise equal, KD to 1e-12, the PRDC
+     values equal, FAD (host float64 tail of four moment triples) within
+     phase 4's bound of the device tail, warm clips/s of both and the
+     card's busy and idle time in one traced evaluate of each; #4's
+     query-row blocks of 512 bitwise equal to the whole set's radii, a
+     block against its plain version, its time beside the whole set's;
+     (b) the same shards laid out (dcn, data) = (2, 2), and
+     ``replicate`` on card 0 (no storage shared, embeddings bitwise
+     equal); (c) the APA pair path and the host-fed path over 2 shards
+     against one device; (d) with two cards or more, (a) over every card,
+     else one line saying why not; (e) the examples ``basic_usage`` and
+     ``streaming_eval`` at small sizes.
 Phase 3 runs each kernel redesigned for Hopper on the wgmma core (the
 whole Swin block at every stage and shift, its v3, v1 and v2 attention
 halves and fused MLP, the three patch merges, the fused frontend, the two
@@ -206,6 +222,11 @@ N_WIN_HOSTFED = 2304  # phase 16 (a): 36 batches of 64 5 s windows a set, >= 4 (
 N_WIN_HOSTFED_APA = 256  # phase 16 (b)
 N_WAV = 64           # phase 16 (c): WAV files a directory
 WAV_WIN_S = 0.5      # phase 16 (c): 10 windows a 5 s file, 640 > d + 2 for fad_inf
+N_SHARDS = 4         # phase 17 (a), (b): shards of the mesh on card 0
+N_SHARDS_SMALL = 2   # phase 17 (c)
+N_PAIRS_MESH = 256   # phase 17 (c): APA pairs
+N_WIN_MESH = 256     # phase 17 (c): host-fed windows a set
+KNN_BLOCK = 512      # phase 17: #4's query-row block, a quarter of N_CLIPS
 CLIP_S = 5
 SR = 48000
 BATCH = 64       # e2e batch size
@@ -306,6 +327,10 @@ MIX_LUFS_TOL = 0.01
 # |value|): tests/test_fad_inf.py's bounds for the f32 sweep against its
 # float64 oracle
 FAD_INF_TOL = {"fad_inf": 5e-3, "fad_inf_slope": 2e-2}
+# phase 17: KD over a mesh against one device, relative: each subset's Gram
+# sums are the one-device products (the shards take whole chunks of
+# subsets), so only an exact result passes
+KD_MESH_TOL = 1e-12
 # phase 12 (b): VGGish f32 against bf16 embeddings of the same clips (not
 # unit rows: norms ~45); the CPU reading of the same arithmetic on 32 of
 # these clips, 1.23e-5 and 0.064, times ~10
@@ -2528,6 +2553,284 @@ def phase_cli(card: str, params: dict) -> None:
             raise AssertionError("convert wrote other arrays than convert_checkpoint")
 
 
+def mesh_metrics(what: str, got: dict, want: dict, am, one) -> None:
+    """A mesh's evaluate against one device's on the same clips: stored
+    reference embeddings and k-NN radii bitwise equal, KD within
+    KD_MESH_TOL, the PRDC values equal, FAD within E2E_TOL (the host
+    float64 tail of several moment triples against the device tail)."""
+    same_e = torch.equal(am.stem_reference.embeddings, one.stem_reference.embeddings)
+    key = next(iter(one.stem_reference.radii))
+    same_r = torch.equal(am.stem_reference.radii[key], one.stem_reference.radii[key])
+    log(f"  {what}: {got}")
+    log(f"  stored reference embeddings {'bitwise equal' if same_e else 'DIFFER'}, "
+        f"{key} {'bitwise equal' if same_r else 'DIFFER'}")
+    bad = [] if same_e and same_r else ["embeddings or radii"]
+    for k, w in want.items():
+        rel = abs(got[k] - w) / max(abs(w), 1e-300)
+        tol = (KD_MESH_TOL if k.startswith("kernel_distance") else
+               E2E_TOL["fad"] if k == "fad" else 0.0)
+        ok = rel <= tol
+        log(f"    {k}: mesh {got[k]!r} one device {w!r} rel {rel:.3g} (tol {tol}) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            bad.append(k)
+    if bad:
+        raise AssertionError(f"{what} disagrees with one device: {bad}")
+
+
+def trace_evaluate(am, candidate) -> str:
+    """One warm evaluate under ``torch.profiler``: its wall time, the
+    kernels' device time summed and as the union of their intervals (the
+    card's busy time: kernels of several streams overlap), the idle share
+    1 - busy / wall, as a printable string."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        am.evaluate(candidate)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = [ev for ev in prof.events()
+              if ev.device_type == torch.autograd.DeviceType.CUDA and ev.device_time_total > 0]
+    total = sum(ev.device_time_total for ev in events) / 1e3
+    busy, end = 0.0, float("-inf")
+    for start, stop in sorted((ev.time_range.start, ev.time_range.end) for ev in events):
+        busy += max(0.0, stop - max(start, end))
+        end = max(end, stop)
+    busy /= 1e3
+    return (f"wall {wall:.1f} ms, {len(events)} kernels, device time {total:.1f} ms summed, "
+            f"{busy:.1f} ms busy (their union), idle share {1 - busy / wall:.3f}")
+
+
+def mesh_expected(forwards: int, knn: int, stats: int, **per_forward) -> dict:
+    want = expected(forwards, knn_radii=knn, **per_forward)
+    want["prdc_stats"] = stats
+    return want
+
+
+def phase_mesh(card: str, params: dict) -> None:
+    """Phase 17, one AudioMetrics spread over a mesh (``parallel.mesh``):
+    (a) phase 4's main path (HTSAT-base bf16, N_CLIPS + N_CLIPS 5 s clips,
+    fad + kd + prdc, batch 64) over N_SHARDS shards on card 0 (each a
+    stream and a host thread of its own; ``am.mesh`` set after
+    construction, as no constructor argument names a card twice) against
+    the same clips on one device: launch counts, ``mesh_metrics``, warm
+    clips/s of both (median of 3, spread), the host stage times of the
+    last warm evaluate (pipeline, fad, kd_dispatch, prdc_dispatch) and one
+    traced evaluate of each (``trace_evaluate``: the card's busy and idle
+    time); #4's query-row
+    range: blocks of KNN_BLOCK rows concatenated bitwise equal to the whole set's radii (the
+    stored embeddings and Gaussian rows), a block against its plain
+    version, the block's and the whole set's times.  (b) The same four
+    shards as (dcn, data) = (2, 2): ``mesh_metrics`` against one device;
+    ``replicate`` on card 0: a new object, no storage shared, embeddings
+    of 64 clips bitwise equal.  (c) N_SHARDS_SMALL shards: the APA pair
+    path (``embedding_pipeline``, ``L0``, N_PAIRS_MESH 5 s pairs, seed 7)
+    against one device, every category's embeddings bitwise, moments, d(x,
+    x'); the host-fed path (lists of songs, N_WIN_MESH windows a set,
+    batch 64, cut into two slices of 32) against one device at batch 32:
+    embeddings bitwise, FAD and KD under E2E_TOL, PRDC equal.  (d) With two
+    cards or more, (a) over every card (``device_indices`` naming them
+    all); else one line saying why not.  (e) ``examples.basic_usage`` (laion_clap_music
+    f32 from a checkpoint of ``params`` under ``AM_TPU_CKPT_DIR``) and
+    ``examples.streaming_eval`` (the dummy) at small sizes."""
+    import contextlib
+    import io
+
+    from audio_metrics_tpu_torch import AudioMetrics
+    from audio_metrics_tpu_torch.examples import basic_usage, streaming_eval
+    from audio_metrics_tpu_torch.models.base import _held_tensors
+    from audio_metrics_tpu_torch.models.clap import LaionCLAP
+    from audio_metrics_tpu_torch.models.htsat import HTSAT_BASE
+    from audio_metrics_tpu_torch.ops.distance import knn_radii, knn_radii_plain
+    from audio_metrics_tpu_torch.ops.mix import MIX_FUNCTIONS
+    from audio_metrics_tpu_torch.metrics.apa import apa_compute_d_x_xp
+    from audio_metrics_tpu_torch.parallel.mesh import make_mesh
+    from audio_metrics_tpu_torch.parallel.pipeline import ItemCategory, embedding_pipeline
+    from audio_metrics_tpu_torch.testing import seeded_pairs, seeded_songs
+
+    t17 = time.perf_counter()
+    card0 = torch.device("cuda", 0)
+    metrics = ["fad", "kd", "prdc"]
+    clap = LaionCLAP(cfg=HTSAT_BASE, compute_dtype="bfloat16", allow_random_weights=True,
+                     device="cuda")
+    torch.cuda.empty_cache()
+    reference, candidate = clips(N_CLIPS, CLIP_S, seed=3)
+    forwards = 2 * -(-N_CLIPS // BATCH)
+
+    def build(mesh=None, device_indices=(0,), batch=BATCH):
+        am = AudioMetrics(metrics=metrics, embedder=clap, win_dur=float(CLIP_S), input_sr=SR,
+                          batch_size=batch, device="cuda",
+                          device_indices=None if device_indices is None else
+                          list(device_indices))
+        if mesh is not None:
+            am.mesh = mesh
+        return am
+
+    one = build()
+    one.add_reference(reference)
+    want = one.evaluate(candidate)
+
+    log(f"  (a) the main path over {N_SHARDS} shards on card 0")
+    am = build(make_mesh(devices=[card0] * N_SHARDS))
+    set_counts_to_zero()
+    am.add_reference(reference)
+    got = am.evaluate(candidate)
+    check_counts(f"add_reference + first evaluate over {am.mesh}", read_counts(),
+                 mesh_expected(forwards, 2 * N_SHARDS, N_SHARDS, swin_block=18, patch_merge=3,
+                               clap_frontend=1))
+    mesh_metrics(f"{N_SHARDS} shards on card 0", got, want, am, one)
+    log(f"  {N_SHARDS} shards on card 0: {warm_evaluates(am, candidate, N_CLIPS)} [{card}]")
+    log(f"  one device:    {warm_evaluates(one, candidate, N_CLIPS)} [{card}]")
+    for what, a in ((f"{N_SHARDS} shards on card 0", am), ("one device", one)):
+        log(f"  host stage times of the last warm evaluate, {what}: " + ", ".join(
+            f"{k} {a.timings.get(k, float('nan')) * 1e3:.3f} ms"
+            for k in ("pipeline", "fad", "kd_dispatch", "prdc_dispatch")) + f" [{card}]")
+    log(f"  traced evaluate, {N_SHARDS} shards on card 0: {trace_evaluate(am, candidate)}")
+    log(f"  traced evaluate, one device:    {trace_evaluate(one, candidate)}")
+
+    # #4's query-row range, on the stored embeddings and on Gaussian rows
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    k = 10
+    for what, x in (("stored embeddings", one.stem_reference.embeddings),
+                    ("Gaussian rows", torch.randn((N_CLIPS, 512), generator=gen,
+                                                  device="cuda"))):
+        whole = knn_radii(x, k)
+        parts = torch.cat([knn_radii(x, k, r, KNN_BLOCK) for r in range(0, len(x), KNN_BLOCK)])
+        same = torch.equal(parts, whole)
+        log(f"  knn_radii of {what}, query-row blocks of {KNN_BLOCK} against the whole set: "
+            f"{'bitwise equal' if same else 'DIFFER'}")
+        if not same:
+            raise AssertionError("#4's query-row blocks disagree with the whole set")
+        check_radii(f"({KNN_BLOCK} of {len(x)}, 512) rows 512.. of {what}, k={k + 1}",
+                    knn_radii(x, k, 512, KNN_BLOCK), knn_radii_plain(x, k, 512, KNN_BLOCK))
+    n, d = x.shape
+    t_whole = cuda_ms(lambda: knn_radii(x, k), TIMING_ITERS["knn_radii"], warmup=10)
+    t_block = cuda_ms(lambda: knn_radii(x, k, 0, KNN_BLOCK), TIMING_ITERS["knn_radii"],
+                      warmup=10)
+    t_plain = cuda_ms(lambda: knn_radii_plain(x, k, 0, KNN_BLOCK), 20, warmup=3)
+    b_whole = bound({"f32": 2 * n * n * d}, n * d * 4 + n * 4 * 2)
+    b_block = bound({"f32": 2 * KNN_BLOCK * n * d}, n * d * 4 + n * 4 + KNN_BLOCK * 4)
+    log(f"  knn_radii at ({n}, {n}) x {d}: whole set {t_whole:.4f} ms (bound "
+        f"{b_whole[0]:.4f}); query rows [0, {KNN_BLOCK}) {t_block:.4f} ms (bound "
+        f"{b_block[0]:.4f}, {b_block[1]}; plain {t_plain:.4f} ms) [{card}]")
+
+    log("  (b) the same shards as (dcn, data) = (2, 2); replicate on card 0")
+    dcn = build(make_mesh(devices=[card0] * N_SHARDS, dcn_slices=2))
+    dcn.add_reference(reference)
+    mesh_metrics(f"{dcn.mesh}", dcn.evaluate(candidate), want, dcn, one)
+    twin = clap.replicate(card0)
+    shared = {t.data_ptr() for t in _held_tensors(clap)} & {
+        t.data_ptr() for t in _held_tensors(twin)}
+    x = reference[:BATCH]
+    same = torch.equal(twin.embed(x), clap.embed(x))
+    log(f"  replicate(cuda:0): a new object {twin is not clap}, {len(_held_tensors(twin))} "
+        f"tensors, {len(shared)} shared with the original; embeddings of {BATCH} clips "
+        f"{'bitwise equal' if same else 'DIFFER'}")
+    if twin is clap or shared or not same:
+        raise AssertionError("replicate did not copy every held tensor, or its embeddings differ")
+    del twin, dcn
+
+    log(f"  (c) the APA pair path and the host-fed path over {N_SHARDS_SMALL} shards")
+    mesh2 = make_mesh(devices=[card0] * N_SHARDS_SMALL)
+    pairs = seeded_pairs(N_PAIRS_MESH, CLIP_S * SR, SR, seed=11, misaligned=N_PAIRS_MESH // 4)
+    kw = dict(mix_function=MIX_FUNCTIONS["L0"], apa_mode="reference", stems_mode=True,
+              store_mix_embeddings=True, store_stem_embeddings=True, batch_size=BATCH,
+              win_dur=float(CLIP_S), seed=7)
+    set_counts_to_zero()
+    two = embedding_pipeline(pairs, clap, mesh=mesh2, **kw)
+    per = 3 * N_PAIRS_MESH // BATCH
+    check_counts("APA reference pairs over 2 shards", read_counts(),
+                 mesh_expected(per, 0, 0, swin_block=18, patch_merge=3, clap_frontend=1))
+    single = embedding_pipeline(pairs, clap, **kw)
+    for c in (ItemCategory.aligned, ItemCategory.misaligned, ItemCategory.stem):
+        same = torch.equal(two[c].embeddings, single[c].embeddings)
+        (m2, c2, n2), (m1, c1, n1) = two[c].stats(), single[c].stats()
+        rel = max(np.abs(m2 - m1).max() / np.abs(m1).max(), np.abs(c2 - c1).max() /
+                  np.abs(c1).max())
+        log(f"    {c.name}: {n2} windows, embeddings {'bitwise equal' if same else 'DIFFER'}, "
+            f"moments rel {rel:.3g} (tol {E2E_TOL['fad']})")
+        if not (same and n2 == n1 and rel <= E2E_TOL["fad"]):
+            raise AssertionError(f"the {c.name} set over 2 shards disagrees with one device")
+    d2 = apa_compute_d_x_xp(two[ItemCategory.aligned], two[ItemCategory.misaligned])
+    d1 = apa_compute_d_x_xp(single[ItemCategory.aligned], single[ItemCategory.misaligned])
+    log(f"    d(x, x') 2 shards {d2!r}, one device {d1!r}, rel {abs(d2 - d1) / d1:.3g}")
+    if not abs(d2 - d1) <= E2E_TOL["fad"] * abs(d1):
+        raise AssertionError("d(x, x') over 2 shards disagrees with one device")
+    del two, single, pairs
+
+    win = CLIP_S * SR
+    songs_ref = seeded_songs(N_WIN_MESH, win, SR, seed=41)
+    songs_cand = seeded_songs(N_WIN_MESH, win, SR, seed=42, candidate=True)
+    hf = build(mesh2)
+    set_counts_to_zero()
+    hf.add_reference(songs_ref)
+    got_hf = hf.evaluate(songs_cand)
+    check_counts("host-fed over 2 shards", read_counts(),
+                 mesh_expected(2 * N_WIN_MESH // (BATCH // N_SHARDS_SMALL), 2 * N_SHARDS_SMALL,
+                               N_SHARDS_SMALL, swin_block=18, patch_merge=3, clap_frontend=1))
+    hf1 = build(batch=BATCH // N_SHARDS_SMALL)
+    hf1.add_reference(songs_ref)
+    want_hf = hf1.evaluate(songs_cand)
+    same = torch.equal(hf.stem_reference.embeddings, hf1.stem_reference.embeddings)
+    log(f"    host-fed: {got_hf}; one device at batch {BATCH // N_SHARDS_SMALL}: {want_hf}; "
+        f"stored embeddings {'bitwise equal' if same else 'DIFFER'}")
+    bad = [] if same else ["embeddings"]
+    for key, v in want_hf.items():
+        tol = E2E_TOL.get(key, 0.0)
+        rel = abs(got_hf[key] - v) / max(abs(v), 1e-300)
+        log(f"    {key}: rel {rel:.3g} (tol {tol}) {'ok' if rel <= tol else 'FAIL'}")
+        if not rel <= tol:
+            bad.append(key)
+    if bad:
+        raise AssertionError(f"the host-fed path over 2 shards disagrees with one device: {bad}")
+    del hf, hf1
+
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        log(f"  (d) the main path over every card ({n_cards})")
+        every = build(device_indices=range(n_cards))
+        set_counts_to_zero()
+        every.add_reference(reference)
+        got = every.evaluate(candidate)
+        check_counts(f"over {every.mesh}", read_counts(),
+                     mesh_expected(forwards, 2 * n_cards, n_cards, swin_block=18,
+                                   patch_merge=3, clap_frontend=1))
+        mesh_metrics(f"{n_cards} cards", got, want, every, one)
+        log(f"  {n_cards} cards: {warm_evaluates(every, candidate, N_CLIPS)} [{card}]")
+        del every
+    else:
+        log(f"  (d) not run: it spreads the main path over every card, and this host has "
+            f"{n_cards}")
+    del am, one, reference, candidate
+
+    log("  (e) the examples basic_usage and streaming_eval")
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        write_clap_checkpoint(params, ckpt_dir)
+        for name, main_fn, argv, env in (
+                ("basic_usage", basic_usage.main, ["--n-items", "4", "--device", "cuda"],
+                 {"AM_TPU_CKPT_DIR": ckpt_dir}),
+                ("streaming_eval", streaming_eval.main,
+                 ["--n-clips", "512", "--batch-size", "64", "--devices",
+                  f"0-{torch.cuda.device_count() - 1}", "--metrics", "fad,kd",
+                  "--device", "cuda"], {})):
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with environ(**env), contextlib.redirect_stdout(out):
+                rc = main_fn(argv)
+            text = out.getvalue()
+            numbers = [float(v) for v in re.findall(r"'[a-z_]+': (-?[0-9.e+-]+|nan|inf)", text)]
+            ok = rc == 0 and numbers and all(np.isfinite(numbers))
+            log(f"  {name} ({time.perf_counter() - t0:.1f} s): exit {rc}, {len(numbers)} "
+                f"metric values, all finite {ok}")
+            for line in text.splitlines()[-3:]:
+                log(f"    {line}")
+            if not ok:
+                raise AssertionError(f"example {name} failed or printed a non-finite value")
+    log(f"  phase 17: {time.perf_counter() - t17:.1f} s [{card}]")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run", file=sys.stderr)
@@ -2615,6 +2918,9 @@ def main() -> int:
         "AM_TPU_CKPT_DIR")
     phase_cli(card, params)
     log(f"  phase 16: {time.perf_counter() - t16:.1f} s [{card}]")
+    log(f"phase 17 one AudioMetrics over a mesh: {N_SHARDS} shards on card 0, its DCN layout, "
+        "replicate, the APA and host-fed paths on 2 shards, every card, two examples")
+    phase_mesh(card, params)
 
     # launches: each kernel's count on the path that runs it
     path_of = {"log_mel": launches_10s, "swin_attn_v3": launches_split,

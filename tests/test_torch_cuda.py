@@ -38,6 +38,11 @@ f32: the bf16 int8 kernel's bounds.  The int8 MLP in both dtypes reads its
 weights' codes held from load (``mlp_int8_operands``), repeats bitwise, and
 equals the call that quantises them itself; at a ragged row count and at C
 = 64 (half a K step of codes) its rows equal those of a longer call.
+
+Last, the mesh on a card: an ``AudioMetrics`` without ``device_indices``
+runs on the card its ``device`` names, and the host-fed path over two
+shards of one card (host threads, where grad mode is on) records no graph
+for an embedder whose weight requires grad.
 """
 
 import numpy as np
@@ -938,3 +943,53 @@ def test_mlp_int8_f32_kernel_matches_plain(cuda, params, stage):
         got = mlp_block_int8(x, *args, eps=cfg.layer_norm_eps)
         want = mlp_block_int8_plain(x, *args, eps=cfg.layer_norm_eps)
         _close(got, want, want - x, MLP_INT8_TOL[0][0], MLP_INT8_TOL[1])
+
+
+class _GradEmbedder:
+    """Means of 10 stride slices of a window times a weight that requires
+    grad; ``embed`` sets no grad mode of its own."""
+
+    sr = SAMPLE_RATE
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.w = torch.linspace(1.0, 2.0, 10, device=self.device, requires_grad=True)
+
+    def embed(self, audio):
+        return audio.float().reshape(audio.shape[0], -1, 10).std(dim=1) * self.w
+
+
+def test_default_mesh_is_the_named_card(cuda):
+    """``AudioMetrics(device="cuda:i")`` without ``device_indices`` runs
+    on card i alone, however many cards the host has."""
+    from audio_metrics_tpu_torch import AudioMetrics
+
+    last = torch.device("cuda", torch.cuda.device_count() - 1)
+    am = AudioMetrics(metrics=["fad"], embedder=_GradEmbedder(last), device=str(last))
+    assert am.mesh.devices == [last] and am.mesh.size == 1
+
+
+def test_host_fed_mesh_records_no_graph(cuda):
+    """Songs through the host-fed path over two shards of card 0, one host
+    thread each: no stored embedding carries a graph, and the embeddings
+    equal those of one device at the shards' batch of 2 (a reduction's
+    rounding may depend on the batch it runs in)."""
+    from audio_metrics_tpu_torch import AudioMetrics
+    from audio_metrics_tpu_torch.parallel.mesh import make_mesh
+
+    card0 = torch.device("cuda", 0)
+    rng = np.random.default_rng(8)
+    songs = [rng.random(3 * SAMPLE_RATE + 100 * i).astype(np.float32) for i in range(6)]
+
+    def run(mesh, batch):
+        am = AudioMetrics(metrics=["fad", "kd"], embedder=_GradEmbedder(card0), win_dur=1.0,
+                          batch_size=batch, device="cuda:0", device_indices=[0])
+        if mesh is not None:
+            am.mesh = mesh
+        am.add_reference(songs)
+        return am.stem_reference.embeddings
+
+    two, one = run(make_mesh(devices=[card0] * 2), 4), run(None, 2)
+    assert two.grad_fn is None and not two.requires_grad
+    assert two.shape == one.shape == (18, 10)
+    assert torch.equal(two, one), (two - one).abs().max().item()

@@ -6,9 +6,8 @@
   are stood in for, and the operands report ``cuda:1`` while card 0 is
   current.
 - ``AudioMetrics`` takes the JAX package's parameters in the JAX order
-  (then ``device``), and every argument the port does not implement raises
-  ``NotImplementedError`` away from its default, so that one call never
-  returns other keys in the two packages.
+  (then ``device``), and an argument the port cannot honour raises, so
+  that one call never returns other keys in the two packages.
 
 - The fused frontend's plain version runs no kernel: its log-mel takes the
   halo log-mel kernel's plain version on any device (it went through
@@ -121,11 +120,14 @@ class _Embedder:
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    (dict(metrics=["fad"], dcn_slices=2), r"dcn_slices.*item 10\)"),
-    (dict(metrics=["fad"], device_indices=[0]), r"device_indices.*item 10\)"),
+    (dict(metrics=["fad"], dcn_slices=2), r"1 devices do not divide into 2 DCN slices"),
+    (dict(metrics=["fad"], device_indices=[0, 0]), r"device_indices \[0, 0\] name a device"),
 ])
 def test_unported_arguments_raise(kwargs, match):
-    with pytest.raises(NotImplementedError, match=match):
+    """``device_indices`` and ``dcn_slices`` are ported (multi-GPU): what
+    raises now is a mesh they cannot make, as in the JAX package: one CPU
+    shard in 2 DCN slices, a device named twice."""
+    with pytest.raises(ValueError, match=match):
         AudioMetrics(embedder=_Embedder(), device="cpu", **kwargs)
 
 
@@ -189,6 +191,7 @@ def _first_check(name: str):
     import test_torch_hostfed as hostfed
     import test_torch_loudness as loudness
     import test_torch_options as options
+    import test_torch_sharding as sharding
     import test_torch_vggish as vggish
 
     return {
@@ -203,10 +206,14 @@ def _first_check(name: str):
         "F2": lambda mod: fad_inf.check_fad_inf_parts(mod.fad_inf_parts),
         "S3": lambda mod: hostfed.check_shuffle(mod.shuffle_stream),
         "W2": lambda mod: cli.check_riff_size(mod.write_wav),
+        "S4": lambda mod: sharding.check_fused_loop(mod.sharded_embed_loop),
+        "S5": lambda mod: sharding.check_stats_sweep(mod.sharded_pairwise_stats),
+        "S6": sharding.check_kd_sharded,
     }[name]
 
 
-@pytest.mark.parametrize("name", ["V1", "H1", "P2", "D1", "U1", "K1", "A2", "F2", "S3", "W2"])
+@pytest.mark.parametrize("name", ["V1", "H1", "P2", "D1", "U1", "K1", "A2", "F2", "S3", "W2",
+                                  "S4", "S5", "S6"])
 def test_planted_python_fault_fails_its_first_check(name):
     """V1 (VGGish flattens NCHW) fails the f32 net against the JAX forward,
     H1 (the pipeline ignores ``hop_dur``) the windows against the JAX
@@ -219,11 +226,15 @@ def test_planted_python_fault_fails_its_first_check(name):
     formula's golden cases; F2 (FAD-inf fitted against the subset size)
     the sweep against the JAX function, S3 (the window shuffle protects
     min_age - 1 insertions) the order against the JAX copy's, W2 (the RIFF
-    size 4 bytes too large) the size check.  The same checks pass on the
+    size 4 bytes too large) the size check; S4 (a shard's block of windows
+    one late) the sharded embeddings against one device's, S5 (PRDC's
+    counts the shards' max) and S6 (KD keeps a shard's subsets twice) the
+    sharded sweep and KD against one device's.  The same checks pass on the
     real modules (their own tests in tests/test_torch_vggish.py,
     tests/test_torch_options.py, tests/test_torch_apa.py,
     tests/test_torch_loudness.py, tests/test_torch_fad_inf.py,
-    tests/test_torch_hostfed.py and tests/test_torch_cli.py)."""
+    tests/test_torch_hostfed.py, tests/test_torch_cli.py and
+    tests/test_torch_sharding.py)."""
     from audio_metrics_tpu_torch.plant_faults import CPU_FAULTS
 
     assert name in CPU_FAULTS

@@ -140,7 +140,13 @@ def test_package_imports_no_jax():
         "import sys, audio_metrics_tpu_torch, audio_metrics_tpu_torch.convert, "
         "audio_metrics_tpu_torch.models.clap, audio_metrics_tpu_torch.__main__, "
         "audio_metrics_tpu_torch.parallel.native_loader, audio_metrics_tpu_torch.parallel.stream, "
-        "audio_metrics_tpu_torch.utils.example_utils; "
+        "audio_metrics_tpu_torch.parallel.mesh, audio_metrics_tpu_torch.utils.example_utils, "
+        "audio_metrics_tpu_torch.examples.basic_usage, "
+        "audio_metrics_tpu_torch.examples.multi_embedder_sweep, "
+        "audio_metrics_tpu_torch.examples.streaming_eval, "
+        "audio_metrics_tpu_torch.examples.real_weights_eval, "
+        "audio_metrics_tpu_torch.examples.musdb, "
+        "audio_metrics_tpu_torch.examples.benchmark_pipeline; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
         "'audio_metrics_tpu')]; print(bad); sys.exit(1 if bad else 0)"
     )
@@ -152,8 +158,9 @@ def test_package_imports_no_jax():
 def test_unported_surface_raises():
     cfg = HTSATConfig(**SMALL)
     emb = LaionCLAP(params=_params(cfg), cfg=cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        AudioMetrics(metrics=["fad"], embedder=emb, device="cpu", device_indices=[0, 1])
+    # multi-GPU is ported: indices that name a device twice raise
+    with pytest.raises(ValueError, match="more than once"):
+        AudioMetrics(metrics=["fad"], embedder=emb, device="cpu", device_indices=[0, 0])
     # APA takes context+stem pairs; mono stems raise the JAX package's error
     with pytest.raises(ValueError, match="pairing context and stem"):
         AudioMetrics(metrics=["apa", "fad"], embedder=emb, device="cpu").add_reference(
