@@ -7,11 +7,12 @@ kernels carry the hot path (kernels/csrc/); each has a plain PyTorch
 version that CPU tensors run.  This package never imports JAX and changes
 no global mode.
 
-    from audio_metrics_tpu_torch import AudioMetrics
+    from audio_metrics_tpu_torch import AudioMetrics, AudioMetricsData
 """
 
 __version__ = "0.1.0"
 
 from .audio_metrics import AudioMetrics  # noqa: E402
+from .data import AudioMetricsData  # noqa: E402
 
-__all__ = ["AudioMetrics", "__version__"]
+__all__ = ["AudioMetrics", "AudioMetricsData", "__version__"]

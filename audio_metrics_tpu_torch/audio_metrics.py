@@ -32,6 +32,7 @@ from .metrics.fad import FadInfUnavailable, fad_device_tail, fad_inf_parts, frec
 from .metrics.kd import kernel_distance
 from .metrics.prdc import prdc
 from .models import get_embedder
+from .models.base import as_embedder
 from .ops.mix import DEFAULT_MIX_FUNCTION, MIX_FUNCTIONS
 from .parallel.mesh import make_mesh
 from .parallel.pipeline import ItemCategory, embedding_pipeline
@@ -59,7 +60,10 @@ class AudioMetrics:
         pairs, or mono audio): an (N, n_samples, 2) or (N, n_samples)
         tensor or array, or an iterable of songs of any length,
         (n_samples, 2) or (n_samples,) each.  ``embedder``: an
-        embedder object, or a registry name built on ``device``.
+        embedder of the port, an object with ``sr`` and ``forward(data)``
+        only (the reference's protocol; ``models.base.as_embedder`` wraps
+        it, on its ``device`` attribute or else on ``device``), or a
+        registry name built on ``device`` (``get_embedder``).
         ``mix_function``: a name of ``ops.mix.MIX_FUNCTIONS`` (default
         ``L0``) or a callable ``f(audio[n, 2], sr) -> mono[n]``, run per
         item on the host.  ``hop_dur`` (seconds): overlapping windows.
@@ -90,8 +94,11 @@ class AudioMetrics:
                                  f"{', '.join(map(repr, _METRICS))}")
         self.metrics = list(metrics)
         self.need_apa = "apa" in self.metrics
+        self.device = device
         if embedder is None or isinstance(embedder, str):
-            embedder = get_embedder(embedder, device=device)
+            embedder = self.get_embedder(embedder)
+        else:
+            embedder = as_embedder(embedder, device)
         self.embedder = embedder
         if dcn_slices is None:
             dcn_slices = int(os.environ.get("AM_TPU_DCN_SLICES", "0")) or None
@@ -126,6 +133,13 @@ class AudioMetrics:
     @property
     def store_stem_embeddings(self) -> bool:
         return self.stem_projection is not None or any(m in _NEED_EMBEDDINGS for m in self.metrics)
+
+    def get_embedder(self, embedder):
+        """The registry embedder named ``embedder`` (default
+        ``laion_clap_music``) built on this instance's ``device``
+        (audio_metrics_tpu/audio_metrics.py:171-179); an unknown name
+        raises ``ValueError``."""
+        return get_embedder(embedder, device=self.device)
 
     @staticmethod
     def get_mix_function(mix_function):

@@ -14,12 +14,17 @@ Counterpart of ``audio_metrics_tpu/metrics/fad.py``:
   float64 on the device (the JAX package: f32, whose Newton-Schulz
   diverges on the smallest subsets of real-sized sets; see its docstring).
 
-The Newton-Schulz iteration count is ``AM_TPU_FAD_NS_ITERS`` (default 30),
-read at each call as in the JAX package (its ``_ns_iters``, :148-149).
+The Newton-Schulz iteration count of the device tail and of FAD-inf is
+``AM_TPU_FAD_NS_ITERS`` (default 30), read at each call as in the JAX
+package (its ``_ns_iters``, :148-149).  ``frechet_distance(...,
+method="newton_schulz")`` (:100-120) runs the jittered Cholesky, ``L^T Sy
+L`` and the iteration at a fixed 30 iterations, as the JAX package's does,
+in full f32 on ``device``.
 """
 
 from __future__ import annotations
 
+import math
 import os
 import warnings
 
@@ -27,10 +32,14 @@ import numpy as np
 import torch
 
 from ..data import AudioMetricsData
+from ..models.base import resolve_device
 from ..utils.precision import full_f32
 
 __all__ = ["FadInfUnavailable", "fad_device_tail", "fad_inf_parts", "frechet_distance",
-           "trace_sqrtm_product"]
+           "trace_sqrtm_product", "trace_sqrtm_product_ns"]
+
+
+NS_METHOD_ITERS = 30  # frechet_distance(method="newton_schulz"), as the JAX fad.py:100
 
 
 def _ns_iters() -> int:
@@ -66,16 +75,49 @@ def _frechet_distance(mu_x, sigma_x, mu_y, sigma_y, chol_x=None) -> float:
     return a + b - 2.0 * trace_sqrtm_product(sigma_x, sigma_y, chol_x=chol_x)
 
 
-def frechet_distance(x: AudioMetricsData, y: AudioMetricsData) -> float:
-    """Host f64 FAD; the similarity transform runs on ``y``'s (the
-    reference's) side when its covariance has a Cholesky factor, which is
-    cached across evaluates."""
+def frechet_distance(x: AudioMetricsData, y: AudioMetricsData, method: str = "eigh",
+                     device="cuda") -> float:
+    """FAD between the Gaussian fits of ``x`` and ``y``
+    (audio_metrics_tpu/metrics/fad.py:261-301).  ``method="eigh"``: host
+    float64; the similarity transform runs on ``y``'s (the reference's)
+    side when its covariance has a Cholesky factor, which is cached across
+    evaluates.  ``method="newton_schulz"``: ``Tr sqrt(Sx Sy)`` on
+    ``device`` (default ``"cuda"``) by :func:`trace_sqrtm_product_ns`, the
+    rest in float64 on the host.  Another method raises ``ValueError``."""
     mx, sx, _ = x.stats()
     my, sy, _ = y.stats()
+    if method == "newton_schulz":
+        mx, sx = np.asarray(mx, np.float64), np.asarray(sx, np.float64)
+        my, sy = np.asarray(my, np.float64), np.asarray(sy, np.float64)
+        a = float(np.sum(np.square(mx - my)))
+        b = float(np.trace(sx) + np.trace(sy))
+        return a + b - 2.0 * trace_sqrtm_product_ns(sx, sy, device)
+    if method != "eigh":
+        raise ValueError(f"Unknown FAD method {method!r}")
     chol_y = y.chol_cov()
     if chol_y is not None:
         return _frechet_distance(my, sy, mx, sx, chol_x=chol_y)
     return _frechet_distance(mx, sx, my, sy)
+
+
+def trace_sqrtm_product_ns(sigma_x, sigma_y, device="cuda") -> float:
+    """``Tr sqrt(Sx Sy)`` by products only (audio_metrics_tpu/metrics/
+    fad.py:100-120), in full f32 on ``device``: ``Sx + eps I = L L^T`` with
+    ``eps = 1e-10 Tr Sx / d + 1e-30``, then the coupled Newton-Schulz
+    ``Tr sqrt`` of the symmetrised ``L^T Sy L`` at ``NS_METHOD_ITERS``
+    iterations.  nan where the jittered ``Sx`` has no f32 Cholesky factor
+    (the JAX ``cholesky`` returns nan there)."""
+    dev = resolve_device(device)
+    sx = torch.as_tensor(np.asarray(sigma_x), dtype=torch.float32, device=dev)
+    sy = torch.as_tensor(np.asarray(sigma_y), dtype=torch.float32, device=dev)
+    d = sx.shape[0]
+    eye = torch.eye(d, dtype=torch.float32, device=dev)
+    with full_f32():
+        eps = 1e-10 * torch.trace(sx) / d + 1e-30
+        chol, info = torch.linalg.cholesky_ex(sx + eps * eye)
+        m = chol.T @ sy @ chol
+        trsqrt = _ns_trace_sqrt_sym(0.5 * (m + m.T), NS_METHOD_ITERS)
+    return math.nan if int(info) else float(trsqrt)
 
 
 def _ns_trace_sqrt_sym(m: torch.Tensor, n_iter: int | None = None) -> torch.Tensor:

@@ -5,7 +5,9 @@ drawn on the host with the reference's exact ``default_rng(1234)`` call
 order (:459-475); the per-subset Gram sums run on the device (:116-250,
 :313-430) as batched products over chunks of subsets, row sums in f32 and
 the finals in f64.  The reference-only term sum(K_YY) - tr(K_YY) is cached
-per reference embeddings, subset indices, kernel parameters and mesh.
+per reference embeddings, subset indices, kernel parameters and mesh
+(``kernel_distance``, on ``AudioMetricsData``; ``kid_features_to_metric``,
+on raw features, takes the same path without the cache).
 Over a mesh (:257-324, :394-410; one shard by default) the chunks are dealt out in contiguous
 runs, one a shard, each shard working on its own device's copy of both
 feature sets, and the per-subset sums come back in subset order.
@@ -19,12 +21,13 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from ..data import AudioMetricsData
+from ..data import AudioMetricsData, as_rows
 from ..parallel.mesh import make_mesh
 from ..utils.precision import full_f32
 
 __all__ = [
     "kernel_distance",
+    "kid_features_to_metric",
     "mmd2",
     "polynomial_kernel",
     "rbf_kernel",
@@ -154,9 +157,10 @@ def _ref_rows(f2, i2, kparams, chunks):
     return torch.cat(out)
 
 
-def _ref_sums(ref: AudioMetricsData, f2, subset_key, kparams, mesh, shard_run):
-    """Cached (subsets,) f64 tensor of sum(K_YY) - tr(K_YY), on the mesh's
-    first device; keyed on the reference embeddings' identity, the
+def _ref_sums(cache: dict | None, f2, subset_key, kparams, mesh, shard_run):
+    """(subsets,) f64 tensor of sum(K_YY) - tr(K_YY), on the mesh's first
+    device, cached in ``cache`` (the reference's ``AudioMetricsData.cache``;
+    None: computed, not cached); keyed on the reference embeddings' identity, the
     arguments that determine the subset indices ``(n1, n2, subsets, size,
     seed)``, the kernel parameters and the mesh's devices (kd.py:319).
     (Keying on the index array's ``id()`` is unsound: once the lru cache
@@ -164,12 +168,13 @@ def _ref_sums(ref: AudioMetricsData, f2, subset_key, kparams, mesh, shard_run):
     allocated at the same address.)  ``shard_run(fn)`` computes it, a run
     of chunks a shard."""
     key = ("kd_ref", subset_key, kparams, tuple(mesh.devices))
-    hit = ref.cache.get(key)
+    hit = None if cache is None else cache.get(key)
     if hit is not None and hit[0] is f2:
         return hit[1]
     kt_yy = torch.cat(shard_run(lambda f1, f2, i1, i2, chunks: _ref_rows(f2, i2, kparams,
                                                                          chunks)))
-    ref.cache[key] = (f2, kt_yy)
+    if cache is not None:
+        cache[key] = (f2, kt_yy)
     return kt_yy
 
 
@@ -206,15 +211,15 @@ def _subset_indices(n1: int, n2: int, subsets: int, size: int, seed: int):
     return idx_1, idx_2
 
 
-def kernel_distance(x: AudioMetricsData, y: AudioMetricsData, mesh=None, **kwargs) -> dict:
-    """KID estimate of candidate ``x`` against reference ``y`` over random
-    subsets (reference kd.py:127-194), the subsets' chunks spread over the
-    shards of ``mesh`` (``shard_chunks``; None: the embeddings' device
-    alone)."""
+def _kid_parts(f1: torch.Tensor, f2: torch.Tensor, mesh, cache, kwargs):
+    """The KID sweep of candidate rows ``f1`` against reference rows ``f2``
+    (reference kd.py:127-194): ``((kt_xx, kt_yy, k_xy) f64 device tensors
+    of one value a subset, host_reduce)``, ``host_reduce`` taking them
+    pulled to the host.  ``cache``: the reference's cache of its Gram sums
+    (None: none)."""
     kernel_type = kwargs.get("kernel_type", "polynomial")
     if kernel_type not in ("polynomial", "rbf"):
         raise NotImplementedError(f'Unknown kernel_type "{kernel_type}"')
-    f1, f2 = x.embeddings.float(), y.embeddings.float()
     if f1.ndim != 2 or f2.ndim != 2 or f1.shape[1] != f2.shape[1]:
         raise ValueError(f"embedding shapes {tuple(f1.shape)} / {tuple(f2.shape)}")
     n1, n2 = len(f1), len(f2)
@@ -242,12 +247,56 @@ def kernel_distance(x: AudioMetricsData, y: AudioMetricsData, mesh=None, **kwarg
     if mesh is None:
         mesh = make_mesh(devices=[f1.device])
     run = _on_shards(mesh, (f1, f2, i1, i2), *idx_1.shape)
-    kt_yy = _ref_sums(y, f2, subset_key, kparams, mesh, run)
+    kt_yy = _ref_sums(cache, f2, subset_key, kparams, mesh, run)
     parts = run(lambda f1, f2, i1, i2, chunks: _cand_sums(f1, f2, i1, i2, kparams, chunks))
     kt_xx, k_xy = (torch.cat(t) for t in zip(*parts))
     m = size
-    mmds = (
-        (kt_xx.cpu().numpy() + kt_yy.cpu().numpy()) / (m * (m - 1))
-        - 2.0 * k_xy.cpu().numpy() / (m * m)
-    )
-    return {KEY_METRIC_KID_MEAN: float(np.mean(mmds)), KEY_METRIC_KID_STD: float(np.std(mmds))}
+
+    def host_reduce(host_arrays) -> dict:
+        kt_xx, kt_yy, k_xy = host_arrays
+        mmds = (kt_xx + kt_yy) / (m * (m - 1)) - 2.0 * k_xy / (m * m)
+        return {KEY_METRIC_KID_MEAN: float(np.mean(mmds)), KEY_METRIC_KID_STD: float(np.std(mmds))}
+
+    return (kt_xx, kt_yy, k_xy), host_reduce
+
+
+def _pull(arrays) -> tuple:
+    return tuple(a.cpu().numpy() for a in arrays)
+
+
+def kernel_distance(x: AudioMetricsData, y: AudioMetricsData, mesh=None, **kwargs) -> dict:
+    """KID estimate of candidate ``x`` against reference ``y`` over random
+    subsets (reference kd.py:127-194), the subsets' chunks spread over the
+    shards of ``mesh`` (``shard_chunks``; None: the embeddings' device
+    alone); the reference's Gram sums cached on ``y``."""
+    arrays, host_reduce = _kid_parts(x.embeddings.float(), y.embeddings.float(), mesh, y.cache,
+                                     kwargs)
+    return host_reduce(_pull(arrays))
+
+
+def kid_features_to_metric(features_1, features_2, **kwargs):
+    """KID of ``features_1`` (candidate) against ``features_2``
+    (reference) on raw features (audio_metrics_tpu/metrics/kd.py:477-556),
+    through ``kernel_distance``'s path without its cache.  Features are
+    (n, d) tensors (kept on their device) or numpy arrays / array-likes
+    (moved to ``device``, default ``"cuda"``).  The JAX keyword arguments:
+    ``kernel_type`` ("polynomial" or "rbf"), ``kid_subsets``,
+    ``kid_subset_size`` (shrunk to min(n1, n2) // 2 where it does not fit,
+    with a warning under ``verbose``), ``rng_seed``, ``kid_degree``,
+    ``kid_gamma``, ``kid_coef0``, ``kid_sigma``, ``mesh`` (the shards that
+    share the subsets), and ``lazy``: ``True`` returns a callable that waits
+    for the card and returns the dict, ``"parts"`` returns ``(device
+    tensors, host_reduce)``, ``host_reduce`` taking the tensors pulled to
+    the host as numpy arrays."""
+    device = kwargs.get("device", "cuda")
+    f1 = as_rows(features_1, device)
+    f2 = as_rows(features_2, device)
+    arrays, host_reduce = _kid_parts(f1, f2, kwargs.get("mesh"), None, kwargs)
+    lazy = kwargs.get("lazy")
+    if lazy == "parts":
+        return arrays, host_reduce
+
+    def finalize() -> dict:
+        return host_reduce(_pull(arrays))
+
+    return finalize if lazy else finalize()

@@ -18,6 +18,11 @@ flags OR-ed; the reference rows' flags, minimum distances and the radii
 are concatenated.  Every value is then the one-device value, bitwise; a
 mesh of one shard computes the whole set's radii and reductions in one
 call each.
+
+On raw features (the JAX package's functional API, :240-347):
+``nearest_neighbour_distances`` (#4) and ``pairwise_distance_stats`` (#5)
+take tensors, kept on their device, or numpy arrays and array-likes,
+moved to ``device`` (default ``"cuda"``), and return device tensors.
 """
 
 from __future__ import annotations
@@ -25,11 +30,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..data import AudioMetricsData
+from ..data import AudioMetricsData, as_rows
 from ..ops.distance import KNN_TILE, knn_radii, pairwise_stats
 from ..parallel.mesh import make_mesh
 
-__all__ = ["prdc", "row_blocks", "sharded_knn_radii", "sharded_pairwise_stats"]
+__all__ = ["nearest_neighbour_distances", "pairwise_distance_stats", "prdc", "row_blocks",
+           "sharded_knn_radii", "sharded_pairwise_stats"]
 
 
 def row_blocks(n: int, shards: int) -> list[tuple[int, int]]:
@@ -69,14 +75,47 @@ def sharded_pairwise_stats(ref, cand, ref_radii, cand_radii, mesh):
             torch.cat([p[3] for p in out]))
 
 
+def nearest_neighbour_distances(input_features, nearest_k: int, mesh=None,
+                                device="cuda") -> torch.Tensor:
+    """Distance of each row to its ``nearest_k``-th nearest neighbour,
+    itself included as the JAX package counts (its prdc.py:240-280): (n,)
+    f32 on the features' device, through #4 (``ops.distance.knn_radii``;
+    over ``mesh``, a block of rows a shard, ``sharded_knn_radii``)."""
+    x = as_rows(input_features, device).contiguous()
+    if mesh is None:
+        return knn_radii(x, nearest_k)
+    return sharded_knn_radii(x, nearest_k, mesh)
+
+
+def pairwise_distance_stats(reference, candidate, ref_radii, cand_radii, nearest_k: int,
+                            mesh=None, device="cuda"):
+    """The four reductions of the reference x candidate distances, without
+    the matrix (the JAX package's prdc.py:283-347), through #5
+    (``ops.distance.pairwise_stats``; over ``mesh``, a block of reference
+    rows a shard): ``(cand_in_ref_any, cand_in_ref_count, ref_in_cand_any,
+    ref_min_dist)``, bool (M), int32 (M), bool (N), f32 (N) on the
+    reference's device.  ``nearest_k`` is not read (the radii carry it), as
+    in the JAX package."""
+    ref = as_rows(reference, device).contiguous()
+    dev = ref.device
+    cand, rr, cr = (as_rows(t, dev).to(dev).contiguous()
+                    for t in (candidate, ref_radii, cand_radii))
+    if mesh is None:
+        return pairwise_stats(ref, cand, rr, cr)
+    return sharded_pairwise_stats(ref, cand, rr, cr, mesh)
+
+
 def prdc(reference: AudioMetricsData, candidate: AudioMetricsData, nearest_k: int,
-         mesh=None) -> dict:
+         mesh=None, lazy=False):
     """``precision``, ``recall``, ``density``, ``coverage`` of the candidate
     manifold against the reference one (reference prdc.py:18-50).  Both
     objects must hold their embeddings; their radii for ``nearest_k`` are
     computed when missing and cached on them.  ``mesh``: the shards that
     share the work (see the module's docstring; None: the embeddings'
-    device alone)."""
+    device alone).  ``lazy`` (audio_metrics_tpu/metrics/prdc.py:350-447):
+    ``True`` returns a callable that waits for the card and returns the
+    dict, ``"parts"`` returns ``(device tensors, host_reduce)``,
+    ``host_reduce`` taking the tensors pulled to the host."""
     if not (reference.has_embeddings and candidate.has_embeddings):
         raise ValueError("PRDC needs the stored embeddings of both sets")
     key = f"radii_{nearest_k}"
@@ -88,10 +127,21 @@ def prdc(reference: AudioMetricsData, candidate: AudioMetricsData, nearest_k: in
               for amd, e in ((reference, ref_e), (candidate, cand_e)))
     ca, cc, ra, rm = sharded_pairwise_stats(ref_e, cand_e, rr, cr, mesh)
     reference.radii[key], candidate.radii[key] = rr, cr
-    ca, cc, ra, rm, rr = (t.cpu().numpy() for t in (ca, cc, ra, rm, rr))
-    return dict(
-        precision=float(np.mean(ca.astype(np.float64))),
-        recall=float(np.mean(ra.astype(np.float64))),
-        density=float(np.mean(cc.astype(np.float64))) / float(nearest_k),
-        coverage=float(np.mean((rm < rr).astype(np.float64))),
-    )
+    arrays = (ca, cc, ra, rm, rr)
+
+    def host_reduce(host_arrays) -> dict:
+        ca, cc, ra, rm, rr = host_arrays
+        return dict(
+            precision=float(np.mean(ca.astype(np.float64))),
+            recall=float(np.mean(ra.astype(np.float64))),
+            density=float(np.mean(cc.astype(np.float64))) / float(nearest_k),
+            coverage=float(np.mean((rm < rr).astype(np.float64))),
+        )
+
+    if lazy == "parts":
+        return arrays, host_reduce
+
+    def finalize() -> dict:
+        return host_reduce(tuple(t.cpu().numpy() for t in arrays))
+
+    return finalize if lazy else finalize()

@@ -36,6 +36,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..data import ensure_ndarray
 from ..ops.frontend_fused import (
     BF16_TABLES,
     clap_tokens_fused,
@@ -44,7 +45,7 @@ from ..ops.frontend_fused import (
 )
 from ..ops.mel import device_table, log_mel_halo_plain, log_mel_spectrogram, mel_filter_bank
 from ..utils.precision import full_f32
-from .base import Embedder, _require_random_weights_optin, resolve_device
+from .base import Embedder, _require_random_weights_optin, audio_batch, resolve_device
 from .htsat import HTSAT_BASE, HTSATConfig, HTSATEncoder, frontend_tokens, init_params
 
 __all__ = [
@@ -52,6 +53,7 @@ __all__ = [
     "ClapAudio",
     "clap_mel",
     "clap_mel_tiled",
+    "rand_trunc",
     "repeat_pad",
     "init_projection_params",
     "LAION_CLAP_LAYERS",
@@ -150,6 +152,20 @@ def clap_mel_tiled(audio, compute_dtype=None, out_affine=None, out_dtype=None, p
     mel = torch.cat([head, head[:, mid_idx], tail], dim=1)
     assert mel.shape[1] == n_frames
     return mel
+
+
+def rand_trunc(audio: np.ndarray, max_len: int, rng) -> np.ndarray:
+    """laion's ``rand_trunc`` on the host: each row of (B, n > max_len)
+    cropped to ``max_len`` at an offset drawn by ``rng.integers``, one draw
+    a row in row order (the crop branch of audio_metrics_tpu/models/clap.py
+    ``_repeatpad_np``, :272-294; shorter clips are repeat-padded on the
+    device by :func:`repeat_pad`)."""
+    b, n = audio.shape
+    out = np.empty((b, max_len), dtype=audio.dtype)
+    for i in range(b):
+        start = rng.integers(0, n - max_len + 1)
+        out[i] = audio[i, start : start + max_len]
+    return out
 
 
 def init_projection_params(cfg: HTSATConfig = HTSAT_BASE, seed: int = 0) -> dict:
@@ -273,7 +289,8 @@ class LaionCLAP(Embedder):
     either, or when the checkpoint cannot be found, weights are random and
     must be opted into (``allow_random_weights=True``): metric values from
     random weights are meaningless.  ``compute_dtype`` None is f32, the
-    JAX package's default."""
+    JAX package's default.  ``seed`` also seeds the generator of
+    ``forward``'s crops of clips over 10 s, as in the JAX package."""
 
     names = ("embedding", "audio_projection.0", "audio_projection.2")
     sr = SAMPLE_RATE
@@ -296,6 +313,7 @@ class LaionCLAP(Embedder):
         self.layer = layer or "embedding"
         self.cfg = cfg
         self.device = resolve_device(device)
+        self._rng = np.random.default_rng(seed)
         if params is None:
             _require_random_weights_optin("LaionCLAP", ckpt, allow_random_weights)
             params = init_params(cfg, seed=seed)
@@ -310,6 +328,22 @@ class LaionCLAP(Embedder):
     def embed(self, audio):
         """(B, n <= 10 s) f32 on the embedder's device -> (B, 512) f32."""
         return self.model(audio)[self.layer]
+
+    def forward(self, data: dict) -> dict:
+        """The reference protocol (audio_metrics_tpu/models/clap.py:353-373):
+        ``data["audio"]`` (n,) or (B, n), numpy or a tensor, any length.
+        Clips over 10 s are cropped on the host, each at an offset drawn
+        from the embedder's generator (``default_rng(seed)``, the JAX
+        package's draws for the same seed); the others go to :meth:`embed`
+        as they are (its device repeat-pad).  ``{"embedding": the tap of
+        ``layer``, (B, 512) f32}``."""
+        audio = data["audio"]
+        if audio.ndim == 1:
+            audio = audio[None]
+        if audio.shape[1] > MAX_SAMPLES:
+            audio = rand_trunc(np.asarray(ensure_ndarray(audio), np.float32), MAX_SAMPLES,
+                               self._rng)
+        return {"embedding": self.embed(audio_batch(audio, self.device))}
 
 
 CLAP = LaionCLAP

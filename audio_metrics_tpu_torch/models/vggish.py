@@ -138,7 +138,8 @@ class VGGish(nn.Module, Embedder):
     (seeded weights, ``init_params``).  ``compute_dtype`` None is f32, the
     JAX package's default; "bfloat16" its bf16 rounding points.  The
     weights are buffers on ``device``, rounded to bf16 once at load in bf16
-    (kept as f32 tensors)."""
+    (kept as f32 tensors).  The conv stack and FCs on patches are
+    :meth:`patch_net`; ``forward(data)`` is the embedder protocol."""
 
     names = ("embedding",)
     sr = SAMPLE_RATE
@@ -173,7 +174,7 @@ class VGGish(nn.Module, Embedder):
         ReLU: a bf16 rounding, kept in f32."""
         return x.to(torch.bfloat16).float() if self.compute_dtype == torch.bfloat16 else x
 
-    def forward(self, patches: torch.Tensor) -> torch.Tensor:
+    def patch_net(self, patches: torch.Tensor) -> torch.Tensor:
         """patches (N, 96, 64) f32 -> (N, 128) f32 pre-activation
         embeddings (the JAX ``_forward``)."""
         with full_f32():
@@ -198,5 +199,9 @@ class VGGish(nn.Module, Embedder):
         """(B, n >= 0.975 s) f32 on the embedder's device -> (B, 128) f32."""
         patches = vggish_log_mel_patches(audio)
         b, t = patches.shape[:2]
-        emb = self(patches.reshape(b * t, _PATCH_FRAMES, _N_MELS))
+        emb = self.patch_net(patches.reshape(b * t, _PATCH_FRAMES, _N_MELS))
         return emb.reshape(b, t, -1).mean(dim=1)
+
+    # the reference protocol (audio_metrics_tpu/models/vggish.py:212-216),
+    # also what calling the module runs: ``vggish({"audio": audio})``
+    forward = Embedder.forward

@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from ..data import AudioMetricsData, batch_moments, ensure_ndarray
+from ..models.base import as_embedder
 from ..ops.mix import emit_mix_diagnostics
 from ..ops.resample import resample_batch
 from ..ops.windowing import device_windows, multi_audio_slicer, window_length
@@ -606,9 +607,9 @@ def host_fed_pipeline(batches, embedder, mix_function, apa_mode, stems_mode: boo
 def embedding_pipeline(
     waveforms,
     embedder,
-    mix_function=None,
+    mix_function,
     apa_mode=None,
-    stems_mode: bool = True,
+    stems_mode: bool = False,
     store_mix_embeddings: bool = False,
     store_stem_embeddings: bool = False,
     batch_size: int = 32,
@@ -619,14 +620,21 @@ def embedding_pipeline(
     win_min_age: int = 100,
     seed: int | None = None,
     input_sr: int | None = None,
+    mesh=None,
     use_native: bool | None = None,
     progress: bool = False,
+    *,
     timings: dict | None = None,
-    mesh=None,
 ) -> dict:
     """Embed audio and accumulate per-category statistics
-    (audio_metrics_tpu/parallel/pipeline.py:744-1024).  Returns
-    ``{ItemCategory: AudioMetricsData}``.
+    (audio_metrics_tpu/parallel/pipeline.py:744-1024), with the JAX
+    package's arguments in its order and at its defaults (``mix_function``
+    positional, None where no pair is mixed; ``stems_mode`` False), then
+    ``timings``.  Returns ``{ItemCategory: AudioMetricsData}``.
+
+    ``embedder``: an embedder of the port, or an object with ``sr`` and
+    ``forward(data)`` only (``models.base.as_embedder``; on its ``device``
+    attribute, else the mesh's first device, else ``cuda``).
 
     ``waveforms`` at ``input_sr`` (default: the embedder's rate), either
     stacked or songs:
@@ -664,6 +672,7 @@ def embedding_pipeline(
     (:780-781), stacked audio moved to the mesh's first device, where the
     stored embeddings are gathered; a mesh of one shard runs its embedder
     replica alone (the embedder itself on its own device)."""
+    embedder = as_embedder(embedder, "cuda" if mesh is None else mesh.home)
     if mesh is not None and mesh.size == 1:
         embedder, mesh = mesh.replicas(embedder)[0], None
     if mesh is not None and batch_size % mesh.size:

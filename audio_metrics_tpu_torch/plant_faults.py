@@ -140,13 +140,28 @@ FAULTS = {
            "tuple(t.to(mesh.home) for t in r) for r in out if r is not None]",
            "tuple(t.to(mesh.home) for t in r) for r in out[:1] + out if r is not None]",
            "KD keeps the first shard's subsets twice"),
+    "C1": ("audio_metrics_tpu_torch/models/clap.py",
+           "out[i] = audio[i, start : start + max_len]",
+           "out[i] = audio[i, start + 1 : start + 1 + max_len]",
+           "LaionCLAP.forward's rand_trunc crop starts one sample after its drawn offset"),
+    "M1": ("audio_metrics_tpu_torch/data.py",
+           "        self._flush()\n        return self._mean\n", "        return self._mean\n",
+           "AudioMetricsData.mean is read without merging the pending device moments"),
+    "M2": ("audio_metrics_tpu_torch/data.py",
+           "        if self.n is None:\n            self.store_embeddings = other.store_embeddings\n",
+           "", "an empty AudioMetricsData keeps its own flag in +=, not the one of the set added"),
+    "F3": ("audio_metrics_tpu_torch/metrics/fad.py",
+           "_ns_trace_sqrt_sym(0.5 * (m + m.T), NS_METHOD_ITERS)",
+           "_ns_trace_sqrt_sym(0.5 * (m + m.T))",
+           "FAD's newton_schulz method iterates AM_TPU_FAD_NS_ITERS times, not a fixed 30"),
 }
 # faults in Python code that the CPU tests run: tests/test_torch_faults.py
 # plants each in a module loaded beside the real one and runs the first
 # check of it there; the smoke's phases 12-13 (15 for the APA path, 16 for
-# FAD-inf, 17 for the mesh) would catch most of them too, after every kernel
+# FAD-inf, 17 for the mesh, 18 for the public surface) would catch most of them too, after every kernel
 # phase, so they run here only when named
-CPU_FAULTS = ("V1", "H1", "P2", "D1", "U1", "K1", "A2", "F2", "S3", "W2", "S4", "S5", "S6")
+CPU_FAULTS = ("V1", "H1", "P2", "D1", "U1", "K1", "A2", "F2", "S3", "W2", "S4", "S5", "S6",
+              "C1", "M1", "M2", "F3")
 SKIP = ("build", ".git", "__pycache__", ".pytest_cache")
 
 

@@ -152,7 +152,19 @@ Phases, one status line each:
      equal); (c) the APA pair path and the host-fed path over 2 shards
      against one device; (d) with two cards or more, (a) over every card,
      else one line saying why not; (e) the examples ``basic_usage`` and
-     ``streaming_eval`` at small sizes.
+     ``streaming_eval`` at small sizes;
+ 18. the public surface beyond ``AudioMetrics``' own embedders
+     (``phase_surface``): (a) a forward-only wrapper of
+     ``LaionCLAP.forward`` through ``AudioMetrics(["fad", "kd", "prdc"])``
+     on phase 4's clips (launches #1 1152, #2 192, #3 64, #4 2, #5 1;
+     stored embeddings bitwise phase 4's; warm clips/s beside phase 4's)
+     and ``LaionCLAP.forward`` on 12 s clips bitwise ``embed`` of its host
+     crops; (b) ``nearest_neighbour_distances`` and
+     ``pairwise_distance_stats`` on 2048 x 512 features, one launch of #4 /
+     #5 a call, against their plain versions on the CPU,
+     ``kid_features_to_metric`` equal to ``kernel_distance``, the
+     ``newton_schulz`` FAD within 1e-4 of ``eigh``; (c) ``AudioMetricsData``
+     on numpy batches on the card, ``a + b`` against numpy float64.
 Phase 3 runs each kernel redesigned for Hopper on the wgmma core (the
 whole Swin block at every stage and shift, its v3, v1 and v2 attention
 halves and fused MLP, the three patch merges, the fused frontend, the two
@@ -1373,7 +1385,8 @@ def phase_e2e(card: str):
             f"(tol {E2E_TOL[key]})")
         if not rel <= E2E_TOL[key]:
             raise AssertionError(f"{key} through the kernels disagrees with the plain path")
-    return launches
+    return launches, {"embeddings": am.stem_reference.embeddings, "clips_s": N_CLIPS / warm,
+                      "result": result}
 
 
 def expected(forwards: int, knn_radii: int = 2, **per_forward) -> dict:
@@ -1901,8 +1914,8 @@ def phase_vggish(card: str) -> None:
     patches = vggish_log_mel_patches(batch).reshape(-1, 96, 64)
     with torch.no_grad():
         mel_ms = cuda_ms(lambda: vggish_log_mel_patches(batch))
-        net_ms = cuda_ms(lambda: bf16(patches))
-        net32_ms = cuda_ms(lambda: f32(patches))
+        net_ms = cuda_ms(lambda: bf16.patch_net(patches))
+        net32_ms = cuda_ms(lambda: f32.patch_net(patches))
     log(f"  one batch of {VGGISH_BATCH} clips ({patches.shape[0]} patches): log-mel "
         f"{mel_ms:.3f} ms (f32 products, library), conv stack + FCs bf16 {net_ms:.3f} ms, "
         f"f32 {net32_ms:.3f} ms (F.conv2d and products in full f32, library) [{card}]")
@@ -2831,6 +2844,185 @@ def phase_mesh(card: str, params: dict) -> None:
     log(f"  phase 17: {time.perf_counter() - t17:.1f} s [{card}]")
 
 
+class ClapForward:
+    """A user's embedder written to the reference's protocol: ``sr`` and
+    ``forward(data)`` only, a wrapper of ``LaionCLAP.forward``."""
+
+    def __init__(self, clap):
+        self.clap, self.sr = clap, clap.sr
+
+    def forward(self, data):
+        return self.clap.forward(data)
+
+
+def timed_s(fn):
+    """``(fn(), its seconds)``, the card's queue drained before and
+    after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_surface(card: str, e2e: dict) -> None:
+    """The public surface beyond ``AudioMetrics``' own embedders: (a) a
+    forward-only wrapper of ``LaionCLAP.forward`` (HTSAT-base bf16, phase
+    4's weights) through ``AudioMetrics(["fad", "kd", "prdc"])`` on phase
+    4's clips: launches as phase 4's, stored embeddings bitwise phase 4's,
+    warm clips/s beside phase 4's; ``forward`` on 12 s clips bitwise
+    ``embed`` of the host crops its generator draws; (b) the metric
+    functions on 2048 x 512 features (phase 3's sets, candidate 0.05 +
+    1.02 N(0, I)) on the card: ``nearest_neighbour_distances`` (#4) and
+    ``pairwise_distance_stats`` (#5), one launch a call, against their
+    plain versions on the CPU under RADII_TOL / REF_MIN_TOL and the
+    near-tie rule, ``kid_features_to_metric`` equal to ``kernel_distance``,
+    ``frechet_distance(method="newton_schulz")`` within 1e-4 of
+    ``"eigh"``; (c) numpy batches accumulated by ``AudioMetricsData`` on
+    the card, two accumulators added, mean and covariance against numpy
+    float64."""
+    import copy
+
+    from audio_metrics_tpu_torch import AudioMetrics, AudioMetricsData
+    from audio_metrics_tpu_torch.metrics import (
+        frechet_distance,
+        kernel_distance,
+        kid_features_to_metric,
+        nearest_neighbour_distances,
+    )
+    from audio_metrics_tpu_torch.metrics.prdc import pairwise_distance_stats
+    from audio_metrics_tpu_torch.models.base import ForwardEmbedder
+    from audio_metrics_tpu_torch.models.clap import MAX_SAMPLES, LaionCLAP, rand_trunc
+    from audio_metrics_tpu_torch.models.htsat import HTSAT_BASE
+    from audio_metrics_tpu_torch.ops.distance import knn_radii_plain, pairwise_stats_plain
+    from audio_metrics_tpu_torch.testing import stats_mismatches
+
+    t18 = time.perf_counter()
+    log("  (a) a forward-only wrapper of LaionCLAP.forward through AudioMetrics")
+    clap = LaionCLAP(cfg=HTSAT_BASE, compute_dtype="bfloat16", allow_random_weights=True,
+                     device="cuda")
+    am = AudioMetrics(metrics=["fad", "kd", "prdc"], embedder=ClapForward(clap),
+                      win_dur=float(CLIP_S), input_sr=SR, batch_size=BATCH, device="cuda")
+    if not isinstance(am.embedder, ForwardEmbedder):
+        raise AssertionError("AudioMetrics did not wrap the forward-only object")
+    reference, candidate = clips(N_CLIPS, CLIP_S, seed=3)
+    set_counts_to_zero()
+    am.add_reference(reference)
+    result, cold = timed_s(lambda: am.evaluate(candidate))
+    forwards = 2 * -(-N_CLIPS // BATCH)
+    check_counts(f"add_reference + first evaluate, {forwards} forward batches", read_counts(),
+                 expected(forwards, swin_block=18, patch_merge=3, clap_frontend=1))
+    same = torch.equal(am.stem_reference.embeddings, e2e["embeddings"])
+    log(f"  result {result} ({'equal to' if result == e2e['result'] else 'NOT equal to'} "
+        f"phase 4's); stored reference embeddings {'bitwise equal to' if same else 'DIFFER from'}"
+        f" phase 4's")
+    if not same:
+        raise AssertionError("the forward-only wrapper's embeddings differ from phase 4's")
+    if not all(np.isfinite(v) for v in result.values()):
+        raise AssertionError("non-finite metric")
+    _, warm = timed_s(lambda: am.evaluate(candidate))
+    log(f"  evaluate of {N_CLIPS} clips through the wrapper: {N_CLIPS / warm:.2f} clips/s warm "
+        f"({warm:.4f} s), {N_CLIPS / cold:.2f} clips/s first; phase 4 (LaionCLAP itself) "
+        f"{e2e['clips_s']:.2f} clips/s warm [{card}; real_weights: false]")
+    del reference, candidate, am
+
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    long = 0.2 * torch.randn((8, 12 * SR), generator=gen, device="cuda")
+    rng = copy.deepcopy(clap._rng)
+    got = clap.forward({"audio": long})["embedding"]
+    crops = rand_trunc(long.cpu().numpy(), MAX_SAMPLES, rng)
+    want = clap.embed(torch.from_numpy(crops).cuda())
+    same = torch.equal(got, want)
+    log(f"  LaionCLAP.forward on 8 clips of 12 s: {tuple(got.shape)}, "
+        f"{'bitwise equal to' if same else 'DIFFERS from'} embed on the host crops of its "
+        "generator")
+    if not (same and got.shape == (8, 512) and bool(torch.isfinite(got).all())):
+        raise AssertionError("LaionCLAP.forward on 12 s clips is not embed of its crops")
+    del clap, long
+
+    log("  (b) the metric functions on (2048, 2048) x 512 features")
+    k, d, n = 10, 512, N_CLIPS
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    ref = torch.randn((n, d), generator=gen, device="cuda")
+    cand = 0.05 + 1.02 * torch.randn((n, d), generator=gen, device="cuda")
+    ref_np = ref.cpu().numpy()
+    set_counts_to_zero()
+    rr, rr_s = timed_s(lambda: nearest_neighbour_distances(ref_np, k))  # numpy: to the card
+    counts = [read_counts()["knn_radii"]]
+    cr = nearest_neighbour_distances(cand, k)
+    counts.append(read_counts()["knn_radii"])
+    stats, st_s = timed_s(lambda: pairwise_distance_stats(ref, cand, rr, cr, k))
+    counts.append(read_counts()["prdc_stats"])
+    log(f"  launches: #4 {counts[0]} then {counts[1]} after nearest_neighbour_distances on "
+        f"numpy then on a tensor, #5 {counts[2]} after pairwise_distance_stats (expected 1, 2, "
+        f"1); {rr_s * 1e3:.3f} ms (numpy upload included) and {st_s * 1e3:.3f} ms [{card}]")
+    if counts != [1, 2, 1] or rr.device.type != "cuda":
+        raise AssertionError("the functional PRDC calls did not launch #4 / #5 once each")
+    ref_c, cand_c = ref.cpu(), cand.cpu()
+    rr_p, cr_p = knn_radii_plain(ref_c, k), knn_radii_plain(cand_c, k)
+    for what, got, want in (("reference", rr, rr_p), ("candidate", cr, cr_p)):
+        check_radii(f"nearest_neighbour_distances of the {what} against the plain version "
+                    "on the CPU", got.cpu(), want)
+    stats_p = pairwise_stats_plain(ref_c, cand_c, rr_p, cr_p)
+    stats_c = tuple(t.cpu() for t in stats)
+    n_diff, n_bad = stats_mismatches(ref_c, cand_c, stats_c, stats_p, (rr.cpu(), cr.cpu()),
+                                     (rr_p, cr_p), rel=NEAR_TIE)
+    mn_err = (stats_c[3] - stats_p[3]).abs()
+    mn_out = int((mn_err > REF_MIN_TOL[1] + REF_MIN_TOL[0] * stats_p[3].abs()).sum())
+    log(f"  pairwise_distance_stats against the plain version on the CPU: {n_diff} differing "
+        f"elements, {n_diff - n_bad} near-ties, {n_bad} not; ref_min outside rtol "
+        f"{REF_MIN_TOL[0]} atol {REF_MIN_TOL[1]}: {mn_out} "
+        f"{'ok' if not (n_bad or mn_out) else 'FAIL'}; PRDC {prdc_values(stats, rr, k)}")
+    if n_bad or mn_out:
+        raise AssertionError("pairwise_distance_stats disagrees with its plain version")
+
+    x, y = AudioMetricsData(), AudioMetricsData()
+    x.add(cand)
+    y.add(ref)
+    kd_fn, kd_fn_s = timed_s(lambda: kid_features_to_metric(cand, ref))
+    kd_amd = kernel_distance(x, y)
+    _, kd_warm_s = timed_s(lambda: kid_features_to_metric(cand, ref))
+    log(f"  kid_features_to_metric {kd_fn} ({kd_fn_s * 1e3:.2f} ms first, "
+        f"{kd_warm_s * 1e3:.2f} ms warm) {'==' if kd_fn == kd_amd else '!='} kernel_distance "
+        f"{kd_amd} [{card}]")
+    if kd_fn != kd_amd:
+        raise AssertionError("kid_features_to_metric differs from kernel_distance")
+    fad_eigh, eigh_s = timed_s(lambda: frechet_distance(x, y))
+    fad_ns, ns_s = timed_s(lambda: frechet_distance(x, y, method="newton_schulz"))
+    again, ns_warm_s = timed_s(lambda: frechet_distance(x, y, method="newton_schulz"))
+    rel = abs(fad_ns - fad_eigh) / abs(fad_eigh)
+    log(f"  frechet_distance newton_schulz {fad_ns!r} ({ns_s * 1e3:.2f} ms first, "
+        f"{ns_warm_s * 1e3:.2f} ms warm, on the card; repeat {again!r}) vs eigh {fad_eigh!r} "
+        f"({eigh_s * 1e3:.2f} ms, host float64): rel {rel:.3g} (tol 1e-4) [{card}]")
+    if not rel <= 1e-4:
+        raise AssertionError("the newton_schulz FAD is not within 1e-4 of eigh")
+    del ref, cand, x, y
+
+    log("  (c) AudioMetricsData on numpy batches, on the card")
+    rng = np.random.default_rng(18)
+    batches = [rng.standard_normal((512, d)).astype(np.float32) * (1 + i) for i in range(8)]
+    a, b = AudioMetricsData(), AudioMetricsData()
+    for i, rows in enumerate(batches):
+        (a if i < 4 else b).add(rows)
+    c = a + b
+    rows = np.concatenate(batches).astype(np.float64)
+    mean_err = np.abs(c.mean - rows.mean(0)).max() / np.abs(rows.mean(0)).max()
+    cov_want = np.cov(rows, rowvar=False)
+    cov_err = np.abs(c.cov - cov_want).max() / np.abs(cov_want).max()
+    on_card = c.embeddings.device.type == "cuda"
+    rows_same = np.array_equal(c.embeddings.cpu().numpy(), np.concatenate(batches))
+    log(f"  a + b of 8 numpy batches of (512, {d}): n {c.n}, mean rel {mean_err:.3g}, cov rel "
+        f"{cov_err:.3g} against numpy float64 (tol 1e-12); rows on {c.embeddings.device}, "
+        f"{'bitwise the batches' if rows_same else 'NOT the batches'}; a.n {a.n}, b.n {b.n}")
+    if not (c.n == 4096 and a.n == b.n == 2048 and mean_err <= 1e-12 and cov_err <= 1e-12
+            and on_card and rows_same):
+        raise AssertionError("AudioMetricsData on numpy batches disagrees with numpy")
+    back = AudioMetricsData.deserialize(c.serialize())
+    if back.embeddings.device.type != "cuda" or back.n != c.n:
+        raise AssertionError("deserialize did not restore the rows on the card")
+    log(f"  phase 18: {time.perf_counter() - t18:.1f} s [{card}]")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run", file=sys.stderr)
@@ -2863,7 +3055,7 @@ def main() -> int:
     phase_fad_tail()
 
     log("phase 4 main path end to end (fad + kd + prdc, HTSAT-base bf16, 5 s windows)")
-    launches = phase_e2e(card)
+    launches, e2e = phase_e2e(card)
     log("phase 5 the 10 s path (fad + kd + prdc, HTSAT-base bf16, 10 s windows)")
     launches_10s, emb_10s = phase_config(card, {}, N_CLIPS_10S, 10, 6,
                                          dict(swin_block=18, patch_merge=3, log_mel=1))
@@ -2921,6 +3113,9 @@ def main() -> int:
     log(f"phase 17 one AudioMetrics over a mesh: {N_SHARDS} shards on card 0, its DCN layout, "
         "replicate, the APA and host-fed paths on 2 shards, every card, two examples")
     phase_mesh(card, params)
+    log("phase 18 the public surface: a forward-only embedder, the metric functions on raw "
+        "features, AudioMetricsData on numpy batches")
+    phase_surface(card, e2e)
 
     # launches: each kernel's count on the path that runs it
     path_of = {"log_mel": launches_10s, "swin_attn_v3": launches_split,

@@ -13,6 +13,8 @@ tests/test_torch_slice.py in f32 (``L0``).
 import copy
 import warnings
 
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -26,7 +28,6 @@ from audio_metrics_tpu.models.htsat import HTSATConfig as JaxHTSATConfig
 from audio_metrics_tpu.ops import mix as jax_mix
 from audio_metrics_tpu.parallel import pipeline as jax_pipeline
 from audio_metrics_tpu_torch import AudioMetrics
-from audio_metrics_tpu_torch.metrics import apa as port_apa
 from audio_metrics_tpu_torch.models.clap import LaionCLAP
 from audio_metrics_tpu_torch.models.dummy import DummyEmbedder
 from audio_metrics_tpu_torch.models.htsat import HTSATConfig
@@ -34,6 +35,9 @@ from audio_metrics_tpu_torch.ops import mix
 from audio_metrics_tpu_torch.ops.windowing import device_windows
 from audio_metrics_tpu_torch.parallel import pipeline
 from audio_metrics_tpu_torch.parallel.pipeline import ItemCategory, derangement
+
+# the module: ``metrics`` exports the function ``apa`` under the same name
+port_apa = importlib.import_module("audio_metrics_tpu_torch.metrics.apa")
 
 SR = 16000
 N = 2 * SR
@@ -178,8 +182,9 @@ def test_pairs_at_another_rate_match_jax():
 def test_pairs_without_apa_are_stems_of_channel_1():
     x = _dummy_pairs(2, 4)
     emb = DummyEmbedder(device="cpu")
-    got = pipeline.embedding_pipeline(_t(x), emb, win_dur=1.0, store_stem_embeddings=True)
-    want = pipeline.embedding_pipeline(_t(x[:, :, 1]), emb, win_dur=1.0,
+    got = pipeline.embedding_pipeline(_t(x), emb, None, stems_mode=True, win_dur=1.0,
+                                      store_stem_embeddings=True)
+    want = pipeline.embedding_pipeline(_t(x[:, :, 1]), emb, None, stems_mode=True, win_dur=1.0,
                                        store_stem_embeddings=True)
     assert list(got) == [ItemCategory.stem]
     assert torch.equal(got[ItemCategory.stem].embeddings, want[ItemCategory.stem].embeddings)

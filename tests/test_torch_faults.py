@@ -187,11 +187,13 @@ def _first_check(name: str):
     (``plant_faults.CPU_FAULTS``), as a callable on the planted module."""
     import test_torch_apa as apa
     import test_torch_cli as cli
+    import test_torch_embedder_protocol as protocol
     import test_torch_fad_inf as fad_inf
     import test_torch_hostfed as hostfed
     import test_torch_loudness as loudness
     import test_torch_options as options
     import test_torch_sharding as sharding
+    import test_torch_surface as surface
     import test_torch_vggish as vggish
 
     return {
@@ -209,11 +211,15 @@ def _first_check(name: str):
         "S4": lambda mod: sharding.check_fused_loop(mod.sharded_embed_loop),
         "S5": lambda mod: sharding.check_stats_sweep(mod.sharded_pairwise_stats),
         "S6": sharding.check_kd_sharded,
+        "C1": lambda mod: protocol.check_clap_crops(mod.LaionCLAP),
+        "M1": lambda mod: surface.check_pending_stats(mod.AudioMetricsData),
+        "M2": lambda mod: surface.check_iadd_adopts_flag(mod.AudioMetricsData),
+        "F3": lambda mod: surface.check_ns_method(mod.frechet_distance),
     }[name]
 
 
 @pytest.mark.parametrize("name", ["V1", "H1", "P2", "D1", "U1", "K1", "A2", "F2", "S3", "W2",
-                                  "S4", "S5", "S6"])
+                                  "S4", "S5", "S6", "C1", "M1", "M2", "F3"])
 def test_planted_python_fault_fails_its_first_check(name):
     """V1 (VGGish flattens NCHW) fails the f32 net against the JAX forward,
     H1 (the pipeline ignores ``hop_dur``) the windows against the JAX
@@ -229,12 +235,17 @@ def test_planted_python_fault_fails_its_first_check(name):
     size 4 bytes too large) the size check; S4 (a shard's block of windows
     one late) the sharded embeddings against one device's, S5 (PRDC's
     counts the shards' max) and S6 (KD keeps a shard's subsets twice) the
-    sharded sweep and KD against one device's.  The same checks pass on the
+    sharded sweep and KD against one device's; C1 (the crop's offset one
+    off) the crops against the JAX ones, M1 (``mean`` without the pending
+    merge) the stats of queued moments, M2 (``+=`` without the adopted
+    flag) the merge into an empty accumulator, F3 (the NS method at
+    ``AM_TPU_FAD_NS_ITERS``) the method under that variable.  The same checks pass on the
     real modules (their own tests in tests/test_torch_vggish.py,
     tests/test_torch_options.py, tests/test_torch_apa.py,
     tests/test_torch_loudness.py, tests/test_torch_fad_inf.py,
-    tests/test_torch_hostfed.py, tests/test_torch_cli.py and
-    tests/test_torch_sharding.py)."""
+    tests/test_torch_hostfed.py, tests/test_torch_cli.py,
+    tests/test_torch_sharding.py, tests/test_torch_embedder_protocol.py and
+    tests/test_torch_surface.py)."""
     from audio_metrics_tpu_torch.plant_faults import CPU_FAULTS
 
     assert name in CPU_FAULTS

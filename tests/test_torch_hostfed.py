@@ -287,11 +287,11 @@ def test_asked_for_native_batcher_that_cannot_build_raises(monkeypatch, tmp_path
     monkeypatch.setattr(native_loader, "_lib", None)
     songs = _songs(9, n_windows=2)
     with pytest.raises(native_loader.NativeLoaderError, match="failed to build"):
-        _port_run(songs, use_native=True)
+        _port_run(songs, stems_mode=True, use_native=True)
     monkeypatch.setenv("AM_TPU_NATIVE_LOADER", "1")
     with pytest.raises(native_loader.NativeLoaderError):
-        _port_run(songs)
-    out = _port_run(songs, hop_dur=0.5)
+        _port_run(songs, stems_mode=True)
+    out = _port_run(songs, stems_mode=True, hop_dur=0.5)
     assert out[ItemCategory.stem].stats()[2] > 2
 
 

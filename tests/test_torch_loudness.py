@@ -18,6 +18,8 @@ loudness atol 1e-5 dB [1.9e-6, one f32 ulp of the gating], 1e-9 for
 
 import warnings
 
+import importlib
+
 import numpy as np
 import pytest
 import scipy.signal as ss
@@ -30,8 +32,10 @@ from audio_metrics_tpu.ops import iir as jax_iir
 from audio_metrics_tpu.ops import limiter as jax_limiter
 from audio_metrics_tpu.ops import loudness as jax_loudness
 from audio_metrics_tpu.ops import mix as jax_mix
-from audio_metrics_tpu_torch.metrics import apa as port_apa
 from audio_metrics_tpu_torch.ops import limiter, loudness, mix
+
+# the module: ``metrics`` exports the function ``apa`` under the same name
+port_apa = importlib.import_module("audio_metrics_tpu_torch.metrics.apa")
 
 SR = 16000
 N = 2 * SR

@@ -102,7 +102,8 @@ def check_hop_windows(pipeline):
     for sr, hop_dur in ((SR, 0.3), (22050, 0.5)):
         x = _clips(0, 3, 2.2, sr=sr)
         emb = Proj()
-        pipeline(x, emb, batch_size=4, win_dur=1.0, hop_dur=hop_dur, input_sr=sr)
+        pipeline(x, emb, None, stems_mode=True, batch_size=4, win_dur=1.0, hop_dur=hop_dur,
+                 input_sr=sr)
         got = torch.cat(emb.windows).numpy() if sr == SR else None
         want = np.asarray(_device_windows(jnp.asarray(x), sr, int(sr * hop_dur)))
         assert sum(emb.batches) == want.shape[0] > 6, sr  # more than 2 windows a clip

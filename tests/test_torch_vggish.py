@@ -89,7 +89,7 @@ def check_vggish_f32(vggish_cls, params, patches):
     """The f32 net against the JAX ``_forward``: rtol 2e-3, atol 2e-4
     (tests/test_models.py:234; reading 1.5e-5 abs on outputs up to ~12)."""
     want = np.asarray(jax_vggish._forward(params, patches))
-    got = vggish_cls(params=params, device="cpu")(torch.from_numpy(patches)).numpy()
+    got = vggish_cls(params=params, device="cpu").patch_net(torch.from_numpy(patches)).numpy()
     np.testing.assert_allclose(got, want, rtol=2e-3, atol=2e-4)
 
 
@@ -136,7 +136,7 @@ BF16_REL_TOL = 0.015
 def test_vggish_net_bf16_matches_jax(params, patches):
     want = np.asarray(jax_vggish._forward(params, patches, jnp.bfloat16))
     scale = np.abs(want).max()
-    got = vggish.VGGish(params=params, compute_dtype="bfloat16", device="cpu")(
+    got = vggish.VGGish(params=params, compute_dtype="bfloat16", device="cpu").patch_net(
         torch.from_numpy(patches)).numpy()
     kept = np.abs(got - want).max() / scale
     cudnn = np.abs(_bf16_cudnn_form(params, patches) - want).max() / scale
