@@ -146,7 +146,7 @@ class AudioMetricsData:
             return
         self._merge(n, ensure_ndarray(s1).astype(np.float64),
                     ensure_ndarray(m2).astype(np.float64))
-        if embeddings is not None:
+        if self.store_embeddings and embeddings is not None:
             self.add_embeddings(as_rows(embeddings, self.device))
 
     def _flush(self) -> None:
@@ -217,7 +217,6 @@ class AudioMetricsData:
         if n == 0:
             return
         self._flush()
-        rows = as_rows(embeddings, self.device)
         if isinstance(embeddings, torch.Tensor):
             e = embeddings.double().cpu().numpy()
         else:
@@ -226,7 +225,8 @@ class AudioMetricsData:
         c = e - mean
         cov = np.zeros((e.shape[1],) * 2) if n == 1 else c.T @ c / (n - 1)
         self._update_stats(mean, cov, n)
-        self.add_embeddings(rows)
+        if self.store_embeddings:  # rows it does not keep are never moved
+            self.add_embeddings(as_rows(embeddings, self.device))
 
     # -- embeddings ---------------------------------------------------
     def add_embeddings(self, e: torch.Tensor) -> None:

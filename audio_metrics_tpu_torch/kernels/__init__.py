@@ -127,13 +127,16 @@ def require_cuda(*tensors: torch.Tensor, dtype=torch.bfloat16) -> None:
 def check_sm90_gemm(name: str, n: int, k: int, *strides: int) -> None:
     """Raise ``NotImplementedError`` unless the wgmma core
     (``csrc/gemm_sm90.cuh``) takes a product of ``n`` output columns over a
-    depth ``k``: both multiples of 64 (its K step and narrowest column
-    tile), and every row and batch stride of its operands (``strides``, in
-    elements) a multiple of 8, the 16 bytes a tensor map asks for."""
-    if n % 64 or k % 64 or any(s % 8 for s in strides):
+    depth ``k``: ``n`` a multiple of one of its column tiles, 64 (or 128),
+    or 96 (HTSAT-tiny's 3C = 288 and C = 96); ``k`` a multiple of 16, a
+    whole wgmma instruction (its K step is 64: the tensor maps zero-fill a
+    step that runs past ``k``, whole instructions of zeros); and every row
+    and batch stride of its operands (``strides``, in elements) a multiple
+    of 8, the 16 bytes a tensor map asks for."""
+    if (n % 64 and n % 96) or k % 16 or any(s % 8 for s in strides):
         raise NotImplementedError(
-            f"{name}: the wgmma GEMM core takes N and K multiples of 64 and strides of "
-            f"8 elements, got N={n} K={k} strides={strides}"
+            f"{name}: the wgmma GEMM core takes N multiples of 64 or 96, K multiples of 16 "
+            f"and strides of 8 elements, got N={n} K={k} strides={strides}"
         )
 
 
@@ -155,14 +158,14 @@ def check_s8_gemm(name: str, n: int, k: int, *strides: int) -> None:
 def check_tf32x3_gemm(name: str, n: int, k: int, *strides: int) -> None:
     """Raise ``NotImplementedError`` unless the 3xTF32 wgmma core
     (``csrc/gemm_tf32x3_sm90.cuh``) takes an f32 product of ``n`` output
-    columns over a depth ``k``: ``n`` a multiple of 64 (its narrowest column
-    tile), ``k`` of 32 (its K step, 128 bytes), and every row stride of its
-    operands (``strides``, in elements) a multiple of 4, the 16 bytes a
-    tensor map asks for."""
-    if n % 64 or k % 32 or any(s % 4 for s in strides):
+    columns over a depth ``k``: ``n`` a multiple of one of its column tiles,
+    64 (or 128), or 96 (HTSAT-tiny's 3C = 288 and C = 96); ``k`` of 32 (its
+    K step, 128 bytes); and every row stride of its operands (``strides``,
+    in elements) a multiple of 4, the 16 bytes a tensor map asks for."""
+    if (n % 64 and n % 96) or k % 32 or any(s % 4 for s in strides):
         raise NotImplementedError(
-            f"{name}: the 3xTF32 GEMM core takes N multiples of 64, K multiples of 32 and "
-            f"strides of 4 elements, got N={n} K={k} strides={strides}"
+            f"{name}: the 3xTF32 GEMM core takes N multiples of 64 or 96, K multiples of 32 "
+            f"and strides of 4 elements, got N={n} K={k} strides={strides}"
         )
 
 

@@ -25,8 +25,9 @@
 // Shape of a block (one per SM, persistent over output tiles):
 //   - warpgroups 0-1 consume: each owns 64 rows of the 128 x BN tile and
 //     issues wgmma.m64nBNk16 (int8: k32; BN 128, or 64 where N is not a
-//     multiple of 128), one commit group per K step of 128 bytes (64 bf16,
-//     128 codes), keeping one group in flight;
+//     multiple of 128, or for bf16 96 where N is a multiple of neither:
+//     HTSAT-tiny's 3C = 288 and C = 96 at C = 96), one commit group per K
+//     step of 128 bytes (64 bf16, 128 codes), keeping one group in flight;
 //   - warpgroup 2, one thread, produces: TMA loads of the A (128 rows) and
 //     B (BN rows) boxes of one K step into a ring of STAGES stages with full
 //     / empty mbarriers, running ahead across tiles, so one tile's epilogue
@@ -43,9 +44,12 @@
 // caller whose A is laid out otherwise encodes A's map itself and passes the
 // producer a loader of its own (gemm_mapped; patch_merge.cu's MergeA).  Rows
 // past M are zero-filled by TMA and masked in the epilogue.  Requirements
-// (checked by the Python wrappers through kernels.check_sm90_gemm): K % 64
-// == 0, N % 64 == 0, row and batch strides multiples of 8 elements (16
-// bytes), 16-byte aligned base pointers.  On int8 codes
+// (checked by the Python wrappers through kernels.check_sm90_gemm): N % 64
+// == 0 or N % 96 == 0, K % 32 == 0 (the K steps are ceil(K / 64), and TMA
+// zero-fills the columns past K in both operands: a last half step adds
+// exact zeros, whole k16 instructions of them), row and batch strides
+// multiples of 8 elements (16 bytes), 16-byte aligned base pointers.  On
+// int8 codes
 // (kernels.check_s8_gemm): N % 64 == 0, strides multiples of 16 codes (16
 // bytes), any such K: the K steps are ceil(K / 128), and TMA zero-fills the
 // columns past K in both operands, which adds exact zeros to an integer
@@ -296,9 +300,29 @@ __device__ __forceinline__ void wgmma_s8_n128(int* d, uint64_t da, uint64_t db, 
       : "l"(da), "l"(db), "r"(acc));
 }
 
+__device__ __forceinline__ void wgmma_n96(float* d, uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+      "}, %48, %49, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
 template <int BN>
 __device__ __forceinline__ void wgmma_bn(float* d, uint64_t da, uint64_t db, int acc) {
   if constexpr (BN == 128) wgmma_n128(d, da, db, acc);
+  else if constexpr (BN == 96) wgmma_n96(d, da, db, acc);
   else wgmma_n64(d, da, db, acc);
 }
 
@@ -709,12 +733,15 @@ int launch_bn(const CUtensorMap& ta, const ALoad& load_a, const Operand& b, cons
 
 // out = epilogue(A @ B^T), A's map and loader made by the caller: each load
 // fills a BM x 128-byte K-major tile of elements E under the 128-byte
-// swizzle.
+// swizzle.  The column tile: 128 where it divides N, else 64, else (bf16:
+// N % 96 == 0, checked by the caller) 96.
 template <int EPI, class ALoad, typename E = bf16>
 int gemm_mapped(const CUtensorMap& ta, const ALoad& load_a, const Operand& b,
                 const EpiParams& p, int K, int batch, cudaStream_t stream) {
-  return p.N % 128 == 0 ? launch_bn<128, EPI, ALoad, E>(ta, load_a, b, p, K, batch, stream)
-                        : launch_bn<64, EPI, ALoad, E>(ta, load_a, b, p, K, batch, stream);
+  if (p.N % 128 == 0) return launch_bn<128, EPI, ALoad, E>(ta, load_a, b, p, K, batch, stream);
+  if constexpr (std::is_same_v<E, bf16>)
+    if (p.N % 64 != 0) return launch_bn<96, EPI, ALoad, E>(ta, load_a, b, p, K, batch, stream);
+  return launch_bn<64, EPI, ALoad, E>(ta, load_a, b, p, K, batch, stream);
 }
 
 // out = epilogue(A @ B^T): A (M x K) of `batch` or one, B (N x K) likewise,

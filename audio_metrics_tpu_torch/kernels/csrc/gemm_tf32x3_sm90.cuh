@@ -41,7 +41,8 @@
 // Shape of a block (one per SM, persistent over output tiles), as
 // gemm_sm90.cuh's:
 //   - warpgroups 0-1 consume: each owns 64 rows of the 128 x BN tile
-//     (BN 128, or 64 where N is not a multiple of 128);
+//     (BN 128, or 64 where N is not a multiple of 128, or 96 where N is a
+//     multiple of neither: HTSAT-tiny's 3C = 288 and C = 96 at C = 96);
 //   - warpgroup 2, one thread, produces: TMA loads of the A (128 x 32 f32)
 //     and B_hi, B_lo (BN x 32) boxes into a ring of stages with full /
 //     empty mbarriers, running ahead across tiles;
@@ -56,7 +57,7 @@
 // (one k8 TF32 wgmma consumes 32 bytes of each row, as one k16 bf16 does).
 // Both operands K-major (TF32 wgmma takes no other layout).  Requirements
 // (checked by the Python wrappers through kernels.check_tf32x3_gemm): K % 32
-// == 0, N % 64 == 0, row strides multiples of 4 elements (16 bytes),
+// == 0, N % 64 == 0 or N % 96 == 0, row strides multiples of 4 elements (16 bytes),
 // 16-byte aligned base pointers.  Rows past M are zero-filled by TMA and
 // masked in the epilogue.  No atomics: a run repeats bitwise.
 #pragma once
@@ -87,6 +88,7 @@ struct EpiF32 {
 };
 
 // Per stage: A (hi after the split), A_lo, B_hi, B_lo, each 128-byte rows.
+// Four stages of BN = 96 take 225 KB of the 227 a block may hold.
 template <int BN>
 struct Smem {
   static constexpr int STAGES = BN == 128 ? 3 : 4;
@@ -139,9 +141,29 @@ __device__ __forceinline__ void wgmma_n128(float* d, uint64_t da, uint64_t db, i
       : "l"(da), "l"(db), "r"(acc));
 }
 
+__device__ __forceinline__ void wgmma_n96(float* d, uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+      "}, %48, %49, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
 template <int BN>
 __device__ __forceinline__ void wgmma_bn(float* d, uint64_t da, uint64_t db, int acc) {
   if constexpr (BN == 128) wgmma_n128(d, da, db, acc);
+  else if constexpr (BN == 96) wgmma_n96(d, da, db, acc);
   else wgmma_n64(d, da, db, acc);
 }
 
@@ -382,12 +404,14 @@ int launch_bn(const CUtensorMap& ta, const ALoad& load_a, const Operand& b, cons
 
 // out = epilogue(A @ B^T), A's map and loader made by the caller: each load
 // fills a BM x BK K-major f32 tile under the 128-byte swizzle.  b: the
-// (2, N, K) [hi; lo] stack.
+// (2, N, K) [hi; lo] stack.  The column tile: 128 where it divides N, else
+// 64, else (N % 96 == 0, checked by the caller) 96.
 template <int EPI, class ALoad>
 int gemm_mapped(const CUtensorMap& ta, const ALoad& load_a, const Operand& b, const EpiF32& p,
                 int K, cudaStream_t stream) {
-  return p.N % 128 == 0 ? launch_bn<128, EPI>(ta, load_a, b, p, K, stream)
-                        : launch_bn<64, EPI>(ta, load_a, b, p, K, stream);
+  if (p.N % 128 == 0) return launch_bn<128, EPI>(ta, load_a, b, p, K, stream);
+  if (p.N % 64 == 0) return launch_bn<64, EPI>(ta, load_a, b, p, K, stream);
+  return launch_bn<96, EPI>(ta, load_a, b, p, K, stream);
 }
 
 // out = epilogue(A @ B^T): A (M x K) rows, B the (2, N, K) [hi; lo] stack.

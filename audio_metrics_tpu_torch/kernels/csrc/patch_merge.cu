@@ -25,7 +25,11 @@
 //      (64, R/2, 1, 128/(R/2)) is a 128-row x 64-channel K-major tile of
 //      whole output grid rows (R/2 divides 128), the layout and swizzle
 //      every other product of the core reads; rows past M come zero-filled
-//      and the epilogue drops them.  The map's geometry and the box
+//      and the epilogue drops them.  A K step reads one quadrant, or, where
+//      C % 64 == 32 (HTSAT-tiny's C = 96: a step of 64 would straddle two
+//      quadrants), the steps run over the quadrants dy-major, [x00, x01,
+//      x10, x11], so that each lies in one 2C pixel-pair row; the weight's
+//      K order is the same (ops/merge.py merge_k_order).  The map's geometry and the box
 //      coordinates of every K step come from one table of the Python
 //      wrapper (ops/merge.py merge_a_map), which the CPU tests materialise
 //      with torch.as_strided; the core's producer loads through MergeA,
@@ -98,7 +102,7 @@ __global__ void __launch_bounds__(STATS_WARPS * 32)
 // (R/2)^2, 2C) bf16.  The A map: dims d0..d3 and box b0..b3 innermost first,
 // strides s1..s3 in elements; origin: host int32 (4C / 64, 4), each K step's
 // box coordinates in row tile 0.  Shapes checked by ops/merge.py
-// (check_merge_gemm): R/2 divides 128, C % 64 == 0, C <= 1024.
+// (check_merge_gemm): R/2 divides 128, C % 32 == 0, C <= 1024.
 extern "C" int am_patch_merge(const bf16* x, const bf16* wg_t, const float* svec,
                               const float* tvec, int B, int R, int C, float eps, float* stats,
                               bf16* out, int d0, int d1, int d2, int d3, int s1, int s2, int s3,

@@ -9,7 +9,10 @@
 //
 // What bounds it here: the four products (qkv, proj, fc1, fc2: 24 T C^2 of
 // the block's ~(24 T C^2 + 256 T C) operations) are tensor-core work at
-// every stage (K = C..4C >= 128), so the operations bound the block.  The
+// every stage (K = C..4C >= 96), so the operations bound the block.  Heads
+// are 32 wide (HTSAT-base) or 24 (HTSAT-tiny, whose stage 0 at C = 96 runs
+// its qkv and proj/fc2 products on 96-column tiles and K = 96 in two steps
+// of 64, the second half zero-filled by the tensor maps).  The
 // TPU kernel held a whole image block in ~100 MB of VMEM; a Hopper block has
 // 227 KB of shared memory, so the block is a chain of launches, each keeping
 // its own working set on chip.  The first design (the WMMA core of gemm.cuh)
@@ -374,8 +377,9 @@ extern "C" int am_swin_mlp(const bf16* x, const float* ln_w, const float* ln_b,
 // matrix its (2, N, K) f32 stack of TF32 hi over lo parts (ops/tf32.py
 // tf32_split of the (N, K) matrix).  Scratch, all f32: stats (2, B*R*R),
 // qkv (B*R*R, 3C), ctx/hbuf (B*R*R, C) (hbuf first holds the window-ordered
-// rows, then the LN2 output), res (B*R*R, C), h1 (B*R*R, 4C).  C % 64 ==
-// 0, C <= 1024 (ops/attention.py check_block_f32).
+// rows, then the LN2 output), res (B*R*R, C), h1 (B*R*R, 4C).  C a
+// multiple of 64 or 96, C <= 1024, heads 24 or 32 wide (ops/attention.py
+// check_block_f32, _check_geometry).
 extern "C" int am_swin_block_f32(const float* x, const float* wqkv_s, const float* csum,
                                  const float* bq3, const float* wp_s, const float* bp,
                                  const float* bm, int nbm, const float* ln2w, const float* ln2b,
@@ -429,12 +433,18 @@ extern "C" int am_swin_attn_v2_f32(const float* x, const float* ln_w, const floa
                        win, shift, eps, nullptr, xn, qkv, ctx, out, stream);
 }
 
-// The f32 window attention alone, launch 3 of am_swin_block_f32 and of the
-// f32 attention halves: qkv (windows*64, 3C) f32 in window order, q
-// pre-scaled; bm (nbm, heads, 64, 64) f32; ctx (windows*64, C) f32.  No
-// model path calls it: profile_window_attn.py times the kernel through it.
+// The window attention alone, launch 3 of am_swin_block(_f32) and of the
+// attention halves, heads 24 or 32 wide: qkv (windows*64, 3C) in window
+// order, q pre-scaled; bm (nbm, heads, 64, 64) f32; ctx (windows*64, C).
+// No model path calls them: profile_window_attn.py times the f32 kernel
+// through its entry, chip_smoke.py holds both against their plain version.
 extern "C" int am_window_attn_f32(const float* qkv, const float* bm, int nbm, int windows,
                                   int heads, int C, float* ctx, cudaStream_t stream) {
+  return launch_window_attn(qkv, bm, nbm, windows, heads, C, ctx, stream);
+}
+
+extern "C" int am_window_attn(const bf16* qkv, const float* bm, int nbm, int windows, int heads,
+                              int C, bf16* ctx, cudaStream_t stream) {
   return launch_window_attn(qkv, bm, nbm, windows, heads, C, ctx, stream);
 }
 

@@ -18,8 +18,9 @@ The Newton-Schulz iteration count of the device tail and of FAD-inf is
 ``AM_TPU_FAD_NS_ITERS`` (default 30), read at each call as in the JAX
 package (its ``_ns_iters``, :148-149).  ``frechet_distance(...,
 method="newton_schulz")`` (:100-120) runs the jittered Cholesky, ``L^T Sy
-L`` and the iteration at a fixed 30 iterations, as the JAX package's does,
-in full f32 on ``device``.
+L`` and the iteration at a fixed 30 iterations in float64 on ``device``,
+as the JAX package runs them under its x64 mode (where n is little above d,
+an f32 Cholesky of the candidate's covariance fails).
 """
 
 from __future__ import annotations
@@ -81,9 +82,9 @@ def frechet_distance(x: AudioMetricsData, y: AudioMetricsData, method: str = "ei
     (audio_metrics_tpu/metrics/fad.py:261-301).  ``method="eigh"``: host
     float64; the similarity transform runs on ``y``'s (the reference's)
     side when its covariance has a Cholesky factor, which is cached across
-    evaluates.  ``method="newton_schulz"``: ``Tr sqrt(Sx Sy)`` on
-    ``device`` (default ``"cuda"``) by :func:`trace_sqrtm_product_ns`, the
-    rest in float64 on the host.  Another method raises ``ValueError``."""
+    evaluates.  ``method="newton_schulz"``: ``Tr sqrt(Sx Sy)`` in float64
+    on ``device`` (default ``"cuda"``) by :func:`trace_sqrtm_product_ns`,
+    the rest in float64 on the host.  Another method raises ``ValueError``."""
     mx, sx, _ = x.stats()
     my, sy, _ = y.stats()
     if method == "newton_schulz":
@@ -102,21 +103,21 @@ def frechet_distance(x: AudioMetricsData, y: AudioMetricsData, method: str = "ei
 
 def trace_sqrtm_product_ns(sigma_x, sigma_y, device="cuda") -> float:
     """``Tr sqrt(Sx Sy)`` by products only (audio_metrics_tpu/metrics/
-    fad.py:100-120), in full f32 on ``device``: ``Sx + eps I = L L^T`` with
-    ``eps = 1e-10 Tr Sx / d + 1e-30``, then the coupled Newton-Schulz
-    ``Tr sqrt`` of the symmetrised ``L^T Sy L`` at ``NS_METHOD_ITERS``
-    iterations.  nan where the jittered ``Sx`` has no f32 Cholesky factor
-    (the JAX ``cholesky`` returns nan there)."""
+    fad.py:100-120), in float64 on ``device``, as the JAX package runs it
+    under its x64 mode (and as :func:`fad_inf_parts` runs its sweep): ``Sx
+    + eps I = L L^T`` with ``eps = 1e-10 Tr Sx / d + 1e-30``, then the
+    coupled Newton-Schulz ``Tr sqrt`` of the symmetrised ``L^T Sy L`` at
+    ``NS_METHOD_ITERS`` iterations.  nan where the jittered ``Sx`` has no
+    float64 Cholesky factor (the JAX ``cholesky`` returns nan there)."""
     dev = resolve_device(device)
-    sx = torch.as_tensor(np.asarray(sigma_x), dtype=torch.float32, device=dev)
-    sy = torch.as_tensor(np.asarray(sigma_y), dtype=torch.float32, device=dev)
+    sx = torch.as_tensor(np.asarray(sigma_x), dtype=torch.float64, device=dev)
+    sy = torch.as_tensor(np.asarray(sigma_y), dtype=torch.float64, device=dev)
     d = sx.shape[0]
-    eye = torch.eye(d, dtype=torch.float32, device=dev)
-    with full_f32():
-        eps = 1e-10 * torch.trace(sx) / d + 1e-30
-        chol, info = torch.linalg.cholesky_ex(sx + eps * eye)
-        m = chol.T @ sy @ chol
-        trsqrt = _ns_trace_sqrt_sym(0.5 * (m + m.T), NS_METHOD_ITERS)
+    eye = torch.eye(d, dtype=torch.float64, device=dev)
+    eps = 1e-10 * torch.trace(sx) / d + 1e-30
+    chol, info = torch.linalg.cholesky_ex(sx + eps * eye)
+    m = chol.T @ sy @ chol
+    trsqrt = _ns_trace_sqrt_sym(0.5 * (m + m.T), NS_METHOD_ITERS)
     return math.nan if int(info) else float(trsqrt)
 
 

@@ -114,22 +114,34 @@ def _unpartition(rows, b: int, h: int, w: int, window: int, shift: int):
     return torch.roll(x, shifts=(shift, shift), dims=(1, 2)) if shift else x
 
 
+def _window_context(y, bm, heads: int):
+    """Window-order qkv rows ``y`` (windows*64, 3C), q pre-scaled, in the
+    activation dtype, and the (nbm, heads, 64, 64) f32 bias+mask table
+    (window g reads table g % nbm) -> the context rows (windows*64, C):
+    scores + bias/mask and softmax in f32, probabilities and context rounded
+    to the activation dtype.  The plain version of the window attention
+    launch (kernels/csrc/window_attn.cuh, ``am_window_attn`` /
+    ``am_window_attn_f32``)."""
+    dt, n = y.dtype, bm.shape[-1]
+    c = y.shape[1] // 3
+    g, d = y.shape[0] // n, c // heads
+    q, k, v = (
+        y[:, i * c : (i + 1) * c].reshape(g, n, heads, d).transpose(1, 2) for i in range(3)
+    )
+    s = _mm(q, k.transpose(-1, -2))  # (g, heads, n, n) f32
+    s = (s.reshape(-1, bm.shape[0], heads, n, n) + bm[None]).reshape(g, heads, n, n)
+    p = torch.softmax(s, dim=-1).to(dt)
+    return _mm(p, v).to(dt).transpose(1, 2).reshape(g * n, c)
+
+
 def _attention_residual(x, y, wp, bp, bm, heads: int, window: int, shift: int):
     """x (B, H, W, C) and its window-order qkv rows ``y`` (rows, 3C), q
     pre-scaled, in the activation dtype -> x + un-roll(un-partition(ctx @ wp
     + bp)) in f32.  Scores + bias/mask and softmax in f32; probabilities and
     context rounded to the activation dtype (scores are not rounded, unlike
     the JAX XLA block, htsat.py:264-266)."""
-    b, h, w, c = x.shape
-    dt, n = x.dtype, window * window
-    g, d = y.shape[0] // n, c // heads
-    q, k, v = (
-        y[:, i * c : (i + 1) * c].reshape(g, n, heads, d).transpose(1, 2) for i in range(3)
-    )
-    s = _mm(q, k.transpose(-1, -2))  # (g, heads, n, n) f32
-    s = (s.reshape(b, -1, heads, n, n) + bm[None]).reshape(g, heads, n, n)
-    p = torch.softmax(s, dim=-1).to(dt)
-    ctx = _mm(p, v).to(dt).transpose(1, 2).reshape(g * n, c)
+    b, h, w, _ = x.shape
+    ctx = _window_context(y, bm, heads)
     return _unpartition(_mm(ctx, wp) + bp, b, h, w, window, shift) + x.float()
 
 
@@ -145,12 +157,20 @@ def _qkv_ln_folded(x, wqkv, bq3, window: int, shift: int, eps: float):
     return (_mm(xw, wqkv) * rs - (rs * mu) * csum + bq3).to(x.dtype)
 
 
-def _check_geometry(name, x, heads, window, bm):
+def _check_geometry(name, x, heads, window, bm, whole: bool = False):
+    """8x8 windows of heads the window attention takes (kernels/csrc/
+    window_attn.cuh): 24 or 32 wide for the whole block (``whole``, #1: HTSAT-
+    tiny and HTSAT-base); the attention halves (#8, #10, #11) share its
+    launches but are held at HTSAT-base's 32-wide heads and C % 64 == 0
+    only (ROADMAP.md, "Contracts narrower than the TPU kernels'")."""
     b, r, r2, c = x.shape
-    if r != r2 or r % window or window * window != 64 or c != 32 * heads or c % 64:
+    widths = (24, 32) if whole else (32,)
+    head_ok = heads > 0 and c % heads == 0 and c // heads in widths and (whole or c % 64 == 0)
+    if r != r2 or r % window or window * window != 64 or not head_ok:
         raise NotImplementedError(
-            f"{name} kernel takes 8x8 windows of 32-wide heads, got R={r} "
-            f"window={window} C={c} heads={heads}"
+            f"{name} kernel takes 8x8 windows of {' or '.join(map(str, widths))}-wide heads"
+            f"{'' if whole else ' at C % 64 == 0'}, got R={r} window={window} C={c} "
+            f"heads={heads}"
         )
     if bm.shape[1:] != (heads, 64, 64) or bm.shape[0] not in (1, (r // window) ** 2):
         raise ValueError(f"bias/mask table shape {tuple(bm.shape)}")
@@ -193,7 +213,8 @@ def check_block_gemms(c: int) -> None:
     """Raise ``NotImplementedError`` unless the whole-block kernel takes a
     width of ``c``: its LN1 pass holds a row in one warp's registers (C <=
     1024), and its qkv, proj, fc1 and fc2 products run on the wgmma core
-    (``kernels.check_sm90_gemm``)."""
+    (``kernels.check_sm90_gemm``: C a multiple of 64, or of 96 as
+    HTSAT-tiny's C = 96, 192, 384, 768)."""
     if c > 1024:
         raise NotImplementedError(f"swin_block: the LN1 pass takes C <= 1024, got C={c}")
     for n, k in ((3 * c, c), (c, c), (4 * c, c), (c, 4 * c)):
@@ -210,7 +231,8 @@ def check_block_f32(c: int) -> None:
     """Raise ``NotImplementedError`` unless the f32 whole-block kernel
     takes a width of ``c``: its LN1 pass holds a row in one warp's
     registers (C <= 1024), and its qkv, proj, fc1 and fc2 products run on
-    the 3xTF32 core (``kernels.check_tf32x3_gemm``)."""
+    the 3xTF32 core (``kernels.check_tf32x3_gemm``: C a multiple of 64, or
+    of 96 as HTSAT-tiny's C = 96, 192, 384, 768)."""
     _check_window_pass("swin_block f32", c)
     for n, k in ((3 * c, c), (c, c), (4 * c, c), (c, 4 * c)):
         check_tf32x3_gemm("swin_block f32", n, k, k)
@@ -257,7 +279,7 @@ def _swin_block_f32_cuda(x, wqkv, bq3, wp, bp, bm, ln2_w, ln2_b, w1, b1, w2, b2,
         "swin_block f32", operands, c, ("wqkv_t", "wp_t", "w1_t", "w2_t"), torch.float32)
     require_cuda(x, wqkv_t, wp_t, w1_t, w2_t, csum, bq3, bp, bm, ln2_w, ln2_b, b1, b2,
                  dtype=torch.float32)
-    _check_geometry("swin_block_f32", x, heads, window, bm)
+    _check_geometry("swin_block_f32", x, heads, window, bm, whole=True)
     scratch = _block_scratch(x, torch.float32)
     KERNEL_F32.launch(
         "am_swin_block_f32", x, wqkv_t, csum, bq3, wp_t, bp, bm, bm.shape[0],
@@ -275,7 +297,7 @@ def _swin_block_cuda(x, wqkv, bq3, wp, bp, bm, ln2_w, ln2_b, w1, b1, w2, b2, *,
         "swin_block", operands, c, ("wqkv_t", "wp_t", "w1_t", "w2_t"), x.dtype)
     require_cuda(x, wqkv_t, wp_t, w1_t, w2_t)
     require_cuda(csum, bq3, bp, bm, ln2_w, ln2_b, b1, b2, dtype=torch.float32)
-    _check_geometry("swin_block", x, heads, window, bm)
+    _check_geometry("swin_block", x, heads, window, bm, whole=True)
     scratch = _block_scratch(x, x.dtype)
     KERNEL.launch(
         "am_swin_block", x, wqkv_t, csum, bq3, wp_t, bp, bm, bm.shape[0], ln2_w, ln2_b, w1_t, b1,

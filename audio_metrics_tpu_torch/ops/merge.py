@@ -28,6 +28,7 @@ __all__ = [
     "check_merge_f32",
     "check_merge_gemm",
     "merge_a_map",
+    "merge_k_order",
     "merge_stats",
     "merge_weight_t",
     "patch_merge",
@@ -78,26 +79,42 @@ def patch_merge_plain(x, wg, svec, tvec, *, h: int, w: int, eps: float, wg_t=Non
     return out.reshape(b, (h // 2) * (w // 2), -1).to(x.dtype)
 
 
+def merge_k_order(c: int, bk: int = BK) -> tuple:
+    """The quadrants in the order the kernel's K steps of ``bk`` (64 bf16,
+    32 f32) run over them, as indices into the concat [x00, x10, x01, x11]:
+    the concat's own order where each step lies in one quadrant (C % bk ==
+    0); else (bf16 at C % 64 == 32, HTSAT-tiny's C = 96) dy-major, [x00,
+    x01, x10, x11], where quadrants (dy, 0) and (dy, 1) are the two halves
+    of one 2C row of the map (a horizontal pixel pair) and a step of 64 lies
+    in that row.  The K-major weight's columns run in the same order
+    (:func:`merge_weight_t`): the product is the same sum of 4C terms."""
+    return (0, 1, 2, 3) if c % bk == 0 else (0, 2, 1, 3)
+
+
 def merge_weight_t(wg: torch.Tensor) -> torch.Tensor:
     """``wg`` (4, C, OC) as the kernel reads it, made once at load: (OC,
-    4C), K-major (the layout of both operands of the wgmma cores); in f32
-    that matrix's TF32 hi over lo parts, (2, OC, 4C) (``ops.tf32.
-    tf32_split``), what the 3xTF32 core reads."""
-    w = wg.reshape(-1, wg.shape[-1]).t()
-    return tf32_split(w) if wg.dtype == torch.float32 else w.contiguous()
+    4C), K-major (the layout of both operands of the wgmma cores), its
+    quadrant blocks in :func:`merge_k_order`; in f32 that matrix's TF32 hi
+    over lo parts, (2, OC, 4C) (``ops.tf32.tf32_split``), what the 3xTF32
+    core reads."""
+    f32 = wg.dtype == torch.float32
+    w = wg[list(merge_k_order(wg.shape[1], BK_F32 if f32 else BK))]
+    w = w.reshape(-1, wg.shape[-1]).t()
+    return tf32_split(w) if f32 else w.contiguous()
 
 
 def check_merge_gemm(r: int, c: int) -> None:
     """Raise ``NotImplementedError`` unless the kernel takes a merge of an
     R x R image of C channels: a 128-row tile of its product must hold whole
     rows of the (R/2)^2 output grid (R/2 divides 128), each K step of 64
-    must lie in one quadrant (C % 64 == 0), the kernel's table holds at most
+    must lie in one quadrant or, in :func:`merge_k_order`'s dy-major order,
+    in one 2C pixel-pair row (C % 32 == 0), the kernel's table holds at most
     MERGE_STEPS_MAX K steps (C <= 1024), and the wgmma core must take
     N = 2C, K = 4C and the map's strides (``kernels.check_sm90_gemm``)."""
     if r < 2 or r % 2 or BM % (r // 2):
         raise NotImplementedError(f"patch_merge: R/2 must divide {BM}, got R={r}")
-    if c % BK or 4 * c // BK > MERGE_STEPS_MAX:
-        raise NotImplementedError(f"patch_merge: C must be a multiple of {BK} and at most "
+    if c % BK_F32 or 4 * c // BK > MERGE_STEPS_MAX:
+        raise NotImplementedError(f"patch_merge: C must be a multiple of {BK_F32} and at most "
                                   f"{MERGE_STEPS_MAX * BK // 4}, got C={c}")
     check_sm90_gemm("patch_merge", 2 * c, 4 * c, *merge_a_map(1, r, c)["strides"])
 
@@ -113,10 +130,17 @@ def merge_a_map(b: int, r: int, c: int, bk: int = BK) -> dict:
     them.  Cached: read it, do not change it.  As rows of 2C (a horizontal
     pixel pair), quadrant (dy, dx) of output row (b, i2, j2) is row (b*R/2 +
     i2, dy, j2) at columns dx*C .. dx*C + C - 1; K step s reads quadrant q =
-    bk*s // C of [x00, x10, x01, x11], (dy, dx) = (q & 1, q >> 1)."""
+    bk*s // C of [x00, x10, x01, x11], (dy, dx) = (q & 1, q >> 1); or, in
+    :func:`merge_k_order`'s dy-major order, columns bk*s % 2C of row dy =
+    bk*s // 2C."""
     h2 = r // 2
     origin = []
+    dy_major = merge_k_order(c, bk) != (0, 1, 2, 3)
     for step in range(4 * c // bk):
+        if dy_major:
+            dy, col = divmod(step * bk, 2 * c)
+            origin.append((col, 0, dy, 0))
+            continue
         q, c0 = divmod(step * bk, c)
         origin.append(((q >> 1) * c + c0, 0, q & 1, 0))
     return dict(dims=(2 * c, h2, 2, b * h2), strides=(2 * c, r * c, 2 * r * c),

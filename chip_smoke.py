@@ -165,6 +165,18 @@ Phases, one status line each:
      ``kid_features_to_metric`` equal to ``kernel_distance``, the
      ``newton_schulz`` FAD within 1e-4 of ``eigh``; (c) ``AudioMetricsData``
      on numpy batches on the card, ``a + b`` against numpy float64.
+ 19. HTSAT-tiny (``phase_tiny``: embed 96, depths 2/2/6/2, heads 4/8/16/32
+     of 24, the audio tower of LAION-CLAP's 630k checkpoints): (a) at its
+     B = 64 shapes, #1 bf16 and f32 at every stage shifted and unshifted,
+     #2 bf16 and f32 at the three merges, #3 at C = 96, each against its
+     plain version under phase 3's bounds, one launch a call, repeated
+     bitwise, ms per forward against the bound and the products alone;
+     the window attention alone (``am_window_attn``, ``_f32``) at 24- and
+     32-wide heads against ``ops.attention._window_context``; (b) its
+     weights written as a LAION-named ``630k-audioset-best.pt``,
+     ``LaionCLAP(cfg=HTSAT_TINY, ckpt=...)`` through phase 4's run in bf16
+     (2048 + 2048 clips; #1 768, #2 192, #3 64, #4 2, #5 1) and phase 10's
+     in f32 (256 + 256; #1 f32 96, #2 f32 24), warm clips/s the median of 3.
 Phase 3 runs each kernel redesigned for Hopper on the wgmma core (the
 whole Swin block at every stage and shift, its v3, v1 and v2 attention
 halves and fused MLP, the three patch merges, the fused frontend, the two
@@ -387,7 +399,7 @@ SASS_WANT = {"log_mel": ("log_mel_sm90_kernel", ("HGMMA", "UTMALDG")),
              "swin_mlp_int8 fc2": (r"gemm_sm90_kernelILi\d+ELi1[23]E", ("IGMMA", "UTMALDG")),
              "swin_block_f32": ("gemm_tf32x3_kernel.*RowsA", ("HGMMA", "UTMALDG")),
              "patch_merge_f32": ("gemm_tf32x3_kernel.*MergeA", ("HGMMA", "UTMALDG")),
-             "window_attn_f32": ("window_attn_kernelIfE", ("HMMA",)),
+             "window_attn_f32": (r"window_attn_kernelILi\d+E+vPKf", ("HMMA",)),
              "prdc_stats": ("stats_split_kernel", ("LDGSTS",))}
 # kernels the library must hold no instantiation of: gemm.cuh's WMMA
 # gemm_kernel, deleted with its last user (#7's DFT is on the wgmma core)
@@ -896,7 +908,7 @@ def phase_kernels(cfg, params, results):
         log(f"  yardstick, the products alone through torch.matmul {what} at B={BATCH}: "
             + ", ".join(f"{k} {v:.4f} ms" for k, v in alone.items()))
         results["swin_block" + suffix]["library_ms"] = \
-            alone["Swin blocks (18 x qkv, proj, fc1, fc2)"]
+            alone[f"Swin blocks ({sum(cfg.depths)} x qkv, proj, fc1, fc2)"]
         results["patch_merge" + suffix]["library_ms"] = \
             alone["patch merges (3 x (M, 4C) @ (4C, 2C))"]
         if dtype == torch.bfloat16:
@@ -914,7 +926,7 @@ def products_alone_ms(cfg, b, dtype=torch.bfloat16):
     port never calls: their products alone, one ``torch.matmul`` each in
     ``dtype`` (bf16, or f32 with TF32 off, as ``main`` sets it, for the f32
     kernels) on random operands of the main path's shapes at batch ``b``:
-    per forward, the qkv, proj, fc1 and fc2 products of the 18 Swin blocks,
+    per forward, the qkv, proj, fc1 and fc2 products of the Swin blocks,
     the three patch merges' (M, 4C) x (4C, 2C) products on the quadrant
     concat, and in bf16 the frontend's DFT (every clip's frame rows x the
     basis), interp and patch products.  Returns those times and, by stage,
@@ -926,7 +938,8 @@ def products_alone_ms(cfg, b, dtype=torch.bfloat16):
     def randn(*shape):
         return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
-    out = {"Swin blocks (18 x qkv, proj, fc1, fc2)": 0.0}
+    blocks = f"Swin blocks ({sum(cfg.depths)} x qkv, proj, fc1, fc2)"
+    out = {blocks: 0.0}
     per_block = {}
     res = cfg.grid_size
     for stage, depth in enumerate(cfg.depths):
@@ -935,7 +948,7 @@ def products_alone_ms(cfg, b, dtype=torch.bfloat16):
         wqkv, wp, w1, w2 = randn(c, 3 * c), randn(c, c), randn(c, 4 * c), randn(4 * c, c)
         per_block[stage] = {"attn": cuda_ms(lambda: (x @ wqkv, x @ wp)),
                             "mlp": cuda_ms(lambda: (x @ w1, h @ w2))}
-        out["Swin blocks (18 x qkv, proj, fc1, fc2)"] += depth * sum(per_block[stage].values())
+        out[blocks] += depth * sum(per_block[stage].values())
         if stage < len(cfg.depths) - 1:
             key = "patch merges (3 x (M, 4C) @ (4C, 2C))"
             cat, wg = randn(m // 4, 4 * c), randn(4 * c, 2 * c)
@@ -1319,14 +1332,23 @@ def check_prdc_paths(am, candidate, what: str) -> None:
         raise AssertionError(f"{what} PRDC through the kernels disagrees with the plain one")
 
 
-def phase_e2e(card: str):
+def phase_e2e(card: str, clap=None, per_forward=None, warm_runs: int = 1):
+    """The main path end to end (phase 4): ``clap`` (default LaionCLAP
+    HTSAT-base bf16, seeded random weights) in ``AudioMetrics(["fad",
+    "kd", "prdc"])`` over N_CLIPS + N_CLIPS 5 s clips (seed 3): launch
+    counts (``per_forward`` a forward, HTSAT-base's by default), clips/s,
+    PRDC through the kernels against the plain versions, self-FAD, the
+    plain path; with ``warm_runs`` > 1 that many more warm evaluates, their
+    median and spread."""
     from audio_metrics_tpu_torch import AudioMetrics
     from audio_metrics_tpu_torch.models.clap import LaionCLAP
     from audio_metrics_tpu_torch.models.htsat import HTSAT_BASE
 
     metrics = ["fad", "kd", "prdc"]
-    clap = LaionCLAP(cfg=HTSAT_BASE, compute_dtype="bfloat16", allow_random_weights=True,
-                     device="cuda")
+    if clap is None:
+        clap = LaionCLAP(cfg=HTSAT_BASE, compute_dtype="bfloat16", allow_random_weights=True,
+                         device="cuda")
+    per_forward = per_forward or dict(swin_block=18, patch_merge=3, clap_frontend=1)
     am = AudioMetrics(metrics=metrics, embedder=clap, win_dur=float(CLIP_S),
                       input_sr=SR, batch_size=BATCH, device="cuda")
     reference, candidate = clips(N_CLIPS, CLIP_S, seed=3)
@@ -1342,7 +1364,7 @@ def phase_e2e(card: str):
     forwards = 2 * -(-N_CLIPS // BATCH)
     log(f"  result {result}")
     check_counts(f"add_reference + first evaluate, {forwards} forward batches", launches,
-                 expected(forwards, swin_block=18, patch_merge=3, clap_frontend=1))
+                 expected(forwards, **per_forward))
     if not all(np.isfinite(v) for v in result.values()):
         raise AssertionError("non-finite metric")
 
@@ -1352,10 +1374,11 @@ def phase_e2e(card: str):
     torch.cuda.synchronize()
     warm = time.perf_counter() - t0
     check_counts("second evaluate (reference radii cached)", read_counts(),
-                 expected(forwards // 2, knn_radii=1, swin_block=18, patch_merge=3,
-                          clap_frontend=1))
+                 expected(forwards // 2, knn_radii=1, **per_forward))
     log(f"  evaluate of {N_CLIPS} clips: {N_CLIPS / warm:.2f} clips/s warm ({warm:.4f} s), "
         f"{N_CLIPS / cold:.2f} clips/s first ({cold:.4f} s) [{card}; real_weights: false]")
+    if warm_runs > 1:
+        log(f"  {warm_evaluates(am, candidate, N_CLIPS, warm_runs)} [{card}]")
     if again != result:
         log(f"  note: repeat evaluate {again}")
 
@@ -1707,11 +1730,11 @@ def f32_plain_path(clap):
     return PlainPath()
 
 
-def write_clap_checkpoint(params: dict, ckpt_dir: str) -> str:
-    """``params`` (phase 3's weights) with seeded projection weights, written
-    as a LAION-named ``.pt`` (``module.`` prefix, fused qkv) under the
-    default embedder's checkpoint file name in ``ckpt_dir``; returns the
-    name."""
+def write_clap_checkpoint(params: dict, ckpt_dir: str, cfg=None, name: str | None = None) -> str:
+    """``params`` (phase 3's weights, or phase 19's of ``cfg``) with seeded
+    projection weights, written as a LAION-named ``.pt`` (``module.``
+    prefix, fused qkv) under ``name`` (default: the default embedder's
+    checkpoint file name) in ``ckpt_dir``; returns the name."""
     from audio_metrics_tpu_torch.models.clap import (
         LAION_CLAP_MUSIC_CHECKPOINT_URL,
         init_projection_params,
@@ -1719,13 +1742,14 @@ def write_clap_checkpoint(params: dict, ckpt_dir: str) -> str:
     from audio_metrics_tpu_torch.models.htsat import HTSAT_BASE
     from audio_metrics_tpu_torch.testing import laion_state_dict
 
-    weights = dict(params, **init_projection_params(HTSAT_BASE, seed=0))
-    name = LAION_CLAP_MUSIC_CHECKPOINT_URL.rsplit("/", 1)[-1]
+    weights = dict(params, **init_projection_params(cfg or HTSAT_BASE, seed=0))
+    name = name or LAION_CLAP_MUSIC_CHECKPOINT_URL.rsplit("/", 1)[-1]
     torch.save({"state_dict": laion_state_dict(weights)}, os.path.join(ckpt_dir, name))
     return name
 
 
-def phase_f32(card: str, params: dict, switches: dict, per_forward: dict, against=None):
+def phase_f32(card: str, params: dict, switches: dict, per_forward: dict, against=None,
+              clap=None, warm_runs: int = 1):
     """The default configuration on the card: ``AudioMetrics(metrics=["fad",
     "kd", "prdc"])`` with no embedder, which builds the registry default
     ``laion_clap_music`` (HTSAT-base, f32) from its checkpoint, here
@@ -1740,16 +1764,24 @@ def phase_f32(card: str, params: dict, switches: dict, per_forward: dict, agains
     first and warm, FAD of the reference against itself, the reference
     embeddings against the f32 plain chain on the same weights, and, given
     ``against`` (another configuration's on the same clips), their distance
-    to it, printed.  Returns (launches, reference embeddings)."""
+    to it, printed.  Given ``clap`` (an f32 LaionCLAP built by the caller),
+    that embedder in ``AudioMetrics`` instead, and ``params`` unused; with
+    ``warm_runs`` > 1 that many more warm evaluates, their median and
+    spread.  Returns (launches, reference embeddings)."""
     from audio_metrics_tpu_torch import AudioMetrics
     from audio_metrics_tpu_torch.models.clap import LaionCLAP
 
     metrics = ["fad", "kd", "prdc"]
     reference, candidate = clips(N_CLIPS_F32, CLIP_S, seed=11)
-    with tempfile.TemporaryDirectory() as ckpt_dir:
-        name = write_clap_checkpoint(params, ckpt_dir)
-        with environ(AM_TPU_CKPT_DIR=ckpt_dir, **switches):  # the encoder reads the switches
-            am = AudioMetrics(metrics=metrics, batch_size=BATCH, device="cuda")
+    if clap is not None:
+        name = "the caller's checkpoint"
+        am = AudioMetrics(metrics=metrics, embedder=clap, win_dur=float(CLIP_S), input_sr=SR,
+                          batch_size=BATCH, device="cuda")
+    else:
+        with tempfile.TemporaryDirectory() as ckpt_dir:
+            name = write_clap_checkpoint(params, ckpt_dir)
+            with environ(AM_TPU_CKPT_DIR=ckpt_dir, **switches):  # the encoder reads them
+                am = AudioMetrics(metrics=metrics, batch_size=BATCH, device="cuda")
     clap = am.embedder
     log(f"  embedder {type(clap).__name__} {clap.layer} from {name}, compute dtype "
         f"{clap.model.compute_dtype}, win_dur {am.win_dur}")
@@ -1785,6 +1817,8 @@ def phase_f32(card: str, params: dict, switches: dict, per_forward: dict, agains
         f"[{card}; real_weights: false]; allocator: {cached:.2f} GiB cached by earlier phases "
         f"released, {torch.cuda.memory_stats().get('num_alloc_retries', 0) - retries} alloc "
         "retries since")
+    if warm_runs > 1:
+        log(f"  {warm_evaluates(am, candidate, N_CLIPS_F32, warm_runs)} in f32 [{card}]")
     self_fad = am.evaluate(reference)["fad"]
     log(f"  FAD of the reference against itself: {self_fad:.3g} (tol |fad| <= 1e-4)")
     if not abs(self_fad) <= 1e-4:
@@ -3023,6 +3057,232 @@ def phase_surface(card: str, e2e: dict) -> None:
     log(f"  phase 18: {time.perf_counter() - t18:.1f} s [{card}]")
 
 
+# phase 19: HTSAT-tiny, LAION-CLAP's general-audio (630k) checkpoints' audio
+# tower, written under the file name of 630k-audioset-best.pt
+TINY_CKPT = "630k-audioset-best.pt"
+# the window attention alone (am_window_attn, am_window_attn_f32) against its
+# plain version (ops.attention._window_context) on the same rows: (mean abs
+# error / mean |ctx|, max abs error), ~5x the 32-wide heads' readings, the
+# kernel of every earlier phase (bf16 <= 3.6e-7 and 0.0078, one bf16 ulp;
+# f32 <= 4.1e-7 and 3.8e-6; PERF.md)
+WINDOW_ATTN_TOL = {"bf16": (2e-6, 0.03125), "f32": (2e-6, 2e-5)}
+
+
+def window_attn_alone(card: str) -> dict:
+    """The window attention alone (launch 3 of #1 and of the attention
+    halves) through the library's ``am_window_attn`` (bf16) and
+    ``am_window_attn_f32`` entries, which no model path calls, at every
+    stage's shapes at B = BATCH: HTSAT-tiny's 24-wide heads and, the bound's
+    yardstick, HTSAT-base's 32-wide; unshifted (one table) and shifted (a
+    table per window of an image); q pre-scaled by 1/sqrt(d).  Each against
+    ``ops.attention._window_context`` under WINDOW_ATTN_TOL; ms per forward
+    (CUDA events).  Returns {(dtype, head width): ms per forward}."""
+    import ctypes
+
+    from audio_metrics_tpu_torch import kernels
+    from audio_metrics_tpu_torch.models.htsat import HTSAT_BASE, HTSAT_TINY
+    from audio_metrics_tpu_torch.ops.attention import _window_context
+
+    lib = kernels.build()
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    per_forward = {}
+    for dtype, key, entry in ((torch.bfloat16, "bf16", lib.am_window_attn),
+                              (torch.float32, "f32", lib.am_window_attn_f32)):
+        for cfg in (HTSAT_TINY, HTSAT_BASE):
+            res, total = cfg.grid_size, 0.0
+            for stage, depth in enumerate(cfg.depths):
+                c, heads = cfg.embed_dim * 2**stage, cfg.num_heads[stage]
+                d, per_image = c // heads, (res // cfg.window_size) ** 2
+                windows = BATCH * per_image
+                qkv = torch.randn((windows * 64, 3 * c), generator=gen, device="cuda")
+                qkv[:, :c] *= d**-0.5
+                qkv = qkv.to(dtype)
+                ctx = torch.empty((windows * 64, c), dtype=dtype, device="cuda")
+                shifted = depth // 2 if res > cfg.window_size else 0
+                for nbm, blocks in ((1, depth - shifted), (per_image, shifted)):
+                    if not blocks:
+                        continue
+                    bm = torch.randn((nbm, heads, 64, 64), generator=gen, device="cuda")
+
+                    def launch():
+                        stream = torch.cuda.current_stream().cuda_stream
+                        rc = entry(ctypes.c_void_p(qkv.data_ptr()), ctypes.c_void_p(bm.data_ptr()),
+                                   ctypes.c_int(nbm), ctypes.c_int(windows), ctypes.c_int(heads),
+                                   ctypes.c_int(c), ctypes.c_void_p(ctx.data_ptr()),
+                                   ctypes.c_void_p(stream))
+                        if rc:
+                            raise RuntimeError(f"window attention failed with cudaError {rc}")
+
+                    launch()
+                    want = _window_context(qkv, bm, heads)
+                    torch.cuda.synchronize()
+                    err = (ctx.float() - want.float()).abs()
+                    mx, rel = err.max().item(), err.mean().item() / want.float().abs().mean().item()
+                    ms = cuda_ms(launch, 20)
+                    total += blocks * ms
+                    tol = WINDOW_ATTN_TOL[key]
+                    ok = torch.isfinite(ctx.float()).all().item() and rel <= tol[0] and mx <= tol[1]
+                    log(f"  window attention {key} heads {heads} x {d} stage {stage} R={res} "
+                        f"tables {nbm}: max_abs_err {mx:.4g} (tol {tol[1]}) mean_abs_err / mean "
+                        f"|ctx| {rel:.4g} (tol {tol[0]}) {'ok' if ok else 'FAIL'}; {ms:.4f} ms "
+                        f"x{blocks} a forward")
+                    if not ok:
+                        raise AssertionError(f"window attention {key} at head width {d} "
+                                             "disagrees with its plain version")
+                res //= 2
+            per_forward[(key, d)] = total
+            log(f"  window attention {key}, {d}-wide heads, per forward ({sum(cfg.depths)} "
+                f"blocks) at B={BATCH}: {total:.4f} ms [{card}]")
+    return per_forward
+
+
+def phase_tiny_kernels(card: str, cfg, params) -> dict:
+    """Phase 19 (a): HTSAT-tiny's kernels against their plain versions at
+    B = BATCH (the batch its path runs): #1 bf16 and f32 at every stage,
+    shifted and unshifted (stage 3: one window, unshifted), under phase 3's
+    per-stage bounds; #2 bf16 and f32 at the three merges; #3 at C = 96;
+    each call one launch, repeated bitwise; kernel and plain ms per forward
+    (CUDA events); the products alone through ``torch.matmul`` as the
+    yardstick, the bounds from ``swin_bound`` / ``merge_bound`` /
+    ``frontend_bound``.  Returns {kernel: its numbers}."""
+    from audio_metrics_tpu_torch.kernels import KERNELS
+    from audio_metrics_tpu_torch.models.clap import ClapFrontend
+    from audio_metrics_tpu_torch.models.htsat import PatchMerge, SwinBlock
+    from audio_metrics_tpu_torch.ops.frontend_fused import (
+        clap_tokens_fused,
+        clap_tokens_fused_plain,
+    )
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(21)
+    times = {k: {"ms": 0.0, "plain_ms": 0.0, "max_abs_err": 0.0} for k in
+             ("swin_block", "swin_block_f32", "patch_merge", "patch_merge_f32", "clap_frontend")}
+
+    def check(name, key, kfn, pfn, n, x=None, stage=None):
+        rel_tol, max_tol = TOL[name]
+        if stage is not None:
+            rel_tol = rel_tol[stage]
+        before = KERNELS[name].launches
+        got, want = kfn(), pfn()
+        if KERNELS[name].launches != before + 1:
+            raise AssertionError(f"{name} {key}: {KERNELS[name].launches - before} launches")
+        mx, rel = compare(name, got, want, want if x is None else want.float() - x.float(), {})
+        ok = mx <= max_tol and rel <= rel_tol
+        log(f"  {name} {key} at B={BATCH}: max_abs_err {mx:.4g} (tol {max_tol}) mean_abs_err / "
+            f"mean |{'out' if x is None else 'out - x'}| {rel:.4g} (tol {rel_tol}) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{name} {key} disagrees with its plain version")
+        check_repeats(f"{name} {key}", ((BATCH, got, kfn),))
+        ms = cuda_ms(kfn, TIMING_ITERS.get(name, 10), warmup=10 if name in TIMING_ITERS else 2)
+        pms = cuda_ms(pfn, iters=3)
+        log(f"    kernel {ms:.4f} ms, plain {pms:.4f} ms, x{n} a forward")
+        t = times[name]
+        t["ms"] += n * ms
+        t["plain_ms"] += n * pms
+        t["max_abs_err"] = max(t["max_abs_err"], mx)
+
+    def randn(shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    res = cfg.grid_size
+    for stage, depth in enumerate(cfg.depths):
+        c = cfg.embed_dim * 2**stage
+        x = randn((BATCH, res * res, c))
+        for shift in ((0, cfg.window_size // 2) if res > cfg.window_size else (0,)):
+            prefix = f"audio_encoder.layers.{stage}.blocks.{1 if shift else 0}"
+            n_blocks = depth // 2 if res > cfg.window_size else depth
+            key = f"stage {stage} R={res} C={c} heads {cfg.num_heads[stage]} x " \
+                  f"{c // cfg.num_heads[stage]} shift={shift}"
+            for name, dtype in (("swin_block", torch.bfloat16), ("swin_block_f32", torch.float32)):
+                block = SwinBlock(params, prefix, cfg, res, shift, cfg.num_heads[stage],
+                                  dtype).to(dev)
+                xd = x.to(dtype)
+                check(name, key, lambda: block(xd), lambda: block(xd, plain=True), n_blocks,
+                      x=xd, stage=stage)
+                del block
+        if stage < len(cfg.depths) - 1:
+            key = f"merge {stage} R={res} C={c}"
+            for name, dtype in (("patch_merge", torch.bfloat16),
+                                ("patch_merge_f32", torch.float32)):
+                merge = PatchMerge(params, f"audio_encoder.layers.{stage}.downsample", cfg, res,
+                                   dtype).to(dev)
+                xd = x.to(dtype)
+                check(name, key, lambda: merge(xd), lambda: merge(xd, plain=True), 1)
+            res //= 2
+    fr = ClapFrontend(params, cfg).to(dev)
+    audio = 0.2 * torch.randn((BATCH, CLIP_S * SR), generator=gen, device=dev)
+    check("clap_frontend", f"C={cfg.embed_dim}, B x {CLIP_S * SR} samples",
+          lambda: clap_tokens_fused(audio, fr, sr=SR, cfg=cfg),
+          lambda: clap_tokens_fused_plain(audio, fr, sr=SR, cfg=cfg), 1)
+
+    bounds = {"swin_block": swin_bound(cfg, BATCH), "swin_block_f32": swin_bound(cfg, BATCH,
+                                                                                 dt="f32"),
+              "patch_merge": merge_bound(cfg, BATCH), "patch_merge_f32": merge_bound(cfg, BATCH,
+                                                                                      "f32"),
+              "clap_frontend": frontend_bound(cfg, BATCH, CLIP_S * SR)}
+    blocks = f"Swin blocks ({sum(cfg.depths)} x qkv, proj, fc1, fc2)"
+    merges = "patch merges (3 x (M, 4C) @ (4C, 2C))"
+    for dtype, suffix in ((torch.bfloat16, ""), (torch.float32, "_f32")):
+        alone, _ = products_alone_ms(cfg, BATCH, dtype)
+        times["swin_block" + suffix]["library_ms"] = alone[blocks]
+        times["patch_merge" + suffix]["library_ms"] = alone[merges]
+        if dtype == torch.bfloat16:
+            times["clap_frontend"]["library_ms"] = alone["frontend DFT"]
+    for name, t in times.items():
+        t["bound_ms"], t["bound_by"], ops = bounds[name]
+        log(f"  {name} tiny per forward at B={BATCH}: kernel {t['ms']:.4f} ms "
+            f"({ops / (t['ms'] * 1e-3) / 1e12:.1f} TFLOP/s), plain {t['plain_ms']:.4f} ms, "
+            f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}), library {t['library_ms']:.4f} ms "
+            f"[{card}]")
+    return times
+
+
+def phase_tiny(card: str) -> None:
+    """Phase 19: HTSAT-tiny (embed 96, depths 2/2/6/2, heads 4/8/16/32 of
+    24, the audio tower of LAION-CLAP's 630k checkpoints) on the card.
+    (a) ``phase_tiny_kernels`` and ``window_attn_alone`` at tiny's B = 64
+    shapes, with weights under which every part of a block moves its
+    output (``check_params``); (b) those weights with seeded projection
+    weights written as a LAION-named ``630k-audioset-best.pt`` in a
+    temporary directory that ``AM_TPU_CKPT_DIR`` names, ``LaionCLAP(cfg=
+    HTSAT_TINY, ckpt=<that file>)``: bf16 through phase 4's run (2048 +
+    2048 clips; launches #1 768, #2 192, #3 64, #4 2, #5 1; embeddings
+    against the plain versions under E2E_TOL), f32 through phase 10's (256
+    + 256; #1 f32 96, #2 f32 24; against the f32 plain chain under
+    F32_E2E_TOL); finite metrics, self-FAD, warm clips/s the median of 3."""
+    from audio_metrics_tpu_torch.models.clap import LaionCLAP
+    from audio_metrics_tpu_torch.models.htsat import HTSAT_TINY
+
+    t19 = time.perf_counter()
+    cfg = HTSAT_TINY
+    params = check_params(cfg)
+    log("  (a) the kernels at HTSAT-tiny's shapes against their plain versions")
+    times = phase_tiny_kernels(card, cfg, params)
+    window_attn_alone(card)
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        write_clap_checkpoint(params, ckpt_dir, cfg, TINY_CKPT)
+        path = os.path.join(ckpt_dir, TINY_CKPT)
+        with environ(AM_TPU_CKPT_DIR=ckpt_dir):
+            clap16 = LaionCLAP(ckpt=path, cfg=cfg, compute_dtype="bfloat16", device="cuda")
+            clap32 = LaionCLAP(ckpt=path, cfg=cfg, device="cuda")
+    log(f"  (b) bf16: LaionCLAP(cfg=HTSAT_TINY, ckpt={TINY_CKPT}) in AudioMetrics(['fad', 'kd', "
+        "'prdc'])")
+    launches, _ = phase_e2e(card, clap16, dict(swin_block=12, patch_merge=3, clap_frontend=1),
+                            warm_runs=3)
+    del clap16
+    log("  (b) f32: the same checkpoint, compute dtype f32")
+    launches32, _ = phase_f32(card, params, {}, dict(swin_block_f32=12, patch_merge_f32=3),
+                              clap=clap32, warm_runs=3)
+    for name, t in times.items():
+        n = (launches32 if name.endswith("_f32") else launches)[name]
+        log(f"  {name} tiny: launches {n} (add_reference + first evaluate), kernel {t['ms']:.4f} "
+            f"ms a forward, plain {t['plain_ms']:.4f}, bound {t['bound_ms']:.4f} "
+            f"({t['bound_by']}), library {t['library_ms']:.4f}, max abs err "
+            f"{t['max_abs_err']:.4g} [{card}]")
+    log(f"  phase 19: {time.perf_counter() - t19:.1f} s [{card}]")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run", file=sys.stderr)
@@ -3116,6 +3376,9 @@ def main() -> int:
     log("phase 18 the public surface: a forward-only embedder, the metric functions on raw "
         "features, AudioMetricsData on numpy batches")
     phase_surface(card, e2e)
+    log("phase 19 HTSAT-tiny: the kernels at its widths (24-wide heads), then LaionCLAP("
+        "cfg=HTSAT_TINY) from a 630k-named checkpoint in bf16 and f32, fad + kd + prdc")
+    phase_tiny(card)
 
     # launches: each kernel's count on the path that runs it
     path_of = {"log_mel": launches_10s, "swin_attn_v3": launches_split,

@@ -35,6 +35,7 @@ from audio_metrics_tpu_torch.ops.merge import (
     _quadrants,
     check_merge_gemm,
     merge_a_map,
+    merge_k_order,
     merge_stats,
     merge_weight_t,
     patch_merge,
@@ -42,6 +43,7 @@ from audio_metrics_tpu_torch.ops.merge import (
 
 cfg = HTSAT_BASE
 MERGES = [(0, 64, 128), (1, 32, 256), (2, 16, 512)]  # (stage, R, C) of HTSAT-base
+TINY_MERGES = [(0, 64, 96), (1, 32, 192), (2, 16, 384)]  # of HTSAT-tiny
 
 
 def _box(x_flat, amap, coords):
@@ -79,15 +81,19 @@ def _a_through_the_map(x, r, c, bk=BK):
 
 @pytest.mark.parametrize("dtype,bk", [(torch.bfloat16, BK), (torch.float32, BK_F32)])
 @pytest.mark.parametrize("b", [1, 3])
-@pytest.mark.parametrize("stage,r,c", MERGES)
+@pytest.mark.parametrize("stage,r,c", MERGES + TINY_MERGES[:1])
 def test_tensor_map_reproduces_the_quadrant_concat(stage, r, c, b, dtype, bk):
     """B = 3 and B = 1: at R = 16, 192 and 64 rows, a tile and a half and
     half a tile; at R = 64 and 32 whole tiles of whole images.  bf16 in K
-    steps of 64, f32 (the f32 kernel's map) in K steps of 32."""
+    steps of 64, f32 (the f32 kernel's map) in K steps of 32; at HTSAT-
+    tiny's C = 96 the bf16 steps run over the quadrants in ``merge_k_order``
+    (dy-major), the concat's own order everywhere else."""
     g = torch.Generator().manual_seed(stage + 10 * b)
     x = torch.randn((b, r * r, c), generator=g).to(dtype)
     a, m = _a_through_the_map(x, r, c, bk)
-    want = _quadrants(x, r, r).reshape(-1, 4 * c)
+    order = list(merge_k_order(c, bk))
+    assert (order != [0, 1, 2, 3]) == (dtype == torch.bfloat16 and c == 96)
+    want = _quadrants(x, r, r).reshape(-1, 4, c)[:, order].reshape(-1, 4 * c)
     assert torch.equal(a[:m], want)
     assert not a[m:].any()
 
@@ -186,8 +192,10 @@ def test_stats_match_the_jax_kernel(offset):
 
 @pytest.mark.parametrize("r,c,ok", [
     (64, 128, True), (32, 256, True), (16, 512, True), (8, 1024, True), (256, 64, True),
-    (64, 96, False),    # HTSAT-tiny's width: a K step of 64 would straddle two quadrants
-    (64, 160, False),   # the same at a multiple of 32
+    (64, 96, True),     # HTSAT-tiny's width: K steps of 64 dy-major, in one 2C pixel-pair row
+    (64, 160, True),    # the same at another multiple of 32
+    (64, 80, False),    # C % 32 != 0: a K step of 64 would straddle two pixel-pair rows
+    (64, 98, False),
     (6, 128, False),    # R/2 = 3 does not divide a 128-row tile
     (512, 64, False),   # R/2 = 256: a tile would hold half an output grid row
     (1, 128, False),

@@ -263,8 +263,11 @@ def test_frontend_tables_transposed_match_jax(params):
         (384, 128, (128,), True),
         (64, 1024, (1024, 65536), True),
         (768, 1024, (HOP, 246304), True),
-        (96, 128, (128,), False),   # N not a multiple of 64
-        (128, 96, (96,), False),    # K not a multiple of 64
+        (96, 128, (128,), True),    # N = 96 (HTSAT-tiny's proj, fc2): one 96-column tile
+        (128, 96, (96,), True),     # K = 96: a second K step of 64, half zero-filled
+        (288, 96, (96,), True),     # HTSAT-tiny's stage-0 qkv: three 96-column tiles
+        (160, 128, (128,), False),  # N a multiple of neither 64 nor 96
+        (128, 72, (72,), False),    # K not a multiple of 16
         (128, 128, (124,), False),  # a row stride off 16 bytes
         (128, 128, (128, 12), False),  # a batch stride off 16 bytes
     ],
@@ -298,9 +301,12 @@ def test_s8_gemm_shape_check(n, k, strides, ok):
 
 
 @pytest.mark.parametrize("c,ok", [(128, True), (256, True), (1024, True), (192, True),
-                                  (96, False), (1088, False), (2048, False)])
+                                  (96, True), (98, False), (160, False), (1088, False),
+                                  (2048, False)])
 def test_block_shape_check(c, ok):
-    """C = 96 (HTSAT-tiny's width) has products of N = 288; C > 1024 is
+    """C = 96 (HTSAT-tiny's width) runs its N = 288 and N = 96 products on
+    96-column tiles and K = 96 in two steps of 64; C = 98 has a K of no
+    whole wgmma instruction, C = 160 an N = C on no column tile; C > 1024 is
     wider than the LN1 pass holds."""
     if ok:
         check_block_gemms(c)
@@ -312,7 +318,8 @@ def test_block_shape_check(c, ok):
 def test_frontend_shape_check():
     """HTSAT-base at 5 s, 48 kHz passes, and so does HTSAT-tiny's C = 96
     (patch product N = 16 * 96); a filterbank support of 400 bins (DFT N =
-    800) and 98-wide tokens (N = 1568) are not multiples of 64 and raise."""
+    800) and 98-wide tokens (N = 1568) are multiples of neither 64 nor 96
+    and raise."""
     pln = _plan(5 * 48000, 48000, FRAME, HOP, cfg.num_mel_bins, cfg.spec_size, cfg.patch_size)
     check_frontend_gemms(384, cfg, pln)
     check_frontend_gemms(384, HTSATConfig(embed_dim=96), pln)

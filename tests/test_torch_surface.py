@@ -199,6 +199,29 @@ def test_entry_points_default_to_the_card():
         frechet_distance(_port(cand), _port(ref), method="newton_schulz")
 
 
+def test_unstored_rows_are_not_moved():
+    """With ``store_embeddings=False`` neither ``add`` nor ``add_moments(...,
+    embeddings=)`` moves the rows: at the default ``device="cuda"`` on a host
+    without a card they compute the stats as the JAX package does (mean
+    and covariance within rel 1e-12) and raise nothing."""
+    ref, _ = _sets(12, 64, 8)
+    want = JaxData(False)
+    want.add(ref)
+    got = AudioMetricsData(store_embeddings=False)
+    got.add(ref)
+    np.testing.assert_allclose(got.mean, want.mean, rtol=1e-12)
+    np.testing.assert_allclose(got.cov, want.cov, rtol=1e-12, atol=1e-12)
+    assert got.n == want.n and not got.has_embeddings
+    e = ref.astype(np.float64)
+    moments = (len(e), e.sum(axis=0), (e - e.mean(axis=0)).T @ (e - e.mean(axis=0)))
+    jm, pm = JaxData(False), AudioMetricsData(store_embeddings=False)
+    jm.add_moments(*moments, embeddings=ref)
+    pm.add_moments(*moments, embeddings=ref)
+    np.testing.assert_allclose(pm.mean, jm.mean, rtol=1e-12)
+    np.testing.assert_allclose(pm.cov, jm.cov, rtol=1e-12, atol=1e-12)
+    assert not pm.has_embeddings
+
+
 # -- the metric functions on raw features ----------------------------------------
 @pytest.mark.parametrize("kw", [
     dict(kernel_type="polynomial", rng_seed=7),  # subset size 1000 shrinks to 100
@@ -314,6 +337,21 @@ def test_frechet_distance_newton_schulz():
     assert got == pytest.approx(want, rel=1e-4)
     with pytest.raises(ValueError, match="Unknown FAD method"):
         frechet_distance(_port(cand), _port(ref), method="sqrtm")
+
+
+def test_frechet_distance_newton_schulz_n_just_above_d():
+    """n = d + 2 candidates at d = 128, mixed by a random matrix: their
+    covariance is far from well conditioned, and its f32 Cholesky fails
+    (nan).  The port runs the method in float64, as the JAX package does,
+    and stays within rtol 1e-4 of it."""
+    d = 128
+    rng = np.random.default_rng(0)
+    mix = rng.standard_normal((d, d))
+    ref = (rng.standard_normal((8 * d, d)) @ mix).astype(np.float32)
+    cand = (rng.standard_normal((d + 2, d)) @ mix).astype(np.float32)
+    want = jax_metrics.frechet_distance(_jax(cand), _jax(ref), method="newton_schulz")
+    got = frechet_distance(_port(cand), _port(ref), method="newton_schulz", device="cpu")
+    assert got == pytest.approx(want, rel=1e-4)
 
 
 # -- exports ------------------------------------------------------------------------

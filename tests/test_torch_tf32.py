@@ -365,10 +365,11 @@ def test_f32_merge_shape_check(r, c, ok):
 
 
 @pytest.mark.parametrize("c,ok", [(128, True), (256, True), (512, True), (1024, True),
-                                  (96, False), (1088, False)])
+                                  (96, True), (98, False), (160, False), (1088, False)])
 def test_f32_block_shape_check(c, ok):
-    """Every HTSAT width passes; 3C = 288 is no multiple of the core's
-    64-column tile, and the LN1 pass takes C <= 1024."""
+    """Every HTSAT-base and HTSAT-tiny width passes (tiny's 3C = 288 and C =
+    96 on the core's 96-column tile); K = 98 is no whole K step of 32, N =
+    160 on no column tile, and the LN1 pass takes C <= 1024."""
     if ok:
         check_block_f32(c)
     else:
