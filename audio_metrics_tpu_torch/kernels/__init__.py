@@ -143,15 +143,16 @@ def check_sm90_gemm(name: str, n: int, k: int, *strides: int) -> None:
 def check_s8_gemm(name: str, n: int, k: int, *strides: int) -> None:
     """Raise ``NotImplementedError`` unless the wgmma core
     (``csrc/gemm_sm90.cuh``) takes an int8 product of ``n`` output columns
-    over a depth ``k``: ``n`` a multiple of 64 (its narrowest column tile),
-    ``k`` and every row stride of its operands (``strides``, in codes) a
-    multiple of 16, the 16 bytes a tensor map asks for.  ``k`` need not fill
-    a K step of 128 codes: the tensor maps zero-fill the rest, which adds
-    exact zeros to an integer sum."""
-    if n % 64 or k % 16 or any(s % 16 for s in strides):
+    over a depth ``k``: ``n`` a multiple of one of its column tiles, 64 (or
+    128), or 96 (HTSAT-tiny's fc2 at C = 96); ``k`` and every row stride of
+    its operands (``strides``, in codes) a multiple of 16, the 16 bytes a
+    tensor map asks for.  ``k`` need not fill a K step of 128 codes: the
+    tensor maps zero-fill the rest, which adds exact zeros to an integer
+    sum."""
+    if (n % 64 and n % 96) or k % 16 or any(s % 16 for s in strides):
         raise NotImplementedError(
-            f"{name}: the int8 wgmma GEMM core takes N multiples of 64, K multiples of 16 "
-            f"and strides of 16 codes, got N={n} K={k} strides={strides}"
+            f"{name}: the int8 wgmma GEMM core takes N multiples of 64 or 96, K multiples of "
+            f"16 and strides of 16 codes, got N={n} K={k} strides={strides}"
         )
 
 

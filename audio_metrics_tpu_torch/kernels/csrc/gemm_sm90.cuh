@@ -25,8 +25,8 @@
 // Shape of a block (one per SM, persistent over output tiles):
 //   - warpgroups 0-1 consume: each owns 64 rows of the 128 x BN tile and
 //     issues wgmma.m64nBNk16 (int8: k32; BN 128, or 64 where N is not a
-//     multiple of 128, or for bf16 96 where N is a multiple of neither:
-//     HTSAT-tiny's 3C = 288 and C = 96 at C = 96), one commit group per K
+//     multiple of 128, or 96 where N is a multiple of neither: HTSAT-tiny's
+//     3C = 288 and C = 96 at C = 96, and its int8 fc2's N = 96), one commit group per K
 //     step of 128 bytes (64 bf16, 128 codes), keeping one group in flight;
 //   - warpgroup 2, one thread, produces: TMA loads of the A (128 rows) and
 //     B (BN rows) boxes of one K step into a ring of STAGES stages with full
@@ -50,7 +50,7 @@
 // exact zeros, whole k16 instructions of them), row and batch strides
 // multiples of 8 elements (16 bytes), 16-byte aligned base pointers.  On
 // int8 codes
-// (kernels.check_s8_gemm): N % 64 == 0, strides multiples of 16 codes (16
+// (kernels.check_s8_gemm): N % 64 == 0 or N % 96 == 0, strides multiples of 16 codes (16
 // bytes), any such K: the K steps are ceil(K / 128), and TMA zero-fills the
 // columns past K in both operands, which adds exact zeros to an integer
 // sum.  No atomics but the int8 fc1 epilogue's integer max, which is the
@@ -300,6 +300,26 @@ __device__ __forceinline__ void wgmma_s8_n128(int* d, uint64_t da, uint64_t db, 
       : "l"(da), "l"(db), "r"(acc));
 }
 
+// HTSAT-tiny's fc2 at C = 96 (N = 96, a multiple of neither 128 nor 64).
+__device__ __forceinline__ void wgmma_s8_n96(int* d, uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+      "}, %48, %49, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
 __device__ __forceinline__ void wgmma_n96(float* d, uint64_t da, uint64_t db, int acc) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
@@ -329,6 +349,7 @@ __device__ __forceinline__ void wgmma_bn(float* d, uint64_t da, uint64_t db, int
 template <int BN>
 __device__ __forceinline__ void wgmma_bn(int* d, uint64_t da, uint64_t db, int acc) {
   if constexpr (BN == 128) wgmma_s8_n128(d, da, db, acc);
+  else if constexpr (BN == 96) wgmma_s8_n96(d, da, db, acc);
   else wgmma_s8_n64(d, da, db, acc);
 }
 
@@ -452,7 +473,8 @@ __device__ __forceinline__ float row_scale(float amax) {
 // contracts into an fma), in mlp_int8.cu's order.  fc1 reduces |g| over the
 // G lanes that share row r (G consecutive lanes, G-aligned), and the first
 // adds it with one atomicMax on the float's bits (|g| >= 0, so integer
-// order is float order, and a max is the same in any order).
+// order is float order, and a max is the same in any order).  fc1 never
+// runs on the 96-column tile (its N = 4C is a multiple of 64; gemm_mapped).
 template <int EPI, int G>
 __device__ __forceinline__ void s8_epilogue8(const EpiParams& p, int r, int n, const float* a) {
   float s[8], b[8], v[8];
@@ -469,6 +491,7 @@ __device__ __forceinline__ void s8_epilogue8(const EpiParams& p, int r, int n, c
       m = max(m, __float_as_int(fabsf(v[i])));
     }
     store8(static_cast<float*>(p.out) + o, v);
+    static_assert((G & (G - 1)) == 0, "the row max reduces over a power-of-two run of lanes");
     const int lane = threadIdx.x & 31;
     const unsigned lanes = G == 32 ? 0xffffffffu : ((1u << G) - 1) << (lane & ~(G - 1));
 #pragma unroll
@@ -733,14 +756,19 @@ int launch_bn(const CUtensorMap& ta, const ALoad& load_a, const Operand& b, cons
 
 // out = epilogue(A @ B^T), A's map and loader made by the caller: each load
 // fills a BM x 128-byte K-major tile of elements E under the 128-byte
-// swizzle.  The column tile: 128 where it divides N, else 64, else (bf16:
-// N % 96 == 0, checked by the caller) 96.
+// swizzle.  The column tile: 128 where it divides N, else 64, else (N %
+// 96 == 0, checked by the caller) 96; the int8 fc1 (EPI_S8_GELU, N = 4C with
+// C % 16 == 0) has no 96-column form.
 template <int EPI, class ALoad, typename E = bf16>
 int gemm_mapped(const CUtensorMap& ta, const ALoad& load_a, const Operand& b,
                 const EpiParams& p, int K, int batch, cudaStream_t stream) {
   if (p.N % 128 == 0) return launch_bn<128, EPI, ALoad, E>(ta, load_a, b, p, K, batch, stream);
-  if constexpr (std::is_same_v<E, bf16>)
-    if (p.N % 64 != 0) return launch_bn<96, EPI, ALoad, E>(ta, load_a, b, p, K, batch, stream);
+  if (p.N % 64 != 0) {
+    if constexpr (EPI != EPI_S8_GELU)
+      return launch_bn<96, EPI, ALoad, E>(ta, load_a, b, p, K, batch, stream);
+    else
+      return cudaErrorInvalidValue;
+  }
   return launch_bn<64, EPI, ALoad, E>(ta, load_a, b, p, K, batch, stream);
 }
 

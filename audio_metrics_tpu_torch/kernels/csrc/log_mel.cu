@@ -36,6 +36,21 @@
 //      the block writes log and affine in the output dtype.  Nothing but
 //      the hop rows and the output touches device memory.
 // gemm.cuh's mel_log_kernel stays for #3.
+// Two forms take what the TPU kernel takes beyond CLAP and VGGish:
+//   - a hop that is not a multiple of 8 (TMA's frame stride must be 16
+//     bytes): the hop rows are padded with zeros to hop_pad, the hop rounded
+//     up to 8 (halo_rows_padded_kernel), as the TPU kernel pads its hop rows
+//     to a lane multiple; frame r is then the span of n_chunks rows from row
+//     r, read by the same 3-D map at stride hop_pad against a basis whose
+//     columns are zero at the pads (ops/mel.py halo_dft_map, _kernel_tables).
+//     The DFT kernel is the same; K grows by (n_chunks - 1)*(hop_pad - hop);
+//   - any mel count (log_mel_cols_kernel): the filterbank in groups of 64
+//     mels, zero columns past n_mels, each group its own accumulator in
+//     registers; a launch holds two groups (64 sums a thread beside the 64
+//     accumulators), their filterbank rows staged in turn in one group's
+//     shared memory, and writes its columns of rows n_mels apart; more than
+//     128 mels take a launch per two groups, each recomputing the DFT.  64
+//     mels keep log_mel_sm90_kernel, one group, 16-byte stores.
 //
 // The v1 kernel replaces audio_metrics_tpu/ops/mel.py::log_mel_pallas
 // (pallas_call at :360): the same function, with the overlapping frames
@@ -107,6 +122,33 @@ __global__ void halo_rows_kernel(const float* __restrict__ audio, int n, int hal
   }
 }
 
+// halo_rows_kernel at a hop that is not a multiple of 8 (the 16-byte frame
+// stride TMA asks for): the signal in rows of hop_pad = hop rounded up to 8
+// samples, the last hop_pad - hop of each row zero, as the TPU kernel pads
+// its hop rows (mel.py:436-438).  hops[b][j], j = r*hop_pad + i, is bf16(the
+// padded signal's sample r*hop + i) for i < hop, else 0; eight samples a
+// thread, in one row (hop_pad % 8 == 0), one 16-byte store.
+__global__ void halo_rows_padded_kernel(const float* __restrict__ audio, int n, int half, int hop,
+                                        int hop_pad, int clip_stride, bf16* __restrict__ hops) {
+  const float* x = audio + (long long)blockIdx.y * n;
+  bf16* h = hops + (long long)blockIdx.y * clip_stride;
+  for (int j = 8 * (blockIdx.x * blockDim.x + threadIdx.x); j < clip_stride;
+       j += 8 * gridDim.x * blockDim.x) {
+    const int r = j / hop_pad, i0 = j - r * hop_pad;
+    float v[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int s = r * hop + i0 + e - half;
+      v[e] = i0 + e >= hop ? 0.f
+             : s < 0       ? x[-s]
+             : s < n       ? x[s]
+             : s < n + half ? x[2 * n - 2 - s]
+                            : 0.f;
+    }
+    sm90::store8(h + j, v);
+  }
+}
+
 }  // namespace
 
 namespace {
@@ -114,18 +156,26 @@ namespace sm90 {
 
 constexpr int MEL_BN = 128;           // basis columns per N tile: 64 (re, im) pairs
 constexpr int MEL_BINS = MEL_BN / 2;  // power bins per N tile
-constexpr int MEL_N = 64;             // mel bins (CLAP and VGGish)
+constexpr int MEL_N = 64;             // mel bins of a group (CLAP and VGGish: one)
 constexpr int LDP = MEL_BINS + 4;     // power staging pitch: conflict-free rows
 
 // What the fused epilogue reads and writes.
 struct MelEpi {
   int n_frames, n_tiles;    // output rows per map batch (a clip; v1: all); N tiles
-  const float* fb;          // (n_keep, MEL_N) f32
+  const float* fb;          // (n_keep, MEL_N) f32: a group's filterbank rows
   const float* sc;          // per-bin affine, or null
   const float* of;
   int log_mode;
   float log_offset;
   void* out;                // (B, n_frames, MEL_N)
+};
+
+// The column block of one launch of log_mel_cols_kernel (any mel count):
+// G groups of 64 mels, whose filterbank rows lie group_floats apart (n_keep
+// rows of 64 each); out rows ldo elements apart (the call's n_mels), of
+// which the block writes its first n_valid columns.
+struct MelCols {
+  int ldo, n_valid, group_floats;
 };
 
 struct MelSmem {
@@ -160,17 +210,23 @@ __device__ __forceinline__ void store4(bf16* dst, const float* v) {
   *reinterpret_cast<uint2*>(dst) = u;
 }
 
+__device__ __forceinline__ void store1(float* dst, float v) { *dst = v; }
+__device__ __forceinline__ void store1(bf16* dst, float v) { *dst = __float2bfloat16_rn(v); }
+
 // One block per SM, persistent over (map batch, 128-row frame tile) tiles; the
 // ring as gemm_sm90_kernel's (one TMA producer thread, two consumer
 // warpgroups of 64 rows each), every tile sweeping the p.n_tiles N tiles
 // of the basis.  Consumer thread tid owns mel rows rq + 16 i (i < 4) of its
-// warpgroup's 64 and mels 4 mg + 32 h + e (h < 2, e < 4), rq = tid / 8,
-// mg = tid % 8.
-template <typename OutT>
-__global__ void __launch_bounds__(THREADS, 1)
-    log_mel_sm90_kernel(const __grid_constant__ CUtensorMap tma_a,
-                        const __grid_constant__ CUtensorMap tma_b, const MelEpi p, int K,
-                        int batch) {
+// warpgroup's 64 and mels 4 mg + 32 h + e (h < 2, e < 4) of each of the G
+// groups of 64 mels it holds, rq = tid / 8, mg = tid % 8.  Group g's
+// filterbank rows of an N tile come into F after group g - 1's are summed
+// (the first while the products run), so shared memory holds one group's
+// whatever G.  COLS: the column block of `cols` (any mel count), written a
+// value at a time; else the 64 mels of one group, rows of 64.
+template <typename OutT, int G, bool COLS>
+__device__ __forceinline__ void log_mel_tiles(const CUtensorMap* tma_a, const CUtensorMap* tma_b,
+                                              const MelEpi& p, int K, int batch,
+                                              const MelCols& cols) {
   using S = Smem<MEL_BN>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t s0 = smem_u32(smem_raw);
@@ -200,7 +256,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     if (tid != 0) return;
     for (int t = blockIdx.x; t < tiles; t += gridDim.x)
       for (int nt = 0; nt < p.n_tiles; ++nt)
-        produce_tile<MEL_BN>(RowsA{1}, &tma_a, &tma_b, sA, sB, full, empty, ksteps,
+        produce_tile<MEL_BN>(RowsA{1}, tma_a, tma_b, sA, sB, full, empty, ksteps,
                              t % m_tiles, nt, t / m_tiles, 0, stage, phase);
     return;
   }
@@ -213,13 +269,15 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int warp = tid / 32, lane = tid % 32, rq = tid / 8, mg = tid % 8;
   for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
     const int mt = t % m_tiles, z = t / m_tiles;
-    float mel[4][8];
+    float mel[G][4][8];
     for (int nt = 0; nt < p.n_tiles; ++nt) {
       if (nt == 0) {
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int g = 0; g < G; ++g)
 #pragma unroll
-          for (int m = 0; m < 8; ++m) mel[i][m] = 0.f;
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int m = 0; m < 8; ++m) mel[g][i][m] = 0.f;
       }
       named_sync(1 + wg, 128);  // the last mel step has read P and F
       // this N tile's 64 filterbank rows -> F, while the products run
@@ -238,28 +296,41 @@ __global__ void __launch_bounds__(THREADS, 1)
         }
       asm volatile("cp.async.wait_group 0;\n" ::: "memory");
       named_sync(1 + wg, 128);
-      // mel += powers @ filterbank rows, bins in ascending order
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        if (g > 0) {  // group g's rows of this N tile -> F, once group g - 1 is summed
+          named_sync(1 + wg, 128);
+          const float* fbg = fb + (long long)g * cols.group_floats;
+          for (int i = tid; i < MelSmem::F_FLOATS / 4; i += 128)
+            cp_async16(F + 4 * i, fbg + 4 * i);
+          asm volatile("cp.async.commit_group;\n" ::: "memory");
+          asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+          named_sync(1 + wg, 128);
+        }
+        // mel += powers @ filterbank rows, bins in ascending order
 #pragma unroll 4
-      for (int f = 0; f < MEL_BINS; f += 4) {
-        float4 pr[4];
+        for (int f = 0; f < MEL_BINS; f += 4) {
+          float4 pr[4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
-          pr[i] = *reinterpret_cast<const float4*>(&P[(rq + 16 * i) * LDP + f]);
+          for (int i = 0; i < 4; ++i)
+            pr[i] = *reinterpret_cast<const float4*>(&P[(rq + 16 * i) * LDP + f]);
 #pragma unroll
-        for (int ff = 0; ff < 4; ++ff) {
-          const float4 w0 = *reinterpret_cast<const float4*>(&F[(f + ff) * MEL_N + 4 * mg]);
-          const float4 w1 = *reinterpret_cast<const float4*>(&F[(f + ff) * MEL_N + 32 + 4 * mg]);
+          for (int ff = 0; ff < 4; ++ff) {
+            const float4 w0 = *reinterpret_cast<const float4*>(&F[(f + ff) * MEL_N + 4 * mg]);
+            const float4 w1 =
+                *reinterpret_cast<const float4*>(&F[(f + ff) * MEL_N + 32 + 4 * mg]);
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const float pw = reinterpret_cast<const float*>(&pr[i])[ff];
-            mel[i][0] = fmaf(pw, w0.x, mel[i][0]);
-            mel[i][1] = fmaf(pw, w0.y, mel[i][1]);
-            mel[i][2] = fmaf(pw, w0.z, mel[i][2]);
-            mel[i][3] = fmaf(pw, w0.w, mel[i][3]);
-            mel[i][4] = fmaf(pw, w1.x, mel[i][4]);
-            mel[i][5] = fmaf(pw, w1.y, mel[i][5]);
-            mel[i][6] = fmaf(pw, w1.z, mel[i][6]);
-            mel[i][7] = fmaf(pw, w1.w, mel[i][7]);
+            for (int i = 0; i < 4; ++i) {
+              const float pw = reinterpret_cast<const float*>(&pr[i])[ff];
+              mel[g][i][0] = fmaf(pw, w0.x, mel[g][i][0]);
+              mel[g][i][1] = fmaf(pw, w0.y, mel[g][i][1]);
+              mel[g][i][2] = fmaf(pw, w0.z, mel[g][i][2]);
+              mel[g][i][3] = fmaf(pw, w0.w, mel[g][i][3]);
+              mel[g][i][4] = fmaf(pw, w1.x, mel[g][i][4]);
+              mel[g][i][5] = fmaf(pw, w1.y, mel[g][i][5]);
+              mel[g][i][6] = fmaf(pw, w1.z, mel[g][i][6]);
+              mel[g][i][7] = fmaf(pw, w1.w, mel[g][i][7]);
+            }
           }
         }
       }
@@ -269,50 +340,112 @@ __global__ void __launch_bounds__(THREADS, 1)
     for (int i = 0; i < 4; ++i) {
       const int r = mt * BM + wg * 64 + rq + 16 * i;
       if (r >= p.n_frames) continue;
-      OutT* o = static_cast<OutT*>(p.out) + ((long long)z * p.n_frames + r) * MEL_N;
+      if constexpr (!COLS) {
+        OutT* o = static_cast<OutT*>(p.out) + ((long long)z * p.n_frames + r) * MEL_N;
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        float v[4];
+        for (int h = 0; h < 2; ++h) {
+          float v[4];
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int m = 32 * h + 4 * mg + e;
-          v[e] = mel[i][4 * h + e];
-          v[e] = log_of(v[e], p.log_mode, p.log_offset);
-          if (p.sc != nullptr) v[e] = v[e] * p.sc[m] + p.of[m];
+          for (int e = 0; e < 4; ++e) {
+            const int m = 32 * h + 4 * mg + e;
+            v[e] = mel[0][i][4 * h + e];
+            v[e] = log_of(v[e], p.log_mode, p.log_offset);
+            if (p.sc != nullptr) v[e] = v[e] * p.sc[m] + p.of[m];
+          }
+          store4(o + 32 * h + 4 * mg, v);
         }
-        store4(o + 32 * h + 4 * mg, v);
+      } else {  // the block's valid columns, rows ldo apart
+        OutT* o = static_cast<OutT*>(p.out) + ((long long)z * p.n_frames + r) * cols.ldo;
+#pragma unroll
+        for (int g = 0; g < G; ++g)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int m = MEL_N * g + 32 * h + 4 * mg + e;
+              if (m >= cols.n_valid) continue;
+              float v = log_of(mel[g][i][4 * h + e], p.log_mode, p.log_offset);
+              if (p.sc != nullptr) v = v * p.sc[m] + p.of[m];
+              store1(o + m, v);
+            }
       }
     }
   }
 }
 
+// 64 mels (CLAP, VGGish): one group, rows of 64, 16-byte stores.
 template <typename OutT>
-int launch_log_mel(const CUtensorMap& ta, const CUtensorMap& tb, const MelEpi& p, int K,
-                   int batch, cudaStream_t stream) {
+__global__ void __launch_bounds__(THREADS, 1)
+    log_mel_sm90_kernel(const __grid_constant__ CUtensorMap tma_a,
+                        const __grid_constant__ CUtensorMap tma_b, const MelEpi p, int K,
+                        int batch) {
+  log_mel_tiles<OutT, 1, false>(&tma_a, &tma_b, p, K, batch, MelCols{});
+}
+
+// Any other mel count: the column block `cols` of G groups (1 or 2: two
+// hold 64 mel sums a thread beside the 64 accumulators).
+template <typename OutT, int G>
+__global__ void __launch_bounds__(THREADS, 1)
+    log_mel_cols_kernel(const __grid_constant__ CUtensorMap tma_a,
+                        const __grid_constant__ CUtensorMap tma_b, const MelEpi p, int K,
+                        int batch, const MelCols cols) {
+  log_mel_tiles<OutT, G, true>(&tma_a, &tma_b, p, K, batch, cols);
+}
+
+// Launch one of the log-mel kernels (KERNEL, an instantiation) one block
+// per SM over the (map batch, 128-row tile) tiles, its shared-memory size
+// set once per card.
+template <auto KERNEL, typename... Args>
+int launch_mel(const MelEpi& p, int batch, cudaStream_t stream, Args... args) {
   const int dev = current_card();
   if (dev >= MAX_CARDS) return cudaErrorInvalidDevice;
   static std::atomic<bool> attr[MAX_CARDS];  // per instantiation and card
   int e;
   if (!attr[dev].load(std::memory_order_acquire)) {
-    if ((e = cudaFuncSetAttribute(log_mel_sm90_kernel<OutT>,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+    if ((e = cudaFuncSetAttribute(KERNEL, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   MelSmem::BYTES)) != cudaSuccess)
       return e;
     attr[dev].store(true, std::memory_order_release);
   }
   const int tiles = batch * ((p.n_frames + BM - 1) / BM), sms = sm_count(dev);
-  log_mel_sm90_kernel<OutT><<<tiles < sms ? tiles : sms, THREADS, MelSmem::BYTES, stream>>>(
-      ta, tb, p, K, batch);
+  KERNEL<<<tiles < sms ? tiles : sms, THREADS, MelSmem::BYTES, stream>>>(args...);
   return cudaGetLastError();
+}
+
+// Any mel count but 64: column blocks of two groups of 64 mels (the last
+// block one group where one is left), one launch each, every launch
+// recomputing the DFT.  fb holds the groups' filterbank rows one after
+// another (n_keep rows of 64 each, zero columns past n_mels); sc and of, if
+// given, are padded with zeros to whole groups.
+template <typename OutT>
+int launch_mel_blocks(const CUtensorMap& ta, const CUtensorMap& tb, MelEpi p, int K, int batch,
+                      int n_keep, int n_mels, cudaStream_t stream) {
+  const float *fb = p.fb, *sc = p.sc, *of = p.of;
+  OutT* out = static_cast<OutT*>(p.out);
+  for (int m0 = 0; m0 < n_mels; m0 += 2 * MEL_N) {
+    const int left = n_mels - m0;
+    const MelCols cols = {n_mels, left < 2 * MEL_N ? left : 2 * MEL_N, n_keep * MEL_N};
+    p.fb = fb + (long long)m0 * n_keep;
+    p.sc = sc == nullptr ? nullptr : sc + m0;
+    p.of = of == nullptr ? nullptr : of + m0;
+    p.out = out + m0;
+    const int e = left > MEL_N ? launch_mel<log_mel_cols_kernel<OutT, 2>>(p, batch, stream, ta,
+                                                                            tb, p, K, batch, cols)
+                               : launch_mel<log_mel_cols_kernel<OutT, 1>>(p, batch, stream, ta,
+                                                                            tb, p, K, batch, cols);
+    if (e != cudaSuccess) return e;
+  }
+  return cudaSuccess;
 }
 
 // The DFT, power, mel and log of log_mel_sm90_kernel over bf16 frame rows
 // at `a`, read through the 3-D map {k_pad, rows, batch} of row and batch
 // strides `row_stride`, `batch_stride` (elements) and box {box_k, box_rows,
-// box_b}; B: basis_t (2*n_keep, k_pad).  Output row z*rows + r.
+// box_b}; B: basis_t (2*n_keep, k_pad).  Output row z*rows + r, n_mels
+// columns.
 int dft_log_mel(const bf16* a, int k_pad, int rows, int batch, int row_stride, int batch_stride,
                 int box_k, int box_rows, int box_b, const bf16* basis_t, int n_keep,
-                const float* fb, const float* sc, const float* of, int log_mode,
+                const float* fb, const float* sc, const float* of, int n_mels, int log_mode,
                 float log_offset, int out_bf16, void* out, cudaStream_t stream) {
   CUtensorMap ta, tb;
   const cuuint64_t dims[3] = {(cuuint64_t)k_pad, (cuuint64_t)rows, (cuuint64_t)batch};
@@ -323,8 +456,12 @@ int dft_log_mel(const bf16* a, int k_pad, int rows, int batch, int row_stride, i
     return e;
   if ((e = encode(&tb, rows_of(basis_t, 2 * n_keep, k_pad, k_pad), MEL_BN)) != 0) return e;
   const MelEpi p = {rows, 2 * n_keep / MEL_BN, fb, sc, of, log_mode, log_offset, out};
-  return out_bf16 ? launch_log_mel<bf16>(ta, tb, p, k_pad, batch, stream)
-                  : launch_log_mel<float>(ta, tb, p, k_pad, batch, stream);
+  if (n_mels != MEL_N)
+    return out_bf16 ? launch_mel_blocks<bf16>(ta, tb, p, k_pad, batch, n_keep, n_mels, stream)
+                    : launch_mel_blocks<float>(ta, tb, p, k_pad, batch, n_keep, n_mels, stream);
+  return out_bf16
+             ? launch_mel<log_mel_sm90_kernel<bf16>>(p, batch, stream, ta, tb, p, k_pad, batch)
+             : launch_mel<log_mel_sm90_kernel<float>>(p, batch, stream, ta, tb, p, k_pad, batch);
 }
 
 }  // namespace sm90
@@ -332,27 +469,38 @@ int dft_log_mel(const bf16* a, int k_pad, int rows, int batch, int row_stride, i
 
 // audio: (B, n) f32 clips.  Scratch: hops (B, clip_stride) bf16.  The A
 // map: dims {k_pad, n_frames, B}, strides {hop, clip_stride} (elements),
-// box {64, 128, 1}, the wrapper's table (ops/mel.py halo_dft_map).
-// basis_t: (2*n_keep, k_pad) bf16, cos/sin rows interleaved, zero columns
-// past the frame length.  fb: (n_keep, 64) f32.  sc/of: (64) f32 or null.
-// out: (B, n_frames, 64), bf16 when out_bf16 else f32.
+// box {64, 128, 1}, the wrapper's table (ops/mel.py halo_dft_map); here
+// `hop` is the row stride, hop_length rounded up to a multiple of 8, and
+// hop_length the frames' hop: where they differ, each hop row holds
+// hop_length samples and hop - hop_length zeros (halo_rows_padded_kernel),
+// against zero basis columns.  basis_t: (2*n_keep, k_pad) bf16, cos/sin rows
+// interleaved, zero columns where no frame sample lies.  fb: (ceil(n_mels /
+// 64) * n_keep, 64) f32, a group of 64 mels after another.  sc/of: 64 *
+// ceil(n_mels / 64) f32 or null.  out: (B, n_frames, n_mels), bf16 when
+// out_bf16 else f32.
 extern "C" int am_log_mel(const float* audio, int n, int half, bf16* hops, int k_pad,
                           int n_frames, int batch, int hop, int clip_stride, int box_k,
                           int box_rows, int box_b, const bf16* basis_t, int n_keep,
                           const float* fb, const float* sc, const float* of, int n_mels,
                           int log_mode, float log_offset, int out_bf16, void* out,
-                          cudaStream_t stream) {
+                          int hop_length, cudaStream_t stream) {
   using namespace sm90;
-  if (box_k != sm90::BK || box_rows != sm90::BM || box_b != 1 || n_mels != MEL_N ||
-      n_keep % MEL_BINS || k_pad % sm90::BK || clip_stride % 8)
+  if (box_k != sm90::BK || box_rows != sm90::BM || box_b != 1 || n_mels < 1 ||
+      n_keep % MEL_BINS || k_pad % sm90::BK || clip_stride % 8 || hop % 8 || hop_length > hop ||
+      hop_length <= hop - 8)
     return (int)cudaErrorInvalidValue;
   const int per_clip = (clip_stride / 8 + 255) / 256;
-  halo_rows_kernel<<<dim3(per_clip < 1024 ? per_clip : 1024, batch), 256, 0, stream>>>(
-      audio, n, half, clip_stride, hops);
+  const dim3 grid(per_clip < 1024 ? per_clip : 1024, batch);
+  if (hop_length == hop)
+    halo_rows_kernel<<<grid, 256, 0, stream>>>(audio, n, half, clip_stride, hops);
+  else
+    halo_rows_padded_kernel<<<grid, 256, 0, stream>>>(audio, n, half, hop_length, hop,
+                                                       clip_stride, hops);
   const int e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   return dft_log_mel(hops, k_pad, n_frames, batch, hop, clip_stride, box_k, box_rows, box_b,
-                     basis_t, n_keep, fb, sc, of, log_mode, log_offset, out_bf16, out, stream);
+                     basis_t, n_keep, fb, sc, of, n_mels, log_mode, log_offset, out_bf16, out,
+                     stream);
 }
 
 // audio: (B, n) f32 clips, framed by frame_rows_kernel into the scratch
@@ -360,7 +508,7 @@ extern "C" int am_log_mel(const float* audio, int n, int half, bf16* hops, int k
 // frame_length samples at hop (any hop), reflect-padded by half.  The A
 // map: dims {k_pad, B*n_frames, 1}, strides {k_pad, B*n_frames*k_pad}
 // (elements), box {64, 128, 1}, the wrapper's table (ops/mel.py
-// v1_dft_map).  basis_t, fb, sc, of, out as am_log_mel.
+// v1_dft_map).  basis_t, fb, sc, of, n_mels, out as am_log_mel.
 extern "C" int am_log_mel_v1(const float* audio, int n, int half, bf16* frames, int k_pad,
                              int rows, int one, int row_stride, int batch_stride, int box_k,
                              int box_rows, int box_b, const bf16* basis_t, int n_keep,
@@ -368,7 +516,7 @@ extern "C" int am_log_mel_v1(const float* audio, int n, int half, bf16* frames, 
                              int log_mode, float log_offset, int out_bf16, void* out, int batch,
                              int n_frames, int hop, int frame_length, cudaStream_t stream) {
   using namespace sm90;
-  if (box_k != sm90::BK || box_rows != sm90::BM || box_b != 1 || n_mels != MEL_N ||
+  if (box_k != sm90::BK || box_rows != sm90::BM || box_b != 1 || n_mels < 1 ||
       n_keep % MEL_BINS || k_pad % sm90::BK || one != 1 || row_stride != k_pad ||
       rows != batch * n_frames || frame_length > k_pad)
     return (int)cudaErrorInvalidValue;
@@ -378,5 +526,6 @@ extern "C" int am_log_mel_v1(const float* audio, int n, int half, bf16* frames, 
   const int e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   return dft_log_mel(frames, k_pad, rows, one, row_stride, batch_stride, box_k, box_rows, box_b,
-                     basis_t, n_keep, fb, sc, of, log_mode, log_offset, out_bf16, out, stream);
+                     basis_t, n_keep, fb, sc, of, n_mels, log_mode, log_offset, out_bf16, out,
+                     stream);
 }

@@ -21,10 +21,12 @@
 // tensor cores' int8 rate), against 2 T C activations in and out.  Both run
 // on gemm_sm90.cuh's wgmma + TMA ring on int8 codes
 // (wgmma.m64nBNk32.s32.s8.s8, 128 codes a stage row), their dequantising
-// epilogues 8 columns a thread (s8_epilogue8).  The TPU kernel held a row
-// tile with its (rows, 4C) hidden tensor in VMEM and quantised it there.  A
-// Hopper block computes one column block of fc1, and the per-row scale sy
-// needs all 4C columns of a row, so this is four launches:
+// epilogues 8 columns a thread (s8_epilogue8); at HTSAT-tiny's C = 96 fc2's
+// N = 96 takes the core's 96-column tile (wgmma.m64n96k32) and fc1's K = 96
+// codes one K step of 128, zero-filled by the tensor maps.  The TPU kernel
+// held a row tile with its (rows, 4C) hidden tensor in VMEM and quantised it
+// there.  A Hopper block computes one column block of fc1, and the per-row
+// scale sy needs all 4C columns of a row, so this is four launches:
 //   1. LN + row quantisation, one warp per row -> qx int8 (M, C), sx (M);
 //   2. fc1 (EPI_S8_GELU); epilogue: dequantise, bias, GELU -> y f32 (M, 4C),
 //      and the row's max |y|: a max over the lanes of a tile row, then one

@@ -379,7 +379,7 @@ extern "C" int am_swin_mlp(const bf16* x, const float* ln_w, const float* ln_b,
 // qkv (B*R*R, 3C), ctx/hbuf (B*R*R, C) (hbuf first holds the window-ordered
 // rows, then the LN2 output), res (B*R*R, C), h1 (B*R*R, 4C).  C a
 // multiple of 64 or 96, C <= 1024, heads 24 or 32 wide (ops/attention.py
-// check_block_f32, _check_geometry).
+// check_block_gemms, _check_geometry).
 extern "C" int am_swin_block_f32(const float* x, const float* wqkv_s, const float* csum,
                                  const float* bq3, const float* wp_s, const float* bp,
                                  const float* bm, int nbm, const float* ln2w, const float* ln2b,

@@ -63,7 +63,6 @@ from .mlp import layer_norm, mlp_operands
 from .tf32 import k_major, k_major_operand
 
 __all__ = [
-    "check_block_f32",
     "check_block_gemms",
     "half_operands",
     "swin_block",
@@ -157,20 +156,17 @@ def _qkv_ln_folded(x, wqkv, bq3, window: int, shift: int, eps: float):
     return (_mm(xw, wqkv) * rs - (rs * mu) * csum + bq3).to(x.dtype)
 
 
-def _check_geometry(name, x, heads, window, bm, whole: bool = False):
+def _check_geometry(name, x, heads, window, bm):
     """8x8 windows of heads the window attention takes (kernels/csrc/
-    window_attn.cuh): 24 or 32 wide for the whole block (``whole``, #1: HTSAT-
-    tiny and HTSAT-base); the attention halves (#8, #10, #11) share its
-    launches but are held at HTSAT-base's 32-wide heads and C % 64 == 0
-    only (ROADMAP.md, "Contracts narrower than the TPU kernels'")."""
+    window_attn.cuh): 24 or 32 wide (HTSAT-tiny and HTSAT-base), for the
+    whole block (#1) and the attention halves (#8, #10, #11) alike, which
+    share its launches."""
     b, r, r2, c = x.shape
-    widths = (24, 32) if whole else (32,)
-    head_ok = heads > 0 and c % heads == 0 and c // heads in widths and (whole or c % 64 == 0)
+    head_ok = heads > 0 and c % heads == 0 and c // heads in (24, 32)
     if r != r2 or r % window or window * window != 64 or not head_ok:
         raise NotImplementedError(
-            f"{name} kernel takes 8x8 windows of {' or '.join(map(str, widths))}-wide heads"
-            f"{'' if whole else ' at C % 64 == 0'}, got R={r} window={window} C={c} "
-            f"heads={heads}"
+            f"{name} kernel takes 8x8 windows of 24- or 32-wide heads, got R={r} "
+            f"window={window} C={c} heads={heads}"
         )
     if bm.shape[1:] != (heads, 64, 64) or bm.shape[0] not in (1, (r // window) ** 2):
         raise ValueError(f"bias/mask table shape {tuple(bm.shape)}")
@@ -209,33 +205,29 @@ def swin_block_operands(wqkv, wp, w1, w2) -> dict:
                 csum=wqkv.float().sum(dim=0))
 
 
-def check_block_gemms(c: int) -> None:
-    """Raise ``NotImplementedError`` unless the whole-block kernel takes a
-    width of ``c``: its LN1 pass holds a row in one warp's registers (C <=
-    1024), and its qkv, proj, fc1 and fc2 products run on the wgmma core
-    (``kernels.check_sm90_gemm``: C a multiple of 64, or of 96 as
-    HTSAT-tiny's C = 96, 192, 384, 768)."""
-    if c > 1024:
-        raise NotImplementedError(f"swin_block: the LN1 pass takes C <= 1024, got C={c}")
-    for n, k in ((3 * c, c), (c, c), (4 * c, c), (c, 4 * c)):
-        check_sm90_gemm("swin_block", n, k, k)
+BLOCK_PRODUCTS = ("wqkv_t", "wp_t", "w1_t", "w2_t")  # the whole block's products
+HALF_PRODUCTS = BLOCK_PRODUCTS[:2]  # an attention half's: qkv and proj
 
 
-def _check_window_pass(name: str, c: int) -> None:
-    """The LN1 window pass holds a row in one warp's registers."""
+def _product_shapes(c: int) -> dict:
+    """(N, K) of each product of a block of width ``c``."""
+    return dict(wqkv_t=(3 * c, c), wp_t=(c, c), w1_t=(4 * c, c), w2_t=(c, 4 * c))
+
+
+def check_block_gemms(name: str, c: int, dtype, products=BLOCK_PRODUCTS) -> None:
+    """Raise ``NotImplementedError`` unless the kernel ``name`` of ``dtype``
+    takes a width of ``c``: its LN1 pass holds a row in one warp's registers
+    (C <= 1024), and its ``products`` (the whole block's four, or an
+    attention half's qkv and proj) run on the wgmma core of its dtype,
+    ``kernels.check_tf32x3_gemm`` in f32, else ``kernels.check_sm90_gemm``
+    (C a multiple of 64, or of 96 as HTSAT-tiny's C = 96, 192, 384, 768)."""
     if c > 1024:
         raise NotImplementedError(f"{name}: the LN1 pass takes C <= 1024, got C={c}")
-
-
-def check_block_f32(c: int) -> None:
-    """Raise ``NotImplementedError`` unless the f32 whole-block kernel
-    takes a width of ``c``: its LN1 pass holds a row in one warp's
-    registers (C <= 1024), and its qkv, proj, fc1 and fc2 products run on
-    the 3xTF32 core (``kernels.check_tf32x3_gemm``: C a multiple of 64, or
-    of 96 as HTSAT-tiny's C = 96, 192, 384, 768)."""
-    _check_window_pass("swin_block f32", c)
-    for n, k in ((3 * c, c), (c, c), (4 * c, c), (c, 4 * c)):
-        check_tf32x3_gemm("swin_block f32", n, k, k)
+    check = check_tf32x3_gemm if dtype == torch.float32 else check_sm90_gemm
+    shapes = _product_shapes(c)
+    for product in products:
+        n, k = shapes[product]
+        check(name, n, k, k)
 
 
 _BLOCK_OPERANDS = "swin_block_operands(wqkv, wp, w1, w2)"
@@ -244,7 +236,7 @@ _BLOCK_OPERANDS = "swin_block_operands(wqkv, wp, w1, w2)"
 def _block_matrices(kernel: str, o, c: int, names, made_by: str, dtype) -> list:
     """The matrices ``names`` of ``o`` in the :func:`ops.tf32.k_major` form of
     ``dtype``, each checked by :func:`ops.tf32.k_major_operand`."""
-    nk = dict(wqkv_t=(3 * c, c), wp_t=(c, c), w1_t=(4 * c, c), w2_t=(c, 4 * c))
+    nk = _product_shapes(c)
     return [k_major_operand(kernel, o, name, *nk[name], made_by, dtype) for name in names]
 
 
@@ -274,12 +266,12 @@ def _block_scratch(x, dtype):
 def _swin_block_f32_cuda(x, wqkv, bq3, wp, bp, bm, ln2_w, ln2_b, w1, b1, w2, b2, *,
                          heads, window, shift, eps, operands):
     b, r, _, c = x.shape
-    check_block_f32(c)
+    check_block_gemms("swin_block f32", c, torch.float32)
     wqkv_t, wp_t, w1_t, w2_t, csum = _block_operands(
-        "swin_block f32", operands, c, ("wqkv_t", "wp_t", "w1_t", "w2_t"), torch.float32)
+        "swin_block f32", operands, c, BLOCK_PRODUCTS, torch.float32)
     require_cuda(x, wqkv_t, wp_t, w1_t, w2_t, csum, bq3, bp, bm, ln2_w, ln2_b, b1, b2,
                  dtype=torch.float32)
-    _check_geometry("swin_block_f32", x, heads, window, bm, whole=True)
+    _check_geometry("swin_block_f32", x, heads, window, bm)
     scratch = _block_scratch(x, torch.float32)
     KERNEL_F32.launch(
         "am_swin_block_f32", x, wqkv_t, csum, bq3, wp_t, bp, bm, bm.shape[0],
@@ -292,12 +284,12 @@ def _swin_block_f32_cuda(x, wqkv, bq3, wp, bp, bm, ln2_w, ln2_b, w1, b1, w2, b2,
 def _swin_block_cuda(x, wqkv, bq3, wp, bp, bm, ln2_w, ln2_b, w1, b1, w2, b2, *,
                      heads, window, shift, eps, operands):
     b, r, _, c = x.shape
-    check_block_gemms(c)
+    check_block_gemms("swin_block", c, x.dtype)
     wqkv_t, wp_t, w1_t, w2_t, csum = _block_operands(
-        "swin_block", operands, c, ("wqkv_t", "wp_t", "w1_t", "w2_t"), x.dtype)
+        "swin_block", operands, c, BLOCK_PRODUCTS, x.dtype)
     require_cuda(x, wqkv_t, wp_t, w1_t, w2_t)
     require_cuda(csum, bq3, bp, bm, ln2_w, ln2_b, b1, b2, dtype=torch.float32)
-    _check_geometry("swin_block", x, heads, window, bm, whole=True)
+    _check_geometry("swin_block", x, heads, window, bm)
     scratch = _block_scratch(x, x.dtype)
     KERNEL.launch(
         "am_swin_block", x, wqkv_t, csum, bq3, wp_t, bp, bm, bm.shape[0], ln2_w, ln2_b, w1_t, b1,
@@ -348,8 +340,8 @@ def _half_scratch(x, stats: bool):
 
 def _attention_half_v3_f32_cuda(x, bq3, bp, bm, *, heads, window, shift, eps, operands):
     b, r, _, c = x.shape
-    _check_window_pass("swin_attn_v3_f32", c)
-    wqkv_t, wp_t, csum = _block_operands("swin_attn_v3_f32", operands, c, ("wqkv_t", "wp_t"),
+    check_block_gemms("swin_attn_v3_f32", c, torch.float32, HALF_PRODUCTS)
+    wqkv_t, wp_t, csum = _block_operands("swin_attn_v3_f32", operands, c, HALF_PRODUCTS,
                                          torch.float32)
     require_cuda(x, wqkv_t, csum, bq3, wp_t, bp, bm, dtype=torch.float32)
     _check_geometry("swin_attn_v3_f32", x, heads, window, bm)
@@ -362,8 +354,8 @@ def _attention_half_v3_f32_cuda(x, bq3, bp, bm, *, heads, window, shift, eps, op
 
 def _attention_half_v3_cuda(x, bq3, bp, bm, *, heads, window, shift, eps, operands):
     b, r, _, c = x.shape
-    check_block_gemms(c)
-    wqkv_t, wp_t, csum = _block_operands("swin_attn_v3", operands, c, ("wqkv_t", "wp_t"), x.dtype)
+    check_block_gemms("swin_attn_v3", c, x.dtype, HALF_PRODUCTS)
+    wqkv_t, wp_t, csum = _block_operands("swin_attn_v3", operands, c, HALF_PRODUCTS, x.dtype)
     require_cuda(x, wqkv_t, wp_t)
     require_cuda(csum, bq3, bp, bm, dtype=torch.float32)
     _check_geometry("swin_attn_v3", x, heads, window, bm)
@@ -442,8 +434,8 @@ def _attention_ln_affine_cuda(kernel, x, ln_w, ln_b, bq3, bp, bm, *, heads, wind
     form of the (C, 3C) / (C, C) operands."""
     b, r, _, c = x.shape
     _window_8x8(kernel.name, window, x)
-    _check_window_pass(kernel.name, c)
-    wqkv_t, wp_t = _block_matrices(kernel.name, operands, c, ("wqkv_t", "wp_t"), made_by,
+    check_block_gemms(kernel.name, c, x.dtype, HALF_PRODUCTS)
+    wqkv_t, wp_t = _block_matrices(kernel.name, operands, c, HALF_PRODUCTS, made_by,
                                    x.dtype)
     require_cuda(x, wqkv_t, wp_t, dtype=x.dtype)
     require_cuda(ln_w, ln_b, bq3, bp, bm, dtype=torch.float32)

@@ -49,7 +49,7 @@ KERNEL = KERNELS["log_mel"]
 KERNEL_V1 = KERNELS["log_mel_v1"]
 _LOG_MODES = {"db": 0, "natural": 1}
 BM, BK = 128, 64  # the wgmma core's row tile and K step (kernels/csrc/gemm_sm90.cuh)
-N_MELS = 64       # mel bins the halo kernel's epilogue writes (CLAP and VGGish)
+MEL_GROUP = 64    # mel bins of a group of the kernels' epilogue (CLAP and VGGish: one)
 
 
 def _hertz_to_mel(freq, mel_scale: str):
@@ -285,24 +285,39 @@ def log_mel_v1_plain(audio, *, frame_length: int, hop_length: int, n_fft: int, f
 
 @lru_cache(maxsize=16)
 def _kernel_tables(frame_length: int, k_pad: int, n_fft: int, fb_bytes: bytes, n_mels: int,
-                   device: str):
+                   chunk, device: str):
     """The log-mel kernels' tables on ``device``, in the layout in which the
     wgmma core reads them: the bf16 basis transposed, (2*n_keep, k_pad), cos
-    and sin rows interleaved and zero columns from frame_length up to k_pad,
-    and the (n_keep, n_mels) f32 filterbank rows, n_keep padded with zero
-    rows / basis rows to a multiple of 64 (the kernel's N tile of 64
-    bins)."""
+    and sin rows interleaved, and the f32 filterbank rows in groups of 64
+    mels, (groups * n_keep, 64): group g's n_keep rows hold mels 64g to 64g
+    + 63, zero past n_mels; n_keep padded with zero rows / basis rows to a
+    multiple of 64 (the kernel's N tile of 64 bins).  Basis column k holds
+    frame sample k below frame_length, zero from there to k_pad; with
+    ``chunk`` = (hop, hop_pad) (the halo kernel at a hop that is not a
+    multiple of 8) column c*hop_pad + i holds sample c*hop + i for i < hop,
+    zero at the hop row's pad and past frame_length (the TPU kernel's
+    chunked basis, audio_metrics_tpu/ops/mel.py:440-446)."""
     fb = np.frombuffer(fb_bytes, np.float32).reshape(-1, n_mels)
     n_keep = _fb_support_bins(fb)
     n_keep_p = -(-n_keep // 64) * 64
     cos_m, sin_m = _dft_matrices(frame_length, n_fft, "hann")
+    cols = np.arange(k_pad)
+    if chunk is None:
+        t = cols
+    else:
+        hop, hop_pad = chunk
+        c, i = np.divmod(cols, hop_pad)
+        t = np.where(i < hop, c * hop + i, frame_length)
+    cols, t = cols[t < frame_length], t[t < frame_length]
     basis = np.zeros((2 * n_keep_p, k_pad), np.float32)
-    basis[0 : 2 * n_keep : 2, :frame_length] = cos_m[:, :n_keep].T
-    basis[1 : 2 * n_keep : 2, :frame_length] = sin_m[:, :n_keep].T
-    fb_p = np.zeros((n_keep_p, n_mels), np.float32)
-    fb_p[:n_keep] = fb[:n_keep]
+    basis[0 : 2 * n_keep : 2, cols] = cos_m[t, :n_keep].T
+    basis[1 : 2 * n_keep : 2, cols] = sin_m[t, :n_keep].T
+    groups = -(-n_mels // MEL_GROUP)
+    fb_p = np.zeros((n_keep_p, groups * MEL_GROUP), np.float32)
+    fb_p[:n_keep, :n_mels] = fb[:n_keep]
+    fb_p = fb_p.reshape(n_keep_p, groups, MEL_GROUP).transpose(1, 0, 2).reshape(-1, MEL_GROUP)
     return (torch.from_numpy(basis).to(device, torch.bfloat16),
-            torch.from_numpy(fb_p).to(device), n_keep_p)
+            torch.from_numpy(np.ascontiguousarray(fb_p)).to(device), n_keep_p)
 
 
 def _frame_geometry(n: int, frame_length: int, hop_length: int, center: bool):
@@ -324,19 +339,29 @@ def halo_dft_map(b: int, n: int, frame_length: int, hop_length: int, center: boo
     """The 3-D TMA map through which the halo kernel reads its DFT's A, the
     frames, in place from the bf16 hop-row signal (B, clip_stride) that its
     first launch writes: dims (k_pad, n_frames, B) and box innermost first,
-    strides (of dims 1-2) in elements.  Frame r of clip z is samples
-    [r*hop, r*hop + k_pad) of row z of the reflect-padded (``half`` =
-    frame_length // 2 when ``center``) signal, zero past it; k_pad is the
-    frame padded to the 64-element swizzle box, against zero basis columns.
-    ``n_frames``: frames per clip.  The kernel reads these numbers and
-    computes none of them.  Cached: read it, do not change it."""
-    if hop_length % 8:
-        raise NotImplementedError(f"log_mel kernel: the frame stride must be 16 bytes, got hop "
-                                  f"{hop_length} % 8 != 0")
-    half, n_frames, k_pad = _frame_geometry(n, frame_length, hop_length, center)
-    clip_stride = -(-((n_frames - 1) * hop_length + k_pad) // 8) * 8
-    return dict(dims=(k_pad, n_frames, b), strides=(hop_length, clip_stride),
-                box=(BK, BM, 1), half=half, n_frames=n_frames)
+    strides (of dims 1-2) in elements.  The signal lies in rows of
+    ``hop_pad`` samples, the hop rounded up to a multiple of 8 (the 16-byte
+    frame stride TMA asks for): row r holds samples [r*hop, (r+1)*hop) of
+    row z of the reflect-padded (``half`` = frame_length // 2 when
+    ``center``) signal, then hop_pad - hop zeros, as the TPU kernel pads its
+    hop rows (audio_metrics_tpu/ops/mel.py:436-438).  Frame r of clip z is
+    then the span [r*hop_pad, r*hop_pad + k_pad) of the rows, its n_chunks =
+    ceil(frame_length / hop) chunks each a row, against a basis zero at the
+    pads (``chunk`` = (hop, hop_pad), the basis layout of ``_kernel_tables``);
+    k_pad is the span of its frame_length samples, frame_length +
+    (n_chunks - 1)*(hop_pad - hop), padded to the 64-element swizzle box,
+    against zero basis columns.  At a hop that is a multiple of 8 hop_pad =
+    hop: no pads, k_pad the frame padded to 64, ``chunk`` None (the v1
+    kernel's basis).  ``n_frames``: frames per clip.  The kernel reads these
+    numbers and computes none of them.  Cached: read it, do not change it."""
+    half, n_frames, _ = _frame_geometry(n, frame_length, hop_length, center)
+    hop_pad = -(-hop_length // 8) * 8
+    n_chunks = -(-frame_length // hop_length)
+    k_pad = -(-(frame_length + (n_chunks - 1) * (hop_pad - hop_length)) // BK) * BK
+    clip_stride = -(-((n_frames - 1) * hop_pad + k_pad) // 8) * 8
+    return dict(dims=(k_pad, n_frames, b), strides=(hop_pad, clip_stride),
+                box=(BK, BM, 1), half=half, n_frames=n_frames,
+                chunk=None if hop_pad == hop_length else (hop_length, hop_pad))
 
 
 @lru_cache(maxsize=None)
@@ -349,23 +374,26 @@ def v1_dft_map(b: int, n: int, frame_length: int, hop_length: int, center: bool)
     samples [r*hop, r*hop + frame_length) of the reflect-padded (``half``)
     signal, zero past it and from frame_length to k_pad.  The pitch is
     k_pad, not the hop, so any hop is served.  ``n_frames``: frames per
-    clip.  The kernel reads these numbers and computes none of them.
-    Cached: read it, do not change it."""
+    clip; ``chunk`` None, the contiguous frame's basis (``_kernel_tables``).
+    The kernel reads these numbers and computes none of them.  Cached: read
+    it, do not change it."""
     half, n_frames, k_pad = _frame_geometry(n, frame_length, hop_length, center)
     rows = b * n_frames
     if rows * k_pad >= 2**31:
         raise ValueError(f"log_mel_v1 kernel: {rows} x {k_pad} frame samples pass 32-bit "
                          "indices; call it on fewer clips")
     return dict(dims=(k_pad, rows, 1), strides=(k_pad, rows * k_pad), box=(BK, BM, 1),
-                half=half, n_frames=n_frames)
+                half=half, n_frames=n_frames, chunk=None)
 
 
 def _log_mel_cuda(kernel, symbol, audio, amap, scratch, framing, *, frame_length, n_fft, fb,
                   log_mode, log_offset, out_affine, out_dtype):
     """Launch one of the log-mel kernels on (B, n) f32 ``audio``: ``amap``
-    its DFT's A map, ``scratch`` the shape of the bf16 rows its first launch
-    writes, ``framing`` the arguments that follow the output in its C
-    entry."""
+    its DFT's A map and basis layout, ``scratch`` the shape of the bf16
+    rows its first launch writes, ``framing`` the arguments that follow the
+    output in its C entry.  Any mel count: the filterbank in groups of 64
+    mels, the affine's scale and offset padded with zeros to whole
+    groups."""
     out_dtype = out_dtype or torch.float32
     b, n = audio.shape
     if audio.dtype != torch.float32:
@@ -374,21 +402,23 @@ def _log_mel_cuda(kernel, symbol, audio, amap, scratch, framing, *, frame_length
     if log_mode not in _LOG_MODES or out_dtype not in (torch.float32, torch.bfloat16):
         raise NotImplementedError(f"{kernel.name} kernel: log_mode {log_mode!r}, out {out_dtype}")
     fb = np.ascontiguousarray(fb, np.float32)
-    if fb.shape[1] != N_MELS:
-        raise NotImplementedError(f"{kernel.name} kernel writes {N_MELS} mel bins, got "
-                                  f"{fb.shape[1]}")
+    n_mels = fb.shape[1]
+    if n_mels < 1:
+        raise NotImplementedError(f"{kernel.name} kernel: a filterbank of no mel bins")
     basis_t, fb_p, n_keep = _kernel_tables(frame_length, amap["dims"][0], n_fft, fb.tobytes(),
-                                           N_MELS, str(audio.device))
+                                           n_mels, amap["chunk"], str(audio.device))
     sc = of = None
     if out_affine is not None:
-        sc, of = (t.to(audio.device, torch.float32).contiguous() for t in out_affine)
+        pad = (0, -(-n_mels // MEL_GROUP) * MEL_GROUP - n_mels)
+        sc, of = (F.pad(t.to(audio.device, torch.float32).reshape(-1), pad).contiguous()
+                  for t in out_affine)
         require_cuda(sc, of, dtype=torch.float32)
     audio = audio.contiguous()
     require_cuda(audio, fb_p, dtype=torch.float32)
     rows = torch.empty(scratch, dtype=torch.bfloat16, device=audio.device)
-    out = torch.empty((b, amap["n_frames"], N_MELS), dtype=out_dtype, device=audio.device)
+    out = torch.empty((b, amap["n_frames"], n_mels), dtype=out_dtype, device=audio.device)
     kernel.launch(symbol, audio, n, amap["half"], rows, *amap["dims"], *amap["strides"],
-                  *amap["box"], basis_t, n_keep, fb_p, sc, of, N_MELS, _LOG_MODES[log_mode],
+                  *amap["box"], basis_t, n_keep, fb_p, sc, of, n_mels, _LOG_MODES[log_mode],
                   float(log_offset), int(out_dtype == torch.bfloat16), out, *framing)
     kernel.count()
     return out
@@ -397,8 +427,8 @@ def _log_mel_cuda(kernel, symbol, audio, amap, scratch, framing, *, frame_length
 def _log_mel_halo_cuda(audio, *, frame_length, hop_length, n_fft, fb, center, **kw):
     b, n = audio.shape
     amap = halo_dft_map(b, n, frame_length, hop_length, center)
-    return _log_mel_cuda(KERNEL, "am_log_mel", audio, amap, (b, amap["strides"][1]), (),
-                         frame_length=frame_length, n_fft=n_fft, fb=fb, **kw)
+    return _log_mel_cuda(KERNEL, "am_log_mel", audio, amap, (b, amap["strides"][1]),
+                         (hop_length,), frame_length=frame_length, n_fft=n_fft, fb=fb, **kw)
 
 
 def log_mel_halo(audio, *, frame_length: int, hop_length: int, n_fft: int, fb: np.ndarray,

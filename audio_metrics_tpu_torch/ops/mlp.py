@@ -41,7 +41,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..kernels import KERNELS, check_s8_gemm, require_cuda
+from ..kernels import KERNELS, check_s8_gemm, check_sm90_gemm, check_tf32x3_gemm, require_cuda
 from .tf32 import k_major, k_major_operand
 
 __all__ = [
@@ -102,13 +102,19 @@ def mlp_operands(w1, w2) -> dict:
     return dict(w1_t=k_major(w1), w2_t=k_major(w2))
 
 
-def _mlp_shape(name, x, w1_shape, w2_shape):
+def _mlp_shape(name, x, w1_shape, w2_shape, check_gemm):
+    """(rows, C) of an MLP kernel's call: a 4C hidden width, and fc1 (N =
+    4C over K = C) and fc2 (N = C over K = 4C) products that ``check_gemm``,
+    the check of the kernel's core, takes (C a multiple of 64, or of 96 as
+    HTSAT-tiny's C = 96, 192, 384, 768)."""
     c = x.shape[-1]
-    if c % 64 or w1_shape != (c, 4 * c) or w2_shape != (4 * c, c):
+    if w1_shape != (c, 4 * c) or w2_shape != (4 * c, c):
         raise NotImplementedError(
-            f"{name} kernel takes C % 64 == 0 and a 4C hidden width, got x "
-            f"{tuple(x.shape)} w1 {tuple(w1_shape)} w2 {tuple(w2_shape)}"
+            f"{name} kernel takes a 4C hidden width, got x {tuple(x.shape)} w1 "
+            f"{tuple(w1_shape)} w2 {tuple(w2_shape)}"
         )
+    check_gemm(f"{name} fc1", 4 * c, c, c)
+    check_gemm(f"{name} fc2", c, 4 * c, 4 * c)
     return x.numel() // c, c
 
 
@@ -120,7 +126,7 @@ def _mlp_matrices(kernel, operands, c, dtype):
 
 
 def _mlp_block_f32_cuda(x, ln_w, ln_b, w1, b1, w2, b2, *, eps, operands):
-    m, c = _mlp_shape("swin_mlp_f32", x, w1.shape, w2.shape)
+    m, c = _mlp_shape("swin_mlp_f32", x, w1.shape, w2.shape, check_tf32x3_gemm)
     w1_t, w2_t = _mlp_matrices("swin_mlp_f32", operands, c, torch.float32)
     require_cuda(x, ln_w, ln_b, w1_t, b1, w2_t, b2, dtype=torch.float32)
     hbuf = torch.empty((m, c), dtype=torch.float32, device=x.device)
@@ -133,7 +139,7 @@ def _mlp_block_f32_cuda(x, ln_w, ln_b, w1, b1, w2, b2, *, eps, operands):
 
 
 def _mlp_block_cuda(x, ln_w, ln_b, w1, b1, w2, b2, *, eps, operands):
-    m, c = _mlp_shape("swin_mlp", x, w1.shape, w2.shape)
+    m, c = _mlp_shape("swin_mlp", x, w1.shape, w2.shape, check_sm90_gemm)
     w1_t, w2_t = _mlp_matrices("swin_mlp", operands, c, x.dtype)
     require_cuda(x, w1_t, w2_t)
     require_cuda(ln_w, ln_b, b1, b2, dtype=torch.float32)
@@ -225,20 +231,11 @@ def _int8_matrices(kernel, operands, x):
     return [operands[name] for name in want]
 
 
-def check_int8_gemms(kernel: str, c: int) -> None:
-    """Raise ``NotImplementedError`` unless the int8 wgmma core takes the
-    MLP's two products at width ``c`` (``kernels.check_s8_gemm``): fc1, N =
-    4C over K = C, and fc2, N = C over K = 4C."""
-    check_s8_gemm(f"{kernel} fc1", 4 * c, c, c)
-    check_s8_gemm(f"{kernel} fc2", c, 4 * c, 4 * c)
-
-
 def _mlp_block_int8_cuda(x, ln_w, ln_b, w1, b1, w2, b2, *, eps, operands):
     f32 = x.dtype == torch.float32
     kernel = KERNEL_INT8_F32 if f32 else KERNEL_INT8
     require_cuda(x, dtype=torch.float32 if f32 else torch.bfloat16)
-    m, c = _mlp_shape(kernel.name, x, w1.shape, w2.shape)
-    check_int8_gemms(kernel.name, c)
+    m, c = _mlp_shape(kernel.name, x, w1.shape, w2.shape, check_s8_gemm)
     q1t, s1, q2t, s2 = _int8_matrices(
         kernel.name, mlp_int8_operands(w1, w2) if operands is None else operands, x)
     require_cuda(ln_w, ln_b, w1, b1, w2, b2, s1, s2, dtype=torch.float32)

@@ -34,16 +34,17 @@ CSRC = "audio_metrics_tpu_torch/kernels/csrc"
 
 # name: (file, text, replacement, what it breaks)
 FAULTS = {
-    "L1": ("audio_metrics_tpu_torch/ops/mel.py",
-           "strides=(hop_length, clip_stride)", "strides=(hop_length + 8, clip_stride)",
-           "the halo log-mel's frame map strides hop + 8 samples"),
+    "L1": (f"{CSRC}/log_mel.cu", "const int s = r * hop + i0 + e - half;",
+           "const int s = r * hop_pad + i0 + e - half;",
+           "the halo log-mel's padded hop rows (a hop not a multiple of 8) step hop_pad "
+           "samples a row, not hop"),
     "L2": (f"{CSRC}/log_mel.cu", "if (nt == 0) {", "if (nt >= 0) {",
            "the halo log-mel's mel accumulator is reset at every N tile"),
     "L3": (f"{CSRC}/log_mel.cu",
-           "          v[e] = log_of(v[e], p.log_mode, p.log_offset);\n"
-           "          if (p.sc != nullptr) v[e] = v[e] * p.sc[m] + p.of[m];\n",
-           "          if (p.sc != nullptr) v[e] = v[e] * p.sc[m] + p.of[m];\n"
-           "          v[e] = log_of(v[e], p.log_mode, p.log_offset);\n",
+           "            v[e] = log_of(v[e], p.log_mode, p.log_offset);\n"
+           "            if (p.sc != nullptr) v[e] = v[e] * p.sc[m] + p.of[m];\n",
+           "            if (p.sc != nullptr) v[e] = v[e] * p.sc[m] + p.of[m];\n"
+           "            v[e] = log_of(v[e], p.log_mode, p.log_offset);\n",
            "the halo log-mel applies the affine before the log"),
     "L4": (f"{CSRC}/log_mel.cu", "const int s = r * hop + j + e - half;",
            "const int s = r * (hop + 1) + j + e - half;",

@@ -21,7 +21,7 @@ Phases, one status line each:
      tile), the booleans and counts under the near-tie rule; the two
      log-mels at the CLAP 10 s geometry (BatchNorm affine, bf16 out), on
      CLAP 7 s clips and at the VGGish convention, the v1 kernel also at
-     CLAP's frame at hop 484 (which the halo kernel refuses), each twice on
+     CLAP's frame at hop 484 (the halo kernel at that hop: phase 20), each twice on
      the same inputs (bitwise equal), with its DFT's achieved TFLOP/s and
      the time of each of its two launches (torch.profiler), and the v1
      kernel's output against the halo kernel's on the same clips (printed:
@@ -177,6 +177,24 @@ Phases, one status line each:
      ``LaionCLAP(cfg=HTSAT_TINY, ckpt=...)`` through phase 4's run in bf16
      (2048 + 2048 clips; #1 768, #2 192, #3 64, #4 2, #5 1) and phase 10's
      in f32 (256 + 256; #1 f32 96, #2 f32 24), warm clips/s the median of 3.
+ 20. The last narrow contracts (``phase_tiny_split``): (a) at HTSAT-tiny's
+     B = 64 shapes, in bf16 and f32, #8 at every stage shifted and
+     unshifted, #9 at stages 0-2, #10 at stages 0-1, then #11 and #12 on
+     the Swin blocks' inputs of one real tiny forward, each against its
+     plain version under phase 3's bounds, one launch a call, repeated
+     bitwise, ms per forward against the bound and the library yardstick;
+     (b) phase 19's checkpoint under ``AM_TPU_V4_STAGES=""`` (#8 12, #9 10,
+     #2 3, #3 1 a forward) and ``AM_TPU_ATTN_V1=1`` (#10 4, #9 10), each in
+     bf16 and f32 (the ``_f32`` kernels, no #3), 256 + 256 5 s clips:
+     exact launches, finite metrics, self-FAD, embeddings against the
+     plain path and within CONFIG_TOL of the tiny whole-block
+     configuration on the same clips, warm clips/s the median of 3; (c)
+     the halo and v1 log-mels at 128 and 96 mels and at hop 484 (the halo
+     kernel's hop rows padded to 488) on CLAP's 10 s geometry against
+     their plain versions under phase 3's log-mel bounds, repeated bitwise,
+     timed against the bound.  That no kernel of the parent changed is a
+     separate command: ``python -m audio_metrics_tpu_torch.sass_diff
+     PARENT_CHECKOUT``.
 Phase 3 runs each kernel redesigned for Hopper on the wgmma core (the
 whole Swin block at every stage and shift, its v3, v1 and v2 attention
 halves and fused MLP, the three patch merges, the fused frontend, the two
@@ -393,6 +411,7 @@ TIMING_ITERS = {"patch_merge": 200, "knn_radii": 200, "prdc_stats": 200, "log_me
 # EPI_S8_GELU = 11, and of EPI_S8_OUT = 12 and EPI_S8_OUT_F32 = 13) on int8
 # wgmma (IGMMA) fed by TMA
 SASS_WANT = {"log_mel": ("log_mel_sm90_kernel", ("HGMMA", "UTMALDG")),
+             "log_mel any mel count": ("log_mel_cols_kernel", ("HGMMA", "UTMALDG")),
              "swin_attn_v1 qkv": (r"gemm_sm90_kernelILi\d+ELi9E", ("HGMMA", "UTMALDG")),
              "swin_attn_v1 proj": (r"gemm_sm90_kernelILi\d+ELi8E", ("HGMMA", "UTMALDG")),
              "swin_mlp_int8 fc1": (r"gemm_sm90_kernelILi\d+ELi11E", ("IGMMA", "UTMALDG")),
@@ -495,6 +514,13 @@ def merge_bound(cfg, b, dt="bf16"):
         ms, by, _ = bound({"tf32": 3 * ops}, n_bytes)
         return ms, by, float(ops)
     return bound({dt: ops}, n_bytes)
+
+
+def fb_bins(fb) -> int:
+    """The frequency bins a log-mel needs: up to the last bin with any mel
+    weight (CLAP's 50-14000 Hz at 48 kHz, n_fft 1024: 299), not the
+    kernels' basis padded to whole N tiles."""
+    return int(np.nonzero(np.any(fb != 0.0, axis=1))[0][-1]) + 1
 
 
 def frontend_bound(cfg, b, n):
@@ -1095,8 +1121,8 @@ def phase_log_mel(cfg, params, results):
     # (tolerance key, samples, arguments): the model path's CLAP 10 s window,
     # a CLAP 7 s clip (another frame count, a last row tile of 61 rows; v1:
     # tiles that span clips), VGGish (K 400 padded to 448), and CLAP's frame
-    # at hop 484, whose 968-byte frame stride the halo kernel's map refuses
-    # (16 bytes) and the v1 kernel serves (its rows' pitch is k_pad)
+    # at hop 484, here for the v1 kernel (its rows' pitch is k_pad; the halo
+    # kernel pads its hop rows to 488 samples there: phase 20)
     convs = {
         "clap": ("clap", 10 * SR, clap),
         "clap 7 s": ("clap", 7 * SR, clap),
@@ -1853,6 +1879,12 @@ def phase_f32(card: str, params: dict, switches: dict, per_forward: dict, agains
 def warm_evaluates(am, candidate, n_clips: int, runs: int = 3, unit: str = "clips") -> str:
     """``runs`` warm evaluates, each timed up to ``torch.cuda.synchronize``:
     ``unit``/s median and spread (min..max), as a printable string."""
+    return warm_rate(am, candidate, n_clips, runs, unit)[1]
+
+
+def warm_rate(am, candidate, n_clips: int, runs: int = 3,
+              unit: str = "clips") -> tuple[float, str]:
+    """:func:`warm_evaluates`' median rate and its printable string."""
     rates = []
     for _ in range(runs):
         torch.cuda.synchronize()
@@ -1860,8 +1892,9 @@ def warm_evaluates(am, candidate, n_clips: int, runs: int = 3, unit: str = "clip
         am.evaluate(candidate)
         torch.cuda.synchronize()
         rates.append(n_clips / (time.perf_counter() - t0))
-    return (f"{float(np.median(rates)):.2f} {unit}/s warm, median of {runs} "
-            f"({min(rates):.2f}..{max(rates):.2f})")
+    med = float(np.median(rates))
+    return med, (f"{med:.2f} {unit}/s warm, median of {runs} "
+                 f"({min(rates):.2f}..{max(rates):.2f})")
 
 
 def check_self_fad(am, reference) -> None:
@@ -3283,6 +3316,377 @@ def phase_tiny(card: str) -> None:
     log(f"  phase 19: {time.perf_counter() - t19:.1f} s [{card}]")
 
 
+# phase 20: the last narrow contracts, at HTSAT-tiny's widths and the
+# log-mels at any mel count and hop
+N_CLIPS_TINY_SPLIT = 256  # (b): 256 + 256 5 s clips a configuration
+# (c): the log-mels' forms beyond CLAP's and VGGish's: (label, mel count,
+# hop, kernels) on CLAP's 10 s frame geometry
+MEL_FORMS = (("128 mels", 128, 480, ("log_mel", "log_mel_v1")),
+             ("96 mels", 96, 480, ("log_mel", "log_mel_v1")),
+             ("hop 484", 64, 484, ("log_mel", "log_mel_v1")))
+
+
+def phase_tiny_split_kernels(card: str, cfg, params) -> dict:
+    """Phase 20 (a): the split block's kernels and the opt-in ops at
+    HTSAT-tiny's widths (C = 96·2^i, heads of 24), each in bf16 and f32
+    against its plain version at B = BATCH under phase 3's per-stage bounds
+    (#8 at every stage, shifted and unshifted, #9 at stages 0-2 (stage 3's
+    4096 rows take the XLA MLP), #10 at stages 0-1, the stages of >= 16
+    windows), each call one launch, repeated bitwise; then #11 and #12 on
+    the Swin blocks' inputs of one real tiny forward of BATCH clips, as
+    phase 9 does, under phase 9's bounds.  Per forward: kernel and plain ms
+    (CUDA events) over the blocks the path runs, the bound, the library
+    yardstick (qkv + proj or fc1 + fc2 through ``torch.matmul``; the int8
+    MLP's two products through ``torch._int_mm`` on K-major codes).
+    Returns {kernel: its numbers}."""
+    from audio_metrics_tpu_torch.kernels import KERNELS
+    from audio_metrics_tpu_torch.models.clap import LaionCLAP, init_projection_params
+    from audio_metrics_tpu_torch.models.htsat import SwinBlock
+    from audio_metrics_tpu_torch.ops.attention import (
+        swin_attention_half_v1,
+        swin_attention_half_v1_plain,
+        swin_attention_half_v2,
+        swin_attention_half_v2_plain,
+        swin_attention_half_v3,
+        swin_attention_half_v3_plain,
+    )
+    from audio_metrics_tpu_torch.ops.mlp import (
+        mlp_block,
+        mlp_block_int8,
+        mlp_block_int8_plain,
+        mlp_block_plain,
+        mlp_int8_operands,
+    )
+    from audio_metrics_tpu_torch.utils.precision import full_f32
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(22)
+    names = [n + s for n in ("swin_attn_v3", "swin_mlp", "swin_attn_v1", "swin_attn_v2",
+                             "swin_mlp_int8") for s in ("", "_f32")]
+    times = {k: {"ms": 0.0, "plain_ms": 0.0, "max_abs_err": 0.0} for k in names}
+
+    def check(name, key, kfn, pfn, n, x, stage):
+        rel_tol, max_tol = TOL[name][0][stage], TOL[name][1]
+        before = KERNELS[name].launches
+        got = kfn()
+        if KERNELS[name].launches != before + 1:
+            raise AssertionError(f"{name} {key}: {KERNELS[name].launches - before} launches")
+        with full_f32():
+            want = pfn()
+        mx, rel = compare(name, got, want, want.float() - x.float(), {})
+        ok = mx <= max_tol and rel <= rel_tol
+        log(f"  {name} {key} at B={x.shape[0]}: max_abs_err {mx:.4g} (tol {max_tol}) "
+            f"mean_abs_err / mean |out - x| {rel:.4g} (tol {rel_tol}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{name} {key} disagrees with its plain version")
+        check_repeats(f"{name} {key}", ((x.shape[0], got, kfn),))
+        ms, pms = cuda_ms(kfn), cuda_ms(pfn, iters=3)
+        log(f"    kernel {ms:.4f} ms, plain {pms:.4f} ms, x{n} a forward")
+        t = times[name]
+        t["ms"] += n * ms
+        t["plain_ms"] += n * pms
+        t["max_abs_err"] = max(t["max_abs_err"], mx)
+        return got
+
+    res, mlp_stages = cfg.grid_size, []
+    for stage, depth in enumerate(cfg.depths):
+        c = cfg.embed_dim * 2**stage
+        x = torch.randn((BATCH, res, res, c), generator=gen, device=dev)
+        for dtype, sfx in ((torch.bfloat16, ""), (torch.float32, "_f32")):
+            xd = x.to(dtype)
+            for shift in ((0, cfg.window_size // 2) if res > cfg.window_size else (0,)):
+                prefix = f"audio_encoder.layers.{stage}.blocks.{1 if shift else 0}"
+                n_blocks = depth // 2 if res > cfg.window_size else depth
+                key = (f"stage {stage} R={res} C={c} heads {cfg.num_heads[stage]} x "
+                       f"{c // cfg.num_heads[stage]} shift={shift}")
+                blk = SwinBlock(params, prefix, cfg, res, shift, cfg.num_heads[stage], dtype,
+                                attention="v3").to(dev)
+                geo = dict(heads=blk.heads, window=blk.window, shift=blk.shift, eps=blk.eps)
+                attn, ops = (blk.wqkv, blk.bq3, blk.wp, blk.bp, blk.bm), blk.kernel_operands()
+                check("swin_attn_v3" + sfx, key,
+                      lambda: swin_attention_half_v3(xd, *attn, **geo, operands=ops),
+                      lambda: swin_attention_half_v3_plain(xd, *attn, **geo), n_blocks, xd,
+                      stage)
+                if stage < 2:  # the stages AM_TPU_ATTN_V1 runs #10 at: >= 16 windows
+                    v1 = SwinBlock(params, prefix, cfg, res, shift, cfg.num_heads[stage], dtype,
+                                   attention="v1").to(dev)
+                    a1 = (v1.ln1_w, v1.ln1_b, v1.wq, v1.bq, v1.wk, v1.wv, v1.wp, v1.bp, v1.bm)
+                    ops1 = v1.kernel_operands()
+                    check("swin_attn_v1" + sfx, key,
+                          lambda: swin_attention_half_v1(xd, *a1, **geo, operands=ops1),
+                          lambda: swin_attention_half_v1_plain(xd, *a1, **geo), n_blocks, xd,
+                          stage)
+            if blk.fused_mlp(BATCH):  # stage 3's 4096 rows take the XLA MLP
+                if stage not in mlp_stages:
+                    mlp_stages.append(stage)
+                x3 = xd.view(BATCH, res * res, c)
+                mlp = (blk.ln2_w, blk.ln2_b, blk.w1, blk.b1, blk.w2, blk.b2)
+                check("swin_mlp" + sfx, f"stage {stage} rows B x {res * res} C={c}",
+                      lambda: mlp_block(x3, *mlp, eps=blk.eps, operands=ops),
+                      lambda: mlp_block_plain(x3, *mlp, eps=blk.eps), depth, x3, stage)
+        if stage < len(cfg.depths) - 1:
+            res //= 2
+
+    # #11 and #12 on the blocks' inputs of one real forward, each dtype
+    proj = init_projection_params(cfg, seed=0)
+    audio, _ = clips(BATCH, CLIP_S, seed=3)
+    for dtype, sfx in ((torch.bfloat16, ""), (torch.float32, "_f32")):
+        clap = LaionCLAP(params=dict(params, **proj), cfg=cfg,
+                         compute_dtype=str(dtype).split(".")[-1], device="cuda")
+        blocks = [(i, j, b) for i, st in enumerate(clap.model.encoder.blocks)
+                  for j, b in enumerate(st)]
+        inputs = []
+        hooks = [b.register_forward_pre_hook(lambda _m, args: inputs.append(args[0]))
+                 for _, _, b in blocks]
+        clap.embed(audio)
+        for h in hooks:
+            h.remove()
+        for (i, j, blk), x in zip(blocks, inputs):
+            a2, m8, ops2 = v2_weights(params, f"audio_encoder.layers.{i}.blocks.{j}", blk, dtype)
+            geo = dict(heads=blk.heads, window=blk.window, shift=blk.shift, eps=blk.eps)
+            x4 = x.view(BATCH, blk.resolution, blk.resolution, -1)
+            key = f"block {i}.{j} R={blk.resolution} C={x4.shape[-1]}"
+            a = check("swin_attn_v2" + sfx, key,
+                      lambda: swin_attention_half_v2(x4, *a2, **geo, operands=ops2),
+                      lambda: swin_attention_half_v2_plain(x4, *a2, **geo), 1, x4, i)
+            a3, ops8 = a.view(BATCH, -1, a.shape[-1]), mlp_int8_operands(m8[2], m8[4])
+            check("swin_mlp_int8" + sfx, key,
+                  lambda: mlp_block_int8(a3, *m8, eps=blk.eps, operands=ops8),
+                  lambda: mlp_block_int8_plain(a3, *m8, eps=blk.eps), 1, a3, i)
+        del clap
+
+    paths = {"swin_attn_v3": ("attn", range(len(cfg.depths))), "swin_mlp": ("mlp", mlp_stages),
+             "swin_attn_v1": ("attn", (0, 1)), "swin_attn_v2": ("attn", range(len(cfg.depths)))}
+    for dtype, sfx, dt in ((torch.bfloat16, "", "bf16"), (torch.float32, "_f32", "f32")):
+        _, per_block = products_alone_ms(cfg, BATCH, dtype)
+        for name, (part, stages) in paths.items():
+            t = times[name + sfx]
+            t["library_ms"] = sum(cfg.depths[s] * per_block[s][part] for s in stages)
+            t["bound_ms"], t["bound_by"], t["ops"] = swin_bound(cfg, BATCH, part, tuple(stages),
+                                                                dt)
+        t = times["swin_mlp_int8" + sfx]
+        t["bound_ms"], t["bound_by"], t["ops"] = int8_mlp_bound(cfg, BATCH, dt)
+    # the int8 MLP's yardstick, used nowhere in the port: its two products
+    # through torch._int_mm on random codes of each block's shapes, the
+    # weights K-major as the kernel reads them
+    yard, res = 0.0, cfg.grid_size
+    for stage, depth in enumerate(cfg.depths):
+        c, m = cfg.embed_dim * 2**stage, BATCH * res * res
+        a, w1, h, w2 = (torch.randint(-127, 128, shape, generator=gen, device=dev,
+                                      dtype=torch.int8)
+                        for shape in ((m, c), (4 * c, c), (m, 4 * c), (c, 4 * c)))
+        w1k, w2k = w1.t(), w2.t()
+        yard += depth * cuda_ms(lambda: (torch._int_mm(a, w1k), torch._int_mm(h, w2k)))
+        res //= 2
+    for sfx in ("", "_f32"):
+        times["swin_mlp_int8" + sfx]["library_ms"] = yard
+    for name, t in times.items():
+        log(f"  {name} tiny per forward at B={BATCH}: kernel {t['ms']:.4f} ms "
+            f"({t['ops'] / (t['ms'] * 1e-3) / 1e12:.1f} TFLOP/s), plain {t['plain_ms']:.4f} ms, "
+            f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}), library {t['library_ms']:.4f} ms, "
+            f"max abs err {t['max_abs_err']:.4g} [{card}]")
+    return times
+
+
+def phase_tiny_config(card: str, clap, per_forward: dict, tol_key: str | None, against,
+                      whole_rate: float, reference, candidate):
+    """Phase 20 (b), one configuration: ``clap`` (built by the caller under
+    its switches) in ``AudioMetrics(["fad", "kd", "prdc"])`` over
+    ``reference`` + ``candidate``, batch BATCH: exact launches
+    (``per_forward`` a forward), finite metrics, warm clips/s (median of 3),
+    self-FAD, the reference embeddings against the plain path (bf16: the
+    fused frontend's and the encoder's plain versions, E2E_TOL; f32: the f32
+    plain chain, F32_E2E_TOL) and, under ``tol_key``, against ``against``
+    (the whole-block configuration's on the same clips, CONFIG_TOL).
+    ``whole_rate`` is that configuration's warm clips/s in this run: at
+    256 + 256 clips the fixed cost of an evaluate weighs, so the rate
+    against it, not the rate alone, is the reading.  Returns (launches,
+    reference embeddings)."""
+    from audio_metrics_tpu_torch import AudioMetrics
+
+    metrics = ["fad", "kd", "prdc"]
+    f32 = clap.model.compute_dtype == torch.float32
+    n = reference.shape[0]
+
+    def metrics_for(embedder):
+        return AudioMetrics(metrics=metrics, embedder=embedder, win_dur=float(CLIP_S),
+                            input_sr=SR, batch_size=BATCH, device="cuda")
+
+    am = metrics_for(clap)
+    torch.cuda.empty_cache()
+    set_counts_to_zero()
+    am.add_reference(reference)
+    result = am.evaluate(candidate)
+    launches = read_counts()
+    log(f"  result {result}")
+    check_counts(f"add_reference + first evaluate, {2 * -(-n // BATCH)} forward batches",
+                 launches, expected(2 * -(-n // BATCH), **per_forward))
+    if not all(np.isfinite(v) for v in result.values()):
+        raise AssertionError("non-finite metric")
+    rate, line = warm_rate(am, candidate, n)
+    log(f"  {line}, {rate / whole_rate:.4f}x the whole-block configuration's {whole_rate:.2f} "
+        f"in this run [{card}; real_weights: false]")
+    check_self_fad(am, reference)
+    emb = am.stem_reference.embeddings
+    amp = metrics_for(f32_plain_path(clap) if f32 else plain_path(clap))
+    amp.add_reference(reference)
+    embeddings_close("embeddings kernels vs plain path", emb, amp.stem_reference.embeddings,
+                     F32_E2E_TOL if f32 else (E2E_TOL["1-cos"], E2E_TOL["max_abs"]))
+    if tol_key is not None:
+        embeddings_close("embeddings against the tiny whole-block configuration", emb, against,
+                         CONFIG_TOL[tol_key])
+    return launches, emb
+
+
+def phase_tiny_mel(card: str) -> dict:
+    """Phase 20 (c): #6 and #7 at 128 and 96 mels and at hop 484 (#6's hop
+    rows padded to 488 samples) on CLAP's 10 s geometry (centered, dB, a
+    seeded affine, bf16 out), each against its plain version under
+    LOG_MEL_TOL["clap"] at B = CHECK_B, one launch a call, repeated bitwise
+    at B = CHECK_B and BATCH; ms at B = BATCH against the bound (the DFT of
+    frame_length samples into the ``fb_bins`` bins the filterbank weighs, in
+    bf16, and the mel product over them in f32; the clips in, the log-mel
+    out); #6 against #7 at hop 484, printed (their K grouping
+    differs).  Returns {(kernel, form): its numbers}."""
+    from audio_metrics_tpu_torch.kernels import KERNELS
+    from audio_metrics_tpu_torch.ops.mel import (
+        log_mel_halo,
+        log_mel_halo_plain,
+        log_mel_v1,
+        log_mel_v1_plain,
+        mel_filter_bank,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    fns = {"log_mel": (log_mel_halo, log_mel_halo_plain),
+           "log_mel_v1": (log_mel_v1, log_mel_v1_plain)}
+    n, out = 10 * SR, {}
+    audio = {b: 0.2 * torch.randn((b, n), generator=gen, device="cuda") for b in (CHECK_B, BATCH)}
+    for form, n_mels, hop, kernels in MEL_FORMS:
+        fb = mel_filter_bank(513, n_mels, 50.0, 14000.0, SR, norm="slaney",
+                             mel_scale="slaney").astype(np.float32)
+        affine = (1 + 0.3 * torch.randn(n_mels, generator=gen, device="cuda"),
+                  torch.randn(n_mels, generator=gen, device="cuda"))
+        kw = dict(frame_length=1024, hop_length=hop, n_fft=1024, fb=fb, center=True,
+                  log_mode="db", out_affine=affine, out_dtype=torch.bfloat16)
+        got_of = {}
+        for name in kernels:
+            kfn, pfn = fns[name]
+            before = KERNELS[name].launches
+            got = kfn(audio[CHECK_B], **kw)
+            if KERNELS[name].launches != before + 1:
+                raise AssertionError(f"{name} {form}: {KERNELS[name].launches - before} launches")
+            want = pfn(audio[CHECK_B], **kw)
+            if got.shape != want.shape or got.dtype != want.dtype:
+                raise AssertionError(f"{name} {form}: {got.shape} vs {want.shape}")
+            mx, rel = compare(name, got, want, want, {})
+            rel_tol, max_tol = LOG_MEL_TOL["clap"]
+            ok = mx <= max_tol and rel <= rel_tol
+            log(f"  {name} {form} {tuple(got.shape)}: max_abs_err {mx:.4g} (tol {max_tol}) "
+                f"mean_abs_err / mean |out| {rel:.4g} (tol {rel_tol}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"{name} {form} disagrees with its plain version")
+            again = {b: (lambda b=b: kfn(audio[b], **kw)) for b in (CHECK_B, BATCH)}
+            check_repeats(f"{name} {form}", ((CHECK_B, got, again[CHECK_B]),
+                                             (BATCH, again[BATCH](), again[BATCH])))
+            got_of[name] = again[BATCH]()
+            ms = cuda_ms(again[BATCH], TIMING_ITERS[name], warmup=10)
+            pms = cuda_ms(lambda: pfn(audio[BATCH], **kw), iters=3)
+            frames, n_keep = got.shape[1], fb_bins(fb)
+            b = bound({"bf16": 2 * BATCH * frames * 1024 * 2 * n_keep,
+                       "f32": 2 * BATCH * frames * n_keep * n_mels},
+                      BATCH * n * 4 + BATCH * frames * n_mels * 2)
+            out[(name, form)] = dict(ms=ms, plain_ms=pms, bound_ms=b[0], bound_by=b[1],
+                                     max_abs_err=mx)
+            log(f"    B={BATCH}: kernel {ms:.4f} ms, plain {pms:.4f} ms, bound {b[0]:.4f} ms "
+                f"({b[1]}) [{card}]")
+        if len(got_of) == 2:
+            v1, halo = got_of["log_mel_v1"], got_of["log_mel"]
+            d = (v1.float() - halo.float()).abs()
+            log(f"  log_mel_v1 vs log_mel {form} at B={BATCH}: " + (
+                "bitwise equal" if torch.equal(v1, halo) else
+                f"differ in {int((d > 0).sum())} of {d.numel()} values, max abs "
+                f"{d.max().item():.4g}" + (" (expected: the halo's K runs over padded hop rows)"
+                                           if hop % 8 else " (not a gate: each is held to its "
+                                           "plain version)")))
+    return out
+
+
+def phase_tiny_split(card: str) -> None:
+    """Phase 20: the last narrow contracts.  (a) ``phase_tiny_split_kernels``
+    at HTSAT-tiny's B = 64 shapes with ``check_params``' weights; (b) phase
+    19's 630k-named checkpoint (written again, LAION names) in
+    ``AudioMetrics(["fad", "kd", "prdc"])`` over 256 + 256 5 s clips, batch
+    64, under ``AM_TPU_V4_STAGES=""`` and ``AM_TPU_ATTN_V1=1``, each in
+    bf16 and f32, after the whole-block configuration of each dtype on the
+    same clips (``phase_tiny_config``); (c) ``phase_tiny_mel``."""
+    from audio_metrics_tpu_torch.models.clap import LaionCLAP
+    from audio_metrics_tpu_torch.models.htsat import HTSAT_TINY
+
+    t20 = time.perf_counter()
+    cfg = HTSAT_TINY
+    params = check_params(cfg)
+    log("  (a) the split block's kernels and the opt-in ops at HTSAT-tiny's widths")
+    times = phase_tiny_split_kernels(card, cfg, params)
+    reference, candidate = clips(N_CLIPS_TINY_SPLIT, CLIP_S, seed=11)
+    launches = {}
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        write_clap_checkpoint(params, ckpt_dir, cfg, TINY_CKPT)
+        path = os.path.join(ckpt_dir, TINY_CKPT)
+        for dtype, sfx, frontend in (("bfloat16", "", dict(clap_frontend=1)),
+                                     ("float32", "_f32", {})):
+            with environ(AM_TPU_CKPT_DIR=ckpt_dir):
+                whole = LaionCLAP(ckpt=path, cfg=cfg, compute_dtype=dtype, device="cuda")
+            log(f"  (b) {dtype}: the whole-block configuration on the same clips")
+            against, whole_rate = phase_tiny_whole(card, whole, reference, candidate)
+            del whole
+            for switches, tol_key, per_forward in (
+                    ({"AM_TPU_V4_STAGES": ""}, "split",
+                     {"swin_attn_v3" + sfx: 12, "swin_mlp" + sfx: 10}),
+                    ({"AM_TPU_ATTN_V1": "1"}, "attn_v1",
+                     {"swin_attn_v1" + sfx: 4, "swin_mlp" + sfx: 10})):
+                with environ(AM_TPU_CKPT_DIR=ckpt_dir, **switches):
+                    clap = LaionCLAP(ckpt=path, cfg=cfg, compute_dtype=dtype, device="cuda")
+                log(f"  (b) {dtype} {switches}: LaionCLAP(cfg=HTSAT_TINY, ckpt={TINY_CKPT}) in "
+                    "AudioMetrics(['fad', 'kd', 'prdc'])")
+                got, _ = phase_tiny_config(
+                    card, clap, dict(per_forward, **{"patch_merge" + sfx: 3}, **frontend),
+                    tol_key, against, whole_rate, reference, candidate)
+                for name in per_forward:  # #9's on the split path, where it runs every block
+                    launches.setdefault(name, (got[name], "AM_TPU_V4_STAGES=\"\"" if
+                                               tol_key == "split" else "AM_TPU_ATTN_V1=1"))
+                del clap
+    log("  (c) the log-mels at 128 and 96 mels and at hop 484")
+    mel = phase_tiny_mel(card)
+    for name, t in times.items():
+        n, path = launches.get(name, (0, "opt-in: no path runs it"))
+        log(f"  {name} tiny: launches {n} ((b) {path}, add_reference + first evaluate), kernel "
+            f"{t['ms']:.4f} ms a forward, plain {t['plain_ms']:.4f}, bound {t['bound_ms']:.4f} "
+            f"({t['bound_by']}), library {t['library_ms']:.4f}, max abs err "
+            f"{t['max_abs_err']:.4g} [{card}]")
+    for (name, form), t in mel.items():
+        log(f"  {name} {form}: kernel {t['ms']:.4f} ms per {BATCH} 10 s clips, plain "
+            f"{t['plain_ms']:.4f}, bound {t['bound_ms']:.4f} ({t['bound_by']}), library none, "
+            f"max abs err {t['max_abs_err']:.4g} [{card}]")
+    log(f"  phase 20: {time.perf_counter() - t20:.1f} s [{card}]")
+
+
+def phase_tiny_whole(card: str, clap, reference, candidate):
+    """Phase 20 (b)'s yardstick for the split configurations: the
+    whole-block configuration ``clap`` on the same clips: its reference
+    embeddings and warm clips/s (median of 3), returned."""
+    from audio_metrics_tpu_torch import AudioMetrics
+
+    am = AudioMetrics(metrics=["fad", "kd", "prdc"], embedder=clap, win_dur=float(CLIP_S),
+                      input_sr=SR, batch_size=BATCH, device="cuda")
+    torch.cuda.empty_cache()
+    am.add_reference(reference)
+    am.evaluate(candidate)
+    rate, line = warm_rate(am, candidate, reference.shape[0])
+    log(f"  {line} [{card}; real_weights: false]")
+    return am.stem_reference.embeddings, rate
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run", file=sys.stderr)
@@ -3379,6 +3783,10 @@ def main() -> int:
     log("phase 19 HTSAT-tiny: the kernels at its widths (24-wide heads), then LaionCLAP("
         "cfg=HTSAT_TINY) from a 630k-named checkpoint in bf16 and f32, fad + kd + prdc")
     phase_tiny(card)
+    log('phase 20 the last narrow contracts: HTSAT-tiny\'s split blocks and opt-in ops, '
+        'AM_TPU_V4_STAGES="" and AM_TPU_ATTN_V1=1 in bf16 and f32, the log-mels at any mel '
+        "count and hop")
+    phase_tiny_split(card)
 
     # launches: each kernel's count on the path that runs it
     path_of = {"log_mel": launches_10s, "swin_attn_v3": launches_split,

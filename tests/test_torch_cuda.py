@@ -29,7 +29,7 @@ and the two in turn against the whole block) and the two opt-in ops (the
 v2 attention half, the int8 MLP): the bounds of ``chip_smoke.py``.  The v2 half on v1's operands laid side by
 side runs v1's launches: equal outputs.  The v1 log-mel runs the halo
 log-mel's DFT + mel kernel over its frame matrix: equal outputs where both
-run (hop % 8 == 0); it alone serves a hop of 484.  Their f32 kernels (the f32
+run (hop % 8 == 0).  Their f32 kernels (the f32
 block's launches, products as three TF32 products) against their f32
 plain versions in full f32 under the f32 block's bounds at each stage, at
 B = 4 and a ragged B = 3, with bitwise repeats; the v3 half then the MLP
@@ -53,6 +53,7 @@ from audio_metrics_tpu_torch.kernels import KERNELS
 from audio_metrics_tpu_torch.models.clap import SAMPLE_RATE, ClapFrontend
 from audio_metrics_tpu_torch.models.htsat import (
     HTSAT_BASE,
+    HTSAT_TINY,
     PatchMerge,
     SwinBlock,
     _Folded,
@@ -622,8 +623,8 @@ def _mel_case(params, cuda, conv, b=2, seed=31):
 @pytest.mark.parametrize("conv", ["clap", "vggish", "clap 7 s", "clap hop 484"])
 def test_log_mel_v1_kernel_matches_plain(cuda, params, conv):
     """The v1 log-mel: the halo test's inputs and bounds, CLAP 7 s clips
-    (701 frames a clip: tiles span clips) and CLAP at hop 484, which the
-    halo kernel refuses; one launch a call."""
+    (701 frames a clip: tiles span clips) and CLAP at hop 484 (which the
+    halo kernel takes in padded hop rows); one launch a call."""
     kw, audio = _mel_case(params, cuda, conv)
     before = KERNELS["log_mel_v1"].launches
     got = log_mel_v1(audio, **kw)
@@ -646,13 +647,14 @@ def test_log_mel_v1_kernel_equals_halo_kernel(cuda, params, conv, b):
 
 
 def test_log_mels_raise_on_other_mel_counts(cuda):
-    """Both kernels' epilogues write 64 mel bins (CLAP and VGGish): another
-    count raises ``NotImplementedError`` and launches nothing."""
-    fb = mel_filter_bank(513, 128, 50.0, 14000.0, SAMPLE_RATE).astype(np.float32)
+    """Both kernels take any mel count (``test_log_mel_kernels_at_other_
+    mel_counts``) but none: a filterbank of no mel bins raises
+    ``NotImplementedError`` and launches nothing."""
+    fb = np.zeros((513, 0), np.float32)
     audio = torch.zeros((1, 48000), device=cuda)
     before = {k: KERNELS[k].launches for k in ("log_mel", "log_mel_v1")}
     for fn in (log_mel_halo, log_mel_v1):
-        with pytest.raises(NotImplementedError, match="64 mel bins"):
+        with pytest.raises(NotImplementedError, match="mel bins"):
             fn(audio, frame_length=1024, hop_length=480, n_fft=1024, fb=fb)
     assert {k: KERNELS[k].launches for k in before} == before
 
@@ -943,6 +945,165 @@ def test_mlp_int8_f32_kernel_matches_plain(cuda, params, stage):
         got = mlp_block_int8(x, *args, eps=cfg.layer_norm_eps)
         want = mlp_block_int8_plain(x, *args, eps=cfg.layer_norm_eps)
         _close(got, want, want - x, MLP_INT8_TOL[0][0], MLP_INT8_TOL[1])
+
+
+# ----------------------------------------------------------------------
+# HTSAT-tiny's widths (C = 96 * 2^i, heads of 24) on the split block's
+# kernels and the opt-in ops; the log-mels at other mel counts and hops
+# ----------------------------------------------------------------------
+TINY_STAGE_SHIFTS = [(0, 0), (0, 4), (1, 4), (2, 4), (3, 0)]
+TINY_DTYPES = [torch.bfloat16, torch.float32]
+
+
+@pytest.fixture(scope="module")
+def tiny_params():
+    """HTSAT-tiny random weights, drawn as ``params``' are."""
+    rng = np.random.default_rng(1)
+    p = init_params(HTSAT_TINY, seed=0)
+    for k, v in p.items():
+        if k.endswith(".bias") or "bias_table" in k:
+            p[k] = rng.normal(scale=0.5, size=v.shape).astype(np.float32)
+        elif v.ndim == 2:
+            p[k] = rng.normal(scale=v.shape[1] ** -0.5, size=v.shape).astype(np.float32)
+        elif k.endswith(".weight") and "norm" in k:
+            p[k] = (1.0 + rng.normal(scale=0.1, size=v.shape)).astype(np.float32)
+    return p
+
+
+def _tiny_block(p, cuda, stage, shift, attention, dtype):
+    res = HTSAT_TINY.grid_size // 2**stage
+    return SwinBlock(p, f"audio_encoder.layers.{stage}.blocks.{1 if shift else 0}", HTSAT_TINY,
+                     res, shift, HTSAT_TINY.num_heads[stage], dtype,
+                     attention=attention).to(cuda), res
+
+
+def _once(name, call):
+    before = KERNELS[name].launches
+    got = call()
+    torch.cuda.synchronize()
+    assert KERNELS[name].launches == before + 1
+    return got
+
+
+@pytest.mark.parametrize("dtype", TINY_DTYPES, ids=["bf16", "f32"])
+@pytest.mark.parametrize("stage,shift", TINY_STAGE_SHIFTS)
+def test_tiny_attention_v3_and_mlp_kernels_match_plain(cuda, tiny_params, stage, shift, dtype):
+    """#8 then #9 at tiny's widths (stage 0: qkv N = 288, proj and fc2 N =
+    96 on the 96-column tiles, K = 96), one launch each, against their
+    plain versions under phase 3's bounds; in f32 the two equal the whole
+    f32 block bitwise."""
+    blk, res = _tiny_block(tiny_params, cuda, stage, shift, "v3", dtype)
+    f32 = dtype == torch.float32
+    x = _x(cuda, 300 + stage + shift, (2, res, res, blk.bp.shape[0])).to(dtype)
+    geo = dict(heads=blk.heads, window=blk.window, shift=blk.shift, eps=blk.eps)
+    attn = (blk.wqkv, blk.bq3, blk.wp, blk.bp, blk.bm)
+    mlp = (blk.ln2_w, blk.ln2_b, blk.w1, blk.b1, blk.w2, blk.b2)
+    ops = blk.kernel_operands()
+    half = _once("swin_attn_v3_f32" if f32 else "swin_attn_v3",
+                 lambda: swin_attention_half_v3(x, *attn, **geo, operands=ops))
+    h3 = half.view(2, res * res, -1)
+    out = _once("swin_mlp_f32" if f32 else "swin_mlp",
+                lambda: mlp_block(h3, *mlp, eps=blk.eps, operands=ops))
+    with full_f32():
+        want_a = swin_attention_half_v3_plain(x, *attn, **geo)
+        want_m = mlp_block_plain(h3, *mlp, eps=blk.eps)
+    (a_rel, a_max), (m_rel, m_max) = ((SWIN_F32_TOL, SWIN_F32_TOL) if f32 else
+                                      (ATTN_V3_TOL, MLP_TOL))
+    _close(half, want_a, want_a.float() - x.float(), a_rel[stage], a_max)
+    _close(out, want_m, want_m.float() - h3.float(), m_rel[stage], m_max)
+    if f32:
+        whole = swin_block(x, *attn, *mlp, **geo, operands=ops)
+        torch.cuda.synchronize()
+        assert torch.equal(out.view(whole.shape), whole)
+
+
+@pytest.mark.parametrize("dtype", TINY_DTYPES, ids=["bf16", "f32"])
+@pytest.mark.parametrize("stage,shift", [(0, 0), (0, 4), (1, 0), (1, 4)])
+def test_tiny_attention_v1_v2_kernels_match_plain(cuda, tiny_params, stage, shift, dtype):
+    """#10 at tiny's widths where ``AM_TPU_ATTN_V1`` runs it (stages 0-1)
+    against its plain version; #11 on the same weights laid side by side
+    runs its launches: equal outputs."""
+    blk, res = _tiny_block(tiny_params, cuda, stage, shift, "v1", dtype)
+    f32 = dtype == torch.float32
+    x = _x(cuda, 320 + stage + shift, (2, res, res, blk.bp.shape[0])).to(dtype)
+    geo = dict(heads=blk.heads, window=blk.window, shift=blk.shift, eps=blk.eps)
+    a1 = (blk.ln1_w, blk.ln1_b, blk.wq, blk.bq, blk.wk, blk.wv, blk.wp, blk.bp, blk.bm)
+    got = _once("swin_attn_v1_f32" if f32 else "swin_attn_v1",
+                lambda: swin_attention_half_v1(x, *a1, **geo, operands=blk.kernel_operands()))
+    with full_f32():
+        want = swin_attention_half_v1_plain(x, *a1, **geo)
+    rel, mx = SWIN_F32_TOL if f32 else ATTN_V1_TOL
+    _close(got, want, want.float() - x.float(), rel[stage], mx)
+    prefix = f"audio_encoder.layers.{stage}.blocks.{1 if shift else 0}"
+    v2 = _Folded(_v2_kernel_weights(tiny_params, prefix, res, blk.shift, blk.heads, blk.window),
+                 dtype).to(cuda)
+    a2 = (v2.ln1_w, v2.ln1_b, v2.wqkv, v2.bq3, v2.wp, v2.bp, v2.bm)
+    same = _once("swin_attn_v2_f32" if f32 else "swin_attn_v2",
+                 lambda: swin_attention_half_v2(x, *a2, **geo,
+                                                operands=half_operands(v2.wqkv, v2.wp)))
+    assert torch.equal(same, got)
+
+
+@pytest.mark.parametrize("dtype", TINY_DTYPES, ids=["bf16", "f32"])
+@pytest.mark.parametrize("stage", [0, 1, 2, 3])
+def test_tiny_mlp_int8_kernel_matches_plain(cuda, tiny_params, stage, dtype):
+    """#12 at tiny's widths (stage 0: fc1 K = 96 codes, a zero-filled part
+    of a K step; fc2 N = 96 on the int8 96-column tile) on the codes held
+    from load, against its plain version, repeating bitwise."""
+    res = HTSAT_TINY.grid_size // 2**stage
+    prefix = f"audio_encoder.layers.{stage}.blocks.0"
+    m = _Folded(_mlp_weights(tiny_params, prefix), torch.float32).to(cuda)
+    mlp = (m.ln2_w, m.ln2_b, m.w1, m.b1, m.w2, m.b2)
+    x = _x(cuda, 340 + stage, (2, res * res, m.w1.shape[0])).to(dtype)
+    ops = mlp_int8_operands(m.w1, m.w2)
+    name = "swin_mlp_int8" + ("_f32" if dtype == torch.float32 else "")
+    got = _once(name, lambda: mlp_block_int8(x, *mlp, eps=HTSAT_TINY.layer_norm_eps,
+                                             operands=ops))
+    want = mlp_block_int8_plain(x, *mlp, eps=HTSAT_TINY.layer_norm_eps)
+    _close(got, want, want.float() - x.float(), MLP_INT8_TOL[0][stage], MLP_INT8_TOL[1])
+    assert torch.equal(got, mlp_block_int8(x, *mlp, eps=HTSAT_TINY.layer_norm_eps, operands=ops))
+
+
+def _clap_mel_kw(cuda, n_mels, hop, seed):
+    """CLAP's frame (centered, dB) at ``hop`` with an ``n_mels`` filterbank,
+    a seeded affine and bf16 out."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    fb = mel_filter_bank(513, n_mels, 50.0, 14000.0, SAMPLE_RATE, norm="slaney",
+                         mel_scale="slaney").astype(np.float32)
+    affine = (1 + 0.3 * torch.randn(n_mels, generator=g, device=cuda),
+              torch.randn(n_mels, generator=g, device=cuda))
+    return dict(frame_length=1024, hop_length=hop, n_fft=1024, fb=fb, center=True,
+                log_mode="db", out_affine=affine, out_dtype=torch.bfloat16), g
+
+
+@pytest.mark.parametrize("n_mels", [32, 96, 100, 128, 200, 256])
+def test_log_mel_kernels_at_other_mel_counts(cuda, n_mels):
+    """#6 and #7 at mel counts of part of a group, one and a half groups,
+    two, three and a bit, four and one not a multiple of 8, on 2 CLAP 3 s
+    clips: one launch a call, within LOG_MEL_TOL of the plain version,
+    repeating bitwise, the two kernels equal (one DFT + mel kernel)."""
+    kw, g = _clap_mel_kw(cuda, n_mels, 480, 40 + n_mels)
+    audio = 0.2 * torch.randn((2, 3 * SAMPLE_RATE), generator=g, device=cuda)
+    halo = _once("log_mel", lambda: log_mel_halo(audio, **kw))
+    v1 = _once("log_mel_v1", lambda: log_mel_v1(audio, **kw))
+    want = log_mel_halo_plain(audio, **kw)
+    assert halo.shape == want.shape == (2, 301, n_mels) and halo.dtype == want.dtype
+    _close(halo, want, want, *LOG_MEL_TOL["clap"])
+    assert torch.equal(halo, log_mel_halo(audio, **kw)) and torch.equal(halo, v1)
+
+
+@pytest.mark.parametrize("hop,n_mels", [(484, 64), (300, 64), (484, 128)])
+def test_log_mel_halo_at_padded_hops(cuda, hop, n_mels):
+    """#6 at hops that are not a multiple of 8 (hop rows padded to 488 and
+    304 samples) on 2 CLAP 10 s clips: one launch, within LOG_MEL_TOL of
+    the plain version, repeating bitwise."""
+    kw, g = _clap_mel_kw(cuda, n_mels, hop, 50 + hop)
+    audio = 0.2 * torch.randn((2, 10 * SAMPLE_RATE), generator=g, device=cuda)
+    got = _once("log_mel", lambda: log_mel_halo(audio, **kw))
+    want = log_mel_halo_plain(audio, **kw)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    _close(got, want, want, *LOG_MEL_TOL["clap"])
+    assert torch.equal(got, log_mel_halo(audio, **kw))
 
 
 class _GradEmbedder:

@@ -667,7 +667,8 @@ def _c_parameters(source, symbol):
     # 1 s CLAP clips (101 frames) at hop 480: hop rows, a (k, frame, clip) map
     ("log_mel", "am_log_mel", dict(n=48000, half=512, k_pad=1024, n_frames=101, batch=2,
                                    hop=480, clip_stride=49024, box_k=64, box_rows=128,
-                                   box_b=1, n_keep=384, n_mels=64, out_bf16=0)),
+                                   box_b=1, n_keep=384, n_mels=64, out_bf16=0,
+                                   hop_length=480)),
     # the same clips through the v1 kernel: one run of 202 frame rows
     ("log_mel_v1", "am_log_mel_v1", dict(n=48000, half=512, k_pad=1024, rows=202, one=1,
                                          row_stride=1024, batch_stride=202 * 1024, box_k=64,
@@ -679,8 +680,8 @@ def test_card_log_mel_arguments_match_the_c_entry(symbols, monkeypatch, name, sy
     """A log-mel on a CUDA tensor launches its C entry once with an argument
     of the entry's type in every place (ctypes passes what it is given, so a
     slip in the order would reach the card as a wrong size), the values of
-    its frame map there, and raises ``NotImplementedError`` without launching
-    for a mel count other than 64."""
+    its frame map there; at 128 mels once more, with n_mels 128 there, the
+    filterbank in two groups of 64 and an output of 128 columns."""
     from audio_metrics_tpu_torch.kernels import KERNELS
     from audio_metrics_tpu_torch.ops import mel
 
@@ -701,6 +702,9 @@ def test_card_log_mel_arguments_match_the_c_entry(symbols, monkeypatch, name, sy
     got = {pname: a.value for (kind, pname), a in zip(params, cargs) if kind is ctypes.c_int}
     assert {k: got[k] for k in want} == want
     fb128 = mel.mel_filter_bank(513, 128, 50.0, 14000.0, 48000).astype(np.float32)
-    with pytest.raises(NotImplementedError, match="64 mel bins"):
-        fn(audio, fb=fb128, **kw)
-    assert symbols == [symbol]
+    out, moved = _counted(lambda: fn(audio, fb=fb128, **kw))
+    assert symbols == [symbol, symbol] and moved == {name: 1}
+    assert out.shape == (2, 101, 128)
+    got = {pname: a.value for (kind, pname), a in zip(params, symbols.cargs[symbol])
+           if kind is ctypes.c_int}
+    assert got["n_mels"] == 128 and got["n_keep"] == 384

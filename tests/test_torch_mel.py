@@ -123,7 +123,7 @@ def test_log_mel_halo_plain_affine_epilogue():
 def test_log_mel_v1_plain_matches_pallas(conv):
     """CLAP: 1024-sample frames in 3 chunks of 480 (1440 wide); VGGish: 400
     in 3 chunks of 160 (480 wide); CLAP at hop 484 (3 chunks, 1452 wide), a
-    hop that the halo kernel refuses and the v1 kernel serves.  1 s clips."""
+    hop that the halo kernel takes in padded hop rows.  1 s clips."""
     c = CONVENTIONS[conv.split()[0]]
     hop = int(conv.split()[-1]) if "hop" in conv else c["hop"]
     a = (0.2 * np.random.default_rng(13).normal(size=(3, c["sr"]))).astype(np.float32)
@@ -249,7 +249,7 @@ def test_clap_rejects_clips_longer_than_10_s():
 LOG_MEL_TOL = {"clap": (1e-5, 0.25), "vggish": (1e-6, 3e-5)}  # as in chip_smoke.py
 HALO_CASES = {"clap 10 s": ("clap", 10), "clap 7 s": ("clap", 7), "clap 3 s": ("clap", 3),
               "vggish 10 s": ("vggish", 10)}
-# the v1 kernel's: the halo's and a hop that the halo kernel refuses
+# the v1 kernel's: the halo's and a hop that is not a multiple of 8
 V1_CASES = {**HALO_CASES, "clap hop 484": ("clap", 3, 484)}
 
 
@@ -268,12 +268,17 @@ def _halo_case(case, b=2, seed=0):
 
 
 def _hop_rows(audio, amap):
-    """The kernel's first launch: hops[z][j] = bf16(x[half - j]), x[j - half],
-    x[2n - 2 - (j - half)], then 0, for j < clip_stride."""
+    """The kernel's first launch: hops[z][j] = bf16(x[half - s]), x[s - half],
+    x[2n - 2 - (s - half)], then 0, for j < clip_stride, where s = j at a hop
+    that is a multiple of 8; else j = r*hop_pad + i holds s = r*hop + i for i
+    < hop and 0 at the row's pad (``halo_rows_padded_kernel``)."""
     n, half, clip_stride = audio.shape[1], amap["half"], amap["strides"][1]
-    s = np.arange(clip_stride) - half
+    hop_pad = amap["strides"][0]
+    hop = amap["chunk"][0] if amap["chunk"] else hop_pad
+    r, i = np.divmod(np.arange(clip_stride), hop_pad)
+    s = r * hop + i - half
     src = np.where(s < 0, -s, np.where(s < n, s, 2 * n - 2 - s))
-    valid = torch.from_numpy(s < n + half)
+    valid = torch.from_numpy((s < n + half) & (i < hop))
     rows = audio[:, torch.from_numpy(np.clip(src, 0, n - 1))] * valid
     return rows.to(torch.bfloat16)
 
@@ -301,7 +306,7 @@ def _kernel_operands(audio, kw):
                         kw["center"])
     fb = np.ascontiguousarray(kw["fb"], np.float32)
     basis_t, fb_p, n_keep = _kernel_tables(kw["frame_length"], amap["dims"][0], kw["n_fft"],
-                                           fb.tobytes(), fb.shape[1], "cpu")
+                                           fb.tobytes(), fb.shape[1], amap["chunk"], "cpu")
     return amap, _frames_through_the_map(_hop_rows(audio, amap), amap), basis_t, fb_p
 
 
@@ -385,18 +390,17 @@ def test_halo_fused_epilogue_order_matches_plain(case):
 
 
 @pytest.mark.parametrize("frame,hop,center,k_pad", [(1024, 480, True, 1024), (400, 160, False, 448),
-                                                    (1024, 484, True, None)])
+                                                    (1024, 484, True, 1088)])
 def test_halo_map_shape_checks(frame, hop, center, k_pad):
-    """The frame stride must be 16 bytes (hop % 8); K is the frame padded to
-    the 64-element box; the signal rows hold the last frame's k_pad
+    """The frame stride is 16 bytes: the hop rounded up to a multiple of 8
+    (484 -> 488, each hop row padded with 4 zeros); K is the span of the
+    frame's samples in those rows (1024 + 2 * 4 for 3 chunks of 484) padded
+    to the 64-element box; the signal rows hold the last frame's k_pad
     samples."""
-    if k_pad is None:
-        with pytest.raises(NotImplementedError, match="hop"):
-            halo_dft_map(2, 48000, frame, hop, center)
-        return
     amap = halo_dft_map(2, 48000, frame, hop, center)
     (kp, n_frames, b), (stride, clip_stride) = amap["dims"], amap["strides"]
-    assert (kp, b, stride) == (k_pad, 2, hop) and amap["box"] == (64, 128, 1)
+    assert (kp, b, stride) == (k_pad, 2, -(-hop // 8) * 8) and amap["box"] == (64, 128, 1)
+    assert amap["chunk"] == (None if hop % 8 == 0 else (hop, stride))
     assert clip_stride % 8 == 0 and clip_stride >= (n_frames - 1) * hop + kp
     assert n_frames == (48000 + (frame if center else 0) - frame) // hop + 1
 
@@ -432,7 +436,7 @@ def _v1_operands(audio, kw):
     amap = v1_dft_map(b, n, frame, hop, kw["center"])
     fb = np.ascontiguousarray(kw["fb"], np.float32)
     basis_t, fb_p, n_keep = _kernel_tables(frame, amap["dims"][0], kw["n_fft"], fb.tobytes(),
-                                           fb.shape[1], "cpu")
+                                           fb.shape[1], None, "cpu")
     return amap, _frames_through_the_map(_frame_rows(audio, amap, frame, hop), amap), basis_t, fb_p
 
 
@@ -515,20 +519,21 @@ def test_v1_and_halo_read_the_same_a(case):
 @pytest.mark.parametrize("frame,hop,center,k_pad", [(1024, 480, True, 1024), (400, 160, False, 448),
                                                     (1024, 484, True, 1024)])
 def test_v1_map_shape_checks(frame, hop, center, k_pad):
-    """Any hop (484 too, which the halo map refuses); K is the frame padded
-    to the 64-element box; one run of B*n_frames rows at pitch k_pad; a clip
-    too short to reflect-pad or to hold a frame, or a frame matrix past
-    32-bit indices, raises ``ValueError``."""
+    """Any hop (484 too, which the halo map takes in padded hop rows); K is
+    the frame padded to the 64-element box; one run of B*n_frames rows at
+    pitch k_pad; a clip too short to reflect-pad or to hold a frame, or a
+    frame matrix past 32-bit indices, raises ``ValueError``."""
     amap = v1_dft_map(2, 48000, frame, hop, center)
     n_frames = (48000 + (frame if center else 0) - frame) // hop + 1
     assert amap["n_frames"] == n_frames and amap["half"] == (frame // 2 if center else 0)
     assert amap["dims"] == (k_pad, 2 * n_frames, 1) and amap["box"] == (64, 128, 1)
     assert amap["strides"] == (k_pad, 2 * n_frames * k_pad)
-    if hop % 8:
-        with pytest.raises(NotImplementedError, match="hop"):
-            halo_dft_map(2, 48000, frame, hop, center)
-    else:
-        assert halo_dft_map(2, 48000, frame, hop, center)["dims"][:2] == (k_pad, n_frames)
+    halo = halo_dft_map(2, 48000, frame, hop, center)
+    assert halo["n_frames"] == n_frames and halo["strides"][0] == -(-hop // 8) * 8
+    if hop % 8 == 0:
+        assert halo["dims"][:2] == (k_pad, n_frames)
+    else:  # the halo's K spans the padded chunks, v1's the frame alone
+        assert halo["dims"][0] > k_pad
     short = frame // 2 if center else frame - 1
     with pytest.raises(ValueError, match="samples"):
         v1_dft_map(2, short, frame, hop, center)

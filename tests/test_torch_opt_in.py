@@ -43,7 +43,7 @@ from scipy.special import erf
 from audio_metrics_tpu.ops.attention import swin_attention_block_pallas_v2
 from audio_metrics_tpu.ops.mlp import mlp_block_pallas_int8
 from audio_metrics_tpu_torch.convert import params_from_numpy
-from audio_metrics_tpu_torch.kernels import KERNELS
+from audio_metrics_tpu_torch.kernels import KERNELS, check_s8_gemm
 from audio_metrics_tpu_torch.models.clap import ClapAudio, init_projection_params
 from audio_metrics_tpu_torch.models.htsat import (
     HTSAT_BASE,
@@ -57,7 +57,7 @@ from audio_metrics_tpu_torch.ops.attention import (
     swin_attention_half_v2,
 )
 from audio_metrics_tpu_torch.ops.mlp import (
-    check_int8_gemms,
+    _mlp_shape,
     mlp_block_int8,
     mlp_int8_operands,
     quantize_columns,
@@ -268,18 +268,21 @@ def test_mlp_int8_held_operands_checked(name, wrong):
         mlp_block_int8(torch.from_numpy(x), *wt, operands=dict(ops, **{name: wrong(ops)}))
 
 
-@pytest.mark.parametrize("c,ok", [(64, True), (128, True), (1024, True), (96, False),
-                                  (160, False)])
+@pytest.mark.parametrize("c,ok", [(64, True), (128, True), (1024, True), (96, True),
+                                  (160, False), (192, True), (768, True)])
 def test_int8_gemm_shape_check(c, ok):
-    """The int8 core takes the MLP's two products at C = 64 (fc1's K of 64
-    codes is half a K step, zero-filled by the tensor maps) and at
-    HTSAT-base's widths; C = 96 and 160 (fc2's N not a multiple of 64) are
+    """The int8 MLP's shape check, its two products on the int8 core
+    (``kernels.check_s8_gemm``): the core takes them at C = 64 (fc1's K of
+    64 codes is half a K step, zero-filled by the tensor maps), at
+    HTSAT-base's widths and at HTSAT-tiny's (C = 96: fc2's N = 96 on the
+    96-column tile); C = 160 (fc2's N a multiple of neither 64 nor 96) is
     refused."""
+    args = ("test", torch.empty((2, c)), (c, 4 * c), (4 * c, c), check_s8_gemm)
     if ok:
-        check_int8_gemms("test", c)
+        assert _mlp_shape(*args) == (2, c)
     else:
         with pytest.raises(NotImplementedError, match="int8 wgmma"):
-            check_int8_gemms("test", c)
+            _mlp_shape(*args)
 
 
 def test_params_from_numpy_device():

@@ -286,13 +286,16 @@ def test_sm90_gemm_shape_check(n, k, strides, ok):
         (256, 64, (64,), True),     # K of half a 128-code step: zero-filled
         (128, 4096, (4096,), True),
         (256, 48, (48,), True),
-        (96, 384, (384,), False),   # N not a multiple of 64
+        (96, 384, (384,), True),    # N = 96: the 96-column tile (HTSAT-tiny's fc2)
+        (160, 384, (384,), False),  # N a multiple of neither 64 nor 96
+        (288, 96, (96,), True),     # K = 96 codes: a zero-filled partial K step
         (256, 24, (24,), False),    # K off 16 bytes
         (256, 64, (72,), False),    # a row stride off 16 bytes
     ],
 )
 def test_s8_gemm_shape_check(n, k, strides, ok):
-    """The wgmma core on int8 codes: any K of whole 16-byte rows."""
+    """The wgmma core on int8 codes: N a multiple of 64 or 96, any K of
+    whole 16-byte rows."""
     if ok:
         check_s8_gemm("test", n, k, *strides)
     else:
@@ -309,10 +312,10 @@ def test_block_shape_check(c, ok):
     whole wgmma instruction, C = 160 an N = C on no column tile; C > 1024 is
     wider than the LN1 pass holds."""
     if ok:
-        check_block_gemms(c)
+        check_block_gemms("swin_block", c, torch.bfloat16)
     else:
         with pytest.raises(NotImplementedError):
-            check_block_gemms(c)
+            check_block_gemms("swin_block", c, torch.bfloat16)
 
 
 def test_frontend_shape_check():

@@ -58,7 +58,7 @@ from audio_metrics_tpu_torch.models.htsat import (
 )
 from audio_metrics_tpu_torch.ops import attention, merge, mel, mlp
 from audio_metrics_tpu_torch.ops.attention import (
-    check_block_f32,
+    check_block_gemms,
     swin_attention_half_v1_plain,
     swin_attention_half_v2_plain,
     swin_attention_half_v3_plain,
@@ -371,7 +371,7 @@ def test_f32_block_shape_check(c, ok):
     96 on the core's 96-column tile); K = 98 is no whole K step of 32, N =
     160 on no column tile, and the LN1 pass takes C <= 1024."""
     if ok:
-        check_block_f32(c)
+        check_block_gemms("swin_block f32", c, torch.float32)
     else:
         with pytest.raises(NotImplementedError):
-            check_block_f32(c)
+            check_block_gemms("swin_block f32", c, torch.float32)

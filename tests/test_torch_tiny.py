@@ -38,8 +38,8 @@ from audio_metrics_tpu_torch.models.htsat import (
     init_params,
 )
 from audio_metrics_tpu_torch.ops.attention import (
+    HALF_PRODUCTS,
     _check_geometry,
-    check_block_f32,
     check_block_gemms,
     swin_block_plain,
 )
@@ -170,29 +170,29 @@ def test_merge_kernel_operands_keep_the_product(dtype):
     (98, 4, False),    # C = 98: no whole head width
 ])
 def test_whole_block_geometry(c, heads, ok):
-    """The whole block takes heads 24 or 32 wide; the attention halves
-    (#8, #10, #11) stay at 32-wide heads and C % 64 == 0."""
+    """The whole block and the attention halves (#8, #10, #11), which share
+    its launches, take heads 24 or 32 wide."""
     x = torch.empty((1, 16, 16, c))
     bm = torch.empty((1, heads, 64, 64))
-    if ok:
-        _check_geometry("swin_block", x, heads, 8, bm, whole=True)
-    else:
-        with pytest.raises(NotImplementedError):
-            _check_geometry("swin_block", x, heads, 8, bm, whole=True)
-    if c % 64 or c != 32 * heads:
-        with pytest.raises(NotImplementedError):
-            _check_geometry("swin_attn_v3", x, heads, 8, bm)
+    for name in ("swin_block", "swin_attn_v3", "swin_attn_v1"):
+        if ok:
+            _check_geometry(name, x, heads, 8, bm)
+        else:
+            with pytest.raises(NotImplementedError):
+                _check_geometry(name, x, heads, 8, bm)
 
 
 @pytest.mark.parametrize("c,ok", [(96, True), (192, True), (384, True), (768, True),
                                   (98, False), (1088, False)])
 def test_widths_the_kernels_take(c, ok):
-    """The whole block (bf16 and f32) and the merges (bf16 and f32) at
-    HTSAT-tiny's widths; C = 98 and C = 1088 still raise before a launch."""
-    checks = [check_block_gemms, check_block_f32, lambda c: check_merge_gemm(16, c),
-              lambda c: check_merge_f32(16, c)]
+    """The whole block and the attention halves' products (bf16 and f32) and
+    the merges (bf16 and f32) at HTSAT-tiny's widths; C = 98 and C = 1088
+    still raise before a launch."""
+    checks = [lambda c: check_merge_gemm(16, c), lambda c: check_merge_f32(16, c)] + [
+        lambda c, dt=dt, p=p: check_block_gemms("swin_block", c, dt, *p)
+        for dt in (torch.bfloat16, torch.float32) for p in ((), (HALF_PRODUCTS,))]
     for check in checks:
-        if ok and not (check is checks[3] and c > 512):
+        if ok and not (check is checks[1] and c > 512):
             check(c)
         else:
             with pytest.raises(NotImplementedError):
