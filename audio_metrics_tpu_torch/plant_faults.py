@@ -70,6 +70,16 @@ FAULTS = {
            "      wgmma_bn<BN>(tmp, smem_desc(a_hi + kk * 32), smem_desc(b_lo + kk * 32), 1);\n",
            "      wgmma_bn<BN>(tmp, smem_desc(a_hi + kk * 32), smem_desc(b_lo + kk * 32), kk > 0);\n",
            "the 3xTF32 core drops the A_lo . B_hi product"),
+    "X1": (f"{CSRC}/gemm_tf32x3_sm90.cuh",
+           "        sm90::mbar_wait(epi_full, j & 1);  // the consumers staged tile j\n", "",
+           "the f32 MLP's epilogue warps drop the ordered handoff from the consumer "
+           "warpgroups: they read the staging tile before it holds the tile"),
+    "X2": (f"{CSRC}/gemm_tf32x3_sm90.cuh",
+           "    rs_stage_acc<BN>(acc, c, staging);",
+           "    if (wg != 0 || j + 1 < count || count % 2 == 0 || count == 1)\n"
+           "      rs_stage_acc<BN>(acc, c, staging);",
+           "the f32 MLP's consumer 0 skips staging a block's last tile where the block holds an "
+           "odd number of tiles above 1"),
     "W1": (f"{CSRC}/window_attn.cuh",
            "mma_tf32x3(t[n], ph, pl, vh, vl);",
            "mma_tf32(t[n], ph, vl);\n        mma_tf32(t[n], ph, vh);",

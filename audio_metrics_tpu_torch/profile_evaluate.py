@@ -45,6 +45,26 @@ def _short(name: str) -> str:
     return name[:80]
 
 
+def launch_ms(fn, iters: int = 20) -> dict:
+    """Device time (ms) per call of each kernel that ``fn`` launches, by
+    name (torch.profiler over ``iters`` calls after one warm call); empty
+    if the trace holds no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    per: dict = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA and ev.device_time_total > 0:
+            name = _short(ev.name)
+            per[name] = per.get(name, 0.0) + ev.device_time_total / 1e3 / iters
+    return per
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--win-dur", type=float, default=5.0)

@@ -216,6 +216,51 @@ def laion_state_dict(params: dict, prefix: str = "module.") -> dict:
     return out
 
 
+# gemm_tf32x3_sm90.cuh's gemm_rs, which runs the f32 MLP's fc1 (EPI_GELU)
+# and fc2 (EPI_RESID): 128-row tiles, K steps of 32, and the depth up to
+# which the consumer warpgroups share the epilogue's rows (RS_SHARE_K)
+RS_BM, RS_BK = 128, 32
+RS_SHARE_K = {"fc1": 256, "fc2": 512}
+
+
+def mlp_f32_schedule(c: int, m: int, sms: int) -> dict:
+    """What each of the f32 MLP's products does at width ``c`` on ``m``
+    rows on a card of ``sms`` SMs: its column tile ``bn`` (``launch_bn``'s
+    choice), its 128 x bn ``tiles``, the most tiles a block takes (a grid
+    of min(tiles, sms) blocks, tile t to block t % grid), the rows of its
+    last row tile, its depth ``k`` in ``ksteps`` K steps, and whether the
+    consumers store a share of the epilogue's rows (``shared``: K <=
+    RS_SHARE_K; else the epilogue warps store every row)."""
+    out = {}
+    for name, n, k in (("fc1", 4 * c, c), ("fc2", c, 4 * c)):
+        bn = 128 if n % 128 == 0 else 64 if n % 64 == 0 else 96
+        tiles = -(-m // RS_BM) * (n // bn)
+        out[name] = dict(bn=bn, tiles=tiles, per_block=-(-tiles // sms),
+                         last_rows=m - (-(-m // RS_BM) - 1) * RS_BM, k=k, ksteps=k // RS_BK,
+                         shared=k <= RS_SHARE_K[name])
+    return out
+
+
+def mlp_f32_edge_rows(c: int, sms: int) -> dict:
+    """Row counts of the f32 MLP (#9 f32) at width ``c`` on a card of
+    ``sms`` SMs that reach the edges of its products' schedule
+    (``mlp_f32_schedule``; each consumer warpgroup holds 64 rows of a
+    128-row tile): one row tile whose rows all lie in consumer 0's half;
+    one that reaches into consumer 1's; three, the last holding 20 rows,
+    fewer than the epilogue warps' share of a warpgroup's 64; one tile a
+    block for both products; and fc2's tiles over two SMs' worth, so that
+    some blocks hold 3 tiles (an odd count above 1) and the others 2.
+    Every last row tile is partial.  The depths are C's: at C = 96 and
+    128 both products are shallow enough for the consumers to share the
+    epilogue, at 256 fc1 only, at 512 and 1024 neither; fc1 at C = 96 has
+    an odd number of K steps (3)."""
+    n1, n2 = (mlp_f32_schedule(c, RS_BM, sms)[k]["tiles"] for k in ("fc1", "fc2"))
+    return {"M < 64, one tile": 40, "M < 128, one tile": 100,
+            "3 row tiles, the last of 20 rows": 2 * RS_BM + 20,
+            "one tile a block": RS_BM * ((sms - 1) // n1) - 5,
+            "2 or 3 tiles a block": RS_BM * -(-(5 * sms // 2) // n2) - 9}
+
+
 def tf32x3_matmul(a: torch.Tensor, b: torch.Tensor, terms: int = 3,
                   k_step: int | None = None) -> torch.Tensor:
     """``a @ b`` (f32) as the 3xTF32 kernels compute it

@@ -8,12 +8,21 @@ Phases, one status line each:
      process per source, all started together), and ``cuobjdump -sass`` of
      the library: the halo log-mel's kernel, the bf16 v1/v2 halves' qkv and
      proj products and the f32 block's and merge's products hold HGMMA and
-     UTMALDG (wgmma, fed by TMA), the int8 MLP's fc1 and fc2 IGMMA and
+     UTMALDG (wgmma, fed by TMA), the f32 MLP's fc1 and fc2 also USETMAXREG
+     (setmaxnreg), the int8 MLP's fc1 and fc2 IGMMA and
      UTMALDG (int8 wgmma), the f32 window attention HMMA (mma.sync on the
      tensor cores), the PRDC statistics' LDGSTS (cp.async); no instantiation
      of the deleted WMMA gemm_kernel and no IMMA (int8 mma.sync) is left;
   3. each kernel against its plain PyTorch version on the card, at the
-     main-path shapes, with errors, tolerances and times: bf16 Swin blocks
+     main-path shapes, with errors, tolerances and times: first the f32
+     MLP (#9 f32, whose two products are the f32 block's launches 6-7) at
+     C = 96, 128, 256, 512 and 1024 on the row counts that reach the edges
+     of its products' schedule (``testing.mlp_f32_edge_rows``: a partial
+     last 128-row tile within one consumer warpgroup's 64 rows or across
+     both, three row tiles, one tile a block and 2 or 3 a block; depths on
+     both sides of the consumers' epilogue share, an odd number of K
+     steps), the allocator's blocks filled with NaN before each call, with
+     bitwise repeats; bf16 Swin blocks
      (every stage shifted and unshifted), patch merges and the 5 s
      frontend (B=4) with weights under which every part of a block moves
      its output; the f32 k-NN radii and PRDC statistics at (2048, 2048) x
@@ -25,8 +34,10 @@ Phases, one status line each:
      the same inputs (bitwise equal), with its DFT's achieved TFLOP/s and
      the time of each of its two launches (torch.profiler), and the v1
      kernel's output against the halo kernel's on the same clips (printed:
-     they should be bitwise equal); and the FAD device tail against the host
-     float64 path;
+     they should be bitwise equal); the FAD device tail against the host
+     float64 path; and the f32 MLP's three launches at every stage of
+     HTSAT-base and HTSAT-tiny at B = 64 (torch.profiler) with each
+     product's TFLOP/s against 165 (``profile_mlp_f32``'s table);
   4. the main path end to end: ``AudioMetrics(metrics=["fad", "kd",
      "prdc"])`` with LaionCLAP HTSAT-base in bf16 (random weights from a
      seed) over 2048 reference and 2048 candidate 5 s clips at 48 kHz
@@ -402,9 +413,10 @@ TIMING_ITERS = {"patch_merge": 200, "knn_radii": 200, "prdc_stats": 200, "log_me
 # (cuobjdump -sass of the built library): the log-mels' DFT (one kernel,
 # log_mel_sm90_kernel, serves the halo and the v1 log-mel) and the
 # f32 block's and merge's 3xTF32 products on wgmma (HGMMA) fed by TMA
-# (UTMALDG); the bf16 v1 and v2 halves' qkv and proj products (the
-# gemm_sm90_kernel instantiations of EPI_BIAS_BF16 = 9 and EPI_PROJ_BF16 =
-# 8, gemm.cuh's enum Epi) likewise; the f32 window attention's 3xTF32
+# (UTMALDG), the f32 MLP's fc1 and fc2 (the instantiations of EPI_GELU = 2
+# and EPI_RESID = 3) also with setmaxnreg (USETMAXREG); the bf16 v1 and v2
+# halves' qkv and proj products (the gemm_sm90_kernel instantiations of
+# EPI_BIAS_BF16 = 9 and EPI_PROJ_BF16 = 8, gemm.cuh's enum Epi) likewise; the f32 window attention's 3xTF32
 # products (the float instantiation of window_attn_kernel, inside #1 and
 # #8-#11 in f32) on mma.sync (HMMA); the PRDC statistics' products fed by
 # cp.async (LDGSTS); the int8 MLP's fc1 and fc2 (the instantiations of
@@ -417,6 +429,8 @@ SASS_WANT = {"log_mel": ("log_mel_sm90_kernel", ("HGMMA", "UTMALDG")),
              "swin_mlp_int8 fc1": (r"gemm_sm90_kernelILi\d+ELi11E", ("IGMMA", "UTMALDG")),
              "swin_mlp_int8 fc2": (r"gemm_sm90_kernelILi\d+ELi1[23]E", ("IGMMA", "UTMALDG")),
              "swin_block_f32": ("gemm_tf32x3_kernel.*RowsA", ("HGMMA", "UTMALDG")),
+             "swin_mlp_f32 fc1, fc2": (r"gemm_tf32x3_kernelILi\d+ELi[23]E",
+                                       ("HGMMA", "UTMALDG", "USETMAXREG")),
              "patch_merge_f32": ("gemm_tf32x3_kernel.*MergeA", ("HGMMA", "UTMALDG")),
              "window_attn_f32": (r"window_attn_kernelILi\d+E+vPKf", ("HMMA",)),
              "prdc_stats": ("stats_split_kernel", ("LDGSTS",))}
@@ -523,16 +537,38 @@ def fb_bins(fb) -> int:
     return int(np.nonzero(np.any(fb != 0.0, axis=1))[0][-1]) + 1
 
 
+def vggish_fb() -> np.ndarray:
+    """VGGish's filterbank (257 bins of n_fft 512 at 16 kHz, 64 HTK mels
+    over 125-7500 Hz), as phase 3 hands it to the log-mels."""
+    from audio_metrics_tpu_torch.ops.mel import mel_filter_bank
+
+    return mel_filter_bank(257, 64, 125.0, 7500.0, 16000, norm=None, mel_scale="htk",
+                           triangle_domain="mel", zero_dc=True).astype(np.float32)
+
+
+def log_mel_bound(b, frames, frame_length, fb, n, out_size):
+    """A log-mel of ``b`` clips of ``n`` samples into ``frames`` frames a
+    clip: the DFT of ``frame_length`` samples into the ``fb_bins`` bins that
+    the filterbank ``fb`` (bins x mels) weighs, in bf16, and the mel product
+    over them in f32; bytes: the f32 clips in, the log-mel out
+    (``out_size`` bytes a value)."""
+    n_keep, n_mels = fb_bins(fb), fb.shape[1]
+    return bound({"bf16": 2 * b * frames * frame_length * 2 * n_keep,
+                  "f32": 2 * b * frames * n_keep * n_mels},
+                 b * n * 4 + b * frames * n_mels * out_size)
+
+
 def frontend_bound(cfg, b, n):
     """The fused frontend on (b, n) clips: the DFT of the p+2 head and the
-    tail frames, the bicubic interp and the patch embed in bf16; the mel
-    product of those frames in f32; bytes: the f32 clips in, the bf16
-    tokens out."""
+    tail frames into the ``fb_bins`` bins CLAP's filterbank weighs, the
+    bicubic interp and the patch embed in bf16; the mel product of those
+    frames in f32; bytes: the f32 clips in, the bf16 tokens out."""
+    from audio_metrics_tpu_torch.models.clap import _clap_fb
     from audio_metrics_tpu_torch.ops.frontend_fused import FRAME, HOP, _plan
 
     pln = _plan(n, SR, FRAME, HOP, cfg.num_mel_bins, cfg.spec_size, cfg.patch_size)
     frames = pln["head_frames"] + pln["n_frames"] - pln["t_tail0"]
-    n_keep, n_mels, ps = 384, cfg.num_mel_bins, cfg.patch_size
+    n_keep, n_mels, ps = fb_bins(_clap_fb()), cfg.num_mel_bins, cfg.patch_size
     rg = pln["ratio"] * pln["gw"]
     bf16 = b * (2 * frames * FRAME * 2 * n_keep + 2 * ps * rg * pln["n_frames"] * n_mels
                 + 2 * rg * ps * n_mels * pln["fb"] * cfg.embed_dim)
@@ -947,6 +983,92 @@ def phase_kernels(cfg, params, results):
             f"products alone {r['library_ms']:.4f} ms)")
 
 
+def phase_mlp_f32_edges(results) -> None:
+    """#9 f32 against its plain version at the row counts of
+    ``testing.mlp_f32_edge_rows``, at C = 96, 128, 256, 512 and 1024, under the f32
+    MLP's bounds of the stage of that width: one launch a call, repeats
+    bitwise equal.  The allocator's blocks of the call's sizes are filled
+    with NaN before each call, so a tile that no warpgroup writes shows."""
+    from audio_metrics_tpu_torch.kernels import KERNELS
+    from audio_metrics_tpu_torch.ops.mlp import mlp_block, mlp_block_plain, mlp_operands
+    from audio_metrics_tpu_torch.testing import mlp_f32_edge_rows, mlp_f32_schedule
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rel_tols, max_tol = TOL["swin_mlp_f32"]
+
+    def randn(*shape, std=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * std
+
+    for c, stage in ((96, 0), (128, 0), (256, 1), (512, 2), (1024, 3)):
+        w1, w2 = randn(c, 4 * c, std=c**-0.5), randn(4 * c, c, std=(4 * c) ** -0.5)
+        mlp = (1.0 + randn(c, std=0.1), randn(c, std=0.5), w1, randn(4 * c, std=0.5), w2,
+               randn(c, std=0.5))
+        ops = mlp_operands(w1, w2)
+        for what, m in mlp_f32_edge_rows(c, sms).items():
+            x = randn(m, c)
+
+            def kernel():
+                poison = [torch.full((m, w), float("nan"), device="cuda") for w in (c, 4 * c, c)]
+                del poison
+                return mlp_block(x, *mlp, operands=ops)
+
+            before = KERNELS["swin_mlp_f32"].launches
+            got = kernel()
+            if KERNELS["swin_mlp_f32"].launches != before + 1:
+                raise AssertionError(f"swin_mlp_f32 C={c} M={m}: "
+                                     f"{KERNELS['swin_mlp_f32'].launches - before} launches")
+            want = mlp_block_plain(x, *mlp)
+            mx, rel = compare("swin_mlp_f32", got, want, want - x, results)
+            ok = mx <= max_tol and rel <= rel_tols[stage]
+            sched = "; ".join(
+                f"{k} {s['tiles']} tiles of 128 x {s['bn']}, <= {s['per_block']} a block, last "
+                f"{s['last_rows']} rows, {s['ksteps']} K steps, "
+                f"{'consumers share the epilogue' if s['shared'] else 'epilogue warps alone'}"
+                for k, s in mlp_f32_schedule(c, m, sms).items())
+            log(f"  swin_mlp_f32 edge C={c} M={m} ({what}; {sched}; {sms} SMs): max_abs_err "
+                f"{mx:.4g} (tol {max_tol}) mean_abs_err / mean |out - x| {rel:.4g} "
+                f"(tol {rel_tols[stage]}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"swin_mlp_f32 C={c} M={m} ({what}) disagrees with its "
+                                     "plain version")
+            check_repeats(f"swin_mlp_f32 edge C={c} M={m}", ((m, got, kernel),))
+
+
+def mlp_f32_launches(cfg, name: str) -> None:
+    """Step 1's table for the f32 MLP kernel as it is: each of its three
+    launches at every stage of ``cfg`` at B = BATCH (torch.profiler, per
+    call), each product's TFLOP/s, and the sums over one forward's blocks
+    (``profile_mlp_f32``)."""
+    from audio_metrics_tpu_torch import kernels
+    from audio_metrics_tpu_torch.profile_evaluate import launch_ms
+    from audio_metrics_tpu_torch.profile_mlp_f32 import (
+        PEAK_F32_ACCURATE,
+        mlp_call,
+        part_of,
+        stage_inputs,
+    )
+
+    lib, gen = kernels.build(), torch.Generator(device="cuda").manual_seed(10)
+    total: dict = {}
+    res = cfg.grid_size
+    for stage, depth in enumerate(cfg.depths):
+        c, m = cfg.embed_dim * 2**stage, BATCH * res * res
+        inputs, flops = stage_inputs(gen, m, c), 8 * m * c * c
+        per = {part_of(k): v for k, v in launch_ms(lambda: mlp_call(lib, *inputs), 20).items()}
+        log(f"  swin_mlp_f32 {name} stage {stage} C={c} M={m} launches (torch.profiler, per "
+            "call): " + ", ".join(
+                f"{k} {v:.4f} ms" + ("" if k == "LN2" else
+                                     f" ({flops / (v * 1e-3) / 1e12:.1f} TFLOP/s, "
+                                     f"{flops / (v * 1e-3) / PEAK_F32_ACCURATE:.3f} of 165)")
+                for k, v in per.items()))
+        for k, v in per.items():
+            total[k] = total.get(k, 0.0) + depth * v
+        res //= 2
+    log(f"  swin_mlp_f32 {name} launches over {sum(cfg.depths)} blocks (#1 f32's launches "
+        "5-7): " + ", ".join(f"{k} {v:.4f} ms" for k, v in total.items()))
+
+
 def products_alone_ms(cfg, b, dtype=torch.bfloat16):
     """The yardstick of #1, #2 and #3 and of the split halves, which the
     port never calls: their products alone, one ``torch.matmul`` each in
@@ -1072,28 +1194,6 @@ def phase_prdc_kernels(results):
                                      bound_by=b[name][1])
 
 
-def launch_ms(fn, iters: int = 20) -> dict:
-    """Device time (ms) per call of each kernel that ``fn`` launches, by
-    name (torch.profiler over ``iters`` calls after one warm call); empty
-    if the trace holds no device time."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from audio_metrics_tpu_torch.profile_evaluate import _short
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    per: dict = {}
-    for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA and ev.device_time_total > 0:
-            name = _short(ev.name)
-            per[name] = per.get(name, 0.0) + ev.device_time_total / 1e3 / iters
-    return per
-
-
 def phase_log_mel(cfg, params, results):
     """The halo and the v1 log-mel kernels vs their plain versions: CLAP 10 s
     (centered, dB, BatchNorm affine, bf16 out) and VGGish (400-sample
@@ -1109,13 +1209,12 @@ def phase_log_mel(cfg, params, results):
         log_mel_halo_plain,
         log_mel_v1,
         log_mel_v1_plain,
-        mel_filter_bank,
     )
+    from audio_metrics_tpu_torch.profile_evaluate import launch_ms
 
     fr = ClapFrontend(params, cfg).to("cuda")
     gen = torch.Generator(device="cuda").manual_seed(5)
-    vgg_fb = mel_filter_bank(257, 64, 125.0, 7500.0, 16000, norm=None, mel_scale="htk",
-                             triangle_domain="mel", zero_dc=True).astype(np.float32)
+    vgg_fb = vggish_fb()
     clap = dict(frame_length=1024, hop_length=480, n_fft=1024, fb=_clap_fb(), center=True,
                 log_mode="db", out_affine=(fr.bn_scale, fr.bn_offset), out_dtype=torch.bfloat16)
     # (tolerance key, samples, arguments): the model path's CLAP 10 s window,
@@ -1162,14 +1261,14 @@ def phase_log_mel(cfg, params, results):
             ms = cuda_ms(lambda: kfn(audio[BATCH], **kw), TIMING_ITERS.get(name, 10),
                          warmup=10 if name in TIMING_ITERS else 2)
             pms = cuda_ms(lambda: pfn(audio[BATCH], **kw), iters=3)
-            frames, n_keep = got.shape[1], 384 if tol_key == "clap" else 256
-            dft = 2 * BATCH * frames * kw["frame_length"] * 2 * n_keep
-            b = bound({"bf16": dft, "f32": 2 * BATCH * frames * n_keep * 64},
-                      BATCH * n * 4 + BATCH * frames * 64 * got.element_size())
+            frames = got.shape[1]
+            dft = 2 * BATCH * frames * kw["frame_length"] * 2 * fb_bins(kw["fb"])
+            b = log_mel_bound(BATCH, frames, kw["frame_length"], kw["fb"], n,
+                              got.element_size())
             log(f"    B={BATCH}: kernel {ms:.4f} ms, plain {pms:.4f} ms, bound {b[0]:.4f} ms "
                 f"({b[1]}); the DFT's {dft:.4g} operations at {dft / (ms * 1e-3) / 1e12:.1f} "
                 f"TFLOP/s over the kernel's time")
-            per = launch_ms(lambda: kfn(audio[BATCH], **kw))
+            per = launch_ms(lambda: kfn(audio[BATCH], **kw), 20)
             log(f"    B={BATCH} launches (torch.profiler, per call): " + (", ".join(
                 f"{k} {v:.4f} ms" for k, v in per.items()) or "not measured"))
             if conv == "clap":
@@ -3592,10 +3691,7 @@ def phase_tiny_mel(card: str) -> dict:
             got_of[name] = again[BATCH]()
             ms = cuda_ms(again[BATCH], TIMING_ITERS[name], warmup=10)
             pms = cuda_ms(lambda: pfn(audio[BATCH], **kw), iters=3)
-            frames, n_keep = got.shape[1], fb_bins(fb)
-            b = bound({"bf16": 2 * BATCH * frames * 1024 * 2 * n_keep,
-                       "f32": 2 * BATCH * frames * n_keep * n_mels},
-                      BATCH * n * 4 + BATCH * frames * n_mels * 2)
+            b = log_mel_bound(BATCH, got.shape[1], 1024, fb, n, 2)
             out[(name, form)] = dict(ms=ms, plain_ms=pms, bound_ms=b[0], bound_by=b[1],
                                      max_abs_err=mx)
             log(f"    B={BATCH}: kernel {ms:.4f} ms, plain {pms:.4f} ms, bound {b[0]:.4f} ms "
@@ -3692,7 +3788,7 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; nothing was run", file=sys.stderr)
         return 1
     from audio_metrics_tpu_torch import kernels
-    from audio_metrics_tpu_torch.models.htsat import HTSAT_BASE
+    from audio_metrics_tpu_torch.models.htsat import HTSAT_BASE, HTSAT_TINY
     from audio_metrics_tpu_torch.testing import card_line
 
     torch.backends.cuda.matmul.allow_tf32 = False  # full-f32 references
@@ -3713,7 +3809,10 @@ def main() -> int:
     cfg = HTSAT_BASE
     params = check_params(cfg)
     results: dict = {}
+    phase_mlp_f32_edges(results)
     phase_kernels(cfg, params, results)
+    mlp_f32_launches(cfg, "HTSAT-base")
+    mlp_f32_launches(HTSAT_TINY, "HTSAT-tiny")
     phase_prdc_kernels(results)
     phase_log_mel(cfg, params, results)
     phase_fad_tail()
@@ -3742,7 +3841,7 @@ def main() -> int:
     log("phase 10 the default configuration: laion_clap_music by name from AM_TPU_CKPT_DIR, "
         "f32, fad + kd + prdc, 5 s windows")
     launches_f32, emb_f32 = phase_f32(card, params, {},
-                                      dict(swin_block_f32=18, patch_merge_f32=3))
+                                      dict(swin_block_f32=18, patch_merge_f32=3), warm_runs=3)
     log('phase 11 the default configuration in f32, split: AM_TPU_V4_STAGES="" (f32 v3 half + '
         "f32 fused MLP), then AM_TPU_ATTN_V1=1 (f32 v1 half at stages 0-1, XLA at 2-3)")
     launches_v3_f32, _ = phase_f32(

@@ -33,7 +33,9 @@ run (hop % 8 == 0).  Their f32 kernels (the f32
 block's launches, products as three TF32 products) against their f32
 plain versions in full f32 under the f32 block's bounds at each stage, at
 B = 4 and a ragged B = 3, with bitwise repeats; the v3 half then the MLP
-equal the whole f32 block bitwise (the same launches).  The int8 MLP in
+equal the whole f32 block bitwise (the same launches); the f32 MLP also at
+the row counts that reach the edges of its products' schedule
+(``testing.mlp_f32_edge_rows``).  The int8 MLP in
 f32: the bf16 int8 kernel's bounds.  The int8 MLP in both dtypes reads its
 weights' codes held from load (``mlp_int8_operands``), repeats bitwise, and
 equals the call that quantises them itself; at a ragged row count and at C
@@ -93,8 +95,10 @@ from audio_metrics_tpu_torch.ops.mlp import (
     mlp_block_int8_plain,
     mlp_int8_operands,
     mlp_block_plain,
+    mlp_operands,
 )
 from audio_metrics_tpu_torch.testing import (
+    mlp_f32_edge_rows,
     near_duplicate_rows,
     stats_mismatches,
 )
@@ -891,6 +895,39 @@ def test_mlp_f32_kernel_matches_plain(cuda, params, stage, b):
     ops = blk.kernel_operands()
     _f32_check("swin_mlp_f32", lambda: mlp_block(x, *mlp, eps=blk.eps, operands=ops),
                lambda: mlp_block_plain(x, *mlp, eps=blk.eps), x, stage)
+
+
+EDGES = ["M < 64, one tile", "M < 128, one tile", "3 row tiles, the last of 20 rows",
+         "one tile a block", "2 or 3 tiles a block"]
+
+
+@pytest.mark.parametrize("edge", EDGES)
+@pytest.mark.parametrize("c", [96, 128])
+def test_mlp_f32_kernel_at_schedule_edges(cuda, c, edge):
+    """The f32 MLP at the row counts that reach the edges of its products'
+    schedule (``testing.mlp_f32_edge_rows`` on this card's SM count: a
+    partial last row tile in one consumer's half or both, one tile a block
+    and 2 or 3; at C = 96 fc1's odd number of K steps): one launch a call,
+    bitwise repeats, the f32 bounds of stage 0.
+    The allocator's blocks of the call's sizes are filled with NaN first,
+    so a tile that no warpgroup writes shows."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    m = mlp_f32_edge_rows(c, sms)[edge]
+    rng = np.random.default_rng(c + len(edge))
+
+    def t(*shape, std=1.0):
+        return torch.from_numpy((std * rng.standard_normal(shape)).astype(np.float32)).to(cuda)
+
+    w1, w2 = t(c, 4 * c, std=c**-0.5), t(4 * c, c, std=(4 * c) ** -0.5)
+    mlp = (1.0 + t(c, std=0.1), t(c, std=0.5), w1, t(4 * c, std=0.5), w2, t(c, std=0.5))
+    ops, x = mlp_operands(w1, w2), t(m, c)
+
+    def call():
+        poison = [torch.full((m, w), float("nan"), device=cuda) for w in (c, 4 * c, c)]
+        del poison
+        return mlp_block(x, *mlp, operands=ops)
+
+    _f32_check("swin_mlp_f32", call, lambda: mlp_block_plain(x, *mlp), x, 0)
 
 
 @pytest.mark.parametrize("b", [4, 3])

@@ -26,12 +26,17 @@ parts (``ops.tf32``), A_lo @ B_hi + A_hi @ B_lo + A_hi @ B_hi.  Here:
   product there, which must again read 10x above the bounds;
 - the shapes the f32 kernels take (the f32 merge's A through the shared
   4-D tensor map, at K steps of 32, is held in tests/test_torch_merge.py);
-- the f32 mel chain's tables, uploaded once per device.
+- the f32 mel chain's tables, uploaded once per device;
+- the row counts at which the card checks run the f32 MLP reach every edge
+  of its products' schedule (``testing.mlp_f32_schedule``, read against
+  the kernel's constants).
 
 Small HTSAT (``tests/test_torch_slice.py``'s: widths 32-256, two blocks a
 stage) under weights at std 1/sqrt(fan_in), as ``chip_smoke.check_params``
 draws them, so that both halves of a block move its output by O(1).
 """
+
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -66,7 +71,14 @@ from audio_metrics_tpu_torch.ops.attention import (
 from audio_metrics_tpu_torch.ops.mlp import mlp_block_plain
 from audio_metrics_tpu_torch.ops.merge import check_merge_f32
 from audio_metrics_tpu_torch.ops.tf32 import tf32_round, tf32_split
-from audio_metrics_tpu_torch.testing import tf32x3_matmul
+from audio_metrics_tpu_torch.testing import (
+    RS_BK,
+    RS_BM,
+    RS_SHARE_K,
+    mlp_f32_edge_rows,
+    mlp_f32_schedule,
+    tf32x3_matmul,
+)
 
 cfg = HTSATConfig(embed_dim=32, depths=(2, 2, 2, 2), num_heads=(1, 2, 4, 8))
 # chip_smoke.py's f32 bounds: (mean abs error / mean |signal|, max abs error),
@@ -375,3 +387,31 @@ def test_f32_block_shape_check(c, ok):
     else:
         with pytest.raises(NotImplementedError):
             check_block_gemms("swin_block f32", c, torch.float32)
+
+
+def test_mlp_f32_edge_rows_reach_every_edge_of_the_schedule():
+    """On an H100's 132 SMs, over C = 96-1024, each of the f32 MLP's products
+    meets at the edge row counts: one tile a block and an odd count above 1;
+    a last row tile within consumer 0's 64 rows and one reaching into
+    consumer 1's; depths on both sides of RS_SHARE_K; and fc1 an odd number
+    of K steps.  The schedule model reads the kernel's tile and depth
+    constants."""
+    src = (Path(__file__).resolve().parents[1] / "audio_metrics_tpu_torch" / "kernels" / "csrc"
+           / "gemm_tf32x3_sm90.cuh").read_text()
+    assert f"constexpr int BM = {RS_BM}, BK = {RS_BK}," in src
+    assert (f"RS_SHARE_K = EPI == EPI_GELU ? {RS_SHARE_K['fc1']} : {RS_SHARE_K['fc2']};"
+            in src)
+    seen = {"fc1": set(), "fc2": set()}
+    for c in (96, 128, 256, 512, 1024):
+        for m in mlp_f32_edge_rows(c, 132).values():
+            for name, s in mlp_f32_schedule(c, m, 132).items():
+                per = s["per_block"]
+                seen[name] |= {("per block", "one" if per == 1 else "odd" if per % 2 else "even"),
+                               ("last rows in consumer 0's half", s["last_rows"] <= 64),
+                               ("shared", s["shared"]), ("odd K steps", s["ksteps"] % 2 == 1)}
+    for name, edges in seen.items():
+        assert {("per block", "one"), ("per block", "odd")} <= edges, name
+        assert {("last rows in consumer 0's half", True),
+                ("last rows in consumer 0's half", False)} <= edges, name
+        assert {("shared", True), ("shared", False)} <= edges, name
+    assert ("odd K steps", True) in seen["fc1"]
