@@ -278,22 +278,22 @@ class AudioMetrics:
         ``finalize`` (the whole stems metric tail after the projection; in
         the JAX package, from its coalesced pull to the return), and
         ``apa``.  No synchronisation is
-        added for them.  The forwards are enqueued asynchronously, but
-        after each one the batch's row count goes to the device as a host
-        scalar (``data.batch_moments``), a copy that waits for the stream:
-        so ``pipeline`` holds the device time of every forward (and the
-        mixes' one copy of their flags to the host), and what is left of
-        the loop (the last batch's moments) lands in the first stage that
-        reads a device value: ``projection`` with ``n_pca`` or at APA's
-        first evaluate, else ``fad`` (its device tail reads the
-        candidate's moments, metrics/fad.py:117), else ``kd_dispatch``
-        (metrics/kd.py:201-202), else ``prdc_dispatch``, else ``apa``.
-        Each metric stage here returns host values, so the dispatches
-        include their own syncs.  Over a mesh of several shards the loops
-        send no host value (``parallel.pipeline.sharded_embed_loop``), so
-        ``pipeline`` ends when the shards' forwards are enqueued and the
-        wait for the card lands in the first stage that reads a device
-        value.  Songs given as an iterable take the
+        added for them.  The forwards are enqueued asynchronously and the
+        embed loop sends no host value to the card (a batch's row count is
+        filled in on the device, ``data.batch_moments``; over a mesh,
+        ``parallel.pipeline.sharded_embed_loop``), so ``pipeline`` ends
+        when the last forward is enqueued (the pair path's one read of its
+        mix flags waits for the mixes), and the wait for the card lands in
+        the first stage that reads a device value: ``projection`` with
+        ``n_pca`` or at APA's first evaluate, else ``fad`` (its device tail,
+        ``metrics.fad.fad_device_tail``, pulls a trace square root or M's
+        eigenvalues and the candidate's mean; under
+        ``AM_TPU_FAD_TAIL=host``, read at each call, the candidate's
+        moments for the float64 ``frechet_distance``), else
+        ``kd_dispatch`` (the pull of its Gram sums), else
+        ``prdc_dispatch``, else ``apa``.  Each metric stage here returns
+        host values, so the dispatches include their own syncs.  Songs
+        given as an iterable take the
         host-fed path (``parallel.pipeline.embedding_pipeline``), which
         sends no host value to the card after a forward: there ``pipeline``
         ends with the one pull of the moments, which waits for the card,

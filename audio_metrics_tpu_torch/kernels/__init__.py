@@ -320,5 +320,13 @@ KERNELS = {
             "audio_metrics_tpu_torch/kernels/csrc/mlp_int8.cu",
             "audio_metrics_tpu/ops/mlp.py:228",
         ),
+        # the merged one-window form of #10 and #11 (window = resolution =
+        # 16, AM_TPU_MERGED_ATTN): their wrappers launch the same entries,
+        # whose attention is then merged_attn.cuh's; one count a wrapper
+        # and dtype
+        *(Kernel(f"swin_attn_{v}_merged{dt}",
+                 "audio_metrics_tpu_torch/kernels/csrc/merged_attn.cuh",
+                 f"audio_metrics_tpu/ops/attention.py:{line}")
+          for v, line in (("v1", 400), ("v2", 363)) for dt in ("", "_f32")),
     )
 }

@@ -70,7 +70,13 @@
 //                        applied in the kernel and per-head (heads, C, d)
 //                        weights, here laid out at load as one (C, heads*d)
 //                        operand (pure reshapes), so the sum over heads of
-//                        ctx_h @ wp_h runs inside one K = C product;
+//                        ctx_h @ wp_h runs inside one K = C product; at
+//                        window = resolution = 16 (the merged one-window
+//                        form, AM_TPU_MERGED_ATTN) launch 3 is
+//                        merged_attn.cuh's 256-token attention on a dense
+//                        (1, heads, 256, 256) table, and the window pass
+//                        and the proj scatter take the one window's map
+//                        (window_src at win = R: the roll alone);
 //   am_swin_attn_v2, am_swin_attn_v2_f32
 //                        #11, ops/attention.py::_attn_block_call_v2
 //                        (pallas_call at :363, kernel _attn_block_kernel_v2
@@ -92,7 +98,7 @@
 // by the bf16 rounding of the mid-block residual (the whole block keeps it
 // f32).
 #include "gemm_tf32x3_sm90.cuh"
-#include "window_attn.cuh"
+#include "merged_attn.cuh"
 
 namespace {
 
@@ -202,7 +208,7 @@ int attn_half_bf16(const bf16* x, const float* ln_w, const float* ln_b, const bf
   }
   if (e) return e;
 
-  if ((e = launch_window_attn(qkv, bm, nbm, M / WIN_N, heads, C, ctx, stream)) != cudaSuccess)
+  if ((e = launch_attention(qkv, bm, nbm, M, win, heads, C, ctx, stream)) != cudaSuccess)
     return e;
 
   p = EpiParams{};
@@ -267,7 +273,7 @@ int attn_half_f32(const float* x, const float* ln_w, const float* ln_b, const fl
   }
   if (e) return e;
 
-  if ((e = launch_window_attn(qkv, bm, nbm, M / WIN_N, heads, C, ctx, stream)) != cudaSuccess)
+  if ((e = launch_attention(qkv, bm, nbm, M, win, heads, C, ctx, stream)) != cudaSuccess)
     return e;
 
   p = EpiF32{};

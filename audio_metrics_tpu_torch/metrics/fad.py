@@ -5,10 +5,17 @@ Counterpart of ``audio_metrics_tpu/metrics/fad.py``:
 - the host float64 path (:38-70, :261-301), the oracle:
   ``FAD = |mu_x - mu_y|^2 + Tr Sx + Tr Sy - 2 Tr sqrt(Sx Sy)`` with
   ``Tr sqrt(Sx Sy) = Tr sqrt(L^T Sy L)`` for ``Sx = L L^T``;
-- the ``nsdev`` device tail (:73-130, :180-260): ``M = L^T C L`` and a
-  coupled Newton-Schulz ``Tr sqrt(M)`` in f32 on the device against the
-  reference Cholesky factor, cached on the device per reference.  Its
-  products run in full f32: TF32 is switched off for the duration;
+- the device tail (:122-256): ``M = L^T C L`` in f32 on the device
+  against the reference Cholesky factor, cached on the device per
+  reference, then ``Tr sqrt(M)`` as ``AM_TPU_FAD_TAIL`` says, read at each
+  call as the JAX package reads it (:144-145): ``nsdev`` (the default) a
+  coupled Newton-Schulz iteration in f32 on the device; ``eigdev`` f32
+  ``eigvalsh`` on the device, the square roots summed in float64 on the
+  host; ``packed`` (and any value the JAX package does not name, which
+  takes its ``packed`` branch) M pulled, float64 ``eigvalsh`` on the host;
+  ``host`` no device tail: the caller takes the float64
+  :func:`frechet_distance`.  Its products run in full f32: TF32 is
+  switched off for the duration;
 - ``fad_inf_parts`` (:304-418), FAD-inf: FAD at several subset sizes of
   the candidate, extrapolated linearly in 1/size to an infinite set, in
   float64 on the device (the JAX package: f32, whose Newton-Schulz
@@ -45,6 +52,10 @@ NS_METHOD_ITERS = 30  # frechet_distance(method="newton_schulz"), as the JAX fad
 
 def _ns_iters() -> int:
     return int(os.environ.get("AM_TPU_FAD_NS_ITERS", "30"))
+
+
+def _fad_tail_mode() -> str:
+    return os.environ.get("AM_TPU_FAD_TAIL", "nsdev")
 
 
 def _sym_sqrtm(a: np.ndarray) -> np.ndarray:
@@ -148,14 +159,18 @@ def _ref_chol_device(ref: AudioMetricsData, l: np.ndarray, device) -> torch.Tens
     return l_dev
 
 
-def fad_device_tail(cand: AudioMetricsData, ref: AudioMetricsData) -> float | None:
-    """FAD with the candidate's moments still on the device.
+def fad_device_tail(cand: AudioMetricsData, ref: AudioMetricsData,
+                    mode: str | None = None) -> float | None:
+    """FAD with the candidate's moments still on the device, its ``Tr
+    sqrt(M)`` as ``mode`` says (default ``AM_TPU_FAD_TAIL``, read at each
+    call, else ``nsdev``; the module docstring lists the modes).
 
     Applies when ``cand`` holds exactly one pending device moment triple
-    with n > d (full-rank covariance) and ``ref`` has a Cholesky factor;
-    returns None otherwise (the caller takes :func:`frechet_distance`).
-    ``cand``'s pending triple stays in place."""
-    if len(cand._pending) != 1:
+    with n > d (full-rank covariance) and ``ref`` has a Cholesky factor,
+    and ``mode`` is not ``host``; returns None otherwise (the caller takes
+    :func:`frechet_distance`).  ``cand``'s pending triple stays in place."""
+    mode = _fad_tail_mode() if mode is None else mode
+    if mode == "host" or len(cand._pending) != 1:
         return None
     n, s1, m2 = cand._pending[0]
     d = m2.shape[0]
@@ -170,12 +185,19 @@ def fad_device_tail(cand: AudioMetricsData, ref: AudioMetricsData) -> float | No
         m = l_dev.T @ (c @ l_dev)
         m = 0.5 * (m + m.T)
         tr_x = torch.diagonal(c).double().sum()
-    trsqrt = _ns_trace_sqrt_sym(m)
+    if mode == "nsdev":
+        trsqrt = float(_ns_trace_sqrt_sym(m))
+    else:
+        if mode == "eigdev":
+            vals = torch.linalg.eigvalsh(m).double().cpu().numpy()
+        else:  # "packed", and any value the JAX package does not name (fad.py:165-170)
+            vals = np.linalg.eigvalsh(m.double().cpu().numpy())
+        trsqrt = float(np.sqrt(np.clip(vals, 0.0, None)).sum())
     mu_ref, cov_ref, _ = ref.stats()
     mu_x = s1.double().cpu().numpy() / n
     a = float(np.sum(np.square(mu_x - mu_ref)))
     b = float(tr_x) + float(np.trace(cov_ref))
-    return a + b - 2.0 * float(trsqrt)
+    return a + b - 2.0 * trsqrt
 
 
 # ----------------------------------------------------------------------

@@ -9,10 +9,14 @@ the value bias in ``bp``, the bias+mask table, and the patch-merge LN fold
 — computed once when the weights load, not on every forward.
 
 Which path a Swin block takes follows the JAX package's ``_swin_block``
-(:528-631) and the same two environment variables, read once when the
-encoder is built (the JAX package reads them at import):
+(:528-631) and the same three environment variables, read once when the
+encoder is built (the JAX package reads the first two at import, the third
+when it traces a forward): under ``AM_TPU_MERGED_ATTN`` the blocks with
+window < resolution <= 16 (stage 2) run their attention half as v1 over
+one 256-token window an image (window = resolution, the shift kept, the
+dense table of :func:`_merged_bias_mask`), whatever the other two say;
 ``AM_TPU_V4_STAGES`` (default ``2u,2s,0u,0s,1u,1s,3u``) lists the
-``{stage}{u|s}`` entries whose blocks run whole (v4); the other blocks run
+``{stage}{u|s}`` entries whose other blocks run whole (v4); the rest run
 their attention half as v3, or, under ``AM_TPU_ATTN_V1``, as v1 at stages
 of >= 16 windows and as the XLA attention elsewhere; then the fused MLP
 where a forward has >= 1024 tokens or >= 16384 rows, else the XLA MLP.
@@ -225,6 +229,36 @@ def _bias_mask(p: dict, pre: str, resolution: int, shift: int, num_heads: int,
     return np.ascontiguousarray(bm, np.float32)
 
 
+@lru_cache(maxsize=None)
+def _merged_window_index(resolution: int, window: int):
+    """Token -> (window id, position within its window) of the merged
+    one-window layout (audio_metrics_tpu/models/htsat.py:143-153): tokens in
+    the rolled image's raster order, windows (row-block, col-block) in row
+    order, as :func:`_shift_attn_mask` numbers them."""
+    idx = np.arange(resolution)
+    rr, cc = np.meshgrid(idx, idx, indexing="ij")
+    wid = (rr // window) * (resolution // window) + (cc // window)
+    pid = (rr % window) * window + (cc % window)
+    return wid.reshape(-1), pid.reshape(-1)
+
+
+def _merged_bias_mask(bm: np.ndarray, resolution: int, window: int) -> np.ndarray:
+    """A per-window (nW or 1, heads, n, n) bias+mask table scattered onto
+    the dense (1, heads, R^2, R^2) table of one window over the whole image
+    (audio_metrics_tpu/models/htsat.py:156-172): pairs of two windows get
+    -1e9, whose probability underflows to exactly 0 in the f32 softmax, so
+    the one-window attention equals the per-window one.  4 MB a block at
+    stage 2 (16 heads of 256^2 f32), made once at load."""
+    wid, pid = _merged_window_index(resolution, window)
+    same = wid[:, None] == wid[None, :]
+    if bm.shape[0] == 1:
+        dense = bm[0][:, pid[:, None], pid[None, :]]  # (heads, N, N)
+    else:
+        dense = bm[wid[:, None], :, pid[:, None], pid[None, :]].transpose(2, 0, 1)
+    return np.ascontiguousarray(np.where(same[None, None], dense[None], np.float32(-1e9)),
+                                np.float32)
+
+
 def _mlp_weights(p: dict, prefix: str) -> dict:
     """LN2 and the MLP, input-major (htsat.py:612-631)."""
     f32 = lambda k: np.asarray(p[k], np.float32)
@@ -311,6 +345,17 @@ def _v1_kernel_weights(p: dict, prefix: str, resolution: int, shift: int,
     )
 
 
+def _merged_kernel_weights(p: dict, prefix: str, resolution: int, shift: int,
+                           num_heads: int, window: int) -> dict:
+    """The merged path's weights (``AM_TPU_MERGED_ATTN``,
+    audio_metrics_tpu/models/htsat.py:347-349): v1's, with its (nW or 1,
+    heads, 64, 64) table scattered onto the dense (1, heads, R^2, R^2) one
+    (:func:`_merged_bias_mask`)."""
+    w = _v1_kernel_weights(p, prefix, resolution, shift, num_heads, window)
+    w["bm"] = _merged_bias_mask(w["bm"], resolution, window)
+    return w
+
+
 def _v2_kernel_weights(p: dict, prefix: str, resolution: int, shift: int,
                        num_heads: int, window: int) -> dict:
     """The layout of the v2 attention half (``ops.attention.
@@ -372,7 +417,7 @@ def _merge_weights(p: dict, prefix: str) -> dict:
 
 _MATRICES = ("wqkv", "wp", "w1", "w2", "wg", "wq", "wk", "wv")  # held in the compute dtype
 _WEIGHTS = {"v4": _v3_kernel_weights, "v3": _v3_kernel_weights, "v1": _v1_kernel_weights,
-            "xla": _xla_weights}
+            "merged": _merged_kernel_weights, "xla": _xla_weights}
 _DEFAULT_V4_STAGES = "2u,2s,0u,0s,1u,1s,3u"
 
 
@@ -388,20 +433,26 @@ class _Folded(nn.Module):
 
 
 def attention_choice(stage: int, shift: int, n_windows: int, v4_stages: frozenset,
-                     attn_v1: bool) -> str:
+                     attn_v1: bool, merged_attn: bool = False, resolution: int = 0) -> str:
     """The attention path of one block, in the dispatch order of
-    audio_metrics_tpu/models/htsat.py:564-584 (``shift`` after the
-    one-window rule): "v4" (the whole block in one kernel) if the block's
-    ``{stage}{u|s}`` entry is in the table and ``AM_TPU_ATTN_V1`` is unset;
-    else "v3" if it is unset; else "v1" at >= 16 windows; else "xla"."""
+    audio_metrics_tpu/models/htsat.py:553-584 (``shift`` after the
+    one-window rule): "merged" (v1 over one window of the whole image) if
+    ``AM_TPU_MERGED_ATTN`` is set and window < ``resolution`` <= 16 (more
+    than one window, at most 256 tokens), before the other rules; else "v4"
+    (the whole block in one kernel) if the block's ``{stage}{u|s}`` entry
+    is in the table and ``AM_TPU_ATTN_V1`` is unset; else "v3" if it is
+    unset; else "v1" at >= 16 windows; else "xla"."""
+    if merged_attn and n_windows > 1 and resolution <= 16:
+        return "merged"
     if not attn_v1:
         return "v4" if f"{stage}{'s' if shift else 'u'}" in v4_stages else "v3"
     return "v1" if n_windows >= 16 else "xla"
 
 
 class SwinBlock(_Folded):
-    """One Swin block.  ``attention`` is its path ("v4", "v3", "v1" or
-    "xla", :func:`attention_choice`); it holds the weights in that path's
+    """One Swin block.  ``attention`` is its path ("merged", "v4", "v3",
+    "v1" or "xla", :func:`attention_choice`; "merged" runs v1 at window =
+    resolution); it holds the weights in that path's
     layout, and since they loaded what its kernels read besides
     (:meth:`kernel_operands`).  ``forward(x)`` runs the kernel wrappers (or
     the XLA halves, in f32 under ``full_f32``); ``forward(x, plain=True)``
@@ -415,6 +466,8 @@ class SwinBlock(_Folded):
         super().__init__(
             _WEIGHTS[attention](p, prefix, resolution, shift, heads, window), dtype
         )
+        if attention == "merged":  # htsat.py:347-349: one window spanning the image
+            window = resolution
         self.attention = attention
         self.resolution, self.window, self.shift = resolution, window, shift
         self.heads, self.eps = heads, cfg.layer_norm_eps
@@ -425,7 +478,7 @@ class SwinBlock(_Folded):
             ops = swin_block_operands(self.wqkv, self.wp, self.w1, self.w2)
         else:
             ops = mlp_operands(self.w1, self.w2)  # the fused MLP at a large enough batch
-            if attention == "v1":
+            if attention in ("v1", "merged"):
                 ops.update(v1_operands(self.wq, self.bq, self.wk, self.wv, self.wp))
         for name, t in ops.items():
             self.register_buffer(name, t)
@@ -436,7 +489,7 @@ class SwinBlock(_Folded):
         operands, held as buffers since the weights loaded: the whole
         block's :func:`ops.attention.swin_block_operands` (v4 and v3 blocks,
         whose attention half and MLP read it); else the MLP's
-        :func:`ops.mlp.mlp_operands`, with v1 blocks'
+        :func:`ops.mlp.mlp_operands`, with v1 and merged blocks'
         :func:`ops.attention.v1_operands`."""
         return {k: getattr(self, k) for k in self._operand_names}
 
@@ -466,7 +519,7 @@ class SwinBlock(_Folded):
         if self.attention == "v3":
             fn = swin_attention_half_v3_plain if plain else swin_attention_half_v3
             x4 = fn(x4, self.wqkv, self.bq3, self.wp, self.bp, self.bm, **geo, **ops)
-        elif self.attention == "v1":
+        elif self.attention in ("v1", "merged"):
             fn = swin_attention_half_v1_plain if plain else swin_attention_half_v1
             x4 = fn(x4, self.ln1_w, self.ln1_b, self.wq, self.bq, self.wk, self.wv, self.wp,
                     self.bp, self.bm, **geo, **ops)
@@ -503,9 +556,10 @@ class HTSATEncoder(nn.Module):
     the Swin stages, final LN, token-semantic regroup, average pool
     (audio_metrics_tpu/models/htsat.py:947-988).
 
-    ``AM_TPU_V4_STAGES`` and ``AM_TPU_ATTN_V1`` are read here, when the
-    encoder is built, and fix each block's path (:func:`attention_choice`);
-    the JAX package reads them once at import."""
+    ``AM_TPU_MERGED_ATTN``, ``AM_TPU_V4_STAGES`` and ``AM_TPU_ATTN_V1``
+    are read here, when the encoder is built, and fix each block's path
+    (:func:`attention_choice`); the JAX package reads the last two once at
+    import, the first when it traces a forward."""
 
     def __init__(self, p: dict, cfg: HTSATConfig, dtype: torch.dtype):
         super().__init__()
@@ -517,6 +571,7 @@ class HTSATEncoder(nn.Module):
             if e.strip()
         )
         attn_v1 = bool(os.environ.get("AM_TPU_ATTN_V1"))
+        merged_attn = bool(os.environ.get("AM_TPU_MERGED_ATTN"))
         resolution = cfg.grid_size
         for i, depth in enumerate(cfg.depths):
             stage = nn.ModuleList()
@@ -524,7 +579,7 @@ class HTSATEncoder(nn.Module):
             for j in range(depth):
                 shift = 0 if j % 2 == 0 or resolution <= window else cfg.window_size // 2
                 attention = attention_choice(i, shift, (resolution // window) ** 2, v4_stages,
-                                             attn_v1)
+                                             attn_v1, merged_attn, resolution)
                 stage.append(SwinBlock(
                     p, f"audio_encoder.layers.{i}.blocks.{j}", cfg, resolution,
                     shift, cfg.num_heads[i], dtype, attention=attention,

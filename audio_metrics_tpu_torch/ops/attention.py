@@ -17,6 +17,13 @@ Counterparts in ``audio_metrics_tpu``:
   kernel ``_attn_block_kernel_v2`` :226), kernels/csrc/swin_block.cu::
   am_swin_attn_v2 (v1's launches).  A public op that no model path calls,
   in the JAX package as here;
+- the merged one-window form of v1 and v2: window = resolution = 16 (one
+  256-token window an image, HTSAT's stage 2 under ``AM_TPU_MERGED_ATTN``,
+  models/htsat.py:553-563 there) with a dense (1, heads, 256, 256) table
+  (``models.htsat._merged_bias_mask``): the same wrappers and entries,
+  whose attention launch is then kernels/csrc/merged_attn.cuh's, each
+  counted apart (``KERNELS["swin_attn_v1_merged"]``, ``_v2_merged``, each
+  with its ``_f32`` twin);
 - ``window_attention_xla``: the XLA attention half of
   ``models/htsat.py::_swin_block`` (:584-607, ``_window_attention``
   :237-285), the JAX package's own non-kernel path: it runs on both
@@ -81,11 +88,7 @@ __all__ = [
 KERNEL = KERNELS["swin_block"]
 KERNEL_F32 = KERNELS["swin_block_f32"]
 KERNEL_V3 = KERNELS["swin_attn_v3"]
-KERNEL_V1 = KERNELS["swin_attn_v1"]
-KERNEL_V2 = KERNELS["swin_attn_v2"]
 KERNEL_V3_F32 = KERNELS["swin_attn_v3_f32"]
-KERNEL_V1_F32 = KERNELS["swin_attn_v1_f32"]
-KERNEL_V2_F32 = KERNELS["swin_attn_v2_f32"]
 
 
 def _mm(a, b):
@@ -114,13 +117,14 @@ def _unpartition(rows, b: int, h: int, w: int, window: int, shift: int):
 
 
 def _window_context(y, bm, heads: int):
-    """Window-order qkv rows ``y`` (windows*64, 3C), q pre-scaled, in the
-    activation dtype, and the (nbm, heads, 64, 64) f32 bias+mask table
-    (window g reads table g % nbm) -> the context rows (windows*64, C):
+    """Window-order qkv rows ``y`` (windows*n, 3C), q pre-scaled, in the
+    activation dtype, and the (nbm, heads, n, n) f32 bias+mask table
+    (window g reads table g % nbm) -> the context rows (windows*n, C):
     scores + bias/mask and softmax in f32, probabilities and context rounded
     to the activation dtype.  The plain version of the window attention
-    launch (kernels/csrc/window_attn.cuh, ``am_window_attn`` /
-    ``am_window_attn_f32``)."""
+    launch at n = 64 (kernels/csrc/window_attn.cuh, ``am_window_attn`` /
+    ``am_window_attn_f32``) and of the merged one at n = 256 (kernels/csrc/
+    merged_attn.cuh, launch 3 of the v1 and v2 halves there)."""
     dt, n = y.dtype, bm.shape[-1]
     c = y.shape[1] // 3
     g, d = y.shape[0] // n, c // heads
@@ -156,20 +160,43 @@ def _qkv_ln_folded(x, wqkv, bq3, window: int, shift: int, eps: float):
     return (_mm(xw, wqkv) * rs - (rs * mu) * csum + bq3).to(x.dtype)
 
 
-def _check_geometry(name, x, heads, window, bm):
-    """8x8 windows of heads the window attention takes (kernels/csrc/
-    window_attn.cuh): 24 or 32 wide (HTSAT-tiny and HTSAT-base), for the
-    whole block (#1) and the attention halves (#8, #10, #11) alike, which
-    share its launches."""
+MERGED_TOKENS = 256  # the merged one-window form: window = resolution = 16
+
+
+def _check_windows(name, x, heads, window, bm, merged: bool = False):
+    """The windows that the attention kernels take: 8x8, or, where
+    ``merged`` (#10 and #11), also the merged one-window form, window =
+    resolution with R^2 = 256 tokens (``AM_TPU_MERGED_ATTN`` at stage 2);
+    and the (nbm, heads, n, n) table of n = window^2 tokens, nbm the
+    windows of an image or 1.  Any other window raises
+    ``NotImplementedError`` naming the roadmap, any other table
+    ``ValueError``, before a launch."""
     b, r, r2, c = x.shape
-    head_ok = heads > 0 and c % heads == 0 and c // heads in (24, 32)
-    if r != r2 or r % window or window * window != 64 or not head_ok:
+    one = merged and window == r and r * r == MERGED_TOKENS
+    if r != r2 or r % window or not (window * window == 64 or one):
+        form = " or one 16x16 window (window = resolution)" if merged else ""
         raise NotImplementedError(
-            f"{name} kernel takes 8x8 windows of 24- or 32-wide heads, got R={r} "
-            f"window={window} C={c} heads={heads}"
+            f"{name} takes 8x8 windows{form}, got R={r} window={window} (ROADMAP.md, "
+            "'What still raises')"
         )
-    if bm.shape[1:] != (heads, 64, 64) or bm.shape[0] not in (1, (r // window) ** 2):
-        raise ValueError(f"bias/mask table shape {tuple(bm.shape)}")
+    n = window * window
+    if bm.dim() != 4 or bm.shape[1:] != (heads, n, n) or bm.shape[0] not in (
+            1, (r // window) ** 2):
+        raise ValueError(f"{name} reads a ({r // window}^2 or 1, {heads}, {n}, {n}) "
+                         f"bias/mask table, got {tuple(bm.shape)}")
+
+
+def _check_geometry(name, x, heads, window, bm, merged: bool = False):
+    """:func:`_check_windows`, and heads that the attention kernels take
+    (kernels/csrc/window_attn.cuh, merged_attn.cuh): 24 or 32 wide
+    (HTSAT-tiny and HTSAT-base), for the whole block (#1) and the attention
+    halves (#8, #10, #11) alike, which share their launches."""
+    c = x.shape[-1]
+    if not (heads > 0 and c % heads == 0 and c // heads in (24, 32)):
+        raise NotImplementedError(
+            f"{name} kernel takes 24- or 32-wide heads, got C={c} heads={heads}"
+        )
+    _check_windows(name, x, heads, window, bm, merged)
 
 
 # ----------------------------------------------------------------------
@@ -410,41 +437,35 @@ def v1_operands(wq, bq, wk, wv, wp) -> dict:
     return dict(half_operands(wqkv, wp2), bq3=bq3.contiguous())
 
 
-def _window_8x8(name: str, window: int, x) -> None:
-    if window * window != 64:
-        raise NotImplementedError(
-            f"{name} takes 8x8 windows; the merged one-window form (window = "
-            f"resolution = {x.shape[1]}, AM_TPU_MERGED_ATTN) is not ported (ROADMAP.md, "
-            f"'Not to port')"
-        )
-
-
 def swin_attention_half_v1_plain(x, ln_w, ln_b, wq, bq, wk, wv, wp, bp, bm, *, heads: int,
                                  window: int, shift: int, eps: float = 1e-5):
     """x (B, R, R, C) -> x + WindowAttention(LN1(x)), same dtype: v2's plain
     version on the per-head operands laid side by side."""
-    _window_8x8("swin_attn_v1", window, x)
+    _check_windows("swin_attn_v1", x, heads, window, bm, merged=True)
     return swin_attention_half_v2_plain(x, ln_w, ln_b, *_head_columns(wq, bq, wk, wv, wp), bp,
                                         bm, heads=heads, window=window, shift=shift, eps=eps)
 
 
-def _attention_ln_affine_cuda(kernel, x, ln_w, ln_b, bq3, bp, bm, *, heads, window, shift, eps,
+def _attention_ln_affine_cuda(version, x, ln_w, ln_b, bq3, bp, bm, *, heads, window, shift, eps,
                               operands, made_by):
-    """Launch v1's or v2's kernel of x's dtype on the :func:`half_operands`
-    form of the (C, 3C) / (C, C) operands."""
+    """Launch ``version``'s ("v1" or "v2") entry of x's dtype on the
+    :func:`half_operands` form of the (C, 3C) / (C, C) operands, counted on
+    its kernel, or on its merged form's at window = resolution = 16."""
     b, r, _, c = x.shape
-    _window_8x8(kernel.name, window, x)
+    f32 = "_f32" if x.dtype == torch.float32 else ""
+    merged = "_merged" if window * window == MERGED_TOKENS else ""
+    kernel = KERNELS[f"swin_attn_{version}{merged}{f32}"]
+    _check_geometry(kernel.name, x, heads, window, bm, merged=True)
     check_block_gemms(kernel.name, c, x.dtype, HALF_PRODUCTS)
     wqkv_t, wp_t = _block_matrices(kernel.name, operands, c, HALF_PRODUCTS, made_by,
                                    x.dtype)
     require_cuda(x, wqkv_t, wp_t, dtype=x.dtype)
     require_cuda(ln_w, ln_b, bq3, bp, bm, dtype=torch.float32)
-    _check_geometry(kernel.name, x, heads, window, bm)
     if bq3.shape != (3 * c,):
         raise ValueError(f"{kernel.name} reads bq3 as ({3 * c},), got {tuple(bq3.shape)}")
     scratch = _half_scratch(x, stats=False)
-    kernel.launch(f"am_{kernel.name}", x, ln_w, ln_b, wqkv_t, bq3, wp_t, bp, bm, bm.shape[0], b,
-                  r, c, heads, window, shift, float(eps), *scratch)
+    kernel.launch(f"am_swin_attn_{version}{f32}", x, ln_w, ln_b, wqkv_t, bq3, wp_t, bp, bm,
+                  bm.shape[0], b, r, c, heads, window, shift, float(eps), *scratch)
     kernel.count()
     return scratch[-1]
 
@@ -452,15 +473,15 @@ def _attention_ln_affine_cuda(kernel, x, ln_w, ln_b, bq3, bp, bm, *, heads, wind
 def swin_attention_half_v1(x, ln_w, ln_b, wq, bq, wk, wv, wp, bp, bm, *, heads: int,
                            window: int, shift: int, eps: float = 1e-5, operands=None):
     """Attention half of a Swin block with per-head weights, (B, R, R, C)
-    -> (B, R, R, C); 8x8 windows only.  ``operands``: the kernel's
-    :func:`v1_operands` of these weights, made at load; a CUDA tensor needs
-    them, a CPU tensor ignores them."""
+    -> (B, R, R, C); 8x8 windows, or the merged one-window form (window =
+    resolution = 16, ``bm`` (1, heads, 256, 256)).  ``operands``: the
+    kernel's :func:`v1_operands` of these weights, made at load; a CUDA
+    tensor needs them, a CPU tensor ignores them."""
     geo = dict(heads=heads, window=window, shift=shift, eps=eps)
     if x.device.type == "cpu":
         return swin_attention_half_v1_plain(x, ln_w, ln_b, wq, bq, wk, wv, wp, bp, bm, **geo)
-    kernel = KERNEL_V1_F32 if x.dtype == torch.float32 else KERNEL_V1
     bq3 = None if operands is None else operands["bq3"]
-    return _attention_ln_affine_cuda(kernel, x, ln_w, ln_b, bq3, bp, bm, **geo, operands=operands,
+    return _attention_ln_affine_cuda("v1", x, ln_w, ln_b, bq3, bp, bm, **geo, operands=operands,
                                      made_by="v1_operands(wq, bq, wk, wv, wp)")
 
 
@@ -475,7 +496,7 @@ def swin_attention_half_v2_plain(x, ln_w, ln_b, wqkv, bq3, wp, bp, bm, *, heads:
     bias) rounded, then as v3.  The JAX kernel's per-head contractions over
     lane-masked k and v add only zeros beyond the head's d lanes, so they are
     the d-wide per-head products taken here."""
-    _window_8x8("swin_attn_v2", window, x)
+    _check_windows("swin_attn_v2", x, heads, window, bm, merged=True)
     xw = _partition(layer_norm(x, ln_w, ln_b, eps), window, shift)
     y = (_mm(xw, wqkv) + bq3).to(x.dtype)
     return _attention_residual(x, y, wp, bp, bm, heads, window, shift).to(x.dtype)
@@ -484,14 +505,14 @@ def swin_attention_half_v2_plain(x, ln_w, ln_b, wqkv, bq3, wp, bp, bm, *, heads:
 def swin_attention_half_v2(x, ln_w, ln_b, wqkv, bq3, wp, bp, bm, *, heads: int, window: int,
                            shift: int, eps: float = 1e-5, operands=None):
     """Attention half of a Swin block under v2's contract, (B, R, R, C) ->
-    (B, R, R, C); 8x8 windows only.  ``operands``: the kernel's
-    :func:`half_operands` of ``wqkv`` and ``wp``, made once by the caller; a
-    CUDA tensor needs them, a CPU tensor ignores them."""
+    (B, R, R, C); 8x8 windows, or the merged one-window form as v1.
+    ``operands``: the kernel's :func:`half_operands` of ``wqkv`` and ``wp``,
+    made once by the caller; a CUDA tensor needs them, a CPU tensor ignores
+    them."""
     geo = dict(heads=heads, window=window, shift=shift, eps=eps)
     if x.device.type == "cpu":
         return swin_attention_half_v2_plain(x, ln_w, ln_b, wqkv, bq3, wp, bp, bm, **geo)
-    kernel = KERNEL_V2_F32 if x.dtype == torch.float32 else KERNEL_V2
-    return _attention_ln_affine_cuda(kernel, x, ln_w, ln_b, bq3, bp, bm, **geo, operands=operands,
+    return _attention_ln_affine_cuda("v2", x, ln_w, ln_b, bq3, bp, bm, **geo, operands=operands,
                                      made_by="half_operands(wqkv, wp)")
 
 

@@ -107,6 +107,22 @@ FAULTS = {
     "I1": (f"{CSRC}/gemm_sm90.cuh", "__fmul_rn(a[i], __fmul_rn(rs, s[i]))",
            "__fmul_rn(a[i], s[i])",
            "the int8 MLP's fc1 epilogue drops the row scale sx (both dtypes)"),
+    "Z1": (f"{CSRC}/merged_attn.cuh",
+           "    const float2 b0 = *reinterpret_cast<const float2*>(t0 + 8 * j + 2 * tq);\n"
+           "    const float2 b1 = *reinterpret_cast<const float2*>(t0 + 8 * N + 8 * j + 2 * tq);\n",
+           "    const bool own = j / 8 == row / 64;  // the query's own 64-key tile\n"
+           "    const float2 b0 = own ? *reinterpret_cast<const float2*>(t0 + 8 * j + 2 * tq)\n"
+           "                          : make_float2(0.f, 0.f);\n"
+           "    const float2 b1 = own ? *reinterpret_cast<const float2*>(t0 + 8 * N + 8 * j + "
+           "2 * tq)\n"
+           "                          : make_float2(0.f, 0.f);\n",
+           "the merged attention (both dtypes) drops the table's entries of the keys outside the "
+           "query's own 64-key tile: it reads the table as if it were block-diagonal"),
+    "Z2": (f"{CSRC}/merged_attn.cuh",
+           "*reinterpret_cast<const uint4*>(src + (long long)(QT * qt + i) * 3 * C + j)",
+           "*reinterpret_cast<const uint4*>(src + (long long)(QT * ((qt + 1) % (N / QT)) + i) * "
+           "3 * C + j)",
+           "the bf16 merged attention loads the next 64-query tile's rows of q"),
     "V1": ("audio_metrics_tpu_torch/models/vggish.py",
            "x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)", "x = x.reshape(x.shape[0], -1)",
            "VGGish flattens its last feature map NCHW, not NHWC as torchvggish"),

@@ -38,7 +38,8 @@ def _short(name: str) -> str:
     for key in ("gemm_sm90_kernel<", "gemm_tf32x3_kernel<", "knn_split_kernel", "knn_merge_kernel",
                 "merge_stats_kernel", "stats_split_kernel", "mel_log_kernel", "ln_rows_kernel",
                 "ln1_window_kernel", "hop_rows_kernel", "halo_rows_kernel", "log_mel_sm90_kernel",
-                "window_attn_kernel", "frame_rows_kernel"):
+                "window_attn_kernel", "frame_rows_kernel", "merged_attn_bf16",
+                "merged_attn_f32"):
         if key in name:
             i = name.find(key)
             return name[i : name.find(">", i) + 1] if key.endswith("<") else key

@@ -10,8 +10,9 @@ Phases, one status line each:
      proj products and the f32 block's and merge's products hold HGMMA and
      UTMALDG (wgmma, fed by TMA), the f32 MLP's fc1 and fc2 also USETMAXREG
      (setmaxnreg), the int8 MLP's fc1 and fc2 IGMMA and
-     UTMALDG (int8 wgmma), the f32 window attention HMMA (mma.sync on the
-     tensor cores), the PRDC statistics' LDGSTS (cp.async); no instantiation
+     UTMALDG (int8 wgmma), the f32 window attention and the merged
+     attention (bf16, f32) HMMA (mma.sync on the tensor cores), the PRDC
+     statistics' LDGSTS (cp.async); no instantiation
      of the deleted WMMA gemm_kernel and no IMMA (int8 mma.sync) is left;
   3. each kernel against its plain PyTorch version on the card, at the
      main-path shapes, with errors, tolerances and times: first the f32
@@ -206,6 +207,25 @@ Phases, one status line each:
      timed against the bound.  That no kernel of the parent changed is a
      separate command: ``python -m audio_metrics_tpu_torch.sass_diff
      PARENT_CHECKOUT``.
+ 21. The merged one-window form of #10 and #11 (``phase_merged``;
+     ``AM_TPU_MERGED_ATTN``: window = resolution = 16 at stage 2, one
+     256-token attention an image on a dense (1, heads, 256, 256) table,
+     kernels/csrc/merged_attn.cuh): (a) the merged v1 and v2 halves at
+     stage 2 of HTSAT-base (C = 512) and
+     HTSAT-tiny (C = 384), 16 heads, shift 0 and 4, bf16 and f32, B = 64,
+     against their plain versions (the allocator's blocks filled with NaN
+     first), one launch a call on their own counts, repeated bitwise, v2
+     bitwise v1, v2 also on a dense random table (the kernel assumes no
+     block structure); printed: each against the 8x8-window v1 half, the merged
+     attention launch against the per-window one (torch.profiler), times
+     against the bound, the library yardstick (qkv + proj) and the
+     attention alone through ``scaled_dot_product_attention``; (b) under
+     the switch, HTSAT-base bf16 (phase 4's weights), ``laion_clap_music``
+     f32 (phase 10's checkpoint) and HTSAT-tiny bf16 (phase 19's), 256 +
+     256 clips each after its whole-block configuration on the same clips:
+     exact launches (base: #1 6, merged #10 12, #9 12 a forward), finite
+     metrics, self-FAD, embeddings against the plain path and within
+     CONFIG_TOL["merged"] of the whole block, clips/s as a ratio to it.
 Phase 3 runs each kernel redesigned for Hopper on the wgmma core (the
 whole Swin block at every stage and shift, its v3, v1 and v2 attention
 halves and fused MLP, the three patch merges, the fused frontend, the two
@@ -362,7 +382,7 @@ F32_E2E_TOL = (1e-6, 6e-7)
 # ~10x the readings (PERF.md; the two log-mels gave equal embeddings, so
 # theirs is the kernel-vs-plain scale).
 CONFIG_TOL = {"split": (5e-5, 5e-3), "attn_v1": (5e-5, 5e-3), "mel_v1": (2e-6, 1e-3),
-              "no_mel_tile": (5e-5, 5e-3)}
+              "no_mel_tile": (5e-5, 5e-3), "merged": (5e-5, 5e-3)}
 # phase 15: APA of the reference pairs against themselves, |1 - apa|; APA
 # through the kernels against the plain versions on the same reference
 # state, abs (~10x the reading: FAD moves by ~2e-5 relative between the
@@ -418,7 +438,8 @@ TIMING_ITERS = {"patch_merge": 200, "knn_radii": 200, "prdc_stats": 200, "log_me
 # halves' qkv and proj products (the gemm_sm90_kernel instantiations of
 # EPI_BIAS_BF16 = 9 and EPI_PROJ_BF16 = 8, gemm.cuh's enum Epi) likewise; the f32 window attention's 3xTF32
 # products (the float instantiation of window_attn_kernel, inside #1 and
-# #8-#11 in f32) on mma.sync (HMMA); the PRDC statistics' products fed by
+# #8-#11 in f32) and both instantiations of the merged attention (the
+# merged form of #10 and #11) on mma.sync (HMMA); the PRDC statistics' products fed by
 # cp.async (LDGSTS); the int8 MLP's fc1 and fc2 (the instantiations of
 # EPI_S8_GELU = 11, and of EPI_S8_OUT = 12 and EPI_S8_OUT_F32 = 13) on int8
 # wgmma (IGMMA) fed by TMA
@@ -433,6 +454,8 @@ SASS_WANT = {"log_mel": ("log_mel_sm90_kernel", ("HGMMA", "UTMALDG")),
                                        ("HGMMA", "UTMALDG", "USETMAXREG")),
              "patch_merge_f32": ("gemm_tf32x3_kernel.*MergeA", ("HGMMA", "UTMALDG")),
              "window_attn_f32": (r"window_attn_kernelILi\d+E+vPKf", ("HMMA",)),
+             "merged_attn_bf16": ("merged_attn_bf16", ("HMMA",)),
+             "merged_attn_f32": ("merged_attn_f32", ("HMMA",)),
              "prdc_stats": ("stats_split_kernel", ("LDGSTS",))}
 # kernels the library must hold no instantiation of: gemm.cuh's WMMA
 # gemm_kernel, deleted with its last user (#7's DFT is on the wgmma core)
@@ -470,11 +493,13 @@ def bound(ops: dict, n_bytes: float) -> tuple[float, str, float]:
             float(sum(ops.values())))
 
 
-def swin_bound(cfg, b, part="block", stages=(0, 1, 2, 3), dt="bf16"):
+def swin_bound(cfg, b, part="block", stages=(0, 1, 2, 3), dt="bf16", merged=False):
     """The Swin blocks of ``stages`` in one forward, in ``dt`` (bf16 or
     f32).  ``part`` "block": the qkv, proj, fc1 and fc2 products (24 T C^2)
     and the window attention (4 T win^2 C); "attn": qkv, proj and attention
-    (8 T C^2 + 4 T win^2 C); "mlp": fc1 and fc2 (16 T C^2).  In f32 the
+    (8 T C^2 + 4 T win^2 C); "mlp": fc1 and fc2 (16 T C^2).  ``merged``:
+    the attention over one window of the whole image (win^2 = R^2, the
+    merged one-window form) where R > the window.  In f32 the
     products and the window attention's are reckoned as the card's fastest
     f32-accurate route computes them, three TF32 products each (3xTF32);
     the operations returned are then the f32 ones.  Bytes: each block's
@@ -487,7 +512,8 @@ def swin_bound(cfg, b, part="block", stages=(0, 1, 2, 3), dt="bf16"):
         if stage in stages:
             prod += depth * {"block": 24, "attn": 8, "mlp": 16}[part] * t * c * c
             if part != "mlp":
-                attn += depth * 4 * t * min(cfg.window_size, res) ** 2 * c
+                win2 = res * res if merged else min(cfg.window_size, res) ** 2
+                attn += depth * 4 * t * win2 * c
             n_bytes += depth * (2 * t * c + {"block": 12, "attn": 4, "mlp": 8}[part] * c * c) * size
         res //= 2
     if dt == "f32":
@@ -1376,7 +1402,7 @@ def clips(n_clips, seconds, seed):
     return reference, candidate
 
 
-SWITCHES = ("AM_TPU_V4_STAGES", "AM_TPU_ATTN_V1", "AM_TPU_MEL_V1")
+SWITCHES = ("AM_TPU_V4_STAGES", "AM_TPU_ATTN_V1", "AM_TPU_MEL_V1", "AM_TPU_MERGED_ATTN")
 
 
 @contextmanager
@@ -3589,7 +3615,7 @@ def phase_tiny_split_kernels(card: str, cfg, params) -> dict:
 
 def phase_tiny_config(card: str, clap, per_forward: dict, tol_key: str | None, against,
                       whole_rate: float, reference, candidate):
-    """Phase 20 (b), one configuration: ``clap`` (built by the caller under
+    """Phase 20 (b) and 21 (b), one configuration: ``clap`` (built by the caller under
     its switches) in ``AudioMetrics(["fad", "kd", "prdc"])`` over
     ``reference`` + ``candidate``, batch BATCH: exact launches
     (``per_forward`` a forward), finite metrics, warm clips/s (median of 3),
@@ -3632,7 +3658,7 @@ def phase_tiny_config(card: str, clap, per_forward: dict, tol_key: str | None, a
     embeddings_close("embeddings kernels vs plain path", emb, amp.stem_reference.embeddings,
                      F32_E2E_TOL if f32 else (E2E_TOL["1-cos"], E2E_TOL["max_abs"]))
     if tol_key is not None:
-        embeddings_close("embeddings against the tiny whole-block configuration", emb, against,
+        embeddings_close("embeddings against the whole-block configuration", emb, against,
                          CONFIG_TOL[tol_key])
     return launches, emb
 
@@ -3768,7 +3794,7 @@ def phase_tiny_split(card: str) -> None:
 
 
 def phase_tiny_whole(card: str, clap, reference, candidate):
-    """Phase 20 (b)'s yardstick for the split configurations: the
+    """Phase 20 (b)'s and 21 (b)'s yardstick for the selectable paths: the
     whole-block configuration ``clap`` on the same clips: its reference
     embeddings and warm clips/s (median of 3), returned."""
     from audio_metrics_tpu_torch import AudioMetrics
@@ -3781,6 +3807,263 @@ def phase_tiny_whole(card: str, clap, reference, candidate):
     rate, line = warm_rate(am, candidate, reference.shape[0])
     log(f"  {line} [{card}; real_weights: false]")
     return am.stem_reference.embeddings, rate
+
+
+# phase 21: the merged one-window form of #10 and #11 (AM_TPU_MERGED_ATTN:
+# window = resolution = 16 at stage 2, one 256-token attention an image on
+# a dense (1, heads, 256, 256) table)
+N_CLIPS_MERGED = 256  # (b): 256 + 256 5 s clips a configuration
+# (a) the merged halves against their plain versions at stage 2: the v2
+# half's stage-2 bounds of each dtype (the same function of the same
+# operands as the per-window halves, whose bounds these are; the readings in
+# PERF.md)
+MERGED_TOL = {"bf16": (TOL["swin_attn_v2"][0][2], TOL["swin_attn_v2"][1]),
+              "f32": (TOL["swin_attn_v2_f32"][0][2], TOL["swin_attn_v2_f32"][1])}
+
+
+def merged_table(params, prefix, cfg, shift, heads, dtype):
+    """Stage 2's v2 weights of ``prefix`` (matrices in ``dtype``) with the
+    merged one-window table, on the card: the v2 half's operands and its
+    ``half_operands``."""
+    from audio_metrics_tpu_torch.models.htsat import (
+        _Folded,
+        _merged_bias_mask,
+        _v2_kernel_weights,
+    )
+    from audio_metrics_tpu_torch.ops.attention import half_operands
+
+    w = _v2_kernel_weights(params, prefix, 16, shift, heads, cfg.window_size)
+    w["bm"] = _merged_bias_mask(w["bm"], 16, cfg.window_size)
+    v2 = _Folded(w, dtype).to("cuda")
+    return (v2.ln1_w, v2.ln1_b, v2.wqkv, v2.bq3, v2.wp, v2.bp, v2.bm), half_operands(v2.wqkv, v2.wp)
+
+
+def phase_merged_kernels(card: str, cfg, params, label: str) -> dict:
+    """(a) At stage 2 of ``cfg`` (R = 16, 16 heads) at B = BATCH, shifted
+    and unshifted, bf16 and f32: the merged v1 half (``SwinBlock(...,
+    attention="merged")``'s weights, what the model path runs) and the
+    merged v2 half (v2's weights on the merged table) against their plain
+    versions under MERGED_TOL, the allocator's blocks of the half's sizes
+    filled with NaN before each call, one launch a call on its own count,
+    repeated bitwise; v2 bitwise equal to v1 (the same launches on the
+    same operands); the merged v2 half on a dense random table too (no
+    block structure: the public ops take any table).  Printed, not gated:
+    each merged half against the
+    8x8-window v1 half on the same input and weights, and the merged
+    attention launch against the per-window one (torch.profiler).  Times
+    per forward over the stage's blocks: kernel, plain, the bound, the
+    library yardstick (qkv + proj through ``torch.matmul``) and, as a
+    second figure, the attention alone through one
+    ``F.scaled_dot_product_attention`` with the table as a float mask.
+    Returns {kernel: its numbers}."""
+    import torch.nn.functional as F
+
+    from audio_metrics_tpu_torch.kernels import KERNELS
+    from audio_metrics_tpu_torch.models.htsat import SwinBlock
+    from audio_metrics_tpu_torch.ops.attention import (
+        swin_attention_half_v1,
+        swin_attention_half_v1_plain,
+        swin_attention_half_v2,
+        swin_attention_half_v2_plain,
+    )
+    from audio_metrics_tpu_torch.profile_evaluate import launch_ms
+    from audio_metrics_tpu_torch.utils.precision import full_f32
+
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    stage, res, depth = 2, 16, cfg.depths[2]
+    c, heads = cfg.embed_dim * 4, cfg.num_heads[2]
+    times = {}
+    for dtype, sfx, dt in ((torch.bfloat16, "", "bf16"), (torch.float32, "_f32", "f32")):
+        x = torch.randn((BATCH, res, res, c), generator=gen, device="cuda").to(dtype)
+        m = BATCH * res * res
+        rel_tol, max_tol = MERGED_TOL[dt]
+        t = {f"swin_attn_{v}_merged{sfx}": dict(ms=0.0, plain_ms=0.0, max_abs_err=0.0, checked=0)
+             for v in ("v1", "v2")}
+        sdpa_ms = 0.0
+
+        def check(v, key, kfn, pfn, n):
+            """``v``'s merged kernel against its plain version; timed as
+            ``n`` blocks of a forward."""
+            name = f"swin_attn_{v}_merged{sfx}"
+
+            def kernel():
+                poison = [torch.full((m, w), float("nan"), dtype=dtype, device="cuda")
+                          for w in (c, 3 * c, c, c)]
+                del poison
+                return kfn()
+
+            before = KERNELS[name].launches
+            got = kernel()
+            if KERNELS[name].launches != before + 1:
+                raise AssertionError(f"{name} {key}: {KERNELS[name].launches - before} launches")
+            with full_f32():
+                want = pfn()
+            mx, rel = compare(name, got, want, want.float() - x.float(), {})
+            ok = mx <= max_tol and rel <= rel_tol
+            log(f"  {name} {key} at B={BATCH}: max_abs_err {mx:.4g} (tol {max_tol}) "
+                f"mean_abs_err / mean |out - x| {rel:.4g} (tol {rel_tol}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"{name} {key} disagrees with its plain version")
+            check_repeats(f"{name} {key}", ((BATCH, got, kernel),))
+            r = t[name]
+            r["max_abs_err"] = max(r["max_abs_err"], mx)
+            r["checked"] += 1
+            if n:
+                ms, pms = cuda_ms(kfn), cuda_ms(pfn, iters=3)
+                log(f"    kernel {ms:.4f} ms, plain {pms:.4f} ms, x{n} a forward")
+                r["ms"] += n * ms
+                r["plain_ms"] += n * pms
+            return got
+
+        for shift in (0, cfg.window_size // 2):
+            prefix = f"audio_encoder.layers.{stage}.blocks.{1 if shift else 0}"
+            blk = SwinBlock(params, prefix, cfg, res, shift, heads, dtype,
+                            attention="merged").to("cuda")
+            geo = dict(heads=heads, window=blk.window, shift=blk.shift, eps=blk.eps)
+            a1 = (blk.ln1_w, blk.ln1_b, blk.wq, blk.bq, blk.wk, blk.wv, blk.wp, blk.bp, blk.bm)
+            ops1 = blk.kernel_operands()
+            a2, ops2 = merged_table(params, prefix, cfg, shift, heads, dtype)
+            key = f"{label} stage 2 R=16 window 16 C={c} heads {heads} x {c // heads} shift={shift}"
+            outs = {
+                "v1": check("v1", key, lambda: swin_attention_half_v1(x, *a1, **geo, operands=ops1),
+                            lambda: swin_attention_half_v1_plain(x, *a1, **geo), depth // 2),
+                "v2": check("v2", key, lambda: swin_attention_half_v2(x, *a2, **geo, operands=ops2),
+                            lambda: swin_attention_half_v2_plain(x, *a2, **geo), depth // 2)}
+            same = torch.equal(outs["v1"], outs["v2"])
+            log(f"    v2 against v1 (the same launches on the same operands): "
+                f"{'bitwise equal' if same else 'DIFFERS'}")
+            if not same:
+                raise AssertionError(f"merged v2 differs from merged v1 ({key})")
+            # the 8x8-window v1 half on the same input and weights
+            w8 = SwinBlock(params, prefix, cfg, res, shift, heads, dtype,
+                           attention="v1").to("cuda")
+            a8 = (w8.ln1_w, w8.ln1_b, w8.wq, w8.bq, w8.wk, w8.wv, w8.wp, w8.bp, w8.bm)
+            geo8 = dict(heads=heads, window=w8.window, shift=w8.shift, eps=w8.eps)
+            per_window = swin_attention_half_v1(x, *a8, **geo8, operands=w8.kernel_operands())
+            for v, out in outs.items():
+                d = (out.float() - per_window.float()).abs()
+                log(f"    merged {v} against the 8x8-window v1 half: "
+                    + ("bitwise equal" if torch.equal(out, per_window) else
+                       f"max abs {d.max().item():.4g}, mean abs / mean |out - x| "
+                       f"{d.mean().item() / (out.float() - x.float()).abs().mean().item():.4g}, "
+                       f"differ in {int((d > 0).sum())} of {d.numel()}")
+                    + " (printed, not a gate)")
+            merged_launch = launch_ms(lambda: swin_attention_half_v1(x, *a1, **geo,
+                                                                     operands=ops1), 10)
+            window_launch = launch_ms(lambda: swin_attention_half_v1(
+                x, *a8, **geo8, operands=w8.kernel_operands()), 10)
+            log("    attention launch (torch.profiler, per call): merged "
+                + ", ".join(f"{k} {v:.4f} ms" for k, v in merged_launch.items()
+                            if "merged_attn" in k)
+                + "; per-window " + ", ".join(f"{k} {v:.4f} ms" for k, v in
+                                               window_launch.items() if "window_attn" in k)
+                + f" [{card}]")
+            # yardstick: the attention alone in one library call (never on the path)
+            q, k, v = (torch.randn((BATCH, heads, 256, c // heads), generator=gen,
+                                   device="cuda").to(dtype) for _ in range(3))
+            mask = blk.bm.to(dtype)
+            with full_f32():
+                sdpa_ms += depth // 2 * cuda_ms(lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask, scale=1.0))
+            del blk, w8
+        # any table: the public ops take any (1, heads, 256, 256) table, and
+        # the kernel assumes no block structure in it (a dense random one)
+        dense = (*a2[:-1], torch.randn((1, heads, 256, 256), generator=gen, device="cuda"))
+        geo0 = dict(geo, shift=0)
+        check("v2", f"{label} stage 2 C={c} on a dense random table",
+              lambda: swin_attention_half_v2(x, *dense, **geo0, operands=ops2),
+              lambda: swin_attention_half_v2_plain(x, *dense, **geo0), 0)
+        _, per_block = products_alone_ms(cfg, BATCH, dtype)
+        b = swin_bound(cfg, BATCH, "attn", (stage,), dt, merged=True)
+        for name, r in t.items():
+            r.update(bound_ms=b[0], bound_by=b[1], ops=b[2],
+                     library_ms=depth * per_block[stage]["attn"], sdpa_ms=sdpa_ms)
+            log(f"  {name} {label} per forward at B={BATCH} ({depth} blocks): kernel "
+                f"{r['ms']:.4f} ms ({r['ops'] / (r['ms'] * 1e-3) / 1e12:.1f} TFLOP/s), plain "
+                f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+                f"library {r['library_ms']:.4f} ms (qkv + proj, torch.matmul), attention alone "
+                f"through scaled_dot_product_attention {sdpa_ms:.4f} ms, max abs err "
+                f"{r['max_abs_err']:.4g} [{card}]")
+        times.update(t)
+    return times
+
+
+def phase_merged(card: str, results: dict) -> dict:
+    """Phase 21: the merged one-window form of #10 and #11.  (a)
+    ``phase_merged_kernels`` at HTSAT-base's and HTSAT-tiny's stage 2 with
+    ``check_params``' weights; (b) under
+    ``AM_TPU_MERGED_ATTN=1``, set around each model's construction only:
+    HTSAT-base bf16 with phase 4's weights, ``laion_clap_music`` (f32) from
+    phase 10's checkpoint and HTSAT-tiny bf16 from phase 19's, each in
+    ``AudioMetrics(["fad", "kd", "prdc"])`` over 256 + 256 5 s clips at
+    batch 64 after its whole-block configuration on the same clips
+    (``phase_tiny_whole``, ``phase_tiny_config``): exact launches, finite
+    metrics, self-FAD, embeddings against the plain path and within
+    CONFIG_TOL["merged"] of the whole-block configuration, warm clips/s as
+    a ratio to it.  Fills ``results`` with HTSAT-base's kernel numbers and
+    returns HTSAT-base's launches of each merged kernel: the v1 half's in
+    (b), the v2 half's (no path runs it) in (a)'s checked calls."""
+    from audio_metrics_tpu_torch.models import get_embedder
+    from audio_metrics_tpu_torch.models.clap import LaionCLAP
+    from audio_metrics_tpu_torch.models.htsat import HTSAT_BASE, HTSAT_TINY
+
+    t21 = time.perf_counter()
+    log("  (a) the merged halves at stage 2 against their plain versions")
+    base = phase_merged_kernels(card, HTSAT_BASE, check_params(HTSAT_BASE), "HTSAT-base")
+    tiny_params = check_params(HTSAT_TINY)
+    tiny = phase_merged_kernels(card, HTSAT_TINY, tiny_params, "HTSAT-tiny")
+    for name, r in base.items():
+        results[name] = {k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                           "bound_by", "library_ms")}
+    reference, candidate = clips(N_CLIPS_MERGED, CLIP_S, seed=21)
+    merged = {"AM_TPU_MERGED_ATTN": "1"}
+    launches = {}
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        write_clap_checkpoint(check_params(HTSAT_BASE), ckpt_dir)
+        write_clap_checkpoint(tiny_params, ckpt_dir, HTSAT_TINY, TINY_CKPT)
+        configs = (
+            ("HTSAT-base", "bf16 (phase 4's weights)", "",
+             lambda: LaionCLAP(cfg=HTSAT_BASE, compute_dtype="bfloat16",
+                               allow_random_weights=True, device="cuda"),
+             dict(swin_block=6, swin_attn_v1_merged=12, swin_mlp=12, patch_merge=3,
+                  clap_frontend=1)),
+            ("HTSAT-base", "laion_clap_music f32 (phase 10's checkpoint)", "_f32",
+             lambda: get_embedder("laion_clap_music", device="cuda"),
+             dict(swin_block_f32=6, swin_attn_v1_merged_f32=12, swin_mlp_f32=12,
+                  patch_merge_f32=3)),
+            ("HTSAT-tiny", "bf16 (phase 19's checkpoint)", "",
+             lambda: LaionCLAP(ckpt=os.path.join(ckpt_dir, TINY_CKPT), cfg=HTSAT_TINY,
+                               compute_dtype="bfloat16", device="cuda"),
+             dict(swin_block=6, swin_attn_v1_merged=6, swin_mlp=6, patch_merge=3,
+                  clap_frontend=1)))
+        for model, label, sfx, make, per_forward in configs:
+            with environ(AM_TPU_CKPT_DIR=ckpt_dir):
+                whole = make()
+            log(f"  (b) {model} {label}: the whole-block configuration on the same clips")
+            against, whole_rate = phase_tiny_whole(card, whole, reference, candidate)
+            del whole
+            with environ(AM_TPU_CKPT_DIR=ckpt_dir, **merged):
+                clap = make()
+            kinds = [b.attention for st in clap.model.encoder.blocks for b in st]
+            log(f"  (b) {model} {label} under AM_TPU_MERGED_ATTN=1: block paths {kinds}")
+            got, _ = phase_tiny_config(card, clap, per_forward, "merged", against, whole_rate,
+                                       reference, candidate)
+            name = f"swin_attn_v1_merged{sfx}"
+            launches[(model, name)] = got[name]
+            del clap
+    for model, times in (("HTSAT-base", base), ("HTSAT-tiny", tiny)):
+        for name, r in times.items():
+            if name.startswith("swin_attn_v2"):  # opt-in, no path: (a)'s checked calls
+                launches[(model, name)] = r["checked"]
+            log(f"  {name} {model}: launches {launches.get((model, name), '-')} ("
+                + ("(b), add_reference + first evaluate" if "v1" in name else
+                   "(a)'s checked calls; opt-in, no path")
+                + f"), kernel {r['ms']:.4f} ms a forward, plain {r['plain_ms']:.4f}, bound "
+                f"{r['bound_ms']:.4f} ({r['bound_by']}), library {r['library_ms']:.4f}, "
+                f"scaled_dot_product_attention {r['sdpa_ms']:.4f}, max abs err "
+                f"{r['max_abs_err']:.4g} [{card}]")
+    log(f"  phase 21: {time.perf_counter() - t21:.1f} s [{card}]")
+    return {name: n for (model, name), n in launches.items() if model == "HTSAT-base"}
 
 
 def main() -> int:
@@ -3886,6 +4169,9 @@ def main() -> int:
         'AM_TPU_V4_STAGES="" and AM_TPU_ATTN_V1=1 in bf16 and f32, the log-mels at any mel '
         "count and hop")
     phase_tiny_split(card)
+    log("phase 21 the merged one-window form of #10/#11 (AM_TPU_MERGED_ATTN: 256-token "
+        "attention at stage 2), bf16 and f32, HTSAT-base and HTSAT-tiny")
+    launches_merged = phase_merged(card, results)
 
     # launches: each kernel's count on the path that runs it
     path_of = {"log_mel": launches_10s, "swin_attn_v3": launches_split,
@@ -3895,7 +4181,8 @@ def main() -> int:
                "patch_merge_f32": launches_f32, "swin_attn_v3_f32": launches_v3_f32,
                "swin_mlp_f32": launches_v3_f32, "swin_attn_v1_f32": launches_v1_f32,
                "swin_attn_v2_f32": launches_opt_in_f32,
-               "swin_mlp_int8_f32": launches_opt_in_f32}
+               "swin_mlp_int8_f32": launches_opt_in_f32,
+               **{name: launches_merged for name in launches_merged}}
     line = {"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,
          "launches": path_of.get(k.name, launches)[k.name],

@@ -1191,3 +1191,76 @@ def test_host_fed_mesh_records_no_graph(cuda):
     assert two.grad_fn is None and not two.requires_grad
     assert two.shape == one.shape == (18, 10)
     assert torch.equal(two, one), (two - one).abs().max().item()
+
+
+# the merged one-window form of #10 and #11 (window = resolution = 16 at
+# stage 2, AM_TPU_MERGED_ATTN): the v2 half's stage-2 bounds of each dtype,
+# as in chip_smoke.py (MERGED_TOL)
+MERGED_TOL = {torch.bfloat16: (ATTN_V2_TOL[0][2], ATTN_V2_TOL[1]),
+              torch.float32: (SWIN_F32_TOL[0][2], SWIN_F32_TOL[1])}
+
+
+@pytest.mark.parametrize("dtype", TINY_DTYPES, ids=["bf16", "f32"])
+@pytest.mark.parametrize("shift", [0, 4])
+@pytest.mark.parametrize("config", ["base", "tiny"])
+def test_merged_attention_kernels_match_plain(cuda, params, tiny_params, config, shift, dtype):
+    """The merged v1 half (a ``SwinBlock(..., attention="merged")`` at
+    stage 2: 16 heads of 32 or 24, the dense (1, 16, 256, 256) table) at 2
+    images against its plain version, one launch on its own count, repeated
+    bitwise; the merged v2 half on v1's weights laid side by side runs its
+    launches: equal outputs; and on a dense random table, against its
+    plain version."""
+    from audio_metrics_tpu_torch.models.htsat import _merged_bias_mask
+
+    hcfg, p = (cfg, params) if config == "base" else (HTSAT_TINY, tiny_params)
+    prefix = f"audio_encoder.layers.2.blocks.{1 if shift else 0}"
+    blk = SwinBlock(p, prefix, hcfg, 16, shift, 16, dtype, attention="merged").to(cuda)
+    assert blk.window == 16 and tuple(blk.bm.shape) == (1, 16, 256, 256)
+    f32 = "_f32" if dtype == torch.float32 else ""
+    x = _x(cuda, 400 + shift, (2, 16, 16, blk.bp.shape[0])).to(dtype)
+    geo = dict(heads=16, window=16, shift=blk.shift, eps=blk.eps)
+    a1 = (blk.ln1_w, blk.ln1_b, blk.wq, blk.bq, blk.wk, blk.wv, blk.wp, blk.bp, blk.bm)
+    per_window = KERNELS["swin_attn_v1" + f32].launches
+    got = _once("swin_attn_v1_merged" + f32,
+                lambda: swin_attention_half_v1(x, *a1, **geo, operands=blk.kernel_operands()))
+    assert KERNELS["swin_attn_v1" + f32].launches == per_window
+    assert torch.equal(got, swin_attention_half_v1(x, *a1, **geo,
+                                                   operands=blk.kernel_operands()))
+    with full_f32():
+        want = swin_attention_half_v1_plain(x, *a1, **geo)
+    rel, mx = MERGED_TOL[dtype]
+    _close(got, want, want.float() - x.float(), rel, mx)
+    w2 = _v2_kernel_weights(p, prefix, 16, shift, 16, 8)
+    w2["bm"] = _merged_bias_mask(w2["bm"], 16, 8)
+    v2 = _Folded(w2, dtype).to(cuda)
+    a2 = (v2.ln1_w, v2.ln1_b, v2.wqkv, v2.bq3, v2.wp, v2.bp)
+    ops2 = half_operands(v2.wqkv, v2.wp)
+    same = _once("swin_attn_v2_merged" + f32,
+                 lambda: swin_attention_half_v2(x, *a2, v2.bm, **geo, operands=ops2))
+    assert torch.equal(same, got)
+    # any (1, heads, 256, 256) table: the kernel assumes no block structure
+    dense = torch.from_numpy(np.random.default_rng(420 + shift).normal(
+        size=(1, 16, 256, 256)).astype(np.float32)).to(cuda)
+    got = _once("swin_attn_v2_merged" + f32,
+                lambda: swin_attention_half_v2(x, *a2, dense, **geo, operands=ops2))
+    with full_f32():
+        want = swin_attention_half_v2_plain(x, *a2, dense, **geo)
+    _close(got, want, want.float() - x.float(), rel, mx)
+
+
+def test_merged_attention_refuses_other_tables(cuda, params):
+    """No launch where the merged form's geometry is wrong: window 16 with
+    a per-window (1, heads, 64, 64) table raises ``ValueError``, a window
+    of 16 that is not the whole image ``NotImplementedError``."""
+    blk = SwinBlock(params, "audio_encoder.layers.2.blocks.0", cfg, 16, 0, 16, torch.bfloat16,
+                    attention="merged").to(cuda)
+    a1 = (blk.ln1_w, blk.ln1_b, blk.wq, blk.bq, blk.wk, blk.wv, blk.wp, blk.bp)
+    ops = blk.kernel_operands()
+    before = {k: v.launches for k, v in KERNELS.items()}
+    with pytest.raises(ValueError):
+        swin_attention_half_v1(_x(cuda, 410, (2, 16, 16, 512)), *a1, blk.bm[:, :, :64, :64].contiguous(),
+                               heads=16, window=16, shift=0, operands=ops)
+    with pytest.raises(NotImplementedError):
+        swin_attention_half_v1(_x(cuda, 411, (1, 32, 32, 512)), *a1, blk.bm, heads=16,
+                               window=16, shift=0, operands=ops)
+    assert {k: v.launches for k, v in KERNELS.items()} == before

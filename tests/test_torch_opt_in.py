@@ -138,13 +138,18 @@ def test_attention_v2_plain_equals_v1_plain(stage, shift, dtype):
 
 
 def test_attention_v2_merged_form_not_ported():
-    """Window = resolution (the merged one-window form) raises, naming the
-    roadmap entry, as v1 does."""
+    """As v1: the merged one-window form at window 16 on a per-window (1,
+    heads, 64, 64) table raises, and so does a window of 16 that is not the
+    whole image, naming the roadmap entry."""
     rng = np.random.default_rng(2)
     p, pre, c, heads = _block_params(rng, 2)
     w = _tensors(_v2_kernel_weights(p, pre, 16, 0, heads, 8), V2_NAMES, torch.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="table"):
         swin_attention_half_v2(torch.zeros((1, 16, 16, c)), *w, heads=heads, window=16, shift=0)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        swin_attention_half_v2(torch.zeros((1, 32, 32, c)), *w[:-1],
+                               torch.zeros((1, heads, 256, 256)), heads=heads, window=16,
+                               shift=0)
 
 
 def _int8_fixture(c, seed=11):

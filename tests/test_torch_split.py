@@ -190,16 +190,22 @@ def test_attention_v1_plain_matches_pallas(stage, shift, dtype):
 
 
 def test_attention_v1_merged_form_not_ported():
-    """The merged one-window form (window = resolution, htsat.py:347-349)
-    raises, naming the roadmap entry."""
+    """The merged one-window form (window = resolution = 16, htsat.py:
+    347-349) is ported on its dense (1, heads, 256, 256) table only: at
+    window 16 a per-window (1, heads, 64, 64) table raises, and so does a
+    window of 16 that is not the whole image (R = 32), naming the roadmap
+    entry."""
     rng = np.random.default_rng(1)
     p, pre, c, heads = _block_params(rng, 2)
     t = _torch(_v1_kernel_weights(p, pre, 16, 0, heads, 8), torch.float32)
+    args = (t["ln1_w"], t["ln1_b"], t["wq"], t["bq"], t["wk"], t["wv"], t["wp"], t["bp"])
+    with pytest.raises(ValueError, match="table"):
+        swin_attention_half_v1(torch.zeros((1, 16, 16, c)), *args, t["bm"], heads=heads,
+                               window=16, shift=0)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        swin_attention_half_v1(
-            torch.zeros((1, 16, 16, c)), t["ln1_w"], t["ln1_b"], t["wq"], t["bq"], t["wk"],
-            t["wv"], t["wp"], t["bp"], t["bm"], heads=heads, window=16, shift=0,
-        )
+        swin_attention_half_v1(torch.zeros((1, 32, 32, c)), *args,
+                               torch.zeros((1, heads, 256, 256)), heads=heads, window=16,
+                               shift=0)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
