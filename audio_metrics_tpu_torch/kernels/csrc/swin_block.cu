@@ -74,7 +74,8 @@
 //                        window = resolution = 16 (the merged one-window
 //                        form, AM_TPU_MERGED_ATTN) launch 3 is
 //                        merged_attn.cuh's 256-token attention on a dense
-//                        (1, heads, 256, 256) table, and the window pass
+//                        (1, heads, 256, 256) table over the key tiles its
+//                        live-tile lists name, and the window pass
 //                        and the proj scatter take the one window's map
 //                        (window_src at win = R: the roll alone);
 //   am_swin_attn_v2, am_swin_attn_v2_f32
@@ -186,8 +187,9 @@ __global__ void __launch_bounds__(LN1_WARPS * 32)
 template <int PROJ>
 int attn_half_bf16(const bf16* x, const float* ln_w, const float* ln_b, const bf16* wqkv_t,
                    const float* csum, const float* bq3, const bf16* wp_t, const float* bp,
-                   const float* bm, int nbm, int B, int R, int C, int heads, int win, int shift,
-                   float eps, float* stats, bf16* xw, bf16* qkv, bf16* ctx, void* out,
+                   const float* bm, int nbm, const int* live, int nlive, int B, int R, int C,
+                   int heads, int win, int shift, float eps, float* stats, bf16* xw, bf16* qkv,
+                   bf16* ctx, void* out,
                    cudaStream_t stream) {
   using namespace sm90;
   const int M = B * R * R;
@@ -208,8 +210,8 @@ int attn_half_bf16(const bf16* x, const float* ln_w, const float* ln_b, const bf
   }
   if (e) return e;
 
-  if ((e = launch_attention(qkv, bm, nbm, M, win, heads, C, ctx, stream)) != cudaSuccess)
-    return e;
+  e = launch_attention(qkv, bm, nbm, live, nlive, M, win, heads, C, ctx, stream);
+  if (e != cudaSuccess) return e;
 
   p = EpiParams{};
   p.M = M; p.N = C; p.out = out; p.ldo = C;
@@ -252,8 +254,9 @@ int mlp_half_bf16(const ResT* x, int M, int C, const float* ln2w, const float* l
 // qkv epilogue adds the bias alone (EPI_BIAS_F32).
 int attn_half_f32(const float* x, const float* ln_w, const float* ln_b, const float* wqkv_s,
                   const float* csum, const float* bq, const float* wp_s, const float* bp,
-                  const float* bm, int nbm, int B, int R, int C, int heads, int win, int shift,
-                  float eps, float* stats, float* xw, float* qkv, float* ctx, float* out,
+                  const float* bm, int nbm, const int* live, int nlive, int B, int R, int C,
+                  int heads, int win, int shift, float eps, float* stats, float* xw, float* qkv,
+                  float* ctx, float* out,
                   cudaStream_t stream) {
   using namespace tf32x3;
   const int M = B * R * R;
@@ -273,8 +276,8 @@ int attn_half_f32(const float* x, const float* ln_w, const float* ln_b, const fl
   }
   if (e) return e;
 
-  if ((e = launch_attention(qkv, bm, nbm, M, win, heads, C, ctx, stream)) != cudaSuccess)
-    return e;
+  e = launch_attention(qkv, bm, nbm, live, nlive, M, win, heads, C, ctx, stream);
+  if (e != cudaSuccess) return e;
 
   p = EpiF32{};
   p.M = M; p.N = C; p.out = out; p.ldo = C;
@@ -318,9 +321,9 @@ extern "C" int am_swin_block(const bf16* x, const bf16* wqkv_t, const float* csu
                              bf16* qkv, bf16* ctx, float* res, bf16* hbuf, bf16* h1, bf16* out,
                              cudaStream_t stream) {
   int e;
-  if ((e = attn_half_bf16<EPI_PROJ>(x, nullptr, nullptr, wqkv_t, csum, bq3, wp_t, bp, bm, nbm, B,
-                                    R, C, heads, win, shift, eps, stats, hbuf, qkv, ctx, res,
-                                    stream)))
+  if ((e = attn_half_bf16<EPI_PROJ>(x, nullptr, nullptr, wqkv_t, csum, bq3, wp_t, bp, bm, nbm,
+                                    nullptr, 0, B, R, C, heads, win, shift, eps, stats, hbuf, qkv,
+                                    ctx, res, stream)))
     return e;
   return mlp_half_bf16(res, B * R * R, C, ln2w, ln2b, w1_t, b1, w2_t, b2, eps, hbuf, h1, out,
                        stream);
@@ -337,8 +340,8 @@ extern "C" int am_swin_attn_v3(const bf16* x, const bf16* wqkv_t, const float* c
                                int shift, float eps, float* stats, bf16* xw, bf16* qkv, bf16* ctx,
                                bf16* out, cudaStream_t stream) {
   return attn_half_bf16<EPI_PROJ_BF16>(x, nullptr, nullptr, wqkv_t, csum, bq3, wp_t, bp, bm, nbm,
-                                       B, R, C, heads, win, shift, eps, stats, xw, qkv, ctx, out,
-                                       stream);
+                                       nullptr, 0, B, R, C, heads, win, shift, eps, stats, xw, qkv,
+                                       ctx, out, stream);
 }
 
 // #10 and #11, the attention half with the LN1 affine in the kernel (v1,
@@ -347,26 +350,30 @@ extern "C" int am_swin_attn_v3(const bf16* x, const bf16* wqkv_t, const float* c
 // (C) f32; wqkv_t (3C, C), wp_t (C, C) bf16, the (C, 3C) qkv and (C, C)
 // proj operands transposed (v1: the per-head weights side by side,
 // ops/attention.py v1_operands); bq3 (3C) the scaled q bias with zeros on k
-// and v; bp, bm as v3.  Scratch, bf16: xn (B*R*R, C), qkv (B*R*R, 3C), ctx
-// (B*R*R, C).
+// and v; bp, bm as v3; at window = resolution = 16 (the merged form) live,
+// nlive: the table's (1, heads, 4, nlive) int32 live-tile lists
+// (merged_attn.cuh; ops/attention.py merged_live_tiles), else null, 0.
+// Scratch, bf16: xn (B*R*R, C), qkv (B*R*R, 3C), ctx (B*R*R, C).
 extern "C" int am_swin_attn_v1(const bf16* x, const float* ln_w, const float* ln_b,
                                const bf16* wqkv_t, const float* bq3, const bf16* wp_t,
-                               const float* bp, const float* bm, int nbm, int B, int R, int C,
-                               int heads, int win, int shift, float eps, bf16* xn, bf16* qkv,
-                               bf16* ctx, bf16* out, cudaStream_t stream) {
-  return attn_half_bf16<EPI_PROJ_BF16>(x, ln_w, ln_b, wqkv_t, nullptr, bq3, wp_t, bp, bm, nbm, B,
-                                       R, C, heads, win, shift, eps, nullptr, xn, qkv, ctx, out,
-                                       stream);
+                               const float* bp, const float* bm, int nbm, const int* live,
+                               int nlive, int B, int R, int C, int heads, int win, int shift,
+                               float eps, bf16* xn, bf16* qkv, bf16* ctx, bf16* out,
+                               cudaStream_t stream) {
+  return attn_half_bf16<EPI_PROJ_BF16>(x, ln_w, ln_b, wqkv_t, nullptr, bq3, wp_t, bp, bm, nbm,
+                                       live, nlive, B, R, C, heads, win, shift, eps, nullptr, xn,
+                                       qkv, ctx, out, stream);
 }
 
 extern "C" int am_swin_attn_v2(const bf16* x, const float* ln_w, const float* ln_b,
                                const bf16* wqkv_t, const float* bq3, const bf16* wp_t,
-                               const float* bp, const float* bm, int nbm, int B, int R, int C,
-                               int heads, int win, int shift, float eps, bf16* xn, bf16* qkv,
-                               bf16* ctx, bf16* out, cudaStream_t stream) {
-  return attn_half_bf16<EPI_PROJ_BF16>(x, ln_w, ln_b, wqkv_t, nullptr, bq3, wp_t, bp, bm, nbm, B,
-                                       R, C, heads, win, shift, eps, nullptr, xn, qkv, ctx, out,
-                                       stream);
+                               const float* bp, const float* bm, int nbm, const int* live,
+                               int nlive, int B, int R, int C, int heads, int win, int shift,
+                               float eps, bf16* xn, bf16* qkv, bf16* ctx, bf16* out,
+                               cudaStream_t stream) {
+  return attn_half_bf16<EPI_PROJ_BF16>(x, ln_w, ln_b, wqkv_t, nullptr, bq3, wp_t, bp, bm, nbm,
+                                       live, nlive, B, R, C, heads, win, shift, eps, nullptr, xn,
+                                       qkv, ctx, out, stream);
 }
 
 // #9, the fused MLP: am_swin_block's launches 5-7 on (M, C) bf16 rows x with
@@ -395,8 +402,8 @@ extern "C" int am_swin_block_f32(const float* x, const float* wqkv_s, const floa
                                  float* res, float* hbuf, float* h1, float* out,
                                  cudaStream_t stream) {
   int e;
-  if ((e = attn_half_f32(x, nullptr, nullptr, wqkv_s, csum, bq3, wp_s, bp, bm, nbm, B, R, C,
-                         heads, win, shift, eps, stats, hbuf, qkv, ctx, res, stream)))
+  if ((e = attn_half_f32(x, nullptr, nullptr, wqkv_s, csum, bq3, wp_s, bp, bm, nbm, nullptr, 0,
+                         B, R, C, heads, win, shift, eps, stats, hbuf, qkv, ctx, res, stream)))
     return e;
   return mlp_half_f32(res, B * R * R, C, ln2w, ln2b, w1_s, b1, w2_s, b2, eps, hbuf, h1, out,
                       stream);
@@ -411,32 +418,35 @@ extern "C" int am_swin_attn_v3_f32(const float* x, const float* wqkv_s, const fl
                                    const float* bm, int nbm, int B, int R, int C, int heads,
                                    int win, int shift, float eps, float* stats, float* xw,
                                    float* qkv, float* ctx, float* out, cudaStream_t stream) {
-  return attn_half_f32(x, nullptr, nullptr, wqkv_s, csum, bq3, wp_s, bp, bm, nbm, B, R, C, heads,
-                       win, shift, eps, stats, xw, qkv, ctx, out, stream);
+  return attn_half_f32(x, nullptr, nullptr, wqkv_s, csum, bq3, wp_s, bp, bm, nbm, nullptr, 0, B,
+                       R, C, heads, win, shift, eps, stats, xw, qkv, ctx, out, stream);
 }
 
 // #10 and #11 in f32, the attention half with the LN1 affine in the kernel
 // (v1, v2): x, out (B, R, R, C) f32; ln_w, ln_b (C); wqkv_s, wp_s the
 // (2, N, K) stacks of the (C, 3C) qkv and (C, C) proj operands transposed
 // (v1: the per-head weights side by side, as am_swin_attn_v1's); bq3
-// (3C) the scaled q bias with zeros on k and v; bp, bm as v3.  Scratch, f32:
-// xn (B*R*R, C), qkv (B*R*R, 3C), ctx (B*R*R, C).
+// (3C) the scaled q bias with zeros on k and v; bp, bm, live, nlive as
+// am_swin_attn_v1's.  Scratch, f32: xn (B*R*R, C), qkv (B*R*R, 3C), ctx
+// (B*R*R, C).
 extern "C" int am_swin_attn_v1_f32(const float* x, const float* ln_w, const float* ln_b,
                                    const float* wqkv_s, const float* bq3, const float* wp_s,
-                                   const float* bp, const float* bm, int nbm, int B, int R, int C,
-                                   int heads, int win, int shift, float eps, float* xn,
-                                   float* qkv, float* ctx, float* out, cudaStream_t stream) {
-  return attn_half_f32(x, ln_w, ln_b, wqkv_s, nullptr, bq3, wp_s, bp, bm, nbm, B, R, C, heads,
-                       win, shift, eps, nullptr, xn, qkv, ctx, out, stream);
+                                   const float* bp, const float* bm, int nbm, const int* live,
+                                   int nlive, int B, int R, int C, int heads, int win, int shift,
+                                   float eps, float* xn, float* qkv, float* ctx, float* out,
+                                   cudaStream_t stream) {
+  return attn_half_f32(x, ln_w, ln_b, wqkv_s, nullptr, bq3, wp_s, bp, bm, nbm, live, nlive, B, R,
+                       C, heads, win, shift, eps, nullptr, xn, qkv, ctx, out, stream);
 }
 
 extern "C" int am_swin_attn_v2_f32(const float* x, const float* ln_w, const float* ln_b,
                                    const float* wqkv_s, const float* bq3, const float* wp_s,
-                                   const float* bp, const float* bm, int nbm, int B, int R, int C,
-                                   int heads, int win, int shift, float eps, float* xn,
-                                   float* qkv, float* ctx, float* out, cudaStream_t stream) {
-  return attn_half_f32(x, ln_w, ln_b, wqkv_s, nullptr, bq3, wp_s, bp, bm, nbm, B, R, C, heads,
-                       win, shift, eps, nullptr, xn, qkv, ctx, out, stream);
+                                   const float* bp, const float* bm, int nbm, const int* live,
+                                   int nlive, int B, int R, int C, int heads, int win, int shift,
+                                   float eps, float* xn, float* qkv, float* ctx, float* out,
+                                   cudaStream_t stream) {
+  return attn_half_f32(x, ln_w, ln_b, wqkv_s, nullptr, bq3, wp_s, bp, bm, nbm, live, nlive, B, R,
+                       C, heads, win, shift, eps, nullptr, xn, qkv, ctx, out, stream);
 }
 
 // The window attention alone, launch 3 of am_swin_block(_f32) and of the
@@ -452,6 +462,23 @@ extern "C" int am_window_attn_f32(const float* qkv, const float* bm, int nbm, in
 extern "C" int am_window_attn(const bf16* qkv, const float* bm, int nbm, int windows, int heads,
                               int C, bf16* ctx, cudaStream_t stream) {
   return launch_window_attn(qkv, bm, nbm, windows, heads, C, ctx, stream);
+}
+
+// The merged attention alone, launch 3 of the v1 and v2 halves at window =
+// resolution = 16: qkv (windows*256, 3C) in window order, q pre-scaled; bm
+// (1, heads, 256, 256) f32 and its live lists (1, heads, 4, nlive) int32;
+// ctx (windows*256, C).  No model path calls them: chip_smoke.py phase 21
+// holds them against the dense design (kernels/csrc/dense/
+// merged_attn_dense.cu) on the same qkv.
+extern "C" int am_merged_attn(const bf16* qkv, const float* bm, const int* live, int nlive,
+                              int windows, int heads, int C, bf16* ctx, cudaStream_t stream) {
+  return launch_merged_attn(qkv, bm, 1, live, nlive, windows, heads, C, ctx, stream);
+}
+
+extern "C" int am_merged_attn_f32(const float* qkv, const float* bm, const int* live, int nlive,
+                                  int windows, int heads, int C, float* ctx,
+                                  cudaStream_t stream) {
+  return launch_merged_attn(qkv, bm, 1, live, nlive, windows, heads, C, ctx, stream);
 }
 
 // #9 in f32, the fused MLP: am_swin_block_f32's launches 5-7 on (M, C) rows

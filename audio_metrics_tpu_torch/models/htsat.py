@@ -36,6 +36,7 @@ import torch
 from torch import nn
 
 from ..ops.attention import (
+    merged_live_tiles,
     swin_attention_half_v1,
     swin_attention_half_v1_plain,
     swin_attention_half_v3,
@@ -480,6 +481,8 @@ class SwinBlock(_Folded):
             ops = mlp_operands(self.w1, self.w2)  # the fused MLP at a large enough batch
             if attention in ("v1", "merged"):
                 ops.update(v1_operands(self.wq, self.bq, self.wk, self.wv, self.wp))
+            if attention == "merged":  # the table's live key tiles, made from its values
+                ops["live"] = merged_live_tiles(self.bm)
         for name, t in ops.items():
             self.register_buffer(name, t)
         self._operand_names = tuple(ops)
@@ -490,7 +493,9 @@ class SwinBlock(_Folded):
         block's :func:`ops.attention.swin_block_operands` (v4 and v3 blocks,
         whose attention half and MLP read it); else the MLP's
         :func:`ops.mlp.mlp_operands`, with v1 and merged blocks'
-        :func:`ops.attention.v1_operands`."""
+        :func:`ops.attention.v1_operands`, and merged blocks' live-tile
+        lists of their table (``live``, :func:`ops.attention.
+        merged_live_tiles`)."""
         return {k: getattr(self, k) for k in self._operand_names}
 
     def fused_mlp(self, batch: int) -> bool:

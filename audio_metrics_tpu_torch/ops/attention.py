@@ -21,9 +21,11 @@ Counterparts in ``audio_metrics_tpu``:
   256-token window an image, HTSAT's stage 2 under ``AM_TPU_MERGED_ATTN``,
   models/htsat.py:553-563 there) with a dense (1, heads, 256, 256) table
   (``models.htsat._merged_bias_mask``): the same wrappers and entries,
-  whose attention launch is then kernels/csrc/merged_attn.cuh's, each
-  counted apart (``KERNELS["swin_attn_v1_merged"]``, ``_v2_merged``, each
-  with its ``_f32`` twin);
+  whose attention launch is then kernels/csrc/merged_attn.cuh's over the
+  key tiles the table's live-tile map names (:func:`merged_live_tiles`,
+  held with the operands at load as ``live``), each counted apart
+  (``KERNELS["swin_attn_v1_merged"]``, ``_v2_merged``, each with its
+  ``_f32`` twin);
 - ``window_attention_xla``: the XLA attention half of
   ``models/htsat.py::_swin_block`` (:584-607, ``_window_attention``
   :237-285), the JAX package's own non-kernel path: it runs on both
@@ -64,6 +66,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.weak import WeakIdKeyDictionary
 
 from ..kernels import KERNELS, check_sm90_gemm, check_tf32x3_gemm, require_cuda
 from .mlp import layer_norm, mlp_operands
@@ -72,6 +75,7 @@ from .tf32 import k_major, k_major_operand
 __all__ = [
     "check_block_gemms",
     "half_operands",
+    "merged_live_tiles",
     "swin_block",
     "swin_block_operands",
     "swin_block_plain",
@@ -161,6 +165,92 @@ def _qkv_ln_folded(x, wqkv, bq3, window: int, shift: int, eps: float):
 
 
 MERGED_TOKENS = 256  # the merged one-window form: window = resolution = 16
+MERGED_PATCHES = 4  # the merged kernel's blocks a head: the 8x8 patches of the 16x16 image
+MERGED_TILES = MERGED_TOKENS // 8  # its key tiles of 8 keys
+MERGED_DEAD = -1e9  # table entries at or below it are masked (the JAX package's -1e9)
+MERGED_MARGIN = 1e6  # a row whose live entries all lie this close above -1e9 keeps every key
+
+
+def merged_live_tiles(bm: torch.Tensor) -> torch.Tensor:
+    """The live-tile map of a merged (nbm, heads, 256, 256) f32 table, made
+    from its values alone, for the merged kernel (kernels/csrc/
+    merged_attn.cuh): per (table, head, block), the key tiles (keys 8t to
+    8t + 7) that hold an entry above -1e9 in one of the block's 64 query
+    rows, ascending.  The kernel's block p holds the rows of the 8x8 patch
+    (p // 2, p % 2) of the rolled 16x16 image, tokens (8 (p // 2) + i) * 16
+    + 8 (p % 2) + j.  (nbm, heads, 4, T) int32 on ``bm``'s device, each
+    list padded with -1 to the longest, T.
+
+    A dead tile's entries give probabilities exp(s + t - max) = 0 in the f32
+    softmax, t <= -1e9 and max at least a live entry's score plus its table
+    value, so the kernel drops their scores, exps, sum terms and P.V
+    products and its result is the dense one.  That holds where each row's
+    largest entry exceeds -1e9 by more than ~104 plus the spread of its
+    scores.  So a block lists all 32 tiles (the dense computation) where
+    one of its rows has no entry above -1e9 + 1e6 (``MERGED_MARGIN``): a
+    row masked everywhere, or one whose live entries sit near -1e9.  Scores
+    spread far less than 1e6 at any input the model sees; at its tables
+    (bias ~1, shift mask -100) a patch is a window: 8 of 32 tiles live."""
+    nbm, heads, n, n2 = bm.shape
+    if (n, n2) != (MERGED_TOKENS, MERGED_TOKENS):
+        raise ValueError(f"merged_live_tiles takes (nbm, heads, 256, 256) tables, got "
+                         f"{tuple(bm.shape)}")
+    rows = bm.reshape(nbm, heads, 2, 8, 2, 8, MERGED_TOKENS)  # (pr, i, pc, j) x keys
+    rows = rows.permute(0, 1, 2, 4, 3, 5, 6).reshape(nbm, heads, MERGED_PATCHES, 64,
+                                                      MERGED_TILES, 8)
+    near = (rows.amax(dim=(-2, -1)) <= MERGED_DEAD + MERGED_MARGIN).any(-1)  # (nbm, heads, 4)
+    live = (rows > MERGED_DEAD).any(-1).any(-2) | near[..., None]
+    # a stable sort of the dead flags puts the live tiles first, in order
+    dead_first, order = (~live).to(torch.uint8).sort(dim=-1, stable=True)
+    width = int(live.sum(-1).max())
+    return torch.where(dead_first == 0, order, -1)[..., :width].to(torch.int32).contiguous()
+
+
+_TABLE_MAPS = WeakIdKeyDictionary()  # table -> (its version, merged_live_tiles(table))
+_MAPS_CHECKED = WeakIdKeyDictionary()  # lists -> (the table map they equal, their version)
+
+
+def _version(t):
+    """``t``'s version counter (moved by each change in place); None for an
+    inference tensor, which has none."""
+    return None if t.is_inference() else t._version
+
+
+def _table_map(bm):
+    """:func:`merged_live_tiles` of ``bm``, made once for each version of
+    its values."""
+    version, kept = _version(bm), _TABLE_MAPS.get(bm)
+    if version is not None and kept is not None and kept[0] == version:
+        return kept[1]
+    live = merged_live_tiles(bm)
+    if version is not None:
+        _TABLE_MAPS[bm] = (version, live)
+    return live
+
+
+def _merged_live(name: str, operands, bm, heads: int):
+    """The live-tile lists that the merged kernel ``name`` reads with the
+    table ``bm``: ``operands["live"]``, made at load, else made from ``bm``
+    now (:func:`merged_live_tiles`).  ``ValueError`` where they do not fit
+    the table: not (nbm, heads, 4, T) int32, or not the table's own map (held
+    against it once for each version of both)."""
+    live = None if operands is None else operands.get("live")
+    if live is None:
+        return _table_map(bm)
+    if (live.dim() != 4 or tuple(live.shape[:3]) != (bm.shape[0], heads, MERGED_PATCHES)
+            or not 1 <= live.shape[3] <= MERGED_TILES or live.dtype != torch.int32):
+        raise ValueError(f"{name} reads the table's live-tile lists as ({bm.shape[0]}, {heads}, "
+                         f"{MERGED_PATCHES}, 1..{MERGED_TILES}) int32 (merged_live_tiles(bm)), "
+                         f"got {tuple(live.shape)} {live.dtype}")
+    want, version = _table_map(bm), _version(live)
+    checked = _MAPS_CHECKED.get(live)
+    if version is None or checked is None or checked[0] is not want or checked[1] != version:
+        if not torch.equal(live, want):
+            raise ValueError(f"{name}: the live-tile lists passed are not those of the table "
+                             "(merged_live_tiles(bm))")
+        if version is not None:
+            _MAPS_CHECKED[live] = (want, version)
+    return live
 
 
 def _check_windows(name, x, heads, window, bm, merged: bool = False):
@@ -450,7 +540,8 @@ def _attention_ln_affine_cuda(version, x, ln_w, ln_b, bq3, bp, bm, *, heads, win
                               operands, made_by):
     """Launch ``version``'s ("v1" or "v2") entry of x's dtype on the
     :func:`half_operands` form of the (C, 3C) / (C, C) operands, counted on
-    its kernel, or on its merged form's at window = resolution = 16."""
+    its kernel, or on its merged form's at window = resolution = 16, which
+    also reads the table's live-tile lists (:func:`_merged_live`)."""
     b, r, _, c = x.shape
     f32 = "_f32" if x.dtype == torch.float32 else ""
     merged = "_merged" if window * window == MERGED_TOKENS else ""
@@ -459,13 +550,17 @@ def _attention_ln_affine_cuda(version, x, ln_w, ln_b, bq3, bp, bm, *, heads, win
     check_block_gemms(kernel.name, c, x.dtype, HALF_PRODUCTS)
     wqkv_t, wp_t = _block_matrices(kernel.name, operands, c, HALF_PRODUCTS, made_by,
                                    x.dtype)
+    live = _merged_live(kernel.name, operands, bm, heads) if merged else None
     require_cuda(x, wqkv_t, wp_t, dtype=x.dtype)
     require_cuda(ln_w, ln_b, bq3, bp, bm, dtype=torch.float32)
+    if live is not None:
+        require_cuda(live, dtype=torch.int32)
     if bq3.shape != (3 * c,):
         raise ValueError(f"{kernel.name} reads bq3 as ({3 * c},), got {tuple(bq3.shape)}")
     scratch = _half_scratch(x, stats=False)
     kernel.launch(f"am_swin_attn_{version}{f32}", x, ln_w, ln_b, wqkv_t, bq3, wp_t, bp, bm,
-                  bm.shape[0], b, r, c, heads, window, shift, float(eps), *scratch)
+                  bm.shape[0], live, 0 if live is None else live.shape[-1], b, r, c, heads,
+                  window, shift, float(eps), *scratch)
     kernel.count()
     return scratch[-1]
 
@@ -476,7 +571,9 @@ def swin_attention_half_v1(x, ln_w, ln_b, wq, bq, wk, wv, wp, bp, bm, *, heads: 
     -> (B, R, R, C); 8x8 windows, or the merged one-window form (window =
     resolution = 16, ``bm`` (1, heads, 256, 256)).  ``operands``: the
     kernel's :func:`v1_operands` of these weights, made at load; a CUDA
-    tensor needs them, a CPU tensor ignores them."""
+    tensor needs them, a CPU tensor ignores them.  The merged form also
+    reads ``operands["live"]``, the table's :func:`merged_live_tiles`
+    (made from ``bm`` at the call where it is missing)."""
     geo = dict(heads=heads, window=window, shift=shift, eps=eps)
     if x.device.type == "cpu":
         return swin_attention_half_v1_plain(x, ln_w, ln_b, wq, bq, wk, wv, wp, bp, bm, **geo)
@@ -507,8 +604,9 @@ def swin_attention_half_v2(x, ln_w, ln_b, wqkv, bq3, wp, bp, bm, *, heads: int, 
     """Attention half of a Swin block under v2's contract, (B, R, R, C) ->
     (B, R, R, C); 8x8 windows, or the merged one-window form as v1.
     ``operands``: the kernel's :func:`half_operands` of ``wqkv`` and ``wp``,
-    made once by the caller; a CUDA tensor needs them, a CPU tensor ignores
-    them."""
+    made once by the caller (and, for the merged form, ``live``: the
+    table's :func:`merged_live_tiles`, else made from ``bm`` at the call);
+    a CUDA tensor needs them, a CPU tensor ignores them."""
     geo = dict(heads=heads, window=window, shift=shift, eps=eps)
     if x.device.type == "cpu":
         return swin_attention_half_v2_plain(x, ln_w, ln_b, wqkv, bq3, wp, bp, bm, **geo)

@@ -10,7 +10,10 @@ checkout is copied, without its kernel build, ``.git`` and caches,
 into ``kernels/build/faults/<NAME>`` (git-ignored), the fault is planted
 there, and ``python3 chip_smoke.py`` runs in the copy under a time limit
 (a fault in a barrier ring could hang a kernel; the wgmma core's waits trap
-after 2^34 clocks).  A fault is caught when the smoke exits non-zero.
+after 2^34 clocks); with ``--merged``, phase 21 (a) alone
+(``chip_smoke.merged_kernels_alone``: the merged attention's faults Z1-Z4
+in ~1 min each, not the whole smoke's ~7).  A fault is caught when the
+smoke exits non-zero.
 Printed per fault: exit code, the smoke's lines that report a failure
 (``FAIL``, ``DIFFERS``, an exception), and the last line; then one JSON
 line ``{"faults": {NAME: {"rc": .., "caught": ..}}}``.  Needs a card: the
@@ -108,21 +111,26 @@ FAULTS = {
            "__fmul_rn(a[i], s[i])",
            "the int8 MLP's fc1 epilogue drops the row scale sx (both dtypes)"),
     "Z1": (f"{CSRC}/merged_attn.cuh",
-           "    const float2 b0 = *reinterpret_cast<const float2*>(t0 + 8 * j + 2 * tq);\n"
-           "    const float2 b1 = *reinterpret_cast<const float2*>(t0 + 8 * N + 8 * j + 2 * tq);\n",
-           "    const bool own = j / 8 == row / 64;  // the query's own 64-key tile\n"
-           "    const float2 b0 = own ? *reinterpret_cast<const float2*>(t0 + 8 * j + 2 * tq)\n"
-           "                          : make_float2(0.f, 0.f);\n"
-           "    const float2 b1 = own ? *reinterpret_cast<const float2*>(t0 + 8 * N + 8 * j + "
-           "2 * tq)\n"
-           "                          : make_float2(0.f, 0.f);\n",
-           "the merged attention (both dtypes) drops the table's entries of the keys outside the "
-           "query's own 64-key tile: it reads the table as if it were block-diagonal"),
+           "    merged_cp16(tab + (j * MERGED_QT + b) * 8 + 4 * half,\n",
+           "    if ((tiles[j] >> 3) != (merged_token(p, b) >> 6))\n"
+           "      *reinterpret_cast<float4*>(tab + (j * MERGED_QT + b) * 8 + 4 * half) =\n"
+           "          make_float4(0.f, 0.f, 0.f, 0.f);\n"
+           "    else merged_cp16(tab + (j * MERGED_QT + b) * 8 + 4 * half,\n",
+           "the merged attention (both dtypes) drops the table's entries of the live tiles outside "
+           "the query's own 64-key block: it reads the table as if it were block-diagonal"),
     "Z2": (f"{CSRC}/merged_attn.cuh",
-           "*reinterpret_cast<const uint4*>(src + (long long)(QT * qt + i) * 3 * C + j)",
-           "*reinterpret_cast<const uint4*>(src + (long long)(QT * ((qt + 1) % (N / QT)) + i) * "
-           "3 * C + j)",
-           "the bf16 merged attention loads the next 64-query tile's rows of q"),
+           "merged_cp16(q + b * S::LQ + VEC * c, src + merged_token(p, b) * ld + VEC * c);",
+           "merged_cp16(q + b * S::LQ + VEC * c, src + merged_token((p + 1) % MERGED_PATCHES, b) * "
+           "ld + VEC * c);",
+           "the merged attention (both dtypes) loads the next patch's rows of q"),
+    "Z3": ("audio_metrics_tpu_torch/ops/attention.py",
+           "    width = int(live.sum(-1).max())\n", "    width = int(live.sum(-1).max()) - 1\n",
+           "the live-tile map marks a live tile dead: the last of each longest list is cut"),
+    "Z4": (f"{CSRC}/merged_attn.cuh",
+           "merged_prologue(bm + (long long)h * MERGED_N * MERGED_N,",
+           "merged_prologue(bm + (long long)(h & ~1) * MERGED_N * MERGED_N,",
+           "the merged attention's odd heads hold the table tiles of the head before them in "
+           "shared memory"),
     "V1": ("audio_metrics_tpu_torch/models/vggish.py",
            "x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)", "x = x.reshape(x.shape[0], -1)",
            "VGGish flattens its last feature map NCHW, not NHWC as torchvggish"),
@@ -208,7 +216,12 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("names", nargs="*", default=[n for n in FAULTS if n not in CPU_FAULTS])
     ap.add_argument("--timeout", type=int, default=420)
+    ap.add_argument("--merged", action="store_true",
+                    help="run phase 21 (a) alone (the merged attention) in place of the smoke")
     args = ap.parse_args(argv)
+    smoke = ([sys.executable, "-c", "import sys, chip_smoke; "
+              "sys.exit(chip_smoke.merged_kernels_alone())"] if args.merged
+             else [sys.executable, "chip_smoke.py"])
     if not torch.cuda.is_available():
         print("plant_faults: CUDA is not available", file=sys.stderr)
         return 1
@@ -218,7 +231,7 @@ def main(argv=None) -> int:
         plant(name, dest)
         print(f"fault {name}: {FAULTS[name][3]}", flush=True)
         try:
-            run = subprocess.run([sys.executable, "chip_smoke.py"], cwd=dest, text=True,
+            run = subprocess.run(smoke, cwd=dest, text=True,
                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                  timeout=args.timeout)
             rc, out = run.returncode, run.stdout

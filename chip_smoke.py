@@ -11,8 +11,9 @@ Phases, one status line each:
      UTMALDG (wgmma, fed by TMA), the f32 MLP's fc1 and fc2 also USETMAXREG
      (setmaxnreg), the int8 MLP's fc1 and fc2 IGMMA and
      UTMALDG (int8 wgmma), the f32 window attention and the merged
-     attention (bf16, f32) HMMA (mma.sync on the tensor cores), the PRDC
-     statistics' LDGSTS (cp.async); no instantiation
+     attention (bf16, f32) HMMA (mma.sync on the tensor cores), the merged
+     attention's and the PRDC statistics' LDGSTS (cp.async), the bf16
+     merged attention's LDSM (ldmatrix); no instantiation
      of the deleted WMMA gemm_kernel and no IMMA (int8 mma.sync) is left;
   3. each kernel against its plain PyTorch version on the card, at the
      main-path shapes, with errors, tolerances and times: first the f32
@@ -210,15 +211,22 @@ Phases, one status line each:
  21. The merged one-window form of #10 and #11 (``phase_merged``;
      ``AM_TPU_MERGED_ATTN``: window = resolution = 16 at stage 2, one
      256-token attention an image on a dense (1, heads, 256, 256) table,
-     kernels/csrc/merged_attn.cuh): (a) the merged v1 and v2 halves at
+     kernels/csrc/merged_attn.cuh over the key tiles the table's live-tile
+     lists name): (a) the merged v1 and v2 halves at
      stage 2 of HTSAT-base (C = 512) and
      HTSAT-tiny (C = 384), 16 heads, shift 0 and 4, bf16 and f32, B = 64,
      against their plain versions (the allocator's blocks filled with NaN
      first), one launch a call on their own counts, repeated bitwise, v2
-     bitwise v1, v2 also on a dense random table (the kernel assumes no
-     block structure); printed: each against the 8x8-window v1 half, the merged
-     attention launch against the per-window one (torch.profiler), times
-     against the bound, the library yardstick (qkv + proj) and the
+     bitwise v1, v2 also on a dense random table (every tile live) and on
+     the model's table with one query group masked everywhere (its block
+     all live); on each table the attention alone (``am_merged_attn``)
+     bitwise equal to the dense design on the same qkv (kernels/csrc/
+     dense/merged_attn_dense.cu, built beside the library in phase 2 under
+     its sources' hash, as the library is, and run nowhere else); printed: each against the 8x8-window v1 half, the
+     merged attention launch against the per-window one (torch.profiler)
+     and against the dense design (CUDA events in turns, torch.profiler),
+     times against the bound over the keys the table leaves live (the dense
+     figure beside it), the library yardstick (qkv + proj) and the
      attention alone through ``scaled_dot_product_attention``; (b) under
      the switch, HTSAT-base bf16 (phase 4's weights), ``laion_clap_music``
      f32 (phase 10's checkpoint) and HTSAT-tiny bf16 (phase 19's), 256 +
@@ -263,6 +271,8 @@ ok line.  Any failure exits non-zero and prints no ok line.  Imports no JAX.
 
 from __future__ import annotations
 
+import ctypes
+import hashlib
 import json
 import logging
 import os
@@ -438,8 +448,9 @@ TIMING_ITERS = {"patch_merge": 200, "knn_radii": 200, "prdc_stats": 200, "log_me
 # halves' qkv and proj products (the gemm_sm90_kernel instantiations of
 # EPI_BIAS_BF16 = 9 and EPI_PROJ_BF16 = 8, gemm.cuh's enum Epi) likewise; the f32 window attention's 3xTF32
 # products (the float instantiation of window_attn_kernel, inside #1 and
-# #8-#11 in f32) and both instantiations of the merged attention (the
-# merged form of #10 and #11) on mma.sync (HMMA); the PRDC statistics' products fed by
+# #8-#11 in f32) and the instantiations of the merged attention (the
+# merged form of #10 and #11) on mma.sync (HMMA), their rows gathered by
+# cp.async (LDGSTS), bf16's V read by ldmatrix (LDSM); the PRDC statistics' products fed by
 # cp.async (LDGSTS); the int8 MLP's fc1 and fc2 (the instantiations of
 # EPI_S8_GELU = 11, and of EPI_S8_OUT = 12 and EPI_S8_OUT_F32 = 13) on int8
 # wgmma (IGMMA) fed by TMA
@@ -454,8 +465,8 @@ SASS_WANT = {"log_mel": ("log_mel_sm90_kernel", ("HGMMA", "UTMALDG")),
                                        ("HGMMA", "UTMALDG", "USETMAXREG")),
              "patch_merge_f32": ("gemm_tf32x3_kernel.*MergeA", ("HGMMA", "UTMALDG")),
              "window_attn_f32": (r"window_attn_kernelILi\d+E+vPKf", ("HMMA",)),
-             "merged_attn_bf16": ("merged_attn_bf16", ("HMMA",)),
-             "merged_attn_f32": ("merged_attn_f32", ("HMMA",)),
+             "merged_attn_bf16": ("merged_attn_bf16", ("HMMA", "LDGSTS", "LDSM")),
+             "merged_attn_f32": ("merged_attn_f32", ("HMMA", "LDGSTS")),
              "prdc_stats": ("stats_split_kernel", ("LDGSTS",))}
 # kernels the library must hold no instantiation of: gemm.cuh's WMMA
 # gemm_kernel, deleted with its last user (#7's DFT is on the wgmma core)
@@ -493,13 +504,15 @@ def bound(ops: dict, n_bytes: float) -> tuple[float, str, float]:
             float(sum(ops.values())))
 
 
-def swin_bound(cfg, b, part="block", stages=(0, 1, 2, 3), dt="bf16", merged=False):
+def swin_bound(cfg, b, part="block", stages=(0, 1, 2, 3), dt="bf16", merged=0):
     """The Swin blocks of ``stages`` in one forward, in ``dt`` (bf16 or
     f32).  ``part`` "block": the qkv, proj, fc1 and fc2 products (24 T C^2)
     and the window attention (4 T win^2 C); "attn": qkv, proj and attention
     (8 T C^2 + 4 T win^2 C); "mlp": fc1 and fc2 (16 T C^2).  ``merged``:
-    the attention over one window of the whole image (win^2 = R^2, the
-    merged one-window form) where R > the window.  In f32 the
+    the attention over one window of the whole image (the merged one-window
+    form) where R > the window, over ``merged`` keys a query (win^2 in the
+    count): the keys its table leaves live (``merged_keys``; 64 at the
+    model's tables), or R^2 for every key, the dense figure.  In f32 the
     products and the window attention's are reckoned as the card's fastest
     f32-accurate route computes them, three TF32 products each (3xTF32);
     the operations returned are then the f32 ones.  Bytes: each block's
@@ -512,7 +525,8 @@ def swin_bound(cfg, b, part="block", stages=(0, 1, 2, 3), dt="bf16", merged=Fals
         if stage in stages:
             prod += depth * {"block": 24, "attn": 8, "mlp": 16}[part] * t * c * c
             if part != "mlp":
-                win2 = res * res if merged else min(cfg.window_size, res) ** 2
+                win2 = merged if merged and res > cfg.window_size else min(cfg.window_size,
+                                                                           res) ** 2
                 attn += depth * 4 * t * win2 * c
             n_bytes += depth * (2 * t * c + {"block": 12, "attn": 4, "mlp": 8}[part] * c * c) * size
         res //= 2
@@ -3235,8 +3249,6 @@ def window_attn_alone(card: str) -> dict:
     table per window of an image); q pre-scaled by 1/sqrt(d).  Each against
     ``ops.attention._window_context`` under WINDOW_ATTN_TOL; ms per forward
     (CUDA events).  Returns {(dtype, head width): ms per forward}."""
-    import ctypes
-
     from audio_metrics_tpu_torch import kernels
     from audio_metrics_tpu_torch.models.htsat import HTSAT_BASE, HTSAT_TINY
     from audio_metrics_tpu_torch.ops.attention import _window_context
@@ -3819,41 +3831,171 @@ N_CLIPS_MERGED = 256  # (b): 256 + 256 5 s clips a configuration
 # PERF.md)
 MERGED_TOL = {"bf16": (TOL["swin_attn_v2"][0][2], TOL["swin_attn_v2"][1]),
               "f32": (TOL["swin_attn_v2_f32"][0][2], TOL["swin_attn_v2_f32"][1])}
+MERGED_ALONE_ITERS = 50  # (a): launches of the attention alone a timing
 
 
 def merged_table(params, prefix, cfg, shift, heads, dtype):
     """Stage 2's v2 weights of ``prefix`` (matrices in ``dtype``) with the
     merged one-window table, on the card: the v2 half's operands and its
-    ``half_operands``."""
+    ``half_operands`` with the table's live-tile lists (``live``), made
+    once here as a caller makes them at load."""
     from audio_metrics_tpu_torch.models.htsat import (
         _Folded,
         _merged_bias_mask,
         _v2_kernel_weights,
     )
-    from audio_metrics_tpu_torch.ops.attention import half_operands
+    from audio_metrics_tpu_torch.ops.attention import half_operands, merged_live_tiles
 
     w = _v2_kernel_weights(params, prefix, 16, shift, heads, cfg.window_size)
     w["bm"] = _merged_bias_mask(w["bm"], 16, cfg.window_size)
     v2 = _Folded(w, dtype).to("cuda")
-    return (v2.ln1_w, v2.ln1_b, v2.wqkv, v2.bq3, v2.wp, v2.bp, v2.bm), half_operands(v2.wqkv, v2.wp)
+    return ((v2.ln1_w, v2.ln1_b, v2.wqkv, v2.bq3, v2.wp, v2.bp, v2.bm),
+            dict(half_operands(v2.wqkv, v2.wp), live=merged_live_tiles(v2.bm)))
 
 
-def phase_merged_kernels(card: str, cfg, params, label: str) -> dict:
+def start_dense_merged_build():
+    """``nvcc`` of the dense design of the merged attention (kernels/csrc/
+    dense/merged_attn_dense.cu: every key, the table read per image), phase
+    21's yardstick, which no model path runs, into the kernels' build
+    directory under the hash of its sources and flags, as ``kernels.build``
+    names the library: a build of the same sources is reused.  Started
+    beside the library's build.  Returns (the process or None, the
+    library's path, its temporary path) for ``dense_merged_library``."""
+    from audio_metrics_tpu_torch import kernels
+
+    srcs = [kernels._CSRC / "dense" / "merged_attn_dense.cu", *kernels._sources()]
+    h = hashlib.sha256(" ".join(kernels._NVCC_FLAGS).encode())
+    for src in srcs:  # the headers it includes among the library's sources
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    so = kernels._BUILD / f"libam_merged_dense_{h.hexdigest()[:16]}.so"
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    if so.exists():
+        return None, so, tmp
+    kernels._BUILD.mkdir(parents=True, exist_ok=True)
+    proc = subprocess.Popen([kernels._nvcc(), *kernels._NVCC_FLAGS, "-shared", "-o", str(tmp),
+                             str(srcs[0])], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    return proc, so, tmp
+
+
+def dense_merged_library(build) -> ctypes.CDLL:
+    """The dense merged attention's library once its ``nvcc`` (``build``,
+    from ``start_dense_merged_build``) has ended; raises if it failed."""
+    proc, so, tmp = build
+    if proc is not None:
+        out = proc.communicate()[0]
+        if proc.returncode:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"nvcc failed on the dense merged attention:\n{out}")
+        os.replace(tmp, so)
+    return ctypes.CDLL(str(so))
+
+
+def merged_keys(live) -> float:
+    """Keys a query attends over, averaged over a table's queries: 8 for
+    each live tile of its block (``ops.attention.merged_live_tiles``: 64
+    query rows a block, 256 a head)."""
+    return 8 * 64 * int((live >= 0).sum()) / (live.shape[0] * live.shape[1] * 256)
+
+
+def masked_group_table(bm):
+    """``bm`` with the merged kernel's first query group masked against
+    every key in every head: the 16 rows of patch 0's warp 0 (image rows 0
+    and 1, columns 0-7) all -1e9.  Its block then lists all 32 tiles."""
+    from audio_metrics_tpu_torch.ops.attention import MERGED_DEAD
+
+    t = bm.clone()
+    t[:, :, [r * 16 + col for r in (0, 1) for col in range(8)], :] = MERGED_DEAD
+    return t
+
+
+def merged_alone(card: str, what: str, dt: str, qkv, bm, live, heads: int, c: int, dense_lib,
+                 timed: bool):
+    """The merged attention alone (``am_merged_attn`` / ``_f32``: launch 3
+    of the merged halves, on the live lists ``live`` of the table ``bm``)
+    against the dense design (``dense_merged_library``) on the same qkv
+    rows: bitwise equal, or raise (the live-tile kernel leaves out only
+    terms that are exact zeros in the dense one's sums).  Neither call is
+    counted.  ``timed``: both timed in turns (dense, live, live, dense;
+    CUDA events over MERGED_ALONE_ITERS launches) and per launch by
+    torch.profiler, beside the attention's bound over the keys the table
+    leaves live.  Returns {"ms", "dense_ms", "profiled", "dense_profiled"}
+    or None."""
+    from audio_metrics_tpu_torch import kernels
+    from audio_metrics_tpu_torch.kernels import KERNELS
+    from audio_metrics_tpu_torch.profile_evaluate import launch_ms
+
+    sfx = "_f32" if dt == "f32" else ""
+    windows = qkv.shape[0] // 256
+    new, old = (torch.empty((qkv.shape[0], c), dtype=qkv.dtype, device="cuda") for _ in range(2))
+    kernel, dense = KERNELS["swin_attn_v1_merged" + sfx], getattr(dense_lib, "am_merged_dense" + sfx)
+
+    def run_live():
+        kernel.launch("am_merged_attn" + sfx, qkv, bm, live, live.shape[-1], windows, heads, c,
+                      new)
+
+    def run_dense():
+        stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+        rc = dense(*map(kernels._arg, (qkv, bm, 1, windows, heads, c, old)), stream)
+        if rc:
+            raise RuntimeError(f"am_merged_dense{sfx} failed with cudaError {rc}")
+
+    run_live()
+    run_dense()
+    torch.cuda.synchronize()
+    same = torch.equal(new, old)
+    d = (new.float() - old.float()).abs()
+    log(f"    attention alone {dt}, {what}: live lists {tuple(live.shape)}, "
+        f"{merged_keys(live):.1f} of 256 keys a query; against the dense design on the same "
+        "qkv: " + ("bitwise equal" if same else
+                   f"DIFFERS (max abs {d.max().item():.4g} in {int((d > 0).sum())} of {d.numel()})"))
+    if not same:
+        raise AssertionError(f"the merged attention {dt} ({what}) differs from the dense design")
+    if not timed:
+        return None
+    ms = {"dense": [], "live": []}
+    for name, fn in (("dense", run_dense), ("live", run_live), ("live", run_live),
+                     ("dense", run_dense)):
+        ms[name].append(cuda_ms(fn, MERGED_ALONE_ITERS, warmup=3))
+    per = launch_ms(lambda: (run_dense(), run_live()), 10)
+    prof = {k: v for k, v in per.items() if "merged" in k}
+    size = qkv.element_size()
+    n_bytes = (qkv.numel() + new.numel()) * size + 64 * 8 * 4 * int((live >= 0).sum())
+    ops = 4 * windows * 256 * merged_keys(live) * c
+    b = bound({"tf32": 3 * ops} if dt == "f32" else {"bf16": ops}, n_bytes)
+    out = dict(ms=float(np.mean(ms["live"])), dense_ms=float(np.mean(ms["dense"])),
+               profiled=sum(v for k, v in prof.items() if "merged_attn" in k),
+               dense_profiled=sum(v for k, v in prof.items() if "merged_dense" in k))
+    log(f"      per launch (CUDA events, {MERGED_ALONE_ITERS} launches, dense/live/live/dense): "
+        f"live {ms['live'][0]:.4f}, {ms['live'][1]:.4f} ms; dense {ms['dense'][0]:.4f}, "
+        f"{ms['dense'][1]:.4f} ms (x{out['dense_ms'] / out['ms']:.2f}); torch.profiler "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in prof.items())
+        + f"; bound {b[0]:.4f} ms ({b[1]}: {n_bytes / 1e6:.1f} MB, the live table tiles once) "
+        f"[{card}]")
+    return out
+
+
+def phase_merged_kernels(card: str, cfg, params, label: str, dense_lib) -> dict:
     """(a) At stage 2 of ``cfg`` (R = 16, 16 heads) at B = BATCH, shifted
     and unshifted, bf16 and f32: the merged v1 half (``SwinBlock(...,
-    attention="merged")``'s weights, what the model path runs) and the
-    merged v2 half (v2's weights on the merged table) against their plain
-    versions under MERGED_TOL, the allocator's blocks of the half's sizes
-    filled with NaN before each call, one launch a call on its own count,
-    repeated bitwise; v2 bitwise equal to v1 (the same launches on the
-    same operands); the merged v2 half on a dense random table too (no
-    block structure: the public ops take any table).  Printed, not gated:
-    each merged half against the
-    8x8-window v1 half on the same input and weights, and the merged
-    attention launch against the per-window one (torch.profiler).  Times
-    per forward over the stage's blocks: kernel, plain, the bound, the
-    library yardstick (qkv + proj through ``torch.matmul``) and, as a
-    second figure, the attention alone through one
+    attention="merged")``'s weights and the live-tile lists it made from its
+    table at load, what the model path runs) and the merged v2 half (v2's
+    weights on the merged table) against their plain versions under
+    MERGED_TOL, the allocator's blocks of the half's sizes filled with NaN
+    before each call, one launch a call on its own count, repeated bitwise;
+    v2 bitwise equal to v1 (the same launches on the same operands); the
+    merged v2 half also on a dense random table (all 32 tiles live: the
+    kernel's 32-tile form) and on the model's table with one query group
+    masked against every key (its block all live).  On each of those
+    tables the attention alone against the dense design on the same qkv
+    (``merged_alone``, bitwise), timed at the model's tables.  Printed, not
+    gated: each merged half against the 8x8-window v1 half on the same input
+    and weights, and the merged attention launch against the per-window one
+    (torch.profiler).  Times per forward over the stage's blocks: kernel,
+    plain, the bound over the keys the tables leave live (the dense figure
+    beside it), the library yardstick (qkv + proj through ``torch.matmul``)
+    and, as a second figure, the attention alone through one
     ``F.scaled_dot_product_attention`` with the table as a float mask.
     Returns {kernel: its numbers}."""
     import torch.nn.functional as F
@@ -3861,6 +4003,7 @@ def phase_merged_kernels(card: str, cfg, params, label: str) -> dict:
     from audio_metrics_tpu_torch.kernels import KERNELS
     from audio_metrics_tpu_torch.models.htsat import SwinBlock
     from audio_metrics_tpu_torch.ops.attention import (
+        merged_live_tiles,
         swin_attention_half_v1,
         swin_attention_half_v1_plain,
         swin_attention_half_v2,
@@ -3875,11 +4018,14 @@ def phase_merged_kernels(card: str, cfg, params, label: str) -> dict:
     times = {}
     for dtype, sfx, dt in ((torch.bfloat16, "", "bf16"), (torch.float32, "_f32", "f32")):
         x = torch.randn((BATCH, res, res, c), generator=gen, device="cuda").to(dtype)
+        qkv = torch.randn((BATCH * 256, 3 * c), generator=gen, device="cuda")
+        qkv[:, :c] *= (c // heads) ** -0.5
+        qkv = qkv.to(dtype)
         m = BATCH * res * res
         rel_tol, max_tol = MERGED_TOL[dt]
         t = {f"swin_attn_{v}_merged{sfx}": dict(ms=0.0, plain_ms=0.0, max_abs_err=0.0, checked=0)
              for v in ("v1", "v2")}
-        sdpa_ms = 0.0
+        sdpa_ms, alone, keys = 0.0, [], []
 
         def check(v, key, kfn, pfn, n):
             """``v``'s merged kernel against its plain version; timed as
@@ -3923,6 +4069,7 @@ def phase_merged_kernels(card: str, cfg, params, label: str) -> dict:
             a1 = (blk.ln1_w, blk.ln1_b, blk.wq, blk.bq, blk.wk, blk.wv, blk.wp, blk.bp, blk.bm)
             ops1 = blk.kernel_operands()
             a2, ops2 = merged_table(params, prefix, cfg, shift, heads, dtype)
+            keys.append(merged_keys(ops1["live"]))
             key = f"{label} stage 2 R=16 window 16 C={c} heads {heads} x {c // heads} shift={shift}"
             outs = {
                 "v1": check("v1", key, lambda: swin_attention_half_v1(x, *a1, **geo, operands=ops1),
@@ -3958,6 +4105,8 @@ def phase_merged_kernels(card: str, cfg, params, label: str) -> dict:
                 + "; per-window " + ", ".join(f"{k} {v:.4f} ms" for k, v in
                                                window_launch.items() if "window_attn" in k)
                 + f" [{card}]")
+            alone.append(merged_alone(card, f"{label} shift={shift}", dt, qkv, blk.bm,
+                                      ops1["live"], heads, c, dense_lib, timed=True))
             # yardstick: the attention alone in one library call (never on the path)
             q, k, v = (torch.randn((BATCH, heads, 256, c // heads), generator=gen,
                                    device="cuda").to(dtype) for _ in range(3))
@@ -3966,32 +4115,50 @@ def phase_merged_kernels(card: str, cfg, params, label: str) -> dict:
                 sdpa_ms += depth // 2 * cuda_ms(lambda: F.scaled_dot_product_attention(
                     q, k, v, attn_mask=mask, scale=1.0))
             del blk, w8
-        # any table: the public ops take any (1, heads, 256, 256) table, and
-        # the kernel assumes no block structure in it (a dense random one)
-        dense = (*a2[:-1], torch.randn((1, heads, 256, 256), generator=gen, device="cuda"))
+        # any table: the public ops take any (1, heads, 256, 256) table and
+        # make its map from its values: a dense random one (every tile live)
+        # and the model's with one query group masked everywhere
         geo0 = dict(geo, shift=0)
-        check("v2", f"{label} stage 2 C={c} on a dense random table",
-              lambda: swin_attention_half_v2(x, *dense, **geo0, operands=ops2),
-              lambda: swin_attention_half_v2_plain(x, *dense, **geo0), 0)
+        for what, table in (
+                ("a dense random table", torch.randn((1, heads, 256, 256), generator=gen,
+                                                     device="cuda")),
+                ("the shift-4 table with one query group masked everywhere",
+                 masked_group_table(a2[-1]))):
+            live = merged_live_tiles(table)
+            ops = dict(ops2, live=live)
+            args = (*a2[:-1], table)
+            check("v2", f"{label} stage 2 C={c} on {what} (live lists {tuple(live.shape)})",
+                  lambda: swin_attention_half_v2(x, *args, **geo0, operands=ops),
+                  lambda: swin_attention_half_v2_plain(x, *args, **geo0), 0)
+            merged_alone(card, f"{label}, {what}", dt, qkv, table, live, heads, c, dense_lib,
+                         timed=False)
         _, per_block = products_alone_ms(cfg, BATCH, dtype)
-        b = swin_bound(cfg, BATCH, "attn", (stage,), dt, merged=True)
+        live_keys = float(np.mean(keys))
+        b = swin_bound(cfg, BATCH, "attn", (stage,), dt, merged=live_keys)
+        dense_b = swin_bound(cfg, BATCH, "attn", (stage,), dt, merged=256)
         for name, r in t.items():
-            r.update(bound_ms=b[0], bound_by=b[1], ops=b[2],
-                     library_ms=depth * per_block[stage]["attn"], sdpa_ms=sdpa_ms)
+            r.update(bound_ms=b[0], bound_by=b[1], ops=b[2], dense_bound_ms=dense_b[0],
+                     library_ms=depth * per_block[stage]["attn"], sdpa_ms=sdpa_ms,
+                     launch_ms=float(np.mean([a["ms"] for a in alone])),
+                     dense_launch_ms=float(np.mean([a["dense_ms"] for a in alone])))
             log(f"  {name} {label} per forward at B={BATCH} ({depth} blocks): kernel "
                 f"{r['ms']:.4f} ms ({r['ops'] / (r['ms'] * 1e-3) / 1e12:.1f} TFLOP/s), plain "
-                f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
-                f"library {r['library_ms']:.4f} ms (qkv + proj, torch.matmul), attention alone "
-                f"through scaled_dot_product_attention {sdpa_ms:.4f} ms, max abs err "
-                f"{r['max_abs_err']:.4g} [{card}]")
+                f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}; over "
+                f"the {live_keys:.0f} keys a query the tables leave live; "
+                f"{dense_b[0]:.4f} over all 256), library {r['library_ms']:.4f} ms (qkv + "
+                f"proj, torch.matmul), attention alone through scaled_dot_product_attention "
+                f"{sdpa_ms:.4f} ms, against the merged attention launch x{depth} "
+                f"{depth * r['launch_ms']:.4f} ms (the dense design's x{depth} "
+                f"{depth * r['dense_launch_ms']:.4f}), max abs err {r['max_abs_err']:.4g} "
+                f"[{card}]")
         times.update(t)
     return times
 
 
-def phase_merged(card: str, results: dict) -> dict:
+def phase_merged(card: str, results: dict, dense_lib) -> dict:
     """Phase 21: the merged one-window form of #10 and #11.  (a)
     ``phase_merged_kernels`` at HTSAT-base's and HTSAT-tiny's stage 2 with
-    ``check_params``' weights; (b) under
+    ``check_params``' weights, against the dense design ``dense_lib``; (b) under
     ``AM_TPU_MERGED_ATTN=1``, set around each model's construction only:
     HTSAT-base bf16 with phase 4's weights, ``laion_clap_music`` (f32) from
     phase 10's checkpoint and HTSAT-tiny bf16 from phase 19's, each in
@@ -4009,9 +4176,10 @@ def phase_merged(card: str, results: dict) -> dict:
 
     t21 = time.perf_counter()
     log("  (a) the merged halves at stage 2 against their plain versions")
-    base = phase_merged_kernels(card, HTSAT_BASE, check_params(HTSAT_BASE), "HTSAT-base")
+    base = phase_merged_kernels(card, HTSAT_BASE, check_params(HTSAT_BASE), "HTSAT-base",
+                                dense_lib)
     tiny_params = check_params(HTSAT_TINY)
-    tiny = phase_merged_kernels(card, HTSAT_TINY, tiny_params, "HTSAT-tiny")
+    tiny = phase_merged_kernels(card, HTSAT_TINY, tiny_params, "HTSAT-tiny", dense_lib)
     for name, r in base.items():
         results[name] = {k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                            "bound_by", "library_ms")}
@@ -4059,11 +4227,35 @@ def phase_merged(card: str, results: dict) -> dict:
                 + ("(b), add_reference + first evaluate" if "v1" in name else
                    "(a)'s checked calls; opt-in, no path")
                 + f"), kernel {r['ms']:.4f} ms a forward, plain {r['plain_ms']:.4f}, bound "
-                f"{r['bound_ms']:.4f} ({r['bound_by']}), library {r['library_ms']:.4f}, "
-                f"scaled_dot_product_attention {r['sdpa_ms']:.4f}, max abs err "
-                f"{r['max_abs_err']:.4g} [{card}]")
+                f"{r['bound_ms']:.4f} ({r['bound_by']}; dense {r['dense_bound_ms']:.4f}), "
+                f"library {r['library_ms']:.4f}, scaled_dot_product_attention "
+                f"{r['sdpa_ms']:.4f}; attention launch {r['launch_ms']:.4f} ms (dense design "
+                f"{r['dense_launch_ms']:.4f}), max abs err {r['max_abs_err']:.4g} [{card}]")
     log(f"  phase 21: {time.perf_counter() - t21:.1f} s [{card}]")
     return {name: n for (model, name), n in launches.items() if model == "HTSAT-base"}
+
+
+def merged_kernels_alone() -> int:
+    """Phase 21 (a) alone (``plant_faults --merged``): the library and the
+    dense design built, then ``phase_merged_kernels`` at HTSAT-base's and
+    HTSAT-tiny's stage 2; 0 when every check passes, else raises."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; nothing was run", file=sys.stderr)
+        return 1
+    from audio_metrics_tpu_torch import kernels
+    from audio_metrics_tpu_torch.models.htsat import HTSAT_BASE, HTSAT_TINY
+    from audio_metrics_tpu_torch.testing import card_line
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    log(card)
+    dense_build = start_dense_merged_build()
+    kernels.build()
+    dense_lib = dense_merged_library(dense_build)
+    for cfg, label in ((HTSAT_BASE, "HTSAT-base"), (HTSAT_TINY, "HTSAT-tiny")):
+        phase_merged_kernels(card, cfg, check_params(cfg), label, dense_lib)
+    return 0
 
 
 def main() -> int:
@@ -4084,7 +4276,9 @@ def main() -> int:
     log(card)
 
     t0 = time.perf_counter()
+    dense_build = start_dense_merged_build()  # phase 21's yardstick, beside the library
     lib = kernels.build()
+    dense_lib = dense_merged_library(dense_build)
     log(f"phase 2 build: {time.perf_counter() - t0:.2f} s (nvcc {kernels.build_seconds} s)")
     sass_check(lib._name)
 
@@ -4171,7 +4365,7 @@ def main() -> int:
     phase_tiny_split(card)
     log("phase 21 the merged one-window form of #10/#11 (AM_TPU_MERGED_ATTN: 256-token "
         "attention at stage 2), bf16 and f32, HTSAT-base and HTSAT-tiny")
-    launches_merged = phase_merged(card, results)
+    launches_merged = phase_merged(card, results, dense_lib)
 
     # launches: each kernel's count on the path that runs it
     path_of = {"log_mel": launches_10s, "swin_attn_v3": launches_split,

@@ -1248,6 +1248,50 @@ def test_merged_attention_kernels_match_plain(cuda, params, tiny_params, config,
     _close(got, want, want.float() - x.float(), rel, mx)
 
 
+@pytest.mark.parametrize("dtype", TINY_DTYPES, ids=["bf16", "f32"])
+def test_merged_live_lists_on_the_card(cuda, params, dtype):
+    """The merged half's live-tile lists: made on the card from the table,
+    they equal those made on the CPU at load (8 of 32 tiles a block); the
+    half on lists made at the call (operands without ``live``) equals the
+    half on the lists held from load, bitwise, one launch each; on the
+    table with one query group masked everywhere (its block then all live)
+    it holds to its plain version; lists that do not fit the table (a
+    shape, a dtype, the map of the table with its keys rolled by one tile)
+    raise before a launch."""
+    from audio_metrics_tpu_torch.ops.attention import MERGED_DEAD, merged_live_tiles
+
+    blk = SwinBlock(params, "audio_encoder.layers.2.blocks.1", cfg, 16, 4, 16, dtype,
+                    attention="merged").to(cuda)
+    ops = blk.kernel_operands()
+    assert tuple(ops["live"].shape) == (1, 16, 4, 8)
+    assert torch.equal(merged_live_tiles(blk.bm).cpu(), ops["live"].cpu())
+    f32 = "_f32" if dtype == torch.float32 else ""
+    x = _x(cuda, 430, (2, 16, 16, 512)).to(dtype)
+    geo = dict(heads=16, window=16, shift=blk.shift, eps=blk.eps)
+    a1 = (blk.ln1_w, blk.ln1_b, blk.wq, blk.bq, blk.wk, blk.wv, blk.wp, blk.bp)
+    made = {k: v for k, v in ops.items() if k != "live"}
+    got = _once("swin_attn_v1_merged" + f32,
+                lambda: swin_attention_half_v1(x, *a1, blk.bm, **geo, operands=ops))
+    again = _once("swin_attn_v1_merged" + f32,
+                  lambda: swin_attention_half_v1(x, *a1, blk.bm, **geo, operands=made))
+    assert torch.equal(got, again)
+    masked = blk.bm.clone()
+    masked[:, :, [r * 16 + col for r in (0, 1) for col in range(8)], :] = MERGED_DEAD
+    assert merged_live_tiles(masked).shape[-1] == 32
+    got = _once("swin_attn_v1_merged" + f32,
+                lambda: swin_attention_half_v1(x, *a1, masked, **geo, operands=made))
+    with full_f32():
+        want = swin_attention_half_v1_plain(x, *a1, masked, **geo)
+    rel, mx = MERGED_TOL[dtype]
+    _close(got, want, want.float() - x.float(), rel, mx)
+    before = {k: v.launches for k, v in KERNELS.items()}
+    for wrong in (ops["live"][:, :8].contiguous(), ops["live"].long(),
+                  merged_live_tiles(blk.bm.roll(8, dims=-1))):
+        with pytest.raises(ValueError, match="live-tile lists"):
+            swin_attention_half_v1(x, *a1, blk.bm, **geo, operands=dict(ops, live=wrong))
+    assert {k: v.launches for k, v in KERNELS.items()} == before
+
+
 def test_merged_attention_refuses_other_tables(cuda, params):
     """No launch where the merged form's geometry is wrong: window 16 with
     a per-window (1, heads, 64, 64) table raises ``ValueError``, a window

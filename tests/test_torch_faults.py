@@ -548,6 +548,102 @@ def test_card_bf16_ln_affine_half_checks_operand_shapes(symbols, half, name, wro
     assert symbols == []
 
 
+def _merged_small_half(dtype=torch.bfloat16):
+    """A merged v1 half of ``dtype`` on the stand-in card (stage 2 of the small
+    config: R = 16, window 16, 4 heads of 32): the call on zero rows, the
+    block's held operands and its table."""
+    from audio_metrics_tpu_torch.models.htsat import HTSATConfig, SwinBlock, init_params
+    from audio_metrics_tpu_torch.ops.attention import swin_attention_half_v1
+
+    cfg = HTSATConfig(embed_dim=32, depths=(2, 2, 2, 2), num_heads=(1, 2, 4, 8))
+    block = _on_card(SwinBlock(init_params(cfg, seed=0), "audio_encoder.layers.2.blocks.1", cfg,
+                               16, 4, 4, dtype, attention="merged"))
+    args = (block.ln1_w, block.ln1_b, block.wq, block.bq, block.wk, block.wv, block.wp, block.bp,
+            block.bm)
+    x = _card(torch.zeros((2, 16, 16, 128), dtype=dtype))
+
+    def call(operands):
+        return swin_attention_half_v1(x, *args, heads=4, window=16, shift=4, operands=operands)
+
+    return call, block.kernel_operands(), block.bm
+
+
+@pytest.mark.parametrize("dtype,symbol", [(torch.bfloat16, "am_swin_attn_v1"),
+                                          (torch.float32, "am_swin_attn_v1_f32")])
+def test_card_merged_half_passes_its_live_lists(symbols, dtype, symbol):
+    """A merged v1 half (stage 2 of the small config: R = 16, window 16,
+    4 heads of 32) on the card launches its entry once, counted on its
+    merged kernel, with the live-tile lists held from load and their length
+    in the entry's ``live`` and ``nlive`` (8 at this table) and window 16;
+    lists that do not fit the table (another head count, no tile, int64)
+    raise ``ValueError`` before any launch."""
+    call, ops, _ = _merged_small_half(dtype)
+    out, moved = _counted(lambda: call(ops))
+    assert symbols == [symbol] and moved == {f"swin_attn_v1_merged{symbol[15:]}": 1}
+    assert out.dtype == dtype and out.shape == (2, 16, 16, 128)
+    params = _c_parameters("audio_metrics_tpu_torch/kernels/csrc/swin_block.cu", symbol)
+    cargs = symbols.cargs[symbol]
+    assert [type(a) for a in cargs] == [kind for kind, _ in params]
+    got = {name: a.value for (_, name), a in zip(params, cargs)}
+    assert got["live"] == ops["live"].data_ptr() and got["nlive"] == 8 and got["win"] == 16
+    for wrong in (ops["live"][:, :2].contiguous(), ops["live"][..., :0].contiguous(),
+                  ops["live"].long()):
+        with pytest.raises(ValueError, match="live-tile lists"):
+            call(dict(ops, live=_card(wrong)))
+    assert symbols == [symbol]
+
+
+@pytest.mark.parametrize("wrong", ["descending", "repeated", "past-31", "another-table"])
+def test_card_merged_half_refuses_lists_not_of_its_table(symbols, wrong):
+    """Lists of the table's shape and dtype that are not its map (order
+    reversed, a tile listed twice, a tile past 31, the map of the table
+    with its keys rolled by one tile) raise ``ValueError`` before any
+    launch: the kernel would read them as they are."""
+    from audio_metrics_tpu_torch.ops.attention import merged_live_tiles
+
+    call, ops, bm = _merged_small_half()
+    live = ops["live"].clone()
+    if wrong == "descending":
+        live = live.flip(-1).contiguous()
+    elif wrong == "repeated":
+        live[..., 1] = live[..., 0]
+    elif wrong == "past-31":
+        live[..., -1] = 32
+    else:
+        live = merged_live_tiles(bm.roll(8, dims=-1))
+    assert live.shape == ops["live"].shape and not torch.equal(live, ops["live"])
+    with pytest.raises(ValueError, match="not those of the table"):
+        call(dict(ops, live=live))
+    assert symbols == []
+
+
+def test_card_merged_half_checks_its_lists_once(symbols, monkeypatch):
+    """The held lists are checked against the table's map at the first
+    call, and neither is made or checked again while both keep their
+    values; lists changed in place after that raise at the next call, and
+    a table changed in place has its map made anew."""
+    from audio_metrics_tpu_torch.ops import attention
+
+    call, ops, bm = _merged_small_half()
+    call(ops)
+    made, equal = [], torch.equal
+    real = attention.merged_live_tiles
+    monkeypatch.setattr(attention, "merged_live_tiles", lambda t: made.append(t) or real(t))
+    monkeypatch.setattr(torch, "equal", lambda *a: pytest.fail("the lists were checked again"))
+    call(ops)
+    call(dict(ops))
+    assert made == [] and symbols == ["am_swin_attn_v1"] * 3
+    monkeypatch.setattr(torch, "equal", equal)
+    ops["live"][0, 0, 0, 0] = 31
+    with pytest.raises(ValueError, match="not those of the table"):
+        call(ops)
+    assert made == [] and len(symbols) == 3
+    ops["live"][0, 0, 0, 0] = real(bm)[0, 0, 0, 0]
+    bm.add_(0.0)
+    call(ops)
+    assert len(made) == 1 and len(symbols) == 4
+
+
 @pytest.mark.parametrize("op", ["v2", "int8"])
 def test_card_f32_opt_in_op_reaches_its_f32_kernel(symbols, op):
     """In f32 the v2 attention half launches ``am_swin_attn_v2_f32`` on the

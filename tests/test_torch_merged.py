@@ -118,6 +118,34 @@ def test_merged_table_equals_jax(config, shift):
     assert (got == np.float32(-1e9)).sum() == heads * 256 * (256 - 64)
 
 
+def test_live_map_of_the_jax_table():
+    """The live-tile map (``ops.attention.merged_live_tiles``) made from the
+    JAX package's own merged table of a shifted HTSAT-base stage-2 block:
+    each of the kernel's blocks (an 8x8 patch of the rolled image) keeps
+    the 8 tiles of its window, where its rows hold entries above -1e9, and
+    every tile it drops is -1e9 throughout; the map of the port's table is
+    the same."""
+    from audio_metrics_tpu_torch.ops.attention import merged_live_tiles
+
+    heads, pre = 16, "audio_encoder.layers.2.blocks.1.attention"
+    rng = np.random.default_rng(12)
+    p = {f"{pre}.self.relative_position_bias_table": rng.normal(
+        scale=0.5, size=(225, heads)).astype(np.float32)}
+    bm = _bias_mask(p, pre, 16, 4, heads, 8)
+    table = np.array(jax_merged_bias_mask(jnp.asarray(bm), 16, 8))
+    live = merged_live_tiles(torch.from_numpy(table))
+    assert torch.equal(live, merged_live_tiles(torch.from_numpy(_merged_bias_mask(bm, 16, 8))))
+    assert live.shape == (1, heads, 4, 8)
+    for q in range(4):  # patch (q // 2, q % 2): window q of the rolled image
+        rows = [(8 * (q // 2) + i) * 16 + 8 * (q % 2) + j for i in range(8) for j in range(8)]
+        want = [2 * r + q % 2 for r in range(8 * (q // 2), 8 * (q // 2) + 8)]
+        assert (live[0, :, q] == torch.tensor(want, dtype=torch.int32)).all()
+        tiles = table[0][:, rows].reshape(heads, 64, 32, 8)
+        dead = [t for t in range(32) if t not in want]
+        assert (tiles[:, :, dead] == np.float32(-1e9)).all()
+        assert (tiles[:, :, want] > -1e9).any(axis=(1, 3)).all()
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_merged_half_v1_matches_pallas(dtype, shift=4):
     """The v1 half at window = resolution = 16 on the merged table of a
@@ -226,4 +254,6 @@ def test_attention_choice_merged(monkeypatch, env, want):
     assert all(b.resolution == b.window == 16 for b in merged)
     block = SwinBlock(init_params(SMALL, seed=0), "audio_encoder.layers.2.blocks.0", SMALL, 16,
                       0, 4, torch.float32, attention="merged")
-    assert set(block.kernel_operands()) == {"w1_t", "w2_t", "wqkv_t", "wp_t", "bq3"}
+    ops = block.kernel_operands()
+    assert set(ops) == {"w1_t", "w2_t", "wqkv_t", "wp_t", "bq3", "live"}
+    assert ops["live"].dtype == torch.int32 and tuple(ops["live"].shape) == (1, 4, 4, 8)
