@@ -18,15 +18,17 @@ their order are the JAX package's: ``fad``, ``kernel_distance_mean``,
 from __future__ import annotations
 
 import copy
+import functools
 import math
 import os
+import threading
 import time
 import warnings
 from pathlib import Path
 
 import torch
 
-from .data import AudioMetricsData
+from .data import AudioMetricsData, flush_pending_stats, pull
 from .metrics.apa import apa, apa_compute_d_x_xp
 from .metrics.fad import FadInfUnavailable, fad_device_tail, fad_inf_parts, frechet_distance
 from .metrics.kd import kernel_distance
@@ -34,7 +36,7 @@ from .metrics.prdc import prdc
 from .models import get_embedder
 from .models.base import as_embedder
 from .ops.mix import DEFAULT_MIX_FUNCTION, MIX_FUNCTIONS
-from .parallel.mesh import make_mesh
+from .parallel.mesh import Shard, make_mesh
 from .parallel.pipeline import ItemCategory, embedding_pipeline
 from .projection import IncrementalPCA
 from .utils.serialize import load_state_dict, save_state_dict
@@ -267,41 +269,42 @@ class AudioMetrics:
         return self.evaluate(candidate)
 
     def evaluate(self, candidate) -> dict:
-        """The configured metrics of ``candidate`` against the reference.
+        """The configured metrics of ``candidate`` against the reference, in
+        the JAX package's order (audio_metrics.py:315-498): the pipeline;
+        the FAD tail dispatched on the candidate's pending moments
+        (``metrics.fad.fad_device_tail``); every other category's moments
+        merged in one pull (``data.flush_pending_stats``; under
+        ``AM_TPU_FAD_TAIL=packed``, read at each call, the tail's M rides
+        it); the ``n_pca`` projection and APA's d(x, x'); KD, PRDC and
+        FAD-inf dispatched as ``(device tensors, host_reduce)``; FAD's host
+        work (the float64 ``frechet_distance`` where the tail declines: n
+        <= d, several moment triples as over a mesh, ``n_pca``, or
+        ``AM_TPU_FAD_TAIL=host``; ``packed``'s host ``eigvalsh``) on a
+        thread while anything is pending, else inline; then ONE pull
+        (``data.pull``) of every pending tensor and of the deferred tail's
+        (``nsdev``, the default, and ``eigdev``), after which the reduces
+        run on the host.  So the default configuration (FAD, KD, PRDC on
+        one card) waits for the card once after its forwards.  An
+        exception of the thread is raised here after the join.
 
         Wall-clock seconds of the stages of the last call are kept in
-        ``self.timings`` under the JAX package's keys (audio_metrics.py:
-        315-498): ``pipeline`` (windowing, resampling, mixing, the forwards
-        enqueued), ``projection`` (``n_pca``, and APA's d(x, x') at the
-        first evaluate after an ``add_reference``), ``fad``,
-        ``kd_dispatch``, ``prdc_dispatch``, ``fad_inf_dispatch``,
-        ``finalize`` (the whole stems metric tail after the projection; in
-        the JAX package, from its coalesced pull to the return), and
-        ``apa``.  No synchronisation is
-        added for them.  The forwards are enqueued asynchronously and the
-        embed loop sends no host value to the card (a batch's row count is
-        filled in on the device, ``data.batch_moments``; over a mesh,
-        ``parallel.pipeline.sharded_embed_loop``), so ``pipeline`` ends
-        when the last forward is enqueued (the pair path's one read of its
-        mix flags waits for the mixes), and the wait for the card lands in
-        the first stage that reads a device value: ``projection`` with
-        ``n_pca`` or at APA's first evaluate, else ``fad`` (its device tail,
-        ``metrics.fad.fad_device_tail``, pulls a trace square root or M's
-        eigenvalues and the candidate's mean; under
-        ``AM_TPU_FAD_TAIL=host``, read at each call, the candidate's
-        moments for the float64 ``frechet_distance``), else
-        ``kd_dispatch`` (the pull of its Gram sums), else
-        ``prdc_dispatch``, else ``apa``.  Each metric stage here returns
-        host values, so the dispatches include their own syncs.  Songs
-        given as an iterable take the
-        host-fed path (``parallel.pipeline.embedding_pipeline``), which
-        sends no host value to the card after a forward: there ``pipeline``
-        ends with the one pull of the moments, which waits for the card,
-        and two more keys split it: ``pipeline_feed``, the host's seconds
-        making batches (windows, shuffles, stacking), and
-        ``pipeline_drain``, the wait at that pull.
-        Pairs given without APA are the stems of their channel 1; mono
-        audio given with APA raises ``ValueError``.
+        ``self.timings`` under the JAX package's keys and in its order:
+        ``pipeline`` (windowing, resampling, mixing, the forwards enqueued,
+        the tail's dispatch and the flush, which waits for the card when
+        anything is pending then), ``projection``, ``kd_dispatch``,
+        ``prdc_dispatch``, ``fad_inf_dispatch``, ``fad`` (FAD's host work
+        inline, when nothing else is pending), ``finalize_pull`` (the one
+        pull: the card's drain), ``fad_overlapped`` (from the pull to the
+        thread's join), ``finalize`` (from the pull to the last reduce),
+        then ``apa``; a stage that does not run writes no key (the default
+        configuration writes no ``fad``).  No synchronisation is added for
+        them.  Songs given as an iterable take the host-fed path
+        (``parallel.pipeline.embedding_pipeline``), whose ``pipeline`` ends
+        with its one pull of the moments; two more keys split it:
+        ``pipeline_feed``, the host's seconds making batches, and
+        ``pipeline_drain``, the wait at that pull.  Pairs given without APA
+        are the stems of their channel 1; mono audio given with APA raises
+        ``ValueError``.
 
         ``fad_inf`` where its sweep cannot run (no stored candidate
         embeddings, n <= d + 1, no reference Cholesky factor, or fewer
@@ -318,8 +321,16 @@ class AudioMetrics:
             raise ValueError("No stem candidate embeddings were computed")
         if self.need_apa and not apa_cand:
             raise ValueError("No apa candidate embeddings were computed")
+        tail = None
+        if "fad" in self.metrics and self.stem_projection is None:
+            tail = fad_device_tail(stem_cand, self.stem_reference)
+        defer = tail is not None and tail[2]
+        tail_host = flush_pending_stats(
+            [m for m in out.values() if tail is None or m is not stem_cand],
+            extra=None if tail is None or defer else tail[0])
         self.timings["pipeline"] = time.perf_counter() - t0
         self.timings.update({f"pipeline_{k}": v for k, v in fed.items()})
+
         t0 = time.perf_counter()
         ref, cand = self.stem_reference, stem_cand
         if self.stems_mode:
@@ -329,42 +340,92 @@ class AudioMetrics:
                 self.mix_reference, self.mix_anti_reference, apa_cand)
             if self.apa_d_x_xp is None:
                 self.apa_d_x_xp = apa_compute_d_x_xp(apa_ref, apa_anti_ref)
-        t_tail = time.perf_counter()
-        self.timings["projection"] = t_tail - t0
-        result = {}
-        if "fad" in self.metrics:
-            t0 = time.perf_counter()
-            fad = None if self.stem_projection is not None else fad_device_tail(cand, ref)
-            result["fad"] = frechet_distance(cand, ref) if fad is None else fad
-            self.timings["fad"] = time.perf_counter() - t0
+        self.timings["projection"] = time.perf_counter() - t0
+
+        pending = []  # (device tensors, host_reduce), in the result's key order
         if "kd" in self.metrics:
             t0 = time.perf_counter()
-            result.update(kernel_distance(cand, ref, mesh=self.mesh))
+            pending.append(kernel_distance(cand, ref, mesh=self.mesh, lazy="parts"))
             self.timings["kd_dispatch"] = time.perf_counter() - t0
         if "prdc" in self.metrics:
             t0 = time.perf_counter()
             k = max(1, min(10, len(ref), len(cand)))
-            result.update(prdc(ref, cand, k, mesh=self.mesh))
+            pending.append(prdc(ref, cand, k, mesh=self.mesh, lazy="parts"))
             self.timings["prdc_dispatch"] = time.perf_counter() - t0
         if "fad_inf" in self.metrics:
             t0 = time.perf_counter()
-            result.update(self._fad_inf(cand, ref))
+            pending.append(self._fad_inf_parts(cand, ref))
             self.timings["fad_inf_dispatch"] = time.perf_counter() - t0
-        self.timings["finalize"] = time.perf_counter() - t_tail
+        on_card = any(arrays for arrays, _ in pending)
+
+        fad_out: dict = {}
+        worker = None
+        if "fad" in self.metrics and not defer:
+            work = (functools.partial(tail[1], tail_host) if tail is not None else
+                    functools.partial(frechet_distance, cand, ref))
+            if on_card:
+                worker = self._start_worker(work, fad_out)
+            else:
+                t0 = time.perf_counter()
+                fad_out["fad"] = work()
+                self.timings["fad"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        host = []
+        if on_card or defer:
+            host = pull([a for arrays, _ in pending for a in arrays]
+                        + (list(tail[0]) if defer else []))
+            self.timings["finalize_pull"] = time.perf_counter() - t0
+        pulled, i = [], 0
+        for arrays, host_reduce in pending:
+            pulled.append(host_reduce(host[i : i + len(arrays)]))
+            i += len(arrays)
+        if worker is not None:
+            worker.join()
+            self.timings["fad_overlapped"] = time.perf_counter() - t0
+        if "error" in fad_out:
+            raise fad_out.pop("error")
+        if defer:
+            fad_out["fad"] = tail[1](host[i:])
+        result = dict(fad_out)  # fad first, then the order of dispatch
+        for values in pulled:
+            result.update(values)
+        self.timings["finalize"] = time.perf_counter() - t0
         if self.need_apa:
             t0 = time.perf_counter()
             result["apa"] = apa(apa_cand, apa_ref, apa_anti_ref, self.apa_d_x_xp)
             self.timings["apa"] = time.perf_counter() - t0
         return result
 
+    def _start_worker(self, fn, out: dict) -> threading.Thread:
+        """``out["fad"] = fn()`` on a host thread of its own, begun now,
+        with the caller's grad mode and, on a card, ``mesh.home``'s device
+        and the caller's current stream there current (a new thread starts
+        on device 0's default stream, with grad mode on); an exception is
+        kept as ``out["error"]`` for the caller to raise after the join."""
+        home, grad = self.mesh.home, torch.is_grad_enabled()
+        place = Shard(home, torch.cuda.current_stream(home) if home.type == "cuda" else None)
+
+        def run():
+            try:
+                with place.context(), torch.set_grad_enabled(grad):
+                    out["fad"] = fn()
+            except BaseException as exc:  # raised on the caller's thread after the join
+                out["error"] = exc
+
+        worker = threading.Thread(target=run, name="fad-host", daemon=True)
+        worker.start()
+        return worker
+
     @staticmethod
-    def _fad_inf(cand: AudioMetricsData, ref: AudioMetricsData) -> dict:
+    def _fad_inf_parts(cand: AudioMetricsData, ref: AudioMetricsData):
+        """FAD-inf dispatched as ``(device tensors, host_reduce)``; where
+        its sweep cannot run, no tensors and nan for both keys, with a
+        warning naming the cause."""
         try:
-            arrays, reduce_fn = fad_inf_parts(cand, ref)
+            return fad_inf_parts(cand, ref)
         except FadInfUnavailable as exc:
             warnings.warn(f"fad_inf and fad_inf_slope are nan: {exc}")
-            return {"fad_inf": math.nan, "fad_inf_slope": math.nan}
-        return reduce_fn(tuple(a.double().cpu().numpy() for a in arrays))
+            return (), lambda _: {"fad_inf": math.nan, "fad_inf_slope": math.nan}
 
     def assert_reference(self) -> None:
         """Raise ``ValueError`` when a reference set the metrics need is

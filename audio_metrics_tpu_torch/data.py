@@ -12,12 +12,16 @@ level): ``add`` takes numpy or array-like rows as well as tensors, ``+`` and
 
 from __future__ import annotations
 
+import contextlib
+import threading
+
 import numpy as np
 import torch
 
 from .models.base import resolve_device
 
-__all__ = ["AudioMetricsData", "as_rows", "batch_moments", "ensure_ndarray"]
+__all__ = ["AudioMetricsData", "as_rows", "batch_moments", "ensure_ndarray",
+           "flush_pending_stats", "pull"]
 
 
 def ensure_ndarray(x) -> np.ndarray:
@@ -58,13 +62,60 @@ def batch_moments(e: torch.Tensor, mask: torch.Tensor | None = None):
     return n, s1, c.T @ c
 
 
+def pull(tensors) -> list[np.ndarray]:
+    """Host copies of ``tensors``, numpy arrays equal to each tensor's
+    ``.cpu().numpy()``, after ONE wait for the card: each card tensor is
+    copied without a wait into pinned host memory on its card's current
+    stream, then that stream is synchronized once (once a card, where the
+    tensors lie on several).  The counterpart of the JAX package's one
+    ``jax.device_get`` of a tuple of arrays; CPU tensors come back as
+    ``.numpy()`` views, as ``.cpu().numpy()`` gives them."""
+    tensors = [t.detach() for t in tensors]
+    host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) if t.is_cuda else t
+            for t in tensors]
+    for h, t in zip(host, tensors):
+        if t.is_cuda:
+            h.copy_(t, non_blocking=True)
+    for dev in {t.device for t in tensors if t.is_cuda}:
+        torch.cuda.current_stream(dev).synchronize()
+    return [h.numpy() for h in host]
+
+
+def flush_pending_stats(amds, extra=None):
+    """Merge the pending device moments of several accumulators into their
+    host stats, in arrival order, with ONE pull (audio_metrics_tpu/
+    data.py:155-194) that also carries ``extra``, a sequence of tensors
+    (the FAD device tail's under ``AM_TPU_FAD_TAIL=packed``); returns their
+    host copies (``pull``), or None without ``extra``.  Each accumulator's
+    lock is held from taking its triples to merging them, so a reader on
+    another thread sees the stats before or after, never between.  The
+    packed-triangle pull of the JAX package (its :89-152) is not ported."""
+    amds = list({id(a): a for a in amds if a is not None}.values())
+    with contextlib.ExitStack() as stack:
+        for a in sorted(amds, key=id):  # one order for every caller: no deadlock
+            stack.enter_context(a._pending_lock)
+        taken = [(a, a._pending) for a in amds if a._pending]
+        if not taken and extra is None:
+            return None
+        moments = [t for _, pending in taken for _, s1, m2 in pending for t in (s1, m2)]
+        host = pull(moments + ([] if extra is None else list(extra)))
+        i = 0
+        for a, pending in taken:
+            a._pending = []
+            for n, _, _ in pending:
+                a._merge(n, host[i].astype(np.float64), host[i + 1].astype(np.float64))
+                i += 2
+        return None if extra is None else host[i:]
+
+
 class AudioMetricsData:
     """Mean / covariance (f64, host), the embeddings (device) and their
     PRDC k-NN radii (device, ``radii["radii_{k}"]``) of one category
     (audio_metrics_tpu/data.py:196-562, the reference's data.py:18-113).
     Moments from the embed loop arrive as device tensors and are merged into
     the host stats when ``mean``, ``cov`` or ``stats()`` is read
-    (``_pending``); ``n`` counts them without a pull.
+    (``_pending``, under ``_pending_lock``: the evaluate's FAD thread reads
+    stats; ``flush_pending_stats``); ``n`` counts them without a pull.
 
     ``device``: where rows given as numpy or array-likes are stored (to
     ``add``, ``add_moments``, the ``embeddings`` setter); resolved only when
@@ -85,8 +136,18 @@ class AudioMetricsData:
         self._chunks: list[torch.Tensor] = []
         self._emb: torch.Tensor | None = None
         self._pending: list[tuple[int, torch.Tensor, torch.Tensor]] = []
+        self._pending_lock = threading.RLock()
         self.cache: dict = {}  # per-object device caches (FAD Cholesky, KD Gram sums)
         self.radii: dict[str, torch.Tensor] = {}
+
+    def __getstate__(self) -> dict:
+        state = self.__dict__.copy()
+        del state["_pending_lock"]
+        return state
+
+    def __setstate__(self, state: dict) -> None:
+        self.__dict__.update(state)
+        self._pending_lock = threading.RLock()
 
     def __len__(self) -> int:
         """Row count, known without pulling pending device moments (the
@@ -115,9 +176,10 @@ class AudioMetricsData:
     def n(self) -> int | None:
         """Rows accumulated, pending device moments counted without a pull
         (their counts are host integers); None before any."""
-        if self._n is None and not self._pending:
-            return None
-        return (self._n or 0) + sum(n for n, _, _ in self._pending)
+        with self._pending_lock:
+            if self._n is None and not self._pending:
+                return None
+            return (self._n or 0) + sum(n for n, _, _ in self._pending)
 
     @n.setter
     def n(self, value) -> None:
@@ -132,7 +194,8 @@ class AudioMetricsData:
     def add_moments_device(self, n: int, s1: torch.Tensor, m2: torch.Tensor) -> None:
         """Queue a device moment triple; ``n`` is host-known."""
         if n > 0:
-            self._pending.append((int(n), s1, m2))
+            with self._pending_lock:
+                self._pending.append((int(n), s1, m2))
 
     def add_moments(self, n, s1, m2, embeddings=None) -> None:
         """Merge moments ``(n, sum_x, centered sum)`` (numpy or tensors of
@@ -150,9 +213,7 @@ class AudioMetricsData:
             self.add_embeddings(as_rows(embeddings, self.device))
 
     def _flush(self) -> None:
-        pending, self._pending = self._pending, []
-        for n, s1, m2 in pending:
-            self._merge(n, s1.double().cpu().numpy(), m2.double().cpu().numpy())
+        flush_pending_stats([self])
 
     def _merge(self, n: int, s1: np.ndarray, m2: np.ndarray) -> None:
         mean = s1 / n
@@ -181,11 +242,13 @@ class AudioMetricsData:
         e = self.embeddings
         if e is None:
             return
-        self._pending = []
+        with self._pending_lock:
+            self._pending = []
         self.radii = {}
         n, s1, m2 = batch_moments(e)
         self._mean, self._cov, self._n = None, None, None
-        self._merge(int(e.shape[0]), s1.double().cpu().numpy(), m2.double().cpu().numpy())
+        s1, m2 = pull((s1, m2))
+        self._merge(int(e.shape[0]), s1.astype(np.float64), m2.astype(np.float64))
 
     def chol_cov(self) -> np.ndarray | None:
         """f64 Cholesky factor of ``cov`` (cached by array identity), or None

@@ -159,20 +159,29 @@ def _ref_chol_device(ref: AudioMetricsData, l: np.ndarray, device) -> torch.Tens
     return l_dev
 
 
-def fad_device_tail(cand: AudioMetricsData, ref: AudioMetricsData,
-                    mode: str | None = None) -> float | None:
-    """FAD with the candidate's moments still on the device, its ``Tr
-    sqrt(M)`` as ``mode`` says (default ``AM_TPU_FAD_TAIL``, read at each
-    call, else ``nsdev``; the module docstring lists the modes).
+def fad_device_tail(cand: AudioMetricsData, ref: AudioMetricsData, mode: str | None = None):
+    """Dispatch the FAD tail with the candidate's moments still on the
+    device (audio_metrics_tpu/metrics/fad.py:205-258), its ``Tr sqrt(M)``
+    as ``mode`` says (default ``AM_TPU_FAD_TAIL``, read at each call, else
+    ``nsdev``; the module docstring lists the modes).
 
     Applies when ``cand`` holds exactly one pending device moment triple
     with n > d (full-rank covariance) and ``ref`` has a Cholesky factor,
     and ``mode`` is not ``host``; returns None otherwise (the caller takes
-    :func:`frechet_distance`).  ``cand``'s pending triple stays in place."""
+    :func:`frechet_distance`).  Else ``(device_arrays, finish,
+    defer_pull)``: ``finish`` maps the arrays pulled to the host
+    (``data.pull``) to the FAD float; ``defer_pull`` is True under
+    ``nsdev`` and ``eigdev``, whose arrays are small enough to ride the
+    caller's last pull, False under ``packed``, whose ``finish`` runs the
+    host ``eigvalsh`` of the pulled M.  Nothing waits for the card here;
+    ``cand``'s pending triple stays in place."""
     mode = _fad_tail_mode() if mode is None else mode
-    if mode == "host" or len(cand._pending) != 1:
+    if mode == "host":
         return None
-    n, s1, m2 = cand._pending[0]
+    with cand._pending_lock:
+        if len(cand._pending) != 1:
+            return None
+        n, s1, m2 = cand._pending[0]
     d = m2.shape[0]
     if n <= d:
         return None
@@ -185,19 +194,28 @@ def fad_device_tail(cand: AudioMetricsData, ref: AudioMetricsData,
         m = l_dev.T @ (c @ l_dev)
         m = 0.5 * (m + m.T)
         tr_x = torch.diagonal(c).double().sum()
-    if mode == "nsdev":
-        trsqrt = float(_ns_trace_sqrt_sym(m))
-    else:
-        if mode == "eigdev":
-            vals = torch.linalg.eigvalsh(m).double().cpu().numpy()
+        if mode == "nsdev":
+            third = _ns_trace_sqrt_sym(m)
+        elif mode == "eigdev":
+            third = torch.linalg.eigvalsh(m)
         else:  # "packed", and any value the JAX package does not name (fad.py:165-170)
-            vals = np.linalg.eigvalsh(m.double().cpu().numpy())
-        trsqrt = float(np.sqrt(np.clip(vals, 0.0, None)).sum())
-    mu_ref, cov_ref, _ = ref.stats()
-    mu_x = s1.double().cpu().numpy() / n
-    a = float(np.sum(np.square(mu_x - mu_ref)))
-    b = float(tr_x) + float(np.trace(cov_ref))
-    return a + b - 2.0 * trsqrt
+            third = m
+
+    def finish(host_arrays) -> float:
+        s1_h, tr_h, third_h = host_arrays
+        if mode == "nsdev":
+            trsqrt = float(third_h)
+        else:
+            vals = (np.asarray(third_h, np.float64) if mode == "eigdev" else
+                    np.linalg.eigvalsh(np.asarray(third_h, np.float64)))
+            trsqrt = float(np.sqrt(np.clip(vals, 0.0, None)).sum())
+        mu_ref, cov_ref, _ = ref.stats()
+        mu_x = np.asarray(s1_h, np.float64) / n
+        a = float(np.sum(np.square(mu_x - mu_ref)))
+        b = float(tr_h) + float(np.trace(cov_ref))
+        return a + b - 2.0 * trsqrt
+
+    return (s1, tr_x, third), finish, mode in ("nsdev", "eigdev")
 
 
 # ----------------------------------------------------------------------

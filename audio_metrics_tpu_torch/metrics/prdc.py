@@ -30,7 +30,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..data import AudioMetricsData, as_rows
+from ..data import AudioMetricsData, as_rows, pull
 from ..ops.distance import KNN_TILE, knn_radii, pairwise_stats
 from ..parallel.mesh import make_mesh
 
@@ -115,7 +115,8 @@ def prdc(reference: AudioMetricsData, candidate: AudioMetricsData, nearest_k: in
     device alone).  ``lazy`` (audio_metrics_tpu/metrics/prdc.py:350-447):
     ``True`` returns a callable that waits for the card and returns the
     dict, ``"parts"`` returns ``(device tensors, host_reduce)``,
-    ``host_reduce`` taking the tensors pulled to the host."""
+    ``host_reduce`` taking the tensors pulled to the host (``data.pull``:
+    one wait for the five)."""
     if not (reference.has_embeddings and candidate.has_embeddings):
         raise ValueError("PRDC needs the stored embeddings of both sets")
     key = f"radii_{nearest_k}"
@@ -142,6 +143,6 @@ def prdc(reference: AudioMetricsData, candidate: AudioMetricsData, nearest_k: in
         return arrays, host_reduce
 
     def finalize() -> dict:
-        return host_reduce(tuple(t.cpu().numpy() for t in arrays))
+        return host_reduce(pull(arrays))
 
     return finalize if lazy else finalize()

@@ -189,6 +189,17 @@ FAULTS = {
            "_ns_trace_sqrt_sym(0.5 * (m + m.T), NS_METHOD_ITERS)",
            "_ns_trace_sqrt_sym(0.5 * (m + m.T))",
            "FAD's newton_schulz method iterates AM_TPU_FAD_NS_ITERS times, not a fixed 30"),
+    "E1": ("audio_metrics_tpu_torch/metrics/kd.py", "return _finish(arrays, host_reduce, lazy)",
+           "return _finish(arrays, host_reduce, False)",
+           "kernel_distance drops lazy and returns the dict"),
+    "E2": ("audio_metrics_tpu_torch/audio_metrics.py", '            raise fad_out.pop("error")\n',
+           '            fad_out.pop("error")\n',
+           "the evaluate swallows the FAD thread's exception"),
+    "E3": ("audio_metrics_tpu_torch/audio_metrics.py",
+           "            pending.append(self._fad_inf_parts(cand, ref))\n",
+           "            arrays, reduce_fn = self._fad_inf_parts(cand, ref)\n"
+           "            pending.append(((), lambda _, a=arrays, f=reduce_fn: f(pull(a))))\n",
+           "FAD-inf's arrays are left out of the evaluate's one pull (pulled on their own)"),
 }
 # faults in Python code that the CPU tests run: tests/test_torch_faults.py
 # plants each in a module loaded beside the real one and runs the first
@@ -196,7 +207,7 @@ FAULTS = {
 # FAD-inf, 17 for the mesh, 18 for the public surface) would catch most of them too, after every kernel
 # phase, so they run here only when named
 CPU_FAULTS = ("V1", "H1", "P2", "D1", "U1", "K1", "A2", "F2", "S3", "W2", "S4", "S5", "S6",
-              "C1", "M1", "M2", "F3")
+              "C1", "M1", "M2", "F3", "E1", "E2", "E3")
 SKIP = ("build", ".git", "__pycache__", ".pytest_cache")
 
 

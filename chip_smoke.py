@@ -234,6 +234,21 @@ Phases, one status line each:
      exact launches (base: #1 6, merged #10 12, #9 12 a forward), finite
      metrics, self-FAD, embeddings against the plain path and within
      CONFIG_TOL["merged"] of the whole block, clips/s as a ratio to it.
+ 22. The evaluate tail (``phase_tail``; ``AudioMetrics.evaluate`` in the
+     JAX package's order: KD and PRDC dispatched as parts, FAD's host work
+     on a thread while they are pending, one pull, ``data.pull``), each
+     configuration against the parent's form of its tail (``parent_tail``:
+     the same functions one after another, each array pulled apart, KD's
+     indices uploaded anew): (a) phase 4's main path, (b) the default
+     configuration in f32 (phase 10's 256 + 256), (c) (a) over 4 shards of
+     card 0, (d) (a)'s clips through a full-rank seeded embedder (d = 512:
+     FAD's device tail, which the seeded CLAPs' rank-deficient covariances
+     decline): the host waits of one warm evaluate's tail counted with
+     ``torch.cuda.set_sync_debug_mode("warn")`` (1 in (a), (b), (d), else
+     the phase fails), the values bitwise the sequential calls on the same
+     candidate set, the tail's ms and wall minus device (medians of 3 warm
+     evaluates of each form, in turns); then a (512, 512) moment's pull,
+     whole and as the packed triangle.
 Phase 3 runs each kernel redesigned for Hopper on the wgmma core (the
 whole Swin block at every stage and shift, its v3, v1 and v2 attention
 halves and fused MLP, the three patch merges, the fused frontend, the two
@@ -283,6 +298,7 @@ import sys
 import tempfile
 import time
 import traceback
+import warnings
 from contextlib import contextmanager
 
 import numpy as np
@@ -1356,7 +1372,7 @@ def sass_check(lib_path: str) -> None:
 def phase_fad_tail():
     """nsdev device tail vs the host f64 path on full-rank moments
     (d=512, n=1024): rel 1e-5, the bound of tests/test_fad_device_tail.py."""
-    from audio_metrics_tpu_torch.data import AudioMetricsData, batch_moments
+    from audio_metrics_tpu_torch.data import AudioMetricsData, batch_moments, pull
     from audio_metrics_tpu_torch.metrics.fad import fad_device_tail, frechet_distance
 
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -1367,9 +1383,13 @@ def phase_fad_tail():
     ref.add_moments_device(1024, *batch_moments(ref_e)[1:])
     cand = AudioMetricsData()
     cand.add_moments_device(1024, *batch_moments(cand_e)[1:])
-    dev = fad_device_tail(cand, ref)
-    if dev is None:
+    tail = fad_device_tail(cand, ref)
+    if tail is None:
         raise AssertionError("FAD device tail did not apply to full-rank moments")
+    arrays, finish, defer = tail
+    if not defer:
+        raise AssertionError("the nsdev tail does not defer its pull")
+    dev = finish(pull(arrays))
     host = frechet_distance(cand, ref)
     rel = abs(dev - host) / abs(host)
     log(f"  fad nsdev device tail {dev:.8g} vs host f64 {host:.8g}: rel {rel:.3g} (tol 1e-5)")
@@ -2797,11 +2817,11 @@ def mesh_metrics(what: str, got: dict, want: dict, am, one) -> None:
         raise AssertionError(f"{what} disagrees with one device: {bad}")
 
 
-def trace_evaluate(am, candidate) -> str:
-    """One warm evaluate under ``torch.profiler``: its wall time, the
-    kernels' device time summed and as the union of their intervals (the
-    card's busy time: kernels of several streams overlap), the idle share
-    1 - busy / wall, as a printable string."""
+def traced_evaluate(am, candidate) -> dict:
+    """One warm evaluate under ``torch.profiler``: its wall time (ms), the
+    kernels' count and device time summed (``total``) and as the union of
+    their intervals (``busy``: the card's busy time; kernels of several
+    streams overlap)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -2812,14 +2832,28 @@ def trace_evaluate(am, candidate) -> str:
         wall = (time.perf_counter() - t0) * 1e3
     events = [ev for ev in prof.events()
               if ev.device_type == torch.autograd.DeviceType.CUDA and ev.device_time_total > 0]
-    total = sum(ev.device_time_total for ev in events) / 1e3
     busy, end = 0.0, float("-inf")
     for start, stop in sorted((ev.time_range.start, ev.time_range.end) for ev in events):
         busy += max(0.0, stop - max(start, end))
         end = max(end, stop)
-    busy /= 1e3
-    return (f"wall {wall:.1f} ms, {len(events)} kernels, device time {total:.1f} ms summed, "
-            f"{busy:.1f} ms busy (their union), idle share {1 - busy / wall:.3f}")
+    return dict(wall=wall, kernels=len(events), busy=busy / 1e3,
+                total=sum(ev.device_time_total for ev in events) / 1e3)
+
+
+def trace_evaluate(am, candidate) -> str:
+    """:func:`traced_evaluate` with its idle share 1 - busy / wall, as a
+    printable string."""
+    t = traced_evaluate(am, candidate)
+    return (f"wall {t['wall']:.1f} ms, {t['kernels']} kernels, device time {t['total']:.1f} ms "
+            f"summed, {t['busy']:.1f} ms busy (their union), idle share "
+            f"{1 - t['busy'] / t['wall']:.3f}")
+
+
+def stage_ms(am) -> str:
+    """``am.timings`` of the last evaluate in ms, every key in its order
+    (``finalize_pull``: the one pull, the card's drain; ``fad_overlapped``:
+    FAD's host work on its thread)."""
+    return ", ".join(f"{k} {v * 1e3:.3f} ms" for k, v in am.timings.items())
 
 
 def mesh_expected(forwards: int, knn: int, stats: int, **per_forward) -> dict:
@@ -2903,9 +2937,7 @@ def phase_mesh(card: str, params: dict) -> None:
     log(f"  {N_SHARDS} shards on card 0: {warm_evaluates(am, candidate, N_CLIPS)} [{card}]")
     log(f"  one device:    {warm_evaluates(one, candidate, N_CLIPS)} [{card}]")
     for what, a in ((f"{N_SHARDS} shards on card 0", am), ("one device", one)):
-        log(f"  host stage times of the last warm evaluate, {what}: " + ", ".join(
-            f"{k} {a.timings.get(k, float('nan')) * 1e3:.3f} ms"
-            for k in ("pipeline", "fad", "kd_dispatch", "prdc_dispatch")) + f" [{card}]")
+        log(f"  host stage times of the last warm evaluate, {what}: {stage_ms(a)} [{card}]")
     log(f"  traced evaluate, {N_SHARDS} shards on card 0: {trace_evaluate(am, candidate)}")
     log(f"  traced evaluate, one device:    {trace_evaluate(one, candidate)}")
 
@@ -4258,6 +4290,338 @@ def merged_kernels_alone() -> int:
     return 0
 
 
+# phase 22: the evaluate tail
+TAIL_RUNS = 3  # warm evaluates of each form, in turns, and as many traced
+
+
+class HostWaits:
+    """The host's waits for the card while counting: every call that
+    ``torch.cuda.set_sync_debug_mode("warn")`` reports as synchronizing (a
+    blocking copy between the card and pageable host memory, as
+    ``.cpu()`` and ``torch.tensor(array, device=...)`` make, ``.item()``,
+    a stream or device synchronize), each kept as the file and line of the
+    innermost frame in the repository that made it.  A wait that the mode
+    does not report (an event's synchronize, a free of the allocator's
+    cache) is not counted: the tails here make none."""
+
+    def __init__(self):
+        self.waits: list[str] = []
+
+    def __enter__(self):
+        self._catch = warnings.catch_warnings()
+        self._catch.__enter__()
+        warnings.simplefilter("always")
+        self._show, warnings.showwarning = warnings.showwarning, self._record
+        return self
+
+    def _record(self, message, category, filename, lineno, file=None, line=None):
+        if "synchronizing CUDA operation" in str(message):
+            root = os.path.dirname(os.path.abspath(__file__))
+            ours = [f for f in traceback.extract_stack()[:-1]
+                    if os.path.abspath(f.filename).startswith(root + os.sep)]
+            where = (os.path.relpath(ours[-1].filename, root), ours[-1].lineno) if ours else (
+                filename, lineno)
+            self.waits.append(f"{where[0]}:{where[1]}")
+        else:
+            self._show(message, category, filename, lineno, file, line)
+
+    def start(self) -> None:
+        torch.cuda.set_sync_debug_mode("warn")
+
+    def __exit__(self, *exc):
+        torch.cuda.set_sync_debug_mode("default")
+        self._catch.__exit__(*exc)
+
+
+def parent_tail(cand, ref, mesh, metrics) -> dict:
+    """The parent's evaluate tail on the port's functions, one after
+    another: FAD (the device tail, its three arrays pulled one by one; or
+    the float64 ``frechet_distance`` after the parent's flush, a pull of
+    each pending s1 and m2), then KD with its subset indices uploaded anew
+    (the parent's upload at every call; the cache is restored after) and
+    its three arrays pulled one by one, then PRDC's five.  The same
+    values as the one-wait tail, bitwise, on the same candidate set."""
+    from audio_metrics_tpu_torch.metrics import kd
+    from audio_metrics_tpu_torch.metrics.fad import fad_device_tail, frechet_distance
+    from audio_metrics_tpu_torch.metrics.prdc import prdc
+
+    def apart(arrays):
+        return [a.cpu().numpy() for a in arrays]
+
+    out = {}
+    if "fad" in metrics:
+        tail = fad_device_tail(cand, ref)
+        if tail is None:
+            with cand._pending_lock:
+                pending, cand._pending = cand._pending, []
+            for n, s1, m2 in pending:
+                cand._merge(n, s1.double().cpu().numpy(), m2.double().cpu().numpy())
+            out["fad"] = frechet_distance(cand, ref)
+        else:
+            out["fad"] = tail[1](apart(tail[0]))
+    if "kd" in metrics:
+        held = dict(kd._DEVICE_INDICES)
+        kd._DEVICE_INDICES.clear()
+        try:
+            arrays, reduce_fn = kd.kernel_distance(cand, ref, mesh=mesh, lazy="parts")
+        finally:
+            kd._DEVICE_INDICES.clear()
+            kd._DEVICE_INDICES.update(held)
+        out.update(reduce_fn(apart(arrays)))
+    if "prdc" in metrics:
+        arrays, reduce_fn = prdc(ref, cand, max(1, min(10, len(ref), len(cand))), mesh=mesh,
+                                 lazy="parts")
+        out.update(reduce_fn(apart(arrays)))
+    return out
+
+
+def tail_forms(am):
+    """``(one_wait, parent)``: ``am`` itself, its ``_run_pipeline`` wrapped
+    to keep its last output (``am.last``) and its seconds
+    (``am.pipeline_s``), and a second ``AudioMetrics`` on the same
+    embedder, reference and mesh whose ``evaluate`` runs the pipeline and
+    then :func:`parent_tail`.  ``on_tail`` of each, when set, is called
+    where its tail begins: after the one-wait form's flush of the other
+    categories (``data.flush_pending_stats``, which the JAX order puts in
+    the pipeline stage), after the parent form's pipeline."""
+    import audio_metrics_tpu_torch.audio_metrics as am_module
+    from audio_metrics_tpu_torch import AudioMetrics
+    from audio_metrics_tpu_torch.parallel.pipeline import ItemCategory
+
+    class ParentTail(AudioMetrics):
+        def evaluate(self, candidate) -> dict:
+            self.timings = {}
+            t0 = time.perf_counter()
+            out = self._run_pipeline(candidate, None)
+            self.timings["pipeline"] = time.perf_counter() - t0
+            if self.on_tail is not None:
+                self.on_tail()
+            t0 = time.perf_counter()
+            result = parent_tail(out[ItemCategory.stem], self.stem_reference, self.mesh,
+                                 self.metrics)
+            self.timings["finalize"] = time.perf_counter() - t0
+            return result
+
+    parent = ParentTail(metrics=am.metrics, embedder=am.embedder, win_dur=am.win_dur,
+                        input_sr=am.input_sr, batch_size=am.batch_size, device="cuda")
+    parent.mesh, parent.stem_reference = am.mesh, am.stem_reference
+    flush = am_module.flush_pending_stats
+    for form in (am, parent):
+        run = form._run_pipeline
+
+        def keep(*args, form=form, run=run, **kwargs):
+            t0 = time.perf_counter()
+            form.last = run(*args, **kwargs)
+            form.pipeline_s = time.perf_counter() - t0
+            return form.last
+
+        form._run_pipeline, form.on_tail = keep, None
+
+    def flush_then_tail(*args, **kwargs):
+        out = flush(*args, **kwargs)
+        if am.on_tail is not None:
+            am.on_tail()
+        return out
+
+    am_module.flush_pending_stats = flush_then_tail
+    return am, parent, lambda: setattr(am_module, "flush_pending_stats", flush)
+
+
+def tail_waits(form, candidate) -> tuple[list, list]:
+    """One warm evaluate of ``form`` under :class:`HostWaits`: the waits
+    of its whole evaluate, and those of its tail."""
+    with HostWaits() as waits:
+        mark = []
+
+        def on_tail():
+            mark.append(len(waits.waits))
+            waits.start()
+
+        form.on_tail = on_tail
+        try:
+            waits.start()
+            form.evaluate(candidate)
+        finally:
+            form.on_tail = None
+    return waits.waits, waits.waits[mark[0]:]
+
+
+def phase_tail_config(card: str, what: str, am, reference, candidate, gate) -> dict:
+    """Phase 22 on one configuration: ``am`` (its reference added here)
+    against the parent form of its tail (:func:`tail_forms`): the host
+    waits of one warm evaluate's tail in each form (the one-wait form's
+    must be 1 where ``gate``; with ``gate == "device tail"`` FAD must also
+    take the device tail), which FAD path ran and the reference
+    covariance's eigenvalue range, its values bitwise equal to
+    :func:`parent_tail`'s on the same candidate set, then TAIL_RUNS warm
+    evaluates of each form in turns (the tail's ms: the evaluate's wall
+    less its pipeline's) and as many traced (wall minus the card's busy
+    time), medians printed.  Returns the medians."""
+    from audio_metrics_tpu_torch.parallel.pipeline import ItemCategory
+
+    am.add_reference(reference)
+    new, parent, restore = tail_forms(am)
+    try:
+        for form in (new, parent, new, parent):  # first calls, then warm
+            form.evaluate(candidate)
+        counts = {}
+        for name, form in (("one-wait", new), ("parent", parent)):
+            every, tail = tail_waits(form, candidate)
+            counts[name] = len(tail)
+            log(f"  {what}, {name} form: {len(tail)} host waits in the tail "
+                f"{ {w: tail.count(w) for w in tail} }; {len(every)} in the whole evaluate "
+                f"{ {w: every.count(w) for w in every} } [{card}]")
+        log(f"  {what}: timings of the one-wait form's last evaluate: {stage_ms(new)} [{card}]")
+        on_card = "fad_overlapped" not in new.timings
+        vals = np.linalg.eigvalsh(am.stem_reference.cov)
+        log(f"  {what}: FAD took " + ("the device tail (nsdev), its arrays in the one pull"
+                                      if on_card else "the host float64 path on the thread")
+            + f"; the reference covariance's eigenvalues {vals[0]:.3g}..{vals[-1]:.3g}, "
+            f"Cholesky factor {'yes' if am.stem_reference.chol_cov() is not None else 'none'}")
+        if gate and counts["one-wait"] != 1:
+            raise AssertionError(f"{what}: the tail waits {counts['one-wait']} times, not once")
+        if gate == "device tail" and not on_card:
+            raise AssertionError(f"{what}: FAD did not take the device tail")
+        got = new.evaluate(candidate)
+        want = parent_tail(new.last[ItemCategory.stem], new.stem_reference, new.mesh,
+                           new.metrics)
+        same = got == want and list(got) == list(want)
+        log(f"  {what}: {got} {'bitwise equal to' if same else 'DIFFERS from'} the sequential "
+            f"calls on the same candidate set {want}")
+        if not same:
+            raise AssertionError(f"{what}: the one-wait tail differs from the sequential calls")
+        times = {"one-wait": [], "parent": []}
+        traced = {"one-wait": [], "parent": []}
+        for _ in range(TAIL_RUNS):
+            for name, form in (("one-wait", new), ("parent", parent)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                form.evaluate(candidate)
+                wall = time.perf_counter() - t0
+                torch.cuda.synchronize()
+                times[name].append((wall - form.pipeline_s) * 1e3)
+        for _ in range(TAIL_RUNS):
+            for name, form in (("one-wait", new), ("parent", parent)):
+                t = traced_evaluate(form, candidate)
+                traced[name].append(t["wall"] - t["busy"])
+    finally:
+        restore()
+    out = {}
+    for name in times:
+        out[name] = dict(waits=counts[name], tail_ms=float(np.median(times[name])),
+                         host_ms=float(np.median(traced[name])))
+        log(f"  {what}, {name} form: tail {out[name]['tail_ms']:.3f} ms (median of {TAIL_RUNS}: "
+            + ", ".join(f"{v:.3f}" for v in times[name]) + "), wall minus device "
+            f"{out[name]['host_ms']:.3f} ms (traced, median of {TAIL_RUNS}: "
+            + ", ".join(f"{v:.3f}" for v in traced[name]) + f") [{card}]")
+    return out
+
+
+def moment_pull_ms(card: str, d: int = 512) -> None:
+    """A (d, d) f32 moment's pull on the card, whole and as the packed
+    lower triangle the JAX package pulls (its data.py:89-152: gathered on
+    the device, then pulled), each by ``.cpu()`` (pageable) and through
+    ``data.pull`` (pinned, one stream wait), each the median of 20
+    host-clock readings from a synchronized start."""
+    from audio_metrics_tpu_torch.data import pull
+
+    m2 = torch.randn((d, d), device="cuda")
+    m2 = m2 @ m2.T
+    il = torch.tril_indices(d, d, device="cuda")
+
+    def ms(fn):
+        out = []
+        for _ in range(21):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(out[1:]))
+
+    whole, packed = ms(lambda: m2.cpu()), ms(lambda: m2[il[0], il[1]].cpu())
+    pulled, pulled_packed = ms(lambda: pull([m2])), ms(lambda: pull([m2[il[0], il[1]]]))
+    log(f"  a ({d}, {d}) f32 moment's pull: whole {whole:.4f} ms by .cpu(), {pulled:.4f} ms "
+        f"through data.pull ({d * d * 4} bytes); packed lower triangle {packed:.4f} ms by "
+        f".cpu(), {pulled_packed:.4f} ms through data.pull (gather + "
+        f"{d * (d + 1) // 2 * 4} bytes) [{card}]")
+
+
+class FullRankEmbedder:
+    """A seeded embedder whose embeddings have a full-rank covariance over
+    the smoke's clips (the seeded CLAP's have none in float64: phase 22
+    prints their eigenvalues), so that FAD takes the device tail:
+    ``tanh(frame @ W)`` over frames of ``frame`` samples, averaged over the
+    clip, W (frame, d) seeded at std 1/sqrt(frame); d = 512, CLAP's
+    width."""
+
+    sr = SR
+
+    def __init__(self, d: int = 512, frame: int = 1024, seed: int = 22):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        self.device = torch.device("cuda", torch.cuda.current_device())
+        self.w = torch.randn((frame, d), generator=gen, device="cuda") / frame ** 0.5
+
+    @torch.no_grad()
+    def embed(self, audio: torch.Tensor) -> torch.Tensor:
+        b, n = audio.shape
+        f = self.w.shape[0]
+        return torch.tanh(audio[:, : n // f * f].reshape(b, -1, f) @ self.w).mean(dim=1)
+
+
+def phase_tail(card: str, params: dict) -> None:
+    """Phase 22, the evaluate tail (``AudioMetrics.evaluate`` in the JAX
+    package's order: the FAD tail dispatched after the pipeline, KD, PRDC
+    dispatched as parts, FAD's host work on a thread while they are
+    pending, one pull), each configuration against the parent's form of
+    its tail (:func:`phase_tail_config`): (a) phase 4's main path (HTSAT-base
+    bf16, N_CLIPS + N_CLIPS 5 s clips, seed 3) and (b) the default
+    configuration (``laion_clap_music`` f32 from a checkpoint of
+    ``params``, N_CLIPS_F32 + N_CLIPS_F32, seed 11), each gated at one
+    host wait in the tail; (c) (a) over N_SHARDS shards on card 0 (FAD on
+    the host thread: four moment triples), printed; (d) (a)'s clips
+    through :class:`FullRankEmbedder`, where FAD takes the device tail
+    (nsdev, deferred into the one pull), gated at one wait.  Then a (512,
+    512) moment's pull, whole and packed (:func:`moment_pull_ms`)."""
+    from audio_metrics_tpu_torch import AudioMetrics
+    from audio_metrics_tpu_torch.models.clap import LaionCLAP
+    from audio_metrics_tpu_torch.models.htsat import HTSAT_BASE
+    from audio_metrics_tpu_torch.parallel.mesh import make_mesh
+
+    t22 = time.perf_counter()
+    metrics = ["fad", "kd", "prdc"]
+    clap = LaionCLAP(cfg=HTSAT_BASE, compute_dtype="bfloat16", allow_random_weights=True,
+                     device="cuda")
+    torch.cuda.empty_cache()
+    reference, candidate = clips(N_CLIPS, CLIP_S, seed=3)
+
+    def bf16(mesh=None):
+        am = AudioMetrics(metrics=metrics, embedder=clap, win_dur=float(CLIP_S), input_sr=SR,
+                          batch_size=BATCH, device="cuda")
+        if mesh is not None:
+            am.mesh = mesh
+        return am
+
+    phase_tail_config(card, "(a) HTSAT-base bf16, 2048 + 2048", bf16(), reference, candidate,
+                      gate=True)
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        write_clap_checkpoint(params, ckpt_dir)
+        with environ(AM_TPU_CKPT_DIR=ckpt_dir):
+            am = AudioMetrics(metrics=metrics, batch_size=BATCH, device="cuda")
+    ref_f32, cand_f32 = clips(N_CLIPS_F32, CLIP_S, seed=11)
+    phase_tail_config(card, f"(b) laion_clap_music f32, {N_CLIPS_F32} + {N_CLIPS_F32}", am,
+                      ref_f32, cand_f32, gate=True)
+    del am
+    mesh = make_mesh(devices=[torch.device("cuda", 0)] * N_SHARDS)
+    phase_tail_config(card, f"(c) (a) over {N_SHARDS} shards on card 0", bf16(mesh), reference,
+                      candidate, gate=False)
+    am = AudioMetrics(metrics=metrics, embedder=FullRankEmbedder(), win_dur=float(CLIP_S),
+                      input_sr=SR, batch_size=BATCH, device="cuda")
+    phase_tail_config(card, "(d) (a)'s clips, a full-rank seeded embedder (d = 512)", am,
+                      reference, candidate, gate="device tail")
+    moment_pull_ms(card)
+    log(f"  phase 22: {time.perf_counter() - t22:.1f} s [{card}]")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run", file=sys.stderr)
@@ -4366,6 +4730,9 @@ def main() -> int:
     log("phase 21 the merged one-window form of #10/#11 (AM_TPU_MERGED_ATTN: 256-token "
         "attention at stage 2), bf16 and f32, HTSAT-base and HTSAT-tiny")
     launches_merged = phase_merged(card, results, dense_lib)
+    log("phase 22 the evaluate tail: KD, PRDC dispatched as parts, FAD's host work on a thread, "
+        "one pull; bf16, f32 and 4 shards, each against the parent's form")
+    phase_tail(card, params)
 
     # launches: each kernel's count on the path that runs it
     path_of = {"log_mel": launches_10s, "swin_attn_v3": launches_split,

@@ -309,14 +309,16 @@ def test_pp_dummy_orders_aligned_above_shuffled():
     am.add_reference(_dummy_pairs(0, 40))
     good = am.evaluate(_dummy_pairs(1, 40))
     bad = am.evaluate(_dummy_pairs(2, 40, corr=False))
+    timings = list(am.timings)
     jam = _dummy_am(JaxAudioMetrics, metrics=["fad", "kd", "prdc", "apa"], mix_function="PP")
     jam.add_reference(jnp.asarray(_dummy_pairs(0, 40)))
     assert list(good) == list(jam.evaluate(jnp.asarray(_dummy_pairs(1, 40)))) == [
         "fad", "kernel_distance_mean", "kernel_distance_std", "precision", "recall",
         "density", "coverage", "apa"]
     assert good["apa"] > bad["apa"] + 0.2, (good, bad)
-    assert list(am.timings) == ["pipeline", "projection", "fad", "kd_dispatch", "prdc_dispatch",
-                                "finalize", "apa"]
+    assert timings == list(jam.timings)
+    assert timings[:2] == ["pipeline", "projection"] and timings[-2:] == ["finalize", "apa"]
+    assert "finalize_pull" in timings
 
 
 def test_add_reference_again_recomputes_d_x_xp():

@@ -27,7 +27,7 @@ from audio_metrics_tpu.data import AudioMetricsData as JaxData
 from audio_metrics_tpu.data import batch_moments as jax_batch_moments
 from audio_metrics_tpu.metrics import fad as jax_fad
 from audio_metrics_tpu_torch import AudioMetrics
-from audio_metrics_tpu_torch.data import AudioMetricsData, batch_moments
+from audio_metrics_tpu_torch.data import AudioMetricsData, batch_moments, pull
 from audio_metrics_tpu_torch.metrics import fad as port_fad
 from test_torch_options import SR, JaxProj, Proj, _clips
 
@@ -184,7 +184,9 @@ def test_fad_inf_unavailable_is_nan_with_a_warning(cause, match):
     with pytest.raises(port_fad.FadInfUnavailable, match=match):
         port_fad.fad_inf_parts(c, r)
     with pytest.warns(UserWarning, match=f"fad_inf and fad_inf_slope are nan: .*{match}"):
-        out = AudioMetrics._fad_inf(c, r)
+        arrays, reduce_fn = AudioMetrics._fad_inf_parts(c, r)
+    assert arrays == ()  # nothing to pull: the dispatch raised before the sweep
+    out = reduce_fn(pull(arrays))
     assert list(out) == ["fad_inf", "fad_inf_slope"] and all(np.isnan(v) for v in out.values())
 
 
@@ -215,7 +217,9 @@ def _port_tail(cand, ref):
     c = AudioMetricsData()
     _, s1, m2 = batch_moments(torch.from_numpy(cand))
     c.add_moments_device(len(cand), s1, m2)
-    return port_fad.fad_device_tail(c, _port_data(ref))
+    arrays, finish, defer = port_fad.fad_device_tail(c, _port_data(ref))
+    assert defer  # nsdev: the arrays ride the evaluate's last pull
+    return finish(pull(arrays))
 
 
 def test_ns_iters_variable_moves_the_device_tail_as_in_jax(monkeypatch):

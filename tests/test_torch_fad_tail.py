@@ -15,6 +15,8 @@ under ``AM_TPU_FAD_TAIL=host`` equals the float64 ``frechet_distance`` of
 its candidate's moments at rtol 1e-12.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -26,7 +28,7 @@ from audio_metrics_tpu.data import AudioMetricsData as JaxData
 from audio_metrics_tpu.metrics.fad import fad_device_tail as jax_fad_device_tail
 from audio_metrics_tpu.metrics.fad import frechet_distance as jax_frechet_distance
 from audio_metrics_tpu_torch import AudioMetrics
-from audio_metrics_tpu_torch.data import AudioMetricsData, batch_moments
+from audio_metrics_tpu_torch.data import AudioMetricsData, batch_moments, pull
 from audio_metrics_tpu_torch.metrics.fad import fad_device_tail, frechet_distance
 
 D, N = 64, 200
@@ -58,6 +60,18 @@ def _sets(jax_side: bool):
     return cand, ref
 
 
+def _port_tail(cand, ref, mode=None):
+    """The port's tail pulled and finished, or None where it declines;
+    ``defer_pull`` as the JAX function gives it for the mode."""
+    out = fad_device_tail(cand, ref, mode=mode)
+    if out is None:
+        return None
+    arrays, finish, defer = out
+    assert defer == ((mode or os.environ.get("AM_TPU_FAD_TAIL", "nsdev"))
+                     in ("nsdev", "eigdev"))
+    return finish(pull(arrays))
+
+
 def _jax_fad(mode):
     cand, ref = _sets(True)
     out = jax_fad_device_tail(cand, ref, mode=mode)
@@ -77,7 +91,7 @@ def test_tail_matches_jax(monkeypatch, mode, rtol):
     monkeypatch.setenv("AM_TPU_FAD_TAIL", mode)
     want_tail, want_host = _jax_fad(mode)
     cand, ref = _sets(False)
-    got = fad_device_tail(cand, ref)
+    got = _port_tail(cand, ref)
     assert len(cand._pending) == 1  # the candidate's triple stays in place
     if mode == "host":
         assert got is None and want_tail is None
@@ -87,7 +101,7 @@ def test_tail_matches_jax(monkeypatch, mode, rtol):
         want = want_tail
     assert np.isfinite(got) and got == pytest.approx(want, rel=rtol)
     if mode in ("packed", "eig"):  # float64 eigenvalues of the same f32 M: closer still
-        assert got == pytest.approx(fad_device_tail(*_sets(False), mode="packed"), rel=0)
+        assert got == pytest.approx(_port_tail(*_sets(False), mode="packed"), rel=0)
 
 
 class Proj:

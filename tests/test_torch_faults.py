@@ -194,6 +194,7 @@ def _first_check(name: str):
     import test_torch_options as options
     import test_torch_sharding as sharding
     import test_torch_surface as surface
+    import test_torch_tail as tail
     import test_torch_vggish as vggish
 
     return {
@@ -215,11 +216,15 @@ def _first_check(name: str):
         "M1": lambda mod: surface.check_pending_stats(mod.AudioMetricsData),
         "M2": lambda mod: surface.check_iadd_adopts_flag(mod.AudioMetricsData),
         "F3": lambda mod: surface.check_ns_method(mod.frechet_distance),
+        "E1": lambda mod: tail.check_kd_lazy(mod.kernel_distance),
+        "E2": tail.check_worker_error,
+        "E3": tail.check_one_pull,
     }[name]
 
 
 @pytest.mark.parametrize("name", ["V1", "H1", "P2", "D1", "U1", "K1", "A2", "F2", "S3", "W2",
-                                  "S4", "S5", "S6", "C1", "M1", "M2", "F3"])
+                                  "S4", "S5", "S6", "C1", "M1", "M2", "F3", "E1", "E2",
+                                  "E3"])
 def test_planted_python_fault_fails_its_first_check(name):
     """V1 (VGGish flattens NCHW) fails the f32 net against the JAX forward,
     H1 (the pipeline ignores ``hop_dur``) the windows against the JAX
@@ -239,13 +244,17 @@ def test_planted_python_fault_fails_its_first_check(name):
     off) the crops against the JAX ones, M1 (``mean`` without the pending
     merge) the stats of queued moments, M2 (``+=`` without the adopted
     flag) the merge into an empty accumulator, F3 (the NS method at
-    ``AM_TPU_FAD_NS_ITERS``) the method under that variable.  The same checks pass on the
+    ``AM_TPU_FAD_NS_ITERS``) the method under that variable; E1
+    (``kernel_distance`` drops ``lazy``) its return types against the JAX
+    function's, E2 (the FAD thread's exception swallowed) the exception
+    at the caller, E3 (FAD-inf's arrays pulled on their own) the one pull
+    of the evaluate.  The same checks pass on the
     real modules (their own tests in tests/test_torch_vggish.py,
     tests/test_torch_options.py, tests/test_torch_apa.py,
     tests/test_torch_loudness.py, tests/test_torch_fad_inf.py,
     tests/test_torch_hostfed.py, tests/test_torch_cli.py,
-    tests/test_torch_sharding.py, tests/test_torch_embedder_protocol.py and
-    tests/test_torch_surface.py)."""
+    tests/test_torch_sharding.py, tests/test_torch_embedder_protocol.py,
+    tests/test_torch_surface.py and tests/test_torch_tail.py)."""
     from audio_metrics_tpu_torch.plant_faults import CPU_FAULTS
 
     assert name in CPU_FAULTS

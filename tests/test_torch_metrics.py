@@ -11,7 +11,7 @@ from audio_metrics_tpu.metrics.kd import (
     kid_features_to_metric,
     mmd2 as jax_mmd2,
 )
-from audio_metrics_tpu_torch.data import AudioMetricsData, batch_moments
+from audio_metrics_tpu_torch.data import AudioMetricsData, batch_moments, pull
 from audio_metrics_tpu_torch.metrics.fad import fad_device_tail, frechet_distance
 from audio_metrics_tpu_torch.metrics.kd import _subset_indices, kernel_distance, mmd2
 
@@ -64,8 +64,11 @@ def test_fad_device_tail_matches_host_f64():
     c = AudioMetricsData()
     _, s1, m2 = batch_moments(torch.from_numpy(cand))
     c.add_moments_device(n, s1, m2)
-    got = fad_device_tail(c, _port_data(ref, True))
-    assert got is not None
+    tail = fad_device_tail(c, _port_data(ref, True))
+    assert tail is not None
+    arrays, finish, defer = tail
+    assert defer  # nsdev: the arrays ride the evaluate's last pull
+    got = finish(pull(arrays))
     assert got == pytest.approx(want, rel=1e-5)
     assert len(c._pending) == 1  # the candidate's moments stay pending
     # and the flushed f32 moments reproduce the f64 statistics

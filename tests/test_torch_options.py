@@ -162,24 +162,29 @@ def test_incremental_pca_matches_jax(rows):
 
 # -- timings ---------------------------------------------------------------------
 def test_timings_keys_after_evaluate():
-    """The port writes the JAX keys its evaluate has, each a wall time in
-    seconds; every one of them is a key the JAX package writes (KD and
-    PRDC dispatched; FAD on the host, n <= d)."""
+    """The port writes the JAX package's keys in its order for the same
+    configuration, each a wall time in seconds: ``fad`` + ``kd`` +
+    ``prdc`` with FAD on the host (n <= d): KD and PRDC dispatched, FAD's
+    host work on a thread while they are pending, one pull
+    (``finalize_pull``), the join (``fad_overlapped``); ``fad`` alone,
+    nothing pending: FAD inline, no pull."""
     ref, cand = _clips(1, 4, 1.0), _clips(2, 4, 1.0)
-    want_keys = set()
-    for metrics in (["fad", "kd", "prdc"], ["fad"]):
-        jam = JaxAudioMetrics(metrics=metrics, embedder=JaxProj(), win_dur=1.0,
+    want = {("fad", "kd", "prdc"): ["pipeline", "projection", "kd_dispatch", "prdc_dispatch",
+                                    "finalize_pull", "fad_overlapped", "finalize"],
+            ("fad",): ["pipeline", "projection", "fad", "finalize"]}
+    for metrics, keys in want.items():
+        jam = JaxAudioMetrics(metrics=list(metrics), embedder=JaxProj(), win_dur=1.0,
                               device_indices=[0])
         jam.add_reference(jnp.asarray(ref))
         jam.evaluate(jnp.asarray(cand))
-        want_keys |= set(jam.timings)
-    am = AudioMetrics(metrics=["fad", "kd", "prdc"], embedder=Proj(), win_dur=1.0, device="cpu")
-    am.add_reference(ref)
-    am.evaluate(cand)
-    keys = {"pipeline", "projection", "fad", "kd_dispatch", "prdc_dispatch", "finalize"}
-    assert set(am.timings) == keys and keys <= want_keys
-    assert all(v >= 0 for v in am.timings.values())
-    assert am.timings["finalize"] >= am.timings["fad"] + am.timings["kd_dispatch"]
+        am = AudioMetrics(metrics=list(metrics), embedder=Proj(), win_dur=1.0, device="cpu")
+        am.add_reference(ref)
+        am.evaluate(cand)
+        assert list(am.timings) == list(jam.timings) == keys
+        assert all(v >= 0 for v in am.timings.values())
+        if "finalize_pull" in keys:
+            assert am.timings["finalize"] >= am.timings["fad_overlapped"]
+            assert am.timings["fad_overlapped"] >= am.timings["finalize_pull"]
 
 
 # -- precompile ------------------------------------------------------------------
